@@ -1,0 +1,480 @@
+"""Continuous-batching serving engine over the paged KV pool (PyTorch).
+
+Port of ``photonic_flash_attention_tpu/core/serving.py`` for one device and
+the GPT-2 family:
+
+* sequences join the running batch as soon as a slot and pages are free
+  (admission), leave on EOS/max-tokens (retirement), pages are recycled;
+* prefills run per sequence, right-padded to power-of-two buckets, through
+  the flash forward (kernel K1);
+* a decode window runs up to ``decode_window`` decode steps over a fixed
+  slot batch (kernels K2 and K3 in every layer) with argmax or sampling on
+  the device; tokens reach the host once per window. Inactive slots write
+  to the reserved trash page 0 and attend over nothing.
+
+The JAX window is one compiled ``lax.scan``; here it is a Python loop of
+eager steps (a CUDA graph is later work). Not in this slice, each raising
+``NotImplementedError`` that names its ROADMAP item: the mesh (A12),
+chunked prefill (A5), Llama and T5 adapters (A8, A10), save/restore (A13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.gpt2 import GPT2Config
+from ..models.gpt2_serving import KVPages, decode_step, prefill_step, prepare_params
+from ..ops.paged import POOL_DTYPES
+from ..utils.exceptions import KVCacheError
+from .native_sched import make_scheduler
+
+_TRASH_PAGE = 0  # page 0 is never allocated; padded/inactive writes land here
+_KV_NAMES = {torch.int8: "int8", torch.bfloat16: "bf16", torch.float32: "fp32"}
+
+
+class _PyPageAllocator:
+    """Page allocator; page 0 reserved as trash."""
+
+    def __init__(self, num_pages: int, page_size: int, max_pages_per_seq: int) -> None:
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.max_pages_per_seq = max_pages_per_seq
+        self._free = list(range(num_pages - 1, 0, -1))
+        self._pages: Dict[int, List[int]] = {}
+        self._next = 0
+
+    def _reserve(self, pages: List[int], total_tokens: int) -> None:
+        need = -(-total_tokens // self.page_size) - len(pages)
+        if need <= 0:
+            return
+        if len(pages) + need > self.max_pages_per_seq:
+            raise KVCacheError("request exceeds max_pages_per_seq")
+        if need > len(self._free):
+            raise KVCacheError("KV cache out of pages")
+        for _ in range(need):
+            pages.append(self._free.pop())
+
+    def allocate_sequence(self, reserve_tokens: int = 0) -> int:
+        pages: List[int] = []
+        if reserve_tokens:
+            self._reserve(pages, reserve_tokens)
+        sid = self._next
+        self._next += 1
+        self._pages[sid] = pages
+        return sid
+
+    def free_sequence(self, sid: int) -> None:
+        self._free.extend(self._pages.pop(sid))
+
+    def page_ids(self, sid: int) -> List[int]:
+        return list(self._pages[sid])
+
+    def stats(self) -> Dict[str, int]:
+        used = self.num_pages - 1 - len(self._free)
+        return {"pages_used": used, "pages_free": len(self._free)}
+
+
+@dataclasses.dataclass
+class _Sequence:
+    seq_id: int
+    tokens: List[int]  # full token history (prompt + generated)
+    prompt_len: int
+    max_new_tokens: int
+    page_ids: List[int] = dataclasses.field(default_factory=list)
+    alloc_id: Optional[int] = None  # allocator-side sequence handle
+    slot: Optional[int] = None  # decode batch slot
+    priority: int = 0
+    prefilled: int = 0  # prompt tokens whose KV is already cached
+    done: bool = False
+    submitted_at: float = dataclasses.field(default_factory=time.time)
+    finished_at: Optional[float] = None
+
+    @property
+    def length(self) -> int:
+        return len(self.tokens)
+
+    @property
+    def new_tokens(self) -> int:
+        return self.length - self.prompt_len
+
+
+class ServingEngine:
+    """Single-device continuous batching (GPT-2 family).
+
+    ``params`` is a ``models.gpt2.GPT2LMHead`` state_dict; the engine keeps
+    its own copy on ``device``, cast once to the serving dtypes."""
+
+    ADMIT_SKIP_AHEAD = 4
+
+    def __init__(
+        self,
+        cfg,
+        params: Mapping[str, torch.Tensor],
+        *,
+        device: Any = "cpu",
+        num_pages: int = 128,
+        page_size: int = 128,
+        max_batch: int = 8,
+        max_pages_per_seq: int = 64,
+        kv_dtype: torch.dtype = torch.bfloat16,
+        eos_token_id: Optional[int] = None,
+        decode_window: int = 64,
+        prefill_chunk: Optional[int] = None,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        seed: int = 0,
+        mesh=None,
+        admission: str = "fifo",
+    ) -> None:
+        if not isinstance(cfg, GPT2Config):
+            raise NotImplementedError(
+                f"no serving adapter for {type(cfg).__name__} yet "
+                "(Llama: ROADMAP A8, T5: ROADMAP A10)"
+            )
+        if mesh is not None:
+            raise NotImplementedError("sharded serving is ROADMAP A12")
+        if prefill_chunk is not None:
+            raise NotImplementedError("chunked prefill is ROADMAP A5")
+        if admission not in ("fifo", "best-fit"):
+            raise ValueError(f"admission must be 'fifo' or 'best-fit', got {admission!r}")
+        if kv_dtype not in POOL_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {POOL_DTYPES}, got {kv_dtype}")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.params = prepare_params(params, cfg, self.device)
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.max_batch = max_batch
+        self.max_pages_per_seq = max_pages_per_seq
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype == torch.int8
+        self.eos_token_id = eos_token_id
+        self.admission = admission
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self._sample_seed = int(seed)
+        self.decode_window = max(1, decode_window)
+        self.pages = KVPages.create(cfg, num_pages, page_size, kv_dtype, self.device)
+        self._alloc = _PyPageAllocator(num_pages, page_size, max_pages_per_seq)
+        self._slots: List[Optional[int]] = [None] * max_batch  # slot -> seq_id
+        self._sequences: Dict[int, _Sequence] = {}
+        self._sched = make_scheduler()
+        self._next_id = 0
+        self._dev_tables: Optional[torch.Tensor] = None
+        self._tables_dirty = True
+        # stats
+        self._prefill_tokens = 0
+        self._decode_tokens = 0
+        self._prefill_time = 0.0
+        self._decode_time = 0.0
+        self._steps = 0
+        # Decode steps ever sampled. It seeds the sampling generators and is
+        # never reset: reset_performance_stats() must not replay a sampling
+        # stream (the JAX engine seeds its keys from _steps, which that
+        # reset zeroes).
+        self._sample_steps = 0
+
+    # -- admission ---------------------------------------------------------
+
+    def submit(
+        self, prompt_ids: Sequence[int], max_new_tokens: int = 16, priority: int = 0
+    ) -> int:
+        """Queue a request. Higher ``priority`` admits first; FIFO within a
+        priority level."""
+        needed = len(prompt_ids) + max_new_tokens
+        if needed > self.max_pages_per_seq * self.page_size:
+            raise KVCacheError("request exceeds max sequence capacity")
+        if needed > self.cfg.n_positions:
+            raise KVCacheError(
+                f"request needs {needed} positions; the model has {self.cfg.n_positions}"
+            )
+        seq = _Sequence(
+            seq_id=self._next_id,
+            tokens=list(map(int, prompt_ids)),
+            prompt_len=len(prompt_ids),
+            max_new_tokens=max_new_tokens,
+            priority=priority,
+        )
+        self._next_id += 1
+        self._sequences[seq.seq_id] = seq
+        self._sched.submit(seq.seq_id, priority)
+        return seq.seq_id
+
+    def cancel(self, seq_id: int) -> bool:
+        """Drop a still-waiting request (admitted ones run to term)."""
+        if self._sched.cancel(seq_id):
+            self._sequences.pop(seq_id, None)
+            return True
+        return False
+
+    def _pages_needed(self, tokens: int) -> int:
+        return -(-tokens // self.page_size)
+
+    def _total_tokens(self, seq: _Sequence) -> int:
+        return seq.prompt_len + seq.max_new_tokens
+
+    def _pick_admittable(self) -> Optional[int]:
+        """Next sequence to admit under the configured policy."""
+        head = self._sched.peek()
+        if head is None:
+            return None
+        if self.admission == "fifo":
+            return head
+        for sid in self._sched.waiting_ids()[: self.ADMIT_SKIP_AHEAD + 1]:
+            need = self._pages_needed(self._total_tokens(self._sequences[sid]))
+            if need <= self._alloc.stats()["pages_free"]:
+                return sid
+        return head  # nothing fits; report the head (admission will stall)
+
+    def _try_admit(self) -> None:
+        """Move waiting sequences into free slots when pages suffice."""
+        for slot in range(self.max_batch):
+            if self._slots[slot] is not None:
+                continue
+            sid = self._pick_admittable()
+            if sid is None:
+                break
+            seq = self._sequences[sid]
+            try:
+                seq.alloc_id = self._alloc.allocate_sequence(self._total_tokens(seq))
+            except KVCacheError:
+                break  # nothing admittable; wait for pages
+            self._sched.pop(sid)
+            seq.page_ids = self._alloc.page_ids(seq.alloc_id)
+            seq.slot = slot
+            self._slots[slot] = sid
+            self._tables_dirty = True
+            self._prefill(seq)
+
+    def _flat_slot(self, seq: _Sequence, token_idx: int) -> int:
+        page = seq.page_ids[token_idx // self.page_size]
+        return page * self.page_size + token_idx % self.page_size
+
+    # -- prefill -----------------------------------------------------------
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        return max(16, 1 << (n - 1).bit_length())
+
+    def _prefill(self, seq: _Sequence) -> None:
+        s_pad = self._bucket(seq.prompt_len)
+        ids = np.zeros((1, s_pad), np.int64)
+        ids[0, : seq.prompt_len] = seq.tokens[: seq.prompt_len]
+        slots = np.full((1, s_pad), _TRASH_PAGE * self.page_size, np.int32)
+        for i in range(seq.prompt_len):
+            slots[0, i] = self._flat_slot(seq, i)
+        t0 = time.perf_counter()
+        logits = prefill_step(
+            self.params,
+            self.cfg,
+            torch.from_numpy(ids).to(self.device),
+            torch.tensor([seq.prompt_len], device=self.device),
+            self.pages,
+            torch.from_numpy(slots).to(self.device),
+            self.quantized,
+        )
+        token = self._pick_token(logits[0], seq)  # waits for the device
+        self._prefill_time += time.perf_counter() - t0
+        self._prefill_tokens += seq.prompt_len
+        seq.prefilled = seq.prompt_len
+        self._append_token(seq, token)
+
+    def _generator(self, *salt: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(hash((self._sample_seed,) + salt) & 0x7FFF_FFFF_FFFF_FFFF)
+        return gen
+
+    def _sample(self, logits: torch.Tensor, gen: Optional[torch.Generator]) -> torch.Tensor:
+        """(B, V) logits -> (B,) tokens on the device: argmax at temperature
+        0, else temperature (+ top-k) sampling from ``gen``."""
+        if self.temperature <= 0:
+            return torch.argmax(logits, dim=-1)
+        lg = logits / max(self.temperature, 1e-6)
+        if self.top_k:
+            kth = torch.topk(lg, self.top_k, dim=-1).values[:, -1:]
+            lg = lg.masked_fill(lg < kth, -1e30)
+        return torch.multinomial(torch.softmax(lg, dim=-1), 1, generator=gen)[:, 0]
+
+    def _pick_token(self, logits_row: torch.Tensor, seq: _Sequence) -> int:
+        """Sample/argmax one token from (V,) logits (prefill boundary)."""
+        gen = self._generator(0, seq.seq_id) if self.temperature > 0 else None
+        return int(self._sample(logits_row[None], gen)[0])
+
+    def _append_token(self, seq: _Sequence, token: int) -> None:
+        seq.tokens.append(token)
+        if seq.new_tokens >= seq.max_new_tokens or (
+            self.eos_token_id is not None and token == self.eos_token_id
+        ):
+            self._retire(seq)
+
+    def _retire(self, seq: _Sequence) -> None:
+        seq.done = True
+        seq.finished_at = time.time()
+        if seq.slot is not None:
+            self._slots[seq.slot] = None
+            seq.slot = None
+            self._tables_dirty = True
+        if seq.alloc_id is not None:
+            self._alloc.free_sequence(seq.alloc_id)
+            seq.alloc_id = None
+        seq.page_ids = []
+
+    # -- decode ------------------------------------------------------------
+
+    def _window_steps(self, active: List[int]) -> int:
+        """Effective window: largest power of two <= every active
+        sequence's remaining budget, capped at ``decode_window`` (so no
+        sequence writes KV past its allocated pages mid-window)."""
+        budget = min(
+            self._sequences[sid].max_new_tokens - self._sequences[sid].new_tokens
+            for sid in active
+        )
+        w = max(1, min(self.decode_window, budget))
+        return 1 << (w.bit_length() - 1)
+
+    def _ready(self, seq: _Sequence) -> bool:
+        """Prefill complete and first token sampled: in the decode batch."""
+        return seq.new_tokens > 0 and not seq.done
+
+    def step(self) -> int:
+        """One scheduler iteration: admit (prefilling each newcomer), then
+        run one decode window over every ready slot. Returns the number of
+        sequences decoded."""
+        self._try_admit()
+        active = [
+            sid for sid in self._slots
+            if sid is not None and self._ready(self._sequences[sid])
+        ]
+        if not active:
+            return 0
+
+        b = self.max_batch
+        n_steps = self._window_steps(active)
+        host = np.zeros((3, b), np.int32)  # ids / positions / lengths
+        for slot in range(b):
+            sid = self._slots[slot]
+            if sid is None or not self._ready(self._sequences[sid]):
+                continue  # length 0: attends over nothing; writes land in trash
+            seq = self._sequences[sid]
+            # The model consumes the LAST token (already appended) and
+            # writes its K/V at position length-1.
+            host[0, slot] = seq.tokens[seq.length - 1]
+            host[1, slot] = seq.length - 1
+            host[2, slot] = seq.length
+        # Page tables change only at admission/retirement. Stale rows after
+        # retirement MUST be zeroed or an empty slot would keep writing its
+        # trash token into pages recycled to a new sequence.
+        if self._dev_tables is None or self._tables_dirty:
+            tables = np.zeros((b, self.max_pages_per_seq), np.int32)
+            for slot in range(b):
+                sid = self._slots[slot]
+                if sid is None or not self._ready(self._sequences[sid]):
+                    continue
+                seq = self._sequences[sid]
+                tables[slot, : len(seq.page_ids)] = seq.page_ids
+            self._dev_tables = torch.from_numpy(tables).to(self.device)
+            self._tables_dirty = False
+        tables = self._dev_tables
+
+        state = torch.from_numpy(host).to(self.device)
+        ids, pos, lens = state[0], state[1], state[2]
+        rows = torch.arange(b, device=self.device)
+        gen = self._generator(1, self._sample_steps) if self.temperature > 0 else None
+        last_col = self.max_pages_per_seq - 1
+        t0 = time.perf_counter()
+        toks = []
+        for _ in range(n_steps):
+            # Flat slot of the token being consumed (written at pos); empty
+            # slots map to the zeroed table row, i.e. the trash page.
+            page_col = (pos // self.page_size).clamp(max=last_col).long()
+            flat = (tables[rows, page_col] * self.page_size + pos % self.page_size).int()
+            logits = decode_step(
+                self.params, self.cfg, ids, pos, self.pages, flat, lens, tables,
+                self.quantized,
+            )
+            ids = self._sample(logits, gen)
+            toks.append(ids)
+            pos = pos + 1
+            lens = lens + (lens > 0).int()  # empty slots stay at length 0
+        toks = torch.stack(toks).cpu().numpy()  # (n_steps, B); waits for the device
+        self._decode_time += time.perf_counter() - t0
+        self._steps += n_steps
+        if self.temperature > 0:
+            self._sample_steps += n_steps
+
+        for step_i in range(n_steps):
+            for slot in range(b):
+                sid = self._slots[slot]
+                if sid is None:
+                    continue
+                seq = self._sequences[sid]
+                if seq.done or seq.new_tokens == 0:
+                    continue  # EOS mid-window: discard
+                self._append_token(seq, int(toks[step_i, slot]))
+                self._decode_tokens += 1
+        return len(active)
+
+    # -- high level ---------------------------------------------------------
+
+    def generate(
+        self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 16
+    ) -> List[List[int]]:
+        """Blocking batch generation."""
+        sids = [self.submit(p, max_new_tokens) for p in prompts]
+        while any(not self._sequences[s].done for s in sids):
+            if self.step() == 0 and any(not self._sequences[s].done for s in sids):
+                # nothing active but work remains -> admission is stuck
+                raise KVCacheError("scheduler stalled: not enough pages")
+        return [self._sequences[s].tokens[self._sequences[s].prompt_len :] for s in sids]
+
+    def save(self, path: str) -> None:
+        raise NotImplementedError("serving checkpoints are ROADMAP A13")
+
+    @classmethod
+    def restore(cls, path: str, cfg, params) -> "ServingEngine":
+        raise NotImplementedError("serving checkpoints are ROADMAP A13")
+
+    # -- stats ---------------------------------------------------------------
+
+    def status(self) -> Dict:
+        return {
+            "active": sum(1 for s in self._slots if s is not None),
+            "waiting": len(self._sched),
+            "finished": sum(1 for s in self._sequences.values() if s.done),
+            "pages_free": self._alloc.stats()["pages_free"],
+            "pages_total": self.num_pages - 1,
+            "allocator": type(self._alloc).__name__,
+            "scheduler": type(self._sched).__name__,
+            "queue": self._sched.stats(),
+            "kv_dtype": _KV_NAMES[self.kv_dtype],
+        }
+
+    def reset_performance_stats(self) -> None:
+        """Zero the token/time counters (NOT the sequence/page state, and
+        not the sampling counter)."""
+        self._prefill_tokens = 0
+        self._decode_tokens = 0
+        self._prefill_time = 0.0
+        self._decode_time = 0.0
+        self._steps = 0
+
+    def get_performance_stats(self) -> Dict:
+        return {
+            "prefill_tokens": self._prefill_tokens,
+            "decode_tokens": self._decode_tokens,
+            "decode_steps": self._steps,
+            "prefill_time": self._prefill_time,
+            "decode_time": self._decode_time,
+            "prefill_tokens_per_s": (
+                self._prefill_tokens / self._prefill_time if self._prefill_time else 0.0
+            ),
+            "decode_tokens_per_s": (
+                self._decode_tokens / self._decode_time if self._decode_time else 0.0
+            ),
+            **self.status(),
+        }

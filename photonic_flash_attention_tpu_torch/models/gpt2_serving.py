@@ -1,0 +1,194 @@
+"""GPT-2 serving steps over the paged KV pool (PyTorch).
+
+Port of ``photonic_flash_attention_tpu/models/gpt2_serving.py``:
+
+* :func:`prefill_step` — full-prompt forward with the flash forward (K1),
+  writing every token's K/V into the sequence's pages (plain-torch scatter,
+  as the JAX package leaves it to XLA);
+* :func:`decode_step` — one token per sequence: QKV projection, then per
+  layer the paged token write (K2) and paged decode attention (K3).
+
+JAX threads the pool through ``lax.scan`` as a carry and returns it; here
+both steps are a Python loop over layers and update the pool IN PLACE, so
+they return only the logits.
+
+The per-token int8 quantization (the JAX ``_quant_tokens``) is
+``ops/paged.py::_quant_token_write``.
+
+Pool layout (all layers in one tensor), token-major for 16-byte loads
+along D (see ``ops/paged.py``):
+  k/v: (L, Hkv, num_pages, page_size, D)
+  k_scales/v_scales: (L, Hkv, num_pages, page_size) fp32 (int8 pools)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.flash_unrolled import flash_attention_best
+from ..ops.paged import paged_decode_attention, paged_token_write_plain
+from .gpt2 import GPT2Config
+
+#: dense layer -> its parent module in the GPT2LMHead state_dict.
+_DENSE = {
+    "q_proj": "attn", "k_proj": "attn", "v_proj": "attn", "out_proj": "attn",
+    "c_fc": "mlp", "c_proj": "mlp",
+}
+
+
+@dataclasses.dataclass
+class KVPages:
+    """Device-side paged KV store for all layers."""
+
+    k: torch.Tensor  # (L, Hkv, P, page, D)
+    v: torch.Tensor
+    k_scales: Optional[torch.Tensor]  # (L, Hkv, P, page) or None
+    v_scales: Optional[torch.Tensor]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scales is not None
+
+    @staticmethod
+    def create(
+        cfg: GPT2Config, num_pages: int, page_size: int,
+        dtype: torch.dtype = torch.bfloat16, device: Any = "cpu",
+    ) -> "KVPages":
+        head_dim = cfg.n_embd // cfg.n_head
+        shape = (cfg.n_layer, cfg.n_head, num_pages, page_size, head_dim)
+        quant = dtype == torch.int8
+        sshape = shape[:4]
+        return KVPages(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            k_scales=torch.ones(sshape, device=device) if quant else None,
+            v_scales=torch.ones(sshape, device=device) if quant else None,
+        )
+
+
+def prepare_params(
+    state_dict: Mapping[str, torch.Tensor], cfg: GPT2Config, device: Any
+) -> Dict[str, Any]:
+    """``GPT2LMHead`` state_dict -> serving weights on ``device``, cast once:
+    embeddings and dense weights in ``cfg.dtype`` (the JAX step casts them
+    inside every call), LayerNorm parameters in float32."""
+
+    def w(name, dtype=cfg.dtype):
+        return state_dict[name].to(device=device, dtype=dtype)
+
+    layers = []
+    for i in range(cfg.n_layer):
+        pre = f"h.{i}."
+        layer = {
+            ln: (w(f"{pre}{ln}.weight", torch.float32), w(f"{pre}{ln}.bias", torch.float32))
+            for ln in ("ln_1", "ln_2")
+        }
+        for name, group in _DENSE.items():
+            layer[name] = (w(f"{pre}{group}.{name}.weight"), w(f"{pre}{group}.{name}.bias"))
+        layers.append(layer)
+    return {
+        "wte": w("wte"),
+        "wpe": w("wpe"),
+        "ln_f": (w("ln_f.weight", torch.float32), w("ln_f.bias", torch.float32)),
+        "layers": layers,
+    }
+
+
+def _layer_norm(x: torch.Tensor, wb: Tuple[torch.Tensor, torch.Tensor], eps: float):
+    """Float32 LayerNorm, cast back to x's dtype (as the JAX ``_layer_norm``)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    return ((xf - mean) * torch.rsqrt(var + eps) * wb[0] + wb[1]).to(x.dtype)
+
+
+def _dense(x: torch.Tensor, wb: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    return F.linear(x, wb[0], wb[1])
+
+
+def _decode_write(pages: KVPages, kh, vh, flat_slots, lyr: int) -> None:
+    """Token write into the full multi-layer pool, in place: the plain
+    scatter (``index_put_``) that the JAX package leaves to XLA."""
+    paged_token_write_plain(
+        kh, vh, pages.k, pages.v, pages.k_scales, pages.v_scales, flat_slots, lyr
+    )
+
+
+def _embed(params, input_ids, positions) -> torch.Tensor:
+    return params["wte"][input_ids.long()] + params["wpe"][positions.long()]
+
+
+def _mlp(x, p, eps):
+    h2 = _layer_norm(x, p["ln_2"], eps)
+    m = F.gelu(_dense(h2, p["c_fc"]), approximate="tanh")
+    return x + _dense(m, p["c_proj"])
+
+
+@torch.no_grad()
+def prefill_step(
+    params: Dict[str, Any],
+    cfg: GPT2Config,
+    input_ids: torch.Tensor,  # (B, S) right-padded with 0
+    prompt_lengths: torch.Tensor,  # (B,)
+    pages: KVPages,
+    flat_slots: torch.Tensor,  # (B, S) int32 flat page slots (trash past len)
+    quantized: bool,
+) -> torch.Tensor:
+    """Prompt forward + cache fill (pool updated in place). Returns the
+    last real token's logits (B, V) float32."""
+    b, s = input_ids.shape
+    h, d = cfg.n_head, cfg.n_embd // cfg.n_head
+    eps = cfg.layer_norm_epsilon
+    positions = torch.arange(s, device=input_ids.device)[None]
+    x = _embed(params, input_ids, positions)
+    slots = flat_slots.reshape(b * s)
+    for lyr, p in enumerate(params["layers"]):
+        h_in = _layer_norm(x, p["ln_1"], eps)
+        qh = _dense(h_in, p["q_proj"]).reshape(b, s, h, d)
+        kh = _dense(h_in, p["k_proj"]).reshape(b, s, h, d)
+        vh = _dense(h_in, p["v_proj"]).reshape(b, s, h, d)
+        _decode_write(pages, kh.reshape(b * s, h, d), vh.reshape(b * s, h, d), slots, lyr)
+        attn = flash_attention_best(qh, kh, vh, causal=True).reshape(b, s, h * d)
+        x = _mlp(x + _dense(attn, p["out_proj"]), p, eps)
+    x = _layer_norm(x, params["ln_f"], eps)
+    idx = (prompt_lengths.to(x.device).long() - 1).clamp(0, s - 1)
+    x_last = x[torch.arange(b, device=x.device), idx]
+    return (x_last @ params["wte"].T).float()
+
+
+@torch.no_grad()
+def decode_step(
+    params: Dict[str, Any],
+    cfg: GPT2Config,
+    input_ids: torch.Tensor,  # (B,) current token per sequence
+    positions: torch.Tensor,  # (B,) position of that token
+    pages: KVPages,
+    flat_slots: torch.Tensor,  # (B,) int32 flat slot for the new token
+    lengths: torch.Tensor,  # (B,) int32 cache length AFTER this token
+    page_tables: torch.Tensor,  # (B, pages_per_seq) int32
+    quantized: bool,
+) -> torch.Tensor:
+    """One decode token per sequence (pool updated in place). Returns
+    logits (B, V) float32."""
+    b = input_ids.shape[0]
+    h, d = cfg.n_head, cfg.n_embd // cfg.n_head
+    eps = cfg.layer_norm_epsilon
+    x = _embed(params, input_ids, positions)  # (B, E)
+    for lyr, p in enumerate(params["layers"]):
+        h_in = _layer_norm(x, p["ln_1"], eps)
+        q = _dense(h_in, p["q_proj"]).reshape(b, h, d).float()
+        kh = _dense(h_in, p["k_proj"]).reshape(b, h, d)
+        vh = _dense(h_in, p["v_proj"]).reshape(b, h, d)
+        attn = paged_decode_attention(
+            q, kh, vh, pages.k, pages.v, lengths, page_tables, flat_slots, lyr,
+            pages.k_scales if quantized else None,
+            pages.v_scales if quantized else None,
+        )
+        attn = attn.reshape(b, h * d).to(x.dtype)
+        x = _mlp(x + _dense(attn, p["out_proj"]), p, eps)
+    x = _layer_norm(x, params["ln_f"], eps)
+    return (x @ params["wte"].T).float()

@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain versions, on the GPU.
+
+Every test here carries the ``cuda`` marker and skips without a GPU. The
+file imports no JAX, so it also runs on a machine that has none:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
+
+(``--noconftest`` because ``tests/conftest.py`` sets up JAX.) Each kernel
+test checks that the wrapper launched its kernel exactly once and that the
+result agrees with the plain version on the same inputs: K1 within
+``rel_err_norm`` 1e-2 (bf16) or 1e-4 (fp32), K2 bit-exact, K3 within 1e-4.
+The serving engine on the GPU must pick the same greedy tokens as on the
+CPU, where it runs the plain versions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
+from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+from photonic_flash_attention_tpu_torch.ops import _build
+from photonic_flash_attention_tpu_torch.ops.flash import (
+    flash_attention,
+    flash_attention_plain,
+)
+from photonic_flash_attention_tpu_torch.ops.paged import (
+    paged_decode_attend,
+    paged_decode_attend_plain,
+    paged_token_write,
+    paged_token_write_plain,
+)
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+# (B, Sq, Skv, Hq, Hkv, D, causal): ragged lengths, GQA, Sq < Skv, both D.
+FLASH_CASES = [
+    (1, 16, 16, 16, 16, 64, True),
+    (2, 40, 40, 4, 2, 64, True),
+    (1, 128, 128, 2, 2, 128, False),
+    (1, 40, 128, 4, 2, 128, True),
+    (1, 1000, 1000, 4, 4, 64, True),
+    (2, 16, 40, 2, 2, 64, False),
+]
+
+
+def rel_err_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.norm(a - b) / max(float(torch.linalg.norm(b)), 1e-9))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(case, dtype_name, cuda_device):
+    b, sq, skv, hq, hkv, d, causal = case
+    rng = np.random.default_rng(0)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        .to(cuda_device, DTYPES[dtype_name])
+        for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))
+    )
+    before = _build.LAUNCHES["pfa_flash_fwd"]
+    out = flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfa_flash_fwd"] == before + 1
+    assert out.dtype == q.dtype and torch.isfinite(out).all()
+    assert rel_err_norm(out, ref) <= (1e-4 if dtype_name == "f32" else 1e-2)
+
+
+L, HQ, HKV, D, PAGE, NUM_PAGES, PPS = 2, 4, 2, 64, 16, 24, 4
+LENGTHS = [0, 5, 23, 33, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+def test_paged_kernels_match_plain(kv, cuda_device):
+    dev, b = cuda_device, len(LENGTHS)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[kv]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shape = (L, HKV, NUM_PAGES, PAGE, D)
+    if dt == torch.int8:
+        pools = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=dt)
+                 for _ in range(2)]
+        pools += [torch.rand(shape[:4], generator=gen, device=dev) * 0.05 + 1e-3
+                  for _ in range(2)]
+        new_dt = torch.bfloat16
+    else:
+        pools = [torch.randn(shape, generator=gen, device=dev).to(dt) for _ in range(2)]
+        pools += [None, None]
+        new_dt = dt
+    ref = [t.clone() if t is not None else None for t in pools]
+    tables = (torch.randperm(NUM_PAGES - 1, generator=gen, device=dev)[: b * PPS] + 1)
+    tables = tables.view(b, PPS).to(torch.int32)
+    slots = torch.zeros(b, dtype=torch.int32, device=dev)
+    for i, n in enumerate(LENGTHS):
+        if n:
+            slots[i] = tables[i, (n - 1) // PAGE] * PAGE + (n - 1) % PAGE
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    k_new, v_new = (torch.randn(b, HKV, D, generator=gen, device=dev).to(new_dt)
+                    for _ in range(2))
+    q = torch.randn(b, HQ, D, generator=gen, device=dev)
+
+    before = dict(_build.LAUNCHES)
+    paged_token_write(k_new, v_new, *pools, slots, 1)
+    out = paged_decode_attend(q, pools[0], pools[1], lengths, tables, 1, pools[2], pools[3])
+    paged_token_write_plain(k_new, v_new, *ref, slots, 1)
+    want = paged_decode_attend_plain(
+        q, ref[0], ref[1], lengths, tables, 1, ref[2], ref[3], D ** -0.5
+    )
+    torch.cuda.synchronize()
+    for name in ("pfa_paged_token_write", "pfa_paged_decode_attend"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    for got, exp in zip(pools, ref):
+        if got is not None:
+            assert torch.equal(got, exp)
+    assert torch.all(out[0] == 0)  # length 0 -> zeros
+    assert rel_err_norm(out, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_serving_engine_matches_cpu(kv, cuda_device):
+    """fp32 GPT-2 with head dim 64 (K1's envelope): the engine on the GPU,
+    through K1, K2 and K3, gives the CPU engine's greedy tokens."""
+    cfg = GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2,
+                     n_head=2, dtype=torch.float32)
+    state = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (5, 17, 40)]
+    kwargs = dict(num_pages=32, page_size=16, max_batch=4, decode_window=4,
+                  kv_dtype=torch.int8 if kv == "int8" else torch.float32)
+    cpu = ServingEngine(cfg, state, **kwargs).generate(prompts, max_new_tokens=10)
+    before = dict(_build.LAUNCHES)
+    gpu = ServingEngine(cfg, state, device=cuda_device, **kwargs).generate(
+        prompts, max_new_tokens=10
+    )
+    assert gpu == cpu
+    for name in ("pfa_flash_fwd", "pfa_paged_token_write", "pfa_paged_decode_attend"):
+        assert _build.LAUNCHES[name] > before.get(name, 0)
