@@ -9,38 +9,61 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 1. device: CUDA must be available (there is no CPU path);
 2. build: compile the port's kernels (csrc/*.cu) with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, with kernel and plain times;
-4. main path: GPT-2 medium (random weights, seed 0) served through
+   the shapes the serving and training paths give it, with kernel and
+   plain times: K1 (flash forward, and its lse), K2/K3 (paged decode),
+   K4/K5 (flash backward);
+4. serving path: GPT-2 medium (random weights, seed 0) served through
    ``ServingEngine.generate`` with an int8 paged KV cache; every kernel's
-   launch count must grow; the first step must agree with the dense model.
+   launch count must grow; the first step must agree with the dense model;
+5. training path: GPT-2 medium (random weights, seed 0) takes AdamW steps
+   through ``Trainer.train_step`` at B8 S1024 on one fixed batch; the loss
+   must fall, K1/K4/K5 must launch once per layer and step; the gradient of
+   the first 4 layers of the same weights must agree with a CPU run.
 
-The last two lines are the per-kernel JSON summary and, last of all,
-``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
+The last lines are the card's name and power limit, the per-kernel JSON
+summary and, last of all, ``{"ok": true, "device": {...}}``. The script
+imports nothing of JAX. ``--profile DIR`` adds a torch.profiler breakdown
+of three single training steps (device activity only: busy time, idle
+share of each step's wall time, time by kernel group) and writes the
+traces and a per-kernel table into DIR.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
+import dataclasses
 import json
 import statistics
 import subprocess
 import time
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
 from photonic_flash_attention_tpu_torch.ops import _build
 from photonic_flash_attention_tpu_torch.ops import flash as flash_ops
+from photonic_flash_attention_tpu_torch.ops import flash_bwd as bwd_ops
 from photonic_flash_attention_tpu_torch.ops import paged as paged_ops
 
 SOURCES = {
     "pfa_flash_fwd": "photonic_flash_attention_tpu_torch/csrc/flash_fwd.cu",
     "pfa_paged_token_write": "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu",
     "pfa_paged_decode_attend": "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu",
+    "pfa_flash_bwd_dkv": "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu",
+    "pfa_flash_bwd_dq": "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu",
 }
 REPLACES = {
-    "pfa_flash_fwd": "photonic_flash_attention_tpu/ops/flash.py:59",
+    "pfa_flash_fwd": "photonic_flash_attention_tpu/ops/flash.py:59, "
+                     "photonic_flash_attention_tpu/ops/flash_unrolled.py:144",
     "pfa_paged_token_write": "photonic_flash_attention_tpu/ops/paged.py:407",
     "pfa_paged_decode_attend": "photonic_flash_attention_tpu/ops/paged.py:407",
+    "pfa_flash_bwd_dkv": "photonic_flash_attention_tpu/ops/flash_bwd.py:167, "
+                         "photonic_flash_attention_tpu/ops/flash_bwd.py:609",
+    "pfa_flash_bwd_dq": "photonic_flash_attention_tpu/ops/flash_bwd.py:248, "
+                        "photonic_flash_attention_tpu/ops/flash_bwd.py:569",
 }
 TIMED_RUNS = 20
 
@@ -203,11 +226,109 @@ def check_decode_attend(results: dict) -> None:
     results["pfa_paged_decode_attend"].update(ms=ms, plain_ms=plain, max_abs_err=max_abs_err(out, ref))
 
 
+def check_flash_lse() -> None:
+    """K1's lse output against the plain lse (natural log, fp32)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [  # (B, Sq, Skv, Hq, Hkv, D, dtype, causal)
+        (8, 1024, 1024, 16, 16, 64, torch.bfloat16, True),
+        (2, 200, 200, 4, 2, 64, torch.float32, True),
+        (1, 64, 320, 4, 1, 128, torch.float32, False),
+    ]
+    for b, sq, skv, hq, hkv, d, dtype, causal in cases:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        _, lse = flash_ops.flash_attention_with_lse(q, k, v, causal=causal)
+        _, ref = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = rel_err_norm(lse, ref)
+        line = (f"K1 lse B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} {str(dtype)[6:]} "
+                f"causal={causal}: rel_err_norm {err:.3e} (bound 1e-4)")
+        if err > 1e-4 or not torch.isfinite(lse).all() or lse.shape != (b, hq, sq):
+            raise AssertionError(line)
+        print(line, flush=True)
+
+
+def _plain_grads(q, k, v, do, causal):
+    """The plain backward on the plain forward's residuals, with the GQA
+    repeat and group sum of ``ops/flash.py``."""
+    group = q.shape[2] // k.shape[2]
+    k_in, v_in = (t.repeat_interleave(group, dim=2) for t in (k, v))
+    o, lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal)
+    dq, dk, dv = bwd_ops.flash_attention_bwd_plain(
+        q, k_in, v_in, o, lse, do, sm_scale=q.shape[-1] ** -0.5, causal=causal)
+    b, skv, hkv, d = k.shape
+    dk = dk.float().view(b, skv, hkv, group, d).sum(3)
+    dv = dv.float().view(b, skv, hkv, group, d).sum(3)
+    return (dq, dk, dv), (o, lse)
+
+
+def check_flash_bwd(results: dict) -> None:
+    """K4 (dK/dV) and K5 (dQ) against the plain backward on the same
+    inputs: the training shapes timed, then the rest of the contract
+    (unaligned S, Sq < Skv, GQA through flash_attention's autograd,
+    D 128, fp32)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (B, Sq, Skv, Hq, Hkv, D, dtype, causal)
+        (8, 1024, 1024, 16, 16, 64, bf16, True),
+        (4, 2048, 2048, 12, 12, 64, bf16, True),
+        (2, 200, 200, 4, 4, 64, bf16, True),
+        (2, 256, 384, 4, 4, 64, bf16, True),
+        (2, 512, 512, 4, 2, 64, bf16, True),
+        (2, 512, 512, 4, 4, 128, bf16, False),
+        (2, 256, 256, 4, 4, 64, f32, True),
+        (2, 200, 200, 4, 2, 64, f32, True),
+        (2, 256, 256, 4, 4, 128, f32, False),
+    ]
+    worst = {"pfa_flash_bwd_dkv": 0.0, "pfa_flash_bwd_dq": 0.0}
+    for b, sq, skv, hq, hkv, d, dtype, causal in cases:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        do = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
+        want, (o, lse) = _plain_grads(q, k, v, do, causal)
+        if hq != hkv:  # through the autograd Function: K1, K4, K5
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = flash_ops.flash_attention(*leaves, causal=causal)
+            got = torch.autograd.grad(out, leaves, do)
+        else:
+            got = bwd_ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                              sm_scale=d ** -0.5, causal=causal)
+        torch.cuda.synchronize()
+        bound = 1e-2 if dtype == bf16 else 1e-4
+        errs = [rel_err_norm(g, w) for g, w in zip(got, want)]
+        line = (f"K4/K5 flash_bwd B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} {str(dtype)[6:]} "
+                f"causal={causal}{' (autograd, GQA)' if hq != hkv else ''}: rel_err_norm "
+                f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (bound {bound})")
+        if max(errs) > bound or not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(line)
+        worst["pfa_flash_bwd_dq"] = max(worst["pfa_flash_bwd_dq"], max_abs_err(got[0], want[0]))
+        worst["pfa_flash_bwd_dkv"] = max(worst["pfa_flash_bwd_dkv"],
+                                         max_abs_err(got[1], want[1]), max_abs_err(got[2], want[2]))
+        if dtype == bf16 and causal and hq == hkv and sq >= 1024:
+            di = bwd_ops.flash_bwd_di(o, do)
+            kw = dict(sm_scale=d ** -0.5, causal=True)
+            ms_dkv = median_ms(lambda: bwd_ops.flash_bwd_dkv(q, k, v, do, lse, di, **kw))
+            ms_dq = median_ms(lambda: bwd_ops.flash_bwd_dq(q, k, v, do, lse, di, **kw))
+            plain = median_ms(lambda: bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw))
+            line += (f" | K4 {ms_dkv:.4f} ms, K5 {ms_dq:.4f} ms, plain backward "
+                     f"(dq, dk, dv) {plain:.4f} ms")
+            # last: B4 S2048
+            results["pfa_flash_bwd_dkv"].update(ms=ms_dkv, plain_ms=plain)
+            results["pfa_flash_bwd_dq"].update(ms=ms_dq, plain_ms=plain)
+        print(line, flush=True)
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
+
+
 def phase_kernels() -> dict:
     results = {name: {} for name in SOURCES}
     check_flash(results)
+    check_flash_lse()
     check_token_write(results)
     check_decode_attend(results)
+    check_flash_bwd(results)
     return results
 
 
@@ -215,7 +336,7 @@ PROMPT_LENS = (17, 64, 100, 128, 256, 300, 512, 700)
 NEW_TOKENS = 33
 
 
-def phase_main_path(smi: str) -> dict:
+def phase_serving(smi: str) -> dict:
     from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
     from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from photonic_flash_attention_tpu_torch.models.gpt2_serving import (
@@ -285,11 +406,189 @@ def phase_main_path(smi: str) -> dict:
     return launches
 
 
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CHECK_LAYERS = 8, 1024, 5, 4
+TRAIN_KERNELS = ("pfa_flash_fwd", "pfa_flash_bwd_dkv", "pfa_flash_bwd_dq")
+
+
+def _lm_grads(model, batch) -> dict:
+    from photonic_flash_attention_tpu_torch.training.trainer import lm_loss
+
+    model.zero_grad(set_to_none=True)
+    lm_loss(model, batch).backward()
+    return {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+
+def check_train_grads(cfg, state: dict, batch: dict) -> None:
+    """One step's gradient of the first CHECK_LAYERS layers of the weights
+    at B1: bf16 on the card (K1, K4, K5) against fp32 on the CPU (the
+    plain versions), the bf16-scale gate 5e-2."""
+    from photonic_flash_attention_tpu_torch.config import get_config, reset_config
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2LMHead
+
+    cut = dataclasses.replace(cfg, n_layer=CHECK_LAYERS)
+    one = {k: torch.as_tensor(v[:1]) for k, v in batch.items()}
+    # B1 S1024 is below flash_min_tokens: lower it so both runs take the
+    # flash route (kernels on the card, plain versions on the CPU).
+    get_config().update(flash_min_tokens=TRAIN_SEQ)
+    grads = {}
+    for device, dtype in (("cpu", torch.float32), ("cuda", cfg.dtype)):
+        model = GPT2LMHead(dataclasses.replace(cut, dtype=dtype))
+        model.load_state_dict(state)
+        before = dict(_build.LAUNCHES)
+        grads[device] = _lm_grads(model.to(device), {k: v.to(device) for k, v in one.items()})
+        if device == "cuda":
+            for name in TRAIN_KERNELS:
+                if _build.LAUNCHES[name] - before.get(name, 0) != CHECK_LAYERS:
+                    raise AssertionError(f"gradient check: {name} not launched per layer")
+    reset_config()
+    flat = {d: torch.cat([g.flatten() for g in gs.values()]) for d, gs in grads.items()}
+    errs = {"all": rel_err_norm(flat["cuda"], flat["cpu"])}
+    for i in range(CHECK_LAYERS):
+        name = f"h.{i}.attn.q_proj.weight"
+        errs[name] = rel_err_norm(grads["cuda"][name], grads["cpu"][name])
+    line = (f"training path: gradient of GPT-2 widths {cfg.n_embd}/{cfg.n_head} heads, first "
+            f"{CHECK_LAYERS} layers, B1 S{TRAIN_SEQ}, card bf16 vs CPU fp32 plain: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + " (bound 5e-2)")
+    if max(errs.values()) > 5e-2 or not torch.isfinite(flat["cuda"]).all():
+        raise AssertionError(line)
+    print(line, flush=True)
+
+
+KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel names)
+    ("K1 flash forward", ("flash_fwd",)),
+    ("K4 flash dK/dV", ("bwd_dkv",)),
+    ("K5 flash dQ", ("bwd_dq",)),
+    ("matmul (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma")),
+    ("AdamW (multi-tensor)", ("multi_tensor",)),
+    ("softmax / cross entropy", ("SoftMax", "softmax")),
+    ("layer norm", ("layer_norm", "LayerNorm", "GammaBeta")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "copy", "fill", "Memcpy", "Memset")),
+)
+PROFILED_STEPS = 3
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy
+
+
+def profile_train_step(trainer, state, batch, out_dir: Path) -> None:
+    """torch.profiler (device activity only) over PROFILED_STEPS single
+    training steps. For each: the step's own wall time (host clock, card
+    synchronized before and after), the device's busy time (union of its
+    kernel and copy intervals in the trace) and the span from the first
+    device event to the last. Idle share = 1 - busy / wall, per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    groups = collections.Counter()
+    by_kernel = collections.Counter()
+    idle = []
+    for i in range(PROFILED_STEPS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        trace = out_dir / f"train_step_trace_{i}.json"
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("cat") in DEVICE_CATEGORIES and "dur" in e]
+        if not events:
+            raise AssertionError("profile: the trace holds no device events")
+        spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events]
+        busy = _busy_us(spans)
+        span = max(e for _, e in spans) - min(s for s, _ in spans)
+        idle.append(1 - busy / wall_us)
+        print(f"profile: step {i}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+              f"first-to-last device event {span / 1e3:.3f} ms, idle {100 * idle[-1]:.1f}% of "
+              f"the wall ({len(events)} device events)", flush=True)
+        for e in events:
+            name = e["name"]
+            by_kernel[name] += float(e["dur"]) / 1e3 / PROFILED_STEPS
+            group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
+            groups[group] += float(e["dur"]) / 1e3 / PROFILED_STEPS
+    total = sum(groups.values())
+    lines = [f"profile: idle share over {PROFILED_STEPS} profiled steps "
+             f"{100 * min(idle):.1f}% .. {100 * max(idle):.1f}%; mean device time by group "
+             f"(sum {total:.3f} ms):"]
+    lines += [f"profile:   {g}: {t:.3f} ms ({100 * t / total:.1f}%)"
+              for g, t in groups.most_common()]
+    print("\n".join(lines), flush=True)
+    table = [f"{t:10.3f} ms  {name}" for name, t in by_kernel.most_common(80)]
+    (out_dir / "train_step_profile.txt").write_text("\n".join(lines + [""] + table) + "\n")
+
+
+def phase_training(smi: str, profile_dir: Optional[str] = None) -> dict:
+    """GPT-2 medium (the JAX training bench's B8 S512 model), at S1024."""
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from photonic_flash_attention_tpu_torch.training import Trainer, synthetic_lm_batches
+
+    cfg = GPT2Config.medium()
+    model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0))
+    first_layers = {k: v.clone() for k, v in model.state_dict().items()
+                    if not k.startswith("h.") or int(k.split(".")[1]) < CHECK_LAYERS}
+    model.to("cuda")
+    # optax.adamw(1e-4)'s defaults (torch's default weight decay is 1e-2).
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    trainer = Trainer(model, opt)
+    state = trainer.init_state()
+    batch = next(synthetic_lm_batches(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                      vocab=cfg.vocab_size, seed=0))
+    state, _ = trainer.train_step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launches()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(float(metrics["loss"]))  # synchronizes
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(_build.LAUNCHES)
+
+    need = cfg.n_layer * TRAIN_STEPS
+    for name in TRAIN_KERNELS:
+        if launches.get(name, 0) != need:
+            raise AssertionError(f"{name}: {launches.get(name, 0)} launches in the "
+                                 f"training path, expected {need}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training path: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    wall = sum(step_ms) / 1e3
+    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    print(f"training path: GPT-2 medium B{TRAIN_BATCH} S{TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps "
+          f"in {wall:.3f} s, {tokens / wall:.1f} tokens/s, step ms "
+          f"{[round(t, 3) for t in step_ms]} (median {statistics.median(step_ms):.3f}), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi}); "
+          f"losses {[round(x, 4) for x in losses]}; launches {launches}", flush=True)
+    if profile_dir:
+        profile_train_step(trainer, state, batch, Path(profile_dir))
+    del trainer, opt, model, state
+    torch.cuda.empty_cache()
+    check_train_grads(cfg, first_layers, batch)
+    return launches
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", metavar="DIR",
+                        help="also profile one training step; write the table into DIR")
+    args = parser.parse_args()
     smi = phase_device()
     phase_build()
     results = phase_kernels()
-    launches = phase_main_path(smi)
+    launches = collections.Counter(phase_serving(smi))
+    launches.update(phase_training(smi, args.profile))
     kernels = [
         {
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -5,13 +5,16 @@ mirrors the JAX module of the same path, and the tests feed both the same
 numpy inputs. The port imports ``torch`` and never ``jax``.
 
 Slice 1 covers GPT-2 paged-KV serving (``core.serving.ServingEngine``)
-with three hand-written CUDA kernels for sm_90a (``csrc/``):
+and slice 2 GPT-2 training (``training.Trainer``), with five hand-written
+CUDA kernels for sm_90a (``csrc/``):
 
-* K1 ``ops.flash`` — flash-attention forward (prefill);
+* K1 ``ops.flash`` — flash-attention forward (prefill, and the training
+  forward with its logsumexp);
 * K2 ``ops.paged.paged_token_write`` — per-token K/V write into the
   paged pool, int8-quantized when the pool is int8;
 * K3 ``ops.paged.paged_decode_attend`` — one-query attention over a
-  sequence's pages.
+  sequence's pages;
+* K4/K5 ``ops.flash_bwd`` — flash-attention backward, dK/dV and dQ.
 
 Each kernel's wrapper runs its plain PyTorch version for CPU tensors and
 launches the kernel (or raises) for CUDA tensors.

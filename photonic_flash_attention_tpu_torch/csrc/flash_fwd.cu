@@ -8,7 +8,11 @@
 // Contract: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), contiguous, Hq % Hkv == 0
 // (GQA: q head h reads kv head h / (Hq/Hkv)), D in {64, 128}, bf16 or fp32;
 // causal aligned to the sequence end (row i sees keys j <= i + Skv - Sq);
-// fp32 online softmax; output in q's dtype.
+// fp32 online softmax; output in q's dtype. When `lse` is not null it also
+// writes the row logsumexp (B, Hq, Sq) fp32 in natural log (the residual
+// of the backward, K4/K5 in flash_bwd.cu): the kernel runs in the log2
+// domain, so lse = (m + log2 l) * ln 2; a row with no valid key gets
+// lse = -inf and o = 0. The inference path passes null and writes nothing.
 //
 // What bounds it on the H100: prefill attention over S ~ 1k-2k tokens does
 // ~S/2 multiply-adds per loaded K/V byte (causal), far above the bf16 ridge
@@ -36,44 +40,6 @@ constexpr int BQ = 64;            // query rows per block
 constexpr int BKV = 64;           // keys per K/V tile
 constexpr int BF16_THREADS = 128; // 4 warps x 16 query rows
 constexpr int F32_THREADS = 256;  // 4 threads per query row
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// c += A (16x16 bf16, row-major) * B (16x8 bf16, column-major), fp32.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows x D bf16 from global (row stride `stride` elements) into shared
-// memory with row pitch LD; rows at or past `valid` are zero-filled.
-template <int D, int LD, int NT>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long stride, int rows,
-                                               int valid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
 // bf16: each warp owns 16 query rows. In the m16n8k16 fragments a lane
 // (g = lane/4, t4 = lane%4) holds rows g and g+8 and columns 2*t4, 2*t4+1
 // of every 8-wide score tile.
@@ -82,8 +48,8 @@ __global__ void __launch_bounds__(BF16_THREADS)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, int Sq, int Skv, int Hq, int Hkv,
-               float scale_log2, int causal) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+               int Skv, int Hq, int Hkv, float scale_log2, int causal) {
   constexpr int LD = D + 8;   // padded shared row: conflict-free fragment loads
   constexpr int NT = BKV / 8; // 8-wide score tiles per K/V tile
   constexpr int DT = D / 8;   // 8-wide output tiles
@@ -206,6 +172,9 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + t4 * 2) =
           __floats2bfloat162_rn(acc[dn][2 * i] * inv, acc[dn][2 * i + 1] * inv);
     }
+    if (lse != nullptr && t4 == 0)
+      lse[((long long)b * Hq + h) * Sq + rows[i]] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * LN2 : -INFINITY;
   }
 }
 
@@ -214,8 +183,9 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-              int Hq, int Hkv, float scale_log2, int causal) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+              float scale_log2, int causal) {
   constexpr int LDK = D + 1;    // padded rows: conflict-free column reads
   constexpr int LDP = BKV + 1;
   constexpr int NJ = BKV / 4;   // scores per thread per tile
@@ -301,10 +271,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* orow = o + ((long long)b * Sq + row) * qstr + (long long)h * D;
 #pragma unroll
   for (int j = 0; j < DJ; ++j) orow[qd + 4 * j] = acc[j] * inv;
+  if (lse != nullptr && qd == 0)
+    lse[((long long)b * Hq + h) * Sq + row] = l > 0.f ? (m + log2f(l)) * LN2 : -INFINITY;
 }
 
 template <int D>
-cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o, dim3 grid,
+cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o, float* lse, dim3 grid,
                      int Sq, int Skv, int Hq, int Hkv, float sl2, int causal,
                      cudaStream_t st) {
   constexpr int smem = (BQ + 2 * BKV) * (D + 8) * sizeof(__nv_bfloat16);
@@ -313,13 +285,13 @@ cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o, dim3 
   if (e != cudaSuccess) return e;
   flash_fwd_bf16<D><<<grid, BF16_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv,
-      Hq, Hkv, sl2, causal);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq,
+      Skv, Hq, Hkv, sl2, causal);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t run_f32(const void* q, const void* k, const void* v, void* o, dim3 grid,
+cudaError_t run_f32(const void* q, const void* k, const void* v, void* o, float* lse, dim3 grid,
                     int Sq, int Skv, int Hq, int Hkv, float sl2, int causal,
                     cudaStream_t st) {
   constexpr int smem = (2 * BQ * (D + 1) + BKV * D + BQ * (BKV + 1)) * sizeof(float);
@@ -328,8 +300,8 @@ cudaError_t run_f32(const void* q, const void* k, const void* v, void* o, dim3 g
   if (e != cudaSuccess) return e;
   flash_fwd_f32<D><<<grid, F32_THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, Hq, Hkv, sl2,
-      causal);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv, Hq, Hkv,
+      sl2, causal);
   return cudaGetLastError();
 }
 
@@ -340,16 +312,17 @@ extern "C" const char* pfa_error_string(int err) {
 }
 
 extern "C" int pfa_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                             int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                             void* lse_out, int B, int Sq, int Skv, int Hq, int Hkv, int D,
                              float sm_scale, int causal, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const float sl2 = sm_scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == PFA_BF16 && D == 64) return run_bf16<64>(q, k, v, o, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
-  if (dtype == PFA_BF16 && D == 128) return run_bf16<128>(q, k, v, o, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
-  if (dtype == PFA_F32 && D == 64) return run_f32<64>(q, k, v, o, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
-  if (dtype == PFA_F32 && D == 128) return run_f32<128>(q, k, v, o, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
+  float* lse = static_cast<float*>(lse_out);  // may be null
+  if (dtype == PFA_BF16 && D == 64) return run_bf16<64>(q, k, v, o, lse, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
+  if (dtype == PFA_BF16 && D == 128) return run_bf16<128>(q, k, v, o, lse, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
+  if (dtype == PFA_F32 && D == 64) return run_f32<64>(q, k, v, o, lse, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
+  if (dtype == PFA_F32 && D == 128) return run_f32<128>(q, k, v, o, lse, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
   return cudaErrorInvalidValue;
 }

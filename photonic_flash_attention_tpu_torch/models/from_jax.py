@@ -6,6 +6,11 @@ arrays or anything ``np.asarray`` takes) into a ``state_dict`` for
 ``models/gpt2.py::GPT2LMHead``. Flax ``Dense.kernel`` is (in, out) and
 ``nn.Linear.weight`` is (out, in), so kernels are transposed; LayerNorm
 ``scale`` becomes ``weight``. No JAX import: the tree is plain data.
+
+Any tree shaped like the Flax params maps the same way, so the tests also
+use it to carry JAX **gradients** (``jax.grad`` of the loss over the
+params) onto the port's parameter names and compare them with the port's
+``param.grad``.
 """
 
 from __future__ import annotations

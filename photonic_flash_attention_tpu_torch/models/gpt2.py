@@ -1,9 +1,13 @@
-"""GPT-2 (dense forward): the weights' home and the serving path's oracle.
+"""GPT-2 (dense forward): the weights' home, the training model and the
+serving path's oracle.
 
 Port of ``photonic_flash_attention_tpu/models/gpt2.py`` (``GPT2Config``,
 ``GPT2LMHead``): learned positions, pre-LayerNorm blocks, tanh GELU, tied
 LM head. Parameters are float32 as in Flax; the forward computes in
-``cfg.dtype`` (LayerNorm statistics in float32). Initialisation follows the
+``cfg.dtype`` (LayerNorm statistics in float32), and gradients reach the
+float32 parameters through those casts, as Flax's fp32 master weights.
+Attention goes through ``models/attention.py::dispatch_attention``, as the
+JAX blocks do with ``adaptive=False``. Initialisation follows the
 Flax initialisers (``wte`` N(0, 0.02), ``wpe`` N(0, 0.01), Dense kernels
 lecun-normal, biases 0, LayerNorm 1/0) drawn from an explicit
 ``torch.Generator``; the numbers differ from JAX's, so tests load JAX
@@ -35,6 +39,9 @@ class GPT2Config:
     n_layer: int = 12
     n_head: int = 12
     layer_norm_epsilon: float = 1e-5
+    #: dropout on attention probabilities (HF attn_pdrop), train mode only;
+    #: training with a value above 0 raises until ROADMAP A10.
+    attn_pdrop: float = 0.0
     dtype: torch.dtype = torch.bfloat16
 
     @classmethod
@@ -44,6 +51,10 @@ class GPT2Config:
     @classmethod
     def medium(cls) -> "GPT2Config":
         return cls(n_embd=1024, n_layer=24, n_head=16)
+
+    @classmethod
+    def large(cls) -> "GPT2Config":
+        return cls(n_embd=1280, n_layer=36, n_head=20)
 
     @classmethod
     def tiny(cls) -> "GPT2Config":
@@ -73,7 +84,8 @@ class Block(nn.Module):
         eps = cfg.layer_norm_epsilon
         self.ln_1 = nn.LayerNorm(cfg.n_embd, eps=eps)
         self.attn = PhotonicFlashAttention(
-            cfg.n_embd, cfg.n_head, causal=True, dtype=cfg.dtype
+            cfg.n_embd, cfg.n_head, causal=True, attention_dropout=cfg.attn_pdrop,
+            dtype=cfg.dtype,
         )
         self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=eps)
         self.mlp = MLP(cfg)

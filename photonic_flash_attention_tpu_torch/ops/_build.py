@@ -1,7 +1,8 @@
 """Build, load and launch the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for sm_90a into ONE shared
-library with a plain C interface, loaded with ``ctypes``; no source
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for sm_90a (one process per
+source, all in parallel) and linked into ONE shared library with a plain
+C interface, loaded with ``ctypes``; no source
 includes PyTorch's headers, which would make every build far slower. The
 library lands in ``_build/`` (listed in ``.gitignore``) under a name that
 carries the hash of the sources and flags, so an edited source rebuilds at
@@ -41,8 +42,15 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: argtypes of every C entry point, in the order of the C prototypes.
 _SIGNATURES: Dict[str, List] = {
-    # q, k, v, o, B, Sq, Skv, Hq, Hkv, D, sm_scale, causal, dtype, stream
-    "pfa_flash_fwd": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, o, lse (or None), B, Sq, Skv, Hq, Hkv, D, sm_scale, causal,
+    # dtype, stream
+    "pfa_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, do, lse, di, dk, dv, B, Sq, Skv, H, D, sm_scale, causal,
+    # dtype, stream
+    "pfa_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+    # q, k, v, do, lse, di, dq, B, Sq, Skv, H, D, sm_scale, causal, dtype,
+    # stream
+    "pfa_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
     # k_new, v_new, k_pool, v_pool, k_scales, v_scales, slots,
     # layer, B, Hkv, D, num_pages, page_size, in_dtype, pool_dtype, stream
     "pfa_paged_token_write": [_P] * 7 + [_I] * 8 + [_P],
@@ -54,6 +62,11 @@ _SIGNATURES: Dict[str, List] = {
 
 #: dtype codes shared with the C side (csrc/common.cuh).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+#: Head dims and dtypes the flash kernels (K1 forward, K4/K5 backward) are
+#: compiled for.
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
 #: Incremented only where a wrapper has launched its kernel.
@@ -90,20 +103,45 @@ def _nvcc() -> str:
     return path
 
 
+def _run(procs: List[subprocess.Popen]) -> None:
+    """Wait for every nvcc in ``procs``; raise with the first failure's output."""
+    failed = None
+    for proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(proc.args)}\n{stdout}\n{stderr}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, procs = [], []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *compile_flags, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    _run(procs)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    _run([subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .reference import DEFAULT_MASK_VALUE
+from .reference import DEFAULT_MASK_VALUE, softmax_scale
 
 INT8_MAX = 127.0
 POOL_DTYPES = (torch.int8, torch.bfloat16, torch.float32)
@@ -73,7 +73,7 @@ def paged_attention_xla(
     group = hq // hkv
     pps = page_indices.shape[1]
     s_total = pps * page
-    scale = sm_scale if sm_scale is not None else d ** -0.5
+    scale = softmax_scale(d, sm_scale)
     idx = page_indices.long()
 
     def gather(pages, scales):
@@ -241,7 +241,7 @@ def paged_decode_attend(
         raise ValueError("lengths must be int32 (B,)")
     if page_indices.ndim != 2 or page_indices.shape[0] != b or page_indices.dtype != torch.int32:
         raise ValueError("page_indices must be int32 (B, pages_per_seq)")
-    scale = sm_scale if sm_scale is not None else d ** -0.5
+    scale = softmax_scale(d, sm_scale)
     if q.device.type == "cpu":
         return paged_decode_attend_plain(
             q, k_pages, v_pages, lengths, page_indices, layer, k_scales, v_scales, scale

@@ -112,7 +112,7 @@ def test_reference_matches_jax_reference(case):
     causal = case[-1]
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(case, seed=2), "f32")
     scale = 0.3
-    out = attention_reference(tq, tk, tv, causal=causal, sm_scale=scale)
+    out = attention_reference(tq, tk, tv, causal=causal, sm_scale=scale)[0]
     ref = jax_reference(jq, jk, jv, causal=causal, sm_scale=scale)[0]
     assert np.max(np.abs(out.numpy() - np.asarray(ref))) <= 1e-5
     assert DEFAULT_MASK_VALUE == JAX_MASK_VALUE
@@ -123,7 +123,7 @@ def test_fp32_prefill_stays_fp32():
     envelope (S a multiple of 512) in bf16; the port keeps them fp32."""
     case = (1, 512, 512, 2, 2, 64, True)
     q, k, v = (torch.from_numpy(a) for a in _inputs(case, seed=3))
-    ref = attention_reference(q.double(), k.double(), v.double(), causal=True)
+    ref = attention_reference(q.double(), k.double(), v.double(), causal=True)[0]
     out = flash_attention_best(q, k, v, causal=True)
     assert out.dtype == torch.float32
     assert rel_err_norm(out.numpy(), ref.float().numpy()) < 1e-6

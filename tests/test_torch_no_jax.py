@@ -48,7 +48,9 @@ def test_every_module_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert len(_port_modules()) >= 15
+    assert len(_port_modules()) >= 24
+    for name in ("config", "ops.fused", "ops.flash_bwd", "training.data", "training.trainer"):
+        assert f"{port.__name__}.{name}" in modules
 
 
 @pytest.mark.parametrize(
