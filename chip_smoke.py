@@ -8,14 +8,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. device: CUDA must be available (there is no CPU path);
 2. build: compile the port's kernels (csrc/*.cu) with nvcc;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving and training paths give it, with kernel and
-   plain times: K1 (flash forward, and its lse), K2/K3 (paged decode),
-   K4/K5 (flash backward);
+3. kernels: each kernel and mode against its plain PyTorch version on the
+   card, at the shapes the main paths give it, with kernel, plain and
+   library times and the card's bound: K1 (flash forward, its lse, and its
+   kv_lens/k_bias streams), K2/K3 (paged decode), K3's paged_attention_hf
+   entry (float and int8 compute), K4/K5 (flash backward);
 4. serving path: GPT-2 medium (random weights, seed 0) served through
    ``ServingEngine.generate`` with an int8 paged KV cache; every kernel's
    launch count must grow; the first step must agree with the dense model;
-5. training path: GPT-2 medium (random weights, seed 0) takes AdamW steps
+   then the same requests with ``prefill_chunk=256`` (K1 with the key-bias
+   stream): the same first tokens, last-prompt logits within a bound;
+5. engine path: the drop-in ``PhotonicFlashAttention`` layer at GPT-2
+   medium's width, eager calls through the adaptive engine (prefill, key
+   padding, decode over 2048 keys, a short call), first with the heuristic
+   (kinds asserted), then measured (the router's table printed); outputs
+   against the fp32 fused oracle, K1 and K3 launches, no failures;
+6. training path: GPT-2 medium (random weights, seed 0) takes AdamW steps
    through ``Trainer.train_step`` at B8 S1024 on one fixed batch; the loss
    must fall, K1/K4/K5 must launch once per layer and step; the gradient of
    the first 4 layers of the same weights must agree with a CPU run.
@@ -47,25 +55,102 @@ from photonic_flash_attention_tpu_torch.ops import _build
 from photonic_flash_attention_tpu_torch.ops import flash as flash_ops
 from photonic_flash_attention_tpu_torch.ops import flash_bwd as bwd_ops
 from photonic_flash_attention_tpu_torch.ops import paged as paged_ops
+from photonic_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
+_FWD = "photonic_flash_attention_tpu_torch/csrc/flash_fwd.cu"
+_PAGED = "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu"
+_BWD = "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu"
+#: Every kernel and mode (the launch counter's name): its source.
 SOURCES = {
-    "pfa_flash_fwd": "photonic_flash_attention_tpu_torch/csrc/flash_fwd.cu",
-    "pfa_paged_token_write": "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu",
-    "pfa_paged_decode_attend": "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu",
-    "pfa_flash_bwd_dkv": "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu",
-    "pfa_flash_bwd_dq": "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu",
+    "pfa_flash_fwd": _FWD,
+    "pfa_flash_fwd_streams": _FWD,
+    "pfa_paged_token_write": _PAGED,
+    "pfa_paged_decode_attend": _PAGED,
+    "pfa_paged_hf": _PAGED,
+    "pfa_paged_hf_int8": _PAGED,
+    "pfa_flash_bwd_dkv": _BWD,
+    "pfa_flash_bwd_dq": _BWD,
 }
 REPLACES = {
     "pfa_flash_fwd": "photonic_flash_attention_tpu/ops/flash.py:59, "
                      "photonic_flash_attention_tpu/ops/flash_unrolled.py:144",
+    "pfa_flash_fwd_streams": "photonic_flash_attention_tpu/ops/flash.py:59, "
+                             "photonic_flash_attention_tpu/ops/flash_unrolled.py:144",
     "pfa_paged_token_write": "photonic_flash_attention_tpu/ops/paged.py:407",
     "pfa_paged_decode_attend": "photonic_flash_attention_tpu/ops/paged.py:407",
+    "pfa_paged_hf": "photonic_flash_attention_tpu/ops/paged.py:902",
+    "pfa_paged_hf_int8": "photonic_flash_attention_tpu/ops/paged.py:902",
     "pfa_flash_bwd_dkv": "photonic_flash_attention_tpu/ops/flash_bwd.py:167, "
                          "photonic_flash_attention_tpu/ops/flash_bwd.py:609",
     "pfa_flash_bwd_dq": "photonic_flash_attention_tpu/ops/flash_bwd.py:248, "
                         "photonic_flash_attention_tpu/ops/flash_bwd.py:569",
 }
+#: Modes that no main path runs, reported under their kernel's entry:
+#: K3's int8 compute (engine decode repacks bf16 K/V; serving decode is K3's
+#: float mode over the int8 pool).
+NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute")}
 TIMED_RUNS = 20
+# H100 SXM data sheet (dense, at its 700 W limit): the bound of each kernel
+# is the larger of its operations over the peak rate for their type and
+# its bytes (each input read once, each output written once) over HBM.
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def card_bound(ops: float, nbytes: float, dtype) -> dict:
+    """bound_ms and bound_by for ``ops`` operations of ``dtype`` and
+    ``nbytes`` bytes of device memory traffic."""
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def attention_pairs(b: int, sq: int, skv: int, causal: bool, lens=None) -> int:
+    """(query, key) pairs the kernel computes: keys below each row's
+    length and, when causal, on or below the end-aligned diagonal."""
+    lens = [skv] * b if lens is None else [min(max(int(n), 0), skv) for n in lens]
+    rows = torch.arange(sq)
+    total = 0
+    for n in lens:
+        seen = torch.clamp(rows + (skv - sq) + 1, max=n) if causal else torch.full((sq,), n)
+        total += int(seen.clamp(min=0).sum())
+    return total
+
+
+def flash_fwd_bound(q, k, causal, lens=None, with_lse=False, with_bias=False) -> dict:
+    """K1's bound: 4 D operations per (query, key) pair; q, o and the K/V
+    rows below each length, plus lse and the streams when present."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    pairs = attention_pairs(b, sq, skv, causal, lens)
+    kv_rows = b * skv if lens is None else sum(min(max(int(n), 0), skv) for n in lens)
+    elt = q.element_size()
+    nbytes = elt * (2 * b * sq * hq * d + 2 * kv_rows * hkv * d)
+    nbytes += 4 * b * hq * sq * with_lse + 4 * b * skv * with_bias + 4 * b * (lens is not None)
+    return card_bound(4.0 * d * hq * pairs, nbytes, q.dtype)
+
+
+def sdpa_bwd_ms(q, k, v, do) -> float:
+    """The backward of one causal F.scaled_dot_product_attention call (dq,
+    dk and dv together), its forward outside the timing."""
+    import torch.nn.functional as F
+
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    g = do.transpose(1, 2).contiguous()
+    return median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+
+
+def sdpa_ms(q, k, v, causal: bool, bias=None) -> float:
+    """One F.scaled_dot_product_attention call on the same function, in its
+    (B, H, S, D) layout (the transposes are outside the timing)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if bias is None:
+        return median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+    return median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias))
 
 
 def rel_err_norm(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -146,8 +231,12 @@ def check_flash(results: dict) -> None:
         if dtype == torch.bfloat16 and causal and hq == hkv:
             ms = median_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True))
             plain = median_ms(lambda: flash_ops.flash_attention_plain(q, k, v, causal=True))
-            line += f" | kernel {ms:.4f} ms, plain {plain:.4f} ms"
-            results["pfa_flash_fwd"].update(ms=ms, plain_ms=plain)  # last: B4 S2048
+            lib = sdpa_ms(q, k, v, True)
+            bnd = flash_fwd_bound(q, k, True)
+            line += (f" | kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
+                     f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+            # last: B4 S2048
+            results["pfa_flash_fwd"].update(ms=ms, plain_ms=plain, library_ms=lib, **bnd)
         print(line, flush=True)
     results["pfa_flash_fwd"]["max_abs_err"] = worst
 
@@ -198,7 +287,12 @@ def check_token_write(results: dict) -> None:
         print(f"K2 paged_token_write B{b} Hkv{hkv} D{d} page{page} pool {str(pool_dtype)[6:]}: "
               f"bit-exact | kernel {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
         if pool_dtype == torch.int8:
-            results["pfa_paged_token_write"].update(ms=ms, plain_ms=plain, max_abs_err=err)
+            # Reads k_new and v_new, writes their int8 rows and fp32 scales;
+            # absmax, divide and round per element.
+            nbytes = 2 * b * hkv * d * (k_new.element_size() + 1) + 2 * 4 * b * hkv + 4 * b
+            results["pfa_paged_token_write"].update(
+                ms=ms, plain_ms=plain, max_abs_err=err, library_ms=None,
+                **card_bound(3.0 * 2 * b * hkv * d, nbytes, torch.float32))
 
 
 def check_decode_attend(results: dict) -> None:
@@ -222,8 +316,133 @@ def check_decode_attend(results: dict) -> None:
     ms = median_ms(lambda: paged_ops.paged_decode_attend(q, k, v, lengths, tables, layer, ks, vs))
     plain = median_ms(lambda: paged_ops.paged_decode_attend_plain(
         q, k, v, lengths, tables, layer, ks, vs, d ** -0.5))
-    print(f"{line} | kernel {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
-    results["pfa_paged_decode_attend"].update(ms=ms, plain_ms=plain, max_abs_err=max_abs_err(out, ref))
+    tokens = int(lengths.sum())
+    nbytes = 2 * tokens * 16 * d + 2 * 4 * tokens * 16 + 2 * 4 * b * hq * d + 4 * b + 4 * b * pps
+    bnd = card_bound(4.0 * d * hq * tokens, nbytes, torch.float32)
+    print(f"{line} | kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']})", flush=True)
+    results["pfa_paged_decode_attend"].update(ms=ms, plain_ms=plain, library_ms=None,
+                                              max_abs_err=max_abs_err(out, ref), **bnd)
+
+
+STREAM_LENS = (2048, 1500, 700, 0)
+
+
+def _key_bias(b: int, skv: int, gen, holes: float = 0.1) -> torch.Tensor:
+    """(B, Skv) fp32 key bias: real values with ~10% mask-value holes; key 0
+    kept in every row."""
+    bias = torch.randn(b, skv, device="cuda", generator=gen)
+    holes = torch.rand(b, skv, device="cuda", generator=gen) < holes
+    bias = torch.where(holes, torch.full_like(bias, DEFAULT_MASK_VALUE), bias)
+    bias[:, 0] = 0.0
+    return bias
+
+
+def _sdpa_stream_mask(b, sq, skv, causal, lens, bias) -> torch.Tensor:
+    """The streams as one additive (B, 1, Sq, Skv) mask for SDPA."""
+    col = torch.arange(skv, device="cuda")
+    keep = (col[None] < lens[:, None].long())[:, None, None, :]
+    if causal:
+        keep = keep & (col[None, :] <= torch.arange(sq, device="cuda")[:, None] + (skv - sq))
+    return torch.where(keep, bias[:, None, None, :], float("-inf"))
+
+
+def check_flash_streams(results: dict) -> None:
+    """K1 with the key-padding streams (kv_lens, k_bias) against its plain
+    version, output and lse, at the engine's prefill shape with lengths
+    STREAM_LENS (bf16 bound 1e-2, fp32 1e-4; lse 1e-4); a row masked by the
+    bias alone must average its keys (finite), a row of length 0 give o = 0
+    and lse = -inf."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [  # (B, Sq, Skv, Hq, Hkv, D, dtype, causal, lens)
+        (4, 2048, 2048, 12, 12, 64, torch.bfloat16, True, STREAM_LENS),
+        (4, 2048, 2048, 12, 12, 64, torch.bfloat16, False, STREAM_LENS),
+        (2, 256, 1280, 16, 16, 64, torch.bfloat16, True, (1280, 700)),  # a prefill chunk
+        (2, 100, 300, 4, 2, 128, torch.bfloat16, True, (300, 0)),
+        (2, 200, 300, 4, 2, 64, torch.float32, True, (300, 1)),
+        (3, 128, 256, 4, 4, 128, torch.float32, False, (256, 256, 0)),
+    ]
+    worst = 0.0
+    for b, sq, skv, hq, hkv, d, dtype, causal, lens_t in cases:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        lens = torch.tensor(lens_t, dtype=torch.int32, device="cuda")
+        bias = _key_bias(b, skv, gen)
+        if not causal:
+            bias[1] = DEFAULT_MASK_VALUE  # row 1: every key masked by the bias alone
+        kw = dict(causal=causal, kv_lens=lens, k_bias=bias)
+        out, lse = flash_ops.flash_attention_with_lse(q, k, v, **kw)
+        ref, ref_lse = flash_ops.flash_attention_with_lse_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        bound_err = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        err = rel_err_norm(out, ref)
+        live = torch.isfinite(ref_lse)
+        lse_err = rel_err_norm(lse[live], ref_lse[live])
+        empty = lens == 0
+        line = (f"K1 streams B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} {str(dtype)[6:]} "
+                f"causal={causal} lens {list(lens_t)}: rel_err_norm {err:.3e} (bound {bound_err}), "
+                f"lse {lse_err:.3e} (bound 1e-4)")
+        if (err > bound_err or lse_err > 1e-4 or not torch.isfinite(out).all()
+                or not torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+                or (out[empty] != 0).any()):
+            raise AssertionError(line)
+        worst = max(worst, max_abs_err(out, ref))
+        if dtype == torch.bfloat16 and sq == 2048 and causal:
+            ms = median_ms(lambda: flash_ops.flash_attention(q, k, v, **kw))
+            plain = median_ms(lambda: flash_ops.flash_attention_plain(q, k, v, **kw))
+            lib = sdpa_ms(q, k, v, False, _sdpa_stream_mask(b, sq, skv, causal, lens, bias))
+            bnd = flash_fwd_bound(q, k, causal, lens_t, with_bias=True)
+            line += (f" | kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA with the mask "
+                     f"{lib:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+            results["pfa_flash_fwd_streams"].update(ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+        print(line, flush=True)
+    results["pfa_flash_fwd_streams"]["max_abs_err"] = worst
+
+
+HF_LENS = (2048, 2000, 1500, 1024, 1000, 700, 1, 0)
+
+
+def check_paged_hf(results: dict) -> None:
+    """K3's paged_attention_hf entry against its plain version at B8, kv
+    2048, H16, D64, page 128, pages_per_block 8: float compute over a bf16
+    pool (bound 1e-4) and int8 compute over an int8 pool (bound 1e-3 to its
+    plain version, 3e-2 to the float oracle)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, hq, d, page, pps, layer = 8, 16, 64, 128, 16, 3
+    lengths = torch.tensor(HF_LENS, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(255, device="cuda", generator=gen)[: b * pps] + 1
+    tables = perm.view(b, pps).to(torch.int32)
+    q = torch.randn(b, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+    kv_bytes = sum(HF_LENS) * hq * d  # payload bytes per element byte, all rows
+    for pool_dtype, name, tol in ((torch.bfloat16, "pfa_paged_hf", 1e-4),
+                                  (torch.int8, "pfa_paged_hf_int8", 1e-3)):
+        k, v, ks, vs = _serving_pools(pool_dtype, gen, L=4, hkv=hq)
+        int8 = pool_dtype == torch.int8
+        args = (q, k, v, lengths, tables, ks, vs)
+        out = paged_ops.paged_attention_hf(*args, layer=layer)
+        ref = paged_ops.paged_attention_hf_plain(
+            q, k, v, lengths, tables, layer, ks, vs, d ** -0.5, 8, int8).to(q.dtype)
+        oracle = paged_ops.paged_decode_attend_plain(
+            q.float(), k, v, lengths, tables, layer, ks, vs, d ** -0.5)
+        torch.cuda.synchronize()
+        err, err_oracle = rel_err_norm(out, ref), rel_err_norm(out, oracle)
+        line = (f"K3 paged_attention_hf B{b} H{hq} D{d} page{page} pool {str(pool_dtype)[6:]} "
+                f"{'int8' if int8 else 'float'} compute, lengths {list(HF_LENS)}: rel_err_norm "
+                f"{err:.3e} (bound {tol}), to the float oracle {err_oracle:.3e} (bound 3e-2)")
+        if err > tol or err_oracle > 3e-2 or not torch.isfinite(out).all() or out[-1].abs().max() != 0:
+            raise AssertionError(line)
+        ms = median_ms(lambda: paged_ops.paged_attention_hf(*args, layer=layer))
+        plain = median_ms(lambda: paged_ops.paged_attention_hf_plain(
+            q, k, v, lengths, tables, layer, ks, vs, d ** -0.5, 8, int8))
+        elt = k.element_size()
+        nbytes = 2 * kv_bytes * elt + 2 * 2 * b * hq * d + 4 * b + 4 * b * pps
+        nbytes += 2 * 4 * sum(HF_LENS) * hq * int8  # per-token K and V scales
+        bnd = card_bound(4.0 * d * hq * sum(HF_LENS), nbytes, torch.int8 if int8 else torch.float32)
+        print(f"{line} | kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']})", flush=True)
+        results[name].update(ms=ms, plain_ms=plain, library_ms=None,
+                             max_abs_err=max_abs_err(out, ref), **bnd)
 
 
 def check_flash_lse() -> None:
@@ -312,11 +531,18 @@ def check_flash_bwd(results: dict) -> None:
             ms_dkv = median_ms(lambda: bwd_ops.flash_bwd_dkv(q, k, v, do, lse, di, **kw))
             ms_dq = median_ms(lambda: bwd_ops.flash_bwd_dq(q, k, v, do, lse, di, **kw))
             plain = median_ms(lambda: bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw))
-            line += (f" | K4 {ms_dkv:.4f} ms, K5 {ms_dq:.4f} ms, plain backward "
-                     f"(dq, dk, dv) {plain:.4f} ms")
+            lib = sdpa_bwd_ms(q, k, v, do)
+            pairs = attention_pairs(b, sq, skv, True)
+            elt = q.element_size()
+            io = elt * 4 * b * sq * hq * d + 2 * 4 * b * hq * sq  # q, k, v, do; lse, di
+            bnd_dkv = card_bound(8.0 * d * hq * pairs, io + elt * 2 * b * skv * hq * d, dtype)
+            bnd_dq = card_bound(6.0 * d * hq * pairs, io + elt * b * sq * hq * d, dtype)
+            line += (f" | K4 {ms_dkv:.4f} ms (bound {bnd_dkv['bound_ms']:.4f}), K5 {ms_dq:.4f} ms "
+                     f"(bound {bnd_dq['bound_ms']:.4f}), plain backward (dq, dk, dv) {plain:.4f} ms, "
+                     f"SDPA backward {lib:.4f} ms")
             # last: B4 S2048
-            results["pfa_flash_bwd_dkv"].update(ms=ms_dkv, plain_ms=plain)
-            results["pfa_flash_bwd_dq"].update(ms=ms_dq, plain_ms=plain)
+            results["pfa_flash_bwd_dkv"].update(ms=ms_dkv, plain_ms=plain, library_ms=lib, **bnd_dkv)
+            results["pfa_flash_bwd_dq"].update(ms=ms_dq, plain_ms=plain, library_ms=lib, **bnd_dq)
         print(line, flush=True)
     for name, err in worst.items():
         results[name]["max_abs_err"] = err
@@ -326,8 +552,10 @@ def phase_kernels() -> dict:
     results = {name: {} for name in SOURCES}
     check_flash(results)
     check_flash_lse()
+    check_flash_streams(results)
     check_token_write(results)
     check_decode_attend(results)
+    check_paged_hf(results)
     check_flash_bwd(results)
     return results
 
@@ -384,6 +612,8 @@ def phase_serving(smi: str) -> dict:
           f"{stats['decode_tokens_per_s']:.1f} tokens/s, prefill {stats['prefill_tokens']} "
           f"tokens at {stats['prefill_tokens_per_s']:.1f} tokens/s ({smi})", flush=True)
 
+    chunked_launches = check_chunked_serving(cfg, model, prompts, outs, smi)
+
     # First step: the serving prefill's logits for prompt 0 against the
     # dense forward of the same weights, both on the card.
     params = prepare_params(model.state_dict(), cfg, "cuda")
@@ -403,6 +633,206 @@ def phase_serving(smi: str) -> dict:
     if err > 5e-2:
         raise AssertionError(line)
     print(line, flush=True)
+    return collections.Counter(launches) + collections.Counter(chunked_launches)
+
+
+PREFILL_CHUNK = 256
+#: Bound on rel_err_norm between the chunked and the whole prefill's
+#: last-prompt-token logits: the chunks attend over the int8-dequantized
+#: history where the whole prefill attends over the bf16 K/V it just made.
+CHUNK_LOGITS_BOUND = 5e-2
+
+
+def _serving_engine(cfg, state, **kw):
+    from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
+
+    return ServingEngine(cfg, state, device="cuda", num_pages=256, page_size=128, max_batch=8,
+                         kv_dtype=torch.int8, decode_window=32, **kw)
+
+
+def _capture_first_logits(engine) -> dict:
+    """Wrap the engine's prefill-boundary sampling to keep each request's
+    last-prompt-token logits."""
+    logits_by_seq = {}
+    pick = engine._pick_token
+
+    def keep(logits_row, seq):
+        logits_by_seq[tuple(seq.tokens[:seq.prompt_len])] = logits_row.float().clone()
+        return pick(logits_row, seq)
+
+    engine._pick_token = keep
+    return logits_by_seq
+
+
+def check_chunked_serving(cfg, model, prompts, unchunked_outs, smi) -> dict:
+    """The same requests with prefill_chunk=PREFILL_CHUNK: prompts longer
+    than it prefill one chunk per step() through K1 with the key-bias
+    stream over the paged history. Every request's first token must equal
+    the unchunked run's and its last-prompt-token logits must agree within
+    CHUNK_LOGITS_BOUND; prints the share of equal greedy tokens."""
+    state = model.state_dict()
+    whole = _serving_engine(cfg, state)
+    whole_logits = _capture_first_logits(whole)
+    whole.generate(prompts, max_new_tokens=1)
+    engine = _serving_engine(cfg, state, prefill_chunk=PREFILL_CHUNK)
+    chunk_logits = _capture_first_logits(engine)
+    engine.generate([p[:8] for p in prompts[:2]], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    engine.reset_performance_stats()
+    chunk_logits.clear()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    stats = engine.get_performance_stats()
+    want_chunks = sum(-(-len(p) // PREFILL_CHUNK) for p in prompts if len(p) > PREFILL_CHUNK)
+    if stats["prefill_chunks"] != want_chunks:
+        raise AssertionError(f"chunked serving: {stats['prefill_chunks']} chunks, expected {want_chunks}")
+    if launches.get("pfa_flash_fwd_streams", 0) != cfg.n_layer * want_chunks:
+        raise AssertionError(f"chunked serving: K1 with streams launched "
+                             f"{launches.get('pfa_flash_fwd_streams', 0)} times, expected "
+                             f"{cfg.n_layer * want_chunks}")
+    firsts = [o[0] for o in outs] == [o[0] for o in unchunked_outs]
+    same = sum(a == b for o, u in zip(outs, unchunked_outs) for a, b in zip(o, u))
+    errs = [rel_err_norm(chunk_logits[tuple(p)], whole_logits[tuple(p)])
+            for p in prompts if len(p) > PREFILL_CHUNK]
+    line = (f"chunked serving: prefill_chunk={PREFILL_CHUNK}, {stats['prefill_chunks']} chunks, "
+            f"{len(prompts)} requests x {NEW_TOKENS} tokens in {wall:.2f} s; K1 launches "
+            f"{launches.get('pfa_flash_fwd', 0)} plain + {launches.get('pfa_flash_fwd_streams', 0)} "
+            f"with streams; first tokens equal to unchunked: {firsts}; greedy tokens equal "
+            f"{same}/{len(prompts) * NEW_TOKENS} ({100 * same / (len(prompts) * NEW_TOKENS):.1f}%); "
+            f"chunked-prompt last-token logits rel_err_norm "
+            f"{[f'{e:.3e}' for e in errs]} (bound {CHUNK_LOGITS_BOUND}) ({smi})")
+    if not firsts or max(errs) > CHUNK_LOGITS_BOUND:
+        raise AssertionError(line)
+    print(line, flush=True)
+    return launches
+
+
+ENGINE_WIDTH, ENGINE_HEADS = 1024, 16  # GPT-2 medium's attention widths
+#: Bound on rel_err_norm of a layer call against the same layer with fp32
+#: fused attention on the card (bf16 projections and attention output).
+ENGINE_BOUND = 2e-2
+
+
+def _seeded_layer(causal: bool, gen: torch.Generator):
+    from photonic_flash_attention_tpu_torch.models.attention import PhotonicFlashAttention
+
+    layer = PhotonicFlashAttention(ENGINE_WIDTH, ENGINE_HEADS, causal=causal)
+    with torch.no_grad():
+        for lin in (layer.q_proj, layer.k_proj, layer.v_proj, layer.out_proj):
+            lin.weight.normal_(0.0, 0.02, generator=gen)
+            lin.bias.normal_(0.0, 0.02, generator=gen)
+    return layer.to("cuda")
+
+
+def _layer_oracle(layer, query, key, value, mask, kv_lens):
+    """The layer's computation with fp32 fused attention."""
+    from photonic_flash_attention_tpu_torch.models.attention import dense
+    from photonic_flash_attention_tpu_torch.ops.fused import fused_attention
+
+    b, sq, _ = query.shape
+    skv = key.shape[1]
+    h, d = layer.num_heads, layer.head_dim
+    q = dense(query.to(layer.dtype), layer.q_proj).reshape(b, sq, h, d)
+    k = dense(key.to(layer.dtype), layer.k_proj).reshape(b, skv, h, d)
+    v = dense(value.to(layer.dtype), layer.v_proj).reshape(b, skv, h, d)
+    if kv_lens is not None:
+        mask = (torch.arange(skv, device="cuda")[None] < kv_lens[:, None])[:, None, None, :]
+    out, _ = fused_attention(q.float(), k.float(), v.float(), mask, causal=layer.causal)
+    return dense(out.to(layer.dtype).reshape(b, sq, h * d), layer.out_proj)
+
+
+def _engine_cases(gen):
+    """(name, causal layer?, query, key, value, mask, kv_lens, heuristic kind,
+    kernel counter) at GPT-2-medium width."""
+    x = torch.randn(4, 2048, ENGINE_WIDTH, device="cuda", generator=gen)
+    lens4 = torch.tensor([2048, 1536, 1000, 700], device="cuda")
+    pad_mask = (torch.arange(2048, device="cuda")[None] < lens4[:, None])[:, None, None, :]
+    q1 = torch.randn(8, 1, ENGINE_WIDTH, device="cuda", generator=gen)
+    ctx = torch.randn(8, 2048, ENGINE_WIDTH, device="cuda", generator=gen)
+    lens8 = torch.tensor([2048, 2000, 1500, 1024, 1000, 700, 129, 128], dtype=torch.int32,
+                         device="cuda")
+    short = torch.randn(4, 128, ENGINE_WIDTH, device="cuda", generator=gen)
+    return [
+        ("B4 S2048 causal", True, x, None, None, None, None, "flash_unrolled", "pfa_flash_fwd"),
+        ("B4 S2048 (B,1,1,S) key padding", False, x, None, None, pad_mask, None,
+         "flash_unrolled", "pfa_flash_fwd_streams"),
+        ("decode B8 Sq1 Skv2048 kv_lens", False, q1, ctx, ctx, None, lens8, "paged_decode",
+         "pfa_paged_hf"),
+        ("B4 S128 causal", True, short, None, None, None, None, "fused", None),
+    ]
+
+
+def phase_engine(smi: str) -> dict:
+    """The drop-in layer's adaptive route, eager calls under no_grad at
+    GPT-2-medium width: once with the heuristic (the kinds must be exactly
+    as listed) and once measured (warm-up over every eligible kind, then
+    exploit); every output against the fp32 fused oracle; K1 and K3 must
+    launch and the engine must count no failure."""
+    from photonic_flash_attention_tpu_torch.config import get_config, reset_config
+    from photonic_flash_attention_tpu_torch.core.engine import get_engine, reset_engine
+    from photonic_flash_attention_tpu_torch.core.router import KernelKind, WorkloadCharacteristics
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layers = {c: _seeded_layer(c, torch.Generator().manual_seed(int(c))) for c in (False, True)}
+    cases = _engine_cases(gen)
+    _build.reset_launches()
+    table = {}
+    with torch.no_grad():
+        for measured in (False, True):
+            reset_config()
+            get_config().update(auto_kernel_selection=measured)
+            reset_engine()
+            engine = get_engine()
+            for name, causal, query, key, value, mask, lens, kind, counter in cases:
+                layer = layers[causal]
+                before = dict(_build.LAUNCHES)
+                t0 = time.perf_counter()
+                for _ in range(4 if measured else 1):
+                    out, _ = layer(query, key, value, mask, kv_lens=lens)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                used = engine.last_kernel_used
+                err = rel_err_norm(out, _layer_oracle(layer, query, key if key is not None else query,
+                                                      value if value is not None else query, mask, lens))
+                line = (f"engine ({'measured' if measured else 'heuristic'}): {name}: kind {used}, "
+                        f"rel_err_norm {err:.3e} (bound {ENGINE_BOUND}), {wall:.3f} ms for "
+                        f"{4 if measured else 1} calls")
+                if err > ENGINE_BOUND or not torch.isfinite(out).all():
+                    raise AssertionError(line)
+                if not measured:
+                    if used != kind:
+                        raise AssertionError(f"{line}: the heuristic must pick {kind}")
+                    if counter and _build.LAUNCHES[counter] <= before.get(counter, 0):
+                        raise AssertionError(f"{line}: {counter} did not launch")
+                else:
+                    skv = (key if key is not None else query).shape[1]
+                    w = WorkloadCharacteristics(
+                        batch_size=query.shape[0], q_len=query.shape[1], kv_len=skv,
+                        num_heads=ENGINE_HEADS, head_dim=64, causal=causal,
+                        mask_kind="none" if mask is None and lens is None else "key",
+                        is_decode=query.shape[1] == 1, dtype="bfloat16",
+                        num_kv_heads=ENGINE_HEADS)
+                    table[name] = {k.value: engine.router.predicted_latency(k, w)
+                                   for k in KernelKind
+                                   if engine.router.predicted_latency(k, w) is not None}
+                    line += f"; router table (ms by kind) {table[name]}"
+                print(line, flush=True)
+            stats = engine.get_performance_stats()
+            if stats["failures"]:
+                raise AssertionError(f"engine: failures {stats['failures']}")
+    launches = dict(_build.LAUNCHES)
+    for name in ("pfa_flash_fwd", "pfa_flash_fwd_streams", "pfa_paged_hf"):
+        if not launches.get(name):
+            raise AssertionError(f"engine: {name} never launched through the engine")
+    print(f"engine: launches {launches}; failures {stats['failures']}; card power limit "
+          f"{stats['board_power_w']} W; last energy {stats['last_energy_mj']} mJ ({smi})",
+          flush=True)
+    reset_config()
+    reset_engine()
     return launches
 
 
@@ -588,15 +1018,22 @@ def main() -> None:
     phase_build()
     results = phase_kernels()
     launches = collections.Counter(phase_serving(smi))
+    launches.update(phase_engine(smi))
     launches.update(phase_training(smi, args.profile))
-    kernels = [
-        {
+    def entry(name: str) -> dict:
+        r = results[name]
+        return {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
-        for name, r in results.items()
-    ]
+
+    kernels = [entry(name) for name in SOURCES if name not in NESTED_MODES]
+    for mode, (parent, label) in NESTED_MODES.items():
+        # A mode that no main path runs (checked in the kernels phase only)
+        # rides under its kernel's entry.
+        next(k for k in kernels if k["name"] == parent).setdefault("modes", {})[label] = entry(mode)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

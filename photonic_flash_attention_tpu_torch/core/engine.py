@@ -1,0 +1,389 @@
+"""Adaptive attention engine: kernel registry, measured routing, stats.
+
+Port of ``photonic_flash_attention_tpu/core/engine.py``: ``AttentionEngine``,
+``get_engine`` and ``reset_engine``, with ``_analyze_mask`` (a concrete
+boolean mask that is really key padding becomes ``kv_lens``/``k_bias``),
+warm-up then exploit (each eligible kind is measured once before the router
+exploits its table, ``core/timing.py``), the off-thread refresh of a stale
+measurement, and the stats surface (``last_kernel_used``,
+``get_performance_stats``). Calls are eager; there is no jit cache.
+
+Kinds offered (``quant_mode="bf16"``, no mesh):
+
+* FUSED — ``ops/fused.py`` (plain PyTorch, as JAX leaves it to XLA);
+* FLASH — ``ops/flash.py`` (K1), plain or with the key streams;
+* FLASH_UNROLLED — ``ops/flash_unrolled.py`` (K1), square self-attention,
+  ``kv_lens`` folded into the per-key bias first, as in JAX;
+* PAGED_DECODE — decode-shaped calls (Sq = 1, Skv >= 128): contiguous K/V
+  repacked into a token-major page-128 pool with an identity page table,
+  then ``ops/paged.py::paged_attention_hf`` (K3).
+
+Differences from the JAX engine, each in ROADMAP Queue C:
+
+* a dense (Sq, Skv) mask is offered FUSED only: K1 has no dense-bias tile
+  stream yet (B10);
+* no hidden fallback for CUDA tensors: a kernel that fails there raises
+  (the JAX engine reruns the call on FUSED and counts the failure); CPU
+  tensors keep the JAX fallback;
+* the fp8/int8 kinds (``enable_fp8``, ``enable_int8``, ``quant_mode``
+  fp8/int8) are ROADMAP A9 and the sequence-parallel kinds
+  (``set_mesh``) A12: both raise ``NotImplementedError``;
+* energy is latency x the card's power limit, read once from
+  ``nvidia-smi`` when the engine starts (None without a card); the JAX
+  engine's 170 W is a TPU v5e figure, and its roofline energy model waits
+  for A14.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..config import get_config
+from ..ops.flash import flash_attention
+from ..ops.flash_unrolled import flash_attention_unrolled, unrolled_supported
+from ..ops.fused import fused_attention
+from ..ops.paged import paged_attention_hf
+from ..ops.reference import DEFAULT_MASK_VALUE
+from ..utils.exceptions import ComputationError
+from ..utils.logging import get_logger
+from ..utils.monitoring import get_metrics
+from ..utils.validation import validate_attention_inputs
+from .autotuner import Autotuner, TuneResult, candidate_blocks, get_autotuner
+from .router import AdaptiveRouter, KernelKind, WorkloadCharacteristics
+from .timing import measure_ms
+
+logger = get_logger("engine")
+
+#: Page size of the PAGED_DECODE repack (the JAX engine's).
+DECODE_PAGE = 128
+
+
+def card_power_limit_w() -> Optional[float]:
+    """The current card's power limit in W from ``nvidia-smi``; None
+    without CUDA or when it cannot be read."""
+    if not torch.cuda.is_available():
+        return None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader,nounits",
+             "-i", str(torch.cuda.current_device())],
+            check=True, capture_output=True, text=True, timeout=30,
+        ).stdout
+        return float(out.strip().splitlines()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError) as e:
+        logger.warning("could not read the card's power limit: %s", e)
+        return None
+
+
+def _analyze_mask(mask: Optional[torch.Tensor], b: int, skv: int):
+    """Classify a boolean mask for kernel routing (JAX ``_analyze_mask``).
+
+    Returns ``(mask_kind, kv_lens, k_bias)``: ``("none", None, None)``;
+    ``("key", lens, None)`` for a head- and row-invariant contiguous prefix
+    (right padding); ``("key", lens, bias)`` for any other key pattern,
+    lens then the last valid position + 1; ``("dense", None, None)`` for a
+    mask with (Sq, Skv) structure."""
+    if mask is None:
+        return "none", None, None
+    m = mask.to(torch.bool)
+    while m.ndim < 4:
+        m = m[None]
+    if m.shape[1] != 1 and not bool((m == m[:, :1]).all()):
+        return "dense", None, None
+    mh = m[:, :1]
+    if mh.shape[2] != 1 and not bool((mh == mh[:, :, :1]).all()):
+        return "dense", None, None
+    km = mh[:, 0, 0, :].expand(b, skv)
+    pos = torch.arange(skv, device=km.device)
+    lens = torch.where(km, pos + 1, 0).amax(dim=1).to(torch.int32)
+    if bool((km == (pos[None] < lens[:, None])).all()):
+        return "key", lens, None
+    k_bias = torch.where(km, 0.0, DEFAULT_MASK_VALUE).to(torch.float32)
+    return "key", lens, k_bias
+
+
+def _key_keep(skv: int, kv_lens, k_bias, device) -> torch.Tensor:
+    """The (B, Skv) boolean keep-mask of a key mask given as lens/bias."""
+    if k_bias is not None:
+        return k_bias >= DEFAULT_MASK_VALUE / 2
+    return torch.arange(skv, device=device)[None] < kv_lens.to(device)[:, None]
+
+
+def _decode_paged(q, k, v, kv_lens):
+    """PAGED_DECODE: (B, 1, Hq, D) over contiguous (B, Skv, Hkv, D) K/V,
+    repacked into a token-major (Hkv, B*pps, 128, D) pool with an identity
+    page table, through paged_attention_hf."""
+    b, _, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    pad = (-skv) % DECODE_PAGE
+    pps = (skv + pad) // DECODE_PAGE
+
+    def to_pages(x):
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        return x.reshape(b, pps, DECODE_PAGE, hkv, d).permute(3, 0, 1, 2, 4).reshape(
+            hkv, b * pps, DECODE_PAGE, d
+        ).contiguous()
+
+    tables = torch.arange(b * pps, dtype=torch.int32, device=q.device).reshape(b, pps)
+    lengths = (
+        kv_lens.to(device=q.device, dtype=torch.int32)
+        if kv_lens is not None
+        else torch.full((b,), skv, dtype=torch.int32, device=q.device)
+    )
+    out = paged_attention_hf(q[:, 0], to_pages(k), to_pages(v), lengths, tables)
+    return out[:, None]
+
+
+class AttentionEngine:
+    """Routes (q, k, v) attention calls across the port's kernels by
+    measured latency per workload bucket."""
+
+    def __init__(
+        self,
+        router: Optional[AdaptiveRouter] = None,
+        autotuner: Optional[Autotuner] = None,
+        enable_fp8: Optional[bool] = None,
+        enable_int8: Optional[bool] = None,
+    ) -> None:
+        cfg = get_config()
+        if enable_fp8 or enable_int8 or (
+            enable_fp8 is None and enable_int8 is None and cfg.quant_mode != "bf16"
+        ):
+            raise NotImplementedError(
+                "the fp8/int8 attention kinds are not ported yet (ROADMAP A9); "
+                "use quant_mode='bf16'"
+            )
+        self.router = router or AdaptiveRouter()
+        self.router.energy_model = lambda kind, w, lat: self._estimate_energy_mj(lat)
+        self.autotuner = autotuner or get_autotuner()
+        #: the card's power limit (W), read once; None without a card.
+        self.board_power_w = card_power_limit_w()
+        self.router.board_power_w = self.board_power_w
+        self._lock = threading.RLock()
+        self._metrics = get_metrics()
+        self._refresh_inflight: set = set()
+        self.last_kernel_used: Optional[str] = None
+        self.last_latency_ms: float = 0.0
+        self.last_energy_mj: Optional[float] = None
+        self._total_calls = 0
+        self._failure_counts: Dict[str, int] = {}
+
+    # -- mesh context (ROADMAP A12) -----------------------------------------
+
+    def set_mesh(self, mesh, **kwargs) -> None:
+        raise NotImplementedError("ring and Ulysses attention are not ported yet (ROADMAP A12)")
+
+    # -- the registry ----------------------------------------------------------
+
+    def _available_kernels(
+        self, w: Optional[WorkloadCharacteristics] = None
+    ) -> Tuple[KernelKind, ...]:
+        kinds = [KernelKind.FUSED, KernelKind.FLASH]
+        if w is None:
+            return tuple(kinds)
+        if w.mask_kind == "dense":
+            return (KernelKind.FUSED,)  # no dense-bias stream in K1 yet (B10)
+        if not w.is_decode and w.q_len == w.kv_len and unrolled_supported(w.q_len, w.head_dim):
+            kinds.append(KernelKind.FLASH_UNROLLED)
+        if w.is_decode and w.kv_len >= DECODE_PAGE and w.dtype in ("bfloat16", "float32"):
+            kinds.append(KernelKind.PAGED_DECODE)  # pools K3 takes; not float16
+        return tuple(kinds)
+
+    def _run(self, kind: KernelKind, q, k, v, mask, kv_lens, k_bias, causal, need_weights):
+        """Execute one kind: (output, weights or None)."""
+        if kind == KernelKind.FUSED:
+            if mask is None and (kv_lens is not None or k_bias is not None):
+                # A key mask given as lens/bias: the fused path takes it dense.
+                mask = _key_keep(k.shape[1], kv_lens, k_bias, q.device)[:, None, None, :]
+            return fused_attention(q, k, v, mask, causal=causal, need_weights=need_weights)
+        if kind == KernelKind.FLASH:
+            return flash_attention(q, k, v, causal=causal, kv_lens=kv_lens, k_bias=k_bias), None
+        if kind == KernelKind.FLASH_UNROLLED:
+            bias = k_bias.float() if k_bias is not None else None
+            if kv_lens is not None:
+                # Key padding as the in-kernel per-key bias (one fp32 stream).
+                keep = _key_keep(k.shape[1], kv_lens, None, q.device)
+                bias = torch.where(keep, 0.0 if bias is None else bias, DEFAULT_MASK_VALUE)
+            return flash_attention_unrolled(q, k, v, causal=causal, k_bias=bias), None
+        if kind == KernelKind.PAGED_DECODE:
+            return _decode_paged(q, k, v, kv_lens), None
+        raise ComputationError(f"engine has no kernel for {kind}")
+
+    # -- main entry -------------------------------------------------------------
+
+    def __call__(
+        self,
+        q: torch.Tensor,
+        k: torch.Tensor,
+        v: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        *,
+        causal: bool = False,
+        need_weights: bool = False,
+        kv_lens: Optional[torch.Tensor] = None,
+        k_bias: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Route and execute one attention call: (B, S, H, D) in,
+        ((B, Sq, Hq, D), optional (B, Hq, Sq, Skv) weights) out. Key padding
+        may come as ``kv_lens``/``k_bias`` or as a boolean ``mask`` that
+        ``_analyze_mask`` recognises."""
+        validate_attention_inputs(q, k, v, mask)
+        b, sq, hq, d = q.shape
+        skv = k.shape[1]
+        if kv_lens is not None or k_bias is not None:
+            if mask is not None:
+                raise ComputationError("pass either mask or kv_lens/k_bias, not both")
+            mask_kind = "key"
+        else:
+            mask_kind, kv_lens, k_bias = _analyze_mask(mask, b, skv)
+            if mask_kind == "key":
+                mask = None  # carried as lens/bias from here on
+        w = WorkloadCharacteristics(
+            batch_size=b, q_len=sq, kv_len=skv, num_heads=hq, head_dim=d, causal=causal,
+            mask_kind=mask_kind, need_weights=need_weights, is_decode=(sq == 1),
+            dtype=str(q.dtype).split(".")[-1], num_kv_heads=k.shape[2],
+        )
+        cfg = get_config()
+        # PAGED_DECODE takes key padding as lengths but has no per-key bias.
+        available = tuple(
+            kind for kind in self._available_kernels(w)
+            if not (kind == KernelKind.PAGED_DECODE and k_bias is not None)
+        )
+        eligible = self.router.eligible_kernels(w, available)
+        if cfg.auto_kernel_selection:
+            kind = self.router.select_kernel(w, available)
+        else:
+            kind = self.router.heuristic_selection(w, eligible)
+
+        def run(kind: KernelKind, q_in: torch.Tensor):
+            return self._run(kind, q_in, k, v, mask, kv_lens, k_bias, causal, need_weights)
+
+        if (
+            cfg.auto_kernel_selection
+            and len(eligible) > 1
+            and kind in eligible
+            and self.router.needs_measurement(kind, w)
+        ):
+            if self.router.has_measurement(kind, w):
+                # Stale: serve on the stale table now, refresh off-thread.
+                self._refresh_async(kind, w, run, q)
+            else:
+                try:
+                    self.router.record_measurement(kind, w, self._warmup_measure(kind, w, run, q))
+                except Exception as e:  # noqa: BLE001 - CPU keeps the JAX fallback
+                    if q.device.type == "cuda":
+                        raise
+                    logger.debug("warmup measurement failed for %s: %s", kind.value, e)
+
+        t0 = time.perf_counter()
+        try:
+            out, weights = run(kind, q)
+            if out.device.type == "cuda":
+                torch.cuda.synchronize(out.device)
+        except Exception as e:  # noqa: BLE001 - the JAX engine's failure fallback
+            self._failure_counts[kind.value] = self._failure_counts.get(kind.value, 0) + 1
+            if q.device.type == "cuda":
+                raise  # no hidden fallback on the card
+            logger.warning("kernel %s failed (%s); falling back to fused", kind.value, e)
+            kind = KernelKind.FUSED
+            out, weights = run(kind, q)
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        self.router.note_usage(kind, latency_ms)
+        self._record_stats(kind, latency_ms)
+        return out, weights
+
+    def _refresh_async(self, kind: KernelKind, w, run, q) -> None:
+        """Refresh a stale (kind, bucket) measurement on a worker thread; at
+        most one per (kind, bucket) in flight. A failure there counts in
+        the failure stats."""
+        key = (kind, w.bucket())
+        with self._lock:
+            if key in self._refresh_inflight:
+                return
+            self._refresh_inflight.add(key)
+
+        def worker() -> None:
+            try:
+                self.router.record_measurement(kind, w, measure_ms(lambda c: run(kind, c)[0], q))
+            except Exception as e:  # noqa: BLE001 - a worker thread reports, never raises
+                with self._lock:
+                    self._failure_counts[kind.value] = self._failure_counts.get(kind.value, 0) + 1
+                logger.warning("async refresh failed for %s: %s", kind.value, e)
+            finally:
+                with self._lock:
+                    self._refresh_inflight.discard(key)
+
+        threading.Thread(target=worker, name=f"pfa-refresh-{kind.value}", daemon=True).start()
+
+    def _warmup_measure(self, kind: KernelKind, w, run, q) -> float:
+        """First-contact measurement; for a plain flash bucket without a
+        tile profile, the profile of K1's tiles is recorded too."""
+        ms = measure_ms(lambda c: run(kind, c)[0], q)
+        cfg = get_config()
+        if kind == KernelKind.FLASH and cfg.auto_block_tuning and w.mask_kind == "none":
+            key = Autotuner.profile_key(w.q_len, w.kv_len, w.head_dim, w.batch_size, w.num_heads)
+            if self.autotuner.lookup(key) is None:
+                bq, bkv = candidate_blocks(w.q_len, w.kv_len, w.head_dim)[0]
+                self.autotuner.record(key, TuneResult(bq, bkv, ms))
+        return ms
+
+    # -- stats --------------------------------------------------------------------
+
+    def _estimate_energy_mj(self, latency_ms: float) -> Optional[float]:
+        """Latency x the card's power limit (ms x W = mJ), None without a
+        power figure."""
+        return latency_ms * self.board_power_w if self.board_power_w else None
+
+    def _record_stats(self, kind: KernelKind, latency_ms: float) -> None:
+        self._total_calls += 1
+        self.last_kernel_used = kind.value
+        self.last_latency_ms = latency_ms
+        self.last_energy_mj = self._estimate_energy_mj(latency_ms)
+        self._metrics.record(f"attention.{kind.value}.latency_ms", latency_ms)
+        if self.last_energy_mj is not None:
+            self._metrics.record(f"attention.{kind.value}.energy_mj", self.last_energy_mj)
+
+    def get_performance_stats(self) -> Dict:
+        return {
+            "total_calls": self._total_calls,
+            "last_kernel_used": self.last_kernel_used,
+            "last_latency_ms": self.last_latency_ms,
+            "last_energy_mj": self.last_energy_mj,
+            "board_power_w": self.board_power_w,
+            "failures": dict(self._failure_counts),
+            "router": self.router.get_stats(),
+            "autotuner": self.autotuner.stats(),
+            "metrics": {
+                k: v for k, v in self._metrics.snapshot().items() if k.startswith("attention.")
+            },
+        }
+
+    def reset_stats(self) -> None:
+        self._total_calls = 0
+        self._failure_counts.clear()
+        self.router.reset()
+
+
+_engine: Optional[AttentionEngine] = None
+_engine_lock = threading.Lock()
+
+
+def get_engine() -> AttentionEngine:
+    """The process-wide engine, created at first use."""
+    global _engine
+    if _engine is None:
+        with _engine_lock:
+            if _engine is None:
+                _engine = AttentionEngine()
+    return _engine
+
+
+def reset_engine() -> None:
+    global _engine
+    with _engine_lock:
+        _engine = None

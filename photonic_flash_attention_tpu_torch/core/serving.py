@@ -6,16 +6,19 @@ the GPT-2 family:
 * sequences join the running batch as soon as a slot and pages are free
   (admission), leave on EOS/max-tokens (retirement), pages are recycled;
 * prefills run per sequence, right-padded to power-of-two buckets, through
-  the flash forward (kernel K1);
+  the flash forward (kernel K1); with ``prefill_chunk`` a longer prompt
+  prefills one chunk per ``step()`` (K1 with its key-bias stream over the
+  paged history), so decode advances between its chunks;
 * a decode window runs up to ``decode_window`` decode steps over a fixed
   slot batch (kernels K2 and K3 in every layer) with argmax or sampling on
   the device; tokens reach the host once per window. Inactive slots write
   to the reserved trash page 0 and attend over nothing.
 
 The JAX window is one compiled ``lax.scan``; here it is a Python loop of
-eager steps (a CUDA graph is later work). Not in this slice, each raising
-``NotImplementedError`` that names its ROADMAP item: the mesh (A12),
-chunked prefill (A5), Llama and T5 adapters (A8, A10), save/restore (A13).
+eager steps (a CUDA graph is later work). The engine runs on the card
+unless the caller passes ``device="cpu"``. Not in this slice, each raising
+``NotImplementedError`` that names its ROADMAP item: the mesh (A12), Llama
+and T5 adapters (A8, A10), save/restore (A13).
 """
 
 from __future__ import annotations
@@ -28,7 +31,13 @@ import numpy as np
 import torch
 
 from ..models.gpt2 import GPT2Config
-from ..models.gpt2_serving import KVPages, decode_step, prefill_step, prepare_params
+from ..models.gpt2_serving import (
+    KVPages,
+    decode_step,
+    prefill_chunk_step,
+    prefill_step,
+    prepare_params,
+)
 from ..ops.paged import POOL_DTYPES
 from ..utils.exceptions import KVCacheError
 from .native_sched import make_scheduler
@@ -107,7 +116,10 @@ class ServingEngine:
     """Single-device continuous batching (GPT-2 family).
 
     ``params`` is a ``models.gpt2.GPT2LMHead`` state_dict; the engine keeps
-    its own copy on ``device``, cast once to the serving dtypes."""
+    its own copy on ``device`` (the card by default), cast once to the
+    serving dtypes. ``prefill_chunk`` (a positive multiple of
+    ``page_size``, or None): prompts longer than it prefill in chunks of
+    that many tokens, one chunk per ``step()``."""
 
     ADMIT_SKIP_AHEAD = 4
 
@@ -116,7 +128,7 @@ class ServingEngine:
         cfg,
         params: Mapping[str, torch.Tensor],
         *,
-        device: Any = "cpu",
+        device: Any = "cuda",
         num_pages: int = 128,
         page_size: int = 128,
         max_batch: int = 8,
@@ -138,8 +150,14 @@ class ServingEngine:
             )
         if mesh is not None:
             raise NotImplementedError("sharded serving is ROADMAP A12")
-        if prefill_chunk is not None:
-            raise NotImplementedError("chunked prefill is ROADMAP A5")
+        if prefill_chunk is not None and (prefill_chunk <= 0 or prefill_chunk % page_size):
+            raise ValueError(
+                f"prefill_chunk must be a positive multiple of page_size ({page_size}); "
+                f"got {prefill_chunk}"
+            )
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ServingEngine runs on the card by default and CUDA is not "
+                               "available; pass device='cpu' to run on the CPU")
         if admission not in ("fifo", "best-fit"):
             raise ValueError(f"admission must be 'fifo' or 'best-fit', got {admission!r}")
         if kv_dtype not in POOL_DTYPES:
@@ -159,6 +177,7 @@ class ServingEngine:
         self.top_k = int(top_k)
         self._sample_seed = int(seed)
         self.decode_window = max(1, decode_window)
+        self.prefill_chunk = prefill_chunk
         self.pages = KVPages.create(cfg, num_pages, page_size, kv_dtype, self.device)
         self._alloc = _PyPageAllocator(num_pages, page_size, max_pages_per_seq)
         self._slots: List[Optional[int]] = [None] * max_batch  # slot -> seq_id
@@ -173,6 +192,7 @@ class ServingEngine:
         self._prefill_time = 0.0
         self._decode_time = 0.0
         self._steps = 0
+        self._prefill_chunks = 0
         # Decode steps ever sampled. It seeds the sampling generators and is
         # never reset: reset_performance_stats() must not replay a sampling
         # stream (the JAX engine seeds its keys from _steps, which that
@@ -249,7 +269,10 @@ class ServingEngine:
             seq.slot = slot
             self._slots[slot] = sid
             self._tables_dirty = True
-            self._prefill(seq)
+            if self.prefill_chunk is not None and seq.prompt_len > self.prefill_chunk:
+                seq.prefilled = 0  # chunks advance one per step()
+            else:
+                self._prefill(seq)
 
     def _flat_slot(self, seq: _Sequence, token_idx: int) -> int:
         page = seq.page_ids[token_idx // self.page_size]
@@ -283,6 +306,50 @@ class ServingEngine:
         self._prefill_tokens += seq.prompt_len
         seq.prefilled = seq.prompt_len
         self._append_token(seq, token)
+
+    def _advance_prefill(self, seq: _Sequence) -> None:
+        """Run ONE prefill chunk of ``seq`` (bounded decode stall). The
+        history window is the power-of-two page count covering the tokens
+        already cached, its dead tail masked by the chunk step's key bias."""
+        c, page = self.prefill_chunk, self.page_size
+        start = seq.prefilled
+        end = min(start + c, seq.prompt_len)
+        n = end - start
+        ids = np.zeros((1, c), np.int64)
+        ids[0, :n] = seq.tokens[start:end]
+        slots = np.full((1, c), _TRASH_PAGE * page, np.int32)
+        for i in range(n):
+            slots[0, i] = self._flat_slot(seq, start + i)
+        s_hist = 0
+        if start:
+            hp = -(-start // page)
+            s_hist = min(1 << (hp - 1).bit_length(), self.max_pages_per_seq) * page
+        tables = np.zeros((1, self.max_pages_per_seq), np.int32)
+        tables[0, : len(seq.page_ids)] = seq.page_ids
+        t0 = time.perf_counter()
+        logits = prefill_chunk_step(
+            self.params,
+            self.cfg,
+            torch.from_numpy(ids).to(self.device),
+            torch.tensor([start], device=self.device),
+            torch.tensor([n], device=self.device),
+            self.pages,
+            torch.from_numpy(slots).to(self.device),
+            torch.from_numpy(tables).to(self.device),
+            self.quantized,
+            s_hist,
+        )
+        token = self._pick_token(logits[0], seq) if end == seq.prompt_len else None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prefill_time += time.perf_counter() - t0
+        self._prefill_tokens += n
+        self._prefill_chunks += 1
+        seq.prefilled = end
+        if token is not None:
+            # Prefill complete: the slot joins the decode batch.
+            self._tables_dirty = True
+            self._append_token(seq, token)
 
     def _generator(self, *salt: int) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -342,16 +409,28 @@ class ServingEngine:
         return seq.new_tokens > 0 and not seq.done
 
     def step(self) -> int:
-        """One scheduler iteration: admit (prefilling each newcomer), then
-        run one decode window over every ready slot. Returns the number of
-        sequences decoded."""
+        """One scheduler iteration: admit (prefilling each newcomer whole
+        or deferring it to chunks), advance at most ONE pending prefill
+        chunk, then run one decode window over every ready slot. Returns
+        the number of sequences decoded, or, when none is ready, the
+        number still prefilling (0 only when nothing can progress)."""
         self._try_admit()
+        for sid in self._slots:
+            if sid is None:
+                continue
+            seq = self._sequences[sid]
+            if not seq.done and seq.prefilled < seq.prompt_len:
+                self._advance_prefill(seq)
+                break
         active = [
             sid for sid in self._slots
             if sid is not None and self._ready(self._sequences[sid])
         ]
         if not active:
-            return 0
+            return sum(
+                1 for sid in self._slots
+                if sid is not None and not self._sequences[sid].done
+            )
 
         b = self.max_batch
         n_steps = self._window_steps(active)
@@ -462,12 +541,14 @@ class ServingEngine:
         self._prefill_time = 0.0
         self._decode_time = 0.0
         self._steps = 0
+        self._prefill_chunks = 0
 
     def get_performance_stats(self) -> Dict:
         return {
             "prefill_tokens": self._prefill_tokens,
             "decode_tokens": self._decode_tokens,
             "decode_steps": self._steps,
+            "prefill_chunks": self._prefill_chunks,
             "prefill_time": self._prefill_time,
             "decode_time": self._decode_time,
             "prefill_tokens_per_s": (

@@ -14,6 +14,21 @@
 // domain, so lse = (m + log2 l) * ln 2; a row with no valid key gets
 // lse = -inf and o = 0. The inference path passes null and writes nothing.
 //
+// Key-padding streams (the lens_ref / kbias_ref streams of the TPU kernel,
+// ops/flash.py:77-78, 159-161, 266-271, 299-300): `lens` (B,) int32 ends the
+// kv loop of batch row b at lens[b] (whole tiles past it are never loaded)
+// and masks col >= lens[b]; `kbias` (B, Skv) fp32 is added to the scaled
+// score. Both null keeps the plain path below, unchanged. With either
+// stream the kernel runs its softmax in natural units: the bias is
+// DEFAULT_MASK_VALUE (-0.7 FLT_MAX) for a masked key, and that value times
+// log2(e) overflows to -inf, which would turn a row whose keys are all
+// bias-masked into 0/0 instead of the reference's average over them. So the
+// score s*scale + bias is clamped at DEFAULT_MASK_VALUE, the running max is
+// kept in natural units, and only differences (s - m), which are finite or
+// -inf, are scaled by log2(e) inside exp2f. Structurally invalid keys
+// (past lens or Skv, above the causal diagonal) stay -inf and drop out; a
+// row with lens[b] == 0 gets o = 0 and lse = -inf.
+//
 // What bounds it on the H100: prefill attention over S ~ 1k-2k tokens does
 // ~S/2 multiply-adds per loaded K/V byte (causal), far above the bf16 ridge
 // (H100 SXM data sheet at its 700 W limit: 989 TFLOP/s over 3.35 TB/s,
@@ -40,16 +55,40 @@ constexpr int BQ = 64;            // query rows per block
 constexpr int BKV = 64;           // keys per K/V tile
 constexpr int BF16_THREADS = 128; // 4 warps x 16 query rows
 constexpr int F32_THREADS = 256;  // 4 threads per query row
+constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;  // DEFAULT_MASK_VALUE
+
+// Masked, scaled score of one key. STREAMS: natural units, bias added and
+// clamped at MASK_VALUE; else log2 units (scale already folded with log2 e).
+template <bool STREAMS>
+__device__ __forceinline__ float stream_score(float s, bool ok, float scale, float bias) {
+  if (!ok) return -INFINITY;
+  return STREAMS ? fmaxf(s * scale + bias, MASK_VALUE) : s * scale;
+}
+
+// exp of (x - base) for a score and a running max in the kernel's units.
+template <bool STREAMS>
+__device__ __forceinline__ float stream_exp(float x, float base) {
+  return STREAMS ? exp2f((x - base) * LOG2E) : exp2f(x - base);
+}
+
+// Final lse in natural log from the running max and sum.
+template <bool STREAMS>
+__device__ __forceinline__ float stream_lse(float m, float l) {
+  if (!(l > 0.f)) return -INFINITY;
+  return STREAMS ? m + logf(l) : (m + log2f(l)) * LN2;
+}
+
 // bf16: each warp owns 16 query rows. In the m16n8k16 fragments a lane
 // (g = lane/4, t4 = lane%4) holds rows g and g+8 and columns 2*t4, 2*t4+1
 // of every 8-wide score tile.
-template <int D>
+template <int D, bool STREAMS>
 __global__ void __launch_bounds__(BF16_THREADS)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
-               int Skv, int Hq, int Hkv, float scale_log2, int causal) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+               const int* __restrict__ lens, const float* __restrict__ kbias, int Sq,
+               int Skv, int Hq, int Hkv, float sm_scale, int causal) {
   constexpr int LD = D + 8;   // padded shared row: conflict-free fragment loads
   constexpr int NT = BKV / 8; // 8-wide score tiles per K/V tile
   constexpr int DT = D / 8;   // 8-wide output tiles
@@ -58,6 +97,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = Qs + BQ * LD;
   __nv_bfloat16* Vs = Ks + BKV * LD;
+  __shared__ float Bs[BKV];  // the tile's key bias (STREAMS with kbias)
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -84,16 +124,22 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   float acc[DT][4];
 #pragma unroll
   for (int dn = 0; dn < DT; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max (log2 domain), rows g, g+8
+  float m[2] = {-INFINITY, -INFINITY};  // running max (kernel units), rows g, g+8
   float l[2] = {0.f, 0.f};              // this lane's share of the running sum
   const int off = Skv - Sq;
   const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const int kv_end = causal ? min(Skv, q0 + BQ + off) : Skv;
+  const float scale = STREAMS ? sm_scale : sm_scale * LOG2E;
+  const int len = STREAMS && lens != nullptr ? max(0, min(lens[b], Skv)) : Skv;
+  const int kv_end = min(len, causal ? q0 + BQ + off : Skv);
+  const float* bias_row = STREAMS && kbias != nullptr ? kbias + (long long)b * Skv : nullptr;
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();  // the previous tile is consumed
     load_tile_bf16<D, LD, BF16_THREADS>(Ks, kb + kv0 * kvstr, kvstr, BKV, Skv - kv0);
     load_tile_bf16<D, LD, BF16_THREADS>(Vs, vb + kv0 * kvstr, kvstr, BKV, Skv - kv0);
+    if (STREAMS)
+      for (int i = threadIdx.x; i < BKV; i += BF16_THREADS)
+        Bs[i] = bias_row != nullptr && kv0 + i < Skv ? bias_row[kv0 + i] : 0.f;
     __syncthreads();
 
     float s[NT][4];
@@ -113,9 +159,9 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + n * 8 + t4 * 2 + (e & 1);
-        const bool ok = col < Skv && (!causal || col <= rows[e >> 1] + off);
-        s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
+        const int c = n * 8 + t4 * 2 + (e & 1), col = kv0 + c;
+        const bool ok = col < len && (!causal || col <= rows[e >> 1] + off);
+        s[n][e] = stream_score<STREAMS>(s[n][e], ok, scale, STREAMS ? Bs[c] : 0.f);
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
     }
@@ -126,7 +172,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       const float m_new = fmaxf(m[i], mx[i]);
       base[i] = m_new == -INFINITY ? 0.f : m_new;  // row fully masked so far
-      alpha[i] = exp2f(m[i] - base[i]);
+      alpha[i] = stream_exp<STREAMS>(m[i], base[i]);
       m[i] = m_new;
       l[i] *= alpha[i];
     }
@@ -134,7 +180,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - base[e >> 1]);
+        s[n][e] = stream_exp<STREAMS>(s[n][e], base[e >> 1]);
         l[e >> 1] += s[n][e];
       }
     }
@@ -173,19 +219,19 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
           __floats2bfloat162_rn(acc[dn][2 * i] * inv, acc[dn][2 * i + 1] * inv);
     }
     if (lse != nullptr && t4 == 0)
-      lse[((long long)b * Hq + h) * Sq + rows[i]] =
-          l[i] > 0.f ? (m[i] + log2f(l[i])) * LN2 : -INFINITY;
+      lse[((long long)b * Hq + h) * Sq + rows[i]] = stream_lse<STREAMS>(m[i], l[i]);
   }
 }
 
 // fp32: 4 threads per query row (thread quarter qd owns keys qd + 4j of a
 // tile and output columns qd + 4j); plain FMA, no reduced-precision math.
-template <int D>
+template <int D, bool STREAMS>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
-              float scale_log2, int causal) {
+              float* __restrict__ lse, const int* __restrict__ lens,
+              const float* __restrict__ kbias, int Sq, int Skv, int Hq, int Hkv,
+              float sm_scale, int causal) {
   constexpr int LDK = D + 1;    // padded rows: conflict-free column reads
   constexpr int LDP = BKV + 1;
   constexpr int NJ = BKV / 4;   // scores per thread per tile
@@ -195,6 +241,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Ks = Qs + BQ * LDK;
   float* Vs = Ks + BKV * LDK;
   float* Ps = Vs + BKV * D;
+  __shared__ float Bs[BKV];  // the tile's key bias (STREAMS with kbias)
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -213,7 +260,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < DJ; ++j) acc[j] = 0.f;
   float m = -INFINITY, l = 0.f;
   const int off = Skv - Sq, row = q0 + r;
-  const int kv_end = causal ? min(Skv, q0 + BQ + off) : Skv;
+  const float scale = STREAMS ? sm_scale : sm_scale * LOG2E;
+  const int len = STREAMS && lens != nullptr ? max(0, min(lens[b], Skv)) : Skv;
+  const int kv_end = min(len, causal ? q0 + BQ + off : Skv);
+  const float* bias_row = STREAMS && kbias != nullptr ? kbias + (long long)b * Skv : nullptr;
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();
@@ -223,6 +273,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       Ks[rr * LDK + c] = ok ? kb[(kv0 + rr) * kvstr + c] : 0.f;
       Vs[rr * D + c] = ok ? vb[(kv0 + rr) * kvstr + c] : 0.f;
     }
+    if (STREAMS)
+      for (int i = threadIdx.x; i < BKV; i += F32_THREADS)
+        Bs[i] = bias_row != nullptr && kv0 + i < Skv ? bias_row[kv0 + i] : 0.f;
     __syncthreads();
 
     float s[NJ];
@@ -237,20 +290,20 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = kv0 + qd + 4 * j;
-      const bool ok = col < Skv && (!causal || col <= row + off);
-      s[j] = ok ? s[j] * scale_log2 : -INFINITY;
+      const bool ok = col < len && (!causal || col <= row + off);
+      s[j] = stream_score<STREAMS>(s[j], ok, scale, STREAMS ? Bs[qd + 4 * j] : 0.f);
       mx = fmaxf(mx, s[j]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m, mx);
     const float base = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = exp2f(m - base);
+    const float alpha = stream_exp<STREAMS>(m, base);
     m = m_new;
     l *= alpha;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const float p = exp2f(s[j] - base);
+      const float p = stream_exp<STREAMS>(s[j], base);
       l += p;
       Ps[r * LDP + qd + 4 * j] = p;
     }
@@ -271,38 +324,53 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* orow = o + ((long long)b * Sq + row) * qstr + (long long)h * D;
 #pragma unroll
   for (int j = 0; j < DJ; ++j) orow[qd + 4 * j] = acc[j] * inv;
-  if (lse != nullptr && qd == 0)
-    lse[((long long)b * Hq + h) * Sq + row] = l > 0.f ? (m + log2f(l)) * LN2 : -INFINITY;
+  if (lse != nullptr && qd == 0) lse[((long long)b * Hq + h) * Sq + row] = stream_lse<STREAMS>(m, l);
 }
 
-template <int D>
-cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o, float* lse, dim3 grid,
-                     int Sq, int Skv, int Hq, int Hkv, float sl2, int causal,
-                     cudaStream_t st) {
+struct FwdArgs {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  const int* lens;
+  const float* kbias;
+  int Sq, Skv, Hq, Hkv;
+  float scale;
+  int causal;
+};
+
+template <int D, bool STREAMS>
+cudaError_t run_bf16(const FwdArgs& a, dim3 grid, cudaStream_t st) {
   constexpr int smem = (BQ + 2 * BKV) * (D + 8) * sizeof(__nv_bfloat16);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_bf16<D, STREAMS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  flash_fwd_bf16<D><<<grid, BF16_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq,
-      Skv, Hq, Hkv, sl2, causal);
+  flash_fwd_bf16<D, STREAMS><<<grid, BF16_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse, a.lens,
+      a.kbias, a.Sq, a.Skv, a.Hq, a.Hkv, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t run_f32(const void* q, const void* k, const void* v, void* o, float* lse, dim3 grid,
-                    int Sq, int Skv, int Hq, int Hkv, float sl2, int causal,
-                    cudaStream_t st) {
+template <int D, bool STREAMS>
+cudaError_t run_f32(const FwdArgs& a, dim3 grid, cudaStream_t st) {
   constexpr int smem = (2 * BQ * (D + 1) + BKV * D + BQ * (BKV + 1)) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32<D, STREAMS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  flash_fwd_f32<D><<<grid, F32_THREADS, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv, Hq, Hkv,
-      sl2, causal);
+  flash_fwd_f32<D, STREAMS><<<grid, F32_THREADS, smem, st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.lens, a.kbias, a.Sq,
+      a.Skv, a.Hq, a.Hkv, a.scale, a.causal);
   return cudaGetLastError();
+}
+
+template <bool STREAMS>
+cudaError_t run(const FwdArgs& a, int D, int dtype, dim3 grid, cudaStream_t st) {
+  if (dtype == PFA_BF16 && D == 64) return run_bf16<64, STREAMS>(a, grid, st);
+  if (dtype == PFA_BF16 && D == 128) return run_bf16<128, STREAMS>(a, grid, st);
+  if (dtype == PFA_F32 && D == 64) return run_f32<64, STREAMS>(a, grid, st);
+  if (dtype == PFA_F32 && D == 128) return run_f32<128, STREAMS>(a, grid, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -311,18 +379,18 @@ extern "C" const char* pfa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// lens (B,) int32 and kbias (B, Skv) fp32 may each be null; both null runs
+// the plain path.
 extern "C" int pfa_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                             void* lse_out, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                             float sm_scale, int causal, int dtype, void* stream) {
+                             void* lse_out, const void* lens, const void* kbias, int B, int Sq,
+                             int Skv, int Hq, int Hkv, int D, float sm_scale, int causal,
+                             int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  const float sl2 = sm_scale * LOG2E;
+  const FwdArgs a{q, k, v, o, static_cast<float*>(lse_out), static_cast<const int*>(lens),
+                  static_cast<const float*>(kbias), Sq, Skv, Hq, Hkv, sm_scale, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* lse = static_cast<float*>(lse_out);  // may be null
-  if (dtype == PFA_BF16 && D == 64) return run_bf16<64>(q, k, v, o, lse, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
-  if (dtype == PFA_BF16 && D == 128) return run_bf16<128>(q, k, v, o, lse, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
-  if (dtype == PFA_F32 && D == 64) return run_f32<64>(q, k, v, o, lse, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
-  if (dtype == PFA_F32 && D == 128) return run_f32<128>(q, k, v, o, lse, grid, Sq, Skv, Hq, Hkv, sl2, causal, st);
-  return cudaErrorInvalidValue;
+  if (lens != nullptr || kbias != nullptr) return run<true>(a, D, dtype, grid, st);
+  return run<false>(a, D, dtype, grid, st);
 }

@@ -26,6 +26,20 @@
 // shuffles, then round-half-even (rintf) quantization, bit-exact with
 // torch.round. Empty serving slots all write to trash page 0; concurrent
 // writes there are harmless because page 0 is never read.
+//
+// K3 also serves the read-only head-folded decode of the TPU kernel
+// ops/paged.py::_paged_hf_kernel (paged_attention_hf, the engine's
+// PAGED_DECODE kind) through pfa_paged_hf. Its float mode is the attend
+// above, in chunks of the TPU kernel's blocks of pages_per_block pages. Its
+// int8_compute mode (the default for int8 pools) takes q already quantized
+// per tensor by the wrapper: scores are int8 x int8 products summed in
+// int32 (exact in any order) times the score scale and the per-token K
+// scale; P, after the V scales are folded in, is requantized per (head,
+// block) as trunc(p * 127/pmax + 0.5) and multiplied with the int8 V rows
+// in int32, then scaled by pmax/127. The requant block must be the TPU
+// kernel's block of pages_per_block * page_size tokens: another
+// granularity rounds P differently. Its DMA pipelining (num_buffers) has no
+// counterpart: a block reads its own pages.
 
 #include "common.cuh"
 
@@ -48,6 +62,13 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[8]) {
   const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
   for (int j = 0; j < 8; ++j) out[j] = __bfloat162float(e[j]);
+}
+
+__device__ __forceinline__ void load8i(const int8_t* p, int out[8]) {
+  const int2 raw = *reinterpret_cast<const int2*>(p);
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out[j] = e[j];
 }
 
 __device__ __forceinline__ void load8(const float* p, float out[8]) {
@@ -86,32 +107,36 @@ paged_token_write(const Tin* __restrict__ k_new, const Tin* __restrict__ v_new,
 }
 
 // K3. grid (B, Hkv); the block's G = Hq / Hkv query heads share the kv
-// head's pages. Per chunk of CH tokens: (a) one thread per token computes
-// the G scores; (b) one warp per head updates max, sum and rescale factor;
-// (c) one thread per output element (head, d) accumulates P.V.
-template <typename Tpool, bool QUANT>
+// head's pages. Per chunk of `chunk` tokens: (a) one thread per token
+// computes the G scores; (b) one warp per head updates max, sum and rescale
+// factor (and, in I8C mode, requantizes P); (c) one thread per output
+// element (head, d) accumulates P.V. I8C (int8 pools only): q8 holds the
+// per-tensor int8 query and score_scale its dequant scale x sm_scale.
+template <typename Tpool, bool QUANT, bool I8C>
 __global__ void __launch_bounds__(ATT_THREADS)
-paged_decode_attend(const float* __restrict__ q, const Tpool* __restrict__ k_pool,
-                    const Tpool* __restrict__ v_pool,
+paged_decode_attend(const float* __restrict__ q, const int8_t* __restrict__ q8,
+                    const Tpool* __restrict__ k_pool, const Tpool* __restrict__ v_pool,
                     const float* __restrict__ k_scales,
                     const float* __restrict__ v_scales,
                     const int* __restrict__ lengths, const int* __restrict__ tables,
                     float* __restrict__ o, long long layer_base,
                     long long head_stride, int Hq, int Hkv, int D, int page_size,
-                    int pages_per_seq, float sm_scale) {
+                    int pages_per_seq, float sm_scale, int chunk) {
   const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   constexpr int NWARPS = ATT_THREADS / 32;
   const int G = Hq / Hkv, GD = G * D;
   extern __shared__ __align__(16) unsigned char smem[];
-  long long* tok_s = reinterpret_cast<long long*>(smem);  // CH token rows
-  float* qs = reinterpret_cast<float*>(tok_s + CH);       // G*D scaled q
+  long long* tok_s = reinterpret_cast<long long*>(smem);  // chunk token rows
+  float* qs = reinterpret_cast<float*>(tok_s + chunk);    // G*D scaled q (I8C: int q8)
   float* acc = qs + GD;                                   // G*D
-  float* p = acc + GD;                                    // G*CH scores, then P
-  float* vsc = p + G * CH;                                // CH V scales
-  float* m_s = vsc + CH;                                  // G running max
+  float* p = acc + GD;                                    // G*chunk scores, then P
+  float* vsc = p + G * chunk;                             // chunk V scales
+  float* m_s = vsc + chunk;                               // G running max
   float* l_s = m_s + G;                                   // G running sum
   float* a_s = l_s + G;                                   // G rescale factor
+  float* ps_s = a_s + G;                                  // G P dequant scale (I8C)
+  int* qi = reinterpret_cast<int*>(qs);
 
   const long long q_off = ((long long)b * Hq + (long long)h * G) * D;
   float* out = o + q_off;
@@ -121,7 +146,8 @@ paged_decode_attend(const float* __restrict__ q, const Tpool* __restrict__ k_poo
     return;
   }
   for (int i = tid; i < GD; i += ATT_THREADS) {
-    qs[i] = q[q_off + i] * sm_scale;
+    if (I8C) qi[i] = q8[q_off + i];
+    else qs[i] = q[q_off + i] * sm_scale;
     acc[i] = 0.f;
   }
   for (int i = tid; i < G; i += ATT_THREADS) {
@@ -132,59 +158,145 @@ paged_decode_attend(const float* __restrict__ q, const Tpool* __restrict__ k_poo
 
   const int* tab = tables + (long long)b * pages_per_seq;
   const long long head_base = layer_base + (long long)h * head_stride;
-  for (int t0 = 0; t0 < len; t0 += CH) {
-    const int n = min(CH, len - t0);
-    if (tid < n) {
-      const int t = t0 + tid;
+  for (int t0 = 0; t0 < len; t0 += chunk) {
+    const int n = min(chunk, len - t0);
+    for (int i = tid; i < n; i += ATT_THREADS) {
+      const int t = t0 + i;
       const long long tok = head_base + (long long)tab[t / page_size] * page_size + t % page_size;
-      tok_s[tid] = tok;
+      tok_s[i] = tok;
       const float ks = QUANT ? k_scales[tok] : 1.f;
-      vsc[tid] = QUANT ? v_scales[tok] : 1.f;
+      vsc[i] = QUANT ? v_scales[tok] : 1.f;
       const Tpool* kr = k_pool + tok * D;
       for (int gi = 0; gi < G; ++gi) {
-        const float* qg = qs + gi * D;
-        float dot = 0.f;
-        for (int d = 0; d < D; d += 8) {
-          float kv[8];
-          load8(kr + d, kv);
+        if constexpr (I8C) {
+          const int* qg = qi + gi * D;
+          int dot = 0;
+          for (int d = 0; d < D; d += 8) {
+            int kv[8];
+            load8i(reinterpret_cast<const int8_t*>(kr) + d, kv);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) dot = fmaf(qg[d + j], kv[j], dot);
+            for (int j = 0; j < 8; ++j) dot += qg[d + j] * kv[j];
+          }
+          p[gi * chunk + i] = __fmul_rn(__fmul_rn(static_cast<float>(dot), sm_scale), ks);
+        } else {
+          const float* qg = qs + gi * D;
+          float dot = 0.f;
+          for (int d = 0; d < D; d += 8) {
+            float kv[8];
+            load8(kr + d, kv);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) dot = fmaf(qg[d + j], kv[j], dot);
+          }
+          p[gi * chunk + i] = dot * ks;
         }
-        p[gi * CH + tid] = dot * ks;
       }
     }
     __syncthreads();
     for (int gi = warp; gi < G; gi += NWARPS) {
-      float* pg = p + gi * CH;
+      float* pg = p + gi * chunk;
       float mx = -INFINITY;
       for (int i = lane; i < n; i += 32) mx = fmaxf(mx, pg[i]);
       mx = warp_max(mx);
       const float m_new = fmaxf(m_s[gi], mx);  // finite: the chunk has n >= 1 tokens
       const float alpha = expf(m_s[gi] - m_new);
-      float sum = 0.f;
+      float sum = 0.f, pmax = 0.f;
       for (int i = lane; i < n; i += 32) {
         const float e = expf(pg[i] - m_new);
         sum += e;
         pg[i] = e * vsc[i];  // V scale folded into P
+        pmax = fmaxf(pmax, pg[i]);
       }
       sum = warp_sum(sum);
+      if (I8C) {
+        // Per-(head, block) P requant: p8 = trunc(p * 127/pmax + 0.5).
+        pmax = warp_max(pmax);
+        const float pinv = pmax == 0.f ? 0.f : 127.f / pmax;
+        for (int i = lane; i < n; i += 32)
+          pg[i] = truncf(__fadd_rn(__fmul_rn(pg[i], pinv), 0.5f));
+      }
       if (lane == 0) {
         l_s[gi] = l_s[gi] * alpha + sum;
         m_s[gi] = m_new;
         a_s[gi] = alpha;
+        if (I8C) ps_s[gi] = pmax == 0.f ? 0.f : pmax / 127.f;
       }
     }
     __syncthreads();
     for (int e = tid; e < GD; e += ATT_THREADS) {
       const int gi = e / D, d = e - gi * D;
-      const float* pg = p + gi * CH;
-      float a = acc[e] * a_s[gi];
-      for (int i = 0; i < n; ++i) a = fmaf(pg[i], to_float(v_pool[tok_s[i] * D + d]), a);
-      acc[e] = a;
+      const float* pg = p + gi * chunk;
+      if constexpr (I8C) {
+        int pv = 0;
+        for (int i = 0; i < n; ++i)
+          pv += static_cast<int>(pg[i]) * static_cast<int>(v_pool[tok_s[i] * D + d]);
+        acc[e] = __fadd_rn(__fmul_rn(acc[e], a_s[gi]),
+                           __fmul_rn(static_cast<float>(pv), ps_s[gi]));
+      } else {
+        float a = acc[e] * a_s[gi];
+        for (int i = 0; i < n; ++i) a = fmaf(pg[i], to_float(v_pool[tok_s[i] * D + d]), a);
+        acc[e] = a;
+      }
     }
     __syncthreads();
   }
   for (int e = tid; e < GD; e += ATT_THREADS) out[e] = acc[e] / l_s[e / D];
+}
+
+size_t attend_smem(int G, int D, int chunk) {
+  return chunk * sizeof(long long) + (size_t)(2 * G * D + G * chunk + chunk + 4 * G) * sizeof(float);
+}
+
+// Launch K3 (with the opt-in to more than 48 KB of shared memory when the
+// chunk needs it).
+template <typename Tpool, bool QUANT, bool I8C>
+cudaError_t run_attend(dim3 grid, size_t smem, cudaStream_t st, const float* q,
+                       const int8_t* q8, const void* k_pool, const void* v_pool,
+                       const float* ks, const float* vs, const int* len, const int* tab,
+                       float* out, long long layer_base, long long head_stride, int Hq,
+                       int Hkv, int D, int page_size, int pages_per_seq, float scale,
+                       int chunk) {
+  auto kernel = paged_decode_attend<Tpool, QUANT, I8C>;
+  if (smem > 48 * 1024) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, ATT_THREADS, smem, st>>>(
+      q, q8, static_cast<const Tpool*>(k_pool), static_cast<const Tpool*>(v_pool), ks, vs, len,
+      tab, out, layer_base, head_stride, Hq, Hkv, D, page_size, pages_per_seq, scale, chunk);
+  return cudaGetLastError();
+}
+
+// K3 over layer `layer` of the pool in chunks of `chunk` tokens; i8c
+// selects the int8-compute mode (int8 pools, q8 and score_scale given).
+cudaError_t attend(const void* q, const void* q8, const void* k_pool, const void* v_pool,
+                   const void* k_scales, const void* v_scales, const void* lengths,
+                   const void* tables, void* o, int layer, int B, int Hq, int Hkv, int D,
+                   int num_pages, int page_size, int pages_per_seq, float scale,
+                   int pool_dtype, int chunk, int i8c, cudaStream_t st) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || D % 8 != 0 || chunk <= 0) return cudaErrorInvalidValue;
+  if (i8c && pool_dtype != PFA_INT8) return cudaErrorInvalidValue;
+  const long long head_stride = (long long)num_pages * page_size;
+  const long long layer_base = (long long)layer * Hkv * head_stride;
+  const size_t smem = attend_smem(Hq / Hkv, D, chunk);
+  const dim3 grid(B, Hkv);
+  const float* qf = static_cast<const float*>(q);
+  const int8_t* qi = static_cast<const int8_t*>(q8);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  const int* len = static_cast<const int*>(lengths);
+  const int* tab = static_cast<const int*>(tables);
+  float* out = static_cast<float*>(o);
+#define PFA_ATTEND(T, QU, I8)                                                                \
+  run_attend<T, QU, I8>(grid, smem, st, qf, qi, k_pool, v_pool, ks, vs, len, tab, out,       \
+                        layer_base, head_stride, Hq, Hkv, D, page_size, pages_per_seq, scale, \
+                        chunk)
+  if (pool_dtype == PFA_INT8 && i8c) return PFA_ATTEND(int8_t, true, true);
+  if (pool_dtype == PFA_INT8) return PFA_ATTEND(int8_t, true, false);
+  if (pool_dtype == PFA_BF16) return PFA_ATTEND(__nv_bfloat16, false, false);
+  if (pool_dtype == PFA_F32) return PFA_ATTEND(float, false, false);
+#undef PFA_ATTEND
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -233,34 +345,21 @@ extern "C" int pfa_paged_decode_attend(const void* q, const void* k_pool, const 
                                        int layer, int B, int Hq, int Hkv, int D,
                                        int num_pages, int page_size, int pages_per_seq,
                                        float sm_scale, int pool_dtype, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || D % 8 != 0) return cudaErrorInvalidValue;
-  const long long head_stride = (long long)num_pages * page_size;
-  const long long layer_base = (long long)layer * Hkv * head_stride;
-  const int G = Hq / Hkv;
-  const size_t smem = CH * sizeof(long long) + (size_t)(2 * G * D + G * CH + CH + 3 * G) * sizeof(float);
-  const dim3 grid(B, Hkv);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* ks = static_cast<const float*>(k_scales);
-  const float* vs = static_cast<const float*>(v_scales);
-  const int* len = static_cast<const int*>(lengths);
-  const int* tab = static_cast<const int*>(tables);
-  float* out = static_cast<float*>(o);
-  if (pool_dtype == PFA_INT8) {
-    paged_decode_attend<int8_t, true><<<grid, ATT_THREADS, smem, st>>>(
-        qf, static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool), ks, vs, len,
-        tab, out, layer_base, head_stride, Hq, Hkv, D, page_size, pages_per_seq, sm_scale);
-  } else if (pool_dtype == PFA_BF16) {
-    paged_decode_attend<__nv_bfloat16, false><<<grid, ATT_THREADS, smem, st>>>(
-        qf, static_cast<const __nv_bfloat16*>(k_pool), static_cast<const __nv_bfloat16*>(v_pool),
-        ks, vs, len, tab, out, layer_base, head_stride, Hq, Hkv, D, page_size, pages_per_seq,
-        sm_scale);
-  } else if (pool_dtype == PFA_F32) {
-    paged_decode_attend<float, false><<<grid, ATT_THREADS, smem, st>>>(
-        qf, static_cast<const float*>(k_pool), static_cast<const float*>(v_pool), ks, vs, len,
-        tab, out, layer_base, head_stride, Hq, Hkv, D, page_size, pages_per_seq, sm_scale);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  return attend(q, nullptr, k_pool, v_pool, k_scales, v_scales, lengths, tables, o, layer, B,
+                Hq, Hkv, D, num_pages, page_size, pages_per_seq, sm_scale, pool_dtype, CH, 0,
+                static_cast<cudaStream_t>(stream));
+}
+
+// paged_attention_hf: q (B, Hq, D) fp32, or q8 (B, Hq, D) int8 with
+// score_scale = q dequant scale x sm_scale when int8_compute; chunks of
+// block_tokens = pages_per_block * page_size tokens.
+extern "C" int pfa_paged_hf(const void* q, const void* q8, const void* k_pool,
+                            const void* v_pool, const void* k_scales, const void* v_scales,
+                            const void* lengths, const void* tables, void* o, int layer, int B,
+                            int Hq, int Hkv, int D, int num_pages, int page_size,
+                            int pages_per_seq, float score_scale, int pool_dtype,
+                            int block_tokens, int int8_compute, void* stream) {
+  return attend(q, q8, k_pool, v_pool, k_scales, v_scales, lengths, tables, o, layer, B, Hq,
+                Hkv, D, num_pages, page_size, pages_per_seq, score_scale, pool_dtype,
+                block_tokens, int8_compute, static_cast<cudaStream_t>(stream));
 }

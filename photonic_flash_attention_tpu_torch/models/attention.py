@@ -1,25 +1,30 @@
-"""Drop-in attention module and its static kernel dispatch (PyTorch).
+"""Drop-in attention modules and the static kernel dispatch (PyTorch).
 
 Port of ``photonic_flash_attention_tpu/models/attention.py``:
 
 * :func:`dispatch_attention` — the JAX static threshold dispatch: the fused
   O(S^2) path (``ops/fused.py``) below ``flash_threshold`` or
   ``flash_min_tokens`` (``config.py``) or whenever a dense mask, an
-  additive bias or the weights are asked for; the flash path
-  (``ops/flash.py``: kernel K1 forward and K4/K5 backward on CUDA, their
-  plain versions on CPU) otherwise. The TPU-only autotuner lookup of the
-  JAX function has no counterpart.
+  additive bias or the weights are asked for; the flash path otherwise
+  (``ops/flash.py``: K1 forward, K4/K5 backward, or the masked backward
+  when key padding comes as ``kv_lens``/``k_bias``). The TPU-only
+  autotuner lookup of the JAX function has no counterpart.
 * :func:`padding_mask_to_lens_bias` — a (B, Skv) keep-mask as the flash
   kernel's per-row lengths and per-key bias.
 * :class:`PhotonicFlashAttention` — the q/k/v/out projections as an
   ``nn.Module`` (submodule names match the Flax ones, so weights map by
-  name) over :func:`dispatch_attention`, as the JAX module with
-  ``adaptive=False`` (the measured engine route is ROADMAP A7). Parameters
-  are float32; compute runs in ``dtype``, as Flax's
-  ``nn.Dense(dtype=...)`` casts inputs and kernels.
+  name). With ``adaptive=True`` (the default) a call that records no
+  gradient goes through the measured engine (``core/engine.py``); a call
+  that does (grad enabled and an input requiring grad, the counterpart of
+  a traced JAX call) takes :func:`dispatch_attention`. Parameters are
+  float32; compute runs in ``dtype``, as Flax's ``nn.Dense(dtype=...)``
+  casts inputs and kernels.
+* :class:`PhotonicMultiHeadAttention` — the ``nn.MultiheadAttention``-style
+  facade: (B, S, E) batch-first, ``key_padding_mask`` (True = ignore),
+  ``attn_mask``, head-averaged weights.
 
-Not in this slice: ``kv_lens``/``k_bias`` on the flash route (ROADMAP B5)
-and attention dropout (B10); both raise ``NotImplementedError``.
+Not in this slice: attention dropout (ROADMAP A10, B10), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import get_config
+from ..core.engine import get_engine
 from ..ops.flash import flash_attention
 from ..ops.fused import fused_attention
 from ..ops.reference import DEFAULT_MASK_VALUE
@@ -96,17 +102,16 @@ def dispatch_attention(
             q, k, v, mask, bias=bias, causal=causal, sm_scale=sm_scale,
             need_weights=need_weights,
         )
-    if kv_lens is not None or k_bias is not None:
-        raise NotImplementedError(
-            "kv_lens/k_bias on the flash route are not ported yet (ROADMAP A5, B5)"
-        )
-    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale), None
+    return flash_attention(
+        q, k, v, causal=causal, sm_scale=sm_scale, kv_lens=kv_lens, k_bias=k_bias
+    ), None
 
 
 class PhotonicFlashAttention(nn.Module):
     """Self-/cross-attention over (B, S, E) inputs; GQA when
-    ``num_kv_heads < num_heads``. ``attention_dropout`` (probability
-    dropout in train mode) must stay 0 until ROADMAP A10."""
+    ``num_kv_heads < num_heads``. ``adaptive``: calls that record no
+    gradient route through the measured engine. ``attention_dropout``
+    (probability dropout in train mode) must stay 0 until ROADMAP A10."""
 
     def __init__(
         self,
@@ -117,6 +122,7 @@ class PhotonicFlashAttention(nn.Module):
         causal: bool = False,
         attention_dropout: float = 0.0,
         use_bias: bool = True,
+        adaptive: bool = True,
         dtype: torch.dtype = torch.bfloat16,
     ) -> None:
         super().__init__()
@@ -130,6 +136,7 @@ class PhotonicFlashAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         self.causal = causal
         self.attention_dropout = attention_dropout
+        self.adaptive = adaptive
         self.dtype = dtype
         kv_dim = self.num_kv_heads * self.head_dim
         self.q_proj = nn.Linear(embed_dim, num_heads * self.head_dim, bias=use_bias)
@@ -161,9 +168,77 @@ class PhotonicFlashAttention(nn.Module):
         q = dense(x_q, self.q_proj).reshape(b, sq, self.num_heads, self.head_dim)
         k = dense(x_k, self.k_proj).reshape(b, skv, self.num_kv_heads, self.head_dim)
         v = dense(x_v, self.v_proj).reshape(b, skv, self.num_kv_heads, self.head_dim)
-        out, weights = dispatch_attention(
+        records_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        route = get_engine() if self.adaptive and not records_grad else dispatch_attention
+        out, weights = route(
             q, k, v, mask, causal=self.causal, need_weights=need_weights,
             kv_lens=kv_lens, k_bias=k_bias,
         )
         out = out.reshape(b, sq, self.num_heads * self.head_dim)
         return dense(out, self.out_proj), weights
+
+    @staticmethod
+    def get_performance_stats() -> dict:
+        """The engine's stats surface."""
+        return get_engine().get_performance_stats()
+
+
+class PhotonicMultiHeadAttention(nn.Module):
+    """``nn.MultiheadAttention``-style facade (JAX ``attention.py:293``):
+    (B, S, E) batch-first tensors, ``key_padding_mask`` (B, Skv) with True =
+    ignore, an optional boolean ``attn_mask`` (True = attend, rank 2-4),
+    head-averaged weights when ``need_weights`` and
+    ``average_attn_weights``. Pure key padding reaches the kernels as
+    ``kv_lens``/``k_bias``; with an ``attn_mask`` the two merge into one
+    dense mask. The inner layer is the submodule ``attention``, as in
+    Flax."""
+
+    def __init__(
+        self,
+        embed_dim: int,
+        num_heads: int,
+        *,
+        attention_dropout: float = 0.0,
+        use_bias: bool = True,
+        causal: bool = False,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> None:
+        super().__init__()
+        self.attention = PhotonicFlashAttention(
+            embed_dim, num_heads, causal=causal, attention_dropout=attention_dropout,
+            use_bias=use_bias, dtype=dtype,
+        )
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        key: Optional[torch.Tensor] = None,
+        value: Optional[torch.Tensor] = None,
+        key_padding_mask: Optional[torch.Tensor] = None,
+        attn_mask: Optional[torch.Tensor] = None,
+        *,
+        need_weights: bool = True,
+        average_attn_weights: bool = True,
+    ) -> Attn:
+        key = query if key is None else key
+        b, sq, _ = query.shape
+        skv = key.shape[1]
+        mask = kv_lens = k_bias = None
+        if attn_mask is not None:
+            mask = attn_mask.to(torch.bool)
+            if mask.ndim == 2:
+                mask = mask[None, None]
+            elif mask.ndim == 3:
+                mask = mask[:, None]
+        if key_padding_mask is not None:
+            keep = ~key_padding_mask.to(torch.bool)
+            if mask is None:
+                kv_lens, k_bias = padding_mask_to_lens_bias(keep)
+            else:
+                mask = mask & keep[:, None, None, :].expand(b, 1, sq, skv)
+        out, weights = self.attention(
+            query, key, value, mask, need_weights=need_weights, kv_lens=kv_lens, k_bias=k_bias
+        )
+        if weights is not None and average_attn_weights:
+            weights = weights.mean(dim=1)
+        return out, weights

@@ -85,7 +85,7 @@ class Block(nn.Module):
         self.ln_1 = nn.LayerNorm(cfg.n_embd, eps=eps)
         self.attn = PhotonicFlashAttention(
             cfg.n_embd, cfg.n_head, causal=True, attention_dropout=cfg.attn_pdrop,
-            dtype=cfg.dtype,
+            adaptive=False, dtype=cfg.dtype,
         )
         self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=eps)
         self.mlp = MLP(cfg)

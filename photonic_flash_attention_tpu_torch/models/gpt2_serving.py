@@ -5,6 +5,9 @@ Port of ``photonic_flash_attention_tpu/models/gpt2_serving.py``:
 * :func:`prefill_step` — full-prompt forward with the flash forward (K1),
   writing every token's K/V into the sequence's pages (plain-torch scatter,
   as the JAX package leaves it to XLA);
+* :func:`prefill_chunk_step` — one chunk of a chunked prefill: the chunk's
+  queries over [paged history || chunk] in one K1 call with the per-key
+  bias stream;
 * :func:`decode_step` — one token per sequence: QKV projection, then per
   layer the paged token write (K2) and paged decode attention (K3).
 
@@ -29,8 +32,10 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.flash import flash_attention
 from ..ops.flash_unrolled import flash_attention_best
 from ..ops.paged import paged_decode_attention, paged_token_write_plain
+from ..ops.reference import DEFAULT_MASK_VALUE
 from .gpt2 import GPT2Config
 
 #: dense layer -> its parent module in the GPT2LMHead state_dict.
@@ -56,7 +61,7 @@ class KVPages:
     @staticmethod
     def create(
         cfg: GPT2Config, num_pages: int, page_size: int,
-        dtype: torch.dtype = torch.bfloat16, device: Any = "cpu",
+        dtype: torch.dtype = torch.bfloat16, device: Any = "cuda",
     ) -> "KVPages":
         head_dim = cfg.n_embd // cfg.n_head
         shape = (cfg.n_layer, cfg.n_head, num_pages, page_size, head_dim)
@@ -157,6 +162,83 @@ def prefill_step(
     x = _layer_norm(x, params["ln_f"], eps)
     idx = (prompt_lengths.to(x.device).long() - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=x.device), idx]
+    return (x_last @ params["wte"].T).float()
+
+
+def _gather_history(pages: KVPages, page_tables: torch.Tensor, lyr: int, n_hist_pages: int):
+    """The first ``n_hist_pages`` pages of each row of layer ``lyr`` as
+    dense (B, n_hist_pages * page, Hkv, D) K and V, dequantized to float32
+    for int8 pools (JAX ``_gather_history``)."""
+    pt = page_tables[:, :n_hist_pages].long()  # (B, pps)
+
+    def gather(pool, scales):
+        g = pool[lyr][:, pt]  # (Hkv, B, pps, page, D)
+        hkv, b, pps, page, d = g.shape
+        g = g.permute(1, 2, 3, 0, 4).reshape(b, pps * page, hkv, d)
+        if scales is None:
+            return g
+        sc = scales[lyr][:, pt].permute(1, 2, 3, 0).reshape(b, pps * page, hkv)
+        return g.float() * sc[..., None]
+
+    return gather(pages.k, pages.k_scales), gather(pages.v, pages.v_scales)
+
+
+@torch.no_grad()
+def prefill_chunk_step(
+    params: Dict[str, Any],
+    cfg: GPT2Config,
+    input_ids: torch.Tensor,  # (B, C) chunk tokens, right-padded
+    chunk_start: torch.Tensor,  # (B,) global position of chunk token 0
+    chunk_lens: torch.Tensor,  # (B,) valid tokens in this chunk
+    pages: KVPages,
+    flat_slots: torch.Tensor,  # (B, C) int32 flat page slots (trash past the chunk)
+    page_tables: torch.Tensor,  # (B, pages_per_seq) int32
+    quantized: bool,
+    s_hist: int,  # history window in tokens, a multiple of the page size
+) -> torch.Tensor:
+    """One chunk of a chunked prefill (JAX ``prefill_chunk_step``), pool
+    updated in place. Per layer: gather the first ``s_hist`` cached tokens
+    of the row, write the chunk's K/V into its pages, and run ONE flash call
+    (K1) over [history || chunk]: end-aligned causal masking covers the
+    chunk triangle, and the per-key bias kills the history past
+    ``chunk_start`` (not yet written) and the chunk's padding. Returns the
+    last valid chunk token's logits (B, V) float32."""
+    b, c = input_ids.shape
+    h, d = cfg.n_head, cfg.n_embd // cfg.n_head
+    eps = cfg.layer_norm_epsilon
+    device = input_ids.device
+    n_hist_pages = s_hist // pages.k.shape[3]
+    chunk_start = chunk_start.to(device).long()
+    chunk_lens = chunk_lens.to(device).long()
+    positions = (chunk_start[:, None] + torch.arange(c, device=device)[None]).clamp(
+        0, cfg.n_positions - 1
+    )
+    x = _embed(params, input_ids, positions)
+    dead = torch.cat(
+        [
+            torch.arange(s_hist, device=device)[None] >= chunk_start[:, None],
+            torch.arange(c, device=device)[None] >= chunk_lens[:, None],
+        ],
+        dim=1,
+    )
+    k_bias = torch.where(dead, DEFAULT_MASK_VALUE, 0.0).to(torch.float32)
+    slots = flat_slots.reshape(b * c)
+    for lyr, p in enumerate(params["layers"]):
+        h_in = _layer_norm(x, p["ln_1"], eps)
+        qh = _dense(h_in, p["q_proj"]).reshape(b, c, h, d)
+        kh = _dense(h_in, p["k_proj"]).reshape(b, c, h, d)
+        vh = _dense(h_in, p["v_proj"]).reshape(b, c, h, d)
+        k_cat, v_cat = kh, vh
+        if n_hist_pages > 0:
+            k_hist, v_hist = _gather_history(pages, page_tables, lyr, n_hist_pages)
+            k_cat = torch.cat([k_hist.to(qh.dtype), kh], dim=1)
+            v_cat = torch.cat([v_hist.to(qh.dtype), vh], dim=1)
+        _decode_write(pages, kh.reshape(b * c, h, d), vh.reshape(b * c, h, d), slots, lyr)
+        attn = flash_attention(qh, k_cat, v_cat, causal=True, k_bias=k_bias)
+        x = _mlp(x + _dense(attn.reshape(b, c, h * d), p["out_proj"]), p, eps)
+    x = _layer_norm(x, params["ln_f"], eps)
+    idx = (chunk_lens - 1).clamp(0, c - 1)
+    x_last = x[torch.arange(b, device=device), idx]
     return (x_last @ params["wte"].T).float()
 
 

@@ -11,7 +11,8 @@ its next use.
 Each C entry point takes pointers and the CUDA stream as ``c_void_p`` and
 sizes as ``c_int``, launches on that stream and returns
 ``cudaGetLastError()``; :func:`launch` raises if that is not 0, and counts
-the launch in :data:`LAUNCHES`.
+the launch in :data:`LAUNCHES`, under the entry point's name or under the
+name of the kernel's mode (``count_as``).
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -42,9 +43,9 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: argtypes of every C entry point, in the order of the C prototypes.
 _SIGNATURES: Dict[str, List] = {
-    # q, k, v, o, lse (or None), B, Sq, Skv, Hq, Hkv, D, sm_scale, causal,
-    # dtype, stream
-    "pfa_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, o, lse (or None), lens (or None), kbias (or None), B, Sq, Skv,
+    # Hq, Hkv, D, sm_scale, causal, dtype, stream
+    "pfa_flash_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     # q, k, v, do, lse, di, dk, dv, B, Sq, Skv, H, D, sm_scale, causal,
     # dtype, stream
     "pfa_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
@@ -58,6 +59,10 @@ _SIGNATURES: Dict[str, List] = {
     # layer, B, Hq, Hkv, D, num_pages, page_size, pages_per_seq,
     # sm_scale, pool_dtype, stream
     "pfa_paged_decode_attend": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    # q (or None), q8 (or None), k_pool, v_pool, k_scales, v_scales, lengths,
+    # tables, o, layer, B, Hq, Hkv, D, num_pages, page_size, pages_per_seq,
+    # score_scale, pool_dtype, block_tokens, int8_compute, stream
+    "pfa_paged_hf": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P],
 }
 
 #: dtype codes shared with the C side (csrc/common.cuh).
@@ -162,9 +167,9 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, count_as: Optional[str] = None) -> None:
     """Call C entry point ``name`` on ``device``'s current stream; raise on
-    a launch error; count the launch."""
+    a launch error; count the launch under ``count_as`` (default ``name``)."""
     kernels = lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -172,4 +177,4 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = kernels.pfa_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
-    LAUNCHES[name] += 1
+    LAUNCHES[count_as or name] += 1

@@ -1,21 +1,34 @@
 """Flash attention, forward (kernel K1, ``csrc/flash_fwd.cu``) and gradient.
 
-Port of the plain contract of ``photonic_flash_attention_tpu/ops/flash.py``:
-causal or not, causal aligned to the sequence end when Sq != Skv, native
-GQA (Hq % Hkv == 0), ``sm_scale``.
+Port of the plain and key-padded contracts of
+``photonic_flash_attention_tpu/ops/flash.py``: causal or not, causal aligned
+to the sequence end when Sq != Skv, native GQA (Hq % Hkv == 0),
+``sm_scale``, and the key-padding streams ``kv_lens`` (B,) int32 and
+``k_bias`` (B, Skv) fp32 (the JAX kernel's ``lens_ref``/``kbias_ref``).
 
-* :func:`flash_attention` is differentiable: the counterpart of the JAX
-  ``_flash_attention_core`` custom VJP (``_flash_core_fwd`` /
-  ``_flash_core_bwd``) is :class:`_FlashAttentionFn`, whose forward runs K1
-  with its logsumexp output and whose backward runs K4/K5
-  (``ops/flash_bwd.py``). Without a gradient to take, K1 writes no lse, as
-  the JAX primal path (``save_residuals=False``).
+* :func:`flash_attention` is differentiable. Without streams its gradient is
+  :class:`_FlashAttentionFn` (JAX ``_flash_attention_core``): K1 with its
+  logsumexp output forward, K4/K5 (``ops/flash_bwd.py``) backward. With
+  streams it is :class:`_FlashAttentionMaskedFn` (JAX
+  ``_flash_attention_core_masked``): K1 with the streams forward, and a
+  blockwise backward in plain PyTorch, the port of the JAX ``_flash_bwd``,
+  which returns dq, dk, dv and the gradient of ``k_bias``. The JAX package
+  computes that backward in XLA, not in Pallas, so plain PyTorch is its
+  faithful port. Without a gradient to take, K1 writes no lse, as the JAX
+  primal path (``save_residuals=False``).
 * :func:`flash_attention_with_lse` returns (o, lse), lse (B, Hq, Sq) fp32
-  in natural log; rows with no valid key get lse = -inf and o = 0.
+  in natural log; rows with no valid key (``kv_lens == 0``) get lse = -inf
+  and o = 0.
+
+Masking: keys past ``kv_lens[b]`` (whole tiles of them are skipped) or
+above the causal diagonal drop out; ``k_bias`` is added to the scaled
+score, which is clamped at ``DEFAULT_MASK_VALUE``. That value is finite, so
+a row whose keys are all masked by ``k_bias`` alone averages over them, as
+in the JAX kernel.
 
 CUDA tensors launch the kernels (or raise); CPU tensors run the plain
-versions, forward and backward. The key-padding, bias, window and dropout
-streams of the JAX function are later slices (ROADMAP A5, A10).
+versions, forward and backward. The window, relative-bias, dense-bias and
+dropout streams of the JAX function are later slices (ROADMAP A10, B10).
 """
 
 from __future__ import annotations
@@ -27,19 +40,35 @@ import torch
 from . import _build
 from ._build import KERNEL_DTYPES, KERNEL_HEAD_DIMS
 from .flash_bwd import flash_attention_bwd
-from .reference import attention_scores, causal_keep, repeat_kv, softmax_scale
+from .reference import (
+    DEFAULT_MASK_VALUE,
+    attention_scores,
+    causal_keep,
+    repeat_kv,
+    softmax_scale,
+)
 
 __all__ = [
     "KERNEL_DTYPES",
     "KERNEL_HEAD_DIMS",
     "flash_attention",
+    "flash_attention_bwd_masked_plain",
     "flash_attention_plain",
     "flash_attention_with_lse",
     "flash_attention_with_lse_plain",
 ]
 
+Streams = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
 
-def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+
+def _validate(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_bias: Optional[torch.Tensor] = None,
+) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(
             f"expected q (B,Sq,Hq,D) and k/v (B,Skv,Hkv,D); got {tuple(q.shape)}, "
@@ -61,6 +90,26 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -
         raise ValueError(f"dtype mismatch: {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"device mismatch: {q.device}, {k.device}, {v.device}")
+    if kv_lens is not None and tuple(kv_lens.shape) != (b,):
+        raise ValueError(f"kv_lens must be shape ({b},), got {tuple(kv_lens.shape)}")
+    if k_bias is not None and tuple(k_bias.shape) != (b, skv):
+        raise ValueError(f"k_bias must be shape ({b}, {skv}), got {tuple(k_bias.shape)}")
+    for name, t in (("kv_lens", kv_lens), ("k_bias", k_bias)):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def _stream_keep(q, k, causal: bool, kv_lens) -> Optional[torch.Tensor]:
+    """Structural key validity, broadcastable to (B, Hq, Sq, Skv): the
+    causal diagonal and ``kv_lens``; None when every key is valid."""
+    keep = None
+    if causal:
+        keep = causal_keep(q.shape[1], k.shape[1], q.device)[None, None]
+    if kv_lens is not None:
+        pos = torch.arange(k.shape[1], device=q.device)
+        by_len = (pos[None] < kv_lens.to(q.device).long()[:, None])[:, None, None, :]
+        keep = by_len if keep is None else keep & by_len
+    return keep
 
 
 def flash_attention_plain(
@@ -70,10 +119,14 @@ def flash_attention_plain(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K1's plain version: float32 attention on any device, output in q's
     dtype."""
-    return flash_attention_with_lse_plain(q, k, v, causal=causal, sm_scale=sm_scale)[0]
+    return flash_attention_with_lse_plain(
+        q, k, v, causal=causal, sm_scale=sm_scale, kv_lens=kv_lens, k_bias=k_bias
+    )[0]
 
 
 def flash_attention_with_lse_plain(
@@ -83,21 +136,39 @@ def flash_attention_with_lse_plain(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1-with-lse's plain version in float32: (o in q's dtype, lse
-    (B, Hq, Sq) fp32, natural log; -inf and o = 0 for a row with no key)."""
+    (B, Hq, Sq) fp32, natural log; -inf and o = 0 for a row with no key).
+    The kernel's arithmetic: scores plus ``k_bias`` clamped at the mask
+    value, structurally invalid keys at -inf, softmax from the row max."""
     s = attention_scores(q, k, sm_scale=sm_scale)
-    if causal:
-        s = s.masked_fill(~causal_keep(q.shape[1], k.shape[1], q.device), float("-inf"))
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - torch.where(torch.isinf(lse), 0.0, lse)[..., None])
+    if k_bias is not None:
+        s = torch.clamp_min(s + k_bias.float()[:, None, None, :], DEFAULT_MASK_VALUE)
+    keep = _stream_keep(q, k, causal, kv_lens)
+    if keep is not None:
+        s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - torch.where(torch.isinf(m), 0.0, m))
+    l = e.sum(dim=-1, keepdim=True)
+    p = e / torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = torch.where(l > 0.0, m + torch.log(l), float("-inf"))[..., 0]
     vf = repeat_kv(v, q.shape[2] // v.shape[2]).float()
     o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     return o.to(q.dtype), lse
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool):
-    """Launch K1: (o, lse or None)."""
+def _stream_args(q: torch.Tensor, kv_lens, k_bias) -> Streams:
+    """The streams as the kernel takes them: int32 and fp32, contiguous."""
+    lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous() if kv_lens is not None else None
+    bias = k_bias.to(device=q.device, dtype=torch.float32).contiguous() if k_bias is not None else None
+    return lens, bias
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens=None, k_bias=None):
+    """Launch K1: (o, lse or None). Counted as ``pfa_flash_fwd``, or as
+    ``pfa_flash_fwd_streams`` when a key-padding stream is given."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if d not in KERNEL_HEAD_DIMS:
@@ -107,24 +178,40 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"K1 needs contiguous inputs; {name} is not")
+    lens, bias = _stream_args(q, kv_lens, k_bias)
+    streams = lens is not None or bias is not None
     o = torch.empty_like(q)
     lse = torch.empty(b, hq, sq, device=q.device, dtype=torch.float32) if save_lse else None
     _build.launch(
         "pfa_flash_fwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if save_lse else None,
+        lens.data_ptr() if lens is not None else None,
+        bias.data_ptr() if bias is not None else None,
         b, sq, skv, hq, hkv, d, float(scale), int(causal),
         _build.DTYPE_CODES[q.dtype],
+        count_as="pfa_flash_fwd_streams" if streams else None,
     )
     return o, lse
 
 
-def _fwd_with_lse(q, k, v, causal: bool, scale: float):
+def _fwd_with_lse(q, k, v, causal: bool, scale: float, kv_lens=None, k_bias=None):
     if q.device.type == "cuda":
-        return _flash_fwd_cuda(q, k, v, causal, scale, save_lse=True)
+        return _flash_fwd_cuda(q, k, v, causal, scale, True, kv_lens, k_bias)
     if q.device.type == "cpu":
-        return flash_attention_with_lse_plain(q, k, v, causal=causal, sm_scale=scale)
+        return flash_attention_with_lse_plain(
+            q, k, v, causal=causal, sm_scale=scale, kv_lens=kv_lens, k_bias=k_bias
+        )
     raise ValueError(f"unsupported device {q.device}")
+
+
+def _group_sum(t: torch.Tensor, hkv: int, dtype: torch.dtype) -> torch.Tensor:
+    """(B, S, Hq, D) per-q-head gradient -> (B, S, Hkv, D), summed over the
+    GQA group."""
+    b, s, hq, d = t.shape
+    if hq == hkv:
+        return t.to(dtype)
+    return t.float().view(b, s, hkv, hq // hkv, d).sum(3).to(dtype)
 
 
 class _FlashAttentionFn(torch.autograd.Function):
@@ -144,16 +231,99 @@ class _FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        b, skv, hkv, d = k.shape
+        hkv = k.shape[2]
         group = q.shape[2] // hkv
         dq, dk, dv = flash_attention_bwd(
             q, repeat_kv(k, group), repeat_kv(v, group), o, lse, do.contiguous(),
             sm_scale=ctx.scale, causal=ctx.causal,
         )
-        if group > 1:
-            dk = dk.float().view(b, skv, hkv, group, d).sum(3).to(k.dtype)
-            dv = dv.float().view(b, skv, hkv, group, d).sum(3).to(v.dtype)
-        return dq, dk, dv, None, None
+        return dq, _group_sum(dk, hkv, k.dtype), _group_sum(dv, hkv, v.dtype), None, None
+
+
+def flash_attention_bwd_masked_plain(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, H, D), already repeated over the GQA group
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,  # (B, H, Sq) natural log
+    do: torch.Tensor,
+    *,
+    sm_scale: float,
+    causal: bool,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_bias: Optional[torch.Tensor] = None,
+    block_kv: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The masked backward (JAX ``_flash_bwd``, ``ops/flash.py:717``), one
+    KV block at a time in float32: p is rebuilt from the saved lse, zero
+    outside the valid keys; ds = p * (dp - di). Returns (dq, dk, dv) in the
+    inputs' dtypes and the ``k_bias`` gradient (B, Skv) fp32 (sum of ds
+    over heads and query rows), or None without ``k_bias``."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2)
+    vf = v.float().transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    di = (o.float().transpose(1, 2) * dof).sum(-1, keepdim=True)
+    lse_e = lse.float()[..., None]
+    row = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    dkb = torch.empty(b, skv, device=q.device) if k_bias is not None else None
+    for c0 in range(0, skv, block_kv):
+        c1 = min(c0 + block_kv, skv)
+        kb, vb = kf[:, :, c0:c1], vf[:, :, c0:c1]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * sm_scale
+        if k_bias is not None:
+            s = s + k_bias.float()[:, None, None, c0:c1]
+        col = torch.arange(c0, c1, device=q.device)
+        valid = torch.ones(1, 1, sq, c1 - c0, dtype=torch.bool, device=q.device)
+        if causal:
+            valid = valid & (col[None, :] <= row)
+        if kv_lens is not None:
+            valid = valid & (col < kv_lens.to(q.device).long()[:, None])[:, None, None, :]
+        p = torch.where(valid, torch.exp(s - lse_e), 0.0)
+        dv[:, :, c0:c1] = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vb)
+        dsb = p * (dp - di)  # gradient of (scores + bias), unscaled
+        ds = dsb * sm_scale
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kb)
+        dk[:, :, c0:c1] = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+        if dkb is not None:
+            dkb[:, c0:c1] = dsb.sum(dim=(1, 2))
+    back = lambda t, like: t.transpose(1, 2).to(like.dtype)  # noqa: E731
+    return back(dq, q), back(dk, k), back(dv, v), dkb
+
+
+class _FlashAttentionMaskedFn(torch.autograd.Function):
+    """Custom gradient of key-padded flash attention (JAX
+    ``_flash_attention_core_masked``, ``ops/flash.py:1247-1323``): K1 with
+    the streams forward, saving lse; the plain blockwise backward with the
+    GQA repeat and group sum. ``kv_lens`` takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, k_bias, causal: bool, scale: float):
+        o, lse = _fwd_with_lse(q, k, v, causal, scale, kv_lens, k_bias)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens, k_bias)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_lens, k_bias = ctx.saved_tensors
+        hkv = k.shape[2]
+        group = q.shape[2] // hkv
+        dq, dk, dv, dkb = flash_attention_bwd_masked_plain(
+            q, repeat_kv(k, group), repeat_kv(v, group), o, lse, do,
+            sm_scale=ctx.scale, causal=ctx.causal, kv_lens=kv_lens, k_bias=k_bias,
+        )
+        if dkb is not None:
+            dkb = dkb.to(k_bias.dtype)
+        return (
+            dq, _group_sum(dk, hkv, k.dtype), _group_sum(dv, hkv, v.dtype),
+            None, dkb, None, None,
+        )
 
 
 def flash_attention(
@@ -163,19 +333,31 @@ def flash_attention(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention. q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D)
     in q's dtype, fp32 softmax. fp32 inputs are computed in fp32 on both
-    paths (never in bf16). Differentiable in q, k and v; dq/dk/dv come
-    back in the inputs' dtypes."""
-    _validate(q, k, v, causal)
+    paths (never in bf16). ``kv_lens`` (B,) int32 valid key lengths and
+    ``k_bias`` (B, Skv) additive per-key score bias (0 = attend,
+    ``DEFAULT_MASK_VALUE`` = ignore) may be combined. Differentiable in q, k,
+    v and ``k_bias``; the gradients come back in the inputs' dtypes."""
+    _validate(q, k, v, causal, kv_lens, k_bias)
     scale = softmax_scale(q.shape[-1], sm_scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    streams = kv_lens is not None or k_bias is not None
+    grads = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, k_bias)
+    )
+    if grads and streams:
+        return _FlashAttentionMaskedFn.apply(q, k, v, kv_lens, k_bias, causal, scale)
+    if grads:
         return _FlashAttentionFn.apply(q, k, v, causal, scale)
     if q.device.type == "cuda":
-        return _flash_fwd_cuda(q, k, v, causal, scale, save_lse=False)[0]
+        return _flash_fwd_cuda(q, k, v, causal, scale, False, kv_lens, k_bias)[0]
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale)
+        return flash_attention_plain(
+            q, k, v, causal=causal, sm_scale=scale, kv_lens=kv_lens, k_bias=k_bias
+        )
     raise ValueError(f"unsupported device {q.device}")
 
 
@@ -191,8 +373,9 @@ def flash_attention_with_lse(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention also returning the per-row logsumexp (JAX
     ``flash_attention_with_lse``, ``ops/flash.py:1680``): (output
-    (B, Sq, Hq, D), lse (B, Hq, Sq) fp32, natural log). Forward only."""
-    if kv_lens is not None or k_bias is not None:
-        raise NotImplementedError("kv_lens/k_bias streams are not ported yet (ROADMAP B5)")
-    _validate(q, k, v, causal)
-    return _fwd_with_lse(q, k, v, causal, softmax_scale(q.shape[-1], sm_scale))
+    (B, Sq, Hq, D), lse (B, Hq, Sq) fp32, natural log). A row with
+    ``kv_lens == 0`` gets o = 0 and lse = -inf: K1 takes the lengths
+    natively, so the JAX unrolled path's repair of such rows is built in.
+    Forward only."""
+    _validate(q, k, v, causal, kv_lens, k_bias)
+    return _fwd_with_lse(q, k, v, causal, softmax_scale(q.shape[-1], sm_scale), kv_lens, k_bias)

@@ -1,8 +1,10 @@
 """Paged-KV decode: token write (kernel K2) and decode attention (kernel K3).
 
 Port of ``photonic_flash_attention_tpu/ops/paged.py``:
-``paged_attention_xla`` (the plain gather oracle), ``paged_decode_attention``
-and ``_quant_token_write``. Kernels: ``csrc/paged_decode.cu``.
+``paged_attention_xla`` (the plain gather oracle), ``paged_decode_attention``,
+``paged_attention_hf`` (the read-only head-folded decode, with its
+int8-compute mode) and ``_quant_token_write``. Kernels:
+``csrc/paged_decode.cu``.
 
 Pool layout is token-major, ``(L, Hkv, num_pages, page_size, D)``; the JAX
 pools are token-minor ``(L, Hkv, P, D, page)`` for the TPU's 128-lane DMA.
@@ -29,6 +31,8 @@ POOL_DTYPES = (torch.int8, torch.bfloat16, torch.float32)
 #: K3 keeps a group's q, scores and accumulator in the dynamic shared memory
 #: a block gets without an opt-in (48 KB); this bounds (Hq/Hkv) * D.
 _MAX_GROUP_ELEMS = 4096
+#: Shared memory a K3 block may opt in to on the H100 (227 KB).
+_MAX_ATTEND_SMEM = 232_448
 
 
 def to_jax_layout(pool: torch.Tensor) -> torch.Tensor:
@@ -290,3 +294,178 @@ def paged_decode_attention(
         q, k_pages, v_pages, lengths, page_indices, layer, k_scales, v_scales,
         sm_scale=sm_scale,
     )
+
+
+# -- K3 as paged_attention_hf ------------------------------------------------
+
+
+def _quant_per_tensor(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 (the JAX wrapper's q quantization):
+    (int8 values, fp32 scale () = absmax/127, 1 where absmax is 0)."""
+    xf = x.float()
+    absmax = xf.abs().amax()
+    scale = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / torch.full_like(absmax, INT8_MAX))
+    return torch.round(xf / scale).clamp(-INT8_MAX, INT8_MAX).to(torch.int8), scale
+
+
+def _hf_layout(k_pages, v_pages, k_scales, v_scales, layer):
+    """Rank-4 pools (one layer) -> rank 5 with layer 0; returns the pools,
+    scales and the layer as an int."""
+    if k_pages.ndim == 4:
+        if layer is not None:
+            raise ValueError("rank-4 pools take no layer")
+        k_pages, v_pages = k_pages[None], v_pages[None]
+        if k_scales is not None:
+            k_scales, v_scales = k_scales[None], v_scales[None]
+        return k_pages, v_pages, k_scales, v_scales, 0
+    if layer is None:
+        raise ValueError("rank-5 pools need a layer")
+    return k_pages, v_pages, k_scales, v_scales, int(layer)
+
+
+def paged_attention_hf_plain(
+    q, k_pages, v_pages, lengths, page_indices, layer: int, k_scales, v_scales,
+    scale: float, pages_per_block: int, int8_compute: bool,
+) -> torch.Tensor:
+    """K3-as-``paged_attention_hf``'s plain version on rank-5 pools: the
+    TPU kernel's recurrence over blocks of ``pages_per_block`` pages (the
+    same block boundaries, so the int8 P requant rounds as there). Returns
+    (B, Hq, D) float32; zeros for a row of length 0."""
+    b, hq, d = q.shape
+    hkv, page = k_pages.shape[1], k_pages.shape[3]
+    group = hq // hkv
+    quantized = k_scales is not None
+    bt = pages_per_block * page
+    pps = page_indices.shape[1]
+    n_blocks = -(-pps // pages_per_block)
+    tables = torch.zeros(b, n_blocks * pages_per_block, dtype=torch.long, device=q.device)
+    tables[:, :pps] = page_indices.long()
+    lens = lengths.to(q.device).long()
+    qg = q.float().reshape(b, hkv, group, d)
+    if int8_compute:
+        q8, qs = _quant_per_tensor(qg)
+        qg, score_scale = q8.float(), qs * scale
+    else:
+        score_scale = torch.tensor(scale, dtype=torch.float32, device=q.device)
+    m = torch.full((b, hkv, group, 1), float("-inf"), device=q.device)
+    l = torch.zeros((b, hkv, group, 1), device=q.device)
+    acc = torch.zeros((b, hkv, group, d), device=q.device)
+
+    def gather(pool, blk_tables):  # -> (B, Hkv, bt, ...)
+        g = pool[layer][:, blk_tables]  # (Hkv, B, ppb, page, ...)
+        return g.transpose(0, 1).reshape(b, hkv, bt, *pool.shape[4:])
+
+    for blk in range(n_blocks):
+        active = (blk * bt < lens)[:, None, None, None]
+        if not bool(active.any()):
+            continue
+        pt = tables[:, blk * pages_per_block:(blk + 1) * pages_per_block]
+        kb, vb = gather(k_pages, pt).float(), gather(v_pages, pt).float()
+        # int8 x int8 products summed in fp32 are exact integers here.
+        s = torch.einsum("bhgd,bhtd->bhgt", qg, kb) * score_scale
+        if quantized:
+            s = s * gather(k_scales, pt)[:, :, None, :]
+        pos = blk * bt + torch.arange(bt, device=q.device)
+        s = s.masked_fill(~(pos[None] < lens[:, None])[:, None, None, :], DEFAULT_MASK_VALUE)
+        m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_next)
+        alpha = torch.exp(m - m_next)
+        l_next = alpha * l + p.sum(-1, keepdim=True)
+        if quantized:
+            p = p * gather(v_scales, pt)[:, :, None, :]
+        if int8_compute:
+            pmax = p.amax(-1, keepdim=True)
+            zero = pmax == 0.0
+            pinv = torch.where(zero, 0.0, torch.full_like(pmax, INT8_MAX) / pmax)
+            p8 = torch.trunc(p * pinv + 0.5)
+            pscale = torch.where(zero, 0.0, pmax / torch.full_like(pmax, INT8_MAX))
+            pv = torch.einsum("bhgt,bhtd->bhgd", p8, vb) * pscale
+        else:
+            pv = torch.einsum("bhgt,bhtd->bhgd", p, vb)
+        acc = torch.where(active, acc * alpha + pv, acc)
+        m = torch.where(active, m_next, m)
+        l = torch.where(active, l_next, l)
+    o = acc / torch.where(l == 0.0, torch.ones_like(l), l)
+    return o.reshape(b, hq, d)
+
+
+def paged_attention_hf(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pages: torch.Tensor,  # (Hkv, P, page, D) or (L, Hkv, P, page, D)
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) int32
+    page_indices: torch.Tensor,  # (B, pages_per_seq) int32
+    k_scales: Optional[torch.Tensor] = None,  # (Hkv, P, page) or (L, Hkv, P, page)
+    v_scales: Optional[torch.Tensor] = None,
+    *,
+    sm_scale: Optional[float] = None,
+    pages_per_block: int = 8,
+    int8_compute: Optional[bool] = None,
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    """Read-only paged decode, one query token per sequence over its first
+    ``lengths[b]`` pooled tokens (JAX ``paged_attention_hf``): K3 on CUDA,
+    its plain version on CPU. Returns (B, Hq, D) in q's dtype; zeros for a
+    row of length 0 (unlike :func:`paged_attention_xla`).
+
+    ``int8_compute`` (default: on exactly for int8 pools) quantizes q per
+    tensor here, as JAX does outside its kernel, and runs both products in
+    int8 with int32 sums, requantizing P per block of ``pages_per_block``
+    pages. The JAX arguments ``num_buffers`` and ``interpret`` are the TPU
+    kernel's DMA pipelining and Mosaic's interpreter; they have no
+    counterpart here."""
+    k_pages, v_pages, k_scales, v_scales, lyr = _hf_layout(
+        k_pages, v_pages, k_scales, v_scales, layer
+    )
+    _check_pools(k_pages, v_pages, k_scales, v_scales, lyr)
+    if q.ndim != 3 or not q.is_floating_point():
+        raise ValueError(f"q must be float (B, Hq, D), got {q.dtype} {tuple(q.shape)}")
+    b, hq, d = q.shape
+    hkv = k_pages.shape[1]
+    if hq % hkv or k_pages.shape[4] != d:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools {tuple(k_pages.shape)}")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise ValueError("lengths must be int32 (B,)")
+    if page_indices.ndim != 2 or page_indices.shape[0] != b or page_indices.dtype != torch.int32:
+        raise ValueError("page_indices must be int32 (B, pages_per_seq)")
+    if pages_per_block <= 0:
+        raise ValueError(f"pages_per_block must be positive, got {pages_per_block}")
+    quantized = k_scales is not None
+    if int8_compute is None:
+        int8_compute = quantized
+    if int8_compute and not quantized:
+        raise ValueError("int8_compute needs an int8 pool")
+    scale = softmax_scale(d, sm_scale)
+    if q.device.type == "cpu":
+        return paged_attention_hf_plain(
+            q, k_pages, v_pages, lengths, page_indices, lyr, k_scales, v_scales,
+            scale, pages_per_block, int8_compute,
+        ).to(q.dtype)
+    block_tokens = pages_per_block * k_pages.shape[3]
+    group = hq // hkv
+    smem = 8 * block_tokens + 4 * (2 * group * d + group * block_tokens + block_tokens + 4 * group)
+    if d % 8 or smem > _MAX_ATTEND_SMEM:
+        raise ValueError(
+            f"K3 needs D % 8 == 0 and its block ({block_tokens} tokens, group {group}, "
+            f"D {d}) in {_MAX_ATTEND_SMEM} bytes of shared memory; got {smem}"
+        )
+    device = _check_cuda(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices)
+    qf = q.float().contiguous()
+    if int8_compute:
+        q8, qs = _quant_per_tensor(qf)
+        # One host read of the scale: the kernel takes it as an argument.
+        score_scale, q_arg, q8_arg = float(qs * scale), None, q8.data_ptr()
+    else:
+        score_scale, q_arg, q8_arg = scale, qf.data_ptr(), None
+    o = torch.empty(b, hq, d, device=q.device, dtype=torch.float32)
+    _build.launch(
+        "pfa_paged_hf", device,
+        q_arg, q8_arg, k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quantized else None,
+        v_scales.data_ptr() if quantized else None,
+        lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(),
+        lyr, b, hq, hkv, d, k_pages.shape[2], k_pages.shape[3], page_indices.shape[1],
+        float(score_scale), _build.DTYPE_CODES[k_pages.dtype], block_tokens, int(int8_compute),
+        count_as="pfa_paged_hf_int8" if int8_compute else "pfa_paged_hf",
+    )
+    return o.to(q.dtype)

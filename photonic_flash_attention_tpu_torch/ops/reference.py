@@ -1,11 +1,14 @@
 """Reference attention (the numerics oracle), in plain PyTorch.
 
-Port of ``photonic_flash_attention_tpu/ops/reference.py::attention_reference``:
-the same finite mask value and the same O(S^2)-memory attention, computed
-in float32 on whatever device the inputs live on, with the same optional
-boolean ``mask``, additive ``bias`` and returned weights. It is the plain
-version of the flash kernel (``ops/flash.py``), the fused short-sequence
-path (``ops/fused.py``) and the oracle the tests compare against.
+Port of ``photonic_flash_attention_tpu/ops/reference.py``:
+``attention_reference``, the same finite mask value and the same
+O(S^2)-memory attention, computed in float32 on whatever device the inputs
+live on, with the same optional boolean ``mask``, additive ``bias`` and
+returned weights; and ``attention_blockwise``, the online-softmax recurrence
+over KV blocks in plain PyTorch (O(S) memory in the scores). The first is
+the plain version of the fused short-sequence path (``ops/fused.py``) and
+the oracle the tests compare against. ``cdiv`` and ``round_up`` are the
+JAX package's ``ops/pallas_utils.py`` helpers, copied.
 
 Shape convention: (batch, seq, num_heads, head_dim).
 """
@@ -17,6 +20,16 @@ from typing import Optional, Tuple
 import torch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def cdiv(a: int, b: int) -> int:
+    """Ceiling division."""
+    return -(-a // b)
+
+
+def round_up(x: int, m: int) -> int:
+    """``x`` rounded up to a multiple of ``m``."""
+    return cdiv(x, m) * m
 
 
 def softmax_scale(head_dim: int, sm_scale: Optional[float]) -> float:
@@ -91,3 +104,42 @@ def attention_reference(
     vf = repeat_kv(v, q.shape[2] // v.shape[2]).float()
     out = torch.einsum("bhqk,bkhd->bqhd", weights, vf).to(q.dtype)
     return (out, weights) if need_weights else (out, None)
+
+
+def attention_blockwise(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    block_kv: int = 512,
+) -> torch.Tensor:
+    """Online-softmax blockwise attention in float32 (running max m,
+    running sum l, rescaled accumulator), one KV block at a time: the
+    recurrence the flash kernels implement, as a second, independently
+    derived check on their math. (B, Sq, Hq, D) in, q's dtype out."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    group = hq // k.shape[2]
+    qf = (q.float() * softmax_scale(d, sm_scale)).transpose(1, 2)  # B H Sq D
+    kf = repeat_kv(k, group).float().transpose(1, 2)
+    vf = repeat_kv(v, group).float().transpose(1, 2)
+    row = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    m = torch.full((b, hq, sq, 1), float("-inf"), device=q.device)
+    l = torch.zeros((b, hq, sq, 1), device=q.device)
+    acc = torch.zeros((b, hq, sq, d), device=q.device)
+    for c0 in range(0, skv, block_kv):
+        c1 = min(c0 + block_kv, skv)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, c0:c1])
+        if causal:
+            col = torch.arange(c0, c1, device=q.device)[None, :]
+            s = s.masked_fill(col > row, DEFAULT_MASK_VALUE)
+        m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, c0:c1])
+        m = m_next
+    out = acc / torch.where(l == 0.0, torch.ones_like(l), l)
+    return out.transpose(1, 2).to(q.dtype)

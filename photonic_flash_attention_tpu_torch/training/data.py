@@ -37,12 +37,24 @@ def synthetic_lm_batches(
         yield {"input_ids": ids, "labels": labels}
 
 
-def to_tensors(
-    batch: Dict[str, np.ndarray], device: Union[str, torch.device] = "cpu"
-) -> Dict[str, torch.Tensor]:
-    """Each leaf as a tensor on ``device``; for a CUDA device, copied from
-    pinned host memory without blocking the host."""
+def _placement(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises (the
+    default is the card: the CPU only when the caller asks for it)."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "batches go to the card by default and CUDA is not available; "
+            "pass device='cpu' to keep them on the CPU"
+        )
+    return device
+
+
+def to_tensors(
+    batch: Dict[str, np.ndarray], device: Union[str, torch.device] = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """Each leaf as a tensor on ``device`` (the card by default); for a CUDA
+    device, copied from pinned host memory without blocking the host."""
+    device = _placement(device)
     out = {}
     for name, value in batch.items():
         t = torch.as_tensor(value)
@@ -60,7 +72,8 @@ class DataPipeline:
       prefetch: queue depth (2 is enough to hide host latency).
       to_device: optional placement fn; default :func:`to_tensors` onto
         ``device``.
-      device: where the default placement puts the tensors.
+      device: where the default placement puts the tensors (the card
+        unless the caller asks for the CPU).
     """
 
     _DONE = object()
@@ -71,8 +84,10 @@ class DataPipeline:
         *,
         prefetch: int = 2,
         to_device: Optional[Callable] = None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ) -> None:
+        if to_device is None:
+            device = _placement(device)
         self._source = source
         self._q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
         self._to_device = to_device or (lambda b: to_tensors(b, device))

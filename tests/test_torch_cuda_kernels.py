@@ -138,7 +138,7 @@ def test_serving_engine_matches_cpu(kv, cuda_device):
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (5, 17, 40)]
     kwargs = dict(num_pages=32, page_size=16, max_batch=4, decode_window=4,
                   kv_dtype=torch.int8 if kv == "int8" else torch.float32)
-    cpu = ServingEngine(cfg, state, **kwargs).generate(prompts, max_new_tokens=10)
+    cpu = ServingEngine(cfg, state, device="cpu", **kwargs).generate(prompts, max_new_tokens=10)
     before = dict(_build.LAUNCHES)
     gpu = ServingEngine(cfg, state, device=cuda_device, **kwargs).generate(
         prompts, max_new_tokens=10

@@ -94,7 +94,7 @@ def test_fp32_engine_matches_jax_engine_tokens(weights):
     j_out = JaxEngine(jcfg, params, kv_dtype=jnp.float32, **kwargs).generate(
         prompts, max_new_tokens=8
     )
-    t_out = ServingEngine(tcfg, state, kv_dtype=torch.float32, **kwargs).generate(
+    t_out = ServingEngine(tcfg, state, device="cpu", kv_dtype=torch.float32, **kwargs).generate(
         prompts, max_new_tokens=8
     )
     assert t_out == j_out
@@ -108,7 +108,7 @@ def test_int8_kv_first_token_and_prefill_logits_match_jax(weights):
     j_tok = JaxEngine(jcfg, params, kv_dtype=jnp.int8, **kwargs).generate(
         [prompt], max_new_tokens=1
     )[0][0]
-    t_tok = ServingEngine(tcfg, state, kv_dtype=torch.int8, **kwargs).generate(
+    t_tok = ServingEngine(tcfg, state, device="cpu", kv_dtype=torch.int8, **kwargs).generate(
         [prompt], max_new_tokens=1
     )[0][0]
     assert t_tok == j_tok
@@ -125,7 +125,7 @@ def test_int8_kv_first_token_and_prefill_logits_match_jax(weights):
     )
     t_logits = prefill_step(
         prepare_params(state, tcfg, "cpu"), tcfg, torch.from_numpy(ids),
-        torch.tensor([n]), KVPages.create(tcfg, 4, page, torch.int8),
+        torch.tensor([n]), KVPages.create(tcfg, 4, page, torch.int8, "cpu"),
         torch.from_numpy(slots), True,
     )
     assert rel_err_norm(t_logits.numpy(), np.asarray(j_logits)) <= 2e-2
@@ -134,7 +134,7 @@ def test_int8_kv_first_token_and_prefill_logits_match_jax(weights):
 def test_continuous_batching_page_recycling(weights):
     _, state = weights
     eng = ServingEngine(
-        GPT2Config.tiny(), state, num_pages=12, page_size=16, max_batch=2,
+        GPT2Config.tiny(), state, device="cpu", num_pages=12, page_size=16, max_batch=2,
         max_pages_per_seq=4,
     )
     # 5 requests through a pool that only fits ~2 at a time.
@@ -159,7 +159,7 @@ def _dense_greedy(model, prompt, n_new):
 def test_engine_matches_dense_greedy(weights):
     _, state = weights
     cfg = GPT2Config.tiny()
-    eng = ServingEngine(cfg, state, num_pages=64, page_size=16, max_batch=4)
+    eng = ServingEngine(cfg, state, device="cpu", num_pages=64, page_size=16, max_batch=4)
     prompts = _prompts()
     outs = eng.generate(prompts, max_new_tokens=8)
     model = _port_model(cfg, state)
@@ -174,7 +174,7 @@ def test_sampling_counter_survives_stats_reset(weights):
     _, state = weights
     kwargs = dict(num_pages=64, page_size=16, max_batch=4, temperature=1.0, top_k=8, seed=5)
     prompts = _prompts(seed=9)
-    eng = ServingEngine(GPT2Config.tiny(), state, **kwargs)
+    eng = ServingEngine(GPT2Config.tiny(), state, device="cpu", **kwargs)
     first = eng.generate(prompts, max_new_tokens=8)
     sampled = eng._sample_steps
     assert sampled > 0
@@ -184,14 +184,14 @@ def test_sampling_counter_survives_stats_reset(weights):
     second = eng.generate(prompts, max_new_tokens=8)
     assert eng._sample_steps > sampled
     # A fresh engine with the same seed replays the first pass exactly.
-    again = ServingEngine(GPT2Config.tiny(), state, **kwargs).generate(prompts, max_new_tokens=8)
+    again = ServingEngine(GPT2Config.tiny(), state, device="cpu", **kwargs).generate(prompts, max_new_tokens=8)
     assert again == first
     assert all(0 <= t < 1024 for o in first + second for t in o)
 
 
 def test_stats_surface(weights):
     _, state = weights
-    eng = ServingEngine(GPT2Config.tiny(), state, num_pages=64, page_size=16, max_batch=2)
+    eng = ServingEngine(GPT2Config.tiny(), state, device="cpu", num_pages=64, page_size=16, max_batch=2)
     eng.generate([_prompts()[0]], max_new_tokens=3)
     s = eng.get_performance_stats()
     assert s["prefill_tokens"] == PROMPT_LENS[0]
@@ -199,14 +199,11 @@ def test_stats_surface(weights):
     assert s["kv_dtype"] == "bf16" and s["pages_free"] == s["pages_total"]
 
 
-@pytest.mark.parametrize(
-    "kwargs, match",
-    [(dict(prefill_chunk=16), "A5"), (dict(mesh=object()), "A12")],
-)
+@pytest.mark.parametrize("kwargs, match", [(dict(mesh=object()), "A12")])
 def test_parts_outside_the_slice_raise(weights, kwargs, match):
     _, state = weights
     with pytest.raises(NotImplementedError, match=match):
-        ServingEngine(GPT2Config.tiny(), state, num_pages=8, page_size=16, **kwargs)
+        ServingEngine(GPT2Config.tiny(), state, device="cpu", num_pages=8, page_size=16, **kwargs)
 
 
 def test_interleaved_submission(weights):
@@ -214,7 +211,7 @@ def test_interleaved_submission(weights):
     the dense oracle."""
     _, state = weights
     cfg = dataclasses.replace(GPT2Config.tiny(), dtype=torch.float32)
-    eng = ServingEngine(cfg, state, num_pages=64, page_size=16, max_batch=4,
+    eng = ServingEngine(cfg, state, device="cpu", num_pages=64, page_size=16, max_batch=4,
                         kv_dtype=torch.float32, decode_window=2)
     p1, p2 = _prompts(seed=4)[:2]
     s1 = eng.submit(p1, max_new_tokens=6)
@@ -231,11 +228,11 @@ def test_eos_retires_and_frees_pages(weights):
     _, state = weights
     cfg = GPT2Config.tiny()
     prompt = _prompts()[1]
-    first = ServingEngine(cfg, state, num_pages=64, page_size=16).generate(
+    first = ServingEngine(cfg, state, device="cpu", num_pages=64, page_size=16).generate(
         [prompt], max_new_tokens=8
     )[0]
     eos = first[2]
-    eng = ServingEngine(cfg, state, num_pages=64, page_size=16, eos_token_id=eos)
+    eng = ServingEngine(cfg, state, device="cpu", num_pages=64, page_size=16, eos_token_id=eos)
     out = eng.generate([prompt], max_new_tokens=8)[0]
     assert out == first[: first.index(eos) + 1]
     assert eng.status()["pages_free"] == eng.status()["pages_total"]
@@ -245,7 +242,7 @@ def test_cancel_and_best_fit_admission(weights):
     _, state = weights
     # 5 usable pages of 16 tokens: the 40-token head needs 4, the small
     # requests 1 each.
-    eng = ServingEngine(GPT2Config.tiny(), state, num_pages=6, page_size=16,
+    eng = ServingEngine(GPT2Config.tiny(), state, device="cpu", num_pages=6, page_size=16,
                         max_batch=2, admission="best-fit")
     big = eng.submit(list(range(1, 41)), max_new_tokens=8)
     small = eng.submit([5, 6, 7], max_new_tokens=2)
@@ -262,4 +259,95 @@ def test_cancel_and_best_fit_admission(weights):
     assert len(eng._sequences[small].tokens) == 5  # not prefilled again
     assert eng.status()["queue"]["admitted"] == 1
     with pytest.raises(ValueError, match="admission"):
-        ServingEngine(GPT2Config.tiny(), state, num_pages=6, page_size=16, admission="lifo")
+        ServingEngine(GPT2Config.tiny(), state, device="cpu", num_pages=6, page_size=16, admission="lifo")
+
+
+# -- chunked prefill (the JAX tests/integration/test_serving.py TestChunkedPrefill) --
+
+
+def _chunked(state, cfg=None, **kw):
+    kwargs = dict(device="cpu", num_pages=64, page_size=16, max_batch=2, prefill_chunk=16)
+    kwargs.update(kw)
+    return ServingEngine(cfg or GPT2Config.tiny(), state, **kwargs)
+
+
+@pytest.mark.parametrize("n", [40, 37], ids=["whole_chunks", "last_chunk_partial"])
+def test_chunked_prefill_matches_dense_greedy(weights, n):
+    """Prompts prefilled in chunks of 16 (the last one partial for 37)
+    decode the dense model's greedy tokens."""
+    _, state = weights
+    prompt = np.random.default_rng(n).integers(1, 1024, n).tolist()
+    eng = _chunked(state)
+    out = eng.generate([prompt], max_new_tokens=6)[0]
+    assert eng.get_performance_stats()["prefill_chunks"] == -(-n // 16)
+    assert out == _dense_greedy(_port_model(GPT2Config.tiny(), state), prompt, 6)
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_chunked_prefill_matches_jax_engine(weights, kv):
+    """The port's chunked engine against the JAX one with the same chunk
+    size: the same tokens (fp32 model; int8 pools dequantize the history
+    in both)."""
+    params, state = weights
+    jcfg, tcfg = _cfgs("f32")
+    jdt, tdt = {"f32": (jnp.float32, torch.float32), "int8": (jnp.int8, torch.int8)}[kv]
+    prompts = [np.random.default_rng(7).integers(1, 1024, 45).tolist(), _prompts()[0]]
+    kw = dict(num_pages=64, page_size=16, max_batch=2, prefill_chunk=16)
+    j_out = JaxEngine(jcfg, params, kv_dtype=jdt, **kw).generate(prompts, max_new_tokens=5)
+    t_out = _chunked(state, tcfg, kv_dtype=tdt).generate(prompts, max_new_tokens=5)
+    assert t_out == j_out
+
+
+def test_chunked_last_token_logits_match_single_shot(weights):
+    """fp32: the logits of the last prompt token after 3 chunks equal the
+    single-shot prefill's (bound 1e-5)."""
+    _, state = weights
+    cfg = dataclasses.replace(GPT2Config.tiny(), dtype=torch.float32)
+    prompt = np.random.default_rng(1).integers(1, 1024, 40).tolist()
+    seen = {}
+    for chunk in (None, 16):
+        eng = _chunked(state, cfg, kv_dtype=torch.float32, prefill_chunk=chunk)
+        eng._pick_token = lambda logits, seq, _c=chunk: int(seen.setdefault(_c, logits.clone()).argmax())
+        eng.generate([prompt], max_new_tokens=1)
+    assert rel_err_norm(seen[16].numpy(), seen[None].numpy()) <= 1e-5
+
+
+def test_long_prompt_does_not_stall_decode(weights):
+    """A decoding sequence keeps producing tokens while another sequence's
+    long prompt prefills chunk by chunk."""
+    _, state = weights
+    rng = np.random.default_rng(3)
+    eng = _chunked(state, decode_window=2)
+    short = eng.submit(rng.integers(1, 1024, 5).tolist(), 12)
+    eng.step()  # short admits, prefills and starts decoding
+    assert eng._sequences[short].new_tokens >= 1
+    long = eng.submit(rng.integers(1, 1024, 48).tolist(), 4)
+    progressed = 0
+    while eng._sequences[long].prefilled < 48:
+        before = eng._sequences[short].new_tokens
+        eng.step()
+        if not eng._sequences[short].done:
+            progressed += eng._sequences[short].new_tokens - before
+    assert progressed > 0  # decode advanced during the chunked prefill
+    while not eng._sequences[long].done:
+        eng.step()
+    assert len(eng._sequences[long].tokens) == 48 + 4
+
+
+@pytest.mark.parametrize("chunk", [10, 0, -16])
+def test_invalid_chunk_size_rejected(weights, chunk):
+    _, state = weights
+    with pytest.raises(ValueError, match="multiple of"):
+        _chunked(state, num_pages=16, prefill_chunk=chunk)
+
+
+def test_default_device_is_the_card(weights):
+    """Without device="cpu" the engine and the pool go to the card, and
+    without CUDA that raises instead of running on the CPU."""
+    _, state = weights
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(GPT2Config.tiny(), state, num_pages=8, page_size=16)
+    with pytest.raises((RuntimeError, AssertionError)):
+        KVPages.create(GPT2Config.tiny(), 4, 16)

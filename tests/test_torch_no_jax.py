@@ -2,7 +2,9 @@
 
 Every module of ``photonic_flash_attention_tpu_torch`` (and ``chip_smoke.py``)
 must import in a process where ``jax``, ``flax`` and the JAX package are
-blocked, and no source line of the port may import them.
+blocked, and no source line of the port may import them. That includes the
+port's own copy of ``core/router.py``, whose JAX original imports no JAX
+but belongs to the JAX package.
 """
 
 import pkgutil
@@ -48,8 +50,10 @@ def test_every_module_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert len(_port_modules()) >= 24
-    for name in ("config", "ops.fused", "ops.flash_bwd", "training.data", "training.trainer"):
+    assert len(_port_modules()) >= 30
+    for name in ("config", "ops.fused", "ops.flash_bwd", "training.data", "training.trainer",
+                 "core.router", "core.engine", "core.timing", "core.autotuner",
+                 "utils.validation", "utils.monitoring"):
         assert f"{port.__name__}.{name}" in modules
 
 

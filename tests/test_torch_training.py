@@ -303,16 +303,35 @@ def test_padding_mask_to_lens_bias_matches_jax():
     assert np.array_equal(bias.numpy(), np.asarray(ref_bias))
 
 
-def test_flash_route_key_padding_is_not_ported_yet():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 64))
-    lens = torch.tensor([64, 30], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="B5"):
-        dispatch_attention(q, k, v, kv_lens=lens)
+def test_flash_route_key_padding_gradients_match_jax():
+    """Key padding as kv_lens + k_bias stays on the flash route and
+    differentiates through the masked core: dq, dk, dv and the k_bias
+    gradient against ``jax.grad`` of the JAX dispatch (bound 1e-5,
+    dk_bias 1e-4)."""
+    arrs = _qkv(2, 64)
+    rng = np.random.default_rng(11)
+    keep = rng.random((2, 64)) > 0.25
+    keep[:, 0] = True
+    keep[1, 40:] = False
+    lens, bias = padding_mask_to_lens_bias(torch.from_numpy(keep))
+    g = rng.standard_normal(arrs[0].shape).astype(np.float32)
+
+    def jax_loss(q, k, v, b):
+        out, _ = jax_dispatch(q, k, v, causal=True, kv_lens=jnp.asarray(lens.numpy()), k_bias=b)
+        return jnp.sum(out * g)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in arrs), jnp.asarray(bias.numpy()))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrs] + [bias.requires_grad_()]
+    out, _ = dispatch_attention(*leaves[:3], causal=True, kv_lens=lens, k_bias=leaves[3])
+    (out * torch.from_numpy(g)).sum().backward()
+    for name, t, w in zip(("dq", "dk", "dv", "dk_bias"), leaves, want):
+        assert rel_err_norm(t.grad.numpy(), w) <= (1e-4 if name == "dk_bias" else 1e-5), name
 
 
 def test_data_pipeline_yields_every_batch_as_tensors():
     src = ({"x": np.full((2, 2), i)} for i in range(5))
-    with DataPipeline(src, prefetch=2) as pipe:
+    with DataPipeline(src, prefetch=2, device="cpu") as pipe:
         got = list(pipe)
     assert [int(b["x"][0, 0]) for b in got] == [0, 1, 2, 3, 4]
     assert all(isinstance(b["x"], torch.Tensor) and b["x"].device.type == "cpu" for b in got)
@@ -323,7 +342,7 @@ def test_data_pipeline_reraises_a_source_error():
         yield {"x": np.zeros((1,))}
         raise RuntimeError("boom")
 
-    it = iter(DataPipeline(bad()))
+    it = iter(DataPipeline(bad(), device="cpu"))
     next(it)
     with pytest.raises(RuntimeError, match="boom"):
         next(it)
