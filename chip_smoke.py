@@ -12,7 +12,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    card, at the shapes the main paths give it, with kernel, plain and
    library times and the card's bound: K1 (flash forward, its lse, and its
    kv_lens/k_bias streams), K2/K3 (paged decode), K3's paged_attention_hf
-   entry (float and int8 compute), K4/K5 (flash backward);
+   entry (float and int8 compute), K4/K5 (flash backward), K1's quantized
+   modes (int8-QK, fp8-QK, int8-full) and K6 (fp8, int8), these also
+   against the fp32 oracle under the JAX tests' gates, with the whole
+   call's time (quantization passes included) and bf16 K1's;
 4. serving path: GPT-2 medium (random weights, seed 0) served through
    ``ServingEngine.generate`` with an int8 paged KV cache; every kernel's
    launch count must grow; the first step must agree with the dense model;
@@ -22,7 +25,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    medium's width, eager calls through the adaptive engine (prefill, key
    padding, decode over 2048 keys, a short call), first with the heuristic
    (kinds asserted), then measured (the router's table printed); outputs
-   against the fp32 fused oracle, K1 and K3 launches, no failures;
+   against the fp32 fused oracle, K1 and K3 launches, no failures; then
+   the same under ``quant_mode`` "int8" and "fp8" (a square causal and a
+   cross-attention call): heuristic kinds asserted, the measured warm-up
+   must launch K1's int8-QK, int8-full and fp8-QK modes and K6 fp8;
 6. training path: GPT-2 medium (random weights, seed 0) takes AdamW steps
    through ``Trainer.train_step`` at B8 S1024 on one fixed batch; the loss
    must fall, K1/K4/K5 must launch once per layer and step; the gradient of
@@ -60,6 +66,8 @@ from photonic_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 _FWD = "photonic_flash_attention_tpu_torch/csrc/flash_fwd.cu"
 _PAGED = "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu"
 _BWD = "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu"
+_QUANT = "photonic_flash_attention_tpu_torch/csrc/flash_quant.cu"
+_B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
 SOURCES = {
     "pfa_flash_fwd": _FWD,
@@ -70,6 +78,11 @@ SOURCES = {
     "pfa_paged_hf_int8": _PAGED,
     "pfa_flash_bwd_dkv": _BWD,
     "pfa_flash_bwd_dq": _BWD,
+    "pfa_flash_fwd_int8qk": _FWD,
+    "pfa_flash_fwd_fp8qk": _FWD,
+    "pfa_flash_fwd_int8full": _FWD,
+    "pfa_flash_quant_fp8": _QUANT,
+    "pfa_flash_quant_int8": _QUANT,
 }
 REPLACES = {
     "pfa_flash_fwd": "photonic_flash_attention_tpu/ops/flash.py:59, "
@@ -84,16 +97,24 @@ REPLACES = {
                          "photonic_flash_attention_tpu/ops/flash_bwd.py:609",
     "pfa_flash_bwd_dq": "photonic_flash_attention_tpu/ops/flash_bwd.py:248, "
                         "photonic_flash_attention_tpu/ops/flash_bwd.py:569",
+    "pfa_flash_fwd_int8qk": f"{_B1}, photonic_flash_attention_tpu/ops/flash_unrolled.py:144",
+    "pfa_flash_fwd_fp8qk": _B1,
+    "pfa_flash_fwd_int8full": _B1,
+    "pfa_flash_quant_fp8": "photonic_flash_attention_tpu/ops/flash_fp8.py:81",
+    "pfa_flash_quant_int8": "photonic_flash_attention_tpu/ops/flash_fp8.py:81",
 }
 #: Modes that no main path runs, reported under their kernel's entry:
 #: K3's int8 compute (engine decode repacks bf16 K/V; serving decode is K3's
-#: float mode over the int8 pool).
-NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute")}
+#: float mode over the int8 pool) and K6's int8 mode (the engine's kinds
+#: reach K6 through FLASH_FP8 only).
+NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
+                "pfa_flash_quant_int8": ("pfa_flash_quant_fp8", "int8")}
 TIMED_RUNS = 20
 # H100 SXM data sheet (dense, at its 700 W limit): the bound of each kernel
 # is the larger of its operations over the peak rate for their type and
 # its bytes (each input read once, each output written once) over HBM.
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12,
+            torch.float8_e4m3fn: 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -548,6 +569,134 @@ def check_flash_bwd(results: dict) -> None:
         results[name]["max_abs_err"] = err
 
 
+#: (B, Sq, Skv, H, D, causal) of the quantized checks: the engine's prefill
+#: at GPT-2-medium width, and a non-causal cross-attention call (timed);
+#: then the JAX tests' shape (tests/unit/test_flash_quant.py), where the
+#: whole call must hold the JAX tests' gates.
+QUANT_SHAPES = ((4, 2048, 2048, 16, 64, True), (4, 512, 2048, 16, 64, False))
+QUANT_GATE_SHAPES = ((2, 256, 256, 4, 64, False), (2, 256, 256, 4, 64, True))
+#: Kernel against its plain version on the same payloads (bf16 output).
+QUANT_PLAIN_BOUND = 1e-2
+#: The reference's gate for quantized paths (BASELINE.md), held at the
+#: timed shapes: the JAX tests' tighter gates are set at S 256, and P's
+#: requantization error grows with the keys a row spreads over.
+QUANT_REFERENCE_GATE = 0.1
+
+
+def _quant_modes():
+    """name -> (public function, payload function (q, k, v, causal) ->
+    (kernel call, plain call), Q.K type, P.V type, fp32-oracle gate). The
+    gates are the JAX tests' (tests/unit/test_flash_quant.py)."""
+    from photonic_flash_attention_tpu_torch.ops import flash_fp8 as fp8
+
+    def per_tensor(qdt, qmax, pv_int8):
+        def prepare(q, k, v, causal):
+            q8, k8, sc = fp8._qk_per_tensor(q, k, qdt, qmax, q.shape[-1] ** -0.5)
+            vin, vs = fp8._col_quantize(v, torch.int8, 127.0) if pv_int8 else (v, None)
+            kw = dict(causal=causal, v_scales=vs, out_dtype=torch.bfloat16)
+            return (lambda: flash_ops.flash_attention_qk_quant(q8, k8, vin, sc, **kw),
+                    lambda: flash_ops.flash_attention_qk_quant_plain(q8, k8, vin, sc, **kw),
+                    4 + (4 * vs.numel() if pv_int8 else 0))
+        return prepare
+
+    def block(qdtype):
+        def prepare(q, k, v, causal):
+            qdt, qmax = fp8._QPARAMS[qdtype]
+            q8, qs = fp8._row_block_quantize(q, qdt, qmax)
+            k8, ks = fp8._row_block_quantize(k, qdt, qmax)
+            v8, vs = fp8._col_quantize(v, qdt, qmax)
+            kw = dict(qdtype=qdtype, causal=causal, sm_scale=q.shape[-1] ** -0.5,
+                      out_dtype=torch.bfloat16)
+            return (lambda: fp8.flash_attention_block_quant(q8, k8, v8, qs, ks, vs, **kw),
+                    lambda: fp8.flash_attention_block_quant_plain(q8, k8, v8, qs, ks, vs, **kw),
+                    4 * (qs.numel() + ks.numel() + vs.numel()))
+        return prepare
+
+    i8, e4, bf = torch.int8, torch.float8_e4m3fn, torch.bfloat16
+    return {
+        "pfa_flash_fwd_int8qk": (fp8.flash_attention_int8qk, per_tensor(i8, 127.0, False), i8, bf, 0.05),
+        "pfa_flash_fwd_fp8qk": (fp8.flash_attention_fp8qk, per_tensor(e4, 448.0, False), e4, bf, 0.05),
+        "pfa_flash_fwd_int8full": (fp8.flash_attention_int8full, per_tensor(i8, 127.0, True), i8, i8,
+                                   0.03),
+        "pfa_flash_quant_fp8": (fp8.flash_attention_fp8, block("fp8"), e4, e4, 0.06),
+        "pfa_flash_quant_int8": (fp8.flash_attention_int8, block("int8"), i8, i8, 0.03),
+    }
+
+
+def quant_bound(q, k, causal, qk_dtype, pv_dtype, scale_bytes) -> dict:
+    """The bound of a quantized call: Q.K at its 8-bit peak plus P.V at its
+    type's peak (2 D operations per (query, key) pair each), against the
+    bytes of the 8-bit Q/K payloads, V (1 B, or 2 B when bf16), the scales
+    and the bf16 output."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    ops = 2.0 * d * hq * attention_pairs(b, sq, skv, causal)
+    t_ops = (ops / PEAK_OPS[qk_dtype] + ops / PEAK_OPS[pv_dtype]) * 1e3
+    v_elt = 2 if pv_dtype == torch.bfloat16 else 1
+    nbytes = b * sq * hq * d * (1 + 2) + b * skv * hkv * d * (1 + v_elt) + scale_bytes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def check_flash_quant(results: dict) -> None:
+    """K1's int8-QK, fp8-QK and int8-full modes and K6's fp8 and int8 modes
+    (bf16 inputs): each kernel against its plain version on the same
+    payloads (rel_err_norm <= QUANT_PLAIN_BOUND), the whole call against the
+    fp32 oracle (and the plain version, the JAX arithmetic, beside it). At
+    QUANT_SHAPES the whole call must hold the reference's gate and the line
+    says whether it holds the JAX tests' gate; it is timed: the kernel, the
+    whole call (the quantization passes included), the plain version, bf16
+    K1 at the same shape, and the bound. At QUANT_GATE_SHAPES it must hold
+    the JAX tests' gates. The JSON keeps the first shape's numbers (the
+    engine's prefill)."""
+    from photonic_flash_attention_tpu_torch.ops.reference import attention_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    modes = _quant_modes()
+    worst = dict.fromkeys(modes, 0.0)
+    for b, sq, skv, h, d, causal in QUANT_SHAPES + QUANT_GATE_SHAPES:
+        timed = (b, sq, skv, h, d, causal) in QUANT_SHAPES
+        q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+        k = torch.randn(b, skv, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+        v = torch.randn(b, skv, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+        oracle = attention_reference(q.float(), k.float(), v.float(), causal=causal)[0]
+        if timed:
+            bf16_ms = median_ms(lambda: flash_ops.flash_attention(q, k, v, causal=causal))
+        for name, (public, prepare, qk_dtype, pv_dtype, gate) in modes.items():
+            kernel, plain, scale_bytes = prepare(q, k, v, causal)
+            out, ref, whole = kernel(), plain(), public(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err, err_oracle = rel_err_norm(out, ref), rel_err_norm(whole, oracle)
+            worst[name] = max(worst[name], max_abs_err(out, ref))
+            limit = QUANT_REFERENCE_GATE if timed else gate
+            line = (f"{name} B{b} Sq{sq} Skv{skv} H{h} D{d} bf16 causal={causal}: vs plain "
+                    f"rel_err_norm {err:.3e}, max abs {max_abs_err(out, ref):.3e} (bound "
+                    f"{QUANT_PLAIN_BOUND}); whole call vs fp32 oracle {err_oracle:.3e}, plain "
+                    f"version {rel_err_norm(ref, oracle):.3e} (gate {limit}")
+            line += (f"; JAX tests' gate {gate} {'held' if err_oracle < gate else 'exceeded'})"
+                     if timed else ", the JAX tests')")
+            if (err > QUANT_PLAIN_BOUND or err_oracle >= limit or not torch.isfinite(out).all()
+                    or whole.dtype != torch.bfloat16):
+                raise AssertionError(line)
+            if not timed:
+                print(line, flush=True)
+                continue
+            ms = median_ms(kernel)
+            whole_ms = median_ms(lambda: public(q, k, v, causal=causal))
+            plain_ms = median_ms(plain)
+            bnd = quant_bound(q, k, causal, qk_dtype, pv_dtype, scale_bytes)
+            line += (f" | kernel {ms:.4f} ms, whole call {whole_ms:.4f} ms (quantization passes "
+                     f"{100 * (whole_ms - ms) / whole_ms:.1f}%), plain {plain_ms:.4f} ms, bf16 K1 "
+                     f"{bf16_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                     f"library none")
+            print(line, flush=True)
+            if (b, sq, skv, h, d, causal) == QUANT_SHAPES[0]:
+                results[name].update(ms=ms, plain_ms=plain_ms, library_ms=None, whole_call_ms=whole_ms,
+                                     **bnd)
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
+
+
 def phase_kernels() -> dict:
     results = {name: {} for name in SOURCES}
     check_flash(results)
@@ -557,6 +706,7 @@ def phase_kernels() -> dict:
     check_decode_attend(results)
     check_paged_hf(results)
     check_flash_bwd(results)
+    check_flash_quant(results)
     return results
 
 
@@ -766,74 +916,127 @@ def _engine_cases(gen):
     ]
 
 
+#: Bound on rel_err_norm of a layer call under a quant mode against the fp32
+#: fused oracle: the reference's gate for quantized paths.
+QUANT_ENGINE_BOUND = 0.1
+#: quant_mode -> (the heuristic's kind for the cross-attention call, its
+#: counter, the counters the measured warm-up must raise).
+QUANT_ENGINE_MODES = {
+    "int8": ("flash_int8full", "pfa_flash_fwd_int8full",
+             ("pfa_flash_fwd_int8qk", "pfa_flash_fwd_int8full")),
+    "fp8": ("flash_fp8qk", "pfa_flash_fwd_fp8qk", ("pfa_flash_fwd_fp8qk", "pfa_flash_quant_fp8")),
+}
+
+
+def _engine_pass(layers, cases, *, measured: bool, calls: int, bound: float, label: str):
+    """Drive ``cases`` through the drop-in layer with a fresh engine under
+    the current config: each case ``calls`` times; outputs against the fp32
+    fused oracle within ``bound``; with the heuristic the kind is asserted
+    and its counter must grow; measured, the router's table is printed.
+    Raises on any engine failure."""
+    from photonic_flash_attention_tpu_torch.core.engine import get_engine, reset_engine
+    from photonic_flash_attention_tpu_torch.core.router import KernelKind, WorkloadCharacteristics
+
+    reset_engine()
+    engine = get_engine()
+    for name, causal, query, key, value, mask, lens, kind, counter in cases:
+        layer = layers[causal]
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            out, _ = layer(query, key, value, mask, kv_lens=lens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        used = engine.last_kernel_used
+        err = rel_err_norm(out, _layer_oracle(layer, query, key if key is not None else query,
+                                              value if value is not None else query, mask, lens))
+        line = (f"engine ({label}{'measured' if measured else 'heuristic'}): {name}: kind {used}, "
+                f"rel_err_norm {err:.3e} (bound {bound}), {wall:.3f} ms for {calls} calls")
+        if err > bound or not torch.isfinite(out).all():
+            raise AssertionError(line)
+        if not measured:
+            if used != kind:
+                raise AssertionError(f"{line}: the heuristic must pick {kind}")
+            if counter and _build.LAUNCHES[counter] <= before.get(counter, 0):
+                raise AssertionError(f"{line}: {counter} did not launch")
+        else:
+            skv = (key if key is not None else query).shape[1]
+            w = WorkloadCharacteristics(
+                batch_size=query.shape[0], q_len=query.shape[1], kv_len=skv,
+                num_heads=ENGINE_HEADS, head_dim=64, causal=causal,
+                mask_kind="none" if mask is None and lens is None else "key",
+                is_decode=query.shape[1] == 1, dtype="bfloat16", num_kv_heads=ENGINE_HEADS)
+            table = {k.value: engine.router.predicted_latency(k, w) for k in KernelKind
+                     if engine.router.predicted_latency(k, w) is not None}
+            line += f"; router table (ms by kind) {table}"
+        print(line, flush=True)
+    stats = engine.get_performance_stats()
+    if stats["failures"]:
+        raise AssertionError(f"engine ({label}): failures {stats['failures']}")
+    return stats
+
+
 def phase_engine(smi: str) -> dict:
     """The drop-in layer's adaptive route, eager calls under no_grad at
     GPT-2-medium width: once with the heuristic (the kinds must be exactly
     as listed) and once measured (warm-up over every eligible kind, then
     exploit); every output against the fp32 fused oracle; K1 and K3 must
-    launch and the engine must count no failure."""
+    launch and the engine must count no failure. Then under quant_mode
+    "int8" and "fp8": a square causal call (the heuristic keeps
+    flash_unrolled, the JAX order) and a cross-attention call (Sq 512, Skv
+    2048: the quantized kind), heuristic then measured; the warm-up must
+    launch each quantized kernel mode the mode offers."""
     from photonic_flash_attention_tpu_torch.config import get_config, reset_config
-    from photonic_flash_attention_tpu_torch.core.engine import get_engine, reset_engine
-    from photonic_flash_attention_tpu_torch.core.router import KernelKind, WorkloadCharacteristics
+    from photonic_flash_attention_tpu_torch.core.engine import reset_engine
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     layers = {c: _seeded_layer(c, torch.Generator().manual_seed(int(c))) for c in (False, True)}
     cases = _engine_cases(gen)
     _build.reset_launches()
-    table = {}
     with torch.no_grad():
         for measured in (False, True):
             reset_config()
             get_config().update(auto_kernel_selection=measured)
-            reset_engine()
-            engine = get_engine()
-            for name, causal, query, key, value, mask, lens, kind, counter in cases:
-                layer = layers[causal]
+            stats = _engine_pass(layers, cases, measured=measured, calls=4 if measured else 1,
+                                 bound=ENGINE_BOUND, label="")
+        launches = dict(_build.LAUNCHES)
+        for name in ("pfa_flash_fwd", "pfa_flash_fwd_streams", "pfa_paged_hf"):
+            if not launches.get(name):
+                raise AssertionError(f"engine: {name} never launched through the engine")
+        print(f"engine: launches {launches}; failures {stats['failures']}; card power limit "
+              f"{stats['board_power_w']} W; last energy {stats['last_energy_mj']} mJ ({smi})",
+              flush=True)
+
+        prefill, cross = cases[0], _quant_cross_case(gen)
+        for quant_mode, (kind, counter, warmup_counters) in QUANT_ENGINE_MODES.items():
+            quant_cases = [prefill, cross[:7] + (kind, counter)]
+            for measured in (False, True):
+                reset_config()
+                get_config().update(auto_kernel_selection=measured, quant_mode=quant_mode)
                 before = dict(_build.LAUNCHES)
-                t0 = time.perf_counter()
-                for _ in range(4 if measured else 1):
-                    out, _ = layer(query, key, value, mask, kv_lens=lens)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-                used = engine.last_kernel_used
-                err = rel_err_norm(out, _layer_oracle(layer, query, key if key is not None else query,
-                                                      value if value is not None else query, mask, lens))
-                line = (f"engine ({'measured' if measured else 'heuristic'}): {name}: kind {used}, "
-                        f"rel_err_norm {err:.3e} (bound {ENGINE_BOUND}), {wall:.3f} ms for "
-                        f"{4 if measured else 1} calls")
-                if err > ENGINE_BOUND or not torch.isfinite(out).all():
-                    raise AssertionError(line)
-                if not measured:
-                    if used != kind:
-                        raise AssertionError(f"{line}: the heuristic must pick {kind}")
-                    if counter and _build.LAUNCHES[counter] <= before.get(counter, 0):
-                        raise AssertionError(f"{line}: {counter} did not launch")
-                else:
-                    skv = (key if key is not None else query).shape[1]
-                    w = WorkloadCharacteristics(
-                        batch_size=query.shape[0], q_len=query.shape[1], kv_len=skv,
-                        num_heads=ENGINE_HEADS, head_dim=64, causal=causal,
-                        mask_kind="none" if mask is None and lens is None else "key",
-                        is_decode=query.shape[1] == 1, dtype="bfloat16",
-                        num_kv_heads=ENGINE_HEADS)
-                    table[name] = {k.value: engine.router.predicted_latency(k, w)
-                                   for k in KernelKind
-                                   if engine.router.predicted_latency(k, w) is not None}
-                    line += f"; router table (ms by kind) {table[name]}"
-                print(line, flush=True)
-            stats = engine.get_performance_stats()
-            if stats["failures"]:
-                raise AssertionError(f"engine: failures {stats['failures']}")
+                # Measured: more calls than kinds, so the warm-up reaches each.
+                stats = _engine_pass(layers, quant_cases, measured=measured,
+                                     calls=8 if measured else 1, bound=QUANT_ENGINE_BOUND,
+                                     label=f"quant_mode={quant_mode}, ")
+                if measured:
+                    for name in warmup_counters:
+                        if _build.LAUNCHES[name] <= before.get(name, 0):
+                            raise AssertionError(f"engine (quant_mode={quant_mode}): {name} did "
+                                                 "not launch in the measured warm-up")
     launches = dict(_build.LAUNCHES)
-    for name in ("pfa_flash_fwd", "pfa_flash_fwd_streams", "pfa_paged_hf"):
-        if not launches.get(name):
-            raise AssertionError(f"engine: {name} never launched through the engine")
-    print(f"engine: launches {launches}; failures {stats['failures']}; card power limit "
-          f"{stats['board_power_w']} W; last energy {stats['last_energy_mj']} mJ ({smi})",
+    print(f"engine: launches with the quant modes {launches}; failures {stats['failures']} ({smi})",
           flush=True)
     reset_config()
     reset_engine()
     return launches
+
+
+def _quant_cross_case(gen):
+    """A cross-attention call at GPT-2-medium width: B4, Sq 512 over a
+    2048-token context (non-causal layer); the kind is set per quant mode."""
+    query = torch.randn(4, 512, ENGINE_WIDTH, device="cuda", generator=gen)
+    ctx = torch.randn(4, 2048, ENGINE_WIDTH, device="cuda", generator=gen)
+    return ("B4 Sq512 Skv2048 cross", False, query, ctx, ctx, None, None, None, None)
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CHECK_LAYERS = 8, 1024, 5, 4
@@ -1027,6 +1230,7 @@ def main() -> None:
             "replaces": REPLACES[name], "launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"whole_call_ms": r["whole_call_ms"]} if "whole_call_ms" in r else {}),
         }
 
     kernels = [entry(name) for name in SOURCES if name not in NESTED_MODES]

@@ -5,22 +5,44 @@ mirrors the JAX module of the same path, and the tests feed both the same
 numpy inputs. The port imports ``torch`` and never ``jax``.
 
 Slice 1 covers GPT-2 paged-KV serving (``core.serving.ServingEngine``),
-slice 2 GPT-2 training (``training.Trainer``) and slice 3 the drop-in
-layer (``models.attention.PhotonicFlashAttention``) over the measured
-``core.engine.AttentionEngine``, with chunked prefill, on five
-hand-written CUDA kernels for sm_90a (``csrc/``):
+slice 2 GPT-2 training (``training.Trainer``), slice 3 the drop-in layer
+(``models.attention.PhotonicFlashAttention``) over the measured
+``core.engine.AttentionEngine``, with chunked prefill, and slice 4 the
+engine's quantized kinds (``quant_mode`` "int8" / "fp8", ``ops.flash_fp8``),
+on six hand-written CUDA kernels for sm_90a (``csrc/``):
 
 * K1 ``ops.flash`` — flash-attention forward (prefill, and the training
   forward with its logsumexp), with the key-padding streams
-  ``kv_lens``/``k_bias``;
+  ``kv_lens``/``k_bias`` and the quantized modes int8-QK, fp8-QK and
+  int8-full (``ops.flash.flash_attention_qk_quant``);
 * K2 ``ops.paged.paged_token_write`` — per-token K/V write into the
   paged pool, int8-quantized when the pool is int8;
 * K3 ``ops.paged.paged_decode_attend`` and ``paged_attention_hf`` —
   one-query attention over a sequence's pages (float or int8 compute);
-* K4/K5 ``ops.flash_bwd`` — flash-attention backward, dK/dV and dQ.
+* K4/K5 ``ops.flash_bwd`` — flash-attention backward, dK/dV and dQ;
+* K6 ``ops.flash_fp8.flash_attention_quant`` — fp8/int8 flash attention
+  with per-128-row-block Q/K scales and P requantized per block.
 
 Each kernel's wrapper runs its plain PyTorch version for CPU tensors and
 launches the kernel (or raises) for CUDA tensors.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # Lazy re-exports under the JAX package's names keep the import light.
+    if name in (
+        "flash_attention",
+        "flash_attention_fp8",
+        "flash_attention_fp8qk",
+        "flash_attention_int8",
+        "flash_attention_int8full",
+        "flash_attention_int8qk",
+        "flash_attention_quant",
+        "fused_attention",
+    ):
+        from . import ops
+
+        return getattr(ops, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

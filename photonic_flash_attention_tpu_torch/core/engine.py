@@ -8,7 +8,7 @@ exploits its table, ``core/timing.py``), the off-thread refresh of a stale
 measurement, and the stats surface (``last_kernel_used``,
 ``get_performance_stats``). Calls are eager; there is no jit cache.
 
-Kinds offered (``quant_mode="bf16"``, no mesh):
+Kinds offered (no mesh):
 
 * FUSED — ``ops/fused.py`` (plain PyTorch, as JAX leaves it to XLA);
 * FLASH — ``ops/flash.py`` (K1), plain or with the key streams;
@@ -16,7 +16,13 @@ Kinds offered (``quant_mode="bf16"``, no mesh):
   ``kv_lens`` folded into the per-key bias first, as in JAX;
 * PAGED_DECODE — decode-shaped calls (Sq = 1, Skv >= 128): contiguous K/V
   repacked into a token-major page-128 pool with an identity page table,
-  then ``ops/paged.py::paged_attention_hf`` (K3).
+  then ``ops/paged.py::paged_attention_hf`` (K3);
+* under ``enable_int8`` (default: ``quant_mode == "int8"``):
+  FLASH_UNROLLED_INT8QK (square, ``flash_attention_unrolled(int8_qk=True)``),
+  FLASH_INT8QK and FLASH_INT8FULL (``ops/flash_fp8.py``, K1's int8 modes);
+* under ``enable_fp8`` (default: ``quant_mode == "fp8"``): FLASH_FP8
+  (``flash_attention_fp8``, K6) and FLASH_FP8QK (K1's fp8-QK mode).
+  The router offers the quantized kinds to mask-free calls only, as in JAX.
 
 Differences from the JAX engine, each in ROADMAP Queue C:
 
@@ -25,9 +31,11 @@ Differences from the JAX engine, each in ROADMAP Queue C:
 * no hidden fallback for CUDA tensors: a kernel that fails there raises
   (the JAX engine reruns the call on FUSED and counts the failure); CPU
   tensors keep the JAX fallback;
-* the fp8/int8 kinds (``enable_fp8``, ``enable_int8``, ``quant_mode``
-  fp8/int8) are ROADMAP A9 and the sequence-parallel kinds
-  (``set_mesh``) A12: both raise ``NotImplementedError``;
+* the sequence-parallel kinds (``set_mesh``) are ROADMAP A12 and raise
+  ``NotImplementedError``;
+* FLASH_INT8QK and FLASH_FP8QK are not offered for fp32 V on the card:
+  K1's quantized modes run P.V in bf16 (JAX runs it in fp32 for fp32 V);
+  the plain versions on the CPU keep fp32;
 * energy is latency x the card's power limit, read once from
   ``nvidia-smi`` when the engine starts (None without a card); the JAX
   engine's 170 W is a TPU v5e figure, and its roofline energy model waits
@@ -45,6 +53,12 @@ import torch
 
 from ..config import get_config
 from ..ops.flash import flash_attention
+from ..ops.flash_fp8 import (
+    flash_attention_fp8,
+    flash_attention_fp8qk,
+    flash_attention_int8full,
+    flash_attention_int8qk,
+)
 from ..ops.flash_unrolled import flash_attention_unrolled, unrolled_supported
 from ..ops.fused import fused_attention
 from ..ops.paged import paged_attention_hf
@@ -61,6 +75,16 @@ logger = get_logger("engine")
 
 #: Page size of the PAGED_DECODE repack (the JAX engine's).
 DECODE_PAGE = 128
+#: Kinds whose kernel mode takes bf16 V only (P.V in bf16): not offered
+#: for fp32 V on the card.
+BF16_V_KINDS = (KernelKind.FLASH_INT8QK, KernelKind.FLASH_FP8QK)
+#: The quantized kinds that ``_run`` executes through one function each.
+QUANT_KINDS = {
+    KernelKind.FLASH_FP8: flash_attention_fp8,
+    KernelKind.FLASH_FP8QK: flash_attention_fp8qk,
+    KernelKind.FLASH_INT8QK: flash_attention_int8qk,
+    KernelKind.FLASH_INT8FULL: flash_attention_int8full,
+}
 
 
 def card_power_limit_w() -> Optional[float]:
@@ -151,16 +175,13 @@ class AttentionEngine:
         enable_int8: Optional[bool] = None,
     ) -> None:
         cfg = get_config()
-        if enable_fp8 or enable_int8 or (
-            enable_fp8 is None and enable_int8 is None and cfg.quant_mode != "bf16"
-        ):
-            raise NotImplementedError(
-                "the fp8/int8 attention kinds are not ported yet (ROADMAP A9); "
-                "use quant_mode='bf16'"
-            )
         self.router = router or AdaptiveRouter()
         self.router.energy_model = lambda kind, w, lat: self._estimate_energy_mj(lat)
         self.autotuner = autotuner or get_autotuner()
+        # Quantized kinds are opt-in per family, as in JAX: fp8 under
+        # quant_mode "fp8", int8 under "int8".
+        self.enable_fp8 = enable_fp8 if enable_fp8 is not None else cfg.quant_mode == "fp8"
+        self.enable_int8 = enable_int8 if enable_int8 is not None else cfg.quant_mode == "int8"
         #: the card's power limit (W), read once; None without a card.
         self.board_power_w = card_power_limit_w()
         self.router.board_power_w = self.board_power_w
@@ -184,13 +205,19 @@ class AttentionEngine:
         self, w: Optional[WorkloadCharacteristics] = None
     ) -> Tuple[KernelKind, ...]:
         kinds = [KernelKind.FUSED, KernelKind.FLASH]
-        if w is None:
-            return tuple(kinds)
-        if w.mask_kind == "dense":
+        if w is not None and w.mask_kind == "dense":
             return (KernelKind.FUSED,)  # no dense-bias stream in K1 yet (B10)
-        if not w.is_decode and w.q_len == w.kv_len and unrolled_supported(w.q_len, w.head_dim):
-            kinds.append(KernelKind.FLASH_UNROLLED)
-        if w.is_decode and w.kv_len >= DECODE_PAGE and w.dtype in ("bfloat16", "float32"):
+        if w is not None and not w.is_decode and w.q_len == w.kv_len:
+            if unrolled_supported(w.q_len, w.head_dim):
+                kinds.append(KernelKind.FLASH_UNROLLED)
+            if self.enable_int8 and unrolled_supported(w.q_len, w.head_dim, int8_qk=True):
+                kinds.append(KernelKind.FLASH_UNROLLED_INT8QK)
+        if self.enable_fp8:
+            kinds += [KernelKind.FLASH_FP8, KernelKind.FLASH_FP8QK]
+        if self.enable_int8:
+            kinds += [KernelKind.FLASH_INT8QK, KernelKind.FLASH_INT8FULL]
+        if (w is not None and w.is_decode and w.kv_len >= DECODE_PAGE
+                and w.dtype in ("bfloat16", "float32")):
             kinds.append(KernelKind.PAGED_DECODE)  # pools K3 takes; not float16
         return tuple(kinds)
 
@@ -210,6 +237,10 @@ class AttentionEngine:
                 keep = _key_keep(k.shape[1], kv_lens, None, q.device)
                 bias = torch.where(keep, 0.0 if bias is None else bias, DEFAULT_MASK_VALUE)
             return flash_attention_unrolled(q, k, v, causal=causal, k_bias=bias), None
+        if kind == KernelKind.FLASH_UNROLLED_INT8QK:
+            return flash_attention_unrolled(q, k, v, causal=causal, int8_qk=True), None
+        if kind in QUANT_KINDS:
+            return QUANT_KINDS[kind](q, k, v, causal=causal), None
         if kind == KernelKind.PAGED_DECODE:
             return _decode_paged(q, k, v, kv_lens), None
         raise ComputationError(f"engine has no kernel for {kind}")
@@ -249,10 +280,12 @@ class AttentionEngine:
             dtype=str(q.dtype).split(".")[-1], num_kv_heads=k.shape[2],
         )
         cfg = get_config()
-        # PAGED_DECODE takes key padding as lengths but has no per-key bias.
+        # PAGED_DECODE takes key padding as lengths but has no per-key bias;
+        # K1's int8/fp8-QK modes take no fp32 V on the card.
         available = tuple(
             kind for kind in self._available_kernels(w)
             if not (kind == KernelKind.PAGED_DECODE and k_bias is not None)
+            and not (kind in BF16_V_KINDS and v.is_cuda and v.dtype == torch.float32)
         )
         eligible = self.router.eligible_kernels(w, available)
         if cfg.auto_kernel_selection:

@@ -1,1 +1,34 @@
 """Attention ops: plain PyTorch oracles and the hand-written CUDA kernels."""
+
+from .flash import flash_attention
+from .flash_fp8 import (
+    flash_attention_fp8,
+    flash_attention_fp8qk,
+    flash_attention_int8,
+    flash_attention_int8full,
+    flash_attention_int8qk,
+    flash_attention_quant,
+)
+from .flash_unrolled import (
+    flash_attention_best,
+    flash_attention_unrolled,
+    unrolled_supported,
+)
+from .fused import fused_attention
+from .reference import attention_blockwise, attention_reference
+
+__all__ = [
+    "attention_blockwise",
+    "attention_reference",
+    "flash_attention",
+    "flash_attention_best",
+    "flash_attention_fp8",
+    "flash_attention_fp8qk",
+    "flash_attention_int8",
+    "flash_attention_int8full",
+    "flash_attention_int8qk",
+    "flash_attention_quant",
+    "flash_attention_unrolled",
+    "fused_attention",
+    "unrolled_supported",
+]

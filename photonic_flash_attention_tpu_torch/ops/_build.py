@@ -63,10 +63,16 @@ _SIGNATURES: Dict[str, List] = {
     # tables, o, layer, B, Hq, Hkv, D, num_pages, page_size, pages_per_seq,
     # score_scale, pool_dtype, block_tokens, int8_compute, stream
     "pfa_paged_hf": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P],
+    # q8, k8, v, o, score_scale, v_scales (or None), B, Sq, Skv, Hq, Hkv, D,
+    # causal, qk_dtype, pv_int8, out_dtype, stream
+    "pfa_flash_fwd_quant": [_P] * 6 + [_I] * 10 + [_P],
+    # q8, k8, v8, qs, ks, vs, o, B, Sq, Skv, Hq, Hkv, D, sm_scale, causal,
+    # qdtype, out_dtype, stream
+    "pfa_flash_quant": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _I, _P],
 }
 
 #: dtype codes shared with the C side (csrc/common.cuh).
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 
 #: Head dims and dtypes the flash kernels (K1 forward, K4/K5 backward) are
 #: compiled for.

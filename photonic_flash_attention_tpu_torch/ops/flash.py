@@ -29,6 +29,14 @@ in the JAX kernel.
 CUDA tensors launch the kernels (or raise); CPU tensors run the plain
 versions, forward and backward. The window, relative-bias, dense-bias and
 dropout streams of the JAX function are later slices (ROADMAP A10, B10).
+
+K1's quantized modes (the JAX kernel's ``scale_ref``, ``pv_quant`` and
+``vs_ref``) sit behind :func:`flash_attention_qk_quant`, which takes the
+8-bit payloads that ``ops/flash_fp8.py`` and ``ops/flash_unrolled.py`` make:
+int8 or e4m3 Q/K with one fp32 score scale on the device, and bf16 V, or
+int8 V with per-column scales. Its plain version and K6's share
+:func:`quant_blocks_plain`, the online softmax over ``QUANT_BLOCK_KV``-key
+blocks on which P is requantized.
 """
 
 from __future__ import annotations
@@ -51,24 +59,23 @@ from .reference import (
 __all__ = [
     "KERNEL_DTYPES",
     "KERNEL_HEAD_DIMS",
+    "QUANT_BLOCK_KV",
     "flash_attention",
     "flash_attention_bwd_masked_plain",
     "flash_attention_plain",
+    "flash_attention_qk_quant",
+    "flash_attention_qk_quant_plain",
     "flash_attention_with_lse",
     "flash_attention_with_lse_plain",
+    "quant_blocks_plain",
 ]
 
 Streams = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
-def _validate(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    causal: bool,
-    kv_lens: Optional[torch.Tensor] = None,
-    k_bias: Optional[torch.Tensor] = None,
-) -> None:
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+    """q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), Hq % Hkv == 0, no empty
+    sequence, and no causal row without a key."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(
             f"expected q (B,Sq,Hq,D) and k/v (B,Skv,Hkv,D); got {tuple(q.shape)}, "
@@ -86,6 +93,18 @@ def _validate(
         raise ValueError(
             f"causal attention with Sq ({sq}) > Skv ({skv}) leaves rows with no key"
         )
+
+
+def _validate(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_bias: Optional[torch.Tensor] = None,
+) -> None:
+    _check_shapes(q, k, v, causal)
+    b, skv = q.shape[0], k.shape[1]
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"dtype mismatch: {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -379,3 +398,137 @@ def flash_attention_with_lse(
     Forward only."""
     _validate(q, k, v, causal, kv_lens, k_bias)
     return _fwd_with_lse(q, k, v, causal, softmax_scale(q.shape[-1], sm_scale), kv_lens, k_bias)
+
+
+# -- quantized modes of K1 ---------------------------------------------------
+
+#: Keys per block of the quantized kernels (K1's modes, K6). P is
+#: requantized against the running max after each block, so the result
+#: depends on the block: kernels and plain versions walk the same 128-key
+#: blocks, the JAX kernels' smallest ``block_kv``.
+QUANT_BLOCK_KV = 128
+#: ln(127): int8 P.V folds the static P scale of 127 into the exp (JAX
+#: ``ops/flash.py:362``).
+LN_127 = 4.8441870864585885
+QUANT_PAYLOADS = (torch.int8, torch.float8_e4m3fn)
+
+
+def quant_blocks_plain(qf, kf, vf, *, causal: bool, score, requant, exp_shift: float = 0.0,
+                       pv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The quantized kernels' online softmax in fp32, one ``QUANT_BLOCK_KV``
+    block of keys at a time (the JAX kernels' arithmetic at that block).
+
+    ``qf`` (B, H, Sq, D), ``kf``/``vf`` (B, H, Skv, D): payload values in
+    fp32, K/V repeated over the GQA group. ``score(s_raw, c0, c1)``
+    dequantizes a block of raw scores; masked keys (above the end-aligned
+    causal diagonal) score ``DEFAULT_MASK_VALUE``; p = exp(s - m +
+    exp_shift) with m the running max after the block; ``requant(p)`` gives
+    the P.V operand values; ``pv_scale`` (broadcastable to (B, H, 1, D))
+    scales each block's P.V sum. Returns acc * (1 / l), fp32 (B, H, Sq, D).
+    Integer payload products are exact in fp32 (below 2**24)."""
+    b, h, sq, d = qf.shape
+    skv = kf.shape[2]
+    row = torch.arange(sq, device=qf.device)[:, None] + (skv - sq)
+    m = torch.full((b, h, sq, 1), float("-inf"), device=qf.device)
+    l = torch.zeros((b, h, sq, 1), device=qf.device)
+    acc = torch.zeros((b, h, sq, d), device=qf.device)
+    for c0 in range(0, skv, QUANT_BLOCK_KV):
+        c1 = min(c0 + QUANT_BLOCK_KV, skv)
+        s = score(qf @ kf[:, :, c0:c1].transpose(-1, -2), c0, c1)
+        if causal:
+            col = torch.arange(c0, c1, device=qf.device)
+            s = s.masked_fill(col[None, :] > row, DEFAULT_MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new + exp_shift)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        pv = requant(p) @ vf[:, :, c0:c1]
+        if pv_scale is not None:
+            pv = pv * pv_scale
+        acc = acc * alpha + pv
+        m = m_new
+    return acc * torch.where(l == 0.0, 1.0, 1.0 / l)
+
+
+def _check_qk_quant(q8, k8, v, score_scale, causal, v_scales, out_dtype) -> bool:
+    """Validate K1's quantized-mode inputs; True for int8 P.V."""
+    _check_shapes(q8, k8, v, causal)
+    if q8.dtype not in QUANT_PAYLOADS or k8.dtype != q8.dtype:
+        raise ValueError(f"Q/K payloads must both be int8 or float8_e4m3fn, got {q8.dtype}, {k8.dtype}")
+    pv_int8 = v.dtype == torch.int8
+    if pv_int8 and (v_scales is None or q8.dtype != torch.int8):
+        raise ValueError("int8 V (int8 P.V) needs int8 Q/K and v_scales (B, Hkv, D)")
+    if not pv_int8 and not v.dtype.is_floating_point:
+        raise ValueError(f"V must be int8 or floating point, got {v.dtype}")
+    if score_scale.numel() != 1 or score_scale.dtype != torch.float32:
+        raise ValueError("score_scale must be one fp32 value")
+    if out_dtype not in KERNEL_DTYPES:
+        raise ValueError(f"out_dtype must be one of {KERNEL_DTYPES}, got {out_dtype}")
+    for t in (k8, v, score_scale, v_scales):
+        if t is not None and t.device != q8.device:
+            raise ValueError(f"device mismatch: {t.device}, q on {q8.device}")
+    return pv_int8
+
+
+def flash_attention_qk_quant_plain(q8, k8, v, score_scale, *, causal: bool = False,
+                                   v_scales: Optional[torch.Tensor] = None,
+                                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """K1's quantized modes in plain PyTorch: scores = (q8 . k8) *
+    score_scale; P.V with P rounded to V's dtype (fp32 V: P unrounded), or,
+    for int8 V, P = exp(s - m + ln 127) truncated from p + 0.5 and o scaled
+    by ``v_scales`` (B, Hkv, D) per column at the end (JAX ``pv_quant``)."""
+    pv_int8 = _check_qk_quant(q8, k8, v, score_scale, causal, v_scales, out_dtype)
+    group = q8.shape[2] // k8.shape[2]
+    qf = q8.float().transpose(1, 2)
+    kf = repeat_kv(k8.float(), group).transpose(1, 2)
+    vf = repeat_kv(v.float(), group).transpose(1, 2)
+    sc = score_scale.float().reshape(())
+    if pv_int8:
+        requant = lambda p: torch.clamp(torch.trunc(p + 0.5), max=127.0)  # noqa: E731
+    elif v.dtype == torch.float32:
+        requant = lambda p: p  # noqa: E731
+    else:
+        requant = lambda p: p.to(v.dtype).float()  # noqa: E731
+    out = quant_blocks_plain(qf, kf, vf, causal=causal, score=lambda s, c0, c1: s * sc,
+                             requant=requant, exp_shift=LN_127 if pv_int8 else 0.0)
+    if pv_int8:
+        out = out * v_scales.float().repeat_interleave(group, dim=1)[:, :, None, :]
+    return out.transpose(1, 2).to(out_dtype)
+
+
+def flash_attention_qk_quant(q8, k8, v, score_scale, *, causal: bool = False,
+                             v_scales: Optional[torch.Tensor] = None,
+                             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """K1's quantized modes: (B, Sq, Hq, D) int8/e4m3 Q and (B, Skv, Hkv, D)
+    K payloads, ``score_scale`` (1,) fp32 = qs * ks * sm_scale on Q's device
+    (never read by the host), V bf16 (or int8 with ``v_scales``). Counted
+    as ``pfa_flash_fwd_int8qk``, ``_fp8qk`` or ``_int8full``. On the card V
+    must be bf16 or int8; the plain version also takes fp32 V."""
+    if q8.device.type == "cpu":
+        return flash_attention_qk_quant_plain(q8, k8, v, score_scale, causal=causal,
+                                              v_scales=v_scales, out_dtype=out_dtype)
+    if q8.device.type != "cuda":
+        raise ValueError(f"unsupported device {q8.device}")
+    pv_int8 = _check_qk_quant(q8, k8, v, score_scale, causal, v_scales, out_dtype)
+    b, sq, hq, d = q8.shape
+    skv, hkv = k8.shape[1], k8.shape[2]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"K1 supports head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    if not pv_int8 and v.dtype != torch.bfloat16:
+        raise ValueError(f"K1's quantized modes take bf16 or int8 V on the card, got {v.dtype}")
+    for name, t in (("q", q8), ("k", k8), ("v", v), ("score_scale", score_scale), ("v_scales", v_scales)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"K1 needs contiguous inputs; {name} is not")
+    if pv_int8 and (v_scales.dtype != torch.float32 or tuple(v_scales.shape) != (b, hkv, d)):
+        raise ValueError(f"v_scales must be fp32 ({b}, {hkv}, {d})")
+    mode = "int8full" if pv_int8 else ("int8qk" if q8.dtype == torch.int8 else "fp8qk")
+    o = torch.empty(q8.shape, dtype=out_dtype, device=q8.device)
+    _build.launch(
+        "pfa_flash_fwd_quant", q8.device,
+        q8.data_ptr(), k8.data_ptr(), v.data_ptr(), o.data_ptr(), score_scale.data_ptr(),
+        v_scales.data_ptr() if pv_int8 else None,
+        b, sq, skv, hq, hkv, d, int(causal), _build.DTYPE_CODES[q8.dtype], int(pv_int8),
+        _build.DTYPE_CODES[out_dtype],
+        count_as=f"pfa_flash_fwd_{mode}",
+    )
+    return o

@@ -11,7 +11,10 @@ engine's key route folds ``kv_lens`` into it first, as the JAX engine does.
 
 The JAX ``flash_attention_best`` lacks a bf16 gate, so fp32 inputs in its
 envelope are computed in bf16; here fp32 stays fp32 (K1 has an fp32 path).
-The int8 score product (``int8_qk``) is ROADMAP A9 (B8).
+The int8 score product (``int8_qk``) is K1's int8-QK mode: Q/K per-tensor
+int8 (``_quant_per_tensor``), P.V in bf16 (V cast to bf16, as the JAX
+kernel does), output in V's dtype; it has the same envelope. ``int8_qk``
+with ``k_bias`` (which the engine never combines) is not ported.
 """
 
 from __future__ import annotations
@@ -20,13 +23,20 @@ from typing import Optional
 
 import torch
 
-from .flash import KERNEL_HEAD_DIMS, flash_attention
+from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, flash_attention, flash_attention_qk_quant
+from .flash_fp8 import _per_tensor_quant
+from .reference import softmax_scale
 
 
 def unrolled_supported(seq_len: int, head_dim: int, *, int8_qk: bool = False) -> bool:
-    """True when K1 takes this geometry (any length >= 1, D in {64, 128});
-    never for ``int8_qk``, which the port does not have yet."""
-    return not int8_qk and seq_len >= 1 and head_dim in KERNEL_HEAD_DIMS
+    """True when K1 takes this geometry (any length >= 1, D in {64, 128}),
+    with or without ``int8_qk``."""
+    return seq_len >= 1 and head_dim in KERNEL_HEAD_DIMS
+
+
+def _quant_per_tensor(x: torch.Tensor):
+    """Per-tensor int8 payload and its 0-dim fp32 scale (absmax / 127)."""
+    return _per_tensor_quant(x, torch.int8, 127.0)
 
 
 def flash_attention_unrolled(
@@ -39,16 +49,27 @@ def flash_attention_unrolled(
     int8_qk: bool = False,
     k_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The engine's unrolled kind: K1 with the optional (B, Skv) fp32
-    per-key bias. Causal needs Sq == Skv, as in JAX. The TPU block sizes
-    and ``interpret`` have no counterpart."""
-    if int8_qk:
-        raise NotImplementedError("the int8 score product is ROADMAP A9 (B8)")
+    """The engine's unrolled kinds: K1 with the optional (B, Skv) fp32
+    per-key bias, or with ``int8_qk`` K1's int8-QK mode (inference only).
+    Causal needs Sq == Skv, as in JAX. The TPU block sizes and
+    ``interpret`` have no counterpart."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(
             f"causal unrolled flash requires Sq == Skv, got {q.shape[1]} vs {k.shape[1]}"
         )
-    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, k_bias=k_bias)
+    if not int8_qk:
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, k_bias=k_bias)
+    if k_bias is not None:
+        raise NotImplementedError("int8_qk with k_bias is not ported (the engine never combines them)")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_unrolled(int8_qk=True) is inference only")
+    q8, qs = _quant_per_tensor(q)
+    k8, ks = _quant_per_tensor(k)
+    score_scale = ((qs * ks) * softmax_scale(q.shape[-1], sm_scale)).reshape(1).float()
+    out_dtype = v.dtype if v.dtype in KERNEL_DTYPES else torch.float32
+    out = flash_attention_qk_quant(q8, k8, v.to(torch.bfloat16), score_scale, causal=causal,
+                                   out_dtype=out_dtype)
+    return out.to(v.dtype)
 
 
 def flash_attention_best(

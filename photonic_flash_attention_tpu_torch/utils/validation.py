@@ -1,9 +1,10 @@
 """Input validation for attention calls.
 
 Port of ``photonic_flash_attention_tpu/utils/validation.py::
-validate_attention_inputs``: the same shape, dtype and cap checks on
-(B, S, H, D) inputs, raising the same ``ValidationError``. The JAX
-module's TPU tiling checks (128-lane block alignment) have no counterpart.
+validate_attention_inputs`` and ``validate_quant_mode``: the same shape,
+dtype and cap checks on (B, S, H, D) inputs, raising the same
+``ValidationError``. The JAX module's TPU tiling checks (128-lane block
+alignment) have no counterpart.
 """
 
 from __future__ import annotations
@@ -59,3 +60,10 @@ def validate_attention_inputs(
         raise ValidationError(f"batch size {bq} exceeds cap {cfg.max_batch_size}")
     if mask is not None and mask.ndim not in (2, 3, 4):
         raise ValidationError(f"mask must be rank 2-4, got shape {tuple(mask.shape)}")
+
+
+def validate_quant_mode(mode: str) -> str:
+    """``mode`` if it is one of "bf16", "fp8", "int8"; else raise."""
+    if mode not in ("bf16", "fp8", "int8"):
+        raise ValidationError(f"quant_mode must be bf16|fp8|int8, got {mode!r}")
+    return mode

@@ -11,6 +11,14 @@ result agrees with the plain version on the same inputs: K1 within
 ``rel_err_norm`` 1e-2 (bf16) or 1e-4 (fp32), K2 bit-exact, K3 within 1e-4.
 The serving engine on the GPU must pick the same greedy tokens as on the
 CPU, where it runs the plain versions.
+
+The quantized kernels (K1's int8-QK, fp8-QK and int8-full modes, K6 fp8 and
+int8) take the same 8-bit payloads as their plain versions: within 1e-2
+for a bf16 output (its rounding) and 2e-3 for fp32 (exp2f against
+torch.exp can move a requantized P by one step, and the fp32 sums run in
+another order). The public entry points on the card stay under the JAX
+tests' gates against the fp32 oracle (int8-full and K6 int8 0.03, int8-QK
+and fp8-QK 0.05, K6 fp8 0.06).
 """
 
 import numpy as np
@@ -20,10 +28,15 @@ import torch
 from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
 from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from photonic_flash_attention_tpu_torch.ops import _build
+from photonic_flash_attention_tpu_torch.ops import flash_fp8
 from photonic_flash_attention_tpu_torch.ops.flash import (
     flash_attention,
     flash_attention_plain,
+    flash_attention_qk_quant,
+    flash_attention_qk_quant_plain,
 )
+from photonic_flash_attention_tpu_torch.ops.flash_unrolled import flash_attention_unrolled
+from photonic_flash_attention_tpu_torch.ops.reference import attention_reference
 from photonic_flash_attention_tpu_torch.ops.paged import (
     paged_decode_attend,
     paged_decode_attend_plain,
@@ -146,3 +159,100 @@ def test_serving_engine_matches_cpu(kv, cuda_device):
     assert gpu == cpu
     for name in ("pfa_flash_fwd", "pfa_paged_token_write", "pfa_paged_decode_attend"):
         assert _build.LAUNCHES[name] > before.get(name, 0)
+
+
+# (B, Sq, Skv, Hq, Hkv, D, causal): unaligned non-causal cross, square
+# causal, GQA D 128 with Sq < Skv, a long causal run.
+QUANT_CASES = [
+    (1, 200, 333, 4, 2, 64, False),
+    (2, 256, 256, 4, 4, 64, True),
+    (1, 100, 300, 4, 1, 128, True),
+    (1, 1000, 1000, 2, 2, 64, True),
+]
+QUANT_BOUND = {"f32": 2e-3, "bf16": 1e-2}
+
+
+def _quant_qkv(case, dev, seed=0):
+    b, sq, skv, hq, hkv, d, _ = case
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+            for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", list(QUANT_BOUND))
+@pytest.mark.parametrize("mode", ["int8qk", "fp8qk", "int8full"])
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_flash_quant_modes_match_plain(case, mode, out, cuda_device):
+    """K1's quantized modes against their plain version on the same payloads."""
+    causal, d = case[-1], case[5]
+    q, k, v = _quant_qkv(case, cuda_device)
+    qdt, qmax = (torch.float8_e4m3fn, 448.0) if mode == "fp8qk" else (torch.int8, 127.0)
+    q8, k8, sc = flash_fp8._qk_per_tensor(q, k, qdt, qmax, d ** -0.5)
+    if mode == "int8full":
+        vin, vs = flash_fp8._col_quantize(v, torch.int8, 127.0)
+    else:
+        vin, vs = v.to(torch.bfloat16), None
+    kw = dict(causal=causal, v_scales=vs, out_dtype=DTYPES[out])
+    name = f"pfa_flash_fwd_{mode}"
+    before = _build.LAUNCHES[name]
+    got = flash_attention_qk_quant(q8, k8, vin, sc, **kw)
+    want = flash_attention_qk_quant_plain(q8, k8, vin, sc, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    assert got.dtype == DTYPES[out] and torch.isfinite(got).all()
+    assert rel_err_norm(got, want) <= QUANT_BOUND[out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", list(QUANT_BOUND))
+@pytest.mark.parametrize("qdtype", ["fp8", "int8"])
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_flash_block_quant_matches_plain(case, qdtype, out, cuda_device):
+    """K6 against its plain version on the same block-quantized payloads."""
+    causal, d = case[-1], case[5]
+    q, k, v = _quant_qkv(case, cuda_device, seed=1)
+    qdt, qmax = flash_fp8._QPARAMS[qdtype]
+    q8, qs = flash_fp8._row_block_quantize(q, qdt, qmax)
+    k8, ks = flash_fp8._row_block_quantize(k, qdt, qmax)
+    v8, vs = flash_fp8._col_quantize(v, qdt, qmax)
+    kw = dict(qdtype=qdtype, causal=causal, sm_scale=d ** -0.5, out_dtype=DTYPES[out])
+    name = f"pfa_flash_quant_{qdtype}"
+    before = _build.LAUNCHES[name]
+    got = flash_fp8.flash_attention_block_quant(q8, k8, v8, qs, ks, vs, **kw)
+    want = flash_fp8.flash_attention_block_quant_plain(q8, k8, v8, qs, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    assert got.dtype == DTYPES[out] and torch.isfinite(got).all()
+    assert rel_err_norm(got, want) <= QUANT_BOUND[out]
+
+
+QUANT_ENTRIES = {  # name: (function, launch counter, gate against the fp32 oracle)
+    "int8qk": (flash_fp8.flash_attention_int8qk, "pfa_flash_fwd_int8qk", 0.05),
+    "fp8qk": (flash_fp8.flash_attention_fp8qk, "pfa_flash_fwd_fp8qk", 0.05),
+    "int8full": (flash_fp8.flash_attention_int8full, "pfa_flash_fwd_int8full", 0.03),
+    "fp8": (flash_fp8.flash_attention_fp8, "pfa_flash_quant_fp8", 0.06),
+    "int8": (flash_fp8.flash_attention_int8, "pfa_flash_quant_int8", 0.03),
+    "unrolled_int8qk": (lambda q, k, v, **kw: flash_attention_unrolled(q, k, v, int8_qk=True, **kw),
+                        "pfa_flash_fwd_int8qk", 0.05),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(QUANT_ENTRIES))
+def test_quant_entry_points_on_the_card(name, cuda_device):
+    """The public quantized functions on bf16 inputs (B2 S256 H4 D64 causal,
+    the JAX tests' shape): under the JAX gate against the fp32 oracle, and
+    within 1e-2 of the same call on the CPU (the plain versions)."""
+    fn, counter, gate = QUANT_ENTRIES[name]
+    q, k, v = (t.to(torch.bfloat16) for t in _quant_qkv((2, 256, 256, 4, 4, 64, True), cuda_device, 2))
+    before = _build.LAUNCHES[counter]
+    with torch.no_grad():
+        got = fn(q, k, v, causal=True)
+        cpu = fn(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    oracle = attention_reference(q.float(), k.float(), v.float(), causal=True)[0]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[counter] == before + 1
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert rel_err_norm(got, oracle) < gate
+    assert rel_err_norm(got.cpu(), cpu) <= 1e-2

@@ -2,7 +2,9 @@
 
 Counterparts of ``tests/unit/test_router.py``, ``test_autotuner.py``,
 ``test_timing.py`` and ``tests/integration/test_engine.py`` for the kinds
-the port offers (FUSED, FLASH, FLASH_UNROLLED, PAGED_DECODE). The router is
+the port offers (FUSED, FLASH, FLASH_UNROLLED, PAGED_DECODE, and under
+``quant_mode`` / ``enable_int8`` / ``enable_fp8`` the quantized kinds, whose
+registry and heuristic are held against the JAX engine's). The router is
 the port's own copy: the same workloads go to both routers and their
 choices must agree. Engine outputs are held against the JAX
 ``attention_reference`` (plain XLA) on the same numpy inputs; the drop-in
@@ -11,7 +13,9 @@ weights. Everything runs on the CPU with the kernels' plain versions, at
 S <= 256 (flash thresholds lowered where a test needs the flash kinds).
 
 Bounds: fp32 outputs ``rel_err_norm`` <= 1e-5 (fused and flash) and
-<= 1e-5 for the paged decode; module outputs <= 1e-5.
+<= 1e-5 for the paged decode; module outputs <= 1e-5, also under a quant
+mode when both engines run the same quantized kind at 128-key blocks;
+quantized engine outputs against the oracle < 0.1 (the reference gate).
 """
 
 import json
@@ -25,6 +29,11 @@ import torch
 
 from photonic_flash_attention_tpu.config import set_global_config as jax_set_config
 from photonic_flash_attention_tpu.core.autotuner import Autotuner as JaxAutotuner
+from photonic_flash_attention_tpu.core.engine import (
+    AttentionEngine as JaxEngine,
+    get_engine as jax_get_engine,
+    reset_engine as jax_reset_engine,
+)
 from photonic_flash_attention_tpu.core.router import (
     AdaptiveRouter as JaxRouter,
     KernelKind as JaxKind,
@@ -35,6 +44,10 @@ from photonic_flash_attention_tpu.models.attention import (
     PhotonicMultiHeadAttention as JaxMHA,
 )
 from photonic_flash_attention_tpu.ops.reference import attention_reference as jax_reference
+from photonic_flash_attention_tpu.utils.exceptions import ValidationError as JaxValidationError
+from photonic_flash_attention_tpu.utils.validation import (
+    validate_quant_mode as jax_validate_quant_mode,
+)
 from photonic_flash_attention_tpu_torch.config import get_config, reset_config
 from photonic_flash_attention_tpu_torch.core import engine as engine_module
 from photonic_flash_attention_tpu_torch.core.autotuner import (
@@ -65,7 +78,10 @@ from photonic_flash_attention_tpu_torch.utils.monitoring import (
     device_memory_stats,
     get_metrics,
 )
-from photonic_flash_attention_tpu_torch.utils.validation import validate_attention_inputs
+from photonic_flash_attention_tpu_torch.utils.validation import (
+    validate_attention_inputs,
+    validate_quant_mode,
+)
 
 from .conftest import rel_err_norm
 
@@ -502,17 +518,120 @@ def test_cpu_failure_falls_back_to_fused(monkeypatch):
 
 @pytest.mark.parametrize(
     "make, match",
-    [
-        (lambda: _engine(enable_int8=True), "A9"),
-        (lambda: _engine(enable_fp8=True), "A9"),
-        (lambda: (get_config().update(quant_mode="int8"), _engine())[1], "A9"),
-        (lambda: _engine().set_mesh(object()), "A12"),
-    ],
-    ids=["int8", "fp8", "quant_mode", "mesh"],
+    [(lambda: _engine().set_mesh(object()), "A12")],
+    ids=["mesh"],
 )
 def test_kinds_not_offered_raise_with_their_roadmap_item(make, match):
     with pytest.raises(NotImplementedError, match=match):
         make()
+
+
+# -- the quantized kinds (quant_mode, enable_int8, enable_fp8) ------------------
+
+QUANT_ENGINES = {  # id: (engine keyword arguments, config quant_mode)
+    "quant_mode_int8": ({}, "int8"),
+    "quant_mode_fp8": ({}, "fp8"),
+    "enable_int8": (dict(enable_int8=True), "bf16"),
+    "enable_fp8": (dict(enable_fp8=True), "bf16"),
+    "enable_both": (dict(enable_fp8=True, enable_int8=True), "bf16"),
+    "flags_over_quant_mode": (dict(enable_fp8=True, enable_int8=False), "int8"),
+}
+QUANT_WORKLOADS = [  # square (JAX's unrolled envelope), non-square, decode, key-masked
+    dict(batch_size=4, q_len=2048, kv_len=2048, num_heads=16, head_dim=64, causal=True),
+    dict(batch_size=4, q_len=512, kv_len=2048, num_heads=16, head_dim=64),
+    dict(batch_size=8, q_len=1, kv_len=2048, num_heads=16, head_dim=64, is_decode=True),
+    dict(batch_size=4, q_len=2048, kv_len=2048, num_heads=16, head_dim=64, mask_kind="key"),
+]
+
+
+def _quant_engines(mode):
+    kw, quant_mode = QUANT_ENGINES[mode]
+    get_config().update(quant_mode=quant_mode)
+    jax_set_config(quant_mode=quant_mode)
+    return _engine(**kw), JaxEngine(router=JaxRouter(exploration_rate=0.0, seed=0), **kw)
+
+
+@pytest.mark.parametrize("mode", list(QUANT_ENGINES))
+def test_quant_kinds_offered_as_in_jax(mode):
+    """The registry and the router's gates give exactly the JAX engine's
+    kinds, in its order, for each way of enabling the quantized families."""
+    eng, jeng = _quant_engines(mode)
+    assert (eng.enable_fp8, eng.enable_int8) == (jeng.enable_fp8, jeng.enable_int8)
+    for wkw in QUANT_WORKLOADS:
+        w, jw = _pair(**wkw)
+        avail, javail = eng._available_kernels(w), jeng._available_kernels(jw)
+        assert [k.value for k in avail] == [k.value for k in javail]
+        assert [k.value for k in eng.router.eligible_kernels(w, avail)] == [
+            k.value for k in jeng.router.eligible_kernels(jw, javail)]
+
+
+@pytest.mark.parametrize("square", [True, False], ids=["square_causal", "non_square"])
+@pytest.mark.parametrize("quant_mode, non_square_kind",
+                         [("int8", "flash_int8full"), ("fp8", "flash_fp8qk")])
+def test_quant_heuristic_picks_as_jax(quant_mode, non_square_kind, square):
+    """The JAX heuristic order: a square causal call keeps flash_unrolled;
+    a non-square one takes flash_int8full (int8) or flash_fp8qk (fp8)."""
+    eng, jeng = _quant_engines(f"quant_mode_{quant_mode}")
+    w, jw = _pair(**QUANT_WORKLOADS[0 if square else 1])
+    got = eng.router.heuristic_selection(w, eng.router.eligible_kernels(w, eng._available_kernels(w)))
+    want = jeng.router.heuristic_selection(
+        jw, jeng.router.eligible_kernels(jw, jeng._available_kernels(jw)))
+    assert got.value == want.value == ("flash_unrolled" if square else non_square_kind)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "fp8", "int8", "fp16", "INT8", ""])
+def test_validate_quant_mode_as_jax(mode):
+    if mode in ("bf16", "fp8", "int8"):
+        assert validate_quant_mode(mode) == jax_validate_quant_mode(mode) == mode
+        return
+    with pytest.raises(ValidationError, match="quant_mode"):
+        validate_quant_mode(mode)
+    with pytest.raises(JaxValidationError, match="quant_mode"):
+        jax_validate_quant_mode(mode)
+
+
+@pytest.mark.parametrize("quant_mode", ["int8", "fp8"])
+def test_quant_engine_measures_every_kind(quant_mode):
+    """Measured routing under a quant mode: warm-up measures every eligible
+    kind, the quantized ones included; every output inside the reference
+    gate; no failure."""
+    _flash_thresholds()
+    get_config().update(quant_mode=quant_mode)
+    q, k, v = make_qkv(s=128)
+    eng = _engine()
+    for _ in range(8):
+        out, _ = eng(*_t(q, k, v), causal=True)
+        assert rel_err_norm(out.numpy(), _ref(q, k, v, causal=True)) < 0.1
+    w = WorkloadCharacteristics(batch_size=2, q_len=128, kv_len=128, num_heads=4, head_dim=64,
+                                causal=True, dtype="float32")
+    kinds = eng._available_kernels(w)
+    assert {k.value for k in kinds} >= ({"flash_int8qk", "flash_int8full", "flash_unrolled_int8qk"}
+                                        if quant_mode == "int8" else {"flash_fp8", "flash_fp8qk"})
+    for kind in kinds:
+        assert not eng.router.needs_measurement(kind, w), kind.value
+    assert eng.get_performance_stats()["failures"] == {}
+
+
+@pytest.mark.parametrize("quant_mode", ["int8", "fp8"])
+def test_drop_in_layer_quant_mode_matches_jax_module(quant_mode):
+    """Cross-attention through the drop-in layer under a quant mode: both
+    engines' heuristics take the same quantized kind, and with the JAX
+    tiles at 128 (the port's requant block) the outputs agree."""
+    _flash_thresholds()
+    for set_cfg in (get_config().update, jax_set_config):
+        set_cfg(quant_mode=quant_mode, auto_kernel_selection=False, block_q=128, block_kv=128)
+    jax_reset_engine()
+    jmod, params, tmod = _module_pair()
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 64, 128)).astype(np.float32)
+    y = rng.standard_normal((2, 192, 128)).astype(np.float32)
+    want, _ = jmod.apply(params, jnp.asarray(x), jnp.asarray(y))
+    with torch.no_grad():
+        got, _ = tmod(torch.from_numpy(x), torch.from_numpy(y))
+    kind = "flash_int8full" if quant_mode == "int8" else "flash_fp8qk"
+    assert get_engine().last_kernel_used == jax_get_engine().last_kernel_used == kind
+    jax_reset_engine()
+    assert rel_err_norm(got.numpy(), np.asarray(want)) <= 1e-5
 
 
 def test_cpu_engine_never_touches_the_kernel_library():

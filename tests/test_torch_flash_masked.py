@@ -178,12 +178,6 @@ def test_unrolled_route_with_bias_matches_jax(case):
     assert torch.equal(best, out)
 
 
-def test_unrolled_int8_qk_is_not_offered_yet():
-    q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="A9"):
-        flash_attention_unrolled(q, q, q, int8_qk=True)
-
-
 @pytest.mark.parametrize("case", CASES[:3], ids=_case_id)
 def test_masked_gradients_match_jax_grad(case):
     """dq, dk, dv and dk_bias of the masked core (the port's plain blockwise

@@ -51,9 +51,9 @@ def test_every_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert len(_port_modules()) >= 30
-    for name in ("config", "ops.fused", "ops.flash_bwd", "training.data", "training.trainer",
-                 "core.router", "core.engine", "core.timing", "core.autotuner",
-                 "utils.validation", "utils.monitoring"):
+    for name in ("config", "ops.fused", "ops.flash_bwd", "ops.flash_fp8", "training.data",
+                 "training.trainer", "core.router", "core.engine", "core.timing",
+                 "core.autotuner", "utils.validation", "utils.monitoring"):
         assert f"{port.__name__}.{name}" in modules
 
 
