@@ -15,7 +15,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    entry (float and int8 compute), K4/K5 (flash backward), K1's quantized
    modes (int8-QK, fp8-QK, int8-full) and K6 (fp8, int8), these also
    against the fp32 oracle under the JAX tests' gates, with the whole
-   call's time (quantization passes included) and bf16 K1's;
+   call's time (quantization passes included) and bf16 K1's; K1's
+   relative-bias mode (T5 buckets both directions, Sq < Skv, ALiBi) and
+   dense-bias mode (a (B,1,S,S) random-hole mask, a real (B,H,S,S) bias),
+   K3's token-bias mode (bf16 and int8 pools), each against SDPA given the
+   same dense float bias (K3: no library call);
 4. serving path: GPT-2 medium (random weights, seed 0) served through
    ``ServingEngine.generate`` with an int8 paged KV cache; every kernel's
    launch count must grow; the first step must agree with the dense model;
@@ -23,7 +27,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    stream): the same first tokens, last-prompt logits within a bound;
 5. engine path: the drop-in ``PhotonicFlashAttention`` layer at GPT-2
    medium's width, eager calls through the adaptive engine (prefill, key
-   padding, decode over 2048 keys, a short call), first with the heuristic
+   padding, a dense (B,1,S,S) mask on K1's dense-bias mode, decode over
+   2048 keys, a short call), first with the heuristic
    (kinds asserted), then measured (the router's table printed); outputs
    against the fp32 fused oracle, K1 and K3 launches, no failures; then
    the same under ``quant_mode`` "int8" and "fp8" (a square causal and a
@@ -32,14 +37,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 6. training path: GPT-2 medium (random weights, seed 0) takes AdamW steps
    through ``Trainer.train_step`` at B8 S1024 on one fixed batch; the loss
    must fall, K1/K4/K5 must launch once per layer and step; the gradient of
-   the first 4 layers of the same weights must agree with a CPU run.
+   the first 4 layers of the same weights must agree with a CPU run;
+7. T5 path at T5-large width (random weights from a seeded generator):
+   (a) ``T5ForConditionalGeneration`` cut to 2+2 layers, B1, encoder 1024,
+   decoder 512, unmasked (K1's relative-bias mode), against the same
+   weights in fp32 on the CPU (plain versions); (b) ``ServingEngine`` at
+   full depth, 8 requests of 64-512 encoder tokens, 32 new tokens, with a
+   bf16 and an int8 pool (K2 and K3's token-bias mode every decode step),
+   the model computing in fp32: every first token equal to the dense
+   model's argmax on the card, two trajectories under the JAX test's
+   greedy-parity rule; then bf16 compute over a bf16 pool, timed; (c) the
+   full-depth bf16 forward at B2, encoder 2048, decoder 512, timed.
 
 The last lines are the card's name and power limit, the per-kernel JSON
 summary and, last of all, ``{"ok": true, "device": {...}}``. The script
 imports nothing of JAX. ``--profile DIR`` adds a torch.profiler breakdown
-of three single training steps (device activity only: busy time, idle
-share of each step's wall time, time by kernel group) and writes the
-traces and a per-kernel table into DIR.
+of three single training steps and of one T5-large serving run (bf16
+compute and pool) (device activity only: busy time, idle share of each
+call's wall time, time by kernel group) and writes the traces and a
+per-kernel table into DIR.
 """
 
 from __future__ import annotations
@@ -70,6 +86,10 @@ _QUANT = "photonic_flash_attention_tpu_torch/csrc/flash_quant.cu"
 _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
 SOURCES = {
+    "pfa_flash_fwd_relbias": _FWD,
+    "pfa_flash_fwd_alibi": _FWD,
+    "pfa_flash_fwd_densebias": _FWD,
+    "pfa_paged_decode_attend_tbias": _PAGED,
     "pfa_flash_fwd": _FWD,
     "pfa_flash_fwd_streams": _FWD,
     "pfa_paged_token_write": _PAGED,
@@ -85,6 +105,10 @@ SOURCES = {
     "pfa_flash_quant_int8": _QUANT,
 }
 REPLACES = {
+    "pfa_flash_fwd_relbias": f"{_B1} (tab_ref, t5), photonic_flash_attention_tpu/ops/flash.py:1092",
+    "pfa_flash_fwd_alibi": f"{_B1} (tab_ref, alibi)",
+    "pfa_flash_fwd_densebias": f"{_B1} (qkbias_ref)",
+    "pfa_paged_decode_attend_tbias": "photonic_flash_attention_tpu/ops/paged.py:407 (bias_ref)",
     "pfa_flash_fwd": "photonic_flash_attention_tpu/ops/flash.py:59, "
                      "photonic_flash_attention_tpu/ops/flash_unrolled.py:144",
     "pfa_flash_fwd_streams": "photonic_flash_attention_tpu/ops/flash.py:59, "
@@ -108,7 +132,8 @@ REPLACES = {
 #: float mode over the int8 pool) and K6's int8 mode (the engine's kinds
 #: reach K6 through FLASH_FP8 only).
 NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
-                "pfa_flash_quant_int8": ("pfa_flash_quant_fp8", "int8")}
+                "pfa_flash_quant_int8": ("pfa_flash_quant_fp8", "int8"),
+                "pfa_flash_fwd_alibi": ("pfa_flash_fwd_relbias", "alibi")}
 TIMED_RUNS = 20
 # H100 SXM data sheet (dense, at its 700 W limit): the bound of each kernel
 # is the larger of its operations over the peak rate for their type and
@@ -163,15 +188,16 @@ def sdpa_bwd_ms(q, k, v, do) -> float:
     return median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
 
 
-def sdpa_ms(q, k, v, causal: bool, bias=None) -> float:
+def sdpa_ms(q, k, v, causal: bool, bias=None, scale=None) -> float:
     """One F.scaled_dot_product_attention call on the same function, in its
     (B, H, S, D) layout (the transposes are outside the timing)."""
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if bias is None:
-        return median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
-    return median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias))
+        return median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                                scale=scale))
+    return median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, scale=scale))
 
 
 def rel_err_norm(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -697,6 +723,182 @@ def check_flash_quant(results: dict) -> None:
         results[name]["max_abs_err"] = err
 
 
+#: Bound on rel_err_norm of each structured-bias mode against its plain
+#: version on the same inputs (the bf16 bound of the other K1 checks).
+BIAS_MODE_BOUND = 1e-2
+
+
+def _sdpa_bias(bias: torch.Tensor, sq: int, skv: int, causal: bool) -> torch.Tensor:
+    """A dense additive bias with the end-aligned causal mask folded in
+    (-inf above the diagonal), as SDPA's attn_mask (materialised before the
+    timing)."""
+    if not causal:
+        return bias
+    keep = torch.arange(skv, device="cuda")[None] <= torch.arange(sq, device="cuda")[:, None] + skv - sq
+    return torch.where(keep, bias, float("-inf"))
+
+
+def _bias_case(name, q, k, v, causal, kw, counter, results, *, timed, record, extra_bytes,
+               bias_heads, sdpa_bias, scale):
+    """One structured-bias case: kernel against plain (bound
+    BIAS_MODE_BOUND), its launch counted once. ``timed``: kernel, plain,
+    SDPA given the dense bias (``sdpa_bias``, materialised before) and the
+    bound, kept in the JSON when ``record``. The bound's bytes: q, k, v, o,
+    ``extra_bytes`` and 4 bytes per computed score and bias head
+    (``bias_heads``). Returns the max abs error."""
+    before = _build.LAUNCHES[counter]
+    out = flash_ops.flash_attention(q, k, v, causal=causal, sm_scale=scale, **kw)
+    ref = flash_ops.flash_attention_plain(q, k, v, causal=causal, sm_scale=scale, **kw)
+    torch.cuda.synchronize()
+    err = rel_err_norm(out, ref)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    line = (f"{counter} {name} B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} {str(q.dtype)[6:]} "
+            f"causal={causal}: rel_err_norm {err:.3e}, max abs {max_abs_err(out, ref):.3e} "
+            f"(bound {BIAS_MODE_BOUND})")
+    if err > BIAS_MODE_BOUND or not torch.isfinite(out).all() or _build.LAUNCHES[counter] != before + 1:
+        raise AssertionError(line)
+    if timed:
+        ms = median_ms(lambda: flash_ops.flash_attention(q, k, v, causal=causal, sm_scale=scale, **kw))
+        plain = median_ms(lambda: flash_ops.flash_attention_plain(q, k, v, causal=causal,
+                                                                  sm_scale=scale, **kw))
+        lib = sdpa_ms(q, k, v, False, sdpa_bias, scale=scale)
+        pairs = attention_pairs(b, sq, skv, causal)
+        elt = q.element_size()
+        nbytes = elt * (2 * b * sq * hq * d + 2 * b * skv * hkv * d) + extra_bytes + 4 * pairs * bias_heads
+        bnd = card_bound(4.0 * d * hq * pairs, nbytes, q.dtype)
+        line += (f" | kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA with the dense bias "
+                 f"{lib:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        if record:
+            results[counter].update(ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+    print(line, flush=True)
+    return max_abs_err(out, ref)
+
+
+def check_flash_relbias(results: dict) -> None:
+    """K1's relative-bias mode against its plain version (the materialised
+    bias through the plain oracle): T5 buckets bidirectional and causal at
+    B2 S2048 H16 D64 (T5-large's heads), causal at Sq 512 Skv 2048 (the
+    sequence-end alignment), ALiBi causal at B2 S2048, then fp32, GQA and
+    D 128. Timed at the bf16 shapes against SDPA given the materialised
+    bias (untimed) as its float attn_mask; the JSON keeps the bidirectional
+    case (the T5 encoder's) and ALiBi's."""
+    from photonic_flash_attention_tpu_torch.ops.rel_bias import (
+        ALiBi, T5RelBias, alibi_slopes, materialize,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, timed)
+        ("t5", 2, 2048, 2048, 16, 16, 64, bf16, False, True),
+        ("t5", 2, 2048, 2048, 16, 16, 64, bf16, True, True),
+        ("t5", 2, 512, 2048, 16, 16, 64, bf16, True, True),
+        ("alibi", 2, 2048, 2048, 16, 16, 64, bf16, True, True),
+        ("t5", 2, 300, 300, 4, 2, 128, bf16, False, False),
+        ("t5", 2, 200, 333, 4, 4, 64, f32, True, False),
+        ("alibi", 1, 256, 256, 8, 8, 128, f32, True, False),
+    ]
+    worst = {"pfa_flash_fwd_relbias": 0.0, "pfa_flash_fwd_alibi": 0.0}
+    for name, b, sq, skv, hq, hkv, d, dtype, causal, timed in cases:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        if name == "t5":
+            table = torch.randn(32, hq, device="cuda", generator=gen) * 0.5
+            spec, counter, scale = T5RelBias(table, not causal), "pfa_flash_fwd_relbias", 1.0
+        else:
+            spec, counter, scale = ALiBi(alibi_slopes(hq).cuda()), "pfa_flash_fwd_alibi", None
+        record = timed and not results[counter]
+        sdpa_bias = _sdpa_bias(materialize(spec, sq, skv), sq, skv, causal) if timed else None
+        err = _bias_case(name, q, k, v, causal, dict(rel_bias=spec), counter, results, timed=timed,
+                         record=record, extra_bytes=4 * hq * (sq + skv - 1), bias_heads=0,
+                         sdpa_bias=sdpa_bias, scale=scale)
+        worst[counter] = max(worst[counter], err)
+    for counter, err in worst.items():
+        results[counter]["max_abs_err"] = err
+
+
+def check_flash_densebias(results: dict) -> None:
+    """K1's dense-bias mode against its plain version at B4 S2048 H16 D64
+    bf16: a (B,1,S,S) random-hole mask as 0/mask-value bias (non-causal,
+    the engine's dense-mask case; kept in the JSON) and a real-valued
+    (B,H,S,S) bias with holes, causal (tiles above the diagonal read
+    nothing); then fp32, GQA and D 128. SDPA is given the same float bias."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, Hb, real, timed)
+        ("mask", 4, 2048, 2048, 16, 16, 64, bf16, False, 1, False, True),
+        ("real bias", 4, 2048, 2048, 16, 16, 64, bf16, True, 16, True, True),
+        ("real bias", 2, 100, 300, 4, 2, 128, bf16, True, 1, True, False),
+        ("mask", 2, 200, 200, 4, 4, 64, f32, False, 4, False, False),
+    ]
+    worst = 0.0
+    for name, b, sq, skv, hq, hkv, d, dtype, causal, hb, real, timed in cases:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        bias = (torch.randn(b, hb, sq, skv, device="cuda", generator=gen) if real
+                else torch.zeros(b, hb, sq, skv, device="cuda"))
+        holes = torch.rand(b, hb, sq, skv, device="cuda", generator=gen) < 0.1
+        bias = torch.where(holes, torch.full_like(bias, DEFAULT_MASK_VALUE), bias)
+        bias[..., 0] = 0.0
+        record = timed and not results["pfa_flash_fwd_densebias"]
+        sdpa_bias = _sdpa_bias(bias, sq, skv, causal) if timed else None
+        err = _bias_case(f"{name} (B,{hb},Sq,Skv)", q, k, v, causal, dict(attn_bias=bias),
+                         "pfa_flash_fwd_densebias", results, timed=timed, record=record,
+                         extra_bytes=0, bias_heads=hb, sdpa_bias=sdpa_bias, scale=None)
+        worst = max(worst, err)
+        del bias, sdpa_bias
+    results["pfa_flash_fwd_densebias"]["max_abs_err"] = worst
+
+
+TBIAS_LENS = (1, 17, 128, 129, 700, 1000, 1500, 2000)
+
+
+def check_token_bias(results: dict) -> None:
+    """K3's token-bias mode against its plain version at B8 H16 D64 page
+    128, lengths 1-2000, over a bf16 and an int8 pool (sm_scale 1, the T5
+    decode's; pages in random order, so the bias must follow the logical
+    position); bound BIAS_MODE_BOUND. No PyTorch call computes it (library
+    none). The JSON keeps the bf16 pool's numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, hq, d, page, pps, layer = 8, 16, 64, 128, 16, 5
+    lengths = torch.tensor(TBIAS_LENS, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(255, device="cuda", generator=gen)[: b * pps] + 1
+    tables = perm.view(b, pps).to(torch.int32)
+    q = torch.randn(b, hq, d, device="cuda", generator=gen)
+    bias = torch.randn(b, hq, pps * page, device="cuda", generator=gen) * 2.0
+    tokens = int(lengths.sum())
+    worst = 0.0
+    for pool_dtype in (torch.bfloat16, torch.int8):
+        k, v, ks, vs = _serving_pools(pool_dtype, gen, L=8, hkv=hq)
+        args = (q, k, v, lengths, tables, layer, ks, vs)
+        before = _build.LAUNCHES["pfa_paged_decode_attend_tbias"]
+        out = paged_ops.paged_decode_attend(*args, sm_scale=1.0, token_bias=bias)
+        ref = paged_ops.paged_decode_attend_plain(*args, 1.0, bias)
+        torch.cuda.synchronize()
+        err = rel_err_norm(out, ref)
+        line = (f"K3 token_bias B{b} H{hq} D{d} page{page} pool {str(pool_dtype)[6:]} lengths "
+                f"{list(TBIAS_LENS)}: rel_err_norm {err:.3e} (bound {BIAS_MODE_BOUND})")
+        if (err > BIAS_MODE_BOUND or not torch.isfinite(out).all()
+                or _build.LAUNCHES["pfa_paged_decode_attend_tbias"] != before + 1):
+            raise AssertionError(line)
+        ms = median_ms(lambda: paged_ops.paged_decode_attend(*args, sm_scale=1.0, token_bias=bias))
+        plain = median_ms(lambda: paged_ops.paged_decode_attend_plain(*args, 1.0, bias))
+        elt = k.element_size()
+        nbytes = (2 * tokens * hq * d * elt + 2 * 4 * tokens * hq * (pool_dtype == torch.int8)
+                  + 4 * tokens * hq + 2 * 4 * b * hq * d + 4 * b + 4 * b * pps)
+        bnd = card_bound(4.0 * d * hq * tokens, nbytes, torch.float32)
+        print(f"{line} | kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), library none", flush=True)
+        worst = max(worst, max_abs_err(out, ref))
+        if pool_dtype == torch.bfloat16:
+            results["pfa_paged_decode_attend_tbias"].update(ms=ms, plain_ms=plain, library_ms=None,
+                                                            **bnd)
+        del k, v, ks, vs
+    results["pfa_paged_decode_attend_tbias"]["max_abs_err"] = worst
+
+
 def phase_kernels() -> dict:
     results = {name: {} for name in SOURCES}
     check_flash(results)
@@ -707,6 +909,9 @@ def phase_kernels() -> dict:
     check_paged_hf(results)
     check_flash_bwd(results)
     check_flash_quant(results)
+    check_flash_relbias(results)
+    check_flash_densebias(results)
+    check_token_bias(results)
     return results
 
 
@@ -906,10 +1111,14 @@ def _engine_cases(gen):
     lens8 = torch.tensor([2048, 2000, 1500, 1024, 1000, 700, 129, 128], dtype=torch.int32,
                          device="cuda")
     short = torch.randn(4, 128, ENGINE_WIDTH, device="cuda", generator=gen)
+    dense_mask = torch.rand(4, 1, 2048, 2048, device="cuda", generator=gen) > 0.1
+    dense_mask[..., 0] = True
     return [
         ("B4 S2048 causal", True, x, None, None, None, None, "flash_unrolled", "pfa_flash_fwd"),
         ("B4 S2048 (B,1,1,S) key padding", False, x, None, None, pad_mask, None,
          "flash_unrolled", "pfa_flash_fwd_streams"),
+        ("B4 S2048 (B,1,S,S) dense mask", False, x, None, None, dense_mask, None, "flash",
+         "pfa_flash_fwd_densebias"),
         ("decode B8 Sq1 Skv2048 kv_lens", False, q1, ctx, ctx, None, lens8, "paged_decode",
          "pfa_paged_hf"),
         ("B4 S128 causal", True, short, None, None, None, None, "fused", None),
@@ -961,14 +1170,17 @@ def _engine_pass(layers, cases, *, measured: bool, calls: int, bound: float, lab
                 raise AssertionError(f"{line}: {counter} did not launch")
         else:
             skv = (key if key is not None else query).shape[1]
+            dense = mask is not None and mask.shape[-2] > 1
             w = WorkloadCharacteristics(
                 batch_size=query.shape[0], q_len=query.shape[1], kv_len=skv,
                 num_heads=ENGINE_HEADS, head_dim=64, causal=causal,
-                mask_kind="none" if mask is None and lens is None else "key",
+                mask_kind="dense" if dense else "none" if mask is None and lens is None else "key",
                 is_decode=query.shape[1] == 1, dtype="bfloat16", num_kv_heads=ENGINE_HEADS)
             table = {k.value: engine.router.predicted_latency(k, w) for k in KernelKind
                      if engine.router.predicted_latency(k, w) is not None}
             line += f"; router table (ms by kind) {table}"
+            if dense and "flash" not in table:
+                raise AssertionError(f"{line}: the measured table must offer flash for a dense mask")
         print(line, flush=True)
     stats = engine.get_performance_stats()
     if stats["failures"]:
@@ -979,9 +1191,10 @@ def _engine_pass(layers, cases, *, measured: bool, calls: int, bound: float, lab
 def phase_engine(smi: str) -> dict:
     """The drop-in layer's adaptive route, eager calls under no_grad at
     GPT-2-medium width: once with the heuristic (the kinds must be exactly
-    as listed) and once measured (warm-up over every eligible kind, then
-    exploit); every output against the fp32 fused oracle; K1 and K3 must
-    launch and the engine must count no failure. Then under quant_mode
+    as listed; a dense mask takes FLASH, K1's dense-bias mode) and once
+    measured (warm-up over every eligible kind, then exploit; a dense
+    mask's table must hold FLASH); every output against the fp32 fused
+    oracle; K1 and K3 must launch and the engine must count no failure. Then under quant_mode
     "int8" and "fp8": a square causal call (the heuristic keeps
     flash_unrolled, the JAX order) and a cross-attention call (Sq 512, Skv
     2048: the quantized kind), heuristic then measured; the warm-up must
@@ -1000,7 +1213,8 @@ def phase_engine(smi: str) -> dict:
             stats = _engine_pass(layers, cases, measured=measured, calls=4 if measured else 1,
                                  bound=ENGINE_BOUND, label="")
         launches = dict(_build.LAUNCHES)
-        for name in ("pfa_flash_fwd", "pfa_flash_fwd_streams", "pfa_paged_hf"):
+        for name in ("pfa_flash_fwd", "pfa_flash_fwd_streams", "pfa_flash_fwd_densebias",
+                     "pfa_paged_hf"):
             if not launches.get(name):
                 raise AssertionError(f"engine: {name} never launched through the engine")
         print(f"engine: launches {launches}; failures {stats['failures']}; card power limit "
@@ -1089,6 +1303,8 @@ def check_train_grads(cfg, state: dict, batch: dict) -> None:
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel names)
     ("K1 flash forward", ("flash_fwd",)),
+    ("K2 paged token write", ("paged_token_write",)),
+    ("K3 paged decode", ("paged_decode_attend",)),
     ("K4 flash dK/dV", ("bwd_dkv",)),
     ("K5 flash dQ", ("bwd_dq",)),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma")),
@@ -1112,52 +1328,59 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile_train_step(trainer, state, batch, out_dir: Path) -> None:
-    """torch.profiler (device activity only) over PROFILED_STEPS single
-    training steps. For each: the step's own wall time (host clock, card
-    synchronized before and after), the device's busy time (union of its
-    kernel and copy intervals in the trace) and the span from the first
-    device event to the last. Idle share = 1 - busy / wall, per step."""
+def _profile_runs(fn, runs: int, out_dir: Path, tag: str) -> None:
+    """torch.profiler (device activity only) over ``runs`` single calls of
+    ``fn``. For each: its own wall time (host clock, card synchronized
+    before and after), the device's busy time (union of its kernel and copy
+    intervals in the trace) and the span from the first device event to
+    the last. Idle share = 1 - busy / wall, per call. Then the mean device
+    time by kernel group; traces and a per-kernel table
+    (``{tag}_profile.txt``) go into ``out_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
     groups = collections.Counter()
     by_kernel = collections.Counter()
     idle = []
-    for i in range(PROFILED_STEPS):
+    for i in range(runs):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            trainer.train_step(state, batch)
+            fn()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-        trace = out_dir / f"train_step_trace_{i}.json"
+        trace = out_dir / f"{tag}_trace_{i}.json"
         prof.export_chrome_trace(str(trace))
         events = [e for e in json.loads(trace.read_text())["traceEvents"]
                   if e.get("cat") in DEVICE_CATEGORIES and "dur" in e]
         if not events:
-            raise AssertionError("profile: the trace holds no device events")
+            raise AssertionError(f"profile {tag}: the trace holds no device events")
         spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events]
         busy = _busy_us(spans)
         span = max(e for _, e in spans) - min(s for s, _ in spans)
         idle.append(1 - busy / wall_us)
-        print(f"profile: step {i}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+        print(f"profile {tag}: call {i}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
               f"first-to-last device event {span / 1e3:.3f} ms, idle {100 * idle[-1]:.1f}% of "
               f"the wall ({len(events)} device events)", flush=True)
         for e in events:
             name = e["name"]
-            by_kernel[name] += float(e["dur"]) / 1e3 / PROFILED_STEPS
+            by_kernel[name] += float(e["dur"]) / 1e3 / runs
             group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
-            groups[group] += float(e["dur"]) / 1e3 / PROFILED_STEPS
+            groups[group] += float(e["dur"]) / 1e3 / runs
     total = sum(groups.values())
-    lines = [f"profile: idle share over {PROFILED_STEPS} profiled steps "
+    lines = [f"profile {tag}: idle share over {runs} profiled calls "
              f"{100 * min(idle):.1f}% .. {100 * max(idle):.1f}%; mean device time by group "
              f"(sum {total:.3f} ms):"]
-    lines += [f"profile:   {g}: {t:.3f} ms ({100 * t / total:.1f}%)"
+    lines += [f"profile {tag}:   {g}: {t:.3f} ms ({100 * t / total:.1f}%)"
               for g, t in groups.most_common()]
     print("\n".join(lines), flush=True)
     table = [f"{t:10.3f} ms  {name}" for name, t in by_kernel.most_common(80)]
-    (out_dir / "train_step_profile.txt").write_text("\n".join(lines + [""] + table) + "\n")
+    (out_dir / f"{tag}_profile.txt").write_text("\n".join(lines + [""] + table) + "\n")
+
+
+def profile_train_step(trainer, state, batch, out_dir: Path) -> None:
+    """PROFILED_STEPS single training steps under the profiler."""
+    _profile_runs(lambda: trainer.train_step(state, batch), PROFILED_STEPS, out_dir, "train_step")
 
 
 def phase_training(smi: str, profile_dir: Optional[str] = None) -> dict:
@@ -1212,10 +1435,274 @@ def phase_training(smi: str, profile_dir: Optional[str] = None) -> dict:
     return launches
 
 
+T5_PROMPT_LENS = (64, 100, 128, 200, 256, 300, 400, 512)
+T5_NEW_TOKENS = 32
+T5_ENC_MAX_LEN = 512
+#: Bound on rel_err_norm of the cut T5-large forward (fp32 on the card)
+#: against the same weights in fp32 on the CPU.
+T5_FORWARD_BOUND = 2e-2
+#: The greedy-parity rule's tolerance: the JAX test's (see phase_t5).
+T5_PARITY_TOL = 0.05
+#: The first-token check is exact, so a prompt whose dense fp32 top-2
+#: first-step logits lie closer than this (a tie at the int8 pool's
+#: first-step logit error, 1e-2 relative, ~4e-2 absolute) is redrawn.
+T5_TIE_MARGIN = 0.1
+
+
+def _t5_model(cfg, device: str, seed: int = 0):
+    """T5ForConditionalGeneration with Flax's initialisers drawn from a
+    seeded generator on ``device`` (eval mode, no gradients)."""
+    from photonic_flash_attention_tpu_torch.models.t5 import T5ForConditionalGeneration
+
+    with torch.device(device):
+        model = T5ForConditionalGeneration(cfg, generator=torch.Generator(device=device).manual_seed(seed))
+    return model.eval().requires_grad_(False)
+
+
+def _t5_dense_logits(model, enc_ids, dec_ids) -> torch.Tensor:
+    """The dense model's last-position logits (V,) fp32 on the card."""
+    with torch.no_grad():
+        return model(torch.tensor([enc_ids], device="cuda"),
+                     torch.tensor([dec_ids], device="cuda"))[0, -1].float()
+
+
+def check_t5_forward(cfg) -> dict:
+    """(a) The forward at full width cut to 2+2 layers, B1, encoder 1024,
+    decoder 512, unmasked: both stacks on K1's relative-bias mode (the B1
+    cross-attention is below flash_min_tokens: fused). The card's fp32
+    forward (K1's fp32 path) against the same weights in fp32 on the CPU
+    (plain versions), bound T5_FORWARD_BOUND; the card's bf16 forward
+    against the same CPU run is reported beside it, and is no check: with
+    random weights and unscaled d_kv-64 scores (std ~8, a near-argmax
+    softmax) bf16 rounding alone moves T5's logits by several percent, in
+    the JAX model as well."""
+    cut = dataclasses.replace(cfg, num_layers=2, num_decoder_layers=2)
+    card = {torch.float32: _t5_model(dataclasses.replace(cut, dtype=torch.float32), "cuda", seed=1)}
+    card[torch.bfloat16] = _t5_model(cut, "cuda")
+    card[torch.bfloat16].load_state_dict(card[torch.float32].state_dict())
+    cpu = _t5_model(dataclasses.replace(cut, dtype=torch.float32), "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card[torch.float32].state_dict().items()})
+    rng = np.random.default_rng(1)
+    enc = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, 1024)))
+    dec = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, 512)))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu(enc, dec)
+    cpu_s = time.perf_counter() - t0
+    _build.reset_launches()
+    errs = {}
+    for dtype, model in card.items():
+        with torch.no_grad():
+            got = model(enc.cuda(), dec.cuda()).float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"T5 forward (a) {dtype}: non-finite logits")
+        errs[dtype] = rel_err_norm(got.cpu(), want)
+    launches = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        ms = {dtype: median_ms(lambda: model(enc.cuda(), dec.cuda()), runs=3, warmup=0)
+              for dtype, model in card.items()}
+    line = (f"T5 forward (a): T5-large width cut to 2+2 layers, B1 encoder 1024 decoder 512 vs "
+            f"fp32 CPU plain: card fp32 rel_err_norm {errs[torch.float32]:.3e} (bound "
+            f"{T5_FORWARD_BOUND}), card bf16 {errs[torch.bfloat16]:.3e} (reported); card "
+            f"{ms[torch.float32]:.2f} ms fp32, {ms[torch.bfloat16]:.2f} ms bf16, CPU {cpu_s:.1f} s; "
+            f"launches {launches}")
+    if errs[torch.float32] > T5_FORWARD_BOUND or launches.get("pfa_flash_fwd_relbias", 0) != 2 * 4:
+        raise AssertionError(line)
+    print(line, flush=True)
+    return launches
+
+
+def _serve_t5(cfg, state, prompts, kv_dtype, profile_dir: Optional[str] = None):
+    """Serve ``prompts`` on a fresh engine (warm-up first): (outputs, first
+    logits by prompt, launches of the timed run, stats, wall). With
+    ``profile_dir``, the same requests are served once more under the
+    profiler (``_profile_runs``)."""
+    from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
+
+    engine = ServingEngine(cfg, state, device="cuda", num_pages=64, page_size=128,
+                           max_batch=8, max_pages_per_seq=4, kv_dtype=kv_dtype,
+                           decode_window=32, enc_max_len=T5_ENC_MAX_LEN)
+    engine.generate([p[:8] for p in prompts[:2]], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    engine.reset_performance_stats()
+    first_logits = _capture_first_logits(engine)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=T5_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    stats = engine.get_performance_stats()
+    if profile_dir:
+        tag = f"t5_serving_{str(cfg.dtype)[6:]}_{str(kv_dtype)[6:]}"
+        _profile_runs(lambda: engine.generate(prompts, max_new_tokens=T5_NEW_TOKENS), 1,
+                      Path(profile_dir), tag)
+    del engine
+    torch.cuda.empty_cache()
+    return outs, first_logits, launches, stats, wall
+
+
+def _check_greedy_parity(model, prompt, served) -> float:
+    """The JAX test's rule (tests/integration/test_t5_serving.py:51): along
+    the SERVED trajectory each token's dense logit is within T5_PARITY_TOL
+    of the dense best. Returns the largest gap."""
+    from photonic_flash_attention_tpu_torch.models.t5_serving import DECODER_START_TOKEN_ID
+
+    dec, worst = [DECODER_START_TOKEN_ID], 0.0
+    for i, tok in enumerate(served):
+        lg = _t5_dense_logits(model, prompt, dec)
+        gap = float(lg.max() - lg[tok])
+        worst = max(worst, gap)
+        if gap > T5_PARITY_TOL:
+            raise AssertionError(f"T5 greedy parity: encoder prompt of {len(prompt)} tokens, step "
+                                 f"{i}: served {tok} is {gap:.4f} below the dense best "
+                                 f"(tolerance {T5_PARITY_TOL})")
+        dec.append(tok)
+    return worst
+
+
+def _t5_prompts(model32, vocab: int):
+    """One encoder prompt per length of T5_PROMPT_LENS from a seeded
+    generator, redrawn while the dense fp32 model's top-2 first-step logits
+    lie within T5_TIE_MARGIN: (prompts, their dense fp32 first-step logits,
+    the number redrawn)."""
+    from photonic_flash_attention_tpu_torch.models.t5_serving import DECODER_START_TOKEN_ID
+
+    rng = np.random.default_rng(2)
+    prompts, dense, redrawn = [], [], 0
+    for n in T5_PROMPT_LENS:
+        for _ in range(32):
+            prompt = rng.integers(2, vocab, n).tolist()
+            logits = _t5_dense_logits(model32, prompt, [DECODER_START_TOKEN_ID])
+            top = logits.topk(2).values
+            if float(top[0] - top[1]) >= T5_TIE_MARGIN:
+                break
+            redrawn += 1
+        else:
+            raise AssertionError(f"T5 path: no prompt of {n} tokens without a first-step tie")
+        prompts.append(prompt)
+        dense.append(logits)
+    return prompts, dense, redrawn
+
+
+def phase_t5(smi: str, profile_dir: Optional[str] = None) -> dict:
+    """T5-large (``T5Config.large()``: d_model 1024, 24+24 layers, 16 heads,
+    d_kv 64, d_ff 4096, vocabulary 32128), random weights from a seeded
+    generator on the card. (a) The cut forward against the CPU. (b)
+    ``ServingEngine`` at full depth, 8 requests, encoder prompts
+    T5_PROMPT_LENS, T5_NEW_TOKENS new tokens, page 128, once with a bf16
+    and once with an int8 KV pool, the model computing in fp32: every
+    request's first token must equal the dense fp32 model's argmax on the
+    card (prompts whose dense top-2 logits tie within T5_TIE_MARGIN are
+    redrawn), and two trajectories of the bf16-pool run must pass the JAX
+    test's greedy-parity rule at its own tolerance, 0.05. Why fp32: with
+    random weights the full-depth model is chaotic in bf16 (unscaled d_kv-64
+    scores make every softmax near-argmax, and 48 layers amplify rounding),
+    so two bf16 computations of the same logits disagree at first order;
+    the phase prints the dense bf16 model's first-step logits against the
+    fp32 ones to show it, and a third run, bf16 compute over a bf16 pool
+    (the throughput configuration), is timed and reported without the
+    token checks. (c) The full-depth bf16 forward at B2, encoder 2048,
+    decoder 512, timed. With ``profile_dir`` the bf16 serving run is
+    profiled once more. Returns the launches of the main paths."""
+    from photonic_flash_attention_tpu_torch.models.t5 import T5Config
+    from photonic_flash_attention_tpu_torch.models.t5_serving import DECODER_START_TOKEN_ID
+
+    cfg = T5Config.large()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    launches = collections.Counter(check_t5_forward(cfg))
+    t0 = time.perf_counter()
+    model32 = _t5_model(cfg32, "cuda")
+    torch.cuda.synchronize()
+    print(f"T5 path: T5-large init on the card {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in model32.parameters()) / 1e6:.1f} M params)", flush=True)
+    state = model32.state_dict()
+    model16 = _t5_model(cfg, "cuda")
+    model16.load_state_dict(state)
+    prompts, dense32, redrawn = _t5_prompts(model32, cfg.vocab_size)
+    start = [DECODER_START_TOKEN_ID]
+    dense16 = [_t5_dense_logits(model16, p, start) for p in prompts]
+    firsts = [int(d.argmax()) for d in dense32]
+    gaps = [float(d.topk(2).values[0] - d.topk(2).values[1]) for d in dense32]
+    print(f"T5 path: dense first-step logits, bf16 model vs fp32 model: rel_err_norm "
+          f"{[f'{rel_err_norm(a, b):.3e}' for a, b in zip(dense16, dense32)]}, argmax equal "
+          f"{sum(int(a.argmax()) == f for a, f in zip(dense16, firsts))}/{len(prompts)}; fp32 "
+          f"argmax {firsts}, top-2 gaps {[round(g, 4) for g in gaps]} ({redrawn} prompts "
+          f"redrawn for a top-2 gap below {T5_TIE_MARGIN})", flush=True)
+    decode_steps = T5_NEW_TOKENS - 1
+    need = cfg.num_decoder_layers * (len(prompts) + decode_steps)
+    for run_cfg, kv_dtype in ((cfg32, torch.bfloat16), (cfg32, torch.int8), (cfg, torch.bfloat16)):
+        checked = run_cfg.dtype == torch.float32
+        outs, first_logits, runs, stats, wall = _serve_t5(
+            run_cfg, state, prompts, kv_dtype, None if checked else profile_dir)
+        label = f"{str(run_cfg.dtype)[6:]} compute, {str(kv_dtype)[6:]} pool"
+        for p, o in zip(prompts, outs):
+            if len(o) != T5_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in o):
+                raise AssertionError(f"T5 serving {label}: prompt of {len(p)} tokens: bad output {o}")
+        dense = dense32 if checked else dense16
+        errs = [rel_err_norm(first_logits[tuple(p)], d) for p, d in zip(prompts, dense)]
+        served = [o[0] for o in outs]
+        line = (f"T5 serving (b) {label}: {len(prompts)} requests (encoder "
+                f"{list(T5_PROMPT_LENS)}) x {T5_NEW_TOKENS} tokens in {wall:.2f} s; decode "
+                f"{stats['decode_tokens']} tokens at {stats['decode_tokens_per_s']:.1f} tokens/s, "
+                f"prefill {stats['prefill_tokens']} encoder tokens at "
+                f"{stats['prefill_tokens_per_s']:.1f} tokens/s ({smi}); launches {runs}; first "
+                f"tokens {served}, equal to the dense {str(run_cfg.dtype)[6:]} argmax: "
+                f"{served == [int(d.argmax()) for d in dense]}; first-step logits vs the dense "
+                f"model's rel_err_norm max {max(errs):.3e}")
+        if checked and served != firsts:
+            raise AssertionError(f"{line}: the dense fp32 model picks {firsts}")
+        for counter in ("pfa_paged_token_write", "pfa_paged_decode_attend_tbias"):
+            if runs.get(counter, 0) != need:
+                raise AssertionError(f"{line}: {counter} launched {runs.get(counter, 0)} times, "
+                                     f"expected {need}")
+        print(line, flush=True)
+        launches.update(runs)
+        if checked and kv_dtype == torch.bfloat16:
+            for p, o in list(zip(prompts, outs))[:2]:
+                worst = _check_greedy_parity(model32, p, o)
+                print(f"T5 greedy parity ({label}, encoder {len(p)} tokens): {len(o)} steps, "
+                      f"largest gap to the dense fp32 best {worst:.4f} (tolerance "
+                      f"{T5_PARITY_TOL}); tokens {o}", flush=True)
+    del model32, state
+    torch.cuda.empty_cache()
+    launches.update(time_t5_forward(cfg, model16, smi))
+    del model16
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_t5_forward(cfg, model, smi: str) -> dict:
+    """(c) The full-depth forward at B2, encoder 2048, decoder 512: every
+    self-attention on K1's relative-bias mode (24 bidirectional at 2048, 24
+    causal at 512), the cross-attention on plain K1; CUDA-event median."""
+    rng = np.random.default_rng(3)
+    enc = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 2048))).cuda()
+    dec = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 512))).cuda()
+    with torch.no_grad():
+        model(enc, dec)  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        logits = model(enc, dec)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        ms = median_ms(lambda: model(enc, dec), runs=5, warmup=0)
+    layers = cfg.num_layers + cfg.num_decoder_layers
+    line = (f"T5 forward (c): T5-large full depth, B2 encoder 2048 decoder 512, bf16: {ms:.2f} ms "
+            f"(median of 5, {2 * (2048 + 512) / ms * 1e3:.0f} tokens/s, {smi}); launches {launches}")
+    if (logits.shape != (2, 512, cfg.vocab_size) or not torch.isfinite(logits.float()).all()
+            or launches.get("pfa_flash_fwd_relbias", 0) != layers
+            or launches.get("pfa_flash_fwd", 0) != cfg.num_decoder_layers):
+        raise AssertionError(line)
+    print(line, flush=True)
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile one training step; write the table into DIR")
+                        help="also profile three training steps and one T5 serving run (bf16); "
+                             "write the traces and tables into DIR")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -1223,6 +1710,7 @@ def main() -> None:
     launches = collections.Counter(phase_serving(smi))
     launches.update(phase_engine(smi))
     launches.update(phase_training(smi, args.profile))
+    launches.update(phase_t5(smi, args.profile))
     def entry(name: str) -> dict:
         r = results[name]
         return {

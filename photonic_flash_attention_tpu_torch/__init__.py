@@ -4,21 +4,26 @@ The JAX package beside this one is the reference: every module here
 mirrors the JAX module of the same path, and the tests feed both the same
 numpy inputs. The port imports ``torch`` and never ``jax``.
 
-Slice 1 covers GPT-2 paged-KV serving (``core.serving.ServingEngine``),
-slice 2 GPT-2 training (``training.Trainer``), slice 3 the drop-in layer
+It covers GPT-2 paged-KV serving (``core.serving.ServingEngine``), GPT-2
+training (``training.Trainer``), the drop-in layer
 (``models.attention.PhotonicFlashAttention``) over the measured
-``core.engine.AttentionEngine``, with chunked prefill, and slice 4 the
-engine's quantized kinds (``quant_mode`` "int8" / "fp8", ``ops.flash_fp8``),
-on six hand-written CUDA kernels for sm_90a (``csrc/``):
+``core.engine.AttentionEngine``, with chunked prefill, the engine's
+quantized kinds (``quant_mode`` "int8" / "fp8", ``ops.flash_fp8``), and the
+T5 encoder-decoder (``models.t5``, served through ``ServingEngine`` by
+``models.t5_serving``) with the structured biases (``ops.rel_bias``), on
+six hand-written CUDA kernels for sm_90a (``csrc/``):
 
 * K1 ``ops.flash`` — flash-attention forward (prefill, and the training
   forward with its logsumexp), with the key-padding streams
-  ``kv_lens``/``k_bias`` and the quantized modes int8-QK, fp8-QK and
-  int8-full (``ops.flash.flash_attention_qk_quant``);
+  ``kv_lens``/``k_bias``, the quantized modes int8-QK, fp8-QK and
+  int8-full (``ops.flash.flash_attention_qk_quant``), the relative-bias
+  mode (T5 buckets, ALiBi: ``rel_bias=``) and the dense-bias mode
+  (``attn_bias=``);
 * K2 ``ops.paged.paged_token_write`` — per-token K/V write into the
   paged pool, int8-quantized when the pool is int8;
 * K3 ``ops.paged.paged_decode_attend`` and ``paged_attention_hf`` —
-  one-query attention over a sequence's pages (float or int8 compute);
+  one-query attention over a sequence's pages (float or int8 compute),
+  with a per-token score bias (``token_bias=``, T5 decode);
 * K4/K5 ``ops.flash_bwd`` — flash-attention backward, dK/dV and dQ;
 * K6 ``ops.flash_fp8.flash_attention_quant`` — fp8/int8 flash attention
   with per-128-row-block Q/K scales and P requantized per block.

@@ -11,7 +11,9 @@ measurement, and the stats surface (``last_kernel_used``,
 Kinds offered (no mesh):
 
 * FUSED — ``ops/fused.py`` (plain PyTorch, as JAX leaves it to XLA);
-* FLASH — ``ops/flash.py`` (K1), plain or with the key streams;
+* FLASH — ``ops/flash.py`` (K1), plain, with the key streams, or, for a
+  mask with (Sq, Skv) structure, with the mask as a dense additive bias
+  (K1's dense-bias mode; JAX ``core/engine.py:314-341``);
 * FLASH_UNROLLED — ``ops/flash_unrolled.py`` (K1), square self-attention,
   ``kv_lens`` folded into the per-key bias first, as in JAX;
 * PAGED_DECODE — decode-shaped calls (Sq = 1, Skv >= 128): contiguous K/V
@@ -26,8 +28,6 @@ Kinds offered (no mesh):
 
 Differences from the JAX engine, each in ROADMAP Queue C:
 
-* a dense (Sq, Skv) mask is offered FUSED only: K1 has no dense-bias tile
-  stream yet (B10);
 * no hidden fallback for CUDA tensors: a kernel that fails there raises
   (the JAX engine reruns the call on FUSED and counts the failure); CPU
   tensors keep the JAX fallback;
@@ -138,6 +138,19 @@ def _key_keep(skv: int, kv_lens, k_bias, device) -> torch.Tensor:
     return torch.arange(skv, device=device)[None] < kv_lens.to(device)[:, None]
 
 
+def _dense_mask_bias(q, k, mask: torch.Tensor) -> torch.Tensor:
+    """A boolean mask with (Sq, Skv) structure as K1's dense additive bias
+    (B, 1|Hq, Sq, Skv) fp32: 0 = attend, ``DEFAULT_MASK_VALUE`` = ignore
+    (JAX ``core/engine.py:325-334``)."""
+    m = mask.to(device=q.device, dtype=torch.bool)
+    while m.ndim < 4:
+        m = m[None]
+    b, sq, hq = q.shape[0], q.shape[1], q.shape[2]
+    hb = 1 if m.shape[1] == 1 else hq
+    m = m.expand(b, hb, sq, k.shape[1])
+    return torch.where(m, 0.0, DEFAULT_MASK_VALUE).to(torch.float32)
+
+
 def _decode_paged(q, k, v, kv_lens):
     """PAGED_DECODE: (B, 1, Hq, D) over contiguous (B, Skv, Hkv, D) K/V,
     repacked into a token-major (Hkv, B*pps, 128, D) pool with an identity
@@ -205,8 +218,6 @@ class AttentionEngine:
         self, w: Optional[WorkloadCharacteristics] = None
     ) -> Tuple[KernelKind, ...]:
         kinds = [KernelKind.FUSED, KernelKind.FLASH]
-        if w is not None and w.mask_kind == "dense":
-            return (KernelKind.FUSED,)  # no dense-bias stream in K1 yet (B10)
         if w is not None and not w.is_decode and w.q_len == w.kv_len:
             if unrolled_supported(w.q_len, w.head_dim):
                 kinds.append(KernelKind.FLASH_UNROLLED)
@@ -228,6 +239,8 @@ class AttentionEngine:
                 # A key mask given as lens/bias: the fused path takes it dense.
                 mask = _key_keep(k.shape[1], kv_lens, k_bias, q.device)[:, None, None, :]
             return fused_attention(q, k, v, mask, causal=causal, need_weights=need_weights)
+        if kind == KernelKind.FLASH and mask is not None:
+            return flash_attention(q, k, v, causal=causal, attn_bias=_dense_mask_bias(q, k, mask)), None
         if kind == KernelKind.FLASH:
             return flash_attention(q, k, v, causal=causal, kv_lens=kv_lens, k_bias=k_bias), None
         if kind == KernelKind.FLASH_UNROLLED:

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the paged KV pool (PyTorch).
 
 Port of ``photonic_flash_attention_tpu/core/serving.py`` for one device and
-the GPT-2 family:
+the GPT-2 and T5 families (``_model_adapter``):
 
 * sequences join the running batch as soon as a slot and pages are free
   (admission), leave on EOS/max-tokens (retirement), pages are recycled;
@@ -12,13 +12,18 @@ the GPT-2 family:
 * a decode window runs up to ``decode_window`` decode steps over a fixed
   slot batch (kernels K2 and K3 in every layer) with argmax or sampling on
   the device; tokens reach the host once per window. Inactive slots write
-  to the reserved trash page 0 and attend over nothing.
+  to the reserved trash page 0 and attend over nothing;
+* encoder-decoder (T5): ``submit`` takes the ENCODER prompt (at most
+  ``enc_max_len`` tokens); a prefill runs the encoder, pins the decoder's
+  cross-attention K/V in the request's slot and consumes the decoder start
+  token; only decoder tokens (start + generated) take pages, and decode
+  positions count decoder tokens (``models/t5_serving.py``).
 
 The JAX window is one compiled ``lax.scan``; here it is a Python loop of
 eager steps (a CUDA graph is later work). The engine runs on the card
 unless the caller passes ``device="cpu"``. Not in this slice, each raising
-``NotImplementedError`` that names its ROADMAP item: the mesh (A12), Llama
-and T5 adapters (A8, A10), save/restore (A13).
+``NotImplementedError`` that names its ROADMAP item: the mesh (A12), the
+Llama adapter (A8), save/restore (A13).
 """
 
 from __future__ import annotations
@@ -30,20 +35,51 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models import gpt2_serving, t5_serving
 from ..models.gpt2 import GPT2Config
-from ..models.gpt2_serving import (
-    KVPages,
-    decode_step,
-    prefill_chunk_step,
-    prefill_step,
-    prepare_params,
-)
+from ..models.t5 import T5Config
 from ..ops.paged import POOL_DTYPES
 from ..utils.exceptions import KVCacheError
 from .native_sched import make_scheduler
 
 _TRASH_PAGE = 0  # page 0 is never allocated; padded/inactive writes land here
 _KV_NAMES = {torch.int8: "int8", torch.bfloat16: "bf16", torch.float32: "fp32"}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Adapter:
+    """A family's step functions (JAX ``_model_adapter``): ``create_pages(
+    num_pages, page_size, dtype, device)``, ``prepare_params(state_dict,
+    cfg, device)``, ``prefill``, ``decode``, ``prefill_chunk`` (None without
+    a chunked-prefill step) and ``family``: "causal" (prompt tokens live in
+    the paged pool) or "encdec" (the prompt lives in pinned cross buffers;
+    only decoder tokens take pages)."""
+
+    create_pages: Any
+    prepare_params: Any
+    prefill: Any
+    decode: Any
+    prefill_chunk: Any
+    family: str
+
+
+def _model_adapter(cfg, *, max_batch: int = 8, enc_max_len: int = 512) -> _Adapter:
+    if isinstance(cfg, GPT2Config):
+        return _Adapter(
+            lambda n, page, dtype, device: gpt2_serving.KVPages.create(cfg, n, page, dtype, device),
+            gpt2_serving.prepare_params, gpt2_serving.prefill_step, gpt2_serving.decode_step,
+            gpt2_serving.prefill_chunk_step, "causal",
+        )
+    if isinstance(cfg, T5Config):
+        return _Adapter(
+            lambda n, page, dtype, device: t5_serving.create_t5_pages(
+                cfg, n, page, dtype, max_batch=max_batch, enc_max_len=enc_max_len, device=device),
+            t5_serving.prepare_params, t5_serving.t5_prefill_step, t5_serving.t5_decode_step,
+            None, "encdec",
+        )
+    raise NotImplementedError(
+        f"no serving adapter for {type(cfg).__name__} yet (Llama: ROADMAP A8)"
+    )
 
 
 class _PyPageAllocator:
@@ -113,13 +149,15 @@ class _Sequence:
 
 
 class ServingEngine:
-    """Single-device continuous batching (GPT-2 family).
+    """Single-device continuous batching (GPT-2 and T5 families).
 
-    ``params`` is a ``models.gpt2.GPT2LMHead`` state_dict; the engine keeps
+    ``params`` is a ``models.gpt2.GPT2LMHead`` or
+    ``models.t5.T5ForConditionalGeneration`` state_dict; the engine keeps
     its own copy on ``device`` (the card by default), cast once to the
     serving dtypes. ``prefill_chunk`` (a positive multiple of
-    ``page_size``, or None): prompts longer than it prefill in chunks of
-    that many tokens, one chunk per ``step()``."""
+    ``page_size``, or None; GPT-2 only): prompts longer than it prefill in
+    chunks of that many tokens, one chunk per ``step()``. ``enc_max_len``
+    (T5) bounds the encoder prompt and sizes the pinned cross buffers."""
 
     ADMIT_SKIP_AHEAD = 4
 
@@ -142,19 +180,21 @@ class ServingEngine:
         seed: int = 0,
         mesh=None,
         admission: str = "fifo",
+        enc_max_len: int = 512,
     ) -> None:
-        if not isinstance(cfg, GPT2Config):
-            raise NotImplementedError(
-                f"no serving adapter for {type(cfg).__name__} yet "
-                "(Llama: ROADMAP A8, T5: ROADMAP A10)"
-            )
+        adapter = _model_adapter(cfg, max_batch=max_batch, enc_max_len=enc_max_len)
         if mesh is not None:
             raise NotImplementedError("sharded serving is ROADMAP A12")
-        if prefill_chunk is not None and (prefill_chunk <= 0 or prefill_chunk % page_size):
-            raise ValueError(
-                f"prefill_chunk must be a positive multiple of page_size ({page_size}); "
-                f"got {prefill_chunk}"
-            )
+        if prefill_chunk is not None:
+            if adapter.prefill_chunk is None:
+                raise ValueError(
+                    f"{type(cfg).__name__} has no chunked-prefill step; use prefill_chunk=None"
+                )
+            if prefill_chunk <= 0 or prefill_chunk % page_size:
+                raise ValueError(
+                    f"prefill_chunk must be a positive multiple of page_size ({page_size}); "
+                    f"got {prefill_chunk}"
+                )
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine runs on the card by default and CUDA is not "
                                "available; pass device='cpu' to run on the CPU")
@@ -164,7 +204,11 @@ class ServingEngine:
             raise ValueError(f"kv_dtype must be one of {POOL_DTYPES}, got {kv_dtype}")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.params = prepare_params(params, cfg, self.device)
+        self._family = adapter.family
+        self._prefill_step, self._decode_step = adapter.prefill, adapter.decode
+        self._chunk_step = adapter.prefill_chunk
+        self.enc_max_len = enc_max_len
+        self.params = adapter.prepare_params(params, cfg, self.device)
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_batch = max_batch
@@ -178,7 +222,7 @@ class ServingEngine:
         self._sample_seed = int(seed)
         self.decode_window = max(1, decode_window)
         self.prefill_chunk = prefill_chunk
-        self.pages = KVPages.create(cfg, num_pages, page_size, kv_dtype, self.device)
+        self.pages = adapter.create_pages(num_pages, page_size, kv_dtype, self.device)
         self._alloc = _PyPageAllocator(num_pages, page_size, max_pages_per_seq)
         self._slots: List[Optional[int]] = [None] * max_batch  # slot -> seq_id
         self._sequences: Dict[int, _Sequence] = {}
@@ -205,11 +249,20 @@ class ServingEngine:
         self, prompt_ids: Sequence[int], max_new_tokens: int = 16, priority: int = 0
     ) -> int:
         """Queue a request. Higher ``priority`` admits first; FIFO within a
-        priority level."""
-        needed = len(prompt_ids) + max_new_tokens
+        priority level. Decoder-only families: ``prompt_ids`` are the causal
+        prompt. Encoder-decoder (T5): ``prompt_ids`` are the ENCODER input;
+        only decoder tokens (start + generated) take KV pages."""
+        if self._family == "encdec":
+            if len(prompt_ids) > self.enc_max_len:
+                raise KVCacheError(
+                    f"encoder prompt ({len(prompt_ids)}) exceeds enc_max_len ({self.enc_max_len})"
+                )
+            needed = 1 + max_new_tokens
+        else:
+            needed = len(prompt_ids) + max_new_tokens
         if needed > self.max_pages_per_seq * self.page_size:
             raise KVCacheError("request exceeds max sequence capacity")
-        if needed > self.cfg.n_positions:
+        if self._family == "causal" and needed > self.cfg.n_positions:
             raise KVCacheError(
                 f"request needs {needed} positions; the model has {self.cfg.n_positions}"
             )
@@ -236,6 +289,11 @@ class ServingEngine:
         return -(-tokens // self.page_size)
 
     def _total_tokens(self, seq: _Sequence) -> int:
+        """Paged tokens a sequence needs: prompt + generation for causal
+        families; start token + generation for encoder-decoder (the encoder
+        prompt lives in the pinned cross buffers)."""
+        if self._family == "encdec":
+            return 1 + seq.max_new_tokens
         return seq.prompt_len + seq.max_new_tokens
 
     def _pick_admittable(self) -> Optional[int]:
@@ -285,6 +343,9 @@ class ServingEngine:
         return max(16, 1 << (n - 1).bit_length())
 
     def _prefill(self, seq: _Sequence) -> None:
+        if self._family == "encdec":
+            self._prefill_encdec(seq)
+            return
         s_pad = self._bucket(seq.prompt_len)
         ids = np.zeros((1, s_pad), np.int64)
         ids[0, : seq.prompt_len] = seq.tokens[: seq.prompt_len]
@@ -292,7 +353,7 @@ class ServingEngine:
         for i in range(seq.prompt_len):
             slots[0, i] = self._flat_slot(seq, i)
         t0 = time.perf_counter()
-        logits = prefill_step(
+        logits = self._prefill_step(
             self.params,
             self.cfg,
             torch.from_numpy(ids).to(self.device),
@@ -300,6 +361,32 @@ class ServingEngine:
             self.pages,
             torch.from_numpy(slots).to(self.device),
             self.quantized,
+        )
+        token = self._pick_token(logits[0], seq)  # waits for the device
+        self._prefill_time += time.perf_counter() - t0
+        self._prefill_tokens += seq.prompt_len
+        seq.prefilled = seq.prompt_len
+        self._append_token(seq, token)
+
+    def _prefill_encdec(self, seq: _Sequence) -> None:
+        """T5 prefill: encoder forward, cross-KV pin into the slot, decoder
+        start token (``models/t5_serving.py::t5_prefill_step``)."""
+        s_pad = self._bucket(seq.prompt_len)
+        ids = np.zeros((1, s_pad), np.int64)
+        ids[0, : seq.prompt_len] = seq.tokens[: seq.prompt_len]
+        tables = np.zeros((1, self.max_pages_per_seq), np.int32)
+        tables[0, : len(seq.page_ids)] = seq.page_ids
+        t0 = time.perf_counter()
+        logits = self._prefill_step(
+            self.params,
+            self.cfg,
+            torch.from_numpy(ids).to(self.device),
+            torch.tensor([seq.prompt_len], dtype=torch.int32, device=self.device),
+            self.pages,
+            torch.tensor([self._flat_slot(seq, 0)], dtype=torch.int32, device=self.device),
+            torch.from_numpy(tables).to(self.device),
+            self.quantized,
+            seq.slot,
         )
         token = self._pick_token(logits[0], seq)  # waits for the device
         self._prefill_time += time.perf_counter() - t0
@@ -327,7 +414,7 @@ class ServingEngine:
         tables = np.zeros((1, self.max_pages_per_seq), np.int32)
         tables[0, : len(seq.page_ids)] = seq.page_ids
         t0 = time.perf_counter()
-        logits = prefill_chunk_step(
+        logits = self._chunk_step(
             self.params,
             self.cfg,
             torch.from_numpy(ids).to(self.device),
@@ -441,10 +528,16 @@ class ServingEngine:
                 continue  # length 0: attends over nothing; writes land in trash
             seq = self._sequences[sid]
             # The model consumes the LAST token (already appended) and
-            # writes its K/V at position length-1.
+            # writes its K/V at position length-1. Encoder-decoder families
+            # count DECODER positions only: the decoder sequence is [start]
+            # + generated, so the consumed token sits at index new_tokens.
             host[0, slot] = seq.tokens[seq.length - 1]
-            host[1, slot] = seq.length - 1
-            host[2, slot] = seq.length
+            if self._family == "encdec":
+                host[1, slot] = seq.new_tokens
+                host[2, slot] = seq.new_tokens + 1
+            else:
+                host[1, slot] = seq.length - 1
+                host[2, slot] = seq.length
         # Page tables change only at admission/retirement. Stale rows after
         # retirement MUST be zeroed or an empty slot would keep writing its
         # trash token into pages recycled to a new sequence.
@@ -472,7 +565,7 @@ class ServingEngine:
             # slots map to the zeroed table row, i.e. the trash page.
             page_col = (pos // self.page_size).clamp(max=last_col).long()
             flat = (tables[rows, page_col] * self.page_size + pos % self.page_size).int()
-            logits = decode_step(
+            logits = self._decode_step(
                 self.params, self.cfg, ids, pos, self.pages, flat, lens, tables,
                 self.quantized,
             )
@@ -531,6 +624,8 @@ class ServingEngine:
             "scheduler": type(self._sched).__name__,
             "queue": self._sched.stats(),
             "kv_dtype": _KV_NAMES[self.kv_dtype],
+            "family": self._family,
+            "enc_max_len": self.enc_max_len,
         }
 
     def reset_performance_stats(self) -> None:

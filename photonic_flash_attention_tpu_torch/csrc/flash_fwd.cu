@@ -29,6 +29,25 @@
 // (past lens or Skv, above the causal diagonal) stay -inf and drop out; a
 // row with lens[b] == 0 gets o = 0 and lse = -inf.
 //
+// Structured-bias modes (pfa_flash_fwd_bias; the TPU kernel's tab_ref and
+// qkbias_ref streams, ops/flash.py:76, 82, 213-284; callers
+// ops/flash.py::flash_attention(rel_bias=..., attn_bias=...)), in natural
+// units with the score clamped at MASK_VALUE, as the key streams:
+// * relative bias (T5 buckets, ALiBi): `relvec` (Hq, Sq+Skv-1) fp32 holds
+//   head h's bias of every offset rel = col - (row + Skv - Sq), from
+//   -(Skv-1) at index 0 to Sq-1, so element (row, col) reads index
+//   col - row + Sq - 1. Each block stages the BQ+BKV-1 entries its tile
+//   can see in shared memory. The wrapper builds the vector from one set
+//   of buckets (ops/rel_bias.py), so kernel and plain version share them,
+//   and no log runs here. Not carried over: the TPU's far/band split (two
+//   kernels merged by logsumexp), a Mosaic scheduling choice.
+// * dense bias: `qkbias` (B, Hb, Sq, Skv) fp32, Hb 1 (broadcast over heads)
+//   or Hq; each visited score reads its own entry from device memory (the
+//   (BQ, BKV) tile of the step), after the scale and before the causal
+//   mask; tiles above the causal diagonal are never visited, so they read
+//   nothing. Cost: Sq*Skv*4 bytes per head of Hb, against the fused path's
+//   materialised scores.
+//
 // What bounds it on the H100: prefill attention over S ~ 1k-2k tokens does
 // ~S/2 multiply-adds per loaded K/V byte (causal), far above the bf16 ridge
 // (H100 SXM data sheet at its 700 W limit: 989 TFLOP/s over 3.35 TB/s,
@@ -87,38 +106,72 @@ constexpr int BKV = 64;           // keys per K/V tile
 constexpr int BF16_THREADS = 128; // 4 warps x 16 query rows
 constexpr int F32_THREADS = 256;  // 4 threads per query row
 
-// Masked, scaled score of one key. STREAMS: natural units, bias added and
-// clamped at MASK_VALUE; else log2 units (scale already folded with log2 e).
-template <bool STREAMS>
+// K1's score modes: PLAIN runs in log2 units (scale folded with log2 e);
+// the others in natural units with a bias: STREAMS the key streams (lens,
+// kbias), REL the relative-bias vector, DENSE the dense bias.
+enum Mode { PLAIN = 0, STREAMS = 1, REL = 2, DENSE = 3 };
+
+// Masked, scaled score of one key: with a bias, added and clamped at
+// MASK_VALUE.
+template <int MODE>
 __device__ __forceinline__ float stream_score(float s, bool ok, float scale, float bias) {
   if (!ok) return -INFINITY;
-  return STREAMS ? fmaxf(s * scale + bias, MASK_VALUE) : s * scale;
+  return MODE != PLAIN ? fmaxf(s * scale + bias, MASK_VALUE) : s * scale;
 }
 
 // exp of (x - base) for a score and a running max in the kernel's units.
-template <bool STREAMS>
+template <int MODE>
 __device__ __forceinline__ float stream_exp(float x, float base) {
-  return STREAMS ? exp2f((x - base) * LOG2E) : exp2f(x - base);
+  return MODE != PLAIN ? exp2f((x - base) * LOG2E) : exp2f(x - base);
 }
 
 // Final lse in natural log from the running max and sum.
-template <bool STREAMS>
+template <int MODE>
 __device__ __forceinline__ float stream_lse(float m, float l) {
   if (!(l > 0.f)) return -INFINITY;
-  return STREAMS ? m + logf(l) : (m + log2f(l)) * LN2;
+  return MODE != PLAIN ? m + logf(l) : (m + log2f(l)) * LN2;
+}
+
+// Per-block bias staging, before a tile's scores: STREAMS stages the
+// tile's BKV key biases, REL its BQ+BKV-1 relative offsets (index i is
+// rel = kv0 + i - (BQ-1) - q0 - off, vector index kv0 - q0 - (BQ-1) + i +
+// Sq - 1). Entries outside the call read 0; they belong to masked scores.
+template <int MODE, int THREADS>
+__device__ __forceinline__ void stage_bias(float* Bs, const float* bias_row, const float* rel_row,
+                                           int q0, int kv0, int Sq, int Skv) {
+  if (MODE == STREAMS)
+    for (int i = threadIdx.x; i < BKV; i += THREADS)
+      Bs[i] = bias_row != nullptr && kv0 + i < Skv ? bias_row[kv0 + i] : 0.f;
+  if (MODE == REL)
+    for (int i = threadIdx.x; i < BQ + BKV - 1; i += THREADS) {
+      const int gi = kv0 - q0 - (BQ - 1) + i + Sq - 1;
+      Bs[i] = gi >= 0 && gi < Sq + Skv - 1 ? rel_row[gi] : 0.f;
+    }
+}
+
+// The bias of score (row, col), c = col - kv0 within the tile; DENSE reads
+// its entry only for a visible score of a real row.
+template <int MODE>
+__device__ __forceinline__ float score_bias(const float* Bs, const float* dense, int row, int col,
+                                            int c, int q0, int Sq, int Skv, bool ok) {
+  if (MODE == STREAMS) return Bs[c];
+  if (MODE == REL) return Bs[c - (row - q0) + BQ - 1];
+  if (MODE == DENSE) return ok && row < Sq ? __ldg(dense + (long long)row * Skv + col) : 0.f;
+  return 0.f;
 }
 
 // bf16: each warp owns 16 query rows. In the m16n8k16 fragments a lane
 // (g = lane/4, t4 = lane%4) holds rows g and g+8 and columns 2*t4, 2*t4+1
 // of every 8-wide score tile.
-template <int D, bool STREAMS>
+template <int D, int MODE>
 __global__ void __launch_bounds__(BF16_THREADS)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-               const int* __restrict__ lens, const float* __restrict__ kbias, int Sq,
-               int Skv, int Hq, int Hkv, float sm_scale, int causal) {
+               const int* __restrict__ lens, const float* __restrict__ kbias,
+               const float* __restrict__ relvec, const float* __restrict__ qkbias, int Hb,
+               int Sq, int Skv, int Hq, int Hkv, float sm_scale, int causal) {
   constexpr int LD = D + 8;   // padded shared row: conflict-free fragment loads
   constexpr int NT = BKV / 8; // 8-wide score tiles per K/V tile
   constexpr int DT = D / 8;   // 8-wide output tiles
@@ -127,7 +180,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = Qs + BQ * LD;
   __nv_bfloat16* Vs = Ks + BKV * LD;
-  __shared__ float Bs[BKV];  // the tile's key bias (STREAMS with kbias)
+  __shared__ float Bs[BQ + BKV];  // the tile's staged bias (STREAMS, REL)
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -158,18 +211,19 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   float l[2] = {0.f, 0.f};              // this lane's share of the running sum
   const int off = Skv - Sq;
   const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const float scale = STREAMS ? sm_scale : sm_scale * LOG2E;
-  const int len = STREAMS && lens != nullptr ? max(0, min(lens[b], Skv)) : Skv;
+  const float scale = MODE != PLAIN ? sm_scale : sm_scale * LOG2E;
+  const int len = MODE == STREAMS && lens != nullptr ? max(0, min(lens[b], Skv)) : Skv;
   const int kv_end = min(len, causal ? q0 + BQ + off : Skv);
-  const float* bias_row = STREAMS && kbias != nullptr ? kbias + (long long)b * Skv : nullptr;
+  const float* bias_row = MODE == STREAMS && kbias != nullptr ? kbias + (long long)b * Skv : nullptr;
+  const float* rel_row = MODE == REL ? relvec + (long long)h * (Sq + Skv - 1) : nullptr;
+  const float* dense = MODE == DENSE ? qkbias + ((long long)b * Hb + (Hb == 1 ? 0 : h)) * Sq * Skv
+                                     : nullptr;
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();  // the previous tile is consumed
     load_tile_bf16<D, LD, BF16_THREADS>(Ks, kb + kv0 * kvstr, kvstr, BKV, Skv - kv0);
     load_tile_bf16<D, LD, BF16_THREADS>(Vs, vb + kv0 * kvstr, kvstr, BKV, Skv - kv0);
-    if (STREAMS)
-      for (int i = threadIdx.x; i < BKV; i += BF16_THREADS)
-        Bs[i] = bias_row != nullptr && kv0 + i < Skv ? bias_row[kv0 + i] : 0.f;
+    stage_bias<MODE, BF16_THREADS>(Bs, bias_row, rel_row, q0, kv0, Sq, Skv);
     __syncthreads();
 
     float s[NT][4];
@@ -189,9 +243,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + t4 * 2 + (e & 1), col = kv0 + c;
-        const bool ok = col < len && (!causal || col <= rows[e >> 1] + off);
-        s[n][e] = stream_score<STREAMS>(s[n][e], ok, scale, STREAMS ? Bs[c] : 0.f);
+        const int c = n * 8 + t4 * 2 + (e & 1), col = kv0 + c, row = rows[e >> 1];
+        const bool ok = col < len && (!causal || col <= row + off);
+        const float bias = score_bias<MODE>(Bs, dense, row, col, c, q0, Sq, Skv, ok);
+        s[n][e] = stream_score<MODE>(s[n][e], ok, scale, bias);
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
     }
@@ -202,7 +257,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       const float m_new = fmaxf(m[i], mx[i]);
       base[i] = m_new == -INFINITY ? 0.f : m_new;  // row fully masked so far
-      alpha[i] = stream_exp<STREAMS>(m[i], base[i]);
+      alpha[i] = stream_exp<MODE>(m[i], base[i]);
       m[i] = m_new;
       l[i] *= alpha[i];
     }
@@ -210,7 +265,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = stream_exp<STREAMS>(s[n][e], base[e >> 1]);
+        s[n][e] = stream_exp<MODE>(s[n][e], base[e >> 1]);
         l[e >> 1] += s[n][e];
       }
     }
@@ -249,18 +304,19 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
           __floats2bfloat162_rn(acc[dn][2 * i] * inv, acc[dn][2 * i + 1] * inv);
     }
     if (lse != nullptr && t4 == 0)
-      lse[((long long)b * Hq + h) * Sq + rows[i]] = stream_lse<STREAMS>(m[i], l[i]);
+      lse[((long long)b * Hq + h) * Sq + rows[i]] = stream_lse<MODE>(m[i], l[i]);
   }
 }
 
 // fp32: 4 threads per query row (thread quarter qd owns keys qd + 4j of a
 // tile and output columns qd + 4j); plain FMA, no reduced-precision math.
-template <int D, bool STREAMS>
+template <int D, int MODE>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, const int* __restrict__ lens,
-              const float* __restrict__ kbias, int Sq, int Skv, int Hq, int Hkv,
+              const float* __restrict__ kbias, const float* __restrict__ relvec,
+              const float* __restrict__ qkbias, int Hb, int Sq, int Skv, int Hq, int Hkv,
               float sm_scale, int causal) {
   constexpr int LDK = D + 1;    // padded rows: conflict-free column reads
   constexpr int LDP = BKV + 1;
@@ -271,7 +327,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Ks = Qs + BQ * LDK;
   float* Vs = Ks + BKV * LDK;
   float* Ps = Vs + BKV * D;
-  __shared__ float Bs[BKV];  // the tile's key bias (STREAMS with kbias)
+  __shared__ float Bs[BQ + BKV];  // the tile's staged bias (STREAMS, REL)
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -290,10 +346,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < DJ; ++j) acc[j] = 0.f;
   float m = -INFINITY, l = 0.f;
   const int off = Skv - Sq, row = q0 + r;
-  const float scale = STREAMS ? sm_scale : sm_scale * LOG2E;
-  const int len = STREAMS && lens != nullptr ? max(0, min(lens[b], Skv)) : Skv;
+  const float scale = MODE != PLAIN ? sm_scale : sm_scale * LOG2E;
+  const int len = MODE == STREAMS && lens != nullptr ? max(0, min(lens[b], Skv)) : Skv;
   const int kv_end = min(len, causal ? q0 + BQ + off : Skv);
-  const float* bias_row = STREAMS && kbias != nullptr ? kbias + (long long)b * Skv : nullptr;
+  const float* bias_row = MODE == STREAMS && kbias != nullptr ? kbias + (long long)b * Skv : nullptr;
+  const float* rel_row = MODE == REL ? relvec + (long long)h * (Sq + Skv - 1) : nullptr;
+  const float* dense = MODE == DENSE ? qkbias + ((long long)b * Hb + (Hb == 1 ? 0 : h)) * Sq * Skv
+                                     : nullptr;
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();
@@ -303,9 +362,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       Ks[rr * LDK + c] = ok ? kb[(kv0 + rr) * kvstr + c] : 0.f;
       Vs[rr * D + c] = ok ? vb[(kv0 + rr) * kvstr + c] : 0.f;
     }
-    if (STREAMS)
-      for (int i = threadIdx.x; i < BKV; i += F32_THREADS)
-        Bs[i] = bias_row != nullptr && kv0 + i < Skv ? bias_row[kv0 + i] : 0.f;
+    stage_bias<MODE, F32_THREADS>(Bs, bias_row, rel_row, q0, kv0, Sq, Skv);
     __syncthreads();
 
     float s[NJ];
@@ -321,19 +378,20 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NJ; ++j) {
       const int col = kv0 + qd + 4 * j;
       const bool ok = col < len && (!causal || col <= row + off);
-      s[j] = stream_score<STREAMS>(s[j], ok, scale, STREAMS ? Bs[qd + 4 * j] : 0.f);
+      const float bias = score_bias<MODE>(Bs, dense, row, col, qd + 4 * j, q0, Sq, Skv, ok);
+      s[j] = stream_score<MODE>(s[j], ok, scale, bias);
       mx = fmaxf(mx, s[j]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m, mx);
     const float base = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = stream_exp<STREAMS>(m, base);
+    const float alpha = stream_exp<MODE>(m, base);
     m = m_new;
     l *= alpha;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const float p = stream_exp<STREAMS>(s[j], base);
+      const float p = stream_exp<MODE>(s[j], base);
       l += p;
       Ps[r * LDP + qd + 4 * j] = p;
     }
@@ -354,7 +412,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* orow = o + ((long long)b * Sq + row) * qstr + (long long)h * D;
 #pragma unroll
   for (int j = 0; j < DJ; ++j) orow[qd + 4 * j] = acc[j] * inv;
-  if (lse != nullptr && qd == 0) lse[((long long)b * Hq + h) * Sq + row] = stream_lse<STREAMS>(m, l);
+  if (lse != nullptr && qd == 0) lse[((long long)b * Hq + h) * Sq + row] = stream_lse<MODE>(m, l);
 }
 
 constexpr int QBKV = 128;                       // keys per block of the quantized modes
@@ -534,44 +592,44 @@ struct FwdArgs {
   void* o;
   float* lse;
   const int* lens;
-  const float* kbias;
-  int Sq, Skv, Hq, Hkv;
+  const float *kbias, *relvec, *qkbias;
+  int Hb, Sq, Skv, Hq, Hkv;
   float scale;
   int causal;
 };
 
-template <int D, bool STREAMS>
+template <int D, int MODE>
 cudaError_t run_bf16(const FwdArgs& a, dim3 grid, cudaStream_t st) {
   constexpr int smem = (BQ + 2 * BKV) * (D + 8) * sizeof(__nv_bfloat16);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16<D, STREAMS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_bf16<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  flash_fwd_bf16<D, STREAMS><<<grid, BF16_THREADS, smem, st>>>(
+  flash_fwd_bf16<D, MODE><<<grid, BF16_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse, a.lens,
-      a.kbias, a.Sq, a.Skv, a.Hq, a.Hkv, a.scale, a.causal);
+      a.kbias, a.relvec, a.qkbias, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <int D, bool STREAMS>
+template <int D, int MODE>
 cudaError_t run_f32(const FwdArgs& a, dim3 grid, cudaStream_t st) {
   constexpr int smem = (2 * BQ * (D + 1) + BKV * D + BQ * (BKV + 1)) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_f32<D, STREAMS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  flash_fwd_f32<D, STREAMS><<<grid, F32_THREADS, smem, st>>>(
+  flash_fwd_f32<D, MODE><<<grid, F32_THREADS, smem, st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.lens, a.kbias, a.Sq,
-      a.Skv, a.Hq, a.Hkv, a.scale, a.causal);
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.lens, a.kbias,
+      a.relvec, a.qkbias, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <bool STREAMS>
+template <int MODE>
 cudaError_t run(const FwdArgs& a, int D, int dtype, dim3 grid, cudaStream_t st) {
-  if (dtype == PFA_BF16 && D == 64) return run_bf16<64, STREAMS>(a, grid, st);
-  if (dtype == PFA_BF16 && D == 128) return run_bf16<128, STREAMS>(a, grid, st);
-  if (dtype == PFA_F32 && D == 64) return run_f32<64, STREAMS>(a, grid, st);
-  if (dtype == PFA_F32 && D == 128) return run_f32<128, STREAMS>(a, grid, st);
+  if (dtype == PFA_BF16 && D == 64) return run_bf16<64, MODE>(a, grid, st);
+  if (dtype == PFA_BF16 && D == 128) return run_bf16<128, MODE>(a, grid, st);
+  if (dtype == PFA_F32 && D == 64) return run_f32<64, MODE>(a, grid, st);
+  if (dtype == PFA_F32 && D == 128) return run_f32<128, MODE>(a, grid, st);
   return cudaErrorInvalidValue;
 }
 
@@ -622,10 +680,28 @@ extern "C" int pfa_flash_fwd(const void* q, const void* k, const void* v, void* 
     return cudaErrorInvalidValue;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const FwdArgs a{q, k, v, o, static_cast<float*>(lse_out), static_cast<const int*>(lens),
-                  static_cast<const float*>(kbias), Sq, Skv, Hq, Hkv, sm_scale, causal};
+                  static_cast<const float*>(kbias), nullptr, nullptr, 0, Sq, Skv, Hq, Hkv,
+                  sm_scale, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (lens != nullptr || kbias != nullptr) return run<true>(a, D, dtype, grid, st);
-  return run<false>(a, D, dtype, grid, st);
+  if (lens != nullptr || kbias != nullptr) return run<STREAMS>(a, D, dtype, grid, st);
+  return run<PLAIN>(a, D, dtype, grid, st);
+}
+
+// Structured-bias modes, forward only (no lse): exactly one of relvec
+// (Hq, Sq+Skv-1) fp32 and qkbias (B, Hb, Sq, Skv) fp32, Hb 1 or Hq.
+extern "C" int pfa_flash_fwd_bias(const void* q, const void* k, const void* v, void* o,
+                                  const void* relvec, const void* qkbias, int B, int Sq, int Skv,
+                                  int Hq, int Hkv, int D, int Hb, float sm_scale, int causal,
+                                  int dtype, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      (relvec == nullptr) == (qkbias == nullptr) || (qkbias != nullptr && Hb != 1 && Hb != Hq))
+    return cudaErrorInvalidValue;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  const FwdArgs a{q, k, v, o, nullptr, nullptr, nullptr, static_cast<const float*>(relvec),
+                  static_cast<const float*>(qkbias), Hb, Sq, Skv, Hq, Hkv, sm_scale, causal};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (relvec != nullptr) return run<REL>(a, D, dtype, grid, st);
+  return run<DENSE>(a, D, dtype, grid, st);
 }
 
 // Quantized modes. q (B, Sq, Hq, D) and k (B, Skv, Hkv, D) 8-bit payloads

@@ -27,6 +27,13 @@
 // torch.round. Empty serving slots all write to trash page 0; concurrent
 // writes there are harmless because page 0 is never read.
 //
+// K3's token-bias mode (the TPU kernel's bias_ref, ops/paged.py:419,
+// 635-641; T5 decode self-attention, models/t5_serving.py): `tbias` (B,
+// Hkv, bias_len) fp32 adds bias[b, h, t] to the scaled score of the token
+// at LOGICAL position t of the sequence (not its pool slot), shared by the
+// group's query heads, before the length mask (only t < lengths[b] is ever
+// scored). The wrapper pads or cuts the bias to the page-table capacity.
+//
 // K3 also serves the read-only head-folded decode of the TPU kernel
 // ops/paged.py::_paged_hf_kernel (paged_attention_hf, the engine's
 // PAGED_DECODE kind) through pfa_paged_hf. Its float mode is the attend
@@ -119,9 +126,9 @@ paged_decode_attend(const float* __restrict__ q, const int8_t* __restrict__ q8,
                     const float* __restrict__ k_scales,
                     const float* __restrict__ v_scales,
                     const int* __restrict__ lengths, const int* __restrict__ tables,
-                    float* __restrict__ o, long long layer_base,
-                    long long head_stride, int Hq, int Hkv, int D, int page_size,
-                    int pages_per_seq, float sm_scale, int chunk) {
+                    const float* __restrict__ tbias, float* __restrict__ o,
+                    long long layer_base, long long head_stride, int Hq, int Hkv, int D,
+                    int page_size, int pages_per_seq, int bias_len, float sm_scale, int chunk) {
   const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   constexpr int NWARPS = ATT_THREADS / 32;
@@ -158,6 +165,7 @@ paged_decode_attend(const float* __restrict__ q, const int8_t* __restrict__ q8,
 
   const int* tab = tables + (long long)b * pages_per_seq;
   const long long head_base = layer_base + (long long)h * head_stride;
+  const float* brow = tbias != nullptr ? tbias + ((long long)b * Hkv + h) * bias_len : nullptr;
   for (int t0 = 0; t0 < len; t0 += chunk) {
     const int n = min(chunk, len - t0);
     for (int i = tid; i < n; i += ATT_THREADS) {
@@ -165,6 +173,7 @@ paged_decode_attend(const float* __restrict__ q, const int8_t* __restrict__ q8,
       const long long tok = head_base + (long long)tab[t / page_size] * page_size + t % page_size;
       tok_s[i] = tok;
       const float ks = QUANT ? k_scales[tok] : 1.f;
+      const float tb = brow != nullptr ? brow[t] : 0.f;  // logical position t
       vsc[i] = QUANT ? v_scales[tok] : 1.f;
       const Tpool* kr = k_pool + tok * D;
       for (int gi = 0; gi < G; ++gi) {
@@ -177,7 +186,7 @@ paged_decode_attend(const float* __restrict__ q, const int8_t* __restrict__ q8,
 #pragma unroll
             for (int j = 0; j < 8; ++j) dot += qg[d + j] * kv[j];
           }
-          p[gi * chunk + i] = __fmul_rn(__fmul_rn(static_cast<float>(dot), sm_scale), ks);
+          p[gi * chunk + i] = __fmul_rn(__fmul_rn(static_cast<float>(dot), sm_scale), ks) + tb;
         } else {
           const float* qg = qs + gi * D;
           float dot = 0.f;
@@ -187,7 +196,7 @@ paged_decode_attend(const float* __restrict__ q, const int8_t* __restrict__ q8,
 #pragma unroll
             for (int j = 0; j < 8; ++j) dot = fmaf(qg[d + j], kv[j], dot);
           }
-          p[gi * chunk + i] = dot * ks;
+          p[gi * chunk + i] = dot * ks + tb;
         }
       }
     }
@@ -252,9 +261,9 @@ template <typename Tpool, bool QUANT, bool I8C>
 cudaError_t run_attend(dim3 grid, size_t smem, cudaStream_t st, const float* q,
                        const int8_t* q8, const void* k_pool, const void* v_pool,
                        const float* ks, const float* vs, const int* len, const int* tab,
-                       float* out, long long layer_base, long long head_stride, int Hq,
-                       int Hkv, int D, int page_size, int pages_per_seq, float scale,
-                       int chunk) {
+                       const float* tbias, float* out, long long layer_base,
+                       long long head_stride, int Hq, int Hkv, int D, int page_size,
+                       int pages_per_seq, int bias_len, float scale, int chunk) {
   auto kernel = paged_decode_attend<Tpool, QUANT, I8C>;
   if (smem > 48 * 1024) {
     cudaError_t e =
@@ -263,18 +272,22 @@ cudaError_t run_attend(dim3 grid, size_t smem, cudaStream_t st, const float* q,
   }
   kernel<<<grid, ATT_THREADS, smem, st>>>(
       q, q8, static_cast<const Tpool*>(k_pool), static_cast<const Tpool*>(v_pool), ks, vs, len,
-      tab, out, layer_base, head_stride, Hq, Hkv, D, page_size, pages_per_seq, scale, chunk);
+      tab, tbias, out, layer_base, head_stride, Hq, Hkv, D, page_size, pages_per_seq, bias_len,
+      scale, chunk);
   return cudaGetLastError();
 }
 
 // K3 over layer `layer` of the pool in chunks of `chunk` tokens; i8c
-// selects the int8-compute mode (int8 pools, q8 and score_scale given).
+// selects the int8-compute mode (int8 pools, q8 and score_scale given);
+// tbias (B, Hkv, bias_len >= pages_per_seq * page_size) or null.
 cudaError_t attend(const void* q, const void* q8, const void* k_pool, const void* v_pool,
                    const void* k_scales, const void* v_scales, const void* lengths,
-                   const void* tables, void* o, int layer, int B, int Hq, int Hkv, int D,
-                   int num_pages, int page_size, int pages_per_seq, float scale,
-                   int pool_dtype, int chunk, int i8c, cudaStream_t st) {
+                   const void* tables, const void* tbias, void* o, int layer, int B, int Hq,
+                   int Hkv, int D, int num_pages, int page_size, int pages_per_seq,
+                   int bias_len, float scale, int pool_dtype, int chunk, int i8c,
+                   cudaStream_t st) {
   if (Hkv <= 0 || Hq % Hkv != 0 || D % 8 != 0 || chunk <= 0) return cudaErrorInvalidValue;
+  if (tbias != nullptr && bias_len < pages_per_seq * page_size) return cudaErrorInvalidValue;
   if (i8c && pool_dtype != PFA_INT8) return cudaErrorInvalidValue;
   const long long head_stride = (long long)num_pages * page_size;
   const long long layer_base = (long long)layer * Hkv * head_stride;
@@ -286,11 +299,12 @@ cudaError_t attend(const void* q, const void* q8, const void* k_pool, const void
   const float* vs = static_cast<const float*>(v_scales);
   const int* len = static_cast<const int*>(lengths);
   const int* tab = static_cast<const int*>(tables);
+  const float* tb = static_cast<const float*>(tbias);
   float* out = static_cast<float*>(o);
-#define PFA_ATTEND(T, QU, I8)                                                                \
-  run_attend<T, QU, I8>(grid, smem, st, qf, qi, k_pool, v_pool, ks, vs, len, tab, out,       \
-                        layer_base, head_stride, Hq, Hkv, D, page_size, pages_per_seq, scale, \
-                        chunk)
+#define PFA_ATTEND(T, QU, I8)                                                                 \
+  run_attend<T, QU, I8>(grid, smem, st, qf, qi, k_pool, v_pool, ks, vs, len, tab, tb, out,    \
+                        layer_base, head_stride, Hq, Hkv, D, page_size, pages_per_seq,         \
+                        bias_len, scale, chunk)
   if (pool_dtype == PFA_INT8 && i8c) return PFA_ATTEND(int8_t, true, true);
   if (pool_dtype == PFA_INT8) return PFA_ATTEND(int8_t, true, false);
   if (pool_dtype == PFA_BF16) return PFA_ATTEND(__nv_bfloat16, false, false);
@@ -339,15 +353,17 @@ extern "C" int pfa_paged_token_write(const void* k_new, const void* v_new, void*
   return cudaGetLastError();
 }
 
+// token_bias (B, Hkv, bias_len) fp32 or null (the token-bias mode).
 extern "C" int pfa_paged_decode_attend(const void* q, const void* k_pool, const void* v_pool,
                                        const void* k_scales, const void* v_scales,
                                        const void* lengths, const void* tables, void* o,
-                                       int layer, int B, int Hq, int Hkv, int D,
-                                       int num_pages, int page_size, int pages_per_seq,
-                                       float sm_scale, int pool_dtype, void* stream) {
-  return attend(q, nullptr, k_pool, v_pool, k_scales, v_scales, lengths, tables, o, layer, B,
-                Hq, Hkv, D, num_pages, page_size, pages_per_seq, sm_scale, pool_dtype, CH, 0,
-                static_cast<cudaStream_t>(stream));
+                                       const void* token_bias, int layer, int B, int Hq,
+                                       int Hkv, int D, int num_pages, int page_size,
+                                       int pages_per_seq, int bias_len, float sm_scale,
+                                       int pool_dtype, void* stream) {
+  return attend(q, nullptr, k_pool, v_pool, k_scales, v_scales, lengths, tables, token_bias, o,
+                layer, B, Hq, Hkv, D, num_pages, page_size, pages_per_seq, bias_len, sm_scale,
+                pool_dtype, CH, 0, static_cast<cudaStream_t>(stream));
 }
 
 // paged_attention_hf: q (B, Hq, D) fp32, or q8 (B, Hq, D) int8 with
@@ -359,7 +375,7 @@ extern "C" int pfa_paged_hf(const void* q, const void* q8, const void* k_pool,
                             int Hq, int Hkv, int D, int num_pages, int page_size,
                             int pages_per_seq, float score_scale, int pool_dtype,
                             int block_tokens, int int8_compute, void* stream) {
-  return attend(q, q8, k_pool, v_pool, k_scales, v_scales, lengths, tables, o, layer, B, Hq,
-                Hkv, D, num_pages, page_size, pages_per_seq, score_scale, pool_dtype,
+  return attend(q, q8, k_pool, v_pool, k_scales, v_scales, lengths, tables, nullptr, o, layer,
+                B, Hq, Hkv, D, num_pages, page_size, pages_per_seq, 0, score_scale, pool_dtype,
                 block_tokens, int8_compute, static_cast<cudaStream_t>(stream));
 }

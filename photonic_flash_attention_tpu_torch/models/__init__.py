@@ -1,1 +1,1 @@
-"""Models: GPT-2 (dense oracle and paged-KV serving steps)."""
+"""Models: GPT-2 and T5 (dense forwards and paged-KV serving steps)."""

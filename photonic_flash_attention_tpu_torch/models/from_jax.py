@@ -1,11 +1,15 @@
-"""Load the JAX package's GPT-2 weights into the port.
+"""Load the JAX package's GPT-2 and T5 weights into the port.
 
 ``params_from_jax`` turns the Flax ``GPT2LMHead`` parameter tree (scanned
 layout: every layer leaf stacked on a leading (L,) axis, leaves as numpy
 arrays or anything ``np.asarray`` takes) into a ``state_dict`` for
-``models/gpt2.py::GPT2LMHead``. Flax ``Dense.kernel`` is (in, out) and
-``nn.Linear.weight`` is (out, in), so kernels are transposed; LayerNorm
-``scale`` becomes ``weight``. No JAX import: the tree is plain data.
+``models/gpt2.py::GPT2LMHead``; ``t5_params_from_jax`` does the same for
+the Flax ``T5ForConditionalGeneration`` tree (``{"model": {"shared",
+"encoder", "decoder"}}``, blocks stacked on L) and ``models/t5.py``. Flax
+``Dense.kernel`` is (in, out) and ``nn.Linear.weight`` is (out, in), so
+kernels are transposed; a norm's ``scale`` becomes ``weight``; T5's
+``rel_embedding`` stays (num_buckets, H). No JAX import: the tree is plain
+data.
 
 Any tree shaped like the Flax params maps the same way, so the tests also
 use it to carry JAX **gradients** (``jax.grad`` of the loss over the
@@ -52,4 +56,28 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 leaf = blk[group][name]
                 sd[f"{pre}{group}.{name}.weight"] = _t(np.asarray(leaf["kernel"])[i].T)
                 sd[f"{pre}{group}.{name}.bias"] = _t(np.asarray(leaf["bias"])[i])
+    return sd
+
+
+def t5_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax T5ForConditionalGeneration params (with or without the outer
+    ``{"params": ...}``) -> ``models/t5.py::T5ForConditionalGeneration``
+    state_dict (float32 CPU tensors)."""
+    m = tree.get("params", tree)["model"]
+    sd = {"model.shared": _t(m["shared"])}
+    for stack in ("encoder", "decoder"):
+        p = m[stack]
+        pre = f"model.{stack}."
+        sd[pre + "rel_bias.rel_embedding"] = _t(p["rel_bias"]["rel_embedding"])
+        sd[pre + "final_ln.weight"] = _t(p["final_ln"]["scale"])
+        blk = p["blocks"]["block"]
+        n_layer = np.asarray(blk["self_attn_ln"]["scale"]).shape[0]
+        for i in range(n_layer):
+            for name, leaf in blk.items():
+                for sub, arr in leaf.items():  # {"scale": x} or {"q": {"kernel": x}, ...}
+                    if sub == "scale":
+                        sd[f"{pre}blocks.{i}.{name}.weight"] = _t(np.asarray(arr)[i])
+                    else:
+                        sd[f"{pre}blocks.{i}.{name}.{sub}.weight"] = _t(
+                            np.asarray(arr["kernel"])[i].T)
     return sd

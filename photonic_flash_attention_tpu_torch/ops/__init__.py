@@ -16,8 +16,12 @@ from .flash_unrolled import (
 )
 from .fused import fused_attention
 from .reference import attention_blockwise, attention_reference
+from .rel_bias import ALiBi, T5RelBias, alibi_slopes, materialize
 
 __all__ = [
+    "ALiBi",
+    "T5RelBias",
+    "alibi_slopes",
     "attention_blockwise",
     "attention_reference",
     "flash_attention",
@@ -30,5 +34,6 @@ __all__ = [
     "flash_attention_quant",
     "flash_attention_unrolled",
     "fused_attention",
+    "materialize",
     "unrolled_supported",
 ]

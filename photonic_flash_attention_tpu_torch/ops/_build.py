@@ -46,6 +46,9 @@ _SIGNATURES: Dict[str, List] = {
     # q, k, v, o, lse (or None), lens (or None), kbias (or None), B, Sq, Skv,
     # Hq, Hkv, D, sm_scale, causal, dtype, stream
     "pfa_flash_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, o, relvec (or None), qkbias (or None), B, Sq, Skv, Hq, Hkv,
+    # D, Hb, sm_scale, causal, dtype, stream
+    "pfa_flash_fwd_bias": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
     # q, k, v, do, lse, di, dk, dv, B, Sq, Skv, H, D, sm_scale, causal,
     # dtype, stream
     "pfa_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
@@ -56,9 +59,9 @@ _SIGNATURES: Dict[str, List] = {
     # layer, B, Hkv, D, num_pages, page_size, in_dtype, pool_dtype, stream
     "pfa_paged_token_write": [_P] * 7 + [_I] * 8 + [_P],
     # q, k_pool, v_pool, k_scales, v_scales, lengths, tables, o,
-    # layer, B, Hq, Hkv, D, num_pages, page_size, pages_per_seq,
-    # sm_scale, pool_dtype, stream
-    "pfa_paged_decode_attend": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    # token_bias (or None), layer, B, Hq, Hkv, D, num_pages, page_size,
+    # pages_per_seq, bias_len, sm_scale, pool_dtype, stream
+    "pfa_paged_decode_attend": [_P] * 9 + [_I] * 9 + [_F, _I, _P],
     # q (or None), q8 (or None), k_pool, v_pool, k_scales, v_scales, lengths,
     # tables, o, layer, B, Hq, Hkv, D, num_pages, page_size, pages_per_seq,
     # score_scale, pool_dtype, block_tokens, int8_compute, stream

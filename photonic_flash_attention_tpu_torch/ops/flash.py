@@ -26,9 +26,23 @@ score, which is clamped at ``DEFAULT_MASK_VALUE``. That value is finite, so
 a row whose keys are all masked by ``k_bias`` alone averages over them, as
 in the JAX kernel.
 
+Structured biases (forward only, the JAX ``rel_bias`` and ``attn_bias``):
+``rel_bias`` (:class:`~.rel_bias.T5RelBias` or :class:`~.rel_bias.ALiBi`)
+adds a function of ``col - (row + Skv - Sq)``; K1's relative-bias mode
+takes it as one fp32 vector per head over every offset of the call
+(``rel_bias.bias_vector``), not as the JAX far/band kernel split.
+``attn_bias`` (B, 1|Hq, Sq, Skv) fp32 is a dense additive bias (0 =
+attend, ``DEFAULT_MASK_VALUE`` = ignore, or real values) that K1's
+dense-bias mode reads one (64, 64) tile per K/V step; tiles above the
+causal diagonal read nothing. Both add the bias to the scaled score and
+clamp at the mask value, as the key streams do; their plain versions run
+the materialised bias through the same plain oracle. Neither has a
+backward yet (the JAX rel-bias table gradient is ROADMAP A10/B10; the JAX
+``attn_bias`` path has none): under autograd they raise.
+
 CUDA tensors launch the kernels (or raise); CPU tensors run the plain
-versions, forward and backward. The window, relative-bias, dense-bias and
-dropout streams of the JAX function are later slices (ROADMAP A10, B10).
+versions, forward and backward. The window and dropout streams of the JAX
+function are not ported yet (ROADMAP A10, B10).
 
 K1's quantized modes (the JAX kernel's ``scale_ref``, ``pv_quant`` and
 ``vs_ref``) sit behind :func:`flash_attention_qk_quant`, which takes the
@@ -48,6 +62,7 @@ import torch
 from . import _build
 from ._build import KERNEL_DTYPES, KERNEL_HEAD_DIMS
 from .flash_bwd import flash_attention_bwd
+from .rel_bias import RelBias, T5RelBias, bias_vector, materialize
 from .reference import (
     DEFAULT_MASK_VALUE,
     attention_scores,
@@ -118,6 +133,36 @@ def _validate(
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
+def _validate_bias(q, k, kv_lens, k_bias, rel_bias, attn_bias) -> None:
+    """The JAX function's checks of the structured biases (``ops/flash.py:
+    1602-1662``): no combination with the key streams, the heads, the
+    dense bias's shape."""
+    b, sq, hq, _ = q.shape
+    skv = k.shape[1]
+    if attn_bias is not None:
+        if kv_lens is not None or k_bias is not None or rel_bias is not None:
+            raise ValueError("attn_bias cannot be combined with kv_lens/k_bias/rel_bias/window/dropout")
+        if (attn_bias.ndim != 4 or attn_bias.shape[0] != b or attn_bias.shape[1] not in (1, hq)
+                or tuple(attn_bias.shape[2:]) != (sq, skv)):
+            raise ValueError(f"attn_bias must be (B, 1|Hq, Sq, Skv) = ({b}, 1|{hq}, {sq}, {skv}), "
+                             f"got {tuple(attn_bias.shape)}")
+        if attn_bias.device != q.device:
+            raise ValueError(f"attn_bias is on {attn_bias.device}, q on {q.device}")
+    if rel_bias is not None:
+        if kv_lens is not None or k_bias is not None:
+            raise ValueError("kv_lens/k_bias cannot be combined with rel_bias or window")
+        if rel_bias.num_heads != hq:
+            raise ValueError(f"rel_bias heads {rel_bias.num_heads} != q heads {hq}")
+
+
+def _dense_bias(q, k, rel_bias, attn_bias) -> Optional[torch.Tensor]:
+    """A structured bias as the plain versions take it: (1|B, 1|Hq, Sq,
+    Skv) fp32 on q's device, or None."""
+    if rel_bias is not None:
+        return materialize(rel_bias, q.shape[1], k.shape[1]).to(q.device)
+    return attn_bias.float() if attn_bias is not None else None
+
+
 def _stream_keep(q, k, causal: bool, kv_lens) -> Optional[torch.Tensor]:
     """Structural key validity, broadcastable to (B, Hq, Sq, Skv): the
     causal diagonal and ``kv_lens``; None when every key is valid."""
@@ -140,11 +185,14 @@ def flash_attention_plain(
     sm_scale: Optional[float] = None,
     kv_lens: Optional[torch.Tensor] = None,
     k_bias: Optional[torch.Tensor] = None,
+    rel_bias: Optional[RelBias] = None,
+    attn_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K1's plain version: float32 attention on any device, output in q's
-    dtype."""
+    dtype; a structured bias is materialised (``rel_bias.materialize``)."""
     return flash_attention_with_lse_plain(
-        q, k, v, causal=causal, sm_scale=sm_scale, kv_lens=kv_lens, k_bias=k_bias
+        q, k, v, causal=causal, sm_scale=sm_scale, kv_lens=kv_lens, k_bias=k_bias,
+        bias=_dense_bias(q, k, rel_bias, attn_bias),
     )[0]
 
 
@@ -157,14 +205,18 @@ def flash_attention_with_lse_plain(
     sm_scale: Optional[float] = None,
     kv_lens: Optional[torch.Tensor] = None,
     k_bias: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1-with-lse's plain version in float32: (o in q's dtype, lse
     (B, Hq, Sq) fp32, natural log; -inf and o = 0 for a row with no key).
-    The kernel's arithmetic: scores plus ``k_bias`` clamped at the mask
-    value, structurally invalid keys at -inf, softmax from the row max."""
+    The kernel's arithmetic: scores plus ``k_bias`` and the dense ``bias``
+    (broadcastable to (B, Hq, Sq, Skv)) clamped at the mask value,
+    structurally invalid keys at -inf, softmax from the row max."""
     s = attention_scores(q, k, sm_scale=sm_scale)
     if k_bias is not None:
         s = torch.clamp_min(s + k_bias.float()[:, None, None, :], DEFAULT_MASK_VALUE)
+    if bias is not None:
+        s = torch.clamp_min(s + bias.float(), DEFAULT_MASK_VALUE)
     keep = _stream_keep(q, k, causal, kv_lens)
     if keep is not None:
         s = s.masked_fill(~keep, float("-inf"))
@@ -185,11 +237,9 @@ def _stream_args(q: torch.Tensor, kv_lens, k_bias) -> Streams:
     return lens, bias
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens=None, k_bias=None):
-    """Launch K1: (o, lse or None). Counted as ``pfa_flash_fwd``, or as
-    ``pfa_flash_fwd_streams`` when a key-padding stream is given."""
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+def _check_k1(q, k, v) -> None:
+    """What K1 takes: head dim, dtype, contiguous inputs."""
+    d = q.shape[-1]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"K1 supports head_dim in {KERNEL_HEAD_DIMS}, got {d}")
     if q.dtype not in KERNEL_DTYPES:
@@ -197,6 +247,14 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"K1 needs contiguous inputs; {name} is not")
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens=None, k_bias=None):
+    """Launch K1: (o, lse or None). Counted as ``pfa_flash_fwd``, or as
+    ``pfa_flash_fwd_streams`` when a key-padding stream is given."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    _check_k1(q, k, v)
     lens, bias = _stream_args(q, kv_lens, k_bias)
     streams = lens is not None or bias is not None
     o = torch.empty_like(q)
@@ -212,6 +270,36 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens
         count_as="pfa_flash_fwd_streams" if streams else None,
     )
     return o, lse
+
+
+def _flash_fwd_bias_cuda(q, k, v, causal: bool, scale: float, rel_bias=None, attn_bias=None):
+    """Launch K1's relative-bias mode (the (Hq, Sq+Skv-1) vector of
+    ``rel_bias.bias_vector`` over rel = -(Skv-1) .. Sq-1) or its dense-bias
+    mode (``attn_bias`` (B, 1|Hq, Sq, Skv) fp32). Counted as
+    ``pfa_flash_fwd_relbias`` (T5), ``pfa_flash_fwd_alibi`` or
+    ``pfa_flash_fwd_densebias``."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    _check_k1(q, k, v)
+    vec = dense = None
+    if rel_bias is not None:
+        vec = bias_vector(rel_bias, -(skv - 1), sq + skv - 1)
+        vec = vec.to(device=q.device, dtype=torch.float32).contiguous()
+        count, hb = ("pfa_flash_fwd_relbias" if isinstance(rel_bias, T5RelBias)
+                     else "pfa_flash_fwd_alibi"), 0
+    else:
+        dense = attn_bias.to(dtype=torch.float32).contiguous()
+        count, hb = "pfa_flash_fwd_densebias", dense.shape[1]
+    o = torch.empty_like(q)
+    _build.launch(
+        "pfa_flash_fwd_bias", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        vec.data_ptr() if vec is not None else None,
+        dense.data_ptr() if dense is not None else None,
+        b, sq, skv, hq, hkv, d, hb, float(scale), int(causal), _build.DTYPE_CODES[q.dtype],
+        count_as=count,
+    )
+    return o
 
 
 def _fwd_with_lse(q, k, v, causal: bool, scale: float, kv_lens=None, k_bias=None):
@@ -354,19 +442,40 @@ def flash_attention(
     sm_scale: Optional[float] = None,
     kv_lens: Optional[torch.Tensor] = None,
     k_bias: Optional[torch.Tensor] = None,
+    rel_bias: Optional[RelBias] = None,
+    attn_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention. q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D)
     in q's dtype, fp32 softmax. fp32 inputs are computed in fp32 on both
     paths (never in bf16). ``kv_lens`` (B,) int32 valid key lengths and
     ``k_bias`` (B, Skv) additive per-key score bias (0 = attend,
     ``DEFAULT_MASK_VALUE`` = ignore) may be combined. Differentiable in q, k,
-    v and ``k_bias``; the gradients come back in the inputs' dtypes."""
+    v and ``k_bias``; the gradients come back in the inputs' dtypes.
+    ``rel_bias`` (T5 buckets or ALiBi, heads = Hq) or ``attn_bias`` (B,
+    1|Hq, Sq, Skv) fp32 add a structured score bias, forward only: with an
+    input that requires grad they raise ``NotImplementedError``."""
     _validate(q, k, v, causal, kv_lens, k_bias)
+    _validate_bias(q, k, kv_lens, k_bias, rel_bias, attn_bias)
     scale = softmax_scale(q.shape[-1], sm_scale)
     streams = kv_lens is not None or k_bias is not None
+    table = None
+    if rel_bias is not None:
+        table = rel_bias.table if isinstance(rel_bias, T5RelBias) else rel_bias.slopes
     grads = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v, k_bias)
+        t is not None and t.requires_grad for t in (q, k, v, k_bias, attn_bias, table)
     )
+    if rel_bias is not None or attn_bias is not None:
+        if grads:
+            raise NotImplementedError(
+                "the backward of flash_attention with rel_bias/attn_bias (the relative-bias "
+                "table gradient) is not ported yet (ROADMAP A10, B10)"
+            )
+        if q.device.type == "cuda":
+            return _flash_fwd_bias_cuda(q, k, v, causal, scale, rel_bias, attn_bias)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale,
+                                         rel_bias=rel_bias, attn_bias=attn_bias)
+        raise ValueError(f"unsupported device {q.device}")
     if grads and streams:
         return _FlashAttentionMaskedFn.apply(q, k, v, kv_lens, k_bias, causal, scale)
     if grads:

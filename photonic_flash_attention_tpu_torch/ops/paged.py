@@ -15,6 +15,12 @@ trash page.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version for CPU tensors. Pools are updated in place.
+
+``token_bias`` (B, Hkv, >= S_cap) fp32 (JAX ``paged_decode_attention(
+token_bias=...)``, the TPU kernel's ``bias_ref``) adds a per-(head,
+key-token) score bias indexed by the token's logical position in its
+sequence, before the length mask: the T5 relative-position bias at
+decode. K3 takes it in its token-bias mode.
 """
 
 from __future__ import annotations
@@ -65,12 +71,15 @@ def paged_attention_xla(
     v_scales: Optional[torch.Tensor] = None,
     *,
     sm_scale: Optional[float] = None,
+    token_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Gather-based paged attention over ONE layer's pool (the oracle).
 
     q (B, Hq, D); pages (Hkv, P, page, D); scales (Hkv, P, page) for int8;
-    lengths (B,); page_indices (B, pages_per_seq). Returns (B, Hq, D).
-    As in JAX, a row with length 0 averages over its masked keys.
+    lengths (B,); page_indices (B, pages_per_seq); ``token_bias`` (B, Hkv,
+    pages_per_seq * page) added to the scaled scores before the length
+    mask. Returns (B, Hq, D). As in JAX, a row with length 0 averages over
+    its masked keys.
     """
     b, hq, d = q.shape
     hkv, _, page, _ = k_pages.shape
@@ -92,6 +101,8 @@ def paged_attention_xla(
     v = gather(v_pages, v_scales)
     qf = q.float().reshape(b, hkv, group, d) * scale
     s = torch.einsum("bhgd,bhsd->bhgs", qf, k)
+    if token_bias is not None:
+        s = s + token_bias.float()[:, :, None, :]
     pos = torch.arange(s_total, device=q.device)
     valid = pos[None] < lengths.to(q.device)[:, None]  # (B, S)
     s = s.masked_fill(~valid[:, None, None], DEFAULT_MASK_VALUE)
@@ -206,18 +217,32 @@ def paged_token_write(
 
 
 def paged_decode_attend_plain(
-    q, k_pages, v_pages, lengths, page_indices, layer: int, k_scales, v_scales, scale
+    q, k_pages, v_pages, lengths, page_indices, layer: int, k_scales, v_scales, scale,
+    token_bias=None,
 ) -> torch.Tensor:
     """K3's plain version: the gather oracle on layer ``layer``, with zeros
-    for sequences of length 0 (as the TPU kernel, ``paged.py:680``)."""
+    for sequences of length 0 (as the TPU kernel, ``paged.py:680``);
+    ``token_bias`` already fitted to the page-table capacity."""
     quantized = k_scales is not None
     o = paged_attention_xla(
         q, k_pages[layer], v_pages[layer], lengths, page_indices,
         k_scales[layer] if quantized else None,
         v_scales[layer] if quantized else None,
-        sm_scale=scale,
+        sm_scale=scale, token_bias=token_bias,
     )
     return o.masked_fill((lengths.to(o.device) <= 0)[:, None, None], 0.0)
+
+
+def fit_token_bias(token_bias: torch.Tensor, b: int, hkv: int, s_cap: int) -> torch.Tensor:
+    """(B, Hkv, >= or < S_cap) -> (B, Hkv, S_cap) fp32: zero-padded or cut
+    to the page-table capacity, as the JAX wrapper (``paged.py:769-775``)."""
+    if token_bias.ndim != 3 or tuple(token_bias.shape[:2]) != (b, hkv):
+        raise ValueError(f"token_bias must be (B, Hkv, S) = ({b}, {hkv}, S), got "
+                         f"{tuple(token_bias.shape)}")
+    tb = token_bias.float()
+    if tb.shape[-1] < s_cap:
+        return torch.nn.functional.pad(tb, (0, s_cap - tb.shape[-1]))
+    return tb[..., :s_cap].contiguous()
 
 
 def paged_decode_attend(
@@ -231,9 +256,12 @@ def paged_decode_attend(
     v_scales: Optional[torch.Tensor] = None,
     *,
     sm_scale: Optional[float] = None,
+    token_bias: Optional[torch.Tensor] = None,  # (B, Hkv, S) fp32
 ) -> torch.Tensor:
     """One query token per sequence over its first ``lengths[b]`` pooled
-    tokens (K3). Returns (B, Hq, D) float32; zeros where length is 0."""
+    tokens (K3). Returns (B, Hq, D) float32; zeros where length is 0.
+    ``token_bias`` (B, Hkv, S), padded or cut to pages_per_seq * page,
+    takes K3's token-bias mode (counted ``pfa_paged_decode_attend_tbias``)."""
     _check_pools(k_pages, v_pages, k_scales, v_scales, layer)
     if q.ndim != 3 or q.dtype != torch.float32:
         raise ValueError(f"q must be float32 (B, Hq, D), got {q.dtype} {tuple(q.shape)}")
@@ -246,14 +274,19 @@ def paged_decode_attend(
     if page_indices.ndim != 2 or page_indices.shape[0] != b or page_indices.dtype != torch.int32:
         raise ValueError("page_indices must be int32 (B, pages_per_seq)")
     scale = softmax_scale(d, sm_scale)
+    s_cap = page_indices.shape[1] * k_pages.shape[3]
+    if token_bias is not None:
+        token_bias = fit_token_bias(token_bias.to(q.device), b, hkv, s_cap)
     if q.device.type == "cpu":
         return paged_decode_attend_plain(
-            q, k_pages, v_pages, lengths, page_indices, layer, k_scales, v_scales, scale
+            q, k_pages, v_pages, lengths, page_indices, layer, k_scales, v_scales, scale,
+            token_bias,
         )
     if d % 8 or hq * d > _MAX_GROUP_ELEMS * hkv:
         raise ValueError(f"K3 needs D % 8 == 0 and (Hq/Hkv)*D <= {_MAX_GROUP_ELEMS}")
     quantized = k_scales is not None
-    device = _check_cuda(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices)
+    device = _check_cuda(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
+                         token_bias)
     o = torch.empty_like(q)
     _build.launch(
         "pfa_paged_decode_attend", device,
@@ -261,8 +294,10 @@ def paged_decode_attend(
         k_scales.data_ptr() if quantized else None,
         v_scales.data_ptr() if quantized else None,
         lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(),
+        token_bias.data_ptr() if token_bias is not None else None,
         int(layer), b, hq, hkv, d, k_pages.shape[2], k_pages.shape[3],
-        page_indices.shape[1], float(scale), _build.DTYPE_CODES[k_pages.dtype],
+        page_indices.shape[1], s_cap, float(scale), _build.DTYPE_CODES[k_pages.dtype],
+        count_as="pfa_paged_decode_attend_tbias" if token_bias is not None else None,
     )
     return o
 
@@ -281,10 +316,12 @@ def paged_decode_attention(
     v_scales: Optional[torch.Tensor] = None,
     *,
     sm_scale: Optional[float] = None,
+    token_bias: Optional[torch.Tensor] = None,  # (B, Hkv, >= S_cap) fp32
 ) -> torch.Tensor:
     """Decode step for one layer: write the token's K/V into the pool (K2),
-    then attend over it (K3). Pools are updated IN PLACE; returns o
-    (B, Hq, D) float32. The JAX function returns the updated pools instead."""
+    then attend over it (K3, with ``token_bias`` in its token-bias mode).
+    Pools are updated IN PLACE; returns o (B, Hq, D) float32. The JAX
+    function returns the updated pools instead."""
     if k_scales is None:
         k_new, v_new = k_new.to(k_pages.dtype), v_new.to(v_pages.dtype)
     paged_token_write(
@@ -292,7 +329,7 @@ def paged_decode_attention(
     )
     return paged_decode_attend(
         q, k_pages, v_pages, lengths, page_indices, layer, k_scales, v_scales,
-        sm_scale=sm_scale,
+        sm_scale=sm_scale, token_bias=token_bias,
     )
 
 

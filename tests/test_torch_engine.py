@@ -333,22 +333,54 @@ def test_need_weights_routes_to_fused():
 
 
 def test_dense_mask_is_offered_fused_only():
-    """A mask with (Sq, Skv) structure rides FUSED only until K1 has the
-    dense-bias stream (B10), even above the flash threshold."""
+    """A mask with (Sq, Skv) structure: since K1 has the dense-bias mode the
+    engine offers FUSED and FLASH for it, as the JAX engine does (the name
+    is kept from when the port offered FUSED only). Above the flash
+    threshold the heuristic takes FLASH; measured routing warms up both;
+    every result equals the oracle's, causal or not, (B,1,S,S) or per head."""
     _flash_thresholds()
-    q, k, v = make_qkv(s=128, b=1)
+    q, k, v = make_qkv(s=128, b=2)
     rng = np.random.default_rng(1)
-    mask = rng.random((1, 1, 128, 128)) > 0.1
-    mask[..., 0] = True
     eng = _engine()
-    w = WorkloadCharacteristics(batch_size=1, q_len=128, kv_len=128, num_heads=4,
+    w = WorkloadCharacteristics(batch_size=2, q_len=128, kv_len=128, num_heads=4,
                                 head_dim=64, mask_kind="dense", dtype="float32")
-    assert eng._available_kernels(w) == (KernelKind.FUSED,)
-    for auto in (False, True):
-        get_config().update(auto_kernel_selection=auto)
+    assert eng.router.eligible_kernels(w, eng._available_kernels(w)) == [
+        KernelKind.FUSED, KernelKind.FLASH]
+    for heads in (1, 4):
+        mask = rng.random((2, heads, 128, 128)) > 0.1
+        mask[..., 0] = True
+        for causal in (False, True):
+            get_config().update(auto_kernel_selection=False)
+            out, _ = eng(*_t(q, k, v, mask), causal=causal)
+            assert eng.last_kernel_used == "flash"
+            assert rel_err_norm(out.numpy(), _ref(q, k, v, mask, causal)) <= 1e-5
+    get_config().update(auto_kernel_selection=True)
+    used = set()
+    for _ in range(3):
         out, _ = eng(*_t(q, k, v, mask))
-        assert eng.last_kernel_used == "fused"
+        used.add(eng.last_kernel_used)
         assert rel_err_norm(out.numpy(), _ref(q, k, v, mask)) <= 1e-5
+    assert used == {"fused", "flash"}
+
+
+@pytest.mark.parametrize("quant_mode", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("s", [128, 2048])
+def test_dense_mask_eligibility_matches_jax_engine(s, quant_mode):
+    """The port's registry and router against the JAX ``AttentionEngine``
+    built with the same flags, for a dense-mask workload: the same eligible
+    kinds and the same heuristic kind."""
+    get_config().update(quant_mode=quant_mode)
+    jax_set_config(quant_mode=quant_mode)
+    kw = dict(batch_size=4, q_len=s, kv_len=s, num_heads=16, head_dim=64, causal=True,
+              mask_kind="dense", dtype="bfloat16")
+    w, jw = _pair(**kw)
+    eng, jeng = _engine(), JaxEngine(router=JaxRouter(exploration_rate=0.0, seed=0))
+    elig = eng.router.eligible_kernels(w, eng._available_kernels(w))
+    jelig = jeng.router.eligible_kernels(jw, jeng._available_kernels(jw))
+    assert [k.value for k in elig] == [k.value for k in jelig] == ["fused", "flash"]
+    assert (eng.router.heuristic_selection(w, elig).value
+            == jeng.router.heuristic_selection(jw, jelig).value
+            == ("flash" if s >= 512 else "fused"))
 
 
 @pytest.mark.parametrize("layout", ["prefix", "scattered"])
