@@ -19,7 +19,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    relative-bias mode (T5 buckets both directions, Sq < Skv, ALiBi) and
    dense-bias mode (a (B,1,S,S) random-hole mask, a real (B,H,S,S) bias),
    K3's token-bias mode (bf16 and int8 pools), each against SDPA given the
-   same dense float bias (K3: no library call);
+   same dense float bias (K3: no library call); K1's dropout stream (B4
+   S2048 H12 causal bf16, rate 0.1; fp32, GQA, Sq 512 / Skv 2048) and
+   window stream (B1 S8192 H12 against the plain version and SDPA with the
+   same band mask; bench.py's B1 S65536 window (-4095, 0) row against its
+   in-band bound), K4/K5's dropout and window streams (B4 S2048 H12), and
+   K1's relative-bias mode writing lse (T5 both directions, ALiBi);
 4. serving path: GPT-2 medium (random weights, seed 0) served through
    ``ServingEngine.generate`` with an int8 paged KV cache; every kernel's
    launch count must grow; the first step must agree with the dense model;
@@ -37,7 +42,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 6. training path: GPT-2 medium (random weights, seed 0) takes AdamW steps
    through ``Trainer.train_step`` at B8 S1024 on one fixed batch; the loss
    must fall, K1/K4/K5 must launch once per layer and step; the gradient of
-   the first 4 layers of the same weights must agree with a CPU run;
+   the first 4 layers of the same weights must agree with a CPU run; then
+   the same with ``attn_pdrop`` 0.1 through ``Trainer(dropout_rng=...)``,
+   on K1/K4/K5's dropout modes (the gradient check with one fixed dropout
+   seed on both sides);
 7. T5 path at T5-large width (random weights from a seeded generator):
    (a) ``T5ForConditionalGeneration`` cut to 2+2 layers, B1, encoder 1024,
    decoder 512, unmasked (K1's relative-bias mode), against the same
@@ -47,7 +55,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    the model computing in fp32: every first token equal to the dense
    model's argmax on the card, two trajectories under the JAX test's
    greedy-parity rule; then bf16 compute over a bf16 pool, timed; (c) the
-   full-depth bf16 forward at B2, encoder 2048, decoder 512, timed.
+   full-depth bf16 forward at B2, encoder 2048, decoder 512, timed;
+8. T5 training path: T5-large at full depth, bf16 compute, B2, encoder
+   1024, decoder 512, three AdamW steps through ``Trainer`` with a seq2seq
+   cross entropy: the loss must fall, K1's relative-bias mode with lse must
+   launch for every self-attention and K1/K4/K5 for every cross-attention;
+   the 2+2-layer cut's gradient (fp32 on the card) must match the CPU's on
+   every parameter, both ``rel_embedding`` tables included.
 
 The last lines are the card's name and power limit, the per-kernel JSON
 summary and, last of all, ``{"ok": true, "device": {...}}``. The script
@@ -86,6 +100,14 @@ _QUANT = "photonic_flash_attention_tpu_torch/csrc/flash_quant.cu"
 _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
 SOURCES = {
+    "pfa_flash_fwd_dropout": _FWD,
+    "pfa_flash_bwd_dkv_dropout": _BWD,
+    "pfa_flash_bwd_dq_dropout": _BWD,
+    "pfa_flash_fwd_relbias_lse": _FWD,
+    "pfa_flash_fwd_alibi_lse": _FWD,
+    "pfa_flash_fwd_window": _FWD,
+    "pfa_flash_bwd_dkv_window": _BWD,
+    "pfa_flash_bwd_dq_window": _BWD,
     "pfa_flash_fwd_relbias": _FWD,
     "pfa_flash_fwd_alibi": _FWD,
     "pfa_flash_fwd_densebias": _FWD,
@@ -104,7 +126,16 @@ SOURCES = {
     "pfa_flash_quant_fp8": _QUANT,
     "pfa_flash_quant_int8": _QUANT,
 }
+_B3 = "photonic_flash_attention_tpu/ops/flash_bwd.py"
 REPLACES = {
+    "pfa_flash_fwd_dropout": f"{_B1} (seed_ref :372-391)",
+    "pfa_flash_bwd_dkv_dropout": f"{_B3}:167 (seed_ref, _dropout_mscale_t :144)",
+    "pfa_flash_bwd_dq_dropout": f"{_B3}:248 (seed_ref, _dropout_mscale_t :144)",
+    "pfa_flash_fwd_relbias_lse": f"{_B1} (tab_ref, t5, lse_ref), photonic_flash_attention_tpu/ops/flash.py:1446",
+    "pfa_flash_fwd_alibi_lse": f"{_B1} (tab_ref, alibi, lse_ref)",
+    "pfa_flash_fwd_window": f"{_B1} (window :139-154, :309-327, banded grid :478-491)",
+    "pfa_flash_bwd_dkv_window": f"{_B3}:167 (window, _tile_masks :59)",
+    "pfa_flash_bwd_dq_window": f"{_B3}:248 (window, _tile_masks :59)",
     "pfa_flash_fwd_relbias": f"{_B1} (tab_ref, t5), photonic_flash_attention_tpu/ops/flash.py:1092",
     "pfa_flash_fwd_alibi": f"{_B1} (tab_ref, alibi)",
     "pfa_flash_fwd_densebias": f"{_B1} (qkbias_ref)",
@@ -129,11 +160,16 @@ REPLACES = {
 }
 #: Modes that no main path runs, reported under their kernel's entry:
 #: K3's int8 compute (engine decode repacks bf16 K/V; serving decode is K3's
-#: float mode over the int8 pool) and K6's int8 mode (the engine's kinds
-#: reach K6 through FLASH_FP8 only).
+#: float mode over the int8 pool), K6's int8 mode (the engine's kinds
+#: reach K6 through FLASH_FP8 only), ALiBi (no model of the port uses it)
+#: and the sliding window of K1, K4 and K5 (no model of the port sets one).
 NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
                 "pfa_flash_quant_int8": ("pfa_flash_quant_fp8", "int8"),
-                "pfa_flash_fwd_alibi": ("pfa_flash_fwd_relbias", "alibi")}
+                "pfa_flash_fwd_alibi": ("pfa_flash_fwd_relbias", "alibi"),
+                "pfa_flash_fwd_alibi_lse": ("pfa_flash_fwd_relbias_lse", "alibi"),
+                "pfa_flash_fwd_window": ("pfa_flash_fwd", "window"),
+                "pfa_flash_bwd_dkv_window": ("pfa_flash_bwd_dkv", "window"),
+                "pfa_flash_bwd_dq_window": ("pfa_flash_bwd_dq", "window")}
 TIMED_RUNS = 20
 # H100 SXM data sheet (dense, at its 700 W limit): the bound of each kernel
 # is the larger of its operations over the peak rate for their type and
@@ -152,24 +188,29 @@ def card_bound(ops: float, nbytes: float, dtype) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def attention_pairs(b: int, sq: int, skv: int, causal: bool, lens=None) -> int:
+def attention_pairs(b: int, sq: int, skv: int, causal: bool, lens=None, window=None) -> int:
     """(query, key) pairs the kernel computes: keys below each row's
-    length and, when causal, on or below the end-aligned diagonal."""
+    length, inside the window (lo, hi) on rel = col - (row + Skv - Sq) and,
+    when causal, on or below the end-aligned diagonal."""
+    lo, hi = window if window is not None else (None, None)
+    if causal:
+        hi = 0 if hi is None else min(hi, 0)
     lens = [skv] * b if lens is None else [min(max(int(n), 0), skv) for n in lens]
-    rows = torch.arange(sq)
+    rows = torch.arange(sq, dtype=torch.int64) + (skv - sq)
+    first = torch.zeros_like(rows) if lo is None else (rows + lo).clamp(min=0)
     total = 0
     for n in lens:
-        seen = torch.clamp(rows + (skv - sq) + 1, max=n) if causal else torch.full((sq,), n)
-        total += int(seen.clamp(min=0).sum())
+        last = torch.full_like(rows, n - 1) if hi is None else (rows + hi).clamp(max=n - 1)
+        total += int((last - first + 1).clamp(min=0).sum())
     return total
 
 
-def flash_fwd_bound(q, k, causal, lens=None, with_lse=False, with_bias=False) -> dict:
+def flash_fwd_bound(q, k, causal, lens=None, with_lse=False, with_bias=False, window=None) -> dict:
     """K1's bound: 4 D operations per (query, key) pair; q, o and the K/V
     rows below each length, plus lse and the streams when present."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    pairs = attention_pairs(b, sq, skv, causal, lens)
+    pairs = attention_pairs(b, sq, skv, causal, lens, window)
     kv_rows = b * skv if lens is None else sum(min(max(int(n), 0), skv) for n in lens)
     elt = q.element_size()
     nbytes = elt * (2 * b * sq * hq * d + 2 * kv_rows * hkv * d)
@@ -177,26 +218,28 @@ def flash_fwd_bound(q, k, causal, lens=None, with_lse=False, with_bias=False) ->
     return card_bound(4.0 * d * hq * pairs, nbytes, q.dtype)
 
 
-def sdpa_bwd_ms(q, k, v, do) -> float:
-    """The backward of one causal F.scaled_dot_product_attention call (dq,
-    dk and dv together), its forward outside the timing."""
+def sdpa_bwd_ms(q, k, v, do, **kw) -> float:
+    """The backward of one F.scaled_dot_product_attention call (dq, dk and
+    dv together; causal unless ``kw`` says otherwise), its forward outside
+    the timing."""
     import torch.nn.functional as F
 
     leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    out = F.scaled_dot_product_attention(*leaves, **(kw or dict(is_causal=True)))
     g = do.transpose(1, 2).contiguous()
     return median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
 
 
-def sdpa_ms(q, k, v, causal: bool, bias=None, scale=None) -> float:
+def sdpa_ms(q, k, v, causal: bool, bias=None, scale=None, dropout_p: float = 0.0) -> float:
     """One F.scaled_dot_product_attention call on the same function, in its
-    (B, H, S, D) layout (the transposes are outside the timing)."""
+    (B, H, S, D) layout (the transposes are outside the timing); with
+    ``dropout_p`` it draws its own mask, not the port's."""
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if bias is None:
         return median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                                scale=scale))
+                                                                scale=scale, dropout_p=dropout_p))
     return median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, scale=scale))
 
 
@@ -899,6 +942,284 @@ def check_token_bias(results: dict) -> None:
     results["pfa_paged_decode_attend_tbias"]["max_abs_err"] = worst
 
 
+DROPOUT_RATE, DROPOUT_SEED = 0.1, 1234
+
+
+def check_flash_dropout(results: dict) -> None:
+    """K1's dropout stream against its plain version (the same positional
+    mask, so only K1's own rounding differs): GPT-2 training's shape class
+    at B4 S2048 H12 D64 causal bf16, rate 0.1 (timed; SDPA with
+    dropout_p=0.1 as the library time, which draws its own mask), then
+    fp32, GQA and Sq 512 / Skv 2048."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (B, Sq, Skv, Hq, Hkv, D, dtype, causal, timed)
+        (4, 2048, 2048, 12, 12, 64, bf16, True, True),
+        (2, 512, 2048, 16, 16, 64, bf16, True, False),
+        (2, 300, 300, 8, 2, 128, bf16, False, False),
+        (2, 200, 333, 4, 2, 64, f32, True, False),
+    ]
+    kw = dict(dropout_rate=DROPOUT_RATE, dropout_seed=DROPOUT_SEED)
+    worst = 0.0
+    for b, sq, skv, hq, hkv, d, dtype, causal, timed in cases:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        before = _build.LAUNCHES["pfa_flash_fwd_dropout"]
+        out = flash_ops.flash_attention(q, k, v, causal=causal, **kw)
+        ref = flash_ops.flash_attention_plain(q, k, v, causal=causal, **kw)
+        torch.cuda.synchronize()
+        bound = 1e-2 if dtype == bf16 else 1e-4
+        err = rel_err_norm(out, ref)
+        worst = max(worst, max_abs_err(out, ref))
+        line = (f"K1 dropout B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} {str(dtype)[6:]} causal={causal} "
+                f"rate {DROPOUT_RATE}: rel_err_norm {err:.3e}, max abs {max_abs_err(out, ref):.3e} "
+                f"(bound {bound})")
+        if (err > bound or not torch.isfinite(out).all()
+                or _build.LAUNCHES["pfa_flash_fwd_dropout"] != before + 1):
+            raise AssertionError(line)
+        if timed:
+            ms = median_ms(lambda: flash_ops.flash_attention(q, k, v, causal=causal, **kw))
+            plain = median_ms(lambda: flash_ops.flash_attention_plain(q, k, v, causal=causal, **kw))
+            lib = sdpa_ms(q, k, v, causal, dropout_p=DROPOUT_RATE)
+            bnd = flash_fwd_bound(q, k, causal)
+            line += (f" | kernel {ms:.4f} ms (K1 without dropout "
+                     f"{median_ms(lambda: flash_ops.flash_attention(q, k, v, causal=causal)):.4f} ms), "
+                     f"plain {plain:.4f} ms, SDPA dropout_p={DROPOUT_RATE} (its own mask) {lib:.4f} ms, "
+                     f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+            results["pfa_flash_fwd_dropout"].update(ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+        print(line, flush=True)
+    results["pfa_flash_fwd_dropout"]["max_abs_err"] = worst
+
+
+#: bench.py's long-window row (flash_bf16_causal_window4096_b1_s65536).
+WINDOW_LONG = (1, 65536, 12, 64, (-4095, 0))
+#: K1's window against the plain version at B1 S8192 H12 D64 bf16, where the
+#: plain version fits: (window, causal, timed and kept in the JSON).
+WINDOW_CASES = (((-4095, 0), True, True), ((-256, 256), False, True), ((-1000, None), True, False))
+
+
+def _band_mask(sq: int, skv: int, causal: bool, window) -> torch.Tensor:
+    """The causal mask and the window as one (Sq, Skv) boolean mask (True =
+    attend), SDPA's attn_mask."""
+    from photonic_flash_attention_tpu_torch.ops.reference import window_keep
+
+    return window_keep(sq, skv, causal, window, "cuda")
+
+
+def check_flash_window(results: dict) -> None:
+    """K1's window stream: against its plain version at B1 S8192 H12 D64
+    bf16 (WINDOW_CASES; SDPA given the same boolean band mask as the
+    library time), fp32 and GQA at small shapes; then bench.py's long row,
+    B1 S65536 H12 causal with window (-4095, 0), timed against its bound,
+    which counts only the in-band pairs (no plain version or SDPA mask fits
+    there)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(1, 8192, 8192, 12, 12, 64, bf16, causal, window, timed)
+             for window, causal, timed in WINDOW_CASES]
+    cases += [(2, 300, 333, 4, 2, 128, bf16, True, (-100, 0), False),
+              (2, 200, 200, 4, 4, 64, f32, False, (-30, 50), False)]
+    worst = 0.0
+    for b, sq, skv, hq, hkv, d, dtype, causal, window, timed in cases:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        before = _build.LAUNCHES["pfa_flash_fwd_window"]
+        out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_ops.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        bound = 1e-2 if dtype == bf16 else 1e-4
+        err = rel_err_norm(out, ref)
+        worst = max(worst, max_abs_err(out, ref))
+        line = (f"K1 window {window} B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} {str(dtype)[6:]} "
+                f"causal={causal}: rel_err_norm {err:.3e}, max abs {max_abs_err(out, ref):.3e} "
+                f"(bound {bound})")
+        if (err > bound or not torch.isfinite(out).all()
+                or _build.LAUNCHES["pfa_flash_fwd_window"] != before + 1):
+            raise AssertionError(line)
+        if timed:
+            ms = median_ms(lambda: flash_ops.flash_attention(q, k, v, causal=causal, window=window))
+            plain = median_ms(lambda: flash_ops.flash_attention_plain(q, k, v, causal=causal,
+                                                                      window=window), runs=5)
+            lib = sdpa_ms(q, k, v, False, _band_mask(sq, skv, causal, window))
+            bnd = flash_fwd_bound(q, k, causal, window=window)
+            line += (f" | kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA with the band mask "
+                     f"{lib:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+                     f"{attention_pairs(b, sq, skv, causal, window=window)} pairs)")
+            if not results["pfa_flash_fwd_window"]:
+                results["pfa_flash_fwd_window"].update(ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+        print(line, flush=True)
+        del q, k, v, out, ref
+    results["pfa_flash_fwd_window"]["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    b, s, h, d, window = WINDOW_LONG
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(bf16) for _ in range(3))
+    out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError("K1 window S65536: non-finite output")
+    ms = median_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True, window=window))
+    full = median_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True), runs=3, warmup=1)
+    bnd = flash_fwd_bound(q, k, True, window=window)
+    print(f"K1 window {window} B{b} S{s} H{h} D{d} bf16 causal (bench.py's "
+          f"flash_bf16_causal_window4096_b1_s65536): kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}, {attention_pairs(b, s, s, True, window=window)} pairs), "
+          f"{bnd['bound_ms'] / ms * 100:.1f}% of the bound's rate; causal K1 without the window "
+          f"{full:.4f} ms", flush=True)
+    results["pfa_flash_fwd_window"].update(s65536_ms=ms, s65536_bound_ms=bnd["bound_ms"])
+    del q, k, v, out
+    torch.cuda.empty_cache()
+
+
+def bwd_bounds(q, k, causal, window=None):
+    """K4's and K5's bounds: 8 and 6 D operations per (query, key) pair
+    (K4: s, dp, dv, dk; K5: s, dp, dq, with the exp shared), over q, k,
+    v, dO, lse, di read once and their outputs written once."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    pairs = attention_pairs(b, sq, skv, causal, window=window)
+    elt = q.element_size()
+    io = elt * (2 * b * sq * hq * d + 2 * b * skv * hq * d) + 2 * 4 * b * hq * sq
+    return (card_bound(8.0 * d * hq * pairs, io + elt * 2 * b * skv * hq * d, q.dtype),
+            card_bound(6.0 * d * hq * pairs, io + elt * b * sq * hq * d, q.dtype))
+
+
+def check_flash_bwd_streams(results: dict) -> None:
+    """K4/K5's dropout and window streams against the plain backward on the
+    same inputs (the forward's lse from the plain version): B4 S2048 H12
+    D64 causal bf16 with dropout 0.1 and with window (-255, 0), timed (SDPA's
+    backward with dropout_p=0.1, its own mask, or with the same band mask
+    as the library time), then fp32 and Sq < Skv."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    bf16, f32 = torch.bfloat16, torch.float32
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=DROPOUT_SEED)
+    win = dict(window=(-255, 0))
+    cases = [  # (B, Sq, Skv, H, D, dtype, causal, streams, timed)
+        (4, 2048, 2048, 12, 64, bf16, True, drop, True),
+        (4, 2048, 2048, 12, 64, bf16, True, win, True),
+        (2, 256, 384, 4, 128, bf16, False, dict(window=(-90, 40)), False),
+        (2, 200, 333, 4, 64, f32, True, drop, False),
+        (2, 256, 256, 4, 64, f32, False, dict(window=(-30, 50)), False),
+    ]
+    worst = collections.Counter()
+    for b, sq, skv, h, d, dtype, causal, streams, timed in cases:
+        q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, h, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, h, d, device="cuda", generator=gen).to(dtype)
+        do = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
+        o, lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal, **streams)
+        mode = "dropout" if "dropout_rate" in streams else "window"
+        names = (f"pfa_flash_bwd_dkv_{mode}", f"pfa_flash_bwd_dq_{mode}")
+        before = dict(_build.LAUNCHES)
+        kw = dict(sm_scale=d ** -0.5, causal=causal, **streams)
+        got = bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        bound = 1e-2 if dtype == bf16 else 1e-4
+        errs = [rel_err_norm(g, w) for g, w in zip(got, want)]
+        line = (f"K4/K5 {mode} {streams.get('window', DROPOUT_RATE)} B{b} Sq{sq} Skv{skv} H{h} D{d} "
+                f"{str(dtype)[6:]} causal={causal}: rel_err_norm dq {errs[0]:.3e} dk {errs[1]:.3e} "
+                f"dv {errs[2]:.3e} (bound {bound})")
+        if (max(errs) > bound or not all(torch.isfinite(g).all() for g in got)
+                or any(_build.LAUNCHES[n] != before.get(n, 0) + 1 for n in names)):
+            raise AssertionError(line)
+        worst[names[1]] = max(worst[names[1]], max_abs_err(got[0], want[0]))
+        worst[names[0]] = max(worst[names[0]], max_abs_err(got[1], want[1]), max_abs_err(got[2], want[2]))
+        if timed:
+            di = bwd_ops.flash_bwd_di(o, do)
+            ms_dkv = median_ms(lambda: bwd_ops.flash_bwd_dkv(q, k, v, do, lse, di, **kw))
+            ms_dq = median_ms(lambda: bwd_ops.flash_bwd_dq(q, k, v, do, lse, di, **kw))
+            plain = median_ms(lambda: bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+                              runs=5)
+            lib_kw = (dict(is_causal=causal, dropout_p=DROPOUT_RATE) if mode == "dropout"
+                      else dict(attn_mask=_band_mask(sq, skv, causal, streams["window"])))
+            lib = sdpa_bwd_ms(q, k, v, do, **lib_kw)
+            bnd_dkv, bnd_dq = bwd_bounds(q, k, causal, streams.get("window"))
+            line += (f" | K4 {ms_dkv:.4f} ms (bound {bnd_dkv['bound_ms']:.4f}), K5 {ms_dq:.4f} ms "
+                     f"(bound {bnd_dq['bound_ms']:.4f}), plain backward (dq, dk, dv) {plain:.4f} ms, "
+                     f"SDPA backward {'dropout_p=0.1 (its own mask)' if mode == 'dropout' else 'with the band mask'} "
+                     f"{lib:.4f} ms")
+            results[names[0]].update(ms=ms_dkv, plain_ms=plain, library_ms=lib, **bnd_dkv)
+            results[names[1]].update(ms=ms_dq, plain_ms=plain, library_ms=lib, **bnd_dq)
+        print(line, flush=True)
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
+
+
+def check_flash_rel_lse(results: dict) -> None:
+    """K1's relative-bias mode writing lse (the residual of the T5 gradient)
+    against the plain version, output and lse: T5 buckets both directions at
+    B2 S2048 H16 D64 bf16 (timed, the bidirectional case kept in the JSON;
+    SDPA given the materialised bias as the library time), causal at Sq 512
+    / Skv 2048, ALiBi, fp32. Also times the plain relative-bias backward
+    (``flash_attention_bwd_masked_plain``, the port of JAX's XLA backward)
+    at the T5 training shapes."""
+    from photonic_flash_attention_tpu_torch.ops.rel_bias import (
+        ALiBi, T5RelBias, alibi_slopes, materialize,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (kind, B, Sq, Skv, H, D, dtype, causal, timed)
+        ("t5", 2, 2048, 2048, 16, 64, bf16, False, True),
+        ("t5", 2, 512, 2048, 16, 64, bf16, True, False),
+        ("t5", 2, 1024, 1024, 16, 64, f32, True, False),
+        ("alibi", 2, 2048, 2048, 16, 64, bf16, True, True),
+        ("alibi", 1, 300, 300, 8, 128, f32, True, False),
+    ]
+    worst = collections.Counter()
+    for kind, b, sq, skv, h, d, dtype, causal, timed in cases:
+        q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, h, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, h, d, device="cuda", generator=gen).to(dtype)
+        if kind == "t5":
+            spec = T5RelBias(torch.randn(32, h, device="cuda", generator=gen) * 0.5, not causal)
+            counter, scale = "pfa_flash_fwd_relbias", 1.0
+        else:
+            spec, counter, scale = ALiBi(alibi_slopes(h).cuda()), "pfa_flash_fwd_alibi", d ** -0.5
+        name = f"{counter}_lse"
+        vec = flash_ops._rel_vector(spec, sq, skv)
+        dense = flash_ops.vector_bias(vec, sq, skv)
+        before = _build.LAUNCHES[name]
+        out, lse = flash_ops._flash_fwd_bias_cuda(q, k, v, causal, scale, counter, vec=vec, save_lse=True)
+        ref, ref_lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal, sm_scale=scale,
+                                                                bias=dense)
+        torch.cuda.synchronize()
+        bound = 1e-2 if dtype == bf16 else 1e-4
+        err, lse_err = rel_err_norm(out, ref), rel_err_norm(lse, ref_lse)
+        worst[name] = max(worst[name], max_abs_err(out, ref))
+        line = (f"{name} B{b} Sq{sq} Skv{skv} H{h} D{d} {str(dtype)[6:]} causal={causal}: rel_err_norm "
+                f"{err:.3e} (bound {bound}), lse {lse_err:.3e} (bound 1e-4)")
+        if (err > bound or lse_err > 1e-4 or not torch.isfinite(lse).all()
+                or _build.LAUNCHES[name] != before + 1):
+            raise AssertionError(line)
+        if timed:
+            ms = median_ms(lambda: flash_ops._flash_fwd_bias_cuda(q, k, v, causal, scale, counter,
+                                                                  vec=vec, save_lse=True))
+            plain = median_ms(lambda: flash_ops.flash_attention_with_lse_plain(
+                q, k, v, causal=causal, sm_scale=scale, bias=dense))
+            lib = sdpa_ms(q, k, v, False, _sdpa_bias(materialize(spec, sq, skv), sq, skv, causal),
+                          scale=scale)
+            pairs = attention_pairs(b, sq, skv, causal)
+            elt = q.element_size()
+            nbytes = (elt * (2 * b * sq * h * d + 2 * b * skv * h * d) + 4 * h * (sq + skv - 1)
+                      + 4 * b * h * sq)
+            bnd = card_bound(4.0 * d * h * pairs, nbytes, dtype)
+            line += (f" | kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA with the dense bias "
+                     f"{lib:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+            results[name].update(ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+            if kind == "t5":
+                do = torch.randn_like(q)
+                bwd_kw = dict(sm_scale=scale, causal=causal, rel_vec=vec)
+                bwd = median_ms(lambda: flash_ops.flash_attention_bwd_masked_plain(
+                    q, k, v, out, lse, do, **bwd_kw), runs=5)
+                line += f"; plain relative-bias backward (dq, dk, dv, d vec) {bwd:.4f} ms"
+        print(line, flush=True)
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
+
+
 def phase_kernels() -> dict:
     results = {name: {} for name in SOURCES}
     check_flash(results)
@@ -912,6 +1233,10 @@ def phase_kernels() -> dict:
     check_flash_relbias(results)
     check_flash_densebias(results)
     check_token_bias(results)
+    check_flash_dropout(results)
+    check_flash_window(results)
+    check_flash_bwd_streams(results)
+    check_flash_rel_lse(results)
     return results
 
 
@@ -1255,24 +1580,32 @@ def _quant_cross_case(gen):
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CHECK_LAYERS = 8, 1024, 5, 4
 TRAIN_KERNELS = ("pfa_flash_fwd", "pfa_flash_bwd_dkv", "pfa_flash_bwd_dq")
+#: GPT-2 with attn_pdrop: the kernels' dropout modes.
+DROPOUT_KERNELS = ("pfa_flash_fwd_dropout", "pfa_flash_bwd_dkv_dropout", "pfa_flash_bwd_dq_dropout")
+#: The dropout run's seeds: Trainer(dropout_rng=Generator(DROPOUT_RNG_SEED));
+#: the gradient check's fixed forward seed.
+DROPOUT_RNG_SEED, GRAD_DROPOUT_SEED = 0, 99
 
 
-def _lm_grads(model, batch) -> dict:
+def _lm_grads(model, batch, dropout_seed=None) -> dict:
     from photonic_flash_attention_tpu_torch.training.trainer import lm_loss
 
     model.zero_grad(set_to_none=True)
-    lm_loss(model, batch).backward()
+    lm_loss(model, batch, dropout_seed=dropout_seed).backward()
     return {n: p.grad.float().cpu() for n, p in model.named_parameters()}
 
 
-def check_train_grads(cfg, state: dict, batch: dict) -> None:
+def check_train_grads(cfg, state: dict, batch: dict, kernels=TRAIN_KERNELS) -> None:
     """One step's gradient of the first CHECK_LAYERS layers of the weights
-    at B1: bf16 on the card (K1, K4, K5) against fp32 on the CPU (the
-    plain versions), the bf16-scale gate 5e-2."""
+    at B1: bf16 on the card (K1, K4, K5, in their dropout modes when the
+    config drops; one fixed dropout seed on both sides, so the same masks)
+    against fp32 on the CPU (the plain versions), the bf16-scale gate
+    5e-2."""
     from photonic_flash_attention_tpu_torch.config import get_config, reset_config
     from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2LMHead
 
     cut = dataclasses.replace(cfg, n_layer=CHECK_LAYERS)
+    seed = GRAD_DROPOUT_SEED if cfg.attn_pdrop > 0.0 else None
     one = {k: torch.as_tensor(v[:1]) for k, v in batch.items()}
     # B1 S1024 is below flash_min_tokens: lower it so both runs take the
     # flash route (kernels on the card, plain versions on the CPU).
@@ -1282,9 +1615,9 @@ def check_train_grads(cfg, state: dict, batch: dict) -> None:
         model = GPT2LMHead(dataclasses.replace(cut, dtype=dtype))
         model.load_state_dict(state)
         before = dict(_build.LAUNCHES)
-        grads[device] = _lm_grads(model.to(device), {k: v.to(device) for k, v in one.items()})
+        grads[device] = _lm_grads(model.to(device), {k: v.to(device) for k, v in one.items()}, seed)
         if device == "cuda":
-            for name in TRAIN_KERNELS:
+            for name in kernels:
                 if _build.LAUNCHES[name] - before.get(name, 0) != CHECK_LAYERS:
                     raise AssertionError(f"gradient check: {name} not launched per layer")
     reset_config()
@@ -1293,7 +1626,8 @@ def check_train_grads(cfg, state: dict, batch: dict) -> None:
     for i in range(CHECK_LAYERS):
         name = f"h.{i}.attn.q_proj.weight"
         errs[name] = rel_err_norm(grads["cuda"][name], grads["cpu"][name])
-    line = (f"training path: gradient of GPT-2 widths {cfg.n_embd}/{cfg.n_head} heads, first "
+    line = (f"training path: gradient of GPT-2 widths {cfg.n_embd}/{cfg.n_head} heads, "
+            f"attn_pdrop {cfg.attn_pdrop}, first "
             f"{CHECK_LAYERS} layers, B1 S{TRAIN_SEQ}, card bf16 vs CPU fp32 plain: "
             + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + " (bound 5e-2)")
     if max(errs.values()) > 5e-2 or not torch.isfinite(flat["cuda"]).all():
@@ -1383,12 +1717,15 @@ def profile_train_step(trainer, state, batch, out_dir: Path) -> None:
     _profile_runs(lambda: trainer.train_step(state, batch), PROFILED_STEPS, out_dir, "train_step")
 
 
-def phase_training(smi: str, profile_dir: Optional[str] = None) -> dict:
-    """GPT-2 medium (the JAX training bench's B8 S512 model), at S1024."""
-    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+def _train_run(cfg, label: str, kernels, smi: str, dropout_rng=None):
+    """TRAIN_STEPS AdamW steps of GPT-2 ``cfg`` at B TRAIN_BATCH S
+    TRAIN_SEQ on one fixed batch through ``Trainer.train_step``, after a
+    warm-up step: the loss must fall and each of ``kernels`` launch once per
+    layer and step. Returns (trainer, state, batch, the first
+    CHECK_LAYERS layers' initial weights, launches, median step ms)."""
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2LMHead
     from photonic_flash_attention_tpu_torch.training import Trainer, synthetic_lm_batches
 
-    cfg = GPT2Config.medium()
     model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0))
     first_layers = {k: v.clone() for k, v in model.state_dict().items()
                     if not k.startswith("h.") or int(k.split(".")[1]) < CHECK_LAYERS}
@@ -1396,7 +1733,7 @@ def phase_training(smi: str, profile_dir: Optional[str] = None) -> dict:
     # optax.adamw(1e-4)'s defaults (torch's default weight decay is 1e-2).
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=1e-4)
-    trainer = Trainer(model, opt)
+    trainer = Trainer(model, opt, dropout_rng=dropout_rng)
     state = trainer.init_state()
     batch = next(synthetic_lm_batches(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                                       vocab=cfg.vocab_size, seed=0))
@@ -1414,25 +1751,50 @@ def phase_training(smi: str, profile_dir: Optional[str] = None) -> dict:
     launches = dict(_build.LAUNCHES)
 
     need = cfg.n_layer * TRAIN_STEPS
-    for name in TRAIN_KERNELS:
+    for name in kernels:
         if launches.get(name, 0) != need:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches in the "
-                                 f"training path, expected {need}")
+                                 f"training path ({label}), expected {need}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training path: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        raise AssertionError(f"training path ({label}): loss did not fall over {TRAIN_STEPS} "
+                             f"steps: {losses}")
     wall = sum(step_ms) / 1e3
     tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
-    print(f"training path: GPT-2 medium B{TRAIN_BATCH} S{TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps "
-          f"in {wall:.3f} s, {tokens / wall:.1f} tokens/s, step ms "
+    print(f"training path ({label}): GPT-2 medium B{TRAIN_BATCH} S{TRAIN_SEQ}, {TRAIN_STEPS} AdamW "
+          f"steps in {wall:.3f} s, {tokens / wall:.1f} tokens/s, step ms "
           f"{[round(t, 3) for t in step_ms]} (median {statistics.median(step_ms):.3f}), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi}); "
           f"losses {[round(x, 4) for x in losses]}; launches {launches}", flush=True)
+    return trainer, state, batch, first_layers, launches, statistics.median(step_ms)
+
+
+def phase_training(smi: str, profile_dir: Optional[str] = None) -> dict:
+    """GPT-2 medium (the JAX training bench's B8 S512 model), at S1024:
+    once as published without dropout (K1, K4, K5), once with attn_pdrop
+    0.1 through ``Trainer(dropout_rng=...)`` (their dropout modes, which
+    must launch n_layer x steps times); each run's loss must fall and its
+    first 4 layers' gradient match the CPU plain run."""
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config.medium()
+    trainer, state, batch, first_layers, launches, plain_ms = _train_run(
+        cfg, "attn_pdrop 0", TRAIN_KERNELS, smi)
     if profile_dir:
         profile_train_step(trainer, state, batch, Path(profile_dir))
-    del trainer, opt, model, state
+    del trainer, state
     torch.cuda.empty_cache()
     check_train_grads(cfg, first_layers, batch)
-    return launches
+
+    drop_cfg = dataclasses.replace(cfg, attn_pdrop=0.1)
+    trainer, state, batch, first_layers, drop_launches, drop_ms = _train_run(
+        drop_cfg, "attn_pdrop 0.1", DROPOUT_KERNELS, smi,
+        dropout_rng=torch.Generator().manual_seed(DROPOUT_RNG_SEED))
+    print(f"training path: median step with attn_pdrop 0.1 {drop_ms:.3f} ms against "
+          f"{plain_ms:.3f} ms without ({smi})", flush=True)
+    del trainer, state
+    torch.cuda.empty_cache()
+    check_train_grads(drop_cfg, first_layers, batch, DROPOUT_KERNELS)
+    return collections.Counter(launches) + collections.Counter(drop_launches)
 
 
 T5_PROMPT_LENS = (64, 100, 128, 200, 256, 300, 400, 512)
@@ -1698,6 +2060,137 @@ def time_t5_forward(cfg, model, smi: str) -> dict:
     return launches
 
 
+T5_TRAIN_BATCH, T5_TRAIN_ENC, T5_TRAIN_DEC, T5_TRAIN_STEPS = 2, 1024, 512, 3
+
+
+def seq2seq_loss(model, batch) -> torch.Tensor:
+    """The T5 training loss: token cross entropy of the decoder's logits
+    against ``labels``, in fp32 (``Trainer``'s ``loss_fn``, as JAX's
+    ``make_train_step`` takes one)."""
+    logits = model(batch["input_ids"].long(), batch["decoder_input_ids"].long())
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, batch["labels"].long()[..., None]).mean()
+
+
+def _t5_batch(vocab: int, b: int, s_enc: int, s_dec: int, seed: int) -> dict:
+    """Random encoder tokens and decoder labels; the decoder input is the
+    labels shifted right behind the start token."""
+    from photonic_flash_attention_tpu_torch.models.t5_serving import DECODER_START_TOKEN_ID
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(2, vocab, (b, s_dec))
+    dec = np.concatenate([np.full((b, 1), DECODER_START_TOKEN_ID), labels[:, :-1]], axis=1)
+    return {"input_ids": rng.integers(2, vocab, (b, s_enc)), "decoder_input_ids": dec,
+            "labels": labels}
+
+
+def check_t5_train_grads(cfg) -> None:
+    """The gradient of seq2seq_loss for T5-large's width cut to 2+2 layers,
+    B1, encoder 1024, decoder 512 (both stacks' self-attention on K1's
+    relative-bias mode with lse and the blockwise backward): fp32 on the
+    card against fp32 on the CPU (plain versions), every parameter within
+    T5_FORWARD_BOUND, both rel_embedding tables included."""
+    from photonic_flash_attention_tpu_torch.models.t5 import T5ForConditionalGeneration
+
+    cut = dataclasses.replace(cfg, num_layers=2, num_decoder_layers=2, dtype=torch.float32)
+    with torch.device("cuda"):
+        card = T5ForConditionalGeneration(cut, generator=torch.Generator(device="cuda").manual_seed(4))
+    cpu = T5ForConditionalGeneration(cut)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = {k: torch.from_numpy(v) for k, v in _t5_batch(cfg.vocab_size, 1, 1024, 512, 5).items()}
+    grads = {}
+    for device, model in (("cuda", card), ("cpu", cpu)):
+        before = _build.LAUNCHES["pfa_flash_fwd_relbias_lse"]
+        t0 = time.perf_counter()
+        seq2seq_loss(model, {k: v.to(device) for k, v in batch.items()}).backward()
+        grads[device] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        if device == "cuda" and _build.LAUNCHES["pfa_flash_fwd_relbias_lse"] - before != 4:
+            raise AssertionError("T5 gradient check: K1's relative-bias mode with lse not launched "
+                                 "per self-attention")
+        if device == "cpu":
+            cpu_s = time.perf_counter() - t0
+    errs = {n: rel_err_norm(grads["cuda"][n], g) for n, g in grads["cpu"].items()}
+    worst = max(errs, key=errs.get)
+    tables = {n: f"{e:.3e}" for n, e in errs.items() if n.endswith("rel_embedding")}
+    line = (f"T5 training path: gradient of T5-large width cut to 2+2 layers, B1 encoder 1024 decoder "
+            f"512, card fp32 vs CPU fp32 plain ({cpu_s:.1f} s): {len(errs)} parameters, largest "
+            f"rel_err_norm {errs[worst]:.3e} ({worst}), rel_embedding {tables} (bound "
+            f"{T5_FORWARD_BOUND})")
+    if errs[worst] > T5_FORWARD_BOUND or not all(torch.isfinite(g).all() for g in grads["cuda"].values()):
+        raise AssertionError(line)
+    print(line, flush=True)
+
+
+def phase_t5_training(smi: str) -> dict:
+    """T5-large at full width and depth (24+24 layers), bf16 compute over
+    fp32 parameters, B2, encoder 1024, decoder 512: T5_TRAIN_STEPS AdamW
+    steps on one fixed batch through ``Trainer(loss_fn=seq2seq_loss)``
+    after a warm-up. Every self-attention runs K1's relative-bias mode with
+    lse forward and the plain blockwise backward (JAX's is XLA too), the
+    cross-attention K1, K4 and K5: each must launch once per layer and
+    step, and the loss must fall. Prints the step time, peak memory and the
+    plain relative-bias backward's share of a step; then the cut model's
+    gradient against the CPU."""
+    from photonic_flash_attention_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
+    from photonic_flash_attention_tpu_torch.training import Trainer
+
+    cfg = T5Config.large()
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = T5ForConditionalGeneration(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    trainer = Trainer(model, opt, loss_fn=seq2seq_loss)
+    state = trainer.init_state()
+    batch = _t5_batch(cfg.vocab_size, T5_TRAIN_BATCH, T5_TRAIN_ENC, T5_TRAIN_DEC, 6)
+    state, _ = trainer.train_step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses, step_ms = [], []
+    for _ in range(T5_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(float(metrics["loss"]))  # synchronizes
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    layers = cfg.num_layers + cfg.num_decoder_layers
+    need = {"pfa_flash_fwd_relbias_lse": layers * T5_TRAIN_STEPS,
+            "pfa_flash_fwd": cfg.num_decoder_layers * T5_TRAIN_STEPS,
+            "pfa_flash_bwd_dkv": cfg.num_decoder_layers * T5_TRAIN_STEPS,
+            "pfa_flash_bwd_dq": cfg.num_decoder_layers * T5_TRAIN_STEPS}
+    # The plain relative-bias backward at the step's shapes, 24 layers each.
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    share_ms = 0.0
+    for s_len, causal in ((T5_TRAIN_ENC, False), (T5_TRAIN_DEC, True)):
+        q, k, v, do = (torch.randn(T5_TRAIN_BATCH, s_len, cfg.num_heads, cfg.d_kv, device="cuda",
+                                   generator=gen).to(cfg.dtype) for _ in range(4))
+        vec = torch.randn(cfg.num_heads, 2 * s_len - 1, device="cuda", generator=gen)
+        o, lse = flash_ops._flash_fwd_bias_cuda(q, k, v, causal, 1.0, "pfa_flash_fwd_relbias",
+                                                vec=vec, save_lse=True)
+        share_ms += 24 * median_ms(lambda: flash_ops.flash_attention_bwd_masked_plain(
+            q, k, v, o, lse, do, sm_scale=1.0, causal=causal, rel_vec=vec), runs=5)
+    median = statistics.median(step_ms)
+    tokens = T5_TRAIN_BATCH * (T5_TRAIN_ENC + T5_TRAIN_DEC)
+    line = (f"T5 training path: T5-large full depth, bf16 compute, B{T5_TRAIN_BATCH} encoder "
+            f"{T5_TRAIN_ENC} decoder {T5_TRAIN_DEC}, {T5_TRAIN_STEPS} AdamW steps (init and warm-up "
+            f"{init_s:.1f} s): step ms {[round(t, 3) for t in step_ms]} (median {median:.3f}, "
+            f"{tokens / median * 1e3:.1f} tokens/s), peak memory {peak:.2f} GiB ({smi}); plain "
+            f"relative-bias backward ~{share_ms:.3f} ms a step ({100 * share_ms / median:.1f}% of "
+            f"it); losses {[round(x, 4) for x in losses]}; launches {launches}")
+    bad = {n: launches.get(n, 0) for n, want in need.items() if launches.get(n, 0) != want}
+    if bad or launches.get("pfa_flash_fwd_relbias", 0) or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"{line}: expected launches {need}, got {bad}")
+    print(line, flush=True)
+    del trainer, state, model, opt
+    torch.cuda.empty_cache()
+    check_t5_train_grads(cfg)
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1711,6 +2204,7 @@ def main() -> None:
     launches.update(phase_engine(smi))
     launches.update(phase_training(smi, args.profile))
     launches.update(phase_t5(smi, args.profile))
+    launches.update(phase_t5_training(smi))
     def entry(name: str) -> dict:
         r = results[name]
         return {

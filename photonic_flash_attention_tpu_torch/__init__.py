@@ -29,10 +29,28 @@ six hand-written CUDA kernels for sm_90a (``csrc/``):
   with per-128-row-block Q/K scales and P requantized per block.
 
 Each kernel's wrapper runs its plain PyTorch version for CPU tensors and
-launches the kernel (or raises) for CUDA tensors.
+launches the kernel (or raises) for CUDA tensors. Training takes attention
+dropout (``attn_pdrop``, ``Trainer(dropout_rng=...)``) and T5 takes
+gradients through K1's relative-bias mode; K1, K4 and K5 carry the
+sliding-window and dropout streams.
+
+The package exports the JAX package's top-level names (the config
+functions, the flash functions, the two drop-in layers) except
+``convert_to_photonic`` (ROADMAP A10), and ``models`` those of its models
+that are ported.
 """
 
+from .config import GlobalConfig, get_config, reset_config, set_global_config
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "GlobalConfig",
+    "get_config",
+    "reset_config",
+    "set_global_config",
+    "__version__",
+]
 
 
 def __getattr__(name):
@@ -50,4 +68,8 @@ def __getattr__(name):
         from . import ops
 
         return getattr(ops, name)
+    if name in ("PhotonicFlashAttention", "PhotonicMultiHeadAttention"):
+        from . import models
+
+        return getattr(models, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

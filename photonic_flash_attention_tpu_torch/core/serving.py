@@ -370,8 +370,10 @@ class ServingEngine:
 
     def _prefill_encdec(self, seq: _Sequence) -> None:
         """T5 prefill: encoder forward, cross-KV pin into the slot, decoder
-        start token (``models/t5_serving.py::t5_prefill_step``)."""
-        s_pad = self._bucket(seq.prompt_len)
+        start token (``models/t5_serving.py::t5_prefill_step``). The prompt
+        is padded to its bucket but never past ``enc_max_len`` (the JAX
+        engine pads past it and the prefill then refuses the request)."""
+        s_pad = min(self._bucket(seq.prompt_len), self.enc_max_len)
         ids = np.zeros((1, s_pad), np.int64)
         ids[0, : seq.prompt_len] = seq.tokens[: seq.prompt_len]
         tables = np.zeros((1, self.max_pages_per_seq), np.int32)

@@ -17,6 +17,78 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
+// --- window and dropout streams of K1, K4 and K5 ---------------------------
+//
+// Window: a key is valid when lo <= rel <= hi, rel = col - (row + Skv - Sq)
+// (the row aligned to the sequence end, as the causal mask); an open side
+// is passed as -/+ WINDOW_OPEN (ops/flash_bwd.py::kernel_window), which no
+// rel reaches. Dropout: the TPU kernels' positional hash
+// (photonic_flash_attention_tpu/ops/pallas_utils.py::dropout_keep, ported
+// in ops/dropout.py) over the UNALIGNED global query row, the key column,
+// the stride Skv and bh = b * Hq + h over the query heads; a score is kept
+// where the hash is >= thresh (thresh 0 keeps all).
+
+constexpr int WINDOW_OPEN = 1 << 30;
+
+struct Streams {
+  int lo, hi;         // window bounds on rel (WINDOW_OPEN when open)
+  uint32_t seed;      // dropout seed
+  uint32_t thresh;    // keep threshold; 0 = no dropout
+  float inv_keep;     // 1 / (1 - rate)
+
+  __device__ __forceinline__ bool in_window(int rel) const { return rel >= lo && rel <= hi; }
+};
+
+__device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t bh, int row, int col,
+                                             uint32_t kv_stride, uint32_t thresh) {
+  uint32_t x = (static_cast<uint32_t>(row) * kv_stride + static_cast<uint32_t>(col)) ^ seed;
+  x ^= bh * 0x9E3779B1u;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= thresh;
+}
+
+// The P.V multiplier of score (row, col): 1 / (1 - rate) where kept, 0
+// where dropped.
+__device__ __forceinline__ float dropout_mult(const Streams& st, uint32_t bh, int row, int col,
+                                              int Skv) {
+  return dropout_keep(st.seed, bh, row, col, static_cast<uint32_t>(Skv), st.thresh) ? st.inv_keep
+                                                                                    : 0.f;
+}
+
+// The first multiple of `tile` at or below the first key a query block
+// [q0, q0 + rows) can see under the window (its lo side), clipped at 0.
+__device__ __forceinline__ int band_kv_begin(const Streams& st, int q0, int off, int tile) {
+  const long long first = (long long)q0 + off + st.lo;
+  return first <= 0 ? 0 : static_cast<int>(first / tile * tile);
+}
+
+// One past the last key the query block [q0, q0 + rows) can see: the
+// window's hi side, or the causal diagonal if it is lower; at most `end`.
+__device__ __forceinline__ int band_kv_end(const Streams& st, int q0, int rows, int off,
+                                           bool causal, int end) {
+  const int hi = causal && st.hi > 0 ? 0 : st.hi;
+  const long long stop = (long long)q0 + rows + off + hi;  // last + 1
+  return stop <= 0 ? 0 : stop >= end ? end : static_cast<int>(stop);
+}
+
+// The transposed ranges (K4): the query rows a key block [kv0, kv0 + rows)
+// is seen from, [first, last + 1), the first floored to a multiple of
+// `tile` and both clipped to [0, Sq].
+__device__ __forceinline__ int band_q_begin(const Streams& st, int kv0, int off, bool causal,
+                                            int tile) {
+  const int hi = causal && st.hi > 0 ? 0 : st.hi;
+  const long long first = (long long)kv0 - off - hi;
+  return first <= 0 ? 0 : static_cast<int>(first / tile * tile);
+}
+
+__device__ __forceinline__ int band_q_end(const Streams& st, int kv0, int rows, int off, int Sq) {
+  const long long stop = (long long)kv0 + rows - off - st.lo;  // last + 1
+  return stop <= 0 ? 0 : stop >= Sq ? Sq : static_cast<int>(stop);
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

@@ -40,17 +40,32 @@
 // fp32 in fp32 (FMA loops, no bf16 or TF32 rounding). wgmma, TMA and warp
 // specialisation are later work.
 //
+// Window and dropout streams (the grid pair's `window` and `seed_ref`,
+// flash_bwd.py:59-164, 187, 267; common.cuh): a key is valid when
+// lo <= col - (row + Skv - Sq) <= hi, and each block walks only the tiles
+// of its band: K5 the KV tiles of its query block (K1's range), K4, in the
+// transposed domain, the query tiles from which its KV block is seen. With
+// dropout the keep mask is regenerated from (b * H + h, row, col, seed) at
+// the global coordinates a lane holds; in K4's transposed tiles the hash's
+// row is the tile's COLUMN (the query) and its column the tile's row (the
+// key), as the TPU's _dropout_mscale_t. The multiplier M = keep / (1 -
+// rate) scales dV's P and dP (JAX _p_and_ds): dV += (P M)^T dO,
+// dS = P (dP M - di) scale; di = rowsum(o dO) over the dropped output.
+//
 // Not carried over from the TPU: the skip-aware prefetch index maps (a
-// block's loop simply starts or ends at the causal diagonal), the
-// lse-padded-with-0 trick for padded q rows (masked here), the VMEM
-// envelope of the unrolled pair, and the dropout / window streams (later
-// slice: ROADMAP B10).
+// block's loop simply starts and ends at its band), the lse-padded-with-0
+// trick for padded q rows (masked here) and the VMEM envelope of the
+// unrolled pair.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int BR = 64;            // rows a block owns: kv rows (K4), q rows (K5)
+
+// Stream modes, each its own instantiation so the plain path carries none
+// of the others' work: the window predicate and band, or the dropout mask.
+enum StreamMode { PLAIN = 0, WINDOW = 1, DROPOUT = 2 };
 constexpr int BF16_THREADS = 128; // 4 warps x 16 rows
 constexpr int F32_THREADS = 256;  // 4 threads per row
 
@@ -71,13 +86,13 @@ constexpr int smem_bf16() {
 
 // bf16: each warp owns 16 kv rows of the block; a lane holds kv rows g, g+8
 // and q columns 2*t4, 2*t4+1 of every 8-wide tile of s_t.
-template <int D>
+template <int D, int SM>
 __global__ void __launch_bounds__(BF16_THREADS)
 bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ di,
              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
-             int Skv, int H, float scale, float scale_log2, int causal) {
+             int Skv, int H, float scale, float scale_log2, int causal, Streams st) {
   constexpr int W = Inner<D>::W;  // q columns per tile
   constexpr int LD = D + 8;       // padded shared row: conflict-free fragments
   constexpr int NT = W / 8;       // 8-wide s_t tiles across q
@@ -111,10 +126,12 @@ bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     for (int e = 0; e < 4; ++e) dka[dn][e] = dva[dn][e] = 0.f;
   const int off = Skv - Sq;
   const int rows[2] = {kv0 + wr + g, kv0 + wr + g + 8};
-  // The first q tile that sees this kv tile under the causal mask.
-  const int q_begin = causal ? max(0, kv0 - off) / W * W : 0;
+  const uint32_t bh = static_cast<uint32_t>(b * H + h);
+  // The q tiles that see this kv tile under the causal mask and the window.
+  const int q_begin = band_q_begin(st, kv0, off, causal, W);
+  const int q_end = band_q_end(st, kv0, BR, off, Sq);
 
-  for (int q0 = q_begin; q0 < Sq; q0 += W) {
+  for (int q0 = q_begin; q0 < q_end; q0 += W) {
     __syncthreads();  // the previous q tile is consumed
     load_tile_bf16<D, LD, BF16_THREADS>(Qs, qb + q0 * str, str, W, Sq - q0);
     load_tile_bf16<D, LD, BF16_THREADS>(Os, ob + q0 * str, str, W, Sq - q0);
@@ -149,10 +166,13 @@ bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
       for (int e = 0; e < 4; ++e) {
         const int qc = n * 8 + t4 * 2 + (e & 1);
         const int kr = rows[e >> 1];
-        const bool ok = q0 + qc < Sq && kr < Skv && (!causal || kr <= q0 + qc + off);
+        const bool ok = q0 + qc < Sq && kr < Skv && (!causal || kr <= q0 + qc + off) &&
+                        (SM != WINDOW || st.in_window(kr - (q0 + qc) - off));
         const float p = ok ? exp2f(s[n][e] * scale_log2 - Ls[qc]) : 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - Dis[qc]) * scale;
+        // Transposed: the hash's row is this tile's column (the query).
+        const float mult = SM == DROPOUT ? dropout_mult(st, bh, q0 + qc, kr, Skv) : 1.f;
+        s[n][e] = p * mult;
+        dp[n][e] = p * (dp[n][e] * mult - Dis[qc]) * scale;
       }
     }
     // dV += P_t dO, dK += dS_t Q: contraction over the tile's q columns.
@@ -192,13 +212,13 @@ bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 
 // fp32: 4 threads per kv row (thread quarter qd owns q columns qd + 4j of a
 // tile and output columns qd + 4j); plain FMA.
-template <int D>
+template <int D, int SM>
 __global__ void __launch_bounds__(F32_THREADS)
 bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ di,
             float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int H,
-            float scale, float scale_log2, int causal) {
+            float scale, float scale_log2, int causal, Streams st) {
   constexpr int LDK = D + 1;  // padded rows: conflict-free column reads
   constexpr int LDP = BR + 1;
   constexpr int NJ = BR / 4;  // q columns per thread per tile
@@ -228,9 +248,11 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < DJ; ++j) dka[j] = dva[j] = 0.f;
   const int off = Skv - Sq, krow = kv0 + r;
-  const int q_begin = causal ? max(0, kv0 - off) / BR * BR : 0;
+  const uint32_t bh = static_cast<uint32_t>(b * H + h);
+  const int q_begin = band_q_begin(st, kv0, off, causal, BR);
+  const int q_end = band_q_end(st, kv0, BR, off, Sq);
 
-  for (int q0 = q_begin; q0 < Sq; q0 += BR) {
+  for (int q0 = q_begin; q0 < q_end; q0 += BR) {
     __syncthreads();
     load_tile_f32<D, LDK, F32_THREADS>(Qs, qb + q0 * str, str, BR, Sq - q0);
     load_tile_f32<D, LDK, F32_THREADS>(Os, ob + q0 * str, str, BR, Sq - q0);
@@ -255,10 +277,12 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int qc = qd + 4 * j;
-      const bool ok = q0 + qc < Sq && krow < Skv && (!causal || krow <= q0 + qc + off);
+      const bool ok = q0 + qc < Sq && krow < Skv && (!causal || krow <= q0 + qc + off) &&
+                      (SM != WINDOW || st.in_window(krow - (q0 + qc) - off));
       const float p = ok ? exp2f(s[j] * scale_log2 - Ls[qc]) : 0.f;
-      Ps[r * LDP + qc] = p;
-      Ss[r * LDP + qc] = p * (dp[j] - Dis[qc]) * scale;
+      const float mult = SM == DROPOUT ? dropout_mult(st, bh, q0 + qc, krow, Skv) : 1.f;  // transposed
+      Ps[r * LDP + qc] = p * mult;
+      Ss[r * LDP + qc] = p * (dp[j] * mult - Dis[qc]) * scale;
     }
     __syncwarp();  // a row's 4 threads share one warp
     for (int c = 0; c < BR; ++c) {
@@ -284,13 +308,13 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // bf16: each warp owns 16 q rows; a lane holds q rows g, g+8 and kv columns
 // 2*t4, 2*t4+1 of every 8-wide score tile (K1's layout).
-template <int D>
+template <int D, int SM>
 __global__ void __launch_bounds__(BF16_THREADS)
 bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
             const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ di,
             __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, float scale,
-            float scale_log2, int causal) {
+            float scale_log2, int causal, Streams st) {
   constexpr int W = Inner<D>::W;  // kv columns per tile
   constexpr int LD = D + 8;
   constexpr int NT = W / 8;
@@ -332,9 +356,11 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
 #pragma unroll
   for (int dn = 0; dn < DT; ++dn) dqa[dn][0] = dqa[dn][1] = dqa[dn][2] = dqa[dn][3] = 0.f;
   const int off = Skv - Sq;
-  const int kv_end = causal ? min(Skv, q0 + BR + off) : Skv;
+  const uint32_t bh = static_cast<uint32_t>(b * H + h);
+  const int kv_begin = SM == WINDOW ? band_kv_begin(st, q0, off, W) : 0;
+  const int kv_end = band_kv_end(st, q0, BR, off, causal, Skv);
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += W) {
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += W) {
     __syncthreads();
     load_tile_bf16<D, LD, BF16_THREADS>(Ks, kb + kv0 * str, str, W, Skv - kv0);
     load_tile_bf16<D, LD, BF16_THREADS>(Vs, vb + kv0 * str, str, W, Skv - kv0);
@@ -359,9 +385,11 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
       for (int e = 0; e < 4; ++e) {
         const int col = kv0 + n * 8 + t4 * 2 + (e & 1);
         const int row = rows[e >> 1];
-        const bool ok = row < Sq && col < Skv && (!causal || col <= row + off);
+        const bool ok = row < Sq && col < Skv && (!causal || col <= row + off) &&
+                        (SM != WINDOW || st.in_window(col - row - off));
         const float p = ok ? exp2f(s[n][e] * scale_log2 - lrow[e >> 1]) : 0.f;
-        s[n][e] = p * (dp[n][e] - drow[e >> 1]) * scale;  // dS
+        const float mult = SM == DROPOUT ? dropout_mult(st, bh, row, col, Skv) : 1.f;
+        s[n][e] = p * (dp[n][e] * mult - drow[e >> 1]) * scale;  // dS
       }
     }
     // dQ += dS K: contraction over the tile's kv rows.
@@ -391,13 +419,13 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
 
 // fp32: 4 threads per q row (quarter qd owns kv columns qd + 4j of a tile
 // and output columns qd + 4j); plain FMA.
-template <int D>
+template <int D, int SM>
 __global__ void __launch_bounds__(F32_THREADS)
 bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ di,
            float* __restrict__ dq, int Sq, int Skv, int H, float scale,
-           float scale_log2, int causal) {
+           float scale_log2, int causal, Streams st) {
   constexpr int LDK = D + 1;
   constexpr int LDP = BR + 1;
   constexpr int NJ = BR / 4;
@@ -424,9 +452,11 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   float dqa[DJ];
 #pragma unroll
   for (int j = 0; j < DJ; ++j) dqa[j] = 0.f;
-  const int kv_end = causal ? min(Skv, q0 + BR + off) : Skv;
+  const uint32_t bh = static_cast<uint32_t>(b * H + h);
+  const int kv_begin = SM == WINDOW ? band_kv_begin(st, q0, off, BR) : 0;
+  const int kv_end = band_kv_end(st, q0, BR, off, causal, Skv);
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BR) {
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BR) {
     __syncthreads();
     load_tile_f32<D, LDK, F32_THREADS>(Ks, kb + kv0 * str, str, BR, Skv - kv0);
     load_tile_f32<D, LDK, F32_THREADS>(Vs, vb + kv0 * str, str, BR, Skv - kv0);
@@ -446,9 +476,11 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = kv0 + qd + 4 * j;
-      const bool ok = row < Sq && col < Skv && (!causal || col <= row + off);
+      const bool ok = row < Sq && col < Skv && (!causal || col <= row + off) &&
+                      (SM != WINDOW || st.in_window(col - row - off));
       const float p = ok ? exp2f(s[j] * scale_log2 - lrow) : 0.f;
-      Ss[r * LDP + qd + 4 * j] = p * (dp[j] - drow) * scale;
+      const float mult = SM == DROPOUT ? dropout_mult(st, bh, row, col, Skv) : 1.f;
+      Ss[r * LDP + qd + 4 * j] = p * (dp[j] * mult - drow) * scale;
     }
     __syncwarp();
     for (int c = 0; c < BR; ++c) {
@@ -472,6 +504,7 @@ struct BwdArgs {
   int Sq, Skv, H;
   float scale, scale_log2;
   int causal;
+  Streams streams;
   cudaStream_t st;
 };
 
@@ -480,55 +513,80 @@ cudaError_t prepare(Kern kern, int smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int D>
+template <int D, int SM>
 cudaError_t dkv_bf16(const BwdArgs& a, void* dk, void* dv, dim3 grid) {
   constexpr int smem = smem_bf16<D>();
-  cudaError_t e = prepare(bwd_dkv_bf16<D>, smem);
+  cudaError_t e = prepare(bwd_dkv_bf16<D, SM>, smem);
   if (e != cudaSuccess) return e;
-  bwd_dkv_bf16<D><<<grid, BF16_THREADS, smem, a.st>>>(
+  bwd_dkv_bf16<D, SM><<<grid, BF16_THREADS, smem, a.st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
       a.lse, a.di, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      a.Sq, a.Skv, a.H, a.scale, a.scale_log2, a.causal);
+      a.Sq, a.Skv, a.H, a.scale, a.scale_log2, a.causal, a.streams);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int SM>
 cudaError_t dkv_f32(const BwdArgs& a, void* dk, void* dv, dim3 grid) {
   constexpr int smem = (4 * BR * (D + 1) + 2 * BR * (BR + 1) + 2 * BR) * sizeof(float);
-  cudaError_t e = prepare(bwd_dkv_f32<D>, smem);
+  cudaError_t e = prepare(bwd_dkv_f32<D, SM>, smem);
   if (e != cudaSuccess) return e;
-  bwd_dkv_f32<D><<<grid, F32_THREADS, smem, a.st>>>(
+  bwd_dkv_f32<D, SM><<<grid, F32_THREADS, smem, a.st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.di,
       static_cast<float*>(dk), static_cast<float*>(dv), a.Sq, a.Skv, a.H, a.scale,
-      a.scale_log2, a.causal);
+      a.scale_log2, a.causal, a.streams);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int SM>
 cudaError_t dq_bf16(const BwdArgs& a, void* dq, dim3 grid) {
   constexpr int smem = (2 * BR + 2 * Inner<D>::W) * (D + 8) * 2;
-  cudaError_t e = prepare(bwd_dq_bf16<D>, smem);
+  cudaError_t e = prepare(bwd_dq_bf16<D, SM>, smem);
   if (e != cudaSuccess) return e;
-  bwd_dq_bf16<D><<<grid, BF16_THREADS, smem, a.st>>>(
+  bwd_dq_bf16<D, SM><<<grid, BF16_THREADS, smem, a.st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
       a.lse, a.di, static_cast<__nv_bfloat16*>(dq), a.Sq, a.Skv, a.H, a.scale,
-      a.scale_log2, a.causal);
+      a.scale_log2, a.causal, a.streams);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int SM>
 cudaError_t dq_f32(const BwdArgs& a, void* dq, dim3 grid) {
   constexpr int smem = (4 * BR * (D + 1) + BR * (BR + 1)) * sizeof(float);
-  cudaError_t e = prepare(bwd_dq_f32<D>, smem);
+  cudaError_t e = prepare(bwd_dq_f32<D, SM>, smem);
   if (e != cudaSuccess) return e;
-  bwd_dq_f32<D><<<grid, F32_THREADS, smem, a.st>>>(
+  bwd_dq_f32<D, SM><<<grid, F32_THREADS, smem, a.st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.di,
-      static_cast<float*>(dq), a.Sq, a.Skv, a.H, a.scale, a.scale_log2, a.causal);
+      static_cast<float*>(dq), a.Sq, a.Skv, a.H, a.scale, a.scale_log2, a.causal, a.streams);
   return cudaGetLastError();
+}
+
+template <int SM>
+cudaError_t run_dkv(const BwdArgs& a, void* dk, void* dv, dim3 grid, int D, int dtype) {
+  if (dtype == PFA_BF16 && D == 64) return dkv_bf16<64, SM>(a, dk, dv, grid);
+  if (dtype == PFA_BF16 && D == 128) return dkv_bf16<128, SM>(a, dk, dv, grid);
+  if (dtype == PFA_F32 && D == 64) return dkv_f32<64, SM>(a, dk, dv, grid);
+  if (dtype == PFA_F32 && D == 128) return dkv_f32<128, SM>(a, dk, dv, grid);
+  return cudaErrorInvalidValue;
+}
+
+template <int SM>
+cudaError_t run_dq(const BwdArgs& a, void* dq, dim3 grid, int D, int dtype) {
+  if (dtype == PFA_BF16 && D == 64) return dq_bf16<64, SM>(a, dq, grid);
+  if (dtype == PFA_BF16 && D == 128) return dq_bf16<128, SM>(a, dq, grid);
+  if (dtype == PFA_F32 && D == 64) return dq_f32<64, SM>(a, dq, grid);
+  if (dtype == PFA_F32 && D == 128) return dq_f32<128, SM>(a, dq, grid);
+  return cudaErrorInvalidValue;
+}
+
+// The stream mode of the forward's window and dropout; -1 when both are
+// given (JAX's rules forbid it).
+int stream_mode(const Streams& st) {
+  const bool window = st.lo > -WINDOW_OPEN || st.hi < WINDOW_OPEN, drop = st.thresh != 0u;
+  return window && drop ? -1 : drop ? DROPOUT : window ? WINDOW : PLAIN;
 }
 
 bool bad_shape(int B, int Sq, int Skv, int H, int causal) {
@@ -537,34 +595,44 @@ bool bad_shape(int B, int Sq, int Skv, int H, int causal) {
 
 }  // namespace
 
+// win_lo, win_hi, seed, thresh, inv_keep: the forward's window and
+// dropout (common.cuh::Streams; thresh 0 = no dropout).
 extern "C" int pfa_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* di,
                                  void* dk, void* dv, int B, int Sq, int Skv, int H, int D,
-                                 float sm_scale, int causal, int dtype, void* stream) {
+                                 float sm_scale, int causal, int win_lo, int win_hi,
+                                 unsigned seed, unsigned thresh, float inv_keep, int dtype,
+                                 void* stream) {
   if (bad_shape(B, Sq, Skv, H, causal)) return cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
                   static_cast<const float*>(di), Sq, Skv, H, sm_scale,
-                  sm_scale * LOG2E, causal, static_cast<cudaStream_t>(stream)};
+                  sm_scale * LOG2E, causal, Streams{win_lo, win_hi, seed, thresh, inv_keep},
+                  static_cast<cudaStream_t>(stream)};
   const dim3 grid((Skv + BR - 1) / BR, H, B);
-  if (dtype == PFA_BF16 && D == 64) return dkv_bf16<64>(a, dk, dv, grid);
-  if (dtype == PFA_BF16 && D == 128) return dkv_bf16<128>(a, dk, dv, grid);
-  if (dtype == PFA_F32 && D == 64) return dkv_f32<64>(a, dk, dv, grid);
-  if (dtype == PFA_F32 && D == 128) return dkv_f32<128>(a, dk, dv, grid);
-  return cudaErrorInvalidValue;
+  switch (stream_mode(a.streams)) {
+    case PLAIN: return run_dkv<PLAIN>(a, dk, dv, grid, D, dtype);
+    case WINDOW: return run_dkv<WINDOW>(a, dk, dv, grid, D, dtype);
+    case DROPOUT: return run_dkv<DROPOUT>(a, dk, dv, grid, D, dtype);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int pfa_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* di,
                                 void* dq, int B, int Sq, int Skv, int H, int D,
-                                float sm_scale, int causal, int dtype, void* stream) {
+                                float sm_scale, int causal, int win_lo, int win_hi,
+                                unsigned seed, unsigned thresh, float inv_keep, int dtype,
+                                void* stream) {
   if (bad_shape(B, Sq, Skv, H, causal)) return cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
                   static_cast<const float*>(di), Sq, Skv, H, sm_scale,
-                  sm_scale * LOG2E, causal, static_cast<cudaStream_t>(stream)};
+                  sm_scale * LOG2E, causal, Streams{win_lo, win_hi, seed, thresh, inv_keep},
+                  static_cast<cudaStream_t>(stream)};
   const dim3 grid((Sq + BR - 1) / BR, H, B);
-  if (dtype == PFA_BF16 && D == 64) return dq_bf16<64>(a, dq, grid);
-  if (dtype == PFA_BF16 && D == 128) return dq_bf16<128>(a, dq, grid);
-  if (dtype == PFA_F32 && D == 64) return dq_f32<64>(a, dq, grid);
-  if (dtype == PFA_F32 && D == 128) return dq_f32<128>(a, dq, grid);
-  return cudaErrorInvalidValue;
+  switch (stream_mode(a.streams)) {
+    case PLAIN: return run_dq<PLAIN>(a, dq, grid, D, dtype);
+    case WINDOW: return run_dq<WINDOW>(a, dq, grid, D, dtype);
+    case DROPOUT: return run_dq<DROPOUT>(a, dq, grid, D, dtype);
+    default: return cudaErrorInvalidValue;
+  }
 }

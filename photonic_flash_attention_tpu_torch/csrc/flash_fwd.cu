@@ -29,6 +29,25 @@
 // (past lens or Skv, above the causal diagonal) stay -inf and drop out; a
 // row with lens[b] == 0 gets o = 0 and lse = -inf.
 //
+// Window and dropout streams (the TPU kernel's `window` and `seed_ref`,
+// ops/flash.py:139-154, 309-327, 372-391; callers ops/flash.py::
+// flash_attention(window=..., dropout_rate=..., dropout_seed=...)), in the
+// plain path's log2 units:
+// * window (lo, hi): a key is valid when lo <= col - (row + Skv - Sq) <= hi
+//   (open sides at -/+ WINDOW_OPEN, common.cuh). Each 64-row query block
+//   walks only the K/V tiles that can hold a valid key: the loop starts at
+//   the tile of the block's first row's lowest key (row + off + lo) and
+//   ends after its last row's highest (min(hi, 0) when causal), so the cost
+//   scales with S * w as the TPU's banded grid (ops/flash.py:478-491). A row
+//   with no key in its window gets o = 0 and lse = -inf (keys out of the
+//   window are -inf, not the TPU kernel's finite mask value).
+// * dropout: the keep mask is regenerated per score from (b * Hq + h, row,
+//   col, seed) (common.cuh::dropout_keep, the TPU kernel's hash) at the
+//   exact global coordinates a lane holds; it multiplies p by 1 / (1 - rate)
+//   after the running sum l took the undropped p and before p becomes the
+//   P.V operand (rounded to bf16 there), so l and lse keep the full sum.
+//   The seed is a kernel argument; nothing is read from the device for it.
+//
 // Structured-bias modes (pfa_flash_fwd_bias; the TPU kernel's tab_ref and
 // qkbias_ref streams, ops/flash.py:76, 82, 213-284; callers
 // ops/flash.py::flash_attention(rel_bias=..., attn_bias=...)), in natural
@@ -40,7 +59,9 @@
 //   can see in shared memory. The wrapper builds the vector from one set
 //   of buckets (ops/rel_bias.py), so kernel and plain version share them,
 //   and no log runs here. Not carried over: the TPU's far/band split (two
-//   kernels merged by logsumexp), a Mosaic scheduling choice.
+//   kernels merged by logsumexp), a Mosaic scheduling choice. With `lse`
+//   not null it writes the row logsumexp, the residual of the relative-bias
+//   backward (ops/flash.py::_FlashAttentionRelFn).
 // * dense bias: `qkbias` (B, Hb, Sq, Skv) fp32, Hb 1 (broadcast over heads)
 //   or Hq; each visited score reads its own entry from device memory (the
 //   (BQ, BKV) tile of the step), after the scale and before the causal
@@ -106,30 +127,37 @@ constexpr int BKV = 64;           // keys per K/V tile
 constexpr int BF16_THREADS = 128; // 4 warps x 16 query rows
 constexpr int F32_THREADS = 256;  // 4 threads per query row
 
-// K1's score modes: PLAIN runs in log2 units (scale folded with log2 e);
-// the others in natural units with a bias: STREAMS the key streams (lens,
-// kbias), REL the relative-bias vector, DENSE the dense bias.
-enum Mode { PLAIN = 0, STREAMS = 1, REL = 2, DENSE = 3 };
+// K1's score modes: PLAIN, WINDOW (the sliding-window predicate and the
+// banded key loop) and DROPOUT (the keep mask on P.V) run in log2 units
+// (scale folded with log2 e); the others in natural units with a bias:
+// STREAMS the key streams (lens, kbias), REL the relative-bias vector,
+// DENSE the dense bias. Each mode is its own instantiation, so the plain
+// path carries none of the others' work.
+enum Mode { PLAIN = 0, STREAMS = 1, REL = 2, DENSE = 3, WINDOW = 4, DROPOUT = 5 };
+
+__host__ __device__ constexpr bool natural_units(int mode) {
+  return mode == STREAMS || mode == REL || mode == DENSE;
+}
 
 // Masked, scaled score of one key: with a bias, added and clamped at
 // MASK_VALUE.
 template <int MODE>
 __device__ __forceinline__ float stream_score(float s, bool ok, float scale, float bias) {
   if (!ok) return -INFINITY;
-  return MODE != PLAIN ? fmaxf(s * scale + bias, MASK_VALUE) : s * scale;
+  return natural_units(MODE) ? fmaxf(s * scale + bias, MASK_VALUE) : s * scale;
 }
 
 // exp of (x - base) for a score and a running max in the kernel's units.
 template <int MODE>
 __device__ __forceinline__ float stream_exp(float x, float base) {
-  return MODE != PLAIN ? exp2f((x - base) * LOG2E) : exp2f(x - base);
+  return natural_units(MODE) ? exp2f((x - base) * LOG2E) : exp2f(x - base);
 }
 
 // Final lse in natural log from the running max and sum.
 template <int MODE>
 __device__ __forceinline__ float stream_lse(float m, float l) {
   if (!(l > 0.f)) return -INFINITY;
-  return MODE != PLAIN ? m + logf(l) : (m + log2f(l)) * LN2;
+  return natural_units(MODE) ? m + logf(l) : (m + log2f(l)) * LN2;
 }
 
 // Per-block bias staging, before a tile's scores: STREAMS stages the
@@ -171,7 +199,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                const int* __restrict__ lens, const float* __restrict__ kbias,
                const float* __restrict__ relvec, const float* __restrict__ qkbias, int Hb,
-               int Sq, int Skv, int Hq, int Hkv, float sm_scale, int causal) {
+               int Sq, int Skv, int Hq, int Hkv, float sm_scale, int causal, Streams st) {
   constexpr int LD = D + 8;   // padded shared row: conflict-free fragment loads
   constexpr int NT = BKV / 8; // 8-wide score tiles per K/V tile
   constexpr int DT = D / 8;   // 8-wide output tiles
@@ -211,15 +239,17 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   float l[2] = {0.f, 0.f};              // this lane's share of the running sum
   const int off = Skv - Sq;
   const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const float scale = MODE != PLAIN ? sm_scale : sm_scale * LOG2E;
+  const float scale = natural_units(MODE) ? sm_scale : sm_scale * LOG2E;
   const int len = MODE == STREAMS && lens != nullptr ? max(0, min(lens[b], Skv)) : Skv;
-  const int kv_end = min(len, causal ? q0 + BQ + off : Skv);
+  const uint32_t bh = static_cast<uint32_t>(b * Hq + h);
+  const int kv_begin = MODE == WINDOW ? band_kv_begin(st, q0, off, BKV) : 0;
+  const int kv_end = band_kv_end(st, q0, BQ, off, causal, len);
   const float* bias_row = MODE == STREAMS && kbias != nullptr ? kbias + (long long)b * Skv : nullptr;
   const float* rel_row = MODE == REL ? relvec + (long long)h * (Sq + Skv - 1) : nullptr;
   const float* dense = MODE == DENSE ? qkbias + ((long long)b * Hb + (Hb == 1 ? 0 : h)) * Sq * Skv
                                      : nullptr;
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();  // the previous tile is consumed
     load_tile_bf16<D, LD, BF16_THREADS>(Ks, kb + kv0 * kvstr, kvstr, BKV, Skv - kv0);
     load_tile_bf16<D, LD, BF16_THREADS>(Vs, vb + kv0 * kvstr, kvstr, BKV, Skv - kv0);
@@ -244,7 +274,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + t4 * 2 + (e & 1), col = kv0 + c, row = rows[e >> 1];
-        const bool ok = col < len && (!causal || col <= row + off);
+        const bool ok = col < len && (!causal || col <= row + off) &&
+                        (MODE != WINDOW || st.in_window(col - row - off));
         const float bias = score_bias<MODE>(Bs, dense, row, col, c, q0, Sq, Skv, ok);
         s[n][e] = stream_score<MODE>(s[n][e], ok, scale, bias);
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
@@ -268,6 +299,13 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
         s[n][e] = stream_exp<MODE>(s[n][e], base[e >> 1]);
         l[e >> 1] += s[n][e];
       }
+    }
+    if (MODE == DROPOUT) {  // l has the undropped p; P.V takes p * keep / (1 - rate)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] *= dropout_mult(st, bh, rows[e >> 1], kv0 + n * 8 + t4 * 2 + (e & 1), Skv);
     }
 #pragma unroll
     for (int dn = 0; dn < DT; ++dn) {
@@ -317,7 +355,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               float* __restrict__ lse, const int* __restrict__ lens,
               const float* __restrict__ kbias, const float* __restrict__ relvec,
               const float* __restrict__ qkbias, int Hb, int Sq, int Skv, int Hq, int Hkv,
-              float sm_scale, int causal) {
+              float sm_scale, int causal, Streams st) {
   constexpr int LDK = D + 1;    // padded rows: conflict-free column reads
   constexpr int LDP = BKV + 1;
   constexpr int NJ = BKV / 4;   // scores per thread per tile
@@ -346,15 +384,17 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < DJ; ++j) acc[j] = 0.f;
   float m = -INFINITY, l = 0.f;
   const int off = Skv - Sq, row = q0 + r;
-  const float scale = MODE != PLAIN ? sm_scale : sm_scale * LOG2E;
+  const float scale = natural_units(MODE) ? sm_scale : sm_scale * LOG2E;
   const int len = MODE == STREAMS && lens != nullptr ? max(0, min(lens[b], Skv)) : Skv;
-  const int kv_end = min(len, causal ? q0 + BQ + off : Skv);
+  const uint32_t bh = static_cast<uint32_t>(b * Hq + h);
+  const int kv_begin = MODE == WINDOW ? band_kv_begin(st, q0, off, BKV) : 0;
+  const int kv_end = band_kv_end(st, q0, BQ, off, causal, len);
   const float* bias_row = MODE == STREAMS && kbias != nullptr ? kbias + (long long)b * Skv : nullptr;
   const float* rel_row = MODE == REL ? relvec + (long long)h * (Sq + Skv - 1) : nullptr;
   const float* dense = MODE == DENSE ? qkbias + ((long long)b * Hb + (Hb == 1 ? 0 : h)) * Sq * Skv
                                      : nullptr;
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();
     for (int i = threadIdx.x; i < BKV * D; i += F32_THREADS) {
       const int rr = i / D, c = i % D;
@@ -377,7 +417,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = kv0 + qd + 4 * j;
-      const bool ok = col < len && (!causal || col <= row + off);
+      const bool ok = col < len && (!causal || col <= row + off) &&
+                      (MODE != WINDOW || st.in_window(col - row - off));
       const float bias = score_bias<MODE>(Bs, dense, row, col, qd + 4 * j, q0, Sq, Skv, ok);
       s[j] = stream_score<MODE>(s[j], ok, scale, bias);
       mx = fmaxf(mx, s[j]);
@@ -392,8 +433,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const float p = stream_exp<MODE>(s[j], base);
-      l += p;
-      Ps[r * LDP + qd + 4 * j] = p;
+      l += p;  // the undropped p; P.V takes p * keep / (1 - rate)
+      Ps[r * LDP + qd + 4 * j] =
+          MODE == DROPOUT ? p * dropout_mult(st, bh, row, kv0 + qd + 4 * j, Skv) : p;
     }
     __syncwarp();  // a row's 4 threads share one warp
 #pragma unroll
@@ -596,6 +638,7 @@ struct FwdArgs {
   int Hb, Sq, Skv, Hq, Hkv;
   float scale;
   int causal;
+  Streams st;
 };
 
 template <int D, int MODE>
@@ -607,7 +650,7 @@ cudaError_t run_bf16(const FwdArgs& a, dim3 grid, cudaStream_t st) {
   flash_fwd_bf16<D, MODE><<<grid, BF16_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse, a.lens,
-      a.kbias, a.relvec, a.qkbias, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, a.scale, a.causal);
+      a.kbias, a.relvec, a.qkbias, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, a.scale, a.causal, a.st);
   return cudaGetLastError();
 }
 
@@ -620,7 +663,7 @@ cudaError_t run_f32(const FwdArgs& a, dim3 grid, cudaStream_t st) {
   flash_fwd_f32<D, MODE><<<grid, F32_THREADS, smem, st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.lens, a.kbias,
-      a.relvec, a.qkbias, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, a.scale, a.causal);
+      a.relvec, a.qkbias, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, a.scale, a.causal, a.st);
   return cudaGetLastError();
 }
 
@@ -671,34 +714,45 @@ extern "C" const char* pfa_error_string(int err) {
 }
 
 // lens (B,) int32 and kbias (B, Skv) fp32 may each be null; both null runs
-// the plain path.
+// the plain path. win_lo/win_hi bound the window (-/+ WINDOW_OPEN when
+// open); thresh 0 turns dropout off, else seed, thresh and inv_keep are
+// the hash's seed, its keep threshold and 1 / (1 - rate).
 extern "C" int pfa_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse_out, const void* lens, const void* kbias, int B, int Sq,
                              int Skv, int Hq, int Hkv, int D, float sm_scale, int causal,
-                             int dtype, void* stream) {
+                             int win_lo, int win_hi, unsigned seed, unsigned thresh,
+                             float inv_keep, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const FwdArgs a{q, k, v, o, static_cast<float*>(lse_out), static_cast<const int*>(lens),
                   static_cast<const float*>(kbias), nullptr, nullptr, 0, Sq, Skv, Hq, Hkv,
-                  sm_scale, causal};
+                  sm_scale, causal, Streams{win_lo, win_hi, seed, thresh, inv_keep}};
+  const bool keys = lens != nullptr || kbias != nullptr, drop = thresh != 0u;
+  const bool window = win_lo > -WINDOW_OPEN || win_hi < WINDOW_OPEN;
+  if (keys + drop + window > 1) return cudaErrorInvalidValue;  // not combined (JAX's rules)
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (lens != nullptr || kbias != nullptr) return run<STREAMS>(a, D, dtype, grid, st);
+  if (keys) return run<STREAMS>(a, D, dtype, grid, st);
+  if (drop) return run<DROPOUT>(a, D, dtype, grid, st);
+  if (window) return run<WINDOW>(a, D, dtype, grid, st);
   return run<PLAIN>(a, D, dtype, grid, st);
 }
 
-// Structured-bias modes, forward only (no lse): exactly one of relvec
-// (Hq, Sq+Skv-1) fp32 and qkbias (B, Hb, Sq, Skv) fp32, Hb 1 or Hq.
+// Structured-bias modes: exactly one of relvec (Hq, Sq+Skv-1) fp32 and
+// qkbias (B, Hb, Sq, Skv) fp32, Hb 1 or Hq; lse (B, Hq, Sq) fp32 is written
+// when not null.
 extern "C" int pfa_flash_fwd_bias(const void* q, const void* k, const void* v, void* o,
-                                  const void* relvec, const void* qkbias, int B, int Sq, int Skv,
-                                  int Hq, int Hkv, int D, int Hb, float sm_scale, int causal,
-                                  int dtype, void* stream) {
+                                  void* lse_out, const void* relvec, const void* qkbias, int B,
+                                  int Sq, int Skv, int Hq, int Hkv, int D, int Hb, float sm_scale,
+                                  int causal, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       (relvec == nullptr) == (qkbias == nullptr) || (qkbias != nullptr && Hb != 1 && Hb != Hq))
     return cudaErrorInvalidValue;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  const FwdArgs a{q, k, v, o, nullptr, nullptr, nullptr, static_cast<const float*>(relvec),
-                  static_cast<const float*>(qkbias), Hb, Sq, Skv, Hq, Hkv, sm_scale, causal};
+  const FwdArgs a{q, k, v, o, static_cast<float*>(lse_out), nullptr, nullptr,
+                  static_cast<const float*>(relvec), static_cast<const float*>(qkbias), Hb, Sq,
+                  Skv, Hq, Hkv, sm_scale, causal,
+                  Streams{-WINDOW_OPEN, WINDOW_OPEN, 0u, 0u, 1.f}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (relvec != nullptr) return run<REL>(a, D, dtype, grid, st);
   return run<DENSE>(a, D, dtype, grid, st);

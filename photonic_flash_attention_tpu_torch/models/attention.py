@@ -7,8 +7,12 @@ Port of ``photonic_flash_attention_tpu/models/attention.py``:
   ``flash_min_tokens`` (``config.py``) or whenever a dense mask, an
   additive bias or the weights are asked for; the flash path otherwise
   (``ops/flash.py``: K1 forward, K4/K5 backward, or the masked backward
-  when key padding comes as ``kv_lens``/``k_bias``). The TPU-only
-  autotuner lookup of the JAX function has no counterpart.
+  when key padding comes as ``kv_lens``/``k_bias``). Attention dropout
+  (``dropout_rate``, ``dropout_seed``) runs on both: K1's dropout stream on
+  the flash path; on the fused path the weights alone are materialised,
+  the same positional mask (``ops/dropout.py``) is applied and the result
+  multiplied by V, so both paths give the identical sample for a seed.
+  The TPU-only autotuner lookup of the JAX function has no counterpart.
 * :func:`padding_mask_to_lens_bias` — a (B, Skv) keep-mask as the flash
   kernel's per-row lengths and per-key bias.
 * :class:`PhotonicFlashAttention` — the q/k/v/out projections as an
@@ -18,13 +22,15 @@ Port of ``photonic_flash_attention_tpu/models/attention.py``:
   that does (grad enabled and an input requiring grad, the counterpart of
   a traced JAX call) takes :func:`dispatch_attention`. Parameters are
   float32; compute runs in ``dtype``, as Flax's ``nn.Dense(dtype=...)``
-  casts inputs and kernels.
+  casts inputs and kernels. In train mode ``attention_dropout`` drops
+  attention probabilities (the call then takes :func:`dispatch_attention`,
+  as JAX routes to the engine only without it) and ``dropout_rate`` the
+  output (``F.dropout``, torch's generator: not the bits of Flax's
+  ``nn.Dropout``). The attention-dropout seed is the call's
+  ``dropout_seed``, or one drawn from torch's default generator.
 * :class:`PhotonicMultiHeadAttention` — the ``nn.MultiheadAttention``-style
   facade: (B, S, E) batch-first, ``key_padding_mask`` (True = ignore),
   ``attn_mask``, head-averaged weights.
-
-Not in this slice: attention dropout (ROADMAP A10, B10), which raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,9 +43,11 @@ from torch import nn
 
 from ..config import get_config
 from ..core.engine import get_engine
+from ..ops.dropout import Seed, dropout_keep_grid
 from ..ops.flash import flash_attention
+from ..ops.flash_bwd import validate_dropout
 from ..ops.fused import fused_attention
-from ..ops.reference import DEFAULT_MASK_VALUE
+from ..ops.reference import DEFAULT_MASK_VALUE, repeat_kv
 
 Attn = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -73,14 +81,14 @@ def dispatch_attention(
     kv_lens: Optional[torch.Tensor] = None,
     k_bias: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[torch.Tensor] = None,
+    dropout_seed: Optional[Seed] = None,
 ) -> Attn:
     """Static threshold dispatch (JAX ``dispatch_attention``): returns
-    (output (B, Sq, Hq, D), weights or None)."""
+    (output (B, Sq, Hq, D), weights or None; with dropout the weights are
+    the dropped ones, as the reference's ``nn.Dropout`` output)."""
     if mask is not None and (kv_lens is not None or k_bias is not None):
         raise ValueError("pass either mask or kv_lens/k_bias, not both")
-    if dropout_rate > 0.0 or dropout_seed is not None:
-        raise NotImplementedError("attention dropout is not ported yet (ROADMAP A10, B10)")
+    validate_dropout(dropout_rate, dropout_seed)
     cfg = get_config()
     seq = max(q.shape[1], k.shape[1])
     if (
@@ -98,20 +106,32 @@ def dispatch_attention(
                 pos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
                 keep = pos[None] < kv_lens[:, None]
             mask = keep[:, None, None, :]
+        if dropout_rate > 0.0:
+            # The weights only, the flash path's positional mask, then V.
+            _, w = fused_attention(q, k, v, mask, bias=bias, causal=causal, sm_scale=sm_scale,
+                                   need_weights=True, weights_only=True)
+            b, sq, hq, _ = q.shape
+            keep = dropout_keep_grid(dropout_seed, dropout_rate, b, hq, sq, k.shape[1], q.device)
+            wd = torch.where(keep, w, 0.0) / (1.0 - dropout_rate)
+            vf = repeat_kv(v, hq // v.shape[2]).float()
+            out = torch.einsum("bhqk,bkhd->bqhd", wd, vf).to(q.dtype)
+            return out, (wd if need_weights else None)
         return fused_attention(
             q, k, v, mask, bias=bias, causal=causal, sm_scale=sm_scale,
             need_weights=need_weights,
         )
     return flash_attention(
-        q, k, v, causal=causal, sm_scale=sm_scale, kv_lens=kv_lens, k_bias=k_bias
+        q, k, v, causal=causal, sm_scale=sm_scale, kv_lens=kv_lens, k_bias=k_bias,
+        dropout_rate=dropout_rate, dropout_seed=dropout_seed,
     ), None
 
 
 class PhotonicFlashAttention(nn.Module):
     """Self-/cross-attention over (B, S, E) inputs; GQA when
     ``num_kv_heads < num_heads``. ``adaptive``: calls that record no
-    gradient route through the measured engine. ``attention_dropout``
-    (probability dropout in train mode) must stay 0 until ROADMAP A10."""
+    gradient and drop nothing route through the measured engine.
+    ``attention_dropout``: probability dropout in train mode;
+    ``dropout_rate``: output dropout in train mode."""
 
     def __init__(
         self,
@@ -120,6 +140,7 @@ class PhotonicFlashAttention(nn.Module):
         num_kv_heads: Optional[int] = None,
         *,
         causal: bool = False,
+        dropout_rate: float = 0.0,
         attention_dropout: float = 0.0,
         use_bias: bool = True,
         adaptive: bool = True,
@@ -135,6 +156,7 @@ class PhotonicFlashAttention(nn.Module):
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = embed_dim // num_heads
         self.causal = causal
+        self.dropout_rate = dropout_rate
         self.attention_dropout = attention_dropout
         self.adaptive = adaptive
         self.dtype = dtype
@@ -154,12 +176,14 @@ class PhotonicFlashAttention(nn.Module):
         need_weights: bool = False,
         kv_lens: Optional[torch.Tensor] = None,
         k_bias: Optional[torch.Tensor] = None,
+        dropout_seed: Optional[Seed] = None,
     ) -> Attn:
-        """Returns (output (B, Sq, E) in ``dtype``, weights or None)."""
-        if self.training and self.attention_dropout > 0.0:
-            raise NotImplementedError(
-                "attention dropout in train mode is not ported yet (ROADMAP A10)"
-            )
+        """Returns (output (B, Sq, E) in ``dtype``, weights or None).
+        ``dropout_seed`` seeds the attention dropout of a train-mode call
+        (default: one drawn from torch's default generator)."""
+        attn_rate = self.attention_dropout if self.training else 0.0
+        if attn_rate > 0.0 and dropout_seed is None:
+            dropout_seed = int(torch.randint(0, 2**31 - 1, (1,)))
         key = query if key is None else key
         value = key if value is None else value
         b, sq, _ = query.shape
@@ -169,13 +193,14 @@ class PhotonicFlashAttention(nn.Module):
         k = dense(x_k, self.k_proj).reshape(b, skv, self.num_kv_heads, self.head_dim)
         v = dense(x_v, self.v_proj).reshape(b, skv, self.num_kv_heads, self.head_dim)
         records_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-        route = get_engine() if self.adaptive and not records_grad else dispatch_attention
-        out, weights = route(
-            q, k, v, mask, causal=self.causal, need_weights=need_weights,
-            kv_lens=kv_lens, k_bias=k_bias,
-        )
-        out = out.reshape(b, sq, self.num_heads * self.head_dim)
-        return dense(out, self.out_proj), weights
+        kw = dict(causal=self.causal, need_weights=need_weights, kv_lens=kv_lens, k_bias=k_bias)
+        if self.adaptive and not records_grad and attn_rate == 0.0:
+            out, weights = get_engine()(q, k, v, mask, **kw)
+        else:
+            out, weights = dispatch_attention(q, k, v, mask, dropout_rate=attn_rate,
+                                              dropout_seed=dropout_seed, **kw)
+        out = dense(out.reshape(b, sq, self.num_heads * self.head_dim), self.out_proj)
+        return F.dropout(out, self.dropout_rate, self.training), weights
 
     @staticmethod
     def get_performance_stats() -> dict:
@@ -198,6 +223,7 @@ class PhotonicMultiHeadAttention(nn.Module):
         embed_dim: int,
         num_heads: int,
         *,
+        dropout_rate: float = 0.0,
         attention_dropout: float = 0.0,
         use_bias: bool = True,
         causal: bool = False,
@@ -205,8 +231,8 @@ class PhotonicMultiHeadAttention(nn.Module):
     ) -> None:
         super().__init__()
         self.attention = PhotonicFlashAttention(
-            embed_dim, num_heads, causal=causal, attention_dropout=attention_dropout,
-            use_bias=use_bias, dtype=dtype,
+            embed_dim, num_heads, causal=causal, dropout_rate=dropout_rate,
+            attention_dropout=attention_dropout, use_bias=use_bias, dtype=dtype,
         )
 
     def forward(
@@ -219,6 +245,7 @@ class PhotonicMultiHeadAttention(nn.Module):
         *,
         need_weights: bool = True,
         average_attn_weights: bool = True,
+        dropout_seed: Optional[Seed] = None,
     ) -> Attn:
         key = query if key is None else key
         b, sq, _ = query.shape
@@ -237,7 +264,8 @@ class PhotonicMultiHeadAttention(nn.Module):
             else:
                 mask = mask & keep[:, None, None, :].expand(b, 1, sq, skv)
         out, weights = self.attention(
-            query, key, value, mask, need_weights=need_weights, kv_lens=kv_lens, k_bias=k_bias
+            query, key, value, mask, need_weights=need_weights, kv_lens=kv_lens, k_bias=k_bias,
+            dropout_seed=dropout_seed,
         )
         if weights is not None and average_attn_weights:
             weights = weights.mean(dim=1)

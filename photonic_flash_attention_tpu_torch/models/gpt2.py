@@ -7,7 +7,13 @@ LM head. Parameters are float32 as in Flax; the forward computes in
 ``cfg.dtype`` (LayerNorm statistics in float32), and gradients reach the
 float32 parameters through those casts, as Flax's fp32 master weights.
 Attention goes through ``models/attention.py::dispatch_attention``, as the
-JAX blocks do with ``adaptive=False``. Initialisation follows the
+JAX blocks do with ``adaptive=False``. In train mode with ``attn_pdrop``
+the attention probabilities are dropped (K1's and K4/K5's dropout streams
+on the flash route): the forward takes one ``dropout_seed`` (or draws one
+from torch's default generator) and gives layer i the seed
+``fold_seed(dropout_seed, i)``, so a recomputed forward draws the same
+masks; Flax's per-layer ``make_rng`` streams are not reproduced (the masks
+equal JAX's for equal seeds, the seed schedule is the port's). Initialisation follows the
 Flax initialisers (``wte`` N(0, 0.02), ``wpe`` N(0, 0.01), Dense kernels
 lecun-normal, biases 0, LayerNorm 1/0) drawn from an explicit
 ``torch.Generator``; the numbers differ from JAX's, so tests load JAX
@@ -28,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import fold_seed
 from .attention import PhotonicFlashAttention, dense
 
 
@@ -39,8 +46,7 @@ class GPT2Config:
     n_layer: int = 12
     n_head: int = 12
     layer_norm_epsilon: float = 1e-5
-    #: dropout on attention probabilities (HF attn_pdrop), train mode only;
-    #: training with a value above 0 raises until ROADMAP A10.
+    #: dropout on attention probabilities (HF attn_pdrop), train mode only.
     attn_pdrop: float = 0.0
     dtype: torch.dtype = torch.bfloat16
 
@@ -90,8 +96,8 @@ class Block(nn.Module):
         self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=eps)
         self.mlp = MLP(cfg)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(layer_norm(x, self.ln_1))[0]
+    def forward(self, x: torch.Tensor, dropout_seed: Optional[int] = None) -> torch.Tensor:
+        x = x + self.attn(layer_norm(x, self.ln_1), dropout_seed=dropout_seed)[0]
         return x + self.mlp(layer_norm(x, self.ln_2))
 
 
@@ -129,13 +135,19 @@ class GPT2LMHead(nn.Module):
                 nn.init.zeros_(mod.bias)
 
     def forward(
-        self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None
+        self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
+        *, dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
+        """``dropout_seed``: the base seed of a train-mode forward's
+        attention dropout (ignored in eval mode or without ``attn_pdrop``)."""
         dt = self.config.dtype
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None]
         x = self.wte.to(dt)[input_ids] + self.wpe.to(dt)[positions]
-        for block in self.h:
-            x = block(x)
+        drop = self.training and self.config.attn_pdrop > 0.0
+        if drop and dropout_seed is None:
+            dropout_seed = int(torch.randint(0, 2**31 - 1, (1,)))
+        for i, block in enumerate(self.h):
+            x = block(x, fold_seed(dropout_seed, i) if drop else None)
         x = layer_norm(x, self.ln_f)
         return x @ self.wte.to(dt).T

@@ -15,7 +15,10 @@ self-attention, which at ``sq >= flash_threshold`` runs
 ``flash_min_tokens`` test here) and otherwise the materialised bias
 through ``dispatch_attention(bias=...)`` (the fused path); a masked stack
 builds the dense bias once and takes ``dispatch_attention`` with the mask;
-cross-attention takes plain ``dispatch_attention``.
+cross-attention takes plain ``dispatch_attention``. Every route is
+differentiable: on the relative-bias flash route the gradient reaches the
+``rel_embedding`` table through ``ops/flash.py::_FlashAttentionRelFn``, so
+T5 trains through ``training.Trainer`` with a seq2seq ``loss_fn``.
 
 Parameters are float32; the forward computes in ``cfg.dtype``. The JAX
 stacks run under ``nn.scan``; here blocks are a ``ModuleList`` whose

@@ -40,21 +40,25 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+#: The window and dropout arguments of K1, K4 and K5: win_lo, win_hi,
+#: seed, keep threshold, 1 / (1 - rate).
+_STREAMS = [_I, _I, _U, _U, _F]
 #: argtypes of every C entry point, in the order of the C prototypes.
 _SIGNATURES: Dict[str, List] = {
     # q, k, v, o, lse (or None), lens (or None), kbias (or None), B, Sq, Skv,
-    # Hq, Hkv, D, sm_scale, causal, dtype, stream
-    "pfa_flash_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
-    # q, k, v, o, relvec (or None), qkbias (or None), B, Sq, Skv, Hq, Hkv,
-    # D, Hb, sm_scale, causal, dtype, stream
-    "pfa_flash_fwd_bias": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
-    # q, k, v, do, lse, di, dk, dv, B, Sq, Skv, H, D, sm_scale, causal,
+    # Hq, Hkv, D, sm_scale, causal, win_lo, win_hi, seed, thresh, inv_keep,
     # dtype, stream
-    "pfa_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
-    # q, k, v, do, lse, di, dq, B, Sq, Skv, H, D, sm_scale, causal, dtype,
-    # stream
-    "pfa_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    "pfa_flash_fwd": [_P] * 7 + [_I] * 6 + [_F, _I] + _STREAMS + [_I, _P],
+    # q, k, v, o, lse (or None), relvec (or None), qkbias (or None), B, Sq,
+    # Skv, Hq, Hkv, D, Hb, sm_scale, causal, dtype, stream
+    "pfa_flash_fwd_bias": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
+    # q, k, v, do, lse, di, dk, dv, B, Sq, Skv, H, D, sm_scale, causal,
+    # win_lo, win_hi, seed, thresh, inv_keep, dtype, stream
+    "pfa_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I] + _STREAMS + [_I, _P],
+    # q, k, v, do, lse, di, dq, B, Sq, Skv, H, D, sm_scale, causal, win_lo,
+    # win_hi, seed, thresh, inv_keep, dtype, stream
+    "pfa_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I] + _STREAMS + [_I, _P],
     # k_new, v_new, k_pool, v_pool, k_scales, v_scales, slots,
     # layer, B, Hkv, D, num_pages, page_size, in_dtype, pool_dtype, stream
     "pfa_paged_token_write": [_P] * 7 + [_I] * 8 + [_P],

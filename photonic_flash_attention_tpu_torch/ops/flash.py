@@ -1,48 +1,62 @@
 """Flash attention, forward (kernel K1, ``csrc/flash_fwd.cu``) and gradient.
 
-Port of the plain and key-padded contracts of
-``photonic_flash_attention_tpu/ops/flash.py``: causal or not, causal aligned
-to the sequence end when Sq != Skv, native GQA (Hq % Hkv == 0),
-``sm_scale``, and the key-padding streams ``kv_lens`` (B,) int32 and
-``k_bias`` (B, Skv) fp32 (the JAX kernel's ``lens_ref``/``kbias_ref``).
+Port of the contract of ``photonic_flash_attention_tpu/ops/flash.py::
+flash_attention``: causal or not, causal aligned to the sequence end when
+Sq != Skv, native GQA (Hq % Hkv == 0), ``sm_scale``, the key-padding
+streams ``kv_lens`` (B,) int32 and ``k_bias`` (B, Skv) fp32 (the JAX
+kernel's ``lens_ref``/``kbias_ref``), the sliding ``window`` (lo, hi)
+on rel = col - (row + Skv - Sq), attention dropout (``dropout_rate``,
+``dropout_seed``; the keep mask of ``ops/dropout.py``), and the
+structured biases ``rel_bias``/``attn_bias``, with the JAX function's rules
+for combining them.
 
-* :func:`flash_attention` is differentiable. Without streams its gradient is
-  :class:`_FlashAttentionFn` (JAX ``_flash_attention_core``): K1 with its
-  logsumexp output forward, K4/K5 (``ops/flash_bwd.py``) backward. With
-  streams it is :class:`_FlashAttentionMaskedFn` (JAX
-  ``_flash_attention_core_masked``): K1 with the streams forward, and a
-  blockwise backward in plain PyTorch, the port of the JAX ``_flash_bwd``,
-  which returns dq, dk, dv and the gradient of ``k_bias``. The JAX package
-  computes that backward in XLA, not in Pallas, so plain PyTorch is its
-  faithful port. Without a gradient to take, K1 writes no lse, as the JAX
-  primal path (``save_residuals=False``).
+* :func:`flash_attention` is differentiable. Plain, windowed or with
+  dropout, its gradient is :class:`_FlashAttentionFn` (JAX
+  ``_flash_attention_core`` and ``_flash_attention_core_dropout``): K1
+  with its logsumexp output forward, K4/K5 (``ops/flash_bwd.py``) with the
+  same window and dropout mask backward. With key streams it is
+  :class:`_FlashAttentionMaskedFn` (JAX ``_flash_attention_core_masked``),
+  with ``rel_bias`` :class:`_FlashAttentionRelFn` (JAX
+  ``_flash_attention_core_rel``): K1 with the streams or the bias forward,
+  and ``ops/flash_bwd.py::flash_attention_bwd_masked_plain`` backward, the
+  port of the JAX ``_flash_bwd``, which returns dq, dk, dv and the
+  gradients of ``k_bias`` and of the relative-bias vector. The JAX package computes that
+  backward in XLA, not in Pallas, so plain PyTorch is its faithful port,
+  on the card too. Without a gradient to take, K1 writes no lse, as the
+  JAX primal path (``save_residuals=False``).
 * :func:`flash_attention_with_lse` returns (o, lse), lse (B, Hq, Sq) fp32
   in natural log; rows with no valid key (``kv_lens == 0``) get lse = -inf
   and o = 0.
 
-Masking: keys past ``kv_lens[b]`` (whole tiles of them are skipped) or
-above the causal diagonal drop out; ``k_bias`` is added to the scaled
+Masking: keys past ``kv_lens[b]`` (whole tiles of them are skipped), above
+the causal diagonal or outside the window drop out (-inf; a row left with
+no key gets o = 0 and lse = -inf); ``k_bias`` is added to the scaled
 score, which is clamped at ``DEFAULT_MASK_VALUE``. That value is finite, so
 a row whose keys are all masked by ``k_bias`` alone averages over them, as
-in the JAX kernel.
+in the JAX kernel. K1 walks only the key tiles the causal mask and the
+window leave, so a windowed call costs S * w, not S^2.
 
-Structured biases (forward only, the JAX ``rel_bias`` and ``attn_bias``):
-``rel_bias`` (:class:`~.rel_bias.T5RelBias` or :class:`~.rel_bias.ALiBi`)
-adds a function of ``col - (row + Skv - Sq)``; K1's relative-bias mode
-takes it as one fp32 vector per head over every offset of the call
-(``rel_bias.bias_vector``), not as the JAX far/band kernel split.
-``attn_bias`` (B, 1|Hq, Sq, Skv) fp32 is a dense additive bias (0 =
-attend, ``DEFAULT_MASK_VALUE`` = ignore, or real values) that K1's
-dense-bias mode reads one (64, 64) tile per K/V step; tiles above the
-causal diagonal read nothing. Both add the bias to the scaled score and
-clamp at the mask value, as the key streams do; their plain versions run
-the materialised bias through the same plain oracle. Neither has a
-backward yet (the JAX rel-bias table gradient is ROADMAP A10/B10; the JAX
-``attn_bias`` path has none): under autograd they raise.
+Dropout multiplies the P.V operand by 1 / (1 - rate) where the position's
+hash keeps it; the softmax sum, and so the lse, keep the undropped sum
+(JAX ``ops/flash.py:372-391``).
+
+Structured biases: ``rel_bias`` (:class:`~.rel_bias.T5RelBias` or
+:class:`~.rel_bias.ALiBi`) adds a function of ``col - (row + Skv - Sq)``;
+K1's relative-bias mode takes it as one fp32 vector per head over every
+offset of the call (``rel_bias.bias_vector``), not as the JAX far/band
+kernel split; the backward returns that vector's gradient (the sum of the
+score gradient over each diagonal) and autograd carries it back through
+``bias_vector``'s gather to the T5 table or the ALiBi slopes. ``attn_bias``
+(B, 1|Hq, Sq, Skv) fp32 is a dense additive bias (0 = attend,
+``DEFAULT_MASK_VALUE`` = ignore, or real values) that K1's dense-bias mode
+reads one (64, 64) tile per K/V step; tiles above the causal diagonal read
+nothing. Both add the bias to the scaled score and clamp at the mask
+value, as the key streams do; their plain versions run the materialised
+bias through the same plain oracle. ``attn_bias`` has no backward, as in
+JAX: under autograd it raises.
 
 CUDA tensors launch the kernels (or raise); CPU tensors run the plain
-versions, forward and backward. The window and dropout streams of the JAX
-function are not ported yet (ROADMAP A10, B10).
+versions, forward and backward.
 
 K1's quantized modes (the JAX kernel's ``scale_ref``, ``pv_quant`` and
 ``vs_ref``) sit behind :func:`flash_attention_qk_quant`, which takes the
@@ -61,14 +75,21 @@ import torch
 
 from . import _build
 from ._build import KERNEL_DTYPES, KERNEL_HEAD_DIMS
-from .flash_bwd import flash_attention_bwd
-from .rel_bias import RelBias, T5RelBias, bias_vector, materialize
+from .dropout import Seed, dropout_scale, seed_u32
+from .flash_bwd import (
+    flash_attention_bwd,
+    flash_attention_bwd_masked_plain,
+    kernel_dropout,
+    kernel_window,
+)
+from .rel_bias import RelBias, T5RelBias, bias_vector, vector_bias
 from .reference import (
     DEFAULT_MASK_VALUE,
+    Window,
     attention_scores,
-    causal_keep,
     repeat_kv,
     softmax_scale,
+    window_keep,
 )
 
 __all__ = [
@@ -133,14 +154,24 @@ def _validate(
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _validate_bias(q, k, kv_lens, k_bias, rel_bias, attn_bias) -> None:
-    """The JAX function's checks of the structured biases (``ops/flash.py:
-    1602-1662``): no combination with the key streams, the heads, the
-    dense bias's shape."""
+def _validate_options(q, k, kv_lens, k_bias, rel_bias, attn_bias, window, dropout_rate,
+                      dropout_seed) -> None:
+    """The JAX function's rules (``ops/flash.py:1572-1662``), in its order:
+    dropout's rate, combinations and seed; the dense bias's combinations
+    and shape; the key streams against ``rel_bias`` and ``window``; the
+    window against ``rel_bias``; the relative bias's heads."""
     b, sq, hq, _ = q.shape
     skv = k.shape[1]
+    if dropout_rate > 0.0:
+        if not 0.0 < dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must be in (0, 1), got {dropout_rate}")
+        if kv_lens is not None or k_bias is not None or rel_bias is not None or window is not None:
+            raise ValueError("dropout_rate cannot be combined with kv_lens/k_bias/rel_bias/window")
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
     if attn_bias is not None:
-        if kv_lens is not None or k_bias is not None or rel_bias is not None:
+        if (kv_lens is not None or k_bias is not None or rel_bias is not None
+                or window is not None or dropout_rate > 0.0):
             raise ValueError("attn_bias cannot be combined with kv_lens/k_bias/rel_bias/window/dropout")
         if (attn_bias.ndim != 4 or attn_bias.shape[0] != b or attn_bias.shape[1] not in (1, hq)
                 or tuple(attn_bias.shape[2:]) != (sq, skv)):
@@ -148,32 +179,39 @@ def _validate_bias(q, k, kv_lens, k_bias, rel_bias, attn_bias) -> None:
                              f"got {tuple(attn_bias.shape)}")
         if attn_bias.device != q.device:
             raise ValueError(f"attn_bias is on {attn_bias.device}, q on {q.device}")
-    if rel_bias is not None:
-        if kv_lens is not None or k_bias is not None:
-            raise ValueError("kv_lens/k_bias cannot be combined with rel_bias or window")
-        if rel_bias.num_heads != hq:
-            raise ValueError(f"rel_bias heads {rel_bias.num_heads} != q heads {hq}")
+    if (kv_lens is not None or k_bias is not None) and (rel_bias is not None or window is not None):
+        raise ValueError("kv_lens/k_bias cannot be combined with rel_bias or window")
+    if window is not None:
+        if rel_bias is not None:
+            raise ValueError("window cannot be combined with rel_bias")
+        if len(window) != 2:
+            raise ValueError(f"window must be (lo, hi), got {window!r}")
+    if rel_bias is not None and rel_bias.num_heads != hq:
+        raise ValueError(f"rel_bias heads {rel_bias.num_heads} != q heads {hq}")
 
 
-def _dense_bias(q, k, rel_bias, attn_bias) -> Optional[torch.Tensor]:
-    """A structured bias as the plain versions take it: (1|B, 1|Hq, Sq,
-    Skv) fp32 on q's device, or None."""
-    if rel_bias is not None:
-        return materialize(rel_bias, q.shape[1], k.shape[1]).to(q.device)
-    return attn_bias.float() if attn_bias is not None else None
-
-
-def _stream_keep(q, k, causal: bool, kv_lens) -> Optional[torch.Tensor]:
+def _stream_keep(q, k, causal: bool, kv_lens, window: Optional[Window] = None
+                 ) -> Optional[torch.Tensor]:
     """Structural key validity, broadcastable to (B, Hq, Sq, Skv): the
-    causal diagonal and ``kv_lens``; None when every key is valid."""
-    keep = None
-    if causal:
-        keep = causal_keep(q.shape[1], k.shape[1], q.device)[None, None]
+    causal diagonal, the window and ``kv_lens``; None when every key is
+    valid."""
+    keep = window_keep(q.shape[1], k.shape[1], causal, window, q.device)
+    keep = keep[None, None] if keep is not None else None
     if kv_lens is not None:
         pos = torch.arange(k.shape[1], device=q.device)
         by_len = (pos[None] < kv_lens.to(q.device).long()[:, None])[:, None, None, :]
         keep = by_len if keep is None else keep & by_len
     return keep
+
+
+def _rel_vector(rel_bias: RelBias, sq: int, skv: int) -> torch.Tensor:
+    """K1's (Hq, Sq+Skv-1) fp32 bias vector over rel = -(Skv-1) .. Sq-1,
+    differentiable in the table or the slopes."""
+    return bias_vector(rel_bias, -(skv - 1), sq + skv - 1).float()
+
+
+def _rel_counter(rel_bias: RelBias) -> str:
+    return "pfa_flash_fwd_relbias" if isinstance(rel_bias, T5RelBias) else "pfa_flash_fwd_alibi"
 
 
 def flash_attention_plain(
@@ -187,12 +225,18 @@ def flash_attention_plain(
     k_bias: Optional[torch.Tensor] = None,
     rel_bias: Optional[RelBias] = None,
     attn_bias: Optional[torch.Tensor] = None,
+    window: Optional[Window] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[Seed] = None,
 ) -> torch.Tensor:
     """K1's plain version: float32 attention on any device, output in q's
-    dtype; a structured bias is materialised (``rel_bias.materialize``)."""
+    dtype; a structured bias is materialised."""
+    bias = attn_bias.float() if attn_bias is not None else None
+    if rel_bias is not None:
+        bias = vector_bias(_rel_vector(rel_bias, q.shape[1], k.shape[1]), q.shape[1], k.shape[1])
     return flash_attention_with_lse_plain(
-        q, k, v, causal=causal, sm_scale=sm_scale, kv_lens=kv_lens, k_bias=k_bias,
-        bias=_dense_bias(q, k, rel_bias, attn_bias),
+        q, k, v, causal=causal, sm_scale=sm_scale, kv_lens=kv_lens, k_bias=k_bias, bias=bias,
+        window=window, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
     )[0]
 
 
@@ -206,18 +250,23 @@ def flash_attention_with_lse_plain(
     kv_lens: Optional[torch.Tensor] = None,
     k_bias: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
+    window: Optional[Window] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[Seed] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1-with-lse's plain version in float32: (o in q's dtype, lse
     (B, Hq, Sq) fp32, natural log; -inf and o = 0 for a row with no key).
     The kernel's arithmetic: scores plus ``k_bias`` and the dense ``bias``
     (broadcastable to (B, Hq, Sq, Skv)) clamped at the mask value,
-    structurally invalid keys at -inf, softmax from the row max."""
+    structurally invalid keys (causal, window, lengths) at -inf, softmax
+    from the row max; with dropout the P.V operand is p * keep / (1 -
+    rate) and the lse keeps the undropped sum."""
     s = attention_scores(q, k, sm_scale=sm_scale)
     if k_bias is not None:
         s = torch.clamp_min(s + k_bias.float()[:, None, None, :], DEFAULT_MASK_VALUE)
     if bias is not None:
         s = torch.clamp_min(s + bias.float(), DEFAULT_MASK_VALUE)
-    keep = _stream_keep(q, k, causal, kv_lens)
+    keep = _stream_keep(q, k, causal, kv_lens, window)
     if keep is not None:
         s = s.masked_fill(~keep, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
@@ -225,6 +274,9 @@ def flash_attention_with_lse_plain(
     l = e.sum(dim=-1, keepdim=True)
     p = e / torch.where(l == 0.0, torch.ones_like(l), l)
     lse = torch.where(l > 0.0, m + torch.log(l), float("-inf"))[..., 0]
+    if dropout_rate > 0.0:
+        b, sq, hq, _ = q.shape
+        p = p * dropout_scale(dropout_seed, dropout_rate, b, hq, sq, k.shape[1], q.device)
     vf = repeat_kv(v, q.shape[2] // v.shape[2]).float()
     o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     return o.to(q.dtype), lse
@@ -249,14 +301,23 @@ def _check_k1(q, k, v) -> None:
             raise ValueError(f"K1 needs contiguous inputs; {name} is not")
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens=None, k_bias=None):
+def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens=None, k_bias=None,
+                    window: Optional[Window] = None, dropout_rate: float = 0.0,
+                    dropout_seed: Optional[Seed] = None):
     """Launch K1: (o, lse or None). Counted as ``pfa_flash_fwd``, or as
-    ``pfa_flash_fwd_streams`` when a key-padding stream is given."""
+    ``pfa_flash_fwd_streams`` when a key-padding stream is given,
+    ``pfa_flash_fwd_window`` with a window, ``pfa_flash_fwd_dropout`` with
+    dropout."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     _check_k1(q, k, v)
     lens, bias = _stream_args(q, kv_lens, k_bias)
-    streams = lens is not None or bias is not None
+    if dropout_rate > 0.0:
+        count = "pfa_flash_fwd_dropout"
+    elif window is not None:
+        count = "pfa_flash_fwd_window"
+    else:
+        count = "pfa_flash_fwd_streams" if lens is not None or bias is not None else None
     o = torch.empty_like(q)
     lse = torch.empty(b, hq, sq, device=q.device, dtype=torch.float32) if save_lse else None
     _build.launch(
@@ -266,50 +327,60 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens
         lens.data_ptr() if lens is not None else None,
         bias.data_ptr() if bias is not None else None,
         b, sq, skv, hq, hkv, d, float(scale), int(causal),
+        *kernel_window(window), *kernel_dropout(dropout_rate, dropout_seed),
         _build.DTYPE_CODES[q.dtype],
-        count_as="pfa_flash_fwd_streams" if streams else None,
+        count_as=count,
     )
     return o, lse
 
 
-def _flash_fwd_bias_cuda(q, k, v, causal: bool, scale: float, rel_bias=None, attn_bias=None):
-    """Launch K1's relative-bias mode (the (Hq, Sq+Skv-1) vector of
-    ``rel_bias.bias_vector`` over rel = -(Skv-1) .. Sq-1) or its dense-bias
-    mode (``attn_bias`` (B, 1|Hq, Sq, Skv) fp32). Counted as
-    ``pfa_flash_fwd_relbias`` (T5), ``pfa_flash_fwd_alibi`` or
-    ``pfa_flash_fwd_densebias``."""
+def _flash_fwd_bias_cuda(q, k, v, causal: bool, scale: float, count: str, *, vec=None, dense=None,
+                         save_lse: bool = False):
+    """Launch K1's relative-bias mode (``vec``, the (Hq, Sq+Skv-1) vector of
+    :func:`_rel_vector`) or its dense-bias mode (``dense`` (B, 1|Hq, Sq,
+    Skv)): (o, lse or None), counted as ``count`` (``pfa_flash_fwd_relbias``
+    (T5), ``pfa_flash_fwd_alibi`` or ``pfa_flash_fwd_densebias``), with
+    ``_lse`` appended when it writes the lse."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     _check_k1(q, k, v)
-    vec = dense = None
-    if rel_bias is not None:
-        vec = bias_vector(rel_bias, -(skv - 1), sq + skv - 1)
-        vec = vec.to(device=q.device, dtype=torch.float32).contiguous()
-        count, hb = ("pfa_flash_fwd_relbias" if isinstance(rel_bias, T5RelBias)
-                     else "pfa_flash_fwd_alibi"), 0
-    else:
-        dense = attn_bias.to(dtype=torch.float32).contiguous()
-        count, hb = "pfa_flash_fwd_densebias", dense.shape[1]
+    if vec is not None:
+        vec = vec.detach().to(device=q.device, dtype=torch.float32).contiguous()
+    if dense is not None:
+        dense = dense.to(dtype=torch.float32).contiguous()
     o = torch.empty_like(q)
+    lse = torch.empty(b, hq, sq, device=q.device, dtype=torch.float32) if save_lse else None
     _build.launch(
         "pfa_flash_fwd_bias", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if save_lse else None,
         vec.data_ptr() if vec is not None else None,
         dense.data_ptr() if dense is not None else None,
-        b, sq, skv, hq, hkv, d, hb, float(scale), int(causal), _build.DTYPE_CODES[q.dtype],
-        count_as=count,
+        b, sq, skv, hq, hkv, d, dense.shape[1] if dense is not None else 0, float(scale),
+        int(causal), _build.DTYPE_CODES[q.dtype],
+        count_as=f"{count}_lse" if save_lse else count,
     )
-    return o
+    return o, lse
 
 
-def _fwd_with_lse(q, k, v, causal: bool, scale: float, kv_lens=None, k_bias=None):
+def _on_device(q, cuda, cpu):
+    """``cuda()`` for CUDA tensors, ``cpu()`` for CPU tensors."""
     if q.device.type == "cuda":
-        return _flash_fwd_cuda(q, k, v, causal, scale, True, kv_lens, k_bias)
+        return cuda()
     if q.device.type == "cpu":
-        return flash_attention_with_lse_plain(
-            q, k, v, causal=causal, sm_scale=scale, kv_lens=kv_lens, k_bias=k_bias
-        )
+        return cpu()
     raise ValueError(f"unsupported device {q.device}")
+
+
+def _fwd_with_lse(q, k, v, causal: bool, scale: float, kv_lens=None, k_bias=None, window=None,
+                  dropout_rate: float = 0.0, dropout_seed=None):
+    kw = dict(kv_lens=kv_lens, k_bias=k_bias, window=window, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
+    return _on_device(
+        q,
+        lambda: _flash_fwd_cuda(q, k, v, causal, scale, True, **kw),
+        lambda: flash_attention_with_lse_plain(q, k, v, causal=causal, sm_scale=scale, **kw),
+    )
 
 
 def _group_sum(t: torch.Tensor, hkv: int, dtype: torch.dtype) -> torch.Tensor:
@@ -322,17 +393,20 @@ def _group_sum(t: torch.Tensor, hkv: int, dtype: torch.dtype) -> torch.Tensor:
 
 
 class _FlashAttentionFn(torch.autograd.Function):
-    """Custom gradient of flash attention (JAX ``_flash_attention_core``):
-    the forward saves (q, k, v, o, lse); the backward repeats K/V over the
-    GQA group (``repeat_interleave`` on the head axis, JAX's ``jnp.repeat``,
-    matching K1's ``h / (Hq/Hkv)``), runs K4/K5 and sums dk/dv over the
-    group (``_flash_core_bwd``, ``ops/flash.py:1152``)."""
+    """Custom gradient of flash attention (JAX ``_flash_attention_core``
+    and ``_flash_attention_core_dropout``): the forward saves (q, k, v, o,
+    lse); the backward repeats K/V over the GQA group (``repeat_interleave``
+    on the head axis, JAX's ``jnp.repeat``, matching K1's ``h / (Hq/Hkv)``),
+    runs K4/K5 with the forward's window and dropout mask and sums dk/dv
+    over the group (``_flash_core_bwd``, ``ops/flash.py:1152``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        o, lse = _fwd_with_lse(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal: bool, scale: float, window, dropout_rate: float, dropout_seed):
+        o, lse = _fwd_with_lse(q, k, v, causal, scale, window=window, dropout_rate=dropout_rate,
+                               dropout_seed=dropout_seed)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
+        ctx.window, ctx.dropout = window, (dropout_rate, dropout_seed)
         return o
 
     @staticmethod
@@ -342,65 +416,11 @@ class _FlashAttentionFn(torch.autograd.Function):
         group = q.shape[2] // hkv
         dq, dk, dv = flash_attention_bwd(
             q, repeat_kv(k, group), repeat_kv(v, group), o, lse, do.contiguous(),
-            sm_scale=ctx.scale, causal=ctx.causal,
+            sm_scale=ctx.scale, causal=ctx.causal, window=ctx.window,
+            dropout_rate=ctx.dropout[0], dropout_seed=ctx.dropout[1],
         )
-        return dq, _group_sum(dk, hkv, k.dtype), _group_sum(dv, hkv, v.dtype), None, None
-
-
-def flash_attention_bwd_masked_plain(
-    q: torch.Tensor,  # (B, Sq, H, D)
-    k: torch.Tensor,  # (B, Skv, H, D), already repeated over the GQA group
-    v: torch.Tensor,
-    o: torch.Tensor,
-    lse: torch.Tensor,  # (B, H, Sq) natural log
-    do: torch.Tensor,
-    *,
-    sm_scale: float,
-    causal: bool,
-    kv_lens: Optional[torch.Tensor] = None,
-    k_bias: Optional[torch.Tensor] = None,
-    block_kv: int = 512,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """The masked backward (JAX ``_flash_bwd``, ``ops/flash.py:717``), one
-    KV block at a time in float32: p is rebuilt from the saved lse, zero
-    outside the valid keys; ds = p * (dp - di). Returns (dq, dk, dv) in the
-    inputs' dtypes and the ``k_bias`` gradient (B, Skv) fp32 (sum of ds
-    over heads and query rows), or None without ``k_bias``."""
-    b, sq, h, d = q.shape
-    skv = k.shape[1]
-    qf = q.float().transpose(1, 2)
-    kf = k.float().transpose(1, 2)
-    vf = v.float().transpose(1, 2)
-    dof = do.float().transpose(1, 2)
-    di = (o.float().transpose(1, 2) * dof).sum(-1, keepdim=True)
-    lse_e = lse.float()[..., None]
-    row = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-    dq = torch.zeros_like(qf)
-    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
-    dkb = torch.empty(b, skv, device=q.device) if k_bias is not None else None
-    for c0 in range(0, skv, block_kv):
-        c1 = min(c0 + block_kv, skv)
-        kb, vb = kf[:, :, c0:c1], vf[:, :, c0:c1]
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * sm_scale
-        if k_bias is not None:
-            s = s + k_bias.float()[:, None, None, c0:c1]
-        col = torch.arange(c0, c1, device=q.device)
-        valid = torch.ones(1, 1, sq, c1 - c0, dtype=torch.bool, device=q.device)
-        if causal:
-            valid = valid & (col[None, :] <= row)
-        if kv_lens is not None:
-            valid = valid & (col < kv_lens.to(q.device).long()[:, None])[:, None, None, :]
-        p = torch.where(valid, torch.exp(s - lse_e), 0.0)
-        dv[:, :, c0:c1] = torch.einsum("bhqk,bhqd->bhkd", p, dof)
-        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vb)
-        dsb = p * (dp - di)  # gradient of (scores + bias), unscaled
-        ds = dsb * sm_scale
-        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kb)
-        dk[:, :, c0:c1] = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
-        if dkb is not None:
-            dkb[:, c0:c1] = dsb.sum(dim=(1, 2))
-    back = lambda t, like: t.transpose(1, 2).to(like.dtype)  # noqa: E731
-    return back(dq, q), back(dk, k), back(dv, v), dkb
+        return (dq, _group_sum(dk, hkv, k.dtype), _group_sum(dv, hkv, v.dtype),
+                None, None, None, None, None)
 
 
 class _FlashAttentionMaskedFn(torch.autograd.Function):
@@ -421,7 +441,7 @@ class _FlashAttentionMaskedFn(torch.autograd.Function):
         q, k, v, o, lse, kv_lens, k_bias = ctx.saved_tensors
         hkv = k.shape[2]
         group = q.shape[2] // hkv
-        dq, dk, dv, dkb = flash_attention_bwd_masked_plain(
+        dq, dk, dv, dkb, _ = flash_attention_bwd_masked_plain(
             q, repeat_kv(k, group), repeat_kv(v, group), o, lse, do,
             sm_scale=ctx.scale, causal=ctx.causal, kv_lens=kv_lens, k_bias=k_bias,
         )
@@ -431,6 +451,39 @@ class _FlashAttentionMaskedFn(torch.autograd.Function):
             dq, _group_sum(dk, hkv, k.dtype), _group_sum(dv, hkv, v.dtype),
             None, dkb, None, None,
         )
+
+
+class _FlashAttentionRelFn(torch.autograd.Function):
+    """Custom gradient of relative-bias flash attention (JAX
+    ``_flash_attention_core_rel``, ``ops/flash.py:1421-1494``): K1's
+    relative-bias mode with lse forward; the plain blockwise backward
+    (JAX's is XLA too) gives dq, dk, dv and the gradient of the bias
+    vector ``vec``, which autograd carries to the table or the slopes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, vec, causal: bool, scale: float, count: str):
+        sq, skv = q.shape[1], k.shape[1]
+        o, lse = _on_device(
+            q,
+            lambda: _flash_fwd_bias_cuda(q, k, v, causal, scale, count, vec=vec, save_lse=True),
+            lambda: flash_attention_with_lse_plain(q, k, v, causal=causal, sm_scale=scale,
+                                                   bias=vector_bias(vec, sq, skv)),
+        )
+        ctx.save_for_backward(q, k, v, o, lse, vec)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, vec = ctx.saved_tensors
+        hkv = k.shape[2]
+        group = q.shape[2] // hkv
+        dq, dk, dv, _, dvec = flash_attention_bwd_masked_plain(
+            q, repeat_kv(k, group), repeat_kv(v, group), o, lse, do,
+            sm_scale=ctx.scale, causal=ctx.causal, rel_vec=vec,
+        )
+        return (dq, _group_sum(dk, hkv, k.dtype), _group_sum(dv, hkv, v.dtype),
+                dvec.to(vec.dtype), None, None, None)
 
 
 def flash_attention(
@@ -444,49 +497,70 @@ def flash_attention(
     k_bias: Optional[torch.Tensor] = None,
     rel_bias: Optional[RelBias] = None,
     attn_bias: Optional[torch.Tensor] = None,
+    window: Optional[Window] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[Seed] = None,
 ) -> torch.Tensor:
     """Attention. q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D)
     in q's dtype, fp32 softmax. fp32 inputs are computed in fp32 on both
     paths (never in bf16). ``kv_lens`` (B,) int32 valid key lengths and
     ``k_bias`` (B, Skv) additive per-key score bias (0 = attend,
-    ``DEFAULT_MASK_VALUE`` = ignore) may be combined. Differentiable in q, k,
-    v and ``k_bias``; the gradients come back in the inputs' dtypes.
-    ``rel_bias`` (T5 buckets or ALiBi, heads = Hq) or ``attn_bias`` (B,
-    1|Hq, Sq, Skv) fp32 add a structured score bias, forward only: with an
-    input that requires grad they raise ``NotImplementedError``."""
+    ``DEFAULT_MASK_VALUE`` = ignore) may be combined. ``window`` (lo, hi):
+    inclusive bounds on rel = col - (row + Skv - Sq), None = open on that
+    side; ``window=(-w + 1, 0)`` with ``causal=True`` is local attention
+    over the last w keys. ``dropout_rate`` in (0, 1) with ``dropout_seed``
+    (int or one-element tensor): attention-probability dropout with the
+    positional mask of ``ops/dropout.py``. ``rel_bias`` (T5 buckets or
+    ALiBi, heads = Hq) or ``attn_bias`` (B, 1|Hq, Sq, Skv) fp32 add a
+    structured score bias. Combinations follow the JAX function's rules.
+    Differentiable in q, k, v, ``k_bias`` and the ``rel_bias`` table or
+    slopes; the gradients come back in the inputs' dtypes. ``attn_bias``
+    is forward only: with an input that requires grad it raises
+    ``NotImplementedError``."""
     _validate(q, k, v, causal, kv_lens, k_bias)
-    _validate_bias(q, k, kv_lens, k_bias, rel_bias, attn_bias)
+    _validate_options(q, k, kv_lens, k_bias, rel_bias, attn_bias, window, dropout_rate,
+                      dropout_seed)
     scale = softmax_scale(q.shape[-1], sm_scale)
-    streams = kv_lens is not None or k_bias is not None
+    sq, skv = q.shape[1], k.shape[1]
+    rate = float(dropout_rate) if dropout_rate > 0.0 else 0.0
+    seed = seed_u32(dropout_seed) if rate > 0.0 else None
     table = None
     if rel_bias is not None:
         table = rel_bias.table if isinstance(rel_bias, T5RelBias) else rel_bias.slopes
     grads = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (q, k, v, k_bias, attn_bias, table)
     )
-    if rel_bias is not None or attn_bias is not None:
+    if attn_bias is not None:
         if grads:
             raise NotImplementedError(
-                "the backward of flash_attention with rel_bias/attn_bias (the relative-bias "
-                "table gradient) is not ported yet (ROADMAP A10, B10)"
-            )
-        if q.device.type == "cuda":
-            return _flash_fwd_bias_cuda(q, k, v, causal, scale, rel_bias, attn_bias)
-        if q.device.type == "cpu":
-            return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale,
-                                         rel_bias=rel_bias, attn_bias=attn_bias)
-        raise ValueError(f"unsupported device {q.device}")
-    if grads and streams:
+                "flash_attention with attn_bias has no backward (as the JAX function)")
+        return _on_device(
+            q,
+            lambda: _flash_fwd_bias_cuda(q, k, v, causal, scale, "pfa_flash_fwd_densebias",
+                                         dense=attn_bias)[0],
+            lambda: flash_attention_plain(q, k, v, causal=causal, sm_scale=scale,
+                                          attn_bias=attn_bias),
+        )
+    if rel_bias is not None:
+        vec = _rel_vector(rel_bias, sq, skv)
+        if grads:
+            return _FlashAttentionRelFn.apply(q, k, v, vec, causal, scale, _rel_counter(rel_bias))
+        return _on_device(
+            q,
+            lambda: _flash_fwd_bias_cuda(q, k, v, causal, scale, _rel_counter(rel_bias), vec=vec)[0],
+            lambda: flash_attention_with_lse_plain(q, k, v, causal=causal, sm_scale=scale,
+                                                   bias=vector_bias(vec, sq, skv))[0],
+        )
+    if grads and (kv_lens is not None or k_bias is not None):
         return _FlashAttentionMaskedFn.apply(q, k, v, kv_lens, k_bias, causal, scale)
     if grads:
-        return _FlashAttentionFn.apply(q, k, v, causal, scale)
-    if q.device.type == "cuda":
-        return _flash_fwd_cuda(q, k, v, causal, scale, False, kv_lens, k_bias)[0]
-    if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, causal=causal, sm_scale=scale, kv_lens=kv_lens, k_bias=k_bias
-        )
-    raise ValueError(f"unsupported device {q.device}")
+        return _FlashAttentionFn.apply(q, k, v, causal, scale, window, rate, seed)
+    kw = dict(kv_lens=kv_lens, k_bias=k_bias, window=window, dropout_rate=rate, dropout_seed=seed)
+    return _on_device(
+        q,
+        lambda: _flash_fwd_cuda(q, k, v, causal, scale, False, **kw)[0],
+        lambda: flash_attention_plain(q, k, v, causal=causal, sm_scale=scale, **kw),
+    )
 
 
 def flash_attention_with_lse(

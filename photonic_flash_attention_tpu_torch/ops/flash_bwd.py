@@ -13,11 +13,19 @@ Layout is the port's (B, S, H, D) (the JAX functions take (B, H, S, D));
 lse and di are (B, H, Sq) fp32, lse in natural log. K/V come in already
 repeated to the q heads for GQA; the caller sums dk/dv over the group
 (``ops/flash.py``). ``di = rowsum(o * dO)`` is computed in fp32 PyTorch,
-as the JAX functions compute it in XLA. The dropout and window streams of
-the grid pair are a later slice (ROADMAP B10) and raise here.
+as the JAX functions compute it in XLA. The grid pair's streams are
+here too: the sliding ``window`` (lo, hi) on rel = col - (row + Skv - Sq)
+(JAX ``_tile_masks``), whose key and query tile ranges the kernels walk,
+and attention dropout (``dropout_rate``, ``dropout_seed``), whose keep
+mask K4 and K5 regenerate from the position (``ops/dropout.py``): it
+scales dV's P and dP by 1 / (1 - rate) where kept, and di = rowsum(o * dO)
+over the dropped output (JAX ``_p_and_ds``).
 
 For CUDA tensors :func:`flash_attention_bwd` launches K4 and K5 (or
-raises); for CPU tensors it runs :func:`flash_attention_bwd_plain`.
+raises); for CPU tensors it runs :func:`flash_attention_bwd_plain`, the
+blockwise :func:`flash_attention_bwd_masked_plain` (also the whole
+backward of the key-stream and relative-bias paths of ``ops/flash.py``,
+as the JAX package keeps those in XLA).
 """
 
 from __future__ import annotations
@@ -28,9 +36,39 @@ import torch
 
 from . import _build
 from ._build import KERNEL_DTYPES, KERNEL_HEAD_DIMS
-from .reference import attention_scores, causal_keep
+from .dropout import Seed, dropout_scale, keep_scale, keep_threshold, seed_u32
+from .reference import Window, window_keep
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+#: An open side of a window as the kernels take it (|rel| never reaches it).
+WINDOW_OPEN = 1 << 30
+
+
+def kernel_window(window: Optional[Window]) -> Tuple[int, int]:
+    """A window (lo, hi) as the kernels' two ints, open sides at
+    -/+ ``WINDOW_OPEN``."""
+    lo, hi = window if window is not None else (None, None)
+    lo = -WINDOW_OPEN if lo is None else max(int(lo), -WINDOW_OPEN)
+    hi = WINDOW_OPEN if hi is None else min(int(hi), WINDOW_OPEN)
+    return lo, hi
+
+
+def kernel_dropout(rate: float, seed: Optional[Seed]) -> Tuple[int, int, float]:
+    """(seed, keep threshold, 1 / (1 - rate)) as the kernels take them;
+    threshold 0 keeps every score."""
+    if rate <= 0.0:
+        return 0, 0, 1.0
+    return seed_u32(seed), keep_threshold(rate), keep_scale(rate)
+
+
+def validate_dropout(rate: float, seed: Optional[Seed]) -> None:
+    """The JAX rules: a rate in (0, 1), and a seed with it."""
+    if rate > 0.0:
+        if not 0.0 < rate < 1.0:
+            raise ValueError(f"dropout_rate must be in (0, 1), got {rate}")
+        if seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
 
 
 def bwd_unrolled_supported(seq_len: int, head_dim: int) -> bool:
@@ -81,30 +119,99 @@ def flash_attention_bwd_plain(
     *,
     sm_scale: float,
     causal: bool,
+    window: Optional[Window] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[Seed] = None,
 ) -> Grads:
-    """K4/K5's plain version, in fp32, from the formulas of the JAX kernels
-    (``flash_bwd.py::_p_and_ds``), not through autograd:
+    """K4/K5's plain version: :func:`flash_attention_bwd_masked_plain`
+    without key streams or bias, (dq, dk, dv) in the inputs' dtypes."""
+    return flash_attention_bwd_masked_plain(
+        q, k, v, o, lse, do, sm_scale=sm_scale, causal=causal, window=window,
+        dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+    )[:3]
 
-        P = exp(S*scale - lse)   dV = P^T dO   dP = dO V^T
-        dS = P * (dP - di) * scale   dK = dS^T Q   dQ = dS K
 
-    The mask is applied before the exp, so rows with lse = -inf give P = 0.
-    Returns (dq, dk, dv) in the inputs' dtypes.
-    """
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    logits = attention_scores(q, k, sm_scale=sm_scale) - lse.float()[..., None]
-    if causal:
-        keep = causal_keep(q.shape[1], k.shape[1], q.device)
-        p = torch.where(keep, torch.exp(logits), 0.0)
-    else:
-        p = torch.exp(logits)
-    di = flash_bwd_di(o, do)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = p * (dp - di[..., None]) * sm_scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+def flash_attention_bwd_masked_plain(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, H, D), already repeated over the GQA group
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,  # (B, H, Sq) natural log
+    do: torch.Tensor,
+    *,
+    sm_scale: float,
+    causal: bool,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_bias: Optional[torch.Tensor] = None,
+    window: Optional[Window] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[Seed] = None,
+    rel_vec: Optional[torch.Tensor] = None,
+    block_kv: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+           Optional[torch.Tensor]]:
+    """The plain backward (JAX ``_flash_bwd``, ``ops/flash.py:717``, with
+    the formulas of the Pallas pair's ``_p_and_ds``), one KV block at a
+    time in float32, not through autograd:
+
+        P = exp(S*scale + bias - lse)   dV = (P*M)^T dO   dP = (dO V^T) * M
+        dS = P * (dP - di)   dK = dS^T Q * scale   dQ = dS K * scale
+
+    P is zero outside the valid keys (causal, window, lengths; masked before
+    the exp, so a row with lse = -inf gives P = 0), M the dropout mask's
+    multiplier (1 without dropout), di = rowsum(o * dO). ``rel_vec``
+    (H, Sq+Skv-1) is K1's relative-bias vector (rel = col - (row + Skv -
+    Sq) at index col - row + Sq - 1). Returns (dq, dk, dv) in the inputs'
+    dtypes, the ``k_bias`` gradient (B, Skv) fp32 (sum of ds over heads and
+    query rows) or None, and the ``rel_vec`` gradient (H, Sq+Skv-1) fp32
+    (sum of ds over batch and each diagonal; the JAX table gradient is its
+    sum over each bucket, the slope gradient its dot with rel) or None."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2)
+    vf = v.float().transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    di = (o.float().transpose(1, 2) * dof).sum(-1, keepdim=True)
+    lse_e = lse.float()[..., None]
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    dkb = torch.empty(b, skv, device=q.device) if k_bias is not None else None
+    dvec = torch.zeros(h, sq + skv - 1, device=q.device) if rel_vec is not None else None
+    for c0 in range(0, skv, block_kv):
+        c1 = min(c0 + block_kv, skv)
+        kb, vb = kf[:, :, c0:c1], vf[:, :, c0:c1]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * sm_scale
+        if rel_vec is not None:
+            idx = (torch.arange(c0, c1, device=q.device)[None, :]
+                   - torch.arange(sq, device=q.device)[:, None] + sq - 1)
+            s = s + rel_vec.float()[:, idx][None]
+        if k_bias is not None:
+            s = s + k_bias.float()[:, None, None, c0:c1]
+        valid = window_keep(sq, skv, causal, window, q.device, c0, c1)
+        if kv_lens is not None:
+            by_len = (torch.arange(c0, c1, device=q.device) < kv_lens.to(q.device).long()[:, None])
+            by_len = by_len[:, None, None, :]
+            valid = by_len if valid is None else valid & by_len
+        p = torch.exp(s - lse_e)
+        if valid is not None:
+            p = torch.where(valid, p, 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vb)
+        pv = p
+        if dropout_rate > 0.0:
+            mscale = dropout_scale(dropout_seed, dropout_rate, b, h, sq, skv, q.device, c0, c1)
+            pv, dp = p * mscale, dp * mscale
+        dv[:, :, c0:c1] = torch.einsum("bhqk,bhqd->bhkd", pv, dof)
+        dsb = p * (dp - di)  # gradient of (scores + bias), unscaled
+        ds = dsb * sm_scale
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kb)
+        dk[:, :, c0:c1] = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+        if dkb is not None:
+            dkb[:, c0:c1] = dsb.sum(dim=(1, 2))
+        if dvec is not None:
+            dvec.index_add_(1, idx.reshape(-1), dsb.sum(0).reshape(h, -1))
+    back = lambda t, like: t.transpose(1, 2).to(like.dtype)  # noqa: E731
+    return back(dq, q), back(dk, k), back(dv, v), dkb, dvec
 
 
 def _check_cuda(q, k, v, do, lse, di) -> None:
@@ -128,8 +235,23 @@ def _check_cuda(q, k, v, do, lse, di) -> None:
             raise ValueError(f"K4/K5 need contiguous inputs; {name} is not")
 
 
-def flash_bwd_dkv(q, k, v, do, lse, di, *, sm_scale: float, causal: bool):
-    """Launch K4 on CUDA tensors: (dk, dv) in k's dtype."""
+def _mode(name: str, window: Optional[Window], dropout_rate: float) -> str:
+    """The launch counter of a K4/K5 launch: its dropout or window mode."""
+    if dropout_rate > 0.0:
+        return f"{name}_dropout"
+    return f"{name}_window" if window is not None else name
+
+
+def _streams(window, dropout_rate, dropout_seed) -> tuple:
+    """The five window and dropout arguments of the C entries."""
+    return (*kernel_window(window), *kernel_dropout(dropout_rate, dropout_seed))
+
+
+def flash_bwd_dkv(q, k, v, do, lse, di, *, sm_scale: float, causal: bool,
+                  window: Optional[Window] = None, dropout_rate: float = 0.0,
+                  dropout_seed: Optional[Seed] = None):
+    """Launch K4 on CUDA tensors: (dk, dv) in k's dtype. Counted as
+    ``pfa_flash_bwd_dkv``, ``_window`` or ``_dropout``."""
     _check_cuda(q, k, v, do, lse, di)
     b, sq, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -137,13 +259,18 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, sm_scale: float, causal: bool):
         "pfa_flash_bwd_dkv", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, sq, k.shape[1], h, d, float(sm_scale), int(causal), _build.DTYPE_CODES[q.dtype],
+        b, sq, k.shape[1], h, d, float(sm_scale), int(causal),
+        *_streams(window, dropout_rate, dropout_seed), _build.DTYPE_CODES[q.dtype],
+        count_as=_mode("pfa_flash_bwd_dkv", window, dropout_rate),
     )
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, do, lse, di, *, sm_scale: float, causal: bool):
-    """Launch K5 on CUDA tensors: dq in q's dtype."""
+def flash_bwd_dq(q, k, v, do, lse, di, *, sm_scale: float, causal: bool,
+                 window: Optional[Window] = None, dropout_rate: float = 0.0,
+                 dropout_seed: Optional[Seed] = None):
+    """Launch K5 on CUDA tensors: dq in q's dtype. Counted as
+    ``pfa_flash_bwd_dq``, ``_window`` or ``_dropout``."""
     _check_cuda(q, k, v, do, lse, di)
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
@@ -151,7 +278,9 @@ def flash_bwd_dq(q, k, v, do, lse, di, *, sm_scale: float, causal: bool):
         "pfa_flash_bwd_dq", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dq.data_ptr(),
-        b, sq, k.shape[1], h, d, float(sm_scale), int(causal), _build.DTYPE_CODES[q.dtype],
+        b, sq, k.shape[1], h, d, float(sm_scale), int(causal),
+        *_streams(window, dropout_rate, dropout_seed), _build.DTYPE_CODES[q.dtype],
+        count_as=_mode("pfa_flash_bwd_dq", window, dropout_rate),
     )
     return dq
 
@@ -166,26 +295,27 @@ def flash_attention_bwd(
     *,
     sm_scale: float,
     causal: bool,
-    window: Optional[Tuple[Optional[int], Optional[int], str]] = None,
+    window: Optional[Window] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[torch.Tensor] = None,
+    dropout_seed: Optional[Seed] = None,
 ) -> Grads:
     """Flash-attention backward: (dq, dk, dv) in the inputs' dtypes.
 
     q, o, do (B, Sq, H, D); k, v (B, Skv, H, D), repeated for GQA; lse
     (B, H, Sq) fp32 natural log, as ``flash_attention_with_lse`` returns
-    it. O(S) memory on CUDA: probability tiles exist only in registers.
+    it. ``window`` (lo, hi) and ``dropout_rate``/``dropout_seed`` must be
+    the forward's. O(S) memory on CUDA: probability tiles exist only in
+    registers.
     """
-    if window is not None or dropout_rate > 0.0 or dropout_seed is not None:
-        raise NotImplementedError(
-            "window and dropout streams of the backward are not ported yet (ROADMAP B10)"
-        )
+    validate_dropout(dropout_rate, dropout_seed)
     _validate(q, k, v, o, lse, do, causal)
+    kw = dict(sm_scale=sm_scale, causal=causal, window=window, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
     if q.device.type == "cuda":
         di = flash_bwd_di(o, do)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, sm_scale=sm_scale, causal=causal)
-        dq = flash_bwd_dq(q, k, v, do, lse, di, sm_scale=sm_scale, causal=causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+        dq = flash_bwd_dq(q, k, v, do, lse, di, **kw)
         return dq, dk, dv
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale=sm_scale, causal=causal)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     raise ValueError(f"unsupported device {q.device}")

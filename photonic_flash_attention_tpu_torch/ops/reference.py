@@ -8,7 +8,8 @@ returned weights; and ``attention_blockwise``, the online-softmax recurrence
 over KV blocks in plain PyTorch (O(S) memory in the scores). The first is
 the plain version of the fused short-sequence path (``ops/fused.py``) and
 the oracle the tests compare against. ``cdiv`` and ``round_up`` are the
-JAX package's ``ops/pallas_utils.py`` helpers, copied.
+JAX package's ``ops/pallas_utils.py`` helpers, copied; ``window_keep`` is
+the flash kernels' causal and sliding-window predicate.
 
 Shape convention: (batch, seq, num_heads, head_dim).
 """
@@ -37,12 +38,36 @@ def softmax_scale(head_dim: int, sm_scale: Optional[float]) -> float:
     return sm_scale if sm_scale is not None else head_dim ** -0.5
 
 
+Window = Tuple[Optional[int], Optional[int]]
+
+
 def causal_keep(sq: int, skv: int, device) -> torch.Tensor:
     """(Sq, Skv) bool, True where query row i may see key j: the causal mask
     aligned to the sequence end, j <= i + Skv - Sq (as the JAX reference)."""
-    row = torch.arange(sq, device=device)[:, None]
-    col = torch.arange(skv, device=device)[None, :]
-    return col <= row + (skv - sq)
+    return window_keep(sq, skv, True, None, device)
+
+
+def window_keep(
+    sq: int, skv: int, causal: bool, window: Optional[Window], device,
+    c0: int = 0, c1: Optional[int] = None,
+) -> Optional[torch.Tensor]:
+    """(Sq, c1 - c0) bool, True where query row i may see key j in
+    c0..c1-1: the end-aligned causal mask and the sliding ``window`` (lo,
+    hi), inclusive bounds on rel = j - (i + Skv - Sq), None leaving that
+    side open (the JAX kernels' "inside" window). None when every key is
+    visible."""
+    if not causal and window is None:
+        return None
+    c1 = skv if c1 is None else c1
+    rel = (torch.arange(c0, c1, device=device)[None, :]
+           - torch.arange(sq, device=device)[:, None] - (skv - sq))
+    keep = rel <= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
+    lo, hi = window if window is not None else (None, None)
+    if lo is not None:
+        keep = keep & (rel >= lo)
+    if hi is not None:
+        keep = keep & (rel <= hi)
+    return keep
 
 
 def repeat_kv(t: torch.Tensor, group: int) -> torch.Tensor:

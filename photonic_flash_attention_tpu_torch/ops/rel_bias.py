@@ -227,6 +227,16 @@ def bias_vector(spec: RelBias, lo: int, n: int) -> torch.Tensor:
                    max_distance=maxd, n=n).contiguous()
 
 
+def vector_bias(vec: torch.Tensor, sq: int, skv: int) -> torch.Tensor:
+    """Dense (1, H, Sq, Skv) bias from K1's per-head vector ``vec`` (H,
+    Sq+Skv-1) over rel = -(Skv-1) .. Sq-1: element (row, col) reads index
+    col - row + Sq - 1 (rel = col - (row + Skv - Sq)). A gather, so the
+    gradient reaches ``vec``."""
+    dev = vec.device
+    idx = torch.arange(skv, device=dev)[None, :] - torch.arange(sq, device=dev)[:, None] + sq - 1
+    return vec[:, idx][None]
+
+
 def materialize(
     spec: RelBias,
     sq: int,
@@ -239,7 +249,4 @@ def materialize(
     (sequence-end alignment, as the flash kernel's causal mask)."""
     off = skv - sq if kv_offset is None else kv_offset
     lo = -(sq - 1) - off
-    vec = bias_vector(spec, lo, sq + skv - 1)  # rel = lo .. skv - 1 - off
-    dev = vec.device
-    idx = torch.arange(skv, device=dev)[None, :] - torch.arange(sq, device=dev)[:, None] + sq - 1
-    return vec[:, idx][None]
+    return vector_bias(bias_vector(spec, lo, sq + skv - 1), sq, skv)  # rel = lo .. skv - 1 - off

@@ -12,10 +12,18 @@ Port of ``photonic_flash_attention_tpu/training/trainer.py`` on one device.
   (non-reentrant), the JAX ``jax.checkpoint``.
 * Parameters stay float32 (master weights); compute runs in the model's
   ``dtype`` (bf16 needs no loss scaling).
+* ``dropout_rng`` (a CPU ``torch.Generator``) gives the run its dropout
+  seeds, as JAX's key: one base seed is drawn from it when the step is
+  built, step ``n`` takes ``fold_seed(base, n)`` and microbatch ``i`` of it
+  ``fold_seed(step_seed, i)`` (``ops/dropout.py``), and the loss passes the
+  seed to the model (``model(ids, dropout_seed=...)``), which derives one
+  per layer. No layer advances a generator, so a remat recompute draws the
+  same masks. The schedule is the port's own: Flax's ``fold_in`` and
+  ``make_rng`` streams are not reproduced.
 
 Attention gradients go through ``ops/flash.py`` (K1 with lse, K4/K5 on
-CUDA). Not in this slice: the mesh and sharded parameters (ROADMAP A12)
-and train-mode dropout (A10); both raise ``NotImplementedError``.
+CUDA). Not in this slice: the mesh and sharded parameters (ROADMAP A12),
+which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.dropout import fold_seed
 from ..utils.logging import get_logger
 
 logger = get_logger("training")
@@ -45,9 +54,11 @@ class TrainState:
     optimizer: torch.optim.Optimizer
 
 
-def lm_loss(model: nn.Module, batch: Batch) -> torch.Tensor:
-    """Next-token cross entropy in float32 with an optional loss mask."""
-    logits = model(batch["input_ids"].long())
+def lm_loss(model: nn.Module, batch: Batch, dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross entropy in float32 with an optional loss mask;
+    ``dropout_seed`` reaches the model's train-mode dropout."""
+    ids = batch["input_ids"].long()
+    logits = model(ids) if dropout_seed is None else model(ids, dropout_seed=dropout_seed)
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("loss_mask")
@@ -78,30 +89,35 @@ def make_train_step(
     ``batch`` tensors have a leading microbatch axis when
     ``accum_steps > 1``: shape (accum, per_step_batch, ...). ``metrics`` are
     ``{"loss", "grad_norm"}``, ``grad_norm`` the global L2 norm of the
-    gradient before the update.
+    gradient before the update. With ``dropout_rng`` the loss is called as
+    ``loss_fn(model, batch, dropout_seed=seed)`` with the step's (and
+    microbatch's) seed; without it, as ``loss_fn(model, batch)``.
     """
-    if dropout_rng is not None:
-        raise NotImplementedError("train-mode dropout is not ported yet (ROADMAP A10)")
     base_loss = loss_fn or lm_loss
+    base_seed = (int(torch.randint(0, 2**31 - 1, (1,), generator=dropout_rng))
+                 if dropout_rng is not None else None)
 
-    def one_loss(micro: Batch) -> torch.Tensor:
+    def one_loss(micro: Batch, seed: Optional[int]) -> torch.Tensor:
+        kw = {} if seed is None else {"dropout_seed": seed}
         if remat:
-            return checkpoint(base_loss, model, micro, use_reentrant=False)
-        return base_loss(model, micro)
+            return checkpoint(base_loss, model, micro, use_reentrant=False, **kw)
+        return base_loss(model, micro, **kw)
 
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         optimizer.zero_grad(set_to_none=True)
+        step_seed = fold_seed(base_seed, state.step) if base_seed is not None else None
         if accum_steps == 1:
-            loss = one_loss(batch)
+            loss = one_loss(batch, step_seed)
             loss.backward()
             loss = loss.detach()
         else:
             n_micro = next(iter(batch.values())).shape[0]
             loss = torch.zeros((), device=params[0].device)
             for i in range(n_micro):
-                micro_loss = one_loss({k: v[i] for k, v in batch.items()}) / accum_steps
+                seed = fold_seed(step_seed, i) if step_seed is not None else None
+                micro_loss = one_loss({k: v[i] for k, v in batch.items()}, seed) / accum_steps
                 micro_loss.backward()
                 loss += micro_loss.detach()
         gnorm = _global_norm([p.grad for p in params if p.grad is not None])
@@ -119,6 +135,8 @@ class Trainer:
       model: an ``nn.Module`` mapping input ids to logits, on its device.
       optimizer: a ``torch.optim`` optimizer over the model's parameters.
       mesh, param_specs: sharded training; not ported yet (ROADMAP A12).
+      dropout_rng: a CPU ``torch.Generator`` seeding train-mode dropout
+        (``make_train_step``); None leaves the model's own convention.
     """
 
     def __init__(
@@ -131,6 +149,7 @@ class Trainer:
         accum_steps: int = 1,
         remat: bool = False,
         loss_fn: Optional[Callable] = None,
+        dropout_rng: Optional[torch.Generator] = None,
     ) -> None:
         if mesh is not None or param_specs is not None:
             raise NotImplementedError("mesh-sharded training is not ported yet (ROADMAP A12)")
@@ -138,7 +157,8 @@ class Trainer:
         self.optimizer = optimizer
         self.accum_steps = accum_steps
         self._step_fn = make_train_step(
-            model, optimizer, accum_steps=accum_steps, remat=remat, loss_fn=loss_fn
+            model, optimizer, accum_steps=accum_steps, remat=remat, loss_fn=loss_fn,
+            dropout_rng=dropout_rng,
         )
         self.history: list = []
 

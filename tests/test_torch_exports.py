@@ -1,0 +1,71 @@
+"""The port's public names are the JAX package's, minus those not ported.
+
+The JAX package exports its config functions in ``__all__`` and re-exports
+the flash functions and the drop-in layers lazily (``__getattr__``);
+``models`` lists its names in ``__all__``. The port must resolve every one
+of them except the names of ROADMAP items still open (listed below), and
+export nothing the JAX package does not.
+"""
+
+import ast
+import inspect
+
+import pytest
+
+import photonic_flash_attention_tpu as jax_pkg
+import photonic_flash_attention_tpu.models as jax_models
+import photonic_flash_attention_tpu_torch as port
+import photonic_flash_attention_tpu_torch.models as port_models
+
+#: Top-level names not ported yet: model conversion (ROADMAP A10).
+NOT_PORTED = {"convert_to_photonic"}
+#: ``models`` names not ported yet: BERT and conversion (A10), Llama (A8),
+#: ``param_sharding_rules`` (A12); the ``load_hf_*`` functions that
+#: download (``load_hf_gpt2``, ``load_hf_bert``, ``load_hf_llama``) go with
+#: their models' slices.
+MODELS_NOT_PORTED = {
+    "AttentionLayerDetector", "BertConfig", "BertModel", "ConversionReport", "LlamaConfig",
+    "LlamaForCausalLM", "PhotonicConfig", "convert_to_photonic", "llama_param_sharding_rules",
+    "load_hf_bert", "load_hf_gpt2", "load_hf_llama", "param_sharding_rules", "transfer_hf_bert",
+    "transfer_hf_llama",
+}
+
+
+def _lazy_names(module) -> set:
+    """The string constants the module's ``__getattr__`` compares a name
+    with: the names it re-exports lazily."""
+    tree = ast.parse(inspect.getsource(module))
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "__getattr__")
+    return {c.value for c in ast.walk(fn) if isinstance(c, ast.Constant) and isinstance(c.value, str)
+            and c.value.isidentifier()}
+
+
+def test_top_level_names_match_jax():
+    assert port.__all__ == jax_pkg.__all__
+    jax_names = set(jax_pkg.__all__) | _lazy_names(jax_pkg)
+    assert "PhotonicFlashAttention" in jax_names and "get_config" in jax_names
+    for name in sorted(jax_names - NOT_PORTED):
+        assert getattr(port, name) is not None, name
+    for name in NOT_PORTED:
+        with pytest.raises(AttributeError):
+            getattr(port, name)
+    assert _lazy_names(port) <= jax_names
+
+
+def test_models_names_match_jax():
+    assert set(port_models.__all__) == set(jax_models.__all__) - MODELS_NOT_PORTED
+    for name in port_models.__all__:
+        assert getattr(port_models, name) is not None, name
+
+
+def test_exported_objects_are_the_ports():
+    from photonic_flash_attention_tpu_torch.config import GlobalConfig, get_config
+    from photonic_flash_attention_tpu_torch.models.attention import PhotonicFlashAttention
+    from photonic_flash_attention_tpu_torch.ops.flash import flash_attention
+
+    assert port.GlobalConfig is GlobalConfig and port.get_config is get_config
+    assert port.PhotonicFlashAttention is PhotonicFlashAttention
+    assert port.flash_attention is flash_attention
+    assert port.set_global_config(flash_threshold=77).flash_threshold == 77
+    port.reset_config()
+    assert port.get_config().flash_threshold == 512

@@ -222,8 +222,8 @@ def _zeros_bwd(sq=8, skv=8, h=2, d=64, lse_shape=None):
 @pytest.mark.parametrize(
     "kwargs, exc, match",
     [
-        (dict(window=(-4, 0, "inside")), NotImplementedError, "B10"),
-        (dict(dropout_rate=0.1), NotImplementedError, "B10"),
+        (dict(dropout_rate=0.1), ValueError, "requires dropout_seed"),
+        (dict(dropout_rate=1.5, dropout_seed=3), ValueError, "must be in"),
         (dict(lse_shape=(1, 8, 2)), ValueError, "lse"),
         (dict(sq=16), ValueError, "no key"),
     ],

@@ -6,8 +6,10 @@ offset in [-4096, 4096]; ALiBi slopes; ``materialize``), and the plain
 against the JAX ``flash_attention`` (Pallas in interpret mode) at the
 shapes of ``tests/unit/test_flash_relbias.py``: fp32 within 2e-5/2e-5 as
 there, bf16 within ``assert_close``'s 2e-2. Then the JAX function's
-argument errors, and the ``NotImplementedError`` of both entries under
-autograd (their backward is ROADMAP A10/B10).
+argument errors, the relative-bias gradients (q, k, v and the T5 table or
+the ALiBi slopes) against ``jax.grad`` within 5e-4, and the
+``NotImplementedError`` of ``attn_bias`` under autograd (JAX has no
+backward there either).
 """
 
 import jax.numpy as jnp
@@ -178,18 +180,59 @@ def test_argument_errors_as_jax(i):
         flash_attention(tq, tk, tv, **tkw)
 
 
-@pytest.mark.parametrize("what", ["q", "table", "attn_bias"])
-def test_structured_bias_has_no_backward_yet(what):
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 32, 4, d=16))
-    spec = _t5_specs(4)[1]
-    kw = dict(rel_bias=spec)
-    if what == "q":
-        q.requires_grad_()
-    elif what == "table":
-        kw = dict(rel_bias=trb.T5RelBias(spec.table.clone().requires_grad_(), True))
+# (name, b, sq, skv, h, causal, kind): the JAX tests' gradient cases
+# (T5 causal, ALiBi slopes) plus T5 bidirectional and the cross offset.
+GRAD_CASES = [
+    ("t5_bidirectional", 1, 256, 256, 2, False, "t5"),
+    ("t5_causal", 1, 256, 256, 2, True, "t5"),
+    ("t5_cross_offset", 1, 128, 384, 2, True, "t5"),
+    ("alibi", 1, 128, 128, 4, True, "alibi"),
+]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: c[0])
+def test_rel_bias_grads_match_jax(case):
+    """q, k, v and the T5 table or ALiBi slopes: ``torch.autograd`` through
+    the port (K1's relative-bias mode's plain version, the blockwise
+    backward, the gather in ``bias_vector``) against ``jax.grad`` of the
+    JAX function (Pallas forward in interpret mode, the XLA ``_flash_bwd``),
+    5e-4 as the JAX tests (tests/unit/test_flash_relbias.py:131, :169)."""
+    import jax
+
+    name, b, sq, skv, h, causal, kind = case
+    q, k, v = _qkv(b, sq, h, skv=skv)
+    g = np.random.default_rng(5).standard_normal((b, sq, h, 64)).astype(np.float32)
+    if kind == "t5":
+        jspec, tspec = _t5_specs(h, bidirectional=not causal)
+        table, scale = np.array(jspec.table), 1.0
+        jmake = lambda t: jrb.T5RelBias(t, not causal, 128)  # noqa: E731
+        tmake = lambda t: trb.T5RelBias(t, not causal, 128)  # noqa: E731
     else:
-        kw = dict(attn_bias=torch.zeros(1, 4, 32, 32, requires_grad=True))
-    with pytest.raises(NotImplementedError, match="A10"):
+        table, scale = np.array(jrb.alibi_slopes(h)), None
+        jmake, tmake = jrb.ALiBi, trb.ALiBi
+
+    def jax_loss(q, k, v, t):
+        o = jax_flash(q, k, v, causal=causal, sm_scale=scale, rel_bias=jmake(t),
+                      block_q=128, block_kv=128)
+        return jnp.sum(o * g)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (q, k, v, table)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, table)]
+    out = flash_attention(*leaves[:3], causal=causal, sm_scale=scale, rel_bias=tmake(leaves[3]))
+    (out * torch.from_numpy(g)).sum().backward()
+    for label, t, w in zip(("dq", "dk", "dv", "d" + ("table" if kind == "t5" else "slopes")),
+                           leaves, want):
+        assert_close(t.grad.numpy(), np.asarray(w), atol=5e-4, rtol=5e-4, err_msg=label)
+
+
+@pytest.mark.parametrize("what", ["attn_bias"])
+def test_structured_bias_has_no_backward_yet(what):
+    """``attn_bias`` is forward only, as in JAX; inference is fine."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 32, 4, d=16))
+    kw = dict(attn_bias=torch.zeros(1, 4, 32, 32, requires_grad=True))
+    with pytest.raises(NotImplementedError, match="no backward"):
         flash_attention(q, k, v, **kw)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_attention(q.requires_grad_(), k, v, attn_bias=torch.zeros(1, 4, 32, 32))
     with torch.no_grad():  # inference is fine
         assert torch.isfinite(flash_attention(q, k, v, **kw)).all()

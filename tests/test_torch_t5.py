@@ -132,6 +132,48 @@ def test_logits_match_flax(weights, route, dtype):
     assert rel_err_norm(got.float().numpy(), np.asarray(want, np.float32)) <= bound
 
 
+def test_grads_match_flax_on_the_rel_bias_flash_route(weights, monkeypatch):
+    """The gradient of a seq2seq cross entropy over every parameter, both
+    ``rel_embedding`` tables included, against ``jax.grad`` of the Flax
+    model, ``flash_threshold`` lowered in both packages: the stacks'
+    self-attention on the relative-bias flash route (K1's relative-bias
+    mode with lse and the blockwise backward here, the Pallas far/band pair
+    and the XLA ``_flash_bwd`` there), the cross-attention on plain flash.
+    fp32, ``rel_err_norm`` <= 5e-4 per parameter (the JAX rel-bias
+    gradient tests' bound)."""
+    from photonic_flash_attention_tpu_torch.ops import flash as port_flash
+
+    params, state = weights["relu"]
+    enc, dec = _inputs(seed=3)
+    labels = np.random.default_rng(4).integers(0, 512, dec.shape)
+    get_config().update(flash_threshold=16, flash_min_tokens=1)
+    jax_get_config().update(flash_threshold=16, flash_min_tokens=1)
+    jcfg = dataclasses.replace(JaxT5Config.tiny(), dtype=jnp.float32)
+
+    def jax_loss(p):
+        logits = JaxT5(jcfg).apply({"params": p}, jnp.asarray(enc, jnp.int32),
+                                   jnp.asarray(dec, jnp.int32))
+        logp = jax.nn.log_softmax(logits, axis=-1)
+        return -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(labels)[..., None], -1))
+
+    want = t5_params_from_jax(jax.tree_util.tree_map(np.asarray, jax.grad(jax_loss)(params)))
+    model = _port(state)
+    calls = []
+    rel_fn = port_flash._FlashAttentionRelFn.apply
+    monkeypatch.setattr(port_flash._FlashAttentionRelFn, "apply",
+                        lambda *a: calls.append(1) or rel_fn(*a))
+    logits = model(torch.from_numpy(enc), torch.from_numpy(dec))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    loss = -logp.gather(-1, torch.from_numpy(labels)[..., None]).mean()
+    loss.backward()
+    assert len(calls) == 4  # 2 encoder + 2 decoder self-attentions
+    names = [n for n, _ in model.named_parameters()]
+    assert sorted(names) == sorted(want)
+    for name, p in model.named_parameters():
+        assert rel_err_norm(p.grad.numpy(), want[name].numpy()) <= 5e-4, name
+    assert float(model.model.encoder.rel_bias.rel_embedding.grad.abs().max()) > 0
+
+
 def test_gated_gelu_logits_match_flax(weights):
     params, state = weights["gated-gelu"]
     enc, dec = _inputs(seed=1)

@@ -251,6 +251,21 @@ def test_oversized_prompt_rejected(weights):
         eng.submit(list(range(2, 22)), max_new_tokens=2)
 
 
+def test_prompt_bucket_capped_at_enc_max_len(weights, dense):
+    """A 20-token prompt with enc_max_len 24: its power-of-two bucket (32)
+    passes enc_max_len, so the prefill pads to 24 instead; the request is
+    served to completion and frees its slot and pages. (The JAX engine pads
+    to 32 and its prefill step then refuses the request, which keeps its
+    slot and pages: ROADMAP Queue C.)"""
+    prompt = np.random.default_rng(46).integers(2, 512, 20).tolist()
+    eng = _engine(weights[1], num_pages=16, max_batch=1, enc_max_len=24)
+    outs = eng.generate([prompt], max_new_tokens=5)
+    assert len(outs[0]) == 5
+    assert_greedy_parity(dense, prompt, outs[0])
+    st = eng.status()
+    assert st["active"] == 0 and st["pages_free"] == st["pages_total"]
+
+
 def test_t5_engine_surface(weights):
     """No chunked prefill for T5 (as JAX); the status names the family."""
     with pytest.raises(ValueError, match="no chunked-prefill step"):

@@ -211,11 +211,77 @@ def test_unported_training_options_raise(jax_params):
     opt = torch.optim.SGD(model.parameters(), lr=0)
     with pytest.raises(NotImplementedError, match="A12"):
         Trainer(model, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_train_step(model, opt, dropout_rng=torch.Generator())
-    drop = GPT2LMHead(dataclasses.replace(PORT_CFG, attn_pdrop=0.1)).train()
-    with pytest.raises(NotImplementedError, match="A10"):
-        drop(torch.zeros(1, 8, dtype=torch.long))
+
+
+DROP_CFG = dataclasses.replace(PORT_CFG, attn_pdrop=0.1)
+
+
+def _dropout_run(params, steps=2, seed=0, **kwargs):
+    """``steps`` AdamW steps of GPT-2 tiny with attn_pdrop 0.1 through
+    ``Trainer(dropout_rng=Generator(seed))``: (losses, the model after)."""
+    model = GPT2LMHead(DROP_CFG)
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    trainer = Trainer(model, torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4),
+                      dropout_rng=torch.Generator().manual_seed(seed), **kwargs)
+    state, losses = trainer.init_state(), []
+    for i in range(steps):
+        state, metrics = trainer.train_step(state, _batch(seed=20 + i, accum=kwargs.get(
+            "accum_steps", 1)))
+        losses.append(float(metrics["loss"]))
+    return losses, model
+
+
+def test_dropout_training_is_reproducible_from_its_seed(jax_params):
+    """Two runs from one dropout seed are equal to the bit; another seed, or
+    no dropout, gives another loss; the flash route's dropout backward ran
+    (K4/K5's plain version with the mask)."""
+    a, model_a = _dropout_run(jax_params)
+    b, model_b = _dropout_run(jax_params)
+    c, _ = _dropout_run(jax_params, seed=1)
+    assert a == b
+    for pa, pb in zip(model_a.parameters(), model_b.parameters()):
+        assert torch.equal(pa, pb)
+    assert a[0] != c[0]
+    with torch.no_grad():
+        plain = float(lm_loss(_port_model(jax_params), _torch_batch(_batch(seed=20))))
+    assert abs(a[0] - plain) > 1e-4 and abs(a[0] - plain) < 0.1 * plain
+
+
+def test_dropout_remat_gives_the_same_gradients(jax_params, monkeypatch):
+    """remat recomputes the forward with the same seeds: the same masks, so
+    the same loss and parameters after an SGD step; microbatches take
+    their own seeds."""
+    calls = []
+    bwd = port_flash.flash_attention_bwd
+    monkeypatch.setattr(port_flash, "flash_attention_bwd",
+                        lambda *a, **k: calls.append(k["dropout_rate"]) or bwd(*a, **k))
+    batch = _torch_batch(_batch(seed=4))
+    results = []
+    for remat in (False, True):
+        model = GPT2LMHead(DROP_CFG)
+        model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params)))
+        opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+        step = make_train_step(model, opt, remat=remat, dropout_rng=torch.Generator().manual_seed(3))
+        _, metrics = step(TrainState(0, model, opt), batch)
+        results.append((float(metrics["loss"]), [p.detach().clone() for p in model.parameters()]))
+    assert calls == [0.1] * (2 * PORT_CFG.n_layer)
+    assert results[0][0] == results[1][0]
+    for a, b in zip(results[0][1], results[1][1]):
+        assert torch.allclose(a, b, rtol=1e-6, atol=1e-7)
+    losses, _ = _dropout_run(jax_params, steps=1, accum_steps=2)
+    assert np.isfinite(losses[0])
+
+
+def test_dropout_only_in_train_mode(jax_params):
+    model = GPT2LMHead(DROP_CFG)
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params)))
+    ids = torch.from_numpy(_batch(seed=6)["input_ids"]).long()
+    with torch.no_grad():
+        want = _port_model(jax_params)(ids)
+        assert torch.equal(model.eval()(ids, dropout_seed=5), want)
+        model.train()
+        a, b = model(ids, dropout_seed=5), model(ids, dropout_seed=5)
+    assert torch.equal(a, b) and not torch.equal(a, want)
 
 
 def _qkv(b, s, h=2, d=64, seed=8):
