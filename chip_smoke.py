@@ -61,10 +61,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    cross entropy: the loss must fall, K1's relative-bias mode with lse must
    launch for every self-attention and K1/K4/K5 for every cross-attention;
    the 2+2-layer cut's gradient (fp32 on the card) must match the CPU's on
-   every parameter, both ``rel_embedding`` tables included.
+   every parameter, both ``rel_embedding`` tables included;
+9. ops and CLI: K7 (``fused_softmax``: attention scores (4, 12, 2048, 2048)
+   bf16, GPT-2's vocabulary row (8, 1024, 50257) fp32) and K8 (GPT-2
+   medium's LayerNorm (8, 1024, 1024) bf16, Llama-2-7B's RMSNorm (8, 2048,
+   4096) bf16), with small and ragged rows, against their plain versions
+   and timed against torch.softmax / F.layer_norm / F.rms_norm; the
+   LayerNorm backward on the card against the CPU; ``paged_attention`` (the
+   B14 entry on K3) at GPT-2 medium (int8 rank-5 pool) and Llama-2-7B
+   decode (bf16 pool, lengths to 4096) against its plain version; then the
+   main path: the public ops at those shapes (every kind of
+   ``apply_nonlinearity``, ``paged_attention_auto`` must take K3, the
+   quantization round trip of GPT-2 medium's K/V) and the CLI in process
+   (``calibrate`` with every gate passing, ``benchmark``, ``serve-bench``,
+   ``device-info --json``), each path counted from 0; K7, K8 in both modes
+   and the B14 entry must launch in the ops path.
 
-The last lines are the card's name and power limit, the per-kernel JSON
-summary and, last of all, ``{"ok": true, "device": {...}}``. The script
+The last lines are the per-kernel JSON summary (each kernel's launches in
+all main paths together, and by path), the card's name and power limit
+and, last of all, ``{"ok": true, "device": {...}}``. The script
 imports nothing of JAX. ``--profile DIR`` adds a torch.profiler breakdown
 of three single training steps and of one T5-large serving run (bf16
 compute and pool) (device activity only: busy time, idle share of each
@@ -97,6 +112,7 @@ _FWD = "photonic_flash_attention_tpu_torch/csrc/flash_fwd.cu"
 _PAGED = "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu"
 _BWD = "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu"
 _QUANT = "photonic_flash_attention_tpu_torch/csrc/flash_quant.cu"
+_ROWNORM = "photonic_flash_attention_tpu_torch/csrc/rownorm.cu"
 _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
 SOURCES = {
@@ -125,8 +141,15 @@ SOURCES = {
     "pfa_flash_fwd_int8full": _FWD,
     "pfa_flash_quant_fp8": _QUANT,
     "pfa_flash_quant_int8": _QUANT,
+    "pfa_softmax": _ROWNORM,
+    "pfa_layer_norm": _ROWNORM,
+    "pfa_rms_norm": _ROWNORM,
+    "pfa_paged_attention": _PAGED,
 }
+#: The kernels and entries of the ops-and-CLI phase (measured there).
+OPS_KERNELS = ("pfa_softmax", "pfa_layer_norm", "pfa_rms_norm", "pfa_paged_attention")
 _B3 = "photonic_flash_attention_tpu/ops/flash_bwd.py"
+_B11 = "photonic_flash_attention_tpu/ops/nonlinearity.py"
 REPLACES = {
     "pfa_flash_fwd_dropout": f"{_B1} (seed_ref :372-391)",
     "pfa_flash_bwd_dkv_dropout": f"{_B3}:167 (seed_ref, _dropout_mscale_t :144)",
@@ -157,14 +180,18 @@ REPLACES = {
     "pfa_flash_fwd_int8full": _B1,
     "pfa_flash_quant_fp8": "photonic_flash_attention_tpu/ops/flash_fp8.py:81",
     "pfa_flash_quant_int8": "photonic_flash_attention_tpu/ops/flash_fp8.py:81",
+    "pfa_softmax": f"{_B11}:76",
+    "pfa_layer_norm": f"{_B11}:136",
+    "pfa_rms_norm": f"{_B11}:136 (rms)",
+    "pfa_paged_attention": "photonic_flash_attention_tpu/ops/paged.py:101",
 }
-#: Modes that no main path runs, reported under their kernel's entry:
-#: K3's int8 compute (engine decode repacks bf16 K/V; serving decode is K3's
-#: float mode over the int8 pool), K6's int8 mode (the engine's kinds
-#: reach K6 through FLASH_FP8 only), ALiBi (no model of the port uses it)
-#: and the sliding window of K1, K4 and K5 (no model of the port sets one).
+#: Modes that no main path runs, reported under their kernel's entry (main
+#: fails if one of them launches there): K3's int8 compute (engine decode
+#: repacks bf16 K/V; serving decode is K3's float mode over the int8 pool),
+#: ALiBi (no model of the port uses it) and the sliding window of K1, K4
+#: and K5 (no model of the port sets one). K6's int8 mode has its own
+#: entry: the CLI's ``calibrate`` runs it.
 NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
-                "pfa_flash_quant_int8": ("pfa_flash_quant_fp8", "int8"),
                 "pfa_flash_fwd_alibi": ("pfa_flash_fwd_relbias", "alibi"),
                 "pfa_flash_fwd_alibi_lse": ("pfa_flash_fwd_relbias_lse", "alibi"),
                 "pfa_flash_fwd_window": ("pfa_flash_fwd", "window"),
@@ -265,6 +292,50 @@ def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``runs``
+    back-to-back calls, so the host's launch overhead hides behind the
+    queue (for kernels that finish before the host can launch the next)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def graph_ms(fn, runs: int = TIMED_RUNS, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``runs`` calls captured in one
+    CUDA graph, the median over ``replays`` replays (CUDA events around
+    each) divided by ``runs``. No host work sits between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / runs)
+    del graph
     return statistics.median(times)
 
 
@@ -2191,6 +2262,342 @@ def phase_t5_training(smi: str) -> dict:
     return launches
 
 
+#: K7's shapes: (what, shape, dtype). The softmax over attention scores at
+#: the headline shape, and over GPT-2's vocabulary row (a ragged D).
+SOFTMAX_CASES = (("attention scores B4 H12 S2048", (4, 12, 2048, 2048), torch.bfloat16),
+                 ("GPT-2 vocabulary row B8 S1024", (8, 1024, 50257), torch.float32))
+#: K8's shapes: (what, shape, dtype, rms). GPT-2 medium's LayerNorm and
+#: Llama-2-7B's RMSNorm (hidden 4096).
+NORM_CASES = (("GPT-2 medium LayerNorm", (8, 1024, 1024), torch.bfloat16, False),
+              ("Llama-2-7B RMSNorm", (8, 2048, 4096), torch.bfloat16, True))
+#: Small and ragged rows (16-byte and one-element paths of both kernels).
+RAGGED_ROWS = ((1, 1), (1000, 200), (1000, 1001), (3, 50257))
+#: Per-element operations counted for the bounds (fp32): softmax max,
+#: subtract, exp, add, divide; LayerNorm add, subtract, multiply-add,
+#: subtract, multiply x3, add; RMSNorm multiply-add, multiply x3.
+ROW_OPS = {"pfa_softmax": 5.0, "pfa_layer_norm": 8.0, "pfa_rms_norm": 4.0}
+#: B14 on K3: (what, B, Hq, Hkv, D, pool dtype, lengths, rank-5 layer or None).
+PAGED_ATTENTION_CASES = (
+    ("(a) GPT-2 medium", 8, 16, 16, 64, torch.int8, (0, 1, 17, 128, 129, 700, 1000, 2000), 7),
+    ("(b) Llama-2-7B decode", 8, 32, 32, 128, torch.bfloat16,
+     (1, 100, 512, 1000, 2048, 3000, 4000, 4096), None),
+)
+
+
+def _row_case_entry(x, name: str, ms: float, whole: float, plain: float, lib,
+                    err: float) -> dict:
+    """One timed row-kernel shape: times, the bound (x read once, written
+    once; gamma and beta are under 0.01 %), the library call."""
+    bnd = card_bound(ROW_OPS[name] * x.numel(), 2 * x.numel() * x.element_size(), torch.float32)
+    return {"shape": list(x.shape), "dtype": str(x.dtype)[6:], "ms": ms, "whole_call_ms": whole,
+            "plain_ms": plain, "library_ms": lib, "max_abs_err": err, **bnd}
+
+
+def _row_times(kernel, public, plain, library) -> tuple:
+    """(kernel, whole call, plain, library) ms of a row kernel: the kernel
+    launched alone (``_build.launch`` on preallocated tensors) and the
+    library call each by ``graph_ms`` (device time, replayed from a CUDA
+    graph); the plain version by ``device_ms``; the public call as one
+    call, its wrapper's host time included (``median_ms``)."""
+    return (graph_ms(kernel), median_ms(public), device_ms(plain, runs=5),
+            None if library is None else graph_ms(library))
+
+
+def _record_rows(results: dict, name: str, case: dict) -> None:
+    """The first timed shape is the kernel's row; every shape is listed."""
+    r = results[name]
+    if "ms" not in r:
+        r.update({k: case[k] for k in ("ms", "whole_call_ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by") if k in case})
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), case["max_abs_err"])
+    r.setdefault("cases", []).append(case)
+
+
+def check_softmax(results: dict) -> None:
+    """K7 against its plain version (rel_err_norm 1e-5 fp32, 1e-2 bf16;
+    rows must sum to 1), timed at SOFTMAX_CASES against torch.softmax."""
+    from photonic_flash_attention_tpu_torch.ops import nonlinearity as nl_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    cases = [(f"ragged rows {r}x{d}", (r, d), dt, False) for r, d in RAGGED_ROWS
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(what, shape, dt, True) for what, shape, dt in SOFTMAX_CASES]
+    for what, shape, dtype, timed in cases:
+        x = (torch.randn(shape, device="cuda", generator=gen) * 3).to(dtype)
+        out = nl_ops.fused_softmax(x)
+        ref = nl_ops.softmax_rows_plain(x.view(-1, shape[-1])).view(shape)
+        torch.cuda.synchronize()
+        bound = 1e-5 if dtype == torch.float32 else 1e-2
+        err = rel_err_norm(out, ref)
+        sums = out.float().sum(-1)
+        line = (f"K7 softmax {what} {list(shape)} {str(dtype)[6:]}: rel_err_norm {err:.3e} "
+                f"(bound {bound}), max |row sum - 1| {float((sums - 1).abs().max()):.3e}")
+        if err > bound or not torch.isfinite(out).all() or float((sums - 1).abs().max()) > 2e-2:
+            raise AssertionError(line)
+        if timed:
+            x2, y = x.view(-1, shape[-1]), torch.empty_like(out)
+            kernel = lambda: _build.launch(  # noqa: E731
+                "pfa_softmax", x.device, x2.data_ptr(), y.data_ptr(), x2.shape[0], shape[-1],
+                _build.DTYPE_CODES[dtype], count_as="pfa_softmax")
+            ms, whole, plain, lib = _row_times(
+                kernel, lambda: nl_ops.fused_softmax(x),
+                lambda: nl_ops.softmax_rows_plain(x2), lambda: torch.softmax(x, dim=-1))
+            case = _row_case_entry(x, "pfa_softmax", ms, whole, plain, lib, max_abs_err(out, ref))
+            _record_rows(results, "pfa_softmax", case)
+            line += (f" | kernel {ms:.4f} ms (whole call {whole:.4f}), plain {plain:.4f} ms, "
+                     f"torch.softmax {lib:.4f} ms, bound {case['bound_ms']:.4f} ms "
+                     f"({case['bound_by']})")
+        print(line, flush=True)
+        del x, out, ref
+
+
+def check_norms(results: dict) -> None:
+    """K8 in both modes against its plain version (rel_err_norm 1e-5 fp32,
+    1e-2 bf16) on inputs of mean 1, timed at NORM_CASES against
+    F.layer_norm / F.rms_norm; then the LayerNorm backward at the GPT-2
+    medium shape on the card against the CPU (5e-2, bf16)."""
+    import torch.nn.functional as F
+
+    from photonic_flash_attention_tpu_torch.ops import nonlinearity as nl_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    cases = [(f"ragged rows {r}x{d}", (r, d), dt, rms, False) for r, d in RAGGED_ROWS[:3]
+             for dt in (torch.float32, torch.bfloat16) for rms in (False, True)]
+    cases += [(what, shape, dt, rms, True) for what, shape, dt, rms in NORM_CASES]
+    for what, shape, dtype, rms, timed in cases:
+        d = shape[-1]
+        x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 1).to(dtype)
+        g = (torch.randn(d, device="cuda", generator=gen) * 0.1 + 1).to(dtype)
+        b = None if rms else (torch.randn(d, device="cuda", generator=gen) * 0.1).to(dtype)
+        name = "pfa_rms_norm" if rms else "pfa_layer_norm"
+        call = ((lambda: nl_ops.fused_rms_norm(x, g)) if rms
+                else (lambda: nl_ops.fused_layer_norm(x, g, b)))
+        out = call()
+        eps = 1e-6 if rms else 1e-5
+        ref = nl_ops.rownorm_plain(x.view(-1, d), g, b, eps, rms).view(shape)
+        torch.cuda.synchronize()
+        bound = 1e-5 if dtype == torch.float32 else 1e-2
+        err = rel_err_norm(out, ref)
+        line = (f"K8 {'RMSNorm' if rms else 'LayerNorm'} {what} {list(shape)} {str(dtype)[6:]}: "
+                f"rel_err_norm {err:.3e} (bound {bound})")
+        if err > bound or not torch.isfinite(out).all():
+            raise AssertionError(line)
+        if timed:
+            x2, y = x.view(-1, d), torch.empty_like(out)
+            g32, b32 = g.float(), None if rms else b.float()
+            kernel = lambda: _build.launch(  # noqa: E731
+                "pfa_rownorm", x.device, x2.data_ptr(), g32.data_ptr(),
+                None if rms else b32.data_ptr(), y.data_ptr(), x2.shape[0], d, 1.0 / d, eps,
+                int(rms), _build.DTYPE_CODES[dtype], count_as=name)
+            if rms:
+                lib = ((lambda: F.rms_norm(x, (d,), g, eps)) if hasattr(F, "rms_norm") else None)
+            else:
+                lib = lambda: F.layer_norm(x, (d,), g, b, eps)  # noqa: E731
+            ms, whole, plain, lib_ms = _row_times(
+                kernel, call, lambda: nl_ops.rownorm_plain(x2, g, b, eps, rms), lib)
+            case = _row_case_entry(x, name, ms, whole, plain, lib_ms, max_abs_err(out, ref))
+            _record_rows(results, name, case)
+            lib_s = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+            line += (f" | kernel {ms:.4f} ms (whole call {whole:.4f}), plain {plain:.4f} ms, "
+                     f"library {lib_s}, bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+        print(line, flush=True)
+        del x, out, ref
+
+    # The backward (plain recompute, as JAX's XLA VJP) on the card against the CPU.
+    shape = NORM_CASES[0][1]
+    d = shape[-1]
+    x, dy = ((torch.randn(shape, device="cuda", generator=gen) * 2 + 1).to(torch.bfloat16)
+             for _ in range(2))
+    g = (torch.randn(d, device="cuda", generator=gen) * 0.1 + 1).to(torch.bfloat16)
+    b = (torch.randn(d, device="cuda", generator=gen) * 0.1).to(torch.bfloat16)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, g, b)]
+        nl_ops.fused_layer_norm(*leaves).backward(dy.to(dev))
+        grads[dev] = [t.grad for t in leaves]
+    errs = [rel_err_norm(a.cpu(), c) for a, c in zip(grads["cuda"], grads["cpu"])]
+    line = (f"K8 LayerNorm backward {list(shape)} bf16, card against CPU: rel_err_norm dx "
+            f"{errs[0]:.3e}, dgamma {errs[1]:.3e}, dbeta {errs[2]:.3e} (bound 5e-2)")
+    if max(errs) > 5e-2:
+        raise AssertionError(line)
+    print(line, flush=True)
+
+
+def _paged_attention_case(gen, b, hq, hkv, d, pool_dtype, lengths, layer):
+    """Pools and inputs for one PAGED_ATTENTION_CASES row: rank 5 (24
+    layers) when ``layer`` is given, else one layer's rank-4 pool; scattered
+    pages; q in the pool's float type (fp32 over an int8 pool)."""
+    page = 128
+    pps = -(-max(lengths) // page)
+    num_pages = b * pps + 1
+    k, v, ks, vs = _serving_pools(pool_dtype, gen, L=24 if layer is not None else 1, hkv=hkv,
+                                  num_pages=num_pages, page=page, d=d)
+    if layer is None:
+        k, v = k[0], v[0]
+        ks, vs = (ks[0], vs[0]) if ks is not None else (None, None)
+    perm = torch.randperm(num_pages - 1, device="cuda", generator=gen)[: b * pps] + 1
+    tables = perm.view(b, pps).to(torch.int32)
+    qdt = torch.float32 if pool_dtype == torch.int8 else pool_dtype
+    q = torch.randn(b, hq, d, device="cuda", generator=gen).to(qdt)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, k, v, lens, tables, ks, vs
+
+
+def check_paged_attention(results: dict) -> None:
+    """The B14 entry (``paged_attention`` on K3's decode attend) against
+    its plain version at PAGED_ATTENTION_CASES (rel_err_norm 1e-3, a row of
+    length 0 gives 0); bytes from the valid tokens."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    worst = 0.0
+    for what, b, hq, hkv, d, pool_dtype, lengths, layer in PAGED_ATTENTION_CASES:
+        q, k, v, lens, tables, ks, vs = _paged_attention_case(gen, b, hq, hkv, d, pool_dtype,
+                                                              lengths, layer)
+        call = lambda: paged_ops.paged_attention(q, k, v, lens, tables, ks, vs,  # noqa: E731
+                                                 layer=layer)
+        out = call()
+        k5, v5, ks5, vs5, lyr = paged_ops._hf_layout(k, v, ks, vs, layer)
+        plain = lambda: paged_ops.paged_decode_attend_plain(  # noqa: E731
+            q.float(), k5, v5, lens, tables, lyr, ks5, vs5, d ** -0.5).to(q.dtype)
+        ref = plain()
+        torch.cuda.synchronize()
+        err = rel_err_norm(out, ref)
+        quant = pool_dtype == torch.int8
+        line = (f"B14 paged_attention on K3 {what}: B{b} H{hq}/{hkv} D{d} page 128 pool "
+                f"{str(pool_dtype)[6:]} {'rank 5' if layer is not None else 'rank 4'}, q "
+                f"{str(q.dtype)[6:]}, lengths {list(lengths)}: rel_err_norm {err:.3e} (bound 1e-3)")
+        empty = lens == 0
+        if err > 1e-3 or not torch.isfinite(out).all() or (out[empty] != 0).any():
+            raise AssertionError(line)
+        worst = max(worst, max_abs_err(out, ref))
+        ms = median_ms(call)
+        plain_ms = median_ms(plain, runs=5)
+        tokens = sum(lengths)
+        nbytes = (2 * tokens * hkv * d * k.element_size() + 2 * 4 * tokens * hkv * quant
+                  + 2 * b * hq * d * q.element_size() + 4 * b + 4 * tables.numel())
+        bnd = card_bound(4.0 * d * hq * tokens, nbytes, torch.float32)
+        line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                 f"({bnd['bound_by']})")
+        print(line, flush=True)
+        case = {"case": what, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "max_abs_err": max_abs_err(out, ref), **bnd}
+        _record_rows(results, "pfa_paged_attention", case)
+    results["pfa_paged_attention"]["max_abs_err"] = worst
+
+
+def _run_cli(argv: list) -> str:
+    """``cli.main(argv)`` in process: its standard output, echoed; rc 0."""
+    import contextlib
+    import io
+
+    from photonic_flash_attention_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    for row in text.splitlines():
+        print(f"cli {argv[0]}: {row}", flush=True)
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)}: rc {rc}")
+    print(f"cli {' '.join(argv)}: rc 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return text
+
+
+def phase_ops(smi: str) -> dict:
+    """The ops surface and the CLI. After the comparisons (kernels against
+    their plain versions, the library times), the main path: the public
+    ops at the full-width shapes (fused_softmax, the norms, every kind of
+    apply_nonlinearity, paged_attention on both cases, paged_attention_auto
+    at the GPT-2 shape, the quantization round trip of GPT-2 medium's KV),
+    then the four CLI commands in process (calibrate's gates must all pass).
+    K7, K8 (both modes) and the B14 entry must launch in the ops path,
+    exactly as often as it calls them; the CLI is a path of its own, its
+    launch counts reset before it. Returns the kernels' results and the
+    two paths' launches."""
+    import tempfile
+
+    from photonic_flash_attention_tpu_torch.config import reset_config
+    from photonic_flash_attention_tpu_torch.core.engine import reset_engine
+    from photonic_flash_attention_tpu_torch.ops import nonlinearity as nl_ops
+    from photonic_flash_attention_tpu_torch.ops import quantization as q_ops
+
+    results = {name: {} for name in OPS_KERNELS}
+    check_softmax(results)
+    check_norms(results)
+    check_paged_attention(results)
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _, shape, dtype in SOFTMAX_CASES:
+        out = nl_ops.fused_softmax(torch.randn(shape, device="cuda", generator=gen).to(dtype))
+        assert out.shape == shape and out.dtype == dtype
+        del out
+    for _, shape, dtype, rms in NORM_CASES:
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        gamma = torch.ones(shape[-1], device="cuda", dtype=dtype)
+        out = nl_ops.fused_rms_norm(x, gamma) if rms else nl_ops.fused_layer_norm(x, gamma)
+        assert out.shape == shape and bool(torch.isfinite(out).all())
+    act = torch.randn(NORM_CASES[0][1], device="cuda", generator=gen).to(torch.bfloat16)
+    for kind in nl_ops.NonlinearityType:
+        out = nl_ops.apply_nonlinearity(kind, act)
+        assert out.shape == act.shape and bool(torch.isfinite(out).all()), kind
+    before_auto = 0
+    for i, (_, b, hq, hkv, d, pool_dtype, lengths, layer) in enumerate(PAGED_ATTENTION_CASES):
+        args = _paged_attention_case(gen, b, hq, hkv, d, pool_dtype, lengths, layer)
+        out = paged_ops.paged_attention(*args, layer=layer)
+        assert bool(torch.isfinite(out).all())
+        if i == 0:  # paged_attention_auto at the GPT-2 shape must take the kernel
+            before_auto = _build.LAUNCHES["pfa_paged_attention"]
+            paged_ops.paged_attention_auto(*args, layer=layer)
+            if _build.LAUNCHES["pfa_paged_attention"] <= before_auto:
+                raise AssertionError("paged_attention_auto did not launch K3 at the GPT-2 shape")
+    kv = torch.randn(2, 8, 1024, 16, 64, device="cuda", generator=gen)  # GPT-2 medium K/V
+    for qdtype, gate in ((torch.int8, 0.05), (torch.float8_e4m3fn, 0.1)):
+        kq, vq = q_ops.quantize_kv(kv[0], kv[1], qdtype)
+        errs = [q_ops.quantization_error(t, qt) for t, qt in ((kv[0], kq), (kv[1], vq))]
+        line = (f"ops: quantize_kv {list(kv.shape[1:])} {str(qdtype)[6:]}: mean_rel_err "
+                f"{[round(e['mean_rel_err'], 5) for e in errs]} (gate {gate}), accuracy "
+                f"{[round(e['accuracy'], 5) for e in errs]}")
+        if max(e["mean_rel_err"] for e in errs) > gate or kq.dequantize().shape != kv[0].shape:
+            raise AssertionError(line)
+        print(line, flush=True)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"ops: main path in {time.perf_counter() - t0:.2f} s; launches {launches}", flush=True)
+    need = {"pfa_softmax": len(SOFTMAX_CASES) + 1, "pfa_layer_norm": 2, "pfa_rms_norm": 2,
+            "pfa_paged_attention": len(PAGED_ATTENTION_CASES) + 1}
+    if launches != need:
+        raise AssertionError(f"ops: launches {launches}, expected {need}")
+    del act, kv, args, out
+    torch.cuda.empty_cache()
+
+    reset_config()
+    reset_engine()
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        report_path = str(Path(tmp) / "calibrate.json")
+        _run_cli(["calibrate", "--patterns", "8", "--device", "cuda", "-o", report_path])
+        report = json.loads(Path(report_path).read_text())
+    gates = {mode: {k: v for k, v in m.items() if k.startswith("passes_")}
+             for mode, m in report["modes"].items()}
+    if not all(all(g.values()) for g in gates.values()):
+        raise AssertionError(f"cli calibrate: a gate failed: {gates}")
+    _run_cli(["benchmark", "--seq-lengths", "1024", "4096", "--batch-sizes", "1", "8", "--causal",
+              "--device", "cuda"])
+    _run_cli(["serve-bench", "--model", "small", "--kv-dtype", "both", "--device", "cuda"])
+    info = json.loads(_run_cli(["device-info", "--json", "--device", "cuda"]))
+    print(f"cli device-info: backend {info['backend']}, {info['device_count']} device(s): "
+          f"{[(d['device_kind'], d.get('bytes_limit')) for d in info['devices']]}", flush=True)
+    reset_config()
+    reset_engine()
+    cli_launches = dict(_build.LAUNCHES)
+    print(f"cli: launches {cli_launches} ({smi})", flush=True)
+    return results, {"ops": launches, "cli": cli_launches}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -2200,19 +2607,30 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     results = phase_kernels()
-    launches = collections.Counter(phase_serving(smi))
-    launches.update(phase_engine(smi))
-    launches.update(phase_training(smi, args.profile))
-    launches.update(phase_t5(smi, args.profile))
-    launches.update(phase_t5_training(smi))
+    # Each main path's launches, counted from 0 just before it.
+    by_path = {"serving": phase_serving(smi), "engine": phase_engine(smi),
+               "training": phase_training(smi, args.profile), "t5": phase_t5(smi, args.profile),
+               "t5_training": phase_t5_training(smi)}
+    ops_results, ops_launches = phase_ops(smi)
+    results.update(ops_results)
+    by_path.update(ops_launches)
+    launches = collections.Counter()
+    for counts in by_path.values():
+        launches.update(counts)
+    ran = {m: launches[m] for m in NESTED_MODES if launches.get(m, 0)}
+    if ran:
+        raise AssertionError(f"modes listed as off every main path launched there: {ran}")
+
     def entry(name: str) -> dict:
         r = results[name]
         return {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches.get(name, 0),
+            "launches_by_path": {p: c[name] for p, c in by_path.items() if c.get(name, 0)},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"whole_call_ms": r["whole_call_ms"]} if "whole_call_ms" in r else {}),
+            **({"cases": r["cases"]} if "cases" in r else {}),
         }
 
     kernels = [entry(name) for name in SOURCES if name not in NESTED_MODES]

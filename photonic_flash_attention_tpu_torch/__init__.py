@@ -10,8 +10,10 @@ training (``training.Trainer``), the drop-in layer
 ``core.engine.AttentionEngine``, with chunked prefill, the engine's
 quantized kinds (``quant_mode`` "int8" / "fp8", ``ops.flash_fp8``), and the
 T5 encoder-decoder (``models.t5``, served through ``ServingEngine`` by
-``models.t5_serving``) with the structured biases (``ops.rel_bias``), on
-six hand-written CUDA kernels for sm_90a (``csrc/``):
+``models.t5_serving``) with the structured biases (``ops.rel_bias``), the
+ops surface (``ops.nonlinearity``, ``ops.quantization``,
+``ops.paged.paged_attention``) and the CLI (``cli``, ``pfa-torch``), on
+eight hand-written CUDA kernels for sm_90a (``csrc/``):
 
 * K1 ``ops.flash`` — flash-attention forward (prefill, and the training
   forward with its logsumexp), with the key-padding streams
@@ -21,12 +23,16 @@ six hand-written CUDA kernels for sm_90a (``csrc/``):
   (``attn_bias=``);
 * K2 ``ops.paged.paged_token_write`` — per-token K/V write into the
   paged pool, int8-quantized when the pool is int8;
-* K3 ``ops.paged.paged_decode_attend`` and ``paged_attention_hf`` —
-  one-query attention over a sequence's pages (float or int8 compute),
-  with a per-token score bias (``token_bias=``, T5 decode);
+* K3 ``ops.paged.paged_decode_attend``, ``paged_attention_hf`` and
+  ``paged_attention`` — one-query attention over a sequence's pages (float
+  or int8 compute), with a per-token score bias (``token_bias=``, T5
+  decode);
 * K4/K5 ``ops.flash_bwd`` — flash-attention backward, dK/dV and dQ;
 * K6 ``ops.flash_fp8.flash_attention_quant`` — fp8/int8 flash attention
   with per-128-row-block Q/K scales and P requantized per block.
+* K7 ``ops.nonlinearity.fused_softmax`` — row softmax, any width;
+* K8 ``ops.nonlinearity.fused_layer_norm`` and ``fused_rms_norm`` —
+  LayerNorm and RMSNorm rows.
 
 Each kernel's wrapper runs its plain PyTorch version for CPU tensors and
 launches the kernel (or raises) for CUDA tensors. Training takes attention

@@ -15,15 +15,33 @@ from .flash_unrolled import (
     unrolled_supported,
 )
 from .fused import fused_attention
+from .nonlinearity import (
+    NonlinearityType,
+    apply_nonlinearity,
+    fused_layer_norm,
+    fused_rms_norm,
+    fused_softmax,
+)
+from .quantization import (
+    QuantizedTensor,
+    dequantize,
+    quantization_error,
+    quantize,
+    quantize_kv,
+)
 from .reference import attention_blockwise, attention_reference
 from .rel_bias import ALiBi, T5RelBias, alibi_slopes, materialize
 
 __all__ = [
     "ALiBi",
+    "NonlinearityType",
+    "QuantizedTensor",
     "T5RelBias",
     "alibi_slopes",
+    "apply_nonlinearity",
     "attention_blockwise",
     "attention_reference",
+    "dequantize",
     "flash_attention",
     "flash_attention_best",
     "flash_attention_fp8",
@@ -34,6 +52,12 @@ __all__ = [
     "flash_attention_quant",
     "flash_attention_unrolled",
     "fused_attention",
+    "fused_layer_norm",
+    "fused_rms_norm",
+    "fused_softmax",
     "materialize",
+    "quantization_error",
+    "quantize",
+    "quantize_kv",
     "unrolled_supported",
 ]

@@ -76,6 +76,10 @@ _SIGNATURES: Dict[str, List] = {
     # q8, k8, v8, qs, ks, vs, o, B, Sq, Skv, Hq, Hkv, D, sm_scale, causal,
     # qdtype, out_dtype, stream
     "pfa_flash_quant": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    # x, y, rows, D, dtype, stream
+    "pfa_softmax": [_P, _P, _I, _I, _I, _P],
+    # x, gamma, beta (or None), y, rows, D, inv_d, eps, rms, dtype, stream
+    "pfa_rownorm": [_P] * 4 + [_I, _I, _F, _F, _I, _I, _P],
 }
 
 #: dtype codes shared with the C side (csrc/common.cuh).

@@ -3,8 +3,9 @@
 Port of ``photonic_flash_attention_tpu/ops/paged.py``:
 ``paged_attention_xla`` (the plain gather oracle), ``paged_decode_attention``,
 ``paged_attention_hf`` (the read-only head-folded decode, with its
-int8-compute mode) and ``_quant_token_write``. Kernels:
-``csrc/paged_decode.cu``.
+int8-compute mode), ``paged_attention`` (the read-only decode of the TPU
+kernel ``_paged_kernel``, on K3's decode attend), ``paged_attention_auto``
+and ``_quant_token_write``. Kernels: ``csrc/paged_decode.cu``.
 
 Pool layout is token-major, ``(L, Hkv, num_pages, page_size, D)``; the JAX
 pools are token-minor ``(L, Hkv, P, D, page)`` for the TPU's 128-lane DMA.
@@ -262,6 +263,13 @@ def paged_decode_attend(
     tokens (K3). Returns (B, Hq, D) float32; zeros where length is 0.
     ``token_bias`` (B, Hkv, S), padded or cut to pages_per_seq * page,
     takes K3's token-bias mode (counted ``pfa_paged_decode_attend_tbias``)."""
+    return _k3_attend(q, k_pages, v_pages, lengths, page_indices, layer, k_scales, v_scales,
+                      sm_scale, token_bias, None)
+
+
+def _k3_attend(q, k_pages, v_pages, lengths, page_indices, layer: int, k_scales, v_scales,
+               sm_scale: Optional[float], token_bias, count_as: Optional[str]) -> torch.Tensor:
+    """:func:`paged_decode_attend`, counted under ``count_as`` when given."""
     _check_pools(k_pages, v_pages, k_scales, v_scales, layer)
     if q.ndim != 3 or q.dtype != torch.float32:
         raise ValueError(f"q must be float32 (B, Hq, D), got {q.dtype} {tuple(q.shape)}")
@@ -297,7 +305,7 @@ def paged_decode_attend(
         token_bias.data_ptr() if token_bias is not None else None,
         int(layer), b, hq, hkv, d, k_pages.shape[2], k_pages.shape[3],
         page_indices.shape[1], s_cap, float(scale), _build.DTYPE_CODES[k_pages.dtype],
-        count_as="pfa_paged_decode_attend_tbias" if token_bias is not None else None,
+        count_as=count_as or ("pfa_paged_decode_attend_tbias" if token_bias is not None else None),
     )
     return o
 
@@ -506,3 +514,76 @@ def paged_attention_hf(
         count_as="pfa_paged_hf_int8" if int8_compute else "pfa_paged_hf",
     )
     return o.to(q.dtype)
+
+
+# -- K3 as paged_attention ---------------------------------------------------
+
+
+def paged_attention(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pages: torch.Tensor,  # (Hkv, P, page, D) or (L, Hkv, P, page, D)
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) int32
+    page_indices: torch.Tensor,  # (B, pages_per_seq) int32
+    k_scales: Optional[torch.Tensor] = None,  # (Hkv, P, page) or (L, Hkv, P, page)
+    v_scales: Optional[torch.Tensor] = None,
+    *,
+    sm_scale: Optional[float] = None,
+    pages_per_block: int = 4,
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    """Read-only paged decode (JAX ``paged_attention``, the TPU kernel
+    ``_paged_kernel``): one query token per sequence over its first
+    ``lengths[b]`` pooled tokens, int8 pools dequantized per token (K by
+    its scale in the score, V's scale folded into P). K3's decode attend on
+    CUDA (counted ``pfa_paged_attention``), its plain version on CPU; q is
+    computed in fp32 and the result returned in q's dtype; zeros for a row
+    of length 0, as the TPU kernel gives. Rank-5 pools need ``layer``.
+    ``pages_per_block`` is the TPU kernel's DMA block: it is checked and
+    has no counterpart (a K3 block reads its own pages)."""
+    if pages_per_block <= 0:
+        raise ValueError(f"pages_per_block must be positive, got {pages_per_block}")
+    if q.ndim != 3 or not q.is_floating_point():
+        raise ValueError(f"q must be float (B, Hq, D), got {q.dtype} {tuple(q.shape)}")
+    k_pages, v_pages, k_scales, v_scales, lyr = _hf_layout(
+        k_pages, v_pages, k_scales, v_scales, layer
+    )
+    o = _k3_attend(q.float().contiguous(), k_pages, v_pages, lengths, page_indices, lyr,
+                   k_scales, v_scales, sm_scale, None, "pfa_paged_attention")
+    return o.to(q.dtype)
+
+
+def paged_attention_auto(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_indices: torch.Tensor,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    *,
+    sm_scale: Optional[float] = None,
+    pages_per_block: int = 4,
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    """Device-aware dispatch (JAX ``paged_attention_auto``): on CUDA,
+    :func:`paged_attention` (K3), which raises for a pool K3 does not take
+    (D % 8 != 0, or a group (Hq/Hkv) * D above 4096); on the CPU :func:`paged_attention_xla` on the
+    layer's slice, as JAX's non-TPU branch. The choice comes from the
+    device alone. As in JAX, the two branches differ on a row of length 0:
+    the kernel gives 0, the gather averages the masked keys."""
+    if q.device.type != "cpu":
+        return paged_attention(
+            q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales,
+            sm_scale=sm_scale, pages_per_block=pages_per_block, layer=layer,
+        )
+    if k_pages.ndim == 5:
+        if layer is None:
+            raise ValueError("rank-5 pools need a layer")
+        lyr = int(layer)
+        k_pages, v_pages = k_pages[lyr], v_pages[lyr]
+        if k_scales is not None:
+            k_scales, v_scales = k_scales[lyr], v_scales[lyr]
+    return paged_attention_xla(
+        q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales, sm_scale=sm_scale,
+    )

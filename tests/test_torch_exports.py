@@ -2,7 +2,7 @@
 
 The JAX package exports its config functions in ``__all__`` and re-exports
 the flash functions and the drop-in layers lazily (``__getattr__``);
-``models`` lists its names in ``__all__``. The port must resolve every one
+``models`` and ``ops`` list their names in ``__all__``. The port must resolve every one
 of them except the names of ROADMAP items still open (listed below), and
 export nothing the JAX package does not.
 """
@@ -14,8 +14,10 @@ import pytest
 
 import photonic_flash_attention_tpu as jax_pkg
 import photonic_flash_attention_tpu.models as jax_models
+import photonic_flash_attention_tpu.ops as jax_ops
 import photonic_flash_attention_tpu_torch as port
 import photonic_flash_attention_tpu_torch.models as port_models
+import photonic_flash_attention_tpu_torch.ops as port_ops
 
 #: Top-level names not ported yet: model conversion (ROADMAP A10).
 NOT_PORTED = {"convert_to_photonic"}
@@ -56,6 +58,17 @@ def test_models_names_match_jax():
     assert set(port_models.__all__) == set(jax_models.__all__) - MODELS_NOT_PORTED
     for name in port_models.__all__:
         assert getattr(port_models, name) is not None, name
+
+
+def test_ops_names_match_jax():
+    assert set(port_ops.__all__) == set(jax_ops.__all__)
+    for name in port_ops.__all__:
+        obj = getattr(port_ops, name)
+        assert obj is not None and obj.__module__.startswith(port_ops.__name__), name
+    for name in ("fused_softmax", "fused_layer_norm", "fused_rms_norm", "apply_nonlinearity",
+                 "NonlinearityType", "QuantizedTensor", "quantize", "dequantize", "quantize_kv",
+                 "quantization_error"):
+        assert name in port_ops.__all__, name
 
 
 def test_exported_objects_are_the_ports():

@@ -53,7 +53,8 @@ def test_every_module_imports_with_jax_blocked():
     assert len(_port_modules()) >= 30
     for name in ("config", "ops.fused", "ops.flash_bwd", "ops.flash_fp8", "training.data",
                  "training.trainer", "core.router", "core.engine", "core.timing",
-                 "core.autotuner", "utils.validation", "utils.monitoring"):
+                 "core.autotuner", "utils.validation", "utils.monitoring", "cli",
+                 "ops.nonlinearity", "ops.quantization"):
         assert f"{port.__name__}.{name}" in modules
 
 
