@@ -25,12 +25,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    same band mask; bench.py's B1 S65536 window (-4095, 0) row against its
    in-band bound), K4/K5's dropout and window streams (B4 S2048 H12), and
    K1's relative-bias mode writing lse (T5 both directions, ALiBi);
-4. serving path: GPT-2 medium (random weights, seed 0) served through
+4. roofline: the card's record (``hardware.detection``), K9/K10 (HBM read
+   and copy) bit for bit and K11 (exp) and K12 (the softmax stream, both
+   modes) within their bounds against their plain versions; then, as a
+   path of its own, the measure functions (read, copy, exp and stream
+   rates, the stream's linear fit) at the card's shapes and at JAX's, each
+   beside its data-sheet bound; K1's share of the composite ceiling built
+   from the measured rates; the profiler's time of K11 and K12 in one
+   graph replay against the graph fit (within 10 %);
+5. serving path: GPT-2 medium (random weights, seed 0) served through
    ``ServingEngine.generate`` with an int8 paged KV cache; every kernel's
    launch count must grow; the first step must agree with the dense model;
    then the same requests with ``prefill_chunk=256`` (K1 with the key-bias
    stream): the same first tokens, last-prompt logits within a bound;
-5. engine path: the drop-in ``PhotonicFlashAttention`` layer at GPT-2
+6. engine path: the drop-in ``PhotonicFlashAttention`` layer at GPT-2
    medium's width, eager calls through the adaptive engine (prefill, key
    padding, a dense (B,1,S,S) mask on K1's dense-bias mode, decode over
    2048 keys, a short call), first with the heuristic
@@ -39,14 +47,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    the same under ``quant_mode`` "int8" and "fp8" (a square causal and a
    cross-attention call): heuristic kinds asserted, the measured warm-up
    must launch K1's int8-QK, int8-full and fp8-QK modes and K6 fp8;
-6. training path: GPT-2 medium (random weights, seed 0) takes AdamW steps
+7. training path: GPT-2 medium (random weights, seed 0) takes AdamW steps
    through ``Trainer.train_step`` at B8 S1024 on one fixed batch; the loss
    must fall, K1/K4/K5 must launch once per layer and step; the gradient of
    the first 4 layers of the same weights must agree with a CPU run; then
    the same with ``attn_pdrop`` 0.1 through ``Trainer(dropout_rng=...)``,
    on K1/K4/K5's dropout modes (the gradient check with one fixed dropout
    seed on both sides);
-7. T5 path at T5-large width (random weights from a seeded generator):
+8. T5 path at T5-large width (random weights from a seeded generator):
    (a) ``T5ForConditionalGeneration`` cut to 2+2 layers, B1, encoder 1024,
    decoder 512, unmasked (K1's relative-bias mode), against the same
    weights in fp32 on the CPU (plain versions); (b) ``ServingEngine`` at
@@ -56,13 +64,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    model's argmax on the card, two trajectories under the JAX test's
    greedy-parity rule; then bf16 compute over a bf16 pool, timed; (c) the
    full-depth bf16 forward at B2, encoder 2048, decoder 512, timed;
-8. T5 training path: T5-large at full depth, bf16 compute, B2, encoder
+9. T5 training path: T5-large at full depth, bf16 compute, B2, encoder
    1024, decoder 512, three AdamW steps through ``Trainer`` with a seq2seq
    cross entropy: the loss must fall, K1's relative-bias mode with lse must
    launch for every self-attention and K1/K4/K5 for every cross-attention;
    the 2+2-layer cut's gradient (fp32 on the card) must match the CPU's on
    every parameter, both ``rel_embedding`` tables included;
-9. ops and CLI: K7 (``fused_softmax``: attention scores (4, 12, 2048, 2048)
+10. ops and CLI: K7 (``fused_softmax``: attention scores (4, 12, 2048, 2048)
    bf16, GPT-2's vocabulary row (8, 1024, 50257) fp32) and K8 (GPT-2
    medium's LayerNorm (8, 1024, 1024) bf16, Llama-2-7B's RMSNorm (8, 2048,
    4096) bf16), with small and ragged rows, against their plain versions
@@ -77,7 +85,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``device-info --json``), each path counted from 0; K7, K8 in both modes
    and the B14 entry must launch in the ops path.
 
-The last lines are the per-kernel JSON summary (each kernel's launches in
+The device phase prints the card's idle draw before any work (the
+roofline's static power); the engine phase each measured call's roofline
+energy. The last lines are the per-kernel JSON summary (each kernel's launches in
 all main paths together, and by path), the card's name and power limit
 and, last of all, ``{"ok": true, "device": {...}}``. The script
 imports nothing of JAX. ``--profile DIR`` adds a torch.profiler breakdown
@@ -102,6 +112,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photonic_flash_attention_tpu_torch.core.timing import graph_ms
 from photonic_flash_attention_tpu_torch.ops import _build
 from photonic_flash_attention_tpu_torch.ops import flash as flash_ops
 from photonic_flash_attention_tpu_torch.ops import flash_bwd as bwd_ops
@@ -113,6 +124,7 @@ _PAGED = "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu"
 _BWD = "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu"
 _QUANT = "photonic_flash_attention_tpu_torch/csrc/flash_quant.cu"
 _ROWNORM = "photonic_flash_attention_tpu_torch/csrc/rownorm.cu"
+_PROBES = "photonic_flash_attention_tpu_torch/csrc/probes.cu"
 _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
 SOURCES = {
@@ -145,6 +157,11 @@ SOURCES = {
     "pfa_layer_norm": _ROWNORM,
     "pfa_rms_norm": _ROWNORM,
     "pfa_paged_attention": _PAGED,
+    "pfa_hbm_read": _PROBES,
+    "pfa_hbm_copy": _PROBES,
+    "pfa_exp_probe": _PROBES,
+    "pfa_softmax_probe": _PROBES,
+    "pfa_softmax_probe_unmasked": _PROBES,
 }
 #: The kernels and entries of the ops-and-CLI phase (measured there).
 OPS_KERNELS = ("pfa_softmax", "pfa_layer_norm", "pfa_rms_norm", "pfa_paged_attention")
@@ -184,6 +201,12 @@ REPLACES = {
     "pfa_layer_norm": f"{_B11}:136",
     "pfa_rms_norm": f"{_B11}:136 (rms)",
     "pfa_paged_attention": "photonic_flash_attention_tpu/ops/paged.py:101",
+    "pfa_hbm_read": "photonic_flash_attention_tpu/ops/hbm_bw.py:45",
+    "pfa_hbm_copy": "photonic_flash_attention_tpu/ops/hbm_bw.py:98",
+    "pfa_exp_probe": "photonic_flash_attention_tpu/ops/device_probes.py:35",
+    "pfa_softmax_probe": "photonic_flash_attention_tpu/ops/device_probes.py:76",
+    "pfa_softmax_probe_unmasked": "photonic_flash_attention_tpu/ops/device_probes.py:76 "
+                                  "(masked=False)",
 }
 #: Modes that no main path runs, reported under their kernel's entry (main
 #: fails if one of them launches there): K3's int8 compute (engine decode
@@ -311,45 +334,28 @@ def device_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / runs
 
 
-def graph_ms(fn, runs: int = TIMED_RUNS, replays: int = 5) -> float:
-    """Device time of one call of ``fn``: ``runs`` calls captured in one
-    CUDA graph, the median over ``replays`` replays (CUDA events around
-    each) divided by ``runs``. No host work sits between the launches."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(runs):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / runs)
-    del graph
-    return statistics.median(times)
+def nvidia_smi(query: str, *, units: bool = True) -> str:
+    """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
+    fmt = "csv,noheader" if units else "csv,noheader,nounits"
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def phase_device() -> str:
+    """The card's name and power limit; its idle draw, read before any work
+    (the roofline's static power, ``hardware/roofline.py::STATIC_POWER_W``)."""
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py runs only on a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
+    idle = nvidia_smi("power.draw,clocks.sm,clocks.max.sm,temperature.gpu")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"device: idle before any work: power.draw, clocks.sm, clocks.max.sm, temperature: "
+          f"{idle}", flush=True)
     return smi
 
 
@@ -1574,7 +1580,8 @@ def _engine_pass(layers, cases, *, measured: bool, calls: int, bound: float, lab
                 is_decode=query.shape[1] == 1, dtype="bfloat16", num_kv_heads=ENGINE_HEADS)
             table = {k.value: engine.router.predicted_latency(k, w) for k in KernelKind
                      if engine.router.predicted_latency(k, w) is not None}
-            line += f"; router table (ms by kind) {table}"
+            line += (f"; roofline energy of the last call {engine.last_energy_mj:.4f} mJ; "
+                     f"router table (ms by kind) {table}")
             if dense and "flash" not in table:
                 raise AssertionError(f"{line}: the measured table must offer flash for a dense mask")
         print(line, flush=True)
@@ -2598,6 +2605,379 @@ def phase_ops(smi: str) -> dict:
     return results, {"ops": launches, "cli": cli_launches}
 
 
+
+# -- roofline: the card's probes (K9-K12), its rates, the composite ceiling ---
+
+#: exp2 results (MUFU) a clock per SM at compute capability 9.0 (CUDA C++
+#: Programming Guide, arithmetic instruction throughput), and the FP32
+#: pipe's lanes a clock per SM.
+MUFU_PER_CLK_SM = 16
+FP32_PER_CLK_SM = 128
+#: The instructions one element of K12's function needs (masked mode,
+#: unmasked), each issued for 32 lanes: FFMA (s * log2 e - m * log2 e),
+#: FMNMX, FADD, half an F2FP (the bf16 pair pack), the bf16 unpack and the
+#: MUFU.EX2 itself; masked adds the compare and the select. Counted from
+#: the function, not from the compiled kernel (whose SASS holds 11.4 and
+#: 8.6 besides MUFU.EX2; PERF.md §6): at 128 lanes a clock both stay under
+#: MUFU's 8 clocks per 128 exps, so the MUFU term is K12's bound.
+K12_ISSUE_PER_ELEMENT = {True: 7.5, False: 5.5}
+EXP_CHECK_BOUND = 1e-6
+SOFTMAX_CHECK_BOUND = 2.0 ** -8  # one bf16 ulp in [0.5, 1)
+#: K12's running sums l (fp32, rows 0-7) against the plain version's,
+#: relative: the sums are taken in another order (a quad's shuffles against
+#: torch's reduction) over p that may differ by an fp32 ulp.
+SOFTMAX_L_RTOL = 1e-4
+#: K12 against its plain version: (rows, cols, iters): JAX's probe tile,
+#: JAX's wider linear-fit tile, a ragged row count.
+SOFTMAX_CHECKS = ((128, 512, 64), (224, 896, 8), (1000, 256, 16))
+#: Iteration counts at which K11's and K12's outputs still depend on the
+#: input and the count, none a multiple of K11's unroll of 4: K11's chain
+#: contracts onto 0.567 by ~0.57 a step (at 256 iterations every element is
+#: that value, whatever the count), and K12's rows collapse within a few
+#: updates (to exp(-max) where the row max is above 1). So these checks
+#: take wide inputs, K11's in [0, 4), K12's in [-8, 1).
+FEW_ITERS = (1, 2, 3, 5, 7)
+#: A measured rate may exceed its data-sheet bound by at most this factor.
+RATE_OVER_BOUND = 1.05
+#: Replays of each CUDA graph that graph_ms captures: one warm-up, 5 timed.
+GRAPH_REPLAYS = 6
+#: Iterations of the K11 and K12 calls timed for the kernels JSON: the
+#: measure functions' defaults (JAX's).
+EXP_ITERS, SOFTMAX_ITERS = 256, 512
+#: The profiler's kernel time against the graph fit, at most this apart.
+PROFILE_AGREEMENT = 0.10
+#: K1's headline shape (B, S, H, D; causal bf16), timed in check_flash.
+K1_HEADLINE = (4, 2048, 12, 64)
+
+
+def card_rates() -> dict:
+    """The card's SM count, maximum SM clock and the data-sheet rates the
+    probes are held against."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm", units=False)) * 1e6
+    return {"sms": sms, "clock_hz": clock_hz, "hbm_Bps": HBM_BYTES_PER_S,
+            "exp_per_s": MUFU_PER_CLK_SM * sms * clock_hz,
+            "fp32_per_s": FP32_PER_CLK_SM * sms * clock_hz}
+
+
+def exp_bound(n: int, iters: int, peak: dict) -> dict:
+    """K11's bound: n x iters exps over the MUFU rate."""
+    return {"bound_ms": n * iters / peak["exp_per_s"] * 1e3, "bound_by": "operations"}
+
+
+def softmax_bound(rows: int, cols: int, iters: int, masked: bool, peak: dict) -> dict:
+    """K12's bound: (elements + rows) x iters exps over the MUFU rate, or
+    the instructions the function needs over 128 lanes a clock per SM,
+    whichever is longer."""
+    t_exp = (rows * cols + rows) * iters / peak["exp_per_s"] * 1e3
+    t_issue = rows * cols * iters * K12_ISSUE_PER_ELEMENT[masked] / peak["fp32_per_s"] * 1e3
+    return {"bound_ms": max(t_exp, t_issue), "bound_by": "operations"}
+
+
+def check_hbm_probes(results: dict) -> None:
+    """K9 and K10 against their plain versions, bit for bit: K9 over 1, 2
+    and 3 chunks and bench.py's 256 MiB stream (bf16; fp32 and int8 at one
+    chunk), K10 at (131072, 512) bf16 and short fp32 and int8 arrays; both
+    timed at the rate shapes, K10 against ``y.copy_(x)``."""
+    from photonic_flash_attention_tpu_torch.ops import hbm_bw
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    read = [((rows, 512), torch.bfloat16) for rows in (4096, 8192, 12288)]
+    read += [((4096, 512), torch.float32), ((4096, 512), torch.int8),
+             (hbm_bw.READ_SHAPE, torch.bfloat16)]
+    for shape, dtype in read:
+        x = (torch.randn(shape, device="cuda", generator=gen) * 50).to(dtype)
+        out = hbm_bw.hbm_read_probe(x)
+        if not torch.equal(out, hbm_bw.hbm_read_probe_plain(x)):
+            raise AssertionError(f"K9 hbm_read {list(shape)} {str(dtype)[6:]}: not the plain slice")
+    nbytes = x.numel() * x.element_size()
+    ms = graph_ms(lambda: hbm_bw.hbm_read_probe(x))
+    plain = device_ms(lambda: hbm_bw.hbm_read_probe_plain(x))
+    bound = card_bound(0, nbytes, torch.bfloat16)
+    results["pfa_hbm_read"] = {"ms": ms, "plain_ms": plain, "library_ms": None,
+                               "max_abs_err": 0.0, "shape": list(x.shape), **bound}
+    print(f"K9 hbm_read: equal to the plain slice at {[list(s) for s, _ in read]} | "
+          f"{list(x.shape)} bf16 ({nbytes / 2**20:.0f} MiB): kernel {ms:.4f} ms "
+          f"({nbytes / ms / 1e6:.1f} GB/s), plain (the slice) {plain:.4f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms (bytes)", flush=True)
+    del x, out
+
+    copy = [((4096, 256), torch.float32), ((100, 512), torch.int8),
+            (hbm_bw.COPY_SHAPE, torch.bfloat16)]
+    for shape, dtype in copy:
+        x = (torch.randn(shape, device="cuda", generator=gen) * 50).to(dtype)
+        y = hbm_bw.hbm_copy(x)
+        if not torch.equal(y, x):
+            raise AssertionError(f"K10 hbm_copy {list(shape)} {str(dtype)[6:]}: y != x")
+    nbytes = 2 * x.numel() * x.element_size()
+    ms = graph_ms(lambda: hbm_bw.hbm_copy(x))
+    plain = device_ms(lambda: hbm_bw.hbm_copy_plain(x))
+    lib = graph_ms(lambda: y.copy_(x))
+    bound = card_bound(0, nbytes, torch.bfloat16)
+    results["pfa_hbm_copy"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                               "max_abs_err": 0.0, "shape": list(x.shape), **bound}
+    print(f"K10 hbm_copy: equal to x at {[list(s) for s, _ in copy]} | {list(x.shape)} bf16: "
+          f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s read + written), plain (clone) "
+          f"{plain:.4f} ms, y.copy_(x) {lib:.4f} ms, bound {bound['bound_ms']:.4f} ms (bytes)",
+          flush=True)
+    del x, y
+
+
+def _check_count_sensitive(name: str, plain, x, iters: int, bound: float, margin: float) -> None:
+    """Fail unless the plain version at ``iters`` + 1 differs from that at
+    ``iters`` by ``margin`` x ``bound``: a check at this count and input
+    then catches a kernel that runs one iteration too many or too few."""
+    gap = max_abs_err(plain(x, iters + 1), plain(x, iters))
+    if not gap > margin * bound:
+        raise AssertionError(f"{name} iters {iters}: one more iteration moves the plain version "
+                             f"by {gap:.3e}, not above {margin} x the bound {bound:.3e}")
+
+
+def check_compute_probes(results: dict, peak: dict) -> None:
+    """K11 (<= 1e-6 abs) and K12 in both modes (<= one bf16 ulp, l within
+    1e-4 relative, masked equal to unmasked) against their plain versions:
+    at 1, 2, 3, 5 and 7 iterations on wide inputs, where the outputs still
+    depend on the count (checked on the plain versions), and at the timed
+    counts, at JAX's shapes, ragged ones and the measure functions' card
+    shapes; both timed at the card shapes by graph_ms."""
+    from photonic_flash_attention_tpu_torch.ops import device_probes as dp
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    exp_card = (dp.EXP_WAVES * dp.wave_rows("exp"), 512)
+    worst = 0.0
+    cases = [(shape, it, 0.0, 4.0) for shape in ((40, 132), exp_card) for it in FEW_ITERS]
+    cases += [(shape, EXP_ITERS, 0.1, 1.0) for shape in (dp.JAX_EXP_SHAPE, (40, 132), exp_card)]
+    for shape, iters, lo, hi in cases:
+        x = torch.rand(shape, device="cuda", generator=gen) * (hi - lo) + lo
+        if iters in FEW_ITERS:
+            _check_count_sensitive("K11", dp.exp_probe_plain, x, iters, EXP_CHECK_BOUND, 100)
+        err = max_abs_err(dp.exp_probe(x, iters), dp.exp_probe_plain(x, iters))
+        worst = max(worst, err)
+        line = (f"K11 exp_probe {list(shape)} x in [{lo}, {hi}) iters {iters}: max_abs_err "
+                f"{err:.3e} (bound {EXP_CHECK_BOUND})")
+        if not err <= EXP_CHECK_BOUND:
+            raise AssertionError(line)
+        print(line, flush=True)
+    n = x.numel()
+    jax_x = torch.rand(dp.JAX_EXP_SHAPE, device="cuda", generator=gen)
+    jax_ms = graph_ms(lambda: dp.exp_probe(jax_x, EXP_ITERS))
+    ms = graph_ms(lambda: dp.exp_probe(x, EXP_ITERS))
+    plain = device_ms(lambda: dp.exp_probe_plain(x, EXP_ITERS), runs=3)
+    bound = exp_bound(n, EXP_ITERS, peak)
+    results["pfa_exp_probe"] = {"ms": ms, "plain_ms": plain, "library_ms": None,
+                                "max_abs_err": worst, "shape": list(x.shape),
+                                "iters": EXP_ITERS, **bound}
+    print(f"K11 exp_probe {list(x.shape)} iters {EXP_ITERS}: kernel {ms:.4f} ms "
+          f"({n * EXP_ITERS / ms / 1e6:.1f} Gexp/s), plain {plain:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms (MUFU at {peak['exp_per_s'] / 1e12:.3f} Texp/s); "
+          f"JAX's (512, 512): {jax_ms:.4f} ms ({jax_x.numel() * EXP_ITERS / jax_ms / 1e6:.1f} "
+          f"Gexp/s)", flush=True)
+    del x, jax_x
+
+    card_rows = {m: dp.wave_rows("softmax", 512, m) for m in (True, False)}
+    checks = [(rows, cols, it, -8.0, 1.0) for rows, cols in ((1000, 256), (224, 896),
+                                                             (card_rows[True], 512))
+              for it in FEW_ITERS]
+    checks += [(rows, cols, it, -2.0, 2.0) for rows, cols, it in SOFTMAX_CHECKS]
+    checks.append((card_rows[True], 512, 8, -2.0, 2.0))
+    worst = 0.0
+    for rows, cols, iters, lo, hi in checks:
+        x = torch.rand((rows, cols), device="cuda", generator=gen) * (hi - lo) + lo
+        if iters in FEW_ITERS:
+            _check_count_sensitive("K12", dp.softmax_block_probe_plain, x, iters,
+                                   SOFTMAX_CHECK_BOUND, 4)
+        outs = {m: dp.softmax_block_probe(x, iters, masked=m, return_l=True)
+                for m in (True, False)}
+        if not (torch.equal(outs[True][0], outs[False][0])
+                and torch.equal(outs[True][1], outs[False][1])):
+            raise AssertionError(f"K12 {rows}x{cols} iters {iters}: masked and unmasked differ")
+        for m in (True, False):
+            out, l = outs[m]
+            want, want_l = dp.softmax_block_probe_plain(x, iters, m, return_l=True)
+            err = max_abs_err(out, want)
+            l_err = float(((l - want_l).abs() / want_l.abs()).max()) if iters else 0.0
+            worst = max(worst, err)
+            line = (f"K12 softmax_probe {'masked' if m else 'unmasked'} [{rows}, {cols}] x in "
+                    f"[{lo}, {hi}) iters {iters}: max_abs_err {err:.3e} (bound "
+                    f"{SOFTMAX_CHECK_BOUND:.3e}), l max_rel_err {l_err:.3e} (bound "
+                    f"{SOFTMAX_L_RTOL})")
+            if not (err <= SOFTMAX_CHECK_BOUND and l_err <= SOFTMAX_L_RTOL):
+                raise AssertionError(line)
+            print(line, flush=True)
+    for m in (True, False):
+        name = "pfa_softmax_probe" if m else "pfa_softmax_probe_unmasked"
+        x = dp.probe_input(card_rows[m], 512, "cuda")
+        jax_x = dp.probe_input(*dp.JAX_SOFTMAX_SHAPE, "cuda")
+        ms = graph_ms(lambda: dp.softmax_block_probe(x, SOFTMAX_ITERS, m))
+        jax_ms = graph_ms(lambda: dp.softmax_block_probe(jax_x, SOFTMAX_ITERS, m), runs=5)
+        plain = device_ms(lambda: dp.softmax_block_probe_plain(x, SOFTMAX_ITERS, m), runs=2,
+                          warmup=1)
+        bound = softmax_bound(card_rows[m], 512, SOFTMAX_ITERS, m, peak)
+        results[name] = {"ms": ms, "plain_ms": plain, "library_ms": None, "max_abs_err": worst,
+                         "shape": [card_rows[m], 512], "iters": SOFTMAX_ITERS, **bound}
+        elems = x.numel() * SOFTMAX_ITERS
+        print(f"K12 softmax_probe {'masked' if m else 'unmasked'} [{card_rows[m]}, 512] (one "
+              f"wave) iters {SOFTMAX_ITERS}: kernel {ms:.4f} ms ({elems / ms / 1e6:.1f} Gelem/s), "
+              f"plain {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms; JAX's (128, 512): "
+              f"{jax_ms:.4f} ms ({jax_x.numel() * SOFTMAX_ITERS / jax_ms / 1e6:.1f} Gelem/s)",
+              flush=True)
+    del x, jax_x
+
+
+def profiled_kernel_ms(fn, name: str, runs: int = 5) -> float:
+    """Mean device time of the kernels whose name holds ``name`` in a
+    torch.profiler trace of one replay of a CUDA graph of ``runs`` calls."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("cat") == "kernel" and name in e.get("name", "") and "dur" in e]
+    del graph
+    if len(events) != runs:
+        raise AssertionError(f"profile: {len(events)} {name} kernels in the trace of one "
+                             f"replay, expected {runs}")
+    return sum(float(e["dur"]) for e in events) / runs / 1e3
+
+
+def phase_roofline(k1: dict, smi: str) -> tuple:
+    """The card's record (hardware/detection.py); K9-K12 against their
+    plain versions; then the main path, counted from 0: the read, copy,
+    exp and softmax-stream rates (masked and unmasked, and the stream's
+    linear fit) through the measure functions at the card's shapes and at
+    JAX's; K1's share of the composite ceiling built from them; last, the
+    profiler's time of K11 and K12 against the graph fit (within 10 %).
+    ``k1`` is K1's kernels-phase entry at its headline shape (ms, bound)."""
+    from photonic_flash_attention_tpu_torch.hardware import detection
+    from photonic_flash_attention_tpu_torch.hardware import roofline as rl
+    from photonic_flash_attention_tpu_torch.ops import device_probes as dp
+    from photonic_flash_attention_tpu_torch.ops import hbm_bw
+
+    t_phase = time.perf_counter()
+    dev = detection.get_best_tpu_device()
+    if dev is None or dev.platform != "gpu":
+        raise AssertionError(f"roofline: detection found no card: {detection.get_device_info()}")
+    print(f"roofline: device record {dev}", flush=True)
+    peak = card_rates()
+    print(f"roofline: {peak['sms']} SMs at {peak['clock_hz'] / 1e6:.0f} MHz (clocks.max.sm): "
+          f"MUFU {peak['exp_per_s'] / 1e12:.3f} Texp/s, FP32 pipe {peak['fp32_per_s'] / 1e12:.3f} "
+          f"Tlane-op/s; HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s (data sheet)", flush=True)
+    results = {}
+    check_hbm_probes(results)
+    check_compute_probes(results, peak)
+    torch.cuda.empty_cache()
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    read = hbm_bw.hbm_read_bytes_per_s()
+    copy = hbm_bw.hbm_copy_bytes_per_s()
+    exp_rate = dp.measure_exp_rate()
+    stream = {m: dp.measure_softmax_rate(masked=m) for m in (True, False)}
+    linear = dp.measure_softmax_linear(fit=(20, 120))
+    jax_exp = dp.measure_exp_rate(shape=dp.JAX_EXP_SHAPE)
+    jax_stream = dp.measure_softmax_rate(shape=dp.JAX_SOFTMAX_SHAPE, fit=(4, 24))
+    jax_linear = dp.measure_softmax_linear(shapes=dp.JAX_LINEAR_SHAPES, fit=(2, 6))
+    torch.cuda.synchronize()
+    launches, captured = dict(_build.LAUNCHES), dict(_build.CAPTURED)
+    print(f"roofline: main path in {time.perf_counter() - t0:.2f} s; launches {launches}; "
+          f"calls captured into CUDA graphs {captured} (each graph replayed "
+          f"{GRAPH_REPLAYS} times)", flush=True)
+    for name in ("pfa_hbm_read", "pfa_hbm_copy", "pfa_exp_probe", "pfa_softmax_probe",
+                 "pfa_softmax_probe_unmasked"):
+        if not launches.get(name):
+            raise AssertionError(f"roofline: {name} never launched by the measure functions")
+
+    def stream_peak(masked: bool) -> float:
+        rows = dp.wave_rows("softmax", 512, masked)
+        return rows * 512 * SOFTMAX_ITERS / softmax_bound(rows, 512, SOFTMAX_ITERS, masked,
+                                                          peak)["bound_ms"] * 1e3
+
+    lines = [
+        f"read {read / 1e9:.1f} GB/s (data sheet {HBM_BYTES_PER_S / 1e9:.0f})",
+        f"copy {copy / 1e9:.1f} GB/s read + written (data sheet {HBM_BYTES_PER_S / 1e9:.0f})",
+        f"exp {exp_rate / 1e9:.1f} Gexp/s (MUFU {peak['exp_per_s'] / 1e9:.1f}); JAX's (512, 512) "
+        f"{jax_exp / 1e9:.1f}",
+        f"softmax stream masked {stream[True] / 1e9:.1f}, unmasked {stream[False] / 1e9:.1f} "
+        f"Gelem/s (bound {stream_peak(True) / 1e9:.1f} masked, {stream_peak(False) / 1e9:.1f} "
+        f"unmasked); JAX's (128, 512) masked "
+        f"{jax_stream / 1e9:.1f}",
+        f"linear fit a {linear['fixed_s_per_tile'] * 1e9:.1f} ns per update of "
+        f"{dp.card_linear_shapes()[0][0]} rows, 1/b {linear['asymptotic_elems_per_s'] / 1e9:.1f} "
+        f"Gelem/s, points {linear['points']}; JAX's shapes: a "
+        f"{jax_linear['fixed_s_per_tile'] * 1e9:.1f} ns, 1/b "
+        f"{jax_linear['asymptotic_elems_per_s'] / 1e9:.1f} Gelem/s",
+    ]
+    for line in lines:
+        print(f"roofline: measured {line} ({smi})", flush=True)
+    rates = {"hbm_read_Bps": read, "vpu_softmax_elems_per_s": linear["asymptotic_elems_per_s"],
+             "vpu_softmax_fixed_s_per_tile": linear["fixed_s_per_tile"],
+             "vpu_exp_elems_per_s": exp_rate}
+    if not all(v > 0 and v == v and v != float("inf") for v in (read, copy, exp_rate,
+                                                                *stream.values())):
+        raise AssertionError(f"roofline: a rate is not finite and positive: {lines}")
+    # No measured rate may exceed its data-sheet bound: a probe that skips
+    # work would. JAX's linear fit counts only where it found a slope (at
+    # 32 and 224 rows each update is latency-bound and b may sit at its
+    # floor, where 1/b is no rate).
+    held = [("read", read, HBM_BYTES_PER_S), ("copy", copy, HBM_BYTES_PER_S),
+            ("exp", exp_rate, peak["exp_per_s"]), ("exp, JAX's shape", jax_exp, peak["exp_per_s"]),
+            ("stream masked", stream[True], stream_peak(True)),
+            ("stream unmasked", stream[False], stream_peak(False)),
+            ("stream masked, JAX's shape", jax_stream, stream_peak(True)),
+            ("linear fit 1/b", linear["asymptotic_elems_per_s"], stream_peak(False))]
+    if jax_linear["s_per_elem"] > 1e-15:
+        held.append(("linear fit 1/b, JAX's shapes", jax_linear["asymptotic_elems_per_s"],
+                     stream_peak(False)))
+    else:
+        print("roofline: JAX's linear-fit shapes give no per-element slope on the card (b at "
+              "its floor): not a rate, not held to a bound", flush=True)
+    for what, rate, bound in held:
+        line = (f"roofline: {what} {rate:.6e} a second is {rate / bound:.4f} x its data-sheet "
+                f"bound {bound:.6e} (at most {RATE_OVER_BOUND})")
+        if not rate <= RATE_OVER_BOUND * bound:
+            raise AssertionError(line)
+        print(line, flush=True)
+    b, s, h, d = K1_HEADLINE
+    ceiling = rl.attention_composite_ceiling(b, s, s, h, d, causal=True, rates=rates)
+    print(f"roofline: composite ceiling of K1's B{b} S{s} H{h} D{d} causal bf16 from the "
+          f"measured rates: {ceiling}; K1 {k1['ms']:.4f} ms = "
+          f"{100 * rl.composite_fraction(k1['ms'] * 1e3, ceiling):.2f} % of it, against "
+          f"{100 * k1['bound_ms'] / k1['ms']:.2f} % of its data-sheet bound "
+          f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}); rates {rates}", flush=True)
+
+    probes = (("pfa_exp_probe", "exp_chain", exp_rate, lambda x, it: dp.exp_probe(x, it)),
+              ("pfa_softmax_probe", "softmax_stream", stream[True],
+               lambda x, it: dp.softmax_block_probe(x, it, True)))
+    for name, kernel, rate, call in probes:
+        shape, iters = results[name]["shape"], results[name]["iters"]
+        x = dp.probe_input(*shape, "cuda")
+        fit_ms = x.numel() * iters / rate * 1e3
+        prof_ms = profiled_kernel_ms(lambda: call(x, iters), kernel)
+        gap = abs(prof_ms - fit_ms) / fit_ms
+        line = (f"roofline: {name} {shape} iters {iters}: profiler {prof_ms:.4f} ms a launch "
+                f"(one replay of a graph), graph fit {fit_ms:.4f} ms: {100 * gap:.2f} % apart "
+                f"(at most {100 * PROFILE_AGREEMENT:.0f} %)")
+        if not gap <= PROFILE_AGREEMENT:
+            raise AssertionError(line)
+        print(line, flush=True)
+        del x
+    torch.cuda.empty_cache()
+    print(f"roofline: phase in {time.perf_counter() - t_phase:.2f} s ({smi})", flush=True)
+    return results, {"roofline": launches}, {"roofline": captured}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -2607,8 +2987,10 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     results = phase_kernels()
+    roofline_results, by_path, captured_by_path = phase_roofline(results["pfa_flash_fwd"], smi)
+    results.update(roofline_results)
     # Each main path's launches, counted from 0 just before it.
-    by_path = {"serving": phase_serving(smi), "engine": phase_engine(smi),
+    by_path |= {"serving": phase_serving(smi), "engine": phase_engine(smi),
                "training": phase_training(smi, args.profile), "t5": phase_t5(smi, args.profile),
                "t5_training": phase_t5_training(smi)}
     ops_results, ops_launches = phase_ops(smi)
@@ -2627,10 +3009,16 @@ def main() -> None:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches.get(name, 0),
             "launches_by_path": {p: c[name] for p, c in by_path.items() if c.get(name, 0)},
+            # Calls recorded into CUDA graphs (not launches: the card ran
+            # each once per replay, GRAPH_REPLAYS times).
+            **({"captured_calls_by_path": captured}
+               if (captured := {p: c[name] for p, c in captured_by_path.items()
+                                if c.get(name, 0)}) else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"whole_call_ms": r["whole_call_ms"]} if "whole_call_ms" in r else {}),
             **({"cases": r["cases"]} if "cases" in r else {}),
+            **{k: r[k] for k in ("shape", "iters") if k in r},
         }
 
     kernels = [entry(name) for name in SOURCES if name not in NESTED_MODES]

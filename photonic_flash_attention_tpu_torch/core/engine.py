@@ -35,11 +35,17 @@ Differences from the JAX engine, each in ROADMAP Queue C:
   ``NotImplementedError``;
 * FLASH_INT8QK and FLASH_FP8QK are not offered for fp32 V on the card:
   K1's quantized modes run P.V in bf16 (JAX runs it in fp32 for fp32 V);
-  the plain versions on the CPU keep fp32;
-* energy is latency x the card's power limit, read once from
-  ``nvidia-smi`` when the engine starts (None without a card); the JAX
-  engine's 170 W is a TPU v5e figure, and its roofline energy model waits
-  for A14.
+  the plain versions on the CPU keep fp32.
+
+Energy is JAX's roofline estimate (``_estimate_energy_mj``: FLOPs x energy
+per FLOP + HBM bytes x energy per byte + the card's idle draw x latency,
+``hardware/roofline.py``). The device record is resolved once, when the
+engine is built. Without a workload, or on a card the roofline's table
+does not hold, it is latency x the card's power limit, read once from
+``nvidia-smi`` (None without a card), where JAX takes 170 W, a TPU v5e
+figure: an unknown card fails the roofline's own calls, never attention.
+A fault in the estimate raises: JAX's catch-all fallback is not carried
+over.
 """
 
 from __future__ import annotations
@@ -52,6 +58,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import get_config
+from ..hardware.detection import known_capabilities
+from ..hardware.roofline import attention_decode_cost, attention_prefill_cost, kernel_energy_mj
 from ..ops.flash import flash_attention
 from ..ops.flash_fp8 import (
     flash_attention_fp8,
@@ -189,7 +197,9 @@ class AttentionEngine:
     ) -> None:
         cfg = get_config()
         self.router = router or AdaptiveRouter()
-        self.router.energy_model = lambda kind, w, lat: self._estimate_energy_mj(lat)
+        # Energy-aware arbitration (config.energy_weight > 0): the router
+        # blends measured latency with the roofline energy estimate.
+        self.router.energy_model = lambda kind, w, lat: self._estimate_energy_mj(kind, lat, w)
         self.autotuner = autotuner or get_autotuner()
         # Quantized kinds are opt-in per family, as in JAX: fp8 under
         # quant_mode "fp8", int8 under "int8".
@@ -198,6 +208,8 @@ class AttentionEngine:
         #: the card's power limit (W), read once; None without a card.
         self.board_power_w = card_power_limit_w()
         self.router.board_power_w = self.board_power_w
+        #: the roofline's record of this device, None for a card it lacks.
+        self.energy_caps = known_capabilities()
         self._lock = threading.RLock()
         self._metrics = get_metrics()
         self._refresh_inflight: set = set()
@@ -340,7 +352,7 @@ class AttentionEngine:
             out, weights = run(kind, q)
         latency_ms = (time.perf_counter() - t0) * 1e3
         self.router.note_usage(kind, latency_ms)
-        self._record_stats(kind, latency_ms)
+        self._record_stats(kind, latency_ms, w)
         return out, weights
 
     def _refresh_async(self, kind: KernelKind, w, run, q) -> None:
@@ -380,16 +392,65 @@ class AttentionEngine:
 
     # -- stats --------------------------------------------------------------------
 
-    def _estimate_energy_mj(self, latency_ms: float) -> Optional[float]:
-        """Latency x the card's power limit (ms x W = mJ), None without a
-        power figure."""
-        return latency_ms * self.board_power_w if self.board_power_w else None
+    #: Kind -> effective matmul dtype of the energy model: "int8qk"/"fp8qk"
+    #: are the QK-only blends (score matmul quantized, P.V bf16), "int8"
+    #: the fully quantized kind (JAX ``_ENERGY_DTYPE``).
+    _ENERGY_DTYPE = {
+        "flash_int8qk": "int8qk",
+        "flash_int8full": "int8",
+        "flash_fp8": "fp8",
+        "flash_fp8qk": "fp8qk",
+    }
 
-    def _record_stats(self, kind: KernelKind, latency_ms: float) -> None:
+    #: Kind -> HBM bytes per element of (q, k, v, o) (JAX
+    #: ``_ENERGY_OPERAND_BYTES``): the QK-only kinds keep V and O in bf16.
+    _ENERGY_OPERAND_BYTES = {
+        "flash_int8qk": (1, 1, 2, 2),
+        "flash_fp8qk": (1, 1, 2, 2),
+        "flash_fp8": (1, 1, 1, 2),
+        "flash_int8full": (1, 1, 1, 2),
+    }
+
+    def _estimate_energy_mj(
+        self, kind: KernelKind, latency_ms: float, w: Optional[WorkloadCharacteristics]
+    ) -> Optional[float]:
+        """Roofline energy of one call (mJ): flops x e_flop + HBM bytes x
+        e_byte + static power x latency (``kernel_energy_mj``), so a kind
+        that moves fewer bytes or does cheaper FLOPs ranks below an equally
+        fast one. Without a workload or a device record: latency x the
+        card's power limit, None without a card."""
+        caps = self.energy_caps
+        if w is None or caps is None:
+            return latency_ms * self.board_power_w if self.board_power_w else None
+        dtype = self._ENERGY_DTYPE.get(kind.value, "bf16")
+        if w.is_decode:
+            cost = attention_decode_cost(w.batch_size, w.kv_len, w.num_heads,
+                                         w.num_kv_heads or w.num_heads, w.head_dim, caps=caps)
+        else:
+            cost = attention_prefill_cost(
+                w.batch_size, w.q_len, w.kv_len, w.num_heads, w.head_dim, causal=w.causal,
+                dtype=dtype if dtype in ("bf16", "int8", "fp8") else "bf16", caps=caps,
+            )
+            ob = self._ENERGY_OPERAND_BYTES.get(kind.value)
+            if ob is not None:
+                # Mixed-precision traffic, with the KV head count for k and v.
+                qb, kb, vb, o_b = ob
+                hkv = w.num_kv_heads or w.num_heads
+                cost.hbm_bytes = w.batch_size * w.head_dim * (
+                    w.num_heads * w.q_len * (qb + o_b) + hkv * w.kv_len * (kb + vb)
+                )
+        if kind == KernelKind.FUSED:
+            # FUSED writes the (B, H, Sq, Skv) fp32 scores to HBM and reads
+            # them back through the softmax.
+            cost.hbm_bytes += 4.0 * w.batch_size * w.num_heads * w.q_len * w.kv_len * 2
+        return kernel_energy_mj(cost, latency_ms, dtype=dtype)
+
+    def _record_stats(self, kind: KernelKind, latency_ms: float,
+                      w: WorkloadCharacteristics) -> None:
         self._total_calls += 1
         self.last_kernel_used = kind.value
         self.last_latency_ms = latency_ms
-        self.last_energy_mj = self._estimate_energy_mj(latency_ms)
+        self.last_energy_mj = self._estimate_energy_mj(kind, latency_ms, w)
         self._metrics.record(f"attention.{kind.value}.latency_ms", latency_ms)
         if self.last_energy_mj is not None:
             self._metrics.record(f"attention.{kind.value}.energy_mj", self.last_energy_mj)

@@ -9,7 +9,8 @@ table saved by one package loads in the other. One difference: the blended
 latency/energy score expresses energy as time at ``board_power_w``, which
 the engine sets from the card's power limit; the JAX module's fixed 170 W
 board power is a TPU v5e figure. Without a power figure the score is the
-latency alone.
+latency alone, and a fault in the energy model raises (JAX scores the
+latency alone then).
 
 Kept from the reference, because they are good serving mechanics:
 * workload bucketing with a bounded prediction cache (hybrid_router.py:106-135,
@@ -341,10 +342,7 @@ class AdaptiveRouter:
         wgt = get_config().energy_weight
         if wgt <= 0.0 or self.energy_model is None or not self.board_power_w:
             return lat
-        try:
-            e_mj = self.energy_model(kind, w, lat)
-        except Exception:  # noqa: BLE001 - scoring must never break dispatch
-            return lat
+        e_mj = self.energy_model(kind, w, lat)  # plain arithmetic: a fault raises
         return (1.0 - wgt) * lat + wgt * (e_mj / self.board_power_w)
 
     # Dominance pruning thresholds: ``other`` must beat ``kind`` by >20%

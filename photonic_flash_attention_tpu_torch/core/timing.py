@@ -7,6 +7,12 @@ with ``time.perf_counter``. The JAX module differences two chained
 ``fori_loop`` runs through a linear fit because a remote TPU's ~24 ms
 dispatch round trip swamps a single call; a local card's events time the
 device work itself, so the fit has no reason to exist here.
+
+The device probes (``ops/hbm_bw.py``, ``ops/device_probes.py``) measure a
+rate, not one call: :func:`fit_seconds` keeps JAX's two-point fit over n
+back-to-back calls, which on the card are captured in one CUDA graph and
+replayed between CUDA events (:func:`graph_ms`), so no host time sits
+between the launches and the graph's own launch cost cancels in the fit.
 """
 
 from __future__ import annotations
@@ -54,3 +60,56 @@ def measure_ms(
             step_fn(x0)
             times.append((time.perf_counter() - t0) * 1e3)
     return max(statistics.median(times), 1e-4)
+
+
+def graph_ms(fn: Callable[[], object], runs: int = 20, replays: int = 5) -> float:
+    """Device milliseconds of one ``fn()`` on the card: ``runs`` calls
+    captured in one CUDA graph, the median over ``replays`` replays (CUDA
+    events around each) divided by ``runs``. No host work sits between the
+    launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / runs)
+    del graph
+    return statistics.median(times)
+
+
+def fit_seconds(fn: Callable[[], object], fit: Tuple[int, int], device: torch.device) -> float:
+    """Seconds of one ``fn()`` by JAX's two-point fit: (t(hi) - t(lo)) /
+    (hi - lo), t(n) the time of n back-to-back calls. On the card t(n) is
+    one replay of a CUDA graph of n calls (:func:`graph_ms`); on the CPU
+    the best of three wall-clock runs after one warm-up call."""
+    lo, hi = fit
+    if not 0 < lo < hi:
+        raise ValueError(f"fit must be two counts 0 < lo < hi, got {fit}")
+    if device.type == "cuda":
+        return (hi * graph_ms(fn, hi) - lo * graph_ms(fn, lo)) / (hi - lo) * 1e-3
+
+    def run(n: int) -> float:
+        fn()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    return (run(hi) - run(lo)) / (hi - lo)

@@ -1,0 +1,338 @@
+// K9-K12: the card's own rates, measured by four probes for Hopper (sm_90a).
+//
+// The roofline (hardware/roofline.py) divides work by the rates these
+// kernels measure: HBM read and copy bandwidth, the exp rate, and the rate
+// of the online-softmax stream that bounds K1 at head dim 64.
+//
+// K9 (pfa_hbm_read) replaces photonic_flash_attention_tpu/ops/hbm_bw.py::
+// _read_kernel (hbm_read_probe): read every byte of x once, return 8 rows of
+// it. Bound: bytes / 3.35 TB/s (H100 SXM data sheet at its 700 W limit),
+// 0.0801 ms for bench.py's (262144, 512) bf16. The TPU kernel streams 4 MB
+// chunks through two VMEM slots by DMA; here every thread streams 16-byte
+// loads, neighbouring threads on neighbouring addresses, in a grid-stride
+// loop over one full wave of blocks (the occupancy API sizes the grid), with
+// STREAM_UNROLL loads in flight per thread: 256 threads x 8 x 16 B = 32 KB
+// per block, several MB over a wave of blocks, above the ~2 MB the card
+// needs in flight at 3.35 TB/s and ~0.6 us of latency.
+// K10 (pfa_hbm_copy) replaces ::_copy_kernel (hbm_copy): y = x. Bound:
+// 2 x bytes / 3.35 TB/s. The same loop, each load stored to y.
+// K11 (pfa_exp_probe) replaces photonic_flash_attention_tpu/ops/
+// device_probes.py::_exp_kernel (exp_probe): `iters` chained x <- exp(-x),
+// returning rows 0-7. Bound: exps over the MUFU rate, 16 a clock per SM
+// (CUDA C++ Programming Guide, exp2f at compute capability 9.0) x 132 SMs x
+// the SM clock. Each thread holds one float4 (four independent chains) and
+// computes exp as K1 does, exp2f(x * log2 e) (csrc/flash_fwd.cu:153).
+// K12 (pfa_softmax_probe) replaces ::_softmax_kernel (softmax_block_probe):
+// `iters` chained online-softmax block updates over (rows, cols) fp32,
+// returning rows 0-7 (and their running sums l). Bound: the larger of
+// (elements + rows) x iters exps over the MUFU rate and the instructions
+// the function needs per element over 128 issue lanes a clock per SM: 5.5
+// unmasked (FFMA, FMNMX, FADD, half an F2FP, the bf16 unpack, MUFU.EX2),
+// 7.5 masked (+ compare and select), both below the MUFU term's 8 (128 /
+// 16), so MUFU binds. This kernel issues more (8.6 and 11.4 besides
+// MUFU.EX2 in its SASS: exp2f's non-FTZ range fix, a separate FADD and
+// FMUL where one FFMA would do): that costs it time and leaves the bound
+// as it is. The TPU probe mirrors the TPU flash kernel's lane-replicated
+// statistics; this one mirrors K1: a row's values live in the registers
+// of a group of G threads (G = 4, a quad, up to 512 columns: 128 values and
+// ~195 registers a thread, three 128-thread blocks a SM; G = 8 up to
+// 1024), the max and the sum taken by log2(G)
+// __shfl_xor_sync (csrc/flash_fwd.cu:548-549, :614-615), every exp the
+// exp2f of K1. Each update: the optional mask select col <= it +
+// mask_bound, the row max, p = exp(s - m), alpha = exp(m_prev - m), l =
+// alpha l + sum p, s <- f32(bf16(p)), the cast by pairs as K1 packs P.
+//
+// Nothing may be dead code: the TPU kernels were kept alive by
+// has_side_effects and VMEM writes, while nvcc drops any load or arithmetic
+// whose value reaches no store, and may sink a thread's whole chain under
+// the branch that stores the returned rows. So every thread folds its final
+// values (and K12's m, and l, which only rows 0-7 return) into one
+// register and stores it to a sink only where it equals `sentinel`, a
+// kernel argument: the compare needs every value, so every load and every
+// link of every chain runs. K12's mask bound is a kernel argument too, so nvcc cannot prove the
+// select always true (it always is: col < cols <= mask_bound); masked and
+// unmasked are compile-time modes, as K1's modes are.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int STREAM_THREADS = 256;
+constexpr int STREAM_UNROLL = 8;  // 16-byte loads in flight per thread
+constexpr int EXP_THREADS = 256;  // K11: one float4 per thread and step
+constexpr int SOFTMAX_THREADS = 128;
+constexpr float PROBE_MASK = -1e30f;  // the TPU probe's mask value and m_0
+
+__device__ __forceinline__ uint32_t fold(uint4 v) { return v.x ^ v.y ^ v.z ^ v.w; }
+
+__device__ __forceinline__ uint32_t fold(float4 v) {
+  return __float_as_uint(v.x) ^ __float_as_uint(v.y) ^ __float_as_uint(v.z) ^
+         __float_as_uint(v.w);
+}
+
+// K9. Every 16-byte vector of x once (grid-stride, STREAM_UNROLL in
+// flight); block 0 then copies the returned slice (8 rows) to out.
+__global__ void __launch_bounds__(STREAM_THREADS)
+hbm_read(const uint4* __restrict__ x, long long n_vec, const uint4* __restrict__ slice,
+         uint4* __restrict__ out, int slice_vec, uint32_t sentinel, uint32_t* __restrict__ sink) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t acc = 0;
+  for (; i + (STREAM_UNROLL - 1) * stride < n_vec; i += STREAM_UNROLL * stride) {
+    uint4 v[STREAM_UNROLL];
+#pragma unroll
+    for (int u = 0; u < STREAM_UNROLL; ++u) v[u] = x[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < STREAM_UNROLL; ++u) acc ^= fold(v[u]);
+  }
+  for (; i < n_vec; i += stride) acc ^= fold(x[i]);
+  if (acc == sentinel) sink[0] = acc;
+  if (blockIdx.x == 0)
+    for (int j = threadIdx.x; j < slice_vec; j += blockDim.x) out[j] = slice[j];
+}
+
+// K10. y = x by 16-byte vectors, the same loop as K9.
+__global__ void __launch_bounds__(STREAM_THREADS)
+hbm_copy(const uint4* __restrict__ x, uint4* __restrict__ y, long long n_vec) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (; i + (STREAM_UNROLL - 1) * stride < n_vec; i += STREAM_UNROLL * stride) {
+    uint4 v[STREAM_UNROLL];
+#pragma unroll
+    for (int u = 0; u < STREAM_UNROLL; ++u) v[u] = x[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < STREAM_UNROLL; ++u) y[i + u * stride] = v[u];
+  }
+  for (; i < n_vec; i += stride) y[i] = x[i];
+}
+
+// exp(-x) as K1 computes exp: exp2f of the argument times log2 e.
+__device__ __forceinline__ float exp_neg(float x) { return exp2f((0.f - x) * LOG2E); }
+
+// K11. Each thread: one float4 of x per grid-stride step, `iters` chained
+// exp(-x) on each of its four values; the first out4 float4s (rows 0-7) are
+// returned.
+__global__ void __launch_bounds__(EXP_THREADS)
+exp_chain(const float4* __restrict__ x, float4* __restrict__ out, long long n4, int out4,
+          int iters, uint32_t sentinel, uint32_t* __restrict__ sink) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  uint32_t acc = 0;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
+    float4 v = x[i];
+#pragma unroll 4
+    for (int it = 0; it < iters; ++it) {
+      v.x = exp_neg(v.x);
+      v.y = exp_neg(v.y);
+      v.z = exp_neg(v.z);
+      v.w = exp_neg(v.w);
+    }
+    if (i < out4) out[i] = v;
+    acc ^= fold(v);
+  }
+  if (acc == sentinel) sink[0] = acc;
+}
+
+// K12. Block: SOFTMAX_THREADS threads, groups of G per row. Thread t of a
+// group holds the VPT values of its row at columns p * 2G + 2t + {0, 1}
+// (pair p), K1's quad layout for G = 4.
+template <int G, int VPT, bool MASKED>
+__global__ void __launch_bounds__(SOFTMAX_THREADS)
+softmax_stream(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ l_out,
+               int rows, int cols, int iters, int mask_bound, uint32_t sentinel,
+               uint32_t* __restrict__ sink) {
+  const int row = blockIdx.x * (SOFTMAX_THREADS / G) + threadIdx.x / G;
+  const int t = threadIdx.x % G;
+  const bool live = row < rows;  // a dead row's group computes on zeros
+  float v[VPT];
+#pragma unroll
+  for (int p = 0; p < VPT / 2; ++p) {
+    float2 a = make_float2(0.f, 0.f);
+    if (live) a = *reinterpret_cast<const float2*>(x + (long long)row * cols + p * 2 * G + 2 * t);
+    v[2 * p] = a.x;
+    v[2 * p + 1] = a.y;
+  }
+  float m = PROBE_MASK, l = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    // col <= it + mask_bound, col = c_j + 2t with c_j a compile-time
+    // constant: one compare of c_j with lim per value.
+    const int lim = it + mask_bound - 2 * t;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      if (MASKED) v[j] = (j >> 1) * 2 * G + (j & 1) <= lim ? v[j] : PROBE_MASK;
+      mx = fmaxf(mx, v[j]);
+    }
+#pragma unroll
+    for (int o = 1; o < G; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_next = fmaxf(m, mx);
+    const float alpha = exp2f((m - m_next) * LOG2E);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < VPT; j += 2) {
+      const float p0 = exp2f((v[j] - m_next) * LOG2E);
+      const float p1 = exp2f((v[j + 1] - m_next) * LOG2E);
+      sum += p0;
+      sum += p1;
+      // P -> bf16 by pairs, as K1 packs P for P.V (common.cuh::pack_bf16).
+      const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+      v[j] = __low2float(h);
+      v[j + 1] = __high2float(h);
+    }
+#pragma unroll
+    for (int o = 1; o < G; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    l = alpha * l + sum;
+    m = m_next;
+  }
+  uint32_t acc = __float_as_uint(m) ^ __float_as_uint(l);
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) acc ^= __float_as_uint(v[j]);
+  if (acc == sentinel) sink[0] = acc;
+  if (live && row < 8) {
+#pragma unroll
+    for (int p = 0; p < VPT / 2; ++p)
+      *reinterpret_cast<float2*>(out + (long long)row * cols + p * 2 * G + 2 * t) =
+          make_float2(v[2 * p], v[2 * p + 1]);
+    if (t == 0) l_out[row] = l;
+  }
+}
+
+// Blocks of `kernel` at `threads` a block that fill every SM once.
+template <typename K>
+cudaError_t wave_blocks(K kernel, int threads, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (e == cudaSuccess && per_sm * sms <= 0) e = cudaErrorInvalidConfiguration;
+  *blocks = per_sm * sms;
+  return e;
+}
+
+template <typename K>
+cudaError_t grid_for(K kernel, int threads, long long work_items, int* grid) {
+  int wave = 0;
+  const cudaError_t e = wave_blocks(kernel, threads, &wave);
+  const long long need = (work_items + threads - 1) / threads;
+  *grid = static_cast<int>(need < wave ? (need > 0 ? need : 1) : wave);
+  return e;
+}
+
+// K12's instantiation for `cols`: (G, VPT) = (4, cols / 4) up to 512
+// columns, (8, cols / 8) up to 1024; cols % 128 == 0.
+template <bool MASKED>
+using SoftmaxKernel = void (*)(const float*, float*, float*, int, int, int, int, uint32_t,
+                               uint32_t*);
+
+template <bool MASKED>
+SoftmaxKernel<MASKED> softmax_kernel_for(int cols, int* group) {
+  *group = cols <= 512 ? 4 : 8;
+  switch (cols) {
+    case 128: return softmax_stream<4, 32, MASKED>;
+    case 256: return softmax_stream<4, 64, MASKED>;
+    case 384: return softmax_stream<4, 96, MASKED>;
+    case 512: return softmax_stream<4, 128, MASKED>;
+    case 640: return softmax_stream<8, 80, MASKED>;
+    case 768: return softmax_stream<8, 96, MASKED>;
+    case 896: return softmax_stream<8, 112, MASKED>;
+    case 1024: return softmax_stream<8, 128, MASKED>;
+    default: return nullptr;
+  }
+}
+
+template <bool MASKED>
+cudaError_t run_softmax(const float* x, float* out, float* l_out, int rows, int cols, int iters,
+                        int mask_bound, uint32_t sentinel, uint32_t* sink, cudaStream_t st) {
+  int group = 0;
+  const SoftmaxKernel<MASKED> kernel = softmax_kernel_for<MASKED>(cols, &group);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  const int rows_per_block = SOFTMAX_THREADS / group;
+  kernel<<<(rows + rows_per_block - 1) / rows_per_block, SOFTMAX_THREADS, 0, st>>>(
+      x, out, l_out, rows, cols, iters, mask_bound, sentinel, sink);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+}  // namespace
+
+// K9: read the n_bytes of x; out = the slice_bytes at `slice` (x's returned
+// rows). n_bytes and slice_bytes multiples of 16, pointers 16-byte aligned.
+extern "C" int pfa_hbm_read(const void* x, const void* slice, void* out, uint32_t* sink,
+                            long long n_bytes, int slice_bytes, uint32_t sentinel, void* stream) {
+  if (n_bytes <= 0 || n_bytes % 16 || slice_bytes <= 0 || slice_bytes % 16 || !aligned16(x) ||
+      !aligned16(slice) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t e = grid_for(hbm_read, STREAM_THREADS, n_bytes / 16, &grid);
+  if (e != cudaSuccess) return e;
+  hbm_read<<<grid, STREAM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), n_bytes / 16, static_cast<const uint4*>(slice),
+      static_cast<uint4*>(out), slice_bytes / 16, sentinel, sink);
+  return cudaGetLastError();
+}
+
+// K10: y = x, n_bytes a multiple of 16, both 16-byte aligned.
+extern "C" int pfa_hbm_copy(const void* x, void* y, long long n_bytes, void* stream) {
+  if (n_bytes <= 0 || n_bytes % 16 || !aligned16(x) || !aligned16(y)) return cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t e = grid_for(hbm_copy, STREAM_THREADS, n_bytes / 16, &grid);
+  if (e != cudaSuccess) return e;
+  hbm_copy<<<grid, STREAM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(y), n_bytes / 16);
+  return cudaGetLastError();
+}
+
+// K11: `iters` chained exp(-x) over the n fp32 values of x (n % 4 == 0);
+// out = the first out_n (8 rows; out_n % 4 == 0).
+extern "C" int pfa_exp_probe(const float* x, float* out, uint32_t* sink, long long n, int out_n,
+                             int iters, uint32_t sentinel, void* stream) {
+  if (n <= 0 || n % 4 || out_n <= 0 || out_n % 4 || out_n > n || iters < 0 || !aligned16(x) ||
+      !aligned16(out))
+    return cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t e = grid_for(exp_chain, EXP_THREADS, n / 4, &grid);
+  if (e != cudaSuccess) return e;
+  exp_chain<<<grid, EXP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out), n / 4, out_n / 4, iters,
+      sentinel, sink);
+  return cudaGetLastError();
+}
+
+// K12: `iters` chained online-softmax block updates over (rows, cols) fp32
+// (rows >= 8, cols in 128..1024, cols % 128 == 0); out = rows 0-7, l_out
+// their running sums (8 values); masked selects col <= it + mask_bound
+// before each update.
+extern "C" int pfa_softmax_probe(const float* x, float* out, float* l_out, uint32_t* sink,
+                                 int rows, int cols, int iters, int mask_bound, int masked,
+                                 uint32_t sentinel, void* stream) {
+  if (rows < 8 || iters < 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (masked)
+    return run_softmax<true>(x, out, l_out, rows, cols, iters, mask_bound, sentinel, sink, st);
+  return run_softmax<false>(x, out, l_out, rows, cols, iters, mask_bound, sentinel, sink, st);
+}
+
+// The work one full wave of a probe holds on this card: kernel 0 (K11)
+// fp32 values; kernel 1 (K12) rows at `cols`, masked or not.
+extern "C" int pfa_probe_wave(int kernel, int cols, int masked, int* out) {
+  int blocks = 0;
+  cudaError_t e;
+  if (kernel == 0) {
+    e = wave_blocks(exp_chain, EXP_THREADS, &blocks);
+    *out = blocks * EXP_THREADS * 4;
+    return e;
+  }
+  if (kernel != 1) return cudaErrorInvalidValue;
+  int group = 0;
+  if (masked) {
+    const SoftmaxKernel<true> k = softmax_kernel_for<true>(cols, &group);
+    if (k == nullptr) return cudaErrorInvalidValue;
+    e = wave_blocks(k, SOFTMAX_THREADS, &blocks);
+  } else {
+    const SoftmaxKernel<false> k = softmax_kernel_for<false>(cols, &group);
+    if (k == nullptr) return cudaErrorInvalidValue;
+    e = wave_blocks(k, SOFTMAX_THREADS, &blocks);
+  }
+  *out = blocks * (SOFTMAX_THREADS / group);
+  return e;
+}

@@ -12,7 +12,9 @@ Each C entry point takes pointers and the CUDA stream as ``c_void_p`` and
 sizes as ``c_int``, launches on that stream and returns
 ``cudaGetLastError()``; :func:`launch` raises if that is not 0, and counts
 the launch in :data:`LAUNCHES`, under the entry point's name or under the
-name of the kernel's mode (``count_as``).
+name of the kernel's mode (``count_as``). A call made while the stream is
+being captured into a CUDA graph launches nothing: it is counted in
+:data:`CAPTURED` instead, and the card runs it once per replay.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -41,6 +43,7 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_L = ctypes.c_longlong
 #: The window and dropout arguments of K1, K4 and K5: win_lo, win_hi,
 #: seed, keep threshold, 1 / (1 - rate).
 _STREAMS = [_I, _I, _U, _U, _F]
@@ -80,6 +83,16 @@ _SIGNATURES: Dict[str, List] = {
     "pfa_softmax": [_P, _P, _I, _I, _I, _P],
     # x, gamma, beta (or None), y, rows, D, inv_d, eps, rms, dtype, stream
     "pfa_rownorm": [_P] * 4 + [_I, _I, _F, _F, _I, _I, _P],
+    # x, slice, out, sink, n_bytes, slice_bytes, sentinel, stream
+    "pfa_hbm_read": [_P] * 4 + [_L, _I, _U, _P],
+    # x, y, n_bytes, stream
+    "pfa_hbm_copy": [_P, _P, _L, _P],
+    # x, out, sink, n, out_n, iters, sentinel, stream
+    "pfa_exp_probe": [_P] * 3 + [_L, _I, _I, _U, _P],
+    # x, out, l_out, sink, rows, cols, iters, mask_bound, masked, sentinel, stream
+    "pfa_softmax_probe": [_P] * 4 + [_I] * 5 + [_U, _P],
+    # kernel (0 = K11, 1 = K12), cols, masked, out (int *); no stream
+    "pfa_probe_wave": [_I, _I, _I, ctypes.POINTER(_I)],
 }
 
 #: dtype codes shared with the C side (csrc/common.cuh).
@@ -93,6 +106,10 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
 #: Incremented only where a wrapper has launched its kernel.
 LAUNCHES: collections.Counter = collections.Counter()
+#: Calls recorded into a CUDA graph under capture since the last
+#: :func:`reset_launches`, by kernel name (not launches: each runs once per
+#: replay of its graph).
+CAPTURED: collections.Counter = collections.Counter()
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -100,6 +117,7 @@ _lock = threading.Lock()
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    CAPTURED.clear()
 
 
 def _sources() -> List[Path]:
@@ -186,12 +204,14 @@ def lib() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args, count_as: Optional[str] = None) -> None:
     """Call C entry point ``name`` on ``device``'s current stream; raise on
-    a launch error; count the launch under ``count_as`` (default ``name``)."""
+    a launch error; count the launch under ``count_as`` (default ``name``),
+    in :data:`CAPTURED` where the stream is being captured."""
     kernels = lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         err = getattr(kernels, name)(*args, stream)
     if err != 0:
         msg = kernels.pfa_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
-    LAUNCHES[count_as or name] += 1
+    (CAPTURED if capturing else LAUNCHES)[count_as or name] += 1

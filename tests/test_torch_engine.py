@@ -12,6 +12,11 @@ layer and the MHA facade against the JAX Flax modules with the same
 weights. Everything runs on the CPU with the kernels' plain versions, at
 S <= 256 (flash thresholds lowered where a test needs the flash kinds).
 
+The engine's roofline energy is held against the JAX engine's
+``_estimate_energy_mj`` for the same workload, kind and latency (1e-9
+relative, JAX's 60 W static power patched into the port for the test), and
+drives the router's energy blend.
+
 Bounds: fp32 outputs ``rel_err_norm`` <= 1e-5 (fused and flash) and
 <= 1e-5 for the paged decode; module outputs <= 1e-5, also under a quant
 mode when both engines run the same quantized kind at 128-key blocks;
@@ -28,6 +33,7 @@ import pytest
 import torch
 
 from photonic_flash_attention_tpu.config import set_global_config as jax_set_config
+from photonic_flash_attention_tpu.hardware import roofline as jax_roofline
 from photonic_flash_attention_tpu.core.autotuner import Autotuner as JaxAutotuner
 from photonic_flash_attention_tpu.core.engine import (
     AttentionEngine as JaxEngine,
@@ -67,6 +73,11 @@ from photonic_flash_attention_tpu_torch.core.router import (
     WorkloadCharacteristics,
 )
 from photonic_flash_attention_tpu_torch.core.timing import default_runs, measure_ms
+from photonic_flash_attention_tpu_torch.hardware import roofline as port_roofline
+from photonic_flash_attention_tpu_torch.hardware.roofline import (
+    attention_prefill_cost,
+    kernel_energy_mj,
+)
 from photonic_flash_attention_tpu_torch.models.attention import (
     PhotonicFlashAttention,
     PhotonicMultiHeadAttention,
@@ -245,6 +256,71 @@ def test_energy_weight_needs_the_card_power():
 
     assert router(None).select_kernel(w, avail) == KernelKind.FLASH
     assert router(700.0).select_kernel(w, avail) == KernelKind.FLASH_UNROLLED
+
+
+def test_roofline_energy_prefers_the_lower_byte_kind():
+    """The engine's roofline energy, not a stub: at energy_weight 0.5 an
+    int8-QK call 2 % slower than FLASH wins (cheaper score FLOPs, one-byte
+    Q and K), while the latency alone (weight 0) keeps FLASH."""
+    eng = _engine(enable_int8=True)
+    w = WorkloadCharacteristics(batch_size=8, q_len=4096, kv_len=4096, num_heads=16,
+                                head_dim=128, causal=True)
+    avail = (KernelKind.FLASH, KernelKind.FLASH_INT8QK)
+    assert (eng._estimate_energy_mj(KernelKind.FLASH_INT8QK, 1.02, w)
+            < eng._estimate_energy_mj(KernelKind.FLASH, 1.00, w))
+
+    def choice(weight):
+        get_config().update(energy_weight=weight)
+        r = AdaptiveRouter(exploration_rate=0.0, seed=0)
+        r.energy_model, r.board_power_w = eng.router.energy_model, 700.0
+        for _ in range(3):
+            r.update_performance(KernelKind.FLASH, w, 1.00)
+            r.update_performance(KernelKind.FLASH_INT8QK, w, 1.02)
+        return r.select_kernel(w, avail)
+
+    assert choice(0.0) == KernelKind.FLASH
+    assert choice(0.5) == KernelKind.FLASH_INT8QK
+
+
+def test_a_card_without_a_record_keeps_attention_running(monkeypatch):
+    """On a card the roofline's table lacks (no record), attention runs and
+    the energy is latency x the card's power limit."""
+    monkeypatch.setattr(engine_module, "known_capabilities", lambda: None)
+    eng = _engine()
+    assert eng.energy_caps is None
+    eng.board_power_w = 700.0
+    q, k, v = _t(*make_qkv(s=32))
+    out, _ = eng(q, k, v)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    assert eng.last_energy_mj == pytest.approx(eng.last_latency_ms * 700.0)
+
+
+#: (kind, Sq, Skv, Hq, Hkv, causal): the prefill kinds with their own
+#: energy dtype or bytes, and a GQA decode.
+ENERGY_CASES = [
+    ("FLASH", 1024, 1024, 8, 8, True),
+    ("FUSED", 512, 512, 8, 8, False),
+    ("FLASH_INT8QK", 1024, 1024, 8, 8, True),
+    ("FLASH_INT8FULL", 1024, 1024, 8, 8, True),
+    ("FLASH_FP8QK", 2048, 2048, 16, 4, True),
+    ("PAGED_DECODE", 1, 4096, 32, 8, False),
+]
+
+
+@pytest.mark.parametrize("kind, sq, skv, hq, hkv, causal", ENERGY_CASES,
+                         ids=[c[0].lower() for c in ENERGY_CASES])
+def test_energy_estimate_matches_jax(monkeypatch, kind, sq, skv, hq, hkv, causal):
+    """The engine's roofline energy against the JAX engine's for the same
+    workload, kind and latency, with JAX's static power (60 W) in the port."""
+    monkeypatch.setattr(port_roofline, "STATIC_POWER_W", jax_roofline.STATIC_POWER_W)
+    eng = _engine(enable_int8=True, enable_fp8=True)
+    jeng = JaxEngine(router=JaxRouter(exploration_rate=0.0, seed=0), enable_int8=True,
+                     enable_fp8=True)
+    common = dict(batch_size=2, q_len=sq, kv_len=skv, num_heads=hq, head_dim=64, causal=causal,
+                  is_decode=sq == 1, num_kv_heads=hkv)
+    got = eng._estimate_energy_mj(KernelKind[kind], 0.42, WorkloadCharacteristics(**common))
+    want = jeng._estimate_energy_mj(JaxKind[kind], 0.42, JaxWC(**common))
+    assert got == pytest.approx(want, rel=1e-9)
 
 
 # -- autotuner and timing ---------------------------------------------------
@@ -524,11 +600,16 @@ def test_stats_surface_and_singleton():
     assert s["total_calls"] == 1 and s["last_kernel_used"] == "fused"
     assert s["last_latency_ms"] > 0 and s["failures"] == {}
     assert {"router", "autotuner", "metrics", "board_power_w"} <= set(s)
-    # No card, no power figure: no energy is reported.
-    assert s["board_power_w"] is None and s["last_energy_mj"] is None
+    # The call's energy is the roofline's: FUSED's FLOPs and bytes, its
+    # materialised fp32 scores written and read, the idle draw x latency.
+    cost = attention_prefill_cost(2, 32, 32, 4, 64)
+    cost.hbm_bytes += 4.0 * 2 * 4 * 32 * 32 * 2
+    assert s["board_power_w"] is None
+    assert s["last_energy_mj"] == pytest.approx(kernel_energy_mj(cost, s["last_latency_ms"]))
+    # Without a workload: latency x the card's power limit, None without one.
+    assert eng._estimate_energy_mj(KernelKind.FUSED, 2.0, None) is None
     eng.board_power_w = 700.0
-    eng(*_t(*make_qkv(s=32)))
-    assert eng.last_energy_mj == pytest.approx(eng.last_latency_ms * 700.0)
+    assert eng._estimate_energy_mj(KernelKind.FUSED, 2.0, None) == pytest.approx(1400.0)
     reset_engine()
     assert get_engine() is not eng
 

@@ -2,7 +2,7 @@
 
 The JAX package exports its config functions in ``__all__`` and re-exports
 the flash functions and the drop-in layers lazily (``__getattr__``);
-``models`` and ``ops`` list their names in ``__all__``. The port must resolve every one
+``models``, ``ops`` and ``hardware`` list their names in ``__all__``. The port must resolve every one
 of them except the names of ROADMAP items still open (listed below), and
 export nothing the JAX package does not.
 """
@@ -13,9 +13,11 @@ import inspect
 import pytest
 
 import photonic_flash_attention_tpu as jax_pkg
+import photonic_flash_attention_tpu.hardware as jax_hardware
 import photonic_flash_attention_tpu.models as jax_models
 import photonic_flash_attention_tpu.ops as jax_ops
 import photonic_flash_attention_tpu_torch as port
+import photonic_flash_attention_tpu_torch.hardware as port_hardware
 import photonic_flash_attention_tpu_torch.models as port_models
 import photonic_flash_attention_tpu_torch.ops as port_ops
 
@@ -31,6 +33,10 @@ MODELS_NOT_PORTED = {
     "load_hf_bert", "load_hf_gpt2", "load_hf_llama", "param_sharding_rules", "transfer_hf_bert",
     "transfer_hf_llama",
 }
+
+#: ``hardware`` names not ported yet: the design-space simulators (A14, later).
+HARDWARE_NOT_PORTED = {"CollectiveCost", "KernelPipelineSimulator", "PipelinePrediction",
+                       "TopologySimulator"}
 
 
 def _lazy_names(module) -> set:
@@ -69,6 +75,15 @@ def test_ops_names_match_jax():
                  "NonlinearityType", "QuantizedTensor", "quantize", "dequantize", "quantize_kv",
                  "quantization_error"):
         assert name in port_ops.__all__, name
+
+
+def test_hardware_names_match_jax():
+    assert port_hardware.__all__ == [n for n in jax_hardware.__all__
+                                     if n not in HARDWARE_NOT_PORTED]
+    assert HARDWARE_NOT_PORTED <= set(jax_hardware.__all__)
+    for name in port_hardware.__all__:
+        obj = getattr(port_hardware, name)
+        assert obj.__module__.startswith(port_hardware.__name__), name
 
 
 def test_exported_objects_are_the_ports():

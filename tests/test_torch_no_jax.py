@@ -54,7 +54,8 @@ def test_every_module_imports_with_jax_blocked():
     for name in ("config", "ops.fused", "ops.flash_bwd", "ops.flash_fp8", "training.data",
                  "training.trainer", "core.router", "core.engine", "core.timing",
                  "core.autotuner", "utils.validation", "utils.monitoring", "cli",
-                 "ops.nonlinearity", "ops.quantization"):
+                 "ops.nonlinearity", "ops.quantization", "ops.hbm_bw", "ops.device_probes",
+                 "hardware", "hardware.detection", "hardware.roofline"):
         assert f"{port.__name__}.{name}" in modules
 
 
