@@ -33,12 +33,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    beside its data-sheet bound; K1's share of the composite ceiling built
    from the measured rates; the profiler's time of K11 and K12 in one
    graph replay against the graph fit (within 10 %);
-5. serving path: GPT-2 medium (random weights, seed 0) served through
+5. experiments: K13-K16 (the flash-forward design-space experiments:
+   fixed-max in both exp modes, augmented V, paired chains at nchain 1 and
+   2, the pipelined KV loop) against their plain versions at small, ragged
+   and full shapes, the full ones every geometry the experiments path
+   gives them, each plain version timed once at K1's headline shape; then,
+   as a path of its own, the four experiments' mains on the card (parity,
+   then each variant and K1 at JAX's geometries by the graph fit), each
+   variant printed with its TFLOP/s, K1's time and the ratio, SDPA's, its
+   share of the data-sheet bound and of the composite ceiling from the
+   roofline's measured rates, and its error against the fp32 oracle, which
+   must stay within its bound; every K13-K16 kernel must launch, and the
+   kernels line takes each one's time from its main's headline row;
+6. serving path: GPT-2 medium (random weights, seed 0) served through
    ``ServingEngine.generate`` with an int8 paged KV cache; every kernel's
    launch count must grow; the first step must agree with the dense model;
    then the same requests with ``prefill_chunk=256`` (K1 with the key-bias
    stream): the same first tokens, last-prompt logits within a bound;
-6. engine path: the drop-in ``PhotonicFlashAttention`` layer at GPT-2
+7. engine path: the drop-in ``PhotonicFlashAttention`` layer at GPT-2
    medium's width, eager calls through the adaptive engine (prefill, key
    padding, a dense (B,1,S,S) mask on K1's dense-bias mode, decode over
    2048 keys, a short call), first with the heuristic
@@ -47,14 +59,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    the same under ``quant_mode`` "int8" and "fp8" (a square causal and a
    cross-attention call): heuristic kinds asserted, the measured warm-up
    must launch K1's int8-QK, int8-full and fp8-QK modes and K6 fp8;
-7. training path: GPT-2 medium (random weights, seed 0) takes AdamW steps
+8. training path: GPT-2 medium (random weights, seed 0) takes AdamW steps
    through ``Trainer.train_step`` at B8 S1024 on one fixed batch; the loss
    must fall, K1/K4/K5 must launch once per layer and step; the gradient of
    the first 4 layers of the same weights must agree with a CPU run; then
    the same with ``attn_pdrop`` 0.1 through ``Trainer(dropout_rng=...)``,
    on K1/K4/K5's dropout modes (the gradient check with one fixed dropout
    seed on both sides);
-8. T5 path at T5-large width (random weights from a seeded generator):
+9. T5 path at T5-large width (random weights from a seeded generator):
    (a) ``T5ForConditionalGeneration`` cut to 2+2 layers, B1, encoder 1024,
    decoder 512, unmasked (K1's relative-bias mode), against the same
    weights in fp32 on the CPU (plain versions); (b) ``ServingEngine`` at
@@ -64,13 +76,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    model's argmax on the card, two trajectories under the JAX test's
    greedy-parity rule; then bf16 compute over a bf16 pool, timed; (c) the
    full-depth bf16 forward at B2, encoder 2048, decoder 512, timed;
-9. T5 training path: T5-large at full depth, bf16 compute, B2, encoder
+10. T5 training path: T5-large at full depth, bf16 compute, B2, encoder
    1024, decoder 512, three AdamW steps through ``Trainer`` with a seq2seq
    cross entropy: the loss must fall, K1's relative-bias mode with lse must
    launch for every self-attention and K1/K4/K5 for every cross-attention;
    the 2+2-layer cut's gradient (fp32 on the card) must match the CPU's on
    every parameter, both ``rel_embedding`` tables included;
-10. ops and CLI: K7 (``fused_softmax``: attention scores (4, 12, 2048, 2048)
+11. ops and CLI: K7 (``fused_softmax``: attention scores (4, 12, 2048, 2048)
    bf16, GPT-2's vocabulary row (8, 1024, 50257) fp32) and K8 (GPT-2
    medium's LayerNorm (8, 1024, 1024) bf16, Llama-2-7B's RMSNorm (8, 2048,
    4096) bf16), with small and ragged rows, against their plain versions
@@ -125,6 +137,7 @@ _BWD = "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu"
 _QUANT = "photonic_flash_attention_tpu_torch/csrc/flash_quant.cu"
 _ROWNORM = "photonic_flash_attention_tpu_torch/csrc/rownorm.cu"
 _PROBES = "photonic_flash_attention_tpu_torch/csrc/probes.cu"
+_EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_experiments.cu"
 _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
 SOURCES = {
@@ -162,6 +175,11 @@ SOURCES = {
     "pfa_exp_probe": _PROBES,
     "pfa_softmax_probe": _PROBES,
     "pfa_softmax_probe_unmasked": _PROBES,
+    "pfa_flash_fixedmax": _EXPERIMENTS,
+    "pfa_flash_fixedmax_fast": _EXPERIMENTS,
+    "pfa_flash_aug": _EXPERIMENTS,
+    "pfa_flash_pair": _EXPERIMENTS,
+    "pfa_flash_pipelined": _EXPERIMENTS,
 }
 #: The kernels and entries of the ops-and-CLI phase (measured there).
 OPS_KERNELS = ("pfa_softmax", "pfa_layer_norm", "pfa_rms_norm", "pfa_paged_attention")
@@ -207,6 +225,11 @@ REPLACES = {
     "pfa_softmax_probe": "photonic_flash_attention_tpu/ops/device_probes.py:76",
     "pfa_softmax_probe_unmasked": "photonic_flash_attention_tpu/ops/device_probes.py:76 "
                                   "(masked=False)",
+    "pfa_flash_fixedmax": "benchmarks/flash_fixedmax_experiment.py:45",
+    "pfa_flash_fixedmax_fast": "benchmarks/flash_fixedmax_experiment.py:45 (fast_exp)",
+    "pfa_flash_aug": "benchmarks/flash_aug_experiment.py:28",
+    "pfa_flash_pair": "benchmarks/flash_pair_experiment.py:28",
+    "pfa_flash_pipelined": "benchmarks/flash_pipeline_experiment.py:49",
 }
 #: Modes that no main path runs, reported under their kernel's entry (main
 #: fails if one of them launches there): K3's int8 compute (engine decode
@@ -2975,7 +2998,247 @@ def phase_roofline(k1: dict, smi: str) -> tuple:
         del x
     torch.cuda.empty_cache()
     print(f"roofline: phase in {time.perf_counter() - t_phase:.2f} s ({smi})", flush=True)
-    return results, {"roofline": launches}, {"roofline": captured}
+    return results, {"roofline": launches}, {"roofline": captured}, rates
+
+
+# -- experiments: the D=64 forward design-space kernels (K13-K16) -------------
+
+#: K13 (both exp modes), K14, K15 and K16: the experiments path's kernels.
+EXPERIMENT_KERNELS = ("pfa_flash_fixedmax", "pfa_flash_fixedmax_fast", "pfa_flash_aug",
+                      "pfa_flash_pair", "pfa_flash_pipelined")
+#: Each against its plain version: K1's bf16 bound (check_flash).
+EXPERIMENT_BOUND = 1e-2
+#: The mains' errors against the fp32 oracle: K1's bf16 bound, and for
+#: ``fast_exp`` the bit trick's own largest relative error a value (2.98e-2
+#: against torch.exp over [-30, 0]).
+ORACLE_BOUND, FAST_EXP_ORACLE_BOUND = 1e-2, 3e-2
+#: The two-point fit of the experiments' mains on this path (theirs default
+#: to JAX's longer windows).
+EXPERIMENT_FIT = (2, 10)
+#: The experiments' long geometry (B, S, H, D), bf16.
+EXPERIMENT_LONG = (1, 8192, 12, 64)
+#: Each main's row keys that hold a variant's time, and its label.
+EXPERIMENT_VARIANTS = (("fixedmax_ms", "K13 fixed-max (with its prolog)"),
+                       ("fast_exp_ms", "K13 fast_exp (with its prolog)"),
+                       ("kernel_ms", "K13 fixed-max, kernel alone"),
+                       ("fast_kernel_ms", "K13 fast_exp, kernel alone"),
+                       ("aug_ms", "K14 aug"), ("pair_ms", "K15 pair"),
+                       ("unrolled_ms", "K16 pipelined"))
+#: Per kernel, the mains' row at K1's headline shape (B4 S2048 H12 D64
+#: causal) that gives its time in the kernels line: (main, row, the
+#: kernel's key, the public call's key where it does more).
+HEADLINE_ROWS = {
+    "pfa_flash_fixedmax": ("fixedmax", "b4_s2048_h12_d64_causal", "kernel_ms", "fixedmax_ms"),
+    "pfa_flash_fixedmax_fast": ("fixedmax", "b4_s2048_h12_d64_causal", "fast_kernel_ms",
+                                "fast_exp_ms"),
+    "pfa_flash_aug": ("aug", "B4 S2048", "aug_ms", None),
+    "pfa_flash_pair": ("pair", "B4 S2048 pair 512x512 x2", "pair_ms", None),
+    "pfa_flash_pipelined": ("pipeline", "bf16 d64 b4 s2048 causal", "unrolled_ms", None),
+}
+
+
+def _experiment_case(name: str, label: str, call, plain, checked: dict,
+                     timed: bool = False) -> None:
+    """The kernel's ``call`` against its ``plain`` version on the same
+    inputs, the plain version run once; with ``timed`` that run's CUDA-event
+    time is the kernel's ``plain_ms``."""
+    out = call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = plain()
+    end.record()
+    end.synchronize()
+    err = rel_err_norm(out, ref)
+    r = checked.setdefault(name, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], max_abs_err(out, ref))
+    line = f"{label}: rel_err_norm {err:.3e} against the plain version (bound {EXPERIMENT_BOUND})"
+    if timed:
+        r["plain_ms"] = start.elapsed_time(end)
+        line += f"; the plain version {r['plain_ms']:.4f} ms"
+    if not err <= EXPERIMENT_BOUND or not torch.isfinite(out).all():
+        raise AssertionError(line)
+    print(line, flush=True)
+
+
+def check_experiments() -> dict:
+    """K13-K16 against their plain versions at small and ragged shapes and
+    at every geometry the experiments path gives them (K13 both exp modes
+    causal and not, K14 also with Sq < Skv, K15 at each nchain the card
+    takes, K16 with GQA, D 128 and fp32 inputs); each plain version runs
+    once a case and is timed at K1's headline shape (B4 S2048 H12 D64
+    causal bf16). Returns, per kernel, its worst max abs error and that
+    plain time."""
+    from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as ax
+    from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fx
+    from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
+    from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
+
+    t_checks = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(40)
+
+    def qkv(b, sq, h, d, skv=None, hkv=None, dtype=torch.bfloat16):
+        skv, hkv = skv or sq, hkv or h
+        return (torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype),
+                *(torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+                  for _ in range(2)))
+
+    checked = {}
+    for (b, s, h, d), blk in (((2, 256, 4, 64), 128), ((1, 96, 3, 128), 32), (K1_HEADLINE, 512),
+                              (EXPERIMENT_LONG, 512)):
+        q, k, v = qkv(b, s, h, d)
+        for causal in (False, True):
+            for fast in (False, True):
+                kw = dict(causal=causal, block_q=blk, block_kv=blk, fast_exp=fast)
+                _experiment_case("pfa_flash_fixedmax_fast" if fast else "pfa_flash_fixedmax",
+                                 f"K13 fixedmax{' fast_exp' if fast else ''} B{b} S{s} H{h} D{d} "
+                                 f"causal={causal}",
+                                 lambda: fx.flash_fixedmax(q, k, v, **kw),
+                                 lambda: fx.flash_fixedmax_plain(q, k, v, **kw), checked,
+                                 timed=(b, s, h, d) == K1_HEADLINE and causal)
+    for (b, sq, skv, h), blk in (((2, 256, 256, 4), 128), ((1, 96, 160, 2), 32),
+                                 ((4, 2048, 2048, 12), 512), ((1, 8192, 8192, 12), 512)):
+        q, k, v = qkv(b, sq, h, 64, skv=skv)
+        _experiment_case("pfa_flash_aug", f"K14 aug B{b} Sq{sq} Skv{skv} H{h} D64 causal",
+                         lambda: ax.flash_aug(q, k, v, bq=blk, bkv=blk),
+                         lambda: ax.flash_aug_plain(q, k, v, bq=blk, bkv=blk), checked,
+                         timed=(b, sq, h, 64) == K1_HEADLINE)
+    for (b, s, h), blk in (((2, 384, 4), 64), ((1, 1536, 3), 64), ((4, 2048, 12), 512),
+                           ((1, 8192, 12), 512)):
+        q, k, v = qkv(b, s, h, 64)
+        for nc in px.CARD_NCHAINS:
+            _experiment_case("pfa_flash_pair", f"K15 pair nchain {nc} B{b} S{s} H{h} D64 causal",
+                             lambda: px.flash_pair(q, k, v, bq=blk, bkv=blk, nchain=nc),
+                             lambda: px.flash_pair_plain(q, k, v, bq=blk, bkv=blk, nchain=nc),
+                             checked, timed=(b, s, h, 64) == K1_HEADLINE and nc == 2)
+    both = (True, False)
+    for (b, s, h, hkv, d, dtype), causals in (((2, 256, 4, 4, 64, torch.bfloat16), both),
+                                              ((1, 96, 4, 2, 64, torch.bfloat16), both),
+                                              ((2, 320, 8, 2, 128, torch.bfloat16), both),
+                                              ((1, 192, 4, 1, 128, torch.float32), both),
+                                              ((4, 2048, 12, 12, 64, torch.bfloat16), both),
+                                              ((1, 8192, 12, 12, 64, torch.bfloat16), (False,)),
+                                              ((4, 4096, 32, 8, 128, torch.bfloat16), both)):
+        q, k, v = qkv(b, s, h, d, hkv=hkv, dtype=dtype)
+        blk = 32 if s % 64 else 512 if s >= 2048 else 64
+        for causal in causals:
+            kw = dict(causal=causal, block_q=blk, block_kv=blk)
+            _experiment_case("pfa_flash_pipelined",
+                             f"K16 pipelined B{b} S{s} H{h}/{hkv} D{d} {str(dtype)[6:]} "
+                             f"causal={causal}",
+                             lambda: ux.flash_unrolled(q, k, v, **kw),
+                             lambda: ux.flash_unrolled_plain(q, k, v, **kw), checked,
+                             timed=(b, s, h, d) == K1_HEADLINE and causal)
+    del q, k, v
+    torch.cuda.empty_cache()
+    print(f"experiments: checks against the plain versions in "
+          f"{time.perf_counter() - t_checks:.2f} s", flush=True)
+    return checked
+
+
+def _sdpa_fit_ms(b, s, hq, hkv, d, causal, fit) -> float:
+    """One F.scaled_dot_product_attention call at the geometry (GQA through
+    ``enable_gqa``), timed by the experiments' fit."""
+    import torch.nn.functional as F
+
+    from photonic_flash_attention_tpu_torch.core.timing import fit_seconds
+
+    q = torch.randn(b, hq, s, d, device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn(b, hkv, s, d, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    return fit_seconds(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                              enable_gqa=hq != hkv),
+                       fit, torch.device("cuda")) * 1e3
+
+
+def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
+    """The experiments path, counted from 0: the four experiments' mains on
+    the card (their parity checks, then each variant and K1 timed by the
+    two-point graph fit at JAX's geometries). Then, per variant and
+    geometry: its time and TFLOP/s, K1's time in the same run and the
+    ratio, SDPA's, its share of the data-sheet bound (``flash_fwd_bound``)
+    and of the composite ceiling from the roofline phase's measured
+    ``rates``, and its rel_err_norm against the fp32 oracle on the mains'
+    (1, 1024) slice, which must stay within its bound. Returns K13-K16's
+    kernels-line entries (the time from each main's row at K1's headline
+    shape, beside ``checked``'s error and plain time), launches and
+    captured calls."""
+    from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as ax
+    from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fx
+    from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
+    from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
+    from photonic_flash_attention_tpu_torch.hardware import roofline as rl
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    rows = {"fixedmax": fx.main("cuda", fit=EXPERIMENT_FIT),
+            "aug": ax.main("cuda", fit=EXPERIMENT_FIT),
+            "pair": px.main("cuda", fit=EXPERIMENT_FIT),
+            "pipeline": ux.main("cuda", fit=EXPERIMENT_FIT)}
+    torch.cuda.synchronize()
+    launches, captured = dict(_build.LAUNCHES), dict(_build.CAPTURED)
+    print(f"experiments: main path in {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{launches}; calls captured into CUDA graphs {captured}", flush=True)
+    for name in EXPERIMENT_KERNELS:
+        if not launches.get(name):
+            raise AssertionError(f"experiments: {name} never launched by the experiments' mains")
+    sdpa, bounds = {}, {}
+    for main_name, table in rows.items():
+        for row_name, row in table.items():
+            if "shape" not in row:
+                continue
+            b, s, hq, hkv, d = row["shape"]
+            causal = row["causal"]
+            if (row["shape"], causal) not in sdpa:
+                sdpa[(row["shape"], causal)] = _sdpa_fit_ms(b, s, hq, hkv, d, causal,
+                                                           EXPERIMENT_FIT)
+            lib = sdpa[(row["shape"], causal)]
+            meta_q = torch.empty(b, s, hq, d, device="meta", dtype=torch.bfloat16)
+            meta_k = torch.empty(b, s, hkv, d, device="meta", dtype=torch.bfloat16)
+            bound = bounds[(row["shape"], causal)] = flash_fwd_bound(meta_q, meta_k, causal)
+            ceiling = rl.attention_composite_ceiling(b, s, s, hq, d, causal=causal,
+                                                     num_kv_heads=hkv, rates=rates)
+            for key, label in EXPERIMENT_VARIANTS:
+                if key not in row:
+                    continue
+                ms = row[key]
+                if key == "pair_ms":
+                    label += f" nchain {row['nchain']}"
+                fast = key.startswith("fast")
+                err = row["fast_rel_err"] if fast else row["rel_err"]
+                err_bound = FAST_EXP_ORACLE_BOUND if fast else ORACLE_BOUND
+                entry = {"tflops": row["flops"] / ms / 1e9, "k1_over": row["k1_ms"] / ms,
+                         "bound_share": bound["bound_ms"] / ms,
+                         "ceiling_share": rl.composite_fraction(ms * 1e3, ceiling)}
+                line = (f"experiments: {label} B{b} S{s} H{hq}/{hkv} D{d} causal={causal} "
+                        f"({main_name}): {ms:.4f} ms, {entry['tflops']:.1f} TFLOP/s; K1 "
+                        f"{row['k1_ms']:.4f} ms in the same run, K1/variant "
+                        f"{entry['k1_over']:.3f}; SDPA {lib:.4f} ms; "
+                        f"{100 * entry['bound_share']:.2f} % of flash_fwd_bound "
+                        f"({bound['bound_ms']:.4f} ms, {bound['bound_by']}); "
+                        f"{100 * entry['ceiling_share']:.2f} % of the composite ceiling "
+                        f"({ceiling['t_ceiling_us']:.2f} us, {ceiling['bound']}); rel_err_norm "
+                        f"{err:.3e} against the fp32 oracle (bound {err_bound}) ({smi})")
+                if not err <= err_bound:
+                    raise AssertionError(line)
+                print(line, flush=True)
+    results = {}
+    for name, (main_name, row_name, key, whole_key) in HEADLINE_ROWS.items():
+        row = rows[main_name][row_name]
+        b, s, hq, hkv, d = row["shape"]
+        if (b, s, hq, d) != K1_HEADLINE or not row["causal"]:
+            raise AssertionError(f"experiments: {main_name}'s row {row_name!r} is not at "
+                                 f"K1's headline shape")
+        results[name] = {"ms": row[key], "library_ms": sdpa[(row["shape"], True)],
+                         "shape": list(K1_HEADLINE), **checked[name],
+                         **bounds[(row["shape"], True)]}
+        if whole_key:
+            results[name]["whole_call_ms"] = row[whole_key]
+    results["pfa_flash_pair"]["cases"] = [
+        {"nchain": row["nchain"], "ms": row["pair_ms"], "k1_ms": row["k1_ms"]}
+        for row in rows["pair"].values()
+        if "nchain" in row and tuple(row["shape"][:3]) == K1_HEADLINE[:3]]
+    torch.cuda.empty_cache()
+    print(f"experiments: phase in {time.perf_counter() - t_phase:.2f} s ({smi})", flush=True)
+    return results, {"experiments": launches}, {"experiments": captured}
 
 
 def main() -> None:
@@ -2987,8 +3250,14 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     results = phase_kernels()
-    roofline_results, by_path, captured_by_path = phase_roofline(results["pfa_flash_fwd"], smi)
+    roofline_results, by_path, captured_by_path, rates = phase_roofline(
+        results["pfa_flash_fwd"], smi)
     results.update(roofline_results)
+    experiment_results, experiment_launches, experiment_captured = phase_experiments(
+        smi, rates, check_experiments())
+    results.update(experiment_results)
+    by_path.update(experiment_launches)
+    captured_by_path.update(experiment_captured)
     # Each main path's launches, counted from 0 just before it.
     by_path |= {"serving": phase_serving(smi), "engine": phase_engine(smi),
                "training": phase_training(smi, args.profile), "t5": phase_t5(smi, args.profile),

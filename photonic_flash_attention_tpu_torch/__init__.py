@@ -38,7 +38,11 @@ Each kernel's wrapper runs its plain PyTorch version for CPU tensors and
 launches the kernel (or raises) for CUDA tensors. Training takes attention
 dropout (``attn_pdrop``, ``Trainer(dropout_rng=...)``) and T5 takes
 gradients through K1's relative-bias mode; K1, K4 and K5 carry the
-sliding-window and dropout streams.
+sliding-window and dropout streams. The probes K9-K12 (``ops.hbm_bw``,
+``ops.device_probes``) feed the roofline (``hardware``), and
+``experiments`` holds the flash-forward design-space experiments of the
+JAX repository's ``benchmarks/`` on K13-K16 (fixed-max, augmented V,
+paired chains, the pipelined KV loop).
 
 The package exports the JAX package's top-level names (the config
 functions, the flash functions, the two drop-in layers) except

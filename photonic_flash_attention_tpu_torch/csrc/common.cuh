@@ -291,3 +291,32 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
     dst[r * LD + c] = r < valid ? src[r * stride + c] : 0.f;
   }
 }
+
+// --- cp.async (sm_80+): 16-byte global -> shared copies, no registers ------
+//
+// A copy with valid == false reads nothing and zero-fills its 16 bytes
+// (src-size 0); `src` must still be a mapped address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows x D bf16 from global (row stride `stride` elements) into shared
+// memory with row pitch LD by cp.async; rows at or past `valid` are
+// zero-filled. The caller commits and waits.
+template <int D, int LD, int NT>
+__device__ __forceinline__ void load_tile_bf16_async(__nv_bfloat16* dst,
+                                                     const __nv_bfloat16* src,
+                                                     long long stride, int rows, int valid) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < rows * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 8;
+    cp_async16(dst + r * LD + c, r < valid ? src + r * stride + c : src, r < valid);
+  }
+}

@@ -93,6 +93,14 @@ _SIGNATURES: Dict[str, List] = {
     "pfa_softmax_probe": [_P] * 4 + [_I] * 5 + [_U, _P],
     # kernel (0 = K11, 1 = K12), cols, masked, out (int *); no stream
     "pfa_probe_wave": [_I, _I, _I, ctypes.POINTER(_I)],
+    # q, k, v, o, fm, B, S, H, D, sm_scale, causal, fast_exp, stream
+    "pfa_flash_fixedmax": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    # q, k, v, o, B, Sq, Skv, H, D, sm_scale, stream
+    "pfa_flash_aug": [_P] * 4 + [_I] * 5 + [_F, _P],
+    # q, k, v, o, B, Sq, Skv, H, D, sm_scale, nchain, stream
+    "pfa_flash_pair": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, dtype, stream
+    "pfa_flash_pipelined": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
 }
 
 #: dtype codes shared with the C side (csrc/common.cuh).

@@ -1,0 +1,129 @@
+"""K13-K16 (the flash-forward experiments) against their plain versions, on the GPU.
+
+Every test here carries the ``cuda`` marker and skips without a GPU. The
+file imports no JAX, so it also runs on a machine that has none:
+
+    python -m pytest tests/test_torch_cuda_experiments.py -m cuda --noconftest -q
+
+Each kernel runs bf16 (K16 also fp32) at small and ragged shapes and at
+every geometry the experiments' mains time (B4 S2048 H12 D64, B1 S8192 H12
+D64, K16 also B4 S4096 H32/8 D128), and must agree with its plain version
+on the same inputs within rel_err_norm 1e-2 (K1's bf16 bound in
+``chip_smoke.py``), launching its kernel exactly once a call: K13 in both
+exp modes, causal and not; K14 causal at Sq = Skv and Sq < Skv; K15 at
+every nchain it takes (1, the control, and 2); K16 causal and not, GQA, D
+64 and 128. fp32 on K13-K15, nchain 3 and 4 (they spill) and a D a kernel
+does not take raise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from photonic_flash_attention_tpu_torch import experiments
+from photonic_flash_attention_tpu_torch.experiments import _common
+from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as aug
+from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fixedmax
+from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as pair
+from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as pipeline
+from photonic_flash_attention_tpu_torch.ops import _build
+
+pytestmark = pytest.mark.cuda
+BOUND = 1e-2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+def _qkv(dev, seed, q_shape, kv_shape=None, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    kv_shape = kv_shape or q_shape
+    return [_common.normal(rng, s, dtype, dev) for s in (q_shape, kv_shape, kv_shape)]
+
+
+def _check(name, fn, plain):
+    before = _build.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1, name
+    ref = plain()
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    err = _common.rel_err_norm(out, ref)
+    assert err <= BOUND, (name, err)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("shape, blk", [((2, 256, 4, 64), 128), ((1, 96, 3, 128), 32),
+                                        ((4, 2048, 12, 64), 512), ((1, 8192, 12, 64), 512)])
+def test_k13_fixedmax_matches_plain(cuda_device, causal, fast, shape, blk):
+    q, k, v = _qkv(cuda_device, 1, shape)
+    kw = dict(causal=causal, block_q=blk, block_kv=blk, fast_exp=fast)
+    _check("pfa_flash_fixedmax_fast" if fast else "pfa_flash_fixedmax",
+           lambda: experiments.flash_fixedmax(q, k, v, **kw),
+           lambda: fixedmax.flash_fixedmax_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("shape_q, skv, blk", [((2, 256, 4, 64), 256, 128),
+                                               ((1, 96, 2, 64), 160, 32),
+                                               ((4, 2048, 12, 64), 2048, 512),
+                                               ((1, 8192, 12, 64), 8192, 512)])
+def test_k14_aug_matches_plain(cuda_device, shape_q, skv, blk):
+    b, _, h, d = shape_q
+    q, k, v = _qkv(cuda_device, 2, shape_q, (b, skv, h, d))
+    _check("pfa_flash_aug", lambda: experiments.flash_aug(q, k, v, bq=blk, bkv=blk),
+           lambda: aug.flash_aug_plain(q, k, v, bq=blk, bkv=blk))
+
+
+@pytest.mark.parametrize("nchain", pair.CARD_NCHAINS)
+@pytest.mark.parametrize("b, s, h, blk", [(2, 384, 4, 64), (1, 1536, 3, 64), (4, 2048, 12, 512),
+                                          (1, 8192, 12, 512)])
+def test_k15_pair_matches_plain(cuda_device, nchain, b, s, h, blk):
+    q, k, v = _qkv(cuda_device, 3, (b, s, h, 64))
+    _check("pfa_flash_pair",
+           lambda: experiments.flash_pair(q, k, v, bq=blk, bkv=blk, nchain=nchain),
+           lambda: pair.flash_pair_plain(q, k, v, bq=blk, bkv=blk, nchain=nchain))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape, hkv, dtype", [
+    ((2, 256, 4, 64), 4, torch.bfloat16),
+    ((1, 96, 4, 64), 2, torch.bfloat16),
+    ((2, 320, 8, 128), 2, torch.bfloat16),
+    ((1, 192, 4, 128), 1, torch.float32),
+    ((2, 256, 2, 64), 2, torch.float32),
+    ((4, 2048, 12, 64), 12, torch.bfloat16),
+    ((1, 8192, 12, 64), 12, torch.bfloat16),
+    ((4, 4096, 32, 128), 8, torch.bfloat16),
+])
+def test_k16_pipelined_matches_plain(cuda_device, causal, shape, hkv, dtype):
+    b, s, h, d = shape
+    q, k, v = _qkv(cuda_device, 4, shape, (b, s, hkv, d), dtype)
+    blk = 32 if s % 64 else 512 if s >= 2048 else 64
+    kw = dict(causal=causal, block_q=blk, block_kv=blk)
+    _check("pfa_flash_pipelined", lambda: experiments.flash_unrolled(q, k, v, **kw),
+           lambda: pipeline.flash_unrolled_plain(q, k, v, **kw))
+
+
+def test_card_contract_errors(cuda_device):
+    q, k, v = _qkv(cuda_device, 5, (1, 256, 2, 64), dtype=torch.float32)
+    for fn in (lambda: experiments.flash_fixedmax(q, k, v, block_q=128, block_kv=128),
+               lambda: experiments.flash_aug(q, k, v, bq=128, bkv=128),
+               lambda: experiments.flash_pair(q, k, v, bq=64, bkv=128)):
+        with pytest.raises(ValueError, match="takes"):
+            fn()
+    qb, kb, vb = _qkv(cuda_device, 7, (1, 384, 2, 64))
+    for nchain in (3, 4):  # they spill: the library holds 1 and 2
+        with pytest.raises(ValueError, match="255 registers"):
+            experiments.flash_pair(qb, kb, vb, bq=32, bkv=128, nchain=nchain)
+    q3, k3, v3 = _qkv(cuda_device, 6, (1, 256, 2, 32))
+    for fn in (lambda: experiments.flash_aug(q3, k3, v3, bq=128, bkv=128),
+               lambda: experiments.flash_unrolled(q3, k3, v3, block_q=128, block_kv=128),
+               lambda: experiments.flash_fixedmax(q3, k3, v3, block_q=128, block_kv=128)):
+        with pytest.raises(ValueError, match="head_dim"):
+            fn()

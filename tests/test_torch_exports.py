@@ -97,3 +97,49 @@ def test_exported_objects_are_the_ports():
     assert port.set_global_config(flash_threshold=77).flash_threshold == 77
     port.reset_config()
     assert port.get_config().flash_threshold == 512
+
+
+#: Each port experiment module, its JAX file under ``benchmarks/`` and the
+#: entry function they share (the pipeline file's other variants are not
+#: ported yet: ROADMAP Queue B).
+EXPERIMENTS = {
+    "flash_fixedmax_experiment": "flash_fixedmax",
+    "flash_aug_experiment": "flash_aug",
+    "flash_pair_experiment": "flash_pair",
+    "flash_pipeline_experiment": "flash_unrolled",
+}
+
+
+def _jax_functions(name: str) -> dict:
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "benchmarks" / f"{name}.py"
+    tree = ast.parse(path.read_text())
+    return {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("module, entry", sorted(EXPERIMENTS.items()))
+def test_experiment_entries_match_the_jax_files(module, entry):
+    import importlib
+
+    from photonic_flash_attention_tpu_torch import experiments
+
+    port_mod = importlib.import_module(f"{experiments.__name__}.{module}")
+    jax_fns = _jax_functions(module)
+    assert entry in jax_fns and "main" in jax_fns
+    assert getattr(experiments, entry) is getattr(port_mod, entry)
+    # The same arguments, by name, in the same order, and the same defaults.
+    jax_args = jax_fns[entry].args
+    names = [a.arg for a in jax_args.args + jax_args.kwonlyargs]
+    defaults = [ast.literal_eval(d) for d in jax_args.defaults + jax_args.kw_defaults]
+    params = inspect.signature(getattr(port_mod, entry)).parameters
+    assert list(params) == names
+    assert [p.default for p in params.values() if p.default is not inspect.Parameter.empty] \
+        == defaults
+    assert callable(port_mod.main) and callable(getattr(port_mod, f"{entry}_plain"))
+
+
+def test_experiments_export_the_four_entries():
+    from photonic_flash_attention_tpu_torch import experiments
+
+    assert sorted(experiments.__all__) == sorted(EXPERIMENTS.values())

@@ -1,8 +1,9 @@
 """The port imports no JAX: the machine with the GPU has none.
 
 Every module of ``photonic_flash_attention_tpu_torch`` (and ``chip_smoke.py``)
-must import in a process where ``jax``, ``flax`` and the JAX package are
-blocked, and no source line of the port may import them. That includes the
+must import in a process where ``jax``, ``flax``, the JAX package and the
+JAX experiment files under ``benchmarks/`` are blocked, and no source line
+of the port may import them. That includes the
 port's own copy of ``core/router.py``, whose JAX original imports no JAX
 but belongs to the JAX package.
 """
@@ -19,9 +20,10 @@ import photonic_flash_attention_tpu_torch as port
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).resolve().parent
-BLOCKED = ("jax", "jaxlib", "flax", "photonic_flash_attention_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "photonic_flash_attention_tpu", "benchmarks")
 IMPORT_RE = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|photonic_flash_attention_tpu)\b(?!_torch)",
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|photonic_flash_attention_tpu|benchmarks)\b"
+    r"(?!_torch)",
     re.MULTILINE,
 )
 
@@ -55,7 +57,9 @@ def test_every_module_imports_with_jax_blocked():
                  "training.trainer", "core.router", "core.engine", "core.timing",
                  "core.autotuner", "utils.validation", "utils.monitoring", "cli",
                  "ops.nonlinearity", "ops.quantization", "ops.hbm_bw", "ops.device_probes",
-                 "hardware", "hardware.detection", "hardware.roofline"):
+                 "hardware", "hardware.detection", "hardware.roofline", "experiments",
+                 "experiments.flash_fixedmax_experiment", "experiments.flash_aug_experiment",
+                 "experiments.flash_pair_experiment", "experiments.flash_pipeline_experiment"):
         assert f"{port.__name__}.{name}" in modules
 
 
@@ -70,6 +74,7 @@ def test_no_jax_import_in_source(path):
 
 def test_import_pattern_catches_jax_imports():
     for line in ("import jax", "from jax import numpy", "import flax.linen as nn",
-                 "from photonic_flash_attention_tpu.ops import flash"):
+                 "from photonic_flash_attention_tpu.ops import flash",
+                 "from benchmarks.flash_aug_experiment import flash_aug", "import benchmarks"):
         assert IMPORT_RE.search(line), line
     assert not IMPORT_RE.search("from photonic_flash_attention_tpu_torch.ops import flash")
