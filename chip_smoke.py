@@ -33,18 +33,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    beside its data-sheet bound; K1's share of the composite ceiling built
    from the measured rates; the profiler's time of K11 and K12 in one
    graph replay against the graph fit (within 10 %);
-5. experiments: K13-K16 (the flash-forward design-space experiments:
+5. experiments: K13-K19 (the flash-forward design-space experiments:
    fixed-max in both exp modes, augmented V, paired chains at nchain 1 and
-   2, the pipelined KV loop) against their plain versions at small, ragged
-   and full shapes, the full ones every geometry the experiments path
-   gives them, each plain version timed once at K1's headline shape; then,
-   as a path of its own, the four experiments' mains on the card (parity,
-   then each variant and K1 at JAX's geometries by the graph fit), each
-   variant printed with its TFLOP/s, K1's time and the ratio, SDPA's, its
-   share of the data-sheet bound and of the composite ceiling from the
+   2, the pipelined KV loop, chunked K/V staging at unroll 2 and 4, one
+   launch per q row-block in bf16 and with int8 Q.K, one CTA per head over
+   the whole triangle) against their plain versions at small, ragged and
+   full shapes, the full ones every geometry the experiments path gives
+   them, each plain version timed once at K1's headline shape; then, as a
+   path of its own, the experiments' mains on the card (the four files'
+   and the pipeline file's five others: parity, then each variant and K1
+   at JAX's geometries by the graph fit), each variant printed with its
+   TFLOP/s, K1's time and the ratio, SDPA's (none for int8 Q.K), its share
+   of the data-sheet bound and of the composite ceiling from the
    roofline's measured rates, and its error against the fp32 oracle, which
-   must stay within its bound; every K13-K16 kernel must launch, and the
-   kernels line takes each one's time from its main's headline row;
+   must stay within its bound; every K13-K19 kernel and mode must launch,
+   the segmented variant's rows must have run each segment on K1, and the
+   kernels line takes each kernel's time from its main's headline row;
 6. serving path: GPT-2 medium (random weights, seed 0) served through
    ``ServingEngine.generate`` with an int8 paged KV cache; every kernel's
    launch count must grow; the first step must agree with the dense model;
@@ -119,7 +123,7 @@ import statistics
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -180,6 +184,10 @@ SOURCES = {
     "pfa_flash_aug": _EXPERIMENTS,
     "pfa_flash_pair": _EXPERIMENTS,
     "pfa_flash_pipelined": _EXPERIMENTS,
+    "pfa_flash_chunked": _EXPERIMENTS,
+    "pfa_flash_tri": _EXPERIMENTS,
+    "pfa_flash_tri_i8": _EXPERIMENTS,
+    "pfa_flash_fulltri": _EXPERIMENTS,
 }
 #: The kernels and entries of the ops-and-CLI phase (measured there).
 OPS_KERNELS = ("pfa_softmax", "pfa_layer_norm", "pfa_rms_norm", "pfa_paged_attention")
@@ -230,6 +238,10 @@ REPLACES = {
     "pfa_flash_aug": "benchmarks/flash_aug_experiment.py:28",
     "pfa_flash_pair": "benchmarks/flash_pair_experiment.py:28",
     "pfa_flash_pipelined": "benchmarks/flash_pipeline_experiment.py:49",
+    "pfa_flash_chunked": "benchmarks/flash_pipeline_experiment.py:226",
+    "pfa_flash_tri": "benchmarks/flash_pipeline_experiment.py:407",
+    "pfa_flash_tri_i8": "benchmarks/flash_pipeline_experiment.py:548",
+    "pfa_flash_fulltri": "benchmarks/flash_pipeline_experiment.py:821",
 }
 #: Modes that no main path runs, reported under their kernel's entry (main
 #: fails if one of them launches there): K3's int8 compute (engine decode
@@ -3001,17 +3013,22 @@ def phase_roofline(k1: dict, smi: str) -> tuple:
     return results, {"roofline": launches}, {"roofline": captured}, rates
 
 
-# -- experiments: the D=64 forward design-space kernels (K13-K16) -------------
+# -- experiments: the forward design-space kernels (K13-K19) ------------------
 
-#: K13 (both exp modes), K14, K15 and K16: the experiments path's kernels.
+#: K13 (both exp modes), K14, K15, K16, K17, K18 (both modes) and K19: the
+#: experiments path's kernels.
 EXPERIMENT_KERNELS = ("pfa_flash_fixedmax", "pfa_flash_fixedmax_fast", "pfa_flash_aug",
-                      "pfa_flash_pair", "pfa_flash_pipelined")
+                      "pfa_flash_pair", "pfa_flash_pipelined", "pfa_flash_chunked",
+                      "pfa_flash_tri", "pfa_flash_tri_i8", "pfa_flash_fulltri")
 #: Each against its plain version: K1's bf16 bound (check_flash).
 EXPERIMENT_BOUND = 1e-2
 #: The mains' errors against the fp32 oracle: K1's bf16 bound, and for
 #: ``fast_exp`` the bit trick's own largest relative error a value (2.98e-2
 #: against torch.exp over [-30, 0]).
 ORACLE_BOUND, FAST_EXP_ORACLE_BOUND = 1e-2, 3e-2
+#: int8 Q.K rows: the JAX tests' gate of ``flash_attention_int8qk``
+#: (_quant_modes).
+INT8_ORACLE_BOUND = 0.05
 #: The two-point fit of the experiments' mains on this path (theirs default
 #: to JAX's longer windows).
 EXPERIMENT_FIT = (2, 10)
@@ -3023,7 +3040,21 @@ EXPERIMENT_VARIANTS = (("fixedmax_ms", "K13 fixed-max (with its prolog)"),
                        ("kernel_ms", "K13 fixed-max, kernel alone"),
                        ("fast_kernel_ms", "K13 fast_exp, kernel alone"),
                        ("aug_ms", "K14 aug"), ("pair_ms", "K15 pair"),
-                       ("unrolled_ms", "K16 pipelined"))
+                       ("unrolled_ms", "K16 pipelined"), ("chunked_ms", "K17 chunked"),
+                       ("tri_ms", "K18 triangular"),
+                       ("tri_i8_ms", "K18 int8-QK triangular (with its quantization)"),
+                       ("tri_i8_kernel_ms", "K18 int8-QK triangular, kernel alone"),
+                       ("segmented_ms", "segmented on K1 with lse"),
+                       ("fulltri_ms", "K19 full triangle"))
+#: Row keys of the int8 Q.K variants (no library call; the quantized bound).
+INT8_VARIANTS = ("tri_i8_ms", "tri_i8_kernel_ms")
+#: The row key of K1's time that a variant's key is set beside, where it is
+#: not ``k1_ms`` (the kernel alone beside K1's int8-QK kernel alone).
+K1_KEYS = {"tri_i8_kernel_ms": "k1_kernel_ms"}
+#: Query rows of the long causal checks compared with the plain version:
+#: the last ones, which see every key (the end-aligned causal mask of a
+#: slice of rows is ``col <= row`` there).
+LONG_CHECK_ROWS = 1024
 #: Per kernel, the mains' row at K1's headline shape (B4 S2048 H12 D64
 #: causal) that gives its time in the kernels line: (main, row, the
 #: kernel's key, the public call's key where it does more).
@@ -3034,15 +3065,26 @@ HEADLINE_ROWS = {
     "pfa_flash_aug": ("aug", "B4 S2048", "aug_ms", None),
     "pfa_flash_pair": ("pair", "B4 S2048 pair 512x512 x2", "pair_ms", None),
     "pfa_flash_pipelined": ("pipeline", "bf16 d64 b4 s2048 causal", "unrolled_ms", None),
+    "pfa_flash_chunked": ("chunked", "d64 b4 s2048 causal chunked bq=512 bkv=512 u=4",
+                          "chunked_ms", None),
+    "pfa_flash_tri": ("tri", "d64 b4 s2048 tri bq=512 bkv=512", "tri_ms", None),
+    "pfa_flash_tri_i8": ("i8", "d64 b4 s2048 causal", "tri_i8_kernel_ms", "tri_i8_ms"),
+    "pfa_flash_fulltri": ("fulltri", "d64 b4 s2048", "fulltri_ms", None),
 }
 
 
 def _experiment_case(name: str, label: str, call, plain, checked: dict,
-                     timed: bool = False) -> None:
+                     timed: bool = False, launches: Optional[Tuple[str, int]] = None) -> None:
     """The kernel's ``call`` against its ``plain`` version on the same
     inputs, the plain version run once; with ``timed`` that run's CUDA-event
-    time is the kernel's ``plain_ms``."""
+    time is the kernel's ``plain_ms``. ``launches`` (counter, n): ``call``
+    must launch n times under that counter."""
+    before = _build.LAUNCHES[launches[0]] if launches else 0
     out = call()
+    torch.cuda.synchronize()
+    if launches and _build.LAUNCHES[launches[0]] - before != launches[1]:
+        raise AssertionError(f"{label}: {_build.LAUNCHES[launches[0]] - before} launches of "
+                             f"{launches[0]}, not {launches[1]}")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     ref = plain()
@@ -3060,18 +3102,25 @@ def _experiment_case(name: str, label: str, call, plain, checked: dict,
     print(line, flush=True)
 
 
-def check_experiments() -> dict:
-    """K13-K16 against their plain versions at small and ragged shapes and
+def check_experiments(results: dict) -> dict:
+    """K13-K19 against their plain versions at small and ragged shapes and
     at every geometry the experiments path gives them (K13 both exp modes
     causal and not, K14 also with Sq < Skv, K15 at each nchain the card
-    takes, K16 with GQA, D 128 and fp32 inputs); each plain version runs
-    once a case and is timed at K1's headline shape (B4 S2048 H12 D64
-    causal bf16). Returns, per kernel, its worst max abs error and that
-    plain time."""
+    takes, K16 with GQA, D 128 and fp32 inputs, K17 at unroll 2 and 4 and
+    K18's int8-QK mode causal and not, K18 at each of ``main_tri``'s blocks
+    and K19 causal, K17-K19 at the pipeline module's CARD_CHECK_SHAPES, K18
+    launched once a row-block); then the segmented path (K1 once a segment)
+    and K1 at the segmented main's long geometries, and K1's int8-QK mode at
+    the int8 main's, where the plain version computes only the last rows or
+    batch 0. Each plain version runs once a case and is timed at K1's
+    headline shape (B4 S2048 H12 D64 causal bf16). Returns, per kernel, its
+    worst max abs error and that plain time; K1's and its int8-QK mode's
+    errors go into ``results``."""
     from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as ax
     from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fx
     from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
     from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
+    from photonic_flash_attention_tpu_torch.ops import flash_fp8 as fp8_ops
 
     t_checks = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(40)
@@ -3128,6 +3177,71 @@ def check_experiments() -> dict:
                              lambda: ux.flash_unrolled(q, k, v, **kw),
                              lambda: ux.flash_unrolled_plain(q, k, v, **kw), checked,
                              timed=(b, s, h, d) == K1_HEADLINE and causal)
+    blk = ux.check_block
+    for b, s, h, hkv, d, dtype in ux.CARD_CHECK_SHAPES:
+        q, k, v = qkv(b, s, h, d, hkv=hkv, dtype=dtype)
+        geom = f"B{b} S{s} H{h}/{hkv} D{d} {str(dtype)[6:]}"
+        headline = (b, s, h, d) == K1_HEADLINE
+        for causal in both:
+            for u in ux.CARD_UNROLLS:
+                kw = dict(causal=causal, block_q=blk(s), block_kv=blk(s, u), unroll=u)
+                _experiment_case("pfa_flash_chunked",
+                                 f"K17 chunked unroll {u} {geom} causal={causal}",
+                                 lambda: ux.flash_chunked(q, k, v, **kw),
+                                 lambda: ux.flash_chunked_plain(q, k, v, **kw), checked,
+                                 timed=headline and causal and u == 4)
+            kw = dict(causal=causal, block_q=blk(s), block_kv=blk(s))
+            _experiment_case("pfa_flash_tri_i8", f"K18 int8-QK {geom} causal={causal}",
+                             lambda: ux.flash_tri_i8(q, k, v, **kw),
+                             lambda: ux.flash_tri_i8_plain(q, k, v, **kw), checked,
+                             timed=headline and causal,
+                             launches=("pfa_flash_tri_i8", s // blk(s)))
+        for bq, bkv in ux.check_tri_blocks(s):
+            kw = dict(block_q=bq, block_kv=bkv)
+            _experiment_case("pfa_flash_tri", f"K18 triangular bq={bq} bkv={bkv} {geom} causal",
+                             lambda: ux.flash_triangular(q, k, v, **kw),
+                             lambda: ux.flash_triangular_plain(q, k, v, **kw), checked,
+                             timed=headline and (bq, bkv) == (512, 512),
+                             launches=("pfa_flash_tri", s // bq))
+        kw = dict(block_q=blk(s, 2), block_kv=blk(s))
+        _experiment_case("pfa_flash_fulltri", f"K19 full triangle {geom} causal",
+                         lambda: ux.flash_fulltri(q, k, v, **kw),
+                         lambda: ux.flash_fulltri_plain(q, k, v, **kw), checked, timed=headline)
+    # The segmented main's long geometries, and K1 there (its reference): the
+    # last LONG_CHECK_ROWS rows, which span several interior segments and
+    # merges, against K1's plain version on those rows and every key.
+    tail = slice(-LONG_CHECK_ROWS, None)
+    for b, s, h, d in (shape for _, shape in ux.SEG_CASES):
+        q, k, v = qkv(b, s, h, d)
+        n_kv = s // ux.SEG_BLOCK
+        n_seg = sum(len(ux.segments(i, n_kv, ux.SEG_TILES, True)) for i in range(n_kv))
+        _experiment_case("segmented", f"segmented on K1 seg_tiles {ux.SEG_TILES} B{b} S{s} H{h} "
+                         f"D{d} causal, its last {LONG_CHECK_ROWS} rows",
+                         lambda: ux.flash_segmented(q, k, v, causal=True, seg_tiles=ux.SEG_TILES,
+                                                    block_q=ux.SEG_BLOCK,
+                                                    block_kv=ux.SEG_BLOCK)[:, tail],
+                         lambda: flash_ops.flash_attention_with_lse_plain(
+                             q[:, tail], k, v, causal=True)[0], checked,
+                         launches=("pfa_flash_fwd", n_seg))
+        _experiment_case("pfa_flash_fwd", f"K1 B{b} S{s} H{h} D{d} causal, its last "
+                         f"{LONG_CHECK_ROWS} rows",
+                         lambda: flash_ops.flash_attention(q, k, v, causal=True)[:, tail],
+                         lambda: flash_ops.flash_attention_plain(q[:, tail], k, v, causal=True),
+                         checked, launches=("pfa_flash_fwd", 1))
+    # The int8 main's reference, K1's int8-QK mode, at its geometries: the
+    # whole call against the plain version on the same payloads, batch 0.
+    for _, (b, s, h, hkv, d), causal in ux.I8_CASES:
+        q, k, v = qkv(b, s, h, d, hkv=hkv)
+        q8, k8, sc = ux.quant_qk(q, k)
+        _experiment_case("pfa_flash_fwd_int8qk", f"K1 int8-QK B{b} S{s} H{h}/{hkv} D{d} "
+                         f"causal={causal}, batch 0",
+                         lambda: fp8_ops.flash_attention_int8qk(q, k, v, causal=causal)[:1],
+                         lambda: flash_ops.flash_attention_qk_quant_plain(
+                             q8[:1], k8[:1], v[:1], sc, causal=causal, out_dtype=v.dtype),
+                         checked, launches=("pfa_flash_fwd_int8qk", 1))
+    for name in ("pfa_flash_fwd", "pfa_flash_fwd_int8qk"):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           checked[name]["max_abs_err"])
     del q, k, v
     torch.cuda.empty_cache()
     print(f"experiments: checks against the plain versions in "
@@ -3150,14 +3264,18 @@ def _sdpa_fit_ms(b, s, hq, hkv, d, causal, fit) -> float:
 
 
 def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
-    """The experiments path, counted from 0: the four experiments' mains on
-    the card (their parity checks, then each variant and K1 timed by the
-    two-point graph fit at JAX's geometries). Then, per variant and
-    geometry: its time and TFLOP/s, K1's time in the same run and the
-    ratio, SDPA's, its share of the data-sheet bound (``flash_fwd_bound``)
-    and of the composite ceiling from the roofline phase's measured
-    ``rates``, and its rel_err_norm against the fp32 oracle on the mains'
-    (1, 1024) slice, which must stay within its bound. Returns K13-K16's
+    """The experiments path, counted from 0: the four experiment files'
+    mains and the pipeline file's five others on the card (their parity
+    checks, then each variant and K1 timed by the two-point graph fit at
+    JAX's geometries). Then, per variant and geometry: its time and
+    TFLOP/s, K1's time in the same run (K1's int8-QK mode for the int8
+    variant) and the ratio, SDPA's (none for int8 Q.K), its share of the
+    data-sheet bound (``flash_fwd_bound``, ``quant_bound`` for int8 Q.K) and
+    of the composite ceiling from the roofline phase's measured ``rates``,
+    and its rel_err_norm against the fp32 oracle on the mains' (1, 1024)
+    slice ((1, 2048) segmented), which must stay within its bound; the
+    segmented main's timed calls must have run K1 once per segment (the
+    calls its graphs captured). Returns K13-K19's
     kernels-line entries (the time from each main's row at K1's headline
     shape, beside ``checked``'s error and plain time), launches and
     captured calls."""
@@ -3169,10 +3287,13 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
 
     t_phase = time.perf_counter()
     _build.reset_launches()
-    rows = {"fixedmax": fx.main("cuda", fit=EXPERIMENT_FIT),
-            "aug": ax.main("cuda", fit=EXPERIMENT_FIT),
-            "pair": px.main("cuda", fit=EXPERIMENT_FIT),
-            "pipeline": ux.main("cuda", fit=EXPERIMENT_FIT)}
+    rows = {}
+    for name, fn in (("fixedmax", fx.main), ("aug", ax.main), ("pair", px.main),
+                     ("pipeline", ux.main), *ux.VARIANTS.items()):
+        k1_before = _build.CAPTURED["pfa_flash_fwd"]
+        rows[name] = fn("cuda", fit=EXPERIMENT_FIT)
+        if name == "seg":
+            seg_k1_captured = _build.CAPTURED["pfa_flash_fwd"] - k1_before
     torch.cuda.synchronize()
     launches, captured = dict(_build.LAUNCHES), dict(_build.CAPTURED)
     print(f"experiments: main path in {time.perf_counter() - t_phase:.2f} s; launches "
@@ -3180,6 +3301,17 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
     for name in EXPERIMENT_KERNELS:
         if not launches.get(name):
             raise AssertionError(f"experiments: {name} never launched by the experiments' mains")
+    # Each seg row's fit captures sum(EXPERIMENT_FIT) calls of K1 alone and
+    # as many segmented calls, each of them one K1 call a segment.
+    n_segs = [sum(len(ux.segments(i, s // ux.SEG_BLOCK, ux.SEG_TILES, True))
+                  for i in range(s // ux.SEG_BLOCK)) for _, (_, s, _, _) in ux.SEG_CASES]
+    want = sum(EXPERIMENT_FIT) * sum(1 + n for n in n_segs)
+    if seg_k1_captured != want:
+        raise AssertionError(f"experiments: the segmented main's graphs captured "
+                             f"{seg_k1_captured} K1 calls, not {want} (segments {n_segs})")
+    print(f"experiments: the segmented main's graphs captured {seg_k1_captured} K1 calls: "
+          f"{sum(EXPERIMENT_FIT)} fit calls of K1 alone and of the segmented call ({n_segs} "
+          f"segments) per geometry", flush=True)
     sdpa, bounds = {}, {}
     for main_name, table in rows.items():
         for row_name, row in table.items():
@@ -3187,32 +3319,41 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
                 continue
             b, s, hq, hkv, d = row["shape"]
             causal = row["causal"]
-            if (row["shape"], causal) not in sdpa:
+            int8 = any(key in row for key in INT8_VARIANTS)
+            if not int8 and (row["shape"], causal) not in sdpa:
                 sdpa[(row["shape"], causal)] = _sdpa_fit_ms(b, s, hq, hkv, d, causal,
                                                            EXPERIMENT_FIT)
-            lib = sdpa[(row["shape"], causal)]
+            lib = None if int8 else sdpa[(row["shape"], causal)]
             meta_q = torch.empty(b, s, hq, d, device="meta", dtype=torch.bfloat16)
             meta_k = torch.empty(b, s, hkv, d, device="meta", dtype=torch.bfloat16)
-            bound = bounds[(row["shape"], causal)] = flash_fwd_bound(meta_q, meta_k, causal)
+            bound = (quant_bound(meta_q, meta_k, causal, torch.int8, torch.bfloat16, 4) if int8
+                     else flash_fwd_bound(meta_q, meta_k, causal))
+            bounds[(row["shape"], causal, int8)] = bound
             ceiling = rl.attention_composite_ceiling(b, s, s, hq, d, causal=causal,
                                                      num_kv_heads=hkv, rates=rates)
             for key, label in EXPERIMENT_VARIANTS:
                 if key not in row:
                     continue
-                ms = row[key]
+                ms, k1_ms = row[key], row[K1_KEYS.get(key, "k1_ms")]
                 if key == "pair_ms":
                     label += f" nchain {row['nchain']}"
                 fast = key.startswith("fast")
                 err = row["fast_rel_err"] if fast else row["rel_err"]
-                err_bound = FAST_EXP_ORACLE_BOUND if fast else ORACLE_BOUND
-                entry = {"tflops": row["flops"] / ms / 1e9, "k1_over": row["k1_ms"] / ms,
+                err_bound = (FAST_EXP_ORACLE_BOUND if fast else INT8_ORACLE_BOUND if int8
+                             else ORACLE_BOUND)
+                entry = {"tflops": row["flops"] / ms / 1e9, "k1_over": k1_ms / ms,
                          "bound_share": bound["bound_ms"] / ms,
                          "ceiling_share": rl.composite_fraction(ms * 1e3, ceiling)}
                 line = (f"experiments: {label} B{b} S{s} H{hq}/{hkv} D{d} causal={causal} "
-                        f"({main_name}): {ms:.4f} ms, {entry['tflops']:.1f} TFLOP/s; K1 "
-                        f"{row['k1_ms']:.4f} ms in the same run, K1/variant "
-                        f"{entry['k1_over']:.3f}; SDPA {lib:.4f} ms; "
-                        f"{100 * entry['bound_share']:.2f} % of flash_fwd_bound "
+                        f"({main_name}{', ' + row_name if main_name in ux.VARIANTS else ''}): "
+                        f"{ms:.4f} ms, {entry['tflops']:.1f} TFLOP/s; "
+                        f"K1{' int8-QK' if int8 else ''}"
+                        f"{', kernel alone,' if key in K1_KEYS else ''} "
+                        f"{k1_ms:.4f} ms in the same run, K1/variant "
+                        f"{entry['k1_over']:.3f}; "
+                        f"{'no library call' if int8 else f'SDPA {lib:.4f} ms'}; "
+                        f"{100 * entry['bound_share']:.2f} % of "
+                        f"{'quant_bound' if int8 else 'flash_fwd_bound'} "
                         f"({bound['bound_ms']:.4f} ms, {bound['bound_by']}); "
                         f"{100 * entry['ceiling_share']:.2f} % of the composite ceiling "
                         f"({ceiling['t_ceiling_us']:.2f} us, {ceiling['bound']}); rel_err_norm "
@@ -3227,9 +3368,10 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
         if (b, s, hq, d) != K1_HEADLINE or not row["causal"]:
             raise AssertionError(f"experiments: {main_name}'s row {row_name!r} is not at "
                                  f"K1's headline shape")
-        results[name] = {"ms": row[key], "library_ms": sdpa[(row["shape"], True)],
+        int8 = key in INT8_VARIANTS
+        results[name] = {"ms": row[key], "library_ms": None if int8 else sdpa[(row["shape"], True)],
                          "shape": list(K1_HEADLINE), **checked[name],
-                         **bounds[(row["shape"], True)]}
+                         **bounds[(row["shape"], True, int8)]}
         if whole_key:
             results[name]["whole_call_ms"] = row[whole_key]
     results["pfa_flash_pair"]["cases"] = [
@@ -3247,6 +3389,7 @@ def main() -> None:
                         help="also profile three training steps and one T5 serving run (bf16); "
                              "write the traces and tables into DIR")
     args = parser.parse_args()
+    t_script = time.perf_counter()
     smi = phase_device()
     phase_build()
     results = phase_kernels()
@@ -3254,7 +3397,7 @@ def main() -> None:
         results["pfa_flash_fwd"], smi)
     results.update(roofline_results)
     experiment_results, experiment_launches, experiment_captured = phase_experiments(
-        smi, rates, check_experiments())
+        smi, rates, check_experiments(results))
     results.update(experiment_results)
     by_path.update(experiment_launches)
     captured_by_path.update(experiment_captured)
@@ -3295,6 +3438,7 @@ def main() -> None:
         # A mode that no main path runs (checked in the kernels phase only)
         # rides under its kernel's entry.
         next(k for k in kernels if k["name"] == parent).setdefault("modes", {})[label] = entry(mode)
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_script:.1f} s ({smi})", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,12 @@ against K1 (``ops/flash.py::flash_attention``) at JAX's geometries:
   :func:`flash_aug`, kernel K14;
 * ``flash_pair_experiment`` (``benchmarks/flash_pair_experiment.py``):
   :func:`flash_pair`, kernel K15;
-* ``flash_pipeline_experiment`` (``benchmarks/flash_pipeline_experiment.py``,
-  its ``flash_unrolled`` only): :func:`flash_unrolled`, kernel K16.
+* ``flash_pipeline_experiment`` (``benchmarks/flash_pipeline_experiment.py``):
+  :func:`flash_unrolled`, kernel K16; :func:`flash_chunked`, K17;
+  :func:`flash_triangular` and :func:`flash_tri_i8`, K18 and its int8-QK
+  mode; :func:`flash_fulltri`, K19; :func:`flash_segmented`, segment calls
+  of K1 with lse merged by logsumexp (the file's other variants, run as
+  ``python -m ...flash_pipeline_experiment [chunked|tri|i8|seg|fulltri]``).
 
 Each function launches its kernel for CUDA tensors and runs its plain
 version (``*_plain``) for CPU tensors.
@@ -22,6 +26,8 @@ version (``*_plain``) for CPU tensors.
 from .flash_aug_experiment import flash_aug
 from .flash_fixedmax_experiment import flash_fixedmax
 from .flash_pair_experiment import flash_pair
-from .flash_pipeline_experiment import flash_unrolled
+from .flash_pipeline_experiment import (flash_chunked, flash_fulltri, flash_segmented,
+                                        flash_tri_i8, flash_triangular, flash_unrolled)
 
-__all__ = ["flash_aug", "flash_fixedmax", "flash_pair", "flash_unrolled"]
+__all__ = ["flash_aug", "flash_chunked", "flash_fixedmax", "flash_fulltri", "flash_pair",
+           "flash_segmented", "flash_tri_i8", "flash_triangular", "flash_unrolled"]

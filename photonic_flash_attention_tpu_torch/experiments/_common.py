@@ -10,7 +10,7 @@ the CPU wall clock.
 from __future__ import annotations
 
 import argparse
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,7 +82,7 @@ def on_device(q: torch.Tensor, cuda: Callable[[], torch.Tensor],
     raise ValueError(f"unsupported device {q.device}")
 
 
-def online_plain(q, k, v, *, bq: int, bkv: int, causal: bool, scale: float,
+def online_plain(q, k, v, *, bq: int, bkv: int, causal: bool, scale,
                  scale_q_in_dtype: bool = False, bf16_body: bool = False,
                  mask_value: float = DEFAULT_MASK_VALUE, skip_dead: bool = True,
                  m_init: float = float("-inf"), l_from_cast_p: bool = False) -> torch.Tensor:
@@ -97,7 +97,10 @@ def online_plain(q, k, v, *, bq: int, bkv: int, causal: bool, scale: float,
     ``bf16_body`` casts q, k, v and p to bf16 (pipeline); ``skip_dead``
     skips kv blocks wholly above a q block's diagonal (the pipeline runs
     them, a no-op once m is finite); ``l_from_cast_p`` sums p after its
-    cast to V's dtype (aug, whose l comes out of the P.V product)."""
+    cast to V's dtype (aug, whose l comes out of the P.V product).
+    ``scale`` may be a (1,) fp32 tensor on q's device (the triangular
+    int8 experiment's device scalar; q and k then hold int8 values, exact in
+    bf16 and in the fp32 product)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     qt = q.transpose(1, 2)
@@ -171,9 +174,14 @@ def work_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
-def cli(main: Callable, description: str) -> None:
-    """``python -m ...experiments.<name> [--device cpu|cuda]``."""
+def cli(main: Callable, description: str, variants: Optional[Dict[str, Callable]] = None) -> None:
+    """``python -m ...experiments.<name> [variant] [--device cpu|cuda]``:
+    ``main``, or the main of the named variant (JAX's ``sys.argv[1]``)."""
     parser = argparse.ArgumentParser(description=description)
+    if variants:
+        parser.add_argument("variant", nargs="?", choices=sorted(variants),
+                            help="run this variant's main instead of the file's first")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="the card (default) or the plain versions on the CPU")
-    main(device=parser.parse_args().device)
+    args = parser.parse_args()
+    (variants[args.variant] if variants and args.variant else main)(device=args.device)

@@ -101,6 +101,13 @@ _SIGNATURES: Dict[str, List] = {
     "pfa_flash_pair": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, dtype, stream
     "pfa_flash_pipelined": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
+    # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, unroll, dtype, stream
+    "pfa_flash_chunked": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _I, _P],
+    # q, k, v, o, score_scale (or None), B, S, Hq, Hkv, D, q_row0, rows,
+    # sm_scale, causal, qk_int8, dtype, stream
+    "pfa_flash_tri": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _I, _P],
+    # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, dtype, stream
+    "pfa_flash_fulltri": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
 }
 
 #: dtype codes shared with the C side (csrc/common.cuh).

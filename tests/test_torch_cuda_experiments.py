@@ -1,4 +1,4 @@
-"""K13-K16 (the flash-forward experiments) against their plain versions, on the GPU.
+"""K13-K19 (the flash-forward experiments) against their plain versions, on the GPU.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. The
 file imports no JAX, so it also runs on a machine that has none:
@@ -12,8 +12,14 @@ on the same inputs within rel_err_norm 1e-2 (K1's bf16 bound in
 ``chip_smoke.py``), launching its kernel exactly once a call: K13 in both
 exp modes, causal and not; K14 causal at Sq = Skv and Sq < Skv; K15 at
 every nchain it takes (1, the control, and 2); K16 causal and not, GQA, D
-64 and 128. fp32 on K13-K15, nchain 3 and 4 (they spill) and a D a kernel
-does not take raise.
+64 and 128; K17 at each unroll it takes (2, 4), K18 causal, K18's int8-QK
+mode causal and not, K19, each at a small shape, a length that is a
+multiple of 64 but not of 128, D 128 with GQA, fp32 inputs and the mains'
+geometries (``CARD_CHECK_SHAPES``; K18 launched once per row-block, at
+each of ``main_tri``'s blocks that divides S); the segmented path at its
+main's long geometries on its last rows. fp32 on K13-K15, nchain 3
+and 4 (they spill), an unroll K17 is not compiled for, a dtype or a D a
+kernel does not take raise.
 """
 
 import numpy as np
@@ -27,6 +33,7 @@ from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experi
 from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as pair
 from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as pipeline
 from photonic_flash_attention_tpu_torch.ops import _build
+from photonic_flash_attention_tpu_torch.ops.flash import flash_attention_with_lse_plain
 
 pytestmark = pytest.mark.cuda
 BOUND = 1e-2
@@ -45,11 +52,11 @@ def _qkv(dev, seed, q_shape, kv_shape=None, dtype=torch.bfloat16):
     return [_common.normal(rng, s, dtype, dev) for s in (q_shape, kv_shape, kv_shape)]
 
 
-def _check(name, fn, plain):
+def _check(name, fn, plain, launches=1):
     before = _build.LAUNCHES[name]
     out = fn()
     torch.cuda.synchronize()
-    assert _build.LAUNCHES[name] == before + 1, name
+    assert _build.LAUNCHES[name] == before + launches, name
     ref = plain()
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert torch.isfinite(out).all()
@@ -110,6 +117,79 @@ def test_k16_pipelined_matches_plain(cuda_device, causal, shape, hkv, dtype):
            lambda: pipeline.flash_unrolled_plain(q, k, v, **kw))
 
 
+def _pipeline_qkv(dev, seed, shape):
+    b, s, hq, hkv, d, dtype = shape
+    return _qkv(dev, seed, (b, s, hq, d), (b, s, hkv, d), dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("unroll", pipeline.CARD_UNROLLS)
+@pytest.mark.parametrize("shape", pipeline.CARD_CHECK_SHAPES, ids=pipeline.CARD_CHECK_IDS)
+def test_k17_chunked_matches_plain(cuda_device, causal, unroll, shape):
+    q, k, v = _pipeline_qkv(cuda_device, 8, shape)
+    kw = dict(causal=causal, block_q=pipeline.check_block(shape[1]),
+              block_kv=pipeline.check_block(shape[1], unroll), unroll=unroll)
+    _check("pfa_flash_chunked", lambda: experiments.flash_chunked(q, k, v, **kw),
+           lambda: pipeline.flash_chunked_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("shape", pipeline.CARD_CHECK_SHAPES, ids=pipeline.CARD_CHECK_IDS)
+def test_k18_tri_matches_plain(cuda_device, shape):
+    q, k, v = _pipeline_qkv(cuda_device, 9, shape)
+    for bq, bkv in pipeline.check_tri_blocks(shape[1]):
+        kw = dict(block_q=bq, block_kv=bkv)
+        _check("pfa_flash_tri", lambda: experiments.flash_triangular(q, k, v, **kw),
+               lambda: pipeline.flash_triangular_plain(q, k, v, **kw), launches=shape[1] // bq)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", pipeline.CARD_CHECK_SHAPES, ids=pipeline.CARD_CHECK_IDS)
+def test_k18_tri_i8_matches_plain(cuda_device, causal, shape):
+    q, k, v = _pipeline_qkv(cuda_device, 10, shape)
+    bq = pipeline.check_block(shape[1])
+    kw = dict(causal=causal, block_q=bq, block_kv=bq)
+    _check("pfa_flash_tri_i8", lambda: experiments.flash_tri_i8(q, k, v, **kw),
+           lambda: pipeline.flash_tri_i8_plain(q, k, v, **kw), launches=shape[1] // bq)
+
+
+@pytest.mark.parametrize("shape", pipeline.CARD_CHECK_SHAPES, ids=pipeline.CARD_CHECK_IDS)
+def test_k19_fulltri_matches_plain(cuda_device, shape):
+    q, k, v = _pipeline_qkv(cuda_device, 11, shape)
+    s = shape[1]
+    kw = dict(block_q=pipeline.check_block(s, 2), block_kv=pipeline.check_block(s))
+    _check("pfa_flash_fulltri", lambda: experiments.flash_fulltri(q, k, v, **kw),
+           lambda: pipeline.flash_fulltri_plain(q, k, v, **kw))
+
+
+def test_segmented_runs_on_k1(cuda_device):
+    q, k, v = _qkv(cuda_device, 12, (1, 1024, 2, 64))
+    before = _build.LAUNCHES["pfa_flash_fwd"]
+    out = experiments.flash_segmented(q, k, v, block_q=128, block_kv=128, seg_tiles=2)
+    torch.cuda.synchronize()
+    n = sum(len(pipeline.segments(i, 8, 2, True)) for i in range(8))
+    assert _build.LAUNCHES["pfa_flash_fwd"] == before + n
+    assert _common.rel_err_norm(out, _common.oracle(q, k, v, causal=True)) <= BOUND
+
+
+@pytest.mark.parametrize("shape", [shape for _, shape in pipeline.SEG_CASES],
+                         ids=[name for name, _ in pipeline.SEG_CASES])
+def test_segmented_at_the_mains_geometries(cuda_device, shape):
+    """The last 1024 rows (several interior segments merged) against K1's
+    plain version on those rows and every key (end-aligned: col <= row)."""
+    b, s, h, d = shape
+    q, k, v = _qkv(cuda_device, 13, shape)
+    blk, n_kv = pipeline.SEG_BLOCK, s // pipeline.SEG_BLOCK
+    before = _build.LAUNCHES["pfa_flash_fwd"]
+    out = experiments.flash_segmented(q, k, v, block_q=blk, block_kv=blk,
+                                      seg_tiles=pipeline.SEG_TILES)[:, -1024:]
+    torch.cuda.synchronize()
+    n = sum(len(pipeline.segments(i, n_kv, pipeline.SEG_TILES, True)) for i in range(n_kv))
+    assert _build.LAUNCHES["pfa_flash_fwd"] == before + n
+    ref = flash_attention_with_lse_plain(q[:, -1024:], k, v, causal=True)[0]
+    assert torch.isfinite(out).all()
+    assert _common.rel_err_norm(out, ref) <= BOUND
+
+
 def test_card_contract_errors(cuda_device):
     q, k, v = _qkv(cuda_device, 5, (1, 256, 2, 64), dtype=torch.float32)
     for fn in (lambda: experiments.flash_fixedmax(q, k, v, block_q=128, block_kv=128),
@@ -127,3 +207,18 @@ def test_card_contract_errors(cuda_device):
                lambda: experiments.flash_fixedmax(q3, k3, v3, block_q=128, block_kv=128)):
         with pytest.raises(ValueError, match="head_dim"):
             fn()
+    for fn in (lambda: experiments.flash_chunked(q3, k3, v3, block_q=128, block_kv=64),
+               lambda: experiments.flash_triangular(q3, k3, v3, block_q=128, block_kv=128),
+               lambda: experiments.flash_tri_i8(q3, k3, v3, block_q=128, block_kv=128),
+               lambda: experiments.flash_fulltri(q3, k3, v3, block_q=128, block_kv=128)):
+        with pytest.raises(ValueError, match="head_dim"):
+            fn()
+    qh, kh, vh = (t.half() for t in (qb, kb, vb))
+    for fn in (lambda: experiments.flash_chunked(qh, kh, vh, block_q=128, block_kv=32),
+               lambda: experiments.flash_triangular(qh, kh, vh, block_q=128, block_kv=128),
+               lambda: experiments.flash_tri_i8(qh, kh, vh, block_q=128, block_kv=128),
+               lambda: experiments.flash_fulltri(qh, kh, vh, block_q=128, block_kv=128)):
+        with pytest.raises(ValueError, match="takes"):
+            fn()
+    with pytest.raises(ValueError, match=r"unroll in \(2, 4\)"):
+        experiments.flash_chunked(qb, kb, vb, block_q=128, block_kv=128, unroll=3)

@@ -172,8 +172,18 @@ def test_plain_versions_match_the_oracle_loosely():
     lambda q, k, v: experiments.flash_pair(q, k, v, bkv=96),
     lambda q, k, v: experiments.flash_unrolled(q, k, v, block_q=96),
     lambda q, k, v: experiments.flash_unrolled(q, k, v, block_kv=96),
+    lambda q, k, v: experiments.flash_chunked(q, k, v, block_q=96),
+    lambda q, k, v: experiments.flash_chunked(q, k, v, block_q=128, block_kv=128, unroll=4),
+    lambda q, k, v: experiments.flash_triangular(q, k, v, block_q=96),
+    lambda q, k, v: experiments.flash_triangular(q, k, v, block_q=128, block_kv=96),
+    lambda q, k, v: experiments.flash_tri_i8(q, k, v, block_q=96, block_kv=128),
+    lambda q, k, v: experiments.flash_tri_i8(q, k, v, block_q=128, block_kv=96, causal=False),
+    lambda q, k, v: experiments.flash_fulltri(q, k, v, block_q=96),
+    lambda q, k, v: experiments.flash_fulltri(q, k, v, block_q=128, block_kv=96),
+    lambda q, k, v: experiments.flash_segmented(q, k, v, block_q=96, block_kv=96),
 ], ids=["fixedmax-bq", "fixedmax-bkv", "aug-bq", "aug-bkv", "pair-nchain-bq", "pair-bkv",
-        "unrolled-bq", "unrolled-bkv"])
+        "unrolled-bq", "unrolled-bkv", "chunked-bq", "chunked-span", "tri-bq", "tri-bkv",
+        "tri_i8-bq", "tri_i8-bkv", "fulltri-bq", "fulltri-bkv", "segmented-block"])
 def test_length_not_a_multiple_of_the_blocks_raises(call):
     q, k, v = _torch(*_inputs(9, *[(1, 256, 2, 64)] * 3))
     with pytest.raises(ValueError, match="multiple"):
@@ -192,6 +202,12 @@ def test_contract_errors():
         experiments.flash_unrolled(q, k[:, :128], v[:, :128], block_q=128, block_kv=128)
     with pytest.raises(ValueError, match="nchain"):
         experiments.flash_pair(q, k, v, nchain=0)
+    with pytest.raises(ValueError, match="square tiles"):
+        experiments.flash_segmented(q, k, v, block_q=128, block_kv=256)
+    with pytest.raises(ValueError, match="seg_tiles"):
+        experiments.flash_segmented(q, k, v, block_q=128, block_kv=128, seg_tiles=0)
+    with pytest.raises(ValueError, match="unroll"):
+        experiments.flash_chunked(q, k, v, block_q=128, block_kv=128, unroll=0)
 
 
 def test_mains_run_on_the_cpu_at_small_shapes():
@@ -213,6 +229,6 @@ def test_mains_run_on_the_cpu_at_small_shapes():
 
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for mod in (fixedmax, aug, pair, pipeline):
+    for main in (fixedmax.main, aug.main, pair.main, pipeline.main, *pipeline.VARIANTS.values()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            mod.main()
+            main()
