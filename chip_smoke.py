@@ -48,7 +48,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    roofline's measured rates, and its error against the fp32 oracle, which
    must stay within its bound; every K13-K19 kernel and mode must launch,
    the segmented variant's rows must have run each segment on K1, and the
-   kernels line takes each kernel's time from its main's headline row;
+   kernels line takes each kernel's time from its main's headline row.
+   K20/K21 (the unrolled backward: dQ once per row-block, dK/dV once per
+   key block) join both halves: checked against their plain versions (small
+   shapes at blocks of 64 and 128, D 128, fp32 inputs, and every geometry
+   and block of their main, each with its launch count), then the
+   backward's main (parity against K4 + K5 under JAX's 3e-2, each row timed
+   beside K4 + K5, SDPA's backward and the data-sheet bound; K20, K21, K4
+   and K5 alone on the headline row); the calls its graphs captured must
+   be one K20 a row-block and one K21 a key block;
 6. serving path: GPT-2 medium (random weights, seed 0) served through
    ``ServingEngine.generate`` with an int8 paged KV cache; every kernel's
    launch count must grow; the first step must agree with the dense model;
@@ -142,6 +150,7 @@ _QUANT = "photonic_flash_attention_tpu_torch/csrc/flash_quant.cu"
 _ROWNORM = "photonic_flash_attention_tpu_torch/csrc/rownorm.cu"
 _PROBES = "photonic_flash_attention_tpu_torch/csrc/probes.cu"
 _EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_experiments.cu"
+_BWD_EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_bwd_experiments.cu"
 _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
 SOURCES = {
@@ -188,6 +197,8 @@ SOURCES = {
     "pfa_flash_tri": _EXPERIMENTS,
     "pfa_flash_tri_i8": _EXPERIMENTS,
     "pfa_flash_fulltri": _EXPERIMENTS,
+    "pfa_flash_bwd_dq_rowblock": _BWD_EXPERIMENTS,
+    "pfa_flash_bwd_dkv_colblock": _BWD_EXPERIMENTS,
 }
 #: The kernels and entries of the ops-and-CLI phase (measured there).
 OPS_KERNELS = ("pfa_softmax", "pfa_layer_norm", "pfa_rms_norm", "pfa_paged_attention")
@@ -242,6 +253,8 @@ REPLACES = {
     "pfa_flash_tri": "benchmarks/flash_pipeline_experiment.py:407",
     "pfa_flash_tri_i8": "benchmarks/flash_pipeline_experiment.py:548",
     "pfa_flash_fulltri": "benchmarks/flash_pipeline_experiment.py:821",
+    "pfa_flash_bwd_dq_rowblock": "benchmarks/flash_bwd_unrolled_experiment.py:41",
+    "pfa_flash_bwd_dkv_colblock": "benchmarks/flash_bwd_unrolled_experiment.py:83",
 }
 #: Modes that no main path runs, reported under their kernel's entry (main
 #: fails if one of them launches there): K3's int8 compute (engine decode
@@ -3013,13 +3026,14 @@ def phase_roofline(k1: dict, smi: str) -> tuple:
     return results, {"roofline": launches}, {"roofline": captured}, rates
 
 
-# -- experiments: the forward design-space kernels (K13-K19) ------------------
+# -- experiments: the design-space kernels (K13-K21) ---------------------------
 
-#: K13 (both exp modes), K14, K15, K16, K17, K18 (both modes) and K19: the
-#: experiments path's kernels.
+#: K13 (both exp modes), K14, K15, K16, K17, K18 (both modes), K19 and the
+#: backward's K20 and K21: the experiments path's kernels.
 EXPERIMENT_KERNELS = ("pfa_flash_fixedmax", "pfa_flash_fixedmax_fast", "pfa_flash_aug",
                       "pfa_flash_pair", "pfa_flash_pipelined", "pfa_flash_chunked",
-                      "pfa_flash_tri", "pfa_flash_tri_i8", "pfa_flash_fulltri")
+                      "pfa_flash_tri", "pfa_flash_tri_i8", "pfa_flash_fulltri",
+                      "pfa_flash_bwd_dq_rowblock", "pfa_flash_bwd_dkv_colblock")
 #: Each against its plain version: K1's bf16 bound (check_flash).
 EXPERIMENT_BOUND = 1e-2
 #: The mains' errors against the fp32 oracle: K1's bf16 bound, and for
@@ -3070,7 +3084,18 @@ HEADLINE_ROWS = {
     "pfa_flash_tri": ("tri", "d64 b4 s2048 tri bq=512 bkv=512", "tri_ms", None),
     "pfa_flash_tri_i8": ("i8", "d64 b4 s2048 causal", "tri_i8_kernel_ms", "tri_i8_ms"),
     "pfa_flash_fulltri": ("fulltri", "d64 b4 s2048", "fulltri_ms", None),
+    "pfa_flash_bwd_dq_rowblock": ("bwd_unrolled", "d64 b4 s2048 causal unrolled bq=512 bkv=512",
+                                  "k20_ms", "unrolled_ms"),
+    "pfa_flash_bwd_dkv_colblock": ("bwd_unrolled", "d64 b4 s2048 causal unrolled bq=512 bkv=512",
+                                   "k21_ms", "unrolled_ms"),
 }
+#: The backward main's rows, by the key of their time: its label, the
+#: yardstick's key and label in the same row, and its operations per (query,
+#: key) pair over D and H (``bwd_bounds``' counts).
+BWD_VARIANTS = (("unrolled_ms", "K20 + K21 unrolled backward (dq, dk, dv)", "k45_ms",
+                 "K4 + K5", 14.0),
+                ("k20_ms", "K20 alone (dq)", "k5_ms", "K5 alone", 6.0),
+                ("k21_ms", "K21 alone (dk, dv)", "k4_ms", "K4 alone", 8.0))
 
 
 def _experiment_case(name: str, label: str, call, plain, checked: dict,
@@ -3103,7 +3128,7 @@ def _experiment_case(name: str, label: str, call, plain, checked: dict,
 
 
 def check_experiments(results: dict) -> dict:
-    """K13-K19 against their plain versions at small and ragged shapes and
+    """K13-K21 against their plain versions at small and ragged shapes and
     at every geometry the experiments path gives them (K13 both exp modes
     causal and not, K14 also with Sq < Skv, K15 at each nchain the card
     takes, K16 with GQA, D 128 and fp32 inputs, K17 at unroll 2 and 4 and
@@ -3112,11 +3137,14 @@ def check_experiments(results: dict) -> dict:
     launched once a row-block); then the segmented path (K1 once a segment)
     and K1 at the segmented main's long geometries, and K1's int8-QK mode at
     the int8 main's, where the plain version computes only the last rows or
-    batch 0. Each plain version runs once a case and is timed at K1's
+    batch 0; then K20 and K21 at the backward module's CARD_CHECKS and its
+    main's geometries and blocks, launched once a row-block and once a key
+    block. Each plain version runs once a case and is timed at K1's
     headline shape (B4 S2048 H12 D64 causal bf16). Returns, per kernel, its
     worst max abs error and that plain time; K1's and its int8-QK mode's
     errors go into ``results``."""
     from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as ax
+    from photonic_flash_attention_tpu_torch.experiments import flash_bwd_unrolled_experiment as bx
     from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fx
     from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
     from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
@@ -3239,10 +3267,37 @@ def check_experiments(results: dict) -> dict:
                          lambda: flash_ops.flash_attention_qk_quant_plain(
                              q8[:1], k8[:1], v[:1], sc, causal=causal, out_dtype=v.dtype),
                          checked, launches=("pfa_flash_fwd_int8qk", 1))
+    # K20 (dq, once a row-block) and K21 (dk, dv, once a key block) through
+    # their wrappers on one di: at bx.CARD_CHECKS causal and not, and at
+    # every geometry and block of their main. K21's two outputs are compared
+    # stacked.
+    bwd_cases = ([(shape, dtype, blocks, causal) for shape, dtype, blocks in bx.CARD_CHECKS
+                  for causal in both]
+                 + [(shape, torch.bfloat16, bx.BLOCKS, causal) for _, shape, causal in bx.CASES])
+    for (b, s, h, d), dtype, blocks, causal in bwd_cases:
+        q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+                       for _ in range(4))
+        o, lse = flash_ops.flash_attention_with_lse(q, k, v, causal=causal)
+        q, k, v, o, do = (t.transpose(1, 2).contiguous() for t in (q, k, v, o, do))
+        di = bx.flash_bwd_di(o, do)
+        for bq, bkv in blocks:
+            kw = dict(sm_scale=d ** -0.5, causal=causal, block_q=bq, block_kv=bkv)
+            geom = f"B{b} S{s} H{h} D{d} {str(dtype)[6:]} bq={bq} bkv={bkv} causal={causal}"
+            headline = (b, s, h, d) == K1_HEADLINE and causal and (bq, bkv) == bx.HEADLINE[1]
+            _experiment_case("pfa_flash_bwd_dq_rowblock", f"K20 dq {geom}",
+                             lambda: bx.dq_rowblocks(q, k, v, do, lse, di, **kw),
+                             lambda: bx.dq_rowblocks_plain(q, k, v, do, lse, di, **kw), checked,
+                             timed=headline, launches=("pfa_flash_bwd_dq_rowblock", s // bq))
+            _experiment_case("pfa_flash_bwd_dkv_colblock", f"K21 dk, dv {geom}",
+                             lambda: torch.stack(bx.dkv_colblocks(q, k, v, do, lse, di, **kw)),
+                             lambda: torch.stack(bx.dkv_colblocks_plain(q, k, v, do, lse, di,
+                                                                        **kw)),
+                             checked, timed=headline,
+                             launches=("pfa_flash_bwd_dkv_colblock", s // bkv))
     for name in ("pfa_flash_fwd", "pfa_flash_fwd_int8qk"):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                            checked[name]["max_abs_err"])
-    del q, k, v
+    del q, k, v, o, lse, do, di
     torch.cuda.empty_cache()
     print(f"experiments: checks against the plain versions in "
           f"{time.perf_counter() - t_checks:.2f} s", flush=True)
@@ -3263,11 +3318,61 @@ def _sdpa_fit_ms(b, s, hq, hkv, d, causal, fit) -> float:
                        fit, torch.device("cuda")) * 1e3
 
 
+def bwd_call_bound(q, causal: bool) -> dict:
+    """The whole backward's bound (dq, dk, dv from q, k, v, o, dO and lse):
+    K4's and K5's operations together, 14 D per (query, key) pair and head,
+    over q, k, v, o, dO and lse read once and dq, dk, dv written once."""
+    b, s, h, d = q.shape
+    nbytes = q.element_size() * 8 * b * s * h * d + 4 * b * h * s
+    return card_bound(14.0 * d * h * attention_pairs(b, s, s, causal), nbytes, q.dtype)
+
+
+def _bwd_experiment_lines(table: dict, smi: str) -> None:
+    """Each timed row of the backward's main: the unrolled call (and on the
+    headline row K20 and K21 alone) beside K4 + K5 (K5, K4 alone) in the
+    same run, SDPA's backward at the geometry (CUDA events: autograd's
+    backward is not captured into a graph here) and the data-sheet bound
+    (``bwd_call_bound``; ``bwd_bounds``' dq and dk/dv for K20 and K21);
+    no composite ceiling, which has no backward form. Sets each row's
+    ``sdpa_bwd_ms`` and ``bounds``."""
+    sdpa_bwd = {}
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for row_name, row in table.items():
+        if "shape" not in row:
+            continue
+        b, s, h, d = row["shape"]
+        causal, (bq, bkv) = row["causal"], row["blocks"]
+        if (row["shape"], causal) not in sdpa_bwd:
+            q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen,
+                                       dtype=torch.bfloat16) for _ in range(4))
+            sdpa_bwd[(row["shape"], causal)] = sdpa_bwd_ms(q, k, v, do, is_causal=causal)
+            del q, k, v, do
+        lib = row["sdpa_bwd_ms"] = sdpa_bwd[(row["shape"], causal)]
+        meta = torch.empty(b, s, h, d, device="meta", dtype=torch.bfloat16)
+        bnd_dkv, bnd_dq = bwd_bounds(meta, meta, causal)
+        row["bounds"] = {"unrolled_ms": bwd_call_bound(meta, causal), "k20_ms": bnd_dq,
+                         "k21_ms": bnd_dkv}
+        pairs = attention_pairs(b, s, s, causal)
+        n_q, n_kv = row["launches"]
+        launches = {"unrolled_ms": f"{n_q} + {n_kv}", "k20_ms": f"{n_q}", "k21_ms": f"{n_kv}"}
+        for key, label, ref_key, ref_label, ops in BWD_VARIANTS:
+            if key not in row:
+                continue
+            ms, bound = row[key], row["bounds"][key]
+            print(f"experiments: {label} B{b} S{s} H{h} D{d} causal={causal} bq={bq} bkv={bkv} "
+                  f"(bwd_unrolled, {launches[key]} launches a call): {ms:.4f} ms, "
+                  f"{ops * d * h * pairs / ms / 1e9:.1f} TFLOP/s; {ref_label} "
+                  f"{row[ref_key]:.4f} ms in the same run, {ref_label}/variant "
+                  f"{row[ref_key] / ms:.3f}; SDPA backward (dq, dk, dv; CUDA events, median of "
+                  f"{TIMED_RUNS}) {lib:.4f} ms; {100 * bound['bound_ms'] / ms:.2f} % of the "
+                  f"bound ({bound['bound_ms']:.4f} ms, {bound['bound_by']}) ({smi})", flush=True)
+
+
 def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
-    """The experiments path, counted from 0: the four experiment files'
-    mains and the pipeline file's five others on the card (their parity
-    checks, then each variant and K1 timed by the two-point graph fit at
-    JAX's geometries). Then, per variant and geometry: its time and
+    """The experiments path, counted from 0: the four forward files' mains,
+    the pipeline file's five others and the backward's main on the card
+    (their parity checks, then each variant and K1, or K4 + K5, timed by
+    the two-point graph fit at JAX's geometries). Then, per variant and geometry: its time and
     TFLOP/s, K1's time in the same run (K1's int8-QK mode for the int8
     variant) and the ratio, SDPA's (none for int8 Q.K), its share of the
     data-sheet bound (``flash_fwd_bound``, ``quant_bound`` for int8 Q.K) and
@@ -3275,11 +3380,14 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
     and its rel_err_norm against the fp32 oracle on the mains' (1, 1024)
     slice ((1, 2048) segmented), which must stay within its bound; the
     segmented main's timed calls must have run K1 once per segment (the
-    calls its graphs captured). Returns K13-K19's
+    calls its graphs captured), and the backward main's graphs one K20 a
+    row-block and one K21 a key block a call (its rows printed by
+    ``_bwd_experiment_lines``). Returns K13-K21's
     kernels-line entries (the time from each main's row at K1's headline
     shape, beside ``checked``'s error and plain time), launches and
     captured calls."""
     from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as ax
+    from photonic_flash_attention_tpu_torch.experiments import flash_bwd_unrolled_experiment as bx
     from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fx
     from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
     from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
@@ -3289,7 +3397,7 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
     _build.reset_launches()
     rows = {}
     for name, fn in (("fixedmax", fx.main), ("aug", ax.main), ("pair", px.main),
-                     ("pipeline", ux.main), *ux.VARIANTS.items()):
+                     ("pipeline", ux.main), *ux.VARIANTS.items(), ("bwd_unrolled", bx.main)):
         k1_before = _build.CAPTURED["pfa_flash_fwd"]
         rows[name] = fn("cuda", fit=EXPERIMENT_FIT)
         if name == "seg":
@@ -3312,8 +3420,25 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
     print(f"experiments: the segmented main's graphs captured {seg_k1_captured} K1 calls: "
           f"{sum(EXPERIMENT_FIT)} fit calls of K1 alone and of the segmented call ({n_segs} "
           f"segments) per geometry", flush=True)
+    # Each fit of the backward's main captures sum(EXPERIMENT_FIT) calls: of
+    # the unrolled call on every row, and of K20 and K21 alone on the
+    # headline row; a call is one K20 a row-block and one K21 a key block.
+    bwd_rows = [r for r in rows["bwd_unrolled"].values() if "shape" in r]
+    want = {name: sum(EXPERIMENT_FIT) * sum(r["launches"][i] * (1 + (alone in r))
+                                            for r in bwd_rows)
+            for i, (name, alone) in enumerate((("pfa_flash_bwd_dq_rowblock", "k20_ms"),
+                                               ("pfa_flash_bwd_dkv_colblock", "k21_ms")))}
+    got = {name: captured.get(name, 0) for name in want}
+    if got != want:
+        raise AssertionError(f"experiments: the backward main's graphs captured {got}, not "
+                             f"{want}")
+    print(f"experiments: the backward main's graphs captured {got}: one K20 a row-block and "
+          f"one K21 a key block per call", flush=True)
+    _bwd_experiment_lines(rows["bwd_unrolled"], smi)
     sdpa, bounds = {}, {}
     for main_name, table in rows.items():
+        if main_name == "bwd_unrolled":  # printed above, beside K4 + K5
+            continue
         for row_name, row in table.items():
             if "shape" not in row:
                 continue
@@ -3364,6 +3489,13 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
     results = {}
     for name, (main_name, row_name, key, whole_key) in HEADLINE_ROWS.items():
         row = rows[main_name][row_name]
+        if main_name == "bwd_unrolled":
+            if tuple(row["shape"]) != K1_HEADLINE or not row["causal"]:
+                raise AssertionError(f"experiments: {row_name!r} is not at K1's headline shape")
+            results[name] = {"ms": row[key], "library_ms": row["sdpa_bwd_ms"],
+                             "whole_call_ms": row[whole_key], "shape": list(K1_HEADLINE),
+                             **checked[name], **row["bounds"][key]}
+            continue
         b, s, hq, hkv, d = row["shape"]
         if (b, s, hq, d) != K1_HEADLINE or not row["causal"]:
             raise AssertionError(f"experiments: {main_name}'s row {row_name!r} is not at "

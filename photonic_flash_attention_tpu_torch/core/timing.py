@@ -13,12 +13,15 @@ rate, not one call: :func:`fit_seconds` keeps JAX's two-point fit over n
 back-to-back calls, which on the card are captured in one CUDA graph and
 replayed between CUDA events (:func:`graph_ms`), so no host time sits
 between the launches and the graph's own launch cost cancels in the fit.
+Where t(hi) does not exceed t(lo) (a loaded host, a window too short for
+its clock), the fit widens ``hi`` as JAX's ``measure_ms`` widens its
+window, and raises if that does not help: it never returns a time <= 0.
 """
 
 from __future__ import annotations
 
 import statistics
-import time
+from time import perf_counter
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -56,9 +59,9 @@ def measure_ms(
             times.append(start.elapsed_time(end))
     else:
         for _ in range(runs):
-            t0 = time.perf_counter()
+            t0 = perf_counter()
             step_fn(x0)
-            times.append((time.perf_counter() - t0) * 1e3)
+            times.append((perf_counter() - t0) * 1e3)
     return max(statistics.median(times), 1e-4)
 
 
@@ -91,25 +94,46 @@ def graph_ms(fn: Callable[[], object], runs: int = 20, replays: int = 5) -> floa
     return statistics.median(times)
 
 
+#: How far :func:`fit_seconds` widens its window: ``hi`` doubles up to this
+#: many times the caller's ``hi``.
+MAX_WIDEN = 16
+
+
 def fit_seconds(fn: Callable[[], object], fit: Tuple[int, int], device: torch.device) -> float:
     """Seconds of one ``fn()`` by JAX's two-point fit: (t(hi) - t(lo)) /
     (hi - lo), t(n) the time of n back-to-back calls. On the card t(n) is
     one replay of a CUDA graph of n calls (:func:`graph_ms`); on the CPU
-    the best of three wall-clock runs after one warm-up call."""
+    the best of three wall-clock runs after one warm-up call.
+
+    While t(hi) <= t(lo), ``hi`` doubles and t(hi) is taken again, up to
+    :data:`MAX_WIDEN` times the given ``hi``; if the fit is still not
+    positive there, ``RuntimeError`` names both times."""
     lo, hi = fit
     if not 0 < lo < hi:
         raise ValueError(f"fit must be two counts 0 < lo < hi, got {fit}")
     if device.type == "cuda":
-        return (hi * graph_ms(fn, hi) - lo * graph_ms(fn, lo)) / (hi - lo) * 1e-3
+        def run(n: int) -> float:
+            return n * graph_ms(fn, n) * 1e-3
+    else:
+        def run(n: int) -> float:
+            fn()
+            best = float("inf")
+            for _ in range(3):
+                t0 = perf_counter()
+                for _ in range(n):
+                    fn()
+                best = min(best, perf_counter() - t0)
+            return best
 
-    def run(n: int) -> float:
-        fn()
-        best = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            best = min(best, time.perf_counter() - t0)
-        return best
-
-    return (run(hi) - run(lo)) / (hi - lo)
+    t_lo = run(lo)
+    cap = MAX_WIDEN * hi
+    while True:
+        t_hi = run(hi)
+        if t_hi > t_lo:
+            return (t_hi - t_lo) / (hi - lo)
+        if 2 * hi > cap:
+            raise RuntimeError(
+                f"fit_seconds on {device.type}: t({hi}) = {t_hi:.6g} s does not exceed "
+                f"t({lo}) = {t_lo:.6g} s, with hi widened to {MAX_WIDEN} x the fit {fit}"
+            )
+        hi *= 2

@@ -1,4 +1,4 @@
-"""What the four experiment modules share: argument checks, the blockwise
+"""What the experiment modules share: argument checks, the blockwise
 online-softmax plain version, timing, the oracle and the command line.
 
 The JAX files each carry their own copy of ``_timed``/``bench`` (a scan of

@@ -108,6 +108,12 @@ _SIGNATURES: Dict[str, List] = {
     "pfa_flash_tri": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _I, _P],
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, dtype, stream
     "pfa_flash_fulltri": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, do, lse, di, dq, B, S, H, D, q_row0, rows, sm_scale, causal,
+    # dtype, stream
+    "pfa_flash_bwd_dq_rowblock": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, do, lse, di, dk, dv, B, S, H, D, kv_col0, cols, sm_scale,
+    # causal, dtype, stream
+    "pfa_flash_bwd_dkv_colblock": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
 }
 
 #: dtype codes shared with the C side (csrc/common.cuh).

@@ -1,4 +1,4 @@
-"""K13-K19 (the flash-forward experiments) against their plain versions, on the GPU.
+"""K13-K21 (the flash experiments) against their plain versions, on the GPU.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. The
 file imports no JAX, so it also runs on a machine that has none:
@@ -17,9 +17,14 @@ mode causal and not, K19, each at a small shape, a length that is a
 multiple of 64 but not of 128, D 128 with GQA, fp32 inputs and the mains'
 geometries (``CARD_CHECK_SHAPES``; K18 launched once per row-block, at
 each of ``main_tri``'s blocks that divides S); the segmented path at its
-main's long geometries on its last rows. fp32 on K13-K15, nchain 3
-and 4 (they spill), an unroll K17 is not compiled for, a dtype or a D a
-kernel does not take raise.
+main's long geometries on its last rows; K20 and K21 (the unrolled
+backward) through ``flash_bwd_unrolled`` at ``CARD_CHECKS`` causal and not
+(blocks of 64, a launch of 320 rows, D 128, fp32 inputs) and at every
+geometry and block of its main, launched once a row-block (K20) and once a
+key block (K21), each output within 1e-2 of the plain version. fp32 on
+K13-K15, nchain 3 and 4 (they spill), an unroll K17 is not compiled for, a
+dtype or a D a kernel does not take, and K20/K21's blocks that are not
+multiples of 64, GQA and lengths the blocks do not divide raise.
 """
 
 import numpy as np
@@ -29,6 +34,7 @@ import torch
 from photonic_flash_attention_tpu_torch import experiments
 from photonic_flash_attention_tpu_torch.experiments import _common
 from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as aug
+from photonic_flash_attention_tpu_torch.experiments import flash_bwd_unrolled_experiment as bwd
 from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fixedmax
 from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as pair
 from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as pipeline
@@ -222,3 +228,63 @@ def test_card_contract_errors(cuda_device):
             fn()
     with pytest.raises(ValueError, match=r"unroll in \(2, 4\)"):
         experiments.flash_chunked(qb, kb, vb, block_q=128, block_kv=128, unroll=3)
+
+
+def _bwd_inputs(dev, seed, shape, dtype, causal):
+    """q, k, v, o, lse, dO in [B, H, S, D] (lse (B, H, S)), o and lse from
+    K1's plain version."""
+    b, s, h, d = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_common.normal(rng, (b, h, s, d), dtype, dev) for _ in range(4))
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    o, lse = flash_attention_with_lse_plain(t(q), t(k), t(v), causal=causal)
+    return q, k, v, t(o).contiguous(), lse.contiguous(), do
+
+
+BWD_CASES = ([(shape, dtype, blocks, causal) for shape, dtype, blocks in bwd.CARD_CHECKS
+              for causal in (False, True)]
+             + [(shape, torch.bfloat16, bwd.BLOCKS, causal) for _, shape, causal in bwd.CASES])
+
+
+@pytest.mark.parametrize("shape, dtype, blocks, causal", BWD_CASES,
+                         ids=[f"{'x'.join(map(str, c[0]))}-{str(c[1])[6:]}-causal{c[3]}"
+                              for c in BWD_CASES])
+def test_k20_k21_unrolled_backward_matches_plain(cuda_device, shape, dtype, blocks, causal):
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 14, shape, dtype, causal)
+    s = shape[1]
+    for bq, bkv in blocks:
+        kw = dict(sm_scale=shape[3] ** -0.5, causal=causal, block_q=bq, block_kv=bkv)
+        before = (_build.LAUNCHES["pfa_flash_bwd_dq_rowblock"],
+                  _build.LAUNCHES["pfa_flash_bwd_dkv_colblock"])
+        got = experiments.flash_bwd_unrolled(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert (_build.LAUNCHES["pfa_flash_bwd_dq_rowblock"] - before[0],
+                _build.LAUNCHES["pfa_flash_bwd_dkv_colblock"] - before[1]) == (s // bq, s // bkv)
+        want = bwd.flash_bwd_unrolled_plain(q, k, v, o, lse, do, **kw)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == w.dtype == dtype and g.shape == w.shape
+            assert torch.isfinite(g).all(), name
+            assert _common.rel_err_norm(g, w) <= BOUND, (name, bq, bkv)
+
+
+def test_k20_k21_card_contract_errors(cuda_device):
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 15, (1, 256, 2, 64), torch.bfloat16, True)
+    kw = dict(sm_scale=0.125, causal=True)
+    for bq, bkv in ((128, 32), (32, 128)):
+        with pytest.raises(ValueError, match="multiples of 64"):
+            experiments.flash_bwd_unrolled(q, k, v, o, lse, do, block_q=bq, block_kv=bkv, **kw)
+    with pytest.raises(ValueError, match="not a multiple"):
+        experiments.flash_bwd_unrolled(q, k, v, o, lse, do, block_q=192, block_kv=64, **kw)
+    with pytest.raises(ValueError, match="no GQA"):
+        experiments.flash_bwd_unrolled(q, k[:, :1].contiguous(), v[:, :1].contiguous(), o, lse,
+                                       do, block_q=64, block_kv=64, **kw)
+    qh, kh, vh, oh, doh = (t.half() for t in (q, k, v, o, do))
+    with pytest.raises(ValueError, match="takes"):
+        experiments.flash_bwd_unrolled(qh, kh, vh, oh, lse, doh, block_q=64, block_kv=64, **kw)
+    q3, k3, v3, o3, lse3, do3 = _bwd_inputs(cuda_device, 16, (1, 128, 2, 32), torch.bfloat16,
+                                            True)
+    with pytest.raises(ValueError, match="head_dim"):
+        experiments.flash_bwd_unrolled(q3, k3, v3, o3, lse3, do3, block_q=64, block_kv=64, **kw)
+    qt = q.transpose(2, 3).contiguous().transpose(2, 3)  # the same values, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        experiments.flash_bwd_unrolled(qt, k, v, o, lse, do, block_q=64, block_kv=64, **kw)

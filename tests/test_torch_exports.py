@@ -111,6 +111,7 @@ EXPERIMENTS = [
     ("flash_pipeline_experiment", "flash_tri_i8"),
     ("flash_pipeline_experiment", "flash_segmented"),
     ("flash_pipeline_experiment", "flash_fulltri"),
+    ("flash_bwd_unrolled_experiment", "flash_bwd_unrolled"),
 ]
 #: Entries with no kernel of their own, so no ``*_plain`` version: the
 #: segmented variant runs K1 (or its plain version) per segment.
@@ -138,7 +139,9 @@ def test_experiment_entries_match_the_jax_files(module, entry):
     # The same arguments, by name, in the same order, and the same defaults.
     jax_args = jax_fns[entry].args
     names = [a.arg for a in jax_args.args + jax_args.kwonlyargs]
-    defaults = [ast.literal_eval(d) for d in jax_args.defaults + jax_args.kw_defaults]
+    # (kw_defaults holds None for a keyword-only argument without a default.)
+    defaults = [ast.literal_eval(d) for d in jax_args.defaults + jax_args.kw_defaults
+                if d is not None]
     params = inspect.signature(getattr(port_mod, entry)).parameters
     assert list(params) == names
     assert [p.default for p in params.values() if p.default is not inspect.Parameter.empty] \
