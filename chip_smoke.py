@@ -7,7 +7,11 @@ Run from the repository root:
 Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. device: CUDA must be available (there is no CPU path);
-2. build: compile the port's kernels (csrc/*.cu) with nvcc;
+2. build: compile the port's kernels (csrc/*.cu) with nvcc; then the
+   proof that K1's bf16 kernel is the Hopper design: every instantiation
+   (D 64 and 128, six modes) must show HGMMA and UTMALDG and no HMMA in the
+   library's SASS (``cuobjdump -sass``), printed with its registers and
+   stack (``cuobjdump -res-usage``), tile, shared memory and CTAs a SM;
 3. kernels: each kernel and mode against its plain PyTorch version on the
    card, at the shapes the main paths give it, with kernel, plain and
    library times and the card's bound: K1 (flash forward, its lse, and its
@@ -24,14 +28,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    window stream (B1 S8192 H12 against the plain version and SDPA with the
    same band mask; bench.py's B1 S65536 window (-4095, 0) row against its
    in-band bound), K4/K5's dropout and window streams (B4 S2048 H12), and
-   K1's relative-bias mode writing lse (T5 both directions, ALiBi);
+   K1's relative-bias mode writing lse (T5 both directions, ALiBi); the
+   bf16 K1's edges (every Sq != Skv among 1, 127, 129, 300, GQA 12/4 and
+   32/8, a lens row of 0, window rows with no key, dense bias on both
+   sides of its TMA / cp.async choice, dropout at 0.1), output and lse;
+   then K1's table: each bf16 mode of PERF.md's table and the training
+   geometry B2 S4096 Hq32/Hkv8 D128 causal with lse, by CUDA events and by
+   the graph fit, beside SDPA timed both ways, the bound and the share;
 4. roofline: the card's record (``hardware.detection``), K9/K10 (HBM read
    and copy) bit for bit and K11 (exp) and K12 (the softmax stream, both
    modes) within their bounds against their plain versions; then, as a
    path of its own, the measure functions (read, copy, exp and stream
    rates, the stream's linear fit) at the card's shapes and at JAX's, each
    beside its data-sheet bound; K1's share of the composite ceiling built
-   from the measured rates; the profiler's time of K11 and K12 in one
+   from the measured rates (its time by CUDA events and by the graph fit); the profiler's time of K11 and K12 in one
    graph replay against the graph fit (within 10 %);
 5. experiments: K13-K19 (the flash-forward design-space experiments:
    fixed-max in both exp modes, augmented V, paired chains at nchain 1 and
@@ -127,6 +137,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -136,7 +147,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from photonic_flash_attention_tpu_torch.core.timing import graph_ms
+from photonic_flash_attention_tpu_torch.core.timing import fit_seconds, graph_ms
 from photonic_flash_attention_tpu_torch.ops import _build
 from photonic_flash_attention_tpu_torch.ops import flash as flash_ops
 from photonic_flash_attention_tpu_torch.ops import flash_bwd as bwd_ops
@@ -144,6 +155,9 @@ from photonic_flash_attention_tpu_torch.ops import paged as paged_ops
 from photonic_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
 _FWD = "photonic_flash_attention_tpu_torch/csrc/flash_fwd.cu"
+#: K1's bf16 kernel (every mode the main paths run); fp32 and the quantized
+#: modes stay in _FWD.
+_FWD90 = "photonic_flash_attention_tpu_torch/csrc/flash_fwd_sm90.cu"
 _PAGED = "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu"
 _BWD = "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu"
 _QUANT = "photonic_flash_attention_tpu_torch/csrc/flash_quant.cu"
@@ -154,20 +168,20 @@ _BWD_EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_bwd_experiment
 _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
 SOURCES = {
-    "pfa_flash_fwd_dropout": _FWD,
+    "pfa_flash_fwd_dropout": _FWD90,
     "pfa_flash_bwd_dkv_dropout": _BWD,
     "pfa_flash_bwd_dq_dropout": _BWD,
-    "pfa_flash_fwd_relbias_lse": _FWD,
-    "pfa_flash_fwd_alibi_lse": _FWD,
-    "pfa_flash_fwd_window": _FWD,
+    "pfa_flash_fwd_relbias_lse": _FWD90,
+    "pfa_flash_fwd_alibi_lse": _FWD90,
+    "pfa_flash_fwd_window": _FWD90,
     "pfa_flash_bwd_dkv_window": _BWD,
     "pfa_flash_bwd_dq_window": _BWD,
-    "pfa_flash_fwd_relbias": _FWD,
-    "pfa_flash_fwd_alibi": _FWD,
-    "pfa_flash_fwd_densebias": _FWD,
+    "pfa_flash_fwd_relbias": _FWD90,
+    "pfa_flash_fwd_alibi": _FWD90,
+    "pfa_flash_fwd_densebias": _FWD90,
     "pfa_paged_decode_attend_tbias": _PAGED,
-    "pfa_flash_fwd": _FWD,
-    "pfa_flash_fwd_streams": _FWD,
+    "pfa_flash_fwd": _FWD90,
+    "pfa_flash_fwd_streams": _FWD90,
     "pfa_paged_token_write": _PAGED,
     "pfa_paged_decode_attend": _PAGED,
     "pfa_paged_hf": _PAGED,
@@ -412,6 +426,67 @@ def phase_build() -> None:
     path = _build.build()
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}", flush=True)
+    check_k1_sass(path)
+
+
+#: K1's bf16 kernel in the library: one instantiation per head dim and mode
+#: (csrc/flash_fwd_sm90.cuh::K1Mode, in this order).
+K1_SM90 = re.compile(r"flash_fwd_sm90ILi(\d+)ELi(\d)E")
+K1_MODES = ("plain", "streams", "rel", "dense", "window", "dropout")
+
+
+def _cuobjdump(flag: str, path: Path) -> str:
+    return subprocess.run(["cuobjdump", flag, str(path)], check=True, capture_output=True,
+                          text=True).stdout
+
+
+def check_k1_sass(path: Path) -> None:
+    """Proof that every bf16 K1 instantiation is the Hopper design: in the
+    built library's SASS (``cuobjdump -sass``) each must hold HGMMA
+    (wgmma) and UTMALDG (TMA loads) and no HMMA (mma.sync). Prints each
+    one's counts, its registers and stack bytes (``cuobjdump
+    -res-usage``; stack = spills) and, from the kernel's own constants,
+    keys a tile, dynamic shared memory, threads and CTAs a SM."""
+    import ctypes
+
+    t0 = time.perf_counter()
+    counts, cur = {}, None
+    for line in _cuobjdump("-sass", path).splitlines():
+        if "Function :" in line:
+            m = K1_SM90.search(line)
+            cur = (int(m.group(1)), int(m.group(2))) if m else None
+            if cur:
+                counts[cur] = collections.Counter()
+        elif cur:
+            for op in ("HGMMA", "UTMALDG", "HMMA"):
+                counts[cur][op] += len(re.findall(rf"\b{op}\b", line))
+    usage = {}
+    for m in re.finditer(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
+                         _cuobjdump("-res-usage", path)):
+        k = K1_SM90.search(m.group(1))
+        if k:
+            usage[(int(k.group(1)), int(k.group(2)))] = tuple(int(x) for x in m.groups()[1:])
+    want = {(d, mode) for d in (64, 128) for mode in range(len(K1_MODES))}
+    if set(counts) != want:
+        raise AssertionError(f"K1 SASS: bf16 instantiations {sorted(counts)}, want {sorted(want)}")
+    for d, mode in sorted(want):
+        c = counts[(d, mode)]
+        info = (ctypes.c_int * 7)()
+        err = _build.lib().pfa_k1_sm90_info(d, mode, info)
+        if err:
+            raise RuntimeError(f"pfa_k1_sm90_info: CUDA error {err}")
+        reg = usage.get((d, mode))
+        line = (f"K1 SASS D{d} {K1_MODES[mode]}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}, "
+                f"HMMA {c['HMMA']}; " + (f"registers {reg[0]} at launch (setmaxnreg: producer "
+                                         f"{info[5]}, consumers {info[6]}), stack {reg[1]} B, "
+                                         f"local {reg[3]} B"
+                                         if reg else "cuobjdump -res-usage: no entry") +
+                f"; {info[0]}-key tiles, {info[4]} stages, {info[1]} B shared, {info[2]} threads, "
+                f"{info[3]} CTA(s) a SM")
+        if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
+            raise AssertionError(f"{line}: the bf16 kernel must run on wgmma and TMA only")
+        print(line, flush=True)
+    print(f"K1 SASS: checked in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def check_flash(results: dict) -> None:
@@ -1345,7 +1420,208 @@ def check_flash_rel_lse(results: dict) -> None:
         results[name]["max_abs_err"] = err
 
 
-def phase_kernels() -> dict:
+#: Sequence lengths of the bf16 kernel's ragged edge cases: every pair with
+#: Sq != Skv, causal aligned to the sequence end.
+EDGE_LENGTHS = (1, 127, 129, 300)
+
+
+def check_k1_edges() -> None:
+    """The bf16 kernel's edges against the plain version, output and lse,
+    each launch under its mode's counter (bf16 bound 1e-2, lse 1e-4 on the
+    rows with a key, -inf where the plain lse is): every (Sq, Skv) pair of
+    EDGE_LENGTHS with Sq != Skv at D 64 and 128, GQA 12/4 and 32/8, a lens
+    row of 0 (o = 0, lse = -inf), a window with rows that see no key (o = 0),
+    dense bias at Skv 301 (the cp.async side) and 300 (the TMA side) with Hb
+    1 and Hq, the relative bias at a ragged Sq, and dropout at 0.1 against
+    the plain version fed the same seed."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    cases = [(f"ragged Sq{sq} Skv{skv}", 2, sq, skv, 4, 2, d, True, {}, "pfa_flash_fwd")
+             for sq in EDGE_LENGTHS for skv in EDGE_LENGTHS if sq != skv for d in (64, 128)]
+    cases += [  # (label, B, Sq, Skv, Hq, Hkv, D, causal, streams, counter)
+        ("GQA 12/4", 2, 300, 300, 12, 4, 64, True, {}, "pfa_flash_fwd"),
+        ("GQA 32/8", 1, 513, 513, 32, 8, 128, True, {}, "pfa_flash_fwd"),
+        ("lens (300, 0, 129)", 3, 129, 300, 4, 2, 64, True, dict(kv_lens=(300, 0, 129)),
+         "pfa_flash_fwd_streams"),
+        ("lens (0, 300) and k_bias", 2, 300, 300, 4, 4, 128, False,
+         dict(kv_lens=(0, 300), k_bias=True), "pfa_flash_fwd_streams"),
+        ("window (-20, -5): rows 0-4 see no key", 2, 300, 300, 4, 4, 64, False,
+         dict(window=(-20, -5)), "pfa_flash_fwd_window"),
+        ("window (-40, 0) causal", 2, 129, 300, 4, 2, 128, True, dict(window=(-40, 0)),
+         "pfa_flash_fwd_window"),
+        ("dropout 0.1", 2, 300, 300, 4, 2, 64, True, dict(dropout_rate=0.1, dropout_seed=77),
+         "pfa_flash_fwd_dropout"),
+        ("dropout 0.1", 1, 129, 301, 8, 8, 128, False, dict(dropout_rate=0.1, dropout_seed=5),
+         "pfa_flash_fwd_dropout"),
+    ]
+    for skv in (301, 300):  # the cp.async and the TMA side of the dense bias
+        for hb in (1, 4):
+            for d in (64, 128):
+                cases.append((f"dense bias Hb{hb} ({'TMA' if skv % 4 == 0 else 'cp.async'} side)",
+                              2, 129, skv, 4, 2, d, hb == 1, dict(dense_heads=hb),
+                              "pfa_flash_fwd_densebias_lse"))
+    cases.append(("relative bias (T5, ragged)", 2, 129, 300, 4, 2, 64, True, dict(rel=True),
+                  "pfa_flash_fwd_relbias_lse"))
+    for label, b, sq, skv, hq, hkv, d, causal, streams, counter in cases:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+        k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+        v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+        scale = d ** -0.5
+        kw, plain_kw = {}, {}
+        if "kv_lens" in streams:
+            kw["kv_lens"] = torch.tensor(streams["kv_lens"], dtype=torch.int32, device="cuda")
+            if streams.get("k_bias"):
+                kw["k_bias"] = _key_bias(b, skv, gen)
+            plain_kw = dict(kw)
+        for key in ("window", "dropout_rate", "dropout_seed"):
+            if key in streams:
+                kw[key] = plain_kw[key] = streams[key]
+        before = _build.LAUNCHES[counter]
+        if "dense_heads" in streams or "rel" in streams:
+            if "rel" in streams:
+                from photonic_flash_attention_tpu_torch.ops.rel_bias import T5RelBias
+
+                table = torch.randn(32, hq, device="cuda", generator=gen) * 0.5
+                vec = flash_ops._rel_vector(T5RelBias(table, not causal), sq, skv)
+                bias, bkw = flash_ops.vector_bias(vec, sq, skv), dict(vec=vec)
+                name = "pfa_flash_fwd_relbias"
+            else:
+                bias = torch.randn(b, streams["dense_heads"], sq, skv, device="cuda", generator=gen)
+                holes = torch.rand(bias.shape, device="cuda", generator=gen) < 0.1
+                bias = torch.where(holes, torch.full_like(bias, DEFAULT_MASK_VALUE), bias)
+                bkw, name = dict(dense=bias), "pfa_flash_fwd_densebias"
+            out, lse = flash_ops._flash_fwd_bias_cuda(q, k, v, causal, scale, name, save_lse=True,
+                                                      **bkw)
+            plain_kw["bias"] = bias
+        else:
+            out, lse = flash_ops._flash_fwd_cuda(q, k, v, causal, scale, True, **kw)
+        ref, ref_lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal,
+                                                                sm_scale=scale, **plain_kw)
+        torch.cuda.synchronize()
+        err = rel_err_norm(out, ref)
+        live = torch.isfinite(ref_lse)
+        lse_err = rel_err_norm(lse[live], ref_lse[live]) if live.any() else 0.0
+        empty = ~live.transpose(1, 2)  # (B, Sq, Hq): rows with no key
+        line = (f"K1 edge {label} B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} bf16 causal={causal}: "
+                f"rel_err_norm {err:.3e} (bound 1e-2), lse {lse_err:.3e} (bound 1e-4), "
+                f"{int(empty.sum())} (row, head) pairs with no key")
+        if (err > 1e-2 or lse_err > 1e-4 or not torch.isfinite(out).all()
+                or not torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+                or (out[empty] != 0).any() or _build.LAUNCHES[counter] != before + 1):
+            raise AssertionError(line)
+        print(line, flush=True)
+
+
+def _sdpa_call(q, k, v, **kw):
+    """One F.scaled_dot_product_attention call on (B, S, H, D) inputs in its
+    (B, H, S, D) layout, K/V repeated over a GQA group; the transposes and
+    repeats are made here, outside any timing."""
+    import torch.nn.functional as F
+
+    group = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.repeat_interleave(n, dim=2).transpose(1, 2).contiguous()
+                  for t, n in ((q, 1), (k, group), (v, group)))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+
+#: The graph fit of the K1 table (two replays of CUDA graphs of 2 and 10
+#: calls, as the experiments' mains).
+K1_TABLE_FIT = (2, 10)
+
+
+def time_k1_modes(results: dict, smi: str) -> None:
+    """K1's bf16 modes at the shapes of PERF.md's table against SDPA on the
+    same function, each by CUDA events (``median_ms``) and by the graph fit
+    (``fit_seconds``), in this run: plain B4 S2048 H12 D64 causal (the
+    headline), the (B,1,S,S) dense mask at B4 S2048 H16, T5's relative bias
+    at B2 S2048 H16 (the call building its vector, and the vector prebuilt
+    with lse), ALiBi causal with and without lse, dropout 0.1 (SDPA draws
+    its own mask) and the training geometry B2 S4096 Hq32/Hkv8 D128 causal
+    with lse; each beside its bound and K1's share of it. The headline's
+    graph-fit time goes to the roofline phase's composite-ceiling line."""
+    from photonic_flash_attention_tpu_torch.ops.rel_bias import (
+        ALiBi, T5RelBias, alibi_slopes, materialize,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    dev = torch.device("cuda")
+
+    def qkv(b, s, hq, hkv, d):
+        return [torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+                for h in (hq, hkv, hkv)]
+
+    def bias_bound(q, k, causal, extra_bytes, bias_heads):
+        b, sq, hq, d = q.shape
+        skv, hkv = k.shape[1], k.shape[2]
+        pairs = attention_pairs(b, sq, skv, causal)
+        nbytes = 2 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d) + extra_bytes + 4 * pairs * bias_heads
+        return card_bound(4.0 * d * hq * pairs, nbytes, torch.bfloat16)
+
+    rows = []
+    q, k, v = qkv(4, 2048, 12, 12, 64)
+    rows.append(("plain B4 S2048 H12 D64 causal", lambda: flash_ops.flash_attention(q, k, v, causal=True),
+                 _sdpa_call(q, k, v, is_causal=True), flash_fwd_bound(q, k, True), "SDPA"))
+    rows.append(("dropout 0.1, the same shape",
+                 lambda: flash_ops.flash_attention(q, k, v, causal=True, dropout_rate=0.1,
+                                                   dropout_seed=DROPOUT_SEED),
+                 _sdpa_call(q, k, v, is_causal=True, dropout_p=0.1), flash_fwd_bound(q, k, True),
+                 "SDPA dropout_p=0.1, its own mask"))
+    qd, kd, vd = qkv(4, 2048, 16, 16, 64)
+    mask = torch.where(torch.rand(4, 1, 2048, 2048, device="cuda", generator=gen) < 0.1,
+                       DEFAULT_MASK_VALUE, 0.0)
+    mask[..., 0] = 0.0
+    rows.append(("dense bias, (B,1,S,S) mask, B4 S2048 H16 D64",
+                 lambda: flash_ops.flash_attention(qd, kd, vd, attn_bias=mask),
+                 _sdpa_call(qd, kd, vd, attn_mask=mask), bias_bound(qd, kd, False, 0, 1),
+                 "SDPA, same bias"))
+    qr, kr, vr = qkv(2, 2048, 16, 16, 64)
+    t5 = T5RelBias(torch.randn(32, 16, device="cuda", generator=gen) * 0.5, True)
+    dense_t5 = materialize(t5, 2048, 2048)
+    vec = flash_ops._rel_vector(t5, 2048, 2048)
+    rel_bytes = 4 * 16 * (2 * 2048 - 1)
+    rows.append(("T5 relative bias, B2 S2048 H16 D64 bidirectional (the call builds the vector)",
+                 lambda: flash_ops.flash_attention(qr, kr, vr, sm_scale=1.0, rel_bias=t5),
+                 _sdpa_call(qr, kr, vr, attn_mask=dense_t5, scale=1.0),
+                 bias_bound(qr, kr, False, rel_bytes, 0), "SDPA, dense bias"))
+    rows.append(("relative bias with lse, the vector prebuilt",
+                 lambda: flash_ops._flash_fwd_bias_cuda(qr, kr, vr, False, 1.0, "pfa_flash_fwd_relbias",
+                                                        vec=vec, save_lse=True),
+                 _sdpa_call(qr, kr, vr, attn_mask=dense_t5, scale=1.0),
+                 bias_bound(qr, kr, False, rel_bytes + 4 * 2 * 16 * 2048, 0), "SDPA, dense bias"))
+    alibi = ALiBi(alibi_slopes(16).cuda())
+    avec = flash_ops._rel_vector(alibi, 2048, 2048)
+    dense_alibi = _sdpa_bias(materialize(alibi, 2048, 2048), 2048, 2048, True)
+    rows.append(("ALiBi, B2 S2048 H16 D64 causal",
+                 lambda: flash_ops.flash_attention(qr, kr, vr, causal=True, rel_bias=alibi),
+                 _sdpa_call(qr, kr, vr, attn_mask=dense_alibi), bias_bound(qr, kr, True, rel_bytes, 0),
+                 "SDPA, dense bias"))
+    rows.append(("ALiBi with lse, the vector prebuilt",
+                 lambda: flash_ops._flash_fwd_bias_cuda(qr, kr, vr, True, 64 ** -0.5,
+                                                        "pfa_flash_fwd_alibi", vec=avec, save_lse=True),
+                 _sdpa_call(qr, kr, vr, attn_mask=dense_alibi),
+                 bias_bound(qr, kr, True, rel_bytes + 4 * 2 * 16 * 2048, 0), "SDPA, dense bias"))
+    qt, kt, vt = qkv(2, 4096, 32, 8, 128)
+    rows.append(("training geometry B2 S4096 Hq32/Hkv8 D128 causal with lse",
+                 lambda: flash_ops.flash_attention_with_lse(qt, kt, vt, causal=True),
+                 _sdpa_call(qt, kt, vt, is_causal=True), flash_fwd_bound(qt, kt, True, with_lse=True),
+                 "SDPA (K/V repeated over the group outside the timing)"))
+    table = []
+    for name, k1, lib, bnd, lib_name in rows:
+        ev, fit = median_ms(k1), fit_seconds(k1, K1_TABLE_FIT, dev) * 1e3
+        lib_ev, lib_fit = median_ms(lib), fit_seconds(lib, K1_TABLE_FIT, dev) * 1e3
+        row = dict(name=name, k1_ms=ev, k1_fit_ms=fit, sdpa_ms=lib_ev, sdpa_fit_ms=lib_fit, **bnd)
+        table.append(row)
+        print(f"K1 table: {name}: K1 {ev:.4f} ms (CUDA events), {fit:.4f} ms (graph fit); "
+              f"{lib_name} {lib_ev:.4f} / {lib_fit:.4f} ms; K1 / SDPA {ev / lib_ev:.3f} (events), "
+              f"{fit / lib_fit:.3f} (fit); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+              f"K1 at {100 * bnd['bound_ms'] / ev:.2f} % (events), "
+              f"{100 * bnd['bound_ms'] / fit:.2f} % (fit) of it ({smi})", flush=True)
+    results["pfa_flash_fwd"]["fit_ms"] = table[0]["k1_fit_ms"]
+    results["k1_table"] = table
+    del q, k, v, qd, kd, vd, mask, qr, kr, vr, dense_t5, dense_alibi, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def phase_kernels(smi: str) -> dict:
     results = {name: {} for name in SOURCES}
     check_flash(results)
     check_flash_lse()
@@ -1362,6 +1638,8 @@ def phase_kernels() -> dict:
     check_flash_window(results)
     check_flash_bwd_streams(results)
     check_flash_rel_lse(results)
+    check_k1_edges()
+    time_k1_modes(results, smi)
     return results
 
 
@@ -3000,8 +3278,10 @@ def phase_roofline(k1: dict, smi: str) -> tuple:
     b, s, h, d = K1_HEADLINE
     ceiling = rl.attention_composite_ceiling(b, s, s, h, d, causal=True, rates=rates)
     print(f"roofline: composite ceiling of K1's B{b} S{s} H{h} D{d} causal bf16 from the "
-          f"measured rates: {ceiling}; K1 {k1['ms']:.4f} ms = "
-          f"{100 * rl.composite_fraction(k1['ms'] * 1e3, ceiling):.2f} % of it, against "
+          f"measured rates: {ceiling}; K1 {k1['ms']:.4f} ms (CUDA events) = "
+          f"{100 * rl.composite_fraction(k1['ms'] * 1e3, ceiling):.2f} % of it, "
+          f"{k1['fit_ms']:.4f} ms (graph fit) = "
+          f"{100 * rl.composite_fraction(k1['fit_ms'] * 1e3, ceiling):.2f} %, against "
           f"{100 * k1['bound_ms'] / k1['ms']:.2f} % of its data-sheet bound "
           f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}); rates {rates}", flush=True)
 
@@ -3524,7 +3804,7 @@ def main() -> None:
     t_script = time.perf_counter()
     smi = phase_device()
     phase_build()
-    results = phase_kernels()
+    results = phase_kernels(smi)
     roofline_results, by_path, captured_by_path, rates = phase_roofline(
         results["pfa_flash_fwd"], smi)
     results.update(roofline_results)

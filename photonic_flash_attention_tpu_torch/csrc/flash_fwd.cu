@@ -73,14 +73,11 @@
 // ~S/2 multiply-adds per loaded K/V byte (causal), far above the bf16 ridge
 // (H100 SXM data sheet at its 700 W limit: 989 TFLOP/s over 3.35 TB/s,
 // ~295 FLOP/byte), so the tensor-core rate is the limit, not HBM.
-// Design: the bf16 path runs every product on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulate) and keeps the scores in registers
-// (the FA2 register layout: a score tile's accumulator fragment is reused
-// as the A operand of P.V), so nothing of size S^2 touches memory. Each
-// block stages one 64-row K/V tile in shared memory for 64 query rows and
-// skips tiles above the causal diagonal. wgmma, TMA and warp
-// specialisation are left to later work. The fp32 path keeps fp32 inputs
-// in fp32 (FMA loops, no bf16 or TF32 rounding).
+// Design: the bf16 path is flash_fwd_sm90.cu (TMA, wgmma, warp
+// specialisation, 128 query rows a CTA); the entry points below route
+// every bf16 mode there. This file keeps the fp32 path, which keeps fp32
+// inputs in fp32 (FMA loops, no bf16 or TF32 rounding, 64 query rows a
+// block, one 64-key K/V tile), and the quantized modes (mma.sync, below).
 //
 // Not carried over from the TPU: the lane-replicated (.,128) softmax
 // statistics, the one-launch-per-row-block "triangular" scheme of the
@@ -116,28 +113,18 @@
 // Bound on the H100: the two products at the 8-bit (Q.K) and bf16 or
 // 8-bit (P.V) tensor-core rates; the 8-bit payloads halve the Q/K bytes.
 // This first version stages one 128-key K/V tile per 64 query rows in
-// shared memory, like the bf16 path.
+// shared memory.
 
-#include "common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
 constexpr int BQ = 64;            // query rows per block
 constexpr int BKV = 64;           // keys per K/V tile
-constexpr int BF16_THREADS = 128; // 4 warps x 16 query rows
+constexpr int BF16_THREADS = 128; // quantized modes: 4 warps x 16 query rows
 constexpr int F32_THREADS = 256;  // 4 threads per query row
 
-// K1's score modes: PLAIN, WINDOW (the sliding-window predicate and the
-// banded key loop) and DROPOUT (the keep mask on P.V) run in log2 units
-// (scale folded with log2 e); the others in natural units with a bias:
-// STREAMS the key streams (lens, kbias), REL the relative-bias vector,
-// DENSE the dense bias. Each mode is its own instantiation, so the plain
-// path carries none of the others' work.
-enum Mode { PLAIN = 0, STREAMS = 1, REL = 2, DENSE = 3, WINDOW = 4, DROPOUT = 5 };
-
-__host__ __device__ constexpr bool natural_units(int mode) {
-  return mode == STREAMS || mode == REL || mode == DENSE;
-}
+// K1's score modes (K1Mode) and natural_units: flash_fwd_sm90.cuh.
 
 // Masked, scaled score of one key: with a bias, added and clamped at
 // MASK_VALUE.
@@ -186,164 +173,6 @@ __device__ __forceinline__ float score_bias(const float* Bs, const float* dense,
   if (MODE == REL) return Bs[c - (row - q0) + BQ - 1];
   if (MODE == DENSE) return ok && row < Sq ? __ldg(dense + (long long)row * Skv + col) : 0.f;
   return 0.f;
-}
-
-// bf16: each warp owns 16 query rows. In the m16n8k16 fragments a lane
-// (g = lane/4, t4 = lane%4) holds rows g and g+8 and columns 2*t4, 2*t4+1
-// of every 8-wide score tile.
-template <int D, int MODE>
-__global__ void __launch_bounds__(BF16_THREADS)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-               const int* __restrict__ lens, const float* __restrict__ kbias,
-               const float* __restrict__ relvec, const float* __restrict__ qkbias, int Hb,
-               int Sq, int Skv, int Hq, int Hkv, float sm_scale, int causal, Streams st) {
-  constexpr int LD = D + 8;   // padded shared row: conflict-free fragment loads
-  constexpr int NT = BKV / 8; // 8-wide score tiles per K/V tile
-  constexpr int DT = D / 8;   // 8-wide output tiles
-  constexpr int DK = D / 16;  // k-steps over D
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BKV * LD;
-  __shared__ float Bs[BQ + BKV];  // the tile's staged bias (STREAMS, REL)
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long long qstr = (long long)Hq * D, kvstr = (long long)Hkv * D;
-  const __nv_bfloat16* qb = q + (long long)b * Sq * qstr + (long long)h * D;
-  const __nv_bfloat16* kb = k + (long long)b * Skv * kvstr + (long long)hk * D;
-  const __nv_bfloat16* vb = v + (long long)b * Skv * kvstr + (long long)hk * D;
-
-  load_tile_bf16<D, LD, BF16_THREADS>(Qs, qb + q0 * qstr, qstr, BQ, Sq - q0);
-  __syncthreads();
-  const int wr = warp * 16;
-  uint32_t qf[DK][4];
-#pragma unroll
-  for (int kc = 0; kc < DK; ++kc) {
-    const __nv_bfloat16* p = Qs + (wr + g) * LD + kc * 16 + t4 * 2;
-    qf[kc][0] = *reinterpret_cast<const uint32_t*>(p);
-    qf[kc][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-    qf[kc][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qf[kc][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-  }
-
-  float acc[DT][4];
-#pragma unroll
-  for (int dn = 0; dn < DT; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max (kernel units), rows g, g+8
-  float l[2] = {0.f, 0.f};              // this lane's share of the running sum
-  const int off = Skv - Sq;
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const float scale = natural_units(MODE) ? sm_scale : sm_scale * LOG2E;
-  const int len = MODE == STREAMS && lens != nullptr ? max(0, min(lens[b], Skv)) : Skv;
-  const uint32_t bh = static_cast<uint32_t>(b * Hq + h);
-  const int kv_begin = MODE == WINDOW ? band_kv_begin(st, q0, off, BKV) : 0;
-  const int kv_end = band_kv_end(st, q0, BQ, off, causal, len);
-  const float* bias_row = MODE == STREAMS && kbias != nullptr ? kbias + (long long)b * Skv : nullptr;
-  const float* rel_row = MODE == REL ? relvec + (long long)h * (Sq + Skv - 1) : nullptr;
-  const float* dense = MODE == DENSE ? qkbias + ((long long)b * Hb + (Hb == 1 ? 0 : h)) * Sq * Skv
-                                     : nullptr;
-
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BKV) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile_bf16<D, LD, BF16_THREADS>(Ks, kb + kv0 * kvstr, kvstr, BKV, Skv - kv0);
-    load_tile_bf16<D, LD, BF16_THREADS>(Vs, vb + kv0 * kvstr, kvstr, BKV, Skv - kv0);
-    stage_bias<MODE, BF16_THREADS>(Bs, bias_row, rel_row, q0, kv0, Sq, Skv);
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < DK; ++kc) {
-        const __nv_bfloat16* p = Ks + (n * 8 + g) * LD + kc * 16 + t4 * 2;
-        mma_16816(s[n], qf[kc], *reinterpret_cast<const uint32_t*>(p),
-                  *reinterpret_cast<const uint32_t*>(p + 8));
-      }
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + t4 * 2 + (e & 1), col = kv0 + c, row = rows[e >> 1];
-        const bool ok = col < len && (!causal || col <= row + off) &&
-                        (MODE != WINDOW || st.in_window(col - row - off));
-        const float bias = score_bias<MODE>(Bs, dense, row, col, c, q0, Sq, Skv, ok);
-        s[n][e] = stream_score<MODE>(s[n][e], ok, scale, bias);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-    float alpha[2], base[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      base[i] = m_new == -INFINITY ? 0.f : m_new;  // row fully masked so far
-      alpha[i] = stream_exp<MODE>(m[i], base[i]);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = stream_exp<MODE>(s[n][e], base[e >> 1]);
-        l[e >> 1] += s[n][e];
-      }
-    }
-    if (MODE == DROPOUT) {  // l has the undropped p; P.V takes p * keep / (1 - rate)
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] *= dropout_mult(st, bh, rows[e >> 1], kv0 + n * 8 + t4 * 2 + (e & 1), Skv);
-    }
-#pragma unroll
-    for (int dn = 0; dn < DT; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kc = 0; kc < BKV / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < DT; ++dn) {
-        const __nv_bfloat16* p = Vs + (kc * 16 + t4 * 2) * LD + dn * 8 + g;
-        mma_16816(acc[dn], pa, pack_raw(p[0], p[LD]), pack_raw(p[8 * LD], p[9 * LD]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (rows[i] >= Sq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    __nv_bfloat16* orow = o + ((long long)b * Sq + rows[i]) * qstr + (long long)h * D;
-#pragma unroll
-    for (int dn = 0; dn < DT; ++dn) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + t4 * 2) =
-          __floats2bfloat162_rn(acc[dn][2 * i] * inv, acc[dn][2 * i + 1] * inv);
-    }
-    if (lse != nullptr && t4 == 0)
-      lse[((long long)b * Hq + h) * Sq + rows[i]] = stream_lse<MODE>(m[i], l[i]);
-  }
 }
 
 // fp32: 4 threads per query row (thread quarter qd owns keys qd + 4j of a
@@ -461,8 +290,10 @@ constexpr int QBKV = 128;                       // keys per block of the quantiz
 constexpr float LOG2_127 = 6.988684686772166f;  // the folded P scale, log2(127)
 
 // Quantized modes: QK8 0 = int8, 1 = e4m3 Q/K payloads; PV8 = int8 V with
-// per-column scales (int8 full), else bf16 V; OutT bf16 or fp32. Warps and
-// fragments as flash_fwd_bf16; the keys of a block go in 128-key tiles.
+// per-column scales (int8 full), else bf16 V; OutT bf16 or fp32. Each warp
+// owns 16 query rows; in the m16n8k16 / m16n8k32 fragments a lane (g =
+// lane/4, t4 = lane%4) holds rows g and g+8 of its score tiles. The keys of
+// a block go in 128-key tiles.
 template <int D, int QK8, bool PV8, typename OutT>
 __global__ void __launch_bounds__(BF16_THREADS)
 flash_fwd_quant(const uint8_t* __restrict__ q, const uint8_t* __restrict__ k,
@@ -642,19 +473,6 @@ struct FwdArgs {
 };
 
 template <int D, int MODE>
-cudaError_t run_bf16(const FwdArgs& a, dim3 grid, cudaStream_t st) {
-  constexpr int smem = (BQ + 2 * BKV) * (D + 8) * sizeof(__nv_bfloat16);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  flash_fwd_bf16<D, MODE><<<grid, BF16_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse, a.lens,
-      a.kbias, a.relvec, a.qkbias, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, a.scale, a.causal, a.st);
-  return cudaGetLastError();
-}
-
-template <int D, int MODE>
 cudaError_t run_f32(const FwdArgs& a, dim3 grid, cudaStream_t st) {
   constexpr int smem = (2 * BQ * (D + 1) + BKV * D + BQ * (BKV + 1)) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
@@ -669,8 +487,11 @@ cudaError_t run_f32(const FwdArgs& a, dim3 grid, cudaStream_t st) {
 
 template <int MODE>
 cudaError_t run(const FwdArgs& a, int D, int dtype, dim3 grid, cudaStream_t st) {
-  if (dtype == PFA_BF16 && D == 64) return run_bf16<64, MODE>(a, grid, st);
-  if (dtype == PFA_BF16 && D == 128) return run_bf16<128, MODE>(a, grid, st);
+  if (dtype == PFA_BF16)  // grid.z is B
+    return k1_bf16_sm90(K1Args{a.q, a.k, a.v, a.o, a.lse, a.lens, a.kbias, a.relvec, a.qkbias,
+                               static_cast<int>(grid.z), a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, D, a.scale,
+                               a.causal, a.st},
+                        MODE, st);
   if (dtype == PFA_F32 && D == 64) return run_f32<64, MODE>(a, grid, st);
   if (dtype == PFA_F32 && D == 128) return run_f32<128, MODE>(a, grid, st);
   return cudaErrorInvalidValue;

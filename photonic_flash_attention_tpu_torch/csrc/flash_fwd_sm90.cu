@@ -1,0 +1,992 @@
+// K1 (bf16): the flash-attention forward redesigned for Hopper (sm_90a):
+// TMA loads, wgmma products and warp specialisation, one kernel body for
+// every bf16 mode (plain and lse, the key streams, the relative and dense
+// biases, the window and dropout).
+//
+// Replaces the TPU kernels photonic_flash_attention_tpu/ops/flash.py::
+// _flash_fwd_kernel and ops/flash_unrolled.py::_kernel in bf16 (the
+// contract, the modes' units and clamps: flash_fwd.cu's header). It takes
+// the place of the earlier mma.sync body (4 warps, 64 rows, synchronous
+// 16-byte loads), whose times PERF.md keeps.
+//
+// What bounds it on the H100: at D 64 and 128 over S ~ 1k-8k tokens the
+// two products do far more operations per loaded byte than the bf16 ridge
+// (989 TFLOP/s over 3.35 TB/s, the data sheet at 700 W), so the limit is
+// the tensor cores and, at D 64, the softmax's FP32/MUFU stream beside
+// them. The design, after FlashAttention-3:
+// * A CTA is three warpgroups: two consumers of 64 query rows each (128
+//   rows a work tile) and one producer, whose first warp issues every load
+//   by TMA (a CUtensorMap per tensor over the (D, H, S, B) layout, 128-byte
+//   swizzle, one head and 64 columns a box: D 128 takes two boxes). Q is
+//   double-buffered; K and V go through a ring (Cfg::STAGES: 3 where they
+//   fit in 227 KB, else 2) with mbarriers: the producer waits "empty" and
+//   posts the whole boxes' bytes on "full" (also where TMA zero-fills past
+//   Sq or Skv); each consumer warp arrives on "empty" once its products
+//   are done with the stage. setmaxnreg gives the producer 24 registers
+//   and the consumers 240.
+// * S = Q K^T runs on wgmma m64nBKVk16 with both operands in shared memory
+//   (K-major, 128-byte swizzle); O += P V on wgmma m64nDk16 with P from
+//   registers (the S accumulator rounded to bf16 is wgmma's A register
+//   layout) and V from shared memory as a transposed (MN-major) B operand:
+//   no V gathers. Within a warpgroup, tile j's Q K^T is issued ahead of
+//   tile j-1's P V, and tile j's softmax runs while that P V finishes. The
+//   two consumer warpgroups take turns at the tensor cores (named
+//   barriers, FA3's ping-pong), so one's softmax runs under the other's
+//   products.
+// * The causal mask, the ragged last tile, the lens tile and the window's
+//   edge tiles take the per-score predicate; every other tile takes none.
+// * The grid is persistent: one CTA a SM walks the work tiles (q-block,
+//   head, batch row) in snake order, causal q-blocks longest first and
+//   heads adjacent, so with a (B, 1, S, S) dense bias the Hq tiles that
+//   read one bias tile run together; the producer loads the next work tile
+//   while the consumers finish this one and store its output.
+// * The log2-unit modes fold the scale into the exponent: the running max
+//   is kept on the raw scores and p = ex2(s * scale - m * scale), one FFMA
+//   and one ex2.approx.ftz a score (sm_scale must be > 0 there). The
+//   natural-unit modes keep (x - m) * log2 e: x clamps at MASK_VALUE, and
+//   MASK_VALUE * log2 e overflows to -inf.
+// * Dense bias: the producer stages each (BQ, BKV) fp32 bias tile into the
+//   ring beside its K/V tile, by TMA (32-column boxes, 128-byte swizzle)
+//   where the row pitch Skv * 4 and the base are 16-byte aligned, else by
+//   4-byte cp.async into the same swizzled layout, decided per call inside
+//   the kernel (bias_tma). A 128 x 128 fp32 stage is 64 KB, so the dense
+//   mode walks 64-key tiles. REL and STREAMS stage their per-tile vectors
+//   (BQ + BKV - 1 offsets, BKV key biases) by 4-byte cp.async into the
+//   ring; cp.async.mbarrier.arrive ties them to the stage's "full".
+// Not yet done (later work): a TMA store of O, a dynamic (atomic) tile
+// scheduler.
+
+#include <cuda.h>
+#include <limits.h>
+#include <string.h>
+
+#include "flash_fwd_sm90.cuh"
+
+namespace {
+
+constexpr int BQ = 128;         // query rows a CTA: CONSUMERS warpgroups x 64
+constexpr int CONSUMERS = 2;    // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 24 + 2 x 240 = 3 x 168
+constexpr int VEC = 256;        // floats of a stage's vector (REL: BQ + BKV - 1)
+constexpr int BOX_BYTES = 64 * 128;  // a 64-row, 128-byte swizzled box
+// A wait on an mbarrier that lasts longer than this is a fault (a lost
+// arrival, a wrong byte count): the kernel traps instead of hanging.
+constexpr unsigned long long WAIT_LIMIT_NS = 10ull * 1000 * 1000 * 1000;
+
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a CTA may take on the H100
+
+template <int D, int MODE>
+struct Cfg {
+  // A dense-bias stage carries BQ x BKV fp32 beside K and V: 64 keys keep
+  // three stages in 227 KB. At D 128, 96 keys keep a tile's scores, the
+  // previous tile's P and O (48 + 24 + 64 registers a thread) under the
+  // consumers' 240 without spilling (128 keys spill and serialise wgmma).
+  static constexpr int BKV = MODE == DENSE ? 64 : D == 128 ? 96 : 128;
+  static constexpr int HALVES = D / 64;  // 128-byte column boxes a row
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;  // K or V, one stage
+  static constexpr int BIAS_BYTES = MODE == DENSE ? BQ * BKV * 4 : 0;
+  static constexpr int VEC_BYTES = (MODE == STREAMS || MODE == REL) ? VEC * 4 : 0;
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES + BIAS_BYTES + VEC_BYTES;
+  // Ring depth: the consumers hold two stages (a tile's K and the tile
+  // before's V), so a third keeps the next tile's load in flight; two where
+  // three do not fit.
+  static constexpr int STAGES = 2 * Q_BYTES + 3 * STAGE_BYTES + 8 * 10 + 1024 <= SMEM_MAX ? 3 : 2;
+  static constexpr int OFF_K = 2 * Q_BYTES;  // Q double-buffered; every offset a multiple of 1024
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_BIAS = OFF_V + STAGES * KV_BYTES;
+  static constexpr int OFF_VEC = OFF_BIAS + STAGES * BIAS_BYTES;
+  static constexpr int OFF_BAR = OFF_VEC + STAGES * VEC_BYTES;
+  static constexpr int SMEM = OFF_BAR + 8 * (2 * STAGES + 4) + 1024;  // + alignment slack
+};
+
+struct Params {
+  __nv_bfloat16* o;
+  float* lse;
+  const int* lens;
+  const float *kbias, *relvec, *qkbias;
+  int B, Hb, Sq, Skv, Hq, Hkv;
+  int n_work;  // work tiles: query blocks x Hq x B
+  float sm_scale;
+  int causal, bias_tma;
+  Streams st;
+};
+
+// --- shared memory, mbarriers, TMA, cp.async --------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the completion of the phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > WAIT_LIMIT_NS) __trap();
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 4 bytes global -> shared; valid == false reads nothing and writes 0.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// The stage's "full" completes only after this thread's earlier cp.asyncs
+// have landed (no net arrival: the pending count rises and falls by one).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Byte offset of fp32 element (r, c) of a (BQ, BKV) bias stage: 32-column
+// boxes of BQ rows x 128 bytes, each row's 16-byte chunks swizzled by r % 8
+// (TMA's 128-byte swizzle).
+__device__ __forceinline__ uint32_t bias_offset(int r, int c) {
+  return (c >> 5) * (BQ * 128) + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+// --- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: 8-row
+// groups 1024 bytes apart (SBO); `lbo` bytes between 64-column blocks of an
+// MN-major operand (ignored for K-major).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of an accumulator across the
+// asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads): the consumers' turns at the
+// tensor cores.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Accumulator layout of m64nN (fp32): in warp w of the warpgroup, lane
+// 4 g + t4 holds rows 16 w + g (d[4 j], d[4 j + 1]) and 16 w + g + 8
+// (d[4 j + 2], d[4 j + 3]) of columns 8 j + 2 t4, 8 j + 2 t4 + 1. The A
+// register fragment of m64k16 is mma.sync's m16n8k16 A fragment per warp,
+// so the accumulator of columns 16 kk .. 16 kk + 15, packed to bf16 pairs,
+// is the A operand of key step kk.
+
+// D (64 x 64, fp32) += A (64 x 16, shared, K-major) B (16 x 64, shared, K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, shared, K-major) B (16 x 128, shared, K-major).
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) = A B (scale-d 0): D's old values are dead, so the
+// compiler need not keep them live into the product.
+__device__ __forceinline__ void wgmma_ss_n64_init(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D (64 x 128, fp32) = A B, as wgmma_ss_n128 with scale-d 0: D's old values are dead.
+
+// D (64 x 128, fp32) = A B (scale-d 0): D's old values are dead.
+__device__ __forceinline__ void wgmma_ss_n128_init(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D (64 x 96, fp32) += A (64 x 16, shared, K-major) B (16 x 96, shared, K-major).
+__device__ __forceinline__ void wgmma_ss_n96(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 96, fp32) = A B (scale-d 0): D's old values are dead.
+__device__ __forceinline__ void wgmma_ss_n96_init(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D (64 x 64, fp32) += A (64 x 16 bf16, registers) B (16 x 64, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16 bf16, registers) B (16 x 128, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D {+}= A B: the first key step of a tile starts D afresh.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, bool first) {
+  if constexpr (N == 64) {
+    if (first) wgmma_ss_n64_init(d, da, db);
+    else wgmma_ss_n64(d, da, db);
+  } else if constexpr (N == 96) {
+    if (first) wgmma_ss_n96_init(d, da, db);
+    else wgmma_ss_n96(d, da, db);
+  } else {
+    if (first) wgmma_ss_n128_init(d, da, db);
+    else wgmma_ss_n128(d, da, db);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// O += P V over one tile: P's BKV / 16 key steps from registers, V (BKV x
+// D, MN-major) from the stage at v_base; issued and committed as one group.
+template <int D, int BKV>
+__device__ __forceinline__ void pv_tile(float* o_acc, uint32_t (&pa)[BKV / 16][4], uint32_t v_base) {
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    wgmma_rs<D>(o_acc, pa[kk], sw128_desc(v_base + kk * 16 * 128, BKV * 128));
+  wgmma_commit();
+}
+
+// --- the kernel ---------------------------------------------------------------
+
+// The scores of one tile in the mode's units, in place: scale, bias and
+// clamp (natural units), and with MASKED the per-score predicate (-inf for
+// a structurally invalid key); mx gets the row maxima of this thread's
+// values. `vec` is the stage's vector, `bias` its dense tile.
+template <int D, int MODE, bool MASKED>
+__device__ __forceinline__ void tile_scores(float* sc, float (&mx)[2], const Params& p,
+                                            const float* vec, const unsigned char* bias, int q0,
+                                            int kv0, int row0, int t4, int len, int off,
+                                            float scale) {
+  constexpr int BKV = Cfg<D, MODE>::BKV;
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int c = 8 * j + 2 * t4, row = row0 + 8 * rr;
+      float x[2] = {sc[4 * j + 2 * rr], sc[4 * j + 2 * rr + 1]};
+      if constexpr (natural_units(MODE)) {
+        float bv[2] = {0.f, 0.f};
+        if constexpr (MODE == STREAMS) {
+          if (p.kbias != nullptr) bv[0] = vec[c], bv[1] = vec[c + 1];
+        } else if constexpr (MODE == REL) {
+          const int i = c - (row - q0) + BQ - 1;
+          bv[0] = vec[i], bv[1] = vec[i + 1];
+        } else {
+          const float2 t = *reinterpret_cast<const float2*>(bias + bias_offset(row - q0, c));
+          bv[0] = t.x, bv[1] = t.y;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) x[e] = fmaxf(x[e] * scale + bv[e], MASK_VALUE);
+      }
+      if constexpr (MASKED) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = kv0 + c + e;
+          const bool ok = col < len && (!p.causal || col <= row + off) &&
+                          (MODE != WINDOW || p.st.in_window(col - row - off));
+          if (!ok) x[e] = -INFINITY;
+        }
+      }
+      sc[4 * j + 2 * rr] = x[0];
+      sc[4 * j + 2 * rr + 1] = x[1];
+      mx[rr] = fmaxf(mx[rr], fmaxf(x[0], x[1]));
+    }
+  }
+}
+
+// P (bf16 pairs, wgmma's A register layout) from the probabilities in sc.
+template <int BKV>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4], const float* sc) {
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+}
+
+// One tile's online softmax, in place: sc goes from the raw scores to the
+// probabilities P.V takes (dropout applied); m and l move on; alpha gets
+// the factors that bring O to the new max. `stage` is the tile's ring slot
+// (its bias vector or dense tile), wrow the warpgroup's first row.
+template <int D, int MODE>
+__device__ __forceinline__ void softmax_step(float* sc, float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], const Params& p,
+                                             const unsigned char* smem, int stage, int q0, int kv0,
+                                             int wrow, int row0, int t4, int len, int off,
+                                             float scale, uint32_t bh) {
+  using C = Cfg<D, MODE>;
+  constexpr int BKV = C::BKV, NS = BKV / 2;
+  // Only the tiles a mask or an edge reaches take the predicate.
+  const bool masked = kv0 + BKV > len || (p.causal && kv0 + BKV - 1 > wrow + off) ||
+                      (MODE == WINDOW && (kv0 - (wrow + 63) - off < p.st.lo ||
+                                          kv0 + BKV - 1 - wrow - off > p.st.hi));
+  const float* vec = reinterpret_cast<const float*>(smem + C::OFF_VEC + stage * C::VEC_BYTES);
+  const unsigned char* bias = smem + C::OFF_BIAS + stage * C::BIAS_BYTES;
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (masked)
+    tile_scores<D, MODE, true>(sc, mx, p, vec, bias, q0, kv0, row0, t4, len, off, scale);
+  else
+    tile_scores<D, MODE, false>(sc, mx, p, vec, bias, q0, kv0, row0, t4, len, off, scale);
+  float nbase[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    const float bs = m_new == -INFINITY ? 0.f : m_new;  // row fully masked so far
+    if constexpr (natural_units(MODE)) {
+      alpha[i] = ex2((m[i] - bs) * LOG2E);
+      nbase[i] = bs;
+    } else {
+      nbase[i] = -bs * scale;
+      alpha[i] = ex2(fmaf(m[i], scale, nbase[i]));
+    }
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1;
+    sc[i] = natural_units(MODE) ? ex2((sc[i] - nbase[r]) * LOG2E) : ex2(fmaf(sc[i], scale, nbase[r]));
+    l[r] += sc[i];
+  }
+  if constexpr (MODE == DROPOUT) {  // l has the undropped p; P.V takes p * keep / (1 - rate)
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      sc[i] *= dropout_mult(p.st, bh, row0 + 8 * ((i >> 1) & 1), kv0 + 8 * (i >> 2) + 2 * t4 + (i & 1),
+                            p.Skv);
+  }
+}
+
+// One work tile: 128 query rows of one (batch row, head), and the key tiles
+// its rows can see.
+struct Work {
+  int h, b, q0, kv_begin, n_tiles, len;
+};
+
+// Work tile t of the persistent loop: heads fastest, then batch rows, then
+// query blocks, the longest (last) causal block first, so a CTA's tiles
+// come in falling cost and the heads that share a (B, 1, Sq, Skv) bias tile
+// run side by side.
+template <int BKV, int MODE>
+__device__ __forceinline__ Work work_tile(const Params& p, int t) {
+  Work w;
+  const int nqb = (p.Sq + BQ - 1) / BQ;
+  w.h = t % p.Hq;
+  const int r = t / p.Hq;
+  w.b = r % p.B;
+  const int i = r / p.B;
+  w.q0 = (p.causal ? nqb - 1 - i : i) * BQ;
+  const int off = p.Skv - p.Sq;
+  w.len = MODE == STREAMS && p.lens != nullptr ? max(0, min(p.lens[w.b], p.Skv)) : p.Skv;
+  w.kv_begin = MODE == WINDOW ? band_kv_begin(p.st, w.q0, off, BKV) : 0;
+  const int kv_end = band_kv_end(p.st, w.q0, BQ, off, p.causal, w.len);
+  w.n_tiles = kv_end > w.kv_begin ? (kv_end - w.kv_begin + BKV - 1) / BKV : 0;
+  return w;
+}
+
+// The n-th work tile of this CTA: round n of gridDim.x tiles, walked
+// forwards in even rounds and backwards in odd ones, so a CTA that had one
+// of the longest tiles of a round gets one of the shortest of the next.
+__device__ __forceinline__ int snake_tile(int n) {
+  const int c = n & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  return n * gridDim.x + c;
+}
+
+// Persistent: gridDim.x CTAs (one a SM) walk the work tiles in snake order
+// (snake_tile); the K/V ring and its phases run on across tiles, and Q is
+// double-buffered, so the producer loads the next tile while the consumers
+// finish this one and write its output.
+template <int D, int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_bias,
+               const Params p) {
+  using C = Cfg<D, MODE>;
+  constexpr int BKV = C::BKV, STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms need 1024-byte alignment
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_full = base + C::OFF_BAR, bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_qfull = bar_empty + 8 * STAGES, bar_qempty = bar_qfull + 16;
+  const int n_work = p.n_work, off = p.Skv - p.Sq;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS * 4);  // one arrival a consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar_qfull + 8 * s, 1);
+      mbar_init(bar_qempty + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp-uniform in the compiler's eyes (a shuffled value), so that ptxas
+  // sees the roles' branches and the wgmma in them as uniform and does not
+  // serialise the products.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x / 32) % 4, 0), lane = threadIdx.x % 32;
+  if (wg == CONSUMERS) {
+    // --- producer: its first warp issues every load -------------------------
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp != 0) return;
+    int it = 0;  // key tiles loaded so far, over all work tiles
+    for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
+      const int t = snake_tile(n);
+      if (t >= n_work) continue;  // the last round only
+      const Work w = work_tile<BKV, MODE>(p, t);
+      const int hk = w.h / (p.Hq / p.Hkv), hb = p.Hb == 1 ? 0 : w.h, q0 = w.q0;
+      const uint32_t qf = bar_qfull + 8 * (n & 1);
+      mbar_wait(bar_qempty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(qf, C::Q_BYTES);
+        for (int r = 0; r < CONSUMERS; ++r)
+          for (int hf = 0; hf < C::HALVES; ++hf)
+            tma_load_4d(base + (n & 1) * C::Q_BYTES + (r * C::HALVES + hf) * BOX_BYTES, &tm_q, qf,
+                        hf * 64, w.h, q0 + r * 64, w.b);
+      }
+      for (int j = 0; j < w.n_tiles; ++j, ++it) {
+        const int s = it % STAGES, kv0 = w.kv_begin + j * BKV;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_wait(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        if constexpr (MODE == STREAMS || MODE == REL || MODE == DENSE) {
+          const uint32_t vec = base + C::OFF_VEC + s * C::VEC_BYTES;
+          bool staged = false;
+          if (MODE == STREAMS && p.kbias != nullptr) {
+            const float* row = p.kbias + (long long)w.b * p.Skv;
+            for (int i = lane; i < BKV; i += 32) {
+              const bool ok = kv0 + i < p.Skv;
+              cp_async4(vec + 4 * i, ok ? row + kv0 + i : row, ok);
+            }
+            staged = true;
+          }
+          if (MODE == REL) {
+            const int nv = p.Sq + p.Skv - 1;
+            const float* row = p.relvec + (long long)w.h * nv;
+            for (int i = lane; i < BQ + BKV - 1; i += 32) {
+              const int gi = kv0 - q0 - (BQ - 1) + i + p.Sq - 1;
+              const bool ok = gi >= 0 && gi < nv;
+              cp_async4(vec + 4 * i, ok ? row + gi : row, ok);
+            }
+            staged = true;
+          }
+          if (MODE == DENSE && !p.bias_tma) {
+            const float* tile = p.qkbias + ((long long)w.b * p.Hb + hb) * p.Sq * (long long)p.Skv;
+            const uint32_t dst = base + C::OFF_BIAS + s * C::BIAS_BYTES;
+            for (int r = 0; r < BQ; ++r) {
+              const int row = q0 + r;
+              for (int c = lane; c < BKV; c += 32) {
+                const int col = kv0 + c;
+                const bool ok = row < p.Sq && col < p.Skv;
+                cp_async4(dst + bias_offset(r, c), ok ? tile + (long long)row * p.Skv + col : tile,
+                          ok);
+              }
+            }
+            staged = true;
+          }
+          if (staged) cp_async_mbar_arrive(full);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          const bool bias_tma = MODE == DENSE && p.bias_tma;
+          mbar_expect_tx(full, 2 * C::KV_BYTES + (bias_tma ? C::BIAS_BYTES : 0));
+          for (int hf = 0; hf < C::HALVES; ++hf) {
+            tma_load_4d(base + C::OFF_K + s * C::KV_BYTES + hf * BKV * 128, &tm_k, full, hf * 64,
+                        hk, kv0, w.b);
+            tma_load_4d(base + C::OFF_V + s * C::KV_BYTES + hf * BKV * 128, &tm_v, full, hf * 64,
+                        hk, kv0, w.b);
+          }
+          if (bias_tma)
+            for (int c = 0; c < BKV / 32; ++c)
+              tma_load_4d(base + C::OFF_BIAS + s * C::BIAS_BYTES + c * BQ * 128, &tm_bias, full,
+                          kv0 + c * 32, q0, hb, w.b);
+        }
+      }
+    }
+  } else {
+    // --- consumers: 64 query rows each ---------------------------------------
+    setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int NS = BKV / 2, NO = D / 2;  // accumulator floats a thread
+    const int g = lane / 4, t4 = lane % 4;
+    const float scale = natural_units(MODE) ? p.sm_scale : p.sm_scale * LOG2E;
+    // Ping-pong: the two warpgroups take turns to issue their products
+    // (named barrier 1 + wg is this one's turn), so one's softmax runs under
+    // the other's products. Warpgroup 0 goes first in each work tile; the
+    // last turn of warpgroup 1 hands nothing on, so every wait has its
+    // arrival.
+    auto turn_begin = [&] { named_bar_sync(1 + wg, 2 * 128); };
+    auto turn_end = [&](bool last) {
+      if (wg == 0 || !last) named_bar_arrive(2 - wg, 2 * 128);
+    };
+    float sc[NS], o_acc[NO];
+    uint32_t pa[BKV / 16][4];
+    int it = 0;  // key tiles consumed so far, over all work tiles
+    for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
+      const int t = snake_tile(n);
+      if (t >= n_work) continue;  // the last round only
+      const Work w = work_tile<BKV, MODE>(p, t);
+      const int q0 = w.q0, n_tiles = w.n_tiles;
+      const int wrow = q0 + wg * 64;          // the warpgroup's first row
+      const int row0 = wrow + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+      const uint32_t bh = static_cast<uint32_t>(w.b * p.Hq + w.h);
+      const uint32_t q_base = base + (n & 1) * C::Q_BYTES + wg * C::HALVES * BOX_BYTES;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};  // running max: raw scores (log2 modes) or natural units
+      float l[2] = {0.f, 0.f};              // this thread's share of the running sum
+      mbar_wait(bar_qfull + 8 * (n & 1), (n >> 1) & 1);
+      if (wg == 1 && n_tiles > 0) named_bar_arrive(1, 2 * 128);
+
+      // Tile j's Q K^T is issued with the previous tile's P V behind it; the
+      // softmax of tile j runs while P V finishes on the tensor cores. O
+      // then takes tile j's rescale, and P (bf16, registers) tile j's
+      // probabilities for the next step: P's registers are read by the P V
+      // in flight, so they change only after it is done. The first tile is
+      // peeled off, so no product is issued under a branch.
+      auto issue_qk = [&](int k) {  // k: the ring's key tile
+        const int s = k % STAGES;
+        mbar_wait(bar_full + 8 * s, (k / STAGES) & 1);
+        const uint32_t k_base = base + C::OFF_K + s * C::KV_BYTES;
+        turn_begin();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t hf = kk / 4, koff = (kk % 4) * 32;
+          wgmma_ss<BKV>(sc, sw128_desc(q_base + hf * BOX_BYTES + koff, 16),
+                        sw128_desc(k_base + hf * BKV * 128 + koff, 16), kk == 0);
+        }
+        wgmma_commit();
+      };
+      auto release = [&](uint32_t bar) {  // this warp is done with what `bar` guards
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar);
+      };
+      if (n_tiles > 0) {
+        issue_qk(it);
+        turn_end(false);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        float alpha[2];
+        softmax_step<D, MODE>(sc, m, l, alpha, p, smem, it % STAGES, q0, w.kv_begin, wrow, row0,
+                              t4, w.len, off, scale, bh);
+        pack_p<BKV>(pa, sc);
+      }
+      for (int j = 1; j < n_tiles; ++j) {
+        issue_qk(it + j);
+        pv_tile<D, BKV>(o_acc, pa, base + C::OFF_V + ((it + j - 1) % STAGES) * C::KV_BYTES);
+        turn_end(false);
+        wgmma_wait<1>();
+        fence_regs(sc);
+        float alpha[2];
+        softmax_step<D, MODE>(sc, m, l, alpha, p, smem, (it + j) % STAGES, q0,
+                              w.kv_begin + j * BKV, wrow, row0, t4, w.len, off, scale, bh);
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        release(bar_empty + 8 * ((it + j - 1) % STAGES));
+#pragma unroll
+        for (int i = 0; i < NO; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+        pack_p<BKV>(pa, sc);
+      }
+      if (n_tiles > 0) {  // the last tile's P V
+        turn_begin();
+        wgmma_fence();
+        pv_tile<D, BKV>(o_acc, pa, base + C::OFF_V + ((it + n_tiles - 1) % STAGES) * C::KV_BYTES);
+        turn_end(true);
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        release(bar_empty + 8 * ((it + n_tiles - 1) % STAGES));
+      }
+      release(bar_qempty + 8 * (n & 1));
+      it += n_tiles;
+
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        const int row = row0 + 8 * i;
+        if (row >= p.Sq) continue;
+        const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+        __nv_bfloat16* orow = p.o + (((long long)w.b * p.Sq + row) * p.Hq + w.h) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          store2(orow + 8 * j + 2 * t4, o_acc[4 * j + 2 * i] * inv, o_acc[4 * j + 2 * i + 1] * inv);
+        if (p.lse != nullptr && t4 == 0) {
+          const float mn = natural_units(MODE) ? m[i] : m[i] * p.sm_scale;
+          p.lse[((long long)w.b * p.Hq + w.h) * p.Sq + row] = l[i] > 0.f ? mn + logf(l[i]) : -INFINITY;
+        }
+      }
+    }
+  }
+}
+
+// --- host side -------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#pragma GCC diagnostic push
+#pragma GCC diagnostic ignored "-Wdeprecated-declarations"
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+#pragma GCC diagnostic pop
+  }
+  return fn;
+}
+
+// A 4-D tensor map, innermost dimension first, 128-byte swizzle; reads
+// past the edges fill zeros.
+bool encode_4d(CUtensorMap* map, CUtensorMapDataType type, int elt, const void* ptr,
+               const uint64_t (&dims)[4], const uint32_t (&box)[4]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t gdim[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t stride[3] = {dims[0] * elt, dims[0] * dims[1] * elt,
+                                dims[0] * dims[1] * dims[2] * elt};
+  const cuuint32_t bdim[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(ptr), gdim, stride, bdim, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The current device's SM count (the persistent grid: one CTA a SM), read
+// once a device.
+cudaError_t sm_count(int* sms) {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && cached[dev] > 0) {
+    *sms = cached[dev];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < 64) cached[dev] = *sms;
+  return e;
+}
+
+template <int D, int MODE>
+cudaError_t launch(const K1Args& a, cudaStream_t stream) {
+  using C = Cfg<D, MODE>;
+  const uint64_t B = a.B, Sq = a.Sq, Skv = a.Skv;
+  CUtensorMap tq, tk, tv, tb;
+  memset(&tb, 0, sizeof(tb));
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode_4d(&tq, bf16, 2, a.q, {(uint64_t)D, (uint64_t)a.Hq, Sq, B}, {64, 1, 64, 1}) ||
+      !encode_4d(&tk, bf16, 2, a.k, {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {64, 1, C::BKV, 1}) ||
+      !encode_4d(&tv, bf16, 2, a.v, {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {64, 1, C::BKV, 1}))
+    return cudaErrorInvalidValue;
+  const int bias_tma = MODE == DENSE && Skv % 4 == 0 && aligned16(a.qkbias);
+  if (bias_tma && !encode_4d(&tb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.qkbias,
+                             {Skv, Sq, (uint64_t)a.Hb, B}, {32, BQ, 1, 1}))
+    return cudaErrorInvalidValue;
+  const long long work = (long long)((a.Sq + BQ - 1) / BQ) * a.Hq * a.B;
+  if (work > INT_MAX) return cudaErrorInvalidValue;
+  const int n_work = static_cast<int>(work);
+  const Params p{static_cast<__nv_bfloat16*>(a.o), a.lse, a.lens, a.kbias, a.relvec, a.qkbias,
+                 a.B, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, n_work, a.scale, a.causal, bias_tma, a.st};
+  auto kernel = flash_fwd_sm90<D, MODE>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return e;
+  int sms = 0;
+  if ((e = sm_count(&sms)) != cudaSuccess) return e;
+  kernel<<<n_work < sms ? n_work : sms, THREADS, C::SMEM, stream>>>(tq, tk, tv, tb, p);
+  return cudaGetLastError();
+}
+
+// The design of one instantiation: keys a tile, dynamic shared memory,
+// threads a CTA, CTAs an SM can hold, ring stages, the producer's and the
+// consumers' registers.
+template <int D, int MODE>
+cudaError_t info(int* out) {
+  using C = Cfg<D, MODE>;
+  auto kernel = flash_fwd_sm90<D, MODE>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return e;
+  out[0] = C::BKV, out[1] = C::SMEM, out[2] = THREADS;
+  out[4] = C::STAGES, out[5] = PRODUCER_REGS, out[6] = CONSUMER_REGS;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, THREADS, C::SMEM);
+}
+
+template <int MODE>
+cudaError_t info_mode(int D, int* out) {
+  if (D == 64) return info<64, MODE>(out);
+  if (D == 128) return info<128, MODE>(out);
+  return cudaErrorInvalidValue;
+}
+
+template <int MODE>
+cudaError_t launch_mode(const K1Args& a, cudaStream_t stream) {
+  if (a.D == 64) return launch<64, MODE>(a, stream);
+  if (a.D == 128) return launch<128, MODE>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+cudaError_t k1_bf16_sm90(const K1Args& a, int mode, cudaStream_t stream) {
+  // TMA reads 16-byte-aligned bases; the log2 modes keep the max on the
+  // raw scores and scale them inside the exponent, which needs a scale > 0.
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
+      (!natural_units(mode) && !(a.scale > 0.f)))
+    return cudaErrorInvalidValue;
+  switch (mode) {
+    case PLAIN: return launch_mode<PLAIN>(a, stream);
+    case STREAMS: return launch_mode<STREAMS>(a, stream);
+    case REL: return launch_mode<REL>(a, stream);
+    case DENSE: return launch_mode<DENSE>(a, stream);
+    case WINDOW: return launch_mode<WINDOW>(a, stream);
+    case DROPOUT: return launch_mode<DROPOUT>(a, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// out[7]: keys a tile, dynamic shared memory bytes, threads a CTA, CTAs a
+// SM, ring stages, producer and consumer registers (setmaxnreg) of the
+// bf16 kernel at head dim D in `mode` (K1Mode); no launch.
+extern "C" int pfa_k1_sm90_info(int D, int mode, int* out) {
+  switch (mode) {
+    case PLAIN: return info_mode<PLAIN>(D, out);
+    case STREAMS: return info_mode<STREAMS>(D, out);
+    case REL: return info_mode<REL>(D, out);
+    case DENSE: return info_mode<DENSE>(D, out);
+    case WINDOW: return info_mode<WINDOW>(D, out);
+    case DROPOUT: return info_mode<DROPOUT>(D, out);
+  }
+  return cudaErrorInvalidValue;
+}

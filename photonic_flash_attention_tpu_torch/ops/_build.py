@@ -93,6 +93,10 @@ _SIGNATURES: Dict[str, List] = {
     "pfa_softmax_probe": [_P] * 4 + [_I] * 5 + [_U, _P],
     # kernel (0 = K11, 1 = K12), cols, masked, out (int *); no stream
     "pfa_probe_wave": [_I, _I, _I, ctypes.POINTER(_I)],
+    # D, mode (K1Mode), out (int[7]: keys a tile, shared bytes, threads,
+    # CTAs a SM, stages, producer and consumer registers of K1's bf16
+    # kernel); no stream, no launch
+    "pfa_k1_sm90_info": [_I, _I, ctypes.POINTER(_I)],
     # q, k, v, o, fm, B, S, H, D, sm_scale, causal, fast_exp, stream
     "pfa_flash_fixedmax": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     # q, k, v, o, B, Sq, Skv, H, D, sm_scale, stream

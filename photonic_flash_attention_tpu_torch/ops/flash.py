@@ -290,7 +290,8 @@ def _stream_args(q: torch.Tensor, kv_lens, k_bias) -> Streams:
 
 
 def _check_k1(q, k, v) -> None:
-    """What K1 takes: head dim, dtype, contiguous inputs."""
+    """What K1 takes: head dim, dtype, contiguous inputs; in bf16 on
+    16-byte-aligned bases (its TMA loads)."""
     d = q.shape[-1]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"K1 supports head_dim in {KERNEL_HEAD_DIMS}, got {d}")
@@ -299,6 +300,8 @@ def _check_k1(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"K1 needs contiguous inputs; {name} is not")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"K1 needs 16-byte-aligned inputs; {name} starts at {t.data_ptr():#x}")
 
 
 def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens=None, k_bias=None,
@@ -312,6 +315,10 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens
     skv, hkv = k.shape[1], k.shape[2]
     _check_k1(q, k, v)
     lens, bias = _stream_args(q, kv_lens, k_bias)
+    if q.dtype == torch.bfloat16 and lens is None and bias is None and not scale > 0.0:
+        # The bf16 kernel keeps the running max on the raw scores and
+        # scales inside the exponent (csrc/flash_fwd_sm90.cu).
+        raise ValueError(f"K1's bf16 kernel takes sm_scale > 0 without a bias, got {scale}")
     if dropout_rate > 0.0:
         count = "pfa_flash_fwd_dropout"
     elif window is not None:

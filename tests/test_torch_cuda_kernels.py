@@ -32,6 +32,8 @@ from photonic_flash_attention_tpu_torch.ops import flash_fp8
 from photonic_flash_attention_tpu_torch.ops.flash import (
     flash_attention,
     flash_attention_plain,
+    flash_attention_with_lse,
+    flash_attention_with_lse_plain,
     flash_attention_qk_quant,
     flash_attention_qk_quant_plain,
 )
@@ -55,6 +57,15 @@ FLASH_CASES = [
     (1, 1000, 1000, 4, 4, 64, True),
     (2, 16, 40, 2, 2, 64, False),
 ]
+
+
+# The bf16 kernel's ragged edges (tests/test_torch_flash.py anchors the
+# plain version there to JAX): every pair Sq != Skv of 1, 127, 129, 300,
+# causal (end-aligned) where Sq < Skv, at D 64 and 128; GQA 12/4 and 32/8.
+EDGE_LENGTHS = (1, 127, 129, 300)
+EDGE_CASES = [(2, sq, skv, 4, 2, d, sq < skv)
+              for sq in EDGE_LENGTHS for skv in EDGE_LENGTHS if sq != skv for d in (64, 128)]
+EDGE_CASES += [(2, 300, 300, 12, 4, 64, True), (1, 513, 513, 32, 8, 128, True)]
 
 
 def rel_err_norm(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -91,6 +102,26 @@ def test_flash_kernel_matches_plain(case, dtype_name, cuda_device):
 
 L, HQ, HKV, D, PAGE, NUM_PAGES, PPS = 2, 4, 2, 64, 16, 24, 4
 LENGTHS = [0, 5, 23, 33, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_flash_kernel_edges_match_plain(case, dtype_name, cuda_device):
+    """Output and lse at the ragged edges: 1e-2 (bf16) or 1e-4 (fp32)
+    rel_err_norm on o, 1e-4 on the lse."""
+    b, sq, skv, hq, hkv, d, causal = case
+    gen = torch.Generator(device=cuda_device).manual_seed(sq * 1000 + skv)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(DTYPES[dtype_name])
+               for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    before = _build.LAUNCHES["pfa_flash_fwd"]
+    out, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    ref, ref_lse = flash_attention_with_lse_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfa_flash_fwd"] == before + 1
+    assert out.dtype == q.dtype and torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert rel_err_norm(out, ref) <= (1e-4 if dtype_name == "f32" else 1e-2)
+    assert rel_err_norm(lse, ref_lse) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -29,6 +29,7 @@ from photonic_flash_attention_tpu_torch.ops.flash_bwd import (
     flash_attention_bwd,
     flash_attention_bwd_plain,
 )
+from photonic_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 from photonic_flash_attention_tpu_torch.ops.rel_bias import ALiBi, T5RelBias, alibi_slopes
 from photonic_flash_attention_tpu_torch.training import Trainer, synthetic_lm_batches
 
@@ -67,6 +68,19 @@ STREAM_CASES = [
 ]
 
 
+# The bf16 kernel's stream edges, (B, Sq, Skv, Hq, Hkv, D, causal, streams):
+# a lens row of 0 (o = 0, lse = -inf), window rows with no key at ragged
+# lengths, dropout at 0.1 against the plain version fed the same seed.
+EDGE_STREAM_CASES = [
+    (3, 129, 300, 4, 2, 64, True, dict(kv_lens=(300, 0, 129))),
+    (2, 300, 300, 4, 4, 128, False, dict(kv_lens=(0, 300), k_bias=True)),
+    (2, 300, 300, 4, 4, 64, False, dict(window=(-20, -5))),
+    (2, 129, 300, 4, 2, 128, True, dict(window=(-40, 0))),
+    (2, 300, 300, 4, 2, 64, True, dict(dropout_rate=0.1, dropout_seed=77)),
+    (1, 129, 301, 8, 8, 128, False, dict(dropout_rate=0.1, dropout_seed=5)),
+]
+
+
 def _mode(streams) -> str:
     return "dropout" if "dropout_rate" in streams else "window"
 
@@ -85,6 +99,39 @@ def test_flash_fwd_streams_match_plain(case, dtype_name, cuda_device):
     assert _build.LAUNCHES[counter] == before + 1
     assert torch.isfinite(out).all() and rel_err_norm(out, ref) <= BOUND[dtype_name]
     empty = torch.isneginf(lse).transpose(1, 2)  # (B, Sq, Hq): rows with no key
+    assert (out[empty] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("case", EDGE_STREAM_CASES)
+def test_flash_fwd_stream_edges_match_plain(case, dtype_name, cuda_device):
+    """Output and lse of K1's streams at the edges, each launch under its
+    mode's counter; rows with no key give o = 0 and lse = -inf."""
+    b, sq, skv, hq, hkv, d, causal, streams = case
+    q, k, v, _ = _qkv(b, sq, skv, hq, hkv, d, DTYPES[dtype_name], cuda_device, seed=sq + skv)
+    kw = {key: val for key, val in streams.items() if key not in ("kv_lens", "k_bias")}
+    if "kv_lens" in streams:
+        kw["kv_lens"] = torch.tensor(streams["kv_lens"], dtype=torch.int32, device=cuda_device)
+        counter = "pfa_flash_fwd_streams"
+        if streams.get("k_bias"):
+            gen = torch.Generator(device=cuda_device).manual_seed(3)
+            bias = torch.randn(b, skv, generator=gen, device=cuda_device)
+            bias[torch.rand(b, skv, generator=gen, device=cuda_device) < 0.1] = DEFAULT_MASK_VALUE
+            bias[:, 0] = 0.0
+            kw["k_bias"] = bias
+    else:
+        counter = f"pfa_flash_fwd_{_mode(streams)}"
+    before = _build.LAUNCHES[counter]
+    out, lse = flash_ops._flash_fwd_cuda(q, k, v, causal, d ** -0.5, True, **kw)
+    ref, ref_lse = flash_attention_with_lse_plain(q, k, v, causal=causal, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[counter] == before + 1
+    assert torch.isfinite(out).all() and rel_err_norm(out, ref) <= BOUND[dtype_name]
+    live = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+    assert rel_err_norm(lse[live], ref_lse[live]) <= 1e-4
+    empty = ~live.transpose(1, 2)  # (B, Sq, Hq): rows with no key
     assert (out[empty] == 0).all()
 
 

@@ -91,6 +91,12 @@ DENSE_CASES = [
     (2, 200, 200, 4, 2, 64, True, 4, True),
     (1, 100, 300, 4, 4, 128, True, 1, False),
     (2, 64, 129, 2, 2, 128, False, 2, True),
+    # The bf16 kernel's edges: Skv 301 stages the bias by cp.async, Skv 300
+    # by TMA (its row pitch a multiple of 16 bytes); Hb 1 and Hq.
+    (2, 129, 301, 4, 2, 64, True, 1, True),
+    (2, 129, 301, 4, 2, 128, False, 4, True),
+    (2, 129, 300, 4, 2, 64, False, 4, True),
+    (2, 129, 300, 4, 2, 128, True, 1, True),
 ]
 
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from photonic_flash_attention_tpu.ops.flash import flash_attention as jax_flash
+from photonic_flash_attention_tpu.ops.flash import flash_attention_with_lse as jax_flash_lse
 from photonic_flash_attention_tpu.ops.flash_unrolled import (
     flash_attention_best as jax_flash_best,
 )
@@ -22,7 +23,7 @@ from photonic_flash_attention_tpu.ops.reference import (
     attention_reference as jax_reference,
 )
 from photonic_flash_attention_tpu_torch.ops import _build
-from photonic_flash_attention_tpu_torch.ops.flash import flash_attention
+from photonic_flash_attention_tpu_torch.ops.flash import flash_attention, flash_attention_with_lse
 from photonic_flash_attention_tpu_torch.ops.flash_unrolled import (
     flash_attention_best,
     unrolled_supported,
@@ -45,6 +46,15 @@ CASES = [
     (1, 256, 256, 2, 2, 64, True),
     (2, 16, 40, 2, 2, 64, False),
 ]
+
+
+#: The card's ragged edges (chip_smoke.py::check_k1_edges): every pair Sq !=
+#: Skv of EDGE_LENGTHS, causal (end-aligned) where Sq < Skv (the public
+#: entry points refuse causal rows with no key), and GQA 12/4 and 32/8.
+EDGE_LENGTHS = (1, 127, 129, 300)
+EDGE_CASES = [(2, sq, skv, 4, 2, 64, sq < skv)
+              for sq in EDGE_LENGTHS for skv in EDGE_LENGTHS if sq != skv]
+EDGE_CASES += [(2, 300, 300, 12, 4, 64, True), (1, 129, 129, 32, 8, 128, True)]
 
 
 def _case_id(c):
@@ -105,6 +115,21 @@ def test_flash_attention_best_matches_jax(case, dtype_name):
         jax_flash_best(jq, jk, jv, causal=causal),
         dtype_name,
     )
+
+
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("case", EDGE_CASES, ids=_case_id)
+def test_flash_ragged_edges_match_jax(case, dtype_name):
+    """Output and lse of the port's plain K1 at the card's edge geometries
+    against the JAX kernel in interpret mode: the reference the card's
+    kernel is held to there is itself anchored to JAX."""
+    causal = case[-1]
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(case, seed=3), dtype_name)
+    out, lse = flash_attention_with_lse(tq, tk, tv, causal=causal)
+    ref, ref_lse = jax_flash_lse(jq, jk, jv, causal=causal)
+    assert out.dtype == tq.dtype and lse.shape == (case[0], case[3], case[1])
+    _check(out, ref, dtype_name)
+    _check(lse, ref_lse, dtype_name)
 
 
 @pytest.mark.parametrize("case", CASES, ids=_case_id)

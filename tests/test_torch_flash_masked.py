@@ -56,6 +56,17 @@ CASES = [
 ]
 
 
+#: The card's edges of the streams and the dense bias
+#: (chip_smoke.py::check_k1_edges): (B, Sq, Skv, Hq, Hkv, D, causal, kv_lens)
+#: with a length-0 row, and (Skv, Hb, causal) of the dense bias at Sq 129:
+#: Skv 301 is the card's cp.async side, 300 its TMA side.
+EDGE_STREAM_CASES = [
+    (3, 129, 300, 4, 2, 64, True, (300, 0, 129)),
+    (2, 300, 300, 4, 4, 128, False, (0, 300)),
+]
+EDGE_DENSE_CASES = [(skv, hb, hb == 1) for skv in (301, 300) for hb in (1, 4)]
+
+
 def _case_id(c):
     b, sq, skv, hq, hkv, d, causal = c
     return f"b{b}q{sq}k{skv}h{hq}g{hkv}d{d}{'c' if causal else 'n'}"
@@ -143,6 +154,39 @@ def test_zero_length_row_gives_zero_output_and_minus_inf_lse():
     live = [0, 2]
     assert rel_err_norm(o.numpy()[live], np.asarray(ro)[live]) <= 1e-5
     assert rel_err_norm(lse.numpy()[live], np.asarray(rlse)[live]) <= 1e-5
+
+
+@pytest.mark.parametrize("case", EDGE_STREAM_CASES, ids=lambda c: f"q{c[1]}k{c[2]}d{c[5]}lens{c[7]}")
+def test_stream_edges_match_jax(case):
+    """A length-0 row at ragged lengths, with the key bias: o = 0 and lse =
+    -inf there, the other rows as the JAX kernel's."""
+    b, sq, skv, hq, hkv, d, causal, lens = case
+    q, k, v, _, bias = _inputs(case[:7], seed=7)
+    lens = np.array(lens, np.int32)
+    o, lse = flash_attention_with_lse(*_torch(q, k, v), causal=causal,
+                                      kv_lens=torch.from_numpy(lens), k_bias=torch.from_numpy(bias))
+    jq, jk, jv, jl, jb = _jax(q, k, v, lens, bias)
+    ro, rlse = jax_flash_lse(jq, jk, jv, causal=causal, kv_lens=jl, k_bias=jb)
+    empty, live = lens == 0, lens > 0
+    assert torch.all(o[empty] == 0.0) and torch.all(torch.isneginf(lse[empty]))
+    assert np.all(np.isneginf(np.asarray(rlse)[empty]))
+    assert rel_err_norm(o.numpy()[live], np.asarray(ro)[live]) <= 1e-5
+    assert rel_err_norm(lse.numpy()[live], np.asarray(rlse)[live]) <= 1e-5
+
+
+@pytest.mark.parametrize("skv, hb, causal", EDGE_DENSE_CASES,
+                         ids=lambda c: str(c))
+def test_dense_bias_edges_match_jax(skv, hb, causal):
+    """The dense (B, Hb, Sq, Skv) bias at Sq 129 and Skv 300 / 301, Hb 1 and
+    Hq, with mask-value holes (key 0 kept)."""
+    q, k, v, _, _ = _inputs((2, 129, skv, 4, 2, 64, causal), seed=8, lens=False, bias=False)
+    rng = np.random.default_rng(9)
+    bias = rng.standard_normal((2, hb, 129, skv)).astype(np.float32)
+    bias[rng.random(bias.shape) < 0.1] = DEFAULT_MASK_VALUE
+    bias[..., 0] = 0.0
+    got = flash_attention(*_torch(q, k, v), causal=causal, attn_bias=torch.from_numpy(bias))
+    want = jax_flash(*_jax(q, k, v), causal=causal, attn_bias=jnp.asarray(bias))
+    assert rel_err_norm(got.numpy(), want) <= 1e-5
 
 
 def test_row_masked_by_bias_alone_averages_its_keys():
