@@ -8,10 +8,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. device: CUDA must be available (there is no CPU path);
 2. build: compile the port's kernels (csrc/*.cu) with nvcc; then the
-   proof that K1's bf16 kernel is the Hopper design: every instantiation
-   (D 64 and 128, six modes) must show HGMMA and UTMALDG and no HMMA in the
+   proof that K1's and K4/K5's bf16 kernels are the Hopper design: every
+   instantiation (K1: D 64 and 128, six modes; K4 and K5: D 64 and 128,
+   plain, window, dropout) must show HGMMA and UTMALDG and no HMMA in the
    library's SASS (``cuobjdump -sass``), printed with its registers and
-   stack (``cuobjdump -res-usage``), tile, shared memory and CTAs a SM;
+   stack (``cuobjdump -res-usage``; K4/K5 must have none), tiles, ring
+   stages, shared memory and CTAs a SM;
 3. kernels: each kernel and mode against its plain PyTorch version on the
    card, at the shapes the main paths give it, with kernel, plain and
    library times and the card's bound: K1 (flash forward, its lse, and its
@@ -35,6 +37,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    then K1's table: each bf16 mode of PERF.md's table and the training
    geometry B2 S4096 Hq32/Hkv8 D128 causal with lse, by CUDA events and by
    the graph fit, beside SDPA timed both ways, the bound and the share;
+   the bf16 K4/K5's edges (every Sq != Skv among 1, 127, 129, 300 at D 64
+   and 128, GQA 12/4 and 32/8 through the autograd Function, window rows
+   with no key, dropout 0.1; dq, dk, dv against the plain backward, two
+   launches bit-identical) and the K4/K5 table (K4, K5 and di + K4 + K5 by
+   CUDA events and the graph fit beside SDPA's backward both ways, the
+   pair's bound and share: B4 S2048 H12, GPT-2 medium's B8 S1024 H16,
+   dropout 0.1, window (-255, 0), B1 S8192, and B2 S4096 Hq32/Hkv8 D128
+   through the autograd Function with the GQA repeat and sum's share);
 4. roofline: the card's record (``hardware.detection``), K9/K10 (HBM read
    and copy) bit for bit and K11 (exp) and K12 (the softmax stream, both
    modes) within their bounds against their plain versions; then, as a
@@ -160,6 +170,8 @@ _FWD = "photonic_flash_attention_tpu_torch/csrc/flash_fwd.cu"
 _FWD90 = "photonic_flash_attention_tpu_torch/csrc/flash_fwd_sm90.cu"
 _PAGED = "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu"
 _BWD = "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu"
+#: K4/K5's bf16 kernels (every mode the main paths run); fp32 stays in _BWD.
+_BWD90 = "photonic_flash_attention_tpu_torch/csrc/flash_bwd_sm90.cu"
 _QUANT = "photonic_flash_attention_tpu_torch/csrc/flash_quant.cu"
 _ROWNORM = "photonic_flash_attention_tpu_torch/csrc/rownorm.cu"
 _PROBES = "photonic_flash_attention_tpu_torch/csrc/probes.cu"
@@ -169,13 +181,13 @@ _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
 SOURCES = {
     "pfa_flash_fwd_dropout": _FWD90,
-    "pfa_flash_bwd_dkv_dropout": _BWD,
-    "pfa_flash_bwd_dq_dropout": _BWD,
+    "pfa_flash_bwd_dkv_dropout": _BWD90,
+    "pfa_flash_bwd_dq_dropout": _BWD90,
     "pfa_flash_fwd_relbias_lse": _FWD90,
     "pfa_flash_fwd_alibi_lse": _FWD90,
     "pfa_flash_fwd_window": _FWD90,
-    "pfa_flash_bwd_dkv_window": _BWD,
-    "pfa_flash_bwd_dq_window": _BWD,
+    "pfa_flash_bwd_dkv_window": _BWD90,
+    "pfa_flash_bwd_dq_window": _BWD90,
     "pfa_flash_fwd_relbias": _FWD90,
     "pfa_flash_fwd_alibi": _FWD90,
     "pfa_flash_fwd_densebias": _FWD90,
@@ -186,8 +198,8 @@ SOURCES = {
     "pfa_paged_decode_attend": _PAGED,
     "pfa_paged_hf": _PAGED,
     "pfa_paged_hf_int8": _PAGED,
-    "pfa_flash_bwd_dkv": _BWD,
-    "pfa_flash_bwd_dq": _BWD,
+    "pfa_flash_bwd_dkv": _BWD90,
+    "pfa_flash_bwd_dq": _BWD90,
     "pfa_flash_fwd_int8qk": _FWD,
     "pfa_flash_fwd_fp8qk": _FWD,
     "pfa_flash_fwd_int8full": _FWD,
@@ -426,13 +438,21 @@ def phase_build() -> None:
     path = _build.build()
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}", flush=True)
-    check_k1_sass(path)
+    t0 = time.perf_counter()
+    counts, usage = sm90_sass(path)
+    check_k1_sass(counts, usage)
+    check_bwd_sass(counts, usage)
+    print(f"K1 SASS, K4/K5 SASS: checked in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 #: K1's bf16 kernel in the library: one instantiation per head dim and mode
 #: (csrc/flash_fwd_sm90.cuh::K1Mode, in this order).
 K1_SM90 = re.compile(r"flash_fwd_sm90ILi(\d+)ELi(\d)E")
 K1_MODES = ("plain", "streams", "rel", "dense", "window", "dropout")
+#: K4's and K5's bf16 kernels: one instantiation per kernel, head dim and
+#: stream mode (csrc/flash_bwd_sm90.cuh::StreamMode, in this order).
+BWD_SM90 = re.compile(r"flash_bwd_(dkv|dq)_sm90ILi(\d+)ELi(\d)E")
+BWD_MODES = ("plain", "window", "dropout")
 
 
 def _cuobjdump(flag: str, path: Path) -> str:
@@ -440,21 +460,24 @@ def _cuobjdump(flag: str, path: Path) -> str:
                           text=True).stdout
 
 
-def check_k1_sass(path: Path) -> None:
-    """Proof that every bf16 K1 instantiation is the Hopper design: in the
-    built library's SASS (``cuobjdump -sass``) each must hold HGMMA
-    (wgmma) and UTMALDG (TMA loads) and no HMMA (mma.sync). Prints each
-    one's counts, its registers and stack bytes (``cuobjdump
-    -res-usage``; stack = spills) and, from the kernel's own constants,
-    keys a tile, dynamic shared memory, threads and CTAs a SM."""
-    import ctypes
+def _sm90_key(name: str):
+    """("K1" | "K4" | "K5", D, mode) of a Hopper kernel instantiation's name."""
+    if m := K1_SM90.search(name):
+        return "K1", int(m.group(1)), int(m.group(2))
+    if m := BWD_SM90.search(name):
+        return "K4" if m.group(1) == "dkv" else "K5", int(m.group(2)), int(m.group(3))
+    return None
 
-    t0 = time.perf_counter()
+
+def sm90_sass(path: Path) -> tuple:
+    """Every Hopper instantiation's HGMMA (wgmma), UTMALDG (TMA load) and
+    HMMA (mma.sync) counts in the built library's SASS (``cuobjdump
+    -sass``) and its registers, stack, shared and local bytes (``cuobjdump
+    -res-usage``; stack = spills), keyed by ``_sm90_key``."""
     counts, cur = {}, None
     for line in _cuobjdump("-sass", path).splitlines():
         if "Function :" in line:
-            m = K1_SM90.search(line)
-            cur = (int(m.group(1)), int(m.group(2))) if m else None
+            cur = _sm90_key(line)
             if cur:
                 counts[cur] = collections.Counter()
         elif cur:
@@ -463,19 +486,29 @@ def check_k1_sass(path: Path) -> None:
     usage = {}
     for m in re.finditer(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
                          _cuobjdump("-res-usage", path)):
-        k = K1_SM90.search(m.group(1))
-        if k:
-            usage[(int(k.group(1)), int(k.group(2)))] = tuple(int(x) for x in m.groups()[1:])
-    want = {(d, mode) for d in (64, 128) for mode in range(len(K1_MODES))}
-    if set(counts) != want:
-        raise AssertionError(f"K1 SASS: bf16 instantiations {sorted(counts)}, want {sorted(want)}")
-    for d, mode in sorted(want):
-        c = counts[(d, mode)]
+        if key := _sm90_key(m.group(1)):
+            usage[key] = tuple(int(x) for x in m.groups()[1:])
+    return counts, usage
+
+
+def check_k1_sass(counts: dict, usage: dict) -> None:
+    """Proof that every bf16 K1 instantiation is the Hopper design: each
+    must hold HGMMA and UTMALDG and no HMMA. Prints each one's counts, its
+    registers and stack bytes and, from the kernel's own constants, keys a
+    tile, dynamic shared memory, threads and CTAs a SM."""
+    import ctypes
+
+    want = {("K1", d, mode) for d in (64, 128) for mode in range(len(K1_MODES))}
+    got = {key for key in counts if key[0] == "K1"}
+    if got != want:
+        raise AssertionError(f"K1 SASS: bf16 instantiations {sorted(got)}, want {sorted(want)}")
+    for _, d, mode in sorted(want):
+        c = counts[("K1", d, mode)]
         info = (ctypes.c_int * 7)()
         err = _build.lib().pfa_k1_sm90_info(d, mode, info)
         if err:
             raise RuntimeError(f"pfa_k1_sm90_info: CUDA error {err}")
-        reg = usage.get((d, mode))
+        reg = usage.get(("K1", d, mode))
         line = (f"K1 SASS D{d} {K1_MODES[mode]}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}, "
                 f"HMMA {c['HMMA']}; " + (f"registers {reg[0]} at launch (setmaxnreg: producer "
                                          f"{info[5]}, consumers {info[6]}), stack {reg[1]} B, "
@@ -486,7 +519,39 @@ def check_k1_sass(path: Path) -> None:
         if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
             raise AssertionError(f"{line}: the bf16 kernel must run on wgmma and TMA only")
         print(line, flush=True)
-    print(f"K1 SASS: checked in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def check_bwd_sass(counts: dict, usage: dict) -> None:
+    """The same proof for K4 and K5: every bf16 instantiation (D 64 and
+    128, each stream mode) must hold HGMMA and UTMALDG, no HMMA, and no
+    stack (no spills). Prints the counts, registers, stack and local bytes
+    and, from ``pfa_bwd_sm90_info``, the work tile, the ring's tile and
+    stages, shared memory, threads and CTAs a SM."""
+    import ctypes
+
+    want = {(k, d, mode) for k in ("K4", "K5") for d in (64, 128) for mode in range(len(BWD_MODES))}
+    got = {key for key in counts if key[0] in ("K4", "K5")}
+    if got != want:
+        raise AssertionError(f"K4/K5 SASS: bf16 instantiations {sorted(got)}, want {sorted(want)}")
+    rows = {"K4": ("key", "query"), "K5": ("query", "key")}
+    for kern, d, mode in sorted(want):
+        c = counts[(kern, d, mode)]
+        info = (ctypes.c_int * 16)()
+        err = _build.lib().pfa_bwd_sm90_info(d, mode, info)
+        if err:
+            raise RuntimeError(f"pfa_bwd_sm90_info: CUDA error {err}")
+        i = info[0:8] if kern == "K4" else info[8:16]
+        reg = usage.get((kern, d, mode))
+        line = (f"K4/K5 SASS {kern} D{d} {BWD_MODES[mode]}: HGMMA {c['HGMMA']}, UTMALDG "
+                f"{c['UTMALDG']}, HMMA {c['HMMA']}; " +
+                (f"registers {reg[0]} at launch (setmaxnreg: producer {i[6]}, consumers {i[7]}), "
+                 f"stack {reg[1]} B, local {reg[3]} B" if reg else "cuobjdump -res-usage: no entry") +
+                f"; {i[0]}-{rows[kern][0]} work tiles, {i[1]}-{rows[kern][1]} ring tiles, {i[5]} "
+                f"stages, {i[2]} B shared, {i[3]} threads, {i[4]} CTA(s) a SM")
+        if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"] or not reg or reg[1] or reg[3]:
+            raise AssertionError(f"{line}: the bf16 kernel must run on wgmma and TMA only, "
+                                 "with no stack")
+        print(line, flush=True)
 
 
 def check_flash(results: dict) -> None:
@@ -1621,6 +1686,195 @@ def time_k1_modes(results: dict, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+def check_bwd_edges() -> None:
+    """K4 and K5's bf16 bodies at their edges against the plain backward
+    (1e-2 rel_err_norm on dq, dk and dv), each launch under its mode's
+    counters, and every case launched twice on the same inputs with
+    bit-identical dq, dk and dv (two kernels, no atomics): every (Sq, Skv)
+    pair of EDGE_LENGTHS with Sq != Skv at D 64 and 128, causal where Sq <
+    Skv; GQA 12/4 and 32/8 through flash_attention's autograd (K1 with lse,
+    the GQA repeat, K4/K5, the group sum) against the plain versions with
+    the same repeat and sum; window rows that see no key (their dq 0); a
+    causal window at Sq < Skv; dropout 0.1 (the plain version fed the same
+    seed). With one key (Skv 1) and no dropout, o = V[0] exactly, P = 1 and
+    dP = di up to fp32 rounding, so the exact dq and dk are 0 and both
+    sides hold only that rounding: there they must stay below 1e-3 of dv's
+    norm instead."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    cases = [(f"ragged Sq{sq} Skv{skv}", 2, sq, skv, 4, 4, d, sq < skv, {})
+             for sq in EDGE_LENGTHS for skv in EDGE_LENGTHS if sq != skv for d in (64, 128)]
+    cases += [  # (label, B, Sq, Skv, Hq, Hkv, D, causal, streams)
+        ("GQA 12/4 (autograd)", 2, 300, 300, 12, 4, 64, True, {}),
+        ("GQA 32/8 (autograd)", 1, 513, 513, 32, 8, 128, True, {}),
+        ("window (-20, -5): rows 0-4 see no key", 2, 300, 300, 4, 4, 64, False,
+         dict(window=(-20, -5))),
+        ("window (-20, -5): rows 0-4 see no key", 2, 300, 300, 4, 4, 128, False,
+         dict(window=(-20, -5))),
+        ("window (-40, 0) causal", 2, 129, 300, 4, 4, 128, True, dict(window=(-40, 0))),
+        ("dropout 0.1", 2, 300, 300, 4, 4, 64, True, dict(dropout_rate=0.1, dropout_seed=77)),
+        ("dropout 0.1", 1, 129, 301, 8, 8, 128, False, dict(dropout_rate=0.1, dropout_seed=5)),
+    ]
+    for label, b, sq, skv, hq, hkv, d, causal, streams in cases:
+        q, do = (torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        mode = ("dropout" if "dropout_rate" in streams else "window" if "window" in streams
+                else None)
+        names = [f"pfa_flash_bwd_{n}" + (f"_{mode}" if mode else "") for n in ("dkv", "dq")]
+        before = [_build.LAUNCHES[n] for n in names]
+        if hq != hkv:
+            want, _ = _plain_grads(q, k, v, do, causal)
+
+            def run():
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                return torch.autograd.grad(flash_ops.flash_attention(*leaves, causal=causal),
+                                           leaves, do)
+        else:
+            o, lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal, **streams)
+            kw = dict(sm_scale=d ** -0.5, causal=causal, **streams)
+            want = bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+
+            def run():
+                return bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, g) for a, g in zip(again, got))
+        if skv == 1 and "dropout_rate" not in streams:  # the exact dq and dk are 0
+            dv_norm = float(torch.linalg.norm(want[2].float()))
+            errs = [float(torch.linalg.norm(g.float())) / dv_norm / 0.1 for g in got[:2]]
+            errs.append(rel_err_norm(got[2], want[2]))
+            what = "|dq|, |dk| / (0.1 |dv|)"
+        else:
+            errs = [rel_err_norm(g, w) for g, w in zip(got, want)]
+            what = "rel_err_norm"
+        line = (f"K4/K5 edge {label} B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} bf16 causal={causal}: "
+                f"{what} dq {errs[0]:.3e} dk {errs[1]:.3e}, rel_err_norm dv {errs[2]:.3e} (bound "
+                f"1e-2); two launches bit-identical: {same}")
+        if (max(errs) > 1e-2 or not same or not all(torch.isfinite(g).all() for g in got)
+                or [_build.LAUNCHES[n] for n in names] != [n + 2 for n in before]
+                or ("window" in streams and sq == skv and (got[0][:, :5] != 0).any())):
+            raise AssertionError(line)
+        print(line, flush=True)
+
+
+def _sdpa_bwd_calls(q, k, v, do, **kw) -> tuple:
+    """SDPA's backward as timed calls, on (B, S, H, D) inputs in its (B, H,
+    S, D) layout, K/V repeated over a GQA group (outside any timing), from
+    one forward: torch.autograd.grad of its output (for CUDA events), and
+    its autograd node called directly, i.e. the aten backward op on the
+    forward's saved outputs (for the graph fit: autograd's engine cannot be
+    captured into a CUDA graph here), with the node's name (the backend)."""
+    import torch.nn.functional as F
+
+    group = q.shape[2] // k.shape[2]
+    leaves = [t.repeat_interleave(n, dim=2).transpose(1, 2).contiguous().requires_grad_()
+              for t, n in ((q, 1), (k, group), (v, group))]
+    g = do.transpose(1, 2).contiguous()
+    out = F.scaled_dot_product_attention(*leaves, **kw)
+    node = out.grad_fn
+    if not node.name().startswith("ScaledDotProduct"):
+        raise RuntimeError(f"SDPA's output comes from {node.name()}, not its backward node")
+    return (lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), lambda: node(g),
+            node.name())
+
+
+def _fit_ms(fn) -> float:
+    """The graph fit of one call, ms (the K1 table's fit)."""
+    return fit_seconds(fn, K1_TABLE_FIT, torch.device("cuda")) * 1e3
+
+
+def _both_ms(fn) -> tuple:
+    """(CUDA-event median, graph fit) of one call, ms."""
+    return median_ms(fn), _fit_ms(fn)
+
+
+def time_bwd_modes(results: dict, smi: str) -> None:
+    """The K4/K5 table: K4 alone, K5 alone, di = rowsum(o * dO) (plain
+    PyTorch) and the whole flash_attention_bwd (di + K4 + K5), each by CUDA
+    events and by the graph fit, beside SDPA's
+    backward (events around torch.autograd.grad; the fit of its autograd
+    node called directly, the aten backward op on the forward's saved
+    outputs), the pair's bound (K4's + K5's) and
+    its share of it: plain B4 S2048 H12 D64 causal (the headline), GPT-2
+    medium's training geometry B8 S1024 H16, dropout 0.1 (SDPA draws its
+    own mask), window (-255, 0) (SDPA with the band mask), B1 S8192 H12,
+    and B2 S4096 Hq32/Hkv8 D128 causal through the autograd Function, whose
+    backward (the GQA repeat, di + K4 + K5, the group sum) is timed too, so
+    that the repeat and sum show as their own share."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=DROPOUT_SEED)
+    rows = [  # (name, B, S, Hq, Hkv, D, streams)
+        ("plain B4 S2048 H12 D64 causal", 4, 2048, 12, 12, 64, {}),
+        ("GPT-2 medium training B8 S1024 H16 D64 causal", 8, 1024, 16, 16, 64, {}),
+        ("dropout 0.1, B4 S2048 H12 D64 causal", 4, 2048, 12, 12, 64, drop),
+        ("window (-255, 0), B4 S2048 H12 D64 causal", 4, 2048, 12, 12, 64, dict(window=(-255, 0))),
+        ("B1 S8192 H12 D64 causal", 1, 8192, 12, 12, 64, {}),
+        ("B2 S4096 Hq32/Hkv8 D128 causal, through the autograd Function", 2, 4096, 32, 8, 128, {}),
+    ]
+    table = []
+    for name, b, s, hq, hkv, d, streams in rows:
+        q, do = (torch.randn(b, s, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        group = hq // hkv
+        kr, vr = (t.repeat_interleave(group, dim=2) for t in (k, v))
+        o, lse = flash_ops._fwd_with_lse(q, k, v, True, d ** -0.5, **streams)
+        di = bwd_ops.flash_bwd_di(o, do)
+        kw = dict(sm_scale=d ** -0.5, causal=True, **streams)
+        row = dict(name=name)
+        row["k4_ms"], row["k4_fit_ms"] = _both_ms(lambda: bwd_ops.flash_bwd_dkv(q, kr, vr, do, lse,
+                                                                                 di, **kw))
+        row["k5_ms"], row["k5_fit_ms"] = _both_ms(lambda: bwd_ops.flash_bwd_dq(q, kr, vr, do, lse,
+                                                                                di, **kw))
+        row["di_ms"], row["di_fit_ms"] = _both_ms(lambda: bwd_ops.flash_bwd_di(o, do))
+        row["bwd_ms"], row["bwd_fit_ms"] = _both_ms(
+            lambda: bwd_ops.flash_attention_bwd(q, kr, vr, o, lse, do, **kw))
+        if "window" in streams:
+            lib_kw, lib_name = dict(attn_mask=_band_mask(s, s, True, streams["window"])), "band mask"
+        elif "dropout_rate" in streams:
+            lib_kw, lib_name = dict(is_causal=True, dropout_p=DROPOUT_RATE), "dropout_p=0.1, its own mask"
+        else:
+            lib_kw, lib_name = dict(is_causal=True), "causal"
+        bwd_alone, bwd_node, node_name = _sdpa_bwd_calls(q, k, v, do, **lib_kw)
+        row["sdpa_ms"], row["sdpa_fit_ms"] = median_ms(bwd_alone), _fit_ms(bwd_node)
+        lib_name += f"; {node_name}"
+        extra = ""
+        if group > 1:
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = flash_ops.flash_attention(*leaves, causal=True)
+            row["autograd_ms"] = median_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                                       retain_graph=True))
+            # The Function's backward called on its saved tensors, as SDPA's node.
+            row["autograd_fit_ms"] = _fit_ms(lambda: out.grad_fn.apply(do))
+            share = 1 - row["bwd_fit_ms"] / row["autograd_fit_ms"]
+            extra = (f"; the autograd Function's backward {row['autograd_ms']:.4f} / "
+                     f"{row['autograd_fit_ms']:.4f} ms, the GQA repeat and group sum "
+                     f"{100 * share:.1f} % of it (fit)")
+        meta = torch.empty(b, s, hq, d, device="meta", dtype=torch.bfloat16)
+        bnd_dkv, bnd_dq = bwd_bounds(meta, meta, True, streams.get("window"))
+        row["bound_ms"] = bnd_dkv["bound_ms"] + bnd_dq["bound_ms"]
+        by = "operations" if "operations" in (bnd_dkv["bound_by"], bnd_dq["bound_by"]) else "bytes"
+        table.append(row)
+        print(f"K4/K5 table: {name}: K4 {row['k4_ms']:.4f} / {row['k4_fit_ms']:.4f} ms, K5 "
+              f"{row['k5_ms']:.4f} / {row['k5_fit_ms']:.4f} ms, di (PyTorch) {row['di_ms']:.4f} / "
+              f"{row['di_fit_ms']:.4f} ms, di + K4 + K5 {row['bwd_ms']:.4f} / "
+              f"{row['bwd_fit_ms']:.4f} ms (CUDA events / graph fit); SDPA backward ({lib_name}) "
+              f"{row['sdpa_ms']:.4f} / {row['sdpa_fit_ms']:.4f} ms; (di + K4 + K5) / SDPA "
+              f"{row['bwd_ms'] / row['sdpa_ms']:.3f} (events), {row['bwd_fit_ms'] / row['sdpa_fit_ms']:.3f} "
+              f"(fit); the pair's bound {row['bound_ms']:.4f} ms ({by}; K4 {bnd_dkv['bound_ms']:.4f}, "
+              f"K5 {bnd_dq['bound_ms']:.4f}), di + K4 + K5 at {100 * row['bound_ms'] / row['bwd_ms']:.2f} % "
+              f"(events), {100 * row['bound_ms'] / row['bwd_fit_ms']:.2f} % (fit) of it{extra} ({smi})",
+              flush=True)
+        del q, k, v, do, kr, vr, o, lse, di
+        torch.cuda.empty_cache()
+    for counter, row in (("pfa_flash_bwd_dkv", table[0]), ("pfa_flash_bwd_dkv_dropout", table[2])):
+        results[counter]["fit_ms"] = row["k4_fit_ms"]
+        results[counter.replace("dkv", "dq")]["fit_ms"] = row["k5_fit_ms"]
+    results["k45_table"] = table
+
+
 def phase_kernels(smi: str) -> dict:
     results = {name: {} for name in SOURCES}
     check_flash(results)
@@ -1640,6 +1894,8 @@ def phase_kernels(smi: str) -> dict:
     check_flash_rel_lse(results)
     check_k1_edges()
     time_k1_modes(results, smi)
+    check_bwd_edges()
+    time_bwd_modes(results, smi)
     return results
 
 

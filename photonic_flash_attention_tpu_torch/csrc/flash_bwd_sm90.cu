@@ -1,0 +1,803 @@
+// K4 (dK/dV) and K5 (dQ) in bf16: the flash-attention backward redesigned
+// for Hopper (sm_90a): TMA loads, wgmma products, warp specialisation and a
+// persistent grid, one body per kernel for every stream mode (plain,
+// window, dropout).
+//
+// Replaces the TPU kernels photonic_flash_attention_tpu/ops/flash_bwd.py::
+// _dkv_kernel and _dq_kernel (the grid pair) and _dkv_kernel_unrolled and
+// _dq_kernel_unrolled (the unrolled pair) in bf16 (the contract and the
+// maths: flash_bwd.cu's header). It takes the place of the first slice's
+// mma.sync bodies (4 warps of 16 rows, synchronous 16-byte loads, the
+// predicate on every score), whose times PERF.md keeps.
+//
+// What bounds it on the H100: K4 runs 4 products a (query, key) pair and K5
+// 3, D multiply-adds each, against one exp (and with dropout one hash) a
+// pair: far above the bf16 ridge at S ~ 1k-8k, so the tensor cores are the
+// limit. The design follows K1 (flash_fwd_sm90.cu), with two kernels and no
+// atomics, so dq, dk and dv are deterministic:
+// * A CTA is three warpgroups: two consumers of 64 rows each (128 rows a
+//   work tile) and one producer, whose first warp issues every load by TMA
+//   (a CUtensorMap per tensor over the (D, H, S, B) layout, 128-byte
+//   swizzle, one head and 64 columns a box) into a ring of mbarrier stages.
+//   setmaxnreg gives the producer 24 registers and the consumers 240.
+// * K5 (dQ): a work tile is 128 query rows of one (batch row, head). Q and
+//   dO arrive once a work tile (double-buffered), K and V once a key tile
+//   through the ring; lse (in log2 units) and di of a thread's two rows sit
+//   in registers. S = Q K^T and dP = dO V^T are SS wgmma (K-major); dS =
+//   P (dP - di) scale, rounded to bf16 in the accumulator layout, is the A
+//   operand of dQ += dS K, an RS wgmma that reads the same K stage as an
+//   MN-major B operand. Tile j's SS products are issued ahead of tile j-1's
+//   RS product, so tile j's elementwise step runs while dQ's product does.
+// * K4 (dK/dV) works in the transposed domain of the JAX kernel: a work
+//   tile is 128 keys, whose K and V arrive once (double-buffered where they
+//   fit); Q, dO and the query tile's lse and di (4-byte cp.async tied to
+//   the stage's "full" mbarrier) come through the ring. S^T = K Q^T and
+//   dP^T = V dO^T are SS products; dV += (P^T M) dO and dK += dS^T Q are RS
+//   products with dO and Q MN-major from the stage; dK and dV stay in fp32
+//   registers for the whole query loop. lse and di are indexed by the
+//   column (the query), so they are read from the stage. At D 64 the next
+//   query tile's SS products go ahead of this one's RS products, as in K5;
+//   at D 128 dK and dV alone take 128 registers a thread, so a warpgroup
+//   runs its products in turn (Cfg::OVERLAP) and the other one fills the
+//   gaps.
+// * The two consumer warpgroups take turns at the tensor cores (named
+//   barriers, K1's ping-pong), so one's elementwise step runs under the
+//   other's products. Not with dropout: there the hash makes the
+//   elementwise step the longer one, and the turns only stall it.
+// * Only the tiles that cross the causal diagonal, the ragged last tile
+//   (keys in K5, queries in K4) and the window's edge tiles take the
+//   per-score predicate. Past the ends TMA fills zeros, and the staged lse
+//   and di are 0 there, so a padded query adds nothing to dK/dV and a
+//   padded row of dQ (or dK/dV) is never written.
+// * The grid is persistent: one CTA a SM walks the work tiles in snake
+//   order, heads fastest, the longest first (causal K5: the last query
+//   blocks; causal K4: the first key blocks).
+
+#include <limits.h>
+
+#include "flash_bwd_sm90.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+constexpr int CONSUMERS = 2;  // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 24 + 2 x 240 = 3 x 168
+constexpr int BLOCK = 64 * CONSUMERS;  // rows of a work tile: queries (K5), keys (K4)
+
+// The warpgroups' turns at the tensor cores (see the header).
+template <int MODE>
+constexpr bool PINGPONG = MODE != DROPOUT;
+
+// Whether `bytes` of tiles fit in a CTA's shared memory beside the barriers
+// (at most 12) and the alignment slack: the configs below take the most
+// ring stages (4 to 2) and double buffers that do.
+constexpr bool fits(int bytes) { return bytes + 8 * 12 + 1024 <= SMEM_MAX; }
+
+// K5: the ring carries K and V tiles of BKV keys; Q and dO are per work tile.
+// At D 64, 128 keys keep S, dP, the previous tile's dS and dQ (64 + 64 + 32
+// + 32 registers a thread) under 240 without spilling, but not beside the
+// dropout hash: 64 there. At D 128 (dQ 64 registers) 64 keys.
+template <int D, int MODE>
+struct DqCfg {
+  static constexpr int BKV = D == 128 || MODE == DROPOUT ? 64 : 128;
+  static constexpr int HALVES = D / 64;         // 128-byte column boxes a row
+  static constexpr int QO_BYTES = BLOCK * D * 2;  // Q or dO of a work tile
+  static constexpr int KV_BYTES = BKV * D * 2;    // K or V, one stage
+  static constexpr int QBUF = fits(4 * QO_BYTES + 4 * KV_BYTES) ? 2 : 1;
+  static constexpr int STAGES = fits(2 * QBUF * QO_BYTES + 8 * KV_BYTES)   ? 4
+                                : fits(2 * QBUF * QO_BYTES + 6 * KV_BYTES) ? 3
+                                                                           : 2;
+  static constexpr int OFF_Q = 0;  // every offset a multiple of 1024
+  static constexpr int OFF_DO = OFF_Q + QBUF * QO_BYTES;
+  static constexpr int OFF_K = OFF_DO + QBUF * QO_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  static constexpr int SMEM = OFF_BAR + 8 * (2 * STAGES + 2 * QBUF) + 1024;
+};
+
+// K4: the ring carries Q and dO tiles of BQ queries and their lse and di;
+// K and V are per work tile.
+template <int D>
+struct DkvCfg {
+  static constexpr int BQ = 64;  // 128 spills at D 64, 32 is slower at D 128
+  static constexpr bool OVERLAP = D == 64;  // at D 128 the overlap spills
+  static constexpr int HALVES = D / 64;
+  static constexpr int KV_BYTES = BLOCK * D * 2;  // K or V of a work tile
+  static constexpr int QO_BYTES = BQ * D * 2;     // Q or dO, one stage
+  static constexpr int VEC_BYTES = 2 * BQ * 4;    // lse and di, one stage
+  static constexpr int STAGE_BYTES = 2 * QO_BYTES + VEC_BYTES;
+  static constexpr int KVBUF = fits(4 * KV_BYTES + 2 * STAGE_BYTES) ? 2 : 1;
+  static constexpr int STAGES = fits(2 * KVBUF * KV_BYTES + 4 * STAGE_BYTES)   ? 4
+                                : fits(2 * KVBUF * KV_BYTES + 3 * STAGE_BYTES) ? 3
+                                                                               : 2;
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = OFF_K + KVBUF * KV_BYTES;
+  static constexpr int OFF_Q = OFF_V + KVBUF * KV_BYTES;
+  static constexpr int OFF_DO = OFF_Q + STAGES * QO_BYTES;
+  static constexpr int OFF_VEC = OFF_DO + STAGES * QO_BYTES;
+  static constexpr int OFF_BAR = OFF_VEC + STAGES * VEC_BYTES;
+  static constexpr int SMEM = OFF_BAR + 8 * (2 * STAGES + 2 * KVBUF) + 1024;
+};
+
+struct Params {
+  __nv_bfloat16 *out0, *out1;  // K5: dq; K4: dk, dv
+  const float *lse, *di;       // (B, H, Sq)
+  int B, Sq, Skv, H;
+  int n_work;  // work tiles: 128-row blocks x H x B
+  float scale, scale_log2;
+  int causal;
+  Streams st;
+};
+
+// --- K5: dQ ---------------------------------------------------------------------
+
+struct DqWork {
+  int h, b, q0, kv_begin, n_tiles;
+};
+
+// Work tile t: heads fastest, then batch rows, then query blocks, the last
+// (longest) causal block first; its key tiles are the band its rows see.
+template <int BKV, int MODE>
+__device__ __forceinline__ DqWork dq_work(const Params& p, int t) {
+  DqWork w;
+  const int nqb = (p.Sq + BLOCK - 1) / BLOCK;
+  w.h = t % p.H;
+  const int r = t / p.H;
+  w.b = r % p.B;
+  const int i = r / p.B;
+  w.q0 = (p.causal ? nqb - 1 - i : i) * BLOCK;
+  const int off = p.Skv - p.Sq;
+  w.kv_begin = MODE == WINDOW ? band_kv_begin(p.st, w.q0, off, BKV) : 0;
+  const int kv_end = band_kv_end(p.st, w.q0, BLOCK, off, p.causal, p.Skv);
+  w.n_tiles = kv_end > w.kv_begin ? (kv_end - w.kv_begin + BKV - 1) / BKV : 0;
+  return w;
+}
+
+// One key tile's dS in place of S (fp32, accumulator layout): P = ex2(s *
+// scale * log2 e - lse * log2 e), zero where MASKED finds the key invalid
+// (a select, so a row with lse = -inf gives 0), times (dP M - di) scale.
+template <int BKV, int MODE, bool MASKED>
+__device__ __forceinline__ void dq_scores(float* s, const float* dp, const float (&nl)[2],
+                                          const float (&di)[2], const Params& p, int kv0, int row0,
+                                          int t4, int off, uint32_t bh) {
+#pragma unroll
+  for (int i = 0; i < BKV / 2; ++i) {
+    const int r = (i >> 1) & 1, row = row0 + 8 * r, col = kv0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+    float pr = ex2(fmaf(s[i], p.scale_log2, nl[r]));
+    if constexpr (MASKED) {
+      const bool ok = col < p.Skv && (!p.causal || col <= row + off) &&
+                      (MODE != WINDOW || p.st.in_window(col - row - off));
+      if (!ok) pr = 0.f;
+    }
+    float d = dp[i];
+    if constexpr (MODE == DROPOUT) d *= dropout_mult(p.st, bh, row, col, p.Skv);
+    s[i] = pr * (d - di[r]) * p.scale;
+  }
+}
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                  const Params p) {
+  using C = DqCfg<D, MODE>;
+  constexpr int BKV = C::BKV, STAGES = C::STAGES, QBUF = C::QBUF;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024-byte aligned
+  const uint32_t bar_full = base + C::OFF_BAR, bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_qfull = bar_empty + 8 * STAGES, bar_qempty = bar_qfull + 8 * QBUF;
+  const int n_work = p.n_work, off = p.Skv - p.Sq;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS * 4);  // one arrival a consumer warp
+    }
+    for (int s = 0; s < QBUF; ++s) {
+      mbar_init(bar_qfull + 8 * s, 1);
+      mbar_init(bar_qempty + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp-uniform in the compiler's eyes (a shuffled value): ptxas must see
+  // the roles' branches, and the wgmma in them, as uniform.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x / 32) % 4, 0), lane = threadIdx.x % 32;
+  if (wg == CONSUMERS) {
+    // --- producer: its first warp issues every load -------------------------
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp != 0) return;
+    int it = 0;  // key tiles loaded so far, over all work tiles
+    for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
+      const int t = snake_tile(n);
+      if (t >= n_work) continue;  // the last round only
+      const DqWork w = dq_work<BKV, MODE>(p, t);
+      const int qb = n % QBUF;
+      const uint32_t qf = bar_qfull + 8 * qb;
+      mbar_wait(bar_qempty + 8 * qb, ((n / QBUF) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(qf, 2 * C::QO_BYTES);
+        for (int r = 0; r < CONSUMERS; ++r)
+          for (int hf = 0; hf < C::HALVES; ++hf) {
+            const uint32_t box = qb * C::QO_BYTES + (r * C::HALVES + hf) * BOX_BYTES;
+            tma_load_4d(base + C::OFF_Q + box, &tm_q, qf, hf * 64, w.h, w.q0 + r * 64, w.b);
+            tma_load_4d(base + C::OFF_DO + box, &tm_do, qf, hf * 64, w.h, w.q0 + r * 64, w.b);
+          }
+      }
+      for (int j = 0; j < w.n_tiles; ++j, ++it) {
+        const int s = it % STAGES, kv0 = w.kv_begin + j * BKV;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_wait(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * C::KV_BYTES);
+          for (int hf = 0; hf < C::HALVES; ++hf) {
+            const uint32_t at = s * C::KV_BYTES + hf * BKV * 128;
+            tma_load_4d(base + C::OFF_K + at, &tm_k, full, hf * 64, w.h, kv0, w.b);
+            tma_load_4d(base + C::OFF_V + at, &tm_v, full, hf * 64, w.h, kv0, w.b);
+          }
+        }
+      }
+    }
+  } else {
+    // --- consumers: 64 query rows each -----------------------------------------
+    setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int NS = BKV / 2, ND = D / 2;  // accumulator floats a thread
+    const int g = lane / 4, t4 = lane % 4;
+    // Ping-pong: the warpgroups take turns to issue their products (named
+    // barrier 1 + wg is this one's turn); warpgroup 0 goes first in each work
+    // tile, and warpgroup 1's last turn hands nothing on.
+    auto turn_begin = [&] {
+      if (PINGPONG<MODE>) named_bar_sync(1 + wg, 2 * 128);
+    };
+    auto turn_end = [&](bool last) {
+      if (PINGPONG<MODE> && (wg == 0 || !last)) named_bar_arrive(2 - wg, 2 * 128);
+    };
+    auto release = [&](uint32_t bar) {  // this warp is done with what `bar` guards
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    float s[NS], dp[NS], dq[ND];
+    uint32_t da[BKV / 16][4];
+    int it = 0;  // key tiles consumed so far, over all work tiles
+    for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
+      const int t = snake_tile(n);
+      if (t >= n_work) continue;
+      const DqWork w = dq_work<BKV, MODE>(p, t);
+      const int qb = n % QBUF, nt = w.n_tiles;
+      const int wrow = w.q0 + wg * 64;         // the warpgroup's first row
+      const int row0 = wrow + warp * 16 + g;   // this thread's rows: row0, row0 + 8
+      const uint32_t bh = static_cast<uint32_t>(w.b * p.H + w.h);
+      const uint32_t q_base = base + C::OFF_Q + qb * C::QO_BYTES + wg * C::HALVES * BOX_BYTES;
+      const uint32_t do_base = base + C::OFF_DO + qb * C::QO_BYTES + wg * C::HALVES * BOX_BYTES;
+      float nl[2], di[2];  // -lse * log2 e and di of this thread's rows (0 past Sq)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        const long long at = ((long long)w.b * p.H + w.h) * p.Sq + row;
+        nl[i] = row < p.Sq ? -p.lse[at] * LOG2E : 0.f;
+        di[i] = row < p.Sq ? p.di[at] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < ND; ++i) dq[i] = 0.f;
+      mbar_wait(bar_qfull + 8 * qb, (n / QBUF) & 1);
+      if (PINGPONG<MODE> && wg == 1 && nt > 0) named_bar_arrive(1, 2 * 128);
+
+      auto issue_ss = [&](int k) {  // S and dP of the ring's key tile k
+        const int st = k % STAGES;
+        mbar_wait(bar_full + 8 * st, (k / STAGES) & 1);
+        const uint32_t k_base = base + C::OFF_K + st * C::KV_BYTES;
+        const uint32_t v_base = base + C::OFF_V + st * C::KV_BYTES;
+        turn_begin();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t hf = kk / 4, koff = (kk % 4) * 32;
+          wgmma_ss<BKV>(s, sw128_desc(q_base + hf * BOX_BYTES + koff, 16),
+                        sw128_desc(k_base + hf * BKV * 128 + koff, 16), kk == 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t hf = kk / 4, koff = (kk % 4) * 32;
+          wgmma_ss<BKV>(dp, sw128_desc(do_base + hf * BOX_BYTES + koff, 16),
+                        sw128_desc(v_base + hf * BKV * 128 + koff, 16), kk == 0);
+        }
+        wgmma_commit();
+      };
+      auto issue_rs = [&](int k) {  // dQ += dS K, K (BKV x D) MN-major from the stage
+        const uint32_t k_base = base + C::OFF_K + (k % STAGES) * C::KV_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+          wgmma_rs<D>(dq, da[kk], sw128_desc(k_base + kk * 16 * 128, BKV * 128));
+        wgmma_commit();
+      };
+      auto step = [&](int j) {  // tile j's dS, in s
+        const int kv0 = w.kv_begin + j * BKV;
+        const bool masked = kv0 + BKV > p.Skv ||
+                            (p.causal && kv0 + BKV - 1 > wrow + off) ||
+                            (MODE == WINDOW && (kv0 - (wrow + 63) - off < p.st.lo ||
+                                                kv0 + BKV - 1 - wrow - off > p.st.hi));
+        if (masked)
+          dq_scores<BKV, MODE, true>(s, dp, nl, di, p, kv0, row0, t4, off, bh);
+        else
+          dq_scores<BKV, MODE, false>(s, dp, nl, di, p, kv0, row0, t4, off, bh);
+      };
+
+      // The first tile is peeled off, so no product is issued under a branch.
+      if (nt > 0) {
+        issue_ss(it);
+        turn_end(false);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        step(0);
+        pack_frag<BKV>(da, s);
+      }
+      for (int j = 1; j < nt; ++j) {
+        issue_ss(it + j);
+        issue_rs(it + j - 1);
+        turn_end(false);
+        wgmma_wait<1>();  // tile j's S and dP are in; dQ's product runs on
+        fence_regs(s);
+        fence_regs(dp);
+        step(j);
+        wgmma_wait<0>();
+        fence_regs(dq);
+        release(bar_empty + 8 * ((it + j - 1) % STAGES));
+        pack_frag<BKV>(da, s);  // da was read by the product just finished
+      }
+      if (nt > 0) {  // the last tile's dQ product
+        turn_begin();
+        wgmma_fence();
+        issue_rs(it + nt - 1);
+        turn_end(true);
+        wgmma_wait<0>();
+        fence_regs(dq);
+        release(bar_empty + 8 * ((it + nt - 1) % STAGES));
+      }
+      release(bar_qempty + 8 * qb);
+      it += nt;
+
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        if (row >= p.Sq) continue;
+        __nv_bfloat16* out = p.out0 + (((long long)w.b * p.Sq + row) * p.H + w.h) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) store2(out + 8 * j + 2 * t4, dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+// --- K4: dK, dV -----------------------------------------------------------------
+
+struct DkvWork {
+  int h, b, kv0, q_begin, n_tiles;
+};
+
+// Work tile t: heads fastest, then batch rows, then key blocks, the first
+// (longest under the causal mask) first; its query tiles are those from
+// which its keys are seen.
+template <int BQ>
+__device__ __forceinline__ DkvWork dkv_work(const Params& p, int t) {
+  DkvWork w;
+  w.h = t % p.H;
+  const int r = t / p.H;
+  w.b = r % p.B;
+  w.kv0 = (r / p.B) * BLOCK;
+  const int off = p.Skv - p.Sq;
+  w.q_begin = band_q_begin(p.st, w.kv0, off, p.causal, BQ);
+  const int q_end = band_q_end(p.st, w.kv0, BLOCK, off, p.Sq);
+  w.n_tiles = q_end > w.q_begin ? (q_end - w.q_begin + BQ - 1) / BQ : 0;
+  return w;
+}
+
+// One query tile of the transposed domain in place: s gets P^T M (the dV
+// operand), dp gets dS^T; lse and di come from the stage's vector `vec`
+// at the lane's columns (the queries), staged 0 past Sq.
+template <int BQ, int MODE, bool MASKED>
+__device__ __forceinline__ void dkv_scores(float* s, float* dp, const float* vec, const Params& p,
+                                           int q0, int key0, int t4, int off, uint32_t bh) {
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    const float2 l2 = *reinterpret_cast<const float2*>(vec + c);
+    const float2 d2 = *reinterpret_cast<const float2*>(vec + BQ + c);
+    const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E}, di[2] = {d2.x, d2.y};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * rr + e, key = key0 + 8 * rr, q = q0 + c + e;
+        float pr = ex2(fmaf(s[i], p.scale_log2, nl[e]));
+        if constexpr (MASKED) {
+          const bool ok = q < p.Sq && (!p.causal || key <= q + off) &&
+                          (MODE != WINDOW || p.st.in_window(key - q - off));
+          if (!ok) pr = 0.f;
+        }
+        float d = dp[i];
+        if constexpr (MODE == DROPOUT) {
+          // Transposed: the hash's row is this tile's column (the query).
+          const float m = dropout_mult(p.st, bh, q, key, p.Skv);
+          d *= m;
+          s[i] = pr * m;
+        } else {
+          s[i] = pr;
+        }
+        dp[i] = pr * (d - di[e]) * p.scale;
+      }
+  }
+}
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                   const Params p) {
+  using C = DkvCfg<D>;
+  constexpr int BQ = C::BQ, STAGES = C::STAGES, KVBUF = C::KVBUF;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024-byte aligned
+  const unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_full = base + C::OFF_BAR, bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_kvfull = bar_empty + 8 * STAGES, bar_kvempty = bar_kvfull + 8 * KVBUF;
+  const int n_work = p.n_work, off = p.Skv - p.Sq;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS * 4);
+    }
+    for (int s = 0; s < KVBUF; ++s) {
+      mbar_init(bar_kvfull + 8 * s, 1);
+      mbar_init(bar_kvempty + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x / 32) % 4, 0), lane = threadIdx.x % 32;
+  if (wg == CONSUMERS) {
+    // --- producer --------------------------------------------------------------
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp != 0) return;
+    int it = 0;  // query tiles loaded so far, over all work tiles
+    for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
+      const int t = snake_tile(n);
+      if (t >= n_work) continue;
+      const DkvWork w = dkv_work<BQ>(p, t);
+      const int kb = n % KVBUF;
+      const uint32_t kf = bar_kvfull + 8 * kb;
+      mbar_wait(bar_kvempty + 8 * kb, ((n / KVBUF) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(kf, 2 * C::KV_BYTES);
+        for (int r = 0; r < CONSUMERS; ++r)
+          for (int hf = 0; hf < C::HALVES; ++hf) {
+            const uint32_t box = kb * C::KV_BYTES + (r * C::HALVES + hf) * BOX_BYTES;
+            tma_load_4d(base + C::OFF_K + box, &tm_k, kf, hf * 64, w.h, w.kv0 + r * 64, w.b);
+            tma_load_4d(base + C::OFF_V + box, &tm_v, kf, hf * 64, w.h, w.kv0 + r * 64, w.b);
+          }
+      }
+      const long long vrow = ((long long)w.b * p.H + w.h) * p.Sq;
+      for (int j = 0; j < w.n_tiles; ++j, ++it) {
+        const int s = it % STAGES, q0 = w.q_begin + j * BQ;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_wait(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        const uint32_t vec = base + C::OFF_VEC + s * C::VEC_BYTES;
+        for (int i = lane; i < BQ; i += 32) {
+          const bool ok = q0 + i < p.Sq;
+          const long long at = vrow + (ok ? q0 + i : 0);
+          cp_async4(vec + 4 * i, p.lse + at, ok);
+          cp_async4(vec + 4 * (BQ + i), p.di + at, ok);
+        }
+        cp_async_mbar_arrive(full);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * C::QO_BYTES);
+          for (int hf = 0; hf < C::HALVES; ++hf) {
+            const uint32_t at = s * C::QO_BYTES + hf * BQ * 128;
+            tma_load_4d(base + C::OFF_Q + at, &tm_q, full, hf * 64, w.h, q0, w.b);
+            tma_load_4d(base + C::OFF_DO + at, &tm_do, full, hf * 64, w.h, q0, w.b);
+          }
+        }
+      }
+    }
+  } else {
+    // --- consumers: 64 keys each --------------------------------------------------
+    setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int NS = BQ / 2, ND = D / 2;
+    const int g = lane / 4, t4 = lane % 4;
+    auto turn_begin = [&] {
+      if (PINGPONG<MODE>) named_bar_sync(1 + wg, 2 * 128);
+    };
+    auto turn_end = [&](bool last) {
+      if (PINGPONG<MODE> && (wg == 0 || !last)) named_bar_arrive(2 - wg, 2 * 128);
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    float s[NS], dp[NS], dk[ND], dv[ND];
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    int it = 0;
+    for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
+      const int t = snake_tile(n);
+      if (t >= n_work) continue;
+      const DkvWork w = dkv_work<BQ>(p, t);
+      const int kb = n % KVBUF, nt = w.n_tiles;
+      const int kw = w.kv0 + wg * 64;         // the warpgroup's first key
+      const int key0 = kw + warp * 16 + g;    // this thread's keys: key0, key0 + 8
+      const uint32_t bh = static_cast<uint32_t>(w.b * p.H + w.h);
+      const uint32_t k_base = base + C::OFF_K + kb * C::KV_BYTES + wg * C::HALVES * BOX_BYTES;
+      const uint32_t v_base = base + C::OFF_V + kb * C::KV_BYTES + wg * C::HALVES * BOX_BYTES;
+#pragma unroll
+      for (int i = 0; i < ND; ++i) dk[i] = dv[i] = 0.f;
+      mbar_wait(bar_kvfull + 8 * kb, (n / KVBUF) & 1);
+      if (PINGPONG<MODE> && wg == 1 && nt > 0) named_bar_arrive(1, 2 * 128);
+
+      auto issue_ss = [&](int k) {  // S^T and dP^T of the ring's query tile k
+        const int st = k % STAGES;
+        mbar_wait(bar_full + 8 * st, (k / STAGES) & 1);
+        const uint32_t q_st = base + C::OFF_Q + st * C::QO_BYTES;
+        const uint32_t do_st = base + C::OFF_DO + st * C::QO_BYTES;
+        turn_begin();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t hf = kk / 4, koff = (kk % 4) * 32;
+          wgmma_ss<BQ>(s, sw128_desc(k_base + hf * BOX_BYTES + koff, 16),
+                       sw128_desc(q_st + hf * BQ * 128 + koff, 16), kk == 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t hf = kk / 4, koff = (kk % 4) * 32;
+          wgmma_ss<BQ>(dp, sw128_desc(v_base + hf * BOX_BYTES + koff, 16),
+                       sw128_desc(do_st + hf * BQ * 128 + koff, 16), kk == 0);
+        }
+        wgmma_commit();
+      };
+      auto issue_rs = [&](int k) {  // dV += P^T dO, dK += dS^T Q; dO, Q MN-major
+        const int st = k % STAGES;
+        const uint32_t q_st = base + C::OFF_Q + st * C::QO_BYTES;
+        const uint32_t do_st = base + C::OFF_DO + st * C::QO_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<D>(dv, pa[kk], sw128_desc(do_st + kk * 16 * 128, BQ * 128));
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<D>(dk, da[kk], sw128_desc(q_st + kk * 16 * 128, BQ * 128));
+        wgmma_commit();
+      };
+      auto step = [&](int j, int k) {  // query tile j (ring tile k): P^T M in s, dS^T in dp
+        const int q0 = w.q_begin + j * BQ;
+        const float* vec = reinterpret_cast<const float*>(smem + C::OFF_VEC + (k % STAGES) * C::VEC_BYTES);
+        const bool masked = q0 + BQ > p.Sq || (p.causal && kw + 63 > q0 + off) ||
+                            (MODE == WINDOW && (kw - (q0 + BQ - 1) - off < p.st.lo ||
+                                                kw + 63 - q0 - off > p.st.hi));
+        if (masked)
+          dkv_scores<BQ, MODE, true>(s, dp, vec, p, q0, key0, t4, off, bh);
+        else
+          dkv_scores<BQ, MODE, false>(s, dp, vec, p, q0, key0, t4, off, bh);
+      };
+      auto pack = [&] {
+        pack_frag<BQ>(pa, s);
+        pack_frag<BQ>(da, dp);
+      };
+
+      if constexpr (C::OVERLAP) {
+        if (nt > 0) {
+          issue_ss(it);
+          turn_end(false);
+          wgmma_wait<0>();
+          fence_regs(s);
+          fence_regs(dp);
+          step(0, it);
+          pack();
+        }
+        for (int j = 1; j < nt; ++j) {
+          issue_ss(it + j);
+          issue_rs(it + j - 1);
+          turn_end(false);
+          wgmma_wait<1>();
+          fence_regs(s);
+          fence_regs(dp);
+          step(j, it + j);
+          wgmma_wait<0>();
+          fence_regs(dk);
+          fence_regs(dv);
+          release(bar_empty + 8 * ((it + j - 1) % STAGES));
+          pack();
+        }
+        if (nt > 0) {
+          turn_begin();
+          wgmma_fence();
+          issue_rs(it + nt - 1);
+          turn_end(true);
+          wgmma_wait<0>();
+          fence_regs(dk);
+          fence_regs(dv);
+          release(bar_empty + 8 * ((it + nt - 1) % STAGES));
+        }
+      } else {
+        // Each query tile in turn: S^T and dP^T, the elementwise step, then
+        // dV and dK; two turns a tile.
+        for (int j = 0; j < nt; ++j) {
+          issue_ss(it + j);
+          turn_end(false);
+          wgmma_wait<0>();
+          fence_regs(s);
+          fence_regs(dp);
+          step(j, it + j);
+          pack();
+          turn_begin();
+          wgmma_fence();
+          issue_rs(it + j);
+          turn_end(j == nt - 1);
+          wgmma_wait<0>();
+          fence_regs(dk);
+          fence_regs(dv);
+          release(bar_empty + 8 * ((it + j) % STAGES));
+        }
+      }
+      release(bar_kvempty + 8 * kb);
+      it += nt;
+
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = key0 + 8 * i;
+        if (key >= p.Skv) continue;
+        const long long at = (((long long)w.b * p.Skv + key) * p.H + w.h) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          store2(p.out0 + at + 8 * j + 2 * t4, dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+          store2(p.out1 + at + 8 * j + 2 * t4, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
+// --- host side -------------------------------------------------------------------
+
+// One CTA a SM walks the work tiles.
+cudaError_t grid_size(int n_work, int* grid) {
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  *grid = n_work < sms ? n_work : sms;
+  return e;
+}
+
+// The four bf16 tensor maps over (D, H, S, B): q and dout in boxes of
+// q_rows rows, k and v of kv_rows; and the work tiles (128-row blocks of
+// `rows` rows x H x B).
+cudaError_t prepare(const BwdSm90Args& a, int D, int q_rows, int kv_rows, int rows,
+                    CUtensorMap (&maps)[4], Params& p) {
+  const uint64_t d = D, h = a.H, B = a.B, Sq = a.Sq, Skv = a.Skv;
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint32_t qbox[4] = {64, 1, (uint32_t)q_rows, 1}, kvbox[4] = {64, 1, (uint32_t)kv_rows, 1};
+  if (!encode_4d(&maps[0], bf16, 2, a.q, {d, h, Sq, B}, qbox) ||
+      !encode_4d(&maps[1], bf16, 2, a.k, {d, h, Skv, B}, kvbox) ||
+      !encode_4d(&maps[2], bf16, 2, a.v, {d, h, Skv, B}, kvbox) ||
+      !encode_4d(&maps[3], bf16, 2, a.dout, {d, h, Sq, B}, qbox))
+    return cudaErrorInvalidValue;
+  const long long work = (long long)((rows + BLOCK - 1) / BLOCK) * a.H * a.B;
+  if (work > INT_MAX) return cudaErrorInvalidValue;
+  p = Params{nullptr, nullptr, a.lse, a.di, a.B, a.Sq, a.Skv, a.H, static_cast<int>(work),
+             a.scale, a.scale * LOG2E, a.causal, a.st};
+  return cudaSuccess;
+}
+
+template <typename Kernel>
+cudaError_t run(Kernel kernel, int smem, const CUtensorMap (&maps)[4], const Params& p,
+                cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  int grid = 0;
+  if ((e = grid_size(p.n_work, &grid)) != cudaSuccess) return e;
+  kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+template <int D, int MODE>
+cudaError_t launch_dq(const BwdSm90Args& a, void* dq, cudaStream_t stream) {
+  using C = DqCfg<D, MODE>;
+  CUtensorMap maps[4];
+  Params p;
+  cudaError_t e = prepare(a, D, 64, C::BKV, a.Sq, maps, p);
+  if (e != cudaSuccess) return e;
+  p.out0 = static_cast<__nv_bfloat16*>(dq);
+  return run(flash_bwd_dq_sm90<D, MODE>, C::SMEM, maps, p, stream);
+}
+
+template <int D, int MODE>
+cudaError_t launch_dkv(const BwdSm90Args& a, void* dk, void* dv, cudaStream_t stream) {
+  using C = DkvCfg<D>;
+  CUtensorMap maps[4];
+  Params p;
+  cudaError_t e = prepare(a, D, C::BQ, 64, a.Skv, maps, p);
+  if (e != cudaSuccess) return e;
+  p.out0 = static_cast<__nv_bfloat16*>(dk);
+  p.out1 = static_cast<__nv_bfloat16*>(dv);
+  return run(flash_bwd_dkv_sm90<D, MODE>, C::SMEM, maps, p, stream);
+}
+
+// out[8]: rows a work tile, rows of the ring's tile, dynamic shared memory
+// bytes, threads a CTA, CTAs a SM, ring stages, producer and consumer
+// registers (setmaxnreg).
+template <typename Kernel>
+cudaError_t describe(Kernel kernel, int ring_rows, int smem, int stages, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  out[0] = BLOCK, out[1] = ring_rows, out[2] = smem, out[3] = THREADS;
+  out[5] = stages, out[6] = PRODUCER_REGS, out[7] = CONSUMER_REGS;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel, THREADS, smem);
+}
+
+template <int D, int MODE>
+cudaError_t info(int* out) {
+  const cudaError_t e = describe(flash_bwd_dkv_sm90<D, MODE>, DkvCfg<D>::BQ, DkvCfg<D>::SMEM,
+                                 DkvCfg<D>::STAGES, out);
+  if (e != cudaSuccess) return e;
+  using C = DqCfg<D, MODE>;
+  return describe(flash_bwd_dq_sm90<D, MODE>, C::BKV, C::SMEM, C::STAGES, out + 8);
+}
+
+template <int MODE>
+cudaError_t info_mode(int D, int* out) {
+  if (D == 64) return info<64, MODE>(out);
+  if (D == 128) return info<128, MODE>(out);
+  return cudaErrorInvalidValue;
+}
+
+// TMA reads 16-byte-aligned bases.
+bool takes(const BwdSm90Args& a) {
+  return aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout) &&
+         (a.D == 64 || a.D == 128);
+}
+
+}  // namespace
+
+cudaError_t k5_bf16_sm90(const BwdSm90Args& a, void* dq, int mode, cudaStream_t stream) {
+  if (!takes(a)) return cudaErrorInvalidValue;
+  const bool d64 = a.D == 64;
+  switch (mode) {
+    case PLAIN: return d64 ? launch_dq<64, PLAIN>(a, dq, stream) : launch_dq<128, PLAIN>(a, dq, stream);
+    case WINDOW: return d64 ? launch_dq<64, WINDOW>(a, dq, stream) : launch_dq<128, WINDOW>(a, dq, stream);
+    case DROPOUT:
+      return d64 ? launch_dq<64, DROPOUT>(a, dq, stream) : launch_dq<128, DROPOUT>(a, dq, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t k4_bf16_sm90(const BwdSm90Args& a, void* dk, void* dv, int mode, cudaStream_t stream) {
+  if (!takes(a)) return cudaErrorInvalidValue;
+  const bool d64 = a.D == 64;
+  switch (mode) {
+    case PLAIN:
+      return d64 ? launch_dkv<64, PLAIN>(a, dk, dv, stream) : launch_dkv<128, PLAIN>(a, dk, dv, stream);
+    case WINDOW:
+      return d64 ? launch_dkv<64, WINDOW>(a, dk, dv, stream) : launch_dkv<128, WINDOW>(a, dk, dv, stream);
+    case DROPOUT:
+      return d64 ? launch_dkv<64, DROPOUT>(a, dk, dv, stream)
+                 : launch_dkv<128, DROPOUT>(a, dk, dv, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// out[16]: K4's design (out[0..7]) and K5's (out[8..15]) at head dim D in
+// `mode` (StreamMode): rows a work tile (keys, queries), rows of the ring's
+// tile (queries, keys), dynamic shared memory bytes, threads a CTA, CTAs a
+// SM, ring stages, producer and consumer registers; no launch.
+extern "C" int pfa_bwd_sm90_info(int D, int mode, int* out) {
+  switch (mode) {
+    case PLAIN: return info_mode<PLAIN>(D, out);
+    case WINDOW: return info_mode<WINDOW>(D, out);
+    case DROPOUT: return info_mode<DROPOUT>(D, out);
+  }
+  return cudaErrorInvalidValue;
+}

@@ -97,6 +97,11 @@ _SIGNATURES: Dict[str, List] = {
     # CTAs a SM, stages, producer and consumer registers of K1's bf16
     # kernel); no stream, no launch
     "pfa_k1_sm90_info": [_I, _I, ctypes.POINTER(_I)],
+    # D, mode (StreamMode), out (int[16]: K4's then K5's rows a work tile,
+    # rows of the ring's tile, shared bytes, threads, CTAs a SM, stages,
+    # producer and consumer registers of the bf16 backward); no stream, no
+    # launch
+    "pfa_bwd_sm90_info": [_I, _I, ctypes.POINTER(_I)],
     # q, k, v, o, fm, B, S, H, D, sm_scale, causal, fast_exp, stream
     "pfa_flash_fixedmax": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     # q, k, v, o, B, Sq, Skv, H, D, sm_scale, stream

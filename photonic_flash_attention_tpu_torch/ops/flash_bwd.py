@@ -1,4 +1,5 @@
-"""Flash-attention backward (kernels K4 dK/dV and K5 dQ, ``csrc/flash_bwd.cu``).
+"""Flash-attention backward (kernels K4 dK/dV and K5 dQ: bf16 in
+``csrc/flash_bwd_sm90.cu``, fp32 and the C entries in ``csrc/flash_bwd.cu``).
 
 Port of ``photonic_flash_attention_tpu/ops/flash_bwd.py``. The JAX module
 has two kernel pairs with one contract: the grid pair
@@ -105,8 +106,10 @@ def _validate(q, k, v, o, lse, do, causal: bool) -> None:
 
 
 def flash_bwd_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """``di = rowsum(o * dO)`` in fp32, (B, H, Sq) contiguous."""
-    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    """``di = rowsum(o * dO)`` in fp32, (B, H, Sq) contiguous. Only o is
+    converted: the product promotes dO to fp32 as it reads it (the same
+    values, one fp32 copy fewer)."""
+    return (o.float() * do).sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_attention_bwd_plain(
@@ -233,6 +236,10 @@ def _check_cuda(q, k, v, do, lse, di) -> None:
             raise ValueError(f"K4/K5 run on CUDA tensors; {name} is on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"K4/K5 need contiguous inputs; {name} is not")
+        if q.dtype == torch.bfloat16 and name in ("q", "k", "v", "do") and t.data_ptr() % 16:
+            raise ValueError(
+                f"K4/K5 need 16-byte-aligned bf16 inputs (TMA); {name} starts at {t.data_ptr():#x}"
+            )
 
 
 def _mode(name: str, window: Optional[Window], dropout_rate: float) -> str:

@@ -118,6 +118,63 @@ def test_bwd_plain_matches_jax_unrolled_pair(causal):
     _check_plain_against(ref, arrays, causal)
 
 
+# The card's edge geometries of K4/K5 (tests/test_torch_cuda_bwd.py holds the
+# kernels to the plain version there): every pair Sq != Skv of 1, 127, 129
+# and 300, causal (end-aligned) where Sq < Skv, at D 64, and one pair at D
+# 128. The plain version the kernels are held to is anchored to JAX here.
+EDGE_LENGTHS = (1, 127, 129, 300)
+EDGE_CASES = [(1, sq, skv, 2, 64, sq < skv)
+              for sq in EDGE_LENGTHS for skv in EDGE_LENGTHS if sq != skv]
+EDGE_CASES.append((1, 129, 300, 2, 128, True))
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=_case_id)
+def test_bwd_plain_edges_match_jax_grid_pair(case):
+    *shape, causal = case
+    arrays = _residuals(*shape, causal, seed=7)
+    q, k, v, o, lse, do = arrays
+    ref = flash_attention_bwd_pallas(
+        _bhsd(q), _bhsd(k), _bhsd(v), _bhsd(o), jnp.asarray(lse), _bhsd(do),
+        sm_scale=shape[-1] ** -0.5, causal=causal, block_q=128, block_kv=128,
+        interpret=True,
+    )
+    _check_plain_against(ref, arrays, causal)
+
+
+# The window and dropout streams at the edges: (B, Sq, Skv, H, D, causal,
+# streams); the Sq 300 / Skv 127 window leaves rows that see no key.
+STREAM_EDGES = [
+    (1, 129, 300, 2, 64, True, dict(window=(-40, 0))),
+    (1, 300, 127, 2, 128, False, dict(window=(-90, 40))),
+    (1, 127, 300, 2, 64, True, dict(dropout_rate=0.1, dropout_seed=77)),
+    (1, 300, 129, 2, 128, False, dict(dropout_rate=0.1, dropout_seed=77)),
+]
+
+
+@pytest.mark.parametrize("case", STREAM_EDGES, ids=["window_causal", "window_no_key",
+                                                     "dropout_causal", "dropout_cross"])
+def test_bwd_plain_stream_edges_match_jax_grid_pair(case):
+    b, sq, skv, h, d, causal, streams = case
+    rng = np.random.default_rng(8)
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((b, sq, h, d), (b, skv, h, d), (b, skv, h, d), (b, sq, h, d)))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = flash_attention_with_lse_plain(tq, tk, tv, causal=causal, **streams)
+    if "window" in streams:
+        jkw = dict(window=(*streams["window"], "inside"))
+    else:
+        jkw = dict(dropout_rate=streams["dropout_rate"],
+                   dropout_seed=jnp.asarray([streams["dropout_seed"]], jnp.int32))
+    ref = flash_attention_bwd_pallas(
+        _bhsd(q), _bhsd(k), _bhsd(v), _bhsd(o.numpy()), jnp.asarray(lse.numpy()), _bhsd(do),
+        sm_scale=d ** -0.5, causal=causal, block_q=128, block_kv=128, interpret=True, **jkw)
+    got = flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, sm_scale=d ** -0.5, causal=causal,
+                                    **streams)
+    for name, g, r in zip("qkv", got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r).transpose(0, 2, 1, 3), rtol=2e-4,
+                                   atol=2e-4, err_msg=f"d{name} mismatch")
+
+
 def _grads_both(shapes, dtype_pair, causal, seed, loss):
     """(port grads, JAX grads) of ``loss`` over q, k, v: autograd through
     the port's flash_attention, jax.grad through the JAX one."""
@@ -158,6 +215,23 @@ def test_fp32_grads_match_jax(hq, hkv, causal):
     b, s, d = 1, 256, 64
     shapes = ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d))
     port, ref = _grads_both(shapes, F32, causal, seed=2, loss=DOT_LOSS)
+    for name, g, r in zip("qkv", port, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4, atol=2e-4,
+                                   err_msg=f"d{name} mismatch")
+
+
+@pytest.mark.parametrize(
+    "b, sq, skv, hq, hkv, d, causal",
+    [(1, 127, 300, 2, 2, 64, True), (1, 300, 129, 2, 2, 64, False),
+     (1, 129, 129, 12, 4, 64, True), (1, 129, 129, 32, 8, 128, True)],
+    ids=["q127k300c", "q300k129n", "gqa12to4", "gqa32to8d128"],
+)
+def test_edge_grads_match_jax(b, sq, skv, hq, hkv, d, causal):
+    """Gradients through the port's flash_attention (the plain K1 with lse,
+    K4/K5's plain version, the GQA repeat and group sum) against jax.grad
+    of the JAX flash at the card's edge geometries, fp32."""
+    shapes = ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d), (b, sq, hq, d))
+    port, ref = _grads_both(shapes, F32, causal, seed=6, loss=DOT_LOSS)
     for name, g, r in zip("qkv", port, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4, atol=2e-4,
                                    err_msg=f"d{name} mismatch")
