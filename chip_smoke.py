@@ -13,19 +13,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    plain, window, dropout) must show HGMMA and UTMALDG and no HMMA in the
    library's SASS (``cuobjdump -sass``), printed with its registers and
    stack (``cuobjdump -res-usage``; K4/K5 must have none), tiles, ring
-   stages, shared memory and CTAs a SM;
+   stages, shared memory and CTAs a SM; and that K3's 16 instantiations
+   stage pages by the TMA's bulk copy (UBLKCP) with no stack;
 3. kernels: each kernel and mode against its plain PyTorch version on the
    card, at the shapes the main paths give it, with kernel, plain and
    library times and the card's bound: K1 (flash forward, its lse, and its
-   kv_lens/k_bias streams), K2/K3 (paged decode), K3's paged_attention_hf
-   entry (float and int8 compute), K4/K5 (flash backward), K1's quantized
+   kv_lens/k_bias streams), K2 (the token write alone), K3 (paged decode:
+   the read-only attend, and the fused decode that writes the token and
+   attends in one launch, pools bit-exact with K2's plain write), K3's
+   paged_attention_hf entry (float and int8 compute), K4/K5 (flash backward), K1's quantized
    modes (int8-QK, fp8-QK, int8-full) and K6 (fp8, int8), these also
    against the fp32 oracle under the JAX tests' gates, with the whole
    call's time (quantization passes included) and bf16 K1's; K1's
    relative-bias mode (T5 buckets both directions, Sq < Skv, ALiBi) and
    dense-bias mode (a (B,1,S,S) random-hole mask, a real (B,H,S,S) bias),
-   K3's token-bias mode (bf16 and int8 pools), each against SDPA given the
-   same dense float bias (K3: no library call); K1's dropout stream (B4
+   K3's token-bias mode (bf16 and int8 pools; read-only and fused), each
+   against SDPA given the same dense float bias (K3: no library call); K1's dropout stream (B4
    S2048 H12 causal bf16, rate 0.1; fp32, GQA, Sq 512 / Skv 2048) and
    window stream (B1 S8192 H12 against the plain version and SDPA with the
    same band mask; bench.py's B1 S65536 window (-4095, 0) row against its
@@ -45,6 +48,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    pair's bound and share: B4 S2048 H12, GPT-2 medium's B8 S1024 H16,
    dropout 0.1, window (-255, 0), B1 S8192, and B2 S4096 Hq32/Hkv8 D128
    through the autograd Function with the GQA repeat and sum's share);
+   then the K3 table (``time_k3_modes``): GPT-2 medium's int8 decode fused
+   and read-only, K2 alone, T5's decode with the token bias (bf16 and int8
+   pools), paged_attention_hf float and int8, B14's two rows and B1 H32
+   D128 at 32768 tokens, each by CUDA events, the graph fit and the host
+   time a call, beside its bound and share (``--k3-table`` prints only
+   this table and GPT-2 medium's decode step, with public calls, so a copy
+   of the script times another tree of the repository);
 4. roofline: the card's record (``hardware.detection``), K9/K10 (HBM read
    and copy) bit for bit and K11 (exp) and K12 (the softmax stream, both
    modes) within their bounds against their plain versions; then, as a
@@ -78,7 +88,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and K5 alone on the headline row); the calls its graphs captured must
    be one K20 a row-block and one K21 a key block;
 6. serving path: GPT-2 medium (random weights, seed 0) served through
-   ``ServingEngine.generate`` with an int8 paged KV cache; every kernel's
+   ``ServingEngine.generate`` with an int8 paged KV cache (decode: K3's
+   fused write + attend, one launch a layer a step); every kernel's
    launch count must grow; the first step must agree with the dense model;
    then the same requests with ``prefill_chunk=256`` (K1 with the key-bias
    stream): the same first tokens, last-prompt logits within a bound;
@@ -103,7 +114,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    decoder 512, unmasked (K1's relative-bias mode), against the same
    weights in fp32 on the CPU (plain versions); (b) ``ServingEngine`` at
    full depth, 8 requests of 64-512 encoder tokens, 32 new tokens, with a
-   bf16 and an int8 pool (K2 and K3's token-bias mode every decode step),
+   bf16 and an int8 pool (K3's fused decode with the token bias every
+   decode step),
    the model computing in fp32: every first token equal to the dense
    model's argmax on the card, two trajectories under the JAX test's
    greedy-parity rule; then bf16 compute over a bf16 pool, timed; (c) the
@@ -169,6 +181,9 @@ _FWD = "photonic_flash_attention_tpu_torch/csrc/flash_fwd.cu"
 #: modes stay in _FWD.
 _FWD90 = "photonic_flash_attention_tpu_torch/csrc/flash_fwd_sm90.cu"
 _PAGED = "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu"
+#: K3 in every mode and the fused decode (K2's write folded in); K2 alone
+#: stays in _PAGED.
+_PAGED90 = "photonic_flash_attention_tpu_torch/csrc/paged_decode_sm90.cu"
 _BWD = "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu"
 #: K4/K5's bf16 kernels (every mode the main paths run); fp32 stays in _BWD.
 _BWD90 = "photonic_flash_attention_tpu_torch/csrc/flash_bwd_sm90.cu"
@@ -191,13 +206,15 @@ SOURCES = {
     "pfa_flash_fwd_relbias": _FWD90,
     "pfa_flash_fwd_alibi": _FWD90,
     "pfa_flash_fwd_densebias": _FWD90,
-    "pfa_paged_decode_attend_tbias": _PAGED,
+    "pfa_paged_decode_attend_tbias": _PAGED90,
+    "pfa_paged_decode_fused_tbias": _PAGED90,
     "pfa_flash_fwd": _FWD90,
     "pfa_flash_fwd_streams": _FWD90,
     "pfa_paged_token_write": _PAGED,
-    "pfa_paged_decode_attend": _PAGED,
-    "pfa_paged_hf": _PAGED,
-    "pfa_paged_hf_int8": _PAGED,
+    "pfa_paged_decode_fused": _PAGED90,
+    "pfa_paged_decode_attend": _PAGED90,
+    "pfa_paged_hf": _PAGED90,
+    "pfa_paged_hf_int8": _PAGED90,
     "pfa_flash_bwd_dkv": _BWD90,
     "pfa_flash_bwd_dq": _BWD90,
     "pfa_flash_fwd_int8qk": _FWD,
@@ -208,7 +225,7 @@ SOURCES = {
     "pfa_softmax": _ROWNORM,
     "pfa_layer_norm": _ROWNORM,
     "pfa_rms_norm": _ROWNORM,
-    "pfa_paged_attention": _PAGED,
+    "pfa_paged_attention": _PAGED90,
     "pfa_hbm_read": _PROBES,
     "pfa_hbm_copy": _PROBES,
     "pfa_exp_probe": _PROBES,
@@ -243,11 +260,13 @@ REPLACES = {
     "pfa_flash_fwd_alibi": f"{_B1} (tab_ref, alibi)",
     "pfa_flash_fwd_densebias": f"{_B1} (qkbias_ref)",
     "pfa_paged_decode_attend_tbias": "photonic_flash_attention_tpu/ops/paged.py:407 (bias_ref)",
+    "pfa_paged_decode_fused_tbias": "photonic_flash_attention_tpu/ops/paged.py:407 (bias_ref)",
     "pfa_flash_fwd": "photonic_flash_attention_tpu/ops/flash.py:59, "
                      "photonic_flash_attention_tpu/ops/flash_unrolled.py:144",
     "pfa_flash_fwd_streams": "photonic_flash_attention_tpu/ops/flash.py:59, "
                              "photonic_flash_attention_tpu/ops/flash_unrolled.py:144",
     "pfa_paged_token_write": "photonic_flash_attention_tpu/ops/paged.py:407",
+    "pfa_paged_decode_fused": "photonic_flash_attention_tpu/ops/paged.py:407",
     "pfa_paged_decode_attend": "photonic_flash_attention_tpu/ops/paged.py:407",
     "pfa_paged_hf": "photonic_flash_attention_tpu/ops/paged.py:902",
     "pfa_paged_hf_int8": "photonic_flash_attention_tpu/ops/paged.py:902",
@@ -285,10 +304,15 @@ REPLACES = {
 #: Modes that no main path runs, reported under their kernel's entry (main
 #: fails if one of them launches there): K3's int8 compute (engine decode
 #: repacks bf16 K/V; serving decode is K3's float mode over the int8 pool),
+#: K3's read-only attend (with and without the token bias) and K2 alone
+#: (serving decodes through K3's fused write + attend),
 #: ALiBi (no model of the port uses it) and the sliding window of K1, K4
 #: and K5 (no model of the port sets one). K6's int8 mode has its own
 #: entry: the CLI's ``calibrate`` runs it.
 NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
+                "pfa_paged_decode_attend": ("pfa_paged_decode_fused", "attend_only"),
+                "pfa_paged_decode_attend_tbias": ("pfa_paged_decode_fused_tbias", "attend_only"),
+                "pfa_paged_token_write": ("pfa_paged_decode_fused", "write_only (K2)"),
                 "pfa_flash_fwd_alibi": ("pfa_flash_fwd_relbias", "alibi"),
                 "pfa_flash_fwd_alibi_lse": ("pfa_flash_fwd_relbias_lse", "alibi"),
                 "pfa_flash_fwd_window": ("pfa_flash_fwd", "window"),
@@ -433,16 +457,19 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build(sass: bool = True) -> None:
     t0 = time.perf_counter()
     path = _build.build()
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}", flush=True)
+    if not sass:
+        return
     t0 = time.perf_counter()
     counts, usage = sm90_sass(path)
     check_k1_sass(counts, usage)
     check_bwd_sass(counts, usage)
-    print(f"K1 SASS, K4/K5 SASS: checked in {time.perf_counter() - t0:.2f} s", flush=True)
+    check_k3_sass(path)
+    print(f"K1 SASS, K4/K5 SASS, K3 SASS: checked in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 #: K1's bf16 kernel in the library: one instantiation per head dim and mode
@@ -489,6 +516,46 @@ def sm90_sass(path: Path) -> tuple:
         if key := _sm90_key(m.group(1)):
             usage[key] = tuple(int(x) for x in m.groups()[1:])
     return counts, usage
+
+
+#: K3's instantiations (csrc/paged_decode_sm90.cu::k3_kernel<pool, D,
+#: heads a CTA, int8 compute>): 3 pools x 2 head dims x 2 head counts, and
+#: the int8 pool's int8-compute mode at both.
+K3_SM90 = re.compile(r"k3_kernelI(a|f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E")
+
+
+def check_k3_sass(path: Path) -> None:
+    """Proof that every K3 instantiation stages its pages by the TMA's bulk
+    copy (UBLKCP in the SASS) and waits on mbarriers (SYNCS): prints each
+    one's counts, registers and stack; all 16 must be there, each with a
+    bulk copy and no stack."""
+    names = {"a": "int8", "f": "fp32", "13__nv_bfloat16": "bf16"}
+    ops, cur = {}, None
+    for line in _cuobjdump("-sass", path).splitlines():
+        if "Function :" in line:
+            m = K3_SM90.search(line)
+            cur = (names[m.group(1)], int(m.group(2)), int(m.group(3)), m.group(4) == "1") if m else None
+            if cur:
+                ops[cur] = collections.Counter()
+        elif cur:
+            for op in ("UBLKCP", "SYNCS"):
+                ops[cur][op] += len(re.findall(rf"\b{op}\b", line))
+    usage = {}
+    for m in re.finditer(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+)", _cuobjdump("-res-usage", path)):
+        if k := K3_SM90.search(m.group(1)):
+            usage[(names[k.group(1)], int(k.group(2)), int(k.group(3)), k.group(4) == "1")] = (
+                int(m.group(2)), int(m.group(3)))
+    for key in sorted(ops):
+        pool, d, heads, i8c = key
+        reg, stack = usage.get(key, (-1, -1))
+        line = (f"K3 SASS {pool} pool D{d} {heads} head(s) a CTA{' int8 compute' if i8c else ''}: "
+                f"UBLKCP {ops[key]['UBLKCP']}, SYNCS {ops[key]['SYNCS']}, {reg} registers, "
+                f"stack {stack}")
+        print(line, flush=True)
+        if not ops[key]["UBLKCP"] or stack != 0:
+            raise AssertionError(f"{line}: no bulk copy, or a stack")
+    if len(ops) != 16:
+        raise AssertionError(f"K3 SASS: {len(ops)} instantiations found, expected 16")
 
 
 def check_k1_sass(counts: dict, usage: dict) -> None:
@@ -650,21 +717,58 @@ def check_token_write(results: dict) -> None:
                 **card_bound(3.0 * 2 * b * hkv * d, nbytes, torch.float32))
 
 
-def check_decode_attend(results: dict) -> None:
-    """K3 against its plain version on an int8 pool, lengths mixed with 0."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    b, hq, d, page, pps, layer = 8, 16, 64, 128, 64, 7
-    k, v, ks, vs = _serving_pools(torch.int8, gen)
-    lengths = torch.tensor([0, 1, 17, 128, 129, 700, 1000, 2000], dtype=torch.int32, device="cuda")
-    perm = torch.randperm(255, device="cuda", generator=gen)[: b * 16] + 1
+GPT2_DECODE_LENS = (0, 1, 17, 128, 129, 700, 1000, 2000)
+
+
+def _decode_case(gen, pool_dtype=torch.int8, lengths=GPT2_DECODE_LENS, hq=16, pps=64, L=24):
+    """GPT-2 medium's decode shape (B8 H16 D64, page 128, 256 pages of
+    ``L`` layers): pools, scattered tables, q fp32, the new token's K/V
+    (bf16) and the slot of position lengths[b] - 1 (trash page 0 for 0)."""
+    b, d, page = len(lengths), 64, 128
+    k, v, ks, vs = _serving_pools(pool_dtype, gen, L=L, hkv=hq)
+    need = max(-(-n // page) for n in lengths)
+    perm = torch.randperm(255, device="cuda", generator=gen)[: b * need] + 1
     tables = torch.zeros(b, pps, dtype=torch.int32, device="cuda")
-    tables[:, :16] = perm.view(b, 16).to(torch.int32)
+    tables[:, :need] = perm.view(b, need).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    slots = torch.zeros(b, dtype=torch.int32, device="cuda")
+    for i, n in enumerate(lengths):
+        if n:
+            slots[i] = tables[i, (n - 1) // page] * page + (n - 1) % page
     q = torch.randn(b, hq, d, device="cuda", generator=gen)
+    k_new, v_new = (torch.randn(b, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+    return q, k, v, ks, vs, lens, tables, slots, k_new, v_new
+
+
+def k3_bound(b: int, hq: int, hkv: int, d: int, elt: int, tokens: int, pps: int, q_bytes: int,
+             quant: bool, *, bias: bool = False, fused_in: int = 0, int8_ops: bool = False) -> dict:
+    """K3's bound: 4 D operations per (query head, valid token) pair in
+    fp32 (int8 compute: int8); the valid tokens' K/V rows (and int8 scales)
+    read once, q read, o written (fp32), lengths and the page table; the
+    token bias of the valid tokens; the fused decode's new K/V read
+    (``fused_in`` bytes an element) and written with its scales."""
+    nbytes = (2 * tokens * hkv * d * elt + 2 * 4 * tokens * hkv * quant + b * hq * d * q_bytes
+              + 4 * b * hq * d + 4 * b + 4 * b * pps + 4 * tokens * hkv * bias)
+    if fused_in:
+        nbytes += 2 * b * hkv * d * (fused_in + elt) + 2 * 4 * b * hkv * quant + 4 * b
+    return card_bound(4.0 * d * hq * tokens, nbytes, torch.int8 if int8_ops else torch.float32)
+
+
+def check_decode_attend(results: dict) -> None:
+    """K3 against its plain versions on GPT-2 medium's int8 decode shape,
+    lengths mixed with 0: the read-only attend (bound 1e-3), then the fused
+    decode (one pfa_paged_decode_fused launch) against K2's plain write then
+    the plain attend: pools and scales bit-exact, output within 1e-4."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, ks, vs, lengths, tables, slots, k_new, v_new = _decode_case(gen)
+    b, hq, d = q.shape
+    layer, pps = 7, tables.shape[1]
     out = paged_ops.paged_decode_attend(q, k, v, lengths, tables, layer, ks, vs)
     ref = paged_ops.paged_decode_attend_plain(q, k, v, lengths, tables, layer, ks, vs, d ** -0.5)
     torch.cuda.synchronize()
     err = rel_err_norm(out, ref)
-    line = (f"K3 paged_decode_attend B{b} H{hq} D{d} page{page} int8 lengths "
+    line = (f"K3 paged_decode_attend B{b} H{hq} D{d} page128 int8 lengths "
             f"{lengths.tolist()}: rel_err_norm {err:.3e} (bound 1e-3)")
     if err > 1e-3 or not torch.isfinite(out).all() or out[0].abs().max() != 0:
         raise AssertionError(line)
@@ -672,12 +776,47 @@ def check_decode_attend(results: dict) -> None:
     plain = median_ms(lambda: paged_ops.paged_decode_attend_plain(
         q, k, v, lengths, tables, layer, ks, vs, d ** -0.5))
     tokens = int(lengths.sum())
-    nbytes = 2 * tokens * 16 * d + 2 * 4 * tokens * 16 + 2 * 4 * b * hq * d + 4 * b + 4 * b * pps
-    bnd = card_bound(4.0 * d * hq * tokens, nbytes, torch.float32)
+    bnd = k3_bound(b, hq, hq, d, 1, tokens, pps, 4, True)
     print(f"{line} | kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
           f"({bnd['bound_by']})", flush=True)
     results["pfa_paged_decode_attend"].update(ms=ms, plain_ms=plain, library_ms=None,
                                               max_abs_err=max_abs_err(out, ref), **bnd)
+
+    pools = [k, v, ks, vs]
+    ref_pools = [t.clone() for t in pools]
+    before = _build.LAUNCHES["pfa_paged_decode_fused"]
+    out = paged_ops.paged_decode_attention(q, k_new, v_new, k, v, lengths, tables, slots, layer,
+                                           ks, vs)
+    paged_ops.paged_token_write_plain(k_new, v_new, *ref_pools, slots, layer)
+    ref = paged_ops.paged_decode_attend_plain(q, *ref_pools[:2], lengths, tables, layer,
+                                              *ref_pools[2:], d ** -0.5)
+    torch.cuda.synchronize()
+    err = rel_err_norm(out, ref)
+    exact = all(torch.equal(a, w) for a, w in zip(pools, ref_pools))
+    line = (f"K3 fused decode (write + attend, one launch) B{b} H{hq} D{d} page128 int8 lengths "
+            f"{lengths.tolist()}: pools and scales bit-exact with K2's plain write: {exact}; "
+            f"rel_err_norm {err:.3e} (bound 1e-4)")
+    if (not exact or err > 1e-4 or not torch.isfinite(out).all() or out[0].abs().max() != 0
+            or _build.LAUNCHES["pfa_paged_decode_fused"] != before + 1):
+        raise AssertionError(line)
+
+    def call():
+        return paged_ops.paged_decode_attention(q, k_new, v_new, k, v, lengths, tables, slots,
+                                                layer, ks, vs)
+
+    def plain_call():
+        paged_ops.paged_token_write_plain(k_new, v_new, *ref_pools, slots, layer)
+        return paged_ops.paged_decode_attend_plain(q, *ref_pools[:2], lengths, tables, layer,
+                                                   *ref_pools[2:], d ** -0.5)
+
+    ms, plain = median_ms(call), median_ms(plain_call)
+    bnd = k3_bound(b, hq, hq, d, 1, tokens, pps, 4, True, fused_in=2)
+    print(f"{line} | kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']})", flush=True)
+    results["pfa_paged_decode_fused"].update(ms=ms, plain_ms=plain, library_ms=None,
+                                             max_abs_err=max_abs_err(out, ref), **bnd)
+    del k, v, ks, vs, ref_pools
+    torch.cuda.empty_cache()
 
 
 STREAM_LENS = (2048, 1500, 700, 0)
@@ -1167,8 +1306,10 @@ def check_token_bias(results: dict) -> None:
     """K3's token-bias mode against its plain version at B8 H16 D64 page
     128, lengths 1-2000, over a bf16 and an int8 pool (sm_scale 1, the T5
     decode's; pages in random order, so the bias must follow the logical
-    position); bound BIAS_MODE_BOUND. No PyTorch call computes it (library
-    none). The JSON keeps the bf16 pool's numbers."""
+    position); bound BIAS_MODE_BOUND. Then the fused decode with the bias
+    (T5's decode step; pools bit-exact with K2's plain write). No PyTorch
+    call computes either (library none). The JSON keeps the bf16 pool's
+    numbers."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     b, hq, d, page, pps, layer = 8, 16, 64, 128, 16, 5
     lengths = torch.tensor(TBIAS_LENS, dtype=torch.int32, device="cuda")
@@ -1177,7 +1318,7 @@ def check_token_bias(results: dict) -> None:
     q = torch.randn(b, hq, d, device="cuda", generator=gen)
     bias = torch.randn(b, hq, pps * page, device="cuda", generator=gen) * 2.0
     tokens = int(lengths.sum())
-    worst = 0.0
+    worst = worst_fused = 0.0
     for pool_dtype in (torch.bfloat16, torch.int8):
         k, v, ks, vs = _serving_pools(pool_dtype, gen, L=8, hkv=hq)
         args = (q, k, v, lengths, tables, layer, ks, vs)
@@ -1203,8 +1344,48 @@ def check_token_bias(results: dict) -> None:
         if pool_dtype == torch.bfloat16:
             results["pfa_paged_decode_attend_tbias"].update(ms=ms, plain_ms=plain, library_ms=None,
                                                             **bnd)
-        del k, v, ks, vs
+        # The fused decode with the bias (T5's decode step): one launch,
+        # pools bit-exact with K2's plain write, then the attend.
+        slots = torch.zeros(b, dtype=torch.int32, device="cuda")
+        for i, n in enumerate(TBIAS_LENS):
+            slots[i] = tables[i, (n - 1) // page] * page + (n - 1) % page
+        k_new, v_new = (torch.randn(b, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+                        for _ in range(2))
+        pools = [t for t in (k, v, ks, vs) if t is not None]
+        ref_pools = [t.clone() if t is not None else None for t in (k, v, ks, vs)]
+        before = _build.LAUNCHES["pfa_paged_decode_fused_tbias"]
+
+        def fused():
+            return paged_ops.paged_decode_attention(q, k_new, v_new, k, v, lengths, tables, slots,
+                                                    layer, ks, vs, sm_scale=1.0, token_bias=bias)
+
+        def fused_plain():
+            paged_ops.paged_token_write_plain(k_new, v_new, *ref_pools, slots, layer)
+            return paged_ops.paged_decode_attend_plain(q, *ref_pools[:2], lengths, tables, layer,
+                                                       *ref_pools[2:], 1.0, bias)
+
+        out, ref = fused(), fused_plain()
+        torch.cuda.synchronize()
+        err = rel_err_norm(out, ref)
+        exact = all(torch.equal(a, w) for a, w in zip(pools, ref_pools))
+        line = (f"K3 fused decode with token_bias B{b} H{hq} D{d} page{page} pool "
+                f"{str(pool_dtype)[6:]}: pools bit-exact with K2's plain write: {exact}; "
+                f"rel_err_norm {err:.3e} (bound {BIAS_MODE_BOUND})")
+        if (not exact or err > BIAS_MODE_BOUND or not torch.isfinite(out).all()
+                or _build.LAUNCHES["pfa_paged_decode_fused_tbias"] != before + 1):
+            raise AssertionError(line)
+        ms, plain = median_ms(fused), median_ms(fused_plain)
+        bnd = k3_bound(b, hq, hq, d, k.element_size(), tokens, pps, 4, pool_dtype == torch.int8,
+                       bias=True, fused_in=2)
+        print(f"{line} | kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), library none", flush=True)
+        worst_fused = max(worst_fused, max_abs_err(out, ref))
+        if pool_dtype == torch.bfloat16:
+            results["pfa_paged_decode_fused_tbias"].update(ms=ms, plain_ms=plain, library_ms=None,
+                                                           **bnd)
+        del k, v, ks, vs, pools, ref_pools
     results["pfa_paged_decode_attend_tbias"]["max_abs_err"] = worst
+    results["pfa_paged_decode_fused_tbias"]["max_abs_err"] = worst_fused
 
 
 DROPOUT_RATE, DROPOUT_SEED = 0.1, 1234
@@ -1875,6 +2056,168 @@ def time_bwd_modes(results: dict, smi: str) -> None:
     results["k45_table"] = table
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn``: the wrapper's validation and
+    launch, ``calls`` back to back on the host clock, the card not waited
+    for (its queue holds them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / calls
+
+
+def _launches_of(fn) -> dict:
+    """The launches, by counter, of one call of ``fn``."""
+    before = collections.Counter(_build.LAUNCHES)
+    fn()
+    torch.cuda.synchronize()
+    return {k: n for k, n in (collections.Counter(_build.LAUNCHES) - before).items() if n}
+
+
+def time_k3_modes(results: dict, smi: str, strict: bool = True) -> list:
+    """The K3 table: each main-path shape of K3 (and K2) by CUDA events and
+    by the graph fit (2, 10), its bound and share, and its launches a call:
+    GPT-2 medium's int8 decode (B8 H16 D64, lengths 0-2000) fused (write +
+    attend, what serving runs) and read-only; T5's decode with the token
+    bias over a bf16 and an int8 pool (fused); paged_attention_hf float
+    (bf16 pool) and int8 compute (int8 pool) at B8 kv 2048; B14's two rows
+    (paged_attention); B1 H32 D128 bf16 at 32768 tokens; K2 alone. Only
+    public calls, so ``strict=False`` times a parent tree with the same
+    script (``--k3-table``); there the fused rows are K2 + K3."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rows = []
+    q, k, v, ks, vs, lens, tables, slots, k_new, v_new = _decode_case(gen)
+    tok = int(lens.sum())
+    rows.append(("GPT-2 medium int8 decode B8 H16 D64, lengths 0-2000: fused (write + attend)",
+                 lambda: paged_ops.paged_decode_attention(q, k_new, v_new, k, v, lens, tables,
+                                                          slots, 7, ks, vs),
+                 k3_bound(8, 16, 16, 64, 1, tok, 64, 4, True, fused_in=2)))
+    rows.append(("the same, read-only attend",
+                 lambda: paged_ops.paged_decode_attend(q, k, v, lens, tables, 7, ks, vs),
+                 k3_bound(8, 16, 16, 64, 1, tok, 64, 4, True)))
+    rows.append(("K2 alone (the token write), the same pool",
+                 lambda: paged_ops.paged_token_write(k_new, v_new, k, v, ks, vs, slots, 7),
+                 card_bound(3.0 * 2 * 8 * 16 * 64, 2 * 8 * 16 * 64 * 3 + 2 * 4 * 8 * 16 + 4 * 8,
+                            torch.float32)))
+    for pool_dtype in (torch.bfloat16, torch.int8):
+        c = _decode_case(gen, pool_dtype, TBIAS_LENS, pps=16, L=4)
+        bias = torch.randn(8, 16, 16 * 128, device="cuda", generator=gen) * 2.0
+        qb, kb, vb, ksb, vsb, lb, tb, sb, knb, vnb = c
+        rows.append((f"T5 decode with the token bias, {str(pool_dtype)[6:]} pool, B8 H16 D64, "
+                     f"lengths 1-2000: fused",
+                     (lambda qb=qb, kb=kb, vb=vb, ksb=ksb, vsb=vsb, lb=lb, tb=tb, sb=sb, knb=knb,
+                      vnb=vnb, bias=bias: paged_ops.paged_decode_attention(
+                          qb, knb, vnb, kb, vb, lb, tb, sb, 1, ksb, vsb, sm_scale=1.0,
+                          token_bias=bias)),
+                     k3_bound(8, 16, 16, 64, kb.element_size(), int(lb.sum()), 16, 4,
+                              pool_dtype == torch.int8, bias=True, fused_in=2)))
+    for pool_dtype in (torch.bfloat16, torch.int8):
+        c = _decode_case(gen, pool_dtype, HF_LENS, pps=16, L=4)
+        qh = c[0].to(torch.bfloat16)
+        int8 = pool_dtype == torch.int8
+        rows.append((f"paged_attention_hf B8 H16 D64 kv 2048, {str(pool_dtype)[6:]} pool, "
+                     f"{'int8' if int8 else 'float'} compute",
+                     (lambda qh=qh, c=c: paged_ops.paged_attention_hf(
+                         qh, c[1], c[2], c[5], c[6], c[3], c[4], layer=3)),
+                     k3_bound(8, 16, 16, 64, c[1].element_size(), int(c[5].sum()), 16, 2, int8,
+                              int8_ops=int8)))
+    for what, b, hq, hkv, d, pool_dtype, lengths, layer in PAGED_ATTENTION_CASES:
+        c = _paged_attention_case(gen, b, hq, hkv, d, pool_dtype, lengths, layer)
+        rows.append((f"B14 paged_attention {what} B{b} H{hq}/{hkv} D{d} {str(pool_dtype)[6:]}, "
+                     f"lengths {min(lengths)}-{max(lengths)}",
+                     (lambda c=c, layer=layer: paged_ops.paged_attention(*c, layer=layer)),
+                     k3_bound(b, hq, hkv, d, c[1].element_size(), sum(lengths), c[4].shape[1],
+                              c[0].element_size(), pool_dtype == torch.int8)))
+    long_case = _paged_attention_case(gen, 1, 32, 32, 128, torch.bfloat16, (32768,), None)
+    rows.append(("B1 H32 D128 bf16, one row of 32768 tokens (paged_attention)",
+                 lambda: paged_ops.paged_attention(*long_case),
+                 k3_bound(1, 32, 32, 128, 2, 32768, 256, 2, False)))
+    table = []
+    for name, call, bnd in rows:
+        launched = _launches_of(call)
+        # The parent's int8-compute wrapper reads its scale on the host, which
+        # a CUDA graph cannot capture: no fit there.
+        ev, host = median_ms(call), host_us(call)
+        fit = None if not strict and "int8 compute" in name else _fit_ms(call)
+        row = dict(name=name, ms=ev, fit_ms=fit, host_us=host, launches=launched, **bnd)
+        table.append(row)
+        fit_txt = f"{fit:.4f}" if fit is not None else "not measured (no capture)"
+        share = (f"{100 * bnd['bound_ms'] / ev:.2f} % (events), "
+                 + (f"{100 * bnd['bound_ms'] / fit:.2f} % (fit)" if fit else "fit not measured"))
+        print(f"K3 table: {name}: {ev:.4f} ms (CUDA events), {fit_txt} ms (graph fit); bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {share}; host {host:.1f} us a call; "
+              f"launches a call {launched} ({smi})", flush=True)
+    if strict:
+        for counter, i in (("pfa_paged_decode_fused", 0), ("pfa_paged_decode_attend", 1),
+                           ("pfa_paged_token_write", 2), ("pfa_paged_decode_fused_tbias", 3),
+                           ("pfa_paged_hf", 5), ("pfa_paged_hf_int8", 6)):
+            results[counter]["fit_ms"] = table[i]["fit_ms"]
+    del q, k, v, ks, vs, long_case, rows
+    torch.cuda.empty_cache()
+    return table
+
+
+def time_gpt2_decode(smi: str) -> dict:
+    """GPT-2 medium (random weights, seed 0) served as in the serving phase
+    (8 requests, NEW_TOKENS new tokens, int8 pool, page 128, decode window
+    32): decode ms a step (host clock, synchronised at each window's end)
+    and tokens/s, and the launches of the run. Public calls only, so it
+    also times a parent tree (``--k3-table``)."""
+    from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+    cfg = GPT2Config.medium()
+    model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0))
+    engine = ServingEngine(cfg, model.state_dict(), device="cuda", num_pages=256, page_size=128,
+                           max_batch=8, kv_dtype=torch.int8, decode_window=32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    engine.generate([p[:8] for p in prompts[:2]], max_new_tokens=2)
+    best = None
+    for _ in range(2):
+        engine.reset_performance_stats()
+        _build.reset_launches()
+        engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        stats = engine.get_performance_stats()
+        step = 1e3 * stats["decode_time"] / max(stats["decode_steps"], 1)
+        if best is None or step < best["step_ms"]:
+            best = dict(step_ms=step, tokens_per_s=stats["decode_tokens_per_s"],
+                        launches=dict(_build.LAUNCHES))
+    # One more run under torch.profiler: the card's kernel time (the
+    # decode's K2 + K3 apart), over the run's decode steps.
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.reset_performance_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+    steps = max(engine.get_performance_stats()["decode_steps"], 1)
+    device = paged = 0.0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        device += t
+        if any(k in e.key for k in ("k3_kernel", "paged_decode_attend", "paged_token_write")):
+            paged += t
+    best.update(device_ms_per_step=device / 1e3 / steps, paged_ms_per_step=paged / 1e3 / steps)
+    print(f"K3 table: GPT-2 medium decode, 8 requests x {NEW_TOKENS} tokens, int8 pool: "
+          f"{best['step_ms']:.3f} ms a step, {best['tokens_per_s']:.1f} tokens/s (the better of "
+          f"two runs); under the profiler, the card's kernel time "
+          f"{best['device_ms_per_step']:.3f} ms a decode step (prefill's included), K2 + K3 "
+          f"{best['paged_ms_per_step']:.3f} ms of it; paged launches "
+          f"{ {k: n for k, n in best['launches'].items() if 'paged' in k} } ({smi})", flush=True)
+    del engine, model
+    torch.cuda.empty_cache()
+    return best
+
+
 def phase_kernels(smi: str) -> dict:
     results = {name: {} for name in SOURCES}
     check_flash(results)
@@ -1896,6 +2239,7 @@ def phase_kernels(smi: str) -> dict:
     time_k1_modes(results, smi)
     check_bwd_edges()
     time_bwd_modes(results, smi)
+    results["k3_table"] = time_k3_modes(results, smi)
     return results
 
 
@@ -1937,8 +2281,7 @@ def phase_serving(smi: str) -> dict:
             raise AssertionError(f"prompt of {len(p)} tokens: bad output {o}")
     need = {
         "pfa_flash_fwd": cfg.n_layer * len(prompts),
-        "pfa_paged_token_write": cfg.n_layer * (NEW_TOKENS - 1),
-        "pfa_paged_decode_attend": cfg.n_layer * (NEW_TOKENS - 1),
+        "pfa_paged_decode_fused": cfg.n_layer * (NEW_TOKENS - 1),
     }
     for name, n in need.items():
         got = launches.get(name, 0)
@@ -1948,8 +2291,10 @@ def phase_serving(smi: str) -> dict:
     print(f"main path: {len(prompts)} requests x {NEW_TOKENS} tokens in {wall:.2f} s; "
           f"launches {launches}", flush=True)
     print(f"main path: decode {stats['decode_tokens']} tokens at "
-          f"{stats['decode_tokens_per_s']:.1f} tokens/s, prefill {stats['prefill_tokens']} "
-          f"tokens at {stats['prefill_tokens_per_s']:.1f} tokens/s ({smi})", flush=True)
+          f"{stats['decode_tokens_per_s']:.1f} tokens/s, "
+          f"{1e3 * stats['decode_time'] / max(stats['decode_steps'], 1):.3f} ms a step, prefill "
+          f"{stats['prefill_tokens']} tokens at {stats['prefill_tokens_per_s']:.1f} tokens/s "
+          f"({smi})", flush=True)
 
     chunked_launches = check_chunked_serving(cfg, model, prompts, outs, smi)
 
@@ -2298,7 +2643,7 @@ def check_train_grads(cfg, state: dict, batch: dict, kernels=TRAIN_KERNELS) -> N
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel names)
     ("K1 flash forward", ("flash_fwd",)),
     ("K2 paged token write", ("paged_token_write",)),
-    ("K3 paged decode", ("paged_decode_attend",)),
+    ("K3 paged decode", ("paged_decode_attend", "k3_kernel")),
     ("K4 flash dK/dV", ("bwd_dkv",)),
     ("K5 flash dQ", ("bwd_dq",)),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma")),
@@ -2674,7 +3019,7 @@ def phase_t5(smi: str, profile_dir: Optional[str] = None) -> dict:
                 f"model's rel_err_norm max {max(errs):.3e}")
         if checked and served != firsts:
             raise AssertionError(f"{line}: the dense fp32 model picks {firsts}")
-        for counter in ("pfa_paged_token_write", "pfa_paged_decode_attend_tbias"):
+        for counter in ("pfa_paged_decode_fused_tbias",):
             if runs.get(counter, 0) != need:
                 raise AssertionError(f"{line}: {counter} launched {runs.get(counter, 0)} times, "
                                      f"expected {need}")
@@ -4056,9 +4401,19 @@ def main() -> None:
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile three training steps and one T5 serving run (bf16); "
                              "write the traces and tables into DIR")
+    parser.add_argument("--k3-table", action="store_true",
+                        help="only build, print the K3 table and time GPT-2 medium's decode "
+                             "step (public calls only, so a copy of this script times any tree "
+                             "of the repository); no result line")
     args = parser.parse_args()
     t_script = time.perf_counter()
     smi = phase_device()
+    if args.k3_table:
+        phase_build(sass=False)
+        time_k3_modes(collections.defaultdict(dict), smi,
+                      strict=hasattr(paged_ops, "k3_plan"))
+        time_gpt2_decode(smi)
+        return
     phase_build()
     results = phase_kernels(smi)
     roofline_results, by_path, captured_by_path, rates = phase_roofline(

@@ -26,7 +26,9 @@ eight hand-written CUDA kernels for sm_90a (``csrc/``):
 * K3 ``ops.paged.paged_decode_attend``, ``paged_attention_hf`` and
   ``paged_attention`` — one-query attention over a sequence's pages (float
   or int8 compute), with a per-token score bias (``token_bias=``, T5
-  decode);
+  decode), split over the sequence and merged in one launch; and
+  ``paged_decode_attention``, the decode step: K2's write folded into K3,
+  one launch;
 * K4/K5 ``ops.flash_bwd`` — flash-attention backward, dK/dV and dQ;
 * K6 ``ops.flash_fp8.flash_attention_quant`` — fp8/int8 flash attention
   with per-128-row-block Q/K scales and P requantized per block.

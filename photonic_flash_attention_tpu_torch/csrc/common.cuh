@@ -89,6 +89,17 @@ __device__ __forceinline__ int band_q_end(const Streams& st, int kv0, int rows, 
   return stop <= 0 ? 0 : stop >= Sq ? Sq : static_cast<int>(stop);
 }
 
+// K2's per-token int8 quantization (ops/paged.py::_quant_token_write),
+// shared with K3's fused decode: scale absmax / 127 (1 for an all-zero
+// token), payload rintf(x / scale) clipped at +-127. IEEE division and
+// round-half-even, so bit-exact with the plain version.
+__device__ __forceinline__ float token_scale(float amax) {
+  return amax == 0.f ? 1.f : amax / 127.f;
+}
+__device__ __forceinline__ int8_t quant_token_value(float x, float scale) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(x / scale), -127.f), 127.f));
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

@@ -73,6 +73,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` contiguous bytes global -> shared by the TMA's 1-D bulk copy (no
+// tensor map), completing on mbarrier `bar` (complete_tx). Both addresses
+// 16-byte aligned, `bytes` a multiple of 16. K3 stages a page's run of K/V
+// rows and of their scales so.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // 4 bytes global -> shared; valid == false reads nothing and writes 0.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),

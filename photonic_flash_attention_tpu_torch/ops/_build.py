@@ -65,14 +65,16 @@ _SIGNATURES: Dict[str, List] = {
     # k_new, v_new, k_pool, v_pool, k_scales, v_scales, slots,
     # layer, B, Hkv, D, num_pages, page_size, in_dtype, pool_dtype, stream
     "pfa_paged_token_write": [_P] * 7 + [_I] * 8 + [_P],
-    # q, k_pool, v_pool, k_scales, v_scales, lengths, tables, o,
-    # token_bias (or None), layer, B, Hq, Hkv, D, num_pages, page_size,
-    # pages_per_seq, bias_len, sm_scale, pool_dtype, stream
-    "pfa_paged_decode_attend": [_P] * 9 + [_I] * 9 + [_F, _I, _P],
-    # q (or None), q8 (or None), k_pool, v_pool, k_scales, v_scales, lengths,
-    # tables, o, layer, B, Hq, Hkv, D, num_pages, page_size, pages_per_seq,
-    # score_scale, pool_dtype, block_tokens, int8_compute, stream
-    "pfa_paged_hf": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P],
+    # q (or None), q8 (or None), score_scale (or None), k_pool, v_pool,
+    # k_scales, v_scales, lengths, tables, token_bias, k_new, v_new, slots
+    # (the last four or None), o, ws (or None), counters, layer, B, Hq, Hkv,
+    # D, num_pages, page_size, pages_per_seq, bias_len, pool_dtype,
+    # in_dtype, int8_compute, split_pages, n_split, tile, block, gcmax,
+    # sm_scale, stream
+    "pfa_paged_k3": [_P] * 16 + [_I] * 17 + [_F, _P],
+    # B, D, elt, gcmax, int8_compute, tile, split_pages, block: K3's shared
+    # memory bytes; no stream, no launch
+    "pfa_paged_k3_smem": [_I] * 8,
     # q8, k8, v, o, score_scale, v_scales (or None), B, Sq, Skv, Hq, Hkv, D,
     # causal, qk_dtype, pv_int8, out_dtype, stream
     "pfa_flash_fwd_quant": [_P] * 6 + [_I] * 10 + [_P],

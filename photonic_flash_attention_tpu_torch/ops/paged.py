@@ -5,7 +5,9 @@ Port of ``photonic_flash_attention_tpu/ops/paged.py``:
 ``paged_attention_hf`` (the read-only head-folded decode, with its
 int8-compute mode), ``paged_attention`` (the read-only decode of the TPU
 kernel ``_paged_kernel``, on K3's decode attend), ``paged_attention_auto``
-and ``_quant_token_write``. Kernels: ``csrc/paged_decode.cu``.
+and ``_quant_token_write``. Kernels: K2 in ``csrc/paged_decode.cu``, K3
+(split-KV over bulk-copied pages, every mode, and the fused write + attend
+of the decode step) in ``csrc/paged_decode_sm90.cu``.
 
 Pool layout is token-major, ``(L, Hkv, num_pages, page_size, D)``; the JAX
 pools are token-minor ``(L, Hkv, P, D, page)`` for the TPU's 128-lane DMA.
@@ -15,7 +17,10 @@ slot is ``page_id * page_size + offset``; page 0 is the serving engine's
 trash page.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
-plain version for CPU tensors. Pools are updated in place.
+plain version for CPU tensors. Pools are updated in place. The decode step
+(:func:`paged_decode_attention`) is ONE launch on the card, as the TPU
+kernel: K3 writes the token and attends (counted
+``pfa_paged_decode_fused``).
 
 ``token_bias`` (B, Hkv, >= S_cap) fp32 (JAX ``paged_decode_attention(
 token_bias=...)``, the TPU kernel's ``bias_ref``) adds a per-(head,
@@ -26,7 +31,9 @@ decode. K3 takes it in its token-bias mode.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,11 +42,24 @@ from .reference import DEFAULT_MASK_VALUE, softmax_scale
 
 INT8_MAX = 127.0
 POOL_DTYPES = (torch.int8, torch.bfloat16, torch.float32)
-#: K3 keeps a group's q, scores and accumulator in the dynamic shared memory
-#: a block gets without an opt-in (48 KB); this bounds (Hq/Hkv) * D.
+#: The largest query-head group K3 takes: (Hq/Hkv) * D elements.
 _MAX_GROUP_ELEMS = 4096
-#: Shared memory a K3 block may opt in to on the H100 (227 KB).
-_MAX_ATTEND_SMEM = 232_448
+#: Head dims K3 is compiled for.
+K3_HEAD_DIMS = (64, 128)
+#: Bytes of K and V rows one of K3's ring stages holds (its tile of tokens).
+_K3_STAGE_BYTES = 16384
+#: Tokens of one K3 split (rounded up to whole pages, and to whole requant
+#: blocks in int8 compute): a (sequence, kv head, split) is one work item of
+#: K3's persistent grid. With 1 << 30, every sequence is one split (the
+#: lever that shows what the split buys).
+_K3_SPLIT_TOKENS = 256
+#: Splits a sequence at most: a longer table takes longer splits, so the
+#: last split of a row merges at most this many records.
+_K3_MAX_SPLITS = 32
+#: Shared memory a K3 CTA may take on the H100 (227 KB), its ring stages and
+#: consumer warps (csrc/paged_decode_sm90.cu: NST, NCW).
+_K3_SMEM_MAX = 232_448
+_K3_STAGES, _K3_CONSUMER_WARPS = 4, 4
 
 
 def to_jax_layout(pool: torch.Tensor) -> torch.Tensor:
@@ -214,6 +234,155 @@ def paged_token_write(
     )
 
 
+# -- K3: the plan and the launch ---------------------------------------------
+
+
+class K3Plan(NamedTuple):
+    """How K3 cuts one call (csrc/paged_decode_sm90.cu): ``tile`` tokens a
+    ring stage, splits of ``split_pages`` pages (``n_split`` of them a
+    sequence), up to ``gcmax`` query heads a CTA (``n_gchunk`` CTAs a kv
+    head's group), the int8-compute requant ``block`` in tokens (0 in float
+    mode) and the CTA's shared memory in bytes."""
+
+    tile: int
+    split_pages: int
+    n_split: int
+    gcmax: int
+    n_gchunk: int
+    block: int
+    smem: int
+
+
+def _align(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def k3_smem(b: int, d: int, elt: int, gcmax: int, tile: int, split_pages: int,
+            block: int) -> int:
+    """K3's shared memory (the kernel's ``k3_layout``): mbarriers and a
+    flag, the batch's lengths and their prefix of active items, a split's
+    page ids, the new token's rows, the warps' end-of-split states (float
+    mode) or the int8-compute block state (``block`` > 0), the ring."""
+    off = (2 * _K3_STAGES * 8 + 16 + _align((2 * b + 1) * 4, 16) + _align(split_pages * 4, 16)
+           + _align(2 * d * elt + 16, 16))
+    if block:
+        off += 4 * (gcmax * block + block + 2 * gcmax * d + 4 * gcmax)
+    else:
+        off += 4 * _K3_CONSUMER_WARPS * gcmax * (d + 2)
+    stage = _align(tile * (2 * d * elt + (8 if elt == 1 else 0)), 128)
+    return _align(off, 128) + _K3_STAGES * stage
+
+
+@functools.lru_cache(maxsize=256)
+def k3_plan(b: int, hq: int, hkv: int, d: int, elt: int, page: int, pps: int,
+            block_pages: Optional[int] = None) -> K3Plan:
+    """K3's work items and tiles for B sequences of ``pps`` page-table
+    entries of ``page`` tokens, from the shapes alone (never from
+    ``lengths``: no host read). ``block_pages`` (int8 compute) is the
+    requant block: splits are whole blocks. Raises ValueError for a call K3
+    does not take.
+
+    Tile: the tokens whose K and V rows fill ``_K3_STAGE_BYTES``, cut to
+    divide the page (or a whole number of pages). Heads: the group in one
+    CTA when G = 1, else in chunks of 2 x elt heads, at most 4 (32 fp32
+    registers of q and of the accumulator a lane, 16 for fp32 pools).
+    Split: ``_K3_SPLIT_TOKENS``, or 1 / ``_K3_MAX_SPLITS`` of the table if
+    that is more, rounded up to whole pages (blocks), at most the table.
+    Cached: decode calls it once a layer a step with the same shapes."""
+    if b <= 0:
+        raise ValueError(f"K3 needs a batch, got B {b}")
+    if d not in K3_HEAD_DIMS:
+        raise ValueError(f"K3 needs D in {K3_HEAD_DIMS}, got {d}")
+    if hkv <= 0 or hq % hkv or hq * d > _MAX_GROUP_ELEMS * hkv:
+        raise ValueError(f"K3 needs Hq % Hkv == 0 and (Hq/Hkv)*D <= {_MAX_GROUP_ELEMS}; "
+                         f"got Hq {hq}, Hkv {hkv}, D {d}")
+    if page <= 0 or pps <= 0:
+        raise ValueError(f"K3 needs pages of >= 1 token and a page table; got page {page}, "
+                         f"pages_per_seq {pps}")
+    if elt == 1 and page % 4:
+        raise ValueError(f"K3 needs page_size % 4 == 0 for an int8 pool (its scales are "
+                         f"bulk-copied in 16-byte runs); got {page}")
+    cap = _K3_STAGE_BYTES // (2 * d * elt)
+    tile = math.gcd(page, cap) if page >= cap else cap // page * page
+    group = hq // hkv
+    gcmax = 1 if group == 1 else min(2 * elt, 4)
+    n_gchunk = -(-group // gcmax)
+    unit = block_pages or 1
+    n_units = -(-pps // unit)
+    tokens = max(_K3_SPLIT_TOKENS, -(-pps * page // _K3_MAX_SPLITS))
+    units = min(n_units, max(1, -(-tokens // (unit * page))))
+    split_pages = units * unit
+    n_split = -(-pps // split_pages)
+    block = unit * page if block_pages else 0
+    smem = k3_smem(b, d, elt, gcmax, tile, split_pages, block)
+    if smem > _K3_SMEM_MAX:
+        raise ValueError(f"K3 needs its CTA in {_K3_SMEM_MAX} bytes of shared memory; a split "
+                         f"of {split_pages} pages, tile {tile}, block {block} tokens, "
+                         f"{gcmax} heads, D {d} take {smem}")
+    return K3Plan(tile, split_pages, n_split, gcmax, n_gchunk, block, smem)
+
+
+#: K3's arrival counters, one int32 a (sequence, kv head, head chunk), by
+#: device: zeros at allocation, and the last split of each row resets its
+#: counter, so they are zeros between launches without a memset per call.
+#: They belong to one launch at a time (one stream).
+_K3_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _k3_counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _K3_COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K3's counters must be allocated before CUDA-graph capture: "
+                               "run the call once outside the capture first")
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _K3_COUNTERS[device] = buf
+    return buf
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _k3_launch(count_as: str, device: torch.device, q, k_pages, v_pages, k_scales, v_scales,
+               lengths, page_indices, layer: int, sm_scale: float, *, q8=None,
+               score_scale=None, token_bias=None, k_new=None, v_new=None, flat_slots=None,
+               block_pages: Optional[int] = None) -> torch.Tensor:
+    """One K3 launch on rank-5 pools, counted under ``count_as``; returns o
+    (B, Hq, D) fp32. Float mode takes ``q`` fp32; int8 compute ``q8`` and
+    its ``score_scale`` (a device scalar) with ``block_pages``; the fused
+    decode ``k_new``, ``v_new`` and ``flat_slots``."""
+    b, hq, d = (q if q is not None else q8).shape
+    _, hkv, num_pages, page, _ = k_pages.shape
+    pps = page_indices.shape[1]
+    plan = k3_plan(b, hq, hkv, d, k_pages.element_size(), page, pps, block_pages)
+    for t in (k_pages, v_pages, k_scales, v_scales):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("K3 needs its pools and scales 16-byte aligned")
+    o = torch.empty(b, hq, d, device=device, dtype=torch.float32)
+    rows = b * hkv * plan.n_gchunk
+    ws = None
+    if plan.n_split > 1:  # the splits' (m, l, acc) records
+        ws = torch.empty(rows * plan.n_split * plan.gcmax * (d + 2), device=device,
+                         dtype=torch.float32)
+    counters = _k3_counters(device, rows)
+    fused = flat_slots is not None
+    _build.launch(
+        "pfa_paged_k3", device,
+        _ptr(q), _ptr(q8), _ptr(score_scale), k_pages.data_ptr(), v_pages.data_ptr(),
+        _ptr(k_scales), _ptr(v_scales), lengths.data_ptr(), page_indices.data_ptr(),
+        _ptr(token_bias), _ptr(k_new), _ptr(v_new), _ptr(flat_slots), o.data_ptr(), _ptr(ws),
+        counters.data_ptr(),
+        int(layer), b, hq, hkv, d, num_pages, page, pps,
+        token_bias.shape[-1] if token_bias is not None else 0,
+        _build.DTYPE_CODES[k_pages.dtype],
+        _build.DTYPE_CODES[k_new.dtype] if fused else 0, int(q8 is not None),
+        plan.split_pages, plan.n_split, plan.tile, plan.block, plan.gcmax, float(sm_scale),
+        count_as=count_as,
+    )
+    return o
+
+
 # -- K3: decode attention ----------------------------------------------------
 
 
@@ -246,6 +415,21 @@ def fit_token_bias(token_bias: torch.Tensor, b: int, hkv: int, s_cap: int) -> to
     return tb[..., :s_cap].contiguous()
 
 
+def _check_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
+                  layer: int) -> None:
+    _check_pools(k_pages, v_pages, k_scales, v_scales, layer)
+    if q.ndim != 3 or q.dtype != torch.float32:
+        raise ValueError(f"q must be float32 (B, Hq, D), got {q.dtype} {tuple(q.shape)}")
+    b, hq, d = q.shape
+    hkv = k_pages.shape[1]
+    if hq % hkv or k_pages.shape[4] != d:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools {tuple(k_pages.shape)}")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise ValueError("lengths must be int32 (B,)")
+    if page_indices.ndim != 2 or page_indices.shape[0] != b or page_indices.dtype != torch.int32:
+        raise ValueError("page_indices must be int32 (B, pages_per_seq)")
+
+
 def paged_decode_attend(
     q: torch.Tensor,  # (B, Hq, D) float32
     k_pages: torch.Tensor,
@@ -260,9 +444,10 @@ def paged_decode_attend(
     token_bias: Optional[torch.Tensor] = None,  # (B, Hkv, S) fp32
 ) -> torch.Tensor:
     """One query token per sequence over its first ``lengths[b]`` pooled
-    tokens (K3). Returns (B, Hq, D) float32; zeros where length is 0.
-    ``token_bias`` (B, Hkv, S), padded or cut to pages_per_seq * page,
-    takes K3's token-bias mode (counted ``pfa_paged_decode_attend_tbias``)."""
+    tokens (K3, the pool read only). Returns (B, Hq, D) float32; zeros where
+    length is 0. ``token_bias`` (B, Hkv, S), padded or cut to pages_per_seq
+    * page, takes K3's token-bias mode (counted
+    ``pfa_paged_decode_attend_tbias``)."""
     return _k3_attend(q, k_pages, v_pages, lengths, page_indices, layer, k_scales, v_scales,
                       sm_scale, token_bias, None)
 
@@ -270,17 +455,9 @@ def paged_decode_attend(
 def _k3_attend(q, k_pages, v_pages, lengths, page_indices, layer: int, k_scales, v_scales,
                sm_scale: Optional[float], token_bias, count_as: Optional[str]) -> torch.Tensor:
     """:func:`paged_decode_attend`, counted under ``count_as`` when given."""
-    _check_pools(k_pages, v_pages, k_scales, v_scales, layer)
-    if q.ndim != 3 or q.dtype != torch.float32:
-        raise ValueError(f"q must be float32 (B, Hq, D), got {q.dtype} {tuple(q.shape)}")
-    b, hq, d = q.shape
+    _check_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, layer)
+    b, _, d = q.shape
     hkv = k_pages.shape[1]
-    if hq % hkv or k_pages.shape[4] != d:
-        raise ValueError(f"q {tuple(q.shape)} does not fit pools {tuple(k_pages.shape)}")
-    if lengths.shape != (b,) or lengths.dtype != torch.int32:
-        raise ValueError("lengths must be int32 (B,)")
-    if page_indices.ndim != 2 or page_indices.shape[0] != b or page_indices.dtype != torch.int32:
-        raise ValueError("page_indices must be int32 (B, pages_per_seq)")
     scale = softmax_scale(d, sm_scale)
     s_cap = page_indices.shape[1] * k_pages.shape[3]
     if token_bias is not None:
@@ -290,24 +467,13 @@ def _k3_attend(q, k_pages, v_pages, lengths, page_indices, layer: int, k_scales,
             q, k_pages, v_pages, lengths, page_indices, layer, k_scales, v_scales, scale,
             token_bias,
         )
-    if d % 8 or hq * d > _MAX_GROUP_ELEMS * hkv:
-        raise ValueError(f"K3 needs D % 8 == 0 and (Hq/Hkv)*D <= {_MAX_GROUP_ELEMS}")
-    quantized = k_scales is not None
     device = _check_cuda(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
                          token_bias)
-    o = torch.empty_like(q)
-    _build.launch(
-        "pfa_paged_decode_attend", device,
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr() if quantized else None,
-        v_scales.data_ptr() if quantized else None,
-        lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(),
-        token_bias.data_ptr() if token_bias is not None else None,
-        int(layer), b, hq, hkv, d, k_pages.shape[2], k_pages.shape[3],
-        page_indices.shape[1], s_cap, float(scale), _build.DTYPE_CODES[k_pages.dtype],
-        count_as=count_as or ("pfa_paged_decode_attend_tbias" if token_bias is not None else None),
-    )
-    return o
+    if count_as is None:
+        count_as = ("pfa_paged_decode_attend_tbias" if token_bias is not None
+                    else "pfa_paged_decode_attend")
+    return _k3_launch(count_as, device, q, k_pages, v_pages, k_scales, v_scales, lengths,
+                      page_indices, layer, scale, token_bias=token_bias)
 
 
 def paged_decode_attention(
@@ -326,19 +492,48 @@ def paged_decode_attention(
     sm_scale: Optional[float] = None,
     token_bias: Optional[torch.Tensor] = None,  # (B, Hkv, >= S_cap) fp32
 ) -> torch.Tensor:
-    """Decode step for one layer: write the token's K/V into the pool (K2),
-    then attend over it (K3, with ``token_bias`` in its token-bias mode).
-    Pools are updated IN PLACE; returns o (B, Hq, D) float32. The JAX
-    function returns the updated pools instead."""
-    if k_scales is None:
-        k_new, v_new = k_new.to(k_pages.dtype), v_new.to(v_pages.dtype)
-    paged_token_write(
-        k_new, v_new, k_pages, v_pages, k_scales, v_scales, flat_slots, layer
-    )
-    return paged_decode_attend(
-        q, k_pages, v_pages, lengths, page_indices, layer, k_scales, v_scales,
-        sm_scale=sm_scale, token_bias=token_bias,
-    )
+    """Decode step for one layer: write the token's K/V into the pool, then
+    attend over it (with ``token_bias`` in K3's token-bias mode). Pools are
+    updated IN PLACE; returns o (B, Hq, D) float32. The JAX function
+    returns the updated pools instead.
+
+    On the card this is ONE launch of K3's fused mode, as the TPU kernel
+    (counted ``pfa_paged_decode_fused``, ``pfa_paged_decode_fused_tbias``
+    with a bias): the token is written as K2 writes it (bit for bit) and
+    the output equals the write followed by the attend, wherever
+    ``flat_slots`` lies; k/v_new may be bf16 or fp32 for any pool. On the
+    CPU, the plain write (K2's plain version) then the plain attend."""
+    if q.device.type == "cpu":
+        if k_scales is None:
+            k_new, v_new = k_new.to(k_pages.dtype), v_new.to(v_pages.dtype)
+        paged_token_write(
+            k_new, v_new, k_pages, v_pages, k_scales, v_scales, flat_slots, layer
+        )
+        return paged_decode_attend(
+            q, k_pages, v_pages, lengths, page_indices, layer, k_scales, v_scales,
+            sm_scale=sm_scale, token_bias=token_bias,
+        )
+    _check_decode(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, layer)
+    b, _, d = q.shape
+    hkv = k_pages.shape[1]
+    if k_new.shape != (b, hkv, d) or v_new.shape != k_new.shape:
+        raise ValueError(f"k/v_new must be (B, Hkv, D) = ({b}, {hkv}, {d}); got "
+                         f"{tuple(k_new.shape)}, {tuple(v_new.shape)}")
+    if k_new.dtype not in (torch.bfloat16, torch.float32) or v_new.dtype != k_new.dtype:
+        raise ValueError(f"k/v_new must be bf16 or fp32 and alike, got {k_new.dtype}, "
+                         f"{v_new.dtype}")
+    if flat_slots.shape != (b,) or flat_slots.dtype != torch.int32:
+        raise ValueError("flat_slots must be int32 (B,)")
+    scale = softmax_scale(d, sm_scale)
+    if token_bias is not None:
+        s_cap = page_indices.shape[1] * k_pages.shape[3]
+        token_bias = fit_token_bias(token_bias.to(q.device), b, hkv, s_cap)
+    device = _check_cuda(q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, lengths,
+                         page_indices, flat_slots, token_bias)
+    name = "pfa_paged_decode_fused" + ("_tbias" if token_bias is not None else "")
+    return _k3_launch(name, device, q, k_pages, v_pages, k_scales, v_scales, lengths,
+                      page_indices, layer, scale, token_bias=token_bias, k_new=k_new,
+                      v_new=v_new, flat_slots=flat_slots)
 
 
 # -- K3 as paged_attention_hf ------------------------------------------------
@@ -486,33 +681,17 @@ def paged_attention_hf(
             q, k_pages, v_pages, lengths, page_indices, lyr, k_scales, v_scales,
             scale, pages_per_block, int8_compute,
         ).to(q.dtype)
-    block_tokens = pages_per_block * k_pages.shape[3]
-    group = hq // hkv
-    smem = 8 * block_tokens + 4 * (2 * group * d + group * block_tokens + block_tokens + 4 * group)
-    if d % 8 or smem > _MAX_ATTEND_SMEM:
-        raise ValueError(
-            f"K3 needs D % 8 == 0 and its block ({block_tokens} tokens, group {group}, "
-            f"D {d}) in {_MAX_ATTEND_SMEM} bytes of shared memory; got {smem}"
-        )
     device = _check_cuda(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices)
     qf = q.float().contiguous()
     if int8_compute:
         q8, qs = _quant_per_tensor(qf)
-        # One host read of the scale: the kernel takes it as an argument.
-        score_scale, q_arg, q8_arg = float(qs * scale), None, q8.data_ptr()
+        # q's dequant scale x sm_scale stays on the card (no host read).
+        o = _k3_launch("pfa_paged_hf_int8", device, None, k_pages, v_pages, k_scales, v_scales,
+                       lengths, page_indices, lyr, scale, q8=q8, score_scale=qs * scale,
+                       block_pages=pages_per_block)
     else:
-        score_scale, q_arg, q8_arg = scale, qf.data_ptr(), None
-    o = torch.empty(b, hq, d, device=q.device, dtype=torch.float32)
-    _build.launch(
-        "pfa_paged_hf", device,
-        q_arg, q8_arg, k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr() if quantized else None,
-        v_scales.data_ptr() if quantized else None,
-        lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(),
-        lyr, b, hq, hkv, d, k_pages.shape[2], k_pages.shape[3], page_indices.shape[1],
-        float(score_scale), _build.DTYPE_CODES[k_pages.dtype], block_tokens, int(int8_compute),
-        count_as="pfa_paged_hf_int8" if int8_compute else "pfa_paged_hf",
-    )
+        o = _k3_launch("pfa_paged_hf", device, qf, k_pages, v_pages, k_scales, v_scales,
+                       lengths, page_indices, lyr, scale)
     return o.to(q.dtype)
 
 
@@ -540,7 +719,7 @@ def paged_attention(
     computed in fp32 and the result returned in q's dtype; zeros for a row
     of length 0, as the TPU kernel gives. Rank-5 pools need ``layer``.
     ``pages_per_block`` is the TPU kernel's DMA block: it is checked and
-    has no counterpart (a K3 block reads its own pages)."""
+    has no counterpart (K3 stages its own pages)."""
     if pages_per_block <= 0:
         raise ValueError(f"pages_per_block must be positive, got {pages_per_block}")
     if q.ndim != 3 or not q.is_floating_point():
@@ -568,7 +747,8 @@ def paged_attention_auto(
 ) -> torch.Tensor:
     """Device-aware dispatch (JAX ``paged_attention_auto``): on CUDA,
     :func:`paged_attention` (K3), which raises for a pool K3 does not take
-    (D % 8 != 0, or a group (Hq/Hkv) * D above 4096); on the CPU :func:`paged_attention_xla` on the
+    (D not 64 or 128, a group (Hq/Hkv) * D above 4096, an int8 pool's page
+    not a multiple of 4); on the CPU :func:`paged_attention_xla` on the
     layer's slice, as JAX's non-TPU branch. The choice comes from the
     device alone. As in JAX, the two branches differ on a row of length 0:
     the kernel gives 0, the gather averages the masked keys."""

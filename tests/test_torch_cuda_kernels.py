@@ -8,7 +8,9 @@ file imports no JAX, so it also runs on a machine that has none:
 (``--noconftest`` because ``tests/conftest.py`` sets up JAX.) Each kernel
 test checks that the wrapper launched its kernel exactly once and that the
 result agrees with the plain version on the same inputs: K1 within
-``rel_err_norm`` 1e-2 (bf16) or 1e-4 (fp32), K2 bit-exact, K3 within 1e-4.
+``rel_err_norm`` 1e-2 (bf16) or 1e-4 (fp32), K2 bit-exact, K3 within 1e-4
+(1e-3 in int8 compute; its fused decode writes the pools bit-exact with
+K2's plain version; two launches give the same bits).
 The serving engine on the GPU must pick the same greedy tokens as on the
 CPU, where it runs the plain versions.
 
@@ -40,8 +42,12 @@ from photonic_flash_attention_tpu_torch.ops.flash import (
 from photonic_flash_attention_tpu_torch.ops.flash_unrolled import flash_attention_unrolled
 from photonic_flash_attention_tpu_torch.ops.reference import attention_reference
 from photonic_flash_attention_tpu_torch.ops.paged import (
+    k3_plan,
+    paged_attention_hf,
+    paged_attention_hf_plain,
     paged_decode_attend,
     paged_decode_attend_plain,
+    paged_decode_attention,
     paged_token_write,
     paged_token_write_plain,
 )
@@ -174,7 +180,8 @@ def test_paged_kernels_match_plain(kv, cuda_device):
 @pytest.mark.parametrize("kv", ["f32", "int8"])
 def test_serving_engine_matches_cpu(kv, cuda_device):
     """fp32 GPT-2 with head dim 64 (K1's envelope): the engine on the GPU,
-    through K1, K2 and K3, gives the CPU engine's greedy tokens."""
+    through K1 and K3's fused decode (the token write and the attend in one
+    launch), gives the CPU engine's greedy tokens."""
     cfg = GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2,
                      n_head=2, dtype=torch.float32)
     state = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
@@ -188,8 +195,279 @@ def test_serving_engine_matches_cpu(kv, cuda_device):
         prompts, max_new_tokens=10
     )
     assert gpu == cpu
-    for name in ("pfa_flash_fwd", "pfa_paged_token_write", "pfa_paged_decode_attend"):
+    for name in ("pfa_flash_fwd", "pfa_paged_decode_fused"):
         assert _build.LAUNCHES[name] > before.get(name, 0)
+
+
+# -- K3 (csrc/paged_decode_sm90.cu) at its split and page edges ----------------
+#
+# Pages of 16 tokens, 64 a sequence (capacity 1024): k3_plan cuts these
+# calls into splits of 256 tokens (16 pages), so the lengths below sit on
+# both sides of a page end and of a split end. The plain versions run on
+# the same card, on the same inputs.
+
+K3_PAGE, K3_PPS = 16, 64
+
+
+def _k3_lengths(split: int):
+    cap = K3_PAGE * K3_PPS
+    return [0, 1, K3_PAGE - 1, K3_PAGE, K3_PAGE + 1, split - 1, split, split + 1,
+            2 * split + 1, cap - 1, cap]
+
+
+def _k3_problem(dev, kv: str, hq: int, hkv: int, d: int, lengths, seed: int = 0, L: int = 2,
+                page: int = K3_PAGE, pps: int = K3_PPS):
+    """Pools (L, Hkv, P, page, D) with scattered, distinct pages per
+    sequence, q fp32, the new token's K/V (bf16) and the slot of position
+    lengths[b] - 1 (trash page 0 for a length of 0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = len(lengths)
+    num_pages = b * pps + 4
+    shape = (L, hkv, num_pages, page, d)
+    if kv == "int8":
+        pools = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        pools += [torch.rand(shape[:4], generator=gen, device=dev) * 0.05 + 1e-3
+                  for _ in range(2)]
+    else:
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16}[kv]
+        pools = [torch.randn(shape, generator=gen, device=dev).to(dt) for _ in range(2)]
+        pools += [None, None]
+    tables = (torch.randperm(num_pages - 1, generator=gen, device=dev)[: b * pps] + 1)
+    tables = tables.view(b, pps).to(torch.int32)
+    slots = torch.zeros(b, dtype=torch.int32, device=dev)
+    for i, n in enumerate(lengths):
+        if n:
+            slots[i] = tables[i, (n - 1) // page] * page + (n - 1) % page
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn(b, hq, d, generator=gen, device=dev)
+    k_new, v_new = (torch.randn(b, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+    return q, pools, lens, tables, slots, k_new, v_new
+
+
+def _k3_split(q, pools, tables) -> tuple:
+    """(tokens a split, splits a sequence) of k3_plan for this call."""
+    b, hq, d = q.shape
+    plan = k3_plan(b, hq, pools[0].shape[1], d, pools[0].element_size(), pools[0].shape[3],
+                   tables.shape[1])
+    return plan.split_pages * pools[0].shape[3], plan.n_split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+def test_k3_attend_edges_match_plain(kv, d, cuda_device):
+    """The read-only attend at every split and page edge, a row of 0 and a
+    full table: within 1e-4 of the plain version, zeros at length 0."""
+    lengths = _k3_lengths(256)
+    q, pools, lens, tables, *_ = _k3_problem(cuda_device, kv, 4, 2, d, lengths)
+    assert _k3_split(q, pools, tables) == (256, 4)
+    before = _build.LAUNCHES["pfa_paged_decode_attend"]
+    out = paged_decode_attend(q, pools[0], pools[1], lens, tables, 1, pools[2], pools[3])
+    want = paged_decode_attend_plain(q, pools[0], pools[1], lens, tables, 1, pools[2], pools[3],
+                                     d ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfa_paged_decode_attend"] == before + 1
+    assert torch.all(out[0] == 0) and torch.isfinite(out).all()
+    assert rel_err_norm(out, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot", ["last", "elsewhere"])
+@pytest.mark.parametrize("new_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+def test_k3_fused_matches_write_then_attend(kv, new_dtype, slot, cuda_device):
+    """The fused decode (one pfa_paged_decode_fused launch) against K2's
+    plain write then K3's plain attend: pools and scales bit-exact, output
+    within 1e-4, zeros at length 0. "elsewhere" writes the token at an
+    earlier position of its sequence, not at lengths[b] - 1: the output
+    must still be the attend over the written pool."""
+    lengths = _k3_lengths(256)
+    q, pools, lens, tables, slots, k_new, v_new = _k3_problem(cuda_device, kv, 4, 2, 64,
+                                                              lengths, seed=3)
+    if slot == "elsewhere":
+        for i, n in enumerate(lengths):
+            if n > 1:
+                p = (3 * n) // 7
+                slots[i] = tables[i, p // K3_PAGE] * K3_PAGE + p % K3_PAGE
+    if new_dtype == "f32":
+        k_new, v_new = k_new.float() * 1.7, v_new.float() * 1.7
+    ref = [t.clone() if t is not None else None for t in pools]
+    before = _build.LAUNCHES["pfa_paged_decode_fused"]
+    out = paged_decode_attention(q, k_new, v_new, pools[0], pools[1], lens, tables, slots, 1,
+                                 pools[2], pools[3])
+    paged_token_write_plain(k_new, v_new, *ref, slots, 1)
+    want = paged_decode_attend_plain(q, ref[0], ref[1], lens, tables, 1, ref[2], ref[3],
+                                     64 ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfa_paged_decode_fused"] == before + 1
+    for got, exp in zip(pools, ref):
+        if got is not None:
+            assert torch.equal(got, exp)
+    assert torch.all(out[0] == 0) and torch.isfinite(out).all()
+    assert rel_err_norm(out, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+def test_k3_gqa_d128_matches_plain(kv, cuda_device):
+    """Hq 32 over Hkv 8 at D 128 (head chunks of 2, 4 or 8 query heads a
+    CTA by pool type): the attend and the fused decode within 1e-4."""
+    lengths = [0, 1, 300, 513, 1000, 1024]
+    q, pools, lens, tables, slots, k_new, v_new = _k3_problem(cuda_device, kv, 32, 8, 128,
+                                                              lengths, seed=5)
+    out = paged_decode_attend(q, pools[0], pools[1], lens, tables, 0, pools[2], pools[3])
+    want = paged_decode_attend_plain(q, pools[0], pools[1], lens, tables, 0, pools[2], pools[3],
+                                     128 ** -0.5)
+    torch.cuda.synchronize()
+    assert rel_err_norm(out, want) <= 1e-4 and torch.all(out[0] == 0)
+    ref = [t.clone() if t is not None else None for t in pools]
+    out = paged_decode_attention(q, k_new, v_new, pools[0], pools[1], lens, tables, slots, 0,
+                                 pools[2], pools[3])
+    paged_token_write_plain(k_new, v_new, *ref, slots, 0)
+    want = paged_decode_attend_plain(q, ref[0], ref[1], lens, tables, 0, ref[2], ref[3],
+                                     128 ** -0.5)
+    torch.cuda.synchronize()
+    for got, exp in zip(pools, ref):
+        if got is not None:
+            assert torch.equal(got, exp)
+    assert rel_err_norm(out, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+def test_k3_partial_head_chunk_matches_plain(kv, cuda_device):
+    """G = 3 (Hq 6 over Hkv 2): a head chunk of 2 and one of 1 (int8), or
+    one chunk holding 3 of its 4 heads (bf16, fp32); attend and fused
+    decode within 1e-4."""
+    lengths = _k3_lengths(256)
+    q, pools, lens, tables, slots, k_new, v_new = _k3_problem(cuda_device, kv, 6, 2, 64,
+                                                              lengths, seed=17)
+    ref = [t.clone() if t is not None else None for t in pools]
+    out = paged_decode_attend(q, pools[0], pools[1], lens, tables, 1, pools[2], pools[3])
+    want = paged_decode_attend_plain(q, pools[0], pools[1], lens, tables, 1, pools[2], pools[3],
+                                     64 ** -0.5)
+    torch.cuda.synchronize()
+    assert rel_err_norm(out, want) <= 1e-4 and torch.all(out[0] == 0)
+    out = paged_decode_attention(q, k_new, v_new, pools[0], pools[1], lens, tables, slots, 1,
+                                 pools[2], pools[3])
+    paged_token_write_plain(k_new, v_new, *ref, slots, 1)
+    want = paged_decode_attend_plain(q, ref[0], ref[1], lens, tables, 1, ref[2], ref[3],
+                                     64 ** -0.5)
+    torch.cuda.synchronize()
+    for got, exp in zip(pools, ref):
+        if got is not None:
+            assert torch.equal(got, exp)
+    assert rel_err_norm(out, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_k3_token_bias_across_splits(kv, cuda_device):
+    """The token-bias mode with rows across split ends, read-only and fused:
+    the bias follows the token's logical position (pages scattered), within
+    1e-4 of the plain version."""
+    lengths = _k3_lengths(256)
+    q, pools, lens, tables, slots, k_new, v_new = _k3_problem(cuda_device, kv, 4, 4, 64,
+                                                              lengths, seed=7)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    bias = torch.randn(len(lengths), 4, K3_PPS * K3_PAGE, generator=gen, device=cuda_device) * 2
+    before = _build.LAUNCHES["pfa_paged_decode_attend_tbias"]
+    out = paged_decode_attend(q, pools[0], pools[1], lens, tables, 1, pools[2], pools[3],
+                              sm_scale=1.0, token_bias=bias)
+    want = paged_decode_attend_plain(q, pools[0], pools[1], lens, tables, 1, pools[2], pools[3],
+                                     1.0, bias)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfa_paged_decode_attend_tbias"] == before + 1
+    assert rel_err_norm(out, want) <= 1e-4
+    ref = [t.clone() if t is not None else None for t in pools]
+    before = _build.LAUNCHES["pfa_paged_decode_fused_tbias"]
+    out = paged_decode_attention(q, k_new, v_new, pools[0], pools[1], lens, tables, slots, 1,
+                                 pools[2], pools[3], sm_scale=1.0, token_bias=bias)
+    paged_token_write_plain(k_new, v_new, *ref, slots, 1)
+    want = paged_decode_attend_plain(q, ref[0], ref[1], lens, tables, 1, ref[2], ref[3], 1.0,
+                                     bias)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfa_paged_decode_fused_tbias"] == before + 1
+    assert rel_err_norm(out, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ppb", [1, 3, 5, 8])
+def test_k3_int8_compute_matches_plain(ppb, cuda_device):
+    """paged_attention_hf's int8 compute at requant blocks of 1, 3, 5 and 8
+    pages (3 and 5 divide neither the float split nor the 64-page table):
+    within 1e-3 of the plain recurrence over the same blocks."""
+    lengths = _k3_lengths(256)
+    q, pools, lens, tables, *_ = _k3_problem(cuda_device, "int8", 4, 2, 64, lengths, seed=9)
+    before = _build.LAUNCHES["pfa_paged_hf_int8"]
+    out = paged_attention_hf(q, pools[0], pools[1], lens, tables, pools[2], pools[3],
+                             pages_per_block=ppb, layer=1)
+    want = paged_attention_hf_plain(q, pools[0], pools[1], lens, tables, 1, pools[2], pools[3],
+                                    64 ** -0.5, ppb, True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfa_paged_hf_int8"] == before + 1
+    assert torch.all(out[0] == 0) and torch.isfinite(out).all()
+    assert rel_err_norm(out, want) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["attend", "fused", "hf_int8"])
+def test_k3_repeat_launches_bit_identical(mode, cuda_device):
+    """Two launches on the same inputs give the same bits: the splits merge
+    in split order, whichever arrives last."""
+    lengths = _k3_lengths(256)
+    q, pools, lens, tables, slots, k_new, v_new = _k3_problem(cuda_device, "int8", 4, 2, 64,
+                                                              lengths, seed=11)
+
+    def call():
+        if mode == "attend":
+            return paged_decode_attend(q, pools[0], pools[1], lens, tables, 1, pools[2], pools[3])
+        if mode == "fused":
+            return paged_decode_attention(q, k_new, v_new, pools[0], pools[1], lens, tables,
+                                          slots, 1, pools[2], pools[3])
+        return paged_attention_hf(q, pools[0], pools[1], lens, tables, pools[2], pools[3],
+                                  pages_per_block=3, layer=1)
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_k3_long_row_matches_plain(cuda_device):
+    """B1 H32 D128 bf16, one row of 32768 tokens (256 pages of 128): the
+    read-only attend and the fused decode within 1e-4."""
+    q, pools, lens, tables, slots, k_new, v_new = _k3_problem(
+        cuda_device, "bf16", 32, 32, 128, [32768], seed=13, L=1, page=128, pps=256)
+    assert _k3_split(q, pools, tables)[1] > 1
+    out = paged_decode_attend(q, pools[0], pools[1], lens, tables, 0)
+    want = paged_decode_attend_plain(q, pools[0], pools[1], lens, tables, 0, None, None,
+                                     128 ** -0.5)
+    torch.cuda.synchronize()
+    assert rel_err_norm(out, want) <= 1e-4
+    ref = [pools[0].clone(), pools[1].clone(), None, None]
+    out = paged_decode_attention(q, k_new, v_new, pools[0], pools[1], lens, tables, slots, 0)
+    paged_token_write_plain(k_new, v_new, *ref, slots, 0)
+    want = paged_decode_attend_plain(q, ref[0], ref[1], lens, tables, 0, None, None, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(pools[0], ref[0]) and torch.equal(pools[1], ref[1])
+    assert rel_err_norm(out, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_k3_plan_smem_matches_kernel(cuda_device):
+    """k3_plan's shared-memory count equals the kernel's own layout."""
+    lib = _build.lib()
+    for b, hq, hkv, d, elt, page, pps, ppb in [(8, 16, 16, 64, 1, 128, 64, None),
+                                               (8, 32, 32, 128, 2, 128, 32, None),
+                                               (4, 32, 8, 128, 4, 16, 64, None),
+                                               (5, 8, 2, 64, 1, 16, 64, 3),
+                                               (8, 16, 16, 64, 1, 128, 16, 8)]:
+        plan = k3_plan(b, hq, hkv, d, elt, page, pps, ppb)
+        assert plan.smem == lib.pfa_paged_k3_smem(b, d, elt, plan.gcmax, int(ppb is not None),
+                                                  plan.tile, plan.split_pages, plan.block)
 
 
 # (B, Sq, Skv, Hq, Hkv, D, causal): unaligned non-causal cross, square

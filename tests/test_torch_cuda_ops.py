@@ -24,6 +24,7 @@ import torch
 from photonic_flash_attention_tpu_torch.ops import _build
 from photonic_flash_attention_tpu_torch.ops import nonlinearity as nl
 from photonic_flash_attention_tpu_torch.ops.paged import (
+    k3_plan,
     paged_attention,
     paged_attention_auto,
     paged_decode_attend_plain,
@@ -180,3 +181,75 @@ def test_paged_attention_auto_dispatch(cuda_device):
     with pytest.raises(ValueError, match="K3 needs"):
         paged_attention_auto(q_wide, k, v, lens, tables, ks, vs, layer=layer)
     assert _build.LAUNCHES["pfa_paged_attention"] == before + 1
+
+
+# K3's split and page edges through the B14 entry: pages of 16, 64 a
+# sequence, splits of 256 tokens (k3_plan at these shapes).
+EDGE_LENGTHS = (0, 1, 15, 16, 17, 255, 256, 257, 513, 1023, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+def test_paged_attention_split_edges_match_plain(kv, d, cuda_device):
+    rng = np.random.default_rng(21)
+    b, hq, hkv, page, pps = len(EDGE_LENGTHS), 4, 2, 16, 64
+    p = b * pps + 1
+    shape = (hkv, p, page, d)
+    if kv == "int8":
+        k, v = (torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)) for _ in "kv")
+        ks, vs = (torch.from_numpy(rng.uniform(1e-3, 5e-2, shape[:3]).astype(np.float32))
+                  for _ in "kv")
+    else:
+        k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(DTYPES[kv])
+                for _ in "kv")
+        ks = vs = None
+    tables = torch.from_numpy((rng.permutation(p - 1)[: b * pps] + 1).reshape(b, pps)
+                              .astype(np.int32))
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32))
+    lens = torch.tensor(EDGE_LENGTHS, dtype=torch.int32)
+    q, k, v, lens, tables = (t.to(cuda_device) for t in (q, k, v, lens, tables))
+    ks, vs = (None, None) if ks is None else (ks.to(cuda_device), vs.to(cuda_device))
+    plan = k3_plan(b, hq, hkv, d, k.element_size(), page, pps)
+    assert plan.split_pages * page == 256 and plan.n_split == 4
+    before = _build.LAUNCHES["pfa_paged_attention"]
+    out = paged_attention(q, k, v, lens, tables, ks, vs)
+    ref = paged_decode_attend_plain(q, k[None], v[None], lens, tables, 0,
+                                    None if ks is None else ks[None],
+                                    None if vs is None else vs[None], d ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfa_paged_attention"] == before + 1
+    assert (out[0] == 0).all() and torch.isfinite(out).all()
+    assert rel_err_norm(out, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+def test_paged_attention_gqa_d128_matches_plain(kv, cuda_device):
+    """Hq 32 over Hkv 8 at D 128, rank-5 pools, q in bf16 (fp32 over int8)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    b, hq, hkv, d, page, pps, L = 4, 32, 8, 128, 16, 64, 2
+    p = b * pps + 1
+    shape = (L, hkv, p, page, d)
+    if kv == "int8":
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=cuda_device,
+                              dtype=torch.int8) for _ in "kv")
+        ks, vs = (torch.rand(shape[:4], generator=gen, device=cuda_device) * 0.05 + 1e-3
+                  for _ in "kv")
+        qdt = torch.float32
+    else:
+        k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(DTYPES[kv])
+                for _ in "kv")
+        ks = vs = None
+        qdt = torch.bfloat16
+    tables = (torch.randperm(p - 1, generator=gen, device=cuda_device)[: b * pps] + 1)
+    tables = tables.view(b, pps).to(torch.int32)
+    lens = torch.tensor([0, 1, 700, 1024], dtype=torch.int32, device=cuda_device)
+    q = torch.randn(b, hq, d, generator=gen, device=cuda_device).to(qdt)
+    before = _build.LAUNCHES["pfa_paged_attention"]
+    out = paged_attention(q, k, v, lens, tables, ks, vs, layer=1)
+    ref = paged_decode_attend_plain(q.float(), k, v, lens, tables, 1, ks, vs, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfa_paged_attention"] == before + 1
+    assert out.dtype == qdt and (out[0] == 0).all()
+    assert rel_err_norm(out, ref) <= (1e-4 if qdt == torch.float32 else 1e-2)

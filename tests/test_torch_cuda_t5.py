@@ -164,7 +164,7 @@ def test_paged_token_bias_mode_matches_plain(kv, bias_len, cuda_device):
 def test_t5_serving_engine_matches_cpu(kv, cuda_device):
     """fp32 T5 with d_kv 64 (K1's envelope), 2+2 layers: the engine on the
     GPU (K1's relative-bias mode in no path here: the serving encoder is
-    plain; K2 and K3's token-bias mode every decode step) gives the CPU
+    plain; K3's fused decode with the token bias every decode step) gives the CPU
     engine's greedy tokens; the dense model on the GPU (encoder at 512
     tokens, K1's relative-bias mode) gives the CPU model's logits."""
     cfg = dataclasses.replace(T5Config.tiny(), d_model=128, d_kv=64, num_heads=2,
@@ -180,8 +180,8 @@ def test_t5_serving_engine_matches_cpu(kv, cuda_device):
     gpu = ServingEngine(cfg, state, device=cuda_device, **kwargs).generate(
         prompts, max_new_tokens=10)
     assert gpu == cpu
-    for name in ("pfa_paged_token_write", "pfa_paged_decode_attend_tbias"):
-        assert _build.LAUNCHES[name] > before.get(name, 0)
+    assert _build.LAUNCHES["pfa_paged_decode_fused_tbias"] > before.get(
+        "pfa_paged_decode_fused_tbias", 0)
 
     ids = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, 512)))
     dec = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, 24)))
