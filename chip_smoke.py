@@ -13,8 +13,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    plain, window, dropout) must show HGMMA and UTMALDG and no HMMA in the
    library's SASS (``cuobjdump -sass``), printed with its registers and
    stack (``cuobjdump -res-usage``; K4/K5 must have none), tiles, ring
-   stages, shared memory and CTAs a SM; and that K3's 16 instantiations
-   stage pages by the TMA's bulk copy (UBLKCP) with no stack;
+   stages, shared memory and CTAs a SM; that each of the quantized
+   forward's ten instantiations (K1's int8-QK, fp8-QK and int8-full
+   modes and K6 int8 and fp8, D 64 and 128) holds exactly its mode's GMMA
+   kinds (IGMMA s8, QGMMA e4m3, HGMMA bf16/f16) and UTMALDG, no HMMA or
+   IMMA and no stack; and that K3's 16 instantiations stage pages by the
+   TMA's bulk copy (UBLKCP) with no stack;
 3. kernels: each kernel and mode against its plain PyTorch version on the
    card, at the shapes the main paths give it, with kernel, plain and
    library times and the card's bound: K1 (flash forward, its lse, and its
@@ -54,7 +58,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    D128 at 32768 tokens, each by CUDA events, the graph fit and the host
    time a call, beside its bound and share (``--k3-table`` prints only
    this table and GPT-2 medium's decode step, with public calls, so a copy
-   of the script times another tree of the repository);
+   of the script times another tree of the repository); then the quant
+   table (``time_quant_modes``): every quantized mode at the quantized
+   checks' two shapes and B2 S4096 Hq32/Hkv8 D128 causal, the kernel by
+   CUDA events and the graph fit, the whole call, bf16 K1 both ways, the
+   bound and the share (``--quant-table`` prints only this table, the
+   same way);
 4. roofline: the card's record (``hardware.detection``), K9/K10 (HBM read
    and copy) bit for bit and K11 (exp) and K12 (the softmax stream, both
    modes) within their bounds against their plain versions; then, as a
@@ -176,9 +185,8 @@ from photonic_flash_attention_tpu_torch.ops import flash_bwd as bwd_ops
 from photonic_flash_attention_tpu_torch.ops import paged as paged_ops
 from photonic_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
-_FWD = "photonic_flash_attention_tpu_torch/csrc/flash_fwd.cu"
-#: K1's bf16 kernel (every mode the main paths run); fp32 and the quantized
-#: modes stay in _FWD.
+#: K1's bf16 kernel (every mode the main paths run); fp32 stays in
+#: csrc/flash_fwd.cu, the quantized modes are _QUANT90.
 _FWD90 = "photonic_flash_attention_tpu_torch/csrc/flash_fwd_sm90.cu"
 _PAGED = "photonic_flash_attention_tpu_torch/csrc/paged_decode.cu"
 #: K3 in every mode and the fused decode (K2's write folded in); K2 alone
@@ -187,7 +195,8 @@ _PAGED90 = "photonic_flash_attention_tpu_torch/csrc/paged_decode_sm90.cu"
 _BWD = "photonic_flash_attention_tpu_torch/csrc/flash_bwd.cu"
 #: K4/K5's bf16 kernels (every mode the main paths run); fp32 stays in _BWD.
 _BWD90 = "photonic_flash_attention_tpu_torch/csrc/flash_bwd_sm90.cu"
-_QUANT = "photonic_flash_attention_tpu_torch/csrc/flash_quant.cu"
+#: K1's quantized modes and K6: one Hopper body (TMA, 8-bit wgmma).
+_QUANT90 = "photonic_flash_attention_tpu_torch/csrc/flash_quant_sm90.cu"
 _ROWNORM = "photonic_flash_attention_tpu_torch/csrc/rownorm.cu"
 _PROBES = "photonic_flash_attention_tpu_torch/csrc/probes.cu"
 _EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_experiments.cu"
@@ -217,11 +226,11 @@ SOURCES = {
     "pfa_paged_hf_int8": _PAGED90,
     "pfa_flash_bwd_dkv": _BWD90,
     "pfa_flash_bwd_dq": _BWD90,
-    "pfa_flash_fwd_int8qk": _FWD,
-    "pfa_flash_fwd_fp8qk": _FWD,
-    "pfa_flash_fwd_int8full": _FWD,
-    "pfa_flash_quant_fp8": _QUANT,
-    "pfa_flash_quant_int8": _QUANT,
+    "pfa_flash_fwd_int8qk": _QUANT90,
+    "pfa_flash_fwd_fp8qk": _QUANT90,
+    "pfa_flash_fwd_int8full": _QUANT90,
+    "pfa_flash_quant_fp8": _QUANT90,
+    "pfa_flash_quant_int8": _QUANT90,
     "pfa_softmax": _ROWNORM,
     "pfa_layer_norm": _ROWNORM,
     "pfa_rms_norm": _ROWNORM,
@@ -468,8 +477,10 @@ def phase_build(sass: bool = True) -> None:
     counts, usage = sm90_sass(path)
     check_k1_sass(counts, usage)
     check_bwd_sass(counts, usage)
+    check_quant_sass(counts, usage)
     check_k3_sass(path)
-    print(f"K1 SASS, K4/K5 SASS, K3 SASS: checked in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"K1 SASS, K4/K5 SASS, quant SASS, K3 SASS: checked in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
 
 #: K1's bf16 kernel in the library: one instantiation per head dim and mode
@@ -480,6 +491,15 @@ K1_MODES = ("plain", "streams", "rel", "dense", "window", "dropout")
 #: stream mode (csrc/flash_bwd_sm90.cuh::StreamMode, in this order).
 BWD_SM90 = re.compile(r"flash_bwd_(dkv|dq)_sm90ILi(\d+)ELi(\d)E")
 BWD_MODES = ("plain", "window", "dropout")
+#: The quantized forward (K1's 8-bit modes and K6): one instantiation per
+#: head dim and mode (csrc/flash_quant_sm90.cu::QuantMode, in this order),
+#: and the GMMA kinds each must hold (cuobjdump's names: IGMMA s8, QGMMA
+#: e4m3, HGMMA bf16/f16): Q.K^T in its payload type, P.V in bf16 or 8-bit;
+#: K6 fp8's Q.K^T runs in f16 over widened e4m3 (its sums must be fp32).
+QUANT_SM90 = re.compile(r"flash_quant_sm90ILi(\d+)ELi(\d)E")
+QUANT_SASS_MODES = (("int8-QK", {"IGMMA", "HGMMA"}), ("fp8-QK", {"QGMMA", "HGMMA"}),
+                    ("int8-full", {"IGMMA"}), ("K6 int8", {"IGMMA"}), ("K6 fp8", {"HGMMA", "QGMMA"}))
+GMMA_OPS = ("HGMMA", "IGMMA", "QGMMA")
 
 
 def _cuobjdump(flag: str, path: Path) -> str:
@@ -493,14 +513,17 @@ def _sm90_key(name: str):
         return "K1", int(m.group(1)), int(m.group(2))
     if m := BWD_SM90.search(name):
         return "K4" if m.group(1) == "dkv" else "K5", int(m.group(2)), int(m.group(3))
+    if m := QUANT_SM90.search(name):
+        return "quant", int(m.group(1)), int(m.group(2))
     return None
 
 
 def sm90_sass(path: Path) -> tuple:
-    """Every Hopper instantiation's HGMMA (wgmma), UTMALDG (TMA load) and
-    HMMA (mma.sync) counts in the built library's SASS (``cuobjdump
-    -sass``) and its registers, stack, shared and local bytes (``cuobjdump
-    -res-usage``; stack = spills), keyed by ``_sm90_key``."""
+    """Every Hopper instantiation's GMMA (wgmma: HGMMA, IGMMA, QGMMA),
+    UTMALDG (TMA load) and HMMA/IMMA (mma.sync) counts in the built
+    library's SASS (``cuobjdump -sass``) and its registers, stack, shared
+    and local bytes (``cuobjdump -res-usage``; stack = spills), keyed by
+    ``_sm90_key``."""
     counts, cur = {}, None
     for line in _cuobjdump("-sass", path).splitlines():
         if "Function :" in line:
@@ -508,7 +531,7 @@ def sm90_sass(path: Path) -> tuple:
             if cur:
                 counts[cur] = collections.Counter()
         elif cur:
-            for op in ("HGMMA", "UTMALDG", "HMMA"):
+            for op in (*GMMA_OPS, "UTMALDG", "HMMA", "IMMA"):
                 counts[cur][op] += len(re.findall(rf"\b{op}\b", line))
     usage = {}
     for m in re.finditer(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
@@ -618,6 +641,41 @@ def check_bwd_sass(counts: dict, usage: dict) -> None:
         if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"] or not reg or reg[1] or reg[3]:
             raise AssertionError(f"{line}: the bf16 kernel must run on wgmma and TMA only, "
                                  "with no stack")
+        print(line, flush=True)
+
+
+def check_quant_sass(counts: dict, usage: dict) -> None:
+    """The same proof for the quantized forward (K1's int8-QK, fp8-QK and
+    int8-full modes, K6 int8 and fp8; D 64 and 128): each instantiation
+    must hold exactly the GMMA kinds of its mode (QUANT_SASS_MODES) and
+    UTMALDG, no HMMA or IMMA, and no stack or local bytes. Prints the
+    counts, registers, stack and, from ``pfa_quant_sm90_info``, the key
+    tile, ring stages, shared memory, threads, CTAs a SM, the setmaxnreg
+    split and whether tile j's Q.K^T overlaps tile j-1's P.V."""
+    import ctypes
+
+    want = {("quant", d, mode) for d in (64, 128) for mode in range(len(QUANT_SASS_MODES))}
+    got = {key for key in counts if key[0] == "quant"}
+    if got != want:
+        raise AssertionError(f"quant SASS: instantiations {sorted(got)}, want {sorted(want)}")
+    for _, d, mode in sorted(want):
+        c = counts[("quant", d, mode)]
+        name, kinds = QUANT_SASS_MODES[mode]
+        info = (ctypes.c_int * 8)()
+        err = _build.lib().pfa_quant_sm90_info(d, mode, info)
+        if err:
+            raise RuntimeError(f"pfa_quant_sm90_info: CUDA error {err}")
+        reg = usage.get(("quant", d, mode))
+        line = (f"quant SASS D{d} {name}: " + ", ".join(f"{op} {c[op]}" for op in GMMA_OPS) +
+                f", UTMALDG {c['UTMALDG']}, HMMA {c['HMMA']}, IMMA {c['IMMA']}; " +
+                (f"registers {reg[0]} at launch (setmaxnreg: producer {info[5]}, consumers "
+                 f"{info[6]}), stack {reg[1]} B, local {reg[3]} B" if reg
+                 else "cuobjdump -res-usage: no entry") +
+                f"; {info[0]}-key tiles, {info[4]} stages, {info[1]} B shared, {info[2]} threads, "
+                f"{info[3]} CTA(s) a SM, Q.K^T over P.V overlap {'on' if info[7] else 'off'}")
+        if ({op for op in GMMA_OPS if c[op]} != kinds or not c["UTMALDG"] or c["HMMA"] or c["IMMA"]
+                or not reg or reg[1] or reg[3]):
+            raise AssertionError(f"{line}: must run on {sorted(kinds)} and TMA only, with no stack")
         print(line, flush=True)
 
 
@@ -1168,6 +1226,67 @@ def check_flash_quant(results: dict) -> None:
                                      **bnd)
     for name, err in worst.items():
         results[name]["max_abs_err"] = err
+
+
+#: (B, Sq, Skv, Hq, Hkv, D, causal) of the quant table: QUANT_SHAPES, and
+#: the K1 table's D 128 geometry (training, B2 S4096 Hq32/Hkv8 causal).
+QUANT_TABLE_SHAPES = tuple((b, sq, skv, h, h, d, c) for b, sq, skv, h, d, c in QUANT_SHAPES) + (
+    (2, 4096, 4096, 32, 8, 128, True),)
+
+
+def time_quant_modes(results: dict, smi: str, strict: bool = True) -> list:
+    """The quant table: every quantized mode (K1's int8-QK, fp8-QK and
+    int8-full, K6 fp8 and int8) at QUANT_TABLE_SHAPES, bf16 inputs: the
+    kernel on its payloads by CUDA events and by the graph fit (2, 10), the
+    whole public call (the quantization passes included) by events, bf16 K1
+    at the same shape both ways, the bound (``quant_bound``) and the
+    kernel's share of it; the kernel against its plain version and the
+    whole call against the fp32 oracle beside them. Public calls only, so
+    ``strict=False`` times a parent tree with the same script
+    (``--quant-table``); ``strict`` holds QUANT_PLAIN_BOUND and
+    QUANT_REFERENCE_GATE and keeps the first shape's fit in ``results``."""
+    from photonic_flash_attention_tpu_torch.ops.reference import attention_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    modes = _quant_modes()
+    table = []
+    for b, sq, skv, hq, hkv, d, causal in QUANT_TABLE_SHAPES:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        oracle = attention_reference(q.float(), k.float(), v.float(), causal=causal)[0]
+        k1_ev, k1_fit = _both_ms(lambda: flash_ops.flash_attention(q, k, v, causal=causal))
+        shape = f"B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} causal={causal}"
+        for name, (public, prepare, qk_dtype, pv_dtype, _) in modes.items():
+            kernel, plain, scale_bytes = prepare(q, k, v, causal)
+            out, ref, whole = kernel(), plain(), public(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err, err_oracle = rel_err_norm(out, ref), rel_err_norm(whole, oracle)
+            del ref, whole
+            ev, fit = _both_ms(kernel)
+            whole_ev = median_ms(lambda: public(q, k, v, causal=causal))
+            bnd = quant_bound(q, k, causal, qk_dtype, pv_dtype, scale_bytes)
+            row = dict(name=name, shape=shape, ms=ev, fit_ms=fit, whole_call_ms=whole_ev,
+                       bf16_k1_ms=k1_ev, bf16_k1_fit_ms=k1_fit, rel_err_plain=err,
+                       rel_err_oracle=err_oracle, **bnd)
+            table.append(row)
+            line = (f"quant table: {name} {shape}: kernel {ev:.4f} ms (CUDA events), {fit:.4f} ms "
+                    f"(graph fit); whole call {whole_ev:.4f} ms (events); bf16 K1 {k1_ev:.4f} / "
+                    f"{k1_fit:.4f} ms; kernel / bf16 K1 {ev / k1_ev:.3f} (events), "
+                    f"{fit / k1_fit:.3f} (fit); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                    f"kernel at {100 * bnd['bound_ms'] / ev:.2f} % (events), "
+                    f"{100 * bnd['bound_ms'] / fit:.2f} % (fit) of it; vs plain rel_err_norm "
+                    f"{err:.3e} (bound {QUANT_PLAIN_BOUND}), whole call vs fp32 oracle "
+                    f"{err_oracle:.3e} (gate {QUANT_REFERENCE_GATE}) ({smi})")
+            print(line, flush=True)
+            if strict and (err > QUANT_PLAIN_BOUND or err_oracle >= QUANT_REFERENCE_GATE
+                           or not torch.isfinite(out).all()):
+                raise AssertionError(line)
+            if strict and (b, sq, skv, hq, d, causal) == QUANT_SHAPES[0]:
+                results[name]["fit_ms"] = fit
+        del q, k, v, oracle
+        torch.cuda.empty_cache()
+    return table
 
 
 #: Bound on rel_err_norm of each structured-bias mode against its plain
@@ -2240,6 +2359,7 @@ def phase_kernels(smi: str) -> dict:
     check_bwd_edges()
     time_bwd_modes(results, smi)
     results["k3_table"] = time_k3_modes(results, smi)
+    results["quant_table"] = time_quant_modes(results, smi)
     return results
 
 
@@ -4401,6 +4521,10 @@ def main() -> None:
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile three training steps and one T5 serving run (bf16); "
                              "write the traces and tables into DIR")
+    parser.add_argument("--quant-table", action="store_true",
+                        help="only build and print the quant table (public calls only, so a "
+                             "copy of this script times any tree of the repository); no result "
+                             "line")
     parser.add_argument("--k3-table", action="store_true",
                         help="only build, print the K3 table and time GPT-2 medium's decode "
                              "step (public calls only, so a copy of this script times any tree "
@@ -4408,6 +4532,11 @@ def main() -> None:
     args = parser.parse_args()
     t_script = time.perf_counter()
     smi = phase_device()
+    if args.quant_table:
+        phase_build(sass=False)
+        time_quant_modes(collections.defaultdict(dict), smi,
+                         strict="pfa_quant_sm90_info" in _build._SIGNATURES)
+        return
     if args.k3_table:
         phase_build(sass=False)
         time_k3_modes(collections.defaultdict(dict), smi,

@@ -174,7 +174,7 @@ __device__ __forceinline__ void mma_bn(float c[4], const uint32_t a[4],
   mma_16816(c, a, pack_raw(p[0], p[LD]), pack_raw(p[8 * LD], p[9 * LD]));
 }
 
-// --- mma.sync m16n8k32 (8-bit in: s8 -> s32, e4m3 -> f32) ----------------
+// --- mma.sync m16n8k32 (8-bit in: s8 -> s32) -------------------------------
 //
 // Fragment layout (the same for s8 and e4m3, checked on the H100), lane =
 // 4 * g + t4, four 8-bit values per register, lowest byte first: the A tile
@@ -182,11 +182,8 @@ __device__ __forceinline__ void mma_bn(float c[4], const uint32_t a[4],
 // and a[3], columns 4*t4..4*t4+3 in a[0], a[1] and 16+4*t4.. in a[2], a[3];
 // the B tile (32x8, column-major) column g, rows 4*t4.. in b0 and 16+4*t4..
 // in b1; the accumulator as in m16n8k16 (rows g, g+8, columns 2*t4, 2*t4+1).
-// So a score accumulator is NOT an A fragment here: a lane holds keys
-// {2t4, 2t4+1, 8+2t4, 9+2t4, 16+2t4, 17+2t4, 24+2t4, 25+2t4} of a 32-key
-// chunk, where A wants {4t4..4t4+3, 16+4t4..16+4t4+3}. P.V contracts over
-// keys, so the kernels place the held keys in A's slots in that order and
-// read V's rows in the same order (v_frag8), which needs no shuffle.
+// K18's int8 Q.K (flash_experiments.cu) runs on it; the quantized
+// forward's 8-bit products are wgmma (sm90.cuh, flash_quant_sm90.cu).
 
 __device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4], uint32_t b0,
                                              uint32_t b1) {
@@ -195,29 +192,6 @@ __device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4], uint
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_e4m3_16832(float c[4], const uint32_t a[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += A B over one 32-deep step with 8-bit operands: int accumulators for
-// int8 (QK8 == 0), float for e4m3 (QK8 == 1); the other array is unused.
-template <int QK8>
-__device__ __forceinline__ void mma_8bit(int ci[4], float cf[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  if (QK8 == 0) mma_s8_16832(ci, a, b0, b1);
-  else mma_e4m3_16832(cf, a, b0, b1);
-}
-
-__device__ __forceinline__ uint32_t pack_bytes(uint32_t b0, uint32_t b1, uint32_t b2,
-                                               uint32_t b3) {
-  return (b0 & 0xffu) | ((b1 & 0xffu) << 8) | ((b2 & 0xffu) << 16) | ((b3 & 0xffu) << 24);
 }
 
 // A fragment of rows r0..r0+15, 8-bit columns c0..c0+31 of a row-major
@@ -242,38 +216,12 @@ __device__ __forceinline__ void b_frag8_t(uint32_t& b0, uint32_t& b1, const uint
   b1 = *reinterpret_cast<const uint32_t*>(p + 16);
 }
 
-// B operand of P.V for the 32-key chunk starting at row k0 of a row-major
-// 8-bit V tile, column n0 + g, keys in the order the score fragments hold
-// them (see above): b0 = keys 2t4, 2t4+1, 8+2t4, 9+2t4; b1 = the same + 16.
-template <int LDB>
-__device__ __forceinline__ void v_frag8(uint32_t& b0, uint32_t& b1, const uint8_t* s, int k0,
-                                        int n0, int g, int t4) {
-  const uint8_t* p = s + (k0 + 2 * t4) * LDB + n0 + g;
-  b0 = pack_bytes(p[0], p[LDB], p[8 * LDB], p[9 * LDB]);
-  b1 = pack_bytes(p[16 * LDB], p[17 * LDB], p[24 * LDB], p[25 * LDB]);
-}
-
 // Two neighbouring output values, rounded to the output type.
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// rows x D bytes (8-bit values) from global (row stride `stride` bytes) into
-// shared memory with byte pitch LDB; rows at or past `valid` are zero-filled
-// (0 is +0 in e4m3 too).
-template <int D, int LDB, int NT>
-__device__ __forceinline__ void load_tile_u8(uint8_t* dst, const uint8_t* src, long long stride,
-                                             int rows, int valid) {
-  constexpr int CH = D / 16;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 16;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDB + c) = val;
-  }
 }
 
 // rows x D bf16 from global (row stride `stride` elements) into shared

@@ -77,43 +77,15 @@
 // specialisation, 128 query rows a CTA); the entry points below route
 // every bf16 mode there. This file keeps the fp32 path, which keeps fp32
 // inputs in fp32 (FMA loops, no bf16 or TF32 rounding, 64 query rows a
-// block, one 64-key K/V tile), and the quantized modes (mma.sync, below).
+// block, one 64-key K/V tile).
 //
 // Not carried over from the TPU: the lane-replicated (.,128) softmax
 // statistics, the one-launch-per-row-block "triangular" scheme of the
 // unrolled kernel, and the 128-lane padding of S and D: ragged edges are
 // masked in the kernel.
 //
-// Quantized modes (pfa_flash_fwd_quant; the TPU kernel's scale_ref,
-// pv_quant and vs_ref, ops/flash.py:79-81, 192-211, 356-362, 394-401, 422;
-// callers ops/flash_fp8.py::flash_attention_int8qk / fp8qk / int8full and
-// ops/flash_unrolled.py::_kernel with int8_qk):
-// * Q and K are 8-bit payloads with ONE per-tensor scale each, folded with
-//   sm_scale into one fp32 device scalar (`score_scale`, a pointer: the
-//   host never reads it). int8 Q.K runs on mma.sync m16n8k32 s8*s8->s32,
-//   converted to fp32 once per score; e4m3 Q.K runs natively on
-//   mma.sync m16n8k32 e4m3*e4m3->f32 (CUDA >= 12.4 for sm_89+; each e4m3
-//   product is exact in fp32, only the sums round, as on the TPU), not
-//   widened to bf16.
-// * P.V in bf16 (int8/fp8 QK: V bf16, P rounded to bf16 as the TPU kernel's
-//   p.astype(v.dtype)), or int8 (int8 full, `pv_quant`): P is exponentiated
-//   with log2(127) folded in, so it lies in [0, 127], and truncated from
-//   p + 0.5 to int8; V is int8 with per-(b, kv head, column) fp32 scales
-//   `v_scales`, applied once at the store; the folded 127 cancels in
-//   acc / l. P.V runs on s8 mma.sync; the score fragments are not s8 A
-//   fragments, so V's rows are read in the order the fragments hold their
-//   keys (common.cuh: v_frag8).
-// * P is requantized against the running max after each kv block, so the
-//   result depends on the block: these modes walk 128-key blocks (the
-//   JAX kernel's smallest block_kv, which the tests compare against) with
-//   the max taken over all 128 keys before the exp, and the plain version
-//   (ops/flash.py::quant_blocks_plain) walks the same blocks.
-// * Masked keys score DEFAULT_MASK_VALUE as in the TPU kernel (not -inf),
-//   with the softmax in natural units (exp2f of differences times log2 e).
-// Bound on the H100: the two products at the 8-bit (Q.K) and bf16 or
-// 8-bit (P.V) tensor-core rates; the 8-bit payloads halve the Q/K bytes.
-// This first version stages one 128-key K/V tile per 64 query rows in
-// shared memory.
+// The quantized modes (pfa_flash_fwd_quant: int8-QK, fp8-QK, int8-full)
+// are flash_quant_sm90.cu (TMA, 8-bit wgmma, warp-specialised), beside K6.
 
 #include "flash_fwd_sm90.cuh"
 
@@ -121,7 +93,6 @@ namespace {
 
 constexpr int BQ = 64;            // query rows per block
 constexpr int BKV = 64;           // keys per K/V tile
-constexpr int BF16_THREADS = 128; // quantized modes: 4 warps x 16 query rows
 constexpr int F32_THREADS = 256;  // 4 threads per query row
 
 // K1's score modes (K1Mode) and natural_units: flash_fwd_sm90.cuh.
@@ -286,180 +257,6 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (lse != nullptr && qd == 0) lse[((long long)b * Hq + h) * Sq + row] = stream_lse<MODE>(m, l);
 }
 
-constexpr int QBKV = 128;                       // keys per block of the quantized modes
-constexpr float LOG2_127 = 6.988684686772166f;  // the folded P scale, log2(127)
-
-// Quantized modes: QK8 0 = int8, 1 = e4m3 Q/K payloads; PV8 = int8 V with
-// per-column scales (int8 full), else bf16 V; OutT bf16 or fp32. Each warp
-// owns 16 query rows; in the m16n8k16 / m16n8k32 fragments a lane (g =
-// lane/4, t4 = lane%4) holds rows g and g+8 of its score tiles. The keys of
-// a block go in 128-key tiles.
-template <int D, int QK8, bool PV8, typename OutT>
-__global__ void __launch_bounds__(BF16_THREADS)
-flash_fwd_quant(const uint8_t* __restrict__ q, const uint8_t* __restrict__ k,
-                const void* __restrict__ v, OutT* __restrict__ o,
-                const float* __restrict__ score_scale, const float* __restrict__ v_scales,
-                int Sq, int Skv, int Hq, int Hkv, int causal) {
-  constexpr int LDB = D + 16;   // byte pitch of 8-bit rows: conflict-free fragment loads
-  constexpr int LDV = D + 8;    // bf16 V pitch
-  constexpr int NT = QBKV / 8;  // 8-wide score tiles per block
-  constexpr int DT = D / 8;     // 8-wide output tiles
-  constexpr int DK = D / 32;    // 32-deep k-steps over D
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* Qs = smem;
-  uint8_t* Ks = Qs + BQ * LDB;
-  uint8_t* V8s = Ks + QBKV * LDB;                             // PV8: int8 V
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(V8s);  // else bf16 V
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long long qstr = (long long)Hq * D, kvstr = (long long)Hkv * D;
-  const long long kv_base = (long long)b * Skv * kvstr + (long long)hk * D;
-  const uint8_t* qb = q + (long long)b * Sq * qstr + (long long)h * D;
-
-  load_tile_u8<D, LDB, BF16_THREADS>(Qs, qb + q0 * qstr, qstr, BQ, Sq - q0);
-  __syncthreads();
-  const int wr = warp * 16;
-  uint32_t qf[DK][4];
-#pragma unroll
-  for (int kc = 0; kc < DK; ++kc) load_a_frag8<LDB>(qf[kc], Qs, wr, kc * 32, g, t4);
-
-  float acc[DT][4];
-#pragma unroll
-  for (int dn = 0; dn < DT; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max (natural units), rows g, g+8
-  float l[2] = {0.f, 0.f};              // this lane's share of the running sum
-  const int off = Skv - Sq;
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const float sc = *score_scale;  // (qs * ks) * sm_scale, on the device
-  const int kv_end = causal ? min(Skv, q0 + BQ + off) : Skv;
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += QBKV) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile_u8<D, LDB, BF16_THREADS>(Ks, k + kv_base + kv0 * kvstr, kvstr, QBKV, Skv - kv0);
-    if (PV8)
-      load_tile_u8<D, LDB, BF16_THREADS>(V8s, static_cast<const uint8_t*>(v) + kv_base + kv0 * kvstr,
-                                         kvstr, QBKV, Skv - kv0);
-    else
-      load_tile_bf16<D, LDV, BF16_THREADS>(
-          Vs, static_cast<const __nv_bfloat16*>(v) + kv_base + kv0 * kvstr, kvstr, QBKV, Skv - kv0);
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      int ci[4] = {0, 0, 0, 0};
-      float cf[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kc = 0; kc < DK; ++kc) {
-        uint32_t b0, b1;
-        b_frag8_t<LDB>(b0, b1, Ks, n * 8, kc * 32, g, t4);
-        mma_8bit<QK8>(ci, cf, qf[kc], b0, b1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = QK8 == 0 ? static_cast<float>(ci[e]) : cf[e];
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + n * 8 + t4 * 2 + (e & 1);
-        const bool ok = col < Skv && (!causal || col <= rows[e >> 1] + off);
-        s[n][e] = ok ? s[n][e] * sc : MASK_VALUE;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);  // >= MASK_VALUE: finite
-      alpha[i] = exp2f((m[i] - m_new) * LOG2E);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-    // PV8: p = exp(s - m + ln 127), in [0, 127]; l carries the factor 127.
-    const float shift = PV8 ? LOG2_127 : 0.f;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f((s[n][e] - m[e >> 1]) * LOG2E + shift);
-        l[e >> 1] += s[n][e];
-      }
-    }
-    if (PV8) {
-      // P to int8 by truncating p + 0.5; chunk c holds keys 32c..32c+31 in
-      // the order of common.cuh's v_frag8.
-      auto p8 = [](float p) { return static_cast<uint32_t>(min(__float2int_rz(p + 0.5f), 127)); };
-      uint32_t pa[QBKV / 32][4];
-#pragma unroll
-      for (int c = 0; c < QBKV / 32; ++c) {
-        pa[c][0] = pack_bytes(p8(s[4 * c][0]), p8(s[4 * c][1]), p8(s[4 * c + 1][0]), p8(s[4 * c + 1][1]));
-        pa[c][1] = pack_bytes(p8(s[4 * c][2]), p8(s[4 * c][3]), p8(s[4 * c + 1][2]), p8(s[4 * c + 1][3]));
-        pa[c][2] = pack_bytes(p8(s[4 * c + 2][0]), p8(s[4 * c + 2][1]), p8(s[4 * c + 3][0]), p8(s[4 * c + 3][1]));
-        pa[c][3] = pack_bytes(p8(s[4 * c + 2][2]), p8(s[4 * c + 2][3]), p8(s[4 * c + 3][2]), p8(s[4 * c + 3][3]));
-      }
-#pragma unroll
-      for (int dn = 0; dn < DT; ++dn) {
-        int pv[4] = {0, 0, 0, 0};  // the block's exact int32 P.V sum
-#pragma unroll
-        for (int c = 0; c < QBKV / 32; ++c) {
-          uint32_t b0, b1;
-          v_frag8<LDB>(b0, b1, V8s, c * 32, dn * 8, g, t4);
-          mma_s8_16832(pv, pa[c], b0, b1);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e)  // acc * alpha + pv, rounded as written (no FMA)
-          acc[dn][e] = __fadd_rn(__fmul_rn(acc[dn][e], alpha[e >> 1]), static_cast<float>(pv[e]));
-      }
-    } else {
-#pragma unroll
-      for (int dn = 0; dn < DT; ++dn) {
-        acc[dn][0] *= alpha[0];
-        acc[dn][1] *= alpha[0];
-        acc[dn][2] *= alpha[1];
-        acc[dn][3] *= alpha[1];
-      }
-#pragma unroll
-      for (int kc = 0; kc < QBKV / 16; ++kc) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-        pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-        pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-        pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-        for (int dn = 0; dn < DT; ++dn) mma_bn<LDV>(acc[dn], pa, Vs, kc * 16, dn * 8, g, t4);
-      }
-    }
-  }
-
-  const float* vsr = PV8 ? v_scales + ((long long)b * Hkv + hk) * D : nullptr;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (rows[i] >= Sq) continue;
-    const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
-    OutT* orow = o + ((long long)b * Sq + rows[i]) * qstr + (long long)h * D;
-#pragma unroll
-    for (int dn = 0; dn < DT; ++dn) {
-      const int c0 = dn * 8 + t4 * 2;
-      float a0 = acc[dn][2 * i] * inv, a1 = acc[dn][2 * i + 1] * inv;
-      if (PV8) {
-        a0 *= vsr[c0];
-        a1 *= vsr[c0 + 1];
-      }
-      store2(orow + c0, a0, a1);
-    }
-  }
-}
-
 struct FwdArgs {
   const void *q, *k, *v;
   void* o;
@@ -494,37 +291,6 @@ cudaError_t run(const FwdArgs& a, int D, int dtype, dim3 grid, cudaStream_t st) 
                         MODE, st);
   if (dtype == PFA_F32 && D == 64) return run_f32<64, MODE>(a, grid, st);
   if (dtype == PFA_F32 && D == 128) return run_f32<128, MODE>(a, grid, st);
-  return cudaErrorInvalidValue;
-}
-
-struct QuantArgs {
-  const void *q, *k, *v;
-  void* o;
-  const float *score_scale, *v_scales;
-  int Sq, Skv, Hq, Hkv, causal;
-};
-
-template <int D, int QK8, bool PV8, typename OutT>
-cudaError_t run_quant(const QuantArgs& a, dim3 grid, cudaStream_t st) {
-  constexpr int smem = (BQ + QBKV) * (D + 16) +
-                       (PV8 ? QBKV * (D + 16) : QBKV * (D + 8) * (int)sizeof(__nv_bfloat16));
-  auto kernel = flash_fwd_quant<D, QK8, PV8, OutT>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, BF16_THREADS, smem, st>>>(
-      static_cast<const uint8_t*>(a.q), static_cast<const uint8_t*>(a.k), a.v,
-      static_cast<OutT*>(a.o), a.score_scale, a.v_scales, a.Sq, a.Skv, a.Hq, a.Hkv, a.causal);
-  return cudaGetLastError();
-}
-
-template <int QK8, bool PV8>
-cudaError_t run_quant_mode(const QuantArgs& a, int D, int out_dtype, dim3 grid, cudaStream_t st) {
-  const bool bf = out_dtype == PFA_BF16;
-  if (out_dtype != PFA_BF16 && out_dtype != PFA_F32) return cudaErrorInvalidValue;
-  if (D == 64)
-    return bf ? run_quant<64, QK8, PV8, __nv_bfloat16>(a, grid, st) : run_quant<64, QK8, PV8, float>(a, grid, st);
-  if (D == 128)
-    return bf ? run_quant<128, QK8, PV8, __nv_bfloat16>(a, grid, st) : run_quant<128, QK8, PV8, float>(a, grid, st);
   return cudaErrorInvalidValue;
 }
 
@@ -577,25 +343,4 @@ extern "C" int pfa_flash_fwd_bias(const void* q, const void* k, const void* v, v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (relvec != nullptr) return run<REL>(a, D, dtype, grid, st);
   return run<DENSE>(a, D, dtype, grid, st);
-}
-
-// Quantized modes. q (B, Sq, Hq, D) and k (B, Skv, Hkv, D) 8-bit payloads
-// (qk_dtype int8 or e4m3); v (B, Skv, Hkv, D) bf16, or int8 with v_scales
-// (B, Hkv, D) fp32 when pv_int8 (int8 Q/K only); score_scale a (1,) fp32
-// device scalar; o (B, Sq, Hq, D) bf16 or fp32 (out_dtype).
-extern "C" int pfa_flash_fwd_quant(const void* q, const void* k, const void* v, void* o,
-                                   const void* score_scale, const void* v_scales, int B, int Sq,
-                                   int Skv, int Hq, int Hkv, int D, int causal, int qk_dtype,
-                                   int pv_int8, int out_dtype, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || score_scale == nullptr ||
-      (pv_int8 && v_scales == nullptr))
-    return cudaErrorInvalidValue;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  const QuantArgs a{q, k, v, o, static_cast<const float*>(score_scale),
-                    static_cast<const float*>(v_scales), Sq, Skv, Hq, Hkv, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (qk_dtype == PFA_INT8 && pv_int8) return run_quant_mode<0, true>(a, D, out_dtype, grid, st);
-  if (qk_dtype == PFA_INT8) return run_quant_mode<0, false>(a, D, out_dtype, grid, st);
-  if (qk_dtype == PFA_E4M3 && !pv_int8) return run_quant_mode<1, false>(a, D, out_dtype, grid, st);
-  return cudaErrorInvalidValue;
 }

@@ -99,6 +99,11 @@ _SIGNATURES: Dict[str, List] = {
     # CTAs a SM, stages, producer and consumer registers of K1's bf16
     # kernel); no stream, no launch
     "pfa_k1_sm90_info": [_I, _I, ctypes.POINTER(_I)],
+    # D, mode (0 int8-QK, 1 fp8-QK, 2 int8-full, 3 K6 int8, 4 K6 fp8), out
+    # (int[8]: keys a tile, shared bytes, threads, CTAs a SM, stages,
+    # producer and consumer registers, 1 when Q.K^T overlaps P.V) of the
+    # quantized forward; no stream, no launch
+    "pfa_quant_sm90_info": [_I, _I, ctypes.POINTER(_I)],
     # D, mode (StreamMode), out (int[16]: K4's then K5's rows a work tile,
     # rows of the ring's tile, shared bytes, threads, CTAs a SM, stages,
     # producer and consumer registers of the bf16 backward); no stream, no

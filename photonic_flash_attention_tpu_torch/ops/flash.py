@@ -709,6 +709,10 @@ def flash_attention_qk_quant(q8, k8, v, score_scale, *, causal: bool = False,
     for name, t in (("q", q8), ("k", k8), ("v", v), ("score_scale", score_scale), ("v_scales", v_scales)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"K1 needs contiguous inputs; {name} is not")
+    for name, t in (("q", q8), ("k", k8), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"K1's quantized modes need 16-byte-aligned q, k, v (TMA); {name} "
+                             f"starts at {t.data_ptr():#x}")
     if pv_int8 and (v_scales.dtype != torch.float32 or tuple(v_scales.shape) != (b, hkv, d)):
         raise ValueError(f"v_scales must be fp32 ({b}, {hkv}, {d})")
     mode = "int8full" if pv_int8 else ("int8qk" if q8.dtype == torch.int8 else "fp8qk")

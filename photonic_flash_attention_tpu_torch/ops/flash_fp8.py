@@ -8,14 +8,14 @@ is inference only (it raises if a gradient is asked for), takes
   quantized per tensor (int8, or e4m3), their scales folded with
   ``sm_scale`` into one fp32 score scale that stays on the device; P.V in
   V's dtype (bf16, or fp32; other dtypes go to bf16); output in that dtype.
-  Kernel K1's int8-QK and fp8-QK modes (``csrc/flash_fwd.cu``).
+  Kernel K1's int8-QK and fp8-QK modes (``csrc/flash_quant_sm90.cu``).
 * :func:`flash_attention_int8full`: the same int8 Q.K, and V int8 per
   (batch, kv head, column) with P requantized to int8 after a folded
   ln 127; output in V's dtype if bf16/fp32, else bf16. K1's int8-full mode.
 * :func:`flash_attention_quant` (``flash_attention_fp8``,
   ``flash_attention_int8``): Q and K quantized per 128-row block of each
   (batch, head), V per column, P requantized per block; output in q's
-  dtype. Kernel K6 (``csrc/flash_quant.cu``).
+  dtype. Kernel K6 (``csrc/flash_quant_sm90.cu``: TMA, 8-bit ``wgmma``).
 
 The quantization passes are plain PyTorch, as they are plain XLA in JAX,
 with JAX's rounding: ``torch.round`` rounds half to even like
@@ -223,6 +223,9 @@ def flash_attention_block_quant(q8, k8, v8, qs, ks, vs, *, qdtype: str, causal: 
     for name, t in (("q", q8), ("k", k8), ("v", v8), ("qs", qs), ("ks", ks), ("vs", vs)):
         if t.device != q8.device or not t.is_contiguous():
             raise ValueError(f"K6 needs contiguous inputs on {q8.device}; {name} is not")
+        if name in ("q", "k", "v") and t.data_ptr() % 16:
+            raise ValueError(f"K6 needs 16-byte-aligned q, k, v (TMA); {name} starts at "
+                             f"{t.data_ptr():#x}")
     kernel_dtype = out_dtype if out_dtype in KERNEL_DTYPES else torch.float32
     o = torch.empty(q8.shape, dtype=kernel_dtype, device=q8.device)
     _build.launch(

@@ -488,29 +488,51 @@ def _quant_qkv(case, dev, seed=0):
             for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
 
 
+def _quant_calls(mode, q, k, v, causal, out_dtype):
+    """(kernel call, plain call, launch counter) of one quantized mode on
+    payloads made from fp32 q, k, v by the public functions' own passes."""
+    d = q.shape[-1]
+    if mode in ("int8qk", "fp8qk", "int8full"):
+        qdt, qmax = (torch.float8_e4m3fn, 448.0) if mode == "fp8qk" else (torch.int8, 127.0)
+        q8, k8, sc = flash_fp8._qk_per_tensor(q, k, qdt, qmax, d ** -0.5)
+        if mode == "int8full":
+            vin, vs = flash_fp8._col_quantize(v, torch.int8, 127.0)
+        else:
+            vin, vs = v.to(torch.bfloat16), None
+        kw = dict(causal=causal, v_scales=vs, out_dtype=out_dtype)
+        return (lambda: flash_attention_qk_quant(q8, k8, vin, sc, **kw),
+                lambda: flash_attention_qk_quant_plain(q8, k8, vin, sc, **kw),
+                f"pfa_flash_fwd_{mode}")
+    qdt, qmax = flash_fp8._QPARAMS[mode]
+    q8, qs = flash_fp8._row_block_quantize(q, qdt, qmax)
+    k8, ks = flash_fp8._row_block_quantize(k, qdt, qmax)
+    v8, vs = flash_fp8._col_quantize(v, qdt, qmax)
+    kw = dict(qdtype=mode, causal=causal, sm_scale=d ** -0.5, out_dtype=out_dtype)
+    return (lambda: flash_fp8.flash_attention_block_quant(q8, k8, v8, qs, ks, vs, **kw),
+            lambda: flash_fp8.flash_attention_block_quant_plain(q8, k8, v8, qs, ks, vs, **kw),
+            f"pfa_flash_quant_{mode}")
+
+
+def _check_quant(case, mode, out, dev, seed, bound):
+    """One quantized mode on the payloads of seed ``seed``: launched once,
+    finite, within ``bound`` (rel_err_norm) of its plain version."""
+    q, k, v = _quant_qkv(case, dev, seed=seed)
+    kernel, plain, counter = _quant_calls(mode, q, k, v, case[-1], DTYPES[out])
+    before = _build.LAUNCHES[counter]
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[counter] == before + 1
+    assert got.dtype == DTYPES[out] and torch.isfinite(got).all()
+    assert rel_err_norm(got, want) <= bound
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("out", list(QUANT_BOUND))
 @pytest.mark.parametrize("mode", ["int8qk", "fp8qk", "int8full"])
 @pytest.mark.parametrize("case", QUANT_CASES)
 def test_flash_quant_modes_match_plain(case, mode, out, cuda_device):
     """K1's quantized modes against their plain version on the same payloads."""
-    causal, d = case[-1], case[5]
-    q, k, v = _quant_qkv(case, cuda_device)
-    qdt, qmax = (torch.float8_e4m3fn, 448.0) if mode == "fp8qk" else (torch.int8, 127.0)
-    q8, k8, sc = flash_fp8._qk_per_tensor(q, k, qdt, qmax, d ** -0.5)
-    if mode == "int8full":
-        vin, vs = flash_fp8._col_quantize(v, torch.int8, 127.0)
-    else:
-        vin, vs = v.to(torch.bfloat16), None
-    kw = dict(causal=causal, v_scales=vs, out_dtype=DTYPES[out])
-    name = f"pfa_flash_fwd_{mode}"
-    before = _build.LAUNCHES[name]
-    got = flash_attention_qk_quant(q8, k8, vin, sc, **kw)
-    want = flash_attention_qk_quant_plain(q8, k8, vin, sc, **kw)
-    torch.cuda.synchronize()
-    assert _build.LAUNCHES[name] == before + 1
-    assert got.dtype == DTYPES[out] and torch.isfinite(got).all()
-    assert rel_err_norm(got, want) <= QUANT_BOUND[out]
+    _check_quant(case, mode, out, cuda_device, 0, QUANT_BOUND[out])
 
 
 @pytest.mark.cuda
@@ -519,21 +541,43 @@ def test_flash_quant_modes_match_plain(case, mode, out, cuda_device):
 @pytest.mark.parametrize("case", QUANT_CASES)
 def test_flash_block_quant_matches_plain(case, qdtype, out, cuda_device):
     """K6 against its plain version on the same block-quantized payloads."""
-    causal, d = case[-1], case[5]
-    q, k, v = _quant_qkv(case, cuda_device, seed=1)
-    qdt, qmax = flash_fp8._QPARAMS[qdtype]
-    q8, qs = flash_fp8._row_block_quantize(q, qdt, qmax)
-    k8, ks = flash_fp8._row_block_quantize(k, qdt, qmax)
-    v8, vs = flash_fp8._col_quantize(v, qdt, qmax)
-    kw = dict(qdtype=qdtype, causal=causal, sm_scale=d ** -0.5, out_dtype=DTYPES[out])
-    name = f"pfa_flash_quant_{qdtype}"
-    before = _build.LAUNCHES[name]
-    got = flash_fp8.flash_attention_block_quant(q8, k8, v8, qs, ks, vs, **kw)
-    want = flash_fp8.flash_attention_block_quant_plain(q8, k8, v8, qs, ks, vs, **kw)
-    torch.cuda.synchronize()
-    assert _build.LAUNCHES[name] == before + 1
-    assert got.dtype == DTYPES[out] and torch.isfinite(got).all()
-    assert rel_err_norm(got, want) <= QUANT_BOUND[out]
+    _check_quant(case, qdtype, out, cuda_device, 1, QUANT_BOUND[out])
+
+
+# The quantized body's edges (csrc/flash_quant_sm90.cu): every pair Sq !=
+# Skv of EDGE_LENGTHS at D 64 and 128, causal (end-aligned) and not where
+# Sq < Skv; ragged last 128-key blocks, query blocks of 1 to 128 rows, and
+# causal rows that see no key of their last block (every key of that block
+# masked: a row always sees key 0, since causal Sq > Skv is refused); GQA
+# 12/4 and 32/8.
+QUANT_EDGE_CASES = [(1, sq, skv, 4, 2, d, causal)
+                    for sq in EDGE_LENGTHS for skv in EDGE_LENGTHS if sq != skv
+                    for d in (64, 128) for causal in ((False, True) if sq < skv else (False,))]
+QUANT_EDGE_CASES += [(2, 300, 300, 12, 4, 64, True), (1, 513, 513, 32, 8, 128, True)]
+#: Kernel against plain version on the same payloads, bf16 and fp32 output.
+QUANT_PLAIN_BOUND = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", list(DTYPES))
+@pytest.mark.parametrize("mode", ["int8qk", "fp8qk", "int8full", "fp8", "int8"])
+@pytest.mark.parametrize("case", QUANT_EDGE_CASES)
+def test_quant_body_edges_match_plain(case, mode, out, cuda_device):
+    """Every quantized mode of the Hopper body at its edges against its
+    plain version on the same payloads."""
+    _check_quant(case, mode, out, cuda_device, 3, QUANT_PLAIN_BOUND)
+
+
+@pytest.mark.cuda
+def test_quant_body_refuses_unaligned(cuda_device):
+    """The quantized body reads by TMA: a base that is not 16-byte aligned
+    raises on the card and names the limit (no fallback)."""
+    q, k, v = _quant_qkv((1, 64, 64, 2, 2, 64, False), cuda_device)
+    q8, k8, sc = flash_fp8._qk_per_tensor(q, k, torch.int8, 127.0, 0.125)
+    shifted = torch.empty(q8.numel() + 1, dtype=torch.int8, device=cuda_device)[1:].view(q8.shape)
+    shifted.copy_(q8)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_attention_qk_quant(shifted, k8, v.to(torch.bfloat16), sc)
 
 
 QUANT_ENTRIES = {  # name: (function, launch counter, gate against the fp32 oracle)
