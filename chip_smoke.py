@@ -17,8 +17,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    forward's ten instantiations (K1's int8-QK, fp8-QK and int8-full
    modes and K6 int8 and fp8, D 64 and 128) holds exactly its mode's GMMA
    kinds (IGMMA s8, QGMMA e4m3, HGMMA bf16/f16) and UTMALDG, no HMMA or
-   IMMA and no stack; and that K3's 16 instantiations stage pages by the
-   TMA's bulk copy (UBLKCP) with no stack;
+   IMMA and no stack; that K3's 16 instantiations stage pages by the
+   TMA's bulk copy (UBLKCP) with no stack; and that K17's and K19's bf16
+   body (K17 at unroll 2 and 4, K19; D 64 and 128) holds HGMMA and
+   UTMALDG, no HMMA and no stack;
 3. kernels: each kernel and mode against its plain PyTorch version on the
    card, at the shapes the main paths give it, with kernel, plain and
    library times and the card's bound: K1 (flash forward, its lse, and its
@@ -76,7 +78,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    fixed-max in both exp modes, augmented V, paired chains at nchain 1 and
    2, the pipelined KV loop, chunked K/V staging at unroll 2 and 4, one
    launch per q row-block in bf16 and with int8 Q.K, one CTA per head over
-   the whole triangle) against their plain versions at small, ragged and
+   the whole triangle; K17 and K19 in bf16 on their TMA + wgmma body of
+   csrc/flash_experiments_sm90.cu, in fp32 on the mma.sync bodies of
+   csrc/flash_experiments.cu, counted as modes of their own and timed at
+   K1's headline shape in fp32) against their plain versions at small, ragged and
    full shapes, the full ones every geometry the experiments path gives
    them, each plain version timed once at K1's headline shape; then, as a
    path of its own, the experiments' mains on the card (the four files'
@@ -159,7 +164,11 @@ imports nothing of JAX. ``--profile DIR`` adds a torch.profiler breakdown
 of three single training steps and of one T5-large serving run (bf16
 compute and pool) (device activity only: busy time, idle share of each
 call's wall time, time by kernel group) and writes the traces and a
-per-kernel table into DIR.
+per-kernel table into DIR. ``--exp-table`` only builds and prints the exp
+table (K17 at unroll 2 and 4 and K19 at the pipeline mains' geometries by
+the graph fit, beside K1 bf16, SDPA and the bound), with
+public calls, so a copy of the script in an unpacked tree of another commit
+times that tree.
 """
 
 from __future__ import annotations
@@ -200,6 +209,9 @@ _QUANT90 = "photonic_flash_attention_tpu_torch/csrc/flash_quant_sm90.cu"
 _ROWNORM = "photonic_flash_attention_tpu_torch/csrc/rownorm.cu"
 _PROBES = "photonic_flash_attention_tpu_torch/csrc/probes.cu"
 _EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_experiments.cu"
+#: K17's and K19's bf16 body (TMA, wgmma); their fp32 inputs stay on the
+#: mma.sync bodies of _EXPERIMENTS.
+_EXPERIMENTS90 = "photonic_flash_attention_tpu_torch/csrc/flash_experiments_sm90.cu"
 _BWD_EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_bwd_experiments.cu"
 _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
@@ -245,10 +257,12 @@ SOURCES = {
     "pfa_flash_aug": _EXPERIMENTS,
     "pfa_flash_pair": _EXPERIMENTS,
     "pfa_flash_pipelined": _EXPERIMENTS,
-    "pfa_flash_chunked": _EXPERIMENTS,
+    "pfa_flash_chunked": _EXPERIMENTS90,
+    "pfa_flash_chunked_fp32": _EXPERIMENTS,
     "pfa_flash_tri": _EXPERIMENTS,
     "pfa_flash_tri_i8": _EXPERIMENTS,
-    "pfa_flash_fulltri": _EXPERIMENTS,
+    "pfa_flash_fulltri": _EXPERIMENTS90,
+    "pfa_flash_fulltri_fp32": _EXPERIMENTS,
     "pfa_flash_bwd_dq_rowblock": _BWD_EXPERIMENTS,
     "pfa_flash_bwd_dkv_colblock": _BWD_EXPERIMENTS,
 }
@@ -304,9 +318,11 @@ REPLACES = {
     "pfa_flash_pair": "benchmarks/flash_pair_experiment.py:28",
     "pfa_flash_pipelined": "benchmarks/flash_pipeline_experiment.py:49",
     "pfa_flash_chunked": "benchmarks/flash_pipeline_experiment.py:226",
+    "pfa_flash_chunked_fp32": "benchmarks/flash_pipeline_experiment.py:226 (fp32 inputs)",
     "pfa_flash_tri": "benchmarks/flash_pipeline_experiment.py:407",
     "pfa_flash_tri_i8": "benchmarks/flash_pipeline_experiment.py:548",
     "pfa_flash_fulltri": "benchmarks/flash_pipeline_experiment.py:821",
+    "pfa_flash_fulltri_fp32": "benchmarks/flash_pipeline_experiment.py:821 (fp32 inputs)",
     "pfa_flash_bwd_dq_rowblock": "benchmarks/flash_bwd_unrolled_experiment.py:41",
     "pfa_flash_bwd_dkv_colblock": "benchmarks/flash_bwd_unrolled_experiment.py:83",
 }
@@ -315,9 +331,11 @@ REPLACES = {
 #: repacks bf16 K/V; serving decode is K3's float mode over the int8 pool),
 #: K3's read-only attend (with and without the token bias) and K2 alone
 #: (serving decodes through K3's fused write + attend),
-#: ALiBi (no model of the port uses it) and the sliding window of K1, K4
-#: and K5 (no model of the port sets one). K6's int8 mode has its own
-#: entry: the CLI's ``calibrate`` runs it.
+#: ALiBi (no model of the port uses it), the sliding window of K1, K4
+#: and K5 (no model of the port sets one) and K17's and K19's fp32 inputs
+#: (the experiments' mains run bf16; their mma.sync bodies are checked and
+#: timed in the experiments phase). K6's int8 mode has its own entry: the
+#: CLI's ``calibrate`` runs it.
 NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
                 "pfa_paged_decode_attend": ("pfa_paged_decode_fused", "attend_only"),
                 "pfa_paged_decode_attend_tbias": ("pfa_paged_decode_fused_tbias", "attend_only"),
@@ -326,7 +344,9 @@ NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
                 "pfa_flash_fwd_alibi_lse": ("pfa_flash_fwd_relbias_lse", "alibi"),
                 "pfa_flash_fwd_window": ("pfa_flash_fwd", "window"),
                 "pfa_flash_bwd_dkv_window": ("pfa_flash_bwd_dkv", "window"),
-                "pfa_flash_bwd_dq_window": ("pfa_flash_bwd_dq", "window")}
+                "pfa_flash_bwd_dq_window": ("pfa_flash_bwd_dq", "window"),
+                "pfa_flash_chunked_fp32": ("pfa_flash_chunked", "fp32 (mma.sync body)"),
+                "pfa_flash_fulltri_fp32": ("pfa_flash_fulltri", "fp32 (mma.sync body)")}
 TIMED_RUNS = 20
 # H100 SXM data sheet (dense, at its 700 W limit): the bound of each kernel
 # is the larger of its operations over the peak rate for their type and
@@ -478,9 +498,10 @@ def phase_build(sass: bool = True) -> None:
     check_k1_sass(counts, usage)
     check_bwd_sass(counts, usage)
     check_quant_sass(counts, usage)
+    check_exp_sass(counts, usage)
     check_k3_sass(path)
-    print(f"K1 SASS, K4/K5 SASS, quant SASS, K3 SASS: checked in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"K1 SASS, K4/K5 SASS, quant SASS, exp SASS, K3 SASS: checked in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 #: K1's bf16 kernel in the library: one instantiation per head dim and mode
@@ -500,6 +521,10 @@ QUANT_SM90 = re.compile(r"flash_quant_sm90ILi(\d+)ELi(\d)E")
 QUANT_SASS_MODES = (("int8-QK", {"IGMMA", "HGMMA"}), ("fp8-QK", {"QGMMA", "HGMMA"}),
                     ("int8-full", {"IGMMA"}), ("K6 int8", {"IGMMA"}), ("K6 fp8", {"HGMMA", "QGMMA"}))
 GMMA_OPS = ("HGMMA", "IGMMA", "QGMMA")
+#: K17's and K19's bf16 body: one instantiation per head dim and unroll (0:
+#: K19; csrc/flash_experiments_sm90.cu::flash_exp_sm90<D, U>).
+EXP_SM90 = re.compile(r"flash_exp_sm90ILi(\d+)ELi(\d)E")
+EXP_UNROLLS = (0, 2, 4)
 
 
 def _cuobjdump(flag: str, path: Path) -> str:
@@ -515,6 +540,8 @@ def _sm90_key(name: str):
         return "K4" if m.group(1) == "dkv" else "K5", int(m.group(2)), int(m.group(3))
     if m := QUANT_SM90.search(name):
         return "quant", int(m.group(1)), int(m.group(2))
+    if m := EXP_SM90.search(name):
+        return "exp", int(m.group(1)), int(m.group(2))
     return None
 
 
@@ -676,6 +703,41 @@ def check_quant_sass(counts: dict, usage: dict) -> None:
         if ({op for op in GMMA_OPS if c[op]} != kinds or not c["UTMALDG"] or c["HMMA"] or c["IMMA"]
                 or not reg or reg[1] or reg[3]):
             raise AssertionError(f"{line}: must run on {sorted(kinds)} and TMA only, with no stack")
+        print(line, flush=True)
+
+
+def check_exp_sass(counts: dict, usage: dict) -> None:
+    """The same proof for K17's and K19's bf16 body (K17 at unroll 2 and 4,
+    K19; D 64 and 128): each instantiation must hold HGMMA and UTMALDG, no
+    HMMA, and no stack or local bytes. Prints the counts, registers, stack
+    and, from ``pfa_exp_sm90_info``, the key tile, the ring's stages and
+    shared memory, threads, CTAs a SM, the setmaxnreg split, whether the
+    next chunk's Q.K^T overlaps this chunk's last P.V and whether the
+    warpgroups ping-pong."""
+    import ctypes
+
+    want = {("exp", d, u) for d in (64, 128) for u in EXP_UNROLLS}
+    got = {key for key in counts if key[0] == "exp"}
+    if got != want:
+        raise AssertionError(f"exp SASS: instantiations {sorted(got)}, want {sorted(want)}")
+    for _, d, u in sorted(want):
+        c = counts[("exp", d, u)]
+        info = (ctypes.c_int * 9)()
+        err = _build.lib().pfa_exp_sm90_info(u, d, info)
+        if err:
+            raise RuntimeError(f"pfa_exp_sm90_info: CUDA error {err}")
+        reg = usage.get(("exp", d, u))
+        line = (f"exp SASS {'K19' if u == 0 else f'K17 unroll {u}'} D{d}: HGMMA {c['HGMMA']}, "
+                f"UTMALDG {c['UTMALDG']}, HMMA {c['HMMA']}; " +
+                (f"registers {reg[0]} at launch (setmaxnreg: producer {info[5]}, consumers "
+                 f"{info[6]}), stack {reg[1]} B, local {reg[3]} B" if reg
+                 else "cuobjdump -res-usage: no entry") +
+                f"; {info[0]}-key tiles, {info[1]} stages ({info[2]} B shared), "
+                f"{info[3]} threads, {info[4]} CTA(s) a SM, cross-chunk overlap "
+                f"{'on' if info[7] else 'off'}, ping-pong {'on' if info[8] else 'off'}")
+        if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"] or not reg or reg[1] or reg[3]:
+            raise AssertionError(f"{line}: the bf16 body must run on wgmma and TMA only, "
+                                 "with no stack")
         print(line, flush=True)
 
 
@@ -4207,6 +4269,9 @@ def check_experiments(results: dict) -> dict:
                              lambda: ux.flash_unrolled_plain(q, k, v, **kw), checked,
                              timed=(b, s, h, d) == K1_HEADLINE and causal)
     blk = ux.check_block
+    # K17's and K19's counter: the Hopper body's in bf16, the mma.sync
+    # body's (a mode of its own) in fp32.
+    route = lambda name, dtype: name if dtype == torch.bfloat16 else f"{name}_fp32"  # noqa: E731
     for b, s, h, hkv, d, dtype in ux.CARD_CHECK_SHAPES:
         q, k, v = qkv(b, s, h, d, hkv=hkv, dtype=dtype)
         geom = f"B{b} S{s} H{h}/{hkv} D{d} {str(dtype)[6:]}"
@@ -4214,11 +4279,11 @@ def check_experiments(results: dict) -> dict:
         for causal in both:
             for u in ux.CARD_UNROLLS:
                 kw = dict(causal=causal, block_q=blk(s), block_kv=blk(s, u), unroll=u)
-                _experiment_case("pfa_flash_chunked",
-                                 f"K17 chunked unroll {u} {geom} causal={causal}",
+                name = route("pfa_flash_chunked", dtype)
+                _experiment_case(name, f"K17 chunked unroll {u} {geom} causal={causal}",
                                  lambda: ux.flash_chunked(q, k, v, **kw),
                                  lambda: ux.flash_chunked_plain(q, k, v, **kw), checked,
-                                 timed=headline and causal and u == 4)
+                                 timed=headline and causal and u == 4, launches=(name, 1))
             kw = dict(causal=causal, block_q=blk(s), block_kv=blk(s))
             _experiment_case("pfa_flash_tri_i8", f"K18 int8-QK {geom} causal={causal}",
                              lambda: ux.flash_tri_i8(q, k, v, **kw),
@@ -4233,9 +4298,35 @@ def check_experiments(results: dict) -> dict:
                              timed=headline and (bq, bkv) == (512, 512),
                              launches=("pfa_flash_tri", s // bq))
         kw = dict(block_q=blk(s, 2), block_kv=blk(s))
-        _experiment_case("pfa_flash_fulltri", f"K19 full triangle {geom} causal",
+        name = route("pfa_flash_fulltri", dtype)
+        _experiment_case(name, f"K19 full triangle {geom} causal",
                          lambda: ux.flash_fulltri(q, k, v, **kw),
-                         lambda: ux.flash_fulltri_plain(q, k, v, **kw), checked, timed=headline)
+                         lambda: ux.flash_fulltri_plain(q, k, v, **kw), checked, timed=headline,
+                         launches=(name, 1))
+    # Their fp32 bodies at K1's headline shape in fp32 (causal, K17 at
+    # unroll 4): checked, the plain version timed once, the kernel by the
+    # fit beside SDPA on the same fp32 inputs; the bound counts fp32 bytes
+    # and bf16 products (the bodies convert on load).
+    b, s, h, d = K1_HEADLINE
+    q, k, v = qkv(b, s, h, d, dtype=torch.float32)
+    bound = card_bound(4.0 * d * h * attention_pairs(b, s, s, True), 4 * 4 * b * s * h * d,
+                       torch.bfloat16)
+    sdpa32 = _sdpa_fit_ms(b, s, h, h, d, True, EXPERIMENT_FIT, torch.float32)
+    kw = dict(block_q=512, block_kv=512)
+    for name, label, call, plain in (
+            ("pfa_flash_chunked_fp32", "K17 chunked unroll 4",
+             lambda: ux.flash_chunked(q, k, v, causal=True, unroll=4, **kw),
+             lambda: ux.flash_chunked_plain(q, k, v, causal=True, unroll=4, **kw)),
+            ("pfa_flash_fulltri_fp32", "K19 full triangle",
+             lambda: ux.flash_fulltri(q, k, v, **kw),
+             lambda: ux.flash_fulltri_plain(q, k, v, **kw))):
+        _experiment_case(name, f"{label} B{b} S{s} H{h} D{d} float32 causal", call, plain,
+                         checked, timed=True, launches=(name, 1))
+        ms = fit_seconds(call, EXPERIMENT_FIT, torch.device("cuda")) * 1e3
+        checked[name].update(ms=ms, library_ms=sdpa32, shape=list(K1_HEADLINE), **bound)
+        print(f"experiments: {label} fp32 (mma.sync body) B{b} S{s} H{h} D{d} causal: {ms:.4f} "
+              f"ms (graph fit); SDPA fp32 {sdpa32:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), {100 * bound['bound_ms'] / ms:.2f} % of it", flush=True)
     # The segmented main's long geometries, and K1 there (its reference): the
     # last LONG_CHECK_ROWS rows, which span several interior segments and
     # merges, against K1's plain version on those rows and every key.
@@ -4305,18 +4396,77 @@ def check_experiments(results: dict) -> dict:
     return checked
 
 
-def _sdpa_fit_ms(b, s, hq, hkv, d, causal, fit) -> float:
+def _sdpa_fit_ms(b, s, hq, hkv, d, causal, fit, dtype=torch.bfloat16) -> float:
     """One F.scaled_dot_product_attention call at the geometry (GQA through
-    ``enable_gqa``), timed by the experiments' fit."""
+    ``enable_gqa``) in ``dtype``, timed by the experiments' fit."""
     import torch.nn.functional as F
 
     from photonic_flash_attention_tpu_torch.core.timing import fit_seconds
 
-    q = torch.randn(b, hq, s, d, device="cuda", dtype=torch.bfloat16)
-    k, v = (torch.randn(b, hkv, s, d, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    q = torch.randn(b, hq, s, d, device="cuda", dtype=dtype)
+    k, v = (torch.randn(b, hkv, s, d, device="cuda", dtype=dtype) for _ in range(2))
     return fit_seconds(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                               enable_gqa=hq != hkv),
                        fit, torch.device("cuda")) * 1e3
+
+
+def time_exp_table(smi: str) -> list:
+    """The exp table: K17 at unroll 2 and 4 over the pipeline module's
+    CHUNKED_CASES and K19 over its FULLTRI_CASES (the mains' geometries and
+    blocks, bf16), each by the graph fit (2, 10) beside K1 bf16
+    (``flash_attention``) and SDPA at the same geometry, also by the fit,
+    the bound (``flash_fwd_bound``) and the kernel's share of it, and its
+    output against K1's on the same inputs, within EXPERIMENT_BOUND. The
+    rows use public calls only, so ``--exp-table`` in a copy of this script
+    times another tree of the repository (the parent commit, or a copy
+    with a lever of the kernels changed)."""
+    from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    fit = lambda fn: fit_seconds(fn, EXPERIMENT_FIT, torch.device("cuda")) * 1e3  # noqa: E731
+    cases = ([(f"K17 unroll {u}", name, shape, causal, u) for name, shape, causal in ux.CHUNKED_CASES
+              for u in ux.CARD_UNROLLS]
+             + [("K19", name, shape, True, None) for name, shape in ux.FULLTRI_CASES])
+    table, k1, inputs = [], {}, {}
+    for kernel, name, (b, s, hq, hkv, d), causal, u in cases:
+        key = ((b, s, hq, hkv, d), causal)
+        if key not in inputs:
+            inputs.clear()
+            torch.cuda.empty_cache()
+            q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+            k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+            ref = flash_ops.flash_attention(q, k, v, causal=causal)
+            k1[key] = (fit(lambda: flash_ops.flash_attention(q, k, v, causal=causal)),
+                       _sdpa_fit_ms(b, s, hq, hkv, d, causal, EXPERIMENT_FIT))
+            inputs[key] = (q, k, v, ref)
+        q, k, v, ref = inputs[key]
+        blk = min(512, s)
+        if u is None:
+            call = lambda: ux.flash_fulltri(q, k, v, block_q=blk, block_kv=blk)  # noqa: E731
+        else:
+            call = lambda: ux.flash_chunked(q, k, v, causal=causal, block_q=blk,  # noqa: E731
+                                            block_kv=blk, unroll=u)
+        err = rel_err_norm(call(), ref)
+        ms = fit(call)
+        k1_ms, sdpa = k1[key]
+        meta_q = torch.empty(b, s, hq, d, device="meta", dtype=torch.bfloat16)
+        meta_k = torch.empty(b, s, hkv, d, device="meta", dtype=torch.bfloat16)
+        bnd = flash_fwd_bound(meta_q, meta_k, causal)
+        row = dict(kernel=kernel, case=name, shape=[b, s, hq, hkv, d], causal=causal, fit_ms=ms,
+                   k1_fit_ms=k1_ms, sdpa_fit_ms=sdpa, rel_err_k1=err, **bnd)
+        line = (f"exp table: {kernel} {name} (B{b} S{s} H{hq}/{hkv} D{d} causal={causal}): "
+                f"{ms:.4f} ms (graph fit); K1 bf16 {k1_ms:.4f} ms, SDPA {sdpa:.4f} ms; "
+                f"kernel / K1 {ms / k1_ms:.3f}, kernel / SDPA {ms / sdpa:.3f}; bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), kernel at "
+                f"{100 * bnd['bound_ms'] / ms:.2f} % of it; vs K1 rel_err_norm {err:.3e} ({smi})")
+        print(line, flush=True)
+        if not err <= EXPERIMENT_BOUND:
+            raise AssertionError(line)
+        table.append(row)
+    inputs.clear()
+    torch.cuda.empty_cache()
+    return table
 
 
 def bwd_call_bound(q, causal: bool) -> dict:
@@ -4507,6 +4657,8 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
                          **bounds[(row["shape"], True, int8)]}
         if whole_key:
             results[name]["whole_call_ms"] = row[whole_key]
+    for name in ("pfa_flash_chunked_fp32", "pfa_flash_fulltri_fp32"):
+        results[name] = checked[name]  # timed in check_experiments
     results["pfa_flash_pair"]["cases"] = [
         {"nchain": row["nchain"], "ms": row["pair_ms"], "k1_ms": row["k1_ms"]}
         for row in rows["pair"].values()
@@ -4525,6 +4677,10 @@ def main() -> None:
                         help="only build and print the quant table (public calls only, so a "
                              "copy of this script times any tree of the repository); no result "
                              "line")
+    parser.add_argument("--exp-table", action="store_true",
+                        help="only build and print the exp table of K17 and K19 (public calls "
+                             "only, so a copy of this script times any tree of the repository); "
+                             "no result line")
     parser.add_argument("--k3-table", action="store_true",
                         help="only build, print the K3 table and time GPT-2 medium's decode "
                              "step (public calls only, so a copy of this script times any tree "
@@ -4536,6 +4692,10 @@ def main() -> None:
         phase_build(sass=False)
         time_quant_modes(collections.defaultdict(dict), smi,
                          strict="pfa_quant_sm90_info" in _build._SIGNATURES)
+        return
+    if args.exp_table:
+        phase_build(sass=False)
+        time_exp_table(smi)
         return
     if args.k3_table:
         phase_build(sass=False)

@@ -12,12 +12,14 @@
 //   loop software-pipelined so QK(j+1) overlaps softmax(j));
 // * K17 pfa_flash_chunked: flash_pipeline_experiment.py::_kernel_chunked
 //   (K/V staged in chunks of `unroll` tiles, one copy and one barrier a
-//   chunk, the chunk's tiles unrolled at compile time);
+//   chunk, the chunk's tiles unrolled at compile time), fp32 inputs here,
+//   bf16 on the Hopper body of flash_experiments_sm90.cu;
 // * K18 pfa_flash_tri: _kernel_tri and _kernel_tri_i8 (one launch per q
 //   row-block; its int8 mode runs Q.K in s8);
 // * K19 pfa_flash_fulltri: _kernel_fulltri (one CTA walks a head's whole
 //   causal triangle, the next row's first tiles fetched during the last
-//   tile of the current one).
+//   tile of the current one), fp32 inputs here, bf16 on
+//   flash_experiments_sm90.cu.
 // Callers: experiments/flash_*_experiment.py in the port package.
 //
 // What bounds them on the H100: the same work as K1 (csrc/flash_fwd.cu).
@@ -620,6 +622,9 @@ flash_pipelined_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 
 // --- K17: chunked K/V staging ---------------------------------------------
 //
+// fp32 inputs (converted to bf16 on load) only: bf16 runs on the TMA +
+// wgmma body of flash_experiments_sm90.cu.
+//
 // _kernel_chunked's TPU grid is (b, h, q block, kv chunk): one chunk of
 // `unroll` kv tiles a grid step, m/l/acc carried in VMEM scratch between
 // steps, dead chunks skipped whole when causal. Here a CTA of 64 query rows
@@ -860,6 +865,9 @@ flash_tri_kernel(const void* __restrict__ q, const void* __restrict__ k, const T
 
 // --- K19: one CTA walks a head's whole triangle -----------------------------
 //
+// fp32 inputs (converted to bf16 on load) only: bf16 runs on the TMA +
+// wgmma body of flash_experiments_sm90.cu.
+//
 // _kernel_fulltri's grid is (b, h): every q row-block of a head and its
 // causal kv tiles in one straight-line body, so the scheduler can overlap
 // one row's epilogue with the next row's products. Here one CTA per (b, h)
@@ -1004,11 +1012,10 @@ cudaError_t run_chunked(const void* q, const void* k, const void* v, void* o, in
                   static_cast<T*>(o), S, Hq, Hkv, scale, causal);
 }
 
+// fp32 inputs only: bf16 runs on flash_experiments_sm90.cu.
 template <int D, int U>
 cudaError_t chunked_dtype(int dtype, const void* q, const void* k, const void* v, void* o, int B,
                           int S, int Hq, int Hkv, float scale, int causal, cudaStream_t st) {
-  if (dtype == PFA_BF16)
-    return run_chunked<D, U, __nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st);
   if (dtype == PFA_F32) return run_chunked<D, U, float>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st);
   return cudaErrorInvalidValue;
 }
@@ -1104,8 +1111,9 @@ extern "C" int pfa_flash_pipelined(const void* q, const void* k, const void* v, 
   return cudaErrorInvalidValue;
 }
 
-// K17. q (B, S, Hq, D), k/v (B, S, Hkv, D), o like q; bf16 or fp32 (dtype),
-// D in {64, 128}, Hq % Hkv == 0; unroll (64-key tiles a chunk) in {2, 4}.
+// K17 in fp32 (the bf16 body: pfa_flash_chunked_sm90). q (B, S, Hq, D),
+// k/v (B, S, Hkv, D), o like q; fp32 (dtype), D in {64, 128}, Hq % Hkv ==
+// 0; unroll (64-key tiles a chunk) in {2, 4}.
 extern "C" int pfa_flash_chunked(const void* q, const void* k, const void* v, void* o, int B,
                                  int S, int Hq, int Hkv, int D, float sm_scale, int causal,
                                  int unroll, int dtype, void* stream) {
@@ -1151,17 +1159,14 @@ extern "C" int pfa_flash_tri(const void* q, const void* k, const void* v, void* 
   return cudaErrorInvalidValue;
 }
 
-// K19. q (B, S, Hq, D), k/v (B, S, Hkv, D), o like q, causal; bf16 or fp32
-// (dtype), D in {64, 128}, Hq % Hkv == 0.
+// K19 in fp32 (the bf16 body: pfa_flash_fulltri_sm90). q (B, S, Hq, D),
+// k/v (B, S, Hkv, D), o like q, causal; fp32 (dtype), D in {64, 128},
+// Hq % Hkv == 0.
 extern "C" int pfa_flash_fulltri(const void* q, const void* k, const void* v, void* o, int B,
                                  int S, int Hq, int Hkv, int D, float sm_scale, int dtype,
                                  void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == PFA_BF16 && D == 64)
-    return run_fulltri<64, __nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv, sm_scale, st);
-  if (dtype == PFA_BF16 && D == 128)
-    return run_fulltri<128, __nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv, sm_scale, st);
   if (dtype == PFA_F32 && D == 64)
     return run_fulltri<64, float>(q, k, v, o, B, S, Hq, Hkv, sm_scale, st);
   if (dtype == PFA_F32 && D == 128)

@@ -1,0 +1,512 @@
+// K17 and K19 (bf16): the chunked-staging and full-triangle experiments of
+// the flash forward, redesigned for Hopper (sm_90a): TMA loads, wgmma
+// products and warp specialisation, K1's design (flash_fwd_sm90.cu) with
+// each experiment's own lever kept.
+//
+// Replace, in bf16, the TPU kernels benchmarks/flash_pipeline_experiment.py::
+// _kernel_chunked (K17: the KV loop in chunks of `unroll` tiles, one chunk a
+// grid step, dead chunks skipped whole when causal) and ::_kernel_fulltri
+// (K19: grid (b, h), every q row-block of a head and its causal kv tiles in
+// one body). They take the place of the mma.sync bodies of
+// flash_experiments.cu (4 warps, 64 rows, cp.async copies by every thread,
+// a __syncthreads a tile or chunk), which keep the fp32 inputs: TMA cannot
+// convert on load. The contract is the experiments' (that file's header):
+// causal `col <= row` on square shapes, GQA, p rounded to bf16 for P.V,
+// fp32 sums, the output in bf16.
+//
+// What bounds them on the H100: K1's work, so at D 64 and 128 over S 2k-8k
+// the tensor cores and, at D 64, the softmax's FP32/MUFU stream beside them
+// (989 TFLOP/s over 3.35 TB/s, the data sheet at 700 W). The design, K1's:
+// * A CTA is three warpgroups: two consumers of 64 query rows each (a
+//   128-row work tile) and a producer whose first warp issues every load by
+//   TMA (a CUtensorMap per tensor over the (D, H, S, B) layout, 128-byte
+//   swizzle). Q is double-buffered; K and V go through a ring of stages
+//   with mbarriers ("full": the producer posts the boxes' bytes; "empty":
+//   each consumer warp arrives once it is done with the stage). setmaxnreg
+//   gives the producer 24 registers and the consumers 240. The ring's phases
+//   and the Q buffers' run on across work tiles: nothing drains between
+//   them, and the next tile's Q and first K/V are in flight while the
+//   consumers finish this one's last tile and its epilogue.
+// * S = Q K^T on wgmma with both operands in shared memory; O += P V with
+//   P from registers and V an MN-major B operand (flash_sm90_step.cuh, K1's
+//   tile step). Within a warpgroup tile j+1's Q K^T is issued ahead of tile
+//   j's P V, and its softmax runs while that P V finishes; for K17 at D 128
+//   the two warpgroups take turns at the tensor cores (named barriers,
+//   FA3's ping-pong, PINGPONG): with 64-key tiles at D 64, and for K19, the
+//   turns cost more than they hide. p = ex2(s * scale - m * scale):
+//   the scale folded into the exponent, one FFMA and one ex2 a score. Only
+//   the tiles a warpgroup's diagonal or the ragged end reach take the
+//   per-score predicate.
+// * Ring depth: as many stages as fit in the 227 KB (x_max_stages). The
+//   caller's plan (experiments/flash_pipeline_experiment.py::k17_plan,
+//   k19_plan) gives the tile width, stages, shared memory and grid, which
+//   the launcher checks against this file's constants, and the walk: the
+//   q-blocks in the order the work tiles take them, each with its chunks
+//   (K19: tiles) of keys, which the kernel reads as it is.
+// K19 (U = 0): the grid is exactly B x Hq CTAs, one per (b, h), the
+// function measured (48 CTAs at the headline B4 H12 for 132 SMs): each
+// walks its head's 128-row q-blocks in the plan's order (heaviest, last,
+// first), over key tiles
+// of K1's width (128 at D 64, 96 at D 128: 128 spills there), one tile a
+// stage. Six stages at D 64, three at D 128.
+// K17 (U = 2, 4): a stage is one chunk of U 64-key tiles, loaded by TMA
+// under ONE expect-tx on its "full" barrier (one box of U x 64 rows a
+// column half); each consumer warpgroup waits once a chunk, runs the
+// chunk's tiles unrolled at compile time (the Q K^T-ahead overlap running
+// across tiles and across chunks) and arrives on "empty" once a chunk: one
+// barrier a chunk against K1's one a tile is the experiment. The causal
+// skip stays chunk-granular: a chunk runs when its first key is at or
+// below the work tile's last row (q0 + 127), whole; its tiles past a
+// warpgroup's diagonal run masked and each adds p = 0 with alpha = 1
+// (every row sees key 0, so m is finite after the first tile). The grid
+// is K1's persistent one (one CTA a SM, work tiles in snake order, causal
+// q-blocks longest first). Stages at D 64: 6 (U 2) and 3 (U 4); at D 128:
+// 2 (U 2) and 1 at U 4, whose chunk is 128 KB of K/V: there the producer
+// cannot run ahead, and a chunk's last P V ends before the stage is freed
+// and the next chunk's Q K^T issued (no cross-chunk overlap, CROSS).
+// Not done: a TMA store of O, a cluster or split head for K19 (the
+// function measured is one CTA a head).
+
+#include <limits.h>
+#include <string.h>
+
+#include "flash_sm90_step.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+constexpr int BQ = 128;       // query rows a work tile: CONSUMERS warpgroups x 64
+constexpr int CONSUMERS = 2;  // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int MAX_QB = 512;   // q-blocks a head in the walk: S <= 65536
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 24 + 2 x 240 = 3 x 168
+
+// Dynamic shared memory of a ring of `stages`: Q double-buffered, K and V
+// `stages` blocks each, the mbarriers, 1024 bytes of alignment slack.
+__host__ __device__ constexpr int x_smem(int q_bytes, int kv_bytes, int stages) {
+  return 2 * q_bytes + 2 * stages * kv_bytes + 8 * (2 * stages + 4) + 1024;
+}
+__host__ __device__ constexpr int x_max_stages(int q_bytes, int kv_bytes) {
+  int s = 0;
+  while (x_smem(q_bytes, kv_bytes, s + 1) <= SMEM_MAX) ++s;
+  return s;
+}
+
+// U = 0: K19 (one tile of K1's width a stage); U in {2, 4}: K17 (U 64-key
+// tiles a stage).
+template <int D, int U>
+struct XCfg {
+  static constexpr bool FULLTRI = U == 0;
+  static constexpr int BKV = FULLTRI ? (D == 128 ? 96 : 128) : 64;  // keys a tile
+  static constexpr int TILES = FULLTRI ? 1 : U;                     // tiles a stage
+  static constexpr int SPAN = BKV * TILES;                          // keys a stage
+  static constexpr int HALVES = D / 64;  // 128-byte column boxes a row
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = SPAN * D * 2;  // K or V, one stage; a multiple of 1024
+  static constexpr int STAGES = x_max_stages(Q_BYTES, KV_BYTES);  // the ring's depth
+  // The next chunk's Q K^T issued before this chunk's last P V: the
+  // consumers then hold two stages.
+  static constexpr bool CROSS = STAGES >= 2;
+  // The warpgroups' turns at the tensor cores: on only where they paid
+  // (PERF.md, PR 16's levers).
+  static constexpr bool PINGPONG = !FULLTRI && D == 128;
+};
+
+struct XParams {
+  __nv_bfloat16* o;
+  int B, S, Hq, Hkv;
+  int n_work;  // work tiles: q-blocks x Hq x B
+  int nqb;     // q-blocks of 128 rows a head
+  float scale;  // sm_scale * log2 e
+  int causal;
+  // The plan's walk: entry i is the i-th q-block taken (K19: a CTA's i-th
+  // round; K17: the work tiles t with t / (Hq B) == i), as its index << 16
+  // | its chunks of keys.
+  int walk[MAX_QB];
+};
+
+// One work tile: 128 query rows of one (batch row, head) and the chunks
+// (K19: tiles) of keys its rows can see.
+struct XWork {
+  int h, b, q0, n_chunks;
+};
+
+// This CTA's n-th work tile; false where the last round has none. K19: the
+// CTA's head, the walk's n-th q-block; K17: K1's snake order over (heads,
+// batch rows, the walk's q-blocks).
+template <int D, int U>
+__device__ __forceinline__ bool x_work(const XParams& p, int n, XWork& w) {
+  using C = XCfg<D, U>;
+  int i = n;
+  if constexpr (C::FULLTRI) {
+    w.h = blockIdx.x % p.Hq;
+    w.b = blockIdx.x / p.Hq;
+  } else {
+    const int t = snake_tile(n);
+    if (t >= p.n_work) return false;
+    w.h = t % p.Hq;
+    const int r = t / p.Hq;
+    w.b = r % p.B;
+    i = r / p.B;
+  }
+  w.q0 = (p.walk[i] >> 16) * BQ;
+  w.n_chunks = p.walk[i] & 0xffff;
+  return true;
+}
+
+// The raw scores of one tile, in place, with MASKED the per-score predicate
+// (-inf past S or, causal, above the row); mx gets this thread's row maxima.
+template <int BKV, bool MASKED>
+__device__ __forceinline__ void tile_max(float* sc, float (&mx)[2], int kv0, int row0, int t4,
+                                         int S, int causal) {
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float x[2] = {sc[4 * j + 2 * rr], sc[4 * j + 2 * rr + 1]};
+      if constexpr (MASKED) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = kv0 + 8 * j + 2 * t4 + e;
+          if (col >= S || (causal && col > row0 + 8 * rr)) x[e] = -INFINITY;
+        }
+      }
+      sc[4 * j + 2 * rr] = x[0];
+      sc[4 * j + 2 * rr + 1] = x[1];
+      mx[rr] = fmaxf(mx[rr], fmaxf(x[0], x[1]));
+    }
+  }
+}
+
+template <bool V>
+struct Flag {
+  static constexpr bool value = V;
+};
+
+template <int D, int U>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ XParams p) {
+  using C = XCfg<D, U>;
+  constexpr int BKV = C::BKV, TILES = C::TILES, SPAN = C::SPAN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms need 1024-byte alignment
+  constexpr int stages = C::STAGES;
+  const uint32_t off_k = 2 * C::Q_BYTES, off_v = off_k + stages * C::KV_BYTES;
+  const uint32_t bar_full = base + off_v + stages * C::KV_BYTES, bar_empty = bar_full + 8 * stages;
+  const uint32_t bar_qfull = bar_empty + 8 * stages, bar_qempty = bar_qfull + 16;
+  const int rounds = C::FULLTRI ? p.nqb : (p.n_work + gridDim.x - 1) / gridDim.x;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS * 4);  // one arrival a consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar_qfull + 8 * s, 1);
+      mbar_init(bar_qempty + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp-uniform in the compiler's eyes (a shuffled value): the roles'
+  // branches, and the wgmma in them, are uniform.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x / 32) % 4, 0), lane = threadIdx.x % 32;
+  if (wg == CONSUMERS) {
+    // --- producer: its first warp issues every load -------------------------
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp != 0) return;
+    int st = 0;        // the ring's stage, over all work tiles
+    uint32_t ph = 0;   // and its phase
+    for (int n = 0; n < rounds; ++n) {
+      XWork w;
+      if (!x_work<D, U>(p, n, w)) continue;  // the last round only
+      const int hk = w.h / (p.Hq / p.Hkv);
+      const uint32_t qf = bar_qfull + 8 * (n & 1);
+      mbar_wait(bar_qempty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(qf, C::Q_BYTES);
+        for (int r = 0; r < CONSUMERS; ++r)
+          for (int hf = 0; hf < C::HALVES; ++hf)
+            tma_load_4d(base + (n & 1) * C::Q_BYTES + (r * C::HALVES + hf) * BOX_BYTES, &tm_q, qf,
+                        hf * 64, w.h, w.q0 + r * 64, w.b);
+      }
+      for (int c = 0; c < w.n_chunks; ++c) {
+        const uint32_t full = bar_full + 8 * st;
+        mbar_wait(bar_empty + 8 * st, ph ^ 1);
+        if (lane == 0) {  // one expect-tx a stage, whatever the tiles in it
+          mbar_expect_tx(full, 2 * C::KV_BYTES);
+          for (int hf = 0; hf < C::HALVES; ++hf) {
+            tma_load_4d(base + off_k + st * C::KV_BYTES + hf * SPAN * 128, &tm_k, full, hf * 64,
+                        hk, c * SPAN, w.b);
+            tma_load_4d(base + off_v + st * C::KV_BYTES + hf * SPAN * 128, &tm_v, full, hf * 64,
+                        hk, c * SPAN, w.b);
+          }
+        }
+        __syncwarp();
+        if (++st == stages) st = 0, ph ^= 1;
+      }
+    }
+  } else {
+    // --- consumers: 64 query rows each ---------------------------------------
+    setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int NS = BKV / 2, NO = D / 2;  // accumulator floats a thread
+    const int g = lane / 4, t4 = lane % 4;
+    constexpr bool pp = C::PINGPONG;
+    // Ping-pong: named barrier 1 + wg is this warpgroup's turn to issue its
+    // products; warpgroup 0 goes first in each work tile, and the last turn
+    // of warpgroup 1 hands nothing on, so every wait has its arrival.
+    auto turn_begin = [&] {
+      if constexpr (pp) named_bar_sync(1 + wg, 2 * 128);
+    };
+    auto turn_end = [&](bool last) {
+      if constexpr (pp)
+        if (wg == 0 || !last) named_bar_arrive(2 - wg, 2 * 128);
+    };
+    auto release = [&](uint32_t bar) {  // this warp is done with what `bar` guards
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    float sc[NS], o_acc[NO];
+    uint32_t pa[BKV / 16][4];
+    int st = 0;       // the ring's stage, over all work tiles
+    uint32_t ph = 0;  // and its phase
+    for (int n = 0; n < rounds; ++n) {
+      XWork w;
+      if (!x_work<D, U>(p, n, w)) continue;  // the last round only
+      const int q0 = w.q0, nc = w.n_chunks;
+      const int wrow = q0 + wg * 64;          // the warpgroup's first row
+      const int row0 = wrow + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+      const uint32_t q_base = base + (n & 1) * C::Q_BYTES + wg * C::HALVES * BOX_BYTES;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
+      float l[2] = {0.f, 0.f};              // this thread's share of the running sum
+      mbar_wait(bar_qfull + 8 * (n & 1), (n >> 1) & 1);
+      if constexpr (pp)
+        if (wg == 1) named_bar_arrive(1, 2 * 128);  // every work tile has a chunk
+
+      auto k_at = [&](int s, int u) { return base + off_k + s * C::KV_BYTES + u * BKV * 128; };
+      auto v_at = [&](int s, int u) { return base + off_v + s * C::KV_BYTES + u * BKV * 128; };
+      auto softmax = [&](int kv0, float (&alpha)[2]) {  // tile kv0's scores in sc to P
+        float mx[2] = {-INFINITY, -INFINITY};
+        if (kv0 + BKV > p.S || (p.causal && kv0 + BKV - 1 > wrow))
+          tile_max<BKV, true>(sc, mx, kv0, row0, t4, p.S, p.causal);
+        else
+          tile_max<BKV, false>(sc, mx, kv0, row0, t4, p.S, p.causal);
+        softmax_rows<NS, false>(sc, mx, m, l, alpha, p.scale);
+      };
+      // Tile u of stage st holds its P in pa: issue the next tile's Q K^T
+      // (tile u + 1 of this stage, or with CROSS tile 0 of the next stage,
+      // the next chunk) ahead of tile u's P V, run the next tile's softmax
+      // while that P V finishes, then rescale O and take the next P. A
+      // stage is freed after its last tile's P V.
+      auto step = [&](int u, auto cross_flag, int kv0_next) {
+        constexpr bool cross = decltype(cross_flag)::value;
+        const int sn = cross ? (st + 1 == stages ? 0 : st + 1) : st;
+        const uint32_t phn = cross && st + 1 == stages ? ph ^ 1 : ph;
+        float alpha[2];
+        if constexpr (!cross || C::CROSS) {
+          if constexpr (cross) mbar_wait(bar_full + 8 * sn, phn);
+          turn_begin();
+          wgmma_fence();
+          qk_tile<D, BKV, SPAN>(sc, q_base, k_at(sn, cross ? 0 : u + 1));
+          pv_tile<D, BKV, SPAN>(o_acc, pa, v_at(st, u));
+          turn_end(false);
+          wgmma_wait<1>();
+          fence_regs(sc);
+          softmax(kv0_next, alpha);
+          wgmma_wait<0>();
+          fence_regs(o_acc);
+          if constexpr (cross) release(bar_empty + 8 * st);
+        } else {
+          // One stage: this chunk's last P V, the stage freed, then the
+          // next chunk's Q K^T once it has landed.
+          turn_begin();
+          wgmma_fence();
+          pv_tile<D, BKV, SPAN>(o_acc, pa, v_at(st, u));
+          turn_end(false);
+          wgmma_wait<0>();
+          fence_regs(o_acc);
+          release(bar_empty + 8 * st);
+          mbar_wait(bar_full + 8 * sn, phn);
+          turn_begin();
+          wgmma_fence();
+          qk_tile<D, BKV, SPAN>(sc, q_base, k_at(sn, 0));
+          turn_end(false);
+          wgmma_wait<0>();
+          fence_regs(sc);
+          softmax(kv0_next, alpha);
+        }
+#pragma unroll
+        for (int i = 0; i < NO; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+        pack_frag<BKV>(pa, sc);
+        if constexpr (cross) st = sn, ph = phn;
+      };
+
+      // The first tile, peeled: no product is issued under a branch.
+      mbar_wait(bar_full + 8 * st, ph);
+      turn_begin();
+      wgmma_fence();
+      qk_tile<D, BKV, SPAN>(sc, q_base, k_at(st, 0));
+      turn_end(false);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      {
+        float alpha[2];  // O is 0: nothing to rescale
+        softmax(0, alpha);
+      }
+      pack_frag<BKV>(pa, sc);
+      for (int c = 0; c + 1 < nc; ++c) {
+#pragma unroll
+        for (int u = 0; u + 1 < TILES; ++u) step(u, Flag<false>{}, c * SPAN + (u + 1) * BKV);
+        step(TILES - 1, Flag<true>{}, (c + 1) * SPAN);
+      }
+#pragma unroll
+      for (int u = 0; u + 1 < TILES; ++u) step(u, Flag<false>{}, (nc - 1) * SPAN + (u + 1) * BKV);
+      // The last tile's P V.
+      turn_begin();
+      wgmma_fence();
+      pv_tile<D, BKV, SPAN>(o_acc, pa, v_at(st, TILES - 1));
+      turn_end(true);
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      release(bar_empty + 8 * st);
+      if (++st == stages) st = 0, ph ^= 1;
+      release(bar_qempty + 8 * (n & 1));
+
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        const int row = row0 + 8 * i;
+        if (row >= p.S) continue;
+        const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+        __nv_bfloat16* orow = p.o + (((long long)w.b * p.S + row) * p.Hq + w.h) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          store2(orow + 8 * j + 2 * t4, o_acc[4 * j + 2 * i] * inv, o_acc[4 * j + 2 * i + 1] * inv);
+      }
+    }
+  }
+}
+
+// --- host side -------------------------------------------------------------------
+
+// The launch a plan describes: its tile width, stages, shared memory and
+// grid must be this file's (K19's grid B x Hq, K17's at most the work
+// tiles), and its walk (q0, chunks) x nqb must name q-blocks of S with 1 to
+// all of S's chunks each, else cudaErrorInvalidValue.
+template <int D, int U>
+cudaError_t x_launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
+                     int Hkv, float sm_scale, int causal, int tile_keys, int stages, int smem,
+                     int grid, const int* walk, cudaStream_t stream) {
+  using C = XCfg<D, U>;
+  const long long nqb = (S + BQ - 1) / BQ, work = nqb * Hq * B;
+  if (tile_keys != C::BKV || stages != C::STAGES ||
+      smem != x_smem(C::Q_BYTES, C::KV_BYTES, C::STAGES) || nqb > MAX_QB || work > INT_MAX ||
+      (C::FULLTRI ? (long long)grid != (long long)B * Hq : (grid < 1 || grid > work)))
+    return cudaErrorInvalidValue;
+  XParams p{static_cast<__nv_bfloat16*>(o), B, S, Hq, Hkv, static_cast<int>(work),
+            static_cast<int>(nqb), sm_scale * LOG2E, C::FULLTRI ? 1 : causal, {}};
+  const int chunks = (S + C::SPAN - 1) / C::SPAN;
+  for (int i = 0; i < nqb; ++i) {
+    const int q0 = walk[2 * i], n = walk[2 * i + 1];
+    if (q0 < 0 || q0 >= S || q0 % BQ || n < 1 || n > chunks) return cudaErrorInvalidValue;
+    p.walk[i] = (q0 / BQ) << 16 | n;
+  }
+  const uint64_t b = B, s = S;
+  CUtensorMap tq, tk, tv;
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint32_t span = C::SPAN;
+  if (!encode_4d(&tq, bf16, 2, q, {(uint64_t)D, (uint64_t)Hq, s, b}, {64, 1, 64, 1}) ||
+      !encode_4d(&tk, bf16, 2, k, {(uint64_t)D, (uint64_t)Hkv, s, b}, {64, 1, span, 1}) ||
+      !encode_4d(&tv, bf16, 2, v, {(uint64_t)D, (uint64_t)Hkv, s, b}, {64, 1, span, 1}))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_exp_sm90<D, U>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+// The design of one instantiation: keys a tile, the ring's stages, dynamic
+// shared memory, threads a CTA, CTAs a SM, the producer's and the
+// consumers' registers, 1 with the cross-chunk overlap, 1 with the
+// ping-pong.
+template <int D, int U>
+cudaError_t x_info(int* out) {
+  using C = XCfg<D, U>;
+  const int smem = x_smem(C::Q_BYTES, C::KV_BYTES, C::STAGES);
+  auto kernel = flash_exp_sm90<D, U>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  out[0] = C::BKV, out[1] = C::STAGES, out[2] = smem, out[3] = THREADS;
+  out[5] = PRODUCER_REGS, out[6] = CONSUMER_REGS, out[7] = C::CROSS, out[8] = C::PINGPONG;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel, THREADS, smem);
+}
+
+bool x_args_ok(const void* q, const void* k, const void* v, const void* o, int B, int S, int Hq,
+               int Hkv, float sm_scale) {
+  // TMA reads 16-byte-aligned bases; the max is kept on the raw scores and
+  // the scale applied inside the exponent, which needs a scale > 0.
+  return B > 0 && S > 0 && Hkv > 0 && Hq % Hkv == 0 && aligned16(q) && aligned16(k) &&
+         aligned16(v) && aligned16(o) && sm_scale > 0.f;
+}
+
+}  // namespace
+
+// K17 in bf16. q (B, S, Hq, D), k/v (B, S, Hkv, D), o like q; D in {64,
+// 128}, Hq % Hkv == 0, 16-byte-aligned bases, sm_scale > 0; unroll (64-key
+// tiles a chunk) in {2, 4}; tile_keys, stages, smem, grid and walk ((q0,
+// chunks) for each of the ceil(S / 128) q-blocks, S <= 65536) from k17_plan.
+extern "C" int pfa_flash_chunked_sm90(const void* q, const void* k, const void* v, void* o, int B,
+                                      int S, int Hq, int Hkv, int D, float sm_scale, int causal,
+                                      int unroll, int tile_keys, int stages, int smem, int grid,
+                                      const int* walk, void* stream) {
+  if (!x_args_ok(q, k, v, o, B, S, Hq, Hkv, sm_scale)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PFA_K17(DD, UU)                                                                         \
+  if (D == DD && unroll == UU)                                                                  \
+    return x_launch<DD, UU>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, tile_keys, stages, smem, \
+                            grid, walk, st);
+  PFA_K17(64, 2)
+  PFA_K17(64, 4)
+  PFA_K17(128, 2)
+  PFA_K17(128, 4)
+#undef PFA_K17
+  return cudaErrorInvalidValue;
+}
+
+// K19 in bf16. q (B, S, Hq, D), k/v (B, S, Hkv, D), o like q, causal; D in
+// {64, 128}, Hq % Hkv == 0, 16-byte-aligned bases, sm_scale > 0;
+// tile_keys, stages, smem, grid (B x Hq) and walk (as K17's) from k19_plan.
+extern "C" int pfa_flash_fulltri_sm90(const void* q, const void* k, const void* v, void* o, int B,
+                                      int S, int Hq, int Hkv, int D, float sm_scale, int tile_keys,
+                                      int stages, int smem, int grid, const int* walk,
+                                      void* stream) {
+  if (!x_args_ok(q, k, v, o, B, S, Hq, Hkv, sm_scale)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return x_launch<64, 0>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, tile_keys, stages, smem, grid,
+                           walk, st);
+  if (D == 128)
+    return x_launch<128, 0>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, tile_keys, stages, smem, grid,
+                            walk, st);
+  return cudaErrorInvalidValue;
+}
+
+// out[9] (x_info) of K17 at `unroll` in {2, 4}, or of K19 at unroll 0, at
+// head dim D; no launch.
+extern "C" int pfa_exp_sm90_info(int unroll, int D, int* out) {
+  if (D == 64 && unroll == 0) return x_info<64, 0>(out);
+  if (D == 64 && unroll == 2) return x_info<64, 2>(out);
+  if (D == 64 && unroll == 4) return x_info<64, 4>(out);
+  if (D == 128 && unroll == 0) return x_info<128, 0>(out);
+  if (D == 128 && unroll == 2) return x_info<128, 2>(out);
+  if (D == 128 && unroll == 4) return x_info<128, 4>(out);
+  return cudaErrorInvalidValue;
+}

@@ -28,7 +28,8 @@
 //   (K-major, 128-byte swizzle); O += P V on wgmma m64nDk16 with P from
 //   registers (the S accumulator rounded to bf16 is wgmma's A register
 //   layout) and V from shared memory as a transposed (MN-major) B operand:
-//   no V gathers. Within a warpgroup, tile j's Q K^T is issued ahead of
+//   no V gathers (the tile step: flash_sm90_step.cuh, shared with K17 and
+//   K19's bf16 body). Within a warpgroup, tile j's Q K^T is issued ahead of
 //   tile j-1's P V, and tile j's softmax runs while that P V finishes. The
 //   two consumer warpgroups take turns at the tensor cores (named
 //   barriers, FA3's ping-pong), so one's softmax runs under the other's
@@ -60,6 +61,7 @@
 #include <string.h>
 
 #include "flash_fwd_sm90.cuh"
+#include "flash_sm90_step.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -112,16 +114,6 @@ struct Params {
 // (TMA's 128-byte swizzle).
 __device__ __forceinline__ uint32_t bias_offset(int r, int c) {
   return (c >> 5) * (BQ * 128) + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
-}
-
-// O += P V over one tile: P's BKV / 16 key steps from registers, V (BKV x
-// D, MN-major) from the stage at v_base; issued and committed as one group.
-template <int D, int BKV>
-__device__ __forceinline__ void pv_tile(float* o_acc, uint32_t (&pa)[BKV / 16][4], uint32_t v_base) {
-#pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk)
-    wgmma_rs<D>(o_acc, pa[kk], sw128_desc(v_base + kk * 16 * 128, BKV * 128));
-  wgmma_commit();
 }
 
 // --- the kernel ---------------------------------------------------------------
@@ -195,29 +187,7 @@ __device__ __forceinline__ void softmax_step(float* sc, float (&m)[2], float (&l
     tile_scores<D, MODE, true>(sc, mx, p, vec, bias, q0, kv0, row0, t4, len, off, scale);
   else
     tile_scores<D, MODE, false>(sc, mx, p, vec, bias, q0, kv0, row0, t4, len, off, scale);
-  float nbase[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    const float m_new = fmaxf(m[i], mx[i]);
-    const float bs = m_new == -INFINITY ? 0.f : m_new;  // row fully masked so far
-    if constexpr (natural_units(MODE)) {
-      alpha[i] = ex2((m[i] - bs) * LOG2E);
-      nbase[i] = bs;
-    } else {
-      nbase[i] = -bs * scale;
-      alpha[i] = ex2(fmaf(m[i], scale, nbase[i]));
-    }
-    m[i] = m_new;
-    l[i] *= alpha[i];
-  }
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    const int r = (i >> 1) & 1;
-    sc[i] = natural_units(MODE) ? ex2((sc[i] - nbase[r]) * LOG2E) : ex2(fmaf(sc[i], scale, nbase[r]));
-    l[r] += sc[i];
-  }
+  softmax_rows<NS, natural_units(MODE)>(sc, mx, m, l, alpha, scale);
   if constexpr (MODE == DROPOUT) {  // l has the undropped p; P.V takes p * keep / (1 - rate)
 #pragma unroll
     for (int i = 0; i < NS; ++i)
@@ -413,13 +383,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         const uint32_t k_base = base + C::OFF_K + s * C::KV_BYTES;
         turn_begin();
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t hf = kk / 4, koff = (kk % 4) * 32;
-          wgmma_ss<BKV>(sc, sw128_desc(q_base + hf * BOX_BYTES + koff, 16),
-                        sw128_desc(k_base + hf * BKV * 128 + koff, 16), kk == 0);
-        }
-        wgmma_commit();
+        qk_tile<D, BKV>(sc, q_base, k_base);
       };
       auto release = [&](uint32_t bar) {  // this warp is done with what `bar` guards
         __syncwarp();

@@ -16,12 +16,16 @@ photonic_flash_attention_tpu_torch.experiments.flash_pipeline_experiment
 * :func:`flash_chunked` (``_kernel_chunked``): the KV loop in chunks of
   ``unroll`` tiles, one chunk a TPU grid step with the state carried in
   scratch, dead chunks skipped whole when causal. K17
-  (``pfa_flash_chunked``) stages a chunk of ``unroll`` 64-key tiles in
-  shared memory by one ``cp.async`` group and one barrier and runs its
-  tiles in a loop unrolled at compile time, the state in registers; the
-  chunk-granular causal skip is kept (tiles of a live chunk run, masked).
-  The card takes ``unroll`` in :data:`CARD_UNROLLS`, counted in its own
-  64-key tiles, whatever ``block_kv``.
+  (``pfa_flash_chunked``) in bf16 is the Hopper body of
+  ``csrc/flash_experiments_sm90.cu``: a ring stage is one chunk of
+  ``unroll`` 64-key tiles, loaded by TMA under one mbarrier wait a chunk,
+  its tiles unrolled at compile time on ``wgmma``, 128-row work tiles on
+  K1's persistent grid (:func:`k17_plan`); fp32 inputs stay on the mma.sync
+  body (one ``cp.async`` group and one barrier a chunk, counted as
+  ``pfa_flash_chunked_fp32``). The chunk-granular causal skip is kept
+  (tiles of a live chunk run, masked). The card takes ``unroll`` in
+  :data:`CARD_UNROLLS`, counted in its own 64-key tiles, whatever
+  ``block_kv``.
 * :func:`flash_triangular` (``_kernel_tri``): causal, one launch per q
   row-block of ``block_q`` rows over a static kv extent of whole
   ``block_kv`` tiles, the mask only on tiles past the row-block's first
@@ -44,17 +48,22 @@ photonic_flash_attention_tpu_torch.experiments.flash_pipeline_experiment
   merged by :func:`lse_merge` (JAX's formula, plain PyTorch).
 * :func:`flash_fulltri` (``_kernel_fulltri``): causal, a head's whole
   triangle in one body. K19 (``pfa_flash_fulltri``) runs one CTA per
-  (b, h) that walks every 64-row q tile of its head, heaviest first,
-  streaming K/V tiles; the next row tile's Q and first K/V tile are
-  fetched by ``cp.async`` during the current row's last tile and epilogue.
-  One CTA a head (48 at the headline B4 H12, for 132 SMs) is the function
-  measured: no split.
+  (b, h) that walks every 128-row q-block of its head, heaviest first
+  (:func:`k19_plan`), streaming K/V tiles through a TMA ring with no drain
+  between rows; the next row's Q and first K/V tile are in flight during
+  the current row's last tile and epilogue. In bf16 the Hopper body of
+  ``csrc/flash_experiments_sm90.cu`` (``wgmma``, warp-specialised); fp32
+  inputs stay on the mma.sync body (64-row tiles by ``cp.async``, counted
+  as ``pfa_flash_fulltri_fp32``). One CTA a head (48 at the headline B4
+  H12, for 132 SMs) is the function measured: no split.
 
 Contract (JAX's): q (B, S, Hq, D), k/v (B, S, Hkv, D), square, GQA (q head
 h reads kv head h // (Hq/Hkv)), causal ``col <= row`` (top-left; K1's
 diagonal for square shapes); q, k, v are cast to bf16 in the body and p to
 bf16 before P.V, fp32 accumulate; output in q's dtype (tri_i8: V's). On
-the card D in {64, 128}, bf16 or fp32 inputs (fp32 converted on load).
+the card D in {64, 128}, bf16 or fp32 inputs (fp32 converted on load);
+K17/K19's bf16 inputs on 16-byte-aligned bases (their TMA loads), else
+``ValueError``.
 ``block_q``/``block_kv`` are JAX's TPU tiles: the plain versions walk them,
 the card kernels their own 64 x 64 tiles. JAX's grids are ``S // block``
 (``S // (block_kv * unroll)`` for chunked) and silently drop the tail keys
@@ -68,7 +77,9 @@ every row's running max is finite after the first block (column 0).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,10 +92,11 @@ from ..ops.flash_unrolled import flash_attention_unrolled
 from ..ops.reference import softmax_scale
 from . import _common as C
 
-__all__ = ["flash_chunked", "flash_chunked_plain", "flash_fulltri", "flash_fulltri_plain",
-           "flash_segmented", "flash_tri_i8", "flash_tri_i8_plain", "flash_triangular",
-           "flash_triangular_plain", "flash_unrolled", "flash_unrolled_plain", "lse_merge",
-           "main", "main_chunked", "main_fulltri", "main_i8", "main_seg", "main_tri"]
+__all__ = ["ExpPlan", "flash_chunked", "flash_chunked_plain", "flash_fulltri",
+           "flash_fulltri_plain", "flash_segmented", "flash_tri_i8", "flash_tri_i8_plain",
+           "flash_triangular", "flash_triangular_plain", "flash_unrolled", "flash_unrolled_plain",
+           "k17_plan", "k19_plan", "lse_merge", "main", "main_chunked", "main_fulltri", "main_i8",
+           "main_seg", "main_tri"]
 
 #: JAX's parity case and gate (max abs against ``flash_attention``).
 PARITY_SHAPE = (1, 1024, 2, 64)
@@ -169,6 +181,118 @@ def check_tri_blocks(s: int) -> Tuple[Tuple[int, int], ...]:
             or ((check_block(s), check_block(s, 2)),))
 
 
+# -- K17/K19's bf16 body: launch plans (csrc/flash_experiments_sm90.cu) -------
+
+#: Dynamic shared memory a CTA may take on the H100 (``csrc/sm90.cuh``).
+SMEM_MAX = 232448
+#: Query rows of a work tile (two consumer warpgroups of 64).
+SM90_ROWS = 128
+#: The longest S the bf16 body's walk holds (512 q-blocks, MAX_QB).
+SM90_MAX_SEQ = 512 * SM90_ROWS
+
+
+class ExpPlan(NamedTuple):
+    """One launch of K17's or K19's bf16 body, from the shapes alone: the
+    C launcher takes every field, refuses a tile width, stage count, shared
+    memory or grid that is not its own, and walks ``walk`` as it is.
+    ``chunk_keys``: the keys of a ring stage (K19: one tile); with two
+    stages or more the next stage's Q.K^T is issued before this stage's
+    last P.V. ``walk``: (q0, chunks) of the q-blocks of 128 rows in the
+    order the work tiles take them: K19's CTA runs them in this order, and
+    K17's persistent grid gives q-block i to its work tiles t with
+    t // (Hq B) == i; each runs its first ``chunks`` chunks of
+    ``chunk_keys`` keys. The plan functions are cached: a launch pays for
+    its plan once a shape."""
+    tile_keys: int
+    chunk_keys: int
+    stages: int
+    smem: int
+    grid: int
+    walk: Tuple[Tuple[int, int], ...]
+
+
+def _sm90_smem(d: int, chunk_keys: int, stages: int) -> int:
+    """Q double-buffered, ``stages`` K and V blocks, the mbarriers and
+    1024 bytes of alignment slack (``x_smem``)."""
+    return 2 * SM90_ROWS * d * 2 + 2 * stages * chunk_keys * d * 2 + 8 * (2 * stages + 4) + 1024
+
+
+def _sm90_stages(d: int, chunk_keys: int) -> int:
+    """The most ring stages that fit (``x_max_stages``)."""
+    n = 0
+    while _sm90_smem(d, chunk_keys, n + 1) <= SMEM_MAX:
+        n += 1
+    return n
+
+
+def _check_plan_shape(s: int, hq: int, hkv: int, d: int) -> None:
+    if d not in CARD_HEAD_DIMS:
+        raise ValueError(f"K17/K19 take head_dim in {CARD_HEAD_DIMS}, got {d}")
+    if s < 1 or hkv < 1 or hq % hkv:
+        raise ValueError(f"bad shape: S {s}, Hq {hq}, Hkv {hkv}")
+    if s > SM90_MAX_SEQ:
+        raise ValueError(f"K17/K19's bf16 body takes S <= {SM90_MAX_SEQ} (its walk), got {s}")
+
+
+def _walk(s: int, chunk_keys: int, causal: bool) -> Tuple[Tuple[int, int], ...]:
+    """The q-blocks, causal ones heaviest (last) first, each with the chunks
+    its rows see: those whose first key is at or below its last row when
+    causal, every chunk of S otherwise."""
+    q0s = range(0, s, SM90_ROWS)
+    return tuple((q0, -(-(min(s, q0 + SM90_ROWS) if causal else s) // chunk_keys))
+                 for q0 in (reversed(q0s) if causal else q0s))
+
+
+@functools.lru_cache(maxsize=None)
+def k19_plan(b: int, s: int, hq: int, hkv: int, d: int) -> ExpPlan:
+    """K19's launch: one CTA per (b, h) (grid B x Hq); each walks its head's
+    128-row q-blocks from the last, over key tiles of K1's width (128 at D
+    64, 96 at D 128) up to the block's last row, one tile a stage, as many
+    stages as fit."""
+    _check_plan_shape(s, hq, hkv, d)
+    tile = 96 if d == 128 else 128
+    stages = _sm90_stages(d, tile)
+    return ExpPlan(tile, tile, stages, _sm90_smem(d, tile, stages), b * hq, _walk(s, tile, True))
+
+
+@functools.lru_cache(maxsize=None)
+def k17_plan(b: int, s: int, hq: int, hkv: int, d: int, unroll: int, *, causal: bool = True,
+             sms: int = 132) -> ExpPlan:
+    """K17's launch: a ring stage is one chunk of ``unroll`` 64-key tiles;
+    as many stages as fit (one at D 128 unroll 4: no cross-chunk overlap);
+    K1's persistent grid (min(work tiles, ``sms``) CTAs walking the 128-row
+    work tiles in snake order: heads fastest, then batch rows, then the
+    walk's q-blocks, causal ones longest first)."""
+    _check_plan_shape(s, hq, hkv, d)
+    if unroll not in CARD_UNROLLS:
+        raise ValueError(f"K17 takes unroll in {CARD_UNROLLS} on the card, got {unroll}")
+    span = 64 * unroll
+    stages = _sm90_stages(d, span)
+    grid = min(-(-s // SM90_ROWS) * hq * b, sms)
+    return ExpPlan(64, span, stages, _sm90_smem(d, span, stages), grid, _walk(s, span, causal))
+
+
+@functools.lru_cache(maxsize=None)
+def _c_walk(walk: Tuple[Tuple[int, int], ...]):
+    """A plan's walk as the C launcher reads it: int[2 x q-blocks]."""
+    return (ctypes.c_int * (2 * len(walk)))(*(x for pair in walk for x in pair))
+
+
+def _check_sm90(name: str, scale: float, *tensors: torch.Tensor) -> None:
+    """What the bf16 body takes beyond :func:`C.check_card`: 16-byte-aligned
+    bases (TMA) and sm_scale > 0 (the scale folded into the exponent)."""
+    if not scale > 0.0:
+        raise ValueError(f"{name}'s bf16 body takes sm_scale > 0, got {scale}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte-aligned bf16 inputs; one starts at "
+                             f"{t.data_ptr():#x}")
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check(q, k, v, block_q: int, block_kv: int) -> None:
     C.check_qkv(q, k, v, gqa=True)
     C.check_blocks(q.shape[1], block_q, "block_q")
@@ -233,15 +357,28 @@ def flash_chunked_plain(q, k, v, *, block_q: int = 512, block_kv: int = 512, unr
 
 
 def _chunked_cuda(q, k, v, unroll: int, causal: bool, scale: float) -> torch.Tensor:
-    C.check_card(q, CARD_DTYPES, CARD_HEAD_DIMS, "K17 pfa_flash_chunked", k, v)
+    """K17: bf16 on the Hopper body by :func:`k17_plan`, counted as
+    ``pfa_flash_chunked``; fp32 on the mma.sync body, counted as
+    ``pfa_flash_chunked_fp32``."""
+    name = "K17 pfa_flash_chunked"
+    C.check_card(q, CARD_DTYPES, CARD_HEAD_DIMS, name, k, v)
     if unroll not in CARD_UNROLLS:
-        raise ValueError(f"K17 pfa_flash_chunked takes unroll in {CARD_UNROLLS} on the card "
+        raise ValueError(f"{name} takes unroll in {CARD_UNROLLS} on the card "
                          f"(64-key tiles a chunk), got {unroll}")
     b, s, hq, d = q.shape
+    hkv = k.shape[2]
     o = torch.empty_like(q)
-    _build.launch("pfa_flash_chunked", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), b, s, hq, k.shape[2], d, float(scale), int(causal), int(unroll),
-                  _build.DTYPE_CODES[q.dtype])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if q.dtype != torch.bfloat16:
+        _build.launch("pfa_flash_chunked", q.device, *ptrs, b, s, hq, hkv, d, float(scale),
+                      int(causal), int(unroll), _build.DTYPE_CODES[q.dtype],
+                      count_as="pfa_flash_chunked_fp32")
+        return o
+    _check_sm90(name, scale, q, k, v)
+    plan = k17_plan(b, s, hq, hkv, d, unroll, causal=causal, sms=_sms(q.device))
+    _build.launch("pfa_flash_chunked_sm90", q.device, *ptrs, b, s, hq, hkv, d, float(scale),
+                  int(causal), int(unroll), plan.tile_keys, plan.stages, plan.smem, plan.grid,
+                  _c_walk(plan.walk), count_as="pfa_flash_chunked")
     return o
 
 
@@ -437,12 +574,24 @@ def flash_fulltri_plain(q, k, v, *, block_q: int = 512, block_kv: int = 512,
 
 
 def _fulltri_cuda(q, k, v, scale: float) -> torch.Tensor:
-    C.check_card(q, CARD_DTYPES, CARD_HEAD_DIMS, "K19 pfa_flash_fulltri", k, v)
+    """K19: bf16 on the Hopper body by :func:`k19_plan`, counted as
+    ``pfa_flash_fulltri``; fp32 on the mma.sync body, counted as
+    ``pfa_flash_fulltri_fp32``."""
+    name = "K19 pfa_flash_fulltri"
+    C.check_card(q, CARD_DTYPES, CARD_HEAD_DIMS, name, k, v)
     b, s, hq, d = q.shape
+    hkv = k.shape[2]
     o = torch.empty_like(q)
-    _build.launch("pfa_flash_fulltri", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), b, s, hq, k.shape[2], d, float(scale),
-                  _build.DTYPE_CODES[q.dtype])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if q.dtype != torch.bfloat16:
+        _build.launch("pfa_flash_fulltri", q.device, *ptrs, b, s, hq, hkv, d, float(scale),
+                      _build.DTYPE_CODES[q.dtype], count_as="pfa_flash_fulltri_fp32")
+        return o
+    _check_sm90(name, scale, q, k, v)
+    plan = k19_plan(b, s, hq, hkv, d)
+    _build.launch("pfa_flash_fulltri_sm90", q.device, *ptrs, b, s, hq, hkv, d, float(scale),
+                  plan.tile_keys, plan.stages, plan.smem, plan.grid, _c_walk(plan.walk),
+                  count_as="pfa_flash_fulltri")
     return o
 
 

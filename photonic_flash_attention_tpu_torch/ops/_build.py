@@ -119,6 +119,18 @@ _SIGNATURES: Dict[str, List] = {
     "pfa_flash_pipelined": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, unroll, dtype, stream
     "pfa_flash_chunked": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _I, _P],
+    # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, unroll, tile_keys,
+    # stages, smem, grid, walk (int[2 x q-blocks]), stream: K17's bf16 body
+    # (k17_plan)
+    "pfa_flash_chunked_sm90": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 6 + [ctypes.POINTER(_I), _P],
+    # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, tile_keys, stages, smem, grid,
+    # walk, stream: K19's bf16 body (k19_plan)
+    "pfa_flash_fulltri_sm90": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 4 + [ctypes.POINTER(_I), _P],
+    # unroll (0: K19), D, out (int[9]: keys a tile, stages, shared bytes,
+    # threads, CTAs a SM, producer and consumer registers, 1 with the
+    # cross-chunk overlap, 1 with the ping-pong) of K17/K19's bf16 body; no
+    # stream, no launch
+    "pfa_exp_sm90_info": [_I, _I, ctypes.POINTER(_I)],
     # q, k, v, o, score_scale (or None), B, S, Hq, Hkv, D, q_row0, rows,
     # sm_scale, causal, qk_int8, dtype, stream
     "pfa_flash_tri": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _I, _P],

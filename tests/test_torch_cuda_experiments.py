@@ -16,7 +16,10 @@ every nchain it takes (1, the control, and 2); K16 causal and not, GQA, D
 mode causal and not, K19, each at a small shape, a length that is a
 multiple of 64 but not of 128, D 128 with GQA, fp32 inputs and the mains'
 geometries (``CARD_CHECK_SHAPES``; K18 launched once per row-block, at
-each of ``main_tri``'s blocks that divides S); the segmented path at its
+each of ``main_tri``'s blocks that divides S; K17 and K19 counted under
+their Hopper body's name in bf16 and ``*_fp32`` on the mma.sync body, each
+dtype reaching only its own, a plan not the launcher's own refused, an
+unaligned bf16 base raising); the segmented path at its
 main's long geometries on its last rows; K20 and K21 (the unrolled
 backward) through ``flash_bwd_unrolled`` at ``CARD_CHECKS`` causal and not
 (blocks of 64, a launch of 320 rows, D 128, fp32 inputs) and at every
@@ -128,6 +131,12 @@ def _pipeline_qkv(dev, seed, shape):
     return _qkv(dev, seed, (b, s, hq, d), (b, s, hkv, d), dtype)
 
 
+def _route(name, dtype):
+    """K17/K19's launch counter: the Hopper body's in bf16, the mma.sync
+    body's in fp32."""
+    return name if dtype == torch.bfloat16 else name + "_fp32"
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("unroll", pipeline.CARD_UNROLLS)
 @pytest.mark.parametrize("shape", pipeline.CARD_CHECK_SHAPES, ids=pipeline.CARD_CHECK_IDS)
@@ -135,7 +144,7 @@ def test_k17_chunked_matches_plain(cuda_device, causal, unroll, shape):
     q, k, v = _pipeline_qkv(cuda_device, 8, shape)
     kw = dict(causal=causal, block_q=pipeline.check_block(shape[1]),
               block_kv=pipeline.check_block(shape[1], unroll), unroll=unroll)
-    _check("pfa_flash_chunked", lambda: experiments.flash_chunked(q, k, v, **kw),
+    _check(_route("pfa_flash_chunked", shape[5]), lambda: experiments.flash_chunked(q, k, v, **kw),
            lambda: pipeline.flash_chunked_plain(q, k, v, **kw))
 
 
@@ -163,8 +172,67 @@ def test_k19_fulltri_matches_plain(cuda_device, shape):
     q, k, v = _pipeline_qkv(cuda_device, 11, shape)
     s = shape[1]
     kw = dict(block_q=pipeline.check_block(s, 2), block_kv=pipeline.check_block(s))
-    _check("pfa_flash_fulltri", lambda: experiments.flash_fulltri(q, k, v, **kw),
+    _check(_route("pfa_flash_fulltri", shape[5]), lambda: experiments.flash_fulltri(q, k, v, **kw),
            lambda: pipeline.flash_fulltri_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k17_k19_route_by_dtype(cuda_device, dtype):
+    """bf16 reaches only the Hopper body, fp32 only the mma.sync one."""
+    q, k, v = _pipeline_qkv(cuda_device, 15, (1, 320, 4, 2, 64, dtype))
+    names = ("pfa_flash_chunked", "pfa_flash_chunked_fp32", "pfa_flash_fulltri",
+             "pfa_flash_fulltri_fp32")
+    before = {n: _build.LAUNCHES[n] for n in names}
+    experiments.flash_chunked(q, k, v, block_q=64, block_kv=32, unroll=2, causal=True)
+    experiments.flash_fulltri(q, k, v, block_q=64, block_kv=64)
+    torch.cuda.synchronize()
+    got = {n: _build.LAUNCHES[n] - before[n] for n in names}
+    want = {n: int(n.endswith("_fp32") == (dtype == torch.float32)) for n in names}
+    assert got == want
+
+
+def test_k17_k19_refuse_other_plans(cuda_device):
+    """The launchers run their own plans and refuse another tile width,
+    stage count or shared memory, or a walk with a q-block of no chunk."""
+    b, s, hq, hkv, d = 1, 320, 4, 2, 64
+    q, k, v = _pipeline_qkv(cuda_device, 16, (b, s, hq, hkv, d, torch.bfloat16))
+    o = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, hq, hkv, d, d ** -0.5)
+
+    def k17(plan):  # causal, unroll 2
+        _build.launch("pfa_flash_chunked_sm90", cuda_device, *args, 1, 2, plan.tile_keys,
+                      plan.stages, plan.smem, plan.grid, pipeline._c_walk(plan.walk))
+
+    def k19(plan):
+        _build.launch("pfa_flash_fulltri_sm90", cuda_device, *args, plan.tile_keys, plan.stages,
+                      plan.smem, plan.grid, pipeline._c_walk(plan.walk))
+
+    p17, p19 = pipeline.k17_plan(b, s, hq, hkv, d, 2), pipeline.k19_plan(b, s, hq, hkv, d)
+    k17(p17)
+    k19(p19)
+    torch.cuda.synchronize()
+    empty_row = ((p19.walk[0][0], 0),) + p19.walk[1:]
+    for launch, plan in ((k17, p17._replace(stages=p17.stages - 1)),
+                         (k17, p17._replace(tile_keys=128)),
+                         (k19, p19._replace(smem=p19.smem + 1024)),
+                         (k19, p19._replace(walk=empty_row))):
+        with pytest.raises(RuntimeError, match="_sm90"):
+            launch(plan)
+
+
+def test_k17_k19_unaligned_bf16_raises(cuda_device):
+    """TMA reads 16-byte-aligned bases: a bf16 tensor that starts 2 bytes
+    in raises, before any launch."""
+    b, s, h, d = 1, 256, 2, 64
+    n = b * s * h * d
+    buf = torch.randn(3 * n + 1, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(b, s, h, d) for i in range(3))
+    before = (_build.LAUNCHES["pfa_flash_chunked"], _build.LAUNCHES["pfa_flash_fulltri"])
+    with pytest.raises(ValueError, match="16-byte"):
+        experiments.flash_chunked(q, k, v, block_q=128, block_kv=64, unroll=2, causal=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        experiments.flash_fulltri(q, k, v, block_q=128, block_kv=128)
+    assert (_build.LAUNCHES["pfa_flash_chunked"], _build.LAUNCHES["pfa_flash_fulltri"]) == before
 
 
 def test_segmented_runs_on_k1(cuda_device):

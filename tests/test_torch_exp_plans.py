@@ -1,0 +1,86 @@
+"""The launch plans of K17's and K19's bf16 bodies (``k17_plan``,
+``k19_plan`` in ``experiments/flash_pipeline_experiment.py``), on the CPU.
+
+The C launchers of ``csrc/flash_experiments_sm90.cu`` take every field of a
+plan: they refuse a tile width, stage count, shared memory or grid that is
+not their own, and the kernel walks the plan's q-blocks and runs each one's
+chunks as the plan lists them. So these pure functions are what the card
+runs: K19's walk covers each causal (row-block, key tile) pair of a head
+once, heaviest row first, on a grid of B x Hq CTAs; K17's chunks per
+128-row work tile follow the chunk-granular causal skip (every chunk when
+not causal); every plan's shared memory fits the H100's 232,448 bytes with
+as many stages as fit. Parametrised over the card checks' shapes
+(``CARD_CHECK_SHAPES``) and the mains' geometries.
+"""
+
+import math
+
+import pytest
+
+from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
+
+SHAPES = sorted({shape[:5] for shape in ux.CARD_CHECK_SHAPES}
+                | {shape for _, shape, _ in ux.CHUNKED_CASES}
+                | {shape for _, shape in ux.FULLTRI_CASES})
+IDS = ["b{}s{}h{}-{}d{}".format(*shape) for shape in SHAPES]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_k19_walk_covers_each_causal_pair_once(shape):
+    b, s, hq, hkv, d = shape
+    plan = ux.k19_plan(b, s, hq, hkv, d)
+    assert plan.grid == b * hq
+    assert plan.tile_keys == plan.chunk_keys == (96 if d == 128 else 128)
+    # each q-block runs its first n tiles, in key order from key 0
+    pairs = [(q0, t * plan.tile_keys) for q0, n in plan.walk for t in range(n)]
+    want = {(q0, kv0) for q0 in range(0, s, 128) for kv0 in range(0, s, plan.tile_keys)
+            if kv0 <= min(s - 1, q0 + 127)}
+    assert len(pairs) == len(want) and set(pairs) == want
+    rows = [q0 for q0, _ in plan.walk]
+    assert rows == sorted(rows, reverse=True)  # heaviest (last) row-block first
+    assert len(set(rows)) == len(rows) == math.ceil(s / 128)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("unroll", ux.CARD_UNROLLS)
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_k17_live_chunks(shape, unroll, causal):
+    b, s, hq, hkv, d = shape
+    plan = ux.k17_plan(b, s, hq, hkv, d, unroll, causal=causal, sms=132)
+    span = 64 * unroll
+    assert plan.tile_keys == 64 and plan.chunk_keys == span
+    nqb = math.ceil(s / 128)
+    q0s = [q0 for q0, _ in plan.walk]
+    # every q-block once; causal ones longest first
+    assert q0s == sorted(range(0, nqb * 128, 128), reverse=causal)
+    want = [min(math.ceil((q0 + 128) / span), math.ceil(s / span)) if causal else
+            math.ceil(s / span) for q0 in q0s]
+    assert [n for _, n in plan.walk] == want
+    assert plan.grid == min(nqb * hq * b, 132)
+
+
+@pytest.mark.parametrize("kernel", ["k19", "k17 u2", "k17 u4"])
+@pytest.mark.parametrize("d", ux.CARD_HEAD_DIMS)
+def test_plan_shared_memory_fits(kernel, d):
+    plan = (ux.k19_plan(4, 2048, 12, 12, d) if kernel == "k19"
+            else ux.k17_plan(4, 2048, 12, 12, d, int(kernel[-1])))
+    assert plan.smem <= ux.SMEM_MAX
+    assert plan.smem == ux._sm90_smem(d, plan.chunk_keys, plan.stages)
+    # as many stages as fit: one more does not
+    assert ux._sm90_smem(d, plan.chunk_keys, plan.stages + 1) > ux.SMEM_MAX
+    want = {("k19", 64): 6, ("k19", 128): 3, ("k17 u2", 64): 6, ("k17 u4", 64): 3,
+            ("k17 u2", 128): 2, ("k17 u4", 128): 1}
+    assert plan.stages == want[(kernel, d)]
+
+
+def test_plan_bad_arguments():
+    with pytest.raises(ValueError, match="head_dim"):
+        ux.k19_plan(1, 320, 2, 2, 96)
+    with pytest.raises(ValueError, match="unroll"):
+        ux.k17_plan(1, 320, 2, 2, 64, 3)
+    with pytest.raises(ValueError, match="shape"):
+        ux.k17_plan(1, 320, 3, 2, 64, 2)
+    # the kernel's walk holds 512 q-blocks
+    assert len(ux.k19_plan(1, ux.SM90_MAX_SEQ, 1, 1, 64).walk) == 512
+    with pytest.raises(ValueError, match="S <="):
+        ux.k17_plan(1, ux.SM90_MAX_SEQ + 1, 1, 1, 64, 2)
