@@ -18,8 +18,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    modes and K6 int8 and fp8, D 64 and 128) holds exactly its mode's GMMA
    kinds (IGMMA s8, QGMMA e4m3, HGMMA bf16/f16) and UTMALDG, no HMMA or
    IMMA and no stack; that K3's 16 instantiations stage pages by the
-   TMA's bulk copy (UBLKCP) with no stack; and that K17's and K19's bf16
-   body (K17 at unroll 2 and 4, K19; D 64 and 128) holds HGMMA and
+   TMA's bulk copy (UBLKCP) with no stack; and that K16-K19's bf16 body
+   (K16/K18, K17 at unroll 2 and 4, K19; D 64 and 128) holds HGMMA and
    UTMALDG, no HMMA and no stack;
 3. kernels: each kernel and mode against its plain PyTorch version on the
    card, at the shapes the main paths give it, with kernel, plain and
@@ -78,12 +78,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    fixed-max in both exp modes, augmented V, paired chains at nchain 1 and
    2, the pipelined KV loop, chunked K/V staging at unroll 2 and 4, one
    launch per q row-block in bf16 and with int8 Q.K, one CTA per head over
-   the whole triangle; K17 and K19 in bf16 on their TMA + wgmma body of
+   the whole triangle; K16-K19 in bf16 on their TMA + wgmma body of
    csrc/flash_experiments_sm90.cu, in fp32 on the mma.sync bodies of
    csrc/flash_experiments.cu, counted as modes of their own and timed at
    K1's headline shape in fp32) against their plain versions at small, ragged and
    full shapes, the full ones every geometry the experiments path gives
-   them, each plain version timed once at K1's headline shape; then, as a
+   them, each plain version timed once at K1's headline shape, and a K18
+   call (its chain of programmatic dependent launches) captured into a
+   CUDA graph and replayed on new inputs; then, as a
    path of its own, the experiments' mains on the card (the four files'
    and the pipeline file's five others: parity, then each variant and K1
    at JAX's geometries by the graph fit), each variant printed with its
@@ -165,8 +167,9 @@ of three single training steps and of one T5-large serving run (bf16
 compute and pool) (device activity only: busy time, idle share of each
 call's wall time, time by kernel group) and writes the traces and a
 per-kernel table into DIR. ``--exp-table`` only builds and prints the exp
-table (K17 at unroll 2 and 4 and K19 at the pipeline mains' geometries by
-the graph fit, beside K1 bf16, SDPA and the bound), with
+table (K16, K17 at unroll 2 and 4, K18 at each of its blocks and K19 at
+the pipeline mains' geometries by the graph fit, beside K1 bf16, SDPA and
+the bound), with
 public calls, so a copy of the script in an unpacked tree of another commit
 times that tree.
 """
@@ -256,10 +259,12 @@ SOURCES = {
     "pfa_flash_fixedmax_fast": _EXPERIMENTS,
     "pfa_flash_aug": _EXPERIMENTS,
     "pfa_flash_pair": _EXPERIMENTS,
-    "pfa_flash_pipelined": _EXPERIMENTS,
+    "pfa_flash_pipelined": _EXPERIMENTS90,
+    "pfa_flash_pipelined_fp32": _EXPERIMENTS,
     "pfa_flash_chunked": _EXPERIMENTS90,
     "pfa_flash_chunked_fp32": _EXPERIMENTS,
-    "pfa_flash_tri": _EXPERIMENTS,
+    "pfa_flash_tri": _EXPERIMENTS90,
+    "pfa_flash_tri_fp32": _EXPERIMENTS,
     "pfa_flash_tri_i8": _EXPERIMENTS,
     "pfa_flash_fulltri": _EXPERIMENTS90,
     "pfa_flash_fulltri_fp32": _EXPERIMENTS,
@@ -317,9 +322,11 @@ REPLACES = {
     "pfa_flash_aug": "benchmarks/flash_aug_experiment.py:28",
     "pfa_flash_pair": "benchmarks/flash_pair_experiment.py:28",
     "pfa_flash_pipelined": "benchmarks/flash_pipeline_experiment.py:49",
+    "pfa_flash_pipelined_fp32": "benchmarks/flash_pipeline_experiment.py:49 (fp32 inputs)",
     "pfa_flash_chunked": "benchmarks/flash_pipeline_experiment.py:226",
     "pfa_flash_chunked_fp32": "benchmarks/flash_pipeline_experiment.py:226 (fp32 inputs)",
     "pfa_flash_tri": "benchmarks/flash_pipeline_experiment.py:407",
+    "pfa_flash_tri_fp32": "benchmarks/flash_pipeline_experiment.py:407 (fp32 inputs)",
     "pfa_flash_tri_i8": "benchmarks/flash_pipeline_experiment.py:548",
     "pfa_flash_fulltri": "benchmarks/flash_pipeline_experiment.py:821",
     "pfa_flash_fulltri_fp32": "benchmarks/flash_pipeline_experiment.py:821 (fp32 inputs)",
@@ -332,8 +339,8 @@ REPLACES = {
 #: K3's read-only attend (with and without the token bias) and K2 alone
 #: (serving decodes through K3's fused write + attend),
 #: ALiBi (no model of the port uses it), the sliding window of K1, K4
-#: and K5 (no model of the port sets one) and K17's and K19's fp32 inputs
-#: (the experiments' mains run bf16; their mma.sync bodies are checked and
+#: and K5 (no model of the port sets one) and K16-K19's fp32 inputs (the
+#: experiments' mains run bf16; their mma.sync bodies are checked and
 #: timed in the experiments phase). K6's int8 mode has its own entry: the
 #: CLI's ``calibrate`` runs it.
 NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
@@ -345,7 +352,9 @@ NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
                 "pfa_flash_fwd_window": ("pfa_flash_fwd", "window"),
                 "pfa_flash_bwd_dkv_window": ("pfa_flash_bwd_dkv", "window"),
                 "pfa_flash_bwd_dq_window": ("pfa_flash_bwd_dq", "window"),
+                "pfa_flash_pipelined_fp32": ("pfa_flash_pipelined", "fp32 (mma.sync body)"),
                 "pfa_flash_chunked_fp32": ("pfa_flash_chunked", "fp32 (mma.sync body)"),
+                "pfa_flash_tri_fp32": ("pfa_flash_tri", "fp32 (mma.sync body)"),
                 "pfa_flash_fulltri_fp32": ("pfa_flash_fulltri", "fp32 (mma.sync body)")}
 TIMED_RUNS = 20
 # H100 SXM data sheet (dense, at its 700 W limit): the bound of each kernel
@@ -521,10 +530,11 @@ QUANT_SM90 = re.compile(r"flash_quant_sm90ILi(\d+)ELi(\d)E")
 QUANT_SASS_MODES = (("int8-QK", {"IGMMA", "HGMMA"}), ("fp8-QK", {"QGMMA", "HGMMA"}),
                     ("int8-full", {"IGMMA"}), ("K6 int8", {"IGMMA"}), ("K6 fp8", {"HGMMA", "QGMMA"}))
 GMMA_OPS = ("HGMMA", "IGMMA", "QGMMA")
-#: K17's and K19's bf16 body: one instantiation per head dim and unroll (0:
-#: K19; csrc/flash_experiments_sm90.cu::flash_exp_sm90<D, U>).
+#: K16-K19's bf16 body: one instantiation per head dim and unroll (0: K19,
+#: 1: K16 and K18; csrc/flash_experiments_sm90.cu::flash_exp_sm90<D, U>).
 EXP_SM90 = re.compile(r"flash_exp_sm90ILi(\d+)ELi(\d)E")
-EXP_UNROLLS = (0, 2, 4)
+EXP_UNROLLS = (0, 1, 2, 4)
+EXP_LABELS = {0: "K19", 1: "K16/K18", 2: "K17 unroll 2", 4: "K17 unroll 4"}
 
 
 def _cuobjdump(flag: str, path: Path) -> str:
@@ -707,13 +717,13 @@ def check_quant_sass(counts: dict, usage: dict) -> None:
 
 
 def check_exp_sass(counts: dict, usage: dict) -> None:
-    """The same proof for K17's and K19's bf16 body (K17 at unroll 2 and 4,
-    K19; D 64 and 128): each instantiation must hold HGMMA and UTMALDG, no
-    HMMA, and no stack or local bytes. Prints the counts, registers, stack
-    and, from ``pfa_exp_sm90_info``, the key tile, the ring's stages and
-    shared memory, threads, CTAs a SM, the setmaxnreg split, whether the
-    next chunk's Q.K^T overlaps this chunk's last P.V and whether the
-    warpgroups ping-pong."""
+    """The same proof for K16-K19's bf16 body (K16 and K18, K17 at unroll 2
+    and 4, K19; D 64 and 128): each instantiation must hold HGMMA and
+    UTMALDG, no HMMA, and no stack or local bytes. Prints the counts,
+    registers, stack and, from ``pfa_exp_sm90_info``, the key tile, the
+    ring's stages and shared memory, threads, CTAs a SM, the setmaxnreg
+    split, whether the next stage's Q.K^T overlaps this stage's last P.V
+    and whether the warpgroups ping-pong."""
     import ctypes
 
     want = {("exp", d, u) for d in (64, 128) for u in EXP_UNROLLS}
@@ -727,13 +737,13 @@ def check_exp_sass(counts: dict, usage: dict) -> None:
         if err:
             raise RuntimeError(f"pfa_exp_sm90_info: CUDA error {err}")
         reg = usage.get(("exp", d, u))
-        line = (f"exp SASS {'K19' if u == 0 else f'K17 unroll {u}'} D{d}: HGMMA {c['HGMMA']}, "
+        line = (f"exp SASS {EXP_LABELS[u]} D{d}: HGMMA {c['HGMMA']}, "
                 f"UTMALDG {c['UTMALDG']}, HMMA {c['HMMA']}; " +
                 (f"registers {reg[0]} at launch (setmaxnreg: producer {info[5]}, consumers "
                  f"{info[6]}), stack {reg[1]} B, local {reg[3]} B" if reg
                  else "cuobjdump -res-usage: no entry") +
                 f"; {info[0]}-key tiles, {info[1]} stages ({info[2]} B shared), "
-                f"{info[3]} threads, {info[4]} CTA(s) a SM, cross-chunk overlap "
+                f"{info[3]} threads, {info[4]} CTA(s) a SM, cross-stage overlap "
                 f"{'on' if info[7] else 'off'}, ping-pong {'on' if info[8] else 'off'}")
         if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"] or not reg or reg[1] or reg[3]:
             raise AssertionError(f"{line}: the bf16 body must run on wgmma and TMA only, "
@@ -4092,7 +4102,9 @@ def phase_roofline(k1: dict, smi: str) -> tuple:
 # -- experiments: the design-space kernels (K13-K21) ---------------------------
 
 #: K13 (both exp modes), K14, K15, K16, K17, K18 (both modes), K19 and the
-#: backward's K20 and K21: the experiments path's kernels.
+#: backward's K20 and K21: the experiments path's kernels (K16-K19's fp32
+#: modes, which the bf16 mains do not run, are checked and timed in
+#: check_experiments and nest under them: NESTED_MODES).
 EXPERIMENT_KERNELS = ("pfa_flash_fixedmax", "pfa_flash_fixedmax_fast", "pfa_flash_aug",
                       "pfa_flash_pair", "pfa_flash_pipelined", "pfa_flash_chunked",
                       "pfa_flash_tri", "pfa_flash_tri_i8", "pfa_flash_fulltri",
@@ -4251,6 +4263,9 @@ def check_experiments(results: dict) -> dict:
                              lambda: px.flash_pair_plain(q, k, v, bq=blk, bkv=blk, nchain=nc),
                              checked, timed=(b, s, h, 64) == K1_HEADLINE and nc == 2)
     both = (True, False)
+    # K16-K19's counter: the Hopper body's in bf16, the mma.sync body's (a
+    # mode of its own) in fp32.
+    route = lambda name, dtype: name if dtype == torch.bfloat16 else f"{name}_fp32"  # noqa: E731
     for (b, s, h, hkv, d, dtype), causals in (((2, 256, 4, 4, 64, torch.bfloat16), both),
                                               ((1, 96, 4, 2, 64, torch.bfloat16), both),
                                               ((2, 320, 8, 2, 128, torch.bfloat16), both),
@@ -4262,16 +4277,13 @@ def check_experiments(results: dict) -> dict:
         blk = 32 if s % 64 else 512 if s >= 2048 else 64
         for causal in causals:
             kw = dict(causal=causal, block_q=blk, block_kv=blk)
-            _experiment_case("pfa_flash_pipelined",
-                             f"K16 pipelined B{b} S{s} H{h}/{hkv} D{d} {str(dtype)[6:]} "
+            name = route("pfa_flash_pipelined", dtype)
+            _experiment_case(name, f"K16 pipelined B{b} S{s} H{h}/{hkv} D{d} {str(dtype)[6:]} "
                              f"causal={causal}",
                              lambda: ux.flash_unrolled(q, k, v, **kw),
                              lambda: ux.flash_unrolled_plain(q, k, v, **kw), checked,
-                             timed=(b, s, h, d) == K1_HEADLINE and causal)
+                             timed=(b, s, h, d) == K1_HEADLINE and causal, launches=(name, 1))
     blk = ux.check_block
-    # K17's and K19's counter: the Hopper body's in bf16, the mma.sync
-    # body's (a mode of its own) in fp32.
-    route = lambda name, dtype: name if dtype == torch.bfloat16 else f"{name}_fp32"  # noqa: E731
     for b, s, h, hkv, d, dtype in ux.CARD_CHECK_SHAPES:
         q, k, v = qkv(b, s, h, d, hkv=hkv, dtype=dtype)
         geom = f"B{b} S{s} H{h}/{hkv} D{d} {str(dtype)[6:]}"
@@ -4292,36 +4304,48 @@ def check_experiments(results: dict) -> dict:
                              launches=("pfa_flash_tri_i8", s // blk(s)))
         for bq, bkv in ux.check_tri_blocks(s):
             kw = dict(block_q=bq, block_kv=bkv)
-            _experiment_case("pfa_flash_tri", f"K18 triangular bq={bq} bkv={bkv} {geom} causal",
+            name = route("pfa_flash_tri", dtype)
+            _experiment_case(name, f"K18 triangular bq={bq} bkv={bkv} {geom} causal",
                              lambda: ux.flash_triangular(q, k, v, **kw),
                              lambda: ux.flash_triangular_plain(q, k, v, **kw), checked,
-                             timed=headline and (bq, bkv) == (512, 512),
-                             launches=("pfa_flash_tri", s // bq))
+                             timed=headline and (bq, bkv) == (512, 512), launches=(name, s // bq))
         kw = dict(block_q=blk(s, 2), block_kv=blk(s))
         name = route("pfa_flash_fulltri", dtype)
         _experiment_case(name, f"K19 full triangle {geom} causal",
                          lambda: ux.flash_fulltri(q, k, v, **kw),
                          lambda: ux.flash_fulltri_plain(q, k, v, **kw), checked, timed=headline,
                          launches=(name, 1))
+    # K18 in bf16 captured into a CUDA graph (its launches after the first
+    # programmatic dependent launches), replayed on new inputs and read by
+    # the stream's next kernel before any synchronisation.
+    for shape, bq in (((4, 2048, 12, 12, 64), 512), ((1, 8192, 12, 12, 64), 512),
+                      ((2, 320, 8, 2, 128), 64)):
+        check_k18_graph_replay(shape, bq, checked, lambda sh: qkv(*sh[:3], sh[4], hkv=sh[3]))
     # Their fp32 bodies at K1's headline shape in fp32 (causal, K17 at
-    # unroll 4): checked, the plain version timed once, the kernel by the
-    # fit beside SDPA on the same fp32 inputs; the bound counts fp32 bytes
-    # and bf16 products (the bodies convert on load).
+    # unroll 4, K18 at block_q 512): checked, the plain version timed once,
+    # the kernel by the fit beside SDPA on the same fp32 inputs; the bound
+    # counts fp32 bytes and bf16 products (the bodies convert on load).
     b, s, h, d = K1_HEADLINE
     q, k, v = qkv(b, s, h, d, dtype=torch.float32)
     bound = card_bound(4.0 * d * h * attention_pairs(b, s, s, True), 4 * 4 * b * s * h * d,
                        torch.bfloat16)
     sdpa32 = _sdpa_fit_ms(b, s, h, h, d, True, EXPERIMENT_FIT, torch.float32)
     kw = dict(block_q=512, block_kv=512)
-    for name, label, call, plain in (
+    for name, label, call, plain, n in (
+            ("pfa_flash_pipelined_fp32", "K16 pipelined",
+             lambda: ux.flash_unrolled(q, k, v, causal=True, **kw),
+             lambda: ux.flash_unrolled_plain(q, k, v, causal=True, **kw), 1),
             ("pfa_flash_chunked_fp32", "K17 chunked unroll 4",
              lambda: ux.flash_chunked(q, k, v, causal=True, unroll=4, **kw),
-             lambda: ux.flash_chunked_plain(q, k, v, causal=True, unroll=4, **kw)),
+             lambda: ux.flash_chunked_plain(q, k, v, causal=True, unroll=4, **kw), 1),
+            ("pfa_flash_tri_fp32", "K18 triangular bq=512",
+             lambda: ux.flash_triangular(q, k, v, **kw),
+             lambda: ux.flash_triangular_plain(q, k, v, **kw), s // 512),
             ("pfa_flash_fulltri_fp32", "K19 full triangle",
              lambda: ux.flash_fulltri(q, k, v, **kw),
-             lambda: ux.flash_fulltri_plain(q, k, v, **kw))):
+             lambda: ux.flash_fulltri_plain(q, k, v, **kw), 1)):
         _experiment_case(name, f"{label} B{b} S{s} H{h} D{d} float32 causal", call, plain,
-                         checked, timed=True, launches=(name, 1))
+                         checked, timed=True, launches=(name, n))
         ms = fit_seconds(call, EXPERIMENT_FIT, torch.device("cuda")) * 1e3
         checked[name].update(ms=ms, library_ms=sdpa32, shape=list(K1_HEADLINE), **bound)
         print(f"experiments: {label} fp32 (mma.sync body) B{b} S{s} H{h} D{d} causal: {ms:.4f} "
@@ -4396,6 +4420,37 @@ def check_experiments(results: dict) -> dict:
     return checked
 
 
+def check_k18_graph_replay(shape, block_q: int, checked: dict, make_qkv) -> None:
+    """One K18 call in bf16 (B, S, Hq, Hkv, D) at ``block_q`` captured into
+    a CUDA graph (one call a row-block, each after the first a
+    programmatic dependent launch), replayed twice on new inputs copied in,
+    its output read by the stream's next kernel before any
+    synchronisation; each replay against the plain version within
+    EXPERIMENT_BOUND. ``make_qkv(shape)`` gives fresh q, k, v."""
+    from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
+
+    b, s, hq, hkv, d = shape
+    q, k, v = make_qkv(shape)
+    kw = dict(block_q=block_q, block_kv=block_q)
+    ux.flash_triangular(q, k, v, **kw)  # warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.CAPTURED["pfa_flash_tri"]
+    with torch.cuda.graph(graph):
+        out = ux.flash_triangular(q, k, v, **kw)
+    if _build.CAPTURED["pfa_flash_tri"] - before != s // block_q:
+        raise AssertionError(f"K18 graph: {_build.CAPTURED['pfa_flash_tri'] - before} calls "
+                             f"captured, not {s // block_q}")
+    for i in range(2):
+        for t, new in zip((q, k, v), make_qkv(shape)):
+            t.copy_(new)
+        _experiment_case("pfa_flash_tri", f"K18 triangular bq={block_q} B{b} S{s} H{hq}/{hkv} "
+                         f"D{d} bfloat16 causal, captured in a CUDA graph, replay {i + 1}",
+                         lambda: (graph.replay(), out.float() * 1.0)[1],
+                         lambda: ux.flash_triangular_plain(q, k, v, **kw).float(), checked)
+    del graph
+
+
 def _sdpa_fit_ms(b, s, hq, hkv, d, causal, fit, dtype=torch.bfloat16) -> float:
     """One F.scaled_dot_product_attention call at the geometry (GQA through
     ``enable_gqa``) in ``dtype``, timed by the experiments' fit."""
@@ -4411,24 +4466,37 @@ def _sdpa_fit_ms(b, s, hq, hkv, d, causal, fit, dtype=torch.bfloat16) -> float:
 
 
 def time_exp_table(smi: str) -> list:
-    """The exp table: K17 at unroll 2 and 4 over the pipeline module's
-    CHUNKED_CASES and K19 over its FULLTRI_CASES (the mains' geometries and
-    blocks, bf16), each by the graph fit (2, 10) beside K1 bf16
-    (``flash_attention``) and SDPA at the same geometry, also by the fit,
-    the bound (``flash_fwd_bound``) and the kernel's share of it, and its
-    output against K1's on the same inputs, within EXPERIMENT_BOUND. The
-    rows use public calls only, so ``--exp-table`` in a copy of this script
-    times another tree of the repository (the parent commit, or a copy
-    with a lever of the kernels changed)."""
+    """The exp table: K16 over the pipeline module's CASES, K17 at unroll 2
+    and 4 over its CHUNKED_CASES, K18 over its TRI_CASES at each block_q of
+    TRI_BLOCKS that divides S, with that block_q's first block_kv (a call:
+    S / block_q launches; the bf16 body reads no block_kv) and K19 over
+    its FULLTRI_CASES (the mains' geometries and blocks, bf16), each by the
+    graph fit (2, 10) beside K1 bf16 (``flash_attention``) and SDPA at the
+    same geometry, also by the fit, the bound (``flash_fwd_bound``) and the
+    kernel's share of it, and its output against K1's on the same inputs,
+    within EXPERIMENT_BOUND. The rows use public calls only, so
+    ``--exp-table`` in a copy of this script times another tree of the
+    repository (the parent commit, or a copy with a lever of the kernels
+    changed)."""
     from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
 
     gen = torch.Generator(device="cuda").manual_seed(29)
     fit = lambda fn: fit_seconds(fn, EXPERIMENT_FIT, torch.device("cuda")) * 1e3  # noqa: E731
-    cases = ([(f"K17 unroll {u}", name, shape, causal, u) for name, shape, causal in ux.CHUNKED_CASES
-              for u in ux.CARD_UNROLLS]
+    tri_blocks = {}
+    for bq, bkv in ux.TRI_BLOCKS:
+        tri_blocks.setdefault(bq, bkv)
+    cases = ([("K16", name, shape, causal, None) for name, shape, causal in ux.CASES]
+             + [(f"K17 unroll {u}", name, shape, causal, u)
+                for name, shape, causal in ux.CHUNKED_CASES for u in ux.CARD_UNROLLS]
+             + [(f"K18 bq={bq} bkv={bkv}", name, shape, True, (bq, bkv))
+                for name, shape in ux.TRI_CASES for bq, bkv in tri_blocks.items()
+                if shape[1] % bq == 0 and shape[1] % bkv == 0]
              + [("K19", name, shape, True, None) for name, shape in ux.FULLTRI_CASES])
+    # one geometry's rows together: its inputs, K1 and SDPA made once
+    order = list(dict.fromkeys((c[2], c[3]) for c in cases))
+    cases.sort(key=lambda c: order.index((c[2], c[3])))
     table, k1, inputs = [], {}, {}
-    for kernel, name, (b, s, hq, hkv, d), causal, u in cases:
+    for kernel, name, (b, s, hq, hkv, d), causal, arg in cases:
         key = ((b, s, hq, hkv, d), causal)
         if key not in inputs:
             inputs.clear()
@@ -4442,11 +4510,17 @@ def time_exp_table(smi: str) -> list:
             inputs[key] = (q, k, v, ref)
         q, k, v, ref = inputs[key]
         blk = min(512, s)
-        if u is None:
-            call = lambda: ux.flash_fulltri(q, k, v, block_q=blk, block_kv=blk)  # noqa: E731
-        else:
+        if kernel == "K16":
+            call = lambda: ux.flash_unrolled(q, k, v, causal=causal, block_q=blk,  # noqa: E731
+                                             block_kv=blk)
+        elif kernel.startswith("K17"):
             call = lambda: ux.flash_chunked(q, k, v, causal=causal, block_q=blk,  # noqa: E731
-                                            block_kv=blk, unroll=u)
+                                            block_kv=blk, unroll=arg)
+        elif kernel.startswith("K18"):
+            call = lambda: ux.flash_triangular(q, k, v, block_q=arg[0],  # noqa: E731
+                                               block_kv=arg[1])
+        else:
+            call = lambda: ux.flash_fulltri(q, k, v, block_q=blk, block_kv=blk)  # noqa: E731
         err = rel_err_norm(call(), ref)
         ms = fit(call)
         k1_ms, sdpa = k1[key]
@@ -4657,7 +4731,8 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
                          **bounds[(row["shape"], True, int8)]}
         if whole_key:
             results[name]["whole_call_ms"] = row[whole_key]
-    for name in ("pfa_flash_chunked_fp32", "pfa_flash_fulltri_fp32"):
+    for name in ("pfa_flash_pipelined_fp32", "pfa_flash_chunked_fp32", "pfa_flash_tri_fp32",
+                 "pfa_flash_fulltri_fp32"):
         results[name] = checked[name]  # timed in check_experiments
     results["pfa_flash_pair"]["cases"] = [
         {"nchain": row["nchain"], "ms": row["pair_ms"], "k1_ms": row["k1_ms"]}
@@ -4678,7 +4753,7 @@ def main() -> None:
                              "copy of this script times any tree of the repository); no result "
                              "line")
     parser.add_argument("--exp-table", action="store_true",
-                        help="only build and print the exp table of K17 and K19 (public calls "
+                        help="only build and print the exp table of K16-K19 (public calls "
                              "only, so a copy of this script times any tree of the repository); "
                              "no result line")
     parser.add_argument("--k3-table", action="store_true",

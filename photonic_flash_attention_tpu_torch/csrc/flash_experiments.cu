@@ -9,13 +9,15 @@
 // * K15 pfa_flash_pair: flash_pair_experiment.py::_pair_kernel (nchain
 //   independent query chains against one staged K/V tile);
 // * K16 pfa_flash_pipelined: flash_pipeline_experiment.py::_kernel (the KV
-//   loop software-pipelined so QK(j+1) overlaps softmax(j));
+//   loop software-pipelined so QK(j+1) overlaps softmax(j)), fp32 inputs
+//   here, bf16 on the Hopper body of flash_experiments_sm90.cu;
 // * K17 pfa_flash_chunked: flash_pipeline_experiment.py::_kernel_chunked
 //   (K/V staged in chunks of `unroll` tiles, one copy and one barrier a
 //   chunk, the chunk's tiles unrolled at compile time), fp32 inputs here,
 //   bf16 on the Hopper body of flash_experiments_sm90.cu;
 // * K18 pfa_flash_tri: _kernel_tri and _kernel_tri_i8 (one launch per q
-//   row-block; its int8 mode runs Q.K in s8);
+//   row-block; its int8 mode runs Q.K in s8), fp32 inputs and the int8
+//   mode here, bf16 inputs on flash_experiments_sm90.cu;
 // * K19 pfa_flash_fulltri: _kernel_fulltri (one CTA walks a head's whole
 //   causal triangle, the next row's first tiles fetched during the last
 //   tile of the current one), fp32 inputs here, bf16 on
@@ -1030,13 +1032,16 @@ cudaError_t run_tri(const void* q, const void* k, const void* v, void* o, const 
                   static_cast<T*>(o), sc, S, Hq, Hkv, q_row0, rows, scale, causal);
 }
 
+// The int8 mode in V's dtype; the plain mode in fp32 only: bf16 runs on
+// flash_experiments_sm90.cu.
 template <int D, bool I8>
 cudaError_t tri_dtype(int dtype, const void* q, const void* k, const void* v, void* o,
                       const float* sc, int B, int S, int Hq, int Hkv, int q_row0, int rows,
                       float scale, int causal, cudaStream_t st) {
-  if (dtype == PFA_BF16)
-    return run_tri<D, __nv_bfloat16, I8>(q, k, v, o, sc, B, S, Hq, Hkv, q_row0, rows, scale,
-                                         causal, st);
+  if constexpr (I8)
+    if (dtype == PFA_BF16)
+      return run_tri<D, __nv_bfloat16, true>(q, k, v, o, sc, B, S, Hq, Hkv, q_row0, rows, scale,
+                                             causal, st);
   if (dtype == PFA_F32)
     return run_tri<D, float, I8>(q, k, v, o, sc, B, S, Hq, Hkv, q_row0, rows, scale, causal, st);
   return cudaErrorInvalidValue;
@@ -1093,17 +1098,13 @@ extern "C" int pfa_flash_pair(const void* q, const void* k, const void* v, void*
   return cudaErrorInvalidValue;
 }
 
-// K16. q (B, S, Hq, D), k/v (B, S, Hkv, D), o like q; bf16 or fp32 (dtype),
-// D in {64, 128}, Hq % Hkv == 0.
+// K16 in fp32 (the bf16 body: pfa_flash_pipelined_sm90). q (B, S, Hq, D),
+// k/v (B, S, Hkv, D), o like q; fp32 (dtype), D in {64, 128}, Hq % Hkv == 0.
 extern "C" int pfa_flash_pipelined(const void* q, const void* k, const void* v, void* o, int B,
                                    int S, int Hq, int Hkv, int D, float sm_scale, int causal,
                                    int dtype, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == PFA_BF16 && D == 64)
-    return run_pipelined<64, __nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, st);
-  if (dtype == PFA_BF16 && D == 128)
-    return run_pipelined<128, __nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, st);
   if (dtype == PFA_F32 && D == 64)
     return run_pipelined<64, float>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, st);
   if (dtype == PFA_F32 && D == 128)
@@ -1130,11 +1131,12 @@ extern "C" int pfa_flash_chunked(const void* q, const void* k, const void* v, vo
   return cudaErrorInvalidValue;
 }
 
-// K18. Query rows [q_row0, q_row0 + rows) of q (B, S, Hq, D) against k/v
-// (B, S, Hkv, D), causal (col <= row) or not, written into o (B, S, Hq, D) in
-// place; v and o bf16 or fp32 (dtype), D in {64, 128}, Hq % Hkv == 0. q and
-// k in v's dtype, or int8 payloads with score_scale a (1,) fp32 device
-// scalar when qk_int8.
+// K18 in fp32 and its int8 mode (bf16: pfa_flash_tri_sm90). Query rows
+// [q_row0, q_row0 + rows) of q (B, S, Hq, D) against k/v (B, S, Hkv, D),
+// causal (col <= row) or not, written into o (B, S, Hq, D) in place; D in
+// {64, 128}, Hq % Hkv == 0. q, k, v and o fp32 (dtype), or with qk_int8 q
+// and k int8 payloads, score_scale a (1,) fp32 device scalar, v and o bf16
+// or fp32.
 extern "C" int pfa_flash_tri(const void* q, const void* k, const void* v, void* o,
                              const void* score_scale, int B, int S, int Hq, int Hkv, int D,
                              int q_row0, int rows, float sm_scale, int causal, int qk_int8,

@@ -1,18 +1,20 @@
-// K17 and K19 (bf16): the chunked-staging and full-triangle experiments of
-// the flash forward, redesigned for Hopper (sm_90a): TMA loads, wgmma
-// products and warp specialisation, K1's design (flash_fwd_sm90.cu) with
-// each experiment's own lever kept.
+// K16-K19 (bf16): the pipelined, chunked-staging, one-launch-per-row-block
+// and full-triangle experiments of the flash forward, redesigned for Hopper
+// (sm_90a): TMA loads, wgmma products and warp specialisation, K1's design
+// (flash_fwd_sm90.cu) with each experiment's own lever kept.
 //
 // Replace, in bf16, the TPU kernels benchmarks/flash_pipeline_experiment.py::
-// _kernel_chunked (K17: the KV loop in chunks of `unroll` tiles, one chunk a
-// grid step, dead chunks skipped whole when causal) and ::_kernel_fulltri
-// (K19: grid (b, h), every q row-block of a head and its causal kv tiles in
-// one body). They take the place of the mma.sync bodies of
-// flash_experiments.cu (4 warps, 64 rows, cp.async copies by every thread,
-// a __syncthreads a tile or chunk), which keep the fp32 inputs: TMA cannot
-// convert on load. The contract is the experiments' (that file's header):
-// causal `col <= row` on square shapes, GQA, p rounded to bf16 for P.V,
-// fp32 sums, the output in bf16.
+// _kernel (K16: the KV loop pipelined so QK(j+1) is issued before
+// softmax(j)), ::_kernel_chunked (K17: the KV loop in chunks of `unroll`
+// tiles, one chunk a grid step, dead chunks skipped whole when causal),
+// ::_kernel_tri (K18: one launch per q row-block, causal) and
+// ::_kernel_fulltri (K19: grid (b, h), every q row-block of a head and its
+// causal kv tiles in one body). They take the place of the mma.sync bodies
+// of flash_experiments.cu (4 warps, 64 rows, cp.async copies by every
+// thread, a __syncthreads a tile or chunk), which keep the fp32 inputs (TMA
+// cannot convert on load) and K18's int8-QK mode. The contract is the
+// experiments' (that file's header): causal `col <= row` on square shapes,
+// GQA, p rounded to bf16 for P.V, fp32 sums, the output in bf16.
 //
 // What bounds them on the H100: K1's work, so at D 64 and 128 over S 2k-8k
 // the tensor cores and, at D 64, the softmax's FP32/MUFU stream beside them
@@ -31,14 +33,15 @@
 //   P from registers and V an MN-major B operand (flash_sm90_step.cuh, K1's
 //   tile step). Within a warpgroup tile j+1's Q K^T is issued ahead of tile
 //   j's P V, and its softmax runs while that P V finishes; for K17 at D 128
-//   the two warpgroups take turns at the tensor cores (named barriers,
-//   FA3's ping-pong, PINGPONG): with 64-key tiles at D 64, and for K19, the
-//   turns cost more than they hide. p = ex2(s * scale - m * scale):
-//   the scale folded into the exponent, one FFMA and one ex2 a score. Only
+//   and K16/K18 at D 64 the two warpgroups take turns at the tensor cores
+//   (named barriers, FA3's ping-pong, PINGPONG): with 64-key tiles at D 64,
+//   for K19 and for K16/K18 at D 128, the turns cost more than they hide.
+//   p = ex2(s * scale - m * scale): the scale folded into the exponent, one
+//   FFMA and one ex2 a score. Only
 //   the tiles a warpgroup's diagonal or the ragged end reach take the
 //   per-score predicate.
 // * Ring depth: as many stages as fit in the 227 KB (x_max_stages). The
-//   caller's plan (experiments/flash_pipeline_experiment.py::k17_plan,
+//   caller's plan (experiments/flash_pipeline_experiment.py::k16_plan to
 //   k19_plan) gives the tile width, stages, shared memory and grid, which
 //   the launcher checks against this file's constants, and the walk: the
 //   q-blocks in the order the work tiles take them, each with its chunks
@@ -64,6 +67,25 @@
 // 2 (U 2) and 1 at U 4, whose chunk is 128 KB of K/V: there the producer
 // cannot run ahead, and a chunk's last P V ends before the stage is freed
 // and the next chunk's Q K^T issued (no cross-chunk overlap, CROSS).
+// K16 and K18 (U = 1): K19's stage (one tile of K1's width; six stages at
+// D 64, three at D 128) on K17's persistent grid, with K1's ping-pong at
+// D 64. K16's lever, QK(j+1) issued before softmax(j), is the Q K^T-ahead
+// overlap this body runs across stages (CROSS). K16 walks every 128-row
+// q-block of S (causal: heaviest first, each to its diagonal; else over
+// all of S). K18 is one launch per row-block [q_row0, q_row0 + rows): its
+// walk names the q-blocks from q_row0 (any row) in steps of 128, each to
+// its last row. The TMA box of Q reads past the row end (zeros past S);
+// those rows are computed, every barrier arrived on, and not stored
+// (row_end; S for K16, K17 and K19, whose walks start at row 0). The
+// launches of one K18 call read q, k and v and write disjoint rows, so
+// each after the first is a programmatic dependent launch (`chained`): a
+// CTA lets the next launch start at its own start
+// (griddepcontrol.launch_dependents) and waits, just before it exits, for
+// the launch ahead of it to complete (griddepcontrol.wait): the next
+// launch takes the SMs this one's tail frees, no launch completes before
+// the one ahead of it, and whatever the stream runs after the call (a
+// plain launch) sees every row. Only U = 1 holds the griddepcontrol
+// instructions (XCfg::PDL; a no-op for K16's single launch).
 // Not done: a TMA store of O, a cluster or split head for K19 (the
 // function measured is one CTA a head).
 
@@ -92,13 +114,15 @@ __host__ __device__ constexpr int x_max_stages(int q_bytes, int kv_bytes) {
   return s;
 }
 
-// U = 0: K19 (one tile of K1's width a stage); U in {2, 4}: K17 (U 64-key
-// tiles a stage).
+// U = 0: K19 (one tile of K1's width a stage, one CTA per (b, h)); U = 1:
+// K16 and K18 (the same stage on the persistent grid); U in {2, 4}: K17 (U
+// 64-key tiles a stage).
 template <int D, int U>
 struct XCfg {
   static constexpr bool FULLTRI = U == 0;
-  static constexpr int BKV = FULLTRI ? (D == 128 ? 96 : 128) : 64;  // keys a tile
-  static constexpr int TILES = FULLTRI ? 1 : U;                     // tiles a stage
+  static constexpr bool WIDE = U <= 1;  // a stage is one tile of K1's width
+  static constexpr int BKV = WIDE ? (D == 128 ? 96 : 128) : 64;  // keys a tile
+  static constexpr int TILES = WIDE ? 1 : U;                     // tiles a stage
   static constexpr int SPAN = BKV * TILES;                          // keys a stage
   static constexpr int HALVES = D / 64;  // 128-byte column boxes a row
   static constexpr int Q_BYTES = BQ * D * 2;
@@ -108,21 +132,24 @@ struct XCfg {
   // consumers then hold two stages.
   static constexpr bool CROSS = STAGES >= 2;
   // The warpgroups' turns at the tensor cores: on only where they paid
-  // (PERF.md, PR 16's levers).
-  static constexpr bool PINGPONG = !FULLTRI && D == 128;
+  // (PERF.md, the K16-K19 lever tables): K17 at D 128, K16/K18 at D 64.
+  static constexpr bool PINGPONG = (U >= 2 && D == 128) || (U == 1 && D == 64);
+  // K18's launches chain (griddepcontrol; a no-op for K16's single launch).
+  static constexpr bool PDL = U == 1;
 };
 
 struct XParams {
   __nv_bfloat16* o;
   int B, S, Hq, Hkv;
   int n_work;  // work tiles: q-blocks x Hq x B
-  int nqb;     // q-blocks of 128 rows a head
+  int nqb;     // q-blocks of 128 rows a head in the walk
   float scale;  // sm_scale * log2 e
   int causal;
   // The plan's walk: entry i is the i-th q-block taken (K19: a CTA's i-th
-  // round; K17: the work tiles t with t / (Hq B) == i), as its index << 16
-  // | its chunks of keys.
+  // round; K16-K18: the work tiles t with t / (Hq B) == i), as its first
+  // row << 11 | its chunks of keys (at most 512).
   int walk[MAX_QB];
+  int row_end;  // rows from here on are not stored (K18: its row-block's end; else S)
 };
 
 // One work tile: 128 query rows of one (batch row, head) and the chunks
@@ -132,8 +159,8 @@ struct XWork {
 };
 
 // This CTA's n-th work tile; false where the last round has none. K19: the
-// CTA's head, the walk's n-th q-block; K17: K1's snake order over (heads,
-// batch rows, the walk's q-blocks).
+// CTA's head, the walk's n-th q-block; K16-K18: K1's snake order over
+// (heads, batch rows, the walk's q-blocks).
 template <int D, int U>
 __device__ __forceinline__ bool x_work(const XParams& p, int n, XWork& w) {
   using C = XCfg<D, U>;
@@ -149,8 +176,8 @@ __device__ __forceinline__ bool x_work(const XParams& p, int n, XWork& w) {
     w.b = r % p.B;
     i = r / p.B;
   }
-  w.q0 = (p.walk[i] >> 16) * BQ;
-  w.n_chunks = p.walk[i] & 0xffff;
+  w.q0 = p.walk[i] >> 11;
+  w.n_chunks = p.walk[i] & 0x7ff;
   return true;
 }
 
@@ -183,6 +210,17 @@ struct Flag {
   static constexpr bool value = V;
 };
 
+// Programmatic dependent launch: the next launch of the stream may start
+// its CTAs once every CTA of this one has issued launch_dependents; wait
+// returns once the launch ahead of this one has completed and its writes
+// are visible (at once where this one was not launched as a dependent).
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 template <int D, int U>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -197,6 +235,7 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   const uint32_t bar_full = base + off_v + stages * C::KV_BYTES, bar_empty = bar_full + 8 * stages;
   const uint32_t bar_qfull = bar_empty + 8 * stages, bar_qempty = bar_qfull + 16;
   const int rounds = C::FULLTRI ? p.nqb : (p.n_work + gridDim.x - 1) / gridDim.x;
+  if constexpr (C::PDL) pdl_launch_dependents();
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -383,7 +422,7 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         const int row = row0 + 8 * i;
-        if (row >= p.S) continue;
+        if (row >= p.row_end) continue;
         const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
         __nv_bfloat16* orow = p.o + (((long long)w.b * p.S + row) * p.Hq + w.h) * D;
 #pragma unroll
@@ -391,32 +430,39 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
           store2(orow + 8 * j + 2 * t4, o_acc[4 * j + 2 * i] * inv, o_acc[4 * j + 2 * i + 1] * inv);
       }
     }
+    // The CTA exits after its consumers: not before the launch ahead of it.
+    if constexpr (C::PDL) pdl_wait();
   }
 }
 
 // --- host side -------------------------------------------------------------------
 
-// The launch a plan describes: its tile width, stages, shared memory and
-// grid must be this file's (K19's grid B x Hq, K17's at most the work
-// tiles), and its walk (q0, chunks) x nqb must name q-blocks of S with 1 to
-// all of S's chunks each, else cudaErrorInvalidValue.
+// The launch a plan describes: rows [row0, row0 + rows) of S (K18: its
+// row-block; else all of S); its tile width, stages, shared memory and grid
+// must be this file's (K19's grid B x Hq, else at most the work tiles), and
+// its walk (q0, chunks) x ceil(rows / 128) must name q-blocks that start at
+// row0 + 128 i inside the rows, with 1 to all of S's chunks each, else
+// cudaErrorInvalidValue. `chained`: a programmatic dependent launch (K18).
 template <int D, int U>
 cudaError_t x_launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
-                     int Hkv, float sm_scale, int causal, int tile_keys, int stages, int smem,
-                     int grid, const int* walk, cudaStream_t stream) {
+                     int Hkv, float sm_scale, int causal, int row0, int rows, bool chained,
+                     int tile_keys, int stages, int smem, int grid, const int* walk,
+                     cudaStream_t stream) {
   using C = XCfg<D, U>;
-  const long long nqb = (S + BQ - 1) / BQ, work = nqb * Hq * B;
+  const long long nqb = (rows + BQ - 1LL) / BQ, work = nqb * Hq * B;
   if (tile_keys != C::BKV || stages != C::STAGES ||
-      smem != x_smem(C::Q_BYTES, C::KV_BYTES, C::STAGES) || nqb > MAX_QB || work > INT_MAX ||
+      smem != x_smem(C::Q_BYTES, C::KV_BYTES, C::STAGES) || S > MAX_QB * BQ || row0 < 0 ||
+      rows < 1 || (long long)row0 + rows > S || nqb > MAX_QB || work > INT_MAX ||
       (C::FULLTRI ? (long long)grid != (long long)B * Hq : (grid < 1 || grid > work)))
     return cudaErrorInvalidValue;
   XParams p{static_cast<__nv_bfloat16*>(o), B, S, Hq, Hkv, static_cast<int>(work),
-            static_cast<int>(nqb), sm_scale * LOG2E, C::FULLTRI ? 1 : causal, {}};
+            static_cast<int>(nqb), sm_scale * LOG2E, C::FULLTRI ? 1 : causal, {}, row0 + rows};
   const int chunks = (S + C::SPAN - 1) / C::SPAN;
   for (int i = 0; i < nqb; ++i) {
     const int q0 = walk[2 * i], n = walk[2 * i + 1];
-    if (q0 < 0 || q0 >= S || q0 % BQ || n < 1 || n > chunks) return cudaErrorInvalidValue;
-    p.walk[i] = (q0 / BQ) << 16 | n;
+    if (q0 < row0 || q0 >= row0 + rows || (q0 - row0) % BQ || n < 1 || n > chunks)
+      return cudaErrorInvalidValue;
+    p.walk[i] = q0 << 11 | n;
   }
   const uint64_t b = B, s = S;
   CUtensorMap tq, tk, tv;
@@ -429,8 +475,23 @@ cudaError_t x_launch(const void* q, const void* k, const void* v, void* o, int B
   auto kernel = flash_exp_sm90<D, U>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, p);
-  return cudaGetLastError();
+  if (!chained) {
+    kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, p);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&tq, &tk, &tv, &p};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // The design of one instantiation: keys a tile, the ring's stages, dynamic
@@ -471,8 +532,8 @@ extern "C" int pfa_flash_chunked_sm90(const void* q, const void* k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PFA_K17(DD, UU)                                                                         \
   if (D == DD && unroll == UU)                                                                  \
-    return x_launch<DD, UU>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, tile_keys, stages, smem, \
-                            grid, walk, st);
+    return x_launch<DD, UU>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, 0, S, false, tile_keys, \
+                            stages, smem, grid, walk, st);
   PFA_K17(64, 2)
   PFA_K17(64, 4)
   PFA_K17(128, 2)
@@ -491,21 +552,64 @@ extern "C" int pfa_flash_fulltri_sm90(const void* q, const void* k, const void* 
   if (!x_args_ok(q, k, v, o, B, S, Hq, Hkv, sm_scale)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return x_launch<64, 0>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, tile_keys, stages, smem, grid,
-                           walk, st);
+    return x_launch<64, 0>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, 0, S, false, tile_keys, stages,
+                           smem, grid, walk, st);
   if (D == 128)
-    return x_launch<128, 0>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, tile_keys, stages, smem, grid,
-                            walk, st);
+    return x_launch<128, 0>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, 0, S, false, tile_keys,
+                            stages, smem, grid, walk, st);
   return cudaErrorInvalidValue;
 }
 
-// out[9] (x_info) of K17 at `unroll` in {2, 4}, or of K19 at unroll 0, at
-// head dim D; no launch.
+// K16 in bf16. q (B, S, Hq, D), k/v (B, S, Hkv, D), o like q, causal or
+// not; D in {64, 128}, Hq % Hkv == 0, 16-byte-aligned bases, sm_scale > 0;
+// tile_keys, stages, smem, grid and walk ((q0, tiles) for each of the
+// ceil(S / 128) q-blocks, S <= 65536) from k16_plan.
+extern "C" int pfa_flash_pipelined_sm90(const void* q, const void* k, const void* v, void* o,
+                                        int B, int S, int Hq, int Hkv, int D, float sm_scale,
+                                        int causal, int tile_keys, int stages, int smem, int grid,
+                                        const int* walk, void* stream) {
+  if (!x_args_ok(q, k, v, o, B, S, Hq, Hkv, sm_scale)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return x_launch<64, 1>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, 0, S, false, tile_keys,
+                           stages, smem, grid, walk, st);
+  if (D == 128)
+    return x_launch<128, 1>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, 0, S, false, tile_keys,
+                            stages, smem, grid, walk, st);
+  return cudaErrorInvalidValue;
+}
+
+// K18 in bf16: one launch, query rows [q_row0, q_row0 + rows) of q (B, S,
+// Hq, D) against k/v (B, S, Hkv, D), causal, written into o (like q) in
+// place; D in {64, 128}, Hq % Hkv == 0, 16-byte-aligned bases, sm_scale >
+// 0, S <= 65536; tile_keys, stages, smem, grid and walk ((q0, tiles) for
+// each of the ceil(rows / 128) q-blocks) from k18_plan. `chained` (every
+// launch of a call after its first): a programmatic dependent launch on
+// the one ahead of it in the stream.
+extern "C" int pfa_flash_tri_sm90(const void* q, const void* k, const void* v, void* o, int B,
+                                  int S, int Hq, int Hkv, int D, int q_row0, int rows,
+                                  float sm_scale, int chained, int tile_keys, int stages, int smem,
+                                  int grid, const int* walk, void* stream) {
+  if (!x_args_ok(q, k, v, o, B, S, Hq, Hkv, sm_scale)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return x_launch<64, 1>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, q_row0, rows, chained != 0,
+                           tile_keys, stages, smem, grid, walk, st);
+  if (D == 128)
+    return x_launch<128, 1>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, q_row0, rows, chained != 0,
+                            tile_keys, stages, smem, grid, walk, st);
+  return cudaErrorInvalidValue;
+}
+
+// out[9] (x_info) of K17 at `unroll` in {2, 4}, of K19 at unroll 0 or of
+// K16/K18 at unroll 1, at head dim D; no launch.
 extern "C" int pfa_exp_sm90_info(int unroll, int D, int* out) {
   if (D == 64 && unroll == 0) return x_info<64, 0>(out);
+  if (D == 64 && unroll == 1) return x_info<64, 1>(out);
   if (D == 64 && unroll == 2) return x_info<64, 2>(out);
   if (D == 64 && unroll == 4) return x_info<64, 4>(out);
   if (D == 128 && unroll == 0) return x_info<128, 0>(out);
+  if (D == 128 && unroll == 1) return x_info<128, 1>(out);
   if (D == 128 && unroll == 2) return x_info<128, 2>(out);
   if (D == 128 && unroll == 4) return x_info<128, 4>(out);
   return cudaErrorInvalidValue;

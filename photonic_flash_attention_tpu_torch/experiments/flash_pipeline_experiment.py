@@ -8,11 +8,15 @@ photonic_flash_attention_tpu_torch.experiments.flash_pipeline_experiment
 [chunked|tri|i8|seg|fulltri] [--device cpu|cuda]`` (no variant: ``main``).
 
 * :func:`flash_unrolled` (JAX's ``_kernel``): the KV loop unrolled in one
-  body so QK(j+1) can overlap softmax(j). K16 (``pfa_flash_pipelined``)
-  issues QK(j+1) into a second score fragment before the softmax of tile j
-  and double-buffers K/V with ``cp.async``: the mma.sync form of FA3's
-  intra-warpgroup overlap. JAX keeps a head's whole K/V in VMEM, a VMEM
-  choice that does not carry over.
+  body so QK(j+1) can overlap softmax(j). K16 (``pfa_flash_pipelined``) in
+  bf16 is the Hopper body of ``csrc/flash_experiments_sm90.cu`` with one
+  key tile of K1's width a TMA ring stage (128 keys at D 64, 96 at D 128),
+  tile j+1's Q.K^T issued on ``wgmma`` before tile j's softmax and P.V
+  (FA3's intra-warpgroup overlap, the lever), 128-row work tiles on K1's
+  persistent grid (:func:`k16_plan`); fp32 inputs stay on the mma.sync
+  body (QK(j+1) into a second score fragment, K/V double-buffered by
+  ``cp.async``, counted as ``pfa_flash_pipelined_fp32``). JAX keeps a
+  head's whole K/V in VMEM, a VMEM choice that does not carry over.
 * :func:`flash_chunked` (``_kernel_chunked``): the KV loop in chunks of
   ``unroll`` tiles, one chunk a TPU grid step with the state carried in
   scratch, dead chunks skipped whole when causal. K17
@@ -31,9 +35,14 @@ photonic_flash_attention_tpu_torch.experiments.flash_pipeline_experiment
   ``block_kv`` tiles, the mask only on tiles past the row-block's first
   row. K18 (``pfa_flash_tri``) is launched once per row-block with its
   first row and row count; each launch writes its rows in place into one
-  output (JAX concatenates the pieces). The static extent has no
-  counterpart on the card: a 64-row CTA stops at its own diagonal, since
-  the extent's tiles past it are wholly masked and add exactly nothing.
+  output (JAX concatenates the pieces). In bf16 each launch is K16's
+  Hopper body walking the row-block's 128-row q-blocks
+  (:func:`k18_plan`), and every launch after a call's first is a
+  programmatic dependent launch that may start on the SMs the one ahead of
+  it frees; fp32 inputs stay on the mma.sync body (64-row CTAs, counted as
+  ``pfa_flash_tri_fp32``). The static extent has no counterpart on the
+  card: a work tile stops at its own diagonal, since the extent's tiles
+  past it are wholly masked and add exactly nothing.
 * :func:`flash_tri_i8` (``_kernel_tri_i8``): the same host loop with Q and
   K quantized per tensor to int8 (``ops/flash_fp8.py::_per_tensor_quant``,
   JAX's ``_quant_pt`` bit for bit), Q.K int8 x int8 -> int32 scaled in
@@ -62,8 +71,8 @@ h reads kv head h // (Hq/Hkv)), causal ``col <= row`` (top-left; K1's
 diagonal for square shapes); q, k, v are cast to bf16 in the body and p to
 bf16 before P.V, fp32 accumulate; output in q's dtype (tri_i8: V's). On
 the card D in {64, 128}, bf16 or fp32 inputs (fp32 converted on load);
-K17/K19's bf16 inputs on 16-byte-aligned bases (their TMA loads), else
-``ValueError``.
+K16-K19's bf16 inputs on 16-byte-aligned bases (their TMA loads), with
+sm_scale > 0 and S <= 65536, else ``ValueError``.
 ``block_q``/``block_kv`` are JAX's TPU tiles: the plain versions walk them,
 the card kernels their own 64 x 64 tiles. JAX's grids are ``S // block``
 (``S // (block_kv * unroll)`` for chunked) and silently drop the tail keys
@@ -95,8 +104,8 @@ from . import _common as C
 __all__ = ["ExpPlan", "flash_chunked", "flash_chunked_plain", "flash_fulltri",
            "flash_fulltri_plain", "flash_segmented", "flash_tri_i8", "flash_tri_i8_plain",
            "flash_triangular", "flash_triangular_plain", "flash_unrolled", "flash_unrolled_plain",
-           "k17_plan", "k19_plan", "lse_merge", "main", "main_chunked", "main_fulltri", "main_i8",
-           "main_seg", "main_tri"]
+           "k16_plan", "k17_plan", "k18_plan", "k19_plan", "lse_merge", "main", "main_chunked",
+           "main_fulltri", "main_i8", "main_seg", "main_tri"]
 
 #: JAX's parity case and gate (max abs against ``flash_attention``).
 PARITY_SHAPE = (1, 1024, 2, 64)
@@ -181,7 +190,7 @@ def check_tri_blocks(s: int) -> Tuple[Tuple[int, int], ...]:
             or ((check_block(s), check_block(s, 2)),))
 
 
-# -- K17/K19's bf16 body: launch plans (csrc/flash_experiments_sm90.cu) -------
+# -- K16-K19's bf16 body: launch plans (csrc/flash_experiments_sm90.cu) -------
 
 #: Dynamic shared memory a CTA may take on the H100 (``csrc/sm90.cuh``).
 SMEM_MAX = 232448
@@ -192,15 +201,15 @@ SM90_MAX_SEQ = 512 * SM90_ROWS
 
 
 class ExpPlan(NamedTuple):
-    """One launch of K17's or K19's bf16 body, from the shapes alone: the
-    C launcher takes every field, refuses a tile width, stage count, shared
+    """One launch of K16-K19's bf16 body, from the shapes alone: the C
+    launcher takes every field, refuses a tile width, stage count, shared
     memory or grid that is not its own, and walks ``walk`` as it is.
-    ``chunk_keys``: the keys of a ring stage (K19: one tile); with two
-    stages or more the next stage's Q.K^T is issued before this stage's
-    last P.V. ``walk``: (q0, chunks) of the q-blocks of 128 rows in the
-    order the work tiles take them: K19's CTA runs them in this order, and
-    K17's persistent grid gives q-block i to its work tiles t with
-    t // (Hq B) == i; each runs its first ``chunks`` chunks of
+    ``chunk_keys``: the keys of a ring stage (K16, K18, K19: one tile);
+    with two stages or more the next stage's Q.K^T is issued before this
+    stage's last P.V. ``walk``: (q0, chunks) of the q-blocks of 128 rows in
+    the order the work tiles take them: K19's CTA runs them in this order,
+    and the persistent grid of K16-K18 gives q-block i to its work tiles t
+    with t // (Hq B) == i; each runs its first ``chunks`` chunks of
     ``chunk_keys`` keys. The plan functions are cached: a launch pays for
     its plan once a shape."""
     tile_keys: int
@@ -227,20 +236,34 @@ def _sm90_stages(d: int, chunk_keys: int) -> int:
 
 def _check_plan_shape(s: int, hq: int, hkv: int, d: int) -> None:
     if d not in CARD_HEAD_DIMS:
-        raise ValueError(f"K17/K19 take head_dim in {CARD_HEAD_DIMS}, got {d}")
+        raise ValueError(f"K16-K19 take head_dim in {CARD_HEAD_DIMS}, got {d}")
     if s < 1 or hkv < 1 or hq % hkv:
         raise ValueError(f"bad shape: S {s}, Hq {hq}, Hkv {hkv}")
     if s > SM90_MAX_SEQ:
-        raise ValueError(f"K17/K19's bf16 body takes S <= {SM90_MAX_SEQ} (its walk), got {s}")
+        raise ValueError(f"K16-K19's bf16 body takes S <= {SM90_MAX_SEQ} (its walk), got {s}")
 
 
-def _walk(s: int, chunk_keys: int, causal: bool) -> Tuple[Tuple[int, int], ...]:
-    """The q-blocks, causal ones heaviest (last) first, each with the chunks
-    its rows see: those whose first key is at or below its last row when
-    causal, every chunk of S otherwise."""
-    q0s = range(0, s, SM90_ROWS)
-    return tuple((q0, -(-(min(s, q0 + SM90_ROWS) if causal else s) // chunk_keys))
+def _walk(s: int, chunk_keys: int, causal: bool, row0: int = 0,
+          row_end: Optional[int] = None) -> Tuple[Tuple[int, int], ...]:
+    """The q-blocks of 128 rows from ``row0`` up to ``row_end`` (S), causal
+    ones heaviest (last) first, each with the chunks its rows see: those
+    whose first key is at or below its last row when causal, every chunk of
+    S otherwise."""
+    row_end = s if row_end is None else row_end
+    q0s = range(row0, row_end, SM90_ROWS)
+    return tuple((q0, -(-(min(row_end, q0 + SM90_ROWS) if causal else s) // chunk_keys))
                  for q0 in (reversed(q0s) if causal else q0s))
+
+
+def _wide_plan(s: int, d: int, grid: int, causal: bool, row0: int = 0,
+               row_end: Optional[int] = None) -> ExpPlan:
+    """A plan whose ring stage is one key tile of K1's width (K16, K18,
+    K19: 128 keys at D 64, 96 at D 128, where 128 spills), as many stages
+    as fit, over :func:`_walk`'s q-blocks."""
+    tile = 96 if d == 128 else 128
+    stages = _sm90_stages(d, tile)
+    return ExpPlan(tile, tile, stages, _sm90_smem(d, tile, stages), grid,
+                   _walk(s, tile, causal, row0, row_end))
 
 
 @functools.lru_cache(maxsize=None)
@@ -250,9 +273,35 @@ def k19_plan(b: int, s: int, hq: int, hkv: int, d: int) -> ExpPlan:
     64, 96 at D 128) up to the block's last row, one tile a stage, as many
     stages as fit."""
     _check_plan_shape(s, hq, hkv, d)
-    tile = 96 if d == 128 else 128
-    stages = _sm90_stages(d, tile)
-    return ExpPlan(tile, tile, stages, _sm90_smem(d, tile, stages), b * hq, _walk(s, tile, True))
+    return _wide_plan(s, d, b * hq, True)
+
+
+@functools.lru_cache(maxsize=None)
+def k16_plan(b: int, s: int, hq: int, hkv: int, d: int, causal: bool,
+             sms: int = 132) -> ExpPlan:
+    """K16's launch: K19's ring (one tile of K1's width a stage, as many
+    stages as fit) on K1's persistent grid (min(work tiles, ``sms``) CTAs
+    over every 128-row q-block of S in snake order, causal ones heaviest
+    first and each up to its diagonal, else each over all of S)."""
+    _check_plan_shape(s, hq, hkv, d)
+    return _wide_plan(s, d, min(-(-s // SM90_ROWS) * hq * b, sms), causal)
+
+
+@functools.lru_cache(maxsize=None)
+def k18_plan(b: int, s: int, hq: int, hkv: int, d: int, q_row0: int, rows: int,
+             sms: int = 132) -> ExpPlan:
+    """One K18 launch, of rows [``q_row0``, ``q_row0 + rows``): K16's body
+    over the 128-row q-blocks from ``q_row0`` (any row) up to the row end,
+    heaviest first, each over the key tiles up to its last row below the
+    row end; grid min(work tiles, ``sms``)."""
+    _check_plan_shape(s, hq, hkv, d)
+    if not 0 <= q_row0 < s:
+        raise ValueError(f"K18: q_row0 must lie in [0, S {s}), got {q_row0}")
+    if rows <= 0 or q_row0 + rows > s:
+        raise ValueError(f"K18: rows must be > 0 and end at or before S {s}, got {rows} rows "
+                         f"from {q_row0}")
+    return _wide_plan(s, d, min(-(-rows // SM90_ROWS) * hq * b, sms), True, q_row0,
+                      q_row0 + rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -312,12 +361,25 @@ def flash_unrolled_plain(q, k, v, *, block_q: int = 512, block_kv: int = 512,
 
 
 def _unrolled_cuda(q, k, v, causal: bool, scale: float) -> torch.Tensor:
-    C.check_card(q, CARD_DTYPES, CARD_HEAD_DIMS, "K16 pfa_flash_pipelined", k, v)
+    """K16: bf16 on the Hopper body by :func:`k16_plan`, counted as
+    ``pfa_flash_pipelined``; fp32 on the mma.sync body, counted as
+    ``pfa_flash_pipelined_fp32``."""
+    name = "K16 pfa_flash_pipelined"
+    C.check_card(q, CARD_DTYPES, CARD_HEAD_DIMS, name, k, v)
     b, s, hq, d = q.shape
+    hkv = k.shape[2]
     o = torch.empty_like(q)
-    _build.launch("pfa_flash_pipelined", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), b, s, hq, k.shape[2], d, float(scale), int(causal),
-                  _build.DTYPE_CODES[q.dtype])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if q.dtype != torch.bfloat16:
+        _build.launch("pfa_flash_pipelined", q.device, *ptrs, b, s, hq, hkv, d, float(scale),
+                      int(causal), _build.DTYPE_CODES[q.dtype],
+                      count_as="pfa_flash_pipelined_fp32")
+        return o
+    _check_sm90(name, scale, q, k, v)
+    plan = k16_plan(b, s, hq, hkv, d, causal, _sms(q.device))
+    _build.launch("pfa_flash_pipelined_sm90", q.device, *ptrs, b, s, hq, hkv, d, float(scale),
+                  int(causal), plan.tile_keys, plan.stages, plan.smem, plan.grid,
+                  _c_walk(plan.walk), count_as="pfa_flash_pipelined")
     return o
 
 
@@ -403,21 +465,35 @@ def flash_chunked(q, k, v, *, block_q: int = 512, block_kv: int = 512, unroll: i
 def _tri_cuda(q, k, v, block_q: int, causal: bool, scale: float,
               score_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One K18 launch per row-block of ``block_q`` rows, each writing its
-    rows of one output in place (a CTA stops at its own diagonal when
-    causal: JAX's static extent adds only wholly masked tiles); with
-    ``score_scale`` q and k are int8 payloads (the int8 mode, output in V's
-    dtype)."""
+    rows of one output in place (a work tile stops at its own diagonal when
+    causal: JAX's static extent adds only wholly masked tiles). bf16 on the
+    Hopper body by :func:`k18_plan` (causal), every launch after the first
+    a programmatic dependent launch, counted as ``pfa_flash_tri``; fp32 on
+    the mma.sync body, counted as ``pfa_flash_tri_fp32``; with
+    ``score_scale`` q and k are int8 payloads (the int8 mode on the
+    mma.sync body, output in V's dtype, counted as ``pfa_flash_tri_i8``)."""
     int8 = score_scale is not None
     name = "K18 pfa_flash_tri" + ("_i8" if int8 else "")
     C.check_card(v, CARD_DTYPES, CARD_HEAD_DIMS, name, q, k)
     b, s, hq, d = q.shape
+    hkv = k.shape[2]
     o = torch.empty(q.shape, dtype=v.dtype, device=q.device)
-    sc = score_scale.data_ptr() if int8 else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if int8 or q.dtype != torch.bfloat16:
+        sc = score_scale.data_ptr() if int8 else None
+        for i in range(s // block_q):
+            _build.launch("pfa_flash_tri", q.device, *ptrs, sc, b, s, hq, hkv, d, i * block_q,
+                          block_q, float(scale), int(causal), int(int8),
+                          _build.DTYPE_CODES[v.dtype],
+                          count_as="pfa_flash_tri_i8" if int8 else "pfa_flash_tri_fp32")
+        return o
+    _check_sm90(name, scale, q, k, v)
+    sms = _sms(q.device)
     for i in range(s // block_q):
-        _build.launch("pfa_flash_tri", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      o.data_ptr(), sc, b, s, hq, k.shape[2], d, i * block_q, block_q,
-                      float(scale), int(causal), int(int8), _build.DTYPE_CODES[v.dtype],
-                      count_as="pfa_flash_tri_i8" if int8 else None)
+        plan = k18_plan(b, s, hq, hkv, d, i * block_q, block_q, sms)
+        _build.launch("pfa_flash_tri_sm90", q.device, *ptrs, b, s, hq, hkv, d, i * block_q,
+                      block_q, float(scale), int(i > 0), plan.tile_keys, plan.stages, plan.smem,
+                      plan.grid, _c_walk(plan.walk), count_as="pfa_flash_tri")
     return o
 
 

@@ -117,6 +117,9 @@ _SIGNATURES: Dict[str, List] = {
     "pfa_flash_pair": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, dtype, stream
     "pfa_flash_pipelined": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
+    # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, tile_keys, stages,
+    # smem, grid, walk, stream: K16's bf16 body (k16_plan)
+    "pfa_flash_pipelined_sm90": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 5 + [ctypes.POINTER(_I), _P],
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, unroll, dtype, stream
     "pfa_flash_chunked": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _I, _P],
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, unroll, tile_keys,
@@ -126,14 +129,18 @@ _SIGNATURES: Dict[str, List] = {
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, tile_keys, stages, smem, grid,
     # walk, stream: K19's bf16 body (k19_plan)
     "pfa_flash_fulltri_sm90": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 4 + [ctypes.POINTER(_I), _P],
-    # unroll (0: K19), D, out (int[9]: keys a tile, stages, shared bytes,
-    # threads, CTAs a SM, producer and consumer registers, 1 with the
-    # cross-chunk overlap, 1 with the ping-pong) of K17/K19's bf16 body; no
-    # stream, no launch
+    # unroll (0: K19, 1: K16/K18), D, out (int[9]: keys a tile, stages,
+    # shared bytes, threads, CTAs a SM, producer and consumer registers, 1
+    # with the cross-stage overlap, 1 with the ping-pong) of K16-K19's bf16
+    # body; no stream, no launch
     "pfa_exp_sm90_info": [_I, _I, ctypes.POINTER(_I)],
     # q, k, v, o, score_scale (or None), B, S, Hq, Hkv, D, q_row0, rows,
     # sm_scale, causal, qk_int8, dtype, stream
     "pfa_flash_tri": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _I, _P],
+    # q, k, v, o, B, S, Hq, Hkv, D, q_row0, rows, sm_scale, chained,
+    # tile_keys, stages, smem, grid, walk, stream: one launch of K18's bf16
+    # body (k18_plan)
+    "pfa_flash_tri_sm90": [_P] * 4 + [_I] * 7 + [_F] + [_I] * 5 + [ctypes.POINTER(_I), _P],
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, dtype, stream
     "pfa_flash_fulltri": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, do, lse, di, dq, B, S, H, D, q_row0, rows, sm_scale, causal,

@@ -16,10 +16,12 @@ every nchain it takes (1, the control, and 2); K16 causal and not, GQA, D
 mode causal and not, K19, each at a small shape, a length that is a
 multiple of 64 but not of 128, D 128 with GQA, fp32 inputs and the mains'
 geometries (``CARD_CHECK_SHAPES``; K18 launched once per row-block, at
-each of ``main_tri``'s blocks that divides S; K17 and K19 counted under
-their Hopper body's name in bf16 and ``*_fp32`` on the mma.sync body, each
-dtype reaching only its own, a plan not the launcher's own refused, an
-unaligned bf16 base raising); the segmented path at its
+each of ``main_tri``'s blocks that divides S, and at 64-row blocks at S
+192 and 320; K16-K19 counted under their Hopper body's name in bf16 and
+``*_fp32`` on the mma.sync body, each dtype reaching only its own, a plan
+not the launcher's own refused, an unaligned bf16 base raising; K18's
+chain of programmatic dependent launches captured into a CUDA graph and
+replayed on new inputs); the segmented path at its
 main's long geometries on its last rows; K20 and K21 (the unrolled
 backward) through ``flash_bwd_unrolled`` at ``CARD_CHECKS`` causal and not
 (blocks of 64, a launch of 320 rows, D 128, fp32 inputs) and at every
@@ -122,7 +124,7 @@ def test_k16_pipelined_matches_plain(cuda_device, causal, shape, hkv, dtype):
     q, k, v = _qkv(cuda_device, 4, shape, (b, s, hkv, d), dtype)
     blk = 32 if s % 64 else 512 if s >= 2048 else 64
     kw = dict(causal=causal, block_q=blk, block_kv=blk)
-    _check("pfa_flash_pipelined", lambda: experiments.flash_unrolled(q, k, v, **kw),
+    _check(_route("pfa_flash_pipelined", dtype), lambda: experiments.flash_unrolled(q, k, v, **kw),
            lambda: pipeline.flash_unrolled_plain(q, k, v, **kw))
 
 
@@ -132,7 +134,7 @@ def _pipeline_qkv(dev, seed, shape):
 
 
 def _route(name, dtype):
-    """K17/K19's launch counter: the Hopper body's in bf16, the mma.sync
+    """K16-K19's launch counter: the Hopper body's in bf16, the mma.sync
     body's in fp32."""
     return name if dtype == torch.bfloat16 else name + "_fp32"
 
@@ -153,8 +155,39 @@ def test_k18_tri_matches_plain(cuda_device, shape):
     q, k, v = _pipeline_qkv(cuda_device, 9, shape)
     for bq, bkv in pipeline.check_tri_blocks(shape[1]):
         kw = dict(block_q=bq, block_kv=bkv)
-        _check("pfa_flash_tri", lambda: experiments.flash_triangular(q, k, v, **kw),
+        _check(_route("pfa_flash_tri", shape[5]),
+               lambda: experiments.flash_triangular(q, k, v, **kw),
                lambda: pipeline.flash_triangular_plain(q, k, v, **kw), launches=shape[1] // bq)
+
+
+@pytest.mark.parametrize("shape, block_q", [((4, 2048, 12, 12, 64), 512),
+                                            ((1, 8192, 12, 12, 64), 512),
+                                            ((2, 320, 8, 2, 128), 64)],
+                         ids=["b4s2048-bq512", "s8192-bq512", "gqa-d128-s320-bq64"])
+def test_k18_graph_replay_matches_plain(cuda_device, shape, block_q):
+    """A K18 call (its launches after the first programmatic dependent
+    launches) captured into a CUDA graph, replayed on new inputs and read
+    by the next kernel of the stream before any synchronisation: every row
+    of every launch is there."""
+    b, s, hq, hkv, d = shape
+    q, k, v = _pipeline_qkv(cuda_device, 17, (*shape, torch.bfloat16))
+    kw = dict(block_q=block_q, block_kv=block_q)
+    experiments.flash_triangular(q, k, v, **kw)  # build and warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.CAPTURED["pfa_flash_tri"]
+    with torch.cuda.graph(graph):
+        out = experiments.flash_triangular(q, k, v, **kw)
+    assert _build.CAPTURED["pfa_flash_tri"] == before + s // block_q
+    for seed in (18, 19):
+        for t, new in zip((q, k, v), _pipeline_qkv(cuda_device, seed, (*shape, torch.bfloat16))):
+            t.copy_(new)
+        graph.replay()
+        got = out.float() * 1.0  # the stream's next kernel reads the call's rows
+        torch.cuda.synchronize()
+        ref = pipeline.flash_triangular_plain(q, k, v, **kw)
+        assert torch.isfinite(got).all()
+        assert _common.rel_err_norm(got, ref) <= BOUND, seed
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -174,6 +207,23 @@ def test_k19_fulltri_matches_plain(cuda_device, shape):
     kw = dict(block_q=pipeline.check_block(s, 2), block_kv=pipeline.check_block(s))
     _check(_route("pfa_flash_fulltri", shape[5]), lambda: experiments.flash_fulltri(q, k, v, **kw),
            lambda: pipeline.flash_fulltri_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k16_k18_route_by_dtype(cuda_device, dtype):
+    """bf16 reaches only the Hopper body, fp32 only the mma.sync one; K18
+    counts one a launch."""
+    q, k, v = _pipeline_qkv(cuda_device, 20, (1, 320, 4, 2, 64, dtype))
+    names = ("pfa_flash_pipelined", "pfa_flash_pipelined_fp32", "pfa_flash_tri",
+             "pfa_flash_tri_fp32")
+    before = {n: _build.LAUNCHES[n] for n in names}
+    experiments.flash_unrolled(q, k, v, block_q=64, block_kv=64, causal=True)
+    experiments.flash_triangular(q, k, v, block_q=64, block_kv=64)
+    torch.cuda.synchronize()
+    got = {n: _build.LAUNCHES[n] - before[n] for n in names}
+    want = {n: int(n.endswith("_fp32") == (dtype == torch.float32)) * (5 if "tri" in n else 1)
+            for n in names}
+    assert got == want
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -218,6 +268,41 @@ def test_k17_k19_refuse_other_plans(cuda_device):
                          (k19, p19._replace(walk=empty_row))):
         with pytest.raises(RuntimeError, match="_sm90"):
             launch(plan)
+
+
+def test_k16_k18_refuse_other_plans(cuda_device):
+    """K16's and K18's launchers run their own plans: another tile width or
+    shared memory, a walk whose q-block lies outside the launch's rows or
+    off its 128-row steps, or rows past S are refused."""
+    b, s, hq, hkv, d = 1, 320, 4, 2, 64
+    q, k, v = _pipeline_qkv(cuda_device, 21, (b, s, hq, hkv, d, torch.bfloat16))
+    o = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, hq, hkv, d)
+
+    def k16(plan):
+        _build.launch("pfa_flash_pipelined_sm90", cuda_device, *ptrs, d ** -0.5, 1,
+                      plan.tile_keys, plan.stages, plan.smem, plan.grid,
+                      pipeline._c_walk(plan.walk))
+
+    def k18(plan, row0=64, rows=192):
+        _build.launch("pfa_flash_tri_sm90", cuda_device, *ptrs, row0, rows, d ** -0.5, 0,
+                      plan.tile_keys, plan.stages, plan.smem, plan.grid,
+                      pipeline._c_walk(plan.walk))
+
+    p16 = pipeline.k16_plan(b, s, hq, hkv, d, True)
+    p18 = pipeline.k18_plan(b, s, hq, hkv, d, 64, 192)
+    k16(p16)
+    k18(p18)
+    torch.cuda.synchronize()
+    for launch, plan in ((k16, p16._replace(tile_keys=64)),
+                         (k16, p16._replace(smem=p16.smem + 1024)),
+                         (k18, p18._replace(walk=((0, 2),) + p18.walk[1:])),
+                         (k18, p18._replace(walk=((128, 2),) + p18.walk[1:])),
+                         (k18, p18._replace(grid=p18.grid + 1))):
+        with pytest.raises(RuntimeError, match="_sm90"):
+            launch(plan)
+    with pytest.raises(RuntimeError, match="_sm90"):
+        k18(p18, rows=320)
 
 
 def test_k17_k19_unaligned_bf16_raises(cuda_device):
@@ -356,3 +441,18 @@ def test_k20_k21_card_contract_errors(cuda_device):
     qt = q.transpose(2, 3).contiguous().transpose(2, 3)  # the same values, not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         experiments.flash_bwd_unrolled(qt, k, v, o, lse, do, block_q=64, block_kv=64, **kw)
+
+
+def test_k16_k18_unaligned_bf16_raises(cuda_device):
+    """The same for K16 and K18: a bf16 base 2 bytes in raises before any
+    launch, and so does a K18 call's first launch."""
+    b, s, h, d = 1, 256, 2, 64
+    n = b * s * h * d
+    buf = torch.randn(3 * n + 1, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(b, s, h, d) for i in range(3))
+    before = (_build.LAUNCHES["pfa_flash_pipelined"], _build.LAUNCHES["pfa_flash_tri"])
+    with pytest.raises(ValueError, match="16-byte"):
+        experiments.flash_unrolled(q, k, v, block_q=128, block_kv=128, causal=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        experiments.flash_triangular(q, k, v, block_q=128, block_kv=128)
+    assert (_build.LAUNCHES["pfa_flash_pipelined"], _build.LAUNCHES["pfa_flash_tri"]) == before

@@ -1,12 +1,16 @@
-"""The launch plans of K17's and K19's bf16 bodies (``k17_plan``,
-``k19_plan`` in ``experiments/flash_pipeline_experiment.py``), on the CPU.
+"""The launch plans of K16-K19's bf16 body (``k16_plan``, ``k17_plan``,
+``k18_plan``, ``k19_plan`` in ``experiments/flash_pipeline_experiment.py``),
+on the CPU.
 
 The C launchers of ``csrc/flash_experiments_sm90.cu`` take every field of a
 plan: they refuse a tile width, stage count, shared memory or grid that is
 not their own, and the kernel walks the plan's q-blocks and runs each one's
 chunks as the plan lists them. So these pure functions are what the card
 runs: K19's walk covers each causal (row-block, key tile) pair of a head
-once, heaviest row first, on a grid of B x Hq CTAs; K17's chunks per
+once, heaviest row first, on a grid of B x Hq CTAs; K16's does the same
+(every pair when not causal) on the persistent grid; K18's launches of one
+call claim each row once, inside their own row-block, each q-block over
+exactly the key tiles its rows below the row end see; K17's chunks per
 128-row work tile follow the chunk-granular causal skip (every chunk when
 not causal); every plan's shared memory fits the H100's 232,448 bytes with
 as many stages as fit. Parametrised over the card checks' shapes
@@ -21,7 +25,9 @@ from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experi
 
 SHAPES = sorted({shape[:5] for shape in ux.CARD_CHECK_SHAPES}
                 | {shape for _, shape, _ in ux.CHUNKED_CASES}
-                | {shape for _, shape in ux.FULLTRI_CASES})
+                | {shape for _, shape in ux.FULLTRI_CASES}
+                | {shape for _, shape, _ in ux.CASES}
+                | {shape for _, shape in ux.TRI_CASES})
 IDS = ["b{}s{}h{}-{}d{}".format(*shape) for shape in SHAPES]
 
 
@@ -59,17 +65,73 @@ def test_k17_live_chunks(shape, unroll, causal):
     assert plan.grid == min(nqb * hq * b, 132)
 
 
-@pytest.mark.parametrize("kernel", ["k19", "k17 u2", "k17 u4"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_k16_walk_covers_each_pair_once(shape, causal):
+    b, s, hq, hkv, d = shape
+    plan = ux.k16_plan(b, s, hq, hkv, d, causal, 132)
+    assert plan.tile_keys == plan.chunk_keys == (96 if d == 128 else 128)
+    nqb = math.ceil(s / 128)
+    assert plan.grid == min(nqb * hq * b, 132)
+    pairs = [(q0, t * plan.tile_keys) for q0, n in plan.walk for t in range(n)]
+    want = {(q0, kv0) for q0 in range(0, s, 128) for kv0 in range(0, s, plan.tile_keys)
+            if not causal or kv0 <= min(s - 1, q0 + 127)}
+    assert len(pairs) == len(want) and set(pairs) == want
+    q0s = [q0 for q0, _ in plan.walk]
+    # every q-block once; causal ones heaviest (last) first
+    assert q0s == sorted(range(0, nqb * 128, 128), reverse=causal)
+
+
+def _tri_blocks(s):
+    return sorted(set(ux.check_tri_blocks(s))
+                  | {bk for bk in ux.TRI_BLOCKS if s % bk[0] == 0 and s % bk[1] == 0})
+
+
+TRI_PARAMS = [(shape, bq) for shape in SHAPES
+              for bq in sorted({bq for bq, _ in _tri_blocks(shape[1])})]
+
+
+@pytest.mark.parametrize("shape, block_q", TRI_PARAMS,
+                         ids=[f"{IDS[SHAPES.index(shape)]}-bq{bq}" for shape, bq in TRI_PARAMS])
+def test_k18_walks_cover_each_causal_pair_once(shape, block_q):
+    """The launches of one call (one a row-block of ``block_q`` rows) store
+    each row of S once, each inside its own launch's rows, and each
+    q-block runs exactly the key tiles up to its last stored row: so every
+    causal (row, key tile) pair is computed and stored once."""
+    b, s, hq, hkv, d = shape
+    tile = 96 if d == 128 else 128
+    stored = []
+    for row0 in range(0, s, block_q):
+        plan = ux.k18_plan(b, s, hq, hkv, d, row0, block_q, 132)
+        assert plan.tile_keys == plan.chunk_keys == tile
+        assert plan.grid == min(len(plan.walk) * hq * b, 132)
+        assert len(plan.walk) == math.ceil(block_q / 128)
+        q0s = [q0 for q0, _ in plan.walk]
+        assert q0s == sorted(q0s, reverse=True)  # heaviest first
+        for q0, n in plan.walk:
+            end = min(q0 + 128, row0 + block_q)  # the rows it stores: [q0, end)
+            assert row0 <= q0 < end <= row0 + block_q and (q0 - row0) % 128 == 0
+            assert n == math.ceil(end / tile)  # to its last stored row, no tile past it
+            stored.append((q0, end))
+    stored.sort()
+    assert stored[0][0] == 0 and stored[-1][1] == s
+    assert all(a[1] == b_[0] for a, b_ in zip(stored, stored[1:]))  # each row once
+
+
+@pytest.mark.parametrize("kernel", ["k19", "k17 u2", "k17 u4", "k16", "k18"])
 @pytest.mark.parametrize("d", ux.CARD_HEAD_DIMS)
 def test_plan_shared_memory_fits(kernel, d):
     plan = (ux.k19_plan(4, 2048, 12, 12, d) if kernel == "k19"
+            else ux.k16_plan(4, 2048, 12, 12, d, True) if kernel == "k16"
+            else ux.k18_plan(4, 2048, 12, 12, d, 512, 512) if kernel == "k18"
             else ux.k17_plan(4, 2048, 12, 12, d, int(kernel[-1])))
     assert plan.smem <= ux.SMEM_MAX
     assert plan.smem == ux._sm90_smem(d, plan.chunk_keys, plan.stages)
     # as many stages as fit: one more does not
     assert ux._sm90_smem(d, plan.chunk_keys, plan.stages + 1) > ux.SMEM_MAX
     want = {("k19", 64): 6, ("k19", 128): 3, ("k17 u2", 64): 6, ("k17 u4", 64): 3,
-            ("k17 u2", 128): 2, ("k17 u4", 128): 1}
+            ("k17 u2", 128): 2, ("k17 u4", 128): 1, ("k16", 64): 6, ("k16", 128): 3,
+            ("k18", 64): 6, ("k18", 128): 3}
     assert plan.stages == want[(kernel, d)]
 
 
@@ -84,3 +146,20 @@ def test_plan_bad_arguments():
     assert len(ux.k19_plan(1, ux.SM90_MAX_SEQ, 1, 1, 64).walk) == 512
     with pytest.raises(ValueError, match="S <="):
         ux.k17_plan(1, ux.SM90_MAX_SEQ + 1, 1, 1, 64, 2)
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: ux.k16_plan(1, 320, 2, 2, 96, True), "head_dim"),
+    (lambda: ux.k18_plan(1, 320, 2, 2, 96, 0, 64), "head_dim"),
+    (lambda: ux.k16_plan(1, ux.SM90_MAX_SEQ + 1, 1, 1, 64, False), "S <="),
+    (lambda: ux.k18_plan(1, ux.SM90_MAX_SEQ + 1, 1, 1, 64, 0, 512), "S <="),
+    (lambda: ux.k18_plan(1, 320, 2, 2, 64, 320, 64), "q_row0"),
+    (lambda: ux.k18_plan(1, 320, 2, 2, 64, -64, 64), "q_row0"),
+    (lambda: ux.k18_plan(1, 320, 2, 2, 64, 0, 0), "rows"),
+    (lambda: ux.k18_plan(1, 320, 2, 2, 64, 256, 128), "rows"),
+    (lambda: ux.k16_plan(1, 320, 3, 2, 64, True), "shape"),
+], ids=["k16-d96", "k18-d96", "k16-long", "k18-long", "k18-row0-at-s", "k18-row0-neg",
+        "k18-no-rows", "k18-past-s", "k16-gqa"])
+def test_k16_k18_plan_bad_arguments(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
