@@ -257,8 +257,8 @@ SOURCES = {
     "pfa_softmax_probe_unmasked": _PROBES,
     "pfa_flash_fixedmax": _EXPERIMENTS,
     "pfa_flash_fixedmax_fast": _EXPERIMENTS,
-    "pfa_flash_aug": _EXPERIMENTS,
-    "pfa_flash_pair": _EXPERIMENTS,
+    "pfa_flash_aug": _EXPERIMENTS90,
+    "pfa_flash_pair": _EXPERIMENTS90,
     "pfa_flash_pipelined": _EXPERIMENTS90,
     "pfa_flash_pipelined_fp32": _EXPERIMENTS,
     "pfa_flash_chunked": _EXPERIMENTS90,
@@ -535,6 +535,9 @@ GMMA_OPS = ("HGMMA", "IGMMA", "QGMMA")
 EXP_SM90 = re.compile(r"flash_exp_sm90ILi(\d+)ELi(\d)E")
 EXP_UNROLLS = (0, 1, 2, 4)
 EXP_LABELS = {0: "K19", 1: "K16/K18", 2: "K17 unroll 2", 4: "K17 unroll 4"}
+#: K14's and K15's instantiations of the same body (D 64): flash_aug_sm90,
+#: flash_pair_sm90<nchain>; keyed ("aug_pair", 64, nchain), nchain 0 for K14.
+AUG_PAIR_SM90 = re.compile(r"flash_(aug|pair)_sm90(?:ILi(\d)E)?")
 
 
 def _cuobjdump(flag: str, path: Path) -> str:
@@ -552,6 +555,8 @@ def _sm90_key(name: str):
         return "quant", int(m.group(1)), int(m.group(2))
     if m := EXP_SM90.search(name):
         return "exp", int(m.group(1)), int(m.group(2))
+    if m := AUG_PAIR_SM90.search(name):
+        return "aug_pair", 64, int(m.group(2) or 0)
     return None
 
 
@@ -717,38 +722,83 @@ def check_quant_sass(counts: dict, usage: dict) -> None:
 
 
 def check_exp_sass(counts: dict, usage: dict) -> None:
-    """The same proof for K16-K19's bf16 body (K16 and K18, K17 at unroll 2
-    and 4, K19; D 64 and 128): each instantiation must hold HGMMA and
-    UTMALDG, no HMMA, and no stack or local bytes. Prints the counts,
-    registers, stack and, from ``pfa_exp_sm90_info``, the key tile, the
-    ring's stages and shared memory, threads, CTAs a SM, the setmaxnreg
-    split, whether the next stage's Q.K^T overlaps this stage's last P.V
-    and whether the warpgroups ping-pong."""
+    """The same proof for the experiments' bf16 body: K16-K19 (K16 and K18,
+    K17 at unroll 2 and 4, K19; D 64 and 128), K14 and K15 at every nchain
+    of ``CARD_NCHAINS``. Each instantiation must hold HGMMA and UTMALDG, no
+    HMMA, and no stack or local bytes. Prints the counts, registers, stack
+    and, from ``pfa_exp_sm90_info`` / ``pfa_aug_pair_sm90_info``, the key
+    tile, the ring's stages and shared memory, threads, CTAs a SM, the
+    setmaxnreg split, whether the next stage's Q.K^T overlaps this stage's
+    last P.V and whether the warpgroups take turns."""
     import ctypes
 
-    want = {("exp", d, u) for d in (64, 128) for u in EXP_UNROLLS}
-    got = {key for key in counts if key[0] == "exp"}
-    if got != want:
-        raise AssertionError(f"exp SASS: instantiations {sorted(got)}, want {sorted(want)}")
-    for _, d, u in sorted(want):
-        c = counts[("exp", d, u)]
-        info = (ctypes.c_int * 9)()
-        err = _build.lib().pfa_exp_sm90_info(u, d, info)
-        if err:
-            raise RuntimeError(f"pfa_exp_sm90_info: CUDA error {err}")
-        reg = usage.get(("exp", d, u))
-        line = (f"exp SASS {EXP_LABELS[u]} D{d}: HGMMA {c['HGMMA']}, "
-                f"UTMALDG {c['UTMALDG']}, HMMA {c['HMMA']}; " +
-                (f"registers {reg[0]} at launch (setmaxnreg: producer {info[5]}, consumers "
-                 f"{info[6]}), stack {reg[1]} B, local {reg[3]} B" if reg
-                 else "cuobjdump -res-usage: no entry") +
-                f"; {info[0]}-key tiles, {info[1]} stages ({info[2]} B shared), "
-                f"{info[3]} threads, {info[4]} CTA(s) a SM, cross-stage overlap "
-                f"{'on' if info[7] else 'off'}, ping-pong {'on' if info[8] else 'off'}")
-        if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"] or not reg or reg[1] or reg[3]:
-            raise AssertionError(f"{line}: the bf16 body must run on wgmma and TMA only, "
-                                 "with no stack")
-        print(line, flush=True)
+    from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
+
+    lib = _build.lib()
+    families = (  # (key, its instantiations (D, x), label, info call)
+        ("exp", {(d, u) for d in (64, 128) for u in EXP_UNROLLS},
+         lambda d, u: f"{EXP_LABELS[u]} D{d}",
+         lambda d, u, out: lib.pfa_exp_sm90_info(u, d, out)),
+        ("aug_pair", {(64, n) for n in (0, *px.CARD_NCHAINS)},
+         lambda d, n: f"{'K14 aug' if n == 0 else f'K15 nchain {n}'} D{d}",
+         lambda d, n, out: lib.pfa_aug_pair_sm90_info(n, out)),
+    )
+    for family, want, label, info_of in families:
+        got = {key[1:] for key in counts if key[0] == family}
+        if got != want:
+            raise AssertionError(f"exp SASS: {family} instantiations {sorted(got)}, "
+                                 f"want {sorted(want)}")
+        for d, x in sorted(want):
+            c, reg = counts[(family, d, x)], usage.get((family, d, x))
+            info = (ctypes.c_int * 9)()
+            if err := info_of(d, x, info):
+                raise RuntimeError(f"exp SASS {label(d, x)}: info: CUDA error {err}")
+            line = (f"exp SASS {label(d, x)}: HGMMA {c['HGMMA']}, "
+                    f"UTMALDG {c['UTMALDG']}, HMMA {c['HMMA']}; " +
+                    (f"registers {reg[0]} at launch (setmaxnreg: producer {info[5]}, consumers "
+                     f"{info[6]}), stack {reg[1]} B, local {reg[3]} B" if reg
+                     else "cuobjdump -res-usage: no entry") +
+                    f"; {info[0]}-key tiles, {info[1]} stages ({info[2]} B shared), "
+                    f"{info[3]} threads, {info[4]} CTA(s) a SM, cross-stage overlap "
+                    f"{'on' if info[7] else 'off'}, ping-pong {'on' if info[8] else 'off'}")
+            if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"] or not reg or reg[1] or reg[3]:
+                raise AssertionError(f"{line}: the bf16 body must run on wgmma and TMA only, "
+                                     "with no stack")
+            print(line, flush=True)
+
+
+def _normalised_sass(path: Path) -> dict:
+    """K1's bf16 and K16-K19's instantiations in a built library (or object
+    file): each one's instructions, keyed by ``_sm90_key``, with the
+    addresses and encodings dropped and every hex immediate (constant-bank
+    offsets, branch targets) replaced, so that two builds compare by code."""
+    funcs, cur = {}, None
+    for line in _cuobjdump("-sass", path).splitlines():
+        if "Function :" in line:
+            key = _sm90_key(line)
+            cur = key if key and key[0] in ("K1", "exp") else None
+            if cur:
+                funcs[cur] = []
+        elif cur and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)):
+            funcs[cur].append(re.sub(r"0x[0-9a-f]+", "0x?", m.group(1)))
+    return funcs
+
+
+def sass_diff(this: Path, other: Path) -> None:
+    """Prints, per K1 and K16-K19 instantiation, how many normalised SASS
+    lines differ between this tree's library and ``other`` (another tree's
+    build, e.g. the parent commit's): 0 means the same code."""
+    import difflib
+
+    mine, theirs = _normalised_sass(this), _normalised_sass(other)
+    for key in sorted(set(mine) | set(theirs)):
+        a, b = theirs.get(key), mine.get(key)
+        if a is None or b is None:
+            print(f"sass diff {key}: only in {'this tree' if a is None else other}", flush=True)
+            continue
+        changed = sum(1 for d in difflib.ndiff(a, b) if d[0] in "+-")
+        print(f"sass diff {key}: {len(a)} -> {len(b)} instructions, {changed} lines differ",
+              flush=True)
 
 
 def check_flash(results: dict) -> None:
@@ -4248,20 +4298,31 @@ def check_experiments(results: dict) -> dict:
                                  lambda: fx.flash_fixedmax_plain(q, k, v, **kw), checked,
                                  timed=(b, s, h, d) == K1_HEADLINE and causal)
     for (b, sq, skv, h), blk in (((2, 256, 256, 4), 128), ((1, 96, 160, 2), 32),
-                                 ((4, 2048, 2048, 12), 512), ((1, 8192, 8192, 12), 512)):
+                                 ((1, 160, 96, 2), 32), ((4, 2048, 2048, 12), 512),
+                                 ((1, 8192, 8192, 12), 512)):
         q, k, v = qkv(b, sq, h, 64, skv=skv)
         _experiment_case("pfa_flash_aug", f"K14 aug B{b} Sq{sq} Skv{skv} H{h} D64 causal",
                          lambda: ax.flash_aug(q, k, v, bq=blk, bkv=blk),
                          lambda: ax.flash_aug_plain(q, k, v, bq=blk, bkv=blk), checked,
-                         timed=(b, sq, h, 64) == K1_HEADLINE)
-    for (b, s, h), blk in (((2, 384, 4), 64), ((1, 1536, 3), 64), ((4, 2048, 12), 512),
-                           ((1, 8192, 12), 512)):
-        q, k, v = qkv(b, s, h, 64)
-        for nc in px.CARD_NCHAINS:
-            _experiment_case("pfa_flash_pair", f"K15 pair nchain {nc} B{b} S{s} H{h} D64 causal",
-                             lambda: px.flash_pair(q, k, v, bq=blk, bkv=blk, nchain=nc),
-                             lambda: px.flash_pair_plain(q, k, v, bq=blk, bkv=blk, nchain=nc),
-                             checked, timed=(b, s, h, 64) == K1_HEADLINE and nc == 2)
+                         timed=(b, sq, h, 64) == K1_HEADLINE, launches=("pfa_flash_aug", 1))
+    # K15 at each nchain the card takes: the mains' geometries (S cut to a
+    # multiple of nchain x 128 where nchain does not divide it), small
+    # shapes, a length whose last work tile is ragged, Sq != Skv each way.
+    for nc in px.CARD_NCHAINS:
+        ragged = px.RAGGED_LENGTHS[nc]
+        for b, sq, skv, h in ((2, 384, 384, 4), (1, 1536, 1536, 3), (4, 2048, 2048, 12),
+                              (1, 8192, 8192, 12), (2, ragged, ragged, 3), (2, 192, 320, 3),
+                              (2, 384, 192, 3)):
+            (sq, blk), skv = px.pair_case(sq, nc), skv if skv != sq else px.pair_case(sq, nc)[0]
+            q, k, v = qkv(b, sq, h, 64, skv=skv)
+            bkv = blk if skv % blk == 0 else 32
+            _experiment_case("pfa_flash_pair", f"K15 pair nchain {nc} B{b} Sq{sq} Skv{skv} H{h} "
+                             f"D64 causal",
+                             lambda: px.flash_pair(q, k, v, bq=blk, bkv=bkv, nchain=nc),
+                             lambda: px.flash_pair_plain(q, k, v, bq=blk, bkv=bkv, nchain=nc),
+                             checked, timed=(b, sq, h, 64) == K1_HEADLINE and nc == 2,
+                             launches=("pfa_flash_pair", 1))
+        check_k15_graph_replay(nc, checked, lambda sh: qkv(*sh))
     both = (True, False)
     # K16-K19's counter: the Hopper body's in bf16, the mma.sync body's (a
     # mode of its own) in fp32.
@@ -4420,35 +4481,59 @@ def check_experiments(results: dict) -> dict:
     return checked
 
 
+def check_graph_replay(name: str, label: str, call, plain, n_calls: int, checked: dict,
+                       inputs, fresh) -> None:
+    """``call`` (n_calls calls of kernel counter ``name``) captured into a
+    CUDA graph after a warm-up outside the capture, replayed twice on new
+    inputs (``fresh()`` copied into ``inputs``), its output read by the
+    stream's next kernel before any synchronisation; each replay against
+    ``plain`` within EXPERIMENT_BOUND."""
+    call()  # warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.CAPTURED[name]
+    with torch.cuda.graph(graph):
+        out = call()
+    if _build.CAPTURED[name] - before != n_calls:
+        raise AssertionError(f"{label} graph: {_build.CAPTURED[name] - before} calls "
+                             f"captured, not {n_calls}")
+    for i in range(2):
+        for t, new in zip(inputs, fresh()):
+            t.copy_(new)
+        _experiment_case(name, f"{label}, captured in a CUDA graph, replay {i + 1}",
+                         lambda: (graph.replay(), out.float() * 1.0)[1],
+                         lambda: plain().float(), checked)
+    del graph
+
+
+def check_k15_graph_replay(nchain: int, checked: dict, make_qkv) -> None:
+    """One K15 call at B4 S2048 H12 D64 (S cut by ``px.pair_case``) through
+    check_graph_replay."""
+    from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
+
+    s, blk = px.pair_case(2048, nchain)
+    shape = (4, s, 12, 64)
+    q, k, v = make_qkv(shape)
+    kw = dict(bq=blk, bkv=blk, nchain=nchain)
+    check_graph_replay("pfa_flash_pair", f"K15 pair nchain {nchain} B4 S{s} H12 D64 causal",
+                       lambda: px.flash_pair(q, k, v, **kw),
+                       lambda: px.flash_pair_plain(q, k, v, **kw), 1, checked, (q, k, v),
+                       lambda: make_qkv(shape))
+
+
 def check_k18_graph_replay(shape, block_q: int, checked: dict, make_qkv) -> None:
-    """One K18 call in bf16 (B, S, Hq, Hkv, D) at ``block_q`` captured into
-    a CUDA graph (one call a row-block, each after the first a
-    programmatic dependent launch), replayed twice on new inputs copied in,
-    its output read by the stream's next kernel before any
-    synchronisation; each replay against the plain version within
-    EXPERIMENT_BOUND. ``make_qkv(shape)`` gives fresh q, k, v."""
+    """One K18 call in bf16 (B, S, Hq, Hkv, D) at ``block_q`` (one call a
+    row-block, each after the first a programmatic dependent launch)
+    through check_graph_replay."""
     from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
 
     b, s, hq, hkv, d = shape
     q, k, v = make_qkv(shape)
     kw = dict(block_q=block_q, block_kv=block_q)
-    ux.flash_triangular(q, k, v, **kw)  # warm up outside the capture
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    before = _build.CAPTURED["pfa_flash_tri"]
-    with torch.cuda.graph(graph):
-        out = ux.flash_triangular(q, k, v, **kw)
-    if _build.CAPTURED["pfa_flash_tri"] - before != s // block_q:
-        raise AssertionError(f"K18 graph: {_build.CAPTURED['pfa_flash_tri'] - before} calls "
-                             f"captured, not {s // block_q}")
-    for i in range(2):
-        for t, new in zip((q, k, v), make_qkv(shape)):
-            t.copy_(new)
-        _experiment_case("pfa_flash_tri", f"K18 triangular bq={block_q} B{b} S{s} H{hq}/{hkv} "
-                         f"D{d} bfloat16 causal, captured in a CUDA graph, replay {i + 1}",
-                         lambda: (graph.replay(), out.float() * 1.0)[1],
-                         lambda: ux.flash_triangular_plain(q, k, v, **kw).float(), checked)
-    del graph
+    check_graph_replay("pfa_flash_tri", f"K18 triangular bq={block_q} B{b} S{s} H{hq}/{hkv} "
+                       f"D{d} bfloat16 causal", lambda: ux.flash_triangular(q, k, v, **kw),
+                       lambda: ux.flash_triangular_plain(q, k, v, **kw), s // block_q, checked,
+                       (q, k, v), lambda: make_qkv(shape))
 
 
 def _sdpa_fit_ms(b, s, hq, hkv, d, causal, fit, dtype=torch.bfloat16) -> float:
@@ -4477,15 +4562,25 @@ def time_exp_table(smi: str) -> list:
     within EXPERIMENT_BOUND. The rows use public calls only, so
     ``--exp-table`` in a copy of this script times another tree of the
     repository (the parent commit, or a copy with a lever of the kernels
-    changed)."""
+    changed). K14 and K15 (each nchain its tree's ``CARD_NCHAINS`` holds, S cut
+    by the pair module's ``pair_case`` where nchain does not divide it) come
+    first, over the aug and pair modules' CASES, causal."""
+    from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as ax
+    from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
     from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
 
     gen = torch.Generator(device="cuda").manual_seed(29)
     fit = lambda fn: fit_seconds(fn, EXPERIMENT_FIT, torch.device("cuda")) * 1e3  # noqa: E731
+    # trees before K15's Hopper body take nchain 1 and 2, which divide CASES' S
+    pair_case = getattr(px, "pair_case", lambda s, n: (s, min(512, s)))
     tri_blocks = {}
     for bq, bkv in ux.TRI_BLOCKS:
         tri_blocks.setdefault(bq, bkv)
-    cases = ([("K16", name, shape, causal, None) for name, shape, causal in ux.CASES]
+    cases = ([("K14", f"B{b} S{s}", (b, s, h, h, d), True, None) for b, s, h, d in ax.CASES]
+             + [(f"K15 nchain {n}", f"B{b} S{pair_case(s, n)[0]}",
+                 (b, pair_case(s, n)[0], h, h, d), True, (n, pair_case(s, n)[1]))
+                for b, s, h, d in px.CASES for n in px.CARD_NCHAINS]
+             + [("K16", name, shape, causal, None) for name, shape, causal in ux.CASES]
              + [(f"K17 unroll {u}", name, shape, causal, u)
                 for name, shape, causal in ux.CHUNKED_CASES for u in ux.CARD_UNROLLS]
              + [(f"K18 bq={bq} bkv={bkv}", name, shape, True, (bq, bkv))
@@ -4510,7 +4605,12 @@ def time_exp_table(smi: str) -> list:
             inputs[key] = (q, k, v, ref)
         q, k, v, ref = inputs[key]
         blk = min(512, s)
-        if kernel == "K16":
+        if kernel == "K14":
+            call = lambda: ax.flash_aug(q, k, v, bq=blk, bkv=blk)  # noqa: E731
+        elif kernel.startswith("K15"):
+            call = lambda: px.flash_pair(q, k, v, bq=arg[1], bkv=arg[1],  # noqa: E731
+                                         nchain=arg[0])
+        elif kernel == "K16":
             call = lambda: ux.flash_unrolled(q, k, v, causal=causal, block_q=blk,  # noqa: E731
                                              block_kv=blk)
         elif kernel.startswith("K17"):
@@ -4756,6 +4856,10 @@ def main() -> None:
                         help="only build and print the exp table of K16-K19 (public calls "
                              "only, so a copy of this script times any tree of the repository); "
                              "no result line")
+    parser.add_argument("--sass-diff", metavar="LIB",
+                        help="only build and compare K1's and K16-K19's SASS, normalised, with "
+                             "another build of the library (LIB, e.g. the parent commit's); no "
+                             "result line")
     parser.add_argument("--k3-table", action="store_true",
                         help="only build, print the K3 table and time GPT-2 medium's decode "
                              "step (public calls only, so a copy of this script times any tree "
@@ -4771,6 +4875,10 @@ def main() -> None:
     if args.exp_table:
         phase_build(sass=False)
         time_exp_table(smi)
+        return
+    if args.sass_diff:
+        phase_build(sass=False)
+        sass_diff(_build.library_path(), Path(args.sass_diff))
         return
     if args.k3_table:
         phase_build(sass=False)

@@ -1,13 +1,9 @@
-// K13-K19: the forward design-space experiments for Hopper (sm_90a).
+// K13, K16-K19: the forward design-space experiments on mma.sync (sm_90a).
 //
-// Replace the TPU kernels of benchmarks/ (B15a-h):
+// Replace the TPU kernels of benchmarks/ (B15a, d-h):
 // * K13 pfa_flash_fixedmax: flash_fixedmax_experiment.py::_kernel (VFA's
 //   precomputed row bound: no running max, no alpha, no rescale; the
 //   Schraudolph `fast_exp` mode);
-// * K14 pfa_flash_aug: flash_aug_experiment.py::_aug_kernel (the row sum l
-//   folded into the P.V product by a ones column of V);
-// * K15 pfa_flash_pair: flash_pair_experiment.py::_pair_kernel (nchain
-//   independent query chains against one staged K/V tile);
 // * K16 pfa_flash_pipelined: flash_pipeline_experiment.py::_kernel (the KV
 //   loop software-pipelined so QK(j+1) overlaps softmax(j)), fp32 inputs
 //   here, bf16 on the Hopper body of flash_experiments_sm90.cu;
@@ -22,7 +18,9 @@
 //   causal triangle, the next row's first tiles fetched during the last
 //   tile of the current one), fp32 inputs here, bf16 on
 //   flash_experiments_sm90.cu.
-// Callers: experiments/flash_*_experiment.py in the port package.
+// K14 (augmented V) and K15 (paired chains) run only on the Hopper body of
+// flash_experiments_sm90.cu (bf16, D 64). Callers:
+// experiments/flash_*_experiment.py in the port package.
 //
 // What bounds them on the H100: the same work as K1 (csrc/flash_fwd.cu).
 // At D = 64 the tensor cores need ~26 us at B4 S2048 H12 causal, the
@@ -36,10 +34,9 @@
 // causal diagonal tile of a warp, the ragged last tile); every other tile
 // runs a body with no predicate. `p` takes one FFMA before its exp
 // (s * scale * log2 e - m * scale * log2 e), where K1 takes an FMUL and an
-// FADD. K15 with nchain 1 is this structure without any lever: the control
-// the experiments are read against besides K1.
+// FADD.
 //
-// The causal mask of all four is the experiments' `col <= row` (top-left),
+// The causal mask of all of them is the experiments' `col <= row` (top-left),
 // not K1's end-aligned diagonal; the two agree for square shapes. Every
 // row sees key 0, so after the first tile every running max is finite and
 // masked keys can be -inf where JAX uses a finite mask value: they
@@ -104,9 +101,9 @@ __device__ __forceinline__ void mask_tile(float s[NT][4], int kv0, const int row
 
 // The online-softmax statistics of one tile: m becomes the running max of
 // the raw scores, alpha = exp2((m_old - m_new) * sc), base = m_new * sc;
-// with WITH_L the running sum l is rescaled by alpha. A row with no key
-// yet (only in a masked tile) keeps base 0.
-template <bool MASKED, bool WITH_L>
+// the running sum l is rescaled by alpha. A row with no key yet (only in a
+// masked tile) keeps base 0.
+template <bool MASKED>
 __device__ __forceinline__ void softmax_stats(float s[NT][4], float m[2], float l[2],
                                               float alpha[2], float base[2], float sc) {
   float mx[2] = {m[0], m[1]};
@@ -121,21 +118,20 @@ __device__ __forceinline__ void softmax_stats(float s[NT][4], float m[2], float 
     base[i] = MASKED && mx[i] == -INFINITY ? 0.f : mx[i] * sc;
     alpha[i] = exp2f(m[i] * sc - base[i]);  // m = -inf before the first tile: 0
     m[i] = mx[i];
-    if (WITH_L) l[i] *= alpha[i];
+    l[i] *= alpha[i];
   }
 }
 
-// p = exp2(s * sc - base) for score tiles n0..n1-1, one FFMA and one exp
-// each; with WITH_L each p is added into l.
-template <bool WITH_L, int N0 = 0, int N1 = NT>
+// p = exp2(s * sc - base) for the tile's scores, one FFMA and one exp
+// each; each p is added into l.
 __device__ __forceinline__ void exp_tiles(float s[NT][4], float l[2], const float base[2],
                                           float sc) {
 #pragma unroll
-  for (int n = N0; n < N1; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[n][e] = exp2f(fmaf(s[n][e], sc, -base[e >> 1]));
-      if (WITH_L) l[e >> 1] += s[n][e];
+      l[e >> 1] += s[n][e];
     }
 }
 
@@ -275,218 +271,6 @@ flash_fixedmax_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   store_rows<D>(o, acc, l, rows, S, str, base, t4);
 }
 
-// --- K14: augmented V -------------------------------------------------------
-//
-// The staged V tile's padding columns (the shared row is D + 8 wide for
-// conflict-free fragment loads) hold [1, 0 x 7], written once: one extra n8
-// tile of the P.V product then yields, in its column 0, the sum of the
-// bf16-rounded p of each row (what JAX's product sums), rescaled by alpha
-// with the accumulator. No per-score FADD into l; max and alpha stay. Cost:
-// one more mma.sync per k16 step (+1/8 of P.V at D = 64). No augmented copy
-// of V goes through device memory.
-constexpr int AUG_D = 64;
-constexpr int AUG_LD = AUG_D + 8;
-constexpr int AUG_NDT = AUG_D / 8 + 1;  // + the ones column's tile
-
-template <bool MASKED>
-__device__ __forceinline__ void aug_tile(float acc[AUG_NDT][4], float m[2],
-                                         uint32_t qf[AUG_D / 16][4],
-                                         const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
-                                         float sc, int kv0, const int rows[2], int Skv, int g,
-                                         int t4) {
-  float s[NT][4], alpha[2], base[2], unused[2];
-  qk_tile<AUG_D, AUG_LD>(s, qf, Ks, g, t4);
-  if (MASKED) mask_tile(s, kv0, rows, Skv, true, t4);
-  softmax_stats<MASKED, false>(s, m, unused, alpha, base, sc);
-  exp_tiles<false>(s, unused, base, sc);
-  rescale<AUG_NDT>(acc, alpha);
-  pv_tile<AUG_NDT, AUG_LD>(acc, s, Vs, g, t4);
-}
-
-__global__ void __launch_bounds__(XTHREADS)
-flash_aug_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
-                 int Skv, int H, float scale) {
-  constexpr int D = AUG_D, LD = AUG_LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + XBQ * LD;
-  __nv_bfloat16* Vs = Ks + XBKV * LD;
-
-  const int q0 = blockIdx.x * XBQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3, wr = warp * 16;
-  const long long str = (long long)H * D;
-  const long long qbase = (long long)b * Sq * str + (long long)h * D;
-  const long long kvbase = (long long)b * Skv * str + (long long)h * D;
-
-  for (int i = threadIdx.x; i < XBKV * 8; i += XTHREADS)  // V's [1, 0 x 7] columns
-    Vs[(i >> 3) * LD + D + (i & 7)] = __float2bfloat16((i & 7) == 0 ? 1.f : 0.f);
-  load_tile_bf16<D, LD, XTHREADS>(Qs, q + qbase + q0 * str, str, XBQ, Sq - q0);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-  q_frags<D, LD>(qf, Qs, wr, g, t4);
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const float sc = scale * LOG2E;
-
-  float acc[AUG_NDT][4] = {};
-  float m[2] = {-INFINITY, -INFINITY};
-  const int kv_end = min(Skv, q0 + XBQ);  // causal only
-  for (int kv0 = 0; kv0 < kv_end; kv0 += XBKV) {
-    __syncthreads();
-    load_tile_bf16<D, LD, XTHREADS>(Ks, k + kvbase + kv0 * str, str, XBKV, Skv - kv0);
-    load_tile_bf16<D, LD, XTHREADS>(Vs, v + kvbase + kv0 * str, str, XBKV, Skv - kv0);
-    __syncthreads();
-    if (kv0 + XBKV > Skv || kv0 + XBKV - 1 > q0 + wr)
-      aug_tile<true>(acc, m, qf, Ks, Vs, sc, kv0, rows, Skv, g, t4);
-    else
-      aug_tile<false>(acc, m, qf, Ks, Vs, sc, kv0, rows, Skv, g, t4);
-  }
-  // l sits in column D: lane t4 == 0 of each quad holds it for rows g, g+8.
-  float l[2] = {__shfl_sync(0xffffffffu, acc[D / 8][0], lane & ~3),
-                __shfl_sync(0xffffffffu, acc[D / 8][2], lane & ~3)};
-  store_rows<D>(o, acc, l, rows, Sq, str, qbase, t4);
-}
-
-// --- K15: paired chains -----------------------------------------------------
-//
-// A block stages NCHAIN x 64 query rows and one 64-key K/V tile per step;
-// warp w carries NCHAIN independent 16-row chains (rows c * 64 + 16 w of
-// the block, chain c being JAX's q block qp * nchain + c), each its own
-// online softmax. So one K/V tile fill serves NCHAIN times K1's rows, and a
-// warp holds NCHAIN independent instruction streams: the Q.K products of
-// all chains share each K fragment (chains innermost); chain c's exps are
-// issued between chain c-1's P.V products (a skew), so the MUFU work of one
-// chain sits beside the tensor-core work of another. Q fragments are read
-// from shared memory each step (registers go to the chains' scores and
-// accumulators: 64 fp32 a thread a chain at D = 64). Chains below FIRST
-// have passed the causal diagonal and skip the tile.
-//
-// Registers decide the chain count: nchain 1 and 2 compile without spills
-// (98 and 245 registers a thread); 3 and 4 hit the 255-register limit and
-// spill (196 and 1980 bytes of spill stores), so the library holds 1 and 2.
-// Compiling this file with -DPFA_PAIR_NCHAIN_MAX=4 -Xptxas -v instantiates 3
-// and 4 as well and shows their spills.
-#ifndef PFA_PAIR_NCHAIN_MAX
-#define PFA_PAIR_NCHAIN_MAX 2
-#endif
-constexpr int PAIR_D = 64;
-constexpr int PAIR_LD = PAIR_D + 8;
-constexpr int PAIR_DT = PAIR_D / 8;
-
-template <int NCHAIN, bool MASKED, int FIRST>
-__device__ __forceinline__ void pair_tile(float acc[NCHAIN][PAIR_DT][4], float m[NCHAIN][2],
-                                          float l[NCHAIN][2], const __nv_bfloat16* Qs,
-                                          const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
-                                          float sc, int kv0, int rows[NCHAIN][2], int Skv,
-                                          int wr, int g, int t4) {
-  float s[NCHAIN][NT][4];
-#pragma unroll
-  for (int c = FIRST; c < NCHAIN; ++c)
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[c][n][0] = s[c][n][1] = s[c][n][2] = s[c][n][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < PAIR_D / 16; ++kc) {
-    uint32_t a[NCHAIN][4];
-#pragma unroll
-    for (int c = FIRST; c < NCHAIN; ++c)
-      load_a_frag<PAIR_LD>(a[c], Qs, c * XBQ + wr, kc * 16, g, t4);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const __nv_bfloat16* p = Ks + (n * 8 + g) * PAIR_LD + kc * 16 + t4 * 2;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-#pragma unroll
-      for (int c = FIRST; c < NCHAIN; ++c) mma_16816(s[c][n], a[c], b0, b1);
-    }
-  }
-  float alpha[NCHAIN][2], base[NCHAIN][2];
-#pragma unroll
-  for (int c = FIRST; c < NCHAIN; ++c) {
-    if (MASKED) mask_tile(s[c], kv0, rows[c], Skv, true, t4);
-    softmax_stats<MASKED, true>(s[c], m[c], l[c], alpha[c], base[c], sc);
-    rescale<PAIR_DT>(acc[c], alpha[c]);
-  }
-  exp_tiles<true>(s[FIRST], l[FIRST], base[FIRST], sc);
-#pragma unroll
-  for (int c = FIRST + 1; c < NCHAIN; ++c) {
-    // chain c-1's products, chain c's exps between them
-    pv_step<PAIR_DT, PAIR_LD>(acc[c - 1], s[c - 1], 0, Vs, g, t4);
-    exp_tiles<true, 0, 2>(s[c], l[c], base[c], sc);
-    pv_step<PAIR_DT, PAIR_LD>(acc[c - 1], s[c - 1], 1, Vs, g, t4);
-    exp_tiles<true, 2, 4>(s[c], l[c], base[c], sc);
-    pv_step<PAIR_DT, PAIR_LD>(acc[c - 1], s[c - 1], 2, Vs, g, t4);
-    exp_tiles<true, 4, 6>(s[c], l[c], base[c], sc);
-    pv_step<PAIR_DT, PAIR_LD>(acc[c - 1], s[c - 1], 3, Vs, g, t4);
-    exp_tiles<true, 6, 8>(s[c], l[c], base[c], sc);
-  }
-  pv_tile<PAIR_DT, PAIR_LD>(acc[NCHAIN - 1], s[NCHAIN - 1], Vs, g, t4);
-}
-
-template <int NCHAIN, int FIRST>
-__device__ __forceinline__ void pair_masked(float acc[NCHAIN][PAIR_DT][4], float m[NCHAIN][2],
-                                            float l[NCHAIN][2], const __nv_bfloat16* Qs,
-                                            const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
-                                            float sc, int kv0, int rows[NCHAIN][2],
-                                            int Skv, int wr, int g, int t4, int first) {
-  if constexpr (FIRST + 1 < NCHAIN) {
-    if (first > FIRST) {
-      pair_masked<NCHAIN, FIRST + 1>(acc, m, l, Qs, Ks, Vs, sc, kv0, rows, Skv, wr, g, t4, first);
-      return;
-    }
-  }
-  pair_tile<NCHAIN, true, FIRST>(acc, m, l, Qs, Ks, Vs, sc, kv0, rows, Skv, wr, g, t4);
-}
-
-template <int NCHAIN>
-__global__ void __launch_bounds__(XTHREADS)
-flash_pair_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
-                  int Skv, int H, float scale) {
-  constexpr int D = PAIR_D, LD = PAIR_LD, ROWS = NCHAIN * XBQ;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + ROWS * LD;
-  __nv_bfloat16* Vs = Ks + XBKV * LD;
-
-  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3, wr = warp * 16;
-  const long long str = (long long)H * D;
-  const long long qbase = (long long)b * Sq * str + (long long)h * D;
-  const long long kvbase = (long long)b * Skv * str + (long long)h * D;
-
-  load_tile_bf16<D, LD, XTHREADS>(Qs, q + qbase + q0 * str, str, ROWS, Sq - q0);
-  int rows[NCHAIN][2];
-  float acc[NCHAIN][PAIR_DT][4] = {};
-  float m[NCHAIN][2], l[NCHAIN][2];
-#pragma unroll
-  for (int c = 0; c < NCHAIN; ++c) {
-    rows[c][0] = q0 + c * XBQ + wr + g;
-    rows[c][1] = rows[c][0] + 8;
-    m[c][0] = m[c][1] = -INFINITY;
-    l[c][0] = l[c][1] = 0.f;
-  }
-  const float sc = scale * LOG2E;
-  const int kv_end = min(Skv, q0 + ROWS);  // causal only
-  for (int kv0 = 0; kv0 < kv_end; kv0 += XBKV) {
-    __syncthreads();
-    load_tile_bf16<D, LD, XTHREADS>(Ks, k + kvbase + kv0 * str, str, XBKV, Skv - kv0);
-    load_tile_bf16<D, LD, XTHREADS>(Vs, v + kvbase + kv0 * str, str, XBKV, Skv - kv0);
-    __syncthreads();
-    if (kv0 + XBKV <= Skv && kv0 < q0)
-      pair_tile<NCHAIN, false, 0>(acc, m, l, Qs, Ks, Vs, sc, kv0, rows, Skv, wr, g, t4);
-    else  // the diagonal tile of chain `first` (chains below it are done), or the ragged end
-      pair_masked<NCHAIN, 0>(acc, m, l, Qs, Ks, Vs, sc, kv0, rows, Skv, wr, g, t4,
-                             kv0 < q0 ? 0 : (kv0 - q0) / XBQ);
-  }
-#pragma unroll
-  for (int c = 0; c < NCHAIN; ++c) {
-    quad_sum(l[c]);
-    store_rows<D>(o, acc[c], l[c], rows[c], Sq, str, qbase, t4);
-  }
-}
-
 // --- K16: the pipelined KV loop ---------------------------------------------
 //
 // The mma.sync form of FA3's intra-warpgroup overlap: at step j the scores
@@ -549,8 +333,8 @@ __device__ __forceinline__ void pipelined_softmax_pv(float s[NT][4], float acc[D
                                                      const __nv_bfloat16* Vs, int g, int t4) {
   float alpha[2], base[2];
   if (MASKED) mask_tile(s, kv0, rows, S, causal, t4);
-  softmax_stats<MASKED, true>(s, m, l, alpha, base, sc);
-  exp_tiles<true>(s, l, base, sc);
+  softmax_stats<MASKED>(s, m, l, alpha, base, sc);
+  exp_tiles(s, l, base, sc);
   rescale<D / 8>(acc, alpha);
   pv_tile<D / 8, D + 8>(acc, s, Vs, g, t4);
 }
@@ -643,8 +427,8 @@ flash_pipelined_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 // and 4 (83 and 157 KB), D 128 at U 2 (157 KB). D 128 at U 4 holds one
 // (157 KB, one CTA a SM) and copies the next chunk after the last tile.
 // Bound as K1 (at D 64 the softmax stream, ~41 us against the tensor
-// cores' ~26 at B4 S2048 H12 causal): a tile's per-score work is the
-// control's (K15 at nchain 1); the chunk only thins the copies and
+// cores' ~26 at B4 S2048 H12 causal): a tile's per-score work is K16's
+// fp32 body's; the chunk only thins the copies and
 // barriers around it, and its shared memory sets how many CTAs share a SM.
 constexpr int SMEM_LIMIT = 232448;
 
@@ -985,16 +769,6 @@ cudaError_t run_fixedmax(const void* q, const void* k, const void* v, void* o, c
                   static_cast<bf16p>(v), static_cast<__nv_bfloat16*>(o), fm, S, H, scale, causal);
 }
 
-template <int NCHAIN>
-cudaError_t run_pair(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                     int Skv, int H, float scale, cudaStream_t st) {
-  const dim3 grid((Sq + NCHAIN * XBQ - 1) / (NCHAIN * XBQ), H, B);
-  const int smem = (NCHAIN * XBQ + 2 * XBKV) * PAIR_LD * (int)sizeof(__nv_bfloat16);
-  return launch_k(flash_pair_kernel<NCHAIN>, grid, smem, st, static_cast<bf16p>(q),
-                  static_cast<bf16p>(k), static_cast<bf16p>(v), static_cast<__nv_bfloat16*>(o),
-                  Sq, Skv, H, scale);
-}
-
 template <int D, typename T>
 cudaError_t run_pipelined(const void* q, const void* k, const void* v, void* o, int B, int S,
                           int Hq, int Hkv, float scale, int causal, cudaStream_t st) {
@@ -1068,33 +842,6 @@ extern "C" int pfa_flash_fixedmax(const void* q, const void* k, const void* v, v
   const float* m = static_cast<const float*>(fm);
   if (D == 64) return run_fixedmax<64>(q, k, v, o, m, B, S, H, sm_scale, causal, fast_exp, st);
   if (D == 128) return run_fixedmax<128>(q, k, v, o, m, B, S, H, sm_scale, causal, fast_exp, st);
-  return cudaErrorInvalidValue;
-}
-
-// K14. q (B, Sq, H, 64), k/v (B, Skv, H, 64), o like q, bf16; causal.
-extern "C" int pfa_flash_aug(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                             int Skv, int H, int D, float sm_scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || D != AUG_D) return cudaErrorInvalidValue;
-  const dim3 grid((Sq + XBQ - 1) / XBQ, H, B);
-  const int smem = (XBQ + 2 * XBKV) * AUG_LD * (int)sizeof(__nv_bfloat16);
-  return launch_k(flash_aug_kernel, grid, smem, static_cast<cudaStream_t>(stream),
-                  static_cast<bf16p>(q), static_cast<bf16p>(k), static_cast<bf16p>(v),
-                  static_cast<__nv_bfloat16*>(o), Sq, Skv, H, sm_scale);
-}
-
-// K15. As K14, with nchain chains of 64 rows a block.
-extern "C" int pfa_flash_pair(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                              int Skv, int H, int D, float sm_scale, int nchain, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || D != PAIR_D) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nchain == 1) return run_pair<1>(q, k, v, o, B, Sq, Skv, H, sm_scale, st);
-  if (nchain == 2) return run_pair<2>(q, k, v, o, B, Sq, Skv, H, sm_scale, st);
-#if PFA_PAIR_NCHAIN_MAX >= 3
-  if (nchain == 3) return run_pair<3>(q, k, v, o, B, Sq, Skv, H, sm_scale, st);
-#endif
-#if PFA_PAIR_NCHAIN_MAX >= 4
-  if (nchain == 4) return run_pair<4>(q, k, v, o, B, Sq, Skv, H, sm_scale, st);
-#endif
   return cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,16 @@
-// K16-K19 (bf16): the pipelined, chunked-staging, one-launch-per-row-block
-// and full-triangle experiments of the flash forward, redesigned for Hopper
-// (sm_90a): TMA loads, wgmma products and warp specialisation, K1's design
-// (flash_fwd_sm90.cu) with each experiment's own lever kept.
+// K14-K19 (bf16): the augmented-V, paired-chain, pipelined, chunked-staging,
+// one-launch-per-row-block and full-triangle experiments of the flash
+// forward, redesigned for Hopper (sm_90a): TMA loads, wgmma products and
+// warp specialisation, K1's design (flash_fwd_sm90.cu) with each
+// experiment's own lever kept. One body (x_body) serves all of them through
+// three kernels: flash_exp_sm90<D, U> (K16-K19), flash_aug_sm90 (K14) and
+// flash_pair_sm90<nchain> (K15).
 //
-// Replace, in bf16, the TPU kernels benchmarks/flash_pipeline_experiment.py::
+// Replace, in bf16, the TPU kernels benchmarks/flash_aug_experiment.py::
+// _aug_kernel (K14: V augmented with a ones column, so the P V product also
+// yields l, the sum of the bf16 p), benchmarks/flash_pair_experiment.py::
+// _pair_kernel (K15: nchain q blocks, each its own online softmax against
+// the same staged K/V tile), benchmarks/flash_pipeline_experiment.py::
 // _kernel (K16: the KV loop pipelined so QK(j+1) is issued before
 // softmax(j)), ::_kernel_chunked (K17: the KV loop in chunks of `unroll`
 // tiles, one chunk a grid step, dead chunks skipped whole when causal),
@@ -11,10 +18,14 @@
 // ::_kernel_fulltri (K19: grid (b, h), every q row-block of a head and its
 // causal kv tiles in one body). They take the place of the mma.sync bodies
 // of flash_experiments.cu (4 warps, 64 rows, cp.async copies by every
-// thread, a __syncthreads a tile or chunk), which keep the fp32 inputs (TMA
-// cannot convert on load) and K18's int8-QK mode. The contract is the
-// experiments' (that file's header): causal `col <= row` on square shapes,
-// GQA, p rounded to bf16 for P.V, fp32 sums, the output in bf16.
+// thread, a __syncthreads a tile or chunk), which keep K16-K19's fp32
+// inputs (TMA cannot convert on load) and K18's int8-QK mode; K14's and
+// K15's are gone. The contract is the experiments' (that file's header):
+// causal `col <= row` on square shapes (K14/K15: Sq and Skv apart, no
+// GQA), GQA, p rounded to bf16 for P.V, fp32 sums, the output in bf16.
+// K14 and K15 scale q by d^-0.5 in bf16 before Q K^T in JAX; at D 64 that
+// scale is 2^-3, exact in bf16, so the scale folded into the exponent
+// here is the same function.
 //
 // What bounds them on the H100: K1's work, so at D 64 and 128 over S 2k-8k
 // the tensor cores and, at D 64, the softmax's FP32/MUFU stream beside them
@@ -86,6 +97,36 @@
 // the one ahead of it, and whatever the stream runs after the call (a
 // plain launch) sees every row. Only U = 1 holds the griddepcontrol
 // instructions (XCfg::PDL; a no-op for K16's single launch).
+// K14 (flash_aug_sm90): K16's instantiation at D 64 with the row sum moved
+// onto the tensor cores. After each tile's Q K^T the softmax keeps its max
+// and alpha but adds nothing into l (softmax_rows<..., SUM = false>); with
+// the tile's P V, in the same wgmma group, one RS wgmma of N = 8 a key step
+// multiplies the same bf16 P by a constant 16 x 8 block in shared memory
+// whose column 0 is ones (256 bytes, no swizzle, written once by consumer
+// threads before the first barrier, behind a proxy fence; TMA never loads
+// it). Its 4 accumulator floats a thread hold l for the thread's rows in
+// column 0 (lane t4 == 0 of each quad), rescaled by alpha with O; one
+// __shfl_sync a row hands l to the quad at the store. l is the fp32 sum of
+// the bf16-rounded p, as JAX's product and the plain version have it. What
+// it buys: the FADD a score of the softmax's FP32 stream (about one of its
+// ~7.5 CUDA-core instructions a score, the stream that sets K1's ceiling at
+// D 64) for 1/8 more tensor-core work on P V.
+// K15 (flash_pair_sm90<nchain>, nchain 1-4): a chain is one consumer
+// warpgroup of 64 rows, a work tile nchain of them, and one TMA fill of a
+// K/V stage serves every chain. The chains take turns at the tensor cores
+// round robin (named barriers 1..nchain: FA3's ping-pong over nchain
+// warpgroups), so one chain's exps run beside another's products; nchain
+// 1 is one consumer warpgroup with no turns, the control. Each chain stops
+// at its own diagonal (min(ceil((q0 + 64 c + 64) / tile), n) tiles; the
+// producer loads the work tile's n, its last chain's); past it a chain
+// issues no product but still takes and hands on its turn and arrives on
+// each stage's "empty" barrier, so every named-barrier wait meets its
+// arrival and the ring stays in step (the turns keep the chains within a
+// turn of each other, far inside the ring). The CTA grows with nchain, so
+// CONSUMERS, THREADS and the setmaxnreg split are the instantiation's
+// (PAIR_*): at 512 and 640 threads a thread starts with 128 and 96
+// registers, and the consumers get 160 and 112, the widest key tile that
+// fits them with no spill being 128 keys at nchain 1-3 and 64 at 4.
 // Not done: a TMA store of O, a cluster or split head for K19 (the
 // function measured is one CTA a head).
 
@@ -97,73 +138,103 @@
 
 namespace {
 
-constexpr int BQ = 128;       // query rows a work tile: CONSUMERS warpgroups x 64
-constexpr int CONSUMERS = 2;  // consumer warpgroups
-constexpr int THREADS = 128 * (CONSUMERS + 1);
-constexpr int MAX_QB = 512;   // q-blocks a head in the walk: S <= 65536
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 24 + 2 x 240 = 3 x 168
+constexpr int MAX_QB = 512;       // q-blocks a head in the walk: S <= 65536 (K15 nchain 1: 32768)
+constexpr int MAX_KEYS = 65536;   // K14/K15's Skv: at most 1024 tiles of 64 keys
 
 // Dynamic shared memory of a ring of `stages`: Q double-buffered, K and V
-// `stages` blocks each, the mbarriers, 1024 bytes of alignment slack.
-__host__ __device__ constexpr int x_smem(int q_bytes, int kv_bytes, int stages) {
-  return 2 * q_bytes + 2 * stages * kv_bytes + 8 * (2 * stages + 4) + 1024;
+// `stages` blocks each, K14's ones block, the mbarriers, 1024 bytes of
+// alignment slack.
+__host__ __device__ constexpr int x_smem(int q_bytes, int kv_bytes, int stages, int ones = 0) {
+  return 2 * q_bytes + 2 * stages * kv_bytes + ones + 8 * (2 * stages + 4) + 1024;
 }
-__host__ __device__ constexpr int x_max_stages(int q_bytes, int kv_bytes) {
+__host__ __device__ constexpr int x_max_stages(int q_bytes, int kv_bytes, int ones = 0) {
   int s = 0;
-  while (x_smem(q_bytes, kv_bytes, s + 1) <= SMEM_MAX) ++s;
+  while (x_smem(q_bytes, kv_bytes, s + 1, ones) <= SMEM_MAX) ++s;
   return s;
 }
 
+// Which experiment an instantiation is: K16-K19 (told apart by U), K14 or K15.
+enum XKind { PIPELINE = 0, AUG = 14, PAIR = 15 };
+
+// K15 at nchain 1-4: the key tile (the widest whose consumer fits its
+// register share with no spill, nvcc -Xptxas -v) and the setmaxnreg split.
+// A CTA of 128 (nchain + 1) threads is launched with at most 65536 / that
+// registers a thread (255, 168, 128, 96), and the split moves registers
+// inside that allocation: producer + nchain x consumer <= 512, 504, 512, 480.
+constexpr int PAIR_BKV[5] = {0, 128, 128, 128, 64};
+constexpr int PAIR_PRODUCER_REGS[5] = {0, 56, 24, 32, 24};
+constexpr int PAIR_CONSUMER_REGS[5] = {0, 256, 240, 160, 112};
+
 // U = 0: K19 (one tile of K1's width a stage, one CTA per (b, h)); U = 1:
 // K16 and K18 (the same stage on the persistent grid); U in {2, 4}: K17 (U
-// 64-key tiles a stage).
-template <int D, int U>
+// 64-key tiles a stage). KIND AUG: K14, U = 1's instantiation with the row
+// sum taken by a ones column's product; KIND PAIR: K15, NCHAIN consumer
+// warpgroups (chains) on U = 1's stage, each chain to its own diagonal.
+template <int D_, int U, int KIND = PIPELINE, int NCHAIN = 2>
 struct XCfg {
+  static constexpr int D = D_;
+  static constexpr bool IS_AUG = KIND == AUG;
+  static constexpr bool IS_PAIR = KIND == PAIR;
+  static constexpr bool XKV = KIND != PIPELINE;  // Skv may differ from Sq
+  static constexpr int CONSUMERS = IS_PAIR ? NCHAIN : 2;  // consumer warpgroups
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int BQ = 64 * CONSUMERS;  // query rows a work tile
+  static constexpr int PRODUCER_REGS = IS_PAIR ? PAIR_PRODUCER_REGS[NCHAIN] : 24;
+  static constexpr int CONSUMER_REGS = IS_PAIR ? PAIR_CONSUMER_REGS[NCHAIN] : 240;
   static constexpr bool FULLTRI = U == 0;
   static constexpr bool WIDE = U <= 1;  // a stage is one tile of K1's width
-  static constexpr int BKV = WIDE ? (D == 128 ? 96 : 128) : 64;  // keys a tile
+  static constexpr int BKV = IS_PAIR ? PAIR_BKV[NCHAIN] : WIDE ? (D == 128 ? 96 : 128) : 64;
   static constexpr int TILES = WIDE ? 1 : U;                     // tiles a stage
   static constexpr int SPAN = BKV * TILES;                          // keys a stage
   static constexpr int HALVES = D / 64;  // 128-byte column boxes a row
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = SPAN * D * 2;  // K or V, one stage; a multiple of 1024
-  static constexpr int STAGES = x_max_stages(Q_BYTES, KV_BYTES);  // the ring's depth
+  // K14's B operand of the ones product: two 8 x 16-byte core matrices.
+  static constexpr int ONES_BYTES = IS_AUG ? 256 : 0;
+  static constexpr int STAGES = x_max_stages(Q_BYTES, KV_BYTES, ONES_BYTES);  // the ring's depth
   // The next chunk's Q K^T issued before this chunk's last P V: the
   // consumers then hold two stages.
   static constexpr bool CROSS = STAGES >= 2;
   // The warpgroups' turns at the tensor cores: on only where they paid
-  // (PERF.md, the K16-K19 lever tables): K17 at D 128, K16/K18 at D 64.
-  static constexpr bool PINGPONG = (U >= 2 && D == 128) || (U == 1 && D == 64);
+  // (PERF.md, the K16-K19 lever tables): K17 at D 128, K16/K18 (and K14,
+  // their instantiation) at D 64; K15's chains always take turns, round
+  // robin, where there is more than one.
+  static constexpr bool PINGPONG =
+      IS_PAIR ? NCHAIN >= 2 : (U >= 2 && D == 128) || (U == 1 && D == 64);
   // K18's launches chain (griddepcontrol; a no-op for K16's single launch).
-  static constexpr bool PDL = U == 1;
+  static constexpr bool PDL = U == 1 && KIND == PIPELINE;
 };
+
+using AugCfg = XCfg<64, 1, AUG>;
+template <int NCHAIN>
+using PairCfg = XCfg<64, 1, PAIR, NCHAIN>;
 
 struct XParams {
   __nv_bfloat16* o;
-  int B, S, Hq, Hkv;
+  int B, S, Hq, Hkv;  // S: the query rows (K14/K15: Sq)
   int n_work;  // work tiles: q-blocks x Hq x B
-  int nqb;     // q-blocks of 128 rows a head in the walk
+  int nqb;     // q-blocks of BQ rows a head in the walk
   float scale;  // sm_scale * log2 e
   int causal;
   // The plan's walk: entry i is the i-th q-block taken (K19: a CTA's i-th
-  // round; K16-K18: the work tiles t with t / (Hq B) == i), as its first
-  // row << 11 | its chunks of keys (at most 512).
+  // round; K14-K18: the work tiles t with t / (Hq B) == i), as its first
+  // row << 11 | its chunks of keys (at most 1024).
   int walk[MAX_QB];
   int row_end;  // rows from here on are not stored (K18: its row-block's end; else S)
+  int Skv;      // the keys (K16-K19: S)
 };
 
-// One work tile: 128 query rows of one (batch row, head) and the chunks
+// One work tile: BQ query rows of one (batch row, head) and the chunks
 // (K19: tiles) of keys its rows can see.
 struct XWork {
   int h, b, q0, n_chunks;
 };
 
 // This CTA's n-th work tile; false where the last round has none. K19: the
-// CTA's head, the walk's n-th q-block; K16-K18: K1's snake order over
+// CTA's head, the walk's n-th q-block; K14-K18: K1's snake order over
 // (heads, batch rows, the walk's q-blocks).
-template <int D, int U>
+template <class C>
 __device__ __forceinline__ bool x_work(const XParams& p, int n, XWork& w) {
-  using C = XCfg<D, U>;
   int i = n;
   if constexpr (C::FULLTRI) {
     w.h = blockIdx.x % p.Hq;
@@ -182,7 +253,8 @@ __device__ __forceinline__ bool x_work(const XParams& p, int n, XWork& w) {
 }
 
 // The raw scores of one tile, in place, with MASKED the per-score predicate
-// (-inf past S or, causal, above the row); mx gets this thread's row maxima.
+// (-inf past the keys or, causal, above the row); mx gets this thread's row
+// maxima.
 template <int BKV, bool MASKED>
 __device__ __forceinline__ void tile_max(float* sc, float (&mx)[2], int kv0, int row0, int t4,
                                          int S, int causal) {
@@ -210,6 +282,17 @@ struct Flag {
   static constexpr bool value = V;
 };
 
+// K14's l += P 1 over one tile: the ones block (no_swizzle_desc) as the B
+// operand of each key step, N = 8, issued just before the tile's P V and
+// committed with it, so the two are one wgmma group and the body's group
+// counts hold.
+template <int BKV>
+__device__ __forceinline__ void ones_tile(float (&o_aug)[4], uint32_t (&pa)[BKV / 16][4],
+                                          uint64_t ones_desc) {
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk) wgmma_rs_n8(o_aug, pa[kk], ones_desc);
+}
+
 // Programmatic dependent launch: the next launch of the stream may start
 // its CTAs once every CTA of this one has issued launch_dependents; wait
 // returns once the launch ahead of this one has completed and its writes
@@ -221,18 +304,19 @@ __device__ __forceinline__ void pdl_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-template <int D, int U>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ XParams p) {
-  using C = XCfg<D, U>;
-  constexpr int BKV = C::BKV, TILES = C::TILES, SPAN = C::SPAN;
+// The body every instantiation runs: the kernels below differ only in C.
+template <class C>
+__device__ __forceinline__ void x_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                       const CUtensorMap& tm_v, const XParams& p) {
+  constexpr int D = C::D, BKV = C::BKV, TILES = C::TILES, SPAN = C::SPAN;
+  constexpr int CONSUMERS = C::CONSUMERS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms need 1024-byte alignment
   constexpr int stages = C::STAGES;
   const uint32_t off_k = 2 * C::Q_BYTES, off_v = off_k + stages * C::KV_BYTES;
-  const uint32_t bar_full = base + off_v + stages * C::KV_BYTES, bar_empty = bar_full + 8 * stages;
+  const uint32_t ones = base + off_v + stages * C::KV_BYTES;  // K14's ones block
+  const uint32_t bar_full = ones + C::ONES_BYTES, bar_empty = bar_full + 8 * stages;
   const uint32_t bar_qfull = bar_empty + 8 * stages, bar_qempty = bar_qfull + 16;
   const int rounds = C::FULLTRI ? p.nqb : (p.n_work + gridDim.x - 1) / gridDim.x;
   if constexpr (C::PDL) pdl_launch_dependents();
@@ -248,6 +332,16 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (C::IS_AUG) {
+    // K14's B operand, written once and never loaded: 16 keys x 8 columns,
+    // K-major, column 0 ones (bf16 0x3F80), in two 8 x 16-byte core
+    // matrices (keys 0-7 and 8-15) whose row 0 is ones and rows 1-7 zero;
+    // every key step of every tile reads the same block.
+    if (threadIdx.x < 64)
+      reinterpret_cast<uint32_t*>(smem_raw + (ones - raw))[threadIdx.x] =
+          (threadIdx.x & 31) < 4 ? 0x3F803F80u : 0u;
+    fence_proxy_async();  // visible to the wgmma that read it
+  }
   __syncthreads();
 
   // Warp-uniform in the compiler's eyes (a shuffled value): the roles'
@@ -256,13 +350,13 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   const int warp = __shfl_sync(0xffffffffu, (threadIdx.x / 32) % 4, 0), lane = threadIdx.x % 32;
   if (wg == CONSUMERS) {
     // --- producer: its first warp issues every load -------------------------
-    setmaxnreg_dec<PRODUCER_REGS>();
+    setmaxnreg_dec<C::PRODUCER_REGS>();
     if (warp != 0) return;
     int st = 0;        // the ring's stage, over all work tiles
     uint32_t ph = 0;   // and its phase
     for (int n = 0; n < rounds; ++n) {
       XWork w;
-      if (!x_work<D, U>(p, n, w)) continue;  // the last round only
+      if (!x_work<C>(p, n, w)) continue;  // the last round only
       const int hk = w.h / (p.Hq / p.Hkv);
       const uint32_t qf = bar_qfull + 8 * (n & 1);
       mbar_wait(bar_qempty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
@@ -273,6 +367,8 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
             tma_load_4d(base + (n & 1) * C::Q_BYTES + (r * C::HALVES + hf) * BOX_BYTES, &tm_q, qf,
                         hf * 64, w.h, w.q0 + r * 64, w.b);
       }
+      // K15: the work tile's tiles are its last chain's; each chain runs a
+      // prefix of them.
       for (int c = 0; c < w.n_chunks; ++c) {
         const uint32_t full = bar_full + 8 * st;
         mbar_wait(bar_empty + 8 * st, ph ^ 1);
@@ -291,52 +387,67 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     }
   } else {
     // --- consumers: 64 query rows each ---------------------------------------
-    setmaxnreg_inc<CONSUMER_REGS>();
+    setmaxnreg_inc<C::CONSUMER_REGS>();
     constexpr int NS = BKV / 2, NO = D / 2;  // accumulator floats a thread
     const int g = lane / 4, t4 = lane % 4;
     constexpr bool pp = C::PINGPONG;
     // Ping-pong: named barrier 1 + wg is this warpgroup's turn to issue its
-    // products; warpgroup 0 goes first in each work tile, and the last turn
-    // of warpgroup 1 hands nothing on, so every wait has its arrival.
+    // products, handed on round robin; warpgroup 0 goes first in each work
+    // tile, and the last turn of the last warpgroup hands nothing on, so
+    // every wait has its arrival. Each warpgroup takes the same number of
+    // turns in a work tile (K15: a chain past its diagonal too, with no
+    // product).
     auto turn_begin = [&] {
       if constexpr (pp) named_bar_sync(1 + wg, 2 * 128);
     };
     auto turn_end = [&](bool last) {
-      if constexpr (pp)
-        if (wg == 0 || !last) named_bar_arrive(2 - wg, 2 * 128);
+      if constexpr (pp) {
+        const bool next = wg + 1 < CONSUMERS;
+        if (next || !last) named_bar_arrive(next ? wg + 2 : 1, 2 * 128);
+      }
     };
     auto release = [&](uint32_t bar) {  // this warp is done with what `bar` guards
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
     };
-    float sc[NS], o_acc[NO];
+    // K14: column 0 of o_aug (lane t4 == 0 of a quad) gathers l, the sum of
+    // the bf16 P of the thread's rows, rescaled by alpha with O.
+    const uint64_t ones_desc = no_swizzle_desc(ones, 128, 128);
+    float sc[NS], o_acc[NO], o_aug[4];
     uint32_t pa[BKV / 16][4];
     int st = 0;       // the ring's stage, over all work tiles
     uint32_t ph = 0;  // and its phase
     for (int n = 0; n < rounds; ++n) {
       XWork w;
-      if (!x_work<D, U>(p, n, w)) continue;  // the last round only
+      if (!x_work<C>(p, n, w)) continue;  // the last round only
       const int q0 = w.q0, nc = w.n_chunks;
       const int wrow = q0 + wg * 64;          // the warpgroup's first row
       const int row0 = wrow + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+      // K15: this chain's tiles, up to its own diagonal (nc: the last chain's).
+      int own = nc;
+      if constexpr (C::IS_PAIR) own = min((wrow + 64 + BKV - 1) / BKV, nc);
       const uint32_t q_base = base + (n & 1) * C::Q_BYTES + wg * C::HALVES * BOX_BYTES;
 #pragma unroll
       for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
+      if constexpr (C::IS_AUG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o_aug[i] = 0.f;
+      }
       float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
       float l[2] = {0.f, 0.f};              // this thread's share of the running sum
       mbar_wait(bar_qfull + 8 * (n & 1), (n >> 1) & 1);
       if constexpr (pp)
-        if (wg == 1) named_bar_arrive(1, 2 * 128);  // every work tile has a chunk
+        if (wg == CONSUMERS - 1) named_bar_arrive(1, 2 * 128);  // every work tile has a chunk
 
       auto k_at = [&](int s, int u) { return base + off_k + s * C::KV_BYTES + u * BKV * 128; };
       auto v_at = [&](int s, int u) { return base + off_v + s * C::KV_BYTES + u * BKV * 128; };
       auto softmax = [&](int kv0, float (&alpha)[2]) {  // tile kv0's scores in sc to P
         float mx[2] = {-INFINITY, -INFINITY};
-        if (kv0 + BKV > p.S || (p.causal && kv0 + BKV - 1 > wrow))
-          tile_max<BKV, true>(sc, mx, kv0, row0, t4, p.S, p.causal);
+        if (kv0 + BKV > p.Skv || (p.causal && kv0 + BKV - 1 > wrow))
+          tile_max<BKV, true>(sc, mx, kv0, row0, t4, p.Skv, p.causal);
         else
-          tile_max<BKV, false>(sc, mx, kv0, row0, t4, p.S, p.causal);
-        softmax_rows<NS, false>(sc, mx, m, l, alpha, p.scale);
+          tile_max<BKV, false>(sc, mx, kv0, row0, t4, p.Skv, p.causal);
+        softmax_rows<NS, false, !C::IS_AUG>(sc, mx, m, l, alpha, p.scale);
       };
       // Tile u of stage st holds its P in pa: issue the next tile's Q K^T
       // (tile u + 1 of this stage, or with CROSS tile 0 of the next stage,
@@ -353,6 +464,7 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
           turn_begin();
           wgmma_fence();
           qk_tile<D, BKV, SPAN>(sc, q_base, k_at(sn, cross ? 0 : u + 1));
+          if constexpr (C::IS_AUG) ones_tile<BKV>(o_aug, pa, ones_desc);
           pv_tile<D, BKV, SPAN>(o_acc, pa, v_at(st, u));
           turn_end(false);
           wgmma_wait<1>();
@@ -360,16 +472,19 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
           softmax(kv0_next, alpha);
           wgmma_wait<0>();
           fence_regs(o_acc);
+          if constexpr (C::IS_AUG) fence_regs(o_aug);
           if constexpr (cross) release(bar_empty + 8 * st);
         } else {
           // One stage: this chunk's last P V, the stage freed, then the
           // next chunk's Q K^T once it has landed.
           turn_begin();
           wgmma_fence();
+          if constexpr (C::IS_AUG) ones_tile<BKV>(o_aug, pa, ones_desc);
           pv_tile<D, BKV, SPAN>(o_acc, pa, v_at(st, u));
           turn_end(false);
           wgmma_wait<0>();
           fence_regs(o_acc);
+          if constexpr (C::IS_AUG) fence_regs(o_aug);
           release(bar_empty + 8 * st);
           mbar_wait(bar_full + 8 * sn, phn);
           turn_begin();
@@ -382,6 +497,10 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         }
 #pragma unroll
         for (int i = 0; i < NO; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+        if constexpr (C::IS_AUG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o_aug[i] *= alpha[(i >> 1) & 1];
+        }
         pack_frag<BKV>(pa, sc);
         if constexpr (cross) st = sn, ph = phn;
       };
@@ -399,28 +518,49 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         softmax(0, alpha);
       }
       pack_frag<BKV>(pa, sc);
-      for (int c = 0; c + 1 < nc; ++c) {
+      for (int c = 0; c + 1 < own; ++c) {
 #pragma unroll
         for (int u = 0; u + 1 < TILES; ++u) step(u, Flag<false>{}, c * SPAN + (u + 1) * BKV);
         step(TILES - 1, Flag<true>{}, (c + 1) * SPAN);
       }
 #pragma unroll
-      for (int u = 0; u + 1 < TILES; ++u) step(u, Flag<false>{}, (nc - 1) * SPAN + (u + 1) * BKV);
+      for (int u = 0; u + 1 < TILES; ++u) step(u, Flag<false>{}, (own - 1) * SPAN + (u + 1) * BKV);
       // The last tile's P V.
       turn_begin();
       wgmma_fence();
+      if constexpr (C::IS_AUG) ones_tile<BKV>(o_aug, pa, ones_desc);
       pv_tile<D, BKV, SPAN>(o_acc, pa, v_at(st, TILES - 1));
-      turn_end(true);
+      turn_end(!C::IS_PAIR || own == nc);
       wgmma_wait<0>();
       fence_regs(o_acc);
+      if constexpr (C::IS_AUG) fence_regs(o_aug);
       release(bar_empty + 8 * st);
       if (++st == stages) st = 0, ph ^= 1;
+      if constexpr (C::IS_PAIR) {
+        // K15: the tiles past this chain's diagonal, which the later chains
+        // run: no product, but the turn taken and handed on and the stage
+        // released, so the others' turns and the producer's waits meet
+        // their arrivals (the turns keep the chains within one turn of each
+        // other, far inside the ring).
+        for (int c = own; c < nc; ++c) {
+          turn_begin();
+          turn_end(c + 1 == nc);
+          release(bar_empty + 8 * st);
+          if (++st == stages) st = 0, ph ^= 1;
+        }
+      }
       release(bar_qempty + 8 * (n & 1));
 
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        if constexpr (C::IS_AUG) {
+          // l sits in column 0 of the ones product: lane t4 == 0 of the
+          // quad holds it for the quad's rows; one shuffle a row.
+          l[i] = __shfl_sync(0xffffffffu, o_aug[2 * i], lane & ~3);
+        } else {
+          l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+          l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        }
         const int row = row0 + 8 * i;
         if (row >= p.row_end) continue;
         const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
@@ -435,48 +575,86 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   }
 }
 
+// K16-K19: flash_exp_sm90<D, U>.
+template <int D, int U>
+__global__ void __launch_bounds__(XCfg<D, U>::THREADS, 1)
+flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ XParams p) {
+  x_body<XCfg<D, U>>(tm_q, tm_k, tm_v, p);
+}
+
+// K14 (D 64).
+__global__ void __launch_bounds__(AugCfg::THREADS, 1)
+flash_aug_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ XParams p) {
+  x_body<AugCfg>(tm_q, tm_k, tm_v, p);
+}
+
+// K15 at NCHAIN chains (D 64).
+template <int NCHAIN>
+__global__ void __launch_bounds__(PairCfg<NCHAIN>::THREADS, 1)
+flash_pair_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ XParams p) {
+  x_body<PairCfg<NCHAIN>>(tm_q, tm_k, tm_v, p);
+}
+
 // --- host side -------------------------------------------------------------------
 
-// The launch a plan describes: rows [row0, row0 + rows) of S (K18: its
-// row-block; else all of S); its tile width, stages, shared memory and grid
-// must be this file's (K19's grid B x Hq, else at most the work tiles), and
-// its walk (q0, chunks) x ceil(rows / 128) must name q-blocks that start at
-// row0 + 128 i inside the rows, with 1 to all of S's chunks each, else
+// setmaxnreg moves registers inside the CTA's allocation at launch: the
+// split must fit it (THREADS x the kernel's registers), the consumers'
+// count must not be below it and the producer's not above it, or a
+// setmaxnreg.inc would wait for ever. Read once an instantiation.
+template <class C, class Kernel>
+bool x_regs_fit(Kernel kernel) {
+  static const int regs = [kernel] {
+    cudaFuncAttributes a;
+    return cudaFuncGetAttributes(&a, kernel) == cudaSuccess ? a.numRegs : 0;
+  }();
+  return C::PRODUCER_REGS <= regs && regs <= C::CONSUMER_REGS &&
+         C::THREADS * regs >= 128 * (C::PRODUCER_REGS + C::CONSUMERS * C::CONSUMER_REGS);
+}
+
+// The launch a plan describes: rows [row0, row0 + rows) of S query rows
+// against Skv keys (K18: its row-block; else all of S; Skv == S but for
+// K14/K15); its tile width, stages, shared memory and grid must be this
+// instantiation's (K19's grid B x Hq, else at most the work tiles), and
+// its walk (q0, chunks) x ceil(rows / BQ) must name q-blocks that start at
+// row0 + BQ i inside the rows, with 1 to all of Skv's chunks each, else
 // cudaErrorInvalidValue. `chained`: a programmatic dependent launch (K18).
-template <int D, int U>
-cudaError_t x_launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
-                     int Hkv, float sm_scale, int causal, int row0, int rows, bool chained,
-                     int tile_keys, int stages, int smem, int grid, const int* walk,
-                     cudaStream_t stream) {
-  using C = XCfg<D, U>;
-  const long long nqb = (rows + BQ - 1LL) / BQ, work = nqb * Hq * B;
+template <class C, class Kernel>
+cudaError_t x_launch(Kernel kernel, const void* q, const void* k, const void* v, void* o, int B,
+                     int S, int Skv, int Hq, int Hkv, float sm_scale, int causal, int row0,
+                     int rows, bool chained, int tile_keys, int stages, int smem, int grid,
+                     const int* walk, cudaStream_t stream) {
+  const long long nqb = (rows + C::BQ - 1LL) / C::BQ, work = nqb * Hq * B;
   if (tile_keys != C::BKV || stages != C::STAGES ||
-      smem != x_smem(C::Q_BYTES, C::KV_BYTES, C::STAGES) || S > MAX_QB * BQ || row0 < 0 ||
-      rows < 1 || (long long)row0 + rows > S || nqb > MAX_QB || work > INT_MAX ||
-      (C::FULLTRI ? (long long)grid != (long long)B * Hq : (grid < 1 || grid > work)))
+      smem != x_smem(C::Q_BYTES, C::KV_BYTES, C::STAGES, C::ONES_BYTES) ||
+      S > MAX_QB * C::BQ || Skv < 1 || Skv > (C::XKV ? MAX_KEYS : S) || row0 < 0 || rows < 1 ||
+      (long long)row0 + rows > S || nqb > MAX_QB || work > INT_MAX ||
+      (C::FULLTRI ? (long long)grid != (long long)B * Hq : (grid < 1 || grid > work)) ||
+      !x_regs_fit<C>(kernel))
     return cudaErrorInvalidValue;
   XParams p{static_cast<__nv_bfloat16*>(o), B, S, Hq, Hkv, static_cast<int>(work),
-            static_cast<int>(nqb), sm_scale * LOG2E, C::FULLTRI ? 1 : causal, {}, row0 + rows};
-  const int chunks = (S + C::SPAN - 1) / C::SPAN;
+            static_cast<int>(nqb), sm_scale * LOG2E, C::FULLTRI ? 1 : causal, {}, row0 + rows, Skv};
+  const int chunks = (Skv + C::SPAN - 1) / C::SPAN;
   for (int i = 0; i < nqb; ++i) {
     const int q0 = walk[2 * i], n = walk[2 * i + 1];
-    if (q0 < row0 || q0 >= row0 + rows || (q0 - row0) % BQ || n < 1 || n > chunks)
+    if (q0 < row0 || q0 >= row0 + rows || (q0 - row0) % C::BQ || n < 1 || n > chunks)
       return cudaErrorInvalidValue;
     p.walk[i] = q0 << 11 | n;
   }
-  const uint64_t b = B, s = S;
   CUtensorMap tq, tk, tv;
   const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const uint32_t span = C::SPAN;
-  if (!encode_4d(&tq, bf16, 2, q, {(uint64_t)D, (uint64_t)Hq, s, b}, {64, 1, 64, 1}) ||
-      !encode_4d(&tk, bf16, 2, k, {(uint64_t)D, (uint64_t)Hkv, s, b}, {64, 1, span, 1}) ||
-      !encode_4d(&tv, bf16, 2, v, {(uint64_t)D, (uint64_t)Hkv, s, b}, {64, 1, span, 1}))
+  const uint64_t d = C::D, b = B;
+  if (!encode_4d(&tq, bf16, 2, q, {d, (uint64_t)Hq, (uint64_t)S, b}, {64, 1, 64, 1}) ||
+      !encode_4d(&tk, bf16, 2, k, {d, (uint64_t)Hkv, (uint64_t)Skv, b}, {64, 1, span, 1}) ||
+      !encode_4d(&tv, bf16, 2, v, {d, (uint64_t)Hkv, (uint64_t)Skv, b}, {64, 1, span, 1}))
     return cudaErrorInvalidValue;
-  auto kernel = flash_exp_sm90<D, U>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   if (!chained) {
-    kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, p);
+    kernel<<<grid, C::THREADS, smem, stream>>>(tq, tk, tv, p);
     return cudaGetLastError();
   }
   cudaLaunchAttribute attr[1];
@@ -484,7 +662,7 @@ cudaError_t x_launch(const void* q, const void* k, const void* v, void* o, int B
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(C::THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -498,16 +676,14 @@ cudaError_t x_launch(const void* q, const void* k, const void* v, void* o, int B
 // shared memory, threads a CTA, CTAs a SM, the producer's and the
 // consumers' registers, 1 with the cross-chunk overlap, 1 with the
 // ping-pong.
-template <int D, int U>
-cudaError_t x_info(int* out) {
-  using C = XCfg<D, U>;
-  const int smem = x_smem(C::Q_BYTES, C::KV_BYTES, C::STAGES);
-  auto kernel = flash_exp_sm90<D, U>;
+template <class C, class Kernel>
+cudaError_t x_info(Kernel kernel, int* out) {
+  const int smem = x_smem(C::Q_BYTES, C::KV_BYTES, C::STAGES, C::ONES_BYTES);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  out[0] = C::BKV, out[1] = C::STAGES, out[2] = smem, out[3] = THREADS;
-  out[5] = PRODUCER_REGS, out[6] = CONSUMER_REGS, out[7] = C::CROSS, out[8] = C::PINGPONG;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel, THREADS, smem);
+  out[0] = C::BKV, out[1] = C::STAGES, out[2] = smem, out[3] = C::THREADS;
+  out[5] = C::PRODUCER_REGS, out[6] = C::CONSUMER_REGS, out[7] = C::CROSS, out[8] = C::PINGPONG;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel, C::THREADS, smem);
 }
 
 bool x_args_ok(const void* q, const void* k, const void* v, const void* o, int B, int S, int Hq,
@@ -530,10 +706,11 @@ extern "C" int pfa_flash_chunked_sm90(const void* q, const void* k, const void* 
                                       const int* walk, void* stream) {
   if (!x_args_ok(q, k, v, o, B, S, Hq, Hkv, sm_scale)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PFA_K17(DD, UU)                                                                         \
-  if (D == DD && unroll == UU)                                                                  \
-    return x_launch<DD, UU>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, 0, S, false, tile_keys, \
-                            stages, smem, grid, walk, st);
+#define PFA_K17(DD, UU)                                                                       \
+  if (D == DD && unroll == UU)                                                                \
+    return x_launch<XCfg<DD, UU>>(flash_exp_sm90<DD, UU>, q, k, v, o, B, S, S, Hq, Hkv,       \
+                                  sm_scale, causal, 0, S, false, tile_keys, stages, smem, grid, \
+                                  walk, st);
   PFA_K17(64, 2)
   PFA_K17(64, 4)
   PFA_K17(128, 2)
@@ -552,11 +729,11 @@ extern "C" int pfa_flash_fulltri_sm90(const void* q, const void* k, const void* 
   if (!x_args_ok(q, k, v, o, B, S, Hq, Hkv, sm_scale)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return x_launch<64, 0>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, 0, S, false, tile_keys, stages,
-                           smem, grid, walk, st);
+    return x_launch<XCfg<64, 0>>(flash_exp_sm90<64, 0>, q, k, v, o, B, S, S, Hq, Hkv, sm_scale, 1,
+                                 0, S, false, tile_keys, stages, smem, grid, walk, st);
   if (D == 128)
-    return x_launch<128, 0>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, 0, S, false, tile_keys,
-                            stages, smem, grid, walk, st);
+    return x_launch<XCfg<128, 0>>(flash_exp_sm90<128, 0>, q, k, v, o, B, S, S, Hq, Hkv, sm_scale,
+                                  1, 0, S, false, tile_keys, stages, smem, grid, walk, st);
   return cudaErrorInvalidValue;
 }
 
@@ -571,11 +748,11 @@ extern "C" int pfa_flash_pipelined_sm90(const void* q, const void* k, const void
   if (!x_args_ok(q, k, v, o, B, S, Hq, Hkv, sm_scale)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return x_launch<64, 1>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, 0, S, false, tile_keys,
-                           stages, smem, grid, walk, st);
+    return x_launch<XCfg<64, 1>>(flash_exp_sm90<64, 1>, q, k, v, o, B, S, S, Hq, Hkv, sm_scale,
+                                 causal, 0, S, false, tile_keys, stages, smem, grid, walk, st);
   if (D == 128)
-    return x_launch<128, 1>(q, k, v, o, B, S, Hq, Hkv, sm_scale, causal, 0, S, false, tile_keys,
-                            stages, smem, grid, walk, st);
+    return x_launch<XCfg<128, 1>>(flash_exp_sm90<128, 1>, q, k, v, o, B, S, S, Hq, Hkv, sm_scale,
+                                  causal, 0, S, false, tile_keys, stages, smem, grid, walk, st);
   return cudaErrorInvalidValue;
 }
 
@@ -593,24 +770,69 @@ extern "C" int pfa_flash_tri_sm90(const void* q, const void* k, const void* v, v
   if (!x_args_ok(q, k, v, o, B, S, Hq, Hkv, sm_scale)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return x_launch<64, 1>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, q_row0, rows, chained != 0,
-                           tile_keys, stages, smem, grid, walk, st);
+    return x_launch<XCfg<64, 1>>(flash_exp_sm90<64, 1>, q, k, v, o, B, S, S, Hq, Hkv, sm_scale, 1,
+                                 q_row0, rows, chained != 0, tile_keys, stages, smem, grid, walk,
+                                 st);
   if (D == 128)
-    return x_launch<128, 1>(q, k, v, o, B, S, Hq, Hkv, sm_scale, 1, q_row0, rows, chained != 0,
-                            tile_keys, stages, smem, grid, walk, st);
+    return x_launch<XCfg<128, 1>>(flash_exp_sm90<128, 1>, q, k, v, o, B, S, S, Hq, Hkv, sm_scale,
+                                  1, q_row0, rows, chained != 0, tile_keys, stages, smem, grid,
+                                  walk, st);
+  return cudaErrorInvalidValue;
+}
+
+// K14 in bf16. q (B, Sq, H, 64), k/v (B, Skv, H, 64), o like q, causal
+// (col <= row); 16-byte-aligned bases, sm_scale > 0, Sq <= 65536, Skv <=
+// 65536; tile_keys, stages, smem, grid and walk ((q0, tiles) for each of
+// the ceil(Sq / 128) q-blocks) from k14_plan.
+extern "C" int pfa_flash_aug_sm90(const void* q, const void* k, const void* v, void* o, int B,
+                                  int Sq, int Skv, int H, int D, float sm_scale, int tile_keys,
+                                  int stages, int smem, int grid, const int* walk, void* stream) {
+  if (D != 64 || !x_args_ok(q, k, v, o, B, Sq, H, H, sm_scale)) return cudaErrorInvalidValue;
+  return x_launch<AugCfg>(flash_aug_sm90, q, k, v, o, B, Sq, Skv, H, H, sm_scale, 1, 0, Sq, false,
+                          tile_keys, stages, smem, grid, walk, static_cast<cudaStream_t>(stream));
+}
+
+// K15 in bf16: as K14, with nchain in {1, 2, 3, 4} chains of 64 rows a
+// work tile (Sq <= 32768 at nchain 1); the plan from k15_plan.
+extern "C" int pfa_flash_pair_sm90(const void* q, const void* k, const void* v, void* o, int B,
+                                   int Sq, int Skv, int H, int D, float sm_scale, int nchain,
+                                   int tile_keys, int stages, int smem, int grid, const int* walk,
+                                   void* stream) {
+  if (D != 64 || !x_args_ok(q, k, v, o, B, Sq, H, H, sm_scale)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PFA_K15(N)                                                                             \
+  if (nchain == N)                                                                             \
+    return x_launch<PairCfg<N>>(flash_pair_sm90<N>, q, k, v, o, B, Sq, Skv, H, H, sm_scale, 1, \
+                                0, Sq, false, tile_keys, stages, smem, grid, walk, st);
+  PFA_K15(1)
+  PFA_K15(2)
+  PFA_K15(3)
+  PFA_K15(4)
+#undef PFA_K15
   return cudaErrorInvalidValue;
 }
 
 // out[9] (x_info) of K17 at `unroll` in {2, 4}, of K19 at unroll 0 or of
 // K16/K18 at unroll 1, at head dim D; no launch.
 extern "C" int pfa_exp_sm90_info(int unroll, int D, int* out) {
-  if (D == 64 && unroll == 0) return x_info<64, 0>(out);
-  if (D == 64 && unroll == 1) return x_info<64, 1>(out);
-  if (D == 64 && unroll == 2) return x_info<64, 2>(out);
-  if (D == 64 && unroll == 4) return x_info<64, 4>(out);
-  if (D == 128 && unroll == 0) return x_info<128, 0>(out);
-  if (D == 128 && unroll == 1) return x_info<128, 1>(out);
-  if (D == 128 && unroll == 2) return x_info<128, 2>(out);
-  if (D == 128 && unroll == 4) return x_info<128, 4>(out);
+  if (D == 64 && unroll == 0) return x_info<XCfg<64, 0>>(flash_exp_sm90<64, 0>, out);
+  if (D == 64 && unroll == 1) return x_info<XCfg<64, 1>>(flash_exp_sm90<64, 1>, out);
+  if (D == 64 && unroll == 2) return x_info<XCfg<64, 2>>(flash_exp_sm90<64, 2>, out);
+  if (D == 64 && unroll == 4) return x_info<XCfg<64, 4>>(flash_exp_sm90<64, 4>, out);
+  if (D == 128 && unroll == 0) return x_info<XCfg<128, 0>>(flash_exp_sm90<128, 0>, out);
+  if (D == 128 && unroll == 1) return x_info<XCfg<128, 1>>(flash_exp_sm90<128, 1>, out);
+  if (D == 128 && unroll == 2) return x_info<XCfg<128, 2>>(flash_exp_sm90<128, 2>, out);
+  if (D == 128 && unroll == 4) return x_info<XCfg<128, 4>>(flash_exp_sm90<128, 4>, out);
+  return cudaErrorInvalidValue;
+}
+
+// out[9] (x_info) of K14 (nchain 0) or of K15 at nchain 1-4 (D 64); no
+// launch.
+extern "C" int pfa_aug_pair_sm90_info(int nchain, int* out) {
+  if (nchain == 0) return x_info<AugCfg>(flash_aug_sm90, out);
+  if (nchain == 1) return x_info<PairCfg<1>>(flash_pair_sm90<1>, out);
+  if (nchain == 2) return x_info<PairCfg<2>>(flash_pair_sm90<2>, out);
+  if (nchain == 3) return x_info<PairCfg<3>>(flash_pair_sm90<3>, out);
+  if (nchain == 4) return x_info<PairCfg<4>>(flash_pair_sm90<4>, out);
   return cudaErrorInvalidValue;
 }

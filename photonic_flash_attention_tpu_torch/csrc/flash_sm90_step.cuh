@@ -1,5 +1,5 @@
 // The consumer tile step of the bf16 Hopper forwards, shared by K1
-// (flash_fwd_sm90.cu) and the K17/K19 redesigns (flash_experiments_sm90.cu):
+// (flash_fwd_sm90.cu) and the K14-K19 redesigns (flash_experiments_sm90.cu):
 // a tile's Q K^T and P V issued as wgmma groups from 128-byte-swizzled
 // shared memory, and the online-softmax update of its scores. A tile is
 // BKV keys; ROWS is the row count of the shared-memory block it sits in
@@ -41,8 +41,9 @@ __device__ __forceinline__ void pv_tile(float* o_acc, uint32_t (&pa)[BKV / 16][4
 // to the new max, and sc becomes the probabilities. NATURAL: scores in
 // natural units (p = 2^((s - m) log2 e)); else raw scores with the scale
 // folded into the exponent, p = ex2(s * scale - m * scale), one FFMA and
-// one ex2 a score (scale = sm_scale * log2 e > 0).
-template <int NS, bool NATURAL>
+// one ex2 a score (scale = sm_scale * log2 e > 0). SUM false leaves l
+// alone: K14 takes the row sums from a product on the tensor cores.
+template <int NS, bool NATURAL, bool SUM = true>
 __device__ __forceinline__ void softmax_rows(float* sc, float (&mx)[2], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], float scale) {
   float nbase[2];
@@ -60,12 +61,12 @@ __device__ __forceinline__ void softmax_rows(float* sc, float (&mx)[2], float (&
       alpha[i] = ex2(fmaf(m[i], scale, nbase[i]));
     }
     m[i] = m_new;
-    l[i] *= alpha[i];
+    if constexpr (SUM) l[i] *= alpha[i];
   }
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
     const int r = (i >> 1) & 1;
     sc[i] = NATURAL ? ex2((sc[i] - nbase[r]) * LOG2E) : ex2(fmaf(sc[i], scale, nbase[r]));
-    l[r] += sc[i];
+    if constexpr (SUM) l[r] += sc[i];
   }
 }

@@ -117,6 +117,14 @@ __device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
          (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
 }
 
+// The same for an operand with no swizzle, made of 8-row x 16-byte core
+// matrices (rows 16 bytes apart): `lbo` bytes between core matrices along
+// K, `sbo` along M or N.
+__device__ __forceinline__ uint64_t no_swizzle_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
 // Generic-proxy writes to shared memory (st.shared) made visible to the
 // async proxy (wgmma, TMA) before a barrier hands the buffer on.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -148,7 +156,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// Named barriers 1 and 2 (0 is __syncthreads): the consumers' turns at the
+// Named barriers 1 to 4 (0 is __syncthreads): the consumers' turns at the
 // tensor cores.
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -413,6 +421,19 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
+}
+
+// D (64 x 8, fp32) += A (64 x 16 bf16, registers) B (16 x 8, shared,
+// K-major, no swizzle: no_swizzle_desc). K14 multiplies P by a constant B
+// whose column 0 is ones: D's column 0 gathers the row sums of the bf16 P.
+__device__ __forceinline__ void wgmma_rs_n8(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // The same m64n128k16 with f16 operands (K6 fp8's Q.K^T over e4m3 values

@@ -6,14 +6,26 @@ cast to V's dtype; the per-tile l reduction leaves the FP32 pipe for the
 matrix unit. The online max and alpha stay. Causal only (``col <= row``,
 top-left; K1's diagonal for square shapes), no GQA, d + 1 <= 128.
 
-* :func:`flash_aug` launches K14 (``csrc/flash_experiments.cu``,
-  ``pfa_flash_aug``) for CUDA tensors, bf16 and D = 64 only (JAX pads V to
-  the MXU's 128 lanes; on the card one extra n8 column tile of the
-  ``mma.sync`` product, built in shared memory when V is staged, is the
-  whole augmentation, so no augmented copy of V goes through device
-  memory), and runs :func:`flash_aug_plain` for CPU tensors.
+* :func:`flash_aug` launches K14 (``csrc/flash_experiments_sm90.cu``,
+  ``pfa_flash_aug_sm90``, counted as ``pfa_flash_aug``) for CUDA tensors,
+  bf16 and D = 64 only, and runs :func:`flash_aug_plain` for CPU tensors.
+  K14 is K16's Hopper body (TMA ring, ``wgmma``, a producer warp and two
+  consumer warpgroups of 64 rows, 128-key tiles, the Q.K^T-ahead overlap,
+  the ping-pong; :func:`~.flash_pipeline_experiment.k14_plan`) with the
+  row sum moved onto the tensor cores: after each tile's P.V one more
+  ``wgmma`` of N = 8 multiplies the same bf16 P by a constant 16 x 8 block
+  whose column 0 is ones, written once into shared memory (JAX pads V to
+  the MXU's 128 lanes; no augmented copy of V goes through device memory
+  here). Its accumulator, rescaled by alpha with O, holds l; the softmax
+  loses its FADD into l. q is not scaled in bf16 first as JAX does: at D 64
+  the scale is 2^-3, exact in bf16, so folding it into the exponent is the
+  same function. Sq and Skv may differ; bases must be 16-byte aligned.
+  What bounds it on the H100 is K1's work: the tensor cores (26.1 us at
+  B4 S2048 H12 causal) and, at D 64, the softmax's FP32 and MUFU stream
+  beside them (41.1 us, K1's composite ceiling); the ones product trades
+  one FADD a score of that stream for 1/8 more P.V on the tensor cores.
 * ``bq``/``bkv`` are JAX's TPU tiles: the plain version walks them, the
-  card kernel its own 64 x 64 tiles; lengths that are not multiples of
+  card kernel its own 128 x 128 tiles; lengths that are not multiples of
   them raise.
 """
 
@@ -27,6 +39,7 @@ import torch
 from ..ops import _build
 from ..ops.flash import flash_attention
 from . import _common as C
+from . import flash_pipeline_experiment as ux
 
 __all__ = ["flash_aug", "flash_aug_plain", "main"]
 
@@ -61,11 +74,16 @@ def flash_aug_plain(q, k, v, *, bq: int = 512, bkv: int = 512) -> torch.Tensor:
 
 
 def _aug_cuda(q, k, v) -> torch.Tensor:
-    C.check_card(q, (torch.bfloat16,), (64,), "K14 pfa_flash_aug", k, v)
+    name = "K14 pfa_flash_aug"
+    C.check_card(q, (torch.bfloat16,), (64,), name, k, v)
     b, sq, h, d = q.shape
+    skv, scale = k.shape[1], d ** -0.5
+    ux._check_sm90(name, scale, q, k, v)
+    plan = ux.k14_plan(b, sq, skv, h, ux._sms(q.device))
     o = torch.empty_like(q)
-    _build.launch("pfa_flash_aug", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), b, sq, k.shape[1], h, d, float(d ** -0.5))
+    _build.launch("pfa_flash_aug_sm90", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), b, sq, skv, h, d, float(scale), plan.tile_keys, plan.stages,
+                  plan.smem, plan.grid, ux._c_walk(plan.walk), count_as="pfa_flash_aug")
     return o
 
 

@@ -7,16 +7,27 @@ one K/V fill serves ``nchain`` blocks. Each chain computes plain flash
 attention: causal only (``col <= row``, top-left; K1's diagonal for square
 shapes), no GQA, Sq % (nchain * bq) == 0.
 
-* :func:`flash_pair` launches K15 (``csrc/flash_experiments.cu``,
-  ``pfa_flash_pair``) for CUDA tensors, bf16 and D = 64, with nchain in
-  :data:`CARD_NCHAINS` (each warp holds nchain chains' scores and
-  accumulators in registers; a count beyond them raises, naming the
-  register limit), and runs :func:`flash_pair_plain` for CPU tensors.
-  nchain 1 is the kernel's structure with no second chain: the control the
-  experiments are read against besides K1.
+* :func:`flash_pair` launches K15 (``csrc/flash_experiments_sm90.cu``,
+  ``pfa_flash_pair_sm90``, counted as ``pfa_flash_pair``) for CUDA tensors,
+  bf16 and D = 64, with nchain in :data:`CARD_NCHAINS`, and runs
+  :func:`flash_pair_plain` for CPU tensors. On the card a chain is a
+  consumer warpgroup of 64 rows and a work tile ``nchain`` of them, on the
+  experiments' Hopper body (a producer warp issuing TMA loads into an
+  mbarrier ring, ``wgmma``, a persistent grid;
+  :func:`~.flash_pipeline_experiment.k15_plan`): one TMA fill of a K/V tile
+  serves every chain, the chains take turns at the tensor cores round robin
+  (FA3's ping-pong over ``nchain`` warpgroups), so one chain's exps run
+  beside another's products, and each chain stops at its own diagonal while
+  still taking its turns. nchain 1 is one consumer warpgroup with no turns:
+  the control the experiments are read against besides K1. Sq and Skv may
+  differ; bases must be 16-byte aligned. What bounds it on the H100 is
+  K1's work (the tensor cores, and at D 64 the softmax stream beside
+  them); more chains put more warpgroups' exps beside the products, and
+  the registers a thread can keep set how many: 128-key tiles at nchain
+  1-3, 64-key tiles at 4 (a CTA of 640 threads leaves a consumer 112).
 * ``bq``/``bkv`` are JAX's TPU tiles: the plain version walks them, the
-  card kernel 64-row chains and 64-key tiles; lengths that are not
-  multiples of them raise.
+  card kernel 64-row chains and its own key tiles
+  (``K15_TILE_KEYS``); lengths that are not multiples of them raise.
 """
 
 from __future__ import annotations
@@ -29,18 +40,18 @@ import torch
 from ..ops import _build
 from ..ops.flash import flash_attention
 from . import _common as C
+from . import flash_pipeline_experiment as ux
 
 __all__ = ["flash_pair", "flash_pair_plain", "main"]
 
-#: The chain counts K15 holds without spilling registers (``-Xptxas -v``:
-#: 98 and 245 registers a thread).
-CARD_NCHAINS = (1, 2)
-#: Why a count above them raises.
-REGISTER_LIMIT = (
-    "each chain holds its scores and accumulator, 64 fp32 registers a thread at D = 64, and "
-    "nchain 3 and 4 exceed the 255 registers a thread can have (ptxas spills 196 and 1980 "
-    "bytes), so the card's library holds nchain 1 and 2"
-)
+#: The chain counts K15 takes on the card: each compiles with no spill and
+#: no stack (``nvcc -Xptxas -v``) under its setmaxnreg share (csrc/
+#: flash_experiments_sm90.cu, ``PAIR_CONSUMER_REGS``).
+CARD_NCHAINS = tuple(ux.K15_TILE_KEYS)
+#: A length at each nchain whose last work tile of 64 nchain rows holds
+#: fewer rows than chains (chains past Sq, and chains that pass their
+#: diagonal before the last).
+RAGGED_LENGTHS = {1: 96, 2: 192, 3: 288, 4: 320}
 PARITY_SHAPE = (1, 2048, 2, 64)
 PARITY_GATE = 3e-3
 CARD_PARITY_GATE = 1e-2
@@ -48,6 +59,17 @@ CASES = ((4, 2048, 12, 64), (1, 8192, 12, 64))
 #: JAX's sweep: (bq, bkv, nchain).
 SWEEP = ((512, 512, 2), (512, 512, 4), (256, 512, 4), (256, 256, 4), (512, 512, 3))
 FIT = (20, 120)
+
+
+def pair_case(s: int, nchain: int) -> Tuple[int, int]:
+    """A length and JAX block that ``nchain`` takes, for the card's checks
+    and timings: S with the largest block of 512 ... 16 that divides it
+    nchain times over, else the longest length below S that nchain x 128
+    divides (2048 -> 1920 at nchain 3), with block 128."""
+    for blk in (512, 256, 128, 64, 32, 16):
+        if s % (nchain * blk) == 0:
+            return s, blk
+    return s - s % (nchain * 128), 128
 
 
 def _check(q, k, v, bq: int, bkv: int, nchain: int) -> None:
@@ -69,14 +91,19 @@ def flash_pair_plain(q, k, v, *, bq: int = 512, bkv: int = 512, nchain: int = 2
 
 
 def _pair_cuda(q, k, v, nchain: int) -> torch.Tensor:
-    C.check_card(q, (torch.bfloat16,), (64,), "K15 pfa_flash_pair", k, v)
+    name = "K15 pfa_flash_pair"
+    C.check_card(q, (torch.bfloat16,), (64,), name, k, v)
     if nchain not in CARD_NCHAINS:
-        raise ValueError(f"K15 takes nchain in {CARD_NCHAINS} on the card, got {nchain}: "
-                         f"{REGISTER_LIMIT}")
+        raise ValueError(f"{name} takes nchain in {CARD_NCHAINS} on the card, got {nchain}")
     b, sq, h, d = q.shape
+    skv, scale = k.shape[1], d ** -0.5
+    ux._check_sm90(name, scale, q, k, v)
+    plan = ux.k15_plan(b, sq, skv, h, nchain, ux._sms(q.device))
     o = torch.empty_like(q)
-    _build.launch("pfa_flash_pair", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), b, sq, k.shape[1], h, d, float(d ** -0.5), int(nchain))
+    _build.launch("pfa_flash_pair_sm90", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), b, sq, skv, h, d, float(scale), int(nchain), plan.tile_keys,
+                  plan.stages, plan.smem, plan.grid, ux._c_walk(plan.walk),
+                  count_as="pfa_flash_pair")
     return o
 
 

@@ -104,8 +104,8 @@ from . import _common as C
 __all__ = ["ExpPlan", "flash_chunked", "flash_chunked_plain", "flash_fulltri",
            "flash_fulltri_plain", "flash_segmented", "flash_tri_i8", "flash_tri_i8_plain",
            "flash_triangular", "flash_triangular_plain", "flash_unrolled", "flash_unrolled_plain",
-           "k16_plan", "k17_plan", "k18_plan", "k19_plan", "lse_merge", "main", "main_chunked",
-           "main_fulltri", "main_i8", "main_seg", "main_tri"]
+           "k14_plan", "k15_plan", "k16_plan", "k17_plan", "k18_plan", "k19_plan", "lse_merge",
+           "main", "main_chunked", "main_fulltri", "main_i8", "main_seg", "main_tri"]
 
 #: JAX's parity case and gate (max abs against ``flash_attention``).
 PARITY_SHAPE = (1, 1024, 2, 64)
@@ -190,28 +190,29 @@ def check_tri_blocks(s: int) -> Tuple[Tuple[int, int], ...]:
             or ((check_block(s), check_block(s, 2)),))
 
 
-# -- K16-K19's bf16 body: launch plans (csrc/flash_experiments_sm90.cu) -------
+# -- K14-K19's bf16 body: launch plans (csrc/flash_experiments_sm90.cu) -------
 
 #: Dynamic shared memory a CTA may take on the H100 (``csrc/sm90.cuh``).
 SMEM_MAX = 232448
-#: Query rows of a work tile (two consumer warpgroups of 64).
+#: Query rows of a work tile (two consumer warpgroups of 64; K15: nchain).
 SM90_ROWS = 128
 #: The longest S the bf16 body's walk holds (512 q-blocks, MAX_QB).
 SM90_MAX_SEQ = 512 * SM90_ROWS
 
 
 class ExpPlan(NamedTuple):
-    """One launch of K16-K19's bf16 body, from the shapes alone: the C
+    """One launch of K14-K19's bf16 body, from the shapes alone: the C
     launcher takes every field, refuses a tile width, stage count, shared
     memory or grid that is not its own, and walks ``walk`` as it is.
-    ``chunk_keys``: the keys of a ring stage (K16, K18, K19: one tile);
-    with two stages or more the next stage's Q.K^T is issued before this
-    stage's last P.V. ``walk``: (q0, chunks) of the q-blocks of 128 rows in
-    the order the work tiles take them: K19's CTA runs them in this order,
-    and the persistent grid of K16-K18 gives q-block i to its work tiles t
-    with t // (Hq B) == i; each runs its first ``chunks`` chunks of
-    ``chunk_keys`` keys. The plan functions are cached: a launch pays for
-    its plan once a shape."""
+    ``chunk_keys``: the keys of a ring stage (K14-K16, K18, K19: one
+    tile); with two stages or more the next stage's Q.K^T is issued before
+    this stage's last P.V. ``walk``: (q0, chunks) of the q-blocks of 128
+    rows (K15: 64 nchain) in the order the work tiles take them: K19's CTA
+    runs them in this order, and the persistent grid of K14-K18 gives
+    q-block i to its work tiles t with t // (Hq B) == i; each runs its
+    first ``chunks`` chunks of ``chunk_keys`` keys (K15: its chains a
+    prefix each, to their own diagonals). The plan functions are cached: a
+    launch pays for its plan once a shape."""
     tile_keys: int
     chunk_keys: int
     stages: int
@@ -220,16 +221,19 @@ class ExpPlan(NamedTuple):
     walk: Tuple[Tuple[int, int], ...]
 
 
-def _sm90_smem(d: int, chunk_keys: int, stages: int) -> int:
-    """Q double-buffered, ``stages`` K and V blocks, the mbarriers and
-    1024 bytes of alignment slack (``x_smem``)."""
-    return 2 * SM90_ROWS * d * 2 + 2 * stages * chunk_keys * d * 2 + 8 * (2 * stages + 4) + 1024
+def _sm90_smem(d: int, chunk_keys: int, stages: int, rows: int = SM90_ROWS,
+               ones: int = 0) -> int:
+    """Q (``rows`` a work tile) double-buffered, ``stages`` K and V blocks,
+    K14's ``ones`` block, the mbarriers and 1024 bytes of alignment slack
+    (``x_smem``)."""
+    return (2 * rows * d * 2 + 2 * stages * chunk_keys * d * 2 + ones + 8 * (2 * stages + 4)
+            + 1024)
 
 
-def _sm90_stages(d: int, chunk_keys: int) -> int:
+def _sm90_stages(d: int, chunk_keys: int, rows: int = SM90_ROWS, ones: int = 0) -> int:
     """The most ring stages that fit (``x_max_stages``)."""
     n = 0
-    while _sm90_smem(d, chunk_keys, n + 1) <= SMEM_MAX:
+    while _sm90_smem(d, chunk_keys, n + 1, rows, ones) <= SMEM_MAX:
         n += 1
     return n
 
@@ -244,14 +248,16 @@ def _check_plan_shape(s: int, hq: int, hkv: int, d: int) -> None:
 
 
 def _walk(s: int, chunk_keys: int, causal: bool, row0: int = 0,
-          row_end: Optional[int] = None) -> Tuple[Tuple[int, int], ...]:
-    """The q-blocks of 128 rows from ``row0`` up to ``row_end`` (S), causal
-    ones heaviest (last) first, each with the chunks its rows see: those
-    whose first key is at or below its last row when causal, every chunk of
-    S otherwise."""
+          row_end: Optional[int] = None, rows: int = SM90_ROWS,
+          skv: Optional[int] = None) -> Tuple[Tuple[int, int], ...]:
+    """The q-blocks of ``rows`` rows from ``row0`` up to ``row_end`` (S),
+    causal ones heaviest (last) first, each with the chunks its rows see:
+    those whose first key is at or below its last row below the row end
+    when causal, every chunk of the ``skv`` (S) keys otherwise."""
     row_end = s if row_end is None else row_end
-    q0s = range(row0, row_end, SM90_ROWS)
-    return tuple((q0, -(-(min(row_end, q0 + SM90_ROWS) if causal else s) // chunk_keys))
+    skv = s if skv is None else skv
+    q0s = range(row0, row_end, rows)
+    return tuple((q0, -(-min(min(row_end, q0 + rows) if causal else skv, skv) // chunk_keys))
                  for q0 in (reversed(q0s) if causal else q0s))
 
 
@@ -319,6 +325,53 @@ def k17_plan(b: int, s: int, hq: int, hkv: int, d: int, unroll: int, *, causal: 
     stages = _sm90_stages(d, span)
     grid = min(-(-s // SM90_ROWS) * hq * b, sms)
     return ExpPlan(64, span, stages, _sm90_smem(d, span, stages), grid, _walk(s, span, causal))
+
+
+#: K14's B operand of the ones product in shared memory (``XCfg::ONES_BYTES``).
+K14_ONES_BYTES = 256
+#: K15's key tile at each chain count the card takes (``PAIR_BKV``): the
+#: widest whose consumer warpgroup holds its registers with no spill.
+K15_TILE_KEYS = {1: 128, 2: 128, 3: 128, 4: 64}
+#: The longest Skv K14 and K15 take (1024 tiles of 64 keys, ``MAX_KEYS``).
+K14_K15_MAX_KEYS = 65536
+
+
+def _check_k14_k15_shape(sq: int, skv: int, h: int, rows: int) -> None:
+    if sq < 1 or skv < 1 or h < 1:
+        raise ValueError(f"bad shape: Sq {sq}, Skv {skv}, H {h}")
+    if -(-sq // rows) > 512 or skv > K14_K15_MAX_KEYS:
+        raise ValueError(f"the bf16 body takes Sq <= {512 * rows} (its walk of {rows}-row "
+                         f"q-blocks) and Skv <= {K14_K15_MAX_KEYS}, got Sq {sq}, Skv {skv}")
+
+
+@functools.lru_cache(maxsize=None)
+def k14_plan(b: int, sq: int, skv: int, h: int, sms: int = 132) -> ExpPlan:
+    """K14's launch (D 64, causal ``col <= row``): K16's instantiation, 128
+    keys a stage and as many stages as fit beside the ones block, on K1's
+    persistent grid (min(work tiles, ``sms``) CTAs) over the 128-row
+    q-blocks of Sq heaviest first, each over the key tiles up to its last
+    row below Sq and inside Skv."""
+    _check_k14_k15_shape(sq, skv, h, SM90_ROWS)
+    stages = _sm90_stages(64, 128, ones=K14_ONES_BYTES)
+    return ExpPlan(128, 128, stages, _sm90_smem(64, 128, stages, ones=K14_ONES_BYTES),
+                   min(-(-sq // SM90_ROWS) * h * b, sms), _walk(sq, 128, True, skv=skv))
+
+
+@functools.lru_cache(maxsize=None)
+def k15_plan(b: int, sq: int, skv: int, h: int, nchain: int, sms: int = 132) -> ExpPlan:
+    """K15's launch (D 64, causal): a work tile is ``nchain`` chains of 64
+    rows, one consumer warpgroup each, against one ring stage of
+    ``K15_TILE_KEYS[nchain]`` keys; as many stages as fit; K1's persistent
+    grid over the q-blocks of 64 ``nchain`` rows of Sq heaviest first, each
+    over the key tiles its last chain's rows below Sq see inside Skv (each
+    chain stops at its own diagonal in the kernel)."""
+    if nchain not in K15_TILE_KEYS:
+        raise ValueError(f"K15 takes nchain in {tuple(K15_TILE_KEYS)} on the card, got {nchain}")
+    rows, tile = 64 * nchain, K15_TILE_KEYS[nchain]
+    _check_k14_k15_shape(sq, skv, h, rows)
+    stages = _sm90_stages(64, tile, rows)
+    return ExpPlan(tile, tile, stages, _sm90_smem(64, tile, stages, rows),
+                   min(-(-sq // rows) * h * b, sms), _walk(sq, tile, True, rows=rows, skv=skv))
 
 
 @functools.lru_cache(maxsize=None)

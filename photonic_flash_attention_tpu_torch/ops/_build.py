@@ -111,10 +111,15 @@ _SIGNATURES: Dict[str, List] = {
     "pfa_bwd_sm90_info": [_I, _I, ctypes.POINTER(_I)],
     # q, k, v, o, fm, B, S, H, D, sm_scale, causal, fast_exp, stream
     "pfa_flash_fixedmax": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
-    # q, k, v, o, B, Sq, Skv, H, D, sm_scale, stream
-    "pfa_flash_aug": [_P] * 4 + [_I] * 5 + [_F, _P],
-    # q, k, v, o, B, Sq, Skv, H, D, sm_scale, nchain, stream
-    "pfa_flash_pair": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, o, B, Sq, Skv, H, D, sm_scale, tile_keys, stages, smem, grid,
+    # walk, stream: K14's bf16 body (k14_plan)
+    "pfa_flash_aug_sm90": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 4 + [ctypes.POINTER(_I), _P],
+    # q, k, v, o, B, Sq, Skv, H, D, sm_scale, nchain, tile_keys, stages,
+    # smem, grid, walk, stream: K15's bf16 body (k15_plan)
+    "pfa_flash_pair_sm90": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 5 + [ctypes.POINTER(_I), _P],
+    # nchain (0: K14, 1-4: K15), out (int[9], as pfa_exp_sm90_info's) of
+    # K14's and K15's bf16 body; no stream, no launch
+    "pfa_aug_pair_sm90_info": [_I, ctypes.POINTER(_I)],
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, dtype, stream
     "pfa_flash_pipelined": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, causal, tile_keys, stages,

@@ -10,8 +10,12 @@ every geometry the experiments' mains time (B4 S2048 H12 D64, B1 S8192 H12
 D64, K16 also B4 S4096 H32/8 D128), and must agree with its plain version
 on the same inputs within rel_err_norm 1e-2 (K1's bf16 bound in
 ``chip_smoke.py``), launching its kernel exactly once a call: K13 in both
-exp modes, causal and not; K14 causal at Sq = Skv and Sq < Skv; K15 at
-every nchain it takes (1, the control, and 2); K16 causal and not, GQA, D
+exp modes, causal and not; K14 causal at Sq = Skv, Sq < Skv and Sq > Skv;
+K15 at every nchain it takes (``CARD_NCHAINS``: 1, the control, to 4), at
+a length whose last work tile is ragged (chains past Sq) and at Sq != Skv
+each way, one call captured into a CUDA graph and replayed on new inputs,
+K14's and K15's launchers refusing a plan not their own and an unaligned
+bf16 base raising; K16 causal and not, GQA, D
 64 and 128; K17 at each unroll it takes (2, 4), K18 causal, K18's int8-QK
 mode causal and not, K19, each at a small shape, a length that is a
 multiple of 64 but not of 128, D 128 with GQA, fp32 inputs and the mains'
@@ -27,7 +31,7 @@ backward) through ``flash_bwd_unrolled`` at ``CARD_CHECKS`` causal and not
 (blocks of 64, a launch of 320 rows, D 128, fp32 inputs) and at every
 geometry and block of its main, launched once a row-block (K20) and once a
 key block (K21), each output within 1e-2 of the plain version. fp32 on
-K13-K15, nchain 3 and 4 (they spill), an unroll K17 is not compiled for, a
+K13-K15, an nchain K15 is not compiled for, an unroll K17 is not compiled for, a
 dtype or a D a kernel does not take, and K20/K21's blocks that are not
 multiples of 64, GQA and lengths the blocks do not divide raise.
 """
@@ -89,6 +93,7 @@ def test_k13_fixedmax_matches_plain(cuda_device, causal, fast, shape, blk):
 
 @pytest.mark.parametrize("shape_q, skv, blk", [((2, 256, 4, 64), 256, 128),
                                                ((1, 96, 2, 64), 160, 32),
+                                               ((1, 160, 2, 64), 96, 32),
                                                ((4, 2048, 12, 64), 2048, 512),
                                                ((1, 8192, 12, 64), 8192, 512)])
 def test_k14_aug_matches_plain(cuda_device, shape_q, skv, blk):
@@ -98,14 +103,108 @@ def test_k14_aug_matches_plain(cuda_device, shape_q, skv, blk):
            lambda: aug.flash_aug_plain(q, k, v, bq=blk, bkv=blk))
 
 
-@pytest.mark.parametrize("nchain", pair.CARD_NCHAINS)
-@pytest.mark.parametrize("b, s, h, blk", [(2, 384, 4, 64), (1, 1536, 3, 64), (4, 2048, 12, 512),
-                                          (1, 8192, 12, 512)])
-def test_k15_pair_matches_plain(cuda_device, nchain, b, s, h, blk):
+#: K15's checks: (B, S, H) at each nchain of CARD_NCHAINS (the mains'
+#: geometries, small ones, and a length whose last work tile is ragged:
+#: chains past Sq, and chains that pass their diagonal before the last).
+PAIR_CHECKS = [(nchain, b, *pair.pair_case(s, nchain), h)
+               for nchain in pair.CARD_NCHAINS
+               for b, s, h in ((2, 384, 4), (1, 1536, 3), (4, 2048, 12), (1, 8192, 12),
+                               (2, pair.RAGGED_LENGTHS[nchain], 3))]
+
+
+@pytest.mark.parametrize("nchain, b, s, blk, h", PAIR_CHECKS,
+                         ids=[f"n{n}-b{b}s{s}h{h}" for n, b, s, _, h in PAIR_CHECKS])
+def test_k15_pair_matches_plain(cuda_device, nchain, b, s, blk, h):
     q, k, v = _qkv(cuda_device, 3, (b, s, h, 64))
     _check("pfa_flash_pair",
            lambda: experiments.flash_pair(q, k, v, bq=blk, bkv=blk, nchain=nchain),
            lambda: pair.flash_pair_plain(q, k, v, bq=blk, bkv=blk, nchain=nchain))
+
+
+@pytest.mark.parametrize("nchain", pair.CARD_NCHAINS)
+@pytest.mark.parametrize("sq, skv", [(192, 320), (384, 192)])
+def test_k15_pair_sq_ne_skv(cuda_device, nchain, sq, skv):
+    """Sq < Skv and Sq > Skv: the key tiles clamp to Skv, the store to Sq."""
+    q, k, v = _qkv(cuda_device, 31, (2, sq, 3, 64), (2, skv, 3, 64))
+    blk = next(b for b in (64, 32, 16) if sq % (nchain * b) == 0)
+    _check("pfa_flash_pair",
+           lambda: experiments.flash_pair(q, k, v, bq=blk, bkv=32, nchain=nchain),
+           lambda: pair.flash_pair_plain(q, k, v, bq=blk, bkv=32, nchain=nchain))
+
+
+@pytest.mark.parametrize("nchain", pair.CARD_NCHAINS)
+def test_k15_graph_replay_matches_plain(cuda_device, nchain):
+    """A K15 call captured into a CUDA graph and replayed on new inputs,
+    read by the stream's next kernel before any synchronisation."""
+    s, blk = pair.pair_case(2048, nchain)
+    shape = (4, s, 12, 64)
+    q, k, v = _qkv(cuda_device, 32, shape)
+    kw = dict(bq=blk, bkv=blk, nchain=nchain)
+    experiments.flash_pair(q, k, v, **kw)  # build and warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.CAPTURED["pfa_flash_pair"]
+    with torch.cuda.graph(graph):
+        out = experiments.flash_pair(q, k, v, **kw)
+    assert _build.CAPTURED["pfa_flash_pair"] == before + 1
+    for seed in (33, 34):
+        for t, new in zip((q, k, v), _qkv(cuda_device, seed, shape)):
+            t.copy_(new)
+        graph.replay()
+        got = out.float() * 1.0
+        torch.cuda.synchronize()
+        ref = pair.flash_pair_plain(q, k, v, **kw)
+        assert torch.isfinite(got).all()
+        assert _common.rel_err_norm(got, ref) <= BOUND, seed
+
+
+def test_k14_k15_unaligned_bf16_raises(cuda_device):
+    """TMA reads 16-byte-aligned bases: a bf16 tensor that starts 2 bytes
+    in raises, before any launch."""
+    b, s, h, d = 1, 384, 2, 64
+    n = b * s * h * d
+    buf = torch.randn(3 * n + 1, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(b, s, h, d) for i in range(3))
+    before = (_build.LAUNCHES["pfa_flash_aug"], _build.LAUNCHES["pfa_flash_pair"])
+    with pytest.raises(ValueError, match="16-byte"):
+        experiments.flash_aug(q, k, v, bq=128, bkv=128)
+    for nchain in pair.CARD_NCHAINS:
+        with pytest.raises(ValueError, match="16-byte"):
+            experiments.flash_pair(q, k, v, bq=32, bkv=128, nchain=nchain)
+    assert (_build.LAUNCHES["pfa_flash_aug"], _build.LAUNCHES["pfa_flash_pair"]) == before
+
+
+def test_k14_k15_refuse_other_plans(cuda_device):
+    """K14's and K15's launchers run their own plans: another tile width,
+    stage count, shared memory or grid, or a walk off the work tile's
+    rows or past Skv's tiles, is refused."""
+    b, sq, skv, h, d = 1, 320, 192, 2, 64
+    q, k, v = _qkv(cuda_device, 35, (b, sq, h, d), (b, skv, h, d))
+    o = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, skv, h, d, d ** -0.5)
+
+    def k14(plan):
+        _build.launch("pfa_flash_aug_sm90", cuda_device, *ptrs, plan.tile_keys, plan.stages,
+                      plan.smem, plan.grid, pipeline._c_walk(plan.walk))
+
+    def k15(plan, nchain=2):
+        _build.launch("pfa_flash_pair_sm90", cuda_device, *ptrs, nchain, plan.tile_keys,
+                      plan.stages, plan.smem, plan.grid, pipeline._c_walk(plan.walk))
+
+    p14, p15 = pipeline.k14_plan(b, sq, skv, h), pipeline.k15_plan(b, sq, skv, h, 2)
+    k14(p14)
+    k15(p15)
+    torch.cuda.synchronize()
+    for launch, plan in ((k14, p14._replace(stages=p14.stages - 1)),
+                         (k14, p14._replace(tile_keys=64)),
+                         (k14, p14._replace(smem=p14.smem - 256)),
+                         (k14, p14._replace(walk=((p14.walk[0][0], 3),) + p14.walk[1:])),
+                         (k15, p15._replace(grid=p15.grid + 1)),
+                         (k15, p15._replace(walk=((64, 1),) + p15.walk[1:]))):
+        with pytest.raises(RuntimeError, match="_sm90"):
+            launch(plan)
+    with pytest.raises(RuntimeError, match="_sm90"):
+        k15(p15, nchain=3)  # a plan of nchain 2
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -357,9 +456,8 @@ def test_card_contract_errors(cuda_device):
         with pytest.raises(ValueError, match="takes"):
             fn()
     qb, kb, vb = _qkv(cuda_device, 7, (1, 384, 2, 64))
-    for nchain in (3, 4):  # they spill: the library holds 1 and 2
-        with pytest.raises(ValueError, match="255 registers"):
-            experiments.flash_pair(qb, kb, vb, bq=32, bkv=128, nchain=nchain)
+    with pytest.raises(ValueError, match="nchain in"):  # not compiled
+        experiments.flash_pair(qb, kb, vb, bq=16, bkv=128, nchain=max(pair.CARD_NCHAINS) + 2)
     q3, k3, v3 = _qkv(cuda_device, 6, (1, 256, 2, 32))
     for fn in (lambda: experiments.flash_aug(q3, k3, v3, bq=128, bkv=128),
                lambda: experiments.flash_unrolled(q3, k3, v3, block_q=128, block_kv=128),

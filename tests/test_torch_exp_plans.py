@@ -1,6 +1,6 @@
-"""The launch plans of K16-K19's bf16 body (``k16_plan``, ``k17_plan``,
-``k18_plan``, ``k19_plan`` in ``experiments/flash_pipeline_experiment.py``),
-on the CPU.
+"""The launch plans of K14-K19's bf16 body (``k14_plan``, ``k15_plan``,
+``k16_plan``, ``k17_plan``, ``k18_plan``, ``k19_plan`` in
+``experiments/flash_pipeline_experiment.py``), on the CPU.
 
 The C launchers of ``csrc/flash_experiments_sm90.cu`` take every field of a
 plan: they refuse a tile width, stage count, shared memory or grid that is
@@ -14,7 +14,11 @@ exactly the key tiles its rows below the row end see; K17's chunks per
 128-row work tile follow the chunk-granular causal skip (every chunk when
 not causal); every plan's shared memory fits the H100's 232,448 bytes with
 as many stages as fit. Parametrised over the card checks' shapes
-(``CARD_CHECK_SHAPES``) and the mains' geometries.
+(``CARD_CHECK_SHAPES``) and the mains' geometries. K14's walk covers each
+causal (128-row q-block, key tile) pair once with Sq and Skv apart; K15's,
+with each chain stopping at its own diagonal (the kernel's rule, mirrored
+here), covers each (chain, key tile) pair of a chain with rows below Sq
+once, and loads no tile that no live chain runs.
 """
 
 import math
@@ -161,5 +165,87 @@ def test_plan_bad_arguments():
 ], ids=["k16-d96", "k18-d96", "k16-long", "k18-long", "k18-row0-at-s", "k18-row0-neg",
         "k18-no-rows", "k18-past-s", "k16-gqa"])
 def test_k16_k18_plan_bad_arguments(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+# -- K14 and K15 (csrc/flash_experiments_sm90.cu: flash_aug_sm90,
+# flash_pair_sm90<nchain>), Sq and Skv apart --------------------------------
+
+#: (B, Sq, Skv, H): the mains' geometries, the card checks' shapes (the
+#: ragged lengths of each nchain among them) and Sq != Skv each way.
+AUG_PAIR_SHAPES = [(4, 2048, 2048, 12), (1, 8192, 8192, 12), (2, 256, 256, 4), (1, 96, 160, 2),
+                   (1, 160, 96, 2), (2, 384, 384, 4), (1, 1536, 1536, 3), (4, 1920, 1920, 12),
+                   (2, 192, 320, 3), (2, 384, 192, 3), (2, 288, 288, 3), (2, 320, 320, 3),
+                   (1, 1000, 4100, 2), (1, 4100, 1000, 2)]
+AUG_PAIR_IDS = ["b{}sq{}skv{}h{}".format(*shape) for shape in AUG_PAIR_SHAPES]
+
+
+def _needed(q_lo, q_hi, skv, tile):
+    """The key tiles that rows [q_lo, q_hi) see, causal col <= row."""
+    return {kv0 for kv0 in range(0, skv, tile) if kv0 <= q_hi - 1}
+
+
+@pytest.mark.parametrize("shape", AUG_PAIR_SHAPES, ids=AUG_PAIR_IDS)
+def test_k14_walk_covers_each_causal_pair_once(shape):
+    b, sq, skv, h = shape
+    plan = ux.k14_plan(b, sq, skv, h, 132)
+    assert plan.tile_keys == plan.chunk_keys == 128
+    assert plan.grid == min(math.ceil(sq / 128) * h * b, 132)
+    q0s = [q0 for q0, _ in plan.walk]
+    assert q0s == sorted(range(0, sq, 128), reverse=True)  # every q-block once, heaviest first
+    for q0, n in plan.walk:
+        # its first n tiles, exactly those its rows below Sq see inside Skv
+        assert set(range(0, n * 128, 128)) == _needed(q0, min(q0 + 128, sq), skv, 128)
+
+
+@pytest.mark.parametrize("nchain", sorted(ux.K15_TILE_KEYS))
+@pytest.mark.parametrize("shape", AUG_PAIR_SHAPES, ids=AUG_PAIR_IDS)
+def test_k15_walk_covers_each_chain_pair_once(shape, nchain):
+    """The producer loads the tiles the work tile's last live chain sees;
+    each chain runs the first min(ceil((q0c + 64) / tile), n) of them (the
+    kernel's ``own``): for every chain with rows below Sq, exactly the tiles
+    its rows see, so each (row, key tile) pair is computed once."""
+    b, sq, skv, h = shape
+    plan = ux.k15_plan(b, sq, skv, h, nchain, 132)
+    rows, tile = 64 * nchain, ux.K15_TILE_KEYS[nchain]
+    assert plan.tile_keys == plan.chunk_keys == tile
+    assert plan.grid == min(math.ceil(sq / rows) * h * b, 132)
+    assert [q0 for q0, _ in plan.walk] == sorted(range(0, sq, rows), reverse=True)
+    for q0, n in plan.walk:
+        owns = []
+        for q0c in range(q0, q0 + rows, 64):
+            own = min(-(-(q0c + 64) // tile), n)
+            assert 1 <= own <= n
+            if q0c < sq:  # a chain past Sq computes its own tiles and stores nothing
+                assert set(range(0, own * tile, tile)) == _needed(q0c, min(q0c + 64, sq), skv,
+                                                                  tile)
+                owns.append(own)
+        assert n == max(owns)  # no tile loaded that no live chain runs
+
+
+@pytest.mark.parametrize("nchain", [0] + sorted(ux.K15_TILE_KEYS))
+def test_k14_k15_plan_shared_memory_fits(nchain):
+    plan = (ux.k14_plan(4, 2048, 2048, 12) if nchain == 0
+            else ux.k15_plan(4, 2048, 2048, 12, nchain))
+    rows = 128 if nchain == 0 else 64 * nchain
+    ones = ux.K14_ONES_BYTES if nchain == 0 else 0
+    assert plan.smem <= ux.SMEM_MAX
+    assert plan.smem == ux._sm90_smem(64, plan.chunk_keys, plan.stages, rows, ones)
+    assert ux._sm90_smem(64, plan.chunk_keys, plan.stages + 1, rows, ones) > ux.SMEM_MAX
+    assert plan.stages == {0: 6, 1: 6, 2: 6, 3: 5, 4: 10}[nchain]
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: ux.k15_plan(1, 320, 320, 2, 5), "nchain"),
+    (lambda: ux.k15_plan(1, 320, 320, 2, 0), "nchain"),
+    (lambda: ux.k14_plan(1, 0, 320, 2), "shape"),
+    (lambda: ux.k15_plan(1, 320, 0, 2, 2), "shape"),
+    (lambda: ux.k14_plan(1, 128 * 512 + 1, 320, 2), "Sq <="),
+    (lambda: ux.k15_plan(1, 64 * 512 + 1, 320, 2, 1), "Sq <="),
+    (lambda: ux.k14_plan(1, 320, ux.K14_K15_MAX_KEYS + 1, 2), "Skv <="),
+], ids=["k15-nchain5", "k15-nchain0", "k14-no-rows", "k15-no-keys", "k14-long", "k15-n1-long",
+        "k14-long-keys"])
+def test_k14_k15_plan_bad_arguments(call, match):
     with pytest.raises(ValueError, match=match):
         call()
