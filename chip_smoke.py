@@ -18,9 +18,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    modes and K6 int8 and fp8, D 64 and 128) holds exactly its mode's GMMA
    kinds (IGMMA s8, QGMMA e4m3, HGMMA bf16/f16) and UTMALDG, no HMMA or
    IMMA and no stack; that K3's 16 instantiations stage pages by the
-   TMA's bulk copy (UBLKCP) with no stack; and that K16-K19's bf16 body
-   (K16/K18, K17 at unroll 2 and 4, K19; D 64 and 128) holds HGMMA and
-   UTMALDG, no HMMA and no stack;
+   TMA's bulk copy (UBLKCP) with no stack; that K21's bf16 instantiation
+   of K4's body (D 64 and 128) does as K4's; and that K13-K19's bf16 body
+   (K16/K18, K17 at unroll 2 and 4, K19, K13 in both exp modes; D 64 and
+   128; K14 and K15 at D 64) holds HGMMA and UTMALDG, no HMMA and no
+   stack;
 3. kernels: each kernel and mode against its plain PyTorch version on the
    card, at the shapes the main paths give it, with kernel, plain and
    library times and the card's bound: K1 (flash forward, its lse, and its
@@ -75,17 +77,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    from the measured rates (its time by CUDA events and by the graph fit); the profiler's time of K11 and K12 in one
    graph replay against the graph fit (within 10 %);
 5. experiments: K13-K19 (the flash-forward design-space experiments:
-   fixed-max in both exp modes, augmented V, paired chains at nchain 1 and
-   2, the pipelined KV loop, chunked K/V staging at unroll 2 and 4, one
+   fixed-max in both exp modes, augmented V, paired chains at nchain 1 to
+   4, the pipelined KV loop, chunked K/V staging at unroll 2 and 4, one
    launch per q row-block in bf16 and with int8 Q.K, one CTA per head over
-   the whole triangle; K16-K19 in bf16 on their TMA + wgmma body of
-   csrc/flash_experiments_sm90.cu, in fp32 on the mma.sync bodies of
-   csrc/flash_experiments.cu, counted as modes of their own and timed at
-   K1's headline shape in fp32) against their plain versions at small, ragged and
-   full shapes, the full ones every geometry the experiments path gives
-   them, each plain version timed once at K1's headline shape, and a K18
-   call (its chain of programmatic dependent launches) captured into a
-   CUDA graph and replayed on new inputs; then, as a
+   the whole triangle; K13-K19 in bf16 on their TMA + wgmma body of
+   csrc/flash_experiments_sm90.cu, K16-K19 in fp32 on the mma.sync bodies
+   of csrc/flash_experiments.cu, counted as modes of their own and timed at
+   K1's headline shape in fp32) against their plain versions at small,
+   ragged and full shapes, the full ones every geometry the experiments
+   path gives them, each plain version timed once at K1's headline shape,
+   and a K13 call (both modes), a K15 call and a K18 call (its chain of
+   programmatic dependent launches) captured into a CUDA graph and
+   replayed on new inputs; then, as a
    path of its own, the experiments' mains on the card (the four files'
    and the pipeline file's five others: parity, then each variant and K1
    at JAX's geometries by the graph fit), each variant printed with its
@@ -96,9 +99,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    the segmented variant's rows must have run each segment on K1, and the
    kernels line takes each kernel's time from its main's headline row.
    K20/K21 (the unrolled backward: dQ once per row-block, dK/dV once per
-   key block) join both halves: checked against their plain versions (small
+   key block; K21 in bf16 on K4's TMA + wgmma body, in fp32 on its mma.sync
+   body, counted as a mode of its own and timed at K1's headline shape in
+   fp32) join both halves: checked against their plain versions (small
    shapes at blocks of 64 and 128, D 128, fp32 inputs, and every geometry
-   and block of their main, each with its launch count), then the
+   and block of their main, each with its launch count; a bf16 K21 call
+   replayed from a CUDA graph), then the
    backward's main (parity against K4 + K5 under JAX's 3e-2, each row timed
    beside K4 + K5, SDPA's backward and the data-sheet bound; K20, K21, K4
    and K5 alone on the headline row); the calls its graphs captured must
@@ -167,11 +173,13 @@ of three single training steps and of one T5-large serving run (bf16
 compute and pool) (device activity only: busy time, idle share of each
 call's wall time, time by kernel group) and writes the traces and a
 per-kernel table into DIR. ``--exp-table`` only builds and prints the exp
-table (K16, K17 at unroll 2 and 4, K18 at each of its blocks and K19 at
-the pipeline mains' geometries by the graph fit, beside K1 bf16, SDPA and
-the bound), with
-public calls, so a copy of the script in an unpacked tree of another commit
-times that tree.
+table (K13 in both exp modes, K14, K15, K16, K17 at unroll 2 and 4, K18
+at each of its blocks and K19 at the mains' geometries by the graph fit,
+beside K1 bf16, SDPA and the bound; then K21 at the unrolled backward's
+geometries and blocks beside K4 alone, SDPA's backward and the bound),
+with public calls, so a copy of the script in an unpacked tree of another
+commit times that tree. ``--sass-diff LIB`` compares the normalised SASS
+of every Hopper attention instantiation with another build's.
 """
 
 from __future__ import annotations
@@ -212,9 +220,10 @@ _QUANT90 = "photonic_flash_attention_tpu_torch/csrc/flash_quant_sm90.cu"
 _ROWNORM = "photonic_flash_attention_tpu_torch/csrc/rownorm.cu"
 _PROBES = "photonic_flash_attention_tpu_torch/csrc/probes.cu"
 _EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_experiments.cu"
-#: K17's and K19's bf16 body (TMA, wgmma); their fp32 inputs stay on the
+#: K13-K19's bf16 body (TMA, wgmma); K16-K19's fp32 inputs stay on the
 #: mma.sync bodies of _EXPERIMENTS.
 _EXPERIMENTS90 = "photonic_flash_attention_tpu_torch/csrc/flash_experiments_sm90.cu"
+#: K20, and K21's fp32 inputs (bf16 K21 is K4's body, _BWD90).
 _BWD_EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_bwd_experiments.cu"
 _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
@@ -255,8 +264,8 @@ SOURCES = {
     "pfa_exp_probe": _PROBES,
     "pfa_softmax_probe": _PROBES,
     "pfa_softmax_probe_unmasked": _PROBES,
-    "pfa_flash_fixedmax": _EXPERIMENTS,
-    "pfa_flash_fixedmax_fast": _EXPERIMENTS,
+    "pfa_flash_fixedmax": _EXPERIMENTS90,
+    "pfa_flash_fixedmax_fast": _EXPERIMENTS90,
     "pfa_flash_aug": _EXPERIMENTS90,
     "pfa_flash_pair": _EXPERIMENTS90,
     "pfa_flash_pipelined": _EXPERIMENTS90,
@@ -269,7 +278,8 @@ SOURCES = {
     "pfa_flash_fulltri": _EXPERIMENTS90,
     "pfa_flash_fulltri_fp32": _EXPERIMENTS,
     "pfa_flash_bwd_dq_rowblock": _BWD_EXPERIMENTS,
-    "pfa_flash_bwd_dkv_colblock": _BWD_EXPERIMENTS,
+    "pfa_flash_bwd_dkv_colblock": _BWD90,
+    "pfa_flash_bwd_dkv_colblock_fp32": _BWD_EXPERIMENTS,
 }
 #: The kernels and entries of the ops-and-CLI phase (measured there).
 OPS_KERNELS = ("pfa_softmax", "pfa_layer_norm", "pfa_rms_norm", "pfa_paged_attention")
@@ -332,6 +342,8 @@ REPLACES = {
     "pfa_flash_fulltri_fp32": "benchmarks/flash_pipeline_experiment.py:821 (fp32 inputs)",
     "pfa_flash_bwd_dq_rowblock": "benchmarks/flash_bwd_unrolled_experiment.py:41",
     "pfa_flash_bwd_dkv_colblock": "benchmarks/flash_bwd_unrolled_experiment.py:83",
+    "pfa_flash_bwd_dkv_colblock_fp32": "benchmarks/flash_bwd_unrolled_experiment.py:83 "
+                                       "(fp32 inputs)",
 }
 #: Modes that no main path runs, reported under their kernel's entry (main
 #: fails if one of them launches there): K3's int8 compute (engine decode
@@ -339,9 +351,9 @@ REPLACES = {
 #: K3's read-only attend (with and without the token bias) and K2 alone
 #: (serving decodes through K3's fused write + attend),
 #: ALiBi (no model of the port uses it), the sliding window of K1, K4
-#: and K5 (no model of the port sets one) and K16-K19's fp32 inputs (the
-#: experiments' mains run bf16; their mma.sync bodies are checked and
-#: timed in the experiments phase). K6's int8 mode has its own entry: the
+#: and K5 (no model of the port sets one) and K16-K19's and K21's fp32
+#: inputs (the experiments' mains run bf16; their mma.sync bodies are
+#: checked and timed in the experiments phase). K6's int8 mode has its own entry: the
 #: CLI's ``calibrate`` runs it.
 NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
                 "pfa_paged_decode_attend": ("pfa_paged_decode_fused", "attend_only"),
@@ -355,7 +367,9 @@ NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
                 "pfa_flash_pipelined_fp32": ("pfa_flash_pipelined", "fp32 (mma.sync body)"),
                 "pfa_flash_chunked_fp32": ("pfa_flash_chunked", "fp32 (mma.sync body)"),
                 "pfa_flash_tri_fp32": ("pfa_flash_tri", "fp32 (mma.sync body)"),
-                "pfa_flash_fulltri_fp32": ("pfa_flash_fulltri", "fp32 (mma.sync body)")}
+                "pfa_flash_fulltri_fp32": ("pfa_flash_fulltri", "fp32 (mma.sync body)"),
+                "pfa_flash_bwd_dkv_colblock_fp32": ("pfa_flash_bwd_dkv_colblock",
+                                                    "fp32 (mma.sync body)")}
 TIMED_RUNS = 20
 # H100 SXM data sheet (dense, at its 700 W limit): the bound of each kernel
 # is the larger of its operations over the peak rate for their type and
@@ -518,8 +532,9 @@ def phase_build(sass: bool = True) -> None:
 K1_SM90 = re.compile(r"flash_fwd_sm90ILi(\d+)ELi(\d)E")
 K1_MODES = ("plain", "streams", "rel", "dense", "window", "dropout")
 #: K4's and K5's bf16 kernels: one instantiation per kernel, head dim and
-#: stream mode (csrc/flash_bwd_sm90.cuh::StreamMode, in this order).
-BWD_SM90 = re.compile(r"flash_bwd_(dkv|dq)_sm90ILi(\d+)ELi(\d)E")
+#: stream mode (csrc/flash_bwd_sm90.cuh::StreamMode, in this order); K21's
+#: is K4's plain one with COLBLOCK true (``Lb1E``).
+BWD_SM90 = re.compile(r"flash_bwd_(dkv|dq)_sm90ILi(\d+)ELi(\d)E(Lb1E)?")
 BWD_MODES = ("plain", "window", "dropout")
 #: The quantized forward (K1's 8-bit modes and K6): one instantiation per
 #: head dim and mode (csrc/flash_quant_sm90.cu::QuantMode, in this order),
@@ -538,6 +553,11 @@ EXP_LABELS = {0: "K19", 1: "K16/K18", 2: "K17 unroll 2", 4: "K17 unroll 4"}
 #: K14's and K15's instantiations of the same body (D 64): flash_aug_sm90,
 #: flash_pair_sm90<nchain>; keyed ("aug_pair", 64, nchain), nchain 0 for K14.
 AUG_PAIR_SM90 = re.compile(r"flash_(aug|pair)_sm90(?:ILi(\d)E)?")
+#: K13's instantiations (flash_fixedmax_sm90<D, FAST>); keyed ("fixed", D,
+#: 1 in the fast_exp mode).
+FIXED_SM90 = re.compile(r"flash_fixedmax_sm90ILi(\d+)ELb([01])E")
+#: The instantiations ``--sass-diff`` compares: every Hopper attention body.
+SASS_DIFF_KINDS = ("K1", "K4", "K5", "K21", "exp", "aug_pair", "fixed")
 
 
 def _cuobjdump(flag: str, path: Path) -> str:
@@ -546,11 +566,15 @@ def _cuobjdump(flag: str, path: Path) -> str:
 
 
 def _sm90_key(name: str):
-    """("K1" | "K4" | "K5", D, mode) of a Hopper kernel instantiation's name."""
+    """(kind, D, mode) of a Hopper kernel instantiation's name: kind "K1",
+    "K4", "K5", "K21", "quant", "exp", "aug_pair" or "fixed"."""
     if m := K1_SM90.search(name):
         return "K1", int(m.group(1)), int(m.group(2))
     if m := BWD_SM90.search(name):
-        return "K4" if m.group(1) == "dkv" else "K5", int(m.group(2)), int(m.group(3))
+        kind = "K21" if m.group(4) else "K4" if m.group(1) == "dkv" else "K5"
+        return kind, int(m.group(2)), int(m.group(3))
+    if m := FIXED_SM90.search(name):
+        return "fixed", int(m.group(1)), int(m.group(2))
     if m := QUANT_SM90.search(name):
         return "quant", int(m.group(1)), int(m.group(2))
     if m := EXP_SM90.search(name):
@@ -654,25 +678,28 @@ def check_k1_sass(counts: dict, usage: dict) -> None:
 
 
 def check_bwd_sass(counts: dict, usage: dict) -> None:
-    """The same proof for K4 and K5: every bf16 instantiation (D 64 and
-    128, each stream mode) must hold HGMMA and UTMALDG, no HMMA, and no
-    stack (no spills). Prints the counts, registers, stack and local bytes
-    and, from ``pfa_bwd_sm90_info``, the work tile, the ring's tile and
-    stages, shared memory, threads and CTAs a SM."""
+    """The same proof for K4 and K5 (every bf16 instantiation: D 64 and
+    128, each stream mode) and K21 (K4's plain body with its key range and
+    chained launches, D 64 and 128): each must hold HGMMA and UTMALDG, no
+    HMMA, and no stack (no spills). Prints the counts, registers, stack and
+    local bytes and, from ``pfa_bwd_sm90_info`` (K21: K4's plain design),
+    the work tile, the ring's tile and stages, shared memory, threads and
+    CTAs a SM."""
     import ctypes
 
-    want = {(k, d, mode) for k in ("K4", "K5") for d in (64, 128) for mode in range(len(BWD_MODES))}
-    got = {key for key in counts if key[0] in ("K4", "K5")}
+    want = ({(k, d, mode) for k in ("K4", "K5") for d in (64, 128)
+             for mode in range(len(BWD_MODES))} | {("K21", d, 0) for d in (64, 128)})
+    got = {key for key in counts if key[0] in ("K4", "K5", "K21")}
     if got != want:
         raise AssertionError(f"K4/K5 SASS: bf16 instantiations {sorted(got)}, want {sorted(want)}")
-    rows = {"K4": ("key", "query"), "K5": ("query", "key")}
+    rows = {"K4": ("key", "query"), "K5": ("query", "key"), "K21": ("key", "query")}
     for kern, d, mode in sorted(want):
         c = counts[(kern, d, mode)]
         info = (ctypes.c_int * 16)()
         err = _build.lib().pfa_bwd_sm90_info(d, mode, info)
         if err:
             raise RuntimeError(f"pfa_bwd_sm90_info: CUDA error {err}")
-        i = info[0:8] if kern == "K4" else info[8:16]
+        i = info[0:8] if kern in ("K4", "K21") else info[8:16]
         reg = usage.get((kern, d, mode))
         line = (f"K4/K5 SASS {kern} D{d} {BWD_MODES[mode]}: HGMMA {c['HGMMA']}, UTMALDG "
                 f"{c['UTMALDG']}, HMMA {c['HMMA']}; " +
@@ -723,13 +750,15 @@ def check_quant_sass(counts: dict, usage: dict) -> None:
 
 def check_exp_sass(counts: dict, usage: dict) -> None:
     """The same proof for the experiments' bf16 body: K16-K19 (K16 and K18,
-    K17 at unroll 2 and 4, K19; D 64 and 128), K14 and K15 at every nchain
-    of ``CARD_NCHAINS``. Each instantiation must hold HGMMA and UTMALDG, no
-    HMMA, and no stack or local bytes. Prints the counts, registers, stack
-    and, from ``pfa_exp_sm90_info`` / ``pfa_aug_pair_sm90_info``, the key
-    tile, the ring's stages and shared memory, threads, CTAs a SM, the
-    setmaxnreg split, whether the next stage's Q.K^T overlaps this stage's
-    last P.V and whether the warpgroups take turns."""
+    K17 at unroll 2 and 4, K19; D 64 and 128), K13 (both exp modes, D 64
+    and 128), K14 and K15 at every nchain of ``CARD_NCHAINS``. Each
+    instantiation must hold HGMMA and UTMALDG, no HMMA, and no stack or
+    local bytes. Prints the counts, registers, stack and, from
+    ``pfa_exp_sm90_info`` / ``pfa_aug_pair_sm90_info`` /
+    ``pfa_fixedmax_sm90_info``, the key tile, the ring's stages and shared
+    memory, threads, CTAs a SM, the setmaxnreg split, whether the next
+    stage's Q.K^T overlaps this stage's last P.V and whether the
+    warpgroups take turns."""
     import ctypes
 
     from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
@@ -742,6 +771,9 @@ def check_exp_sass(counts: dict, usage: dict) -> None:
         ("aug_pair", {(64, n) for n in (0, *px.CARD_NCHAINS)},
          lambda d, n: f"{'K14 aug' if n == 0 else f'K15 nchain {n}'} D{d}",
          lambda d, n, out: lib.pfa_aug_pair_sm90_info(n, out)),
+        ("fixed", {(d, f) for d in (64, 128) for f in (0, 1)},
+         lambda d, f: f"K13 fixed-max{' fast_exp' if f else ''} D{d}",
+         lambda d, f, out: lib.pfa_fixedmax_sm90_info(d, f, out)),
     )
     for family, want, label, info_of in families:
         got = {key[1:] for key in counts if key[0] == family}
@@ -768,15 +800,16 @@ def check_exp_sass(counts: dict, usage: dict) -> None:
 
 
 def _normalised_sass(path: Path) -> dict:
-    """K1's bf16 and K16-K19's instantiations in a built library (or object
-    file): each one's instructions, keyed by ``_sm90_key``, with the
-    addresses and encodings dropped and every hex immediate (constant-bank
-    offsets, branch targets) replaced, so that two builds compare by code."""
+    """The instantiations of every Hopper attention body in a built library
+    (or object file; SASS_DIFF_KINDS: K1's bf16, K4/K5's, K21's, K13-K19's):
+    each one's instructions, keyed by ``_sm90_key``, with the addresses and
+    encodings dropped and every hex immediate (constant-bank offsets,
+    branch targets) replaced, so that two builds compare by code."""
     funcs, cur = {}, None
     for line in _cuobjdump("-sass", path).splitlines():
         if "Function :" in line:
             key = _sm90_key(line)
-            cur = key if key and key[0] in ("K1", "exp") else None
+            cur = key if key and key[0] in SASS_DIFF_KINDS else None
             if cur:
                 funcs[cur] = []
         elif cur and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)):
@@ -785,9 +818,10 @@ def _normalised_sass(path: Path) -> dict:
 
 
 def sass_diff(this: Path, other: Path) -> None:
-    """Prints, per K1 and K16-K19 instantiation, how many normalised SASS
-    lines differ between this tree's library and ``other`` (another tree's
-    build, e.g. the parent commit's): 0 means the same code."""
+    """Prints, per instantiation of ``_normalised_sass``, how many
+    normalised SASS lines differ between this tree's library and ``other``
+    (another tree's build, e.g. the parent commit's): 0 means the same
+    code."""
     import difflib
 
     mine, theirs = _normalised_sass(this), _normalised_sass(other)
@@ -4285,7 +4319,8 @@ def check_experiments(results: dict) -> dict:
                   for _ in range(2)))
 
     checked = {}
-    for (b, s, h, d), blk in (((2, 256, 4, 64), 128), ((1, 96, 3, 128), 32), (K1_HEADLINE, 512),
+    for (b, s, h, d), blk in (((2, 256, 4, 64), 128), ((1, 96, 3, 128), 32),
+                              ((2, 320, 3, 64), 64), ((1, 320, 2, 128), 64), (K1_HEADLINE, 512),
                               (EXPERIMENT_LONG, 512)):
         q, k, v = qkv(b, s, h, d)
         for causal in (False, True):
@@ -4297,6 +4332,8 @@ def check_experiments(results: dict) -> dict:
                                  lambda: fx.flash_fixedmax(q, k, v, **kw),
                                  lambda: fx.flash_fixedmax_plain(q, k, v, **kw), checked,
                                  timed=(b, s, h, d) == K1_HEADLINE and causal)
+    for fast in (False, True):
+        check_k13_graph_replay(fast, checked, lambda sh: qkv(*sh))
     for (b, sq, skv, h), blk in (((2, 256, 256, 4), 128), ((1, 96, 160, 2), 32),
                                  ((1, 160, 96, 2), 32), ((4, 2048, 2048, 12), 512),
                                  ((1, 8192, 8192, 12), 512)):
@@ -4444,10 +4481,11 @@ def check_experiments(results: dict) -> dict:
                          lambda: flash_ops.flash_attention_qk_quant_plain(
                              q8[:1], k8[:1], v[:1], sc, causal=causal, out_dtype=v.dtype),
                          checked, launches=("pfa_flash_fwd_int8qk", 1))
-    # K20 (dq, once a row-block) and K21 (dk, dv, once a key block) through
-    # their wrappers on one di: at bx.CARD_CHECKS causal and not, and at
-    # every geometry and block of their main. K21's two outputs are compared
-    # stacked.
+    # K20 (dq, once a row-block) and K21 (dk, dv, once a key block: bf16 on
+    # K4's Hopper body, fp32 on the mma.sync body under its own counter)
+    # through their wrappers on one di: at bx.CARD_CHECKS causal and not,
+    # and at every geometry and block of their main. K21's two outputs are
+    # compared stacked.
     bwd_cases = ([(shape, dtype, blocks, causal) for shape, dtype, blocks in bx.CARD_CHECKS
                   for causal in both]
                  + [(shape, torch.bfloat16, bx.BLOCKS, causal) for _, shape, causal in bx.CASES])
@@ -4465,12 +4503,37 @@ def check_experiments(results: dict) -> dict:
                              lambda: bx.dq_rowblocks(q, k, v, do, lse, di, **kw),
                              lambda: bx.dq_rowblocks_plain(q, k, v, do, lse, di, **kw), checked,
                              timed=headline, launches=("pfa_flash_bwd_dq_rowblock", s // bq))
-            _experiment_case("pfa_flash_bwd_dkv_colblock", f"K21 dk, dv {geom}",
+            name = route("pfa_flash_bwd_dkv_colblock", dtype)
+            _experiment_case(name, f"K21 dk, dv {geom}",
                              lambda: torch.stack(bx.dkv_colblocks(q, k, v, do, lse, di, **kw)),
                              lambda: torch.stack(bx.dkv_colblocks_plain(q, k, v, do, lse, di,
                                                                         **kw)),
-                             checked, timed=headline,
-                             launches=("pfa_flash_bwd_dkv_colblock", s // bkv))
+                             checked, timed=headline, launches=(name, s // bkv))
+    check_k21_graph_replay(checked, gen)
+    # K21's fp32 inputs (the mma.sync body) at K1's headline shape in fp32,
+    # block_kv 512: checked, the plain version timed once, the kernel by the
+    # fit beside SDPA's backward on the same fp32 inputs (CUDA events); the
+    # bound counts fp32 bytes and bf16 products (the body converts on load).
+    b, s, h, d = K1_HEADLINE
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen) for _ in range(4))
+    o, lse = flash_ops.flash_attention_with_lse(q, k, v, causal=True)
+    lib32 = sdpa_bwd_ms(q, k, v, do)
+    q, k, v, o, do = (t.transpose(1, 2).contiguous() for t in (q, k, v, o, do))
+    di = bx.flash_bwd_di(o, do)
+    kw = dict(sm_scale=d ** -0.5, causal=True, block_q=512, block_kv=512)
+    name = "pfa_flash_bwd_dkv_colblock_fp32"
+    call = lambda: torch.stack(bx.dkv_colblocks(q, k, v, do, lse, di, **kw))  # noqa: E731
+    _experiment_case(name, f"K21 dk, dv B{b} S{s} H{h} D{d} float32 bq=512 bkv=512 causal", call,
+                     lambda: torch.stack(bx.dkv_colblocks_plain(q, k, v, do, lse, di, **kw)),
+                     checked, timed=True, launches=(name, s // 512))
+    ms = fit_seconds(call, EXPERIMENT_FIT, torch.device("cuda")) * 1e3
+    bound = card_bound(8.0 * d * h * attention_pairs(b, s, s, True),
+                       4 * (6 * b * s * h * d + 2 * b * h * s), torch.bfloat16)
+    checked[name].update(ms=ms, library_ms=lib32, shape=list(K1_HEADLINE), **bound)
+    print(f"experiments: K21 dk, dv fp32 (mma.sync body) B{b} S{s} H{h} D{d} bkv=512 causal: "
+          f"{ms:.4f} ms (graph fit); SDPA backward fp32 (dq, dk, dv; CUDA events) {lib32:.4f} ms; "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+          f"{100 * bound['bound_ms'] / ms:.2f} % of it", flush=True)
     for name in ("pfa_flash_fwd", "pfa_flash_fwd_int8qk"):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                            checked[name]["max_abs_err"])
@@ -4521,6 +4584,45 @@ def check_k15_graph_replay(nchain: int, checked: dict, make_qkv) -> None:
                        lambda: make_qkv(shape))
 
 
+def check_k13_graph_replay(fast: bool, checked: dict, make_qkv) -> None:
+    """One K13 call at K1's headline shape, causal, in either exp mode,
+    through check_graph_replay."""
+    from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fx
+
+    q, k, v = make_qkv(K1_HEADLINE)
+    kw = dict(causal=True, block_q=512, block_kv=512, fast_exp=fast)
+    b, s, h, d = K1_HEADLINE
+    check_graph_replay("pfa_flash_fixedmax_fast" if fast else "pfa_flash_fixedmax",
+                       f"K13 fixedmax{' fast_exp' if fast else ''} B{b} S{s} H{h} D{d} causal",
+                       lambda: fx.flash_fixedmax(q, k, v, **kw),
+                       lambda: fx.flash_fixedmax_plain(q, k, v, **kw), 1, checked, (q, k, v),
+                       lambda: make_qkv(K1_HEADLINE))
+
+
+def check_k21_graph_replay(checked: dict, gen) -> None:
+    """One K21 call in bf16 at K1's headline shape, causal, block_kv 512 (4
+    launches, each after the first a programmatic dependent launch), on
+    inputs from K1's forward, through check_graph_replay."""
+    from photonic_flash_attention_tpu_torch.experiments import flash_bwd_unrolled_experiment as bx
+
+    b, s, h, d = K1_HEADLINE
+    kw = dict(sm_scale=d ** -0.5, causal=True, block_q=512, block_kv=512)
+
+    def fresh():
+        q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = flash_ops.flash_attention_with_lse(q, k, v, causal=True)
+        q, k, v, o, do = (t.transpose(1, 2).contiguous() for t in (q, k, v, o, do))
+        return q, k, v, do, lse, bx.flash_bwd_di(o, do)
+
+    inputs = fresh()
+    check_graph_replay("pfa_flash_bwd_dkv_colblock",
+                       f"K21 dk, dv B{b} S{s} H{h} D{d} bfloat16 bkv=512 causal",
+                       lambda: torch.stack(bx.dkv_colblocks(*inputs, **kw)),
+                       lambda: torch.stack(bx.dkv_colblocks_plain(*inputs, **kw)), s // 512,
+                       checked, inputs, fresh)
+
+
 def check_k18_graph_replay(shape, block_q: int, checked: dict, make_qkv) -> None:
     """One K18 call in bf16 (B, S, Hq, Hkv, D) at ``block_q`` (one call a
     row-block, each after the first a programmatic dependent launch)
@@ -4564,8 +4666,12 @@ def time_exp_table(smi: str) -> list:
     repository (the parent commit, or a copy with a lever of the kernels
     changed). K14 and K15 (each nchain its tree's ``CARD_NCHAINS`` holds, S cut
     by the pair module's ``pair_case`` where nchain does not divide it) come
-    first, over the aug and pair modules' CASES, causal."""
+    first, over the aug and pair modules' CASES, causal. K13 in both exp
+    modes (the kernel alone, ``fixedmax_kernel``, its bound precomputed)
+    joins them over the fixed-max module's CASES, its fast_exp rows held to
+    K1 within FAST_EXP_ORACLE_BOUND. Then K21 (``time_k21_rows``)."""
     from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as ax
+    from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fx
     from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
     from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
 
@@ -4576,7 +4682,9 @@ def time_exp_table(smi: str) -> list:
     tri_blocks = {}
     for bq, bkv in ux.TRI_BLOCKS:
         tri_blocks.setdefault(bq, bkv)
-    cases = ([("K14", f"B{b} S{s}", (b, s, h, h, d), True, None) for b, s, h, d in ax.CASES]
+    cases = ([(f"K13{' fast_exp' if fast else ''}", name, (b, s, h, h, d), causal, fast)
+              for name, (b, s, h, d), causal in fx.CASES for fast in (False, True)]
+             + [("K14", f"B{b} S{s}", (b, s, h, h, d), True, None) for b, s, h, d in ax.CASES]
              + [(f"K15 nchain {n}", f"B{b} S{pair_case(s, n)[0]}",
                  (b, pair_case(s, n)[0], h, h, d), True, (n, pair_case(s, n)[1]))
                 for b, s, h, d in px.CASES for n in px.CARD_NCHAINS]
@@ -4605,7 +4713,13 @@ def time_exp_table(smi: str) -> list:
             inputs[key] = (q, k, v, ref)
         q, k, v, ref = inputs[key]
         blk = min(512, s)
-        if kernel == "K14":
+        bound_err = EXPERIMENT_BOUND
+        if kernel.startswith("K13"):
+            fm = fx.fixed_max_bound(q, k, d ** -0.5)
+            call = lambda: fx.fixedmax_kernel(q, k, v, fm, causal=causal,  # noqa: E731
+                                              sm_scale=d ** -0.5, fast_exp=arg)
+            bound_err = FAST_EXP_ORACLE_BOUND if arg else EXPERIMENT_BOUND
+        elif kernel == "K14":
             call = lambda: ax.flash_aug(q, k, v, bq=blk, bkv=blk)  # noqa: E731
         elif kernel.startswith("K15"):
             call = lambda: px.flash_pair(q, k, v, bq=arg[1], bkv=arg[1],  # noqa: E731
@@ -4635,10 +4749,62 @@ def time_exp_table(smi: str) -> list:
                 f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), kernel at "
                 f"{100 * bnd['bound_ms'] / ms:.2f} % of it; vs K1 rel_err_norm {err:.3e} ({smi})")
         print(line, flush=True)
-        if not err <= EXPERIMENT_BOUND:
+        if not err <= bound_err:
             raise AssertionError(line)
         table.append(row)
     inputs.clear()
+    torch.cuda.empty_cache()
+    return table + time_k21_rows(smi)
+
+
+def time_k21_rows(smi: str) -> list:
+    """K21 (``dkv_colblocks``, a launch a key block) over the unrolled
+    backward's CASES at each block_kv of its BLOCKS, by the graph fit (2,
+    10), beside K4 alone (``flash_bwd_dkv``: all keys in one launch) and
+    SDPA's backward (dq, dk, dv; its autograd node replayed from a graph) on
+    the same inputs (o and lse from K1's forward), the bound of dk and dv
+    (``bwd_bounds``) and the kernel's share of it, and its dk, dv against
+    K4's within EXPERIMENT_BOUND. Public calls only, as the exp table."""
+    from photonic_flash_attention_tpu_torch.experiments import flash_bwd_unrolled_experiment as bx
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    fit = lambda fn: fit_seconds(fn, EXPERIMENT_FIT, torch.device("cuda")) * 1e3  # noqa: E731
+    table = []
+    for name, (b, s, h, d), causal in bx.CASES:
+        torch.cuda.empty_cache()
+        qs, ks, vs, dos = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                           .to(torch.bfloat16) for _ in range(4))
+        os_, lse = flash_ops.flash_attention_with_lse(qs, ks, vs, causal=causal)
+        q, k, v, o, do = (t.transpose(1, 2).contiguous() for t in (qs, ks, vs, os_, dos))
+        di = bx.flash_bwd_di(o, do)
+        sm = d ** -0.5
+        k4 = lambda: bwd_ops.flash_bwd_dkv(qs, ks, vs, dos, lse, di, sm_scale=sm,  # noqa: E731
+                                           causal=causal)
+        ref = torch.stack([t.transpose(1, 2) for t in k4()])
+        k4_ms = fit(k4)
+        sdpa_bwd = fit(_sdpa_bwd_calls(qs, ks, vs, dos, is_causal=causal)[1])
+        meta = torch.empty(b, s, h, d, device="meta", dtype=torch.bfloat16)
+        bnd = bwd_bounds(meta, meta, causal)[0]
+        for bkv in dict.fromkeys(bkv for _, bkv in bx.BLOCKS):
+            if s % bkv:
+                continue
+            kw = dict(sm_scale=sm, causal=causal, block_q=bkv, block_kv=bkv)
+            call = lambda: bx.dkv_colblocks(q, k, v, do, lse, di, **kw)  # noqa: E731
+            err = rel_err_norm(torch.stack(call()), ref)
+            ms = fit(call)
+            table.append(dict(kernel="K21", case=f"{name} bkv={bkv}", shape=[b, s, h, h, d],
+                              causal=causal, fit_ms=ms, k4_fit_ms=k4_ms,
+                              sdpa_bwd_fit_ms=sdpa_bwd, rel_err_k4=err, launches=s // bkv,
+                              **bnd))
+            line = (f"exp table: K21 {name} bkv={bkv} (B{b} S{s} H{h} D{d} causal={causal}, "
+                    f"{s // bkv} launches): {ms:.4f} ms (graph fit); K4 alone {k4_ms:.4f} ms, "
+                    f"SDPA backward (dq, dk, dv) {sdpa_bwd:.4f} ms; kernel / K4 {ms / k4_ms:.3f}, "
+                    f"kernel / SDPA backward {ms / sdpa_bwd:.3f}; bound {bnd['bound_ms']:.4f} ms "
+                    f"({bnd['bound_by']}), kernel at {100 * bnd['bound_ms'] / ms:.2f} % of it; "
+                    f"vs K4 rel_err_norm {err:.3e} ({smi})")
+            print(line, flush=True)
+            if not err <= EXPERIMENT_BOUND:
+                raise AssertionError(line)
     torch.cuda.empty_cache()
     return table
 
@@ -4832,7 +4998,7 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
         if whole_key:
             results[name]["whole_call_ms"] = row[whole_key]
     for name in ("pfa_flash_pipelined_fp32", "pfa_flash_chunked_fp32", "pfa_flash_tri_fp32",
-                 "pfa_flash_fulltri_fp32"):
+                 "pfa_flash_fulltri_fp32", "pfa_flash_bwd_dkv_colblock_fp32"):
         results[name] = checked[name]  # timed in check_experiments
     results["pfa_flash_pair"]["cases"] = [
         {"nchain": row["nchain"], "ms": row["pair_ms"], "k1_ms": row["k1_ms"]}
@@ -4853,13 +5019,13 @@ def main() -> None:
                              "copy of this script times any tree of the repository); no result "
                              "line")
     parser.add_argument("--exp-table", action="store_true",
-                        help="only build and print the exp table of K16-K19 (public calls "
-                             "only, so a copy of this script times any tree of the repository); "
-                             "no result line")
+                        help="only build and print the exp table of K13-K19 and K21 (public "
+                             "calls only, so a copy of this script times any tree of the "
+                             "repository); no result line")
     parser.add_argument("--sass-diff", metavar="LIB",
-                        help="only build and compare K1's and K16-K19's SASS, normalised, with "
-                             "another build of the library (LIB, e.g. the parent commit's); no "
-                             "result line")
+                        help="only build and compare the SASS of K1's, K4/K5's, K21's and "
+                             "K13-K19's Hopper instantiations, normalised, with another build "
+                             "of the library (LIB, e.g. the parent commit's); no result line")
     parser.add_argument("--k3-table", action="store_true",
                         help="only build, print the K3 table and time GPT-2 medium's decode "
                              "step (public calls only, so a copy of this script times any tree "

@@ -1,6 +1,8 @@
 // K20 (dQ, one launch per query row-block) and K21 (dK/dV, one launch per
-// key block): the unrolled-backward experiment's kernels for Hopper
-// (sm_90a).
+// key block): the unrolled-backward experiment's kernels on mma.sync
+// (sm_90a). K21 runs here only for fp32 inputs: in bf16 it is K4's Hopper
+// body (flash_bwd_sm90.cu, pfa_flash_bwd_dkv_colblock_sm90), since TMA
+// cannot convert fp32 on load.
 //
 // Replace the TPU kernels benchmarks/flash_bwd_unrolled_experiment.py::
 // _dq_kernel_unrolled (:41, called at :150) and _dkv_kernel_unrolled (:83,
@@ -17,8 +19,8 @@
 //
 // Contract: q, k, v, dO (B, H, S, D) contiguous (JAX's [B, H, S, D]
 // domain; no GQA), lse and di = rowsum(o * dO) (B, H, S) fp32, lse in
-// natural log; D in {64, 128}; bf16 or fp32 inputs, converted to bf16 on
-// load as JAX's bodies cast them; S, the first row or key of a launch and
+// natural log; D in {64, 128}; bf16 (K20) or fp32 inputs, converted to
+// bf16 on load as JAX's bodies cast them; S, the first row or key of a launch and
 // its row or key count multiples of 64; causal is top-left (col <= row).
 // dq/dk/dv come out in the input dtype, each launch writing its rows of one
 // (B, H, S, D) output in place (JAX concatenates the calls' outputs).
@@ -382,7 +384,8 @@ extern "C" int pfa_flash_bwd_dq_rowblock(const void* q, const void* k, const voi
   return cudaErrorInvalidValue;
 }
 
-// K21: dk, dv rows [kv_col0, kv_col0 + cols) of every (b, h).
+// K21 in fp32 (bf16: flash_bwd_sm90.cu, pfa_flash_bwd_dkv_colblock_sm90):
+// dk, dv rows [kv_col0, kv_col0 + cols) of every (b, h).
 extern "C" int pfa_flash_bwd_dkv_colblock(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* di,
                                           void* dk, void* dv, int B, int S, int H, int D,
@@ -391,8 +394,6 @@ extern "C" int pfa_flash_bwd_dkv_colblock(const void* q, const void* k, const vo
   if (bad_block(B, S, H, kv_col0, cols)) return cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, di, B, S, H, kv_col0, cols, sm_scale, causal,
                            stream);
-  if (dtype == PFA_BF16 && D == 64) return dkv_launch<__nv_bfloat16, 64>(a, dk, dv);
-  if (dtype == PFA_BF16 && D == 128) return dkv_launch<__nv_bfloat16, 128>(a, dk, dv);
   if (dtype == PFA_F32 && D == 64) return dkv_launch<float, 64>(a, dk, dv);
   if (dtype == PFA_F32 && D == 128) return dkv_launch<float, 128>(a, dk, dv);
   return cudaErrorInvalidValue;

@@ -52,6 +52,28 @@
 // * The grid is persistent: one CTA a SM walks the work tiles in snake
 //   order, heads fastest, the longest first (causal K5: the last query
 //   blocks; causal K4: the first key blocks).
+//
+// K21 (the unrolled backward's dK/dV, one launch per block_kv key block:
+// benchmarks/flash_bwd_unrolled_experiment.py::_dkv_kernel_unrolled :83)
+// in bf16 is K4's plain body, flash_bwd_dkv_sm90<D, PLAIN, true>: a launch
+// takes the key range [kv_row0, kv_row0 + rows) (Params::kv_row0, kv_end),
+// its work tiles the 128-key blocks of the range x heads x batch rows on
+// the persistent grid, each walking K4's query tiles from its diagonal to
+// S. K21's q, k, v, dO (B, H, S, D) contiguous are K4's (B', S, H', D)
+// layout with B' = B H and H' = 1, and its lse and di (B, H, S) are K4's
+// (B', H', S), so the launch hands its tensors to K4's tensor maps and
+// indexing as they are. Where the range is not a multiple of 128 keys (64,
+// 192, 320 ... are legal), the last work tile's second warpgroup holds
+// keys past the range end: they are computed, every barrier arrived on,
+// and not stored; the launch that owns them writes them. The launches of
+// one call read the same inputs and write disjoint rows, so each after the
+// first is a programmatic dependent launch (`chained`, as K18's): a CTA
+// lets the next launch start at once (griddepcontrol.launch_dependents)
+// and its producer warp waits, once it has issued its last load, for the
+// launch ahead to complete (griddepcontrol.wait), so no launch completes
+// before the one ahead of it. Only the K21 instantiation holds the range
+// and the griddepcontrol instructions (the template's COLBLOCK), so K4's
+// own instantiations keep their code.
 
 #include <limits.h>
 
@@ -128,6 +150,7 @@ struct Params {
   float scale, scale_log2;
   int causal;
   Streams st;
+  int kv_row0, kv_end;  // K21: the launch's keys [kv_row0, kv_end)
 };
 
 // --- K5: dQ ---------------------------------------------------------------------
@@ -380,14 +403,15 @@ struct DkvWork {
 
 // Work tile t: heads fastest, then batch rows, then key blocks, the first
 // (longest under the causal mask) first; its query tiles are those from
-// which its keys are seen.
-template <int BQ>
+// which its keys are seen. COLBLOCK (K21): the key blocks from kv_row0.
+template <int BQ, bool COLBLOCK>
 __device__ __forceinline__ DkvWork dkv_work(const Params& p, int t) {
   DkvWork w;
   w.h = t % p.H;
   const int r = t / p.H;
   w.b = r % p.B;
   w.kv0 = (r / p.B) * BLOCK;
+  if constexpr (COLBLOCK) w.kv0 += p.kv_row0;
   const int off = p.Skv - p.Sq;
   w.q_begin = band_q_begin(p.st, w.kv0, off, p.causal, BQ);
   const int q_end = band_q_end(p.st, w.kv0, BLOCK, off, p.Sq);
@@ -432,7 +456,8 @@ __device__ __forceinline__ void dkv_scores(float* s, float* dp, const float* vec
   }
 }
 
-template <int D, int MODE>
+// COLBLOCK: K21's instantiation (the key range, the chained launches).
+template <int D, int MODE, bool COLBLOCK = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -446,6 +471,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
   const uint32_t bar_full = base + C::OFF_BAR, bar_empty = bar_full + 8 * STAGES;
   const uint32_t bar_kvfull = bar_empty + 8 * STAGES, bar_kvempty = bar_kvfull + 8 * KVBUF;
   const int n_work = p.n_work, off = p.Skv - p.Sq;
+  if constexpr (COLBLOCK) pdl_launch_dependents();
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -470,7 +496,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
       const int t = snake_tile(n);
       if (t >= n_work) continue;
-      const DkvWork w = dkv_work<BQ>(p, t);
+      const DkvWork w = dkv_work<BQ, COLBLOCK>(p, t);
       const int kb = n % KVBUF;
       const uint32_t kf = bar_kvfull + 8 * kb;
       mbar_wait(bar_kvempty + 8 * kb, ((n / KVBUF) & 1) ^ 1);
@@ -507,6 +533,9 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
         }
       }
     }
+    // K21: the CTA does not exit before the launch ahead of it has (the
+    // wait in the consumers' code made them spill).
+    if constexpr (COLBLOCK) pdl_wait();
   } else {
     // --- consumers: 64 keys each --------------------------------------------------
     setmaxnreg_inc<CONSUMER_REGS>();
@@ -528,7 +557,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
       const int t = snake_tile(n);
       if (t >= n_work) continue;
-      const DkvWork w = dkv_work<BQ>(p, t);
+      const DkvWork w = dkv_work<BQ, COLBLOCK>(p, t);
       const int kb = n % KVBUF, nt = w.n_tiles;
       const int kw = w.kv0 + wg * 64;         // the warpgroup's first key
       const int key0 = kw + warp * 16 + g;    // this thread's keys: key0, key0 + 8
@@ -647,10 +676,12 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       release(bar_kvempty + 8 * kb);
       it += nt;
 
+      int key_end = p.Skv;  // K21: keys past the range are another launch's
+      if constexpr (COLBLOCK) key_end = p.kv_end;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int key = key0 + 8 * i;
-        if (key >= p.Skv) continue;
+        if (key >= key_end) continue;
         const long long at = (((long long)w.b * p.Skv + key) * p.H + w.h) * D;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
@@ -724,6 +755,30 @@ cudaError_t launch_dkv(const BwdSm90Args& a, void* dk, void* dv, cudaStream_t st
   p.out0 = static_cast<__nv_bfloat16*>(dk);
   p.out1 = static_cast<__nv_bfloat16*>(dv);
   return run(flash_bwd_dkv_sm90<D, MODE>, C::SMEM, maps, p, stream);
+}
+
+// K21: one launch over keys [kv_row0, kv_row0 + rows) on the plan's grid
+// (1 to the work tiles), ring stages and shared memory, which must be this
+// file's; `chained`: a programmatic dependent launch.
+template <int D>
+cudaError_t launch_colblock(const BwdSm90Args& a, void* dk, void* dv, int kv_row0, int rows,
+                            bool chained, int stages, int smem, int grid, cudaStream_t stream) {
+  using C = DkvCfg<D>;
+  if (stages != C::STAGES || smem != C::SMEM) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  Params p;
+  cudaError_t e = prepare(a, D, C::BQ, 64, rows, maps, p);
+  if (e != cudaSuccess) return e;
+  if (grid < 1 || grid > p.n_work) return cudaErrorInvalidValue;
+  p.out0 = static_cast<__nv_bfloat16*>(dk);
+  p.out1 = static_cast<__nv_bfloat16*>(dv);
+  p.kv_row0 = kv_row0;
+  p.kv_end = kv_row0 + rows;
+  const auto kernel = flash_bwd_dkv_sm90<D, PLAIN, true>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return launch_chained(kernel, chained, grid, THREADS, smem, stream, maps[0], maps[1], maps[2],
+                        maps[3], p);
 }
 
 // out[8]: rows a work tile, rows of the ring's tile, dynamic shared memory
@@ -800,4 +855,32 @@ extern "C" int pfa_bwd_sm90_info(int D, int mode, int* out) {
     case DROPOUT: return info_mode<DROPOUT>(D, out);
   }
   return cudaErrorInvalidValue;
+}
+
+// K21 in bf16: one launch over keys [kv_row0, kv_row0 + rows) of every
+// (b, h). q, k, v, dout (B, H, S, D) bf16, contiguous, 16-byte-aligned
+// bases; lse (natural log) and di (B, H, S) fp32; dk, dv (B, H, S, D) bf16,
+// the range's rows written in place; causal (col <= row) or not; D in {64,
+// 128}; kv_row0 and rows multiples of 64 with the range inside [0, S);
+// stages, smem and grid from experiments/flash_bwd_unrolled_experiment.py::
+// k21_plan. `chained` (every launch of a call after its first): a
+// programmatic dependent launch on the one ahead of it in the stream.
+extern "C" int pfa_flash_bwd_dkv_colblock_sm90(const void* q, const void* k, const void* v,
+                                               const void* dout, const void* lse, const void* di,
+                                               void* dk, void* dv, int B, int S, int H, int D,
+                                               int kv_row0, int rows, float sm_scale, int causal,
+                                               int chained, int stages, int smem, int grid,
+                                               void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || (long long)B * H > INT_MAX || kv_row0 < 0 || kv_row0 % 64 ||
+      rows <= 0 || rows % 64 || (long long)kv_row0 + rows > S)
+    return cudaErrorInvalidValue;
+  // (B, H, S, D) is K4's (B', S, H', D) with B' = B H, H' = 1.
+  const BwdSm90Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(di),
+                      B * H, S, S, 1, D, sm_scale, causal,
+                      Streams{-WINDOW_OPEN, WINDOW_OPEN, 0u, 0u, 1.f}};
+  if (!takes(a)) return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_colblock<64>(a, dk, dv, kv_row0, rows, chained != 0, stages, smem, grid, st);
+  return launch_colblock<128>(a, dk, dv, kv_row0, rows, chained != 0, stages, smem, grid, st);
 }

@@ -1,9 +1,6 @@
-// K13, K16-K19: the forward design-space experiments on mma.sync (sm_90a).
+// K16-K19: the forward design-space experiments on mma.sync (sm_90a).
 //
-// Replace the TPU kernels of benchmarks/ (B15a, d-h):
-// * K13 pfa_flash_fixedmax: flash_fixedmax_experiment.py::_kernel (VFA's
-//   precomputed row bound: no running max, no alpha, no rescale; the
-//   Schraudolph `fast_exp` mode);
+// Replace the TPU kernels of benchmarks/ (B15d-h):
 // * K16 pfa_flash_pipelined: flash_pipeline_experiment.py::_kernel (the KV
 //   loop software-pipelined so QK(j+1) overlaps softmax(j)), fp32 inputs
 //   here, bf16 on the Hopper body of flash_experiments_sm90.cu;
@@ -18,8 +15,8 @@
 //   causal triangle, the next row's first tiles fetched during the last
 //   tile of the current one), fp32 inputs here, bf16 on
 //   flash_experiments_sm90.cu.
-// K14 (augmented V) and K15 (paired chains) run only on the Hopper body of
-// flash_experiments_sm90.cu (bf16, D 64). Callers:
+// K13 (fixed max), K14 (augmented V) and K15 (paired chains) run only on
+// the Hopper body of flash_experiments_sm90.cu (bf16). Callers:
 // experiments/flash_*_experiment.py in the port package.
 //
 // What bounds them on the H100: the same work as K1 (csrc/flash_fwd.cu).
@@ -40,8 +37,7 @@
 // not K1's end-aligned diagonal; the two agree for square shapes. Every
 // row sees key 0, so after the first tile every running max is finite and
 // masked keys can be -inf where JAX uses a finite mask value: they
-// contribute exactly 0 either way (fixed-max's fast_exp excepted: JAX's
-// clip gives a masked key 2^-126, and so does K13).
+// contribute exactly 0 either way.
 
 #include "common.cuh"
 
@@ -51,21 +47,6 @@ constexpr int XBQ = 64;       // query rows of one chain: 4 warps x 16
 constexpr int XBKV = 64;      // keys per K/V tile
 constexpr int XTHREADS = 128;
 constexpr int NT = XBKV / 8;  // 8-wide score tiles per K/V tile
-
-// The Schraudolph bit-trick exp of the fixed-max experiment, with JAX's
-// constants in natural units (flash_fixedmax_experiment.py:96-101): the
-// fp32 literals round as jnp.float32 rounds them (1064986823 -> 1064986816,
-// 2139095039 -> 2139095040, whose int is +inf's bits). The float-to-int
-// conversion truncates, as astype(int32).
-constexpr float FEXP_A = 12102203.0f;
-constexpr float FEXP_B = 1064986823.0f;
-constexpr float FEXP_LO = 8388608.0f;
-constexpr float FEXP_HI = 2139095039.0f;
-
-__device__ __forceinline__ float fast_exp(float x) {
-  const float y = fminf(fmaxf(fmaf(x, FEXP_A, FEXP_B), FEXP_LO), FEXP_HI);
-  return __int_as_float(__float2int_rz(y));
-}
 
 // Q fragments of a warp's 16 rows from row r0 of the staged Q tile.
 template <int D, int LD>
@@ -193,82 +174,6 @@ __device__ __forceinline__ void store_rows(OutT* o, float acc[D / 8][4], const f
     for (int dn = 0; dn < D / 8; ++dn)
       store2(orow + dn * 8 + t4 * 2, acc[dn][2 * i] * inv, acc[dn][2 * i + 1] * inv);
   }
-}
-
-// --- K13: fixed max ---------------------------------------------------------
-//
-// M (B, H, S) fp32 is the prolog's Cauchy-Schwarz bound of each row's
-// scaled scores (experiments/flash_fixedmax_experiment.py::fixed_max_bound),
-// read once per row. Per score: exp mode one FFMA (s * scale * log2 e -
-// M * log2 e), exp2f, the FADD into l and half a bf16 pack; fast_exp one
-// FFMA to the natural-unit x = s * scale - M, then JAX's FFMA, two clamps
-// and the truncating conversion, no MUFU. No max, no alpha, no rescale: the
-// final acc / l cancels the uniform exp(m_true - M). Exact while M - m_true
-// stays inside fp32's exp range (~87; JAX's contract, not clamped here).
-template <int D, bool FAST, bool MASKED>
-__device__ __forceinline__ void fixedmax_tile(float acc[D / 8][4], float l[2],
-                                              uint32_t qf[D / 16][4],
-                                              const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
-                                              const float mb[2], float sc, int kv0,
-                                              const int rows[2], int S, bool causal, int g,
-                                              int t4) {
-  float s[NT][4];
-  qk_tile<D, D + 8>(s, qf, Ks, g, t4);
-  if (MASKED) mask_tile(s, kv0, rows, S, causal, t4);
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = fmaf(s[n][e], sc, -mb[e >> 1]);
-      s[n][e] = FAST ? fast_exp(x) : exp2f(x);
-      l[e >> 1] += s[n][e];
-    }
-  pv_tile<D / 8, D + 8>(acc, s, Vs, g, t4);
-}
-
-template <int D, bool FAST>
-__global__ void __launch_bounds__(XTHREADS)
-flash_fixedmax_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      const float* __restrict__ M, int S, int H, float scale, int causal) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + XBQ * LD;
-  __nv_bfloat16* Vs = Ks + XBKV * LD;
-
-  const int q0 = blockIdx.x * XBQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3, wr = warp * 16;
-  const long long str = (long long)H * D, base = (long long)b * S * str + (long long)h * D;
-
-  load_tile_bf16<D, LD, XTHREADS>(Qs, q + base + q0 * str, str, XBQ, S - q0);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-  q_frags<D, LD>(qf, Qs, wr, g, t4);
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const float* mrow = M + ((long long)b * H + h) * S;
-  // exp mode in log2 units, fast_exp in natural units (JAX's constants).
-  const float sc = FAST ? scale : scale * LOG2E;
-  float mb[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) mb[i] = rows[i] < S ? (FAST ? 1.f : LOG2E) * mrow[rows[i]] : 0.f;
-
-  float acc[D / 8][4] = {};
-  float l[2] = {0.f, 0.f};
-  const int kv_end = causal ? min(S, q0 + XBQ) : S;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += XBKV) {
-    __syncthreads();
-    load_tile_bf16<D, LD, XTHREADS>(Ks, k + base + kv0 * str, str, XBKV, S - kv0);
-    load_tile_bf16<D, LD, XTHREADS>(Vs, v + base + kv0 * str, str, XBKV, S - kv0);
-    __syncthreads();
-    if (kv0 + XBKV > S || (causal && kv0 + XBKV - 1 > q0 + wr))
-      fixedmax_tile<D, FAST, true>(acc, l, qf, Ks, Vs, mb, sc, kv0, rows, S, causal, g, t4);
-    else
-      fixedmax_tile<D, FAST, false>(acc, l, qf, Ks, Vs, mb, sc, kv0, rows, S, causal, g, t4);
-  }
-  quad_sum(l);
-  store_rows<D>(o, acc, l, rows, S, str, base, t4);
 }
 
 // --- K16: the pipelined KV loop ---------------------------------------------
@@ -756,19 +661,6 @@ cudaError_t launch_k(Kern kern, dim3 grid, int smem, cudaStream_t st, Args... ar
   return cudaGetLastError();
 }
 
-using bf16p = const __nv_bfloat16*;
-
-template <int D>
-cudaError_t run_fixedmax(const void* q, const void* k, const void* v, void* o, const float* fm,
-                         int B, int S, int H, float scale, int causal, int fast,
-                         cudaStream_t st) {
-  const dim3 grid((S + XBQ - 1) / XBQ, H, B);
-  const int smem = (XBQ + 2 * XBKV) * (D + 8) * (int)sizeof(__nv_bfloat16);
-  auto kern = fast ? flash_fixedmax_kernel<D, true> : flash_fixedmax_kernel<D, false>;
-  return launch_k(kern, grid, smem, st, static_cast<bf16p>(q), static_cast<bf16p>(k),
-                  static_cast<bf16p>(v), static_cast<__nv_bfloat16*>(o), fm, S, H, scale, causal);
-}
-
 template <int D, typename T>
 cudaError_t run_pipelined(const void* q, const void* k, const void* v, void* o, int B, int S,
                           int Hq, int Hkv, float scale, int causal, cudaStream_t st) {
@@ -832,18 +724,6 @@ cudaError_t run_fulltri(const void* q, const void* k, const void* v, void* o, in
 }
 
 }  // namespace
-
-// K13. q, k, v, o (B, S, H, D) bf16, D in {64, 128}; fm (B, H, S) fp32.
-extern "C" int pfa_flash_fixedmax(const void* q, const void* k, const void* v, void* o,
-                                  const void* fm, int B, int S, int H, int D, float sm_scale,
-                                  int causal, int fast_exp, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(fm);
-  if (D == 64) return run_fixedmax<64>(q, k, v, o, m, B, S, H, sm_scale, causal, fast_exp, st);
-  if (D == 128) return run_fixedmax<128>(q, k, v, o, m, B, S, H, sm_scale, causal, fast_exp, st);
-  return cudaErrorInvalidValue;
-}
 
 // K16 in fp32 (the bf16 body: pfa_flash_pipelined_sm90). q (B, S, Hq, D),
 // k/v (B, S, Hkv, D), o like q; fp32 (dtype), D in {64, 128}, Hq % Hkv == 0.

@@ -1,12 +1,16 @@
-// K14-K19 (bf16): the augmented-V, paired-chain, pipelined, chunked-staging,
-// one-launch-per-row-block and full-triangle experiments of the flash
-// forward, redesigned for Hopper (sm_90a): TMA loads, wgmma products and
-// warp specialisation, K1's design (flash_fwd_sm90.cu) with each
-// experiment's own lever kept. One body (x_body) serves all of them through
-// three kernels: flash_exp_sm90<D, U> (K16-K19), flash_aug_sm90 (K14) and
+// K13-K19 (bf16): the fixed-max, augmented-V, paired-chain, pipelined,
+// chunked-staging, one-launch-per-row-block and full-triangle experiments
+// of the flash forward, redesigned for Hopper (sm_90a): TMA loads, wgmma
+// products and warp specialisation, K1's design (flash_fwd_sm90.cu) with
+// each experiment's own lever kept. One body (x_body) serves all of them
+// through four kernels: flash_exp_sm90<D, U> (K16-K19),
+// flash_fixedmax_sm90<D, FAST> (K13), flash_aug_sm90 (K14) and
 // flash_pair_sm90<nchain> (K15).
 //
-// Replace, in bf16, the TPU kernels benchmarks/flash_aug_experiment.py::
+// Replace, in bf16, the TPU kernels benchmarks/flash_fixedmax_experiment.py::
+// _kernel (K13: the online softmax given a bound M of each row's scaled
+// scores, so no running max, no alpha and no rescale; JAX's Schraudolph
+// exp in its fast_exp mode), benchmarks/flash_aug_experiment.py::
 // _aug_kernel (K14: V augmented with a ones column, so the P V product also
 // yields l, the sum of the bf16 p), benchmarks/flash_pair_experiment.py::
 // _pair_kernel (K15: nchain q blocks, each its own online softmax against
@@ -19,10 +23,11 @@
 // causal kv tiles in one body). They take the place of the mma.sync bodies
 // of flash_experiments.cu (4 warps, 64 rows, cp.async copies by every
 // thread, a __syncthreads a tile or chunk), which keep K16-K19's fp32
-// inputs (TMA cannot convert on load) and K18's int8-QK mode; K14's and
-// K15's are gone. The contract is the experiments' (that file's header):
-// causal `col <= row` on square shapes (K14/K15: Sq and Skv apart, no
-// GQA), GQA, p rounded to bf16 for P.V, fp32 sums, the output in bf16.
+// inputs (TMA cannot convert on load) and K18's int8-QK mode; K13's, K14's
+// and K15's are gone. The contract is the experiments' (that file's
+// header): causal `col <= row` on square shapes (K14/K15: Sq and Skv
+// apart; K13-K15: no GQA), GQA, p rounded to bf16 for P.V, fp32 sums, the
+// output in bf16.
 // K14 and K15 scale q by d^-0.5 in bf16 before Q K^T in JAX; at D 64 that
 // scale is 2^-3, exact in bf16, so the scale folded into the exponent
 // here is the same function.
@@ -127,6 +132,22 @@
 // (PAIR_*): at 512 and 640 threads a thread starts with 128 and 96
 // registers, and the consumers get 160 and 112, the widest key tile that
 // fits them with no spill being 128 keys at nchain 1-3 and 64 at 4.
+// K13 (flash_fixedmax_sm90<D, FAST>): K16's instantiation (one tile of
+// K1's width a stage, as many stages as fit, the Q K^T-ahead overlap, the
+// ping-pong at D 64, K1's persistent grid) with the online softmax's step
+// replaced by the fixed-max one. Each consumer thread reads the bound M
+// (B, H, S) fp32 of its two rows once a work tile, with plain loads issued
+// before it waits on Q, so they land under the first Q K^T. Per score: p =
+// ex2(s * scale log2 e - M log2 e), one FFMA and one ex2, or with FAST
+// JAX's arithmetic in natural units (x = s * scale - M, its FFMA with its
+// fp32-rounded constants, the two clamps and the truncating F2I: fast_exp);
+// l += p in fp32 over the unrounded p; no max, no shuffles, no alpha and no
+// rescale of O (the final O / l cancels the uniform exp(m_true - M),
+// exactly while M - m_true stays inside fp32's exp range, JAX's contract).
+// The tiles the diagonal or the ragged end cross take the per-score mask
+// (s = -inf: p = 0, or with FAST the clip's 2^-126, as JAX's). The
+// epilogue is the body's: the quad sum of l, 1 / l (0 where l is 0: acc
+// is 0 there, as JAX's l == 0 -> 1 gives).
 // Not done: a TMA store of O, a cluster or split head for K19 (the
 // function measured is one CTA a head).
 
@@ -153,8 +174,9 @@ __host__ __device__ constexpr int x_max_stages(int q_bytes, int kv_bytes, int on
   return s;
 }
 
-// Which experiment an instantiation is: K16-K19 (told apart by U), K14 or K15.
-enum XKind { PIPELINE = 0, AUG = 14, PAIR = 15 };
+// Which experiment an instantiation is: K16-K19 (told apart by U), K13, K14
+// or K15.
+enum XKind { PIPELINE = 0, FIXED = 13, AUG = 14, PAIR = 15 };
 
 // K15 at nchain 1-4: the key tile (the widest whose consumer fits its
 // register share with no spill, nvcc -Xptxas -v) and the setmaxnreg split.
@@ -169,13 +191,17 @@ constexpr int PAIR_CONSUMER_REGS[5] = {0, 256, 240, 160, 112};
 // K16 and K18 (the same stage on the persistent grid); U in {2, 4}: K17 (U
 // 64-key tiles a stage). KIND AUG: K14, U = 1's instantiation with the row
 // sum taken by a ones column's product; KIND PAIR: K15, NCHAIN consumer
-// warpgroups (chains) on U = 1's stage, each chain to its own diagonal.
-template <int D_, int U, int KIND = PIPELINE, int NCHAIN = 2>
+// warpgroups (chains) on U = 1's stage, each chain to its own diagonal;
+// KIND FIXED: K13, U = 1's instantiation with the fixed-max step (FAST:
+// the Schraudolph exp).
+template <int D_, int U, int KIND = PIPELINE, int NCHAIN = 2, bool FAST_ = false>
 struct XCfg {
   static constexpr int D = D_;
+  static constexpr bool IS_FIXED = KIND == FIXED;
+  static constexpr bool FAST = FAST_;
   static constexpr bool IS_AUG = KIND == AUG;
   static constexpr bool IS_PAIR = KIND == PAIR;
-  static constexpr bool XKV = KIND != PIPELINE;  // Skv may differ from Sq
+  static constexpr bool XKV = IS_AUG || IS_PAIR;  // Skv may differ from Sq
   static constexpr int CONSUMERS = IS_PAIR ? NCHAIN : 2;  // consumer warpgroups
   static constexpr int THREADS = 128 * (CONSUMERS + 1);
   static constexpr int BQ = 64 * CONSUMERS;  // query rows a work tile
@@ -196,15 +222,17 @@ struct XCfg {
   // consumers then hold two stages.
   static constexpr bool CROSS = STAGES >= 2;
   // The warpgroups' turns at the tensor cores: on only where they paid
-  // (PERF.md, the K16-K19 lever tables): K17 at D 128, K16/K18 (and K14,
-  // their instantiation) at D 64; K15's chains always take turns, round
-  // robin, where there is more than one.
+  // (PERF.md, the K16-K19 lever tables): K17 at D 128, K16/K18 (and K13 and
+  // K14, their instantiation) at D 64; K15's chains always take turns,
+  // round robin, where there is more than one.
   static constexpr bool PINGPONG =
       IS_PAIR ? NCHAIN >= 2 : (U >= 2 && D == 128) || (U == 1 && D == 64);
   // K18's launches chain (griddepcontrol; a no-op for K16's single launch).
   static constexpr bool PDL = U == 1 && KIND == PIPELINE;
 };
 
+template <int D, bool FAST>
+using FixedCfg = XCfg<D, 1, FIXED, 2, FAST>;
 using AugCfg = XCfg<64, 1, AUG>;
 template <int NCHAIN>
 using PairCfg = XCfg<64, 1, PAIR, NCHAIN>;
@@ -214,7 +242,7 @@ struct XParams {
   int B, S, Hq, Hkv;  // S: the query rows (K14/K15: Sq)
   int n_work;  // work tiles: q-blocks x Hq x B
   int nqb;     // q-blocks of BQ rows a head in the walk
-  float scale;  // sm_scale * log2 e
+  float scale;  // sm_scale * log2 e (K13's fast_exp: sm_scale)
   int causal;
   // The plan's walk: entry i is the i-th q-block taken (K19: a CTA's i-th
   // round; K14-K18: the work tiles t with t / (Hq B) == i), as its first
@@ -222,6 +250,7 @@ struct XParams {
   int walk[MAX_QB];
   int row_end;  // rows from here on are not stored (K18: its row-block's end; else S)
   int Skv;      // the keys (K16-K19: S)
+  const float* fm;  // K13: the bound M of each row's scaled scores, (B, H, S) fp32
 };
 
 // One work tile: BQ query rows of one (batch row, head) and the chunks
@@ -252,6 +281,21 @@ __device__ __forceinline__ bool x_work(const XParams& p, int n, XWork& w) {
   return true;
 }
 
+// The Schraudolph bit-trick exp of K13's fast_exp mode, with JAX's
+// constants in natural units (flash_fixedmax_experiment.py:96-101): the
+// fp32 literals round as jnp.float32 rounds them (1064986823 -> 1064986816,
+// 2139095039 -> 2139095040, whose int is +inf's bits). The float-to-int
+// conversion truncates, as astype(int32).
+constexpr float FEXP_A = 12102203.0f;
+constexpr float FEXP_B = 1064986823.0f;
+constexpr float FEXP_LO = 8388608.0f;
+constexpr float FEXP_HI = 2139095039.0f;
+
+__device__ __forceinline__ float fast_exp(float x) {
+  const float y = fminf(fmaxf(fmaf(x, FEXP_A, FEXP_B), FEXP_LO), FEXP_HI);
+  return __int_as_float(__float2int_rz(y));
+}
+
 // The raw scores of one tile, in place, with MASKED the per-score predicate
 // (-inf past the keys or, causal, above the row); mx gets this thread's row
 // maxima.
@@ -277,6 +321,36 @@ __device__ __forceinline__ void tile_max(float* sc, float (&mx)[2], int kv0, int
   }
 }
 
+// K13: a tile's masked scores to -inf in place (past the keys or, causal,
+// above the row), as tile_max's MASKED, with no maxima.
+template <int BKV>
+__device__ __forceinline__ void tile_mask(float* sc, int kv0, int row0, int t4, int S,
+                                          int causal) {
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = kv0 + 8 * j + 2 * t4 + (i & 1);
+      if (col >= S || (causal && col > row0 + 8 * (i >> 1))) sc[4 * j + i] = -INFINITY;
+    }
+}
+
+// K13's step over one tile of NS scores a thread (rows row0 and row0 + 8),
+// in place: p = ex2(s * scale + nb) with scale = sm_scale log2 e and nb =
+// -M log2 e, or with FAST fast_exp(s * scale + nb) with scale = sm_scale
+// and nb = -M (natural units, JAX's); l += p.
+template <int NS, bool FAST>
+__device__ __forceinline__ void fixed_rows(float* sc, const float (&nb)[2], float (&l)[2],
+                                           float scale) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1;
+    const float x = fmaf(sc[i], scale, nb[r]);
+    sc[i] = FAST ? fast_exp(x) : ex2(x);
+    l[r] += sc[i];
+  }
+}
+
 template <bool V>
 struct Flag {
   static constexpr bool value = V;
@@ -291,17 +365,6 @@ __device__ __forceinline__ void ones_tile(float (&o_aug)[4], uint32_t (&pa)[BKV 
                                           uint64_t ones_desc) {
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk) wgmma_rs_n8(o_aug, pa[kk], ones_desc);
-}
-
-// Programmatic dependent launch: the next launch of the stream may start
-// its CTAs once every CTA of this one has issued launch_dependents; wait
-// returns once the launch ahead of this one has completed and its writes
-// are visible (at once where this one was not launched as a dependent).
-__device__ __forceinline__ void pdl_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void pdl_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // The body every instantiation runs: the kernels below differ only in C.
@@ -435,6 +498,15 @@ __device__ __forceinline__ void x_body(const CUtensorMap& tm_q, const CUtensorMa
       }
       float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
       float l[2] = {0.f, 0.f};              // this thread's share of the running sum
+      // K13: -M of this thread's rows in the exponent's units (0 past S),
+      // loaded before the wait on Q so the loads land under the first Q K^T.
+      float nb[2];
+      if constexpr (C::IS_FIXED) {
+        const float* mrow = p.fm + ((long long)w.b * p.Hq + w.h) * p.S;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          nb[i] = row0 + 8 * i < p.S ? -mrow[row0 + 8 * i] * (C::FAST ? 1.f : LOG2E) : 0.f;
+      }
       mbar_wait(bar_qfull + 8 * (n & 1), (n >> 1) & 1);
       if constexpr (pp)
         if (wg == CONSUMERS - 1) named_bar_arrive(1, 2 * 128);  // every work tile has a chunk
@@ -442,18 +514,24 @@ __device__ __forceinline__ void x_body(const CUtensorMap& tm_q, const CUtensorMa
       auto k_at = [&](int s, int u) { return base + off_k + s * C::KV_BYTES + u * BKV * 128; };
       auto v_at = [&](int s, int u) { return base + off_v + s * C::KV_BYTES + u * BKV * 128; };
       auto softmax = [&](int kv0, float (&alpha)[2]) {  // tile kv0's scores in sc to P
-        float mx[2] = {-INFINITY, -INFINITY};
-        if (kv0 + BKV > p.Skv || (p.causal && kv0 + BKV - 1 > wrow))
-          tile_max<BKV, true>(sc, mx, kv0, row0, t4, p.Skv, p.causal);
-        else
-          tile_max<BKV, false>(sc, mx, kv0, row0, t4, p.Skv, p.causal);
-        softmax_rows<NS, false, !C::IS_AUG>(sc, mx, m, l, alpha, p.scale);
+        if constexpr (C::IS_FIXED) {  // no max, no alpha
+          if (kv0 + BKV > p.Skv || (p.causal && kv0 + BKV - 1 > wrow))
+            tile_mask<BKV>(sc, kv0, row0, t4, p.Skv, p.causal);
+          fixed_rows<NS, C::FAST>(sc, nb, l, p.scale);
+        } else {
+          float mx[2] = {-INFINITY, -INFINITY};
+          if (kv0 + BKV > p.Skv || (p.causal && kv0 + BKV - 1 > wrow))
+            tile_max<BKV, true>(sc, mx, kv0, row0, t4, p.Skv, p.causal);
+          else
+            tile_max<BKV, false>(sc, mx, kv0, row0, t4, p.Skv, p.causal);
+          softmax_rows<NS, false, !C::IS_AUG>(sc, mx, m, l, alpha, p.scale);
+        }
       };
       // Tile u of stage st holds its P in pa: issue the next tile's Q K^T
       // (tile u + 1 of this stage, or with CROSS tile 0 of the next stage,
       // the next chunk) ahead of tile u's P V, run the next tile's softmax
-      // while that P V finishes, then rescale O and take the next P. A
-      // stage is freed after its last tile's P V.
+      // while that P V finishes, then rescale O (K13: nothing to rescale)
+      // and take the next P. A stage is freed after its last tile's P V.
       auto step = [&](int u, auto cross_flag, int kv0_next) {
         constexpr bool cross = decltype(cross_flag)::value;
         const int sn = cross ? (st + 1 == stages ? 0 : st + 1) : st;
@@ -495,8 +573,10 @@ __device__ __forceinline__ void x_body(const CUtensorMap& tm_q, const CUtensorMa
           fence_regs(sc);
           softmax(kv0_next, alpha);
         }
+        if constexpr (!C::IS_FIXED) {
 #pragma unroll
-        for (int i = 0; i < NO; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+          for (int i = 0; i < NO; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+        }
         if constexpr (C::IS_AUG) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) o_aug[i] *= alpha[(i >> 1) & 1];
@@ -583,6 +663,15 @@ flash_exp_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   x_body<XCfg<D, U>>(tm_q, tm_k, tm_v, p);
 }
 
+// K13 (FAST: the Schraudolph exp).
+template <int D, bool FAST>
+__global__ void __launch_bounds__(FixedCfg<D, FAST>::THREADS, 1)
+flash_fixedmax_sm90(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ XParams p) {
+  x_body<FixedCfg<D, FAST>>(tm_q, tm_k, tm_v, p);
+}
+
 // K14 (D 64).
 __global__ void __launch_bounds__(AugCfg::THREADS, 1)
 flash_aug_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -621,11 +710,12 @@ bool x_regs_fit(Kernel kernel) {
 // its walk (q0, chunks) x ceil(rows / BQ) must name q-blocks that start at
 // row0 + BQ i inside the rows, with 1 to all of Skv's chunks each, else
 // cudaErrorInvalidValue. `chained`: a programmatic dependent launch (K18).
+// `fm`: K13's row bound.
 template <class C, class Kernel>
 cudaError_t x_launch(Kernel kernel, const void* q, const void* k, const void* v, void* o, int B,
                      int S, int Skv, int Hq, int Hkv, float sm_scale, int causal, int row0,
                      int rows, bool chained, int tile_keys, int stages, int smem, int grid,
-                     const int* walk, cudaStream_t stream) {
+                     const int* walk, cudaStream_t stream, const float* fm = nullptr) {
   const long long nqb = (rows + C::BQ - 1LL) / C::BQ, work = nqb * Hq * B;
   if (tile_keys != C::BKV || stages != C::STAGES ||
       smem != x_smem(C::Q_BYTES, C::KV_BYTES, C::STAGES, C::ONES_BYTES) ||
@@ -634,8 +724,10 @@ cudaError_t x_launch(Kernel kernel, const void* q, const void* k, const void* v,
       (C::FULLTRI ? (long long)grid != (long long)B * Hq : (grid < 1 || grid > work)) ||
       !x_regs_fit<C>(kernel))
     return cudaErrorInvalidValue;
+  // The scale in the exponent's units: log2 (K13's fast_exp: natural).
+  const float scale = C::IS_FIXED && C::FAST ? sm_scale : sm_scale * LOG2E;
   XParams p{static_cast<__nv_bfloat16*>(o), B, S, Hq, Hkv, static_cast<int>(work),
-            static_cast<int>(nqb), sm_scale * LOG2E, C::FULLTRI ? 1 : causal, {}, row0 + rows, Skv};
+            static_cast<int>(nqb), scale, C::FULLTRI ? 1 : causal, {}, row0 + rows, Skv, fm};
   const int chunks = (Skv + C::SPAN - 1) / C::SPAN;
   for (int i = 0; i < nqb; ++i) {
     const int q0 = walk[2 * i], n = walk[2 * i + 1];
@@ -651,25 +743,10 @@ cudaError_t x_launch(Kernel kernel, const void* q, const void* k, const void* v,
       !encode_4d(&tk, bf16, 2, k, {d, (uint64_t)Hkv, (uint64_t)Skv, b}, {64, 1, span, 1}) ||
       !encode_4d(&tv, bf16, 2, v, {d, (uint64_t)Hkv, (uint64_t)Skv, b}, {64, 1, span, 1}))
     return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  if (!chained) {
-    kernel<<<grid, C::THREADS, smem, stream>>>(tq, tk, tv, p);
-    return cudaGetLastError();
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(C::THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  void* args[] = {&tq, &tk, &tv, &p};
-  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return launch_chained(kernel, chained, grid, C::THREADS, smem, stream, tq, tk, tv, p);
 }
 
 // The design of one instantiation: keys a tile, the ring's stages, dynamic
@@ -780,6 +857,33 @@ extern "C" int pfa_flash_tri_sm90(const void* q, const void* k, const void* v, v
   return cudaErrorInvalidValue;
 }
 
+// K13 in bf16. q, k, v (B, S, H, D), o like q, fm (B, H, S) fp32 the bound
+// M of each row's scaled scores (experiments/flash_fixedmax_experiment.py::
+// fixed_max_bound), causal (col <= row) or not; D in {64, 128}, 16-byte-
+// aligned q, k, v and o, sm_scale > 0, S <= 65536; fast_exp: JAX's
+// Schraudolph exp; tile_keys, stages, smem, grid and walk ((q0, tiles) for
+// each of the ceil(S / 128) q-blocks) from k13_plan.
+extern "C" int pfa_flash_fixedmax_sm90(const void* q, const void* k, const void* v, void* o,
+                                       const void* fm, int B, int S, int H, int D,
+                                       float sm_scale, int causal, int fast_exp, int tile_keys,
+                                       int stages, int smem, int grid, const int* walk,
+                                       void* stream) {
+  if (fm == nullptr || !x_args_ok(q, k, v, o, B, S, H, H, sm_scale)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(fm);
+#define PFA_K13(DD, FF)                                                                     \
+  if (D == DD && (fast_exp != 0) == FF)                                                     \
+    return x_launch<FixedCfg<DD, FF>>(flash_fixedmax_sm90<DD, FF>, q, k, v, o, B, S, S, H, H, \
+                                      sm_scale, causal, 0, S, false, tile_keys, stages, smem, \
+                                      grid, walk, st, m);
+  PFA_K13(64, false)
+  PFA_K13(64, true)
+  PFA_K13(128, false)
+  PFA_K13(128, true)
+#undef PFA_K13
+  return cudaErrorInvalidValue;
+}
+
 // K14 in bf16. q (B, Sq, H, 64), k/v (B, Skv, H, 64), o like q, causal
 // (col <= row); 16-byte-aligned bases, sm_scale > 0, Sq <= 65536, Skv <=
 // 65536; tile_keys, stages, smem, grid and walk ((q0, tiles) for each of
@@ -834,5 +938,19 @@ extern "C" int pfa_aug_pair_sm90_info(int nchain, int* out) {
   if (nchain == 2) return x_info<PairCfg<2>>(flash_pair_sm90<2>, out);
   if (nchain == 3) return x_info<PairCfg<3>>(flash_pair_sm90<3>, out);
   if (nchain == 4) return x_info<PairCfg<4>>(flash_pair_sm90<4>, out);
+  return cudaErrorInvalidValue;
+}
+
+// out[9] (x_info) of K13 at head dim D (fast_exp: the Schraudolph mode's
+// instantiation); no launch.
+extern "C" int pfa_fixedmax_sm90_info(int D, int fast_exp, int* out) {
+#define PFA_K13(DD, FF)               \
+  if (D == DD && (fast_exp != 0) == FF) \
+    return x_info<FixedCfg<DD, FF>>(flash_fixedmax_sm90<DD, FF>, out);
+  PFA_K13(64, false)
+  PFA_K13(64, true)
+  PFA_K13(128, false)
+  PFA_K13(128, true)
+#undef PFA_K13
   return cudaErrorInvalidValue;
 }

@@ -4,9 +4,10 @@
 // and K6, flash_quant_sm90.cu): mbarriers, TMA loads and 4-byte cp.async
 // tied to an mbarrier, the 128- and 64-byte-swizzle shared-memory
 // descriptors and the wgmma wrappers (bf16, and 8-bit: s8 and e4m3),
-// named barriers, setmaxnreg, ex2, the persistent grid's snake order, and
-// on the host the tensor-map encoder (cuTensorMapEncodeTiled from the CUDA
-// driver API, no -lcuda) and the SM count.
+// named barriers, setmaxnreg, ex2, the persistent grid's snake order, the
+// programmatic dependent launch's two instructions, and on the host the
+// tensor-map encoder (cuTensorMapEncodeTiled from the CUDA driver API, no
+// -lcuda), the SM count and the chained (programmatic dependent) launch.
 #pragma once
 
 #include <cuda.h>
@@ -823,6 +824,18 @@ __device__ __forceinline__ int snake_tile(int n) {
   return n * gridDim.x + c;
 }
 
+// Programmatic dependent launch: the next launch of the stream may start
+// its CTAs once every CTA of this one has issued launch_dependents; wait
+// returns once the launch ahead of this one has completed and its writes
+// are visible (at once where this one was not launched as a dependent).
+// K18's and K21's launches of one call chain so.
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // --- host side -------------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -880,4 +893,31 @@ inline cudaError_t sm_count(int* sms) {
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess && dev < 64) cached[dev] = *sms;
   return e;
+}
+
+// One launch of `kernel` on `stream` with `args`: where `chained`, a
+// programmatic dependent launch on the launch ahead of it in the stream
+// (the kernel issues griddepcontrol.launch_dependents and .wait: K18's and
+// K21's launches after a call's first), else a plain one; then the launch
+// error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_chained(Kernel kernel, bool chained, int grid, int threads, int smem,
+                           cudaStream_t stream, Args... args) {
+  if (!chained) {
+    kernel<<<grid, threads, smem, stream>>>(args...);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* argv[] = {static_cast<void*>(&args)...};
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), argv);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }

@@ -12,10 +12,17 @@ the flash backward into one call per block, over static extents:
   per row-block; each 64-row CTA walks the 64-key tiles (32 at D 128) up to
   its own diagonal, the mask only on tiles that cross it.
 * dk/dv: one call per ``block_kv`` key block, over the query blocks from
-  the diagonal on (``_dkv_kernel_unrolled``). K21
-  (``pfa_flash_bwd_dkv_colblock``, :func:`dkv_colblocks`) is launched once
-  per key block; each 64-key CTA keeps its dK and dV in fp32 registers and
-  walks the query tiles from its own diagonal to S.
+  the diagonal on (``_dkv_kernel_unrolled``). K21 (:func:`dkv_colblocks`)
+  is launched once per key block. In bf16 each launch is K4's Hopper body
+  (``csrc/flash_bwd_sm90.cu``, ``pfa_flash_bwd_dkv_colblock_sm90``: TMA
+  ring, ``wgmma``, warp-specialised, persistent) over the block's 128-key
+  work tiles, each keeping its dK and dV in fp32 registers and walking
+  64-query tiles from its diagonal to S (:func:`k21_plan`); keys of a work
+  tile past the block's end are computed and not stored. The launches
+  after a call's first are programmatic dependent launches. It is counted
+  as ``pfa_flash_bwd_dkv_colblock``. fp32 inputs stay on the mma.sync body
+  (``csrc/flash_bwd_experiments.cu``: 64-key CTAs, counted as
+  ``pfa_flash_bwd_dkv_colblock_fp32``): TMA cannot convert on load.
 
 Each launch writes its rows of one (B, H, S, D) output in place, where JAX
 concatenates the calls' outputs. JAX's static extents have no counterpart
@@ -31,6 +38,7 @@ S is not a multiple (dq comes back short, dk/dv miss the tail rows' sums):
 the port raises. On the card D in {64, 128}, bf16 or fp32 inputs
 (converted on load), contiguous, and blocks that are multiples of 64; the
 blocks set only the launches (K20's by ``block_q``, K21's by ``block_kv``).
+K21 in bf16 also takes only 16-byte-aligned bases of q, k, v and dO.
 
 ``main`` is JAX's: parity against the port's grid backward
 (``ops/flash_bwd.py::flash_attention_bwd``, K4 and K5 on the card) under
@@ -39,7 +47,8 @@ max abs over max 3e-2, then each geometry and block timed against it.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,8 +59,9 @@ from ..ops import flash_bwd as bwd_ops
 from ..ops.flash_bwd import flash_attention_bwd, flash_bwd_dkv, flash_bwd_dq
 from . import _common as C
 
-__all__ = ["dkv_colblocks", "dkv_colblocks_plain", "dq_rowblocks", "dq_rowblocks_plain",
-           "flash_bwd_di", "flash_bwd_unrolled", "flash_bwd_unrolled_plain", "main"]
+__all__ = ["K21Plan", "dkv_colblocks", "dkv_colblocks_plain", "dq_rowblocks",
+           "dq_rowblocks_plain", "flash_bwd_di", "flash_bwd_unrolled", "flash_bwd_unrolled_plain",
+           "k21_plan", "main"]
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -83,6 +93,54 @@ CARD_CHECKS = (
     ((1, 256, 2, 64), torch.float32, ((128, 64),)),
     ((1, 192, 2, 128), torch.float32, ((64, 192),)),
 )
+
+
+#: Dynamic shared memory a CTA may take on the H100 (``csrc/sm90.cuh``).
+SMEM_MAX = 232448
+#: Keys of a work tile of K4's body: two consumer warpgroups of 64.
+K21_ROWS = 128
+
+
+class K21Plan(NamedTuple):
+    """One K21 launch on K4's bf16 body, from the shapes alone: its work
+    tiles (the 128-key blocks of its range x H x B), the persistent grid
+    (min(work tiles, SMs)), and the ring's stages and dynamic shared memory
+    (K4's ``DkvCfg``), which the C launcher checks against its own."""
+    work: int
+    grid: int
+    stages: int
+    smem: int
+
+
+def _k4_ring(d: int) -> Tuple[int, int]:
+    """K4's ring at head dim ``d`` (``csrc/flash_bwd_sm90.cu::DkvCfg``):
+    K and V of a 128-key work tile double-buffered where they fit beside
+    two ring stages, then as many stages (4 to 2) of 64-query Q and dO
+    tiles with their lse and di as fit; (stages, dynamic shared memory)."""
+    fits = lambda n: n + 8 * 12 + 1024 <= SMEM_MAX  # noqa: E731
+    kv, qo = K21_ROWS * d * 2, 64 * d * 2
+    stage = 2 * qo + 2 * 64 * 4
+    kvbuf = 2 if fits(4 * kv + 2 * stage) else 1
+    stages = next(n for n in (4, 3, 2) if n == 2 or fits(2 * kvbuf * kv + n * stage))
+    return stages, 2 * kvbuf * kv + stages * stage + 8 * (2 * stages + 2 * kvbuf) + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def k21_plan(b: int, s: int, h: int, d: int, kv_row0: int, rows: int,
+             sms: int = 132) -> K21Plan:
+    """One K21 launch in bf16: keys [``kv_row0``, ``kv_row0 + rows``) of
+    every (b, h), on K4's body (the (B, H, S, D) tensors taken as K4's (B
+    H, S, 1, D)). The range must lie in [0, S) on the grid of 64 keys."""
+    if d not in CARD_HEAD_DIMS:
+        raise ValueError(f"K21 takes head_dim in {CARD_HEAD_DIMS} on the card, got {d}")
+    if b < 1 or h < 1 or s < 1:
+        raise ValueError(f"bad shape: B {b}, S {s}, H {h}")
+    if (kv_row0 < 0 or rows < 1 or kv_row0 + rows > s or kv_row0 % CARD_BLOCK
+            or rows % CARD_BLOCK):
+        raise ValueError(f"K21: the key range must lie in [0, S {s}) on the grid of "
+                         f"{CARD_BLOCK} keys, got {rows} keys from {kv_row0}")
+    work = -(-rows // K21_ROWS) * b * h
+    return K21Plan(work, min(work, sms), *_k4_ring(d))
 
 
 def _check(q, k, v, o, lse, do, block_q: int, block_kv: int) -> None:
@@ -228,8 +286,11 @@ def dq_rowblocks(q, k, v, do, lse, di, *, sm_scale: float, causal: bool, block_q
 def dkv_colblocks(q, k, v, do, lse, di, *, sm_scale: float, causal: bool, block_q: int = 512,
                   block_kv: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from precomputed ``di``: on the card K21 launched once per
-    ``block_kv`` key block (each counted), :func:`dkv_colblocks_plain` on
-    the CPU."""
+    ``block_kv`` key block (each counted: bf16 on K4's Hopper body by
+    :func:`k21_plan` as ``pfa_flash_bwd_dkv_colblock``, each launch after
+    the first a programmatic dependent launch; fp32 on the mma.sync body as
+    ``pfa_flash_bwd_dkv_colblock_fp32``), :func:`dkv_colblocks_plain` on the
+    CPU."""
     kw = dict(sm_scale=sm_scale, causal=causal, block_q=block_q, block_kv=block_kv)
     C.check_blocks(q.shape[2], block_q, "block_q")
     C.check_blocks(q.shape[2], block_kv, "block_kv")
@@ -238,11 +299,25 @@ def dkv_colblocks(q, k, v, do, lse, di, *, sm_scale: float, causal: bool, block_
         _check_card(q, k, v, do, lse, di, block_q, block_kv)
         b, h, s, d = q.shape
         dk, dv = torch.empty_like(k), torch.empty_like(v)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d)
+        if q.dtype != torch.bfloat16:
+            for ki in range(s // block_kv):
+                _build.launch("pfa_flash_bwd_dkv_colblock", q.device, *ptrs, ki * block_kv,
+                              block_kv, float(sm_scale), int(causal),
+                              _build.DTYPE_CODES[q.dtype],
+                              count_as="pfa_flash_bwd_dkv_colblock_fp32")
+            return dk, dv
+        for t in (q, k, v, do):  # TMA reads 16-byte-aligned bases
+            if t.data_ptr() % 16:
+                raise ValueError(f"K21 needs 16-byte-aligned bf16 inputs; one starts at "
+                                 f"{t.data_ptr():#x}")
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         for ki in range(s // block_kv):
-            _build.launch("pfa_flash_bwd_dkv_colblock", q.device, q.data_ptr(), k.data_ptr(),
-                          v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
-                          dk.data_ptr(), dv.data_ptr(), b, s, h, d, ki * block_kv, block_kv,
-                          float(sm_scale), int(causal), _build.DTYPE_CODES[q.dtype])
+            plan = k21_plan(b, s, h, d, ki * block_kv, block_kv, sms)
+            _build.launch("pfa_flash_bwd_dkv_colblock_sm90", q.device, *ptrs, ki * block_kv,
+                          block_kv, float(sm_scale), int(causal), int(ki > 0), plan.stages,
+                          plan.smem, plan.grid, count_as="pfa_flash_bwd_dkv_colblock")
         return dk, dv
 
     return C.on_device(q, cuda, lambda: dkv_colblocks_plain(q, k, v, do, lse, di, **kw))

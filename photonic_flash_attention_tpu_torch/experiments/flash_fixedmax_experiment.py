@@ -14,14 +14,20 @@ the exp for the Schraudolph bit trick with JAX's constants, clip included
 (a masked key gives 2^-126, not 0).
 
 * :func:`flash_fixedmax` computes the bound and launches K13
-  (:func:`fixedmax_kernel`, ``csrc/flash_experiments.cu``,
-  ``pfa_flash_fixedmax``, counted as ``pfa_flash_fixedmax_fast`` in
-  ``fast_exp`` mode) for CUDA tensors, bf16 and D in {64, 128} (fp32 on the
-  card raises: JAX's fp32 dots run bf16 passes on the TPU), and runs
-  :func:`flash_fixedmax_plain` for CPU tensors.
+  (:func:`fixedmax_kernel`) for CUDA tensors, bf16 and D in {64, 128}
+  (fp32 on the card raises: JAX's fp32 dots run bf16 passes on the TPU),
+  and runs :func:`flash_fixedmax_plain` for CPU tensors. K13 is the
+  experiments' Hopper body (``csrc/flash_experiments_sm90.cu``,
+  ``flash_fixedmax_sm90``: TMA ring, ``wgmma``, warp-specialised, on K1's
+  persistent grid) with the fixed-max step, entered by
+  ``pfa_flash_fixedmax_sm90`` with
+  :func:`~.flash_pipeline_experiment.k13_plan` (K16's plan) and counted as
+  ``pfa_flash_fixedmax``, or ``pfa_flash_fixedmax_fast`` in ``fast_exp``
+  mode. It takes 16-byte-aligned bases, sm_scale > 0 and S <= 65536.
 * ``block_q``/``block_kv`` are JAX's TPU tiles: the plain version walks
-  them, the card kernel its own 64 x 64 tiles. A length that is not a
-  multiple of them raises (JAX's grid would leave the tail uncomputed).
+  them, the card kernel its own (128-row work tiles, key tiles of K1's
+  width). A length that is not a multiple of them raises (JAX's grid
+  would leave the tail uncomputed).
 * q/k/v (B, S, H, D), no GQA; the causal mask is ``col <= row``
   (top-left), which for these square shapes is K1's.
 
@@ -41,6 +47,7 @@ from ..ops import _build
 from ..ops.flash import flash_attention
 from ..ops.reference import DEFAULT_MASK_VALUE, softmax_scale
 from . import _common as C
+from . import flash_pipeline_experiment as ux
 
 __all__ = ["fixed_max_bound", "fixedmax_kernel", "flash_fixedmax", "flash_fixedmax_plain", "main",
            "schraudolph_exp"]
@@ -117,15 +124,21 @@ def flash_fixedmax_plain(q, k, v, *, causal: bool = False, sm_scale: Optional[fl
 def fixedmax_kernel(q, k, v, fm: torch.Tensor, *, causal: bool, sm_scale: float,
                     fast_exp: bool) -> torch.Tensor:
     """K13 alone on CUDA tensors, given the bound ``fm`` (B, H, S) fp32 of
-    :func:`fixed_max_bound` (the kernel's time without the prolog's)."""
-    C.check_card(q, (torch.bfloat16,), CARD_HEAD_DIMS, "K13 pfa_flash_fixedmax", k, v, fm)
+    :func:`fixed_max_bound` (the kernel's time without the prolog's): one
+    launch of the Hopper body by :func:`~.flash_pipeline_experiment.k13_plan`."""
+    name = "K13 pfa_flash_fixedmax"
+    C.check_card(q, (torch.bfloat16,), CARD_HEAD_DIMS, name, k, v, fm)
     b, s, h, d = q.shape
     if fm.dtype != torch.float32 or tuple(fm.shape) != (b, h, s):
         raise ValueError(f"fm must be ({b}, {h}, {s}) fp32, got {tuple(fm.shape)} {fm.dtype}")
+    ux._check_sm90(name, sm_scale, q, k, v)
+    plan = ux.k13_plan(b, s, h, d, causal, ux._sms(q.device))
     o = torch.empty_like(q)
-    _build.launch("pfa_flash_fixedmax", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _build.launch("pfa_flash_fixedmax_sm90", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   o.data_ptr(), fm.data_ptr(), b, s, h, d, float(sm_scale), int(causal),
-                  int(fast_exp), count_as="pfa_flash_fixedmax_fast" if fast_exp else None)
+                  int(fast_exp), plan.tile_keys, plan.stages, plan.smem, plan.grid,
+                  ux._c_walk(plan.walk),
+                  count_as="pfa_flash_fixedmax_fast" if fast_exp else "pfa_flash_fixedmax")
     return o
 
 

@@ -104,8 +104,8 @@ from . import _common as C
 __all__ = ["ExpPlan", "flash_chunked", "flash_chunked_plain", "flash_fulltri",
            "flash_fulltri_plain", "flash_segmented", "flash_tri_i8", "flash_tri_i8_plain",
            "flash_triangular", "flash_triangular_plain", "flash_unrolled", "flash_unrolled_plain",
-           "k14_plan", "k15_plan", "k16_plan", "k17_plan", "k18_plan", "k19_plan", "lse_merge",
-           "main", "main_chunked", "main_fulltri", "main_i8", "main_seg", "main_tri"]
+           "k13_plan", "k14_plan", "k15_plan", "k16_plan", "k17_plan", "k18_plan", "k19_plan",
+           "lse_merge", "main", "main_chunked", "main_fulltri", "main_i8", "main_seg", "main_tri"]
 
 #: JAX's parity case and gate (max abs against ``flash_attention``).
 PARITY_SHAPE = (1, 1024, 2, 64)
@@ -190,7 +190,7 @@ def check_tri_blocks(s: int) -> Tuple[Tuple[int, int], ...]:
             or ((check_block(s), check_block(s, 2)),))
 
 
-# -- K14-K19's bf16 body: launch plans (csrc/flash_experiments_sm90.cu) -------
+# -- K13-K19's bf16 body: launch plans (csrc/flash_experiments_sm90.cu) -------
 
 #: Dynamic shared memory a CTA may take on the H100 (``csrc/sm90.cuh``).
 SMEM_MAX = 232448
@@ -201,14 +201,14 @@ SM90_MAX_SEQ = 512 * SM90_ROWS
 
 
 class ExpPlan(NamedTuple):
-    """One launch of K14-K19's bf16 body, from the shapes alone: the C
+    """One launch of K13-K19's bf16 body, from the shapes alone: the C
     launcher takes every field, refuses a tile width, stage count, shared
     memory or grid that is not its own, and walks ``walk`` as it is.
-    ``chunk_keys``: the keys of a ring stage (K14-K16, K18, K19: one
+    ``chunk_keys``: the keys of a ring stage (K13-K16, K18, K19: one
     tile); with two stages or more the next stage's Q.K^T is issued before
     this stage's last P.V. ``walk``: (q0, chunks) of the q-blocks of 128
     rows (K15: 64 nchain) in the order the work tiles take them: K19's CTA
-    runs them in this order, and the persistent grid of K14-K18 gives
+    runs them in this order, and the persistent grid of K13-K18 gives
     q-block i to its work tiles t with t // (Hq B) == i; each runs its
     first ``chunks`` chunks of ``chunk_keys`` keys (K15: its chains a
     prefix each, to their own diagonals). The plan functions are cached: a
@@ -238,13 +238,13 @@ def _sm90_stages(d: int, chunk_keys: int, rows: int = SM90_ROWS, ones: int = 0) 
     return n
 
 
-def _check_plan_shape(s: int, hq: int, hkv: int, d: int) -> None:
+def _check_plan_shape(s: int, hq: int, hkv: int, d: int, name: str = "K16-K19") -> None:
     if d not in CARD_HEAD_DIMS:
-        raise ValueError(f"K16-K19 take head_dim in {CARD_HEAD_DIMS}, got {d}")
+        raise ValueError(f"{name} take head_dim in {CARD_HEAD_DIMS}, got {d}")
     if s < 1 or hkv < 1 or hq % hkv:
         raise ValueError(f"bad shape: S {s}, Hq {hq}, Hkv {hkv}")
     if s > SM90_MAX_SEQ:
-        raise ValueError(f"K16-K19's bf16 body takes S <= {SM90_MAX_SEQ} (its walk), got {s}")
+        raise ValueError(f"{name}'s bf16 body takes S <= {SM90_MAX_SEQ} (its walk), got {s}")
 
 
 def _walk(s: int, chunk_keys: int, causal: bool, row0: int = 0,
@@ -291,6 +291,15 @@ def k16_plan(b: int, s: int, hq: int, hkv: int, d: int, causal: bool,
     first and each up to its diagonal, else each over all of S)."""
     _check_plan_shape(s, hq, hkv, d)
     return _wide_plan(s, d, min(-(-s // SM90_ROWS) * hq * b, sms), causal)
+
+
+@functools.lru_cache(maxsize=None)
+def k13_plan(b: int, s: int, h: int, d: int, causal: bool, sms: int = 132) -> ExpPlan:
+    """K13's launch (``flash_fixedmax_sm90``, K16's instantiation with the
+    fixed-max step): K16's plan under K13's name, for H heads of q, k and
+    v (no GQA) and D in (64, 128), S <= 65536."""
+    _check_plan_shape(s, h, h, d, "K13")
+    return _wide_plan(s, d, min(-(-s // SM90_ROWS) * h * b, sms), causal)
 
 
 @functools.lru_cache(maxsize=None)

@@ -109,8 +109,12 @@ _SIGNATURES: Dict[str, List] = {
     # producer and consumer registers of the bf16 backward); no stream, no
     # launch
     "pfa_bwd_sm90_info": [_I, _I, ctypes.POINTER(_I)],
-    # q, k, v, o, fm, B, S, H, D, sm_scale, causal, fast_exp, stream
-    "pfa_flash_fixedmax": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    # q, k, v, o, fm, B, S, H, D, sm_scale, causal, fast_exp, tile_keys,
+    # stages, smem, grid, walk, stream: K13's bf16 body (k13_plan)
+    "pfa_flash_fixedmax_sm90": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 6 + [ctypes.POINTER(_I), _P],
+    # D, fast_exp, out (int[9], as pfa_exp_sm90_info's) of K13's bf16 body;
+    # no stream, no launch
+    "pfa_fixedmax_sm90_info": [_I, _I, ctypes.POINTER(_I)],
     # q, k, v, o, B, Sq, Skv, H, D, sm_scale, tile_keys, stages, smem, grid,
     # walk, stream: K14's bf16 body (k14_plan)
     "pfa_flash_aug_sm90": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 4 + [ctypes.POINTER(_I), _P],
@@ -152,8 +156,12 @@ _SIGNATURES: Dict[str, List] = {
     # dtype, stream
     "pfa_flash_bwd_dq_rowblock": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     # q, k, v, do, lse, di, dk, dv, B, S, H, D, kv_col0, cols, sm_scale,
-    # causal, dtype, stream
+    # causal, dtype, stream: K21 in fp32
     "pfa_flash_bwd_dkv_colblock": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, do, lse, di, dk, dv, B, S, H, D, kv_row0, rows, sm_scale,
+    # causal, chained, stages, smem, grid, stream: one launch of K21's bf16
+    # body (K4's; k21_plan)
+    "pfa_flash_bwd_dkv_colblock_sm90": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
 }
 
 #: dtype codes shared with the C side (csrc/common.cuh).

@@ -12,6 +12,11 @@ fp32; what differs is the order of the fp32 sums, which can flip a bf16
 rounding of p or ds (measured: at most 5.4e-5 with fp32 inputs at these
 shapes). JAX's kv blocks are multiples of 128 (its kernels tile the (.,
 128) lane layout).
+
+K21's bf16 launch plan (``k21_plan``: K4's Hopper body over one key block)
+is a pure function, checked here too: its work tiles and grid, its ring
+(K4's), the ranges it refuses, and the fold of K21's (B, H, S, D) tensors
+into K4's (B H, S, 1, D) layout that its launch relies on.
 """
 
 import importlib.util
@@ -179,3 +184,69 @@ def test_exported_with_the_other_experiments():
                         ("d64 b1 s8192 causal", (1, 8192, 12, 64), True),
                         ("d128 b4 s4096 causal", (4, 4096, 8, 128), True))
     assert bx.BLOCKS == ((512, 512), (256, 512), (512, 256))
+
+
+# -- K21's bf16 launch on K4's body (csrc/flash_bwd_sm90.cu) ------------------
+
+K21_CASES = [(b, s, h, d, blk) for _, (b, s, h, d), _ in bx.CASES for blk in (256, 512)] + [
+    (b, s, h, d, blk) for (b, s, h, d), dtype, blocks in bx.CARD_CHECKS if dtype == torch.bfloat16
+    for blk in sorted({bkv for _, bkv in blocks})]
+
+
+@pytest.mark.parametrize("b, s, h, d, blk", K21_CASES,
+                         ids=["b{}s{}h{}d{}-bkv{}".format(*c) for c in K21_CASES])
+def test_k21_plan_work_tiles_and_grid(b, s, h, d, blk):
+    """Each launch of a call: ceil(rows / 128) B H work tiles (the range's
+    128-key blocks, the last holding keys past the range where rows is not
+    a multiple of 128), on min(work tiles, SMs) CTAs."""
+    for kv_row0 in range(0, s, blk):
+        for sms in (132, 7):
+            plan = bx.k21_plan(b, s, h, d, kv_row0, blk, sms)
+            assert plan.work == -(-blk // 128) * b * h
+            assert plan.grid == min(plan.work, sms)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k21_plan_ring_is_k4s(d):
+    """K4's ring (DkvCfg): 4 stages and K/V double-buffered at D 64, 3 at D
+    128, in at most the H100's 232,448 bytes of shared memory."""
+    plan = bx.k21_plan(1, 256, 1, d, 0, 64)
+    assert (plan.stages, plan.smem) == {64: (4, 134240), 128: (3, 232016)}[d]
+    assert plan.smem <= bx.SMEM_MAX
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: bx.k21_plan(1, 256, 2, 96, 0, 64), "head_dim"),
+    (lambda: bx.k21_plan(1, 256, 2, 64, 32, 64), "grid of 64"),
+    (lambda: bx.k21_plan(1, 256, 2, 64, 0, 96), "grid of 64"),
+    (lambda: bx.k21_plan(1, 256, 2, 64, -64, 64), "grid of 64"),
+    (lambda: bx.k21_plan(1, 256, 2, 64, 192, 128), "grid of 64"),
+    (lambda: bx.k21_plan(1, 256, 2, 64, 256, 64), "grid of 64"),
+    (lambda: bx.k21_plan(1, 256, 2, 64, 0, 0), "grid of 64"),
+    (lambda: bx.k21_plan(0, 256, 2, 64, 0, 64), "bad shape"),
+], ids=["d96", "row0-off-grid", "rows-off-grid", "row0-neg", "past-s", "row0-at-s", "no-rows",
+        "no-batch"])
+def test_k21_plan_bad_arguments(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def test_k21_fold_gives_k4_offsets():
+    """K21's q, k, v, dO (B, H, S, D) contiguous read through K4's
+    (B', S, H', D) indexing with B' = B H and H' = 1, and its lse and di
+    (B, H, S) through K4's (B', H', S): every element lands where K21's own
+    layout has it (csrc/flash_bwd_sm90.cu: the tensor maps over (D, H', S,
+    B'), lse/di at (b' H' + h') S + q, dk/dv stored at ((b' S + key) H' +
+    h') D + c)."""
+    b, h, s, d = 2, 3, 5, 4
+    x = torch.arange(b * h * s * d).view(b, h, s, d)
+    v = torch.arange(b * h * s).view(b, h, s)
+    flat, vflat = x.flatten(), v.flatten()
+    hp = 1
+    for bb in range(b):
+        for hh in range(h):
+            bp = bb * h + hh  # b'; h' = 0
+            for key in range(s):
+                assert vflat[(bp * hp + 0) * s + key] == v[bb, hh, key]
+                for c in range(d):
+                    assert flat[((bp * s + key) * hp + 0) * d + c] == x[bb, hh, key, c]

@@ -10,10 +10,12 @@ every geometry the experiments' mains time (B4 S2048 H12 D64, B1 S8192 H12
 D64, K16 also B4 S4096 H32/8 D128), and must agree with its plain version
 on the same inputs within rel_err_norm 1e-2 (K1's bf16 bound in
 ``chip_smoke.py``), launching its kernel exactly once a call: K13 in both
-exp modes, causal and not; K14 causal at Sq = Skv, Sq < Skv and Sq > Skv;
-K15 at every nchain it takes (``CARD_NCHAINS``: 1, the control, to 4), at
-a length whose last work tile is ragged (chains past Sq) and at Sq != Skv
-each way, one call captured into a CUDA graph and replayed on new inputs,
+exp modes, causal and not, at D 64 and 128 and at S 320 (not a multiple of
+the 128-row work tile), one call captured into a CUDA graph and replayed
+on new inputs, its launcher refusing a plan not its own; K14 causal at Sq
+= Skv, Sq < Skv and Sq > Skv; K15 at every nchain it takes
+(``CARD_NCHAINS``: 1, the control, to 4), at a length whose last work
+tile is ragged (chains past Sq) and at Sq != Skv each way, one call captured into a CUDA graph and replayed on new inputs,
 K14's and K15's launchers refusing a plan not their own and an unaligned
 bf16 base raising; K16 causal and not, GQA, D
 64 and 128; K17 at each unroll it takes (2, 4), K18 causal, K18's int8-QK
@@ -30,7 +32,14 @@ main's long geometries on its last rows; K20 and K21 (the unrolled
 backward) through ``flash_bwd_unrolled`` at ``CARD_CHECKS`` causal and not
 (blocks of 64, a launch of 320 rows, D 128, fp32 inputs) and at every
 geometry and block of its main, launched once a row-block (K20) and once a
-key block (K21), each output within 1e-2 of the plain version. fp32 on
+key block (K21: bf16 on K4's Hopper body, counted as
+``pfa_flash_bwd_dkv_colblock``, fp32 on the mma.sync body, counted as
+``pfa_flash_bwd_dkv_colblock_fp32``), each output within 1e-2 of the plain
+version; one K21 launch of a 64-key block that ends mid work tile writes
+its rows and no other, a K21 call (its launches after the first
+programmatic dependent launches) replays from a CUDA graph, and K21's
+launcher refuses a plan not its own; an unaligned bf16 base raises for
+K13 and K21 before any launch. fp32 on
 K13-K15, an nchain K15 is not compiled for, an unroll K17 is not compiled for, a
 dtype or a D a kernel does not take, and K20/K21's blocks that are not
 multiples of 64, GQA and lengths the blocks do not divide raise.
@@ -82,6 +91,7 @@ def _check(name, fn, plain, launches=1):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("shape, blk", [((2, 256, 4, 64), 128), ((1, 96, 3, 128), 32),
+                                        ((2, 320, 3, 64), 64), ((1, 320, 2, 128), 64),
                                         ((4, 2048, 12, 64), 512), ((1, 8192, 12, 64), 512)])
 def test_k13_fixedmax_matches_plain(cuda_device, causal, fast, shape, blk):
     q, k, v = _qkv(cuda_device, 1, shape)
@@ -89,6 +99,56 @@ def test_k13_fixedmax_matches_plain(cuda_device, causal, fast, shape, blk):
     _check("pfa_flash_fixedmax_fast" if fast else "pfa_flash_fixedmax",
            lambda: experiments.flash_fixedmax(q, k, v, **kw),
            lambda: fixedmax.flash_fixedmax_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_k13_graph_replay_matches_plain(cuda_device, fast):
+    """A K13 call captured into a CUDA graph and replayed on new inputs,
+    read by the stream's next kernel before any synchronisation."""
+    shape = (4, 2048, 12, 64)
+    q, k, v = _qkv(cuda_device, 36, shape)
+    kw = dict(causal=True, block_q=512, block_kv=512, fast_exp=fast)
+    name = "pfa_flash_fixedmax_fast" if fast else "pfa_flash_fixedmax"
+    experiments.flash_fixedmax(q, k, v, **kw)  # build and warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.CAPTURED[name]
+    with torch.cuda.graph(graph):
+        out = experiments.flash_fixedmax(q, k, v, **kw)
+    assert _build.CAPTURED[name] == before + 1
+    for seed in (37, 38):
+        for t, new in zip((q, k, v), _qkv(cuda_device, seed, shape)):
+            t.copy_(new)
+        graph.replay()
+        got = out.float() * 1.0
+        torch.cuda.synchronize()
+        ref = fixedmax.flash_fixedmax_plain(q, k, v, **kw)
+        assert torch.isfinite(got).all()
+        assert _common.rel_err_norm(got, ref) <= BOUND, seed
+
+
+def test_k13_refuses_other_plans(cuda_device):
+    """K13's launcher runs its own plan (K16's): another tile width, stage
+    count, shared memory or grid, or a walk past S's tiles, is refused."""
+    b, s, h, d = 1, 320, 2, 64
+    q, k, v = _qkv(cuda_device, 39, (b, s, h, d))
+    fm = fixedmax.fixed_max_bound(q, k, d ** -0.5)
+    o = torch.empty_like(q)
+
+    def k13(plan):
+        _build.launch("pfa_flash_fixedmax_sm90", cuda_device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), o.data_ptr(), fm.data_ptr(), b, s, h, d, d ** -0.5, 1, 0,
+                      plan.tile_keys, plan.stages, plan.smem, plan.grid,
+                      pipeline._c_walk(plan.walk))
+
+    p13 = pipeline.k13_plan(b, s, h, d, True)
+    k13(p13)
+    torch.cuda.synchronize()
+    for plan in (p13._replace(tile_keys=64), p13._replace(stages=p13.stages - 1),
+                 p13._replace(smem=p13.smem + 1024), p13._replace(grid=p13.grid + 1),
+                 p13._replace(walk=((p13.walk[0][0], 4),) + p13.walk[1:])):
+        with pytest.raises(RuntimeError, match="_sm90"):
+            k13(plan)
 
 
 @pytest.mark.parametrize("shape_q, skv, blk", [((2, 256, 4, 64), 256, 128),
@@ -505,17 +565,135 @@ def test_k20_k21_unrolled_backward_matches_plain(cuda_device, shape, dtype, bloc
     s = shape[1]
     for bq, bkv in blocks:
         kw = dict(sm_scale=shape[3] ** -0.5, causal=causal, block_q=bq, block_kv=bkv)
-        before = (_build.LAUNCHES["pfa_flash_bwd_dq_rowblock"],
-                  _build.LAUNCHES["pfa_flash_bwd_dkv_colblock"])
+        k21 = _route("pfa_flash_bwd_dkv_colblock", dtype)
+        before = (_build.LAUNCHES["pfa_flash_bwd_dq_rowblock"], _build.LAUNCHES[k21])
         got = experiments.flash_bwd_unrolled(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
         assert (_build.LAUNCHES["pfa_flash_bwd_dq_rowblock"] - before[0],
-                _build.LAUNCHES["pfa_flash_bwd_dkv_colblock"] - before[1]) == (s // bq, s // bkv)
+                _build.LAUNCHES[k21] - before[1]) == (s // bq, s // bkv)
         want = bwd.flash_bwd_unrolled_plain(q, k, v, o, lse, do, **kw)
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             assert g.dtype == w.dtype == dtype and g.shape == w.shape
             assert torch.isfinite(g).all(), name
             assert _common.rel_err_norm(g, w) <= BOUND, (name, bq, bkv)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k21_block_ending_mid_work_tile_writes_only_its_keys(cuda_device, d):
+    """One K21 launch of the 64-key block [64, 128) at S 384, causal: its
+    128-key work tile's second warpgroup holds keys 128-191, computed and
+    not stored. The block's rows match the plain version's; every other row
+    of dk and dv keeps what it held."""
+    b, s, h = 2, 384, 3
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 40, (b, s, h, d), torch.bfloat16, True)
+    di = bwd.flash_bwd_di(o, do)
+    dk, dv = (torch.full_like(k, 7.0) for _ in range(2))
+    plan = bwd.k21_plan(b, s, h, d, 64, 64)
+    assert plan.work == b * h
+    _build.launch("pfa_flash_bwd_dkv_colblock_sm90", cuda_device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), b, s, h, d, 64, 64, d ** -0.5, 1, 0, plan.stages, plan.smem,
+                  plan.grid)
+    torch.cuda.synchronize()
+    want = bwd.dkv_colblocks_plain(q, k, v, do, lse, di, sm_scale=d ** -0.5, causal=True,
+                                   block_q=64, block_kv=64)
+    rows = slice(64, 128)
+    for got, ref in zip((dk, dv), want):
+        assert torch.isfinite(got[:, :, rows]).all()
+        assert _common.rel_err_norm(got[:, :, rows], ref[:, :, rows]) <= BOUND
+        assert (got[:, :, :64] == 7.0).all() and (got[:, :, 128:] == 7.0).all()
+
+
+@pytest.mark.parametrize("shape, block_kv", [((4, 2048, 12, 64), 512), ((2, 320, 3, 128), 64)],
+                         ids=["b4s2048-bkv512", "d128-s320-bkv64"])
+def test_k21_graph_replay_matches_plain(cuda_device, shape, block_kv):
+    """A K21 call (its launches after the first programmatic dependent
+    launches) captured into a CUDA graph, replayed on new inputs and read
+    by the stream's next kernel before any synchronisation: every key of
+    every launch is there."""
+    b, s, h, d = shape
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 41, shape, torch.bfloat16, True)
+    di = bwd.flash_bwd_di(o, do)
+    kw = dict(sm_scale=d ** -0.5, causal=True, block_q=block_kv, block_kv=block_kv)
+    bwd.dkv_colblocks(q, k, v, do, lse, di, **kw)  # build and warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.CAPTURED["pfa_flash_bwd_dkv_colblock"]
+    with torch.cuda.graph(graph):
+        out = torch.stack(bwd.dkv_colblocks(q, k, v, do, lse, di, **kw))
+    assert _build.CAPTURED["pfa_flash_bwd_dkv_colblock"] == before + s // block_kv
+    for seed in (42, 43):
+        fresh = _bwd_inputs(cuda_device, seed, shape, torch.bfloat16, True)
+        for t, new in zip((q, k, v, o, lse, do), fresh):
+            t.copy_(new)
+        di.copy_(bwd.flash_bwd_di(o, do))
+        graph.replay()
+        got = out.float() * 1.0
+        torch.cuda.synchronize()
+        ref = torch.stack(bwd.dkv_colblocks_plain(q, k, v, do, lse, di, **kw))
+        assert torch.isfinite(got).all()
+        assert _common.rel_err_norm(got, ref) <= BOUND, seed
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k21_route_by_dtype(cuda_device, dtype):
+    """bf16 reaches only K4's Hopper body, fp32 only the mma.sync one; one
+    count a launch."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 44, (1, 256, 2, 64), dtype, True)
+    di = bwd.flash_bwd_di(o, do)
+    names = ("pfa_flash_bwd_dkv_colblock", "pfa_flash_bwd_dkv_colblock_fp32")
+    before = {n: _build.LAUNCHES[n] for n in names}
+    bwd.dkv_colblocks(q, k, v, do, lse, di, sm_scale=0.125, causal=True, block_q=64,
+                      block_kv=64)
+    torch.cuda.synchronize()
+    got = {n: _build.LAUNCHES[n] - before[n] for n in names}
+    assert got == {n: 4 * int(n.endswith("_fp32") == (dtype == torch.float32)) for n in names}
+
+
+def test_k21_refuses_other_plans(cuda_device):
+    """K21's launcher runs its own plan: another ring depth, shared memory
+    or a grid past the work tiles is refused, and so is a key range off the
+    grid of 64 or past S."""
+    b, s, h, d = 1, 256, 2, 64
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 45, (b, s, h, d), torch.bfloat16, True)
+    di = bwd.flash_bwd_di(o, do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+
+    def k21(plan, row0=64, rows=128):
+        _build.launch("pfa_flash_bwd_dkv_colblock_sm90", cuda_device, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), b, s, h, d, row0, rows, d ** -0.5, 1, 0,
+                      plan.stages, plan.smem, plan.grid)
+
+    plan = bwd.k21_plan(b, s, h, d, 64, 128)
+    k21(plan)
+    torch.cuda.synchronize()
+    for bad, row0, rows in ((plan._replace(stages=plan.stages - 1), 64, 128),
+                            (plan._replace(smem=plan.smem + 1024), 64, 128),
+                            (plan._replace(grid=plan.work + 1), 64, 128),
+                            (plan, 32, 128), (plan, 64, 96), (plan, 192, 128)):
+        with pytest.raises(RuntimeError, match="_sm90"):
+            k21(bad, row0, rows)
+
+
+def test_k13_k21_unaligned_bf16_raises(cuda_device):
+    """TMA reads 16-byte-aligned bases: a bf16 tensor that starts 2 bytes
+    in raises, before any launch, for K13 and for K21 (bf16 only)."""
+    b, s, h, d = 1, 256, 2, 64
+    n = b * s * h * d
+    buf = torch.randn(4 * n + 1, device=cuda_device).to(torch.bfloat16)
+    q, k, v, do = (buf[1 + i * n:1 + (i + 1) * n].view(b, s, h, d) for i in range(4))
+    lse = torch.zeros(b, h, s, device=cuda_device)
+    names = ("pfa_flash_fixedmax", "pfa_flash_fixedmax_fast", "pfa_flash_bwd_dkv_colblock")
+    before = {n_: _build.LAUNCHES[n_] for n_ in names}
+    for fast in (False, True):
+        with pytest.raises(ValueError, match="16-byte"):
+            experiments.flash_fixedmax(q, k, v, block_q=128, block_kv=128, fast_exp=fast)
+    qt, kt, vt, dot = (t.view(b, h, s, d) for t in (q, k, v, do))
+    with pytest.raises(ValueError, match="16-byte"):
+        bwd.dkv_colblocks(qt, kt, vt, dot, lse, lse, sm_scale=0.125, causal=True, block_q=64,
+                          block_kv=64)
+    assert {n_: _build.LAUNCHES[n_] for n_ in names} == before
 
 
 def test_k20_k21_card_contract_errors(cuda_device):

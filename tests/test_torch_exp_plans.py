@@ -1,5 +1,5 @@
-"""The launch plans of K14-K19's bf16 body (``k14_plan``, ``k15_plan``,
-``k16_plan``, ``k17_plan``, ``k18_plan``, ``k19_plan`` in
+"""The launch plans of K13-K19's bf16 body (``k13_plan``, ``k14_plan``,
+``k15_plan``, ``k16_plan``, ``k17_plan``, ``k18_plan``, ``k19_plan`` in
 ``experiments/flash_pipeline_experiment.py``), on the CPU.
 
 The C launchers of ``csrc/flash_experiments_sm90.cu`` take every field of a
@@ -18,7 +18,8 @@ as many stages as fit. Parametrised over the card checks' shapes
 causal (128-row q-block, key tile) pair once with Sq and Skv apart; K15's,
 with each chain stopping at its own diagonal (the kernel's rule, mirrored
 here), covers each (chain, key tile) pair of a chain with rows below Sq
-once, and loads no tile that no live chain runs.
+once, and loads no tile that no live chain runs. K13's plan is K16's (its
+instantiation) under K13's name and checks.
 """
 
 import math
@@ -249,3 +250,28 @@ def test_k14_k15_plan_shared_memory_fits(nchain):
 def test_k14_k15_plan_bad_arguments(call, match):
     with pytest.raises(ValueError, match=match):
         call()
+
+
+# -- K13 (csrc/flash_experiments_sm90.cu: flash_fixedmax_sm90<D, FAST>) ------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_k13_plan_is_k16s(shape, causal):
+    """K13 runs K16's instantiation: the same ring (tile, stages, shared
+    memory), grid and walk, for q, k and v of one head count."""
+    b, s, h, _, d = shape
+    for sms in (132, 16):
+        assert ux.k13_plan(b, s, h, d, causal, sms) == ux.k16_plan(b, s, h, h, d, causal, sms)
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: ux.k13_plan(1, 320, 2, 96, True), "K13 take head_dim"),
+    (lambda: ux.k13_plan(1, 320, 2, 32, False), "K13 take head_dim"),
+    (lambda: ux.k13_plan(1, ux.SM90_MAX_SEQ + 1, 1, 64, True), "K13's bf16 body takes S <="),
+    (lambda: ux.k13_plan(1, 0, 1, 64, True), "shape"),
+], ids=["d96", "d32", "long", "empty"])
+def test_k13_plan_bad_arguments(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert len(ux.k13_plan(1, ux.SM90_MAX_SEQ, 1, 64, True).walk) == 512
