@@ -19,7 +19,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    kinds (IGMMA s8, QGMMA e4m3, HGMMA bf16/f16) and UTMALDG, no HMMA or
    IMMA and no stack; that K3's 16 instantiations stage pages by the
    TMA's bulk copy (UBLKCP) with no stack; that K21's bf16 instantiation
-   of K4's body (D 64 and 128) does as K4's; and that K13-K19's bf16 body
+   of K4's body and K20's of K5's (D 64 and 128) do as K4's and K5's; that
+   K10's ring copies by the bulk copy with no stack; and that K13-K19's bf16 body
    (K16/K18, K17 at unroll 2 and 4, K19, K13 in both exp modes; D 64 and
    128; K14 and K15 at D 64) holds HGMMA and UTMALDG, no HMMA and no
    stack;
@@ -99,11 +100,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    the segmented variant's rows must have run each segment on K1, and the
    kernels line takes each kernel's time from its main's headline row.
    K20/K21 (the unrolled backward: dQ once per row-block, dK/dV once per
-   key block; K21 in bf16 on K4's TMA + wgmma body, in fp32 on its mma.sync
-   body, counted as a mode of its own and timed at K1's headline shape in
-   fp32) join both halves: checked against their plain versions (small
-   shapes at blocks of 64 and 128, D 128, fp32 inputs, and every geometry
-   and block of their main, each with its launch count; a bf16 K21 call
+   key block; in bf16 on K5's and K4's TMA + wgmma bodies, in fp32 on
+   their mma.sync bodies, counted as modes of their own and timed at K1's
+   headline shape in fp32) join both halves: checked against their plain
+   versions (small shapes at blocks of 64 and 128, D 128, fp32 inputs, and
+   every geometry and block of their main, each with its launch count;
+   K20's dq equal to K5's at K1's headline shape; a bf16 K20 and K21 call
    replayed from a CUDA graph), then the
    backward's main (parity against K4 + K5 under JAX's 3e-2, each row timed
    beside K4 + K5, SDPA's backward and the data-sheet bound; K20, K21, K4
@@ -175,11 +177,15 @@ call's wall time, time by kernel group) and writes the traces and a
 per-kernel table into DIR. ``--exp-table`` only builds and prints the exp
 table (K13 in both exp modes, K14, K15, K16, K17 at unroll 2 and 4, K18
 at each of its blocks and K19 at the mains' geometries by the graph fit,
-beside K1 bf16, SDPA and the bound; then K21 at the unrolled backward's
-geometries and blocks beside K4 alone, SDPA's backward and the bound),
+beside K1 bf16, SDPA and the bound; then K20, K21 and the whole call at
+the unrolled backward's geometries and blocks beside K5 alone, K4 alone,
+K4 + K5, SDPA's backward and the bound, with K20's levers: the other
+launch order and the chaining off), ``--bwd-table`` only those backward
+rows and the copy table (K10 beside ``y.copy_(x)`` and K10's other rings),
 with public calls, so a copy of the script in an unpacked tree of another
 commit times that tree. ``--sass-diff LIB`` compares the normalised SASS
-of every Hopper attention instantiation with another build's.
+of every Hopper attention instantiation and of the probes with another
+build's.
 """
 
 from __future__ import annotations
@@ -223,7 +229,8 @@ _EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_experiments.cu"
 #: K13-K19's bf16 body (TMA, wgmma); K16-K19's fp32 inputs stay on the
 #: mma.sync bodies of _EXPERIMENTS.
 _EXPERIMENTS90 = "photonic_flash_attention_tpu_torch/csrc/flash_experiments_sm90.cu"
-#: K20, and K21's fp32 inputs (bf16 K21 is K4's body, _BWD90).
+#: K20's and K21's fp32 inputs (in bf16 K20 is K5's body and K21 K4's,
+#: _BWD90).
 _BWD_EXPERIMENTS = "photonic_flash_attention_tpu_torch/csrc/flash_bwd_experiments.cu"
 _B1 = "photonic_flash_attention_tpu/ops/flash.py:59"
 #: Every kernel and mode (the launch counter's name): its source.
@@ -277,7 +284,8 @@ SOURCES = {
     "pfa_flash_tri_i8": _EXPERIMENTS,
     "pfa_flash_fulltri": _EXPERIMENTS90,
     "pfa_flash_fulltri_fp32": _EXPERIMENTS,
-    "pfa_flash_bwd_dq_rowblock": _BWD_EXPERIMENTS,
+    "pfa_flash_bwd_dq_rowblock": _BWD90,
+    "pfa_flash_bwd_dq_rowblock_fp32": _BWD_EXPERIMENTS,
     "pfa_flash_bwd_dkv_colblock": _BWD90,
     "pfa_flash_bwd_dkv_colblock_fp32": _BWD_EXPERIMENTS,
 }
@@ -341,6 +349,8 @@ REPLACES = {
     "pfa_flash_fulltri": "benchmarks/flash_pipeline_experiment.py:821",
     "pfa_flash_fulltri_fp32": "benchmarks/flash_pipeline_experiment.py:821 (fp32 inputs)",
     "pfa_flash_bwd_dq_rowblock": "benchmarks/flash_bwd_unrolled_experiment.py:41",
+    "pfa_flash_bwd_dq_rowblock_fp32": "benchmarks/flash_bwd_unrolled_experiment.py:41 "
+                                      "(fp32 inputs)",
     "pfa_flash_bwd_dkv_colblock": "benchmarks/flash_bwd_unrolled_experiment.py:83",
     "pfa_flash_bwd_dkv_colblock_fp32": "benchmarks/flash_bwd_unrolled_experiment.py:83 "
                                        "(fp32 inputs)",
@@ -351,7 +361,7 @@ REPLACES = {
 #: K3's read-only attend (with and without the token bias) and K2 alone
 #: (serving decodes through K3's fused write + attend),
 #: ALiBi (no model of the port uses it), the sliding window of K1, K4
-#: and K5 (no model of the port sets one) and K16-K19's and K21's fp32
+#: and K5 (no model of the port sets one) and K16-K19's, K20's and K21's fp32
 #: inputs (the experiments' mains run bf16; their mma.sync bodies are
 #: checked and timed in the experiments phase). K6's int8 mode has its own entry: the
 #: CLI's ``calibrate`` runs it.
@@ -368,6 +378,8 @@ NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
                 "pfa_flash_chunked_fp32": ("pfa_flash_chunked", "fp32 (mma.sync body)"),
                 "pfa_flash_tri_fp32": ("pfa_flash_tri", "fp32 (mma.sync body)"),
                 "pfa_flash_fulltri_fp32": ("pfa_flash_fulltri", "fp32 (mma.sync body)"),
+                "pfa_flash_bwd_dq_rowblock_fp32": ("pfa_flash_bwd_dq_rowblock",
+                                                   "fp32 (mma.sync body)"),
                 "pfa_flash_bwd_dkv_colblock_fp32": ("pfa_flash_bwd_dkv_colblock",
                                                     "fp32 (mma.sync body)")}
 TIMED_RUNS = 20
@@ -522,8 +534,9 @@ def phase_build(sass: bool = True) -> None:
     check_bwd_sass(counts, usage)
     check_quant_sass(counts, usage)
     check_exp_sass(counts, usage)
+    check_k10_sass(counts, usage)
     check_k3_sass(path)
-    print(f"K1 SASS, K4/K5 SASS, quant SASS, exp SASS, K3 SASS: checked in "
+    print(f"K1 SASS, K4/K5 SASS, quant SASS, exp SASS, K10 SASS, K3 SASS: checked in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
@@ -533,7 +546,8 @@ K1_SM90 = re.compile(r"flash_fwd_sm90ILi(\d+)ELi(\d)E")
 K1_MODES = ("plain", "streams", "rel", "dense", "window", "dropout")
 #: K4's and K5's bf16 kernels: one instantiation per kernel, head dim and
 #: stream mode (csrc/flash_bwd_sm90.cuh::StreamMode, in this order); K21's
-#: is K4's plain one with COLBLOCK true (``Lb1E``).
+#: is K4's plain one with COLBLOCK true (``Lb1E``), K20's K5's with
+#: ROWBLOCK true.
 BWD_SM90 = re.compile(r"flash_bwd_(dkv|dq)_sm90ILi(\d+)ELi(\d)E(Lb1E)?")
 BWD_MODES = ("plain", "window", "dropout")
 #: The quantized forward (K1's 8-bit modes and K6): one instantiation per
@@ -556,8 +570,15 @@ AUG_PAIR_SM90 = re.compile(r"flash_(aug|pair)_sm90(?:ILi(\d)E)?")
 #: K13's instantiations (flash_fixedmax_sm90<D, FAST>); keyed ("fixed", D,
 #: 1 in the fast_exp mode).
 FIXED_SM90 = re.compile(r"flash_fixedmax_sm90ILi(\d+)ELb([01])E")
-#: The instantiations ``--sass-diff`` compares: every Hopper attention body.
-SASS_DIFF_KINDS = ("K1", "K4", "K5", "K21", "exp", "aug_pair", "fixed")
+#: The probes K9-K12 (csrc/probes.cu): keyed ("probe", 0, n) with n 0 for
+#: K9, 1 K11, 2 K10's ring (3 its parent's grid-stride body), and K12's
+#: instantiations ("probe", columns, 1 masked).
+PROBE_SASS = re.compile(r"\d(hbm_read|exp_chain|hbm_copy_ring|hbm_copy)E|"
+                        r"softmax_streamILi(\d+)ELi(\d+)ELb([01])E")
+PROBE_KERNELS = ("hbm_read", "exp_chain", "hbm_copy_ring", "hbm_copy")
+#: The instantiations ``--sass-diff`` compares: every Hopper attention body
+#: and the probes.
+SASS_DIFF_KINDS = ("K1", "K4", "K5", "K20", "K21", "exp", "aug_pair", "fixed", "probe")
 
 
 def _cuobjdump(flag: str, path: Path) -> str:
@@ -567,11 +588,14 @@ def _cuobjdump(flag: str, path: Path) -> str:
 
 def _sm90_key(name: str):
     """(kind, D, mode) of a Hopper kernel instantiation's name: kind "K1",
-    "K4", "K5", "K21", "quant", "exp", "aug_pair" or "fixed"."""
+    "K4", "K5", "K20", "K21", "quant", "exp", "aug_pair", "fixed" or
+    "probe" (PROBE_SASS)."""
     if m := K1_SM90.search(name):
         return "K1", int(m.group(1)), int(m.group(2))
     if m := BWD_SM90.search(name):
-        kind = "K21" if m.group(4) else "K4" if m.group(1) == "dkv" else "K5"
+        kind = {"dkv": "K4", "dq": "K5"}[m.group(1)]
+        if m.group(4):
+            kind = "K21" if kind == "K4" else "K20"
         return kind, int(m.group(2)), int(m.group(3))
     if m := FIXED_SM90.search(name):
         return "fixed", int(m.group(1)), int(m.group(2))
@@ -581,6 +605,10 @@ def _sm90_key(name: str):
         return "exp", int(m.group(1)), int(m.group(2))
     if m := AUG_PAIR_SM90.search(name):
         return "aug_pair", 64, int(m.group(2) or 0)
+    if m := PROBE_SASS.search(name):
+        if m.group(1):
+            return "probe", 0, PROBE_KERNELS.index(m.group(1))
+        return "probe", int(m.group(2)) * int(m.group(3)), int(m.group(4))
     return None
 
 
@@ -597,7 +625,7 @@ def sm90_sass(path: Path) -> tuple:
             if cur:
                 counts[cur] = collections.Counter()
         elif cur:
-            for op in (*GMMA_OPS, "UTMALDG", "HMMA", "IMMA"):
+            for op in (*GMMA_OPS, "UTMALDG", "UBLKCP", "HMMA", "IMMA"):
                 counts[cur][op] += len(re.findall(rf"\b{op}\b", line))
     usage = {}
     for m in re.finditer(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
@@ -679,20 +707,24 @@ def check_k1_sass(counts: dict, usage: dict) -> None:
 
 def check_bwd_sass(counts: dict, usage: dict) -> None:
     """The same proof for K4 and K5 (every bf16 instantiation: D 64 and
-    128, each stream mode) and K21 (K4's plain body with its key range and
-    chained launches, D 64 and 128): each must hold HGMMA and UTMALDG, no
-    HMMA, and no stack (no spills). Prints the counts, registers, stack and
-    local bytes and, from ``pfa_bwd_sm90_info`` (K21: K4's plain design),
-    the work tile, the ring's tile and stages, shared memory, threads and
-    CTAs a SM."""
+    128, each stream mode), K21 (K4's plain body with its key range and
+    chained launches, D 64 and 128) and K20 (K5's plain body with its row
+    range and chained launches): each must hold HGMMA and UTMALDG, no HMMA,
+    and no stack (no spills). Prints the counts, registers, stack and local
+    bytes and, from ``pfa_bwd_sm90_info`` (K21: K4's plain design, K20:
+    K5's), the work tile, the ring's tile and stages, shared memory,
+    threads and CTAs a SM."""
     import ctypes
 
+    kinds = ("K4", "K5", "K20", "K21")
     want = ({(k, d, mode) for k in ("K4", "K5") for d in (64, 128)
-             for mode in range(len(BWD_MODES))} | {("K21", d, 0) for d in (64, 128)})
-    got = {key for key in counts if key[0] in ("K4", "K5", "K21")}
+             for mode in range(len(BWD_MODES))} | {(k, d, 0) for k in ("K20", "K21")
+                                                   for d in (64, 128)})
+    got = {key for key in counts if key[0] in kinds}
     if got != want:
         raise AssertionError(f"K4/K5 SASS: bf16 instantiations {sorted(got)}, want {sorted(want)}")
-    rows = {"K4": ("key", "query"), "K5": ("query", "key"), "K21": ("key", "query")}
+    rows = {"K4": ("key", "query"), "K5": ("query", "key"), "K20": ("query", "key"),
+            "K21": ("key", "query")}
     for kern, d, mode in sorted(want):
         c = counts[(kern, d, mode)]
         info = (ctypes.c_int * 16)()
@@ -799,9 +831,24 @@ def check_exp_sass(counts: dict, usage: dict) -> None:
             print(line, flush=True)
 
 
+def check_k10_sass(counts: dict, usage: dict) -> None:
+    """Proof that K10 is the ring of bulk copies: its kernel must hold the
+    TMA's bulk copy (UBLKCP: at least the load and a store) and no stack or
+    local bytes."""
+    key = ("probe", 0, PROBE_KERNELS.index("hbm_copy_ring"))
+    c, reg = counts.get(key), usage.get(key)
+    line = (f"K10 SASS hbm_copy_ring: UBLKCP {c['UBLKCP'] if c else 'no entry'}; " +
+            (f"registers {reg[0]}, stack {reg[1]} B, local {reg[3]} B" if reg
+             else "cuobjdump -res-usage: no entry"))
+    if not c or c["UBLKCP"] < 2 or not reg or reg[1] or reg[3]:
+        raise AssertionError(f"{line}: K10 must copy by the TMA's bulk copy, with no stack")
+    print(line, flush=True)
+
+
 def _normalised_sass(path: Path) -> dict:
-    """The instantiations of every Hopper attention body in a built library
-    (or object file; SASS_DIFF_KINDS: K1's bf16, K4/K5's, K21's, K13-K19's):
+    """The instantiations of every Hopper attention body and the probes in a
+    built library (or object file; SASS_DIFF_KINDS: K1's bf16, K4/K5's,
+    K20/K21's, K13-K19's, K9-K12's):
     each one's instructions, keyed by ``_sm90_key``, with the addresses and
     encodings dropped and every hex immediate (constant-bank offsets,
     branch targets) replaced, so that two builds compare by code."""
@@ -3880,8 +3927,9 @@ def softmax_bound(rows: int, cols: int, iters: int, masked: bool, peak: dict) ->
 def check_hbm_probes(results: dict) -> None:
     """K9 and K10 against their plain versions, bit for bit: K9 over 1, 2
     and 3 chunks and bench.py's 256 MiB stream (bf16; fp32 and int8 at one
-    chunk), K10 at (131072, 512) bf16 and short fp32 and int8 arrays; both
-    timed at the rate shapes, K10 against ``y.copy_(x)``."""
+    chunk), K10 at (131072, 512) bf16, short fp32 and int8 arrays and its
+    ring's tails (16 bytes, a chunk and 16 bytes, a size that ends mid
+    chunk); both timed at the rate shapes, K10 against ``y.copy_(x)``."""
     from photonic_flash_attention_tpu_torch.ops import hbm_bw
 
     gen = torch.Generator(device="cuda").manual_seed(30)
@@ -3905,7 +3953,8 @@ def check_hbm_probes(results: dict) -> None:
           f"bound {bound['bound_ms']:.4f} ms (bytes)", flush=True)
     del x, out
 
-    copy = [((4096, 256), torch.float32), ((100, 512), torch.int8),
+    copy = [((4096, 256), torch.float32), ((100, 512), torch.int8), ((1, 8), torch.bfloat16),
+            ((1, 16392), torch.bfloat16), ((3, 40008), torch.bfloat16),
             (hbm_bw.COPY_SHAPE, torch.bfloat16)]
     for shape, dtype in copy:
         x = (torch.randn(shape, device="cuda", generator=gen) * 50).to(dtype)
@@ -3921,8 +3970,8 @@ def check_hbm_probes(results: dict) -> None:
                                "max_abs_err": 0.0, "shape": list(x.shape), **bound}
     print(f"K10 hbm_copy: equal to x at {[list(s) for s, _ in copy]} | {list(x.shape)} bf16: "
           f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s read + written), plain (clone) "
-          f"{plain:.4f} ms, y.copy_(x) {lib:.4f} ms, bound {bound['bound_ms']:.4f} ms (bytes)",
-          flush=True)
+          f"{plain:.4f} ms, y.copy_(x) {lib:.4f} ms ({nbytes / lib / 1e6:.1f} GB/s), bound "
+          f"{bound['bound_ms']:.4f} ms (bytes)", flush=True)
     del x, y
 
 
@@ -4298,7 +4347,9 @@ def check_experiments(results: dict) -> dict:
     the int8 main's, where the plain version computes only the last rows or
     batch 0; then K20 and K21 at the backward module's CARD_CHECKS and its
     main's geometries and blocks, launched once a row-block and once a key
-    block. Each plain version runs once a case and is timed at K1's
+    block, K20's bf16 dq at K1's headline shape equal to K5's bit for bit,
+    a K20 and a K21 call replayed from a CUDA graph, and both kernels' fp32
+    inputs (the mma.sync bodies) timed. Each plain version runs once a case and is timed at K1's
     headline shape (B4 S2048 H12 D64 causal bf16). Returns, per kernel, its
     worst max abs error and that plain time; K1's and its int8-QK mode's
     errors go into ``results``."""
@@ -4482,10 +4533,11 @@ def check_experiments(results: dict) -> dict:
                              q8[:1], k8[:1], v[:1], sc, causal=causal, out_dtype=v.dtype),
                          checked, launches=("pfa_flash_fwd_int8qk", 1))
     # K20 (dq, once a row-block) and K21 (dk, dv, once a key block: bf16 on
-    # K4's Hopper body, fp32 on the mma.sync body under its own counter)
-    # through their wrappers on one di: at bx.CARD_CHECKS causal and not,
-    # and at every geometry and block of their main. K21's two outputs are
-    # compared stacked.
+    # K5's and K4's Hopper bodies, fp32 on the mma.sync bodies under their
+    # own counters) through their wrappers on one di: at bx.CARD_CHECKS
+    # causal and not, and at every geometry and block of their main. K21's
+    # two outputs are compared stacked. At K1's headline shape K20's dq
+    # must be K5's bit for bit (each row sees K5's key tiles in its order).
     bwd_cases = ([(shape, dtype, blocks, causal) for shape, dtype, blocks in bx.CARD_CHECKS
                   for causal in both]
                  + [(shape, torch.bfloat16, bx.BLOCKS, causal) for _, shape, causal in bx.CASES])
@@ -4499,21 +4551,34 @@ def check_experiments(results: dict) -> dict:
             kw = dict(sm_scale=d ** -0.5, causal=causal, block_q=bq, block_kv=bkv)
             geom = f"B{b} S{s} H{h} D{d} {str(dtype)[6:]} bq={bq} bkv={bkv} causal={causal}"
             headline = (b, s, h, d) == K1_HEADLINE and causal and (bq, bkv) == bx.HEADLINE[1]
-            _experiment_case("pfa_flash_bwd_dq_rowblock", f"K20 dq {geom}",
+            name = route("pfa_flash_bwd_dq_rowblock", dtype)
+            _experiment_case(name, f"K20 dq {geom}",
                              lambda: bx.dq_rowblocks(q, k, v, do, lse, di, **kw),
                              lambda: bx.dq_rowblocks_plain(q, k, v, do, lse, di, **kw), checked,
-                             timed=headline, launches=("pfa_flash_bwd_dq_rowblock", s // bq))
+                             timed=headline, launches=(name, s // bq))
+            if headline:
+                t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+                k20 = bx.dq_rowblocks(q, k, v, do, lse, di, **kw)
+                k5 = t(bwd_ops.flash_bwd_dq(t(q), t(k), t(v), t(do), lse, di, sm_scale=d ** -0.5,
+                                            causal=True))
+                gap = max_abs_err(k20, k5)
+                line = f"K20 dq {geom}: max abs {gap:.3e} from K5's dq on the same inputs"
+                if gap != 0.0:
+                    raise AssertionError(line + ", not 0")
+                print(line, flush=True)
             name = route("pfa_flash_bwd_dkv_colblock", dtype)
             _experiment_case(name, f"K21 dk, dv {geom}",
                              lambda: torch.stack(bx.dkv_colblocks(q, k, v, do, lse, di, **kw)),
                              lambda: torch.stack(bx.dkv_colblocks_plain(q, k, v, do, lse, di,
                                                                         **kw)),
                              checked, timed=headline, launches=(name, s // bkv))
-    check_k21_graph_replay(checked, gen)
-    # K21's fp32 inputs (the mma.sync body) at K1's headline shape in fp32,
-    # block_kv 512: checked, the plain version timed once, the kernel by the
-    # fit beside SDPA's backward on the same fp32 inputs (CUDA events); the
-    # bound counts fp32 bytes and bf16 products (the body converts on load).
+    check_unrolled_graph_replays(checked, gen)
+    # K20's and K21's fp32 inputs (the mma.sync bodies) at K1's headline
+    # shape in fp32, blocks 512: checked, the plain version timed once, the
+    # kernel by the fit beside SDPA's backward on the same fp32 inputs (CUDA
+    # events); the bound counts fp32 bytes and bf16 products (the bodies
+    # convert on load): K20 reads q, k, v, dO, lse and di and writes dq
+    # (6 D a pair), K21 reads the same and writes dk and dv (8 D a pair).
     b, s, h, d = K1_HEADLINE
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen) for _ in range(4))
     o, lse = flash_ops.flash_attention_with_lse(q, k, v, causal=True)
@@ -4521,19 +4586,24 @@ def check_experiments(results: dict) -> dict:
     q, k, v, o, do = (t.transpose(1, 2).contiguous() for t in (q, k, v, o, do))
     di = bx.flash_bwd_di(o, do)
     kw = dict(sm_scale=d ** -0.5, causal=True, block_q=512, block_kv=512)
-    name = "pfa_flash_bwd_dkv_colblock_fp32"
-    call = lambda: torch.stack(bx.dkv_colblocks(q, k, v, do, lse, di, **kw))  # noqa: E731
-    _experiment_case(name, f"K21 dk, dv B{b} S{s} H{h} D{d} float32 bq=512 bkv=512 causal", call,
-                     lambda: torch.stack(bx.dkv_colblocks_plain(q, k, v, do, lse, di, **kw)),
-                     checked, timed=True, launches=(name, s // 512))
-    ms = fit_seconds(call, EXPERIMENT_FIT, torch.device("cuda")) * 1e3
-    bound = card_bound(8.0 * d * h * attention_pairs(b, s, s, True),
-                       4 * (6 * b * s * h * d + 2 * b * h * s), torch.bfloat16)
-    checked[name].update(ms=ms, library_ms=lib32, shape=list(K1_HEADLINE), **bound)
-    print(f"experiments: K21 dk, dv fp32 (mma.sync body) B{b} S{s} H{h} D{d} bkv=512 causal: "
-          f"{ms:.4f} ms (graph fit); SDPA backward fp32 (dq, dk, dv; CUDA events) {lib32:.4f} ms; "
-          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
-          f"{100 * bound['bound_ms'] / ms:.2f} % of it", flush=True)
+    pairs = attention_pairs(b, s, s, True)
+    for name, label, call, plain, ops, tensors in (
+            ("pfa_flash_bwd_dq_rowblock_fp32", "K20 dq",
+             lambda: bx.dq_rowblocks(q, k, v, do, lse, di, **kw),
+             lambda: bx.dq_rowblocks_plain(q, k, v, do, lse, di, **kw), 6.0, 5),
+            ("pfa_flash_bwd_dkv_colblock_fp32", "K21 dk, dv",
+             lambda: torch.stack(bx.dkv_colblocks(q, k, v, do, lse, di, **kw)),
+             lambda: torch.stack(bx.dkv_colblocks_plain(q, k, v, do, lse, di, **kw)), 8.0, 6)):
+        _experiment_case(name, f"{label} B{b} S{s} H{h} D{d} float32 bq=512 bkv=512 causal",
+                         call, plain, checked, timed=True, launches=(name, s // 512))
+        ms = fit_seconds(call, EXPERIMENT_FIT, torch.device("cuda")) * 1e3
+        bound = card_bound(ops * d * h * pairs, 4 * (tensors * b * s * h * d + 2 * b * h * s),
+                           torch.bfloat16)
+        checked[name].update(ms=ms, library_ms=lib32, shape=list(K1_HEADLINE), **bound)
+        print(f"experiments: {label} fp32 (mma.sync body) B{b} S{s} H{h} D{d} blocks 512 causal: "
+              f"{ms:.4f} ms (graph fit); SDPA backward fp32 (dq, dk, dv; CUDA events) "
+              f"{lib32:.4f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+              f"{100 * bound['bound_ms'] / ms:.2f} % of it", flush=True)
     for name in ("pfa_flash_fwd", "pfa_flash_fwd_int8qk"):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                            checked[name]["max_abs_err"])
@@ -4599,10 +4669,11 @@ def check_k13_graph_replay(fast: bool, checked: dict, make_qkv) -> None:
                        lambda: make_qkv(K1_HEADLINE))
 
 
-def check_k21_graph_replay(checked: dict, gen) -> None:
-    """One K21 call in bf16 at K1's headline shape, causal, block_kv 512 (4
-    launches, each after the first a programmatic dependent launch), on
-    inputs from K1's forward, through check_graph_replay."""
+def check_unrolled_graph_replays(checked: dict, gen) -> None:
+    """One K20 and one K21 call in bf16 at K1's headline shape, causal,
+    blocks 512 (4 launches each, each after the first a programmatic
+    dependent launch), on inputs from K1's forward, through
+    check_graph_replay."""
     from photonic_flash_attention_tpu_torch.experiments import flash_bwd_unrolled_experiment as bx
 
     b, s, h, d = K1_HEADLINE
@@ -4616,6 +4687,11 @@ def check_k21_graph_replay(checked: dict, gen) -> None:
         return q, k, v, do, lse, bx.flash_bwd_di(o, do)
 
     inputs = fresh()
+    check_graph_replay("pfa_flash_bwd_dq_rowblock",
+                       f"K20 dq B{b} S{s} H{h} D{d} bfloat16 bq=512 causal",
+                       lambda: bx.dq_rowblocks(*inputs, **kw),
+                       lambda: bx.dq_rowblocks_plain(*inputs, **kw), s // 512,
+                       checked, inputs, fresh)
     check_graph_replay("pfa_flash_bwd_dkv_colblock",
                        f"K21 dk, dv B{b} S{s} H{h} D{d} bfloat16 bkv=512 causal",
                        lambda: torch.stack(bx.dkv_colblocks(*inputs, **kw)),
@@ -4669,7 +4745,8 @@ def time_exp_table(smi: str) -> list:
     first, over the aug and pair modules' CASES, causal. K13 in both exp
     modes (the kernel alone, ``fixedmax_kernel``, its bound precomputed)
     joins them over the fixed-max module's CASES, its fast_exp rows held to
-    K1 within FAST_EXP_ORACLE_BOUND. Then K21 (``time_k21_rows``)."""
+    K1 within FAST_EXP_ORACLE_BOUND. Then K20, K21 and the unrolled
+    backward's whole call (``time_unrolled_rows``)."""
     from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as ax
     from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fx
     from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
@@ -4754,21 +4831,29 @@ def time_exp_table(smi: str) -> list:
         table.append(row)
     inputs.clear()
     torch.cuda.empty_cache()
-    return table + time_k21_rows(smi)
+    return table + time_unrolled_rows(smi)
 
 
-def time_k21_rows(smi: str) -> list:
-    """K21 (``dkv_colblocks``, a launch a key block) over the unrolled
-    backward's CASES at each block_kv of its BLOCKS, by the graph fit (2,
-    10), beside K4 alone (``flash_bwd_dkv``: all keys in one launch) and
+def time_unrolled_rows(smi: str) -> list:
+    """The unrolled backward over its CASES by the graph fit (2, 10): K20
+    (``dq_rowblocks``, a launch a row-block) at each block_q of its BLOCKS
+    beside K5 alone (``flash_bwd_dq``: all rows in one launch), K21
+    (``dkv_colblocks``, a launch a key block) at each block_kv beside K4
+    alone, and the whole call (``flash_bwd_unrolled``: di, K20 and K21) at
+    each of its BLOCKS beside K4 + K5 (``flash_attention_bwd``); each beside
     SDPA's backward (dq, dk, dv; its autograd node replayed from a graph) on
-    the same inputs (o and lse from K1's forward), the bound of dk and dv
-    (``bwd_bounds``) and the kernel's share of it, and its dk, dv against
-    K4's within EXPERIMENT_BOUND. Public calls only, as the exp table."""
+    the same inputs (o and lse from K1's forward), its bound (``bwd_bounds``'
+    dq or dk/dv, ``bwd_call_bound``) and its share of it. K20's dq must
+    hold to K5's and K21's dk, dv to K4's within EXPERIMENT_BOUND (K20's max
+    abs from K5's printed: 0 where each row sees K5's key tiles). Where the
+    tree has them (``_k20_launches``), K20's levers are timed beside it:
+    the other launch order and the chaining off. Public calls otherwise, so
+    a copy of this script times another tree of the repository."""
     from photonic_flash_attention_tpu_torch.experiments import flash_bwd_unrolled_experiment as bx
 
     gen = torch.Generator(device="cuda").manual_seed(30)
     fit = lambda fn: fit_seconds(fn, EXPERIMENT_FIT, torch.device("cuda")) * 1e3  # noqa: E731
+    levers = hasattr(bx, "_k20_launches")
     table = []
     for name, (b, s, h, d), causal in bx.CASES:
         torch.cuda.empty_cache()
@@ -4778,34 +4863,123 @@ def time_k21_rows(smi: str) -> list:
         q, k, v, o, do = (t.transpose(1, 2).contiguous() for t in (qs, ks, vs, os_, dos))
         di = bx.flash_bwd_di(o, do)
         sm = d ** -0.5
-        k4 = lambda: bwd_ops.flash_bwd_dkv(qs, ks, vs, dos, lse, di, sm_scale=sm,  # noqa: E731
-                                           causal=causal)
-        ref = torch.stack([t.transpose(1, 2) for t in k4()])
-        k4_ms = fit(k4)
+        kw45 = dict(sm_scale=sm, causal=causal)
+        k4 = lambda: bwd_ops.flash_bwd_dkv(qs, ks, vs, dos, lse, di, **kw45)  # noqa: E731
+        k5 = lambda: bwd_ops.flash_bwd_dq(qs, ks, vs, dos, lse, di, **kw45)  # noqa: E731
+        k45 = lambda: bwd_ops.flash_attention_bwd(qs, ks, vs, os_, lse, dos, **kw45)  # noqa: E731
+        ref_dkv = torch.stack([t.transpose(1, 2) for t in k4()])
+        ref_dq = k5().transpose(1, 2)
+        yard = {"K20": ("K5 alone", fit(k5)), "K21": ("K4 alone", fit(k4)),
+                "call": ("K4 + K5", fit(k45))}
         sdpa_bwd = fit(_sdpa_bwd_calls(qs, ks, vs, dos, is_causal=causal)[1])
         meta = torch.empty(b, s, h, d, device="meta", dtype=torch.bfloat16)
-        bnd = bwd_bounds(meta, meta, causal)[0]
-        for bkv in dict.fromkeys(bkv for _, bkv in bx.BLOCKS):
-            if s % bkv:
+        bnd_dkv, bnd_dq = bwd_bounds(meta, meta, causal)
+        bounds = {"K20": bnd_dq, "K21": bnd_dkv, "call": bwd_call_bound(meta, causal)}
+        rows = ([("K20", f"bq={bq}", (bq, bq), s // bq) for bq in dict.fromkeys(
+                    bq for bq, _ in bx.BLOCKS)]
+                + [("K21", f"bkv={bkv}", (bkv, bkv), s // bkv) for bkv in dict.fromkeys(
+                    bkv for _, bkv in bx.BLOCKS)]
+                + [("call", f"bq={bq} bkv={bkv}", (bq, bkv), f"{s // bq} + {s // bkv}")
+                   for bq, bkv in bx.BLOCKS])
+        for kernel, blocks, (bq, bkv), launches in rows:
+            if s % bq or s % bkv:
                 continue
-            kw = dict(sm_scale=sm, causal=causal, block_q=bkv, block_kv=bkv)
-            call = lambda: bx.dkv_colblocks(q, k, v, do, lse, di, **kw)  # noqa: E731
-            err = rel_err_norm(torch.stack(call()), ref)
+            kw = dict(sm_scale=sm, causal=causal, block_q=bq, block_kv=bkv)
+            extra, levers_ms = "", {}
+            if kernel == "K20":
+                call = lambda: bx.dq_rowblocks(q, k, v, do, lse, di, **kw)  # noqa: E731
+                out = call()
+                err, gap = rel_err_norm(out, ref_dq), max_abs_err(out, ref_dq)
+                extra = f"; max abs from K5's dq {gap:.3e}"
+                if levers:
+                    dq = torch.empty_like(q)
+                    shipped = bx.K20_DESCENDING
+                    for label, desc, chained in (("other order", not shipped, True),
+                                                 ("chaining off", shipped, False)):
+                        lever = lambda: bx._k20_launches(  # noqa: E731
+                            q, k, v, do, lse, di, dq, sm_scale=sm, causal=causal, block_q=bq,
+                            descending=desc, chained=chained)
+                        lever()
+                        if not torch.equal(dq, out):
+                            raise AssertionError(f"exp table: K20 {name} {blocks} {label}: dq "
+                                                 f"differs from the shipped call's")
+                        levers_ms[label] = fit(lever)
+            elif kernel == "K21":
+                call = lambda: bx.dkv_colblocks(q, k, v, do, lse, di, **kw)  # noqa: E731
+                err = rel_err_norm(torch.stack(call()), ref_dkv)
+            else:
+                call = lambda: bx.flash_bwd_unrolled(q, k, v, o, lse, do, **kw)  # noqa: E731
+                out = call()
+                err = max(rel_err_norm(out[0], ref_dq), rel_err_norm(torch.stack(out[1:]),
+                                                                     ref_dkv))
             ms = fit(call)
-            table.append(dict(kernel="K21", case=f"{name} bkv={bkv}", shape=[b, s, h, h, d],
-                              causal=causal, fit_ms=ms, k4_fit_ms=k4_ms,
-                              sdpa_bwd_fit_ms=sdpa_bwd, rel_err_k4=err, launches=s // bkv,
-                              **bnd))
-            line = (f"exp table: K21 {name} bkv={bkv} (B{b} S{s} H{h} D{d} causal={causal}, "
-                    f"{s // bkv} launches): {ms:.4f} ms (graph fit); K4 alone {k4_ms:.4f} ms, "
-                    f"SDPA backward (dq, dk, dv) {sdpa_bwd:.4f} ms; kernel / K4 {ms / k4_ms:.3f}, "
-                    f"kernel / SDPA backward {ms / sdpa_bwd:.3f}; bound {bnd['bound_ms']:.4f} ms "
-                    f"({bnd['bound_by']}), kernel at {100 * bnd['bound_ms'] / ms:.2f} % of it; "
-                    f"vs K4 rel_err_norm {err:.3e} ({smi})")
+            yard_label, yard_ms = yard[kernel]
+            bnd = bounds[kernel]
+            table.append(dict(kernel=kernel, case=f"{name} {blocks}", shape=[b, s, h, h, d],
+                              causal=causal, fit_ms=ms, yardstick=yard_label,
+                              yardstick_fit_ms=yard_ms, sdpa_bwd_fit_ms=sdpa_bwd, rel_err=err,
+                              launches=launches, levers_fit_ms=levers_ms, **bnd))
+            lever_text = "".join(f"; {label} {t:.4f} ms ({t / ms:.3f} x)"
+                                 for label, t in levers_ms.items())
+            line = (f"exp table: {'K20 + K21 + di' if kernel == 'call' else kernel} {name} "
+                    f"{blocks} (B{b} S{s} H{h} D{d} causal={causal}, {launches} launches): "
+                    f"{ms:.4f} ms (graph fit){lever_text}; {yard_label} {yard_ms:.4f} ms, SDPA "
+                    f"backward (dq, dk, dv) {sdpa_bwd:.4f} ms; kernel / {yard_label} "
+                    f"{ms / yard_ms:.3f}, kernel / SDPA backward {ms / sdpa_bwd:.3f}; bound "
+                    f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), kernel at "
+                    f"{100 * bnd['bound_ms'] / ms:.2f} % of it; vs K4/K5 rel_err_norm {err:.3e}"
+                    f"{extra} ({smi})")
             print(line, flush=True)
             if not err <= EXPERIMENT_BOUND:
                 raise AssertionError(line)
     torch.cuda.empty_cache()
+    return table
+
+
+#: K10's rings the copy table times beside the shipped one: (chunk bytes,
+#: stages, CTAs a SM; 0: a CTA a chunk).
+K10_RINGS = ((32768, 4, 1), (32768, 6, 1), (16384, 8, 1), (65536, 3, 1), (16384, 4, 2),
+             (16384, 2, 0))
+
+
+def time_k10_rows(smi: str, rounds: int = 3) -> list:
+    """K10 (``hbm_copy``) at bench.py's copy shape (131072, 512) bf16 beside
+    ``y.copy_(x)``, each by ``graph_ms`` (20 calls replayed from one CUDA
+    graph) in ``rounds`` alternating rounds, with GB/s read + written and
+    the bound; where the tree has ``k10_plan``, every ring and grid of
+    K10_RINGS too (launched by ``_copy_into``, each
+    copy checked bit for bit). Public calls otherwise, so a copy of this
+    script times another tree's K10 (the parent's body)."""
+    from photonic_flash_attention_tpu_torch.ops import hbm_bw
+
+    x = torch.randn(hbm_bw.COPY_SHAPE, device="cuda").to(torch.bfloat16)
+    y = torch.empty_like(x)
+    nbytes = 2 * x.numel() * x.element_size()
+    bound = card_bound(0, nbytes, torch.bfloat16)
+    runs = {"K10": lambda: hbm_bw.hbm_copy(x), "y.copy_(x)": lambda: y.copy_(x)}
+    if hasattr(hbm_bw, "k10_plan"):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for chunk, stages, per_sm in K10_RINGS:
+            plan = hbm_bw.k10_plan(x.numel() * 2, sms * per_sm, chunk=chunk, stages=stages,
+                                   persistent=per_sm > 0)
+            y.zero_()
+            hbm_bw._copy_into(x, y, plan)
+            if not torch.equal(y, x):
+                raise AssertionError(f"copy table: K10 ring {plan}: y != x")
+            runs[f"K10 ring {chunk // 1024} KB x {stages}, {plan.grid} CTAs"] = (
+                lambda plan=plan: hbm_bw._copy_into(x, y, plan))
+    times = {label: [] for label in runs}
+    for _ in range(rounds):
+        for label, fn in runs.items():
+            times[label].append(graph_ms(fn))
+    table = []
+    for label, ts in times.items():
+        ms = statistics.median(ts)
+        table.append(dict(kernel=label, shape=list(x.shape), ms=ms, rounds=ts, **bound))
+        print(f"copy table: {label} {list(x.shape)} bf16: {ms:.4f} ms (median of {rounds} "
+              f"graph_ms rounds: {', '.join(f'{t:.4f}' for t in ts)}), "
+              f"{nbytes / ms / 1e6:.1f} GB/s read + written; bound {bound['bound_ms']:.4f} ms, "
+              f"{100 * bound['bound_ms'] / ms:.2f} % of it ({smi})", flush=True)
     return table
 
 
@@ -4998,7 +5172,8 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
         if whole_key:
             results[name]["whole_call_ms"] = row[whole_key]
     for name in ("pfa_flash_pipelined_fp32", "pfa_flash_chunked_fp32", "pfa_flash_tri_fp32",
-                 "pfa_flash_fulltri_fp32", "pfa_flash_bwd_dkv_colblock_fp32"):
+                 "pfa_flash_fulltri_fp32", "pfa_flash_bwd_dq_rowblock_fp32",
+                 "pfa_flash_bwd_dkv_colblock_fp32"):
         results[name] = checked[name]  # timed in check_experiments
     results["pfa_flash_pair"]["cases"] = [
         {"nchain": row["nchain"], "ms": row["pair_ms"], "k1_ms": row["k1_ms"]}
@@ -5019,13 +5194,18 @@ def main() -> None:
                              "copy of this script times any tree of the repository); no result "
                              "line")
     parser.add_argument("--exp-table", action="store_true",
-                        help="only build and print the exp table of K13-K19 and K21 (public "
-                             "calls only, so a copy of this script times any tree of the "
-                             "repository); no result line")
+                        help="only build and print the exp table of K13-K21 (public calls "
+                             "only, so a copy of this script times any tree of the repository); "
+                             "no result line")
+    parser.add_argument("--bwd-table", action="store_true",
+                        help="only build and print the exp table's K20, K21 and unrolled "
+                             "backward rows (with K20's levers) and the copy table of K10 (with "
+                             "its rings); public calls otherwise, as --exp-table; no result line")
     parser.add_argument("--sass-diff", metavar="LIB",
-                        help="only build and compare the SASS of K1's, K4/K5's, K21's and "
-                             "K13-K19's Hopper instantiations, normalised, with another build "
-                             "of the library (LIB, e.g. the parent commit's); no result line")
+                        help="only build and compare the SASS of K1's, K4/K5's, K20/K21's and "
+                             "K13-K19's Hopper instantiations and of the probes K9-K12, "
+                             "normalised, with another build of the library (LIB, e.g. the "
+                             "parent commit's); no result line")
     parser.add_argument("--k3-table", action="store_true",
                         help="only build, print the K3 table and time GPT-2 medium's decode "
                              "step (public calls only, so a copy of this script times any tree "
@@ -5041,6 +5221,11 @@ def main() -> None:
     if args.exp_table:
         phase_build(sass=False)
         time_exp_table(smi)
+        return
+    if args.bwd_table:
+        phase_build(sass=False)
+        time_unrolled_rows(smi)
+        time_k10_rows(smi)
         return
     if args.sass_diff:
         phase_build(sass=False)

@@ -1,8 +1,8 @@
 // K20 (dQ, one launch per query row-block) and K21 (dK/dV, one launch per
 // key block): the unrolled-backward experiment's kernels on mma.sync
-// (sm_90a). K21 runs here only for fp32 inputs: in bf16 it is K4's Hopper
-// body (flash_bwd_sm90.cu, pfa_flash_bwd_dkv_colblock_sm90), since TMA
-// cannot convert fp32 on load.
+// (sm_90a), for fp32 inputs only: in bf16 K20 is K5's Hopper body
+// (flash_bwd_sm90.cu, pfa_flash_bwd_dq_rowblock_sm90) and K21 K4's
+// (pfa_flash_bwd_dkv_colblock_sm90), since TMA cannot convert fp32 on load.
 //
 // Replace the TPU kernels benchmarks/flash_bwd_unrolled_experiment.py::
 // _dq_kernel_unrolled (:41, called at :150) and _dkv_kernel_unrolled (:83,
@@ -19,11 +19,11 @@
 //
 // Contract: q, k, v, dO (B, H, S, D) contiguous (JAX's [B, H, S, D]
 // domain; no GQA), lse and di = rowsum(o * dO) (B, H, S) fp32, lse in
-// natural log; D in {64, 128}; bf16 (K20) or fp32 inputs, converted to
-// bf16 on load as JAX's bodies cast them; S, the first row or key of a launch and
-// its row or key count multiples of 64; causal is top-left (col <= row).
-// dq/dk/dv come out in the input dtype, each launch writing its rows of one
-// (B, H, S, D) output in place (JAX concatenates the calls' outputs).
+// natural log; D in {64, 128}; fp32 inputs, converted to bf16 on load as
+// JAX's bodies cast them; S, the first row or key of a launch and its row
+// or key count multiples of 64; causal is top-left (col <= row). dq/dk/dv
+// come out in fp32, each launch writing its rows of one (B, H, S, D) output
+// in place (JAX concatenates the calls' outputs).
 //
 // Math and rounding are JAX's (:46-77, :88-125), with scale = sm_scale:
 //   P = exp(S*scale - lse)   dP = dO V^T   dS = P * (dP - di) * scale
@@ -64,13 +64,8 @@ constexpr int smem_bytes() {
   return (2 * BR + 2 * Inner<D>::W) * (D + 8) * 2 + 2 * Inner<D>::W * 4;
 }
 
-// rows x D values of a (., D) row-major source into bf16 shared memory with
-// row pitch LD: bf16 copied in 16-byte chunks, fp32 rounded to bf16.
-template <int D, int LD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int rows) {
-  load_tile_bf16<D, LD, THREADS>(dst, src, D, rows, rows);
-}
+// rows x D values of a (., D) row-major fp32 source into bf16 shared
+// memory with row pitch LD, rounded to bf16.
 template <int D, int LD>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const float* src, int rows) {
   constexpr int CH = D / 4;  // float4 chunks per row
@@ -368,7 +363,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 
 }  // namespace
 
-// K20: dq rows [q_row0, q_row0 + rows) of every (b, h).
+// K20 in fp32 (bf16: flash_bwd_sm90.cu, pfa_flash_bwd_dq_rowblock_sm90):
+// dq rows [q_row0, q_row0 + rows) of every (b, h).
 extern "C" int pfa_flash_bwd_dq_rowblock(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse, const void* di,
                                          void* dq, int B, int S, int H, int D, int q_row0,
@@ -377,8 +373,6 @@ extern "C" int pfa_flash_bwd_dq_rowblock(const void* q, const void* k, const voi
   if (bad_block(B, S, H, q_row0, rows)) return cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, di, B, S, H, q_row0, rows, sm_scale, causal,
                            stream);
-  if (dtype == PFA_BF16 && D == 64) return dq_launch<__nv_bfloat16, 64>(a, dq);
-  if (dtype == PFA_BF16 && D == 128) return dq_launch<__nv_bfloat16, 128>(a, dq);
   if (dtype == PFA_F32 && D == 64) return dq_launch<float, 64>(a, dq);
   if (dtype == PFA_F32 && D == 128) return dq_launch<float, 128>(a, dq);
   return cudaErrorInvalidValue;

@@ -56,7 +56,7 @@
 // K21 (the unrolled backward's dK/dV, one launch per block_kv key block:
 // benchmarks/flash_bwd_unrolled_experiment.py::_dkv_kernel_unrolled :83)
 // in bf16 is K4's plain body, flash_bwd_dkv_sm90<D, PLAIN, true>: a launch
-// takes the key range [kv_row0, kv_row0 + rows) (Params::kv_row0, kv_end),
+// takes the key range [kv_row0, kv_row0 + rows) (Params::range0, range_end),
 // its work tiles the 128-key blocks of the range x heads x batch rows on
 // the persistent grid, each walking K4's query tiles from its diagonal to
 // S. K21's q, k, v, dO (B, H, S, D) contiguous are K4's (B', S, H', D)
@@ -74,6 +74,17 @@
 // before the one ahead of it. Only the K21 instantiation holds the range
 // and the griddepcontrol instructions (the template's COLBLOCK), so K4's
 // own instantiations keep their code.
+//
+// K20 (the unrolled backward's dQ, one launch per block_q row-block:
+// benchmarks/flash_bwd_unrolled_experiment.py::_dq_kernel_unrolled :41) in
+// bf16 is K5's plain body the same way, flash_bwd_dq_sm90<D, PLAIN, true>
+// (ROWBLOCK): a launch takes the query rows [row0, row0 + rows) of every
+// (b, h) (Params::range0, range_end), its work tiles the range's 128-row
+// blocks x heads x batch rows, the last (longest, causal) first, each
+// walking K5's key tiles up to its diagonal; the same fold of (B, H, S, D)
+// into K5's layout; rows of the last work tile past the range computed and
+// not stored; the launches after a call's first chained, the wait in the
+// producer warp.
 
 #include <limits.h>
 
@@ -150,7 +161,7 @@ struct Params {
   float scale, scale_log2;
   int causal;
   Streams st;
-  int kv_row0, kv_end;  // K21: the launch's keys [kv_row0, kv_end)
+  int range0, range_end;  // K21: the launch's keys; K20: its query rows
 };
 
 // --- K5: dQ ---------------------------------------------------------------------
@@ -161,15 +172,17 @@ struct DqWork {
 
 // Work tile t: heads fastest, then batch rows, then query blocks, the last
 // (longest) causal block first; its key tiles are the band its rows see.
-template <int BKV, int MODE>
+// ROWBLOCK (K20): the query blocks of the rows from range0.
+template <int BKV, int MODE, bool ROWBLOCK>
 __device__ __forceinline__ DqWork dq_work(const Params& p, int t) {
   DqWork w;
-  const int nqb = (p.Sq + BLOCK - 1) / BLOCK;
+  const int nqb = ROWBLOCK ? (p.range_end - p.range0 + BLOCK - 1) / BLOCK : (p.Sq + BLOCK - 1) / BLOCK;
   w.h = t % p.H;
   const int r = t / p.H;
   w.b = r % p.B;
   const int i = r / p.B;
   w.q0 = (p.causal ? nqb - 1 - i : i) * BLOCK;
+  if constexpr (ROWBLOCK) w.q0 += p.range0;
   const int off = p.Skv - p.Sq;
   w.kv_begin = MODE == WINDOW ? band_kv_begin(p.st, w.q0, off, BKV) : 0;
   const int kv_end = band_kv_end(p.st, w.q0, BLOCK, off, p.causal, p.Skv);
@@ -199,7 +212,8 @@ __device__ __forceinline__ void dq_scores(float* s, const float* dp, const float
   }
 }
 
-template <int D, int MODE>
+// ROWBLOCK: K20's instantiation (the query range, the chained launches).
+template <int D, int MODE, bool ROWBLOCK = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -211,6 +225,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
   const uint32_t bar_full = base + C::OFF_BAR, bar_empty = bar_full + 8 * STAGES;
   const uint32_t bar_qfull = bar_empty + 8 * STAGES, bar_qempty = bar_qfull + 8 * QBUF;
   const int n_work = p.n_work, off = p.Skv - p.Sq;
+  if constexpr (ROWBLOCK) pdl_launch_dependents();
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -237,7 +252,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
       const int t = snake_tile(n);
       if (t >= n_work) continue;  // the last round only
-      const DqWork w = dq_work<BKV, MODE>(p, t);
+      const DqWork w = dq_work<BKV, MODE, ROWBLOCK>(p, t);
       const int qb = n % QBUF;
       const uint32_t qf = bar_qfull + 8 * qb;
       mbar_wait(bar_qempty + 8 * qb, ((n / QBUF) & 1) ^ 1);
@@ -264,6 +279,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
         }
       }
     }
+    // K20: the CTA does not exit before the launch ahead of it has (as K21).
+    if constexpr (ROWBLOCK) pdl_wait();
   } else {
     // --- consumers: 64 query rows each -----------------------------------------
     setmaxnreg_inc<CONSUMER_REGS>();
@@ -288,7 +305,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
       const int t = snake_tile(n);
       if (t >= n_work) continue;
-      const DqWork w = dq_work<BKV, MODE>(p, t);
+      const DqWork w = dq_work<BKV, MODE, ROWBLOCK>(p, t);
       const int qb = n % QBUF, nt = w.n_tiles;
       const int wrow = w.q0 + wg * 64;         // the warpgroup's first row
       const int row0 = wrow + warp * 16 + g;   // this thread's rows: row0, row0 + 8
@@ -383,10 +400,12 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
       release(bar_qempty + 8 * qb);
       it += nt;
 
+      int row_end = p.Sq;  // K20: rows past the range are another launch's
+      if constexpr (ROWBLOCK) row_end = p.range_end;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = row0 + 8 * i;
-        if (row >= p.Sq) continue;
+        if (row >= row_end) continue;
         __nv_bfloat16* out = p.out0 + (((long long)w.b * p.Sq + row) * p.H + w.h) * D;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) store2(out + 8 * j + 2 * t4, dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
@@ -403,7 +422,7 @@ struct DkvWork {
 
 // Work tile t: heads fastest, then batch rows, then key blocks, the first
 // (longest under the causal mask) first; its query tiles are those from
-// which its keys are seen. COLBLOCK (K21): the key blocks from kv_row0.
+// which its keys are seen. COLBLOCK (K21): the key blocks from range0.
 template <int BQ, bool COLBLOCK>
 __device__ __forceinline__ DkvWork dkv_work(const Params& p, int t) {
   DkvWork w;
@@ -411,7 +430,7 @@ __device__ __forceinline__ DkvWork dkv_work(const Params& p, int t) {
   const int r = t / p.H;
   w.b = r % p.B;
   w.kv0 = (r / p.B) * BLOCK;
-  if constexpr (COLBLOCK) w.kv0 += p.kv_row0;
+  if constexpr (COLBLOCK) w.kv0 += p.range0;
   const int off = p.Skv - p.Sq;
   w.q_begin = band_q_begin(p.st, w.kv0, off, p.causal, BQ);
   const int q_end = band_q_end(p.st, w.kv0, BLOCK, off, p.Sq);
@@ -677,7 +696,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       it += nt;
 
       int key_end = p.Skv;  // K21: keys past the range are another launch's
-      if constexpr (COLBLOCK) key_end = p.kv_end;
+      if constexpr (COLBLOCK) key_end = p.range_end;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int key = key0 + 8 * i;
@@ -772,9 +791,31 @@ cudaError_t launch_colblock(const BwdSm90Args& a, void* dk, void* dv, int kv_row
   if (grid < 1 || grid > p.n_work) return cudaErrorInvalidValue;
   p.out0 = static_cast<__nv_bfloat16*>(dk);
   p.out1 = static_cast<__nv_bfloat16*>(dv);
-  p.kv_row0 = kv_row0;
-  p.kv_end = kv_row0 + rows;
+  p.range0 = kv_row0;
+  p.range_end = kv_row0 + rows;
   const auto kernel = flash_bwd_dkv_sm90<D, PLAIN, true>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return launch_chained(kernel, chained, grid, THREADS, smem, stream, maps[0], maps[1], maps[2],
+                        maps[3], p);
+}
+
+// K20: one launch over query rows [q_row0, q_row0 + rows), as
+// launch_colblock; K5's plain ring.
+template <int D>
+cudaError_t launch_rowblock(const BwdSm90Args& a, void* dq, int q_row0, int rows, bool chained,
+                            int stages, int smem, int grid, cudaStream_t stream) {
+  using C = DqCfg<D, PLAIN>;
+  if (stages != C::STAGES || smem != C::SMEM) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  Params p;
+  cudaError_t e = prepare(a, D, 64, C::BKV, rows, maps, p);
+  if (e != cudaSuccess) return e;
+  if (grid < 1 || grid > p.n_work) return cudaErrorInvalidValue;
+  p.out0 = static_cast<__nv_bfloat16*>(dq);
+  p.range0 = q_row0;
+  p.range_end = q_row0 + rows;
+  const auto kernel = flash_bwd_dq_sm90<D, PLAIN, true>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   return launch_chained(kernel, chained, grid, THREADS, smem, stream, maps[0], maps[1], maps[2],
@@ -813,6 +854,22 @@ cudaError_t info_mode(int D, int* out) {
 bool takes(const BwdSm90Args& a) {
   return aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout) &&
          (a.D == 64 || a.D == 128);
+}
+
+// K20's and K21's launch of a range [row0, row0 + rows) of S, on the grid
+// of 64 rows: (B, H, S, D) is K4/K5's (B', S, H', D) with B' = B H, H' = 1,
+// and (B, H, S) lse and di their (B', H', S). False where the range or the
+// tensors are not the body's.
+bool unrolled_args(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                   const void* di, int B, int S, int H, int D, int row0, int rows, float sm_scale,
+                   int causal, BwdSm90Args& a) {
+  if (B <= 0 || H <= 0 || S <= 0 || (long long)B * H > INT_MAX || row0 < 0 || row0 % 64 ||
+      rows <= 0 || rows % 64 || (long long)row0 + rows > S)
+    return false;
+  a = BwdSm90Args{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(di),
+                  B * H, S, S, 1, D, sm_scale, causal,
+                  Streams{-WINDOW_OPEN, WINDOW_OPEN, 0u, 0u, 1.f}};
+  return takes(a);
 }
 
 }  // namespace
@@ -871,16 +928,29 @@ extern "C" int pfa_flash_bwd_dkv_colblock_sm90(const void* q, const void* k, con
                                                int kv_row0, int rows, float sm_scale, int causal,
                                                int chained, int stages, int smem, int grid,
                                                void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || (long long)B * H > INT_MAX || kv_row0 < 0 || kv_row0 % 64 ||
-      rows <= 0 || rows % 64 || (long long)kv_row0 + rows > S)
+  BwdSm90Args a;
+  if (!unrolled_args(q, k, v, dout, lse, di, B, S, H, D, kv_row0, rows, sm_scale, causal, a))
     return cudaErrorInvalidValue;
-  // (B, H, S, D) is K4's (B', S, H', D) with B' = B H, H' = 1.
-  const BwdSm90Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(di),
-                      B * H, S, S, 1, D, sm_scale, causal,
-                      Streams{-WINDOW_OPEN, WINDOW_OPEN, 0u, 0u, 1.f}};
-  if (!takes(a)) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return launch_colblock<64>(a, dk, dv, kv_row0, rows, chained != 0, stages, smem, grid, st);
   return launch_colblock<128>(a, dk, dv, kv_row0, rows, chained != 0, stages, smem, grid, st);
+}
+
+// K20 in bf16: one launch over query rows [q_row0, q_row0 + rows) of every
+// (b, h), on K5's plain body; the contract of
+// pfa_flash_bwd_dkv_colblock_sm90, dq (B, H, S, D) bf16 written in place
+// on the range's rows; stages, smem and grid from experiments/
+// flash_bwd_unrolled_experiment.py::k20_plan.
+extern "C" int pfa_flash_bwd_dq_rowblock_sm90(const void* q, const void* k, const void* v,
+                                              const void* dout, const void* lse, const void* di,
+                                              void* dq, int B, int S, int H, int D, int q_row0,
+                                              int rows, float sm_scale, int causal, int chained,
+                                              int stages, int smem, int grid, void* stream) {
+  BwdSm90Args a;
+  if (!unrolled_args(q, k, v, dout, lse, di, B, S, H, D, q_row0, rows, sm_scale, causal, a))
+    return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_rowblock<64>(a, dq, q_row0, rows, chained != 0, stages, smem, grid, st);
+  return launch_rowblock<128>(a, dq, q_row0, rows, chained != 0, stages, smem, grid, st);
 }

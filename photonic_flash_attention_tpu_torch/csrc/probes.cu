@@ -15,7 +15,20 @@
 // per block, several MB over a wave of blocks, above the ~2 MB the card
 // needs in flight at 3.35 TB/s and ~0.6 us of latency.
 // K10 (pfa_hbm_copy) replaces ::_copy_kernel (hbm_copy): y = x. Bound:
-// 2 x bytes / 3.35 TB/s. The same loop, each load stored to y.
+// 2 x bytes / 3.35 TB/s. The TPU kernel streams 2 MB tiles HBM -> VMEM ->
+// HBM by DMA; here the TMA's 1-D bulk copy does the same through shared
+// memory: the array in 32 KB chunks, one thread of a CTA loading its
+// chunks into a ring of stages (cp.async.bulk onto the stage's mbarrier),
+// storing each back once it is full (cp.async.bulk.global.shared::cta) and
+// reloading a stage once that store has read it
+// (cp.async.bulk.wait_group.read). No register holds data, so loads and
+// stores do not wait on each other. The host picks the grid
+// (ops/hbm_bw.py::k10_plan): a CTA a chunk, three resident a SM and handed
+// out in the array's order by the block scheduler, ran as fast as
+// y.copy_(x) on the H100; a persistent CTA a SM walking the chunks
+// grid-strided (or each over a span of its own), at any depth of ring, ran
+// 4-8 % slower, and an L2 evict_first hint on the stores moved nothing
+// (PERF.md). The chunk and the stages are the plan's too.
 // K11 (pfa_exp_probe) replaces photonic_flash_attention_tpu/ops/
 // device_probes.py::_exp_kernel (exp_probe): `iters` chained x <- exp(-x),
 // returning rows 0-7. Bound: exps over the MUFU rate, 16 a clock per SM
@@ -53,7 +66,7 @@
 // select always true (it always is: col < cols <= mask_bound); masked and
 // unmasked are compile-time modes, as K1's modes are.
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -91,19 +104,45 @@ hbm_read(const uint4* __restrict__ x, long long n_vec, const uint4* __restrict__
     for (int j = threadIdx.x; j < slice_vec; j += blockDim.x) out[j] = slice[j];
 }
 
-// K10. y = x by 16-byte vectors, the same loop as K9.
-__global__ void __launch_bounds__(STREAM_THREADS)
-hbm_copy(const uint4* __restrict__ x, uint4* __restrict__ y, long long n_vec) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (; i + (STREAM_UNROLL - 1) * stride < n_vec; i += STREAM_UNROLL * stride) {
-    uint4 v[STREAM_UNROLL];
-#pragma unroll
-    for (int u = 0; u < STREAM_UNROLL; ++u) v[u] = x[i + u * stride];
-#pragma unroll
-    for (int u = 0; u < STREAM_UNROLL; ++u) y[i + u * stride] = v[u];
+// K10. y = x in chunks of `chunk` bytes (the last one the rest of n_bytes,
+// a multiple of 16): CTA b copies chunks b, b + grid, ... of the n_chunks
+// through a ring of `stages` stages of `chunk` bytes and their mbarriers.
+// One thread issues every copy: the ring filled, then for each chunk in
+// turn: wait for it, store it back, and reload the stage the chunk before
+// it held, once that chunk's store has read it (one store's group left
+// pending). Everything done before the CTA exits.
+__global__ void __launch_bounds__(32)
+hbm_copy_ring(const unsigned char* __restrict__ x, unsigned char* __restrict__ y,
+              long long n_bytes, long long n_chunks, int chunk, int stages) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  if (threadIdx.x != 0) return;
+  const uint32_t buf = smem_u32(ring), bar = buf + stages * chunk;
+  for (int s = 0; s < stages; ++s) mbar_init(bar + 8 * s, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  const long long g = gridDim.x, b = blockIdx.x, n = (n_chunks - b + g - 1) / g;
+  auto at = [&](long long j) { return (b + j * g) * chunk; };  // the j-th chunk's offset
+  auto bytes_of = [&](long long j) {
+    const long long left = n_bytes - at(j);
+    return static_cast<uint32_t>(left < chunk ? left : chunk);
+  };
+  auto load = [&](long long j) {  // the j-th chunk into stage j % stages
+    const uint32_t s = j % stages, nb = bytes_of(j);
+    mbar_expect_tx(bar + 8 * s, nb);
+    bulk_load(buf + s * chunk, x + at(j), nb, bar + 8 * s);
+  };
+  for (long long j = 0; j < n && j < stages; ++j) load(j);
+  for (long long j = 0; j < n; ++j) {
+    const uint32_t s = j % stages;
+    mbar_wait(bar + 8 * s, (j / stages) & 1);
+    fence_proxy_async();
+    bulk_store(y + at(j), buf + s * chunk, bytes_of(j));
+    bulk_commit();
+    if (j >= 1 && j - 1 + stages < n) {
+      bulk_wait<1, true>();  // chunk j - 1's store has read its stage
+      load(j - 1 + stages);
+    }
   }
-  for (; i < n_vec; i += stride) y[i] = x[i];
+  bulk_wait<0, false>();
 }
 
 // exp(-x) as K1 computes exp: exp2f of the argument times log2 e.
@@ -251,8 +290,6 @@ cudaError_t run_softmax(const float* x, float* out, float* l_out, int rows, int 
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 }  // namespace
 
 // K9: read the n_bytes of x; out = the slice_bytes at `slice` (x's returned
@@ -271,14 +308,26 @@ extern "C" int pfa_hbm_read(const void* x, const void* slice, void* out, uint32_
   return cudaGetLastError();
 }
 
-// K10: y = x, n_bytes a multiple of 16, both 16-byte aligned.
-extern "C" int pfa_hbm_copy(const void* x, void* y, long long n_bytes, void* stream) {
-  if (n_bytes <= 0 || n_bytes % 16 || !aligned16(x) || !aligned16(y)) return cudaErrorInvalidValue;
-  int grid = 0;
-  const cudaError_t e = grid_for(hbm_copy, STREAM_THREADS, n_bytes / 16, &grid);
+// K10: y = x, n_bytes a multiple of 16, both 16-byte aligned, on the plan
+// of ops/hbm_bw.py::k10_plan: `chunk` bytes a chunk (a multiple of 16, at
+// most 2^20 - 16: an mbarrier's byte count), `stages` ring stages (2 to
+// 8) in at most SMEM_MAX bytes with their mbarriers, `grid` CTAs (1 to
+// ceil(n_bytes / chunk)).
+extern "C" int pfa_hbm_copy(const void* x, void* y, long long n_bytes, int chunk, int stages,
+                            int grid, void* stream) {
+  if (n_bytes <= 0 || n_bytes % 16 || !aligned16(x) || !aligned16(y) || chunk <= 0 ||
+      chunk % 16 || chunk > (1 << 20) - 16 || stages < 2 || stages > 8 ||
+      (long long)stages * (chunk + 8) > SMEM_MAX)
+    return cudaErrorInvalidValue;
+  const long long n_chunks = (n_bytes + chunk - 1) / chunk;
+  if (grid < 1 || grid > n_chunks) return cudaErrorInvalidValue;
+  const int smem = stages * (chunk + 8);
+  const cudaError_t e =
+      cudaFuncSetAttribute(hbm_copy_ring, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  hbm_copy<<<grid, STREAM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(y), n_bytes / 16);
+  hbm_copy_ring<<<grid, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(x), static_cast<unsigned char*>(y), n_bytes, n_chunks,
+      chunk, stages);
   return cudaGetLastError();
 }
 

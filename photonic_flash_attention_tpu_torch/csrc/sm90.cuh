@@ -1,13 +1,14 @@
 // The Hopper (sm_90a) building blocks of the port's warp-specialised
 // kernels, shared by K1's bf16 forward (flash_fwd_sm90.cu), K4/K5's bf16
-// backward (flash_bwd_sm90.cu) and the quantized forward (K1's 8-bit modes
-// and K6, flash_quant_sm90.cu): mbarriers, TMA loads and 4-byte cp.async
-// tied to an mbarrier, the 128- and 64-byte-swizzle shared-memory
-// descriptors and the wgmma wrappers (bf16, and 8-bit: s8 and e4m3),
-// named barriers, setmaxnreg, ex2, the persistent grid's snake order, the
-// programmatic dependent launch's two instructions, and on the host the
-// tensor-map encoder (cuTensorMapEncodeTiled from the CUDA driver API, no
-// -lcuda), the SM count and the chained (programmatic dependent) launch.
+// backward (flash_bwd_sm90.cu), the quantized forward (K1's 8-bit modes
+// and K6, flash_quant_sm90.cu) and others: mbarriers, TMA loads, the 1-D
+// bulk copy both ways, 4-byte cp.async tied to an mbarrier, the 128- and
+// 64-byte-swizzle shared-memory descriptors and the wgmma wrappers (bf16,
+// and 8-bit: s8 and e4m3), named barriers, setmaxnreg, ex2, the persistent
+// grid's snake order, the programmatic dependent launch's two
+// instructions, and on the host the tensor-map encoder
+// (cuTensorMapEncodeTiled from the CUDA driver API, no -lcuda), the SM
+// count and the chained (programmatic dependent) launch.
 #pragma once
 
 #include <cuda.h>
@@ -86,6 +87,28 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// `bytes` contiguous bytes shared -> global by the TMA's 1-D bulk copy, in
+// the issuing thread's current bulk async-group (bulk_commit closes it);
+// the same alignment as bulk_load. K10 writes its ring back so.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk async-groups are pending: READ,
+// until their reads of shared memory are done (the source may be reused);
+// else until they are complete (their writes done).
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // 4 bytes global -> shared; valid == false reads nothing and writes 0.
@@ -828,7 +851,7 @@ __device__ __forceinline__ int snake_tile(int n) {
 // its CTAs once every CTA of this one has issued launch_dependents; wait
 // returns once the launch ahead of this one has completed and its writes
 // are visible (at once where this one was not launched as a dependent).
-// K18's and K21's launches of one call chain so.
+// K18's, K20's and K21's launches of one call chain so.
 __device__ __forceinline__ void pdl_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
@@ -897,7 +920,7 @@ inline cudaError_t sm_count(int* sms) {
 
 // One launch of `kernel` on `stream` with `args`: where `chained`, a
 // programmatic dependent launch on the launch ahead of it in the stream
-// (the kernel issues griddepcontrol.launch_dependents and .wait: K18's and
+// (the kernel issues griddepcontrol.launch_dependents and .wait: K18's, K20's and
 // K21's launches after a call's first), else a plain one; then the launch
 // error.
 template <typename Kernel, typename... Args>

@@ -8,9 +8,16 @@ the flash backward into one call per block, over static extents:
 
 * dq: one call per ``block_q`` row-block, over the kv blocks up to the
   row-block's last row when causal (JAX's ``_dq_kernel_unrolled``). K20
-  (``pfa_flash_bwd_dq_rowblock``, :func:`dq_rowblocks`) is launched once
-  per row-block; each 64-row CTA walks the 64-key tiles (32 at D 128) up to
-  its own diagonal, the mask only on tiles that cross it.
+  (:func:`dq_rowblocks`) is launched once per row-block. In bf16 each
+  launch is K5's Hopper body (``csrc/flash_bwd_sm90.cu``,
+  ``pfa_flash_bwd_dq_rowblock_sm90``) over the row-block's 128-row work
+  tiles, the last (longest, causal) first, each walking K5's key tiles up
+  to its diagonal (:func:`k20_plan`); rows of a work tile past the
+  row-block's end are computed and not stored. The row-blocks are launched
+  last first (:data:`K20_DESCENDING`), each after the first a programmatic
+  dependent launch. It is counted as ``pfa_flash_bwd_dq_rowblock``. fp32
+  inputs stay on the mma.sync body (``csrc/flash_bwd_experiments.cu``:
+  64-row CTAs, counted as ``pfa_flash_bwd_dq_rowblock_fp32``).
 * dk/dv: one call per ``block_kv`` key block, over the query blocks from
   the diagonal on (``_dkv_kernel_unrolled``). K21 (:func:`dkv_colblocks`)
   is launched once per key block. In bf16 each launch is K4's Hopper body
@@ -38,7 +45,7 @@ S is not a multiple (dq comes back short, dk/dv miss the tail rows' sums):
 the port raises. On the card D in {64, 128}, bf16 or fp32 inputs
 (converted on load), contiguous, and blocks that are multiples of 64; the
 blocks set only the launches (K20's by ``block_q``, K21's by ``block_kv``).
-K21 in bf16 also takes only 16-byte-aligned bases of q, k, v and dO.
+K20 and K21 in bf16 also take only 16-byte-aligned bases of q, k, v and dO.
 
 ``main`` is JAX's: parity against the port's grid backward
 (``ops/flash_bwd.py::flash_attention_bwd``, K4 and K5 on the card) under
@@ -59,9 +66,9 @@ from ..ops import flash_bwd as bwd_ops
 from ..ops.flash_bwd import flash_attention_bwd, flash_bwd_dkv, flash_bwd_dq
 from . import _common as C
 
-__all__ = ["K21Plan", "dkv_colblocks", "dkv_colblocks_plain", "dq_rowblocks",
+__all__ = ["RangePlan", "dkv_colblocks", "dkv_colblocks_plain", "dq_rowblocks",
            "dq_rowblocks_plain", "flash_bwd_di", "flash_bwd_unrolled", "flash_bwd_unrolled_plain",
-           "k21_plan", "main"]
+           "k20_plan", "k21_plan", "main"]
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -97,19 +104,29 @@ CARD_CHECKS = (
 
 #: Dynamic shared memory a CTA may take on the H100 (``csrc/sm90.cuh``).
 SMEM_MAX = 232448
-#: Keys of a work tile of K4's body: two consumer warpgroups of 64.
-K21_ROWS = 128
+#: Rows of a work tile of K4/K5's body (queries in K5, keys in K4): two
+#: consumer warpgroups of 64.
+WORK_ROWS = 128
+#: K20's bf16 launch order: the last row-block (the longest, causal) first.
+K20_DESCENDING = True
 
 
-class K21Plan(NamedTuple):
-    """One K21 launch on K4's bf16 body, from the shapes alone: its work
-    tiles (the 128-key blocks of its range x H x B), the persistent grid
-    (min(work tiles, SMs)), and the ring's stages and dynamic shared memory
-    (K4's ``DkvCfg``), which the C launcher checks against its own."""
+class RangePlan(NamedTuple):
+    """One K20 or K21 launch on K5's or K4's bf16 body, from the shapes
+    alone: its work tiles (the 128-row blocks of its range x H x B), the
+    persistent grid (min(work tiles, SMs)), and the ring's stages and
+    dynamic shared memory (K5's ``DqCfg`` or K4's ``DkvCfg``), which the C
+    launcher checks against its own."""
     work: int
     grid: int
     stages: int
     smem: int
+
+
+def _fits(n: int) -> bool:
+    """Whether ``n`` bytes of tiles fit beside the barriers and the
+    alignment slack (``csrc/flash_bwd_sm90.cu::fits``)."""
+    return n + 8 * 12 + 1024 <= SMEM_MAX
 
 
 def _k4_ring(d: int) -> Tuple[int, int]:
@@ -117,30 +134,58 @@ def _k4_ring(d: int) -> Tuple[int, int]:
     K and V of a 128-key work tile double-buffered where they fit beside
     two ring stages, then as many stages (4 to 2) of 64-query Q and dO
     tiles with their lse and di as fit; (stages, dynamic shared memory)."""
-    fits = lambda n: n + 8 * 12 + 1024 <= SMEM_MAX  # noqa: E731
-    kv, qo = K21_ROWS * d * 2, 64 * d * 2
+    kv, qo = WORK_ROWS * d * 2, 64 * d * 2
     stage = 2 * qo + 2 * 64 * 4
-    kvbuf = 2 if fits(4 * kv + 2 * stage) else 1
-    stages = next(n for n in (4, 3, 2) if n == 2 or fits(2 * kvbuf * kv + n * stage))
+    kvbuf = 2 if _fits(4 * kv + 2 * stage) else 1
+    stages = next(n for n in (4, 3, 2) if n == 2 or _fits(2 * kvbuf * kv + n * stage))
     return stages, 2 * kvbuf * kv + stages * stage + 8 * (2 * stages + 2 * kvbuf) + 1024
+
+
+def _k5_ring(d: int) -> Tuple[int, int, int, int]:
+    """K5's plain ring at head dim ``d`` (``csrc/flash_bwd_sm90.cu::DqCfg``):
+    K and V tiles of ``bkv`` keys (128 at D 64, 64 at D 128) a stage; Q and
+    dO of a 128-row work tile double-buffered where they fit beside four
+    stages, then as many stages (4 to 2) as fit; (bkv, Q/dO buffers,
+    stages, dynamic shared memory)."""
+    bkv = 64 if d == 128 else 128
+    qo, kv = WORK_ROWS * d * 2, bkv * d * 2
+    qbuf = 2 if _fits(4 * qo + 4 * kv) else 1
+    stages = next(n for n in (4, 3, 2) if n == 2 or _fits(2 * qbuf * qo + 2 * n * kv))
+    return bkv, qbuf, stages, 2 * qbuf * qo + 2 * stages * kv + 8 * (2 * stages + 2 * qbuf) + 1024
+
+
+def _range_work(name: str, unit: str, b: int, s: int, h: int, d: int, row0: int,
+                rows: int) -> int:
+    """The work tiles of a K20 or K21 launch over [row0, row0 + rows) of S,
+    or ValueError where the body does not take the launch."""
+    if d not in CARD_HEAD_DIMS:
+        raise ValueError(f"{name} takes head_dim in {CARD_HEAD_DIMS} on the card, got {d}")
+    if b < 1 or h < 1 or s < 1:
+        raise ValueError(f"bad shape: B {b}, S {s}, H {h}")
+    if row0 < 0 or rows < 1 or row0 + rows > s or row0 % CARD_BLOCK or rows % CARD_BLOCK:
+        raise ValueError(f"{name}: the {unit} range must lie in [0, S {s}) on the grid of "
+                         f"{CARD_BLOCK} {unit}s, got {rows} {unit}s from {row0}")
+    return -(-rows // WORK_ROWS) * b * h
+
+
+@functools.lru_cache(maxsize=None)
+def k20_plan(b: int, s: int, h: int, d: int, q_row0: int, rows: int,
+             sms: int = 132) -> RangePlan:
+    """One K20 launch in bf16: query rows [``q_row0``, ``q_row0 + rows``)
+    of every (b, h), on K5's body (the (B, H, S, D) tensors taken as K5's
+    (B H, S, 1, D)). The range must lie in [0, S) on the grid of 64 rows."""
+    work = _range_work("K20", "row", b, s, h, d, q_row0, rows)
+    return RangePlan(work, min(work, sms), *_k5_ring(d)[2:])
 
 
 @functools.lru_cache(maxsize=None)
 def k21_plan(b: int, s: int, h: int, d: int, kv_row0: int, rows: int,
-             sms: int = 132) -> K21Plan:
+             sms: int = 132) -> RangePlan:
     """One K21 launch in bf16: keys [``kv_row0``, ``kv_row0 + rows``) of
     every (b, h), on K4's body (the (B, H, S, D) tensors taken as K4's (B
     H, S, 1, D)). The range must lie in [0, S) on the grid of 64 keys."""
-    if d not in CARD_HEAD_DIMS:
-        raise ValueError(f"K21 takes head_dim in {CARD_HEAD_DIMS} on the card, got {d}")
-    if b < 1 or h < 1 or s < 1:
-        raise ValueError(f"bad shape: B {b}, S {s}, H {h}")
-    if (kv_row0 < 0 or rows < 1 or kv_row0 + rows > s or kv_row0 % CARD_BLOCK
-            or rows % CARD_BLOCK):
-        raise ValueError(f"K21: the key range must lie in [0, S {s}) on the grid of "
-                         f"{CARD_BLOCK} keys, got {rows} keys from {kv_row0}")
-    work = -(-rows // K21_ROWS) * b * h
-    return K21Plan(work, min(work, sms), *_k4_ring(d))
+    work = _range_work("K21", "key", b, s, h, d, kv_row0, rows)
+    return RangePlan(work, min(work, sms), *_k4_ring(d))
 
 
 def _check(q, k, v, o, lse, do, block_q: int, block_kv: int) -> None:
@@ -260,11 +305,42 @@ def _check_card(q, k, v, do, lse, di, block_q: int, block_kv: int) -> None:
                              f"card (a CTA's rows), got {name} {blk}")
 
 
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """TMA reads 16-byte-aligned bases: the bf16 bodies refuse others."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte-aligned bf16 inputs; one starts at "
+                             f"{t.data_ptr():#x}")
+
+
+def _k20_launches(q, k, v, do, lse, di, dq, *, sm_scale: float, causal: bool, block_q: int,
+                  descending: bool, chained: bool) -> None:
+    """K20 in bf16 into ``dq``: one launch a row-block on K5's body
+    (:func:`k20_plan`), the last row-block first where ``descending``, each
+    launch after the first a programmatic dependent launch where
+    ``chained``. The order and the chaining are the levers the card's
+    timing sets; :func:`dq_rowblocks` runs the shipped ones."""
+    _check_aligned("K20", q, k, v, do)
+    b, h, s, d = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    starts = range(0, s, block_q)
+    for n, row0 in enumerate(reversed(starts) if descending else starts):
+        plan = k20_plan(b, s, h, d, row0, block_q, sms)
+        _build.launch("pfa_flash_bwd_dq_rowblock_sm90", q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                      b, s, h, d, row0, block_q, float(sm_scale), int(causal),
+                      int(chained and n > 0), plan.stages, plan.smem, plan.grid,
+                      count_as="pfa_flash_bwd_dq_rowblock")
+
+
 def dq_rowblocks(q, k, v, do, lse, di, *, sm_scale: float, causal: bool, block_q: int = 512,
                  block_kv: int = 512) -> torch.Tensor:
     """dq from precomputed ``di``: on the card K20 launched once per
-    ``block_q`` row-block (each counted), :func:`dq_rowblocks_plain` on the
-    CPU."""
+    ``block_q`` row-block (each counted: bf16 on K5's Hopper body as
+    ``pfa_flash_bwd_dq_rowblock``, the last row-block first and each launch
+    after the first a programmatic dependent launch; fp32 on the mma.sync
+    body as ``pfa_flash_bwd_dq_rowblock_fp32``), :func:`dq_rowblocks_plain`
+    on the CPU."""
     kw = dict(sm_scale=sm_scale, causal=causal, block_q=block_q, block_kv=block_kv)
     C.check_blocks(q.shape[2], block_q, "block_q")
     C.check_blocks(q.shape[2], block_kv, "block_kv")
@@ -273,11 +349,16 @@ def dq_rowblocks(q, k, v, do, lse, di, *, sm_scale: float, causal: bool, block_q
         _check_card(q, k, v, do, lse, di, block_q, block_kv)
         b, h, s, d = q.shape
         dq = torch.empty_like(q)
+        if q.dtype == torch.bfloat16:
+            _k20_launches(q, k, v, do, lse, di, dq, sm_scale=sm_scale, causal=causal,
+                          block_q=block_q, descending=K20_DESCENDING, chained=True)
+            return dq
         for i in range(s // block_q):
             _build.launch("pfa_flash_bwd_dq_rowblock", q.device, q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
                           dq.data_ptr(), b, s, h, d, i * block_q, block_q, float(sm_scale),
-                          int(causal), _build.DTYPE_CODES[q.dtype])
+                          int(causal), _build.DTYPE_CODES[q.dtype],
+                          count_as="pfa_flash_bwd_dq_rowblock_fp32")
         return dq
 
     return C.on_device(q, cuda, lambda: dq_rowblocks_plain(q, k, v, do, lse, di, **kw))
@@ -308,10 +389,7 @@ def dkv_colblocks(q, k, v, do, lse, di, *, sm_scale: float, causal: bool, block_
                               _build.DTYPE_CODES[q.dtype],
                               count_as="pfa_flash_bwd_dkv_colblock_fp32")
             return dk, dv
-        for t in (q, k, v, do):  # TMA reads 16-byte-aligned bases
-            if t.data_ptr() % 16:
-                raise ValueError(f"K21 needs 16-byte-aligned bf16 inputs; one starts at "
-                                 f"{t.data_ptr():#x}")
+        _check_aligned("K21", q, k, v, do)
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         for ki in range(s // block_kv):
             plan = k21_plan(b, s, h, d, ki * block_kv, block_kv, sms)

@@ -87,8 +87,8 @@ _SIGNATURES: Dict[str, List] = {
     "pfa_rownorm": [_P] * 4 + [_I, _I, _F, _F, _I, _I, _P],
     # x, slice, out, sink, n_bytes, slice_bytes, sentinel, stream
     "pfa_hbm_read": [_P] * 4 + [_L, _I, _U, _P],
-    # x, y, n_bytes, stream
-    "pfa_hbm_copy": [_P, _P, _L, _P],
+    # x, y, n_bytes, chunk, stages, grid, stream (k10_plan)
+    "pfa_hbm_copy": [_P, _P, _L] + [_I] * 3 + [_P],
     # x, out, sink, n, out_n, iters, sentinel, stream
     "pfa_exp_probe": [_P] * 3 + [_L, _I, _I, _U, _P],
     # x, out, l_out, sink, rows, cols, iters, mask_bound, masked, sentinel, stream
@@ -153,8 +153,12 @@ _SIGNATURES: Dict[str, List] = {
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, dtype, stream
     "pfa_flash_fulltri": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, do, lse, di, dq, B, S, H, D, q_row0, rows, sm_scale, causal,
-    # dtype, stream
+    # dtype, stream: K20 in fp32
     "pfa_flash_bwd_dq_rowblock": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, do, lse, di, dq, B, S, H, D, q_row0, rows, sm_scale, causal,
+    # chained, stages, smem, grid, stream: one launch of K20's bf16 body
+    # (K5's; k20_plan)
+    "pfa_flash_bwd_dq_rowblock_sm90": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     # q, k, v, do, lse, di, dk, dv, B, S, H, D, kv_col0, cols, sm_scale,
     # causal, dtype, stream: K21 in fp32
     "pfa_flash_bwd_dkv_colblock": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],

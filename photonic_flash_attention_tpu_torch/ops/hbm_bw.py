@@ -8,7 +8,9 @@ Port of ``photonic_flash_attention_tpu/ops/hbm_bw.py``:
   DMA slot 0 holds at its end (x[8192:8200] for 3 chunks, x[0:8] for 1 or
   2). Kernel K9 (``csrc/probes.cu``, counted ``pfa_hbm_read``).
 * :func:`hbm_copy`: y = x, reading and writing every byte. Kernel K10
-  (``pfa_hbm_copy``).
+  (``pfa_hbm_copy``): the TMA's 1-D bulk copy through a ring of
+  shared-memory stages, one CTA a 32 KB chunk of the array
+  (:func:`k10_plan`).
 * :func:`hbm_read_bytes_per_s`: the read rate of K9 over a 256 MiB array,
   by the two-point fit of ``core/timing.py::fit_seconds``; the counterpart
   of ``bench.py``'s calibration loop (which is not a function in JAX).
@@ -20,7 +22,7 @@ raise; CPU tensors take the plain versions (a slice, a clone).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -36,6 +38,50 @@ READ_SHAPE = (262144, 512)
 COPY_SHAPE = (131072, 512)
 #: A value the probes' folded register is compared with (see csrc/probes.cu).
 SENTINEL = 0x9E3779B9
+#: K10's ring: bytes a chunk (one bulk copy each way), stages, and a CTA a
+#: chunk (else a persistent grid of at most a CTA a SM, walking the chunks
+#: grid-strided). A CTA a chunk was the fastest setting on the H100
+#: (PERF.md).
+COPY_CHUNK = 32768
+COPY_STAGES = 2
+COPY_PERSISTENT = False
+#: Dynamic shared memory a CTA may take on the H100 (``csrc/sm90.cuh``).
+SMEM_MAX = 232448
+
+
+class K10Plan(NamedTuple):
+    """One K10 launch: ``chunks`` of ``chunk`` bytes (the last one the
+    rest), ``stages`` ring stages and ``grid`` CTAs (the chunks, or
+    min(chunks, SMs) where persistent), CTA b copying chunks b, b + grid,
+    ... (``csrc/probes.cu::hbm_copy_ring``)."""
+    chunk: int
+    stages: int
+    chunks: int
+    grid: int
+
+
+def k10_plan(n_bytes: int, sms: int = 132, *, chunk: int = COPY_CHUNK,
+             stages: int = COPY_STAGES, persistent: bool = COPY_PERSISTENT) -> K10Plan:
+    """K10's launch for ``n_bytes`` (a multiple of 16): the ring of
+    ``stages`` stages of ``chunk`` bytes (a multiple of 16, below 1 MiB, all
+    stages and their 8-byte mbarriers in :data:`SMEM_MAX`) and the grid: a
+    CTA a chunk, or where ``persistent`` at most ``sms`` CTAs. The C
+    launcher refuses any other."""
+    if n_bytes <= 0 or n_bytes % 16:
+        raise ValueError(f"K10 copies a positive multiple of 16 bytes, got {n_bytes}")
+    if chunk <= 0 or chunk % 16 or chunk > (1 << 20) - 16:
+        raise ValueError(f"K10's chunk must be a multiple of 16 bytes below 1 MiB, got {chunk}")
+    if not 2 <= stages <= 8 or stages * (chunk + 8) > SMEM_MAX:
+        raise ValueError(f"K10's ring of {stages} stages of {chunk} bytes does not fit: 2 to 8 "
+                         f"stages in {SMEM_MAX} bytes")
+    chunks = -(-n_bytes // chunk)
+    return K10Plan(chunk, stages, chunks, min(chunks, sms) if persistent else chunks)
+
+
+def _copy_into(x: torch.Tensor, y: torch.Tensor, plan: K10Plan) -> None:
+    """One K10 launch on ``plan``: y = x."""
+    _build.launch("pfa_hbm_copy", x.device, x.data_ptr(), y.data_ptr(),
+                  x.numel() * x.element_size(), plan.chunk, plan.stages, plan.grid)
 
 
 def _check_rows(x: torch.Tensor, name: str) -> None:
@@ -96,8 +142,8 @@ def hbm_copy(x: torch.Tensor) -> torch.Tensor:
         return hbm_copy_plain(x)
     _check_cuda(x, "K10 (hbm_copy)")
     y = torch.empty_like(x)
-    _build.launch("pfa_hbm_copy", x.device, x.data_ptr(), y.data_ptr(),
-                  x.numel() * x.element_size())
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _copy_into(x, y, k10_plan(x.numel() * x.element_size(), sms))
     return y
 
 

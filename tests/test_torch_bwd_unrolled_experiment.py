@@ -16,7 +16,11 @@ shapes). JAX's kv blocks are multiples of 128 (its kernels tile the (.,
 K21's bf16 launch plan (``k21_plan``: K4's Hopper body over one key block)
 is a pure function, checked here too: its work tiles and grid, its ring
 (K4's), the ranges it refuses, and the fold of K21's (B, H, S, D) tensors
-into K4's (B H, S, 1, D) layout that its launch relies on.
+into K4's (B H, S, 1, D) layout that its launch relies on. So is K20's
+(``k20_plan``: K5's body over one row-block): its work tiles and grid, its
+ring (a mirror of K5's ``DqCfg``), the ranges it refuses, and a mirror of
+the body's walk (``dq_work`` and the store's range test) through the same
+fold, which must store every (b, h, row) of a call exactly once.
 """
 
 import importlib.util
@@ -250,3 +254,114 @@ def test_k21_fold_gives_k4_offsets():
                 assert vflat[(bp * hp + 0) * s + key] == v[bb, hh, key]
                 for c in range(d):
                     assert flat[((bp * s + key) * hp + 0) * d + c] == x[bb, hh, key, c]
+
+
+# -- K20's bf16 launch on K5's body (csrc/flash_bwd_sm90.cu) ------------------
+
+K20_CASES = [(b, s, h, d, blk) for _, (b, s, h, d), _ in bx.CASES for blk in (256, 512)] + [
+    (b, s, h, d, blk) for (b, s, h, d), dtype, blocks in bx.CARD_CHECKS if dtype == torch.bfloat16
+    for blk in sorted({bq for bq, _ in blocks})] + [(2, 384, 3, 64, 192), (1, 320, 2, 128, 320)]
+
+
+@pytest.mark.parametrize("b, s, h, d, blk", K20_CASES,
+                         ids=["b{}s{}h{}d{}-bq{}".format(*c) for c in K20_CASES])
+def test_k20_plan_work_tiles_and_grid(b, s, h, d, blk):
+    """Each launch of a call: ceil(rows / 128) B H work tiles (the
+    row-block's 128-row blocks, the last holding rows past the row-block
+    where rows is not a multiple of 128), on min(work tiles, SMs) CTAs."""
+    for q_row0 in range(0, s, blk):
+        for sms in (132, 7):
+            plan = bx.k20_plan(b, s, h, d, q_row0, blk, sms)
+            assert plan.work == -(-blk // 128) * b * h
+            assert plan.grid == min(plan.work, sms)
+
+
+def _dq_cfg(d):
+    """csrc/flash_bwd_sm90.cu::DqCfg<D, PLAIN> written out: (BKV, QBUF,
+    STAGES, SMEM)."""
+    fits = lambda n: n + 8 * 12 + 1024 <= 232448  # noqa: E731
+    bkv = 64 if d == 128 else 128
+    qo, kv = 128 * d * 2, bkv * d * 2
+    qbuf = 2 if fits(4 * qo + 4 * kv) else 1
+    stages = (4 if fits(2 * qbuf * qo + 8 * kv) else 3 if fits(2 * qbuf * qo + 6 * kv) else 2)
+    off_bar = 2 * qbuf * qo + 2 * stages * kv
+    return bkv, qbuf, stages, off_bar + 8 * (2 * stages + 2 * qbuf) + 1024
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k20_plan_ring_is_k5s(d):
+    """K5's plain ring (DqCfg): 128-key stages at D 64, 64 at D 128, Q and
+    dO double-buffered, 4 and 3 stages, within the H100's 232,448 bytes."""
+    assert bx._k5_ring(d) == _dq_cfg(d) == {64: (128, 2, 4, 197728),
+                                           128: (64, 2, 3, 230480)}[d]
+    plan = bx.k20_plan(1, 256, 1, d, 0, 64)
+    assert (plan.stages, plan.smem) == _dq_cfg(d)[2:]
+    assert plan.smem <= bx.SMEM_MAX
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: bx.k20_plan(1, 256, 2, 96, 0, 64), "head_dim"),
+    (lambda: bx.k20_plan(1, 256, 2, 64, 32, 64), "grid of 64"),
+    (lambda: bx.k20_plan(1, 256, 2, 64, 0, 96), "grid of 64"),
+    (lambda: bx.k20_plan(1, 256, 2, 64, -64, 64), "grid of 64"),
+    (lambda: bx.k20_plan(1, 256, 2, 64, 192, 128), "grid of 64"),
+    (lambda: bx.k20_plan(1, 256, 2, 64, 256, 64), "grid of 64"),
+    (lambda: bx.k20_plan(1, 256, 2, 64, 0, 0), "grid of 64"),
+    (lambda: bx.k20_plan(0, 256, 2, 64, 0, 64), "bad shape"),
+    (lambda: bx.k20_plan(1, 256, 0, 64, 0, 64), "bad shape"),
+], ids=["d96", "row0-off-grid", "rows-off-grid", "row0-neg", "past-s", "row0-at-s", "no-rows",
+        "no-batch", "no-heads"])
+def test_k20_plan_bad_arguments(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def _k20_stored(b, h, s, d, row0, rows, causal, sms=5):
+    """A mirror of K20's launch over the folded layout (B' = B H, H' = 1):
+    each CTA's snake walk of the plan's work tiles (``dq_work`` under
+    ROWBLOCK: heads fastest, then batch rows, then the range's 128-row
+    blocks from row0, the last first when causal), each consumer thread's
+    two rows, and the store's test (row < range_end); returns the flat
+    (b' S + row) H' D offsets of the rows stored."""
+    plan = bx.k20_plan(b, s, h, d, row0, rows, sms)
+    bp, hp, nqb = b * h, 1, -(-rows // 128)
+    stored = []
+    for cta in range(plan.grid):
+        n = 0
+        while n * plan.grid < plan.work:
+            t = n * plan.grid + (plan.grid - 1 - cta if n & 1 else cta)
+            n += 1
+            if t >= plan.work:
+                continue
+            hh, r = t % hp, t // hp
+            bb, i = r % bp, r // bp
+            q0 = row0 + (nqb - 1 - i if causal else i) * 128
+            for wg in range(2):
+                for warp in range(4):
+                    for g in range(8):
+                        for e in range(2):
+                            row = q0 + wg * 64 + warp * 16 + g + 8 * e
+                            if row < row0 + rows:
+                                stored.append(((bb * s + row) * hp + hh) * d)
+    return stored
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s, blk", [(256, 128), (384, 192), (320, 64), (320, 320)],
+                         ids=["s256-bq128", "s384-bq192", "s320-bq64", "s320-bq320"])
+def test_k20_fold_stores_every_row_once(causal, s, blk):
+    """Through the fold, a call's launches (one a row-block, in either
+    order) store every (b, h, row) of dq exactly once, at the offset of the
+    (B, H, S, D) layout, and no row past a launch's range: rows of a work
+    tile past it are another launch's."""
+    b, h, d = 2, 3, 64
+    x = torch.arange(b * h * s * d).view(b, h, s, d)  # each element its flat offset
+    for starts in (range(0, s, blk), reversed(range(0, s, blk))):
+        seen = []
+        for row0 in starts:
+            got = _k20_stored(b, h, s, d, row0, blk, causal)
+            rows = {(o // d) % s for o in got}
+            assert rows <= set(range(row0, row0 + blk))
+            seen += got
+        assert sorted(seen) == sorted(int(x[bb, hh, r, 0]) for bb in range(b) for hh in range(h)
+                                      for r in range(s))

@@ -31,15 +31,19 @@ replayed on new inputs); the segmented path at its
 main's long geometries on its last rows; K20 and K21 (the unrolled
 backward) through ``flash_bwd_unrolled`` at ``CARD_CHECKS`` causal and not
 (blocks of 64, a launch of 320 rows, D 128, fp32 inputs) and at every
-geometry and block of its main, launched once a row-block (K20) and once a
+geometry and block of its main, launched once a row-block (K20: bf16 on
+K5's Hopper body, counted as ``pfa_flash_bwd_dq_rowblock``, fp32 on the
+mma.sync body, counted as ``pfa_flash_bwd_dq_rowblock_fp32``) and once a
 key block (K21: bf16 on K4's Hopper body, counted as
 ``pfa_flash_bwd_dkv_colblock``, fp32 on the mma.sync body, counted as
 ``pfa_flash_bwd_dkv_colblock_fp32``), each output within 1e-2 of the plain
-version; one K21 launch of a 64-key block that ends mid work tile writes
-its rows and no other, a K21 call (its launches after the first
-programmatic dependent launches) replays from a CUDA graph, and K21's
-launcher refuses a plan not its own; an unaligned bf16 base raises for
-K13 and K21 before any launch. fp32 on
+version; K20 at row-blocks of 64, 192 and 320 rows, its dq bit-equal to
+K5's, in either launch order and with the chaining off; one K20 or K21
+launch of a 64-row block that ends mid work tile writes its rows and no
+other, a K20 and a K21 call (their launches after the first programmatic
+dependent launches) replay from a CUDA graph, and their launchers refuse
+a plan not their own; an unaligned bf16 base raises for K13, K20 and K21
+before any launch. fp32 on
 K13-K15, an nchain K15 is not compiled for, an unroll K17 is not compiled for, a
 dtype or a D a kernel does not take, and K20/K21's blocks that are not
 multiples of 64, GQA and lengths the blocks do not divide raise.
@@ -58,6 +62,7 @@ from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment
 from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as pipeline
 from photonic_flash_attention_tpu_torch.ops import _build
 from photonic_flash_attention_tpu_torch.ops.flash import flash_attention_with_lse_plain
+from photonic_flash_attention_tpu_torch.ops.flash_bwd import flash_bwd_dq
 
 pytestmark = pytest.mark.cuda
 BOUND = 1e-2
@@ -565,11 +570,12 @@ def test_k20_k21_unrolled_backward_matches_plain(cuda_device, shape, dtype, bloc
     s = shape[1]
     for bq, bkv in blocks:
         kw = dict(sm_scale=shape[3] ** -0.5, causal=causal, block_q=bq, block_kv=bkv)
+        k20 = _route("pfa_flash_bwd_dq_rowblock", dtype)
         k21 = _route("pfa_flash_bwd_dkv_colblock", dtype)
-        before = (_build.LAUNCHES["pfa_flash_bwd_dq_rowblock"], _build.LAUNCHES[k21])
+        before = (_build.LAUNCHES[k20], _build.LAUNCHES[k21])
         got = experiments.flash_bwd_unrolled(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
-        assert (_build.LAUNCHES["pfa_flash_bwd_dq_rowblock"] - before[0],
+        assert (_build.LAUNCHES[k20] - before[0],
                 _build.LAUNCHES[k21] - before[1]) == (s // bq, s // bkv)
         want = bwd.flash_bwd_unrolled_plain(q, k, v, o, lse, do, **kw)
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -717,6 +723,162 @@ def test_k20_k21_card_contract_errors(cuda_device):
     qt = q.transpose(2, 3).contiguous().transpose(2, 3)  # the same values, not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         experiments.flash_bwd_unrolled(qt, k, v, o, lse, do, block_q=64, block_kv=64, **kw)
+
+
+@pytest.mark.parametrize("s, block_q", [(384, 64), (384, 192), (320, 320)],
+                         ids=["rows64", "rows192", "rows320"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k20_row_blocks_match_plain(cuda_device, s, block_q, d, causal):
+    """K20 in bf16 at row-blocks of 64, 192 and 320 rows (the last work tile
+    of a launch holding rows past it), one launch a row-block, in the
+    shipped order and chaining and with the levers (ascending, chaining
+    off): each within 1e-2 of the plain version and all bit-equal."""
+    shape = (2, s, 3, d)
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 46, shape, torch.bfloat16, causal)
+    di = bwd.flash_bwd_di(o, do)
+    kw = dict(sm_scale=d ** -0.5, causal=causal, block_q=block_q)
+    before = _build.LAUNCHES["pfa_flash_bwd_dq_rowblock"]
+    got = bwd.dq_rowblocks(q, k, v, do, lse, di, block_kv=64, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfa_flash_bwd_dq_rowblock"] - before == s // block_q
+    want = bwd.dq_rowblocks_plain(q, k, v, do, lse, di, block_kv=64, **kw)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert _common.rel_err_norm(got, want) <= BOUND
+    for descending in (False, True):
+        for chained in (False, True):
+            dq = torch.full_like(q, 7.0)
+            bwd._k20_launches(q, k, v, do, lse, di, dq, descending=descending, chained=chained,
+                              **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(dq, got), (descending, chained)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k20_equals_k5(cuda_device, d, causal):
+    """Each row of K20 sees K5's key tiles in K5's order, so at row-blocks
+    on K5's 128-row grid its dq is K5's bit for bit."""
+    b, s, h = 2, 512, 3
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 47, (b, s, h, d), torch.bfloat16, causal)
+    di = bwd.flash_bwd_di(o, do)
+    got = bwd.dq_rowblocks(q, k, v, do, lse, di, sm_scale=d ** -0.5, causal=causal,
+                           block_q=256, block_kv=256)
+    t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    k5 = flash_bwd_dq(t(q), t(k), t(v), t(do), lse, di, sm_scale=d ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k5.transpose(1, 2))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k20_block_ending_mid_work_tile_writes_only_its_rows(cuda_device, d):
+    """One K20 launch of the 64-row block [64, 128) at S 384, causal: its
+    128-row work tile's second warpgroup holds rows 128-191, computed and
+    not stored. The block's rows match the plain version's; every other row
+    of dq keeps what it held."""
+    b, s, h = 2, 384, 3
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 48, (b, s, h, d), torch.bfloat16, True)
+    di = bwd.flash_bwd_di(o, do)
+    dq = torch.full_like(q, 7.0)
+    plan = bwd.k20_plan(b, s, h, d, 64, 64)
+    assert plan.work == b * h
+    _build.launch("pfa_flash_bwd_dq_rowblock_sm90", cuda_device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                  b, s, h, d, 64, 64, d ** -0.5, 1, 0, plan.stages, plan.smem, plan.grid)
+    torch.cuda.synchronize()
+    want = bwd.dq_rowblocks_plain(q, k, v, do, lse, di, sm_scale=d ** -0.5, causal=True,
+                                  block_q=64, block_kv=64)
+    rows = slice(64, 128)
+    assert torch.isfinite(dq[:, :, rows]).all()
+    assert _common.rel_err_norm(dq[:, :, rows], want[:, :, rows]) <= BOUND
+    assert (dq[:, :, :64] == 7.0).all() and (dq[:, :, 128:] == 7.0).all()
+
+
+@pytest.mark.parametrize("shape, block_q", [((4, 2048, 12, 64), 512), ((2, 320, 3, 128), 64)],
+                         ids=["b4s2048-bq512", "d128-s320-bq64"])
+def test_k20_graph_replay_matches_plain(cuda_device, shape, block_q):
+    """A K20 call (its launches after the first programmatic dependent
+    launches) captured into a CUDA graph, replayed on new inputs and read
+    by the stream's next kernel before any synchronisation: every row of
+    every launch is there."""
+    b, s, h, d = shape
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 49, shape, torch.bfloat16, True)
+    di = bwd.flash_bwd_di(o, do)
+    kw = dict(sm_scale=d ** -0.5, causal=True, block_q=block_q, block_kv=block_q)
+    bwd.dq_rowblocks(q, k, v, do, lse, di, **kw)  # build and warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.CAPTURED["pfa_flash_bwd_dq_rowblock"]
+    with torch.cuda.graph(graph):
+        out = bwd.dq_rowblocks(q, k, v, do, lse, di, **kw)
+    assert _build.CAPTURED["pfa_flash_bwd_dq_rowblock"] == before + s // block_q
+    for seed in (50, 51):
+        fresh = _bwd_inputs(cuda_device, seed, shape, torch.bfloat16, True)
+        for t, new in zip((q, k, v, o, lse, do), fresh):
+            t.copy_(new)
+        di.copy_(bwd.flash_bwd_di(o, do))
+        graph.replay()
+        got = out.float() * 1.0
+        torch.cuda.synchronize()
+        ref = bwd.dq_rowblocks_plain(q, k, v, do, lse, di, **kw)
+        assert torch.isfinite(got).all()
+        assert _common.rel_err_norm(got, ref) <= BOUND, seed
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k20_route_by_dtype(cuda_device, dtype):
+    """bf16 reaches only K5's Hopper body, fp32 only the mma.sync one; one
+    count a launch."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 52, (1, 256, 2, 64), dtype, True)
+    di = bwd.flash_bwd_di(o, do)
+    names = ("pfa_flash_bwd_dq_rowblock", "pfa_flash_bwd_dq_rowblock_fp32")
+    before = {n: _build.LAUNCHES[n] for n in names}
+    bwd.dq_rowblocks(q, k, v, do, lse, di, sm_scale=0.125, causal=True, block_q=64, block_kv=64)
+    torch.cuda.synchronize()
+    got = {n: _build.LAUNCHES[n] - before[n] for n in names}
+    assert got == {n: 4 * int(n.endswith("_fp32") == (dtype == torch.float32)) for n in names}
+
+
+def test_k20_refuses_other_plans(cuda_device):
+    """K20's launcher runs its own plan: another ring depth, shared memory
+    or a grid past the work tiles is refused, and so is a row range off the
+    grid of 64 or past S."""
+    b, s, h, d = 1, 256, 2, 64
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 53, (b, s, h, d), torch.bfloat16, True)
+    di = bwd.flash_bwd_di(o, do)
+    dq = torch.empty_like(q)
+
+    def k20(plan, row0=64, rows=128):
+        _build.launch("pfa_flash_bwd_dq_rowblock_sm90", cuda_device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                      b, s, h, d, row0, rows, d ** -0.5, 1, 0, plan.stages, plan.smem, plan.grid)
+
+    plan = bwd.k20_plan(b, s, h, d, 64, 128)
+    k20(plan)
+    torch.cuda.synchronize()
+    for bad, row0, rows in ((plan._replace(stages=plan.stages - 1), 64, 128),
+                            (plan._replace(smem=plan.smem + 1024), 64, 128),
+                            (plan._replace(grid=plan.work + 1), 64, 128),
+                            (plan, 32, 128), (plan, 64, 96), (plan, 192, 128)):
+        with pytest.raises(RuntimeError, match="_sm90"):
+            k20(bad, row0, rows)
+
+
+def test_k20_unaligned_bf16_raises(cuda_device):
+    """TMA reads 16-byte-aligned bases: a bf16 K20 call on a tensor that
+    starts 2 bytes in raises before any launch, and never falls back to
+    the mma.sync body."""
+    b, s, h, d = 1, 256, 2, 64
+    n = b * s * h * d
+    buf = torch.randn(4 * n + 1, device=cuda_device).to(torch.bfloat16)
+    q, k, v, do = (buf[1 + i * n:1 + (i + 1) * n].view(b, h, s, d) for i in range(4))
+    lse = torch.zeros(b, h, s, device=cuda_device)
+    names = ("pfa_flash_bwd_dq_rowblock", "pfa_flash_bwd_dq_rowblock_fp32")
+    before = {n_: _build.LAUNCHES[n_] for n_ in names}
+    with pytest.raises(ValueError, match="16-byte"):
+        bwd.dq_rowblocks(q, k, v, do, lse, lse, sm_scale=0.125, causal=True, block_q=64,
+                         block_kv=64)
+    assert {n_: _build.LAUNCHES[n_] for n_ in names} == before
 
 
 def test_k16_k18_unaligned_bf16_raises(cuda_device):

@@ -6,7 +6,10 @@ file imports no JAX, so it also runs on a machine that has none:
     python -m pytest tests/test_torch_cuda_probes.py -m cuda --noconftest -q
 
 K9 (``hbm_read_probe``) and K10 (``hbm_copy``) bit for bit (a slice and a
-copy), in bf16, fp32 and int8; K11 (``exp_probe``) within 1e-6 abs
+copy), in bf16, fp32 and int8, K10 also at its ring's tails (16 bytes, a
+chunk and 16 bytes, a size that is not a multiple of the chunk) and on
+other rings (stages, chunk, grid), its launcher refusing a plan not its
+own; K11 (``exp_probe``) within 1e-6 abs
 (exp2f against torch.exp, rounding errors that exp's slope below 1 keeps
 from growing); K12 (``softmax_block_probe``) within one bf16 ulp (2^-8) in
 both modes at every width it holds, its running sums l within 1e-4
@@ -70,6 +73,46 @@ def test_hbm_copy_is_exact(cuda_device, shape, dtype):
         return
     y = _launched("pfa_hbm_copy", lambda: hbm_bw.hbm_copy(x))
     assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+
+
+#: K10's tails in bytes: one 16-byte chunk, a chunk and 16 bytes, and a
+#: size that is not a multiple of the chunk.
+K10_TAILS = [16, hbm_bw.COPY_CHUNK + 16, 5 * hbm_bw.COPY_CHUNK // 2 + 48]
+
+
+@pytest.mark.parametrize("n_bytes", K10_TAILS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+def test_hbm_copy_tails_are_exact(cuda_device, n_bytes, dtype):
+    elt = torch.empty((), dtype=dtype).element_size()
+    x = _uniform((1, n_bytes // elt), -100, 100, cuda_device, n_bytes).to(dtype)
+    y = _launched("pfa_hbm_copy", lambda: hbm_bw.hbm_copy(x))
+    assert torch.equal(y, x)
+
+
+@pytest.mark.parametrize("chunk, stages", [(16384, 2), (65536, 3), (4096, 8), (32768, 6)])
+def test_hbm_copy_rings_are_exact(cuda_device, chunk, stages):
+    """Every ring the plan allows copies every byte: bench.py's copy and a
+    size that ends mid chunk, on few SMs (several chunks a CTA), all, and a
+    CTA a chunk."""
+    for shape in ((131072, 512), (3, 40008)):
+        x = _uniform(shape, -100, 100, cuda_device, 2).to(torch.bfloat16)
+        for sms, persistent in ((7, True), (132, True), (132, False)):
+            y = torch.zeros_like(x)
+            plan = hbm_bw.k10_plan(x.numel() * 2, sms, chunk=chunk, stages=stages,
+                                   persistent=persistent)
+            _launched("pfa_hbm_copy", lambda: hbm_bw._copy_into(x, y, plan))
+            assert torch.equal(y, x), (shape, sms)
+
+
+def test_hbm_copy_refuses_other_plans(cuda_device):
+    x = torch.ones(4096, 512, device=cuda_device, dtype=torch.bfloat16)
+    y = torch.empty_like(x)
+    plan = hbm_bw.k10_plan(x.numel() * 2, persistent=True)
+    for bad in (plan._replace(grid=plan.chunks + 1), plan._replace(grid=0),
+                plan._replace(chunk=1000), plan._replace(stages=1),
+                plan._replace(stages=8, chunk=65536)):
+        with pytest.raises(RuntimeError, match="pfa_hbm_copy"):
+            hbm_bw._copy_into(x, y, bad)
 
 
 #: Counts at which the outputs still depend on the input and the count,

@@ -3,7 +3,10 @@
 The same numpy inputs go through the JAX kernels in interpret mode
 (``photonic_flash_attention_tpu/ops/hbm_bw.py``) and through the port's
 wrappers on the CPU, which run the plain versions. Both are exact: the read
-probe returns a slice of its input, the copy its input.
+probe returns a slice of its input, the copy its input. K10's launch plan
+(``k10_plan``: its chunks, ring and grid) is a pure function, checked
+here too: every chunk falls to exactly one CTA, and the rings the
+launcher refuses raise.
 """
 
 import math
@@ -68,3 +71,50 @@ def test_rates_on_the_cpu_time_the_plain_versions():
     for fn in (hbm_bw.hbm_read_bytes_per_s, hbm_bw.hbm_copy_bytes_per_s):
         rate = fn(x, fit=(5, 60), device="cpu")
         assert math.isfinite(rate) and rate > 0, fn.__name__
+
+
+#: Sizes in bytes: one 16-byte chunk, a chunk and 16 bytes, a size that is
+#: not a multiple of the chunk, fewer chunks than SMs, and bench.py's copy.
+K10_SIZES = [16, hbm_bw.COPY_CHUNK + 16, 100 * 512 * 4, 131072 * 512 * 2]
+
+
+@pytest.mark.parametrize("n_bytes", K10_SIZES)
+@pytest.mark.parametrize("chunk, stages", [(hbm_bw.COPY_CHUNK, hbm_bw.COPY_STAGES), (16384, 6),
+                                           (65536, 2)])
+def test_k10_plan_covers_every_chunk_once(n_bytes, chunk, stages):
+    """CTA b copies chunks b, b + grid, ... (csrc/probes.cu::hbm_copy_ring;
+    one where a CTA takes a chunk): each CTA at least one, together every
+    chunk once; the last chunk the rest of the bytes, a multiple of 16."""
+    for sms, persistent in ((132, True), (7, True), (132, False)):
+        plan = hbm_bw.k10_plan(n_bytes, sms, chunk=chunk, stages=stages, persistent=persistent)
+        assert (plan.chunk, plan.stages) == (chunk, stages)
+        assert plan.chunks == -(-n_bytes // chunk)
+        assert plan.grid == (min(plan.chunks, sms) if persistent else plan.chunks)
+        walks = [range(b, plan.chunks, plan.grid) for b in range(plan.grid)]
+        assert all(len(w) > 0 for w in walks)
+        assert sorted(c for w in walks for c in w) == list(range(plan.chunks))
+        last = n_bytes - (plan.chunks - 1) * chunk
+        assert 0 < last <= chunk and last % 16 == 0
+        assert stages * (chunk + 8) <= hbm_bw.SMEM_MAX
+
+
+def test_k10_plan_defaults():
+    plan = hbm_bw.k10_plan(131072 * 512 * 2)
+    assert plan == hbm_bw.K10Plan(32768, 2, 4096, 4096) and not hbm_bw.COPY_PERSISTENT
+    assert hbm_bw.k10_plan(131072 * 512 * 2, persistent=True).grid == 132
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(n_bytes=0), "multiple of 16 bytes"),
+    (dict(n_bytes=24), "multiple of 16 bytes"),
+    (dict(n_bytes=4096, chunk=1000), "chunk"),
+    (dict(n_bytes=4096, chunk=1 << 20), "chunk"),
+    (dict(n_bytes=4096, stages=1), "does not fit"),
+    (dict(n_bytes=4096, stages=9, chunk=1024), "does not fit"),
+    (dict(n_bytes=4096, stages=8, chunk=32768), "does not fit"),
+], ids=["empty", "not-16", "chunk-not-16", "chunk-1mib", "one-stage", "nine-stages",
+        "past-smem"])
+def test_k10_plan_bad_arguments(kw, match):
+    n = kw.pop("n_bytes")
+    with pytest.raises(ValueError, match=match):
+        hbm_bw.k10_plan(n, **kw)
