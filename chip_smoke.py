@@ -177,12 +177,16 @@ call's wall time, time by kernel group) and writes the traces and a
 per-kernel table into DIR. ``--exp-table`` only builds and prints the exp
 table (K13 in both exp modes, K14, K15, K16, K17 at unroll 2 and 4, K18
 at each of its blocks and K19 at the mains' geometries by the graph fit,
-beside K1 bf16, SDPA and the bound; then K20, K21 and the whole call at
-the unrolled backward's geometries and blocks beside K5 alone, K4 alone,
-K4 + K5, SDPA's backward and the bound, with K20's levers: the other
-launch order and the chaining off), ``--bwd-table`` only those backward
-rows and the copy table (K10 beside ``y.copy_(x)`` and K10's other rings),
-with public calls, so a copy of the script in an unpacked tree of another
+beside K1 bf16, SDPA and the bound; then K18's int8-QK mode, the kernel
+alone, at the int8 main's geometries beside K1's int8-QK kernel alone and
+the bound; then K20, K21 and the whole call at the unrolled backward's
+geometries and blocks beside K5 alone, K4 alone, K4 + K5, SDPA's backward
+and the bound, with K20's levers: the other launch order and the chaining
+off), ``--bwd-table`` only those backward rows and the copy table (K10
+beside ``y.copy_(x)`` and K10's other rings), ``--probe-table`` only K12
+in both modes (ms, elements/s, its bound, its SASS instructions a value)
+and K1's share of the composite ceiling from the measured rates, with
+public calls, so a copy of the script in an unpacked tree of another
 commit times that tree. ``--sass-diff LIB`` compares the normalised SASS
 of every Hopper attention instantiation and of the probes with another
 build's.
@@ -281,7 +285,8 @@ SOURCES = {
     "pfa_flash_chunked_fp32": _EXPERIMENTS,
     "pfa_flash_tri": _EXPERIMENTS90,
     "pfa_flash_tri_fp32": _EXPERIMENTS,
-    "pfa_flash_tri_i8": _EXPERIMENTS,
+    "pfa_flash_tri_i8": _QUANT90,
+    "pfa_flash_tri_i8_fp32": _EXPERIMENTS,
     "pfa_flash_fulltri": _EXPERIMENTS90,
     "pfa_flash_fulltri_fp32": _EXPERIMENTS,
     "pfa_flash_bwd_dq_rowblock": _BWD90,
@@ -346,6 +351,7 @@ REPLACES = {
     "pfa_flash_tri": "benchmarks/flash_pipeline_experiment.py:407",
     "pfa_flash_tri_fp32": "benchmarks/flash_pipeline_experiment.py:407 (fp32 inputs)",
     "pfa_flash_tri_i8": "benchmarks/flash_pipeline_experiment.py:548",
+    "pfa_flash_tri_i8_fp32": "benchmarks/flash_pipeline_experiment.py:548 (fp32 V)",
     "pfa_flash_fulltri": "benchmarks/flash_pipeline_experiment.py:821",
     "pfa_flash_fulltri_fp32": "benchmarks/flash_pipeline_experiment.py:821 (fp32 inputs)",
     "pfa_flash_bwd_dq_rowblock": "benchmarks/flash_bwd_unrolled_experiment.py:41",
@@ -362,8 +368,8 @@ REPLACES = {
 #: (serving decodes through K3's fused write + attend),
 #: ALiBi (no model of the port uses it), the sliding window of K1, K4
 #: and K5 (no model of the port sets one) and K16-K19's, K20's and K21's fp32
-#: inputs (the experiments' mains run bf16; their mma.sync bodies are
-#: checked and timed in the experiments phase). K6's int8 mode has its own entry: the
+#: inputs and K18 int8's fp32 V (the experiments' mains run bf16; their
+#: mma.sync bodies are checked and timed in the experiments phase). K6's int8 mode has its own entry: the
 #: CLI's ``calibrate`` runs it.
 NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
                 "pfa_paged_decode_attend": ("pfa_paged_decode_fused", "attend_only"),
@@ -377,6 +383,7 @@ NESTED_MODES = {"pfa_paged_hf_int8": ("pfa_paged_hf", "int8_compute"),
                 "pfa_flash_pipelined_fp32": ("pfa_flash_pipelined", "fp32 (mma.sync body)"),
                 "pfa_flash_chunked_fp32": ("pfa_flash_chunked", "fp32 (mma.sync body)"),
                 "pfa_flash_tri_fp32": ("pfa_flash_tri", "fp32 (mma.sync body)"),
+                "pfa_flash_tri_i8_fp32": ("pfa_flash_tri_i8", "fp32 V (mma.sync body)"),
                 "pfa_flash_fulltri_fp32": ("pfa_flash_fulltri", "fp32 (mma.sync body)"),
                 "pfa_flash_bwd_dq_rowblock_fp32": ("pfa_flash_bwd_dq_rowblock",
                                                    "fp32 (mma.sync body)"),
@@ -555,7 +562,9 @@ BWD_MODES = ("plain", "window", "dropout")
 #: and the GMMA kinds each must hold (cuobjdump's names: IGMMA s8, QGMMA
 #: e4m3, HGMMA bf16/f16): Q.K^T in its payload type, P.V in bf16 or 8-bit;
 #: K6 fp8's Q.K^T runs in f16 over widened e4m3 (its sums must be fp32).
-QUANT_SM90 = re.compile(r"flash_quant_sm90ILi(\d+)ELi(\d)E")
+#: K18 int8's is the int8-QK one with ROWBLOCK true (``Lb1E``), keyed
+#: ("K18i8", D, 0).
+QUANT_SM90 = re.compile(r"flash_quant_sm90ILi(\d+)ELi(\d)E(Lb1E)?")
 QUANT_SASS_MODES = (("int8-QK", {"IGMMA", "HGMMA"}), ("fp8-QK", {"QGMMA", "HGMMA"}),
                     ("int8-full", {"IGMMA"}), ("K6 int8", {"IGMMA"}), ("K6 fp8", {"HGMMA", "QGMMA"}))
 GMMA_OPS = ("HGMMA", "IGMMA", "QGMMA")
@@ -578,7 +587,8 @@ PROBE_SASS = re.compile(r"\d(hbm_read|exp_chain|hbm_copy_ring|hbm_copy)E|"
 PROBE_KERNELS = ("hbm_read", "exp_chain", "hbm_copy_ring", "hbm_copy")
 #: The instantiations ``--sass-diff`` compares: every Hopper attention body
 #: and the probes.
-SASS_DIFF_KINDS = ("K1", "K4", "K5", "K20", "K21", "exp", "aug_pair", "fixed", "probe")
+SASS_DIFF_KINDS = ("K1", "K4", "K5", "K20", "K21", "quant", "K18i8", "exp", "aug_pair", "fixed",
+                   "probe")
 
 
 def _cuobjdump(flag: str, path: Path) -> str:
@@ -588,8 +598,8 @@ def _cuobjdump(flag: str, path: Path) -> str:
 
 def _sm90_key(name: str):
     """(kind, D, mode) of a Hopper kernel instantiation's name: kind "K1",
-    "K4", "K5", "K20", "K21", "quant", "exp", "aug_pair", "fixed" or
-    "probe" (PROBE_SASS)."""
+    "K4", "K5", "K20", "K21", "quant", "K18i8", "exp", "aug_pair", "fixed"
+    or "probe" (PROBE_SASS)."""
     if m := K1_SM90.search(name):
         return "K1", int(m.group(1)), int(m.group(2))
     if m := BWD_SM90.search(name):
@@ -600,7 +610,7 @@ def _sm90_key(name: str):
     if m := FIXED_SM90.search(name):
         return "fixed", int(m.group(1)), int(m.group(2))
     if m := QUANT_SM90.search(name):
-        return "quant", int(m.group(1)), int(m.group(2))
+        return "K18i8" if m.group(3) else "quant", int(m.group(1)), int(m.group(2))
     if m := EXP_SM90.search(name):
         return "exp", int(m.group(1)), int(m.group(2))
     if m := AUG_PAIR_SM90.search(name):
@@ -747,26 +757,33 @@ def check_bwd_sass(counts: dict, usage: dict) -> None:
 
 def check_quant_sass(counts: dict, usage: dict) -> None:
     """The same proof for the quantized forward (K1's int8-QK, fp8-QK and
-    int8-full modes, K6 int8 and fp8; D 64 and 128): each instantiation
-    must hold exactly the GMMA kinds of its mode (QUANT_SASS_MODES) and
-    UTMALDG, no HMMA or IMMA, and no stack or local bytes. Prints the
-    counts, registers, stack and, from ``pfa_quant_sm90_info``, the key
-    tile, ring stages, shared memory, threads, CTAs a SM, the setmaxnreg
-    split and whether tile j's Q.K^T overlaps tile j-1's P.V."""
+    int8-full modes, K6 int8 and fp8, and K18's int8 mode, the int8-QK
+    body with its row range; D 64 and 128): each instantiation must hold
+    exactly the GMMA kinds of its mode (QUANT_SASS_MODES) and UTMALDG, no
+    HMMA or IMMA, and no stack or local bytes. Prints the counts,
+    registers, stack and, from ``pfa_quant_sm90_info`` /
+    ``pfa_flash_tri_i8_sm90_info``, the key tile, ring stages, shared
+    memory, threads, CTAs a SM, the setmaxnreg split and whether tile j's
+    Q.K^T overlaps tile j-1's P.V."""
     import ctypes
 
     want = {("quant", d, mode) for d in (64, 128) for mode in range(len(QUANT_SASS_MODES))}
-    got = {key for key in counts if key[0] == "quant"}
+    want |= {("K18i8", d, 0) for d in (64, 128)}
+    got = {key for key in counts if key[0] in ("quant", "K18i8")}
     if got != want:
         raise AssertionError(f"quant SASS: instantiations {sorted(got)}, want {sorted(want)}")
-    for _, d, mode in sorted(want):
-        c = counts[("quant", d, mode)]
+    for kind, d, mode in sorted(want):
+        c = counts[(kind, d, mode)]
         name, kinds = QUANT_SASS_MODES[mode]
         info = (ctypes.c_int * 8)()
-        err = _build.lib().pfa_quant_sm90_info(d, mode, info)
+        if kind == "K18i8":
+            name = "K18 int8-QK (row range, chained)"
+            err = _build.lib().pfa_flash_tri_i8_sm90_info(d, info)
+        else:
+            err = _build.lib().pfa_quant_sm90_info(d, mode, info)
         if err:
-            raise RuntimeError(f"pfa_quant_sm90_info: CUDA error {err}")
-        reg = usage.get(("quant", d, mode))
+            raise RuntimeError(f"quant SASS D{d} {name}: info CUDA error {err}")
+        reg = usage.get((kind, d, mode))
         line = (f"quant SASS D{d} {name}: " + ", ".join(f"{op} {c[op]}" for op in GMMA_OPS) +
                 f", UTMALDG {c['UTMALDG']}, HMMA {c['HMMA']}, IMMA {c['IMMA']}; " +
                 (f"registers {reg[0]} at launch (setmaxnreg: producer {info[5]}, consumers "
@@ -880,6 +897,40 @@ def sass_diff(this: Path, other: Path) -> None:
         changed = sum(1 for d in difflib.ndiff(a, b) if d[0] in "+-")
         print(f"sass diff {key}: {len(a)} -> {len(b)} instructions, {changed} lines differ",
               flush=True)
+
+
+#: K12's instantiations (csrc/probes.cu::softmax_stream<G, VPT, MASKED>).
+K12_SASS = re.compile(r"softmax_streamILi(\d+)ELi(\d+)ELb([01])E")
+
+
+def k12_sass_counts(path: Path) -> dict:
+    """Per K12 instantiation, keyed (columns, masked): the SASS
+    instructions of its update loop a value besides MUFU.EX2, and the
+    updates the loop body holds. The loop is the span from the target of
+    the function's longest backward branch to that branch; its updates are
+    its MUFU.EX2 count over VPT + 1 (each value's p and the row's alpha),
+    its values VPT a thread an update."""
+    funcs, cur = {}, None
+    for line in _cuobjdump("-sass", path).splitlines():
+        if "Function :" in line:
+            m = K12_SASS.search(line)
+            cur = (int(m.group(1)), int(m.group(2)), m.group(3) == "1") if m else None
+            if cur:
+                funcs[cur] = []
+        elif cur and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s*(.*?)\s*;", line)):
+            funcs[cur].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for (g, vpt, masked), ins in funcs.items():
+        loop = []
+        for addr, text in ins:
+            if (b := re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)) and int(b.group(1), 16) < addr:
+                span = [t for a, t in ins if int(b.group(1), 16) <= a <= addr]
+                loop = span if len(span) > len(loop) else loop
+        mufu = sum("MUFU.EX2" in t for t in loop)
+        if mufu:
+            updates = mufu / (vpt + 1)
+            out[(g * vpt, masked)] = ((len(loop) - mufu) / (updates * vpt), updates)
+    return out
 
 
 def check_flash(results: dict) -> None:
@@ -1357,17 +1408,19 @@ def _quant_modes():
     }
 
 
-def quant_bound(q, k, causal, qk_dtype, pv_dtype, scale_bytes) -> dict:
+def quant_bound(q, k, causal, qk_dtype, pv_dtype, scale_bytes, v_elt=None, out_elt=2) -> dict:
     """The bound of a quantized call: Q.K at its 8-bit peak plus P.V at its
     type's peak (2 D operations per (query, key) pair each), against the
-    bytes of the 8-bit Q/K payloads, V (1 B, or 2 B when bf16), the scales
-    and the bf16 output."""
+    bytes of the 8-bit Q/K payloads, V (1 B, or 2 B when bf16; ``v_elt``
+    where V is stored wider than P.V runs), the scales and the output
+    (``out_elt`` bytes a value, bf16)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     ops = 2.0 * d * hq * attention_pairs(b, sq, skv, causal)
     t_ops = (ops / PEAK_OPS[qk_dtype] + ops / PEAK_OPS[pv_dtype]) * 1e3
-    v_elt = 2 if pv_dtype == torch.bfloat16 else 1
-    nbytes = b * sq * hq * d * (1 + 2) + b * skv * hkv * d * (1 + v_elt) + scale_bytes
+    if v_elt is None:
+        v_elt = 2 if pv_dtype == torch.bfloat16 else 1
+    nbytes = b * sq * hq * d * (1 + out_elt) + b * skv * hkv * d * (1 + v_elt) + scale_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -2094,6 +2147,10 @@ def _sdpa_call(q, k, v, **kw):
 #: The graph fit of the K1 table (two replays of CUDA graphs of 2 and 10
 #: calls, as the experiments' mains).
 K1_TABLE_FIT = (2, 10)
+#: The probe table's fixed row count: one wave at 512 columns in both of
+#: K12's layouts (three 128-thread blocks of 32 rows, a quad a row, or six
+#: of 16, eight threads a row, on each of 132 SMs).
+PROBE_TABLE_ROWS = 12672
 
 
 def time_k1_modes(results: dict, smi: str) -> None:
@@ -3867,14 +3924,15 @@ FP32_PER_CLK_SM = 128
 #: unmasked), each issued for 32 lanes: FFMA (s * log2 e - m * log2 e),
 #: FMNMX, FADD, half an F2FP (the bf16 pair pack), the bf16 unpack and the
 #: MUFU.EX2 itself; masked adds the compare and the select. Counted from
-#: the function, not from the compiled kernel (whose SASS holds 11.4 and
-#: 8.6 besides MUFU.EX2; PERF.md §6): at 128 lanes a clock both stay under
+#: the function, not from the compiled kernel (whose update loop holds 7.9
+#: and 5.7 besides MUFU.EX2 at 512 columns; ``k12_sass_counts``, PERF.md
+#: §6): at 128 lanes a clock both stay under
 #: MUFU's 8 clocks per 128 exps, so the MUFU term is K12's bound.
 K12_ISSUE_PER_ELEMENT = {True: 7.5, False: 5.5}
 EXP_CHECK_BOUND = 1e-6
 SOFTMAX_CHECK_BOUND = 2.0 ** -8  # one bf16 ulp in [0.5, 1)
 #: K12's running sums l (fp32, rows 0-7) against the plain version's,
-#: relative: the sums are taken in another order (a quad's shuffles against
+#: relative: the sums are taken in another order (a group's shuffles against
 #: torch's reduction) over p that may differ by an fp32 ulp.
 SOFTMAX_L_RTOL = 1e-4
 #: K12 against its plain version: (rows, cols, iters): JAX's probe tile,
@@ -4340,9 +4398,13 @@ def check_experiments(results: dict) -> dict:
     at every geometry the experiments path gives them (K13 both exp modes
     causal and not, K14 also with Sq < Skv, K15 at each nchain the card
     takes, K16 with GQA, D 128 and fp32 inputs, K17 at unroll 2 and 4 and
-    K18's int8-QK mode causal and not, K18 at each of ``main_tri``'s blocks
-    and K19 causal, K17-K19 at the pipeline module's CARD_CHECK_SHAPES, K18
-    launched once a row-block); then the segmented path (K1 once a segment)
+    K18's int8-QK mode causal and not (its bf16 V on K1's Hopper int8-QK
+    body, an fp32 V on the mma.sync body under its own counter), K18 at
+    each of ``main_tri``'s blocks and K19 causal, K17-K19 at the pipeline
+    module's CARD_CHECK_SHAPES, which hold the int8 main's I8_CASES, K18 in
+    both modes launched once a row-block, a call of each replayed from a
+    CUDA graph, K16-K19's fp32 inputs and K18 int8's fp32 V timed); then
+    the segmented path (K1 once a segment)
     and K1 at the segmented main's long geometries, and K1's int8-QK mode at
     the int8 main's, where the plain version computes only the last rows or
     batch 0; then K20 and K21 at the backward module's CARD_CHECKS and its
@@ -4446,11 +4508,11 @@ def check_experiments(results: dict) -> dict:
                                  lambda: ux.flash_chunked_plain(q, k, v, **kw), checked,
                                  timed=headline and causal and u == 4, launches=(name, 1))
             kw = dict(causal=causal, block_q=blk(s), block_kv=blk(s))
-            _experiment_case("pfa_flash_tri_i8", f"K18 int8-QK {geom} causal={causal}",
+            name = route("pfa_flash_tri_i8", dtype)
+            _experiment_case(name, f"K18 int8-QK {geom} causal={causal}",
                              lambda: ux.flash_tri_i8(q, k, v, **kw),
                              lambda: ux.flash_tri_i8_plain(q, k, v, **kw), checked,
-                             timed=headline and causal,
-                             launches=("pfa_flash_tri_i8", s // blk(s)))
+                             timed=headline and causal, launches=(name, s // blk(s)))
         for bq, bkv in ux.check_tri_blocks(s):
             kw = dict(block_q=bq, block_kv=bkv)
             name = route("pfa_flash_tri", dtype)
@@ -4466,10 +4528,15 @@ def check_experiments(results: dict) -> dict:
                          launches=(name, 1))
     # K18 in bf16 captured into a CUDA graph (its launches after the first
     # programmatic dependent launches), replayed on new inputs and read by
-    # the stream's next kernel before any synchronisation.
-    for shape, bq in (((4, 2048, 12, 12, 64), 512), ((1, 8192, 12, 12, 64), 512),
-                      ((2, 320, 8, 2, 128), 64)):
-        check_k18_graph_replay(shape, bq, checked, lambda sh: qkv(*sh[:3], sh[4], hkv=sh[3]))
+    # the stream's next kernel before any synchronisation; its int8 mode
+    # likewise, causal and not.
+    for shape, bq, int8, causal in (((4, 2048, 12, 12, 64), 512, False, True),
+                                    ((1, 8192, 12, 12, 64), 512, False, True),
+                                    ((2, 320, 8, 2, 128), 64, False, True),
+                                    ((4, 2048, 12, 12, 64), 512, True, True),
+                                    ((2, 320, 8, 2, 128), 64, True, False)):
+        check_k18_graph_replay(shape, bq, checked, lambda sh: qkv(*sh[:3], sh[4], hkv=sh[3]),
+                               int8, causal)
     # Their fp32 bodies at K1's headline shape in fp32 (causal, K17 at
     # unroll 4, K18 at block_q 512): checked, the plain version timed once,
     # the kernel by the fit beside SDPA on the same fp32 inputs; the bound
@@ -4500,6 +4567,25 @@ def check_experiments(results: dict) -> dict:
         print(f"experiments: {label} fp32 (mma.sync body) B{b} S{s} H{h} D{d} causal: {ms:.4f} "
               f"ms (graph fit); SDPA fp32 {sdpa32:.4f} ms; bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']}), {100 * bound['bound_ms'] / ms:.2f} % of it", flush=True)
+    # K18's int8 mode with an fp32 V (the mma.sync body) there: checked, the
+    # plain version timed once, the kernel alone on payloads quantized once
+    # by the fit; no library call; the bound of int8 Q.K and bf16 P.V
+    # products over int8 Q/K, fp32 V and the fp32 output.
+    name = "pfa_flash_tri_i8_fp32"
+    _experiment_case(name, f"K18 int8-QK bq=512 B{b} S{s} H{h} D{d} float32 V causal",
+                     lambda: ux.flash_tri_i8(q, k, v, causal=True, **kw),
+                     lambda: ux.flash_tri_i8_plain(q, k, v, causal=True, **kw), checked,
+                     timed=True, launches=(name, s // 512))
+    q8, k8, sc = ux.quant_qk(q, k)
+    ms = fit_seconds(lambda: ux._tri_i8_payloads(q8, k8, sc, v, 512, 512, True), EXPERIMENT_FIT,
+                     torch.device("cuda")) * 1e3
+    bound = quant_bound(q, k, True, torch.int8, torch.bfloat16, 4, v_elt=4, out_elt=4)
+    checked[name].update(ms=ms, library_ms=None, shape=list(K1_HEADLINE), **bound)
+    print(f"experiments: K18 int8-QK fp32 V (mma.sync body) B{b} S{s} H{h} D{d} causal, the "
+          f"kernel alone: {ms:.4f} ms (graph fit); no library call; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), {100 * bound['bound_ms'] / ms:.2f} "
+          f"% of it", flush=True)
+    del q8, k8
     # The segmented main's long geometries, and K1 there (its reference): the
     # last LONG_CHECK_ROWS rows, which span several interior segments and
     # merges, against K1's plain version on those rows and every key.
@@ -4699,19 +4785,28 @@ def check_unrolled_graph_replays(checked: dict, gen) -> None:
                        checked, inputs, fresh)
 
 
-def check_k18_graph_replay(shape, block_q: int, checked: dict, make_qkv) -> None:
-    """One K18 call in bf16 (B, S, Hq, Hkv, D) at ``block_q`` (one call a
-    row-block, each after the first a programmatic dependent launch)
-    through check_graph_replay."""
+def check_k18_graph_replay(shape, block_q: int, checked: dict, make_qkv, int8: bool = False,
+                           causal: bool = True) -> None:
+    """One K18 call in bf16 (B, S, Hq, Hkv, D) at ``block_q`` (one launch a
+    row-block, each after the first a programmatic dependent launch; with
+    ``int8`` its int8-QK mode, its quantization passes first, causal or
+    not) through check_graph_replay."""
     from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
 
     b, s, hq, hkv, d = shape
     q, k, v = make_qkv(shape)
     kw = dict(block_q=block_q, block_kv=block_q)
-    check_graph_replay("pfa_flash_tri", f"K18 triangular bq={block_q} B{b} S{s} H{hq}/{hkv} "
-                       f"D{d} bfloat16 causal", lambda: ux.flash_triangular(q, k, v, **kw),
-                       lambda: ux.flash_triangular_plain(q, k, v, **kw), s // block_q, checked,
-                       (q, k, v), lambda: make_qkv(shape))
+    if int8:
+        kw["causal"] = causal
+        name, label = "pfa_flash_tri_i8", "K18 int8-QK"
+        call, plain = ux.flash_tri_i8, ux.flash_tri_i8_plain
+    else:
+        name, label = "pfa_flash_tri", "K18 triangular"
+        call, plain = ux.flash_triangular, ux.flash_triangular_plain
+    check_graph_replay(name, f"{label} bq={block_q} B{b} S{s} H{hq}/{hkv} D{d} bfloat16 "
+                       f"causal={causal}", lambda: call(q, k, v, **kw),
+                       lambda: plain(q, k, v, **kw), s // block_q, checked, (q, k, v),
+                       lambda: make_qkv(shape))
 
 
 def _sdpa_fit_ms(b, s, hq, hkv, d, causal, fit, dtype=torch.bfloat16) -> float:
@@ -4745,8 +4840,9 @@ def time_exp_table(smi: str) -> list:
     first, over the aug and pair modules' CASES, causal. K13 in both exp
     modes (the kernel alone, ``fixedmax_kernel``, its bound precomputed)
     joins them over the fixed-max module's CASES, its fast_exp rows held to
-    K1 within FAST_EXP_ORACLE_BOUND. Then K20, K21 and the unrolled
-    backward's whole call (``time_unrolled_rows``)."""
+    K1 within FAST_EXP_ORACLE_BOUND. Then K18's int8-QK mode, the kernel
+    alone, beside K1's int8-QK kernel (``time_i8_rows``), and K20, K21 and
+    the unrolled backward's whole call (``time_unrolled_rows``)."""
     from photonic_flash_attention_tpu_torch.experiments import flash_aug_experiment as ax
     from photonic_flash_attention_tpu_torch.experiments import flash_fixedmax_experiment as fx
     from photonic_flash_attention_tpu_torch.experiments import flash_pair_experiment as px
@@ -4831,7 +4927,95 @@ def time_exp_table(smi: str) -> list:
         table.append(row)
     inputs.clear()
     torch.cuda.empty_cache()
-    return table + time_unrolled_rows(smi)
+    return table + time_i8_rows(smi) + time_unrolled_rows(smi)
+
+
+def time_i8_rows(smi: str) -> list:
+    """K18's int8-QK mode over the int8 main's I8_CASES at block_q 512 (S /
+    512 launches), the kernel alone on payloads quantized once
+    (``_tri_i8_payloads``, bf16 V), by the graph fit (2, 10) beside K1's
+    int8-QK kernel alone on the same payloads (``flash_attention_qk_quant``),
+    the bound (``quant_bound``) and each one's share of it; its output
+    against K1's int8-QK kernel's within EXPERIMENT_BOUND. Calls both trees
+    hold, so a copy of this script times another tree."""
+    from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    fit = lambda fn: fit_seconds(fn, EXPERIMENT_FIT, torch.device("cuda")) * 1e3  # noqa: E731
+    table = []
+    for name, (b, s, hq, hkv, d), causal in ux.I8_CASES:
+        torch.cuda.empty_cache()
+        q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        q8, k8, sc = ux.quant_qk(q, k)
+        bq = min(512, s)
+        call = lambda: ux._tri_i8_payloads(q8, k8, sc, v, bq, bq, causal)  # noqa: E731
+        k1 = lambda: flash_ops.flash_attention_qk_quant(  # noqa: E731
+            q8, k8, v, sc, causal=causal, out_dtype=v.dtype)
+        err = rel_err_norm(call(), k1())
+        ms, k1_ms = fit(call), fit(k1)
+        bnd = quant_bound(q, k, causal, torch.int8, torch.bfloat16, 4)
+        row = dict(kernel="K18 int8-QK", case=name, shape=[b, s, hq, hkv, d], causal=causal,
+                   fit_ms=ms, k1_int8qk_fit_ms=k1_ms, rel_err_k1=err, **bnd)
+        line = (f"exp table: K18 int8-QK bq={bq} {name} (B{b} S{s} H{hq}/{hkv} D{d} "
+                f"causal={causal}), the kernel alone: {ms:.4f} ms (graph fit); K1 int8-QK kernel "
+                f"alone {k1_ms:.4f} ms; kernel / K1 int8-QK {ms / k1_ms:.3f}; bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), kernel at "
+                f"{100 * bnd['bound_ms'] / ms:.2f} %, K1 int8-QK at "
+                f"{100 * bnd['bound_ms'] / k1_ms:.2f} % of it; vs K1 int8-QK rel_err_norm "
+                f"{err:.3e} ({smi})")
+        print(line, flush=True)
+        if not err <= EXPERIMENT_BOUND:
+            raise AssertionError(line)
+        table.append(row)
+    return table
+
+
+def time_probe_table(smi: str) -> None:
+    """The probe table: K12 in both modes at iters 512 over 512-column rows,
+    one wave of this tree's occupancy and a fixed PROBE_TABLE_ROWS (so that
+    two trees of different occupancy compare at one size), by graph_ms, in
+    ms and elements/s beside its bound (``softmax_bound``); K12's SASS
+    instructions a value besides MUFU.EX2 (``k12_sass_counts``); then the
+    rates of the measure functions (read, exp, the stream's linear fit) and
+    K1's share of the composite ceiling they build at its headline shape,
+    K1 by the graph fit (2, 10). Calls both trees hold, so a copy of this
+    script times another tree."""
+    from photonic_flash_attention_tpu_torch.hardware import roofline as rl
+    from photonic_flash_attention_tpu_torch.ops import device_probes as dp
+    from photonic_flash_attention_tpu_torch.ops import hbm_bw
+
+    peak = card_rates()
+    for m in (True, False):
+        mode = "masked" if m else "unmasked"
+        wave = dp.wave_rows("softmax", 512, m)
+        for rows, what in ((wave, "one wave"), (PROBE_TABLE_ROWS, "fixed rows")):
+            x = dp.probe_input(rows, 512, "cuda")
+            ms = graph_ms(lambda: dp.softmax_block_probe(x, SOFTMAX_ITERS, m))
+            bound = softmax_bound(rows, 512, SOFTMAX_ITERS, m, peak)
+            elems = rows * 512 * SOFTMAX_ITERS
+            print(f"probe table: K12 {mode} [{rows}, 512] ({what}) iters {SOFTMAX_ITERS}: "
+                  f"{ms:.4f} ms, {elems / ms / 1e6:.1f} Gelem/s; bound {bound['bound_ms']:.4f} ms, "
+                  f"kernel at {100 * bound['bound_ms'] / ms:.2f} % of it ({smi})", flush=True)
+            del x
+    for (cols, masked), (per_value, updates) in sorted(k12_sass_counts(_build.library_path()).items()):
+        print(f"probe table: K12 SASS {cols} columns {'masked' if masked else 'unmasked'}: "
+              f"{per_value:.2f} instructions a value besides MUFU.EX2 ({updates:g} update(s) in "
+              f"the loop body)", flush=True)
+    rates = {"hbm_read_Bps": hbm_bw.hbm_read_bytes_per_s(),
+             "vpu_exp_elems_per_s": dp.measure_exp_rate()}
+    linear = dp.measure_softmax_linear(fit=(20, 120))
+    rates.update(vpu_softmax_elems_per_s=linear["asymptotic_elems_per_s"],
+                 vpu_softmax_fixed_s_per_tile=linear["fixed_s_per_tile"])
+    b, s, h, d = K1_HEADLINE
+    q, k, v = (torch.randn(b, s, h, d, device="cuda").to(torch.bfloat16) for _ in range(3))
+    k1_ms = fit_seconds(lambda: flash_ops.flash_attention(q, k, v, causal=True), K1_TABLE_FIT,
+                        torch.device("cuda")) * 1e3
+    ceiling = rl.attention_composite_ceiling(b, s, s, h, d, causal=True, rates=rates)
+    print(f"probe table: K1 B{b} S{s} H{h} D{d} causal bf16 {k1_ms:.4f} ms (graph fit) = "
+          f"{100 * rl.composite_fraction(k1_ms * 1e3, ceiling):.2f} % of the composite ceiling "
+          f"{ceiling}; rates {rates} ({smi})", flush=True)
 
 
 def time_unrolled_rows(smi: str) -> list:
@@ -5172,8 +5356,8 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
         if whole_key:
             results[name]["whole_call_ms"] = row[whole_key]
     for name in ("pfa_flash_pipelined_fp32", "pfa_flash_chunked_fp32", "pfa_flash_tri_fp32",
-                 "pfa_flash_fulltri_fp32", "pfa_flash_bwd_dq_rowblock_fp32",
-                 "pfa_flash_bwd_dkv_colblock_fp32"):
+                 "pfa_flash_tri_i8_fp32", "pfa_flash_fulltri_fp32",
+                 "pfa_flash_bwd_dq_rowblock_fp32", "pfa_flash_bwd_dkv_colblock_fp32"):
         results[name] = checked[name]  # timed in check_experiments
     results["pfa_flash_pair"]["cases"] = [
         {"nchain": row["nchain"], "ms": row["pair_ms"], "k1_ms": row["k1_ms"]}
@@ -5201,8 +5385,14 @@ def main() -> None:
                         help="only build and print the exp table's K20, K21 and unrolled "
                              "backward rows (with K20's levers) and the copy table of K10 (with "
                              "its rings); public calls otherwise, as --exp-table; no result line")
+    parser.add_argument("--probe-table", action="store_true",
+                        help="only build and print the probe table: K12 in both modes with its "
+                             "SASS count a value, and K1's share of the composite ceiling from "
+                             "the measured rates (calls any tree holds, as --exp-table); no "
+                             "result line")
     parser.add_argument("--sass-diff", metavar="LIB",
-                        help="only build and compare the SASS of K1's, K4/K5's, K20/K21's and "
+                        help="only build and compare the SASS of K1's, K4/K5's, K20/K21's, the "
+                             "quantized body's (K1's 8-bit modes, K6, K18 int8) and "
                              "K13-K19's Hopper instantiations and of the probes K9-K12, "
                              "normalised, with another build of the library (LIB, e.g. the "
                              "parent commit's); no result line")
@@ -5226,6 +5416,10 @@ def main() -> None:
         phase_build(sass=False)
         time_unrolled_rows(smi)
         time_k10_rows(smi)
+        return
+    if args.probe_table:
+        phase_build(sass=False)
+        time_probe_table(smi)
         return
     if args.sass_diff:
         phase_build(sass=False)

@@ -10,7 +10,9 @@
 //   bf16 on the Hopper body of flash_experiments_sm90.cu;
 // * K18 pfa_flash_tri: _kernel_tri and _kernel_tri_i8 (one launch per q
 //   row-block; its int8 mode runs Q.K in s8), fp32 inputs and the int8
-//   mode here, bf16 inputs on flash_experiments_sm90.cu;
+//   mode with an fp32 V here; bf16 inputs on flash_experiments_sm90.cu,
+//   the int8 mode with a bf16 V on the quantized body of
+//   flash_quant_sm90.cu (flash_quant_sm90<D, INT8QK, true>);
 // * K19 pfa_flash_fulltri: _kernel_fulltri (one CTA walks a head's whole
 //   causal triangle, the next row's first tiles fetched during the last
 //   tile of the current one), fp32 inputs here, bf16 on
@@ -432,16 +434,17 @@ flash_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // masked and add nothing), else to S, K/V double-buffered by cp.async with
 // one barrier a tile, the mask only on a warp's diagonal tile and the
 // ragged end.
-// The int8 mode (I8): q and k are int8 payloads (rows of D + 16 bytes in
-// shared memory, conflict-free fragment loads), Q.K runs on mma.sync
-// m16n8k32 s8 x s8 -> s32 as K1's int8-QK mode, and the raw integer scores
-// are scaled by the (1,) fp32 device scalar score_scale (qs * ks *
-// sm_scale, read here, never on the host) folded with log2 e; V bf16 (fp32
-// converted on load), P rounded to bf16 for P.V, the output in V's type.
-// Bound as K1, and the int8 mode's Q.K at twice the bf16 tensor rate still
-// leaves the softmax stream the limit at D 64; a tile's per-score work is
-// the control's, and what the launch structure adds is load balance: each
-// launch ends with its longest CTA, the one at the row-block's diagonal.
+// The int8 mode (I8) with an fp32 V (a bf16 V runs on the Hopper quantized
+// body of flash_quant_sm90.cu): q and k are int8 payloads (rows of D + 16
+// bytes in shared memory, conflict-free fragment loads), Q.K runs on
+// mma.sync m16n8k32 s8 x s8 -> s32, and the raw integer scores are scaled
+// by the (1,) fp32 device scalar score_scale (qs * ks * sm_scale, read
+// here, never on the host) folded with log2 e; V converted to bf16 on
+// load, P rounded to bf16 for P.V, the output fp32. Bound as K1, and the
+// int8 mode's Q.K at twice the bf16 tensor rate still leaves the softmax
+// stream the limit at D 64; a tile's per-score work is the control's, and
+// what the launch structure adds is load balance: each launch ends with
+// its longest CTA, the one at the row-block's diagonal.
 
 // rows x D int8 from global (row stride `stride` bytes) into shared memory
 // with byte pitch LDB by cp.async; rows at or past `valid` are zero-filled.
@@ -698,16 +701,12 @@ cudaError_t run_tri(const void* q, const void* k, const void* v, void* o, const 
                   static_cast<T*>(o), sc, S, Hq, Hkv, q_row0, rows, scale, causal);
 }
 
-// The int8 mode in V's dtype; the plain mode in fp32 only: bf16 runs on
-// flash_experiments_sm90.cu.
+// fp32 only: the plain mode's bf16 inputs run on flash_experiments_sm90.cu,
+// the int8 mode's bf16 V on flash_quant_sm90.cu.
 template <int D, bool I8>
 cudaError_t tri_dtype(int dtype, const void* q, const void* k, const void* v, void* o,
                       const float* sc, int B, int S, int Hq, int Hkv, int q_row0, int rows,
                       float scale, int causal, cudaStream_t st) {
-  if constexpr (I8)
-    if (dtype == PFA_BF16)
-      return run_tri<D, __nv_bfloat16, true>(q, k, v, o, sc, B, S, Hq, Hkv, q_row0, rows, scale,
-                                             causal, st);
   if (dtype == PFA_F32)
     return run_tri<D, float, I8>(q, k, v, o, sc, B, S, Hq, Hkv, q_row0, rows, scale, causal, st);
   return cudaErrorInvalidValue;
@@ -758,12 +757,12 @@ extern "C" int pfa_flash_chunked(const void* q, const void* k, const void* v, vo
   return cudaErrorInvalidValue;
 }
 
-// K18 in fp32 and its int8 mode (bf16: pfa_flash_tri_sm90). Query rows
-// [q_row0, q_row0 + rows) of q (B, S, Hq, D) against k/v (B, S, Hkv, D),
-// causal (col <= row) or not, written into o (B, S, Hq, D) in place; D in
-// {64, 128}, Hq % Hkv == 0. q, k, v and o fp32 (dtype), or with qk_int8 q
-// and k int8 payloads, score_scale a (1,) fp32 device scalar, v and o bf16
-// or fp32.
+// K18 in fp32 and its int8 mode with an fp32 V (bf16: pfa_flash_tri_sm90;
+// the int8 mode's bf16 V: pfa_flash_tri_i8_sm90). Query rows [q_row0,
+// q_row0 + rows) of q (B, S, Hq, D) against k/v (B, S, Hkv, D), causal
+// (col <= row) or not, written into o (B, S, Hq, D) in place; D in {64,
+// 128}, Hq % Hkv == 0. q, k, v and o fp32 (dtype), or with qk_int8 q and k
+// int8 payloads, score_scale a (1,) fp32 device scalar, v and o fp32.
 extern "C" int pfa_flash_tri(const void* q, const void* k, const void* v, void* o,
                              const void* score_scale, int B, int S, int Hq, int Hkv, int D,
                              int q_row0, int rows, float sm_scale, int causal, int qk_int8,

@@ -12,10 +12,11 @@
 // first mma.sync bodies (one 64-row block of 4 warps, one 128-key tile
 // loaded synchronously), whose times PERF.md keeps.
 //
-// Contract (both entry points below): q (B, Sq, Hq, D), k/v (B, Skv, Hkv,
-// D), contiguous, 16-byte-aligned bases, Hq % Hkv == 0 (GQA: q head h reads
-// kv head h / (Hq / Hkv)), D 64 or 128, causal aligned to the sequence end
-// (row i sees keys j <= i + Skv - Sq), output (B, Sq, Hq, D) bf16 or fp32.
+// Contract (K1's and K6's entry points below; K18 int8's is at its entry):
+// q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), contiguous, 16-byte-aligned
+// bases, Hq % Hkv == 0 (GQA: q head h reads kv head h / (Hq / Hkv)), D 64
+// or 128, causal aligned to the sequence end (row i sees keys j <= i + Skv
+// - Sq), output (B, Sq, Hq, D) bf16 or fp32.
 // * Q.K^T: int8 (s32 sums, exact) or e4m3 (f32 sums) payloads. K1's modes
 //   scale the raw score by one fp32 device scalar (`score_scale` = qs * ks
 //   * sm_scale, read on the device only, so a call stays graph-capturable);
@@ -100,6 +101,29 @@
 //    sums in fp32), and only its P.V on .e4m3 (the same model moves the
 //    output 1e-4 there). fp8-QK keeps its .e4m3 Q.K^T: its bf16 P does not
 //    amplify the score errors (within 2e-3 of its plain version at fp32).
+//
+// K18's int8-QK mode (one launch per q row-block: benchmarks/
+// flash_pipeline_experiment.py::_kernel_tri_i8 :548) with a bf16 V is the
+// int8-QK body, flash_quant_sm90<D, INT8QK, true> (ROWBLOCK): a launch
+// takes the query rows [row0, row_end) of every (b, h) of a square S
+// (Params::row0, row_end), its work tiles the range's 128-row blocks x Hq x
+// B on the persistent grid, the last (longest, causal) first, each walking
+// the 128-key tiles up to its diagonal (col <= row: the end-aligned
+// diagonal of Sq = Skv) or, not causal, all of S. row0 may be any row:
+// Q's TMA box starts there, and the rows of the last work tile past the
+// range end are computed and not stored (rows past S are TMA's zero fill);
+// the launch that owns them writes them. The launches of one call read
+// the same inputs and write disjoint rows, so each after the first is a
+// programmatic dependent launch (`chained`, as K20's on K5's body): a CTA
+// lets the next launch start at once (griddepcontrol.launch_dependents)
+// and its producer warp 0 waits, once it has issued its last load, for the
+// launch ahead to complete (griddepcontrol.wait; a wait in the consumers'
+// code made K21's spill), so no launch completes before the one ahead of
+// it. A call's first launch is a plain one, ordered after the quantization
+// passes before it. Only these two instantiations hold the range and the
+// griddepcontrol instructions (if constexpr), so K1's and K6's ten keep
+// their code. K18's int8 mode with an fp32 V stays on the mma.sync body of
+// flash_experiments.cu.
 
 #include <cuda_fp8.h>
 #include <limits.h>
@@ -173,6 +197,7 @@ struct Params {
   int n_work;                      // work tiles: query blocks x Hq x B
   float sm_scale;                  // K6
   int causal, out_f32;
+  int row0, row_end;               // ROWBLOCK (K18 int8): the launch's query rows
 };
 
 // Shared-memory descriptor of a K-major 8-bit operand with rows of D bytes.
@@ -287,15 +312,18 @@ struct Work {
 };
 
 // Work tile t: heads fastest, then batch rows, then query blocks, the
-// longest (last) causal block first.
+// longest (last) causal block first. ROWBLOCK (K18 int8): the query blocks
+// of the rows from row0.
+template <bool ROWBLOCK>
 __device__ __forceinline__ Work work_tile(const Params& p, int t) {
   Work w;
-  const int nqb = (p.Sq + BQ - 1) / BQ;
+  const int nqb = ROWBLOCK ? (p.row_end - p.row0 + BQ - 1) / BQ : (p.Sq + BQ - 1) / BQ;
   w.h = t % p.Hq;
   const int r = t / p.Hq;
   w.b = r % p.B;
   const int i = r / p.B;
   w.q0 = (p.causal ? nqb - 1 - i : i) * BQ;
+  if constexpr (ROWBLOCK) w.q0 += p.row0;
   const int kv_end = p.causal ? min(p.Skv, w.q0 + BQ + p.Skv - p.Sq) : p.Skv;
   w.n_tiles = (kv_end + BKV - 1) / BKV;
   return w;
@@ -343,8 +371,9 @@ __device__ __forceinline__ void tile_scores(float (&sc)[64], const A (&acc)[64],
 }
 
 // Persistent: gridDim.x CTAs (one a SM) walk the work tiles in snake order;
-// the ring's phases run on across work tiles.
-template <int D, int MODE>
+// the ring's phases run on across work tiles. ROWBLOCK: K18 int8's
+// instantiation (the query range, the chained launches).
+template <int D, int MODE, bool ROWBLOCK = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_quant_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const Params p) {
@@ -363,6 +392,7 @@ flash_quant_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const uint32_t bar_k16empty = bar_vtempty + 16, bar_q16full = bar_k16empty + 16;
   const uint32_t bar_q16empty = bar_q16full + 8;
   const int n_work = p.n_work, off = p.Skv - p.Sq;
+  if constexpr (ROWBLOCK) pdl_launch_dependents();
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -396,7 +426,7 @@ flash_quant_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
         const int t = nth_tile(n);
         if (t >= n_work) continue;
-        const Work w = work_tile(p, t);
+        const Work w = work_tile<ROWBLOCK>(p, t);
         const int hk = w.h / (p.Hq / p.Hkv);
         const uint32_t qf = bar_qfull + 8 * (n & 1);
         mbar_wait(bar_qempty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
@@ -431,6 +461,8 @@ flash_quant_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           }
         }
       }
+      // K18 int8: the CTA does not exit before the launch ahead of it has.
+      if constexpr (ROWBLOCK) pdl_wait();
     } else if constexpr (PV8) {
       // --- producer warps 1-3: V to V^T for the 8-bit P.V (hazards 1, 2);
       // QK16: Q and K widened to f16 (hazard 6) ---------------------------
@@ -438,7 +470,7 @@ flash_quant_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
         const int t = nth_tile(n);
         if (t >= n_work) continue;
-        const int n_tiles = work_tile(p, t).n_tiles;
+        const int n_tiles = work_tile<ROWBLOCK>(p, t).n_tiles;
         if constexpr (C::QK16) {
           mbar_wait(bar_qfull + 8 * (n & 1), (n >> 1) & 1);
           mbar_wait(bar_q16empty, (n & 1) ^ 1);
@@ -497,7 +529,7 @@ flash_quant_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     for (int n = 0; n * (int)gridDim.x < n_work; ++n) {
       const int t = nth_tile(n);
       if (t >= n_work) continue;
-      const Work w = work_tile(p, t);
+      const Work w = work_tile<ROWBLOCK>(p, t);
       const int q0 = w.q0, n_tiles = w.n_tiles, hk = w.h / (p.Hq / p.Hkv);
       const int wrow = q0 + wg * 64;          // the warpgroup's first row
       const int row0 = wrow + warp * 16 + g;  // this thread's rows: row0, row0 + 8
@@ -730,12 +762,14 @@ flash_quant_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       // The 8-bit P.V's per-column scale: int8-full vs, K6 vs / qmax.
       const float* vs_row = PV8 ? p.vs + ((long long)w.b * p.Hkv + hk) * D : nullptr;
       constexpr float QMAX = MODE == K6_FP8 ? 448.f : MODE == K6_INT8 ? 127.f : 1.f;
+      int row_end = p.Sq;  // K18 int8: rows past the range are another launch's
+      if constexpr (ROWBLOCK) row_end = p.row_end;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         const int row = row0 + 8 * i;
-        if (row >= p.Sq) continue;
+        if (row >= row_end) continue;
         const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
         const long long orow = (((long long)w.b * p.Sq + row) * p.Hq + w.h) * D;
 #pragma unroll
@@ -767,20 +801,26 @@ struct QuantCall {
   int causal, out_f32;
 };
 
+// The tensor maps of Q, K (8-bit, hazard 3's swizzle) and V (8-bit, or
+// bf16 in 64-column boxes).
 template <int D, int MODE>
-cudaError_t launch(const QuantCall& a, cudaStream_t stream) {
-  using C = Cfg<D, MODE>;
+bool encode_maps(const QuantCall& a, CUtensorMap& tq, CUtensorMap& tk, CUtensorMap& tv) {
   const uint64_t B = a.B, Sq = a.Sq, Skv = a.Skv;
   const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const auto sw = D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;  // hazard 3
-  CUtensorMap tq, tk, tv;
-  const bool ok =
-      encode_4d(&tq, u8, 1, a.q, {(uint64_t)D, (uint64_t)a.Hq, Sq, B}, {D, 1, BQ, 1}, sw) &&
-      encode_4d(&tk, u8, 1, a.k, {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {D, 1, BKV, 1}, sw) &&
-      (C::PV8 ? encode_4d(&tv, u8, 1, a.v, {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {D, 1, BKV, 1}, sw)
+  return encode_4d(&tq, u8, 1, a.q, {(uint64_t)D, (uint64_t)a.Hq, Sq, B}, {D, 1, BQ, 1}, sw) &&
+         encode_4d(&tk, u8, 1, a.k, {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {D, 1, BKV, 1}, sw) &&
+         (pv_8bit(MODE)
+              ? encode_4d(&tv, u8, 1, a.v, {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {D, 1, BKV, 1}, sw)
               : encode_4d(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.v,
                           {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {64, 1, BKV, 1}));
-  if (!ok) return cudaErrorInvalidValue;
+}
+
+template <int D, int MODE>
+cudaError_t launch(const QuantCall& a, cudaStream_t stream) {
+  using C = Cfg<D, MODE>;
+  CUtensorMap tq, tk, tv;
+  if (!encode_maps<D, MODE>(a, tq, tk, tv)) return cudaErrorInvalidValue;
   const long long work = (long long)((a.Sq + BQ - 1) / BQ) * a.Hq * a.B;
   if (work > INT_MAX) return cudaErrorInvalidValue;
   const int n_work = static_cast<int>(work);
@@ -794,6 +834,29 @@ cudaError_t launch(const QuantCall& a, cudaStream_t stream) {
   const int grid = PERSISTENT ? (n_work < sms ? n_work : sms) : n_work;
   kernel<<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
+}
+
+// K18 int8: one launch over query rows [row0, row0 + rows) of the square
+// S (a.Sq == a.Skv) on the plan's ring stages, shared memory and grid (1
+// to the range's work tiles), which must be this file's; `chained`: a
+// programmatic dependent launch. bf16 V and output.
+template <int D>
+cudaError_t launch_rowblock(const QuantCall& a, int row0, int rows, bool chained, int stages,
+                            int smem, int grid, cudaStream_t stream) {
+  using C = Cfg<D, INT8QK>;
+  if (stages != C::STAGES || smem != C::SMEM) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!encode_maps<D, INT8QK>(a, tq, tk, tv)) return cudaErrorInvalidValue;
+  const long long work = (long long)((rows + BQ - 1) / BQ) * a.Hq * a.B;
+  if (work > INT_MAX || grid < 1 || grid > work) return cudaErrorInvalidValue;
+  Params p{a.o, a.score_scale, nullptr, nullptr, nullptr, a.B, a.Sq, a.Skv, a.Hq, a.Hkv,
+           static_cast<int>(work), 0.f, a.causal, 0};
+  p.row0 = row0;
+  p.row_end = row0 + rows;
+  const auto kernel = flash_quant_sm90<D, INT8QK, true>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return launch_chained(kernel, chained, grid, THREADS, smem, stream, tq, tk, tv, p);
 }
 
 template <int MODE>
@@ -814,7 +877,7 @@ cudaError_t run(const QuantCall& a, int mode, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-// The checks both entry points share: sizes, GQA, the head dims, the output
+// The checks the entry points share: sizes, GQA, the head dims, the output
 // dtypes and TMA's 16-byte-aligned bases.
 bool valid(const void* q, const void* k, const void* v, int B, int Sq, int Skv, int Hq, int Hkv,
            int D, int out_dtype) {
@@ -823,10 +886,10 @@ bool valid(const void* q, const void* k, const void* v, int B, int Sq, int Skv, 
          aligned16(v);
 }
 
-template <int D, int MODE>
+template <int D, int MODE, bool ROWBLOCK = false>
 cudaError_t info(int* out) {
   using C = Cfg<D, MODE>;
-  auto kernel = flash_quant_sm90<D, MODE>;
+  auto kernel = flash_quant_sm90<D, MODE, ROWBLOCK>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return e;
   out[0] = BKV, out[1] = C::SMEM, out[2] = THREADS, out[4] = C::STAGES;
@@ -891,5 +954,36 @@ extern "C" int pfa_quant_sm90_info(int D, int mode, int* out) {
     case K6_INT8: return info_mode<K6_INT8>(D, out);
     case K6_FP8: return info_mode<K6_FP8>(D, out);
   }
+  return cudaErrorInvalidValue;
+}
+
+// K18's int8-QK mode with a bf16 V: one launch over query rows [q_row0,
+// q_row0 + rows) of every (b, h). q (B, S, Hq, D) and k (B, S, Hkv, D)
+// int8 payloads, v (B, S, Hkv, D) bf16, contiguous, 16-byte-aligned bases,
+// Hq % Hkv == 0, D 64 or 128; score_scale a (1,) fp32 device scalar (qs *
+// ks * sm_scale); o (B, S, Hq, D) bf16, the range's rows written in place;
+// causal (col <= row) or not; 0 <= q_row0 < q_row0 + rows <= S; stages,
+// smem and grid from experiments/flash_pipeline_experiment.py::k18_i8_plan.
+// `chained` (every launch of a call after its first): a programmatic
+// dependent launch on the one ahead of it in the stream.
+extern "C" int pfa_flash_tri_i8_sm90(const void* q, const void* k, const void* v, void* o,
+                                     const void* score_scale, int B, int S, int Hq, int Hkv, int D,
+                                     int q_row0, int rows, int causal, int chained, int stages,
+                                     int smem, int grid, void* stream) {
+  if (!valid(q, k, v, B, S, S, Hq, Hkv, D, PFA_BF16) || score_scale == nullptr || q_row0 < 0 ||
+      rows <= 0 || (long long)q_row0 + rows > S)
+    return cudaErrorInvalidValue;
+  const QuantCall a{q, k, v, o, static_cast<const float*>(score_scale), nullptr, nullptr, nullptr,
+                    B, S, S, Hq, Hkv, D, 0.f, causal, 0};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_rowblock<64>(a, q_row0, rows, chained != 0, stages, smem, grid, st);
+  return launch_rowblock<128>(a, q_row0, rows, chained != 0, stages, smem, grid, st);
+}
+
+// out[8], as pfa_quant_sm90_info's, of K18 int8's instantiation at head dim
+// D; no launch.
+extern "C" int pfa_flash_tri_i8_sm90_info(int D, int* out) {
+  if (D == 64) return info<64, INT8QK, true>(out);
+  if (D == 128) return info<128, INT8QK, true>(out);
   return cudaErrorInvalidValue;
 }

@@ -72,6 +72,14 @@ def check_card(q: torch.Tensor, dtypes: Tuple[torch.dtype, ...], head_dims: Tupl
             raise ValueError(f"{kernel} needs contiguous inputs")
 
 
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """TMA reads 16-byte-aligned bases: the Hopper bodies refuse others."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte-aligned inputs on its Hopper body; one "
+                             f"starts at {t.data_ptr():#x}")
+
+
 def on_device(q: torch.Tensor, cuda: Callable[[], torch.Tensor],
               cpu: Callable[[], torch.Tensor]) -> torch.Tensor:
     """``cuda()`` for CUDA tensors, ``cpu()`` for CPU tensors."""

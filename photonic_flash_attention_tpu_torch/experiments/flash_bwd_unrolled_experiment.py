@@ -305,14 +305,6 @@ def _check_card(q, k, v, do, lse, di, block_q: int, block_kv: int) -> None:
                              f"card (a CTA's rows), got {name} {blk}")
 
 
-def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """TMA reads 16-byte-aligned bases: the bf16 bodies refuse others."""
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} needs 16-byte-aligned bf16 inputs; one starts at "
-                             f"{t.data_ptr():#x}")
-
-
 def _k20_launches(q, k, v, do, lse, di, dq, *, sm_scale: float, causal: bool, block_q: int,
                   descending: bool, chained: bool) -> None:
     """K20 in bf16 into ``dq``: one launch a row-block on K5's body
@@ -320,7 +312,7 @@ def _k20_launches(q, k, v, do, lse, di, dq, *, sm_scale: float, causal: bool, bl
     launch after the first a programmatic dependent launch where
     ``chained``. The order and the chaining are the levers the card's
     timing sets; :func:`dq_rowblocks` runs the shipped ones."""
-    _check_aligned("K20", q, k, v, do)
+    C.check_aligned("K20", q, k, v, do)
     b, h, s, d = q.shape
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     starts = range(0, s, block_q)
@@ -389,7 +381,7 @@ def dkv_colblocks(q, k, v, do, lse, di, *, sm_scale: float, causal: bool, block_
                               _build.DTYPE_CODES[q.dtype],
                               count_as="pfa_flash_bwd_dkv_colblock_fp32")
             return dk, dv
-        _check_aligned("K21", q, k, v, do)
+        C.check_aligned("K21", q, k, v, do)
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         for ki in range(s // block_kv):
             plan = k21_plan(b, s, h, d, ki * block_kv, block_kv, sms)

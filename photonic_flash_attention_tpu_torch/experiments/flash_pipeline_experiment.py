@@ -48,8 +48,14 @@ photonic_flash_attention_tpu_torch.experiments.flash_pipeline_experiment
   JAX's ``_quant_pt`` bit for bit), Q.K int8 x int8 -> int32 scaled in
   fp32 by the (1,) device scalar qs * ks * scale, P.V in bf16, output in
   V's dtype; causal or not (every row-block the full extent). K18's int8
-  mode (counted as ``pfa_flash_tri_i8``): s8 ``mma.sync`` m16n8k32 as in
-  K1's int8-QK mode, the scale read on the device.
+  mode with a bf16 V (counted as ``pfa_flash_tri_i8``) is K1's Hopper
+  int8-QK body (``csrc/flash_quant_sm90.cu``, ``flash_quant_sm90<D,
+  INT8QK, true>``: TMA, s8 ``wgmma`` Q.K^T, bf16 ``wgmma`` P.V, the scale
+  read on the device) over the row-block's 128-row work tiles on the
+  persistent grid (:func:`k18_i8_plan`), rows past the row-block computed
+  and not stored, every launch after a call's first chained as K18's bf16
+  ones; an fp32 V stays on the s8 ``mma.sync`` body (64-row CTAs, counted
+  as ``pfa_flash_tri_i8_fp32``).
 * :func:`flash_segmented` (JAX's ``flash_segmented``, no kernel of its
   own): per q row-block, interior non-causal segments of at most
   ``seg_tiles`` tiles and one causal diagonal segment, each a call of
@@ -101,10 +107,11 @@ from ..ops.flash_unrolled import flash_attention_unrolled
 from ..ops.reference import softmax_scale
 from . import _common as C
 
-__all__ = ["ExpPlan", "flash_chunked", "flash_chunked_plain", "flash_fulltri",
+__all__ = ["ExpPlan", "I8Plan", "flash_chunked", "flash_chunked_plain", "flash_fulltri",
            "flash_fulltri_plain", "flash_segmented", "flash_tri_i8", "flash_tri_i8_plain",
            "flash_triangular", "flash_triangular_plain", "flash_unrolled", "flash_unrolled_plain",
-           "k13_plan", "k14_plan", "k15_plan", "k16_plan", "k17_plan", "k18_plan", "k19_plan",
+           "k13_plan", "k14_plan", "k15_plan", "k16_plan", "k17_plan", "k18_i8_plan", "k18_plan",
+           "k19_plan",
            "lse_merge", "main", "main_chunked", "main_fulltri", "main_i8", "main_seg", "main_tri"]
 
 #: JAX's parity case and gate (max abs against ``flash_attention``).
@@ -319,6 +326,55 @@ def k18_plan(b: int, s: int, hq: int, hkv: int, d: int, q_row0: int, rows: int,
                       q_row0 + rows)
 
 
+class I8Plan(NamedTuple):
+    """One launch of K18's int8 mode (bf16 V) on K1's Hopper int8-QK body
+    (``csrc/flash_quant_sm90.cu``, ``flash_quant_sm90<D, INT8QK, true>``),
+    from the shapes alone: its work tiles (the 128-row blocks of its range
+    x Hq x B), the persistent grid (min(work tiles, SMs)), and the ring's
+    stages and dynamic shared memory (``Cfg<D, INT8QK>``), which the C
+    launcher checks against its own. The kernel's work tile t runs the
+    range's 128-row q-block t // (Hq B), counted from the last when causal,
+    over the 128-key tiles up to the q-block's last row (all of S when not
+    causal), its rows past the range end computed and not stored."""
+    work: int
+    grid: int
+    stages: int
+    smem: int
+
+
+#: Query rows of K18 int8's work tile and keys of its ring stage (the
+#: quantized body's BQ and BKV).
+I8_ROWS = 128
+
+
+def _k18_i8_ring(d: int) -> Tuple[int, int]:
+    """K18 int8's ring at head dim ``d`` (``Cfg<D, INT8QK>``): int8 Q of a
+    work tile double-buffered, stages of int8 K and bf16 V, as many (4 to
+    2) as fit beside the mbarriers and the alignment slack; (stages,
+    dynamic shared memory)."""
+    q, stage = I8_ROWS * d, I8_ROWS * d * 3
+    fixed = 2 * q + 8 * 12 + 1024
+    stages = next(n for n in (4, 3, 2) if n == 2 or fixed + n * (stage + 16) <= SMEM_MAX)
+    return stages, 2 * q + stages * stage + 8 * (2 * stages + 12) + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def k18_i8_plan(b: int, s: int, hq: int, hkv: int, d: int, q_row0: int, rows: int,
+                sms: int = 132) -> I8Plan:
+    """One launch of K18's int8 mode with a bf16 V: query rows
+    [``q_row0``, ``q_row0 + rows``) (any first row) of every (b, h), on K1's
+    Hopper int8-QK body."""
+    if d not in CARD_HEAD_DIMS:
+        raise ValueError(f"K18 int8 takes head_dim in {CARD_HEAD_DIMS} on the card, got {d}")
+    if b < 1 or s < 1 or hkv < 1 or hq % hkv:
+        raise ValueError(f"bad shape: B {b}, S {s}, Hq {hq}, Hkv {hkv}")
+    if not 0 <= q_row0 < s or rows < 1 or q_row0 + rows > s:
+        raise ValueError(f"K18 int8: the rows must lie in [0, S {s}), got {rows} rows from "
+                         f"{q_row0}")
+    work = -(-rows // I8_ROWS) * hq * b
+    return I8Plan(work, min(work, sms), *_k18_i8_ring(d))
+
+
 @functools.lru_cache(maxsize=None)
 def k17_plan(b: int, s: int, hq: int, hkv: int, d: int, unroll: int, *, causal: bool = True,
              sms: int = 132) -> ExpPlan:
@@ -394,10 +450,7 @@ def _check_sm90(name: str, scale: float, *tensors: torch.Tensor) -> None:
     bases (TMA) and sm_scale > 0 (the scale folded into the exponent)."""
     if not scale > 0.0:
         raise ValueError(f"{name}'s bf16 body takes sm_scale > 0, got {scale}")
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} needs 16-byte-aligned bf16 inputs; one starts at "
-                             f"{t.data_ptr():#x}")
+    C.check_aligned(name, *tensors)
 
 
 def _sms(device: torch.device) -> int:
@@ -528,12 +581,15 @@ def _tri_cuda(q, k, v, block_q: int, causal: bool, scale: float,
               score_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One K18 launch per row-block of ``block_q`` rows, each writing its
     rows of one output in place (a work tile stops at its own diagonal when
-    causal: JAX's static extent adds only wholly masked tiles). bf16 on the
-    Hopper body by :func:`k18_plan` (causal), every launch after the first
-    a programmatic dependent launch, counted as ``pfa_flash_tri``; fp32 on
-    the mma.sync body, counted as ``pfa_flash_tri_fp32``; with
-    ``score_scale`` q and k are int8 payloads (the int8 mode on the
-    mma.sync body, output in V's dtype, counted as ``pfa_flash_tri_i8``)."""
+    causal: JAX's static extent adds only wholly masked tiles), every launch
+    of a Hopper body after the call's first a programmatic dependent launch.
+    bf16 on the experiments' Hopper body by :func:`k18_plan` (causal),
+    counted as ``pfa_flash_tri``; fp32 on the mma.sync body, counted as
+    ``pfa_flash_tri_fp32``. With ``score_scale`` q and k are int8 payloads
+    and the output is in V's dtype: a bf16 V on K1's Hopper int8-QK body by
+    :func:`k18_i8_plan`, counted as ``pfa_flash_tri_i8``; an fp32 V on the
+    s8 mma.sync body, counted as ``pfa_flash_tri_i8_fp32``. A Hopper body's
+    unaligned base raises ``ValueError`` before any launch."""
     int8 = score_scale is not None
     name = "K18 pfa_flash_tri" + ("_i8" if int8 else "")
     C.check_card(v, CARD_DTYPES, CARD_HEAD_DIMS, name, q, k)
@@ -541,13 +597,22 @@ def _tri_cuda(q, k, v, block_q: int, causal: bool, scale: float,
     hkv = k.shape[2]
     o = torch.empty(q.shape, dtype=v.dtype, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if int8 and v.dtype == torch.bfloat16:
+        C.check_aligned(name, q, k, v)
+        sms = _sms(q.device)
+        for i in range(s // block_q):
+            plan = k18_i8_plan(b, s, hq, hkv, d, i * block_q, block_q, sms)
+            _build.launch("pfa_flash_tri_i8_sm90", q.device, *ptrs, score_scale.data_ptr(), b, s,
+                          hq, hkv, d, i * block_q, block_q, int(causal), int(i > 0), plan.stages,
+                          plan.smem, plan.grid, count_as="pfa_flash_tri_i8")
+        return o
     if int8 or q.dtype != torch.bfloat16:
         sc = score_scale.data_ptr() if int8 else None
         for i in range(s // block_q):
             _build.launch("pfa_flash_tri", q.device, *ptrs, sc, b, s, hq, hkv, d, i * block_q,
                           block_q, float(scale), int(causal), int(int8),
                           _build.DTYPE_CODES[v.dtype],
-                          count_as="pfa_flash_tri_i8" if int8 else "pfa_flash_tri_fp32")
+                          count_as="pfa_flash_tri_i8_fp32" if int8 else "pfa_flash_tri_fp32")
         return o
     _check_sm90(name, scale, q, k, v)
     sms = _sms(q.device)

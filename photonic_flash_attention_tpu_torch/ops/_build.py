@@ -150,6 +150,13 @@ _SIGNATURES: Dict[str, List] = {
     # tile_keys, stages, smem, grid, walk, stream: one launch of K18's bf16
     # body (k18_plan)
     "pfa_flash_tri_sm90": [_P] * 4 + [_I] * 7 + [_F] + [_I] * 5 + [ctypes.POINTER(_I), _P],
+    # q, k, v, o, score_scale, B, S, Hq, Hkv, D, q_row0, rows, causal,
+    # chained, stages, smem, grid, stream: one launch of K18's int8 mode
+    # with a bf16 V on the quantized body (k18_i8_plan)
+    "pfa_flash_tri_i8_sm90": [_P] * 5 + [_I] * 12 + [_P],
+    # D, out (int[8], as pfa_quant_sm90_info's) of K18 int8's instantiation
+    # of the quantized body; no stream, no launch
+    "pfa_flash_tri_i8_sm90_info": [_I, ctypes.POINTER(_I)],
     # q, k, v, o, B, S, Hq, Hkv, D, sm_scale, dtype, stream
     "pfa_flash_fulltri": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, do, lse, di, dq, B, S, H, D, q_row0, rows, sm_scale, causal,

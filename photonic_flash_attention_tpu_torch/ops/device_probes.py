@@ -13,7 +13,7 @@ FP32 pipes, where the TPU has its VPU):
   updates over fp32 (rows, cols), cols % 128 == 0; returns rows 0-7.
   ``masked`` adds the TPU kernel's always-true mask select. Kernel K12
   (``pfa_softmax_probe``; cols up to 1024 on the card, a row held in the
-  registers of 4 or 8 threads).
+  registers of 8 threads, K1's Hopper softmax step).
 * :func:`measure_exp_rate`, :func:`measure_softmax_rate` (elements/s) and
   :func:`measure_softmax_linear` (JAX's keys: the fit t = a + b * elements
   of one block update), by the two-point fit of
@@ -50,8 +50,9 @@ JAX_EXP_SHAPE = (512, 512)
 JAX_SOFTMAX_SHAPE = (128, 512)
 #: JAX's two (rows, cols, iters) tile areas of measure_softmax_linear.
 JAX_LINEAR_SHAPES = ((32, 512, 4096), (224, 896, 512))
-#: The card's two areas: one wave of rows at 128 and at 512 columns (the
-#: same quad layout, so the fixed cost per update is the same code), iters
+#: The card's two areas: one wave of rows at 128 and at 512 columns (one
+#: layout, eight threads a row, so the fixed cost per update is the same
+#: code), iters
 #: giving both the same elements per call.
 CARD_LINEAR_COLS = ((128, 1024), (512, 256))
 #: Waves of K11 in its card shape: one wave at 256 iterations is ~0.07 ms

@@ -27,7 +27,13 @@ each of ``main_tri``'s blocks that divides S, and at 64-row blocks at S
 ``*_fp32`` on the mma.sync body, each dtype reaching only its own, a plan
 not the launcher's own refused, an unaligned bf16 base raising; K18's
 chain of programmatic dependent launches captured into a CUDA graph and
-replayed on new inputs); the segmented path at its
+replayed on new inputs); K18's int8 mode with a bf16 V on K1's Hopper
+int8-QK body (counted as ``pfa_flash_tri_i8``) and an fp32 V on the
+mma.sync body (``pfa_flash_tri_i8_fp32``), each V dtype reaching only its
+own, one launch whose range ends inside a work tile (or starts off the
+128-row grid) writing its rows and no other, a call replayed from a CUDA
+graph causal and not, its launcher refusing a plan or rows not its own
+and an unaligned bf16 V raising before any launch; the segmented path at its
 main's long geometries on its last rows; K20 and K21 (the unrolled
 backward) through ``flash_bwd_unrolled`` at ``CARD_CHECKS`` causal and not
 (blocks of 64, a launch of 320 rows, D 128, fp32 inputs) and at every
@@ -360,8 +366,115 @@ def test_k18_tri_i8_matches_plain(cuda_device, causal, shape):
     q, k, v = _pipeline_qkv(cuda_device, 10, shape)
     bq = pipeline.check_block(shape[1])
     kw = dict(causal=causal, block_q=bq, block_kv=bq)
-    _check("pfa_flash_tri_i8", lambda: experiments.flash_tri_i8(q, k, v, **kw),
+    _check(_route("pfa_flash_tri_i8", shape[5]), lambda: experiments.flash_tri_i8(q, k, v, **kw),
            lambda: pipeline.flash_tri_i8_plain(q, k, v, **kw), launches=shape[1] // bq)
+
+
+def _launch_i8(dev, q8, k8, v, o, sc, plan, row0, rows, causal, chained=0):
+    b, s, hq, d = q8.shape
+    _build.launch("pfa_flash_tri_i8_sm90", dev, q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), sc.data_ptr(), b, s, hq, k8.shape[2], d, row0, rows, int(causal),
+                  chained, plan.stages, plan.smem, plan.grid)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d, row0, rows", [(64, 64, 64), (64, 64, 192), (128, 64, 192),
+                                           (128, 1, 318), (64, 256, 64)])
+def test_k18_i8_range_ending_mid_work_tile_writes_only_its_rows(cuda_device, causal, d, row0,
+                                                               rows):
+    """One launch of K18's int8 mode on the Hopper body whose range ends
+    inside its last 128-row work tile (or starts off the 128-row grid)
+    writes its rows, within the bound of the plain version's, and no
+    other row."""
+    b, s, hq, hkv = 1, 320, 4, 2
+    q, k, v = _pipeline_qkv(cuda_device, 45, (b, s, hq, hkv, d, torch.bfloat16))
+    q8, k8, sc = pipeline.quant_qk(q, k)
+    o = torch.full_like(q, float("nan"))
+    plan = pipeline.k18_i8_plan(b, s, hq, hkv, d, row0, rows)
+    _launch_i8(cuda_device, q8, k8, v, o, sc, plan, row0, rows, causal)
+    torch.cuda.synchronize()
+    ref = pipeline._tri_i8_payload_plain(q8, k8, sc, v, 64, 64, causal)
+    assert torch.isnan(o[:, :row0]).all() and torch.isnan(o[:, row0 + rows:]).all()
+    got = o[:, row0:row0 + rows]
+    assert torch.isfinite(got).all()
+    assert _common.rel_err_norm(got, ref[:, row0:row0 + rows]) <= BOUND
+
+
+@pytest.mark.parametrize("shape, block_q, causal", [((4, 2048, 12, 12, 64), 512, True),
+                                                    ((1, 8192, 12, 12, 64), 512, True),
+                                                    ((2, 320, 8, 2, 128), 64, False)],
+                         ids=["b4s2048-bq512", "s8192-bq512", "gqa-d128-s320-bq64-full"])
+def test_k18_i8_graph_replay_matches_plain(cuda_device, shape, block_q, causal):
+    """A call of K18's int8 mode (its quantization passes, then a launch a
+    row-block, each after the first chained) captured into a CUDA graph,
+    replayed on new inputs and read by the next kernel of the stream before
+    any synchronisation: every row of every launch is there."""
+    b, s, hq, hkv, d = shape
+    q, k, v = _pipeline_qkv(cuda_device, 47, (*shape, torch.bfloat16))
+    kw = dict(causal=causal, block_q=block_q, block_kv=block_q)
+    experiments.flash_tri_i8(q, k, v, **kw)  # build and warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.CAPTURED["pfa_flash_tri_i8"]
+    with torch.cuda.graph(graph):
+        out = experiments.flash_tri_i8(q, k, v, **kw)
+    assert _build.CAPTURED["pfa_flash_tri_i8"] == before + s // block_q
+    for seed in (48, 49):
+        for t, new in zip((q, k, v), _pipeline_qkv(cuda_device, seed, (*shape, torch.bfloat16))):
+            t.copy_(new)
+        graph.replay()
+        got = out.float() * 1.0  # the stream's next kernel reads the call's rows
+        torch.cuda.synchronize()
+        ref = pipeline.flash_tri_i8_plain(q, k, v, **kw)
+        assert torch.isfinite(got).all()
+        assert _common.rel_err_norm(got, ref) <= BOUND, seed
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k18_i8_route_by_v_dtype(cuda_device, dtype):
+    """A bf16 V reaches only the Hopper int8-QK body, an fp32 V only the
+    mma.sync body; one count a launch."""
+    q, k, v = _pipeline_qkv(cuda_device, 46, (1, 320, 4, 2, 64, dtype))
+    names = ("pfa_flash_tri_i8", "pfa_flash_tri_i8_fp32")
+    before = {n: _build.LAUNCHES[n] for n in names}
+    experiments.flash_tri_i8(q, k, v, block_q=64, block_kv=64)
+    torch.cuda.synchronize()
+    got = {n: _build.LAUNCHES[n] - before[n] for n in names}
+    assert got == {n: 5 * int(n.endswith("_fp32") == (dtype == torch.float32)) for n in names}
+
+
+def test_k18_i8_refuses_other_plans(cuda_device):
+    """K18 int8's launcher runs its own plan: another stage count or shared
+    memory, a grid of no CTA or of more CTAs than work tiles, or rows
+    outside [0, S) are refused."""
+    b, s, hq, hkv, d = 1, 320, 4, 2, 64
+    q, k, v = _pipeline_qkv(cuda_device, 50, (b, s, hq, hkv, d, torch.bfloat16))
+    q8, k8, sc = pipeline.quant_qk(q, k)
+    o = torch.empty_like(q)
+    plan = pipeline.k18_i8_plan(b, s, hq, hkv, d, 64, 192)
+    _launch_i8(cuda_device, q8, k8, v, o, sc, plan, 64, 192, True)
+    torch.cuda.synchronize()
+    for bad in (plan._replace(stages=plan.stages - 1), plan._replace(smem=plan.smem + 1024),
+                plan._replace(grid=0), plan._replace(grid=plan.work + 1)):
+        with pytest.raises(RuntimeError, match="_sm90"):
+            _launch_i8(cuda_device, q8, k8, v, o, sc, bad, 64, 192, True)
+    for row0, rows in ((256, 128), (-64, 128), (320, 64), (0, 0)):
+        with pytest.raises(RuntimeError, match="_sm90"):
+            _launch_i8(cuda_device, q8, k8, v, o, sc, plan, row0, rows, True)
+
+
+def test_k18_i8_unaligned_bf16_raises(cuda_device):
+    """TMA reads 16-byte-aligned bases: a bf16 V that starts 2 bytes in
+    raises, before any launch, and nothing falls back."""
+    b, s, h, d = 1, 256, 2, 64
+    n = b * s * h * d
+    buf = torch.randn(3 * n + 1, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(b, s, h, d) for i in range(3))
+    names = ("pfa_flash_tri_i8", "pfa_flash_tri_i8_fp32")
+    before = {n_: _build.LAUNCHES[n_] for n_ in names}
+    with pytest.raises(ValueError, match="16-byte"):
+        experiments.flash_tri_i8(q, k, v, block_q=128, block_kv=128)
+    assert {n_: _build.LAUNCHES[n_] for n_ in names} == before
 
 
 @pytest.mark.parametrize("shape", pipeline.CARD_CHECK_SHAPES, ids=pipeline.CARD_CHECK_IDS)

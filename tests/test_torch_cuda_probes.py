@@ -13,7 +13,8 @@ own; K11 (``exp_probe``) within 1e-6 abs
 (exp2f against torch.exp, rounding errors that exp's slope below 1 keeps
 from growing); K12 (``softmax_block_probe``) within one bf16 ulp (2^-8) in
 both modes at every width it holds, its running sums l within 1e-4
-relative, masked equal to unmasked. Both are checked at 1, 2, 3, 5 and 7
+relative, masked equal to unmasked, and at 0 iterations x's rows with l
+= 0. Both are checked at 1, 2, 3, 5 and 7
 iterations on wide inputs, where the outputs still depend on the count
 (K11's chain reaches its fixed point, K12's rows one value each, within a
 few dozen iterations), and at the counts the measure functions run. Each
@@ -143,6 +144,16 @@ def test_softmax_probe_matches_plain(cuda_device, cols, iters):
         assert float(((outs[masked][1] - ref_l).abs() / ref_l).max()) <= 1e-4, (cols, masked)
     assert torch.equal(outs[True][0], outs[False][0])
     assert torch.equal(outs[True][1], outs[False][1])
+
+
+@pytest.mark.parametrize("cols", dp.SOFTMAX_COLS)
+def test_softmax_probe_zero_iters(cuda_device, cols):
+    """At 0 iterations both modes return the input's rows 0-7 and l = 0."""
+    x = _uniform((200, cols), -8.0, 1.0, cuda_device, cols)
+    for masked, name in ((True, "pfa_softmax_probe"), (False, "pfa_softmax_probe_unmasked")):
+        out, l = _launched(name, lambda: dp.softmax_block_probe(x, 0, masked, return_l=True))
+        assert torch.equal(out, x[:8])
+        assert torch.equal(l, torch.zeros_like(l))
 
 
 def test_captured_calls_are_not_launches(cuda_device):

@@ -1,6 +1,7 @@
 """The launch plans of K13-K19's bf16 body (``k13_plan``, ``k14_plan``,
 ``k15_plan``, ``k16_plan``, ``k17_plan``, ``k18_plan``, ``k19_plan`` in
-``experiments/flash_pipeline_experiment.py``), on the CPU.
+``experiments/flash_pipeline_experiment.py``) and of K18's int8 mode
+(``k18_i8_plan``), on the CPU.
 
 The C launchers of ``csrc/flash_experiments_sm90.cu`` take every field of a
 plan: they refuse a tile width, stage count, shared memory or grid that is
@@ -19,12 +20,22 @@ causal (128-row q-block, key tile) pair once with Sq and Skv apart; K15's,
 with each chain stopping at its own diagonal (the kernel's rule, mirrored
 here), covers each (chain, key tile) pair of a chain with rows below Sq
 once, and loads no tile that no live chain runs. K13's plan is K16's (its
-instantiation) under K13's name and checks.
+instantiation) under K13's name and checks. K18's int8 mode with a bf16 V
+(``k18_i8_plan``, K1's Hopper int8-QK body in ``csrc/flash_quant_sm90.cu``):
+its launches store each row once, each over the 128-key tiles its
+q-block sees, a range ending inside a work tile or starting off the
+128-row grid stores only its rows, the ring is ``Cfg<D, INT8QK>``'s, bad
+arguments raise; and ``_tri_cuda``'s routing by V's dtype, seen on the
+CPU through a recording stand-in for ``_build.launch``: a bf16 V on the
+Hopper entry (the first launch plain, the rest chained), an fp32 V on the
+mma.sync one, an unaligned bf16 V raising before any launch.
 """
 
 import math
 
+import numpy as np
 import pytest
+import torch
 
 from photonic_flash_attention_tpu_torch.experiments import flash_pipeline_experiment as ux
 
@@ -275,3 +286,166 @@ def test_k13_plan_bad_arguments(call, match):
     with pytest.raises(ValueError, match=match):
         call()
     assert len(ux.k13_plan(1, ux.SM90_MAX_SEQ, 1, 64, True).walk) == 512
+
+
+# -- K18's int8-QK mode on K1's Hopper int8-QK body (csrc/flash_quant_sm90.cu:
+# flash_quant_sm90<D, INT8QK, true>) -----------------------------------------
+
+#: (shape, block_q, causal): every card-check shape and main geometry at
+#: each block the card checks and the int8 main give it, causal and not.
+I8_PARAMS = [(shape, bq, causal) for shape in SHAPES
+             for bq in sorted({ux.check_block(shape[1]), min(512, shape[1])})
+             for causal in (True, False)]
+
+
+def _i8_walk(plan, b, s, hq, row0, rows, causal):
+    """A mirror of the kernel's walk (``work_tile<ROWBLOCK>`` in
+    ``csrc/flash_quant_sm90.cu``): work tile t of the plan runs q-block i =
+    t // (Hq B) of the range's 128-row q-blocks, counted from the last when
+    causal, over the 128-key tiles up to its last row (all of S when not
+    causal); yields (q0, key tiles) per work tile."""
+    nqb = -(-rows // 128)
+    for t in range(plan.work):
+        i = t // (hq * b)
+        q0 = row0 + ((nqb - 1 - i) if causal else i) * 128
+        yield q0, -(-min(s, q0 + 128) // 128) if causal else -(-s // 128)
+
+
+@pytest.mark.parametrize("shape, block_q, causal", I8_PARAMS,
+                         ids=[f"{IDS[SHAPES.index(sh)]}-bq{bq}-{'causal' if c else 'full'}"
+                              for sh, bq, c in I8_PARAMS])
+def test_k18_i8_walks_store_each_row_once(shape, block_q, causal):
+    """The launches of one call store each row of S once, inside their own
+    row-block, each row over exactly the 128-key tiles it sees (up to its
+    own diagonal when causal, all of S otherwise); the work tiles are the
+    row-block's 128-row q-blocks x Hq x B, heaviest first when causal, the
+    grid min(work, SMs)."""
+    b, s, hq, hkv, d = shape
+    seen = {}  # row -> (its q-block's first row, key tiles)
+    for row0 in range(0, s, block_q):
+        plan = ux.k18_i8_plan(b, s, hq, hkv, d, row0, block_q, 132)
+        assert plan.work == math.ceil(block_q / 128) * hq * b
+        assert plan.grid == min(plan.work, 132)
+        walk = list(_i8_walk(plan, b, s, hq, row0, block_q, causal))
+        q0s = list(dict.fromkeys(q0 for q0, _ in walk))
+        assert q0s == sorted(q0s, reverse=causal)  # causal: heaviest first
+        assert sorted(q0s) == list(range(row0, row0 + block_q, 128))
+        assert len(walk) == len(q0s) * hq * b  # each q-block once a (b, h)
+        for q0, n in dict.fromkeys(walk):
+            for row in range(q0, min(q0 + 128, row0 + block_q)):  # stored rows
+                assert row not in seen
+                seen[row] = (q0, n)
+    assert sorted(seen) == list(range(s))
+    for row, (q0, n) in seen.items():
+        if causal:
+            assert row // 128 < n  # its diagonal key tile runs
+            assert (n - 1) * 128 <= min(s, q0 + 128) - 1  # none wholly above its q-block
+        else:
+            assert n == math.ceil(s / 128)
+
+
+@pytest.mark.parametrize("row0, rows", [(64, 64), (64, 192), (0, 320), (1, 318), (256, 64)])
+def test_k18_i8_range_ending_inside_a_work_tile(row0, rows):
+    """A launch whose range ends inside its last 128-row work tile (or
+    starts off the 128-row grid) computes the tile and stores only the
+    range: each row once, none outside."""
+    s = 320
+    plan = ux.k18_i8_plan(1, s, 4, 2, 64, row0, rows)
+    assert plan.work == math.ceil(rows / 128) * 4
+    for causal in (True, False):
+        q0s = dict.fromkeys(q0 for q0, _ in _i8_walk(plan, 1, s, 4, row0, rows, causal))
+        stored = sorted(row for q0 in q0s for row in range(q0, min(q0 + 128, row0 + rows)))
+        assert stored == list(range(row0, row0 + rows))
+
+
+@pytest.mark.parametrize("d", ux.CARD_HEAD_DIMS)
+def test_k18_i8_plan_ring_is_the_quantized_bodys(d):
+    """``Cfg<D, INT8QK>``: int8 Q double-buffered, stages of int8 K and bf16
+    V, four stages at both head dims, within the H100's shared memory."""
+    plan = ux.k18_i8_plan(4, 2048, 12, 12, d, 0, 512)
+    q, stage = 128 * d, 128 * d * 3
+    assert plan.stages == 4
+    assert plan.smem == 2 * q + 4 * stage + 8 * (2 * 4 + 12) + 1024
+    assert plan.smem <= ux.SMEM_MAX
+    assert {64: 115872, 128: 230560}[d] == plan.smem
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: ux.k18_i8_plan(1, 320, 2, 2, 96, 0, 64), "head_dim"),
+    (lambda: ux.k18_i8_plan(1, 320, 3, 2, 64, 0, 64), "shape"),
+    (lambda: ux.k18_i8_plan(0, 320, 2, 2, 64, 0, 64), "shape"),
+    (lambda: ux.k18_i8_plan(1, 320, 2, 2, 64, 320, 64), "rows must lie"),
+    (lambda: ux.k18_i8_plan(1, 320, 2, 2, 64, -64, 64), "rows must lie"),
+    (lambda: ux.k18_i8_plan(1, 320, 2, 2, 64, 0, 0), "rows must lie"),
+    (lambda: ux.k18_i8_plan(1, 320, 2, 2, 64, 256, 128), "rows must lie"),
+], ids=["d96", "gqa", "b0", "row0-at-s", "row0-neg", "no-rows", "past-s"])
+def test_k18_i8_plan_bad_arguments(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+class _Launches:
+    """Stands in for ``_build.launch`` and the SM count: records each launch
+    (entry point, its integer arguments, counter) instead of calling the
+    library, so the CPU sees what ``_tri_cuda`` would launch on the card."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(ux._build, "launch", self.launch)
+        monkeypatch.setattr(ux, "_sms", lambda device: 132)
+
+    def launch(self, name, device, *args, count_as=None):
+        self.calls.append((name, args, count_as))
+
+
+def _payloads(v_dtype, s=320, offset=0):
+    """int8 q and k payloads, their (1,) score scale and V on the CPU (V
+    starting ``offset`` elements into its buffer)."""
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((1, s, 4, 64)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, s, 2, 64)).astype(np.float32))
+    q8, k8, sc = ux.quant_qk(q, k)
+    buf = torch.from_numpy(rng.standard_normal(s * 2 * 64 + offset).astype(np.float32))
+    v = buf.to(v_dtype)[offset:].view(1, s, 2, 64)
+    return q8, k8, sc, v
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_k18_i8_bf16_v_routes_to_the_hopper_body(monkeypatch, causal):
+    """A bf16 V goes to K1's Hopper int8-QK body, one launch a row-block on
+    its plan, counted as ``pfa_flash_tri_i8``, the first plain and every
+    later one chained; nothing goes to the mma.sync body."""
+    rec = _Launches(monkeypatch)
+    q8, k8, sc, v = _payloads(torch.bfloat16)
+    o = ux._tri_cuda(q8, k8, v, 64, causal, 0.0, score_scale=sc)
+    assert o.dtype == torch.bfloat16 and o.shape == (1, 320, 4, 64)
+    assert [c[0] for c in rec.calls] == ["pfa_flash_tri_i8_sm90"] * 5
+    assert {c[2] for c in rec.calls} == {"pfa_flash_tri_i8"}
+    for i, (_, args, _) in enumerate(rec.calls):
+        plan = ux.k18_i8_plan(1, 320, 4, 2, 64, 64 * i, 64, 132)
+        # after the five pointers: B, S, Hq, Hkv, D, q_row0, rows, causal,
+        # chained, stages, smem, grid
+        assert args[5:] == (1, 320, 4, 2, 64, 64 * i, 64, int(causal), int(i > 0),
+                            plan.stages, plan.smem, plan.grid)
+        assert args[4] == sc.data_ptr()
+
+
+def test_k18_i8_fp32_v_stays_on_mma_sync(monkeypatch):
+    """An fp32 V stays on the s8 mma.sync body, counted as
+    ``pfa_flash_tri_i8_fp32``, never on the Hopper body."""
+    rec = _Launches(monkeypatch)
+    q8, k8, sc, v = _payloads(torch.float32)
+    o = ux._tri_cuda(q8, k8, v, 64, True, 0.0, score_scale=sc)
+    assert o.dtype == torch.float32
+    assert [(c[0], c[2]) for c in rec.calls] == [("pfa_flash_tri", "pfa_flash_tri_i8_fp32")] * 5
+
+
+def test_k18_i8_unaligned_bf16_base_raises_before_any_launch(monkeypatch):
+    """TMA reads 16-byte-aligned bases: a bf16 V two bytes into its buffer
+    raises ValueError and nothing launches, nor falls back."""
+    rec = _Launches(monkeypatch)
+    q8, k8, sc, v = _payloads(torch.bfloat16, offset=1)
+    assert v.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        ux._tri_cuda(q8, k8, v, 64, True, 0.0, score_scale=sc)
+    assert rec.calls == []
