@@ -68,7 +68,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    checks' two shapes and B2 S4096 Hq32/Hkv8 D128 causal, the kernel by
    CUDA events and the graph fit, the whole call, bf16 K1 both ways, the
    bound and the share (``--quant-table`` prints only this table, the
-   same way);
+   same way); then Llama-2-70B's GQA geometry: K1 bf16 at B1 S2048
+   Hq64/Hkv8 D128 causal (beside SDPA with ``enable_gqa``) and K3's fused
+   decode at B8 Hq64/Hkv8 D128 over an int8 pool, lengths 1-4096, against
+   their plain versions, by CUDA events and the graph fit;
 4. roofline: the card's record (``hardware.detection``), K9/K10 (HBM read
    and copy) bit for bit and K11 (exp) and K12 (the softmax stream, both
    modes) within their bounds against their plain versions; then, as a
@@ -117,6 +120,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    launch count must grow; the first step must agree with the dense model;
    then the same requests with ``prefill_chunk=256`` (K1 with the key-bias
    stream): the same first tokens, last-prompt logits within a bound;
+6b. llama path: Llama-2-7B at full width and depth (32 layers; random bf16
+   weights from seed 0, made on the card), then GQA at Llama-2-70B's width
+   (64 query heads over 8 KV heads) cut to 2 layers, each served through
+   ``ServingEngine`` (int8 pool, page 128, decode window 32): 8 requests of
+   17-2000 tokens, 33 new tokens each, K1 once a layer a prefill and K3's
+   fused decode once a layer a step asserted, decode tokens/s and ms a
+   step printed; the last-prompt logits of the shortest and the longest
+   prompt against the dense ``LlamaForCausalLM`` forward of the same
+   weights on the card; the same requests with ``prefill_chunk=256`` (K1
+   with its key-bias stream) against the whole prefill; decode steps 1-4
+   over a bf16 pool against the dense forward over the same tokens;
+6c. bert path: BERT-base (random weights from seed 0, bf16 compute) on a
+   padded batch B8 S512 with two token types: K1's key streams once a
+   layer, the kept rows and the pooled output against the same weights in
+   fp32 on the card;
 7. engine path: the drop-in ``PhotonicFlashAttention`` layer at GPT-2
    medium's width, eager calls through the adaptive engine (prefill, key
    padding, a dense (B,1,S,S) mask on K1's dense-bias mode, decode over
@@ -2620,7 +2638,100 @@ def phase_kernels(smi: str) -> dict:
     time_bwd_modes(results, smi)
     results["k3_table"] = time_k3_modes(results, smi)
     results["quant_table"] = time_quant_modes(results, smi)
+    check_llama_kernels(results, smi)
     return results
+
+
+#: Llama-2-70B's attention geometry: 64 query heads over 8 KV heads, D 128.
+LLAMA_GQA = (64, 8, 128)
+#: K3 at Llama-2-70B's decode geometry: one length a sequence, to 4096.
+LLAMA_DECODE_LENS = (1, 17, 128, 129, 700, 1500, 2048, 4096)
+
+
+def check_llama_kernels(results: dict, smi: str) -> None:
+    """K1 and K3 at Llama-2-70B's GQA geometry against their plain
+    versions: K1 bf16 at B1 S2048 Hq64/Hkv8 D128 causal (bound 1e-2, beside
+    SDPA with ``enable_gqa``), K3's fused decode at B8 Hq64/Hkv8 D128 over
+    an int8 pool, lengths 1-4096 (pools bit-exact with K2's plain write,
+    output within 1e-4); each by CUDA events and the graph fit, beside its
+    bound. Recorded as ``cases`` of the kernels' entries."""
+    import torch.nn.functional as F
+
+    hq, hkv, d = LLAMA_GQA
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    q = torch.randn(1, 2048, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(1, 2048, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    out = flash_ops.flash_attention(q, k, v, causal=True)
+    ref = flash_ops.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = rel_err_norm(out, ref)
+    line = f"K1 flash_fwd B1 S2048 H{hq}/{hkv} D{d} bf16 causal: rel_err_norm {err:.3e} (bound 1e-2)"
+    if err > 1e-2 or not torch.isfinite(out).all():
+        raise AssertionError(line)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms, fit = _both_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True))
+    plain = median_ms(lambda: flash_ops.flash_attention_plain(q, k, v, causal=True))
+    lib, lib_fit = _both_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                    enable_gqa=True))
+    bnd = flash_fwd_bound(q, k, True)
+    print(f"{line} | kernel {ms:.4f} ms, fit {fit:.4f} ms, plain {plain:.4f} ms, SDPA "
+          f"(enable_gqa) {lib:.4f} ms, fit {lib_fit:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}) ({smi})", flush=True)
+    results["pfa_flash_fwd"].setdefault("cases", []).append(dict(
+        shape=f"B1 S2048 Hq{hq}/Hkv{hkv} D{d} causal bf16", ms=ms, fit_ms=fit, plain_ms=plain,
+        library_ms=lib, library_fit_ms=lib_fit, max_abs_err=max_abs_err(out, ref), **bnd))
+    del q, k, v, qt, kt, vt, out, ref
+
+    page, layer = 128, 1
+    b = len(LLAMA_DECODE_LENS)
+    pages_of = [-(-n // page) for n in LLAMA_DECODE_LENS]
+    pps = max(pages_of)
+    k_pool, v_pool, ks, vs = _serving_pools(torch.int8, gen, L=2, hkv=hkv,
+                                            num_pages=sum(pages_of) + 1, page=page, d=d)
+    perm = torch.randperm(sum(pages_of), device="cuda", generator=gen).to(torch.int32) + 1
+    tables = torch.zeros(b, pps, dtype=torch.int32, device="cuda")
+    slots = torch.zeros(b, dtype=torch.int32, device="cuda")
+    at = 0
+    for i, (n, np_) in enumerate(zip(LLAMA_DECODE_LENS, pages_of)):
+        tables[i, :np_] = perm[at:at + np_]
+        at += np_
+        slots[i] = tables[i, (n - 1) // page] * page + (n - 1) % page
+    lens = torch.tensor(LLAMA_DECODE_LENS, dtype=torch.int32, device="cuda")
+    qd = torch.randn(b, hq, d, device="cuda", generator=gen)
+    k_new, v_new = (torch.randn(b, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+    pools = [k_pool, v_pool, ks, vs]
+    ref_pools = [t.clone() for t in pools]
+
+    def call():
+        return paged_ops.paged_decode_attention(qd, k_new, v_new, k_pool, v_pool, lens, tables,
+                                                slots, layer, ks, vs)
+
+    def plain_call():
+        paged_ops.paged_token_write_plain(k_new, v_new, *ref_pools, slots, layer)
+        return paged_ops.paged_decode_attend_plain(qd, *ref_pools[:2], lens, tables, layer,
+                                                   *ref_pools[2:], d ** -0.5)
+
+    out, ref = call(), plain_call()
+    torch.cuda.synchronize()
+    err = rel_err_norm(out, ref)
+    exact = all(torch.equal(a, w) for a, w in zip(pools, ref_pools))
+    line = (f"K3 fused decode B{b} H{hq}/{hkv} D{d} page{page} int8 lengths "
+            f"{list(LLAMA_DECODE_LENS)}: pools bit-exact with K2's plain write: {exact}; "
+            f"rel_err_norm {err:.3e} (bound 1e-4)")
+    if not exact or err > 1e-4 or not torch.isfinite(out).all():
+        raise AssertionError(line)
+    ms, fit = _both_ms(call)
+    plain = median_ms(plain_call)
+    bnd = k3_bound(b, hq, hkv, d, 1, sum(LLAMA_DECODE_LENS), pps, 4, True, fused_in=2)
+    print(f"{line} | kernel {ms:.4f} ms, fit {fit:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) ({smi})", flush=True)
+    results["pfa_paged_decode_fused"].setdefault("cases", []).append(dict(
+        shape=f"B{b} Hq{hq}/Hkv{hkv} D{d} int8 pool, lengths 1-4096", ms=ms, fit_ms=fit,
+        plain_ms=plain, library_ms=None, max_abs_err=max_abs_err(out, ref), **bnd))
+    del pools, ref_pools, k_pool, v_pool, ks, vs
+    torch.cuda.empty_cache()
 
 
 PROMPT_LENS = (17, 64, 100, 128, 256, 300, 512, 700)
@@ -2772,6 +2883,235 @@ def check_chunked_serving(cfg, model, prompts, unchunked_outs, smi) -> dict:
     if not firsts or max(errs) > CHUNK_LOGITS_BOUND:
         raise AssertionError(line)
     print(line, flush=True)
+    return launches
+
+
+LLAMA_PROMPT_LENS = (17, 100, 128, 300, 512, 700, 1500, 2000)
+#: Bound on rel_err_norm of the served logits (last prompt token, and the
+#: first decode steps over a bf16 pool) against the dense forward of the
+#: same weights on the card (the GPT-2 phase's).
+LLAMA_LOGITS_BOUND = 5e-2
+LLAMA_DECODE_CHECK_STEPS = 4
+
+
+def _llama_70b_width():
+    """Llama-2-70B's widths (hidden 8192, 64 heads over 8 KV heads,
+    intermediate 28672) cut to 2 layers (2.24 B parameters)."""
+    from photonic_flash_attention_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(hidden_size=8192, intermediate_size=28672, num_hidden_layers=2,
+                       num_attention_heads=64, num_key_value_heads=8)
+
+
+def _llama_engine(cfg, state, kv_dtype=torch.int8, **kw):
+    from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
+
+    return ServingEngine(cfg, state, device="cuda", num_pages=64, page_size=128, max_batch=8,
+                         max_pages_per_seq=16, kv_dtype=kv_dtype, decode_window=32, **kw)
+
+
+def _dense_last_logits(model, tokens, positions) -> torch.Tensor:
+    """The dense forward's logits (fp32) of ``tokens`` at ``positions``."""
+    with torch.no_grad():
+        out = model(torch.tensor([tokens], device="cuda"))[0]
+    return out[list(positions)].float()
+
+
+def _llama_path(label: str, cfg, smi: str) -> collections.Counter:
+    """One Llama configuration served on the card (random bf16 weights from
+    seed 0, made on the card): 8 requests through an int8 pool with the
+    launch counts asserted and the decode rates printed; the last-prompt
+    logits of the shortest and the longest prompt against the dense forward;
+    the same requests with prefill_chunk=PREFILL_CHUNK against the whole
+    prefill; decode steps 1-4 over a bf16 pool against the dense forward
+    over the same tokens. Returns the launches of the served runs."""
+    from photonic_flash_attention_tpu_torch.models.llama import LlamaForCausalLM
+
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda", param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"llama path: {label} ({cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}, "
+          f"{cfg.num_attention_heads}/{cfg.num_key_value_heads} heads, D {cfg.head_dim}) made on "
+          f"the card in bf16 in {time.perf_counter() - t0:.1f} s ({n_params / 1e9:.3f} B "
+          f"params)", flush=True)
+    state = model.state_dict()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in LLAMA_PROMPT_LENS]
+    n_layer = cfg.num_hidden_layers
+    counts = collections.Counter()
+
+    engine = _llama_engine(cfg, state)
+    first_logits = _capture_first_logits(engine)
+    engine.generate([p[:8] for p in prompts[:2]], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    engine.reset_performance_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    counts.update(launches)
+    for p, o in zip(prompts, outs):
+        if len(o) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"{label}: prompt of {len(p)} tokens: bad output {o}")
+    if launches.get("pfa_flash_fwd", 0) != n_layer * len(prompts):
+        raise AssertionError(f"{label}: pfa_flash_fwd launched {launches.get('pfa_flash_fwd', 0)} "
+                             f"times, expected {n_layer * len(prompts)}")
+    if launches.get("pfa_paged_decode_fused", 0) < n_layer * (NEW_TOKENS - 1):
+        raise AssertionError(f"{label}: pfa_paged_decode_fused launched "
+                             f"{launches.get('pfa_paged_decode_fused', 0)} times, expected >= "
+                             f"{n_layer * (NEW_TOKENS - 1)}")
+    stats = engine.get_performance_stats()
+    print(f"llama path: {label}, int8 pool, {len(prompts)} requests of "
+          f"{min(LLAMA_PROMPT_LENS)}-{max(LLAMA_PROMPT_LENS)} tokens x {NEW_TOKENS} new in "
+          f"{wall:.3f} s wall; decode {stats['decode_tokens']} tokens at "
+          f"{stats['decode_tokens_per_s']:.1f} tokens/s, "
+          f"{1e3 * stats['decode_time'] / max(stats['decode_steps'], 1):.3f} ms a step; prefill "
+          f"{stats['prefill_tokens']} tokens at {stats['prefill_tokens_per_s']:.1f} tokens/s; "
+          f"launches {launches} ({smi})", flush=True)
+    errs = {}
+    for p in (prompts[0], prompts[-1]):
+        dense = _dense_last_logits(model, p, [len(p) - 1])[0]
+        errs[len(p)] = rel_err_norm(first_logits[tuple(p)], dense)
+    line = (f"llama path: {label}, served last-prompt logits vs the dense forward, rel_err_norm "
+            f"{ {n: f'{e:.3e}' for n, e in errs.items()} } (bound {LLAMA_LOGITS_BOUND})")
+    if max(errs.values()) > LLAMA_LOGITS_BOUND:
+        raise AssertionError(line)
+    print(line, flush=True)
+    whole_logits = {k: v for k, v in first_logits.items() if len(k) > PREFILL_CHUNK}
+    del engine
+    torch.cuda.empty_cache()
+
+    engine = _llama_engine(cfg, state, prefill_chunk=PREFILL_CHUNK)
+    chunk_logits = _capture_first_logits(engine)
+    _build.reset_launches()
+    chunk_outs = engine.generate(prompts, max_new_tokens=2)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    counts.update(launches)
+    want_chunks = sum(-(-len(p) // PREFILL_CHUNK) for p in prompts if len(p) > PREFILL_CHUNK)
+    if engine.get_performance_stats()["prefill_chunks"] != want_chunks or \
+            launches.get("pfa_flash_fwd_streams", 0) != n_layer * want_chunks:
+        raise AssertionError(f"{label}: chunked prefill ran "
+                             f"{engine.get_performance_stats()['prefill_chunks']} chunks and "
+                             f"{launches.get('pfa_flash_fwd_streams', 0)} K1 stream launches; "
+                             f"expected {want_chunks} and {n_layer * want_chunks}")
+    errs = [rel_err_norm(chunk_logits[k], v) for k, v in whole_logits.items()]
+    firsts = sum(c[0] == o[0] for c, o in zip(chunk_outs, outs))
+    line = (f"llama path: {label}, prefill_chunk={PREFILL_CHUNK}: {want_chunks} chunks, K1 with "
+            f"streams {launches.get('pfa_flash_fwd_streams', 0)} launches; chunked-prompt "
+            f"last-token logits vs the whole prefill rel_err_norm {[f'{e:.3e}' for e in errs]} "
+            f"(bound {CHUNK_LOGITS_BOUND}); first tokens equal {firsts}/{len(prompts)}")
+    if max(errs) > CHUNK_LOGITS_BOUND:
+        raise AssertionError(line)
+    print(line, flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    # Decode steps 1-4 over a bf16 pool: slot i serves request i.
+    engine = _llama_engine(cfg, state, kv_dtype=torch.bfloat16)
+    step_logits = []
+    decode = engine._decode_step
+
+    def keep(*args):
+        logits = decode(*args)
+        step_logits.append(logits.float().clone())
+        return logits
+
+    engine._decode_step = keep
+    checked = (prompts[0], prompts[-1])
+    _build.reset_launches()
+    served = engine.generate(list(checked), max_new_tokens=LLAMA_DECODE_CHECK_STEPS + 1)
+    torch.cuda.synchronize()
+    counts.update(_build.LAUNCHES)
+    if len(step_logits) != LLAMA_DECODE_CHECK_STEPS:
+        raise AssertionError(f"{label}: {len(step_logits)} decode steps, expected "
+                             f"{LLAMA_DECODE_CHECK_STEPS}")
+    errs = []
+    for slot, (p, o) in enumerate(zip(checked, served)):
+        n = len(p)
+        dense = _dense_last_logits(model, p + o[:LLAMA_DECODE_CHECK_STEPS],
+                                   range(n, n + LLAMA_DECODE_CHECK_STEPS))
+        errs += [rel_err_norm(step_logits[j][slot], dense[j])
+                 for j in range(LLAMA_DECODE_CHECK_STEPS)]
+    line = (f"llama path: {label}, bf16 pool, decode steps 1-{LLAMA_DECODE_CHECK_STEPS} of the "
+            f"{len(checked[0])}- and {len(checked[1])}-token prompts vs the dense forward over the "
+            f"same tokens, rel_err_norm {[f'{e:.3e}' for e in errs]} (bound {LLAMA_LOGITS_BOUND})")
+    if max(errs) > LLAMA_LOGITS_BOUND:
+        raise AssertionError(line)
+    print(line, flush=True)
+    del engine, model, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_llama(smi: str) -> dict:
+    """Llama serving on the card: Llama-2-7B at full width and depth, then
+    GQA at Llama-2-70B's width cut to 2 layers (``_llama_path``)."""
+    from photonic_flash_attention_tpu_torch.models.llama import LlamaConfig
+
+    counts = collections.Counter()
+    for label, cfg in (("Llama-2-7B", LlamaConfig.llama2_7b()),
+                       ("Llama-2-70B width, 2 layers", _llama_70b_width())):
+        counts += _llama_path(label, cfg, smi)
+    return counts
+
+
+BERT_LENS = (512, 480, 384, 300, 256, 128, 64, 17)
+#: Bound on rel_err_norm of the bf16 encoder against the same weights in
+#: fp32 on the card (kept rows of the sequence output, and the pooler).
+BERT_BOUND = 2e-2
+
+
+def phase_bert(smi: str) -> dict:
+    """BERT-base (random weights from seed 0, bf16 compute) on a padded batch
+    of B8 S512 with two token types: the padding reaches K1 as key streams
+    (one ``pfa_flash_fwd_streams`` launch a layer); the kept rows and the
+    pooled output against the same weights in fp32 on the card."""
+    from photonic_flash_attention_tpu_torch.models.bert import BertConfig, BertModel
+
+    cfg = BertConfig()
+    model = BertModel(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    ref = BertModel(dataclasses.replace(cfg, dtype=torch.float32))
+    ref.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(0)
+    b, s = len(BERT_LENS), max(BERT_LENS)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+    lens = torch.tensor(BERT_LENS, device="cuda")
+    pos = torch.arange(s, device="cuda")[None]
+    mask = (pos < lens[:, None]).long()
+    types = (pos >= lens[:, None] // 2).long() * mask  # segment B: each row's second half
+
+    def forward():
+        with torch.no_grad():
+            return model(ids, mask, types)
+
+    forward()  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    seq, pooled = forward()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if launches != {"pfa_flash_fwd_streams": cfg.num_hidden_layers}:
+        raise AssertionError(f"bert path: launches {launches}, expected "
+                             f"{{'pfa_flash_fwd_streams': {cfg.num_hidden_layers}}}")
+    ms = median_ms(forward)
+    with torch.no_grad():
+        want, want_pooled = ref(ids, mask, types)
+    keep = mask.bool()
+    err, err_pool = rel_err_norm(seq[keep], want[keep]), rel_err_norm(pooled, want_pooled)
+    line = (f"bert path: BERT-base B{b} S{s} lengths {list(BERT_LENS)}, bf16: launches "
+            f"{launches}; {ms:.3f} ms a forward (CUDA events), "
+            f"{int(lens.sum()) / ms * 1e3:.0f} kept tokens/s; vs fp32 on the card: kept rows "
+            f"rel_err_norm {err:.3e}, pooled {err_pool:.3e} (bound {BERT_BOUND}) ({smi})")
+    if max(err, err_pool) > BERT_BOUND or not torch.isfinite(seq).all():
+        raise AssertionError(line)
+    print(line, flush=True)
+    del model, ref
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -5442,7 +5782,8 @@ def main() -> None:
     by_path.update(experiment_launches)
     captured_by_path.update(experiment_captured)
     # Each main path's launches, counted from 0 just before it.
-    by_path |= {"serving": phase_serving(smi), "engine": phase_engine(smi),
+    by_path |= {"serving": phase_serving(smi), "llama": phase_llama(smi),
+                "bert": phase_bert(smi), "engine": phase_engine(smi),
                "training": phase_training(smi, args.profile), "t5": phase_t5(smi, args.profile),
                "t5_training": phase_t5_training(smi)}
     ops_results, ops_launches = phase_ops(smi)

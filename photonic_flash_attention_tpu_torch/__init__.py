@@ -4,8 +4,11 @@ The JAX package beside this one is the reference: every module here
 mirrors the JAX module of the same path, and the tests feed both the same
 numpy inputs. The port imports ``torch`` and never ``jax``.
 
-It covers GPT-2 paged-KV serving (``core.serving.ServingEngine``), GPT-2
-training (``training.Trainer``), the drop-in layer
+It covers GPT-2 and Llama paged-KV serving (``core.serving.ServingEngine``;
+``models.llama_serving``: GQA pools, RoPE), GPT-2 training
+(``training.Trainer``), the BERT encoder (``models.bert``), the HF
+conversion (``convert_to_photonic`` and the ``transfer_hf_*`` functions,
+which alone need ``transformers``), the drop-in layer
 (``models.attention.PhotonicFlashAttention``) over the measured
 ``core.engine.AttentionEngine``, with chunked prefill, the engine's
 quantized kinds (``quant_mode`` "int8" / "fp8", ``ops.flash_fp8``), and the
@@ -47,9 +50,9 @@ JAX repository's ``benchmarks/`` on K13-K16 (fixed-max, augmented V,
 paired chains, the pipelined KV loop).
 
 The package exports the JAX package's top-level names (the config
-functions, the flash functions, the two drop-in layers) except
-``convert_to_photonic`` (ROADMAP A10), and ``models`` those of its models
-that are ported.
+functions, the flash functions, the two drop-in layers,
+``convert_to_photonic``), and ``models`` those of its models except the
+sharding rules (ROADMAP A12).
 """
 
 from .config import GlobalConfig, get_config, reset_config, set_global_config
@@ -84,4 +87,8 @@ def __getattr__(name):
         from . import models
 
         return getattr(models, name)
+    if name == "convert_to_photonic":
+        from .models import convert_to_photonic
+
+        return convert_to_photonic
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

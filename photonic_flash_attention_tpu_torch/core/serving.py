@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the paged KV pool (PyTorch).
 
 Port of ``photonic_flash_attention_tpu/core/serving.py`` for one device and
-the GPT-2 and T5 families (``_model_adapter``):
+the GPT-2, Llama and T5 families (``_model_adapter``):
 
 * sequences join the running batch as soon as a slot and pages are free
   (admission), leave on EOS/max-tokens (retirement), pages are recycled;
@@ -17,13 +17,17 @@ the GPT-2 and T5 families (``_model_adapter``):
   ``enc_max_len`` tokens); a prefill runs the encoder, pins the decoder's
   cross-attention K/V in the request's slot and consumes the decoder start
   token; only decoder tokens (start + generated) take pages, and decode
-  positions count decoder tokens (``models/t5_serving.py``).
+  positions count decoder tokens (``models/t5_serving.py``);
+* Llama (``models/llama_serving.py``): a pool of ``num_key_value_heads``
+  heads, RoPE at the tokens' absolute positions. GPT-2 alone refuses a
+  request longer than its position table (``n_positions``); JAX refuses
+  no Llama request by length, and neither does the port.
 
 The JAX window is one compiled ``lax.scan``; here it is a Python loop of
 eager steps (a CUDA graph is later work). The engine runs on the card
 unless the caller passes ``device="cpu"``. Not in this slice, each raising
-``NotImplementedError`` that names its ROADMAP item: the mesh (A12), the
-Llama adapter (A8), save/restore (A13).
+``NotImplementedError`` that names its ROADMAP item: the mesh (A12),
+save/restore (A13).
 """
 
 from __future__ import annotations
@@ -35,8 +39,9 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models import gpt2_serving, t5_serving
+from ..models import gpt2_serving, llama_serving, t5_serving
 from ..models.gpt2 import GPT2Config
+from ..models.llama import LlamaConfig
 from ..models.t5 import T5Config
 from ..ops.paged import POOL_DTYPES
 from ..utils.exceptions import KVCacheError
@@ -70,6 +75,13 @@ def _model_adapter(cfg, *, max_batch: int = 8, enc_max_len: int = 512) -> _Adapt
             gpt2_serving.prepare_params, gpt2_serving.prefill_step, gpt2_serving.decode_step,
             gpt2_serving.prefill_chunk_step, "causal",
         )
+    if isinstance(cfg, LlamaConfig):
+        return _Adapter(
+            lambda n, page, dtype, device: llama_serving.create_llama_pages(
+                cfg, n, page, dtype, device),
+            llama_serving.prepare_params, llama_serving.llama_prefill_step,
+            llama_serving.llama_decode_step, llama_serving.llama_prefill_chunk_step, "causal",
+        )
     if isinstance(cfg, T5Config):
         return _Adapter(
             lambda n, page, dtype, device: t5_serving.create_t5_pages(
@@ -77,9 +89,7 @@ def _model_adapter(cfg, *, max_batch: int = 8, enc_max_len: int = 512) -> _Adapt
             t5_serving.prepare_params, t5_serving.t5_prefill_step, t5_serving.t5_decode_step,
             None, "encdec",
         )
-    raise NotImplementedError(
-        f"no serving adapter for {type(cfg).__name__} yet (Llama: ROADMAP A8)"
-    )
+    raise TypeError(f"no serving adapter for config type {type(cfg).__name__}")
 
 
 class _PyPageAllocator:
@@ -149,13 +159,15 @@ class _Sequence:
 
 
 class ServingEngine:
-    """Single-device continuous batching (GPT-2 and T5 families).
+    """Single-device continuous batching (GPT-2, Llama and T5 families).
 
-    ``params`` is a ``models.gpt2.GPT2LMHead`` or
+    ``params`` is a ``models.gpt2.GPT2LMHead``,
+    ``models.llama.LlamaForCausalLM`` or
     ``models.t5.T5ForConditionalGeneration`` state_dict; the engine keeps
-    its own copy on ``device`` (the card by default), cast once to the
-    serving dtypes. ``prefill_chunk`` (a positive multiple of
-    ``page_size``, or None; GPT-2 only): prompts longer than it prefill in
+    the weights on ``device`` (the card by default) in the serving dtypes,
+    cast once (a weight already in its dtype there is not copied).
+    ``prefill_chunk`` (a positive multiple of ``page_size``, or None;
+    GPT-2 and Llama): prompts longer than it prefill in
     chunks of that many tokens, one chunk per ``step()``. ``enc_max_len``
     (T5) bounds the encoder prompt and sizes the pinned cross buffers."""
 
@@ -262,7 +274,7 @@ class ServingEngine:
             needed = len(prompt_ids) + max_new_tokens
         if needed > self.max_pages_per_seq * self.page_size:
             raise KVCacheError("request exceeds max sequence capacity")
-        if self._family == "causal" and needed > self.cfg.n_positions:
+        if isinstance(self.cfg, GPT2Config) and needed > self.cfg.n_positions:
             raise KVCacheError(
                 f"request needs {needed} positions; the model has {self.cfg.n_positions}"
             )

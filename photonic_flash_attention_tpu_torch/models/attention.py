@@ -58,6 +58,16 @@ def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
+def model_device(device) -> torch.device:
+    """Where a model is made: the card unless the caller asks for another
+    device; without CUDA the card raises instead of falling back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("models are made on the card by default and CUDA is not available; "
+                           "pass device='cpu' to run on the CPU")
+    return dev
+
+
 def padding_mask_to_lens_bias(keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, Skv) boolean keep-mask -> (kv_lens (B,) int32: last kept
     position + 1, k_bias (B, Skv) fp32: 0 = attend, mask value = ignore)."""

@@ -1,11 +1,16 @@
-"""Load the JAX package's GPT-2 and T5 weights into the port.
+"""Load the JAX package's GPT-2, T5, Llama and BERT weights into the port.
 
-``params_from_jax`` turns the Flax ``GPT2LMHead`` parameter tree (scanned
-layout: every layer leaf stacked on a leading (L,) axis, leaves as numpy
-arrays or anything ``np.asarray`` takes) into a ``state_dict`` for
-``models/gpt2.py::GPT2LMHead``; ``t5_params_from_jax`` does the same for
-the Flax ``T5ForConditionalGeneration`` tree (``{"model": {"shared",
-"encoder", "decoder"}}``, blocks stacked on L) and ``models/t5.py``. Flax
+``params_from_jax``, ``llama_params_from_jax`` and ``bert_params_from_jax``
+turn the Flax ``GPT2LMHead`` (``h/block`` scanned), ``LlamaForCausalLM``
+(``layers/layer``) and ``BertModel`` (``encoder/layer``) parameter trees
+(every layer leaf stacked on a leading (L,) axis, leaves as numpy arrays
+or anything ``np.asarray`` takes) into state_dicts for
+``models/gpt2.py::GPT2LMHead``, ``models/llama.py`` and ``models/bert.py``
+through one walker: layer i of the scanned subtree ``name/<inner>``
+becomes ``name.{i}``, every other leaf keeps its path.
+``t5_params_from_jax`` does the same for the Flax
+``T5ForConditionalGeneration`` tree (``{"model": {"shared", "encoder",
+"decoder"}}``, blocks stacked on L) and ``models/t5.py``. Flax
 ``Dense.kernel`` is (in, out) and ``nn.Linear.weight`` is (out, in), so
 kernels are transposed; a norm's ``scale`` becomes ``weight``; T5's
 ``rel_embedding`` stays (num_buckets, H). No JAX import: the tree is plain
@@ -19,15 +24,10 @@ params) onto the port's parameter names and compare them with the port's
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
-
-_DENSE = {
-    "attn": ("q_proj", "k_proj", "v_proj", "out_proj"),
-    "mlp": ("c_fc", "c_proj"),
-}
 
 
 def _t(x: Any) -> torch.Tensor:
@@ -37,26 +37,7 @@ def _t(x: Any) -> torch.Tensor:
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax GPT2LMHead params (with or without the outer ``{"params": ...}``)
     -> GPT2LMHead state_dict (float32 CPU tensors)."""
-    p = tree.get("params", tree)
-    sd = {
-        "wte": _t(p["wte"]),
-        "wpe": _t(p["wpe"]),
-        "ln_f.weight": _t(p["ln_f"]["scale"]),
-        "ln_f.bias": _t(p["ln_f"]["bias"]),
-    }
-    blk = p["h"]["block"]
-    n_layer = np.asarray(blk["ln_1"]["scale"]).shape[0]
-    for i in range(n_layer):
-        pre = f"h.{i}."
-        for ln in ("ln_1", "ln_2"):
-            sd[f"{pre}{ln}.weight"] = _t(np.asarray(blk[ln]["scale"])[i])
-            sd[f"{pre}{ln}.bias"] = _t(np.asarray(blk[ln]["bias"])[i])
-        for group, names in _DENSE.items():
-            for name in names:
-                leaf = blk[group][name]
-                sd[f"{pre}{group}.{name}.weight"] = _t(np.asarray(leaf["kernel"])[i].T)
-                sd[f"{pre}{group}.{name}.bias"] = _t(np.asarray(leaf["bias"])[i])
-    return sd
+    return _scanned_params_from_jax(tree, "h")
 
 
 def t5_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -81,3 +62,55 @@ def t5_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                         sd[f"{pre}blocks.{i}.{name}.{sub}.weight"] = _t(
                             np.asarray(arr["kernel"])[i].T)
     return sd
+
+
+def _add_subtree(sd: Dict[str, torch.Tensor], pre: str, node: Mapping[str, Any],
+                 layer: Optional[int] = None) -> None:
+    """A Flax subtree (layer ``layer`` of its scanned leaves) into ``sd``
+    under ``pre``: ``kernel`` -> ``weight`` transposed, ``scale`` ->
+    ``weight``, ``bias`` and raw parameters by name."""
+    for name, leaf in node.items():
+        if isinstance(leaf, Mapping):
+            _add_subtree(sd, f"{pre}{name}.", leaf, layer)
+            continue
+        arr = np.asarray(leaf) if layer is None else np.asarray(leaf)[layer]
+        key = "weight" if name in ("kernel", "scale") else name
+        sd[pre + key] = _t(arr.T if name == "kernel" else arr)
+
+
+def _scanned_params_from_jax(tree: Mapping[str, Any], stack: str) -> Dict[str, torch.Tensor]:
+    """A Flax tree whose ``stack/<inner>`` subtree is scanned on L ->
+    state_dict with that subtree as ``stack.{i}``."""
+    p = dict(tree.get("params", tree))
+    (scanned,) = p.pop(stack).values()
+    sd: Dict[str, torch.Tensor] = {}
+    _add_subtree(sd, "", p)
+    n_layer = np.asarray(next(iter(_leaves(scanned)))).shape[0]
+    for i in range(n_layer):
+        _add_subtree(sd, f"{stack}.{i}.", scanned, i)
+    return sd
+
+
+def _leaves(node: Mapping[str, Any]):
+    for leaf in node.values():
+        if isinstance(leaf, Mapping):
+            yield from _leaves(leaf)
+        else:
+            yield leaf
+
+
+def llama_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax LlamaForCausalLM params (with or without the outer
+    ``{"params": ...}``) -> ``models/llama.py::LlamaForCausalLM`` state_dict
+    (float32 CPU tensors). The untied head's (E, V) ``lm_head`` becomes
+    ``lm_head.weight`` (V, E)."""
+    sd = _scanned_params_from_jax(tree, "layers")
+    if "lm_head" in sd:
+        sd["lm_head.weight"] = sd.pop("lm_head").T.contiguous()
+    return sd
+
+
+def bert_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax BertModel params (with or without the outer ``{"params": ...}``)
+    -> ``models/bert.py::BertModel`` state_dict (float32 CPU tensors)."""
+    return _scanned_params_from_jax(tree, "encoder")

@@ -21,21 +21,23 @@ weights through ``models/from_jax.py`` instead.
 
 Submodule names follow the Flax tree (``h.{i}.attn.q_proj`` is
 ``h/block/attn/q_proj`` at layer i); ``nn.Linear.weight`` is the Flax
-kernel transposed.
+kernel transposed. ``transfer_hf_gpt2`` carries an HF (torch) GPT-2's
+weights across; ``load_hf_gpt2`` needs a download and is not called by any
+test.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import fold_seed
-from .attention import PhotonicFlashAttention, dense
+from .attention import PhotonicFlashAttention, dense, model_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,3 +153,51 @@ class GPT2LMHead(nn.Module):
             x = block(x, fold_seed(dropout_seed, i) if drop else None)
         x = layer_norm(x, self.ln_f)
         return x @ self.wte.to(dt).T
+
+
+# ---------------------------------------------------------------------------
+# HF weight transfer
+# ---------------------------------------------------------------------------
+
+
+def transfer_hf_gpt2(hf: Any, dtype: torch.dtype = torch.bfloat16, device: Any = "cuda"
+                     ) -> Tuple[GPT2LMHead, Dict[str, torch.Tensor], GPT2Config]:
+    """An HF (torch) ``GPT2LMHeadModel`` or bare ``GPT2Model`` (its keys
+    are given the ``transformer.`` prefix) -> (the port's ``GPT2LMHead``
+    with its weights on ``device``, the card by default, its state_dict,
+    the config). HF's ``Conv1D`` keeps
+    (in, out) kernels with Q, K and V side by side in ``c_attn``: split on
+    the output axis and transposed to ``nn.Linear``'s (out, in)."""
+    sd = {k: v.detach().float().cpu() for k, v in hf.state_dict().items()}
+    if not any(k.startswith("transformer.") for k in sd):
+        sd = {f"transformer.{k}": v for k, v in sd.items()}
+    hf_cfg = hf.config
+    cfg = GPT2Config(vocab_size=hf_cfg.vocab_size, n_positions=hf_cfg.n_positions,
+                     n_embd=hf_cfg.n_embd, n_layer=hf_cfg.n_layer, n_head=hf_cfg.n_head,
+                     layer_norm_epsilon=hf_cfg.layer_norm_epsilon, dtype=dtype)
+    out = {"wte": sd["transformer.wte.weight"], "wpe": sd["transformer.wpe.weight"]}
+    for wb in ("weight", "bias"):
+        out[f"ln_f.{wb}"] = sd[f"transformer.ln_f.{wb}"]
+        for i in range(cfg.n_layer):
+            src, dst = f"transformer.h.{i}.", f"h.{i}."
+            for ln in ("ln_1", "ln_2"):
+                out[f"{dst}{ln}.{wb}"] = sd[f"{src}{ln}.{wb}"]
+            convs = {f"attn.{name}": part for name, part in zip(
+                ("q_proj", "k_proj", "v_proj"), sd[f"{src}attn.c_attn.{wb}"].chunk(3, dim=-1))}
+            convs["attn.out_proj"] = sd[f"{src}attn.c_proj.{wb}"]
+            for name in ("c_fc", "c_proj"):
+                convs[f"mlp.{name}"] = sd[f"{src}mlp.{name}.{wb}"]
+            for name, x in convs.items():
+                out[f"{dst}{name}.{wb}"] = x.T.contiguous() if wb == "weight" else x.contiguous()
+    model = GPT2LMHead(cfg)
+    model.load_state_dict(out)
+    model.to(model_device(device))
+    return model, model.state_dict(), cfg
+
+
+def load_hf_gpt2(model_name: str = "gpt2", dtype: torch.dtype = torch.bfloat16,
+                 device: Any = "cuda"):
+    """Load HF GPT-2 weights into the port (downloads: no test calls it)."""
+    from transformers import GPT2LMHeadModel
+
+    return transfer_hf_gpt2(GPT2LMHeadModel.from_pretrained(model_name), dtype, device)

@@ -63,8 +63,16 @@ class KVPages:
         cfg: GPT2Config, num_pages: int, page_size: int,
         dtype: torch.dtype = torch.bfloat16, device: Any = "cuda",
     ) -> "KVPages":
-        head_dim = cfg.n_embd // cfg.n_head
-        shape = (cfg.n_layer, cfg.n_head, num_pages, page_size, head_dim)
+        return KVPages.zeros(cfg.n_layer, cfg.n_head, num_pages, page_size,
+                             cfg.n_embd // cfg.n_head, dtype, device)
+
+    @staticmethod
+    def zeros(
+        n_layer: int, n_kv_heads: int, num_pages: int, page_size: int, head_dim: int,
+        dtype: torch.dtype = torch.bfloat16, device: Any = "cuda",
+    ) -> "KVPages":
+        """Zeroed pools of any family (int8 pools: scales 1)."""
+        shape = (n_layer, n_kv_heads, num_pages, page_size, head_dim)
         quant = dtype == torch.int8
         sshape = shape[:4]
         return KVPages(
@@ -133,6 +141,13 @@ def _mlp(x, p, eps):
     return x + _dense(m, p["c_proj"])
 
 
+def _last_valid(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """(B, S, E) -> (B, E): row b's token ``lens[b] - 1`` (clamped to the
+    row), the last real token of a prompt or chunk."""
+    idx = (lens.to(x.device).long() - 1).clamp(0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
 @torch.no_grad()
 def prefill_step(
     params: Dict[str, Any],
@@ -160,9 +175,7 @@ def prefill_step(
         attn = flash_attention_best(qh, kh, vh, causal=True).reshape(b, s, h * d)
         x = _mlp(x + _dense(attn, p["out_proj"]), p, eps)
     x = _layer_norm(x, params["ln_f"], eps)
-    idx = (prompt_lengths.to(x.device).long() - 1).clamp(0, s - 1)
-    x_last = x[torch.arange(b, device=x.device), idx]
-    return (x_last @ params["wte"].T).float()
+    return (_last_valid(x, prompt_lengths) @ params["wte"].T).float()
 
 
 def _gather_history(pages: KVPages, page_tables: torch.Tensor, lyr: int, n_hist_pages: int):
@@ -181,6 +194,40 @@ def _gather_history(pages: KVPages, page_tables: torch.Tensor, lyr: int, n_hist_
         return g.float() * sc[..., None]
 
     return gather(pages.k, pages.k_scales), gather(pages.v, pages.v_scales)
+
+
+def _chunk_key_bias(chunk_start: torch.Tensor, chunk_lens: torch.Tensor, s_hist: int,
+                    c: int) -> torch.Tensor:
+    """(B, s_hist + C) float32 per-key bias over [history || chunk]: the
+    mask value on the history past ``chunk_start`` (not yet written) and on
+    the chunk's padding, 0 elsewhere."""
+    device = chunk_start.device
+    dead = torch.cat(
+        [
+            torch.arange(s_hist, device=device)[None] >= chunk_start[:, None],
+            torch.arange(c, device=device)[None] >= chunk_lens[:, None],
+        ],
+        dim=1,
+    )
+    return torch.where(dead, DEFAULT_MASK_VALUE, 0.0).to(torch.float32)
+
+
+def _attend_chunk(pages: KVPages, page_tables: torch.Tensor, lyr: int, n_hist_pages: int,
+                  q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slots: torch.Tensor,
+                  k_bias: torch.Tensor) -> torch.Tensor:
+    """One layer of a chunk's attention: gather the row's first
+    ``n_hist_pages`` pages, write the chunk's (B, C, Hkv, D) K/V into the
+    pool, and run ONE K1 call over [history || chunk] (end-aligned causal
+    masking covers the chunk triangle, ``k_bias`` the rest). Returns
+    (B, C, Hq, D)."""
+    b, c, hkv, d = k.shape
+    k_cat, v_cat = k, v
+    if n_hist_pages > 0:
+        k_hist, v_hist = _gather_history(pages, page_tables, lyr, n_hist_pages)
+        k_cat = torch.cat([k_hist.to(q.dtype), k], dim=1)
+        v_cat = torch.cat([v_hist.to(q.dtype), v], dim=1)
+    _decode_write(pages, k.reshape(b * c, hkv, d), v.reshape(b * c, hkv, d), slots, lyr)
+    return flash_attention(q, k_cat, v_cat, causal=True, k_bias=k_bias)
 
 
 @torch.no_grad()
@@ -214,32 +261,17 @@ def prefill_chunk_step(
         0, cfg.n_positions - 1
     )
     x = _embed(params, input_ids, positions)
-    dead = torch.cat(
-        [
-            torch.arange(s_hist, device=device)[None] >= chunk_start[:, None],
-            torch.arange(c, device=device)[None] >= chunk_lens[:, None],
-        ],
-        dim=1,
-    )
-    k_bias = torch.where(dead, DEFAULT_MASK_VALUE, 0.0).to(torch.float32)
+    k_bias = _chunk_key_bias(chunk_start, chunk_lens, s_hist, c)
     slots = flat_slots.reshape(b * c)
     for lyr, p in enumerate(params["layers"]):
         h_in = _layer_norm(x, p["ln_1"], eps)
         qh = _dense(h_in, p["q_proj"]).reshape(b, c, h, d)
         kh = _dense(h_in, p["k_proj"]).reshape(b, c, h, d)
         vh = _dense(h_in, p["v_proj"]).reshape(b, c, h, d)
-        k_cat, v_cat = kh, vh
-        if n_hist_pages > 0:
-            k_hist, v_hist = _gather_history(pages, page_tables, lyr, n_hist_pages)
-            k_cat = torch.cat([k_hist.to(qh.dtype), kh], dim=1)
-            v_cat = torch.cat([v_hist.to(qh.dtype), vh], dim=1)
-        _decode_write(pages, kh.reshape(b * c, h, d), vh.reshape(b * c, h, d), slots, lyr)
-        attn = flash_attention(qh, k_cat, v_cat, causal=True, k_bias=k_bias)
+        attn = _attend_chunk(pages, page_tables, lyr, n_hist_pages, qh, kh, vh, slots, k_bias)
         x = _mlp(x + _dense(attn.reshape(b, c, h * d), p["out_proj"]), p, eps)
     x = _layer_norm(x, params["ln_f"], eps)
-    idx = (chunk_lens - 1).clamp(0, c - 1)
-    x_last = x[torch.arange(b, device=device), idx]
-    return (x_last @ params["wte"].T).float()
+    return (_last_valid(x, chunk_lens) @ params["wte"].T).float()
 
 
 @torch.no_grad()

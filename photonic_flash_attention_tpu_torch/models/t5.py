@@ -44,7 +44,7 @@ from torch import nn
 from ..config import get_config
 from ..ops.flash import flash_attention
 from ..ops.rel_bias import T5RelBias, materialize
-from .attention import dense, dispatch_attention
+from .attention import dense, dispatch_attention, model_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,11 +307,11 @@ class T5ForConditionalGeneration(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def transfer_hf_t5(hf_model: Any, dtype: torch.dtype = torch.bfloat16
+def transfer_hf_t5(hf_model: Any, dtype: torch.dtype = torch.bfloat16, device: Any = "cuda"
                    ) -> Tuple[nn.Module, Dict[str, torch.Tensor], T5Config]:
     """An HF (torch) ``T5Model`` / ``T5ForConditionalGeneration`` -> (the
-    port's model of the same kind with its weights, its state_dict, the
-    config). HF's (out, in) Linear weights are the port's as they are; the
+    port's model of the same kind with its weights on ``device``, the card
+    by default, its state_dict, the config). HF's (out, in) Linear weights are the port's as they are; the
     layer-0 ``relative_attention_bias`` becomes the stack's table; the
     layer norms' weights map by name."""
     sd = {k: v.detach().float().cpu() for k, v in hf_model.state_dict().items()}
@@ -360,11 +360,13 @@ def transfer_hf_t5(hf_model: Any, dtype: torch.dtype = torch.bfloat16
             out[f"{dst}.ffn_ln.weight"] = sd[f"{src}.{ffn}.layer_norm.weight"]
     model = T5ForConditionalGeneration(cfg) if lm else T5Model(cfg)
     model.load_state_dict(out)
-    return model, out, cfg
+    model.to(model_device(device))
+    return model, model.state_dict(), cfg
 
 
-def load_hf_t5(model_name: str = "t5-small", dtype: torch.dtype = torch.bfloat16):
+def load_hf_t5(model_name: str = "t5-small", dtype: torch.dtype = torch.bfloat16,
+               device: Any = "cuda"):
     """Load HF T5 weights into the port (downloads: no test calls it)."""
     from transformers import T5ForConditionalGeneration as HFT5
 
-    return transfer_hf_t5(HFT5.from_pretrained(model_name), dtype)
+    return transfer_hf_t5(HFT5.from_pretrained(model_name), dtype, device)

@@ -21,18 +21,10 @@ import photonic_flash_attention_tpu_torch.hardware as port_hardware
 import photonic_flash_attention_tpu_torch.models as port_models
 import photonic_flash_attention_tpu_torch.ops as port_ops
 
-#: Top-level names not ported yet: model conversion (ROADMAP A10).
-NOT_PORTED = {"convert_to_photonic"}
-#: ``models`` names not ported yet: BERT and conversion (A10), Llama (A8),
-#: ``param_sharding_rules`` (A12); the ``load_hf_*`` functions that
-#: download (``load_hf_gpt2``, ``load_hf_bert``, ``load_hf_llama``) go with
-#: their models' slices.
-MODELS_NOT_PORTED = {
-    "AttentionLayerDetector", "BertConfig", "BertModel", "ConversionReport", "LlamaConfig",
-    "LlamaForCausalLM", "PhotonicConfig", "convert_to_photonic", "llama_param_sharding_rules",
-    "load_hf_bert", "load_hf_gpt2", "load_hf_llama", "param_sharding_rules", "transfer_hf_bert",
-    "transfer_hf_llama",
-}
+#: Top-level names not ported yet: none.
+NOT_PORTED: set = set()
+#: ``models`` names not ported yet: the sharding rules (ROADMAP A12).
+MODELS_NOT_PORTED = {"llama_param_sharding_rules", "param_sharding_rules"}
 
 #: ``hardware`` names not ported yet: the design-space simulators (A14, later).
 HARDWARE_NOT_PORTED = {"CollectiveCost", "KernelPipelineSimulator", "PipelinePrediction",

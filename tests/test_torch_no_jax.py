@@ -35,22 +35,35 @@ def _port_modules():
     return names
 
 
-def test_every_module_imports_with_jax_blocked():
-    modules = _port_modules() + ["chip_smoke"]
+#: The modules of the model families and the HF conversion, whose
+#: ``transfer_hf_*`` / ``load_hf_*`` / ``convert_to_photonic`` alone use
+#: ``transformers`` (imported inside the call).
+MODEL_MODULES = ("models.llama", "models.llama_serving", "models.bert", "models.convert",
+                 "models.gpt2", "models.t5", "core.serving")
+
+
+def _import_blocked(modules, blocked) -> subprocess.CompletedProcess:
+    """Import ``modules`` in a fresh interpreter where ``blocked`` cannot be
+    imported; fails if any of them was imported all the same."""
     code = (
         "import sys\n"
-        f"for name in {BLOCKED!r}:\n"
+        f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None  # any import of it raises ImportError\n"
         "import importlib\n"
         f"for mod in {modules!r}:\n"
         "    importlib.import_module(mod)\n"
-        f"leaked = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r} "
+        f"leaked = [m for m in sys.modules if m.split('.')[0] in {blocked!r} "
         "and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"
     )
-    proc = subprocess.run(
+    return subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
+
+
+def test_every_module_imports_with_jax_blocked():
+    modules = _port_modules() + ["chip_smoke"]
+    proc = _import_blocked(modules, BLOCKED)
     assert proc.returncode == 0, proc.stderr
     assert len(_port_modules()) >= 30
     for name in ("config", "ops.fused", "ops.flash_bwd", "ops.flash_fp8", "training.data",
@@ -59,8 +72,19 @@ def test_every_module_imports_with_jax_blocked():
                  "ops.nonlinearity", "ops.quantization", "ops.hbm_bw", "ops.device_probes",
                  "hardware", "hardware.detection", "hardware.roofline", "experiments",
                  "experiments.flash_fixedmax_experiment", "experiments.flash_aug_experiment",
-                 "experiments.flash_pair_experiment", "experiments.flash_pipeline_experiment"):
+                 "experiments.flash_pair_experiment", "experiments.flash_pipeline_experiment",
+                 *MODEL_MODULES):
         assert f"{port.__name__}.{name}" in modules
+
+
+def test_model_modules_import_with_transformers_blocked():
+    """The card has no ``transformers``: every module (the new model
+    families and the conversion among them) and ``chip_smoke.py`` import
+    without it, JAX blocked as well."""
+    modules = _port_modules() + ["chip_smoke"]
+    assert all(f"{port.__name__}.{name}" in modules for name in MODEL_MODULES)
+    proc = _import_blocked(modules, BLOCKED + ("transformers",))
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize(

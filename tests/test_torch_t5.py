@@ -204,7 +204,7 @@ def _hf_pair(lm_head):
                                    num_decoder_layers=2, num_heads=4, dropout_rate=0.0)
     cls = transformers.T5ForConditionalGeneration if lm_head else transformers.T5Model
     hf = cls(hf_cfg).eval()
-    return hf, transfer_hf_t5(hf, dtype=torch.float32)
+    return hf, transfer_hf_t5(hf, dtype=torch.float32, device="cpu")
 
 
 @pytest.mark.parametrize("lm_head", [False, True], ids=["decoder_states", "lm_logits"])
