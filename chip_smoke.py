@@ -120,6 +120,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    launch count must grow; the first step must agree with the dense model;
    then the same requests with ``prefill_chunk=256`` (K1 with the key-bias
    stream): the same first tokens, last-prompt logits within a bound;
+6a. durable path: a ``PagedKVCache`` on the card at Llama-2-7B's decode
+   width (Hkv 32, D 128, page 128; int8 and bf16 pools; 8 sequences, each
+   prompt appended as one run, then four single tokens): K3
+   (``paged_attention``) on the cache's tensors against its plain version,
+   ``gather_kv`` against the appended inputs within the pool's rounding,
+   ``save_kv_cache``/``restore_kv_cache`` bit-exact; GPT-2 medium at full
+   width (int8 pool, page 128, 8 requests of 17-992 tokens, 32 new
+   tokens) on the native allocator and scheduler, then stopped after 12
+   steps, saved, restored into a fresh engine and finished: its tokens
+   equal the uninterrupted run's, greedy and sampled; the same at
+   T5-large's width cut to 2+2 layers (the pinned cross buffers); save
+   and restore ms and checkpoint bytes printed; GPT-2 medium's width cut
+   to 4 layers trained 2 AdamW steps, saved through ``CheckpointManager``,
+   restored into a fresh model and optimizer: step 3's loss and parameters
+   bit-equal to the uninterrupted step 3;
 6b. llama path: Llama-2-7B at full width and depth (32 layers; random bf16
    weights from seed 0, made on the card), then GQA at Llama-2-70B's width
    (64 query heads over 8 KV heads) cut to 2 layers, each served through
@@ -215,6 +230,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -609,7 +625,10 @@ SASS_DIFF_KINDS = ("K1", "K4", "K5", "K20", "K21", "quant", "K18i8", "exp", "aug
                    "probe")
 
 
+@functools.lru_cache(maxsize=None)
 def _cuobjdump(flag: str, path: Path) -> str:
+    """``cuobjdump flag path``'s output, dumped once a library: the SASS
+    checks all read the same dump."""
     return subprocess.run(["cuobjdump", flag, str(path)], check=True, capture_output=True,
                           text=True).stdout
 
@@ -646,15 +665,16 @@ def sm90_sass(path: Path) -> tuple:
     library's SASS (``cuobjdump -sass``) and its registers, stack, shared
     and local bytes (``cuobjdump -res-usage``; stack = spills), keyed by
     ``_sm90_key``."""
+    ops = (*GMMA_OPS, "UTMALDG", "UBLKCP", "HMMA", "IMMA")
+    op_re = re.compile(rf"\b({'|'.join(ops)})\b")
     counts, cur = {}, None
     for line in _cuobjdump("-sass", path).splitlines():
         if "Function :" in line:
             cur = _sm90_key(line)
             if cur:
-                counts[cur] = collections.Counter()
+                counts[cur] = collections.Counter(dict.fromkeys(ops, 0))
         elif cur:
-            for op in (*GMMA_OPS, "UTMALDG", "UBLKCP", "HMMA", "IMMA"):
-                counts[cur][op] += len(re.findall(rf"\b{op}\b", line))
+            counts[cur].update(op_re.findall(line))
     usage = {}
     for m in re.finditer(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
                          _cuobjdump("-res-usage", path)):
@@ -675,16 +695,16 @@ def check_k3_sass(path: Path) -> None:
     one's counts, registers and stack; all 16 must be there, each with a
     bulk copy and no stack."""
     names = {"a": "int8", "f": "fp32", "13__nv_bfloat16": "bf16"}
+    op_re = re.compile(r"\b(UBLKCP|SYNCS)\b")
     ops, cur = {}, None
     for line in _cuobjdump("-sass", path).splitlines():
         if "Function :" in line:
             m = K3_SM90.search(line)
             cur = (names[m.group(1)], int(m.group(2)), int(m.group(3)), m.group(4) == "1") if m else None
             if cur:
-                ops[cur] = collections.Counter()
+                ops[cur] = collections.Counter(UBLKCP=0, SYNCS=0)
         elif cur:
-            for op in ("UBLKCP", "SYNCS"):
-                ops[cur][op] += len(re.findall(rf"\b{op}\b", line))
+            ops[cur].update(op_re.findall(line))
     usage = {}
     for m in re.finditer(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+)", _cuobjdump("-res-usage", path)):
         if k := K3_SM90.search(m.group(1)):
@@ -2738,18 +2758,42 @@ PROMPT_LENS = (17, 64, 100, 128, 256, 300, 512, 700)
 NEW_TOKENS = 33
 
 
+@functools.lru_cache(maxsize=None)
+def gpt2_medium_state() -> dict:
+    """GPT-2 medium's weights (Flax's initialisers, a CPU generator seeded 0),
+    drawn once: the serving, durable and training paths all use them."""
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+    t0 = time.perf_counter()
+    model = GPT2LMHead(GPT2Config.medium(), generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    print(f"main path: GPT-2 medium init {time.perf_counter() - t0:.1f} s "
+          f"({sum(v.numel() for v in state.values()) / 1e6:.1f} M params)", flush=True)
+    return state
+
+
+def gpt2_medium_on_card(cfg):
+    """A GPT-2 of ``cfg`` (GPT-2 medium, or its depth cut) made on the card
+    with :func:`gpt2_medium_state`'s weights (the first ``cfg.n_layer``
+    layers)."""
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2LMHead
+
+    with torch.device("cuda"):
+        model = GPT2LMHead(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    model.load_state_dict({k: v for k, v in gpt2_medium_state().items()
+                           if not k.startswith("h.") or int(k.split(".")[1]) < cfg.n_layer})
+    return model
+
+
 def phase_serving(smi: str) -> dict:
     from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
-    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config
     from photonic_flash_attention_tpu_torch.models.gpt2_serving import (
         KVPages, prefill_step, prepare_params,
     )
 
     cfg = GPT2Config.medium()
-    t0 = time.perf_counter()
-    model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0))
-    print(f"main path: GPT-2 medium init {time.perf_counter() - t0:.1f} s "
-          f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params)", flush=True)
+    model = gpt2_medium_on_card(cfg)
     engine = ServingEngine(
         cfg, model.state_dict(), device="cuda", num_pages=256, page_size=128,
         max_batch=8, kv_dtype=torch.int8, decode_window=32,
@@ -2809,6 +2853,274 @@ def phase_serving(smi: str) -> dict:
         raise AssertionError(line)
     print(line, flush=True)
     return collections.Counter(launches) + collections.Counter(chunked_launches)
+
+
+# -- durable path: the KV cache, serving checkpoints, training resume -------
+
+#: The KV cache at Llama-2-7B's decode width (K3 (b)'s heads and D).
+DURABLE_CACHE = dict(hkv=32, hq=32, d=128, page=128)
+DURABLE_CACHE_LENS = (17, 100, 128, 300, 512, 700, 1500, 2000)
+#: GPT-2 medium served, saved after DURABLE_SAVE_AFTER steps, restored
+#: (the longest prompt and its new tokens fill the 1024 positions).
+DURABLE_PROMPT_LENS = (17, 64, 100, 128, 300, 512, 700, 992)
+DURABLE_NEW_TOKENS = 32
+#: Windows of 2 decode steps: 16 windows a request, so the save after 12
+#: steps falls mid-generation.
+DURABLE_WINDOW = 2
+DURABLE_SAVE_AFTER = 12
+DURABLE_SAMPLING = dict(temperature=0.8, top_k=50, seed=1234)
+#: K3 against its plain version (check_paged_attention's bound).
+DURABLE_K3_BOUND = 1e-3
+#: Training resume at GPT-2 medium's width cut to this many layers.
+RESUME_LAYERS = 4
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _check_kv_cache(smi: str, tmp: str) -> None:
+    """PagedKVCache on the card at Llama-2-7B's decode width, int8 and bf16
+    pools: each prompt appended as one run, then four single tokens; K3
+    (``paged_attention``) on the cache's own tensors against its plain
+    version; ``gather_kv`` against the appended inputs within the pool's
+    rounding (int8: half a per-token step, absmax/254; bf16: 2^-8
+    relative); save/restore bit-exact on the card."""
+    from photonic_flash_attention_tpu_torch.core.checkpoint import (
+        restore_kv_cache, save_kv_cache,
+    )
+    from photonic_flash_attention_tpu_torch.core.kv_cache import PagedKVCache
+
+    hkv, hq, d, page = (DURABLE_CACHE[k] for k in ("hkv", "hq", "d", "page"))
+    lens = DURABLE_CACHE_LENS
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    num_pages = sum(-(-(n + 4) // page) for n in lens) + 1
+    for dtype in (torch.int8, torch.bfloat16):
+        cache = PagedKVCache(num_pages, page, hkv, d, dtype=dtype, max_pages_per_seq=32,
+                             device="cuda")
+        sids = [cache.allocate_sequence() for _ in lens]
+        appended = []
+        for sid, n in zip(sids, lens):
+            runs = [torch.randn(m, hkv, d, device="cuda", generator=gen) for m in (n, 1, 1, 1, 1)]
+            runs = [(k, 0.5 * torch.randn(k.shape, device="cuda", generator=gen)) for k in runs]
+            for k, v in runs:
+                cache.append(sid, k, v)
+            appended.append((torch.cat([k for k, _ in runs]), torch.cat([v for _, v in runs])))
+        worst = 0.0
+        for sid, (k, v) in zip(sids, appended):
+            for got, x in zip(cache.gather_kv(sid), (k, v)):
+                if dtype == torch.int8:
+                    bound = x.abs().amax(-1, keepdim=True) * (1 / 254 + 2.0 ** -22)
+                else:
+                    bound = x.abs() * 2.0 ** -8
+                excess = float(((got - x).abs() - bound).max())
+                if excess > 0:
+                    raise AssertionError(f"durable path: gather_kv off the {dtype} rounding "
+                                         f"bound by {excess:.3e}")
+                worst = max(worst, float((got - x).abs().max()))
+        lengths, tables = cache.page_table(sids)
+        qdt = torch.float32 if dtype == torch.int8 else torch.bfloat16
+        q = torch.randn(len(lens), hq, d, device="cuda", generator=gen).to(qdt)
+        out = paged_ops.paged_attention(q, cache.k_pages, cache.v_pages, lengths, tables,
+                                        cache.k_scales, cache.v_scales)
+        k5, v5, ks5, vs5, lyr = paged_ops._hf_layout(cache.k_pages, cache.v_pages,
+                                                     cache.k_scales, cache.v_scales, None)
+        ref = paged_ops.paged_decode_attend_plain(q.float(), k5, v5, lengths, tables, lyr, ks5,
+                                                  vs5, d ** -0.5).to(qdt)
+        err = rel_err_norm(out, ref)
+        line = (f"durable path: PagedKVCache {str(dtype)[6:]} H{hkv} D{d} page {page}, "
+                f"{len(lens)} sequences of {lens[0] + 4}-{lens[-1] + 4} tokens: gather_kv max "
+                f"abs err {worst:.3e} (within the pool's rounding); K3 paged_attention on the "
+                f"cache's tensors rel_err_norm {err:.3e} (bound {DURABLE_K3_BOUND:g})")
+        if not err <= DURABLE_K3_BOUND or not torch.isfinite(out).all():
+            raise AssertionError(line)
+        path = str(Path(tmp) / f"kv_{str(dtype)[6:]}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_kv_cache(cache, path)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back = restore_kv_cache(path, device="cuda")
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+            a, b = getattr(cache, name), getattr(back, name)
+            if not ((a is None and b is None) or torch.equal(a, b)):
+                raise AssertionError(f"durable path: restore_kv_cache changed {name}")
+        if back.page_table(sids)[1].tolist() != tables.tolist():
+            raise AssertionError("durable path: restore_kv_cache changed the page tables")
+        print(f"{line}; save_kv_cache {save_ms:.1f} ms, restore_kv_cache {restore_ms:.1f} ms, "
+              f"{_dir_bytes(path)} bytes, bit-exact ({smi})", flush=True)
+        del cache, back
+    torch.cuda.empty_cache()
+
+
+def _resume_case(label: str, cfg, state, prompts, engine_kw: dict, tmp: str, smi: str,
+                 **sample) -> None:
+    """The uninterrupted run (native allocator and scheduler asserted), then
+    the interrupted one: DURABLE_SAVE_AFTER steps, ``save``, ``restore``
+    into a fresh engine, finish; the tokens must be equal."""
+    from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
+
+    kw = dict(engine_kw, **sample)
+    engine = ServingEngine(cfg, state, device="cuda", **kw)
+    st = engine.status()
+    if (st["allocator"], st["scheduler"]) != ("NativePageAllocator", "NativeRequestScheduler"):
+        raise AssertionError(f"durable path ({label}): engine on {st['allocator']} and "
+                             f"{st['scheduler']}, not the native pair")
+    want = engine.generate(prompts, max_new_tokens=DURABLE_NEW_TOKENS)
+    del engine
+
+    engine = ServingEngine(cfg, state, device="cuda", **kw)
+    sids = [engine.submit(p, DURABLE_NEW_TOKENS) for p in prompts]
+    for _ in range(DURABLE_SAVE_AFTER):
+        engine.step()
+    if all(engine._sequences[s].done for s in sids):
+        raise AssertionError(f"durable path ({label}): every request done before the save")
+    path = str(Path(tmp) / f"{label.replace(' ', '_')}_{'sampled' if sample else 'greedy'}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.save(path)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    del engine
+    t0 = time.perf_counter()
+    engine = ServingEngine.restore(path, cfg, state, device="cuda")
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    steps = 0
+    while not all(engine._sequences[s].done for s in sids):
+        if engine.step() == 0:
+            raise AssertionError(f"durable path ({label}): the restored engine stalled")
+        steps += 1
+    got = [engine._sequences[s].tokens[len(p):] for s, p in zip(sids, prompts)]
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"durable path ({label}): resumed tokens differ from the "
+                             f"uninterrupted run's in requests {bad}")
+    mode = (f"sampled (temperature {sample['temperature']}, top_k {sample['top_k']}, seed "
+            f"{sample['seed']})" if sample else "greedy")
+    print(f"durable path: {label} {mode}, {len(prompts)} requests x {DURABLE_NEW_TOKENS} "
+          f"tokens: saved after {DURABLE_SAVE_AFTER} steps, resumed {steps} steps, tokens equal "
+          f"to the uninterrupted run's; save {save_ms:.1f} ms, restore {restore_ms:.1f} ms, "
+          f"checkpoint {_dir_bytes(path)} bytes ({smi})", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def _check_serving_resume(smi: str, tmp: str) -> None:
+    """GPT-2 medium at full width (24 layers, int8 pool, page 128), then
+    T5-large's width cut to 2+2 layers (its pinned cross buffers in the
+    checkpoint), each greedy and sampled (``_resume_case``)."""
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config
+    from photonic_flash_attention_tpu_torch.models.t5 import T5Config
+
+    cfg = GPT2Config.medium()
+    state = gpt2_medium_on_card(cfg).state_dict()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in DURABLE_PROMPT_LENS]
+    kw = dict(num_pages=64, page_size=128, max_batch=8, kv_dtype=torch.int8,
+              decode_window=DURABLE_WINDOW)
+    for sample in ({}, DURABLE_SAMPLING):
+        _resume_case("GPT-2 medium int8 pool", cfg, state, prompts, kw, tmp, smi, **sample)
+    del state
+
+    t5cfg = dataclasses.replace(T5Config.large(), num_layers=2, num_decoder_layers=2)
+    state = _t5_model(t5cfg, "cuda", seed=3).state_dict()
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(2, t5cfg.vocab_size, n).tolist() for n in T5_PROMPT_LENS]
+    kw = dict(num_pages=64, page_size=128, max_batch=8, max_pages_per_seq=4,
+              kv_dtype=torch.int8, decode_window=DURABLE_WINDOW, enc_max_len=T5_ENC_MAX_LEN)
+    for sample in ({}, DURABLE_SAMPLING):
+        _resume_case("T5-large width 2+2 layers int8 pool", t5cfg, state, prompts, kw, tmp, smi,
+                     **sample)
+
+
+def _check_training_resume(smi: str, tmp: str) -> None:
+    """GPT-2 medium's width cut to RESUME_LAYERS layers (vocabulary 50257
+    kept), B TRAIN_BATCH S TRAIN_SEQ: two AdamW steps, the model, AdamW and
+    step saved through ``CheckpointManager``, a third step on the same
+    model; then a fresh model and optimizer restored from the checkpoint
+    take step 3: loss and parameters bit-equal (K1, K4 and K5 are
+    deterministic)."""
+    from photonic_flash_attention_tpu_torch.core.checkpoint import CheckpointManager
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from photonic_flash_attention_tpu_torch.training import Trainer, synthetic_lm_batches
+
+    cfg = dataclasses.replace(GPT2Config.medium(), n_layer=RESUME_LAYERS)
+
+    def fresh(seed: int):
+        with torch.device("cuda"):
+            model = GPT2LMHead(cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+        return model, torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                                        eps=1e-8, weight_decay=1e-4)
+
+    batch = next(synthetic_lm_batches(batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab_size,
+                                      seed=0))
+    model, opt = fresh(0)
+    trainer = Trainer(model, opt)
+    state = trainer.init_state()
+    for _ in range(2):
+        state, _ = trainer.train_step(state, batch)
+    mgr = CheckpointManager(str(Path(tmp) / "train"), max_to_keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = mgr.save(state.step, {"model": model.state_dict(), "optimizer": opt.state_dict(),
+                              "step": state.step})
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    state, metrics = trainer.train_step(state, batch)
+    want_loss = float(metrics["loss"])
+    want = {k: v.clone() for k, v in model.state_dict().items()}
+    del model, opt, trainer, state
+    torch.cuda.empty_cache()
+
+    model, opt = fresh(1)
+    t0 = time.perf_counter()
+    saved = mgr.restore()["params"]  # tensors on the devices they were saved from
+    model.load_state_dict(saved["model"])
+    opt.load_state_dict(saved["optimizer"])
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    trainer = Trainer(model, opt)
+    state = trainer.init_state()
+    state.step = saved["step"]
+    state, metrics = trainer.train_step(state, batch)
+    got_loss = float(metrics["loss"])
+    differ = [k for k, v in model.state_dict().items() if not torch.equal(v, want[k])]
+    line = (f"durable path: training resume, GPT-2 medium width {RESUME_LAYERS} layers "
+            f"B{TRAIN_BATCH} S{TRAIN_SEQ}: step {state.step} loss {got_loss:.6f} after restore, "
+            f"{want_loss:.6f} uninterrupted; {len(want) - len(differ)}/{len(want)} parameter "
+            f"tensors bit-equal; save {save_ms:.1f} ms, restore {restore_ms:.1f} ms, checkpoint "
+            f"{_dir_bytes(d)} bytes ({smi})")
+    if state.step != 3 or got_loss != want_loss or differ:
+        raise AssertionError(f"{line}; differing: {differ[:5]}")
+    print(line, flush=True)
+    del model, opt, trainer, state, saved, want
+    torch.cuda.empty_cache()
+
+
+def phase_durable(smi: str) -> dict:
+    """The durable path: the paged KV cache through K3 (``_check_kv_cache``),
+    serving resumed from a checkpoint (``_check_serving_resume``: K1
+    prefills, K3's fused decode) and training resumed at step 3
+    (``_check_training_resume``: K1, K4, K5). No failure is caught: a failed
+    native build, save or restore fails the run. Returns the path's
+    launches, counted from 0."""
+    import tempfile
+
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="pfa_durable_") as tmp:
+        _check_kv_cache(smi, tmp)
+        _check_serving_resume(smi, tmp)
+        _check_training_resume(smi, tmp)
+    launches = collections.Counter(_build.LAUNCHES)
+    need = ("pfa_paged_attention", "pfa_flash_fwd", "pfa_paged_decode_fused",
+            "pfa_paged_decode_fused_tbias", "pfa_flash_bwd_dkv", "pfa_flash_bwd_dq")
+    missing = [name for name in need if not launches.get(name, 0)]
+    if missing or launches["pfa_paged_attention"] != 2:
+        raise AssertionError(f"durable path: kernels not launched {missing}; launches "
+                             f"{dict(launches)}")
+    print(f"durable path: launches {dict(launches)}", flush=True)
+    return launches
 
 
 PREFILL_CHUNK = 256
@@ -3448,13 +3760,11 @@ def _train_run(cfg, label: str, kernels, smi: str, dropout_rng=None):
     warm-up step: the loss must fall and each of ``kernels`` launch once per
     layer and step. Returns (trainer, state, batch, the first
     CHECK_LAYERS layers' initial weights, launches, median step ms)."""
-    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2LMHead
     from photonic_flash_attention_tpu_torch.training import Trainer, synthetic_lm_batches
 
-    model = GPT2LMHead(cfg, generator=torch.Generator().manual_seed(0))
-    first_layers = {k: v.clone() for k, v in model.state_dict().items()
+    model = gpt2_medium_on_card(cfg)
+    first_layers = {k: v for k, v in gpt2_medium_state().items()
                     if not k.startswith("h.") or int(k.split(".")[1]) < CHECK_LAYERS}
-    model.to("cuda")
     # optax.adamw(1e-4)'s defaults (torch's default weight decay is 1e-2).
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=1e-4)
@@ -5771,22 +6081,34 @@ def main() -> None:
                       strict=hasattr(paged_ops, "k3_plan"))
         time_gpt2_decode(smi)
         return
-    phase_build()
-    results = phase_kernels(smi)
-    roofline_results, by_path, captured_by_path, rates = phase_roofline(
-        results["pfa_flash_fwd"], smi)
+    seconds = {}
+
+    def timed(name: str, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("build", phase_build)
+    results = timed("kernels", phase_kernels, smi)
+    roofline_results, by_path, captured_by_path, rates = timed(
+        "roofline", phase_roofline, results["pfa_flash_fwd"], smi)
     results.update(roofline_results)
-    experiment_results, experiment_launches, experiment_captured = phase_experiments(
-        smi, rates, check_experiments(results))
+    experiment_results, experiment_launches, experiment_captured = timed(
+        "experiments", phase_experiments, smi, rates, check_experiments(results))
     results.update(experiment_results)
     by_path.update(experiment_launches)
     captured_by_path.update(experiment_captured)
     # Each main path's launches, counted from 0 just before it.
-    by_path |= {"serving": phase_serving(smi), "llama": phase_llama(smi),
-                "bert": phase_bert(smi), "engine": phase_engine(smi),
-               "training": phase_training(smi, args.profile), "t5": phase_t5(smi, args.profile),
-               "t5_training": phase_t5_training(smi)}
-    ops_results, ops_launches = phase_ops(smi)
+    by_path |= {"serving": timed("serving", phase_serving, smi),
+                "durable": timed("durable", phase_durable, smi),
+                "llama": timed("llama", phase_llama, smi),
+                "bert": timed("bert", phase_bert, smi),
+                "engine": timed("engine", phase_engine, smi),
+                "training": timed("training", phase_training, smi, args.profile),
+                "t5": timed("t5", phase_t5, smi, args.profile),
+                "t5_training": timed("t5_training", phase_t5_training, smi)}
+    ops_results, ops_launches = timed("ops", phase_ops, smi)
     results.update(ops_results)
     by_path.update(ops_launches)
     launches = collections.Counter()
@@ -5819,6 +6141,7 @@ def main() -> None:
         # A mode that no main path runs (checked in the kernels phase only)
         # rides under its kernel's entry.
         next(k for k in kernels if k["name"] == parent).setdefault("modes", {})[label] = entry(mode)
+    print(f"chip_smoke: seconds by phase {seconds}", flush=True)
     print(f"chip_smoke: every phase in {time.perf_counter() - t_script:.1f} s ({smi})", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

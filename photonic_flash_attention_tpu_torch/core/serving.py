@@ -23,16 +23,26 @@ the GPT-2, Llama and T5 families (``_model_adapter``):
   request longer than its position table (``n_positions``); JAX refuses
   no Llama request by length, and neither does the port.
 
+* pages come from the native (C++) allocator and requests queue in the
+  native scheduler where the host can build them (``core/native_alloc.py``,
+  ``core/native_sched.py``), from their Python twins otherwise;
+* ``save`` persists a server mid-generation (every pool tensor, T5's
+  pinned cross buffers among them, as ``pages.npz``; the sequences, the
+  queue, the slots, the stats and the sampling counter as ``state.json``)
+  and ``restore`` resumes it on the same random stream: the tokens equal
+  an uninterrupted run's.
+
 The JAX window is one compiled ``lax.scan``; here it is a Python loop of
 eager steps (a CUDA graph is later work). The engine runs on the card
-unless the caller passes ``device="cpu"``. Not in this slice, each raising
-``NotImplementedError`` that names its ROADMAP item: the mesh (A12),
-save/restore (A13).
+unless the caller passes ``device="cpu"``. The mesh is not in this slice
+(``NotImplementedError``, ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
@@ -45,6 +55,8 @@ from ..models.llama import LlamaConfig
 from ..models.t5 import T5Config
 from ..ops.paged import POOL_DTYPES
 from ..utils.exceptions import KVCacheError
+from .checkpoint import atomic_savez, atomic_write_json, np_to_tensor, tensor_to_np
+from .native_alloc import NativePageAllocator, native_available
 from .native_sched import make_scheduler
 
 _TRASH_PAGE = 0  # page 0 is never allocated; padded/inactive writes land here
@@ -93,7 +105,8 @@ def _model_adapter(cfg, *, max_batch: int = 8, enc_max_len: int = 512) -> _Adapt
 
 
 class _PyPageAllocator:
-    """Page allocator; page 0 reserved as trash."""
+    """Pure-Python page allocator with the native allocator's interface
+    (``core/native_alloc.py``); page 0 reserved as trash."""
 
     def __init__(self, num_pages: int, page_size: int, max_pages_per_seq: int) -> None:
         self.num_pages = num_pages
@@ -123,6 +136,19 @@ class _PyPageAllocator:
         self._pages[sid] = pages
         return sid
 
+    def extend(self, sid: int, new_total_tokens: int) -> None:
+        self._reserve(self._pages[sid], new_total_tokens)
+
+    def adopt(self, pages: List[int]) -> int:
+        """A new sequence holding ``pages`` (taken out of the free list);
+        ``ServingEngine.restore`` rebuilds a saved engine's accounting so."""
+        taken = set(pages)
+        self._free = [p for p in self._free if p not in taken]
+        sid = self._next
+        self._next += 1
+        self._pages[sid] = list(pages)
+        return sid
+
     def free_sequence(self, sid: int) -> None:
         self._free.extend(self._pages.pop(sid))
 
@@ -132,6 +158,13 @@ class _PyPageAllocator:
     def stats(self) -> Dict[str, int]:
         used = self.num_pages - 1 - len(self._free)
         return {"pages_used": used, "pages_free": len(self._free)}
+
+
+def _make_allocator(num_pages: int, page_size: int, max_pages_per_seq: int):
+    """The native allocator where the host can build it, else the Python one."""
+    if native_available():
+        return NativePageAllocator(num_pages, page_size, max_pages_per_seq)
+    return _PyPageAllocator(num_pages, page_size, max_pages_per_seq)
 
 
 @dataclasses.dataclass
@@ -235,7 +268,7 @@ class ServingEngine:
         self.decode_window = max(1, decode_window)
         self.prefill_chunk = prefill_chunk
         self.pages = adapter.create_pages(num_pages, page_size, kv_dtype, self.device)
-        self._alloc = _PyPageAllocator(num_pages, page_size, max_pages_per_seq)
+        self._alloc = _make_allocator(num_pages, page_size, max_pages_per_seq)
         self._slots: List[Optional[int]] = [None] * max_batch  # slot -> seq_id
         self._sequences: Dict[int, _Sequence] = {}
         self._sched = make_scheduler()
@@ -618,12 +651,142 @@ class ServingEngine:
                 raise KVCacheError("scheduler stalled: not enough pages")
         return [self._sequences[s].tokens[self._sequences[s].prompt_len :] for s in sids]
 
+    # -- checkpoint / resume -------------------------------------------------
+
     def save(self, path: str) -> None:
-        raise NotImplementedError("serving checkpoints are ROADMAP A13")
+        """Persist the engine mid-generation into directory ``path``: every
+        pool tensor (T5's cross buffers and encoder lengths too) as
+        ``pages.npz``, bf16 as its ``uint16`` bits, and the host state as
+        ``state.json`` (each written to a temporary name and renamed). A
+        preempted process resumes with :meth:`restore`."""
+        os.makedirs(path, exist_ok=True)
+        arrays = {
+            f.name: tensor_to_np(getattr(self.pages, f.name))
+            for f in dataclasses.fields(self.pages)
+            if getattr(self.pages, f.name) is not None
+        }
+        atomic_savez(os.path.join(path, "pages.npz"), arrays)
+        host = {
+            "version": 1,
+            "ctor": {
+                "num_pages": self.num_pages,
+                "page_size": self.page_size,
+                "max_batch": self.max_batch,
+                "max_pages_per_seq": self.max_pages_per_seq,
+                "kv_dtype": _KV_NAMES[self.kv_dtype],
+                "eos_token_id": self.eos_token_id,
+                "decode_window": self.decode_window,
+                "prefill_chunk": self.prefill_chunk,
+                "admission": self.admission,
+                "temperature": self.temperature,
+                "top_k": self.top_k,
+                "seed": self._sample_seed,
+                "enc_max_len": self.enc_max_len,
+                "sharded": False,
+                "model_axis": None,
+            },
+            "next_id": self._next_id,
+            "waiting": self._sched.waiting_ids(),
+            "slots": list(self._slots),
+            "sample_steps": self._sample_steps,
+            "stats": {
+                "prefill_tokens": self._prefill_tokens,
+                "decode_tokens": self._decode_tokens,
+                "prefill_time": self._prefill_time,
+                "decode_time": self._decode_time,
+                "steps": self._steps,
+                "prefill_chunks": self._prefill_chunks,
+            },
+            "sequences": {
+                str(sid): {
+                    "tokens": seq.tokens,
+                    "prompt_len": seq.prompt_len,
+                    "max_new_tokens": seq.max_new_tokens,
+                    "page_ids": seq.page_ids,
+                    "slot": seq.slot,
+                    "priority": seq.priority,
+                    "prefilled": seq.prefilled,
+                    "done": seq.done,
+                }
+                for sid, seq in self._sequences.items()
+            },
+        }
+        atomic_write_json(os.path.join(path, "state.json"), host)
 
     @classmethod
-    def restore(cls, path: str, cfg, params) -> "ServingEngine":
-        raise NotImplementedError("serving checkpoints are ROADMAP A13")
+    def restore(cls, path: str, cfg, params: Mapping[str, torch.Tensor], *,
+                device: Any = "cuda") -> "ServingEngine":
+        """Rebuild an engine saved by :meth:`save` on ``device`` (the card
+        by default) from the same ``cfg`` and ``params``.
+
+        Page accounting resumes on the Python allocator holding the saved
+        page ids (the native allocator cannot be told which pages to hold);
+        the device page tables are rebuilt at the next step; the waiting
+        requests are queued again in their saved order. A checkpoint of a
+        sharded engine raises ``ValueError`` (the mesh is ROADMAP A12)."""
+        with open(os.path.join(path, "state.json")) as f:
+            host = json.load(f)
+        ctor = host["ctor"]
+        if ctor.get("sharded"):
+            raise ValueError(
+                f"checkpoint was saved from a sharded engine (model_axis="
+                f"{ctor.get('model_axis')!r}); sharded serving is ROADMAP A12"
+            )
+        kv_dtype = {name: dtype for dtype, name in _KV_NAMES.items()}[ctor["kv_dtype"]]
+        eng = cls(
+            cfg, params, device=device, num_pages=ctor["num_pages"],
+            page_size=ctor["page_size"], max_batch=ctor["max_batch"],
+            max_pages_per_seq=ctor["max_pages_per_seq"], kv_dtype=kv_dtype,
+            eos_token_id=ctor["eos_token_id"], decode_window=ctor["decode_window"],
+            prefill_chunk=ctor["prefill_chunk"], temperature=ctor["temperature"],
+            top_k=ctor["top_k"], seed=ctor["seed"], admission=ctor["admission"],
+            enc_max_len=ctor["enc_max_len"],
+        )
+        data = np.load(os.path.join(path, "pages.npz"))
+        for f in dataclasses.fields(eng.pages):
+            fresh = getattr(eng.pages, f.name)
+            if fresh is None:
+                continue
+            saved = data[f.name]
+            if tuple(saved.shape) != tuple(fresh.shape):
+                raise ValueError(f"{f.name}: saved shape {saved.shape}, engine's "
+                                 f"{tuple(fresh.shape)}")
+            fresh.copy_(np_to_tensor(saved, fresh.dtype, eng.device))
+
+        eng._next_id = host["next_id"]
+        eng._slots = list(host["slots"])
+        eng._sample_steps = host["sample_steps"]
+        st = host["stats"]
+        eng._prefill_tokens = st["prefill_tokens"]
+        eng._decode_tokens = st["decode_tokens"]
+        eng._prefill_time = st["prefill_time"]
+        eng._decode_time = st["decode_time"]
+        eng._steps = st["steps"]
+        eng._prefill_chunks = st["prefill_chunks"]
+
+        alloc = _PyPageAllocator(eng.num_pages, eng.page_size, eng.max_pages_per_seq)
+        for sid_str, rec in host["sequences"].items():
+            seq = _Sequence(
+                seq_id=int(sid_str),
+                tokens=list(rec["tokens"]),
+                prompt_len=rec["prompt_len"],
+                max_new_tokens=rec["max_new_tokens"],
+                page_ids=list(rec["page_ids"]),
+                slot=rec["slot"],
+                priority=rec["priority"],
+                prefilled=rec["prefilled"],
+                done=rec["done"],
+            )
+            if seq.page_ids:
+                seq.alloc_id = alloc.adopt(seq.page_ids)
+            eng._sequences[seq.seq_id] = seq
+        eng._alloc = alloc
+        eng._tables_dirty = True
+        # The saved order is already priority-then-FIFO: submitting in it
+        # with the saved priorities reproduces it.
+        for sid in host["waiting"]:
+            eng._sched.submit(sid, eng._sequences[sid].priority)
+        return eng
 
     # -- stats ---------------------------------------------------------------
 

@@ -16,6 +16,11 @@ name of the kernel's mode (``count_as``). A call made while the stream is
 being captured into a CUDA graph launches nothing: it is counted in
 :data:`CAPTURED` instead, and the card runs it once per replay.
 
+:func:`host_library` builds the host C++ sources under ``native/`` (the
+page allocator and the request scheduler) with ``g++`` into the same
+directory, named by the same kind of hash; they run on the CPU and build
+wherever ``g++`` is installed.
+
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
 """
@@ -33,6 +38,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
+
+from ..utils.exceptions import KernelLaunchError
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -216,7 +223,7 @@ def library_path() -> Path:
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError(
+        raise KernelLaunchError(
             "nvcc not found: the port's CUDA kernels build only where the "
             "CUDA toolkit is installed"
         )
@@ -231,7 +238,7 @@ def _run(procs: List[subprocess.Popen]) -> None:
         if proc.returncode != 0 and failed is None:
             failed = f"nvcc failed ({proc.returncode}): {' '.join(proc.args)}\n{stdout}\n{stderr}"
     if failed:
-        raise RuntimeError(failed)
+        raise KernelLaunchError(failed)
 
 
 def build() -> Path:
@@ -266,6 +273,45 @@ def build() -> Path:
     return out
 
 
+#: g++ flags of the host libraries (the native page allocator and scheduler).
+HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+
+
+def host_library(src: Path, name: str) -> Path:
+    """Build the host C++ source ``src`` (no CUDA) with g++ into
+    ``_build/libpfa_<name>_<hash>.so`` unless it exists, the hash covering
+    the source and the flags as :func:`library_path`'s does; return its path.
+    Raises :class:`KernelLaunchError` with g++'s output if the build fails."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(src.read_bytes())
+    out = BUILD_DIR / f"libpfa_{name}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise KernelLaunchError(f"g++ not found: {src.name} cannot be built")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([gxx, *HOST_FLAGS, str(src), "-o", str(tmp)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise KernelLaunchError(f"g++ failed ({proc.returncode}) on {src}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+_host_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def load_host_library(src: Path, name: str) -> ctypes.CDLL:
+    """The host library ``name`` built from ``src`` (:func:`host_library`),
+    loaded once a process."""
+    with _lock:
+        if name not in _host_libs:
+            _host_libs[name] = ctypes.CDLL(str(host_library(src, name)))
+        return _host_libs[name]
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     global _lib
@@ -293,5 +339,5 @@ def launch(name: str, device: torch.device, *args, count_as: Optional[str] = Non
         err = getattr(kernels, name)(*args, stream)
     if err != 0:
         msg = kernels.pfa_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+        raise KernelLaunchError(f"{name}: CUDA error {err} ({msg})")
     (CAPTURED if capturing else LAUNCHES)[count_as or name] += 1

@@ -53,6 +53,12 @@ class CompilationError(PhotonicFlashAttentionError):
     """XLA/Mosaic compilation failure for a kernel variant."""
 
 
+class KernelLaunchError(PhotonicFlashAttentionError, RuntimeError):
+    """A CUDA kernel of the port failed to build or to launch on the card
+    (the port's own; a ``RuntimeError`` as well). It is never answered by a
+    plain version: see ``core/error_recovery.py``."""
+
+
 class MemoryError_(PhotonicFlashAttentionError):
     """HBM / KV-cache exhaustion (reference: PhotonicMemoryError)."""
 

@@ -2,9 +2,10 @@
 
 The JAX package exports its config functions in ``__all__`` and re-exports
 the flash functions and the drop-in layers lazily (``__getattr__``);
-``models``, ``ops`` and ``hardware`` list their names in ``__all__``. The port must resolve every one
-of them except the names of ROADMAP items still open (listed below), and
-export nothing the JAX package does not.
+``core``, ``models``, ``ops`` and ``hardware`` list their names in
+``__all__``. The port must resolve every one of them except the names of
+ROADMAP items still open (listed below), and export nothing the JAX
+package does not.
 """
 
 import ast
@@ -13,10 +14,12 @@ import inspect
 import pytest
 
 import photonic_flash_attention_tpu as jax_pkg
+import photonic_flash_attention_tpu.core as jax_core
 import photonic_flash_attention_tpu.hardware as jax_hardware
 import photonic_flash_attention_tpu.models as jax_models
 import photonic_flash_attention_tpu.ops as jax_ops
 import photonic_flash_attention_tpu_torch as port
+import photonic_flash_attention_tpu_torch.core as port_core
 import photonic_flash_attention_tpu_torch.hardware as port_hardware
 import photonic_flash_attention_tpu_torch.models as port_models
 import photonic_flash_attention_tpu_torch.ops as port_ops
@@ -76,6 +79,13 @@ def test_hardware_names_match_jax():
     for name in port_hardware.__all__:
         obj = getattr(port_hardware, name)
         assert obj.__module__.startswith(port_hardware.__name__), name
+
+
+def test_core_names_match_jax():
+    assert port_core.__all__ == jax_core.__all__
+    for name in port_core.__all__:
+        obj = getattr(port_core, name)
+        assert obj.__module__.startswith(port_core.__name__), name
 
 
 def test_exported_objects_are_the_ports():

@@ -73,7 +73,8 @@ def test_every_module_imports_with_jax_blocked():
                  "hardware", "hardware.detection", "hardware.roofline", "experiments",
                  "experiments.flash_fixedmax_experiment", "experiments.flash_aug_experiment",
                  "experiments.flash_pair_experiment", "experiments.flash_pipeline_experiment",
-                 *MODEL_MODULES):
+                 "core.kv_cache", "core.native_alloc", "core.native_sched", "core.checkpoint",
+                 "core.error_recovery", *MODEL_MODULES):
         assert f"{port.__name__}.{name}" in modules
 
 
