@@ -135,6 +135,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    to 4 layers trained 2 AdamW steps, saved through ``CheckpointManager``,
    restored into a fresh model and optimizer: step 3's loss and parameters
    bit-equal to the uninterrupted step 3;
+6a2. parallel path: a real NCCL process group of world size 1 (a file
+   store; ``initialize_multihost``, ``create_mesh``, ``process_summary``),
+   then: ring attention at Llama-2-70B's attention width (B1 S32768
+   Hq64/Hkv8 D128 causal bf16, ``kv_lens`` and a ``k_bias``) bit-equal to
+   one K1-with-lse call; the ring's 4-rank step schedule played in one
+   process (each rank's steps through ``ring_step`` on the shards the
+   rotation brings it, S_local 8192: clipped lengths, bias shards, skipped
+   blocks), merged, against the same call; the ring's gradient at GPT-2
+   medium's width (S8192) against autograd through K4/K5; Ulysses at
+   Llama-2-7B's width (S32768) forward and gradient; the engine's
+   ``set_mesh`` with one forced call each of RING and ULYSSES; GPT-2
+   medium trained 3 steps on a (data 1, model 1) mesh with
+   ``param_sharding_rules`` against the unsharded trainer (losses, and
+   whether bit-equal), and served on one (int8 pool, 8 requests) with the
+   unsharded engine's tokens, a sharded save/restore round trip and the
+   restore without a mesh refused; the telemetry's bytes and NCCL's
+   world-1 collective times; K1 (plain and streams), K4/K5 and K3's fused
+   decode must launch;
 6b. llama path: Llama-2-7B at full width and depth (32 layers; random bf16
    weights from seed 0, made on the card), then GQA at Llama-2-70B's width
    (64 query heads over 8 KV heads) cut to 2 layers, each served through
@@ -3123,6 +3141,399 @@ def phase_durable(smi: str) -> dict:
     return launches
 
 
+# -- parallel path: distribution over torch.distributed at world 1 ----------
+
+#: Ring forward at Llama-2-70B's attention width (causal bf16, kv_lens and a
+#: k_bias); its 4-rank schedule plays each rank's steps at S_local 8192.
+PAR_RING = dict(b=1, s=32768, hq=64, hkv=8, d=128)
+PAR_RING_LENS = (20000,)  # shard 3 of the 4-rank schedule lies past it: the skip
+PAR_SCHEDULE_RANKS = 4
+#: The ring's backward at GPT-2 medium's width; Ulysses at Llama-2-7B's.
+PAR_RING_BWD = dict(b=1, s=8192, h=16, d=64)
+PAR_ULYSSES = dict(b=1, s=32768, h=32, d=128)
+#: The engine's forced RING and ULYSSES calls (GPT-2 medium's heads).
+PAR_ENGINE = dict(b=1, s=4096, h=16, d=64)
+#: GPT-2 medium trained on a (data 1, model 1) mesh, and served on one.
+PAR_TRAIN_BATCH, PAR_TRAIN_STEPS = 4, 3
+PAR_SERVE_NEW, PAR_SERVE_SAVE_AFTER = 8, 2
+#: Bounds: the schedule's merged bf16 partials against one K1 call (o by
+#: rel_err_norm, lse by max abs); gradients as the repo's 5e-2.
+PAR_O_BOUND, PAR_LSE_BOUND, PAR_GRAD_BOUND = 1e-2, 1e-3, 5e-2
+
+
+def _par_inputs(shape: dict, seed: int, hkv: Optional[int] = None):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, s, h, d = shape["b"], shape["s"], shape.get("hq", shape.get("h")), shape["d"]
+    hkv = hkv or h
+
+    def rnd(heads):
+        return torch.randn(b, s, heads, d, device="cuda", generator=gen).to(torch.bfloat16)
+
+    return rnd(h), rnd(hkv), rnd(hkv), gen
+
+
+def _ring_schedule(q, k, v, lens, bias, n: int, scale: float):
+    """Every rank's steps of an n-rank ring, played in one process: rank
+    ``me`` holds query shard ``me`` and at step t the K/V and bias shards of
+    ``(me - t) mod n``, as the rotation brings them; each step runs the
+    ring's own body (``ring_step``), the partials merge by ``softmax_merge``.
+    Returns the concatenated (o float32, lse) and the steps skipped."""
+    from photonic_flash_attention_tpu_torch.parallel.ring import ring_step, softmax_merge
+
+    sl = q.shape[1] // n
+    shard = lambda t, i: t[:, i * sl:(i + 1) * sl].contiguous()  # noqa: E731
+    lens_host = lens.tolist()
+    outs, lses, skipped = [], [], 0
+    for me in range(n):
+        acc = None
+        for step in range(n):
+            src = (me - step) % n
+            part = ring_step(shard(q, me), shard(k, src), shard(v, src), me=me, n=n, step=step,
+                             causal=True, sm_scale=scale, kv_lens=lens, lens_host=lens_host,
+                             k_bias=shard(bias, src))
+            if part is None:
+                skipped += 1
+            else:
+                acc = part if acc is None else softmax_merge(*acc, *part)
+        outs.append(acc[0])
+        lses.append(acc[1])
+    return torch.cat(outs, 1), torch.cat(lses, 2), skipped
+
+
+def _counted(runs: dict, label: str, need: tuple, fn):
+    """Run one sharded run, ``fn()``, with every launch count set to 0 just
+    before it and read just after; each kernel of ``need`` must have
+    launched in it. The counts go into ``runs[label]``; the references
+    the run is held against run outside this window."""
+    _build.reset_launches()
+    out = fn()
+    got = collections.Counter(_build.LAUNCHES)
+    _build.reset_launches()
+    missing = [name for name in need if not got.get(name, 0)]
+    if missing:
+        raise AssertionError(f"parallel path: {label}: kernels not launched {missing}; "
+                             f"launches {dict(got)}")
+    runs[label] = got
+    return out
+
+
+def _par_line(label: str, errs: dict, bounds: dict, extra: str, smi: str) -> None:
+    line = (f"parallel path: {label}: " + ", ".join(
+        f"{name} {err:.3e} (bound {bounds[name]:g})" for name, err in errs.items())
+        + f"; {extra} ({smi})")
+    if any(not err <= bounds[name] for name, err in errs.items()):
+        raise AssertionError(line)
+    print(line, flush=True)
+
+
+def _check_par_ring(mesh_seq, group, runs: dict, smi: str) -> None:
+    """Ring forward at world 1 and its 4-rank schedule, both against one
+    unsharded K1-with-lse call with the same streams."""
+    from photonic_flash_attention_tpu_torch.parallel import ring as ring_mod
+
+    c = PAR_RING
+    q, k, v, gen = _par_inputs(c, 40, hkv=c["hkv"])
+    lens = torch.tensor(PAR_RING_LENS, dtype=torch.int32, device="cuda")
+    bias = _key_bias(c["b"], c["s"], gen)
+    scale = c["d"] ** -0.5
+    want_o, want_lse = flash_ops.flash_attention_with_lse(q, k, v, causal=True, kv_lens=lens,
+                                                          k_bias=bias)
+    fn = ring_mod.make_ring_attention(mesh_seq, data_axis=None, model_axis=None, causal=True)
+    o, (o_l, lse_l) = _counted(runs, "ring forward", ("pfa_flash_fwd_streams",), lambda: (
+        fn(q, k, v, kv_lens=lens, k_bias=bias),
+        ring_mod._ring_fwd_with_lse(q, k, v, group, True, scale, lens, bias)))
+    ring_ms = device_ms(lambda: fn(q, k, v, kv_lens=lens, k_bias=bias), runs=3, warmup=1)
+    k1_ms = device_ms(lambda: flash_ops.flash_attention_with_lse(
+        q, k, v, causal=True, kv_lens=lens, k_bias=bias), runs=3, warmup=1)
+    bound = flash_fwd_bound(q, k, True, lens=PAR_RING_LENS, with_lse=True, with_bias=True)
+    _par_line(
+        f"ring forward at world 1, B{c['b']} S{c['s']} Hq{c['hq']}/Hkv{c['hkv']} D{c['d']} causal "
+        f"bf16 with kv_lens {list(PAR_RING_LENS)} and a k_bias, vs unsharded K1 with lse",
+        {"o max_abs_err": max_abs_err(o, want_o), "o (lse path) max_abs_err":
+         max_abs_err(o_l, want_o), "lse max_abs_err": max_abs_err(lse_l, want_lse)},
+        {"o max_abs_err": 0.0, "o (lse path) max_abs_err": 2 ** -8,
+         "lse max_abs_err": 0.0},
+        f"ring {ring_ms:.3f} ms (output all-gather included), K1 {k1_ms:.3f} ms, bound "
+        f"{bound['bound_ms']:.3f} ms ({bound['bound_by']})", smi)
+    n = PAR_SCHEDULE_RANKS
+    o_s, lse_s, skipped = _counted(runs, "ring schedule", ("pfa_flash_fwd_streams",),
+                                   lambda: _ring_schedule(q, k, v, lens, bias, n, scale))
+    ran = runs["ring schedule"]["pfa_flash_fwd_streams"]
+    # The causal future blocks, and at least one block past every length.
+    if ran != n * n - skipped or skipped <= n * (n - 1) // 2:
+        raise AssertionError(f"ring schedule: {ran} K1 launches with {skipped} skipped steps")
+    fin = torch.isfinite(want_lse)
+    _par_line(
+        f"ring {n}-rank schedule in one process (S_local {c['s'] // n}: clipped lengths, bias "
+        f"shards, {skipped} skipped steps of {n * n}), merged, vs unsharded K1 with lse",
+        {"o rel_err_norm": rel_err_norm(o_s, want_o),
+         "lse max_abs_err": max_abs_err(lse_s[fin], want_lse[fin])},
+        {"o rel_err_norm": PAR_O_BOUND, "lse max_abs_err": PAR_LSE_BOUND},
+        f"{ran} K1 stream launches", smi)
+    del q, k, v, bias, o, o_l, lse_l, o_s, lse_s, want_o, want_lse
+    torch.cuda.empty_cache()
+
+
+def _grads_of(fn, leaves, g):
+    leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, g)
+
+
+def _check_par_ring_bwd(mesh_seq, runs: dict, smi: str) -> None:
+    """The ring's gradient at world 1 (plain PyTorch backward, blocked over
+    rows) against unsharded autograd through K1 and K4/K5."""
+    from photonic_flash_attention_tpu_torch.parallel.ring import make_ring_attention
+
+    c = PAR_RING_BWD
+    q, k, v, gen = _par_inputs(c, 41)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    ring = make_ring_attention(mesh_seq, data_axis=None, model_axis=None, causal=True,
+                               differentiable=True)
+    flash = lambda a, b, c_: flash_ops.flash_attention(a, b, c_, causal=True)  # noqa: E731
+    _, want = _grads_of(flash, (q, k, v), g)
+    _, got = _counted(runs, "ring backward", ("pfa_flash_fwd",),
+                      lambda: _grads_of(ring, (q, k, v), g))
+    ring_ms = median_ms(lambda: _grads_of(ring, (q, k, v), g), runs=3, warmup=1)
+    k_ms = median_ms(lambda: _grads_of(flash, (q, k, v), g), runs=3, warmup=1)
+    _par_line(
+        f"ring backward at world 1, B{c['b']} S{c['s']} H{c['h']} D{c['d']} causal bf16, vs "
+        f"unsharded autograd (K1, K4/K5)",
+        {f"{n} rel_err_norm": rel_err_norm(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)},
+        {f"{n} rel_err_norm": PAR_GRAD_BOUND for n in ("dq", "dk", "dv")},
+        f"forward + backward: ring {ring_ms:.3f} ms (plain backward), K1 + K4/K5 {k_ms:.3f} ms",
+        smi)
+
+
+def _check_par_ulysses(mesh_seq, runs: dict, smi: str) -> None:
+    """Ulysses at world 1 (two NCCL all-to-alls around K1, K4/K5 through
+    their inverse) against the same attention unsharded."""
+    from photonic_flash_attention_tpu_torch.parallel.ulysses import make_ulysses_attention
+
+    c = PAR_ULYSSES
+    q, k, v, gen = _par_inputs(c, 42)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    uly = make_ulysses_attention(mesh_seq, data_axis=None, causal=True)
+    flash = lambda a, b, c_: flash_ops.flash_attention(a, b, c_, causal=True)  # noqa: E731
+    want_o, want = _grads_of(flash, (q, k, v), g)
+    o, got = _counted(runs, "Ulysses", TRAIN_KERNELS, lambda: _grads_of(uly, (q, k, v), g))
+    u_ms = median_ms(lambda: _grads_of(uly, (q, k, v), g), runs=3, warmup=1)
+    f_ms = median_ms(lambda: _grads_of(flash, (q, k, v), g), runs=3, warmup=1)
+    errs = {"o max_abs_err": max_abs_err(o.detach(), want_o.detach())}
+    errs |= {f"{n} rel_err_norm": rel_err_norm(a, b) for n, a, b in zip(("dq", "dk", "dv"), got,
+                                                                           want)}
+    _par_line(
+        f"Ulysses at world 1, B{c['b']} S{c['s']} H{c['h']} D{c['d']} causal bf16, forward and "
+        f"gradient vs unsharded K1, K4/K5", errs,
+        {"o max_abs_err": 0.0, **{f"{n} rel_err_norm": PAR_GRAD_BOUND for n in ("dq", "dk", "dv")}},
+        f"forward + backward: Ulysses {u_ms:.3f} ms, unsharded {f_ms:.3f} ms", smi)
+    del q, k, v, g, o, got, want_o, want
+    torch.cuda.empty_cache()
+
+
+def _check_par_engine(mesh_seq, runs: dict, smi: str) -> None:
+    """``set_mesh``, then one forced call each of RING and ULYSSES."""
+    from photonic_flash_attention_tpu_torch.core.engine import AttentionEngine
+    from photonic_flash_attention_tpu_torch.core.router import KernelKind
+
+    c = PAR_ENGINE
+    q, k, v, _ = _par_inputs(c, 43)
+    eng = AttentionEngine()
+    eng.set_mesh(mesh_seq, seq_axis="seq")
+    want = flash_ops.flash_attention(q, k, v, causal=True)
+    errs = {}
+    for kind in (KernelKind.RING, KernelKind.ULYSSES):
+        out, _ = _counted(runs, f"engine {kind.value}", ("pfa_flash_fwd",),
+                          lambda: eng._run(kind, q, k, v, None, None, None, True, False))
+        errs[f"{kind.value} max_abs_err"] = max_abs_err(out, want)
+    eng.clear_mesh()
+    _par_line(f"engine after set_mesh, forced RING and ULYSSES, B{c['b']} S{c['s']} H{c['h']} "
+              f"D{c['d']} causal bf16, vs K1", errs, {n: 2 ** -8 for n in errs},
+              "mesh cleared after", smi)
+
+
+def _check_par_training(mesh_dm, runs: dict, smi: str, profile_dir: Optional[str]) -> None:
+    """GPT-2 medium on a (data 1, model 1) mesh with param_sharding_rules
+    (the tensor-parallel forward, the data axis's all-reduce) against the
+    unsharded trainer from the same init and batch, which runs first,
+    outside the sharded run's launch count. With ``profile_dir``, one more
+    step of each under the profiler."""
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, param_sharding_rules
+    from photonic_flash_attention_tpu_torch.training import Trainer, synthetic_lm_batches
+
+    cfg = GPT2Config.medium()
+    batch = next(synthetic_lm_batches(batch=PAR_TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab_size,
+                                      seed=2))
+
+    def train(name: str):
+        model = gpt2_medium_on_card(cfg)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        kw = dict(mesh=mesh_dm, param_specs=param_sharding_rules(model.state_dict())) \
+            if name == "mesh" else {}
+        trainer = Trainer(model, opt, **kw)
+        state = trainer.init_state()
+        losses, norms, step_ms = [], [], []
+        for _ in range(PAR_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, batch)
+            losses.append(float(m["loss"]))  # synchronizes
+            step_ms.append(round(1e3 * (time.perf_counter() - t0), 1))
+            norms.append(float(m["grad_norm"]))
+        if profile_dir:
+            _profile_runs(lambda: trainer.train_step(state, batch), 1, Path(profile_dir),
+                          f"parallel_train_{name}")
+        del model, opt, trainer, state
+        torch.cuda.empty_cache()
+        return losses, norms, step_ms
+
+    l0, n0, ms0 = train("unsharded")
+    l1, n1, ms1 = _counted(runs, "sharded training", TRAIN_KERNELS, lambda: train("mesh"))
+    bit_equal = l0 == l1
+    _par_line(
+        f"training, GPT-2 medium on a (data 1, model 1) mesh with param_sharding_rules, "
+        f"B{PAR_TRAIN_BATCH} S{TRAIN_SEQ}, {PAR_TRAIN_STEPS} AdamW steps, vs the unsharded trainer",
+        {"loss max rel diff": max(abs(a - b) / abs(b) for a, b in zip(l1, l0)),
+         "grad_norm max rel diff": max(abs(a - b) / abs(b) for a, b in zip(n1, n0))},
+        {"loss max rel diff": 1e-3, "grad_norm max rel diff": 1e-3},
+        f"losses {l1} vs {l0}: bit-equal {bit_equal}; step ms {ms1} vs {ms0}", smi)
+
+
+def _check_par_serving(mesh_dm, tmp: str, runs: dict, smi: str) -> None:
+    """A sharded ServingEngine on the (1, 1) mesh serves GPT-2 medium on an
+    int8 pool: its greedy tokens equal the unsharded engine's (which runs
+    first, outside the sharded runs' launch counts); save/restore
+    round-trips it; restore without the mesh raises."""
+    from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config.medium()
+    state = gpt2_medium_state()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    kw = dict(num_pages=256, page_size=128, max_batch=8, kv_dtype=torch.int8, decode_window=2)
+    want = ServingEngine(cfg, state, device="cuda", **kw).generate(prompts,
+                                                                   max_new_tokens=PAR_SERVE_NEW)
+    eng = ServingEngine(cfg, state, device="cuda", mesh=mesh_dm, **kw)
+    t0 = time.perf_counter()
+    got = _counted(runs, "sharded serving", SERVE_KERNELS_PAR,
+                   lambda: eng.generate(prompts, max_new_tokens=PAR_SERVE_NEW))
+    wall = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError(f"sharded serving: tokens differ from the unsharded engine's: "
+                             f"{got} vs {want}")
+    path = str(Path(tmp) / "serve")
+
+    def resume():
+        eng = ServingEngine(cfg, state, device="cuda", mesh=mesh_dm, **kw)
+        sids = [eng.submit(p, PAR_SERVE_NEW) for p in prompts]
+        for _ in range(PAR_SERVE_SAVE_AFTER):
+            eng.step()
+        eng.save(path)
+        try:
+            ServingEngine.restore(path, cfg, state, device="cuda")
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("restoring a sharded checkpoint without a mesh did not raise")
+        eng2 = ServingEngine.restore(path, cfg, state, device="cuda", mesh=mesh_dm)
+        for e in (eng, eng2):
+            while any(not e._sequences[s].done for s in sids):
+                e.step()
+        return eng2, sids, refused
+
+    eng2, sids, refused = _counted(runs, "sharded save/restore", SERVE_KERNELS_PAR, resume)
+    resumed = [eng2._sequences[s].tokens[len(p):] for s, p in zip(sids, prompts)]
+    if resumed != want:
+        raise AssertionError(f"sharded restore: tokens {resumed} vs {want}")
+    print(f"parallel path: sharded serving, GPT-2 medium on a (data 1, model 1) mesh, int8 pool, "
+          f"{len(prompts)} requests x {PAR_SERVE_NEW} tokens: greedy tokens equal the unsharded "
+          f"engine's ({wall:.2f} s); saved after {PAR_SERVE_SAVE_AFTER} steps as "
+          f"{sorted(p.name for p in Path(path).iterdir())}, restored with the mesh: tokens equal; "
+          f"without it: ValueError ({refused[:60]}...) ({smi})", flush=True)
+
+
+def _time_collectives(mesh_dm, smi: str) -> None:
+    """NCCL's world-1 collectives by CUDA events, at the sizes the sharded
+    paths hand them (GPT-2 medium's B8 S1024 activations in bf16)."""
+    import torch.distributed as dist
+
+    from photonic_flash_attention_tpu_torch.parallel import collectives as C
+    from photonic_flash_attention_tpu_torch.parallel.mesh import axis_group
+
+    group = axis_group(mesh_dm, "model")
+    x = torch.randn(8, 1024, 1024, device="cuda").to(torch.bfloat16)
+    times = {
+        # The sharded paths skip a one-rank sum; NCCL's is timed here itself.
+        "all_reduce": device_ms(lambda: dist.all_reduce(x, group=group)),
+        "all_gather": device_ms(lambda: C.all_gather_cat(x, 2, group)),
+        "all_to_all": device_ms(lambda: C.all_to_all(x.view(8, 1024, 16, 64), 2, 1, group)),
+        "copy": device_ms(lambda: x.clone()),
+    }
+    print(f"parallel path: NCCL at world 1 on {x.numel() * 2 / 2**20:.0f} MiB bf16 (GPT-2 medium "
+          f"B8 S1024 activations): " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+          + f" ({smi})", flush=True)
+
+
+#: What a sharded serving run must launch: K1 prefills, K3's fused decode.
+SERVE_KERNELS_PAR = ("pfa_flash_fwd", "pfa_paged_decode_fused")
+
+
+def phase_parallel(smi: str, profile_dir: Optional[str] = None) -> dict:
+    """The parallel path over a real NCCL group of world size 1 (a file
+    store): the mesh, ring (world 1 and the 4-rank schedule), the ring's
+    gradient, Ulysses, the engine's RING and ULYSSES, sharded training and
+    sharded serving, then the telemetry's bytes and NCCL's times. No
+    failure is caught. Returns the path's launches: those of its sharded
+    runs alone, each counted from 0 just before it (``_counted``)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from photonic_flash_attention_tpu_torch.parallel import create_mesh
+    from photonic_flash_attention_tpu_torch.parallel.mesh import axis_group
+    from photonic_flash_attention_tpu_torch.parallel.multihost import (
+        initialize_multihost,
+        process_summary,
+    )
+    from photonic_flash_attention_tpu_torch.parallel.telemetry import collective_bytes, get_telemetry
+
+    with tempfile.TemporaryDirectory(prefix="pfa_parallel_") as tmp:
+        info = initialize_multihost(f"file://{tmp}/store", 1, 0)
+        try:
+            if info["backend"] != "nccl" or info["global_devices"] != 1:
+                raise AssertionError(f"process group: {info}")
+            mesh_seq = create_mesh((1,), ("seq",))
+            mesh_dm = create_mesh((1, 1), ("data", "model"))
+            print(f"parallel path: initialize_multihost {info}; create_mesh {mesh_dm}; "
+                  f"process_summary {process_summary()}", flush=True)
+            get_telemetry().reset()
+            runs = {}
+            _check_par_ring(mesh_seq, axis_group(mesh_seq, "seq"), runs, smi)
+            _check_par_ring_bwd(mesh_seq, runs, smi)
+            _check_par_ulysses(mesh_seq, runs, smi)
+            _check_par_engine(mesh_seq, runs, smi)
+            _check_par_training(mesh_dm, runs, smi, profile_dir)
+            _check_par_serving(mesh_dm, tmp, runs, smi)
+            stats = get_telemetry().get_stats()
+            c = PAR_RING
+            shard = c["b"] * c["s"] // PAR_SCHEDULE_RANKS * c["hkv"] * c["d"] * 2
+            print(f"parallel path: telemetry at world 1 {stats['axes']} (link "
+                  f"{stats['link_gbps']} GB/s each way, data sheet); at {PAR_SCHEDULE_RANKS} ranks the "
+                  f"ring above would move {(PAR_SCHEDULE_RANKS - 1) * collective_bytes('ppermute', 2 * shard, PAR_SCHEDULE_RANKS)} "
+                  f"bytes a rank (ppermute of K and V shards)", flush=True)
+            _time_collectives(mesh_dm, smi)
+        finally:
+            dist.destroy_process_group()
+    launches = collections.Counter()
+    for counts in runs.values():
+        launches.update(counts)
+    print(f"parallel path: launches by sharded run "
+          f"{ {label: dict(c) for label, c in runs.items()} }", flush=True)
+    print(f"parallel path: launches {dict(launches)}", flush=True)
+    return launches
+
+
 PREFILL_CHUNK = 256
 #: Bound on rel_err_norm between the chunked and the whole prefill's
 #: last-prompt-token logits: the chunks attend over the int8-dequantized
@@ -6021,8 +6432,9 @@ def phase_experiments(smi: str, rates: dict, checked: dict) -> tuple:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile three training steps and one T5 serving run (bf16); "
-                             "write the traces and tables into DIR")
+                        help="also profile three training steps, one step each of the "
+                             "parallel path's unsharded and (1, 1)-mesh trainers and one T5 "
+                             "serving run (bf16); write the traces and tables into DIR")
     parser.add_argument("--quant-table", action="store_true",
                         help="only build and print the quant table (public calls only, so a "
                              "copy of this script times any tree of the repository); no result "
@@ -6102,6 +6514,7 @@ def main() -> None:
     # Each main path's launches, counted from 0 just before it.
     by_path |= {"serving": timed("serving", phase_serving, smi),
                 "durable": timed("durable", phase_durable, smi),
+                "parallel": timed("parallel", phase_parallel, smi, args.profile),
                 "llama": timed("llama", phase_llama, smi),
                 "bert": timed("bert", phase_bert, smi),
                 "engine": timed("engine", phase_engine, smi),

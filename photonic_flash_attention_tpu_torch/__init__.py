@@ -49,10 +49,15 @@ sliding-window and dropout streams. The probes K9-K12 (``ops.hbm_bw``,
 JAX repository's ``benchmarks/`` on K13-K16 (fixed-max, augmented V,
 paired chains, the pipelined KV loop).
 
+Distribution (``parallel``) runs over ``torch.distributed``, one rank a
+card: ring and Ulysses attention (the engine's RING and ULYSSES kinds
+after ``set_mesh``), the GPipe pipeline, tensor- and data-parallel GPT-2
+training (``Trainer(mesh=, param_specs=)``) and head-sharded GPT-2 serving
+(``ServingEngine(mesh=)``).
+
 The package exports the JAX package's top-level names (the config
 functions, the flash functions, the two drop-in layers,
-``convert_to_photonic``), and ``models`` those of its models except the
-sharding rules (ROADMAP A12).
+``convert_to_photonic``), and ``models`` those of its models.
 """
 
 from .config import GlobalConfig, get_config, reset_config, set_global_config

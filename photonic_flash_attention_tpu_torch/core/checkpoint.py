@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.exceptions import CheckpointError
 from ..utils.logging import get_logger
@@ -83,6 +84,14 @@ class CheckpointManager:
         <root>/step_<N>/params.pt      torch.save of the tree
         <root>/step_<N>/engine.json    router + autotuner state
         <root>/step_<N>/meta.json      step, timestamp, user metadata
+
+    Sharded state (``mesh=``; a trainer over a ``parallel/mesh.py`` mesh):
+    every rank calls ``save`` with its own tree (its parameter and
+    optimizer shards) and writes it as ``params.rank<r>-of-<n>.pt``;
+    rank 0 writes ``engine.json`` and, once every shard is on disk,
+    ``meta.json`` (with ``"world_size": n``). ``restore(mesh=)`` reads the
+    rank's own file. JAX's orbax writes one tree of global arrays
+    instead.
     """
 
     def __init__(self, root: str, max_to_keep: int = 3) -> None:
@@ -123,33 +132,55 @@ class CheckpointManager:
         params: Any,
         engine_state: Optional[Dict] = None,
         metadata: Optional[Dict] = None,
+        *,
+        mesh: Any = None,
     ) -> str:
         """Save a checkpoint of ``params`` (any tree of tensors, dicts,
         lists and numbers, e.g. ``{"model": model.state_dict(), "optimizer":
-        opt.state_dict()}``); returns its directory."""
+        opt.state_dict()}``); returns its directory. With ``mesh`` every
+        rank of the world calls it with its own shard tree."""
         d = self._step_dir(step)
-        if os.path.exists(d):
-            shutil.rmtree(d)
-        os.makedirs(d)
-        path = os.path.join(d, "params.pt")
+        lead = mesh is None or dist.get_rank() == 0
+        if lead:
+            if os.path.exists(d):
+                shutil.rmtree(d)
+            os.makedirs(d)
+        if mesh is not None:
+            dist.barrier()
+        path = os.path.join(d, self._params_file(mesh))
         torch.save(params, f"{path}.tmp")
         os.replace(f"{path}.tmp", path)
-        if engine_state is not None:
-            atomic_write_json(os.path.join(d, "engine.json"), engine_state)
-        # meta.json last: its presence marks the checkpoint complete.
-        atomic_write_json(
-            os.path.join(d, "meta.json"),
-            {"step": step, "saved_at": time.time(), **(metadata or {})},
-        )
-        self._enforce_retention()
-        logger.info("saved checkpoint step_%d -> %s", step, d)
+        if mesh is not None:
+            dist.barrier()
+        if lead:
+            if engine_state is not None:
+                atomic_write_json(os.path.join(d, "engine.json"), engine_state)
+            # meta.json last: its presence marks the checkpoint complete.
+            world = {"world_size": dist.get_world_size()} if mesh is not None else {}
+            atomic_write_json(
+                os.path.join(d, "meta.json"),
+                {"step": step, "saved_at": time.time(), **world, **(metadata or {})},
+            )
+            self._enforce_retention()
+            logger.info("saved checkpoint step_%d -> %s", step, d)
+        if mesh is not None:
+            dist.barrier()
         return d
 
-    def restore(self, step: Optional[int] = None, target: Any = None) -> Dict[str, Any]:
+    @staticmethod
+    def _params_file(mesh: Any) -> str:
+        if mesh is None:
+            return "params.pt"
+        return f"params.rank{dist.get_rank()}-of-{dist.get_world_size()}.pt"
+
+    def restore(self, step: Optional[int] = None, target: Any = None, *,
+                mesh: Any = None) -> Dict[str, Any]:
         """Restore ``{"params", "engine_state", "meta"}`` of ``step`` (the
         latest by default). ``target``: the device every tensor is loaded
         onto (``torch.load``'s ``map_location``); None keeps each tensor's
-        saved device."""
+        saved device. A sharded checkpoint needs ``mesh`` over a world of
+        the saved size (each rank reads its own shard) and raises
+        ``CheckpointError`` without it."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -157,14 +188,21 @@ class CheckpointManager:
         d = self._step_dir(step)
         if not os.path.exists(os.path.join(d, "meta.json")):
             raise CheckpointError(f"checkpoint step_{step} is incomplete")
-        params = torch.load(os.path.join(d, "params.pt"), map_location=target)
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        saved_world = meta.get("world_size")
+        if (saved_world is not None) != (mesh is not None) or (
+                mesh is not None and saved_world != dist.get_world_size()):
+            raise CheckpointError(
+                f"checkpoint step_{step} holds shards of a world of {saved_world}; restore it "
+                f"with mesh= over that world" if saved_world is not None else
+                f"checkpoint step_{step} is not sharded; restore it without mesh=")
+        params = torch.load(os.path.join(d, self._params_file(mesh)), map_location=target)
         engine_state = None
         epath = os.path.join(d, "engine.json")
         if os.path.exists(epath):
             with open(epath) as f:
                 engine_state = json.load(f)
-        with open(os.path.join(d, "meta.json")) as f:
-            meta = json.load(f)
         return {"params": params, "engine_state": engine_state, "meta": meta}
 
 

@@ -25,14 +25,22 @@ Kinds offered (no mesh):
 * under ``enable_fp8`` (default: ``quant_mode == "fp8"``): FLASH_FP8
   (``flash_attention_fp8``, K6) and FLASH_FP8QK (K1's fp8-QK mode).
   The router offers the quantized kinds to mask-free calls only, as in JAX.
+* after ``set_mesh`` (JAX ``core/engine.py:150-195``): RING
+  (``parallel/ring.py``, K1 with lse a step) and ULYSSES
+  (``parallel/ulysses.py``, K1 over the full sequence a head block), on the
+  mesh's ``seq`` axis, where JAX's feasibility gates let them. Every rank
+  of the mesh calls the engine with the same global tensors and gets the
+  global output. The callables built over a mesh are dropped when the
+  mesh changes (``set_mesh``/``clear_mesh``), as JAX drops its jits.
+  ``seq_parallel_attention`` makes the same choice, over the seq axis
+  alone and differentiable, for a module's call that does not route
+  through the engine (a sharded trainer's attention).
 
 Differences from the JAX engine, each in ROADMAP Queue C:
 
 * no hidden fallback for CUDA tensors: a kernel that fails there raises
   (the JAX engine reruns the call on FUSED and counts the failure); CPU
   tensors keep the JAX fallback;
-* the sequence-parallel kinds (``set_mesh``) are ROADMAP A12 and raise
-  ``NotImplementedError``;
 * FLASH_INT8QK and FLASH_FP8QK are not offered for fp32 V on the card:
   K1's quantized modes run P.V in bf16 (JAX runs it in fp32 for fp32 V);
   the plain versions on the CPU keep fp32.
@@ -53,7 +61,7 @@ from __future__ import annotations
 import subprocess
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -71,6 +79,9 @@ from ..ops.flash_unrolled import flash_attention_unrolled, unrolled_supported
 from ..ops.fused import fused_attention
 from ..ops.paged import paged_attention_hf
 from ..ops.reference import DEFAULT_MASK_VALUE
+from ..parallel.mesh import mesh_shape
+from ..parallel.ring import make_ring_attention
+from ..parallel.ulysses import make_ulysses_attention
 from ..utils.exceptions import ComputationError
 from ..utils.logging import get_logger
 from ..utils.monitoring import get_metrics
@@ -218,13 +229,117 @@ class AttentionEngine:
         self.last_energy_mj: Optional[float] = None
         self._total_calls = 0
         self._failure_counts: Dict[str, int] = {}
+        # Mesh context of the sequence-parallel kinds (set_mesh); None:
+        # RING and ULYSSES are not offered.
+        self._mesh = None
+        self._mesh_axes: Dict[str, Optional[str]] = {}
+        self._seq_fns: Dict[Tuple, Callable] = {}
 
-    # -- mesh context (ROADMAP A12) -----------------------------------------
+    # -- mesh context ----------------------------------------------------------
 
-    def set_mesh(self, mesh, **kwargs) -> None:
-        raise NotImplementedError("ring and Ulysses attention are not ported yet (ROADMAP A12)")
+    @property
+    def mesh(self):
+        """The mesh of ``set_mesh``, or None."""
+        return self._mesh
 
-    # -- the registry ----------------------------------------------------------
+    @property
+    def seq_axis(self) -> Optional[str]:
+        """The mesh axis RING and ULYSSES run on, or None without a mesh."""
+        return self._mesh_axes.get("seq")
+
+    def set_mesh(self, mesh, *, seq_axis: str = "seq", data_axis: Optional[str] = None,
+                 model_axis: Optional[str] = None) -> None:
+        """Register a device mesh (``parallel/mesh.py``): RING and ULYSSES
+        join the registry on its ``seq_axis``; batch rides ``data_axis``
+        and heads ``model_axis`` where given. Drops the callables built
+        over the previous mesh."""
+        if seq_axis not in mesh_shape(mesh):
+            raise ComputationError(f"mesh has no axis {seq_axis!r}")
+        with self._lock:
+            self._mesh = mesh
+            self._mesh_axes = {"seq": seq_axis, "data": data_axis, "model": model_axis}
+            self._seq_fns.clear()
+
+    def clear_mesh(self) -> None:
+        with self._lock:
+            self._mesh = None
+            self._mesh_axes = {}
+            self._seq_fns.clear()
+
+    def _n_seq(self) -> int:
+        return mesh_shape(self._mesh)[self._mesh_axes["seq"]]
+
+    def _ring_feasible(self, w: WorkloadCharacteristics) -> bool:
+        """JAX's gate: a seq axis of more than one rank that divides the
+        sequence into shards of at least 128; square self-attention with
+        no mask or a key mask; no weights."""
+        if self._mesh is None or w.is_decode or w.need_weights:
+            return False
+        if w.mask_kind not in ("none", "key") or w.q_len != w.kv_len:
+            return False
+        n_seq = self._n_seq()
+        if n_seq <= 1 or w.q_len % n_seq:
+            return False
+        return w.q_len // n_seq >= 128
+
+    def _ulysses_feasible(self, w: WorkloadCharacteristics) -> bool:
+        """JAX's gate: the seq axis divides the heads, the KV heads and the
+        sequence, into shards that are multiples of 128."""
+        if self._mesh is None or w.is_decode or w.need_weights:
+            return False
+        if w.mask_kind not in ("none", "key") or w.q_len != w.kv_len:
+            return False
+        n_seq = self._n_seq()
+        if n_seq <= 1 or w.num_heads % n_seq or w.q_len % n_seq:
+            return False
+        if (w.num_kv_heads or w.num_heads) % n_seq:
+            return False
+        return (w.q_len // n_seq) % 128 == 0
+
+    def _seq_fn(self, kind: KernelKind, causal: bool, local: bool = False) -> Callable:
+        """The RING or ULYSSES callable over the current mesh (global
+        tensors in and out), built once a mesh, causality and ``local``.
+        ``local``: over the seq axis alone and differentiable, for tensors
+        that already hold this rank's batch block and heads."""
+        with self._lock:
+            if self._mesh is None:
+                raise ComputationError(f"{kind.value} requires set_mesh() first")
+            fn = self._seq_fns.get((kind, causal, local))
+            if fn is None:
+                axes = self._mesh_axes
+                data_axis = None if local else axes["data"]
+                if kind == KernelKind.RING:
+                    fn = make_ring_attention(self._mesh, seq_axis=axes["seq"],
+                                             data_axis=data_axis,
+                                             model_axis=None if local else axes["model"],
+                                             causal=causal, differentiable=local)
+                else:
+                    fn = make_ulysses_attention(self._mesh, seq_axis=axes["seq"],
+                                                data_axis=data_axis, causal=causal)
+                self._seq_fns[(kind, causal, local)] = fn
+            return fn
+
+    def seq_parallel_attention(self, q: torch.Tensor, k: torch.Tensor, *,
+                               causal: bool) -> Optional[Callable]:
+        """The differentiable sequence-parallel attention for a module's
+        self-attention over (B, S, H, D) ``q`` and ``k`` that already hold
+        this rank's batch block and heads (a sharded trainer's): ULYSSES
+        where its gate lets it, else RING where its gate does, else None
+        (no mesh, or a seq axis of one rank). ``fn(q, k, v, kv_lens=None,
+        k_bias=None)`` splits the sequence over the seq axis and returns
+        the whole output on every rank. Asked at every call, so a mesh set
+        or cleared later is seen."""
+        if self._mesh is None:
+            return None
+        w = WorkloadCharacteristics(
+            batch_size=q.shape[0], q_len=q.shape[1], kv_len=k.shape[1], num_heads=q.shape[2],
+            head_dim=q.shape[3], causal=causal, mask_kind="key",
+            dtype=str(q.dtype).replace("torch.", ""), num_kv_heads=k.shape[2])
+        for kind, feasible in ((KernelKind.ULYSSES, self._ulysses_feasible),
+                               (KernelKind.RING, self._ring_feasible)):
+            if feasible(w):
+                return self._seq_fn(kind, causal, local=True)
+        return None
 
     def _available_kernels(
         self, w: Optional[WorkloadCharacteristics] = None
@@ -242,6 +357,10 @@ class AttentionEngine:
         if (w is not None and w.is_decode and w.kv_len >= DECODE_PAGE
                 and w.dtype in ("bfloat16", "float32")):
             kinds.append(KernelKind.PAGED_DECODE)  # pools K3 takes; not float16
+        if w is not None and self._ring_feasible(w):
+            kinds.append(KernelKind.RING)
+        if w is not None and self._ulysses_feasible(w):
+            kinds.append(KernelKind.ULYSSES)
         return tuple(kinds)
 
     def _run(self, kind: KernelKind, q, k, v, mask, kv_lens, k_bias, causal, need_weights):
@@ -268,6 +387,8 @@ class AttentionEngine:
             return QUANT_KINDS[kind](q, k, v, causal=causal), None
         if kind == KernelKind.PAGED_DECODE:
             return _decode_paged(q, k, v, kv_lens), None
+        if kind in (KernelKind.RING, KernelKind.ULYSSES):
+            return self._seq_fn(kind, causal)(q, k, v, kv_lens=kv_lens, k_bias=k_bias), None
         raise ComputationError(f"engine has no kernel for {kind}")
 
     # -- main entry -------------------------------------------------------------

@@ -32,15 +32,26 @@ the GPT-2, Llama and T5 families (``_model_adapter``):
   and ``restore`` resumes it on the same random stream: the tokens equal
   an uninterrupted run's.
 
+* ``mesh`` (a ``parallel/mesh.py`` mesh with ``model_axis``; GPT-2 only, as
+  in JAX): tensor-parallel serving. Every rank of the mesh runs the same
+  engine on the same requests; each holds its head shard of the paged
+  pools (int8 scales included) and its TP shards of the weights
+  (``models/gpt2_serving.py::serving_param_specs``); prefill, chunked
+  prefill and K3's fused decode run on the rank's heads with two
+  all-reduces a layer, and the host state, page tables and sampled tokens
+  are the same on every rank (JAX ``_init_sharded``,
+  ``_make_sharded_decode_window``). ``save`` then writes each rank's pool
+  shard to its own file and ``restore`` needs the mesh.
+
 The JAX window is one compiled ``lax.scan``; here it is a Python loop of
 eager steps (a CUDA graph is later work). The engine runs on the card
-unless the caller passes ``device="cpu"``. The mesh is not in this slice
-(``NotImplementedError``, ROADMAP A12).
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -48,12 +59,14 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import gpt2_serving, llama_serving, t5_serving
 from ..models.gpt2 import GPT2Config
 from ..models.llama import LlamaConfig
 from ..models.t5 import T5Config
 from ..ops.paged import POOL_DTYPES
+from ..parallel.mesh import axis_group, axis_index, axis_size, mesh_shape, shard_tensor
 from ..utils.exceptions import KVCacheError
 from .checkpoint import atomic_savez, atomic_write_json, np_to_tensor, tensor_to_np
 from .native_alloc import NativePageAllocator, native_available
@@ -192,7 +205,8 @@ class _Sequence:
 
 
 class ServingEngine:
-    """Single-device continuous batching (GPT-2, Llama and T5 families).
+    """Continuous batching (GPT-2, Llama and T5 families; GPT-2 also
+    tensor-parallel over a mesh's model axis).
 
     ``params`` is a ``models.gpt2.GPT2LMHead``,
     ``models.llama.LlamaForCausalLM`` or
@@ -224,12 +238,13 @@ class ServingEngine:
         top_k: int = 0,
         seed: int = 0,
         mesh=None,
+        model_axis: str = "model",
         admission: str = "fifo",
         enc_max_len: int = 512,
     ) -> None:
         adapter = _model_adapter(cfg, max_batch=max_batch, enc_max_len=enc_max_len)
         if mesh is not None:
-            raise NotImplementedError("sharded serving is ROADMAP A12")
+            adapter = self._sharded_adapter(cfg, adapter, mesh, model_axis)
         if prefill_chunk is not None:
             if adapter.prefill_chunk is None:
                 raise ValueError(
@@ -253,6 +268,8 @@ class ServingEngine:
         self._prefill_step, self._decode_step = adapter.prefill, adapter.decode
         self._chunk_step = adapter.prefill_chunk
         self.enc_max_len = enc_max_len
+        self._mesh = mesh
+        self._model_axis = model_axis if mesh is not None else None
         self.params = adapter.prepare_params(params, cfg, self.device)
         self.page_size = page_size
         self.num_pages = num_pages
@@ -287,6 +304,59 @@ class ServingEngine:
         # stream (the JAX engine seeds its keys from _steps, which that
         # reset zeroes).
         self._sample_steps = 0
+
+    # -- sharded serving ---------------------------------------------------
+
+    @staticmethod
+    def _sharded_adapter(cfg, adapter: _Adapter, mesh, model_axis: str) -> _Adapter:
+        """GPT-2's steps over the mesh's model axis (JAX ``_init_sharded``):
+        the weights cut to the rank's TP shards once, pools of the rank's
+        heads, every step given the axis's process group. One rank drives
+        one card, so K3's split counters, one set a device
+        (``csrc/paged_decode_sm90.cu:60-63``), serve one rank's launches
+        as on one card."""
+        if not isinstance(cfg, GPT2Config):
+            raise ValueError("sharded serving currently supports the GPT-2 family only")
+        axes = mesh_shape(mesh)
+        if model_axis not in axes:
+            raise ValueError(f"mesh has no axis {model_axis!r}")
+        n_model = axes[model_axis]
+        if cfg.n_head % n_model:
+            raise ValueError(f"n_head ({cfg.n_head}) must divide over the model axis ({n_model})")
+        group = axis_group(mesh, model_axis)
+        d = cfg.n_embd // cfg.n_head
+
+        def create_pages(n, page, dtype, device):
+            return gpt2_serving.KVPages.zeros(cfg.n_layer, cfg.n_head // n_model, n, page, d,
+                                              dtype, device)
+
+        def prepare(state, cfg_, device):
+            return gpt2_serving.shard_params(gpt2_serving.prepare_params(state, cfg_, device),
+                                             mesh, model_axis)
+
+        return dataclasses.replace(
+            adapter, create_pages=create_pages, prepare_params=prepare,
+            prefill=functools.partial(gpt2_serving.prefill_step, tp_group=group),
+            decode=functools.partial(gpt2_serving.decode_step, tp_group=group),
+            prefill_chunk=functools.partial(gpt2_serving.prefill_chunk_step, tp_group=group),
+        )
+
+    def _pages_file(self) -> str:
+        """This rank's pool file: ``pages.npz``, or under a mesh its shard's
+        ``pages.<axis><i>-of-<n>.npz``."""
+        if self._mesh is None:
+            return "pages.npz"
+        i = axis_index(self._mesh, self._model_axis)
+        n = axis_size(self._mesh, self._model_axis)
+        return f"pages.{self._model_axis}{i}-of-{n}.npz"
+
+    def _writes_checkpoint(self) -> bool:
+        """Under a mesh, the ranks at coordinate 0 of every other axis write
+        (the model axis's ranks hold the distinct shards)."""
+        if self._mesh is None:
+            return True
+        return all(axis_index(self._mesh, a) == 0
+                   for a in self._mesh.mesh_dim_names if a != self._model_axis)
 
     # -- admission ---------------------------------------------------------
 
@@ -658,14 +728,27 @@ class ServingEngine:
         pool tensor (T5's cross buffers and encoder lengths too) as
         ``pages.npz``, bf16 as its ``uint16`` bits, and the host state as
         ``state.json`` (each written to a temporary name and renamed). A
-        preempted process resumes with :meth:`restore`."""
+        preempted process resumes with :meth:`restore`. Under a mesh every
+        rank calls it: each model-axis shard's pools go to their own file
+        (``_pages_file``), ``state.json`` comes from shard 0, and it
+        returns when all are written."""
+        if self._writes_checkpoint():
+            self._save_files(path)
+        if self._mesh is not None:
+            dist.barrier()  # every shard is on disk when any rank returns
+
+    def _save_files(self, path: str) -> None:
+        """This rank's pool file, and ``state.json`` unless another rank of
+        the model axis writes it (the shard-0 rank)."""
         os.makedirs(path, exist_ok=True)
         arrays = {
             f.name: tensor_to_np(getattr(self.pages, f.name))
             for f in dataclasses.fields(self.pages)
             if getattr(self.pages, f.name) is not None
         }
-        atomic_savez(os.path.join(path, "pages.npz"), arrays)
+        atomic_savez(os.path.join(path, self._pages_file()), arrays)
+        if self._mesh is not None and axis_index(self._mesh, self._model_axis) != 0:
+            return
         host = {
             "version": 1,
             "ctor": {
@@ -682,8 +765,10 @@ class ServingEngine:
                 "top_k": self.top_k,
                 "seed": self._sample_seed,
                 "enc_max_len": self.enc_max_len,
-                "sharded": False,
-                "model_axis": None,
+                "sharded": self._mesh is not None,
+                "model_axis": self._model_axis,
+                "model_shards": (axis_size(self._mesh, self._model_axis)
+                                 if self._mesh is not None else 1),
             },
             "next_id": self._next_id,
             "waiting": self._sched.waiting_ids(),
@@ -715,7 +800,7 @@ class ServingEngine:
 
     @classmethod
     def restore(cls, path: str, cfg, params: Mapping[str, torch.Tensor], *,
-                device: Any = "cuda") -> "ServingEngine":
+                device: Any = "cuda", mesh=None) -> "ServingEngine":
         """Rebuild an engine saved by :meth:`save` on ``device`` (the card
         by default) from the same ``cfg`` and ``params``.
 
@@ -723,18 +808,23 @@ class ServingEngine:
         page ids (the native allocator cannot be told which pages to hold);
         the device page tables are rebuilt at the next step; the waiting
         requests are queued again in their saved order. A checkpoint of a
-        sharded engine raises ``ValueError`` (the mesh is ROADMAP A12)."""
+        sharded engine needs ``mesh`` (a model axis of the saved size; each
+        rank reads its shard's file) and raises ``ValueError`` without it,
+        as JAX's does; an unsharded one restored with a mesh is cut to the
+        rank's shard."""
         with open(os.path.join(path, "state.json")) as f:
             host = json.load(f)
         ctor = host["ctor"]
-        if ctor.get("sharded"):
+        if ctor.get("sharded") and mesh is None:
             raise ValueError(
-                f"checkpoint was saved from a sharded engine (model_axis="
-                f"{ctor.get('model_axis')!r}); sharded serving is ROADMAP A12"
+                f"checkpoint was saved from a TP-sharded engine (model_axis="
+                f"{ctor.get('model_axis')!r}); pass mesh= to restore it sharded"
             )
+        model_axis = ctor.get("model_axis") or "model"
         kv_dtype = {name: dtype for dtype, name in _KV_NAMES.items()}[ctor["kv_dtype"]]
         eng = cls(
-            cfg, params, device=device, num_pages=ctor["num_pages"],
+            cfg, params, device=device, mesh=mesh, model_axis=model_axis,
+            num_pages=ctor["num_pages"],
             page_size=ctor["page_size"], max_batch=ctor["max_batch"],
             max_pages_per_seq=ctor["max_pages_per_seq"], kv_dtype=kv_dtype,
             eos_token_id=ctor["eos_token_id"], decode_window=ctor["decode_window"],
@@ -742,12 +832,20 @@ class ServingEngine:
             top_k=ctor["top_k"], seed=ctor["seed"], admission=ctor["admission"],
             enc_max_len=ctor["enc_max_len"],
         )
-        data = np.load(os.path.join(path, "pages.npz"))
+        whole = mesh is not None and not ctor.get("sharded")
+        if ctor.get("sharded") and ctor.get("model_shards") != axis_size(mesh, model_axis):
+            raise ValueError(f"checkpoint holds {ctor.get('model_shards')} shards on "
+                             f"{model_axis!r}; the mesh has {axis_size(mesh, model_axis)}")
+        data = np.load(os.path.join(path, "pages.npz" if whole else eng._pages_file()))
+        specs = gpt2_serving.serving_pages_specs(eng.quantized, model_axis) if whole else {}
         for f in dataclasses.fields(eng.pages):
             fresh = getattr(eng.pages, f.name)
             if fresh is None:
                 continue
             saved = data[f.name]
+            if whole:
+                saved = tensor_to_np(shard_tensor(np_to_tensor(saved, fresh.dtype, "cpu"),
+                                                  specs[f.name], mesh))
             if tuple(saved.shape) != tuple(fresh.shape):
                 raise ValueError(f"{f.name}: saved shape {saved.shape}, engine's "
                                  f"{tuple(fresh.shape)}")

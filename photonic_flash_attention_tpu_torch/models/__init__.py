@@ -1,6 +1,6 @@
 """Models: the drop-in attention layers, GPT-2, BERT, T5 and Llama (dense
-forwards; paged-KV serving steps for GPT-2, T5 and Llama) and the HF
-conversion, under the JAX package's names."""
+forwards; paged-KV serving steps for GPT-2, T5 and Llama), the HF
+conversion and the sharding rules, under the JAX package's names."""
 
 from .attention import (
     PhotonicFlashAttention,
@@ -14,8 +14,14 @@ from .convert import (
     PhotonicConfig,
     convert_to_photonic,
 )
-from .gpt2 import GPT2Config, GPT2LMHead, load_hf_gpt2
-from .llama import LlamaConfig, LlamaForCausalLM, load_hf_llama, transfer_hf_llama
+from .gpt2 import GPT2Config, GPT2LMHead, load_hf_gpt2, param_sharding_rules
+from .llama import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    llama_param_sharding_rules,
+    load_hf_llama,
+    transfer_hf_llama,
+)
 from .t5 import (
     T5Config,
     T5ForConditionalGeneration,
@@ -41,10 +47,12 @@ __all__ = [
     "T5Model",
     "convert_to_photonic",
     "dispatch_attention",
+    "llama_param_sharding_rules",
     "load_hf_bert",
     "load_hf_gpt2",
     "load_hf_llama",
     "load_hf_t5",
+    "param_sharding_rules",
     "transfer_hf_bert",
     "transfer_hf_llama",
     "transfer_hf_t5",

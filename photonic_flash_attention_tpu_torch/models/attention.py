@@ -27,7 +27,14 @@ Port of ``photonic_flash_attention_tpu/models/attention.py``:
   as JAX routes to the engine only without it) and ``dropout_rate`` the
   output (``F.dropout``, torch's generator: not the bits of Flax's
   ``nn.Dropout``). The attention-dropout seed is the call's
-  ``dropout_seed``, or one drawn from torch's default generator.
+  ``dropout_seed``, or one drawn from torch's default generator. A call
+  that does not route through the engine runs sequence parallel when the
+  engine has a mesh whose seq axis can take it
+  (``core/engine.py::AttentionEngine.seq_parallel_attention``: Ulysses or
+  ring attention, differentiable), and :func:`dispatch_attention`
+  otherwise. With ``tp_group`` (a model axis's process group) the module
+  holds this rank's heads: q/k/v column-parallel, ``out_proj``
+  row-parallel (``parallel/collectives.py``).
 * :class:`PhotonicMultiHeadAttention` — the ``nn.MultiheadAttention``-style
   facade: (B, S, E) batch-first, ``key_padding_mask`` (True = ignore),
   ``attn_mask``, head-averaged weights.
@@ -48,14 +55,20 @@ from ..ops.flash import flash_attention
 from ..ops.flash_bwd import validate_dropout
 from ..ops.fused import fused_attention
 from ..ops.reference import DEFAULT_MASK_VALUE, repeat_kv
+from ..parallel import collectives as C
 
 Attn = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
-def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """Flax ``nn.Dense(dtype=x.dtype)``: weight and bias cast to x's dtype."""
+def dense(x: torch.Tensor, layer: nn.Linear, group=None, *, row: bool = False) -> torch.Tensor:
+    """Flax ``nn.Dense(dtype=x.dtype)``: weight and bias cast to x's dtype.
+    With a process group the layer holds this rank's shard: column-parallel
+    (its output rows), or with ``row`` row-parallel (its input columns)."""
     bias = layer.bias.to(x.dtype) if layer.bias is not None else None
-    return F.linear(x, layer.weight.to(x.dtype), bias)
+    weight = layer.weight.to(x.dtype)
+    if group is None:
+        return F.linear(x, weight, bias)
+    return (C.row_linear if row else C.column_linear)(x, weight, bias, group)
 
 
 def model_device(device) -> torch.device:
@@ -187,29 +200,43 @@ class PhotonicFlashAttention(nn.Module):
         kv_lens: Optional[torch.Tensor] = None,
         k_bias: Optional[torch.Tensor] = None,
         dropout_seed: Optional[Seed] = None,
+        tp_group=None,
     ) -> Attn:
         """Returns (output (B, Sq, E) in ``dtype``, weights or None).
         ``dropout_seed`` seeds the attention dropout of a train-mode call
-        (default: one drawn from torch's default generator)."""
+        (default: one drawn from torch's default generator). ``tp_group``:
+        the projections hold this rank's heads of a tensor-parallel model
+        (Megatron's f on the inputs, g after ``out_proj``)."""
         attn_rate = self.attention_dropout if self.training else 0.0
         if attn_rate > 0.0 and dropout_seed is None:
             dropout_seed = int(torch.randint(0, 2**31 - 1, (1,)))
+        if tp_group is not None:
+            query, key, value = (None if t is None else C.copy_to(t, tp_group)
+                                 for t in (query, key, value))
         key = query if key is None else key
         value = key if value is None else value
         b, sq, _ = query.shape
         skv = key.shape[1]
         x_q, x_k, x_v = (t.to(self.dtype) for t in (query, key, value))
-        q = dense(x_q, self.q_proj).reshape(b, sq, self.num_heads, self.head_dim)
-        k = dense(x_k, self.k_proj).reshape(b, skv, self.num_kv_heads, self.head_dim)
-        v = dense(x_v, self.v_proj).reshape(b, skv, self.num_kv_heads, self.head_dim)
+        q = dense(x_q, self.q_proj, tp_group).reshape(b, sq, -1, self.head_dim)
+        k = dense(x_k, self.k_proj, tp_group).reshape(b, skv, -1, self.head_dim)
+        v = dense(x_v, self.v_proj, tp_group).reshape(b, skv, -1, self.head_dim)
         records_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
         kw = dict(causal=self.causal, need_weights=need_weights, kv_lens=kv_lens, k_bias=k_bias)
-        if self.adaptive and not records_grad and attn_rate == 0.0:
+        routed = self.adaptive and not records_grad and attn_rate == 0.0
+        seq_par = None
+        if not routed and mask is None and not need_weights:
+            seq_par = get_engine().seq_parallel_attention(q, k, causal=self.causal)
+        if seq_par is not None and attn_rate > 0.0:
+            raise ValueError("attention dropout does not run on the sequence-parallel kinds")
+        if routed:
             out, weights = get_engine()(q, k, v, mask, **kw)
+        elif seq_par is not None:
+            out, weights = seq_par(q, k, v, kv_lens=kv_lens, k_bias=k_bias), None
         else:
             out, weights = dispatch_attention(q, k, v, mask, dropout_rate=attn_rate,
                                               dropout_seed=dropout_seed, **kw)
-        out = dense(out.reshape(b, sq, self.num_heads * self.head_dim), self.out_proj)
+        out = dense(out.reshape(b, sq, -1), self.out_proj, tp_group, row=True)
         return F.dropout(out, self.dropout_rate, self.training), weights
 
     @staticmethod

@@ -30,13 +30,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import fold_seed
+from ..parallel import collectives as C
+from ..parallel.mesh import PartitionSpec
 from .attention import PhotonicFlashAttention, dense, model_device
 
 
@@ -82,8 +85,13 @@ class MLP(nn.Module):
         self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd)
         self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(F.gelu(dense(x, self.c_fc), approximate="tanh"), self.c_proj)
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """``group``: ``c_fc`` holds this rank's columns and ``c_proj`` its
+        rows (Megatron's f before, g after)."""
+        if group is not None:
+            x = C.copy_to(x, group)
+        m = F.gelu(dense(x, self.c_fc, group), approximate="tanh")
+        return dense(m, self.c_proj, group, row=True)
 
 
 class Block(nn.Module):
@@ -98,14 +106,25 @@ class Block(nn.Module):
         self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=eps)
         self.mlp = MLP(cfg)
 
-    def forward(self, x: torch.Tensor, dropout_seed: Optional[int] = None) -> torch.Tensor:
-        x = x + self.attn(layer_norm(x, self.ln_1), dropout_seed=dropout_seed)[0]
-        return x + self.mlp(layer_norm(x, self.ln_2))
+    def forward(self, x: torch.Tensor, dropout_seed: Optional[int] = None,
+                group=None) -> torch.Tensor:
+        x = x + self.attn(layer_norm(x, self.ln_1), dropout_seed=dropout_seed, tp_group=group)[0]
+        return x + self.mlp(layer_norm(x, self.ln_2), group)
 
 
 class GPT2LMHead(nn.Module):
     """GPT-2 with tied-embedding LM head. Input: (B, S) token ids; output
-    (B, S, V) logits in ``cfg.dtype``."""
+    (B, S, V) logits in ``cfg.dtype``.
+
+    After :meth:`tensor_parallel` the same forward runs on this rank's
+    shards, as :func:`param_sharding_rules` places them over a model axis's
+    process group: each block on the rank's heads and MLP columns between
+    Megatron's f (``parallel/collectives.py::copy_to``) and g (an
+    all-reduce after ``out_proj`` and after ``c_proj``), ``wte``'s n_embd
+    shard all-gathered once a forward, where XLA gathers it for the lookup
+    and the tied head. The logits are the same on every rank of the group.
+    Train-mode attention dropout then draws its mask over the rank's local
+    head indices, so its sample differs from the unsharded model's."""
 
     def __init__(
         self, cfg: GPT2Config, *, generator: Optional[torch.Generator] = None
@@ -116,6 +135,7 @@ class GPT2LMHead(nn.Module):
         self.wpe = nn.Parameter(torch.empty(cfg.n_positions, cfg.n_embd))
         self.h = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layer))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon)
+        self.tp_group = None
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -143,16 +163,66 @@ class GPT2LMHead(nn.Module):
         """``dropout_seed``: the base seed of a train-mode forward's
         attention dropout (ignored in eval mode or without ``attn_pdrop``)."""
         dt = self.config.dtype
+        group = self.tp_group
+        wte = self.wte
+        if group is not None and wte.shape[1] != self.config.n_embd:
+            wte = C.gather(wte, 1, group)
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None]
-        x = self.wte.to(dt)[input_ids] + self.wpe.to(dt)[positions]
+        x = wte.to(dt)[input_ids] + self.wpe.to(dt)[positions]
         drop = self.training and self.config.attn_pdrop > 0.0
         if drop and dropout_seed is None:
             dropout_seed = int(torch.randint(0, 2**31 - 1, (1,)))
         for i, block in enumerate(self.h):
-            x = block(x, fold_seed(dropout_seed, i) if drop else None)
+            x = block(x, fold_seed(dropout_seed, i) if drop else None, group)
         x = layer_norm(x, self.ln_f)
-        return x @ self.wte.to(dt).T
+        return x @ wte.to(dt).T
+
+    def tensor_parallel(self, group, specs: Mapping[str, Any], model_axis: str) -> None:
+        """Make the forward tensor parallel over ``group`` (the process
+        group of the mesh's ``model_axis``), before the caller cuts each
+        parameter to its shard by ``specs``, which must be
+        :func:`param_sharding_rules`' layout; the heads must divide over
+        the group."""
+        rules = param_sharding_rules(self.state_dict(), (None, model_axis))
+        if {n: tuple(specs.get(n, ())) for n in rules} != {n: tuple(r) for n, r in rules.items()}:
+            raise ValueError("tensor-parallel GPT-2 needs the layout of "
+                             "models.gpt2.param_sharding_rules")
+        n = dist.get_world_size(group)
+        if self.config.n_head % n:
+            raise ValueError(f"n_head ({self.config.n_head}) must divide over the model axis ({n})")
+        self.tp_group = group
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def param_sharding_rules(params: Mapping[str, Any],
+                         mesh_axes: Tuple[str, str] = ("data", "model")) -> Dict[str, PartitionSpec]:
+    """A :class:`~..parallel.mesh.PartitionSpec` for each parameter of a
+    ``GPT2LMHead`` state_dict (JAX ``param_sharding_rules``,
+    ``models/gpt2.py:159``): q/k/v and ``c_fc`` column-parallel (heads and
+    the MLP's hidden units on ``model``), ``out_proj`` and ``c_proj``
+    row-parallel, ``wte`` sharded on n_embd; biases, LayerNorms and ``wpe``
+    replicated. ``nn.Linear.weight`` is the Flax kernel transposed, so a
+    column-parallel weight shards its dim 0 where JAX's kernel shards its
+    last."""
+    _, model = mesh_axes
+
+    def rule(name: str, leaf) -> PartitionSpec:
+        if leaf.ndim < 2:
+            return PartitionSpec()
+        if any(name.endswith(f"{p}.weight") for p in ("q_proj", "k_proj", "v_proj", "c_fc")):
+            return PartitionSpec(model, None)
+        if name.endswith("out_proj.weight") or name.endswith("c_proj.weight"):
+            return PartitionSpec(None, model)
+        if name == "wte":
+            return PartitionSpec(None, model)
+        return PartitionSpec()
+
+    return {name: rule(name, leaf) for name, leaf in params.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,16 @@ JAX threads the pool through ``lax.scan`` as a carry and returns it; here
 both steps are a Python loop over layers and update the pool IN PLACE, so
 they return only the logits.
 
+Tensor-parallel serving (JAX ``tp_axis``): with ``tp_group`` (the process
+group of the mesh's model axis) each step runs on this rank's shards as
+:func:`serving_param_specs` and :func:`serving_pages_specs` place them:
+the rank's heads of q/k/v and of the pool (int8 scales included), its
+columns of ``c_fc``, its rows of ``out_proj`` and ``c_proj``, whose
+partial sums are all-reduced (two all-reduces a layer; the replicated
+bias enters the partial sum on the group's first rank, so one rank
+computes exactly the unsharded step). The residual stream, the logits and
+so the sampled tokens are the same on every rank.
+
 The per-token int8 quantization (the JAX ``_quant_tokens``) is
 ``ops/paged.py::_quant_token_write``.
 
@@ -36,6 +46,8 @@ from ..ops.flash import flash_attention
 from ..ops.flash_unrolled import flash_attention_best
 from ..ops.paged import paged_decode_attention, paged_token_write_plain
 from ..ops.reference import DEFAULT_MASK_VALUE
+from ..parallel import collectives as C
+from ..parallel.mesh import PartitionSpec, shard_tensor
 from .gpt2 import GPT2Config
 
 #: dense layer -> its parent module in the GPT2LMHead state_dict.
@@ -123,6 +135,11 @@ def _dense(x: torch.Tensor, wb: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tens
     return F.linear(x, wb[0], wb[1])
 
 
+def _local_heads(params: Dict[str, Any], d: int) -> int:
+    """Heads this rank holds: all of them, or its shard under TP."""
+    return params["layers"][0]["q_proj"][0].shape[0] // d
+
+
 def _decode_write(pages: KVPages, kh, vh, flat_slots, lyr: int) -> None:
     """Token write into the full multi-layer pool, in place: the plain
     scatter (``index_put_``) that the JAX package leaves to XLA."""
@@ -135,10 +152,10 @@ def _embed(params, input_ids, positions) -> torch.Tensor:
     return params["wte"][input_ids.long()] + params["wpe"][positions.long()]
 
 
-def _mlp(x, p, eps):
+def _mlp(x, p, eps, tp_group=None):
     h2 = _layer_norm(x, p["ln_2"], eps)
     m = F.gelu(_dense(h2, p["c_fc"]), approximate="tanh")
-    return x + _dense(m, p["c_proj"])
+    return x + C.row_linear(m, *p["c_proj"], tp_group)
 
 
 def _last_valid(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -157,11 +174,14 @@ def prefill_step(
     pages: KVPages,
     flat_slots: torch.Tensor,  # (B, S) int32 flat page slots (trash past len)
     quantized: bool,
+    *,
+    tp_group=None,
 ) -> torch.Tensor:
     """Prompt forward + cache fill (pool updated in place). Returns the
     last real token's logits (B, V) float32."""
     b, s = input_ids.shape
-    h, d = cfg.n_head, cfg.n_embd // cfg.n_head
+    d = cfg.n_embd // cfg.n_head
+    h = _local_heads(params, d)
     eps = cfg.layer_norm_epsilon
     positions = torch.arange(s, device=input_ids.device)[None]
     x = _embed(params, input_ids, positions)
@@ -173,7 +193,7 @@ def prefill_step(
         vh = _dense(h_in, p["v_proj"]).reshape(b, s, h, d)
         _decode_write(pages, kh.reshape(b * s, h, d), vh.reshape(b * s, h, d), slots, lyr)
         attn = flash_attention_best(qh, kh, vh, causal=True).reshape(b, s, h * d)
-        x = _mlp(x + _dense(attn, p["out_proj"]), p, eps)
+        x = _mlp(x + C.row_linear(attn, *p["out_proj"], tp_group), p, eps, tp_group)
     x = _layer_norm(x, params["ln_f"], eps)
     return (_last_valid(x, prompt_lengths) @ params["wte"].T).float()
 
@@ -242,6 +262,8 @@ def prefill_chunk_step(
     page_tables: torch.Tensor,  # (B, pages_per_seq) int32
     quantized: bool,
     s_hist: int,  # history window in tokens, a multiple of the page size
+    *,
+    tp_group=None,
 ) -> torch.Tensor:
     """One chunk of a chunked prefill (JAX ``prefill_chunk_step``), pool
     updated in place. Per layer: gather the first ``s_hist`` cached tokens
@@ -251,7 +273,8 @@ def prefill_chunk_step(
     ``chunk_start`` (not yet written) and the chunk's padding. Returns the
     last valid chunk token's logits (B, V) float32."""
     b, c = input_ids.shape
-    h, d = cfg.n_head, cfg.n_embd // cfg.n_head
+    d = cfg.n_embd // cfg.n_head
+    h = _local_heads(params, d)
     eps = cfg.layer_norm_epsilon
     device = input_ids.device
     n_hist_pages = s_hist // pages.k.shape[3]
@@ -269,7 +292,8 @@ def prefill_chunk_step(
         kh = _dense(h_in, p["k_proj"]).reshape(b, c, h, d)
         vh = _dense(h_in, p["v_proj"]).reshape(b, c, h, d)
         attn = _attend_chunk(pages, page_tables, lyr, n_hist_pages, qh, kh, vh, slots, k_bias)
-        x = _mlp(x + _dense(attn.reshape(b, c, h * d), p["out_proj"]), p, eps)
+        x = _mlp(x + C.row_linear(attn.reshape(b, c, h * d), *p["out_proj"], tp_group), p, eps,
+                 tp_group)
     x = _layer_norm(x, params["ln_f"], eps)
     return (_last_valid(x, chunk_lens) @ params["wte"].T).float()
 
@@ -285,11 +309,14 @@ def decode_step(
     lengths: torch.Tensor,  # (B,) int32 cache length AFTER this token
     page_tables: torch.Tensor,  # (B, pages_per_seq) int32
     quantized: bool,
+    *,
+    tp_group=None,
 ) -> torch.Tensor:
     """One decode token per sequence (pool updated in place). Returns
     logits (B, V) float32."""
     b = input_ids.shape[0]
-    h, d = cfg.n_head, cfg.n_embd // cfg.n_head
+    d = cfg.n_embd // cfg.n_head
+    h = _local_heads(params, d)
     eps = cfg.layer_norm_epsilon
     x = _embed(params, input_ids, positions)  # (B, E)
     for lyr, p in enumerate(params["layers"]):
@@ -303,6 +330,67 @@ def decode_step(
             pages.v_scales if quantized else None,
         )
         attn = attn.reshape(b, h * d).to(x.dtype)
-        x = _mlp(x + _dense(attn, p["out_proj"]), p, eps)
+        x = _mlp(x + C.row_linear(attn, *p["out_proj"], tp_group), p, eps, tp_group)
     x = _layer_norm(x, params["ln_f"], eps)
     return (x @ params["wte"].T).float()
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving layout (model-axis sharded decode)
+# ---------------------------------------------------------------------------
+
+
+def serving_param_specs(model_axis: str = "model") -> Dict[str, Any]:
+    """The :class:`~..parallel.mesh.PartitionSpec` tree of the serving
+    weights (:func:`prepare_params`) for GPT-2 TP (JAX
+    ``serving_param_specs``, ``models/gpt2_serving.py:479``): q/k/v and
+    ``c_fc`` column-parallel with their biases sharded alike, ``out_proj``
+    and ``c_proj`` row-parallel with replicated biases, embeddings and
+    LayerNorms replicated. ``layers`` holds the one layer spec every layer
+    takes (JAX's scanned stack carries a leading (L,) axis instead); each
+    (weight, bias) pair is ``nn.Linear``'s (out, in) weight, so the specs
+    are JAX's kernels' reversed."""
+    m = model_axis
+    col = (PartitionSpec(m, None), PartitionSpec(m))
+    row = (PartitionSpec(None, m), PartitionSpec())
+    ln = (PartitionSpec(), PartitionSpec())
+    return {
+        "wte": PartitionSpec(),
+        "wpe": PartitionSpec(),
+        "ln_f": ln,
+        "layers": {
+            "ln_1": ln, "ln_2": ln,
+            "q_proj": col, "k_proj": col, "v_proj": col, "out_proj": row,
+            "c_fc": col, "c_proj": row,
+        },
+    }
+
+
+def serving_pages_specs(quantized: bool, model_axis: str = "model") -> Dict[str, PartitionSpec]:
+    """The pools shard on their KV-head axis, (L, Hkv, P, page, D), and the
+    int8 pools' per-token scales with them (JAX ``serving_pages_specs``,
+    ``models/gpt2_serving.py:517``)."""
+    m = model_axis
+    sc = PartitionSpec(None, m) if quantized else PartitionSpec()
+    return {"k": PartitionSpec(None, m), "v": PartitionSpec(None, m),
+            "k_scales": sc, "v_scales": sc}
+
+
+def shard_params(params: Dict[str, Any], mesh, model_axis: str = "model") -> Dict[str, Any]:
+    """This rank's TP shards of the serving weights, cut by
+    :func:`serving_param_specs`."""
+    specs = serving_param_specs(model_axis)
+
+    def cut(t, spec):
+        return shard_tensor(t, spec, mesh)
+
+    def cut_pairs(layer):
+        return {name: tuple(cut(t, sp) for t, sp in zip(wb, specs["layers"][name]))
+                for name, wb in layer.items()}
+
+    return {
+        "wte": cut(params["wte"], specs["wte"]),
+        "wpe": cut(params["wpe"], specs["wpe"]),
+        "ln_f": tuple(cut(t, sp) for t, sp in zip(params["ln_f"], specs["ln_f"])),
+        "layers": [cut_pairs(layer) for layer in params["layers"]],
+    }

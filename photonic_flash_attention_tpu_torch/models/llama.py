@@ -29,12 +29,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import PartitionSpec
 from .attention import dense, dispatch_attention, model_device
 
 
@@ -226,6 +227,33 @@ class LlamaForCausalLM(nn.Module):
 # ---------------------------------------------------------------------------
 # HF weight transfer
 # ---------------------------------------------------------------------------
+
+
+def llama_param_sharding_rules(params: Mapping[str, Any],
+                               mesh_axes: Tuple[str, str] = ("data", "model")
+                               ) -> Dict[str, PartitionSpec]:
+    """A :class:`~..parallel.mesh.PartitionSpec` for each parameter of a
+    ``LlamaForCausalLM`` state_dict (JAX ``llama_param_sharding_rules``,
+    ``models/llama.py:223``): q/k/v, gate and up column-parallel, o and down
+    row-parallel, ``embed_tokens`` sharded on the hidden size and the
+    untied ``lm_head`` on the vocabulary; norms replicated. Weights are the
+    Flax kernels transposed (``lm_head.weight`` is (V, H)), so their specs
+    are JAX's reversed."""
+    _, model = mesh_axes
+
+    def rule(name: str, leaf) -> PartitionSpec:
+        if leaf.ndim < 2:
+            return PartitionSpec()
+        if any(name.endswith(f"{p}.weight")
+               for p in ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj", "lm_head")):
+            return PartitionSpec(model, None)
+        if name.endswith("o_proj.weight") or name.endswith("down_proj.weight"):
+            return PartitionSpec(None, model)
+        if name.endswith("embed_tokens"):
+            return PartitionSpec(None, model)
+        return PartitionSpec()
+
+    return {name: rule(name, leaf) for name, leaf in params.items()}
 
 
 def transfer_hf_llama(hf_model: Any, dtype: torch.dtype = torch.bfloat16, device: Any = "cuda"

@@ -103,6 +103,7 @@ __all__ = [
     "flash_attention_qk_quant_plain",
     "flash_attention_with_lse",
     "flash_attention_with_lse_plain",
+    "merge_partial_attention",
     "quant_blocks_plain",
 ]
 
@@ -588,6 +589,26 @@ def flash_attention_with_lse(
     Forward only."""
     _validate(q, k, v, causal, kv_lens, k_bias)
     return _fwd_with_lse(q, k, v, causal, softmax_scale(q.shape[-1], sm_scale), kv_lens, k_bias)
+
+
+def merge_partial_attention(o1: torch.Tensor, lse1: torch.Tensor, o2: torch.Tensor,
+                            lse2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two normalized partial-attention results by logsumexp (JAX
+    ``merge_partial_attention``, ``ops/flash.py:1041``), in float32. Each
+    part is (output (..., D) normalized over its own keys, lse (...)); a
+    part that saw no valid key has lse = -inf and a zero output, and is
+    absorbed exactly; both -inf give o = 0 and lse = -inf. Plain PyTorch
+    on either device: the ring's merge (``parallel/ring.py``) and the
+    segmented experiment's."""
+    m = torch.maximum(lse1, lse2)
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    w1 = torch.where(torch.isneginf(lse1), 0.0, torch.exp(lse1 - m_safe))
+    w2 = torch.where(torch.isneginf(lse2), 0.0, torch.exp(lse2 - m_safe))
+    denom = w1 + w2
+    safe = torch.where(denom == 0.0, 1.0, denom)
+    o = (o1.float() * w1[..., None] + o2.float() * w2[..., None]) / safe[..., None]
+    lse = torch.where(denom == 0.0, float("-inf"), m_safe + torch.log(safe))
+    return o, lse
 
 
 # -- quantized modes of K1 ---------------------------------------------------

@@ -25,6 +25,7 @@ quantized engine outputs against the oracle < 0.1 (the reference gate).
 
 import json
 import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -74,6 +75,7 @@ from photonic_flash_attention_tpu_torch.core.router import (
 )
 from photonic_flash_attention_tpu_torch.core.timing import default_runs, measure_ms
 from photonic_flash_attention_tpu_torch.hardware import roofline as port_roofline
+from photonic_flash_attention_tpu_torch.utils.exceptions import ComputationError
 from photonic_flash_attention_tpu_torch.hardware.roofline import (
     attention_prefill_cost,
     kernel_energy_mj,
@@ -632,13 +634,20 @@ def test_cpu_failure_falls_back_to_fused(monkeypatch):
     assert rel_err_norm(out.numpy(), _ref(q, k, v)) <= 1e-5
 
 
+#: A mesh object with no ``seq`` axis (``parallel/mesh.py::mesh_shape``
+#: reads these two attributes).
+_NO_SEQ_MESH = types.SimpleNamespace(mesh_dim_names=("data",), mesh=torch.zeros(1))
+
+
 @pytest.mark.parametrize(
     "make, match",
-    [(lambda: _engine().set_mesh(object()), "A12")],
+    [(lambda: _engine().set_mesh(_NO_SEQ_MESH), "no axis 'seq'")],
     ids=["mesh"],
 )
 def test_kinds_not_offered_raise_with_their_roadmap_item(make, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """``set_mesh`` takes a mesh now (ROADMAP A12 is done): one without
+    the seq axis raises JAX's ``ComputationError``."""
+    with pytest.raises(ComputationError, match=match):
         make()
 
 

@@ -26,8 +26,8 @@ import photonic_flash_attention_tpu_torch.ops as port_ops
 
 #: Top-level names not ported yet: none.
 NOT_PORTED: set = set()
-#: ``models`` names not ported yet: the sharding rules (ROADMAP A12).
-MODELS_NOT_PORTED = {"llama_param_sharding_rules", "param_sharding_rules"}
+#: ``models`` names not ported yet: none.
+MODELS_NOT_PORTED: set = set()
 
 #: ``hardware`` names not ported yet: the design-space simulators (A14, later).
 HARDWARE_NOT_PORTED = {"CollectiveCost", "KernelPipelineSimulator", "PipelinePrediction",
@@ -79,6 +79,17 @@ def test_hardware_names_match_jax():
     for name in port_hardware.__all__:
         obj = getattr(port_hardware, name)
         assert obj.__module__.startswith(port_hardware.__name__), name
+
+
+def test_parallel_names_match_jax():
+    import photonic_flash_attention_tpu.parallel as jax_parallel
+    import photonic_flash_attention_tpu_torch.parallel as port_parallel
+
+    assert port_parallel.__all__ == jax_parallel.__all__
+    for name in port_parallel.__all__:
+        obj = getattr(port_parallel, name)
+        assert obj is not None, name
+        assert isinstance(obj, str) or obj.__module__.startswith(port_parallel.__name__), name
 
 
 def test_core_names_match_jax():

@@ -6,6 +6,7 @@ CPU with the plain versions of its kernels.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -199,10 +200,13 @@ def test_stats_surface(weights):
     assert s["kv_dtype"] == "bf16" and s["pages_free"] == s["pages_total"]
 
 
-@pytest.mark.parametrize("kwargs, match", [(dict(mesh=object()), "A12")])
+@pytest.mark.parametrize("kwargs, match", [(dict(mesh=types.SimpleNamespace(
+    mesh_dim_names=("data",), mesh=torch.zeros(1))), "no axis 'model'")])
 def test_parts_outside_the_slice_raise(weights, kwargs, match):
+    """Sharded serving is ported (ROADMAP A12): a mesh without the model
+    axis raises JAX's ``ValueError``."""
     _, state = weights
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         ServingEngine(GPT2Config.tiny(), state, device="cpu", num_pages=8, page_size=16, **kwargs)
 
 

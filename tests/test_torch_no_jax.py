@@ -74,7 +74,9 @@ def test_every_module_imports_with_jax_blocked():
                  "experiments.flash_fixedmax_experiment", "experiments.flash_aug_experiment",
                  "experiments.flash_pair_experiment", "experiments.flash_pipeline_experiment",
                  "core.kv_cache", "core.native_alloc", "core.native_sched", "core.checkpoint",
-                 "core.error_recovery", *MODEL_MODULES):
+                 "core.error_recovery", "parallel", "parallel.mesh", "parallel.multihost",
+                 "parallel.telemetry", "parallel.collectives", "parallel.ring",
+                 "parallel.ulysses", "parallel.pipeline", *MODEL_MODULES):
         assert f"{port.__name__}.{name}" in modules
 
 

@@ -7,7 +7,7 @@ the JAX engine's interrupted run and of the port's uninterrupted run
 (greedy, bf16 pools: JAX's checkpoint names every float pool "bf16").
 Sampled decoding resumes on the same random stream; page accounting,
 the waiting queue, a chunked prefill stopped between chunks and T5's
-pinned cross buffers survive; a checkpoint of a sharded engine raises.
+pinned cross buffers survive; a checkpoint of a sharded engine raises without a mesh.
 The port runs on the CPU (plain versions); one JAX interrupted run a
 family, shared by the module.
 """
@@ -234,5 +234,5 @@ def test_sharded_checkpoint_raises(families, tmp_path):
     host["ctor"].update(sharded=True, model_axis="model")
     with open(os.path.join(path, "state.json"), "w") as f:
         json.dump(host, f)
-    with pytest.raises(ValueError, match="A12"):
+    with pytest.raises(ValueError, match="pass mesh="):
         _port_restore(families, "gpt2")(path)

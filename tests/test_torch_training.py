@@ -207,10 +207,12 @@ def test_fit_evaluate_and_history(jax_params):
 
 
 def test_unported_training_options_raise(jax_params):
+    """The mesh is ported (ROADMAP A12): parameter specs without a mesh to
+    place them on raise ``ValueError``."""
     model = _port_model(jax_params)
     opt = torch.optim.SGD(model.parameters(), lr=0)
-    with pytest.raises(NotImplementedError, match="A12"):
-        Trainer(model, opt, mesh=object())
+    with pytest.raises(ValueError, match="mesh"):
+        Trainer(model, opt, param_specs={})
 
 
 DROP_CFG = dataclasses.replace(PORT_CFG, attn_pdrop=0.1)
