@@ -214,7 +214,31 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    quantization round trip of GPT-2 medium's K/V) and the CLI in process
    (``calibrate`` with every gate passing, ``benchmark``, ``serve-bench``,
    ``device-info --json``), each path counted from 0; K7, K8 in both modes
-   and the B14 entry must launch in the ops path.
+   and the B14 entry must launch in the ops path;
+12. shell path: the ops shell at full width, no kernel of its own, the
+   engine under the heuristic: the workload balancer's 16 tasks (B8 S1024
+   H16 D64 causal bf16, one local node) through the engine, each output
+   bit-equal to a direct engine call; GPT-2 medium served (int8 pool,
+   max_batch 4, ``examples/serve_gpt2.py``'s three prompts and one more,
+   16 new tokens) beside a live ``MetricsServer`` on 127.0.0.1, its tokens
+   equal to the serving path's engine's on the same prompts at max_batch 4
+   (at the serving path's max_batch 8: the first tokens equal, the rest
+   counted, each divergence's dense logit gap printed), ``/metrics``
+   (the engine's and HBM's series) and ``/health`` read once, the health
+   monitor's checks (one CUDA device, HBM use read from the card);
+   ``ResilientAttentionWrapper`` around the engine (bit-equal), an
+   injected ``KernelLaunchError`` raised three times with no last resort
+   and no KERNEL_FAILURE rung, the next call launching K1, and the
+   QUANT_ACCURACY rung moving a cross-attention call off K1's int8 modes
+   onto K1 bf16 and back; ``AdaptiveOptimizer``'s profiled K1 beside its
+   CUDA-event median, a cached hit launching nothing, the
+   ``AdaptiveDecisionEngine``'s pick among the router's eligible kinds fed
+   their measured times, beside the router's; the pipeline simulator's
+   best tile on the card's record beside K1's time, the topology
+   simulator's collective costs (NVSwitch, 1-8 cards) beside NCCL's
+   world-1 times; ``ResearchBenchmark`` at GPT-2 medium's width; the
+   sanitizer refusing a CUDA tensor with a NaN, ``sanitize_state_dict``
+   passing GPT-2 medium on the card. K1 and K3's fused decode must launch.
 
 The device phase prints the card's idle draw before any work (the
 roofline's static power); the engine phase each measured call's roofline
@@ -3200,18 +3224,19 @@ def _ring_schedule(q, k, v, lens, bias, n: int, scale: float):
     return torch.cat(outs, 1), torch.cat(lses, 2), skipped
 
 
-def _counted(runs: dict, label: str, need: tuple, fn):
-    """Run one sharded run, ``fn()``, with every launch count set to 0 just
-    before it and read just after; each kernel of ``need`` must have
-    launched in it. The counts go into ``runs[label]``; the references
-    the run is held against run outside this window."""
+def _counted(runs: dict, label: str, need: tuple, fn, path: str = "parallel path"):
+    """Run one counted run of a path, ``fn()`` (a sharded run, a part of the
+    shell path), with every launch count set to 0 just before it and read
+    just after; each kernel of ``need`` must have launched in it. The
+    counts go into ``runs[label]``; the references the run is held against
+    run outside this window."""
     _build.reset_launches()
     out = fn()
     got = collections.Counter(_build.LAUNCHES)
     _build.reset_launches()
     missing = [name for name in need if not got.get(name, 0)]
     if missing:
-        raise AssertionError(f"parallel path: {label}: kernels not launched {missing}; "
+        raise AssertionError(f"{path}: {label}: kernels not launched {missing}; "
                              f"launches {dict(got)}")
     runs[label] = got
     return out
@@ -3470,6 +3495,7 @@ def _time_collectives(mesh_dm, smi: str) -> None:
         "all_to_all": device_ms(lambda: C.all_to_all(x.view(8, 1024, 16, 64), 2, 1, group)),
         "copy": device_ms(lambda: x.clone()),
     }
+    NCCL_WORLD1_MS.update(times)
     print(f"parallel path: NCCL at world 1 on {x.numel() * 2 / 2**20:.0f} MiB bf16 (GPT-2 medium "
           f"B8 S1024 activations): " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
           + f" ({smi})", flush=True)
@@ -4973,6 +4999,403 @@ def phase_ops(smi: str) -> dict:
     return results, {"ops": launches, "cli": cli_launches}
 
 
+# -- shell path: the ops shell beside GPT-2 serving ----------------------------
+
+#: ``examples/serve_gpt2.py``'s three prompts, plus one.
+SHELL_PROMPTS = ([464, 3290, 318], [15496, 995], [1, 2, 3, 4], [50256, 11, 262, 1049, 286])
+SHELL_NEW_TOKENS = 16
+#: The workload balancer's tasks: causal bf16 attention at GPT-2 medium's
+#: width.
+SHELL_TASK = dict(b=8, s=1024, h=16, d=64)
+SHELL_TASKS = 16
+#: The headline workload (K1's row of the kernels phase).
+SHELL_HEADLINE = dict(b=4, s=2048, h=12, d=64)
+#: The QUANT_ACCURACY rung's call: cross attention, where JAX's heuristic
+#: order gives an int8 kind under quant_mode "int8".
+SHELL_CROSS = dict(b=4, sq=512, skv=2048, h=16, d=64)
+SHELL_INT8_MODES = ("pfa_flash_fwd_int8qk", "pfa_flash_fwd_int8full")
+#: ResearchBenchmark at GPT-2 medium's width (fp32, JAX's default).
+SHELL_RESEARCH = dict(batch=2, seq=1024, embed=1024, heads=16)
+#: Collective size of the topology simulator's rows, and the card counts.
+SHELL_COLLECTIVE_BYTES = 16 * 2**20
+SHELL_CARDS = (1, 2, 4, 8)
+#: NCCL's world-1 times (ms) measured by the parallel phase of this run.
+NCCL_WORLD1_MS: dict = {}
+
+
+def _shell_qkv(gen, b, sq, h, d, skv=None):
+    skv = sq if skv is None else skv
+    return tuple(torch.randn(b, n, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+                 for n in (sq, skv, skv))
+
+
+def _shell_balancer(runs: dict, smi: str) -> None:
+    """(b) 16 attention tasks through one local node's engine executor,
+    each output bit-equal to a direct engine call on the same inputs."""
+    from photonic_flash_attention_tpu_torch.core.engine import get_engine
+    from photonic_flash_attention_tpu_torch.scaling import (
+        ComputeNode, DistributedTask, DistributedWorkloadBalancer, TaskState,
+    )
+
+    c = SHELL_TASK
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    inputs = [_shell_qkv(gen, c["b"], c["s"], c["h"], c["d"]) for _ in range(SHELL_TASKS)]
+    balancer = DistributedWorkloadBalancer()
+    balancer.register_node(ComputeNode("gpu0"))  # the default local engine executor
+    tasks = [DistributedTask(f"attn{i}", payload={"q": q, "k": k, "v": v, "causal": True},
+                             seq_length=c["s"]) for i, (q, k, v) in enumerate(inputs)]
+    for t in tasks:
+        balancer.submit_task(t)
+    t0 = time.perf_counter()
+    _counted(runs, "balancer", ("pfa_flash_fwd",), lambda: balancer.run_until_drained(),
+             path="shell path")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine = get_engine()
+    kind = engine.last_kernel_used
+    for t, (q, k, v) in zip(tasks, inputs):
+        direct, _ = engine(q, k, v, causal=True)
+        if t.state != TaskState.DONE or not torch.equal(t.result, direct):
+            raise AssertionError(f"shell path: balancer task {t.task_id}: state {t.state}, "
+                                 f"not bit-equal to the direct engine call")
+    if runs["balancer"]["pfa_flash_fwd"] != SHELL_TASKS:
+        raise AssertionError(f"shell path: balancer launches {dict(runs['balancer'])}, "
+                             f"expected pfa_flash_fwd {SHELL_TASKS}")
+    status = balancer.get_cluster_status()["nodes"]["gpu0"]
+    print(f"shell path: workload balancer: {SHELL_TASKS} tasks B{c['b']} S{c['s']} H{c['h']} "
+          f"D{c['d']} causal bf16 on the engine's {kind}, bit-equal to direct calls; "
+          f"{wall * 1e3:.1f} ms drained, node EMA {status['ema_latency_ms']} ms a task; "
+          f"launches {dict(runs['balancer'])} ({smi})", flush=True)
+
+
+def _shell_serving(runs: dict, smi: str) -> None:
+    """(a) GPT-2 medium served beside a live MetricsServer: tokens equal to
+    the serving path's engine on the same prompts; /metrics and /health
+    read once through urllib after generate."""
+    import urllib.request
+
+    from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config
+    from photonic_flash_attention_tpu_torch.monitoring import (
+        HealthStatus, MetricsServer, get_health_monitor,
+    )
+    from photonic_flash_attention_tpu_torch.utils.security import sanitize_state_dict
+
+    cfg = GPT2Config.medium()
+    model = gpt2_medium_on_card(cfg)
+    t0 = time.perf_counter()
+    sanitize_state_dict(model)  # (f): the model on the card passes
+    print(f"shell path: sanitize_state_dict passed GPT-2 medium on the card "
+          f"({len(model.state_dict())} tensors) in {(time.perf_counter() - t0) * 1e3:.1f} ms",
+          flush=True)
+    prompts = [[t % cfg.vocab_size for t in p] for p in SHELL_PROMPTS]
+    # The serving path's engine on the same prompts (max_batch 8), and the
+    # same at this path's max_batch 4: the reference tokens.
+    refs = {}
+    for max_batch in (8, 4):
+        ref_engine = ServingEngine(cfg, model.state_dict(), device="cuda", num_pages=256,
+                                   page_size=128, max_batch=max_batch, kv_dtype=torch.int8,
+                                   decode_window=32)
+        refs[max_batch] = ref_engine.generate(prompts, max_new_tokens=SHELL_NEW_TOKENS)
+        del ref_engine
+    engine = ServingEngine(cfg, model.state_dict(), device="cuda", kv_dtype=torch.int8,
+                           max_batch=4)
+    server = MetricsServer(port=0, host="127.0.0.1")
+    port = server.start()
+    try:
+        t0 = time.perf_counter()
+        outs = _counted(runs, "serving", ("pfa_flash_fwd", "pfa_paged_decode_fused"),
+                        lambda: engine.generate(prompts, max_new_tokens=SHELL_NEW_TOKENS),
+                        path="shell path")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{port}"
+        t0 = time.perf_counter()
+        metrics = urllib.request.urlopen(f"{base}/metrics", timeout=30).read().decode()
+        t_metrics = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        health = json.loads(urllib.request.urlopen(f"{base}/health", timeout=30).read())
+        t_health = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.stop()
+    if outs != refs[4]:
+        raise AssertionError(f"shell path: served tokens {outs} differ from the serving "
+                             f"path's engine at max_batch 4 {refs[4]}")
+    parity = _shell_token_parity(model, prompts, outs, refs[8])
+    got = runs["serving"]
+    need = {"pfa_flash_fwd": cfg.n_layer * len(prompts),
+            "pfa_paged_decode_fused": cfg.n_layer * (SHELL_NEW_TOKENS - 1)}
+    if got["pfa_flash_fwd"] != need["pfa_flash_fwd"] or \
+            got["pfa_paged_decode_fused"] < need["pfa_paged_decode_fused"]:
+        raise AssertionError(f"shell path: serving launches {dict(got)}, expected {need}")
+    series = ("pfa_engine_total_calls", "pfa_hbm_bytes_in_use", "pfa_hbm_utilization")
+    missing = [s for s in series if f"\n{s} " not in f"\n{metrics}"]
+    if missing:
+        raise AssertionError(f"shell path: /metrics lacks {missing}")
+    results = get_health_monitor().run_checks()
+    dev, hbm = results["device_reachable"], results["hbm"]
+    if dev.status != HealthStatus.HEALTHY or dev.value != 1.0 or hbm.value is None \
+            or hbm.status == HealthStatus.UNKNOWN:
+        raise AssertionError(f"shell path: health {results}")
+    if health["checks"]["device_reachable"]["value"] != 1.0:
+        raise AssertionError(f"shell path: /health {health}")
+    print(f"shell path: GPT-2 medium int8 pool, max_batch 4, {len(prompts)} prompts x "
+          f"{SHELL_NEW_TOKENS} tokens in {wall:.3f} s, tokens equal to the serving path's "
+          f"engine at max_batch 4; at its max_batch 8 {parity}; launches {dict(got)}; /metrics {len(metrics.splitlines())} lines in "
+          f"{t_metrics:.2f} ms, /health {health['overall']} in {t_health:.2f} ms; health: "
+          f"{dev.message} ({dev.status.value}), HBM {hbm.message} ({hbm.status.value}) ({smi})",
+          flush=True)
+
+
+def _shell_token_parity(model, prompts, served, ref) -> str:
+    """Served tokens against an engine of other batch geometry: the first
+    tokens must be equal; at each prompt's first divergence the dense
+    forward's logit gap between the two tokens is reported."""
+    if [o[0] for o in served] != [r[0] for r in ref]:
+        raise AssertionError(f"shell path: first tokens {[o[0] for o in served]} differ from "
+                             f"the serving path's engine {[r[0] for r in ref]}")
+    same = sum(a == b for o, r in zip(served, ref) for a, b in zip(o, r))
+    gaps = []
+    for i, (p, o, r) in enumerate(zip(prompts, served, ref)):
+        step = next((j for j, (a, b) in enumerate(zip(o, r)) if a != b), None)
+        if step is None:
+            continue
+        ids = torch.tensor([p + o[:step]], device="cuda")
+        with torch.no_grad():
+            lg = model(ids)[0, -1].float()
+        gaps.append(f"prompt {i} step {step}: {o[step]} vs {r[step]}, dense logit gap "
+                    f"{float(lg[o[step]] - lg[r[step]]):+.4f} (top-2 gap "
+                    f"{float(lg.topk(2).values[0] - lg.topk(2).values[1]):.4f})")
+    total = sum(len(o) for o in served)
+    return f"{same}/{total} tokens equal" + (f" ({'; '.join(gaps)})" if gaps else "")
+
+
+def _shell_resilience(runs: dict, smi: str) -> None:
+    """(c) the resilient wrapper around the engine on the card: bit-equal to
+    the engine; an injected KernelLaunchError raises three times with no
+    last resort and no KERNEL_FAILURE rung, and the next good call launches
+    K1; QUANT_ACCURACY moves the engine's next call off K1's int8 modes."""
+    from photonic_flash_attention_tpu_torch.config import get_config, set_global_config
+    from photonic_flash_attention_tpu_torch.core.engine import get_engine
+    from photonic_flash_attention_tpu_torch.resilience import (
+        DegradationTrigger, GracefulDegradationManager, ResilientAttentionWrapper,
+    )
+    from photonic_flash_attention_tpu_torch.utils.exceptions import KernelLaunchError
+
+    c = SHELL_TASK
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    q, k, v = _shell_qkv(gen, c["b"], c["s"], c["h"], c["d"])
+    engine = get_engine()
+    wrapped = ResilientAttentionWrapper(lambda q, k, v, mask=None, **kw: engine(q, k, v, mask, **kw))
+    out, _ = wrapped(q, k, v, causal=True)
+    if not torch.equal(out, engine(q, k, v, causal=True)[0]):
+        raise AssertionError("shell path: the wrapper's output is not the engine's")
+    left = {"failures": 3}
+
+    def injected(q, k, v, mask=None, **kw):
+        if left["failures"]:
+            left["failures"] -= 1
+            raise KernelLaunchError("pfa_flash_fwd failed: injected launch failure")
+        return engine(q, k, v, mask, **kw)
+
+    flaky = ResilientAttentionWrapper(injected)
+    threshold = get_config().flash_threshold
+    for i in range(3):
+        try:
+            flaky(q, k, v, causal=True)
+        except KernelLaunchError:
+            continue
+        raise AssertionError(f"shell path: injected failure {i + 1} did not raise")
+    status = flaky.get_status()
+    if status["last_resort_uses"] or get_config().flash_threshold != threshold or \
+            status["degradation"]["level"] != "NORMAL":
+        raise AssertionError(f"shell path: wrapper after 3 failures {status}")
+    _counted(runs, "resilient", ("pfa_flash_fwd",), lambda: flaky(q, k, v, causal=True),
+             path="shell path")
+    print(f"shell path: resilient wrapper bit-equal to the engine; 3 injected "
+          f"KernelLaunchErrors raised, last_resort_uses {status['last_resort_uses']}, breaker "
+          f"{status['breaker_state']}, flash_threshold {get_config().flash_threshold}; the next "
+          f"call launched {dict(runs['resilient'])}", flush=True)
+
+    x = SHELL_CROSS
+    qc, kc, vc = _shell_qkv(gen, x["b"], x["sq"], x["h"], x["d"], skv=x["skv"])
+    set_global_config(quant_mode="int8")
+    ladder = GracefulDegradationManager()
+    steps = (("int8", None), ("raised", DegradationTrigger.QUANT_ACCURACY), ("recovered", None))
+    for label, trigger in steps:
+        if trigger is not None:
+            ladder.degrade(trigger, "shell path check")
+        elif label == "recovered":
+            ladder.recover(DegradationTrigger.QUANT_ACCURACY)
+        key = f"quant_{label}"
+        _counted(runs, key, (), lambda: engine(qc, kc, vc), path="shell path")
+        int8 = sum(runs[key][m] for m in SHELL_INT8_MODES)
+        if (label == "raised") == bool(int8) or (label == "raised" and
+                                                  runs[key]["pfa_flash_fwd"] != 1):
+            raise AssertionError(f"shell path: QUANT_ACCURACY {label}: launches "
+                                 f"{dict(runs[key])}, quant_mode {get_config().quant_mode}")
+        print(f"shell path: QUANT_ACCURACY {label}: quant_mode {get_config().quant_mode}, "
+              f"kind {engine.last_kernel_used}, launches {dict(runs[key])}", flush=True)
+    set_global_config(quant_mode="bf16")
+
+
+def _shell_optimizer(runs: dict, k1_ms: float, smi: str) -> None:
+    """(d) AdaptiveOptimizer around K1 at the headline shape (profiled ms
+    beside the CUDA-event median; a cached hit launches nothing), and the
+    AdaptiveDecisionEngine fed each eligible kind's measured time."""
+    from photonic_flash_attention_tpu_torch.core.engine import get_engine
+    from photonic_flash_attention_tpu_torch.core.router import (
+        AdaptiveRouter, WorkloadCharacteristics,
+    )
+    from photonic_flash_attention_tpu_torch.intelligence import AdaptiveDecisionEngine, Outcome
+    from photonic_flash_attention_tpu_torch.optimization import AdaptiveOptimizer
+
+    c = SHELL_HEADLINE
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    q, k, v = _shell_qkv(gen, c["b"], c["s"], c["h"], c["d"])
+
+    def k1(q, k, v):
+        return flash_ops.flash_attention(q, k, v, causal=True)
+
+    opt = AdaptiveOptimizer()
+    calls = 20
+    for _ in range(3):
+        opt.optimize_operation(k1, q, k, v, operation="warmup")
+    _counted(runs, "optimizer", ("pfa_flash_fwd",),
+             lambda: [opt.optimize_operation(k1, q, k, v, operation="k1") for _ in range(calls)],
+             path="shell path")
+    profiled = opt.get_stats()["profiler"]["operations"]["k1"]
+    events = median_ms(lambda: k1(q, k, v))
+    first = opt.optimize_operation(k1, q, k, v, operation="k1_cached", cacheable=True)
+    _build.reset_launches()
+    hit = opt.optimize_operation(k1, q, k, v, operation="k1_cached", cacheable=True)
+    launched = sum(_build.LAUNCHES.values())
+    if hit is not first or launched or opt.get_stats()["cache"]["hits"] != 1:
+        raise AssertionError(f"shell path: the cached hit launched {dict(_build.LAUNCHES)}")
+    print(f"shell path: AdaptiveOptimizer K1 B{c['b']} S{c['s']} H{c['h']} D{c['d']} causal "
+          f"bf16: profiled {profiled['mean_ms']:.4f} ms mean over {profiled['count']} calls "
+          f"(max {profiled['max_ms']:.4f}), CUDA-event median {events:.4f} ms, the kernels "
+          f"phase's {k1_ms:.4f} ms; a cacheable hit launched nothing ({smi})", flush=True)
+
+    engine = get_engine()
+    w = WorkloadCharacteristics(batch_size=c["b"], q_len=c["s"], kv_len=c["s"],
+                                num_heads=c["h"], head_dim=c["d"], causal=True,
+                                dtype="bfloat16", num_kv_heads=c["h"])
+    available = engine._available_kernels(w)
+    eligible = engine.router.eligible_kernels(w, available)
+    measured = {kind: device_ms(lambda kind=kind: engine._run(kind, q, k, v, None, None, None,
+                                                              True, False))
+                for kind in eligible}
+    decider = AdaptiveDecisionEngine(actions=[kind.value for kind in eligible],
+                                     exploration_rate=0.0)
+    router = AdaptiveRouter(exploration_rate=0.0)
+    for kind, ms in measured.items():
+        router.record_measurement(kind, w, ms)
+        for _ in range(3):
+            decider.record_outcome(w, Outcome(kind.value, ms, c["b"] * c["s"]))
+    choice = decider.make_decision(w)
+    if choice["action"] not in [kind.value for kind in eligible]:
+        raise AssertionError(f"shell path: AdaptiveDecisionEngine chose {choice}")
+    print(f"shell path: AdaptiveDecisionEngine on the measured kinds "
+          f"{ {kind.value: round(ms, 4) for kind, ms in measured.items()} } ms: "
+          f"{choice['action']} ({choice['source']}); the router: measured "
+          f"{router.select_kernel(w, available).value}, heuristic "
+          f"{router.heuristic_selection(w, eligible).value} ({smi})", flush=True)
+
+
+def _shell_simulators(k1_ms: float, smi: str) -> None:
+    """(e) the pipeline simulator's best tile on the card's record beside
+    K1's measured time; the topology simulator's collective costs beside
+    NCCL's world-1 times from the parallel phase."""
+    from photonic_flash_attention_tpu_torch.hardware import (
+        KernelPipelineSimulator, TopologySimulator, detect_tpu_hardware,
+    )
+
+    caps = detect_tpu_hardware()[0].capabilities
+    c = SHELL_HEADLINE
+    best = KernelPipelineSimulator(caps).best(c["b"], c["s"], c["s"], c["h"], c["d"], causal=True)
+    print(f"shell path: KernelPipelineSimulator on the {caps.generation} record, B{c['b']} "
+          f"S{c['s']} H{c['h']} D{c['d']} causal: best tile {best.block_q}x{best.block_kv} "
+          f"(feasible {best.feasible}, {best.vmem_bytes} B against a budget of "
+          f"{caps.vmem_mb * 1e6 * 0.5:.0f}), {best.t_total_us:.2f} us, bound by {best.bound}; "
+          f"K1 measured {k1_ms:.4f} ms: measured / predicted "
+          f"{k1_ms * 1e3 / best.t_total_us:.3f} ({smi})", flush=True)
+    rows = []
+    for n in SHELL_CARDS:
+        topo = TopologySimulator((n,), caps)
+        costs = {op: topo.collective_cost(op, SHELL_COLLECTIVE_BYTES)
+                 for op in ("psum", "all_gather", "all_to_all", "ppermute")}
+        rows.append(f"{n} card(s) ({topo.topology}, diameter {topo.max_hops()}): " + ", ".join(
+            f"{op} {cost.t_us:.2f} us ({cost.bytes_moved:.0f} B)" for op, cost in costs.items()))
+    measured = ", ".join(f"{k} {v:.4f} ms" for k, v in NCCL_WORLD1_MS.items())
+    print(f"shell path: TopologySimulator at {SHELL_COLLECTIVE_BYTES / 2**20:.0f} MiB a rank: "
+          + "; ".join(rows) + f"; NCCL measured at world 1 this run: {measured} ({smi})",
+          flush=True)
+
+
+def _shell_research_security(smi: str) -> None:
+    """(f) ResearchBenchmark at GPT-2 medium's width on the card; the
+    sanitizer refuses a CUDA tensor holding a NaN."""
+    from photonic_flash_attention_tpu_torch.research import ResearchBenchmark
+    from photonic_flash_attention_tpu_torch.utils.exceptions import SecurityError
+    from photonic_flash_attention_tpu_torch.utils.security import InputSanitizer
+
+    bench = ResearchBenchmark(**SHELL_RESEARCH)
+    results = bench.run(iters=3)
+    bad = [r.name for r in results if not r.finite]
+    if bad or len(results) != 3:
+        raise AssertionError(f"shell path: research outputs not finite: {bad}")
+    print(f"shell path: ResearchBenchmark B{SHELL_RESEARCH['batch']} S{SHELL_RESEARCH['seq']} "
+          f"E{SHELL_RESEARCH['embed']} H{SHELL_RESEARCH['heads']} fp32: "
+          + ", ".join(f"{r.name} {r.latency_ms:.3f} ms (stability {r.stability:.6f})"
+                      for r in results) + f" ({smi})", flush=True)
+    x = torch.randn(4, 1024, 16, 64, device="cuda").to(torch.bfloat16)
+    sanitizer = InputSanitizer()
+    sanitizer.sanitize_tensor(x, "q")
+    x[1, 7, 3, 5] = float("nan")
+    try:
+        sanitizer.sanitize_tensor(x, "q")
+    except SecurityError as e:
+        print(f"shell path: InputSanitizer refused the CUDA tensor with a NaN: {e}", flush=True)
+    else:
+        raise AssertionError("shell path: InputSanitizer passed a CUDA tensor holding a NaN")
+
+
+def phase_shell(smi: str, k1_ms: float) -> dict:
+    """The ops shell at full width (no kernel of its own): (b) the workload
+    balancer's tasks on the engine, (a) GPT-2 medium served beside a live
+    MetricsServer, (c) the resilient wrapper on the card, (d) the adaptive
+    optimizer and decision engine, (e) the simulators, (f) research and
+    security. The engine runs under the heuristic (JAX's order), so each
+    call's kind is fixed. No failure is caught. Returns the path's
+    launches: each counted run from 0 just before it (``_counted``), the
+    references outside."""
+    from photonic_flash_attention_tpu_torch.config import reset_config, set_global_config
+    from photonic_flash_attention_tpu_torch.core.engine import reset_engine
+
+    reset_config()
+    reset_engine()
+    set_global_config(auto_kernel_selection=False)
+    runs = {}
+    t0 = time.perf_counter()
+    try:
+        _shell_balancer(runs, smi)
+        _shell_serving(runs, smi)
+        _shell_resilience(runs, smi)
+        _shell_optimizer(runs, k1_ms, smi)
+        _shell_simulators(k1_ms, smi)
+        _shell_research_security(smi)
+    finally:
+        reset_config()
+        reset_engine()
+        torch.cuda.empty_cache()
+    launches = collections.Counter()
+    for counts in runs.values():
+        launches.update(counts)
+    print(f"shell path: launches by part { {label: dict(c) for label, c in runs.items()} }; "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
 
 # -- roofline: the card's probes (K9-K12), its rates, the composite ceiling ---
 
@@ -6462,9 +6885,20 @@ def main() -> None:
                         help="only build, print the K3 table and time GPT-2 medium's decode "
                              "step (public calls only, so a copy of this script times any tree "
                              "of the repository); no result line")
+    parser.add_argument("--shell", action="store_true",
+                        help="only build and run the shell path (K1's time measured here at "
+                             "the headline shape; no NCCL times); no result line")
     args = parser.parse_args()
     t_script = time.perf_counter()
     smi = phase_device()
+    if args.shell:
+        phase_build(sass=False)
+        q, k, v = _shell_qkv(torch.Generator(device="cuda").manual_seed(1), SHELL_HEADLINE["b"],
+                             SHELL_HEADLINE["s"], SHELL_HEADLINE["h"], SHELL_HEADLINE["d"])
+        t0 = time.perf_counter()
+        phase_shell(smi, median_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True)))
+        print(f"chip_smoke: shell path in {time.perf_counter() - t0:.1f} s", flush=True)
+        return
     if args.quant_table:
         phase_build(sass=False)
         time_quant_modes(collections.defaultdict(dict), smi,
@@ -6524,6 +6958,7 @@ def main() -> None:
     ops_results, ops_launches = timed("ops", phase_ops, smi)
     results.update(ops_results)
     by_path.update(ops_launches)
+    by_path["shell"] = timed("shell", phase_shell, smi, results["pfa_flash_fwd"]["ms"])
     launches = collections.Counter()
     for counts in by_path.values():
         launches.update(counts)

@@ -53,7 +53,11 @@ Distribution (``parallel``) runs over ``torch.distributed``, one rank a
 card: ring and Ulysses attention (the engine's RING and ULYSSES kinds
 after ``set_mesh``), the GPipe pipeline, tensor- and data-parallel GPT-2
 training (``Trainer(mesh=, param_specs=)``) and head-sharded GPT-2 serving
-(``ServingEngine(mesh=)``).
+(``ServingEngine(mesh=)``). The ops shell (``scaling``, ``monitoring``,
+``resilience``, ``optimization``, ``intelligence``, ``research``,
+``globalization``, ``utils.security``) and the design-space simulators
+(``hardware.simulator``) complete the JAX package's modules; they run the
+engine's kernels or plain PyTorch and add no kernel.
 
 The package exports the JAX package's top-level names (the config
 functions, the flash functions, the two drop-in layers,

@@ -19,7 +19,8 @@ Kinds offered (no mesh):
 * PAGED_DECODE — decode-shaped calls (Sq = 1, Skv >= 128): contiguous K/V
   repacked into a token-major page-128 pool with an identity page table,
   then ``ops/paged.py::paged_attention_hf`` (K3);
-* under ``enable_int8`` (default: ``quant_mode == "int8"``):
+* under ``enable_int8`` (default: ``quant_mode == "int8"``, read at each
+  call where JAX reads it once):
   FLASH_UNROLLED_INT8QK (square, ``flash_attention_unrolled(int8_qk=True)``),
   FLASH_INT8QK and FLASH_INT8FULL (``ops/flash_fp8.py``, K1's int8 modes);
 * under ``enable_fp8`` (default: ``quant_mode == "fp8"``): FLASH_FP8
@@ -206,16 +207,16 @@ class AttentionEngine:
         enable_fp8: Optional[bool] = None,
         enable_int8: Optional[bool] = None,
     ) -> None:
-        cfg = get_config()
         self.router = router or AdaptiveRouter()
         # Energy-aware arbitration (config.energy_weight > 0): the router
         # blends measured latency with the roofline energy estimate.
         self.router.energy_model = lambda kind, w, lat: self._estimate_energy_mj(kind, lat, w)
         self.autotuner = autotuner or get_autotuner()
         # Quantized kinds are opt-in per family, as in JAX: fp8 under
-        # quant_mode "fp8", int8 under "int8".
-        self.enable_fp8 = enable_fp8 if enable_fp8 is not None else cfg.quant_mode == "fp8"
-        self.enable_int8 = enable_int8 if enable_int8 is not None else cfg.quant_mode == "int8"
+        # quant_mode "fp8", int8 under "int8". Without a flag the config is
+        # read at each call (see ``enable_fp8``).
+        self._enable_fp8 = enable_fp8
+        self._enable_int8 = enable_int8
         #: the card's power limit (W), read once; None without a card.
         self.board_power_w = card_power_limit_w()
         self.router.board_power_w = self.board_power_w
@@ -234,6 +235,19 @@ class AttentionEngine:
         self._mesh = None
         self._mesh_axes: Dict[str, Optional[str]] = {}
         self._seq_fns: Dict[Tuple, Callable] = {}
+
+    @property
+    def enable_fp8(self) -> bool:
+        """The fp8 kinds are offered: the constructor's flag, or without one
+        ``quant_mode == "fp8"`` as the config reads now (JAX reads it once,
+        at construction; here a rewrite of the config, such as the
+        degradation ladder's QUANT_ACCURACY rung, moves the next call)."""
+        return self._enable_fp8 if self._enable_fp8 is not None else get_config().quant_mode == "fp8"
+
+    @property
+    def enable_int8(self) -> bool:
+        """The int8 kinds are offered: as :attr:`enable_fp8`, for "int8"."""
+        return self._enable_int8 if self._enable_int8 is not None else get_config().quant_mode == "int8"
 
     # -- mesh context ----------------------------------------------------------
 

@@ -27,6 +27,19 @@ from typing import Callable, Optional, Tuple
 import torch
 
 
+def default_iters(device: Optional[torch.device] = None) -> Tuple[int, int, int]:
+    """(iters_lo, iters_hi, repeats) of a two-point fit, by device type
+    where JAX asks ``jax.default_backend()``: on the card the fit's counts
+    (2, 10) and five replays (``graph_ms``'s median); elsewhere JAX's CPU
+    triple, which only exercises the plumbing. ``device`` defaults to the
+    current CUDA device, or the CPU without one."""
+    if device is None:
+        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if torch.device(device).type == "cuda":
+        return 2, 10, 5
+    return 1, 3, 1
+
+
 def default_runs(device: torch.device) -> Tuple[int, int]:
     """(warm-up launches, timed launches): enough for a stable median on
     the card, minimal on the CPU, where the tests only exercise the

@@ -1,8 +1,7 @@
-"""Hardware: device detection and the roofline cost and energy model.
+"""Hardware: device detection, the roofline cost and energy model, and the
+design-space simulators.
 
-Port of ``photonic_flash_attention_tpu/hardware`` without its design-space
-simulators (``CollectiveCost``, ``KernelPipelineSimulator``,
-``PipelinePrediction``, ``TopologySimulator``: ROADMAP A14, later).
+Port of ``photonic_flash_attention_tpu/hardware``, exporting its names.
 """
 
 from .detection import (
@@ -20,11 +19,21 @@ from .roofline import (
     ring_attention_step_cost,
     roofline_fraction,
 )
+from .simulator import (
+    CollectiveCost,
+    KernelPipelineSimulator,
+    PipelinePrediction,
+    TopologySimulator,
+)
 
 __all__ = [
+    "CollectiveCost",
     "KernelCost",
+    "KernelPipelineSimulator",
+    "PipelinePrediction",
     "TPUCapabilities",
     "TPUDevice",
+    "TopologySimulator",
     "attention_decode_cost",
     "attention_prefill_cost",
     "detect_tpu_hardware",

@@ -13,8 +13,10 @@ becomes ``name.{i}``, every other leaf keeps its path.
 "decoder"}}``, blocks stacked on L) and ``models/t5.py``. Flax
 ``Dense.kernel`` is (in, out) and ``nn.Linear.weight`` is (out, in), so
 kernels are transposed; a norm's ``scale`` becomes ``weight``; T5's
-``rel_embedding`` stays (num_buckets, H). No JAX import: the tree is plain
-data.
+``rel_embedding`` stays (num_buckets, H). ``research_params_from_jax``
+maps the Flax research modules (``research/novel_algorithms.py``: Dense
+layers, ``head_mix``, ``spectral_filter``) the same way. No JAX import: the
+tree is plain data.
 
 Any tree shaped like the Flax params maps the same way, so the tests also
 use it to carry JAX **gradients** (``jax.grad`` of the loss over the
@@ -114,3 +116,15 @@ def bert_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax BertModel params (with or without the outer ``{"params": ...}``)
     -> ``models/bert.py::BertModel`` state_dict (float32 CPU tensors)."""
     return _scanned_params_from_jax(tree, "encoder")
+
+
+def research_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``QuantumInspiredAttention``, ``SpectralAttention`` or
+    ``HierarchicalAttention`` params (with or without the outer
+    ``{"params": ...}``) -> the port module's state_dict (float32 CPU
+    tensors): each Dense ``kernel`` (in, out) becomes the ``nn.Linear``'s
+    ``weight`` (out, in), its ``bias`` stays, ``head_mix`` and
+    ``spectral_filter`` keep their names and shapes."""
+    sd: Dict[str, torch.Tensor] = {}
+    _add_subtree(sd, "", tree.get("params", tree))
+    return sd

@@ -1,22 +1,31 @@
-"""Input validation for attention calls.
+"""Input validation for attention calls and engine configs.
 
-Port of ``photonic_flash_attention_tpu/utils/validation.py::
-validate_attention_inputs`` and ``validate_quant_mode``: the same shape,
-dtype and cap checks on (B, S, H, D) inputs, raising the same
-``ValidationError``. The JAX module's TPU tiling checks (128-lane block
-alignment) have no counterpart.
+Port of ``photonic_flash_attention_tpu/utils/validation.py``: the same
+shape, dtype and cap checks on (B, S, H, D) inputs, the block-size check
+of the config's tiling knobs, the finiteness gate, padding to a multiple
+and the mask broadcast, raising the same ``ValidationError``.
+
+``check_finite`` reduces on the tensor's own device and reads one bool on
+the host (a CUDA tensor syncs there). JAX's traced branch (a
+``jax.debug.callback`` warning inside ``jit``) has no counterpart: calls
+here are eager.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import get_config
 from .exceptions import ValidationError
 
 _ALLOWED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+#: Alignment of ``block_q``/``block_kv`` (JAX's 128-lane rule, kept for the
+#: config's tiling knobs, which carry JAX's values).
+_LANE = 128
 
 
 def validate_attention_inputs(
@@ -62,8 +71,55 @@ def validate_attention_inputs(
         raise ValidationError(f"mask must be rank 2-4, got shape {tuple(mask.shape)}")
 
 
+def validate_block_config(block_q: int, block_kv: int, head_dim: int) -> None:
+    """Tiling sanity: block sizes positive multiples of 128, a positive
+    head dim."""
+    for name, v in (("block_q", block_q), ("block_kv", block_kv)):
+        if v <= 0 or v % _LANE != 0:
+            raise ValidationError(f"{name}={v} must be a positive multiple of {_LANE}")
+    if head_dim <= 0:
+        raise ValidationError(f"head_dim={head_dim} must be positive")
+
+
 def validate_quant_mode(mode: str) -> str:
     """``mode`` if it is one of "bf16", "fp8", "int8"; else raise."""
     if mode not in ("bf16", "fp8", "int8"):
         raise ValidationError(f"quant_mode must be bf16|fp8|int8, got {mode!r}")
     return mode
+
+
+def check_finite(x: torch.Tensor, name: str = "tensor") -> torch.Tensor:
+    """``x`` unchanged if every element is finite; else ``ValidationError``.
+    The reduction runs on ``x``'s device; one bool comes back."""
+    if not bool(torch.isfinite(x.float()).all()):
+        raise ValidationError(f"{name} contains NaN/Inf")
+    return x
+
+
+def pad_to_multiple(x: torch.Tensor, multiple: int, axis: int) -> Tuple[torch.Tensor, int]:
+    """Zero-pad ``axis`` of ``x`` to a multiple; returns (padded, original_size)."""
+    size = x.shape[axis]
+    rem = size % multiple
+    if rem == 0:
+        return x, size
+    axis = axis % x.ndim
+    widths = [0, 0] * (x.ndim - 1 - axis) + [0, multiple - rem]  # F.pad: last dim first
+    return F.pad(x, widths), size
+
+
+def normalize_mask(
+    mask: Optional[torch.Tensor],
+    batch: int,
+    num_heads: int,
+    q_len: int,
+    kv_len: int,
+) -> Optional[torch.Tensor]:
+    """Broadcast a rank-2/3/4 boolean mask to (B, H, Sq, Skv) (a view)."""
+    if mask is None:
+        return None
+    m = mask
+    if m.ndim == 2:  # (Sq, Skv)
+        m = m[None, None]
+    elif m.ndim == 3:  # (B, Sq, Skv)
+        m = m[:, None]
+    return m.expand(batch, num_heads, q_len, kv_len)

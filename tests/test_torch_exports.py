@@ -5,7 +5,11 @@ the flash functions and the drop-in layers lazily (``__getattr__``);
 ``core``, ``models``, ``ops`` and ``hardware`` list their names in
 ``__all__``. The port must resolve every one of them except the names of
 ROADMAP items still open (listed below), and export nothing the JAX
-package does not.
+package does not. The ops shell's subpackages (``globalization``,
+``intelligence``, ``monitoring``, ``optimization``, ``research``,
+``resilience``, ``scaling``) export JAX's ``__all__`` in its order, and the
+port holds every ``.py`` module of the JAX package but ``ops/pallas_utils``
+(TPU lane helpers; its one piece of maths is ``ops/dropout.py``).
 """
 
 import ast
@@ -29,9 +33,9 @@ NOT_PORTED: set = set()
 #: ``models`` names not ported yet: none.
 MODELS_NOT_PORTED: set = set()
 
-#: ``hardware`` names not ported yet: the design-space simulators (A14, later).
-HARDWARE_NOT_PORTED = {"CollectiveCost", "KernelPipelineSimulator", "PipelinePrediction",
-                       "TopologySimulator"}
+#: ``hardware`` names not ported yet: none (the design-space simulators came
+#: with the ops shell).
+HARDWARE_NOT_PORTED: set = set()
 
 
 def _lazy_names(module) -> set:
@@ -79,6 +83,37 @@ def test_hardware_names_match_jax():
     for name in port_hardware.__all__:
         obj = getattr(port_hardware, name)
         assert obj.__module__.startswith(port_hardware.__name__), name
+
+
+#: The ops shell's subpackages, ported whole.
+SHELL_SUBPACKAGES = ("globalization", "intelligence", "monitoring", "optimization", "research",
+                     "resilience", "scaling")
+
+
+@pytest.mark.parametrize("sub", SHELL_SUBPACKAGES)
+def test_shell_subpackage_names_match_jax(sub):
+    import importlib
+
+    jax_mod = importlib.import_module(f"{jax_pkg.__name__}.{sub}")
+    port_mod = importlib.import_module(f"{port.__name__}.{sub}")
+    assert port_mod.__all__ == jax_mod.__all__
+    for name in port_mod.__all__:
+        obj = getattr(port_mod, name)
+        assert getattr(obj, "__module__", port_mod.__name__).startswith(port_mod.__name__), name
+
+
+#: JAX modules with no port module, and why.
+MODULES_NOT_PORTED = {"ops/pallas_utils.py"}  # TPU lane helpers; dropout_keep is ops/dropout.py
+
+
+def test_every_jax_module_has_its_port():
+    from pathlib import Path
+
+    jax_dir = Path(jax_pkg.__file__).resolve().parent
+    port_dir = Path(port.__file__).resolve().parent
+    jax_files = {str(p.relative_to(jax_dir)) for p in jax_dir.rglob("*.py")}
+    port_files = {str(p.relative_to(port_dir)) for p in port_dir.rglob("*.py")}
+    assert jax_files - port_files == MODULES_NOT_PORTED
 
 
 def test_parallel_names_match_jax():

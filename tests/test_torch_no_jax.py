@@ -76,7 +76,13 @@ def test_every_module_imports_with_jax_blocked():
                  "core.kv_cache", "core.native_alloc", "core.native_sched", "core.checkpoint",
                  "core.error_recovery", "parallel", "parallel.mesh", "parallel.multihost",
                  "parallel.telemetry", "parallel.collectives", "parallel.ring",
-                 "parallel.ulysses", "parallel.pipeline", *MODEL_MODULES):
+                 "parallel.ulysses", "parallel.pipeline", "hardware.simulator",
+                 "utils.security", "globalization.compliance", "globalization.deployment",
+                 "globalization.i18n", "intelligence.adaptive_learning", "monitoring.health",
+                 "monitoring.dashboard", "optimization.caching",
+                 "optimization.performance_optimizer", "research.novel_algorithms",
+                 "resilience.fault_tolerance", "scaling.autoscaler", "scaling.load_balancer",
+                 "scaling.workload_balancer", *MODEL_MODULES):
         assert f"{port.__name__}.{name}" in modules
 
 
