@@ -71,7 +71,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    same way); then Llama-2-70B's GQA geometry: K1 bf16 at B1 S2048
    Hq64/Hkv8 D128 causal (beside SDPA with ``enable_gqa``) and K3's fused
    decode at B8 Hq64/Hkv8 D128 over an int8 pool, lengths 1-4096, against
-   their plain versions, by CUDA events and the graph fit;
+   their plain versions, by CUDA events and the graph fit; then K4/K5 at
+   the same B1 S2048 Hq64/Hkv8 D128 causal bf16, as Llama training gives
+   them (``check_llama_bwd``): the gradients through the autograd Function
+   against the plain backward, K4 and K5 alone, ``repeat_kv`` and
+   ``_group_sum`` alone and the Function's whole backward (their share of
+   it), the plain backward and SDPA's backward with ``enable_gqa``;
 4. roofline: the card's record (``hardware.detection``), K9/K10 (HBM read
    and copy) bit for bit and K11 (exp) and K12 (the softmax stream, both
    modes) within their bounds against their plain versions; then, as a
@@ -148,7 +153,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``set_mesh`` with one forced call each of RING and ULYSSES; GPT-2
    medium trained 3 steps on a (data 1, model 1) mesh with
    ``param_sharding_rules`` against the unsharded trainer (losses, and
-   whether bit-equal), and served on one (int8 pool, 8 requests) with the
+   whether bit-equal); Llama at Llama-2-70B's widths cut to 2 layers
+   (2.24 B fp32 parameters, bf16 compute) trained 4 AdamW steps at B1
+   S2048 unsharded and then on the mesh with ``llama_param_sharding_rules``
+   (each run counted alone: K1, K4 and K5 once a layer and step; the loss
+   falls; the mesh run within 1e-3 of the unsharded one), and its first
+   layer's gradient (1 layer, B1 S256) on the card against the CPU fp32
+   plain run (5e-2); GPT-2 medium served on one (int8 pool, 8 requests) with the
    unsharded engine's tokens, a sharded save/restore round trip and the
    restore without a mesh refused; the telemetry's bytes and NCCL's
    world-1 collective times; K1 (plain and streams), K4/K5 and K3's fused
@@ -2701,11 +2712,16 @@ def phase_kernels(smi: str) -> dict:
     results["k3_table"] = time_k3_modes(results, smi)
     results["quant_table"] = time_quant_modes(results, smi)
     check_llama_kernels(results, smi)
+    check_llama_bwd(results, smi)
     return results
 
 
 #: Llama-2-70B's attention geometry: 64 query heads over 8 KV heads, D 128.
 LLAMA_GQA = (64, 8, 128)
+#: Llama training at Llama-2-70B's width (the parallel path): B1 S2048,
+#: LLAMA_TRAIN_STEPS AdamW steps, unsharded and on the (1, 1) mesh; the
+#: gradient check's cut: 1 layer at B1 S LLAMA_CHECK_SEQ.
+LLAMA_TRAIN_SEQ, LLAMA_TRAIN_STEPS, LLAMA_CHECK_SEQ = 2048, 4, 256
 #: K3 at Llama-2-70B's decode geometry: one length a sequence, to 4096.
 LLAMA_DECODE_LENS = (1, 17, 128, 129, 700, 1500, 2048, 4096)
 
@@ -2793,6 +2809,83 @@ def check_llama_kernels(results: dict, smi: str) -> None:
         shape=f"B{b} Hq{hq}/Hkv{hkv} D{d} int8 pool, lengths 1-4096", ms=ms, fit_ms=fit,
         plain_ms=plain, library_ms=None, max_abs_err=max_abs_err(out, ref), **bnd))
     del pools, ref_pools, k_pool, v_pool, ks, vs
+    torch.cuda.empty_cache()
+
+
+def check_llama_bwd(results: dict, smi: str) -> None:
+    """K4 and K5 at Llama-2-70B's GQA geometry, as Llama training's
+    attention backward gives them (B1 S LLAMA_TRAIN_SEQ Hq64/Hkv8 D128
+    causal bf16, K/V repeated to the 64 query heads): the gradients through
+    ``flash_attention``'s autograd Function (K1 with lse, the GQA repeat,
+    K4, K5, the group sum) against the plain backward (bound 1e-2); then,
+    each by CUDA events and the graph fit, K4 alone, K5 alone, ``repeat_kv``
+    of K and V alone, ``_group_sum`` of dK and dV alone and the Function's
+    whole backward; the plain backward (events); SDPA's backward with
+    ``enable_gqa`` (events around ``torch.autograd.grad``); K4's and K5's
+    bounds. Recorded as ``cases`` of the K4 and K5 entries."""
+    import torch.nn.functional as F
+
+    from photonic_flash_attention_tpu_torch.ops.reference import repeat_kv
+
+    hq, hkv, d = LLAMA_GQA
+    b, s, group = 1, LLAMA_TRAIN_SEQ, hq // hkv
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, do = (torch.randn(b, s, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    want, _ = _plain_grads(q, k, v, do, True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_ops.flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    errs = [rel_err_norm(g, w) for g, w in zip(got, want)]
+    shape = f"B{b} S{s} Hq{hq}/Hkv{hkv} D{d} causal bf16"
+    line = (f"K4/K5 flash_bwd {shape} (Llama-2-70B's GQA, through the autograd Function): "
+            f"rel_err_norm dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (bound 1e-2)")
+    if max(errs) > 1e-2 or not all(torch.isfinite(g).all() for g in got):
+        raise AssertionError(line)
+    dq_err = max_abs_err(got[0], want[0])
+    dkv_err = max(max_abs_err(got[1], want[1]), max_abs_err(got[2], want[2]))
+    del want, got
+
+    kr, vr = repeat_kv(k, group), repeat_kv(v, group)
+    o, lse = flash_ops._fwd_with_lse(q, k, v, True, d ** -0.5)
+    di = bwd_ops.flash_bwd_di(o, do)
+    kw = dict(sm_scale=d ** -0.5, causal=True)
+    dk, dv = bwd_ops.flash_bwd_dkv(q, kr, vr, do, lse, di, **kw)
+    k4, k4_fit = _both_ms(lambda: bwd_ops.flash_bwd_dkv(q, kr, vr, do, lse, di, **kw))
+    k5, k5_fit = _both_ms(lambda: bwd_ops.flash_bwd_dq(q, kr, vr, do, lse, di, **kw))
+    rep, rep_fit = _both_ms(lambda: (repeat_kv(k, group), repeat_kv(v, group)))
+    gsum, gsum_fit = _both_ms(lambda: (flash_ops._group_sum(dk, hkv, k.dtype),
+                                       flash_ops._group_sum(dv, hkv, v.dtype)))
+    whole = median_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    whole_fit = _fit_ms(lambda: out.grad_fn.apply(do))
+    plain = median_ms(lambda: bwd_ops.flash_attention_bwd_plain(q, kr, vr, o, lse, do, **kw))
+    del kr, vr, dk, dv
+    sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True, enable_gqa=True)
+    g = do.transpose(1, 2).contiguous()
+    lib = median_ms(lambda: torch.autograd.grad(sdpa_out, (sq, sk, sv), g, retain_graph=True))
+    node = sdpa_out.grad_fn.name()
+    meta = torch.empty(b, s, hq, d, device="meta", dtype=torch.bfloat16)
+    bnd_dkv, bnd_dq = bwd_bounds(meta, meta, True)
+    share = (rep_fit + gsum_fit) / whole_fit
+    print(f"{line} | K4 {k4:.4f} / {k4_fit:.4f} ms (bound {bnd_dkv['bound_ms']:.4f}, "
+          f"{bnd_dkv['bound_by']}), K5 {k5:.4f} / {k5_fit:.4f} ms (bound "
+          f"{bnd_dq['bound_ms']:.4f}, {bnd_dq['bound_by']}), repeat_kv of K and V "
+          f"{rep:.4f} / {rep_fit:.4f} ms, _group_sum of dK and dV {gsum:.4f} / {gsum_fit:.4f} ms, "
+          f"the Function's backward {whole:.4f} / {whole_fit:.4f} ms (CUDA events / graph fit): "
+          f"the repeat and sum {100 * share:.1f} % of it (fit); plain backward {plain:.4f} ms; "
+          f"SDPA backward (enable_gqa; {node}) {lib:.4f} ms ({smi})", flush=True)
+    common = dict(shape=f"{shape}, K/V repeated to Hq", plain_ms=plain, library_ms=lib,
+                  gqa_repeat_ms=rep_fit, gqa_group_sum_ms=gsum_fit,
+                  autograd_backward_fit_ms=whole_fit, gqa_share_of_backward=share)
+    results["pfa_flash_bwd_dkv"].setdefault("cases", []).append(dict(
+        ms=k4, fit_ms=k4_fit, max_abs_err=dkv_err, **common, **bnd_dkv))
+    results["pfa_flash_bwd_dq"].setdefault("cases", []).append(dict(
+        ms=k5, fit_ms=k5_fit, max_abs_err=dq_err, **common, **bnd_dq))
+    del q, k, v, do, leaves, out, o, lse, di, sq, sk, sv, sdpa_out, g
     torch.cuda.empty_cache()
 
 
@@ -3377,6 +3470,21 @@ def _check_par_engine(mesh_seq, runs: dict, smi: str) -> None:
               "mesh cleared after", smi)
 
 
+def _timed_steps(trainer, batch: dict, steps: int) -> tuple:
+    """``steps`` train steps of ``trainer`` on ``batch`` from its initial
+    state: (the last state, losses, gradient norms, wall ms a step, each
+    step synchronized by reading its loss)."""
+    state = trainer.init_state()
+    losses, norms, step_ms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))  # synchronizes
+        step_ms.append(round(1e3 * (time.perf_counter() - t0), 1))
+        norms.append(float(m["grad_norm"]))
+    return state, losses, norms, step_ms
+
+
 def _check_par_training(mesh_dm, runs: dict, smi: str, profile_dir: Optional[str]) -> None:
     """GPT-2 medium on a (data 1, model 1) mesh with param_sharding_rules
     (the tensor-parallel forward, the data axis's all-reduce) against the
@@ -3397,14 +3505,7 @@ def _check_par_training(mesh_dm, runs: dict, smi: str, profile_dir: Optional[str
         kw = dict(mesh=mesh_dm, param_specs=param_sharding_rules(model.state_dict())) \
             if name == "mesh" else {}
         trainer = Trainer(model, opt, **kw)
-        state = trainer.init_state()
-        losses, norms, step_ms = [], [], []
-        for _ in range(PAR_TRAIN_STEPS):
-            t0 = time.perf_counter()
-            state, m = trainer.train_step(state, batch)
-            losses.append(float(m["loss"]))  # synchronizes
-            step_ms.append(round(1e3 * (time.perf_counter() - t0), 1))
-            norms.append(float(m["grad_norm"]))
+        state, losses, norms, step_ms = _timed_steps(trainer, batch, PAR_TRAIN_STEPS)
         if profile_dir:
             _profile_runs(lambda: trainer.train_step(state, batch), 1, Path(profile_dir),
                           f"parallel_train_{name}")
@@ -3422,6 +3523,127 @@ def _check_par_training(mesh_dm, runs: dict, smi: str, profile_dir: Optional[str
          "grad_norm max rel diff": max(abs(a - b) / abs(b) for a, b in zip(n1, n0))},
         {"loss max rel diff": 1e-3, "grad_norm max rel diff": 1e-3},
         f"losses {l1} vs {l0}: bit-equal {bit_equal}; step ms {ms1} vs {ms0}", smi)
+
+
+def _llama_train_model(cfg):
+    """Llama of ``cfg`` made on the card from seed 0: fp32 parameters, bf16
+    compute."""
+    from photonic_flash_attention_tpu_torch.models.llama import LlamaForCausalLM
+
+    return LlamaForCausalLM(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+
+
+def _check_llama_train_grads(cfg) -> None:
+    """One batch's gradient of a Llama of ``cfg``'s widths cut to 1 layer
+    at B1 S LLAMA_CHECK_SEQ: bf16 compute on the card (K1 with lse, the GQA
+    repeat, K4, K5, the group sum, each launched once) against fp32 on the
+    CPU (the plain versions) from the same weights, the bf16-scale gate
+    5e-2 (``check_train_grads``')."""
+    from photonic_flash_attention_tpu_torch.config import get_config, reset_config
+    from photonic_flash_attention_tpu_torch.models.llama import LlamaForCausalLM
+    from photonic_flash_attention_tpu_torch.training import synthetic_lm_batches
+
+    cut = dataclasses.replace(cfg, num_hidden_layers=1)
+    batch = {k: torch.as_tensor(v) for k, v in next(synthetic_lm_batches(
+        batch=1, seq=LLAMA_CHECK_SEQ, vocab=cfg.vocab_size, seed=5)).items()}
+    card = _llama_train_model(cut)
+    state = {k: v.to("cpu", copy=True) for k, v in card.state_dict().items()}
+    # The CPU model takes the card's weights as they are (no init on the CPU).
+    host = LlamaForCausalLM(dataclasses.replace(cut, dtype=torch.float32), device="meta")
+    host.load_state_dict(state, assign=True)
+    # S 256 is below flash_threshold: lower both thresholds so both runs
+    # take the flash route (kernels on the card, plain versions on the CPU).
+    get_config().update(flash_threshold=LLAMA_CHECK_SEQ, flash_min_tokens=LLAMA_CHECK_SEQ)
+    try:
+        t0 = time.perf_counter()
+        grads = {"host": _lm_grads(host, batch)}
+        cpu_s = time.perf_counter() - t0
+        before = dict(_build.LAUNCHES)
+        grads["card"] = _lm_grads(card, {k: v.cuda() for k, v in batch.items()})
+        for name in TRAIN_KERNELS:
+            if _build.LAUNCHES[name] - before.get(name, 0) != 1:
+                raise AssertionError(f"Llama gradient check: {name} not launched once")
+    finally:
+        reset_config()
+    del card, host, state
+    torch.cuda.empty_cache()
+    flat = {d: torch.cat([g.flatten() for g in gs.values()]) for d, gs in grads.items()}
+    errs = {"all": rel_err_norm(flat["card"], flat["host"])}
+    for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        errs[name] = rel_err_norm(grads["card"][f"layers.0.attn.{name}.weight"],
+                                  grads["host"][f"layers.0.attn.{name}.weight"])
+    errs["embed_tokens"] = rel_err_norm(grads["card"]["embed_tokens"], grads["host"]["embed_tokens"])
+    line = (f"parallel path: Llama training: gradient of Llama-2-70B's widths cut to 1 layer, "
+            f"B1 S{LLAMA_CHECK_SEQ}, card bf16 vs CPU fp32 plain ({cpu_s:.1f} s on the CPU): "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + " (bound 5e-2)")
+    if max(errs.values()) > 5e-2 or not torch.isfinite(flat["card"]).all():
+        raise AssertionError(line)
+    print(line, flush=True)
+
+
+def _check_par_llama_training(mesh_dm, runs: dict, smi: str) -> None:
+    """Llama at Llama-2-70B's width cut to 2 layers (2.24 B parameters, fp32
+    with bf16 compute: its attention K1 with lse, K4 and K5 on the GQA
+    route) trained LLAMA_TRAIN_STEPS AdamW steps at B1 S LLAMA_TRAIN_SEQ
+    on one fixed batch: unsharded, then on the (data 1, model 1) mesh with
+    ``llama_param_sharding_rules``, each run counted alone: K1, K4 and K5
+    launch once per layer and step, the loss falls, the mesh run's losses
+    and gradient norms within 1e-3 of the unsharded run's. Then the first
+    layer's gradient against the CPU (``_check_llama_train_grads``)."""
+    from photonic_flash_attention_tpu_torch.models.llama import llama_param_sharding_rules
+    from photonic_flash_attention_tpu_torch.training import Trainer, synthetic_lm_batches
+
+    cfg = _llama_70b_width()
+    batch = next(synthetic_lm_batches(batch=1, seq=LLAMA_TRAIN_SEQ, vocab=cfg.vocab_size, seed=4))
+
+    def train(name: str):
+        model = _llama_train_model(cfg)
+        params = sum(p.numel() for p in model.parameters())
+        # optax.adamw(1e-4)'s defaults; the fused step keeps no temporaries
+        # of the parameters' size.
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4, fused=True)
+        kw = dict(mesh=mesh_dm, param_specs=llama_param_sharding_rules(model.state_dict())) \
+            if name == "mesh" else {}
+        trainer = Trainer(model, opt, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, norms, step_ms = _timed_steps(trainer, batch, LLAMA_TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del model, opt, trainer, state
+        torch.cuda.empty_cache()
+        return losses, norms, step_ms, peak, params
+
+    need = cfg.num_hidden_layers * LLAMA_TRAIN_STEPS
+    metrics = {}
+    for name, label in (("unsharded", "Llama training, unsharded"),
+                        ("mesh", "Llama training on the (1, 1) mesh")):
+        metrics[name] = _counted(runs, label, TRAIN_KERNELS, functools.partial(train, name))
+        counts = runs[label]
+        if any(counts[k] != need for k in TRAIN_KERNELS):
+            raise AssertionError(f"parallel path: {label}: launches {dict(counts)}, expected "
+                                 f"{need} of each of {TRAIN_KERNELS}")
+        losses, norms, step_ms, peak, params = metrics[name]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"parallel path: {label}: loss did not fall: {losses}")
+        tokens_s = (LLAMA_TRAIN_STEPS - 1) * LLAMA_TRAIN_SEQ / (sum(step_ms[1:]) / 1e3)
+        print(f"parallel path: {label}: Llama-2-70B's widths (hidden {cfg.hidden_size}, "
+              f"{cfg.num_attention_heads}/{cfg.num_key_value_heads} heads, intermediate "
+              f"{cfg.intermediate_size}) cut to {cfg.num_hidden_layers} layers, {params} "
+              f"parameters, fp32 params / bf16 compute, B1 S{LLAMA_TRAIN_SEQ}, "
+              f"{LLAMA_TRAIN_STEPS} AdamW steps: step ms {step_ms} (steps 2-{LLAMA_TRAIN_STEPS}: "
+              f"{tokens_s:.1f} tokens/s), peak memory {peak:.2f} GiB; losses {losses}, grad "
+              f"norms {norms}; launches {dict(counts)} ({smi})", flush=True)
+    (l0, n0, ms0, *_), (l1, n1, ms1, *_) = metrics["unsharded"], metrics["mesh"]
+    _par_line(
+        f"Llama training on the (data 1, model 1) mesh with llama_param_sharding_rules, "
+        f"B1 S{LLAMA_TRAIN_SEQ}, {LLAMA_TRAIN_STEPS} AdamW steps, vs the unsharded trainer",
+        {"loss max rel diff": max(abs(a - b) / abs(b) for a, b in zip(l1, l0)),
+         "grad_norm max rel diff": max(abs(a - b) / abs(b) for a, b in zip(n1, n0))},
+        {"loss max rel diff": 1e-3, "grad_norm max rel diff": 1e-3},
+        f"bit-equal {l0 == l1 and n0 == n1}; step ms {ms1} vs {ms0}", smi)
+    _check_llama_train_grads(cfg)
 
 
 def _check_par_serving(mesh_dm, tmp: str, runs: dict, smi: str) -> None:
@@ -3511,7 +3733,9 @@ def phase_parallel(smi: str, profile_dir: Optional[str] = None) -> dict:
     gradient, Ulysses, the engine's RING and ULYSSES, sharded training and
     sharded serving, then the telemetry's bytes and NCCL's times. No
     failure is caught. Returns the path's launches: those of its sharded
-    runs alone, each counted from 0 just before it (``_counted``)."""
+    runs and of the unsharded Llama training run, each counted from 0 just
+    before it (``_counted``); the references the sharded runs are held
+    against run outside these counts."""
     import tempfile
 
     import torch.distributed as dist
@@ -3540,6 +3764,7 @@ def phase_parallel(smi: str, profile_dir: Optional[str] = None) -> dict:
             _check_par_ulysses(mesh_seq, runs, smi)
             _check_par_engine(mesh_seq, runs, smi)
             _check_par_training(mesh_dm, runs, smi, profile_dir)
+            _check_par_llama_training(mesh_dm, runs, smi)
             _check_par_serving(mesh_dm, tmp, runs, smi)
             stats = get_telemetry().get_stats()
             c = PAR_RING
@@ -3554,7 +3779,7 @@ def phase_parallel(smi: str, profile_dir: Optional[str] = None) -> dict:
     launches = collections.Counter()
     for counts in runs.values():
         launches.update(counts)
-    print(f"parallel path: launches by sharded run "
+    print(f"parallel path: launches by counted run "
           f"{ {label: dict(c) for label, c in runs.items()} }", flush=True)
     print(f"parallel path: launches {dict(launches)}", flush=True)
     return launches

@@ -39,7 +39,7 @@ from torch import nn
 
 from ..ops.dropout import fold_seed
 from ..parallel import collectives as C
-from ..parallel.mesh import PartitionSpec
+from ..parallel.mesh import PartitionSpec, require_layout
 from .attention import PhotonicFlashAttention, dense, model_device
 
 
@@ -184,10 +184,8 @@ class GPT2LMHead(nn.Module):
         parameter to its shard by ``specs``, which must be
         :func:`param_sharding_rules`' layout; the heads must divide over
         the group."""
-        rules = param_sharding_rules(self.state_dict(), (None, model_axis))
-        if {n: tuple(specs.get(n, ())) for n in rules} != {n: tuple(r) for n, r in rules.items()}:
-            raise ValueError("tensor-parallel GPT-2 needs the layout of "
-                             "models.gpt2.param_sharding_rules")
+        require_layout(specs, param_sharding_rules(self.state_dict(), (None, model_axis)),
+                       "models.gpt2.param_sharding_rules")
         n = dist.get_world_size(group)
         if self.config.n_head % n:
             raise ValueError(f"n_head ({self.config.n_head}) must divide over the model axis ({n})")

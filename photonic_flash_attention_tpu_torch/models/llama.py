@@ -10,6 +10,15 @@ GQA on the flash path), ``LlamaMLP`` (SiLU gate times up), ``LlamaLayer``
 (pre-norm) and ``LlamaForCausalLM`` (tied or untied LM head), plus
 ``transfer_hf_llama`` from an HF (torch) model.
 
+``LlamaForCausalLM.tensor_parallel`` makes the forward tensor parallel
+over a model axis's process group, as JAX's ``Trainer`` shards the model by
+``llama_param_sharding_rules`` under GSPMD: each rank holds its query and
+KV heads and its MLP columns between Megatron's f and g
+(``parallel/collectives.py``), the embedding's hidden-size shard gathered
+once a forward and the untied head's vocabulary shard gathered on the
+logits. Where GSPMD would pad a dimension that does not divide over the
+axis, the port raises.
+
 The model is made on the card unless the caller passes another
 ``device`` (the tests pass ``"cpu"``), ``transfer_hf_llama``'s too.
 Parameters are float32 unless ``param_dtype`` says otherwise (a
@@ -32,10 +41,12 @@ import math
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import PartitionSpec
+from ..parallel import collectives as C
+from ..parallel.mesh import PartitionSpec, require_layout
 from .attention import dense, dispatch_attention, model_device
 
 
@@ -124,15 +135,20 @@ class LlamaAttention(nn.Module):
         self.o_proj = nn.Linear(cfg.num_attention_heads * hd, e, bias=False, **factory)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        cfg = self.config
+                mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+        """``group``: q/k/v hold this rank's heads (the head counts are read
+        from their shapes) and ``o_proj`` its input columns. The GQA groups
+        are contiguous, so rank r's query heads attend over rank r's KV
+        heads."""
         b, s, _ = x.shape
-        hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        q = apply_rope(dense(x, self.q_proj).reshape(b, s, hq, hd), cos, sin)
-        k = apply_rope(dense(x, self.k_proj).reshape(b, s, hkv, hd), cos, sin)
-        v = dense(x, self.v_proj).reshape(b, s, hkv, hd)
+        hd = self.config.head_dim
+        if group is not None:
+            x = C.copy_to(x, group)
+        q = apply_rope(dense(x, self.q_proj, group).reshape(b, s, -1, hd), cos, sin)
+        k = apply_rope(dense(x, self.k_proj, group).reshape(b, s, -1, hd), cos, sin)
+        v = dense(x, self.v_proj, group).reshape(b, s, -1, hd)
         out, _ = dispatch_attention(q, k, v, mask, causal=True)
-        return dense(out.reshape(b, s, hq * hd), self.o_proj)
+        return dense(out.reshape(b, s, -1), self.o_proj, group, row=True)
 
 
 class LlamaMLP(nn.Module):
@@ -143,8 +159,12 @@ class LlamaMLP(nn.Module):
         self.up_proj = nn.Linear(e, m, bias=False, **factory)
         self.down_proj = nn.Linear(m, e, bias=False, **factory)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(F.silu(dense(x, self.gate_proj)) * dense(x, self.up_proj), self.down_proj)
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """``group``: gate and up hold this rank's columns, down its rows."""
+        if group is not None:
+            x = C.copy_to(x, group)
+        m = F.silu(dense(x, self.gate_proj, group)) * dense(x, self.up_proj, group)
+        return dense(m, self.down_proj, group, row=True)
 
 
 class LlamaLayer(nn.Module):
@@ -155,16 +175,27 @@ class LlamaLayer(nn.Module):
         self.post_attn_ln = _norm(cfg, factory)
         self.mlp = LlamaMLP(cfg, **factory)
 
-    def forward(self, x, cos, sin, mask=None) -> torch.Tensor:
-        x = x + self.attn(self.input_ln(x), cos, sin, mask)
-        return x + self.mlp(self.post_attn_ln(x))
+    def forward(self, x, cos, sin, mask=None, group=None) -> torch.Tensor:
+        x = x + self.attn(self.input_ln(x), cos, sin, mask, group)
+        return x + self.mlp(self.post_attn_ln(x), group)
 
 
 class LlamaForCausalLM(nn.Module):
     """Llama with its LM head. Input: (B, S) token ids; output (B, S, V)
     logits in ``cfg.dtype``. ``device`` (the card by default) and
     ``param_dtype`` place and type the parameters as they are made (no copy
-    on the CPU first)."""
+    on the CPU first).
+
+    After :meth:`tensor_parallel` the same forward runs on this rank's
+    shards, as :func:`llama_param_sharding_rules` places them over a model
+    axis's process group: each layer takes Megatron's f
+    (``parallel/collectives.py::copy_to``) before q/k/v and before
+    gate/up and g (an all-reduce) after ``o_proj`` and after
+    ``down_proj``; ``embed_tokens``' hidden-size shard is all-gathered once
+    a forward (for the lookup and the tied head); the untied ``lm_head``
+    computes the rank's vocabulary block of the logits, which are
+    all-gathered. RMSNorm weights stay replicated. The logits are the same
+    on every rank of the group."""
 
     def __init__(self, cfg: LlamaConfig, *, generator: Optional[torch.Generator] = None,
                  device: Any = "cuda", param_dtype: torch.dtype = torch.float32) -> None:
@@ -177,6 +208,7 @@ class LlamaForCausalLM(nn.Module):
         self.norm = _norm(cfg, factory)
         self.lm_head = (None if cfg.tie_word_embeddings
                         else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **factory))
+        self.tp_group = None
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -214,14 +246,41 @@ class LlamaForCausalLM(nn.Module):
         if attention_mask is not None:
             mask = attention_mask.to(torch.bool)[:, None, None, :].expand(b, 1, s, s)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-        embed = self.embed_tokens.to(cfg.dtype)
+        group = self.tp_group
+        embed = self.embed_tokens
+        if group is not None and embed.shape[1] != cfg.hidden_size:
+            embed = C.gather(embed, 1, group)
+        embed = embed.to(cfg.dtype)
         x = embed[input_ids]
         for layer in self.layers:
-            x = layer(x, cos, sin, mask)
+            x = layer(x, cos, sin, mask, group)
         x = self.norm(x)
         if self.lm_head is None:
             return x @ embed.T
-        return dense(x, self.lm_head)
+        if group is None or self.lm_head.weight.shape[0] == cfg.vocab_size:
+            return dense(x, self.lm_head)
+        return C.gather(dense(C.copy_to(x, group), self.lm_head, group), x.ndim - 1, group)
+
+    def tensor_parallel(self, group, specs: Mapping[str, Any], model_axis: str) -> None:
+        """Make the forward tensor parallel over ``group`` (the process
+        group of the mesh's ``model_axis``), before the caller cuts each
+        parameter to its shard by ``specs``, which must be
+        :func:`llama_param_sharding_rules`' layout. The query and KV heads,
+        the intermediate size and (untied) the vocabulary must divide over
+        the group: nothing is padded or quietly replicated."""
+        require_layout(specs, llama_param_sharding_rules(self.state_dict(), (None, model_axis)),
+                       "models.llama.llama_param_sharding_rules")
+        cfg = self.config
+        sizes = {"num_attention_heads": cfg.num_attention_heads,
+                 "num_key_value_heads": cfg.num_key_value_heads,
+                 "intermediate_size": cfg.intermediate_size}
+        if not cfg.tie_word_embeddings:
+            sizes["vocab_size"] = cfg.vocab_size
+        n = dist.get_world_size(group)
+        for name, size in sizes.items():
+            if size % n:
+                raise ValueError(f"{name} ({size}) must divide over the model axis ({n})")
+        self.tp_group = group
 
 
 # ---------------------------------------------------------------------------

@@ -122,6 +122,16 @@ def axis_group(mesh: DeviceMesh, axis: str) -> dist.ProcessGroup:
     return mesh.get_group(axis)
 
 
+def require_layout(specs: Dict[str, Sequence[Optional[str]]],
+                   rules: Dict[str, Sequence[Optional[str]]], rules_name: str) -> None:
+    """Raise ``ValueError`` unless ``specs`` place every parameter of
+    ``rules`` as ``rules`` do (a name missing from ``specs`` is
+    replicated): a model's tensor-parallel forward is written for one
+    layout."""
+    if {n: tuple(specs.get(n, ())) for n in rules} != {n: tuple(r) for n, r in rules.items()}:
+        raise ValueError(f"a tensor-parallel forward needs the layout of {rules_name}")
+
+
 def shard_tensor(x: torch.Tensor, spec: Sequence[Optional[str]], mesh: DeviceMesh) -> torch.Tensor:
     """This rank's block of a tensor replicated on every rank, cut as
     ``spec`` places it (dims past the spec are not sharded). A copy."""

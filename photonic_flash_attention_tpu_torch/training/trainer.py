@@ -32,12 +32,15 @@ places it, with explicit collectives where JAX's GSPMD inserts them:
   rank is weighted by its share of the tokens (of ``loss_mask`` where the
   batch has one), and one all-reduce a step sums the gradients over the
   axis, so loss and gradient are the global batch's;
-* ``param_specs`` (``models.gpt2.param_sharding_rules``): each parameter
+* ``param_specs`` (``models.gpt2.param_sharding_rules`` for GPT-2,
+  ``models.llama.llama_param_sharding_rules`` for Llama): each parameter
   is cut to the rank's block in place (the optimizer sees the shards);
   specs that name a model axis make the model's forward tensor parallel
   over that axis: the model owns that forward, set up by its
-  ``tensor_parallel(group, specs, model_axis)`` (``models/gpt2.py``: an
-  all-reduce after each row-parallel dense, ``wte``'s shard gathered);
+  ``tensor_parallel(group, specs, model_axis)`` (``models/gpt2.py`` and
+  ``models/llama.py``: an all-reduce after each row-parallel dense, the
+  embedding's shard gathered, Llama's untied head gathered on the
+  vocabulary);
 * sequence parallel: the model's attention asks the engine at every call
   (``core/engine.py::AttentionEngine.seq_parallel_attention``); when the
   engine has a mesh whose seq axis can take the rank's heads and
@@ -218,7 +221,7 @@ class Trainer:
         ``models.param_sharding_rules(model.state_dict())``); a name left out
         is replicated. Specs that shard over a model axis make the step
         tensor parallel through the model's ``tensor_parallel`` (GPT-2's
-        checks that they are its rules' layout).
+        and Llama's check that they are their rules' layout).
       dropout_rng: a CPU ``torch.Generator`` seeding train-mode dropout
         (``make_train_step``); None leaves the model's own convention.
     """

@@ -298,6 +298,90 @@ def training_cases(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+def llama_training_cases(rank: int, world: int, inputs: dict) -> dict:
+    """Llama tiny (GQA 8/2), 3 AdamW steps on (data 2), (model 2) and, with
+    the tied head, (model 2) from the same init; the tensor-parallel
+    logits against the unsharded model's; a sharded checkpoint round trip
+    on (model 2); what ``tensor_parallel`` raises for sizes that do not
+    divide over the model axis and for another layout."""
+    from photonic_flash_attention_tpu_torch.config import set_global_config
+    from photonic_flash_attention_tpu_torch.core.checkpoint import CheckpointManager
+    from photonic_flash_attention_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        llama_param_sharding_rules,
+    )
+    from photonic_flash_attention_tpu_torch.parallel import create_mesh
+    from photonic_flash_attention_tpu_torch.parallel.mesh import PartitionSpec
+    from photonic_flash_attention_tpu_torch.training.trainer import Trainer
+
+    set_global_config(**inputs["config"])
+    base_cfg = dataclasses.replace(LlamaConfig.tiny(), **inputs["cfg"])
+
+    def model_of(cfg, state):
+        model = LlamaForCausalLM(cfg, device="cpu")
+        model.load_state_dict(state)
+        return model
+
+    def trainer(shape, tied: bool = False):
+        cfg = dataclasses.replace(base_cfg, tie_word_embeddings=tied)
+        model = model_of(cfg, inputs["state_tied" if tied else "state"])
+        opt = torch.optim.AdamW(model.parameters(), **inputs["adamw"])
+        mesh = create_mesh(shape, ("data", "model"))
+        rules = llama_param_sharding_rules(model.state_dict())
+        return Trainer(model, opt, mesh=mesh, param_specs=rules), mesh
+
+    def run(t, state, batches):
+        metrics = []
+        for b in batches:
+            state, m = t.train_step(state, b)
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        return state, metrics
+
+    out = {}
+    for name, shape, tied in (("data2", (2, 1), False), ("model2", (1, 2), False),
+                              ("model2_tied", (1, 2), True)):
+        t, _ = trainer(shape, tied)
+        _, out[name] = run(t, t.init_state(), inputs["batches"])
+    # The forward alone: the tensor-parallel logits on every rank.
+    ids = inputs["batches"][0]["input_ids"].long()
+    for tied in (False, True):
+        t, _ = trainer((1, 2), tied)
+        cfg = dataclasses.replace(base_cfg, tie_word_embeddings=tied)
+        with torch.no_grad():
+            out[f"logits/tied{tied}/model2"] = t.model(ids)
+            out[f"logits/tied{tied}/unsharded"] = model_of(
+                cfg, inputs["state_tied" if tied else "state"])(ids)
+    # Sharded checkpoint: 2 steps, save, restore into a fresh trainer, step 3.
+    t, mesh = trainer((1, 2))
+    state, first = run(t, t.init_state(), inputs["batches"][:2])
+    mgr = CheckpointManager(inputs["ckpt_dir"])
+    mgr.save(2, {"model": t.model.state_dict(), "optimizer": t.optimizer.state_dict()},
+             mesh=mesh)
+    t2, mesh2 = trainer((1, 2))
+    saved = mgr.restore(mesh=mesh2)["params"]
+    t2.model.load_state_dict(saved["model"])
+    t2.optimizer.load_state_dict(saved["optimizer"])
+    state2 = t2.init_state()
+    state2.step = 2
+    _, last = run(t2, state2, inputs["batches"][2:])
+    out["resumed"] = first + last
+    out["checkpoint_files"] = sorted(os.listdir(os.path.join(inputs["ckpt_dir"], "step_2")))
+    # Sizes that do not divide over the model axis, and another layout.
+    mesh = create_mesh((1, world), ("data", "model"))
+    for name, kw in inputs["indivisible"].items():
+        model = LlamaForCausalLM(dataclasses.replace(base_cfg, **kw), device="cpu")
+        opt = torch.optim.AdamW(model.parameters())
+        out[f"raises/{name}"] = _raises(lambda: Trainer(
+            model, opt, mesh=mesh, param_specs=llama_param_sharding_rules(model.state_dict())))
+    model = model_of(base_cfg, inputs["state"])
+    specs = llama_param_sharding_rules(model.state_dict())
+    specs["layers.0.mlp.down_proj.weight"] = PartitionSpec()  # replicated: not the rules' layout
+    out["raises/layout"] = _raises(lambda: Trainer(
+        model, torch.optim.AdamW(model.parameters()), mesh=mesh, param_specs=specs))
+    return out
+
+
 # -- serving -----------------------------------------------------------------------
 
 
