@@ -52,11 +52,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    the bf16 K4/K5's edges (every Sq != Skv among 1, 127, 129, 300 at D 64
    and 128, GQA 12/4 and 32/8 through the autograd Function, window rows
    with no key, dropout 0.1; dq, dk, dv against the plain backward, two
-   launches bit-identical) and the K4/K5 table (K4, K5 and di + K4 + K5 by
-   CUDA events and the graph fit beside SDPA's backward both ways, the
+   launches bit-identical) and the K4/K5 table (K4, K5 with di and K5 + K4
+   by CUDA events and the graph fit beside SDPA's backward both ways, the
    pair's bound and share: B4 S2048 H12, GPT-2 medium's B8 S1024 H16,
-   dropout 0.1, window (-255, 0), B1 S8192, and B2 S4096 Hq32/Hkv8 D128
-   through the autograd Function with the GQA repeat and sum's share);
+   dropout 0.1, window (-255, 0), B1 S8192, and B2 S4096 Hq32/Hkv8 D128 on
+   native K/V, with the autograd Function's backward and K4 by slices);
    then the K3 table (``time_k3_modes``): GPT-2 medium's int8 decode fused
    and read-only, K2 alone, T5's decode with the token bias (bf16 and int8
    pools), paged_attention_hf float and int8, B14's two rows and B1 H32
@@ -73,10 +73,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    decode at B8 Hq64/Hkv8 D128 over an int8 pool, lengths 1-4096, against
    their plain versions, by CUDA events and the graph fit; then K4/K5 at
    the same B1 S2048 Hq64/Hkv8 D128 causal bf16, as Llama training gives
-   them (``check_llama_bwd``): the gradients through the autograd Function
-   against the plain backward, K4 and K5 alone, ``repeat_kv`` and
-   ``_group_sum`` alone and the Function's whole backward (their share of
-   it), the plain backward and SDPA's backward with ``enable_gqa``;
+   them (``check_llama_bwd``, K/V with their 8 heads): the gradients
+   through the autograd Function (one K5 and one K4 launch) against the
+   plain backward, two calls bit-equal, K5 with di and K4 alone (K4 also
+   by slices of the group) and the Function's whole backward, the plain
+   backward and SDPA's backward with ``enable_gqa``, beside the bounds;
 4. roofline: the card's record (``hardware.detection``), K9/K10 (HBM read
    and copy) bit for bit and K11 (exp) and K12 (the softmax stream, both
    modes) within their bounds against their plain versions; then, as a
@@ -1366,24 +1367,21 @@ def check_flash_lse() -> None:
 
 
 def _plain_grads(q, k, v, do, causal):
-    """The plain backward on the plain forward's residuals, with the GQA
-    repeat and group sum of ``ops/flash.py``."""
-    group = q.shape[2] // k.shape[2]
-    k_in, v_in = (t.repeat_interleave(group, dim=2) for t in (k, v))
+    """The plain backward on the plain forward's residuals (native GQA:
+    it repeats K/V and sums dk/dv over the group in fp32 inside)."""
     o, lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal)
-    dq, dk, dv = bwd_ops.flash_attention_bwd_plain(
-        q, k_in, v_in, o, lse, do, sm_scale=q.shape[-1] ** -0.5, causal=causal)
-    b, skv, hkv, d = k.shape
-    dk = dk.float().view(b, skv, hkv, group, d).sum(3)
-    dv = dv.float().view(b, skv, hkv, group, d).sum(3)
-    return (dq, dk, dv), (o, lse)
+    grads = bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale=q.shape[-1] ** -0.5,
+                                              causal=causal)
+    return grads, (o, lse)
 
 
-def check_flash_bwd(results: dict) -> None:
-    """K4 (dK/dV) and K5 (dQ) against the plain backward on the same
-    inputs: the training shapes timed, then the rest of the contract
-    (unaligned S, Sq < Skv, GQA through flash_attention's autograd,
-    D 128, fp32)."""
+def check_flash_bwd(results: dict, smi: str) -> None:
+    """K5 (dQ and di) and K4 (dK/dV) through ``flash_attention_bwd`` against
+    the plain backward on the same inputs: the training shapes timed, then
+    the rest of the contract (unaligned S, Sq < Skv, native GQA 4/2, 8/1
+    (MQA) and 64/8 at D 128, GQA at Sq < Skv, D 128, fp32), each with its
+    launches (one K5 and one K4 a call); K5's di against ``flash_bwd_di``
+    (fp32 1e-6 rel_err_norm)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # (B, Sq, Skv, Hq, Hkv, D, dtype, causal)
@@ -1392,9 +1390,13 @@ def check_flash_bwd(results: dict) -> None:
         (2, 200, 200, 4, 4, 64, bf16, True),
         (2, 256, 384, 4, 4, 64, bf16, True),
         (2, 512, 512, 4, 2, 64, bf16, True),
+        (2, 512, 512, 8, 1, 64, bf16, True),
+        (1, 1024, 1024, 64, 8, 128, bf16, True),
+        (2, 256, 384, 8, 2, 128, bf16, True),
         (2, 512, 512, 4, 4, 128, bf16, False),
         (2, 256, 256, 4, 4, 64, f32, True),
         (2, 200, 200, 4, 2, 64, f32, True),
+        (2, 256, 384, 8, 2, 128, f32, True),
         (2, 256, 256, 4, 4, 128, f32, False),
     ]
     worst = {"pfa_flash_bwd_dkv": 0.0, "pfa_flash_bwd_dq": 0.0}
@@ -1404,39 +1406,36 @@ def check_flash_bwd(results: dict) -> None:
         v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
         do = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
         want, (o, lse) = _plain_grads(q, k, v, do, causal)
-        if hq != hkv:  # through the autograd Function: K1, K4, K5
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            out = flash_ops.flash_attention(*leaves, causal=causal)
-            got = torch.autograd.grad(out, leaves, do)
-        else:
-            got = bwd_ops.flash_attention_bwd(q, k, v, o, lse, do,
-                                              sm_scale=d ** -0.5, causal=causal)
+        before = [_build.LAUNCHES[n] for n in ("pfa_flash_bwd_dq", "pfa_flash_bwd_dkv")]
+        got = bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, sm_scale=d ** -0.5, causal=causal)
+        di = bwd_ops.flash_bwd_dq(q, k, v, o.contiguous(), lse, do, sm_scale=d ** -0.5,
+                                  causal=causal)[1]
         torch.cuda.synchronize()
         bound = 1e-2 if dtype == bf16 else 1e-4
         errs = [rel_err_norm(g, w) for g, w in zip(got, want)]
+        di_err = rel_err_norm(di, bwd_ops.flash_bwd_di(o, do))
+        launched = [_build.LAUNCHES[n] - c for n, c in zip(("pfa_flash_bwd_dq", "pfa_flash_bwd_dkv"),
+                                                           before)]
         line = (f"K4/K5 flash_bwd B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} {str(dtype)[6:]} "
-                f"causal={causal}{' (autograd, GQA)' if hq != hkv else ''}: rel_err_norm "
-                f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (bound {bound})")
-        if max(errs) > bound or not all(torch.isfinite(g).all() for g in got):
+                f"causal={causal}: rel_err_norm dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+                f"(bound {bound}), K5's di {di_err:.3e} (bound 1e-6); K5, K4 launches {launched}")
+        if (max(errs) > bound or di_err > 1e-6 or launched != [2, 1]
+                or not all(torch.isfinite(g).all() for g in got)):
             raise AssertionError(line)
         worst["pfa_flash_bwd_dq"] = max(worst["pfa_flash_bwd_dq"], max_abs_err(got[0], want[0]))
         worst["pfa_flash_bwd_dkv"] = max(worst["pfa_flash_bwd_dkv"],
                                          max_abs_err(got[1], want[1]), max_abs_err(got[2], want[2]))
         if dtype == bf16 and causal and hq == hkv and sq >= 1024:
-            di = bwd_ops.flash_bwd_di(o, do)
             kw = dict(sm_scale=d ** -0.5, causal=True)
+            oc = o.contiguous()
             ms_dkv = median_ms(lambda: bwd_ops.flash_bwd_dkv(q, k, v, do, lse, di, **kw))
-            ms_dq = median_ms(lambda: bwd_ops.flash_bwd_dq(q, k, v, do, lse, di, **kw))
+            ms_dq = median_ms(lambda: bwd_ops.flash_bwd_dq(q, k, v, oc, lse, do, **kw))
             plain = median_ms(lambda: bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw))
             lib = sdpa_bwd_ms(q, k, v, do)
-            pairs = attention_pairs(b, sq, skv, True)
-            elt = q.element_size()
-            io = elt * 4 * b * sq * hq * d + 2 * 4 * b * hq * sq  # q, k, v, do; lse, di
-            bnd_dkv = card_bound(8.0 * d * hq * pairs, io + elt * 2 * b * skv * hq * d, dtype)
-            bnd_dq = card_bound(6.0 * d * hq * pairs, io + elt * b * sq * hq * d, dtype)
-            line += (f" | K4 {ms_dkv:.4f} ms (bound {bnd_dkv['bound_ms']:.4f}), K5 {ms_dq:.4f} ms "
-                     f"(bound {bnd_dq['bound_ms']:.4f}), plain backward (dq, dk, dv) {plain:.4f} ms, "
-                     f"SDPA backward {lib:.4f} ms")
+            bnd_dkv, bnd_dq = bwd_bounds(q, k, True)
+            line += (f" | K4 {ms_dkv:.4f} ms (bound {bnd_dkv['bound_ms']:.4f}), K5 with di "
+                     f"{ms_dq:.4f} ms (bound {bnd_dq['bound_ms']:.4f}), plain backward (dq, dk, dv) "
+                     f"{plain:.4f} ms, SDPA backward {lib:.4f} ms ({smi})")
             # last: B4 S2048
             results["pfa_flash_bwd_dkv"].update(ms=ms_dkv, plain_ms=plain, library_ms=lib, **bnd_dkv)
             results["pfa_flash_bwd_dq"].update(ms=ms_dq, plain_ms=plain, library_ms=lib, **bnd_dq)
@@ -1986,39 +1985,46 @@ def check_flash_window(results: dict) -> None:
 
 def bwd_bounds(q, k, causal, window=None):
     """K4's and K5's bounds: 8 and 6 D operations per (query, key) pair
-    (K4: s, dp, dv, dk; K5: s, dp, dq, with the exp shared), over q, k,
-    v, dO, lse, di read once and their outputs written once."""
+    and query head (K4: s, dp, dv, dk; K5: s, dp, dq, with the exp shared;
+    K5 also 2 D a row for di), each input read once and each output
+    written once: K4 reads q, dO (Hq heads), k, v (Hkv), lse and di and
+    writes dk, dv (Hkv); K5 reads q, o, dO, k, v and lse and writes dq and
+    di."""
     b, sq, hq, d = q.shape
-    skv = k.shape[1]
+    skv, hkv = k.shape[1], k.shape[2]
     pairs = attention_pairs(b, sq, skv, causal, window=window)
     elt = q.element_size()
-    io = elt * (2 * b * sq * hq * d + 2 * b * skv * hq * d) + 2 * 4 * b * hq * sq
-    return (card_bound(8.0 * d * hq * pairs, io + elt * 2 * b * skv * hq * d, q.dtype),
-            card_bound(6.0 * d * hq * pairs, io + elt * b * sq * hq * d, q.dtype))
+    rows_q, rows_kv, vec = elt * b * sq * hq * d, elt * b * skv * hkv * d, 4 * b * hq * sq
+    return (card_bound(8.0 * d * hq * pairs, 2 * rows_q + 4 * rows_kv + 2 * vec, q.dtype),
+            card_bound(6.0 * d * hq * pairs + 2.0 * d * b * sq * hq,
+                       4 * rows_q + 2 * rows_kv + 2 * vec, q.dtype))
 
 
-def check_flash_bwd_streams(results: dict) -> None:
+def check_flash_bwd_streams(results: dict, smi: str) -> None:
     """K4/K5's dropout and window streams against the plain backward on the
     same inputs (the forward's lse from the plain version): B4 S2048 H12
     D64 causal bf16 with dropout 0.1 and with window (-255, 0), timed (SDPA's
     backward with dropout_p=0.1, its own mask, or with the same band mask
-    as the library time), then fp32 and Sq < Skv."""
+    as the library time), then fp32, Sq < Skv, and dropout and a window at
+    GQA group 4 (native K/V)."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     bf16, f32 = torch.bfloat16, torch.float32
     drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=DROPOUT_SEED)
     win = dict(window=(-255, 0))
-    cases = [  # (B, Sq, Skv, H, D, dtype, causal, streams, timed)
-        (4, 2048, 2048, 12, 64, bf16, True, drop, True),
-        (4, 2048, 2048, 12, 64, bf16, True, win, True),
-        (2, 256, 384, 4, 128, bf16, False, dict(window=(-90, 40)), False),
-        (2, 200, 333, 4, 64, f32, True, drop, False),
-        (2, 256, 256, 4, 64, f32, False, dict(window=(-30, 50)), False),
+    cases = [  # (B, Sq, Skv, Hq, Hkv, D, dtype, causal, streams, timed)
+        (4, 2048, 2048, 12, 12, 64, bf16, True, drop, True),
+        (4, 2048, 2048, 12, 12, 64, bf16, True, win, True),
+        (2, 256, 384, 4, 4, 128, bf16, False, dict(window=(-90, 40)), False),
+        (2, 200, 333, 4, 4, 64, f32, True, drop, False),
+        (2, 256, 256, 4, 4, 64, f32, False, dict(window=(-30, 50)), False),
+        (2, 300, 300, 8, 2, 64, bf16, True, drop, False),
+        (2, 256, 384, 16, 4, 128, bf16, True, dict(window=(-90, 0)), False),
     ]
     worst = collections.Counter()
-    for b, sq, skv, h, d, dtype, causal, streams, timed in cases:
+    for b, sq, skv, h, hkv, d, dtype, causal, streams, timed in cases:
         q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
-        k = torch.randn(b, skv, h, d, device="cuda", generator=gen).to(dtype)
-        v = torch.randn(b, skv, h, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
         do = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
         o, lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal, **streams)
         mode = "dropout" if "dropout_rate" in streams else "window"
@@ -2030,7 +2036,7 @@ def check_flash_bwd_streams(results: dict) -> None:
         torch.cuda.synchronize()
         bound = 1e-2 if dtype == bf16 else 1e-4
         errs = [rel_err_norm(g, w) for g, w in zip(got, want)]
-        line = (f"K4/K5 {mode} {streams.get('window', DROPOUT_RATE)} B{b} Sq{sq} Skv{skv} H{h} D{d} "
+        line = (f"K4/K5 {mode} {streams.get('window', DROPOUT_RATE)} B{b} Sq{sq} Skv{skv} H{h}/{hkv} D{d} "
                 f"{str(dtype)[6:]} causal={causal}: rel_err_norm dq {errs[0]:.3e} dk {errs[1]:.3e} "
                 f"dv {errs[2]:.3e} (bound {bound})")
         if (max(errs) > bound or not all(torch.isfinite(g).all() for g in got)
@@ -2039,19 +2045,20 @@ def check_flash_bwd_streams(results: dict) -> None:
         worst[names[1]] = max(worst[names[1]], max_abs_err(got[0], want[0]))
         worst[names[0]] = max(worst[names[0]], max_abs_err(got[1], want[1]), max_abs_err(got[2], want[2]))
         if timed:
-            di = bwd_ops.flash_bwd_di(o, do)
+            oc = o.contiguous()
+            di = bwd_ops.flash_bwd_dq(q, k, v, oc, lse, do, **kw)[1]
             ms_dkv = median_ms(lambda: bwd_ops.flash_bwd_dkv(q, k, v, do, lse, di, **kw))
-            ms_dq = median_ms(lambda: bwd_ops.flash_bwd_dq(q, k, v, do, lse, di, **kw))
+            ms_dq = median_ms(lambda: bwd_ops.flash_bwd_dq(q, k, v, oc, lse, do, **kw))
             plain = median_ms(lambda: bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
                               runs=5)
             lib_kw = (dict(is_causal=causal, dropout_p=DROPOUT_RATE) if mode == "dropout"
                       else dict(attn_mask=_band_mask(sq, skv, causal, streams["window"])))
             lib = sdpa_bwd_ms(q, k, v, do, **lib_kw)
             bnd_dkv, bnd_dq = bwd_bounds(q, k, causal, streams.get("window"))
-            line += (f" | K4 {ms_dkv:.4f} ms (bound {bnd_dkv['bound_ms']:.4f}), K5 {ms_dq:.4f} ms "
-                     f"(bound {bnd_dq['bound_ms']:.4f}), plain backward (dq, dk, dv) {plain:.4f} ms, "
+            line += (f" | K4 {ms_dkv:.4f} ms (bound {bnd_dkv['bound_ms']:.4f}), K5 with di {ms_dq:.4f} "
+                     f"ms (bound {bnd_dq['bound_ms']:.4f}), plain backward (dq, dk, dv) {plain:.4f} ms, "
                      f"SDPA backward {'dropout_p=0.1 (its own mask)' if mode == 'dropout' else 'with the band mask'} "
-                     f"{lib:.4f} ms")
+                     f"{lib:.4f} ms ({smi})")
             results[names[0]].update(ms=ms_dkv, plain_ms=plain, library_ms=lib, **bnd_dkv)
             results[names[1]].update(ms=ms_dq, plain_ms=plain, library_ms=lib, **bnd_dq)
         print(line, flush=True)
@@ -2341,11 +2348,12 @@ def check_bwd_edges() -> None:
     """K4 and K5's bf16 bodies at their edges against the plain backward
     (1e-2 rel_err_norm on dq, dk and dv), each launch under its mode's
     counters, and every case launched twice on the same inputs with
-    bit-identical dq, dk and dv (two kernels, no atomics): every (Sq, Skv)
-    pair of EDGE_LENGTHS with Sq != Skv at D 64 and 128, causal where Sq <
-    Skv; GQA 12/4 and 32/8 through flash_attention's autograd (K1 with lse,
-    the GQA repeat, K4/K5, the group sum) against the plain versions with
-    the same repeat and sum; window rows that see no key (their dq 0); a
+    bit-identical dq, dk and dv (no atomic additions of values): every
+    (Sq, Skv) pair of EDGE_LENGTHS with Sq != Skv at D 64 and 128, causal
+    where Sq < Skv; GQA 12/4 and 32/8 through flash_attention's autograd
+    (K1 with lse, then K5 and K4 on native K/V, whose planner cuts the
+    group into slices) against the plain versions; window rows that see no
+    key (their dq 0); a
     causal window at Sq < Skv; dropout 0.1 (the plain version fed the same
     seed). With one key (Skv 1) and no dropout, o = V[0] exactly, P = 1 and
     dP = di up to fp32 rounding, so the exact dq and dk are 0 and both
@@ -2441,18 +2449,19 @@ def _both_ms(fn) -> tuple:
 
 
 def time_bwd_modes(results: dict, smi: str) -> None:
-    """The K4/K5 table: K4 alone, K5 alone, di = rowsum(o * dO) (plain
-    PyTorch) and the whole flash_attention_bwd (di + K4 + K5), each by CUDA
-    events and by the graph fit, beside SDPA's
+    """The K4/K5 table: K5 alone (its prologue computes di), K4 alone (on
+    K5's di) and the whole flash_attention_bwd
+    (K5 then K4), each by CUDA events and by the graph fit, beside SDPA's
     backward (events around torch.autograd.grad; the fit of its autograd
     node called directly, the aten backward op on the forward's saved
-    outputs), the pair's bound (K4's + K5's) and
-    its share of it: plain B4 S2048 H12 D64 causal (the headline), GPT-2
-    medium's training geometry B8 S1024 H16, dropout 0.1 (SDPA draws its
-    own mask), window (-255, 0) (SDPA with the band mask), B1 S8192 H12,
-    and B2 S4096 Hq32/Hkv8 D128 causal through the autograd Function, whose
-    backward (the GQA repeat, di + K4 + K5, the group sum) is timed too, so
-    that the repeat and sum show as their own share."""
+    outputs), the pair's bound (K4's + K5's) and its share of it: plain
+    B4 S2048 H12 D64 causal (the headline), GPT-2 medium's training
+    geometry B8 S1024 H16, dropout 0.1 (SDPA draws its own mask), window
+    (-255, 0) (SDPA with the band mask), B1 S8192 H12, and B2 S4096
+    Hq32/Hkv8 D128 causal on native K/V (SDPA with K/V repeated), whose
+    autograd Function's backward is timed too (nothing but K5 and K4), and
+    K4 at 1, 2 and 4 slices of the group beside the planner's choice
+    (``k4_slices``)."""
     gen = torch.Generator(device="cuda").manual_seed(29)
     drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=DROPOUT_SEED)
     rows = [  # (name, B, S, Hq, Hkv, D, streams)
@@ -2461,7 +2470,7 @@ def time_bwd_modes(results: dict, smi: str) -> None:
         ("dropout 0.1, B4 S2048 H12 D64 causal", 4, 2048, 12, 12, 64, drop),
         ("window (-255, 0), B4 S2048 H12 D64 causal", 4, 2048, 12, 12, 64, dict(window=(-255, 0))),
         ("B1 S8192 H12 D64 causal", 1, 8192, 12, 12, 64, {}),
-        ("B2 S4096 Hq32/Hkv8 D128 causal, through the autograd Function", 2, 4096, 32, 8, 128, {}),
+        ("B2 S4096 Hq32/Hkv8 D128 causal, native GQA", 2, 4096, 32, 8, 128, {}),
     ]
     table = []
     for name, b, s, hq, hkv, d, streams in rows:
@@ -2470,18 +2479,16 @@ def time_bwd_modes(results: dict, smi: str) -> None:
         k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
                 for _ in range(2))
         group = hq // hkv
-        kr, vr = (t.repeat_interleave(group, dim=2) for t in (k, v))
         o, lse = flash_ops._fwd_with_lse(q, k, v, True, d ** -0.5, **streams)
-        di = bwd_ops.flash_bwd_di(o, do)
         kw = dict(sm_scale=d ** -0.5, causal=True, **streams)
+        di = bwd_ops.flash_bwd_dq(q, k, v, o, lse, do, **kw)[1]
         row = dict(name=name)
-        row["k4_ms"], row["k4_fit_ms"] = _both_ms(lambda: bwd_ops.flash_bwd_dkv(q, kr, vr, do, lse,
+        row["k4_ms"], row["k4_fit_ms"] = _both_ms(lambda: bwd_ops.flash_bwd_dkv(q, k, v, do, lse,
                                                                                  di, **kw))
-        row["k5_ms"], row["k5_fit_ms"] = _both_ms(lambda: bwd_ops.flash_bwd_dq(q, kr, vr, do, lse,
-                                                                                di, **kw))
-        row["di_ms"], row["di_fit_ms"] = _both_ms(lambda: bwd_ops.flash_bwd_di(o, do))
+        row["k5_ms"], row["k5_fit_ms"] = _both_ms(lambda: bwd_ops.flash_bwd_dq(q, k, v, o, lse, do,
+                                                                                **kw))
         row["bwd_ms"], row["bwd_fit_ms"] = _both_ms(
-            lambda: bwd_ops.flash_attention_bwd(q, kr, vr, o, lse, do, **kw))
+            lambda: bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw))
         if "window" in streams:
             lib_kw, lib_name = dict(attn_mask=_band_mask(s, s, True, streams["window"])), "band mask"
         elif "dropout_rate" in streams:
@@ -2499,26 +2506,28 @@ def time_bwd_modes(results: dict, smi: str) -> None:
                                                                        retain_graph=True))
             # The Function's backward called on its saved tensors, as SDPA's node.
             row["autograd_fit_ms"] = _fit_ms(lambda: out.grad_fn.apply(do))
-            share = 1 - row["bwd_fit_ms"] / row["autograd_fit_ms"]
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            row["slices"] = bwd_ops.k4_slices(b, s, s, hq, hkv, True, None, sms)
+            row["k4_fit_ms_by_slices"] = {n: _fit_ms(lambda: bwd_ops.flash_bwd_dkv(
+                q, k, v, do, lse, di, slices=n, **kw)) for n in (1, 2, 4) if group % n == 0}
             extra = (f"; the autograd Function's backward {row['autograd_ms']:.4f} / "
-                     f"{row['autograd_fit_ms']:.4f} ms, the GQA repeat and group sum "
-                     f"{100 * share:.1f} % of it (fit)")
-        meta = torch.empty(b, s, hq, d, device="meta", dtype=torch.bfloat16)
-        bnd_dkv, bnd_dq = bwd_bounds(meta, meta, True, streams.get("window"))
+                     f"{row['autograd_fit_ms']:.4f} ms; K4 by slices of the group (fit) "
+                     + ", ".join(f"{n}: {t:.4f}" for n, t in row["k4_fit_ms_by_slices"].items())
+                     + f" ms, the planner's {row['slices']}")
+        bnd_dkv, bnd_dq = bwd_bounds(q, k, True, streams.get("window"))
         row["bound_ms"] = bnd_dkv["bound_ms"] + bnd_dq["bound_ms"]
         by = "operations" if "operations" in (bnd_dkv["bound_by"], bnd_dq["bound_by"]) else "bytes"
         table.append(row)
-        print(f"K4/K5 table: {name}: K4 {row['k4_ms']:.4f} / {row['k4_fit_ms']:.4f} ms, K5 "
-              f"{row['k5_ms']:.4f} / {row['k5_fit_ms']:.4f} ms, di (PyTorch) {row['di_ms']:.4f} / "
-              f"{row['di_fit_ms']:.4f} ms, di + K4 + K5 {row['bwd_ms']:.4f} / "
+        print(f"K4/K5 table: {name}: K4 {row['k4_ms']:.4f} / {row['k4_fit_ms']:.4f} ms, K5 with di "
+              f"{row['k5_ms']:.4f} / {row['k5_fit_ms']:.4f} ms, K5 + K4 {row['bwd_ms']:.4f} / "
               f"{row['bwd_fit_ms']:.4f} ms (CUDA events / graph fit); SDPA backward ({lib_name}) "
-              f"{row['sdpa_ms']:.4f} / {row['sdpa_fit_ms']:.4f} ms; (di + K4 + K5) / SDPA "
+              f"{row['sdpa_ms']:.4f} / {row['sdpa_fit_ms']:.4f} ms; (K5 + K4) / SDPA "
               f"{row['bwd_ms'] / row['sdpa_ms']:.3f} (events), {row['bwd_fit_ms'] / row['sdpa_fit_ms']:.3f} "
               f"(fit); the pair's bound {row['bound_ms']:.4f} ms ({by}; K4 {bnd_dkv['bound_ms']:.4f}, "
-              f"K5 {bnd_dq['bound_ms']:.4f}), di + K4 + K5 at {100 * row['bound_ms'] / row['bwd_ms']:.2f} % "
+              f"K5 {bnd_dq['bound_ms']:.4f}), K5 + K4 at {100 * row['bound_ms'] / row['bwd_ms']:.2f} % "
               f"(events), {100 * row['bound_ms'] / row['bwd_fit_ms']:.2f} % (fit) of it{extra} ({smi})",
               flush=True)
-        del q, k, v, do, kr, vr, o, lse, di
+        del q, k, v, do, o, lse, di
         torch.cuda.empty_cache()
     for counter, row in (("pfa_flash_bwd_dkv", table[0]), ("pfa_flash_bwd_dkv_dropout", table[2])):
         results[counter]["fit_ms"] = row["k4_fit_ms"]
@@ -2696,14 +2705,14 @@ def phase_kernels(smi: str) -> dict:
     check_token_write(results)
     check_decode_attend(results)
     check_paged_hf(results)
-    check_flash_bwd(results)
+    check_flash_bwd(results, smi)
     check_flash_quant(results)
     check_flash_relbias(results)
     check_flash_densebias(results)
     check_token_bias(results)
     check_flash_dropout(results)
     check_flash_window(results)
-    check_flash_bwd_streams(results)
+    check_flash_bwd_streams(results, smi)
     check_flash_rel_lse(results)
     check_k1_edges()
     time_k1_modes(results, smi)
@@ -2713,6 +2722,7 @@ def phase_kernels(smi: str) -> dict:
     results["quant_table"] = time_quant_modes(results, smi)
     check_llama_kernels(results, smi)
     check_llama_bwd(results, smi)
+    results["k4_slices_table"] = time_k4_slices(smi)
     return results
 
 
@@ -2813,22 +2823,22 @@ def check_llama_kernels(results: dict, smi: str) -> None:
 
 
 def check_llama_bwd(results: dict, smi: str) -> None:
-    """K4 and K5 at Llama-2-70B's GQA geometry, as Llama training's
+    """K5 and K4 at Llama-2-70B's GQA geometry, as Llama training's
     attention backward gives them (B1 S LLAMA_TRAIN_SEQ Hq64/Hkv8 D128
-    causal bf16, K/V repeated to the 64 query heads): the gradients through
-    ``flash_attention``'s autograd Function (K1 with lse, the GQA repeat,
-    K4, K5, the group sum) against the plain backward (bound 1e-2); then,
-    each by CUDA events and the graph fit, K4 alone, K5 alone, ``repeat_kv``
-    of K and V alone, ``_group_sum`` of dK and dV alone and the Function's
-    whole backward; the plain backward (events); SDPA's backward with
-    ``enable_gqa`` (events around ``torch.autograd.grad``); K4's and K5's
-    bounds. Recorded as ``cases`` of the K4 and K5 entries."""
+    causal bf16, K/V with their 8 heads): the gradients through
+    ``flash_attention``'s autograd Function (K1 with lse, then K5 and K4,
+    one launch each) against the plain backward (bound 1e-2); two
+    ``flash_attention_bwd`` calls bit-equal in dq, dk and dv; then, each
+    by CUDA events and the graph fit, K5 alone (with di), K4 alone (the
+    planner's slices; the other counts in ``time_k4_slices``) and the
+    Function's whole backward; the plain backward (events); SDPA's backward
+    with ``enable_gqa`` (events around ``torch.autograd.grad``; the fit of
+    its autograd node); K4's and K5's bounds. Recorded as ``cases`` of the
+    K4 and K5 entries."""
     import torch.nn.functional as F
 
-    from photonic_flash_attention_tpu_torch.ops.reference import repeat_kv
-
     hq, hkv, d = LLAMA_GQA
-    b, s, group = 1, LLAMA_TRAIN_SEQ, hq // hkv
+    b, s = 1, LLAMA_TRAIN_SEQ
     gen = torch.Generator(device="cuda").manual_seed(23)
     q, do = (torch.randn(b, s, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
              for _ in range(2))
@@ -2837,56 +2847,106 @@ def check_llama_bwd(results: dict, smi: str) -> None:
     want, _ = _plain_grads(q, k, v, do, True)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = flash_ops.flash_attention(*leaves, causal=True)
+    names = ("pfa_flash_bwd_dq", "pfa_flash_bwd_dkv")
+    before = [_build.LAUNCHES[n] for n in names]
     got = torch.autograd.grad(out, leaves, do, retain_graph=True)
     torch.cuda.synchronize()
+    launched = [_build.LAUNCHES[n] - c for n, c in zip(names, before)]
     errs = [rel_err_norm(g, w) for g, w in zip(got, want)]
+    o, lse = flash_ops._fwd_with_lse(q, k, v, True, d ** -0.5)
+    kw = dict(sm_scale=d ** -0.5, causal=True)
+    first = bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
     shape = f"B{b} S{s} Hq{hq}/Hkv{hkv} D{d} causal bf16"
     line = (f"K4/K5 flash_bwd {shape} (Llama-2-70B's GQA, through the autograd Function): "
-            f"rel_err_norm dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (bound 1e-2)")
-    if max(errs) > 1e-2 or not all(torch.isfinite(g).all() for g in got):
+            f"rel_err_norm dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (bound 1e-2); K5, K4 "
+            f"launches {launched}; two calls bit-equal: {same}")
+    if (max(errs) > 1e-2 or not same or launched != [1, 1]
+            or not all(torch.isfinite(g).all() for g in got)):
         raise AssertionError(line)
     dq_err = max_abs_err(got[0], want[0])
     dkv_err = max(max_abs_err(got[1], want[1]), max_abs_err(got[2], want[2]))
-    del want, got
+    del want, got, first, second
 
-    kr, vr = repeat_kv(k, group), repeat_kv(v, group)
-    o, lse = flash_ops._fwd_with_lse(q, k, v, True, d ** -0.5)
-    di = bwd_ops.flash_bwd_di(o, do)
-    kw = dict(sm_scale=d ** -0.5, causal=True)
-    dk, dv = bwd_ops.flash_bwd_dkv(q, kr, vr, do, lse, di, **kw)
-    k4, k4_fit = _both_ms(lambda: bwd_ops.flash_bwd_dkv(q, kr, vr, do, lse, di, **kw))
-    k5, k5_fit = _both_ms(lambda: bwd_ops.flash_bwd_dq(q, kr, vr, do, lse, di, **kw))
-    rep, rep_fit = _both_ms(lambda: (repeat_kv(k, group), repeat_kv(v, group)))
-    gsum, gsum_fit = _both_ms(lambda: (flash_ops._group_sum(dk, hkv, k.dtype),
-                                       flash_ops._group_sum(dv, hkv, v.dtype)))
+    di = bwd_ops.flash_bwd_dq(q, k, v, o, lse, do, **kw)[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slices = bwd_ops.k4_slices(b, s, s, hq, hkv, True, None, sms)
+    k4, k4_fit = _both_ms(lambda: bwd_ops.flash_bwd_dkv(q, k, v, do, lse, di, **kw))
+    k5, k5_fit = _both_ms(lambda: bwd_ops.flash_bwd_dq(q, k, v, o, lse, do, **kw))
     whole = median_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
     whole_fit = _fit_ms(lambda: out.grad_fn.apply(do))
-    plain = median_ms(lambda: bwd_ops.flash_attention_bwd_plain(q, kr, vr, o, lse, do, **kw))
-    del kr, vr, dk, dv
+    plain = median_ms(lambda: bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw))
     sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True, enable_gqa=True)
     g = do.transpose(1, 2).contiguous()
     lib = median_ms(lambda: torch.autograd.grad(sdpa_out, (sq, sk, sv), g, retain_graph=True))
+    lib_fit = _fit_ms(lambda: sdpa_out.grad_fn(g))
     node = sdpa_out.grad_fn.name()
-    meta = torch.empty(b, s, hq, d, device="meta", dtype=torch.bfloat16)
-    bnd_dkv, bnd_dq = bwd_bounds(meta, meta, True)
-    share = (rep_fit + gsum_fit) / whole_fit
-    print(f"{line} | K4 {k4:.4f} / {k4_fit:.4f} ms (bound {bnd_dkv['bound_ms']:.4f}, "
-          f"{bnd_dkv['bound_by']}), K5 {k5:.4f} / {k5_fit:.4f} ms (bound "
-          f"{bnd_dq['bound_ms']:.4f}, {bnd_dq['bound_by']}), repeat_kv of K and V "
-          f"{rep:.4f} / {rep_fit:.4f} ms, _group_sum of dK and dV {gsum:.4f} / {gsum_fit:.4f} ms, "
-          f"the Function's backward {whole:.4f} / {whole_fit:.4f} ms (CUDA events / graph fit): "
-          f"the repeat and sum {100 * share:.1f} % of it (fit); plain backward {plain:.4f} ms; "
-          f"SDPA backward (enable_gqa; {node}) {lib:.4f} ms ({smi})", flush=True)
-    common = dict(shape=f"{shape}, K/V repeated to Hq", plain_ms=plain, library_ms=lib,
-                  gqa_repeat_ms=rep_fit, gqa_group_sum_ms=gsum_fit,
-                  autograd_backward_fit_ms=whole_fit, gqa_share_of_backward=share)
+    bnd_dkv, bnd_dq = bwd_bounds(q, k, True)
+    bound = bnd_dkv["bound_ms"] + bnd_dq["bound_ms"]
+    print(f"{line} | K5 with di {k5:.4f} / {k5_fit:.4f} ms (bound {bnd_dq['bound_ms']:.4f}, "
+          f"{bnd_dq['bound_by']}), K4 at {slices} slices {k4:.4f} / {k4_fit:.4f} ms (bound "
+          f"{bnd_dkv['bound_ms']:.4f}, {bnd_dkv['bound_by']}), the Function's backward "
+          f"{whole:.4f} / {whole_fit:.4f} ms (CUDA events / graph "
+          f"fit), at {100 * bound / whole_fit:.2f} % of the pair's bound {bound:.4f} ms (fit); "
+          f"plain backward {plain:.4f} ms; SDPA backward (enable_gqa; {node}) {lib:.4f} / "
+          f"{lib_fit:.4f} ms; the Function's backward / SDPA's {whole / lib:.3f} (events), "
+          f"{whole_fit / lib_fit:.3f} (fit) ({smi})", flush=True)
+    common = dict(shape=f"{shape}, native GQA", plain_ms=plain, library_ms=lib,
+                  library_fit_ms=lib_fit, autograd_backward_ms=whole,
+                  autograd_backward_fit_ms=whole_fit, k4_slices=slices)
     results["pfa_flash_bwd_dkv"].setdefault("cases", []).append(dict(
         ms=k4, fit_ms=k4_fit, max_abs_err=dkv_err, **common, **bnd_dkv))
     results["pfa_flash_bwd_dq"].setdefault("cases", []).append(dict(
         ms=k5, fit_ms=k5_fit, max_abs_err=dq_err, **common, **bnd_dq))
     del q, k, v, do, leaves, out, o, lse, di, sq, sk, sv, sdpa_out, g
     torch.cuda.empty_cache()
+
+
+#: (B, S) of the K4 slice sweep at Llama-2-70B's group (``time_k4_slices``).
+K4_SLICE_SWEEP = ((1, 512), (1, 1024), (1, 2048), (1, 4096), (4, 2048))
+
+
+def time_k4_slices(smi: str) -> list:
+    """K4 at 1, 2, 4 and 8 slices of the GQA group by the graph fit, at
+    Llama-2-70B's Hq64/Hkv8 D128 causal bf16 over K4_SLICE_SWEEP, beside
+    the planner's choice (``k4_slices``) and its ratio to the fastest: the
+    data the planner's rule answers to. Each count's dk, dv within 1e-2 of
+    one slice's (the sums' order differs)."""
+    hq, hkv, d = LLAMA_GQA
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    kw = dict(sm_scale=d ** -0.5, causal=True)
+    rows = []
+    for b, s in K4_SLICE_SWEEP:
+        q, do = (torch.randn(b, s, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        o, lse = flash_ops._fwd_with_lse(q, k, v, True, d ** -0.5)
+        di = bwd_ops.flash_bwd_dq(q, k, v, o, lse, do, **kw)[1]
+        one = bwd_ops.flash_bwd_dkv(q, k, v, do, lse, di, slices=1, **kw)
+        fits = {}
+        for n in (1, 2, 4, 8):
+            got = bwd_ops.flash_bwd_dkv(q, k, v, do, lse, di, slices=n, **kw)
+            err = max(rel_err_norm(g, w) for g, w in zip(got, one))
+            if err > 1e-2:
+                raise AssertionError(f"K4 at {n} slices B{b} S{s}: rel_err_norm {err:.3e} from "
+                                     f"one slice's")
+            fits[n] = _fit_ms(lambda: bwd_ops.flash_bwd_dkv(q, k, v, do, lse, di, slices=n, **kw))
+        planned = bwd_ops.k4_slices(b, s, s, hq, hkv, True, None, sms)
+        best = min(fits, key=fits.get)
+        rows.append(dict(shape=[b, s, hq, hkv, d], fit_ms_by_slices=fits, planned=planned,
+                         fastest=best))
+        print(f"K4 slices B{b} S{s} Hq{hq}/Hkv{hkv} D{d} causal bf16: fit "
+              + ", ".join(f"{n}: {t:.4f}" for n, t in fits.items())
+              + f" ms; the planner's {planned} slices at {fits[planned] / fits[best]:.3f} x the "
+              f"fastest ({best}) ({smi})", flush=True)
+        del q, k, v, do, o, lse, di, one
+        torch.cuda.empty_cache()
+    return rows
 
 
 PROMPT_LENS = (17, 64, 100, 128, 256, 300, 512, 700)
@@ -6351,12 +6411,12 @@ def check_experiments(results: dict) -> dict:
                              lambda: bx.dq_rowblocks(q, k, v, do, lse, di, **kw),
                              lambda: bx.dq_rowblocks_plain(q, k, v, do, lse, di, **kw), checked,
                              timed=headline, launches=(name, s // bq))
-            if headline:
+            if headline:  # K20 on K5's di (K5 computes it in its prologue)
                 t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
-                k20 = bx.dq_rowblocks(q, k, v, do, lse, di, **kw)
-                k5 = t(bwd_ops.flash_bwd_dq(t(q), t(k), t(v), t(do), lse, di, sm_scale=d ** -0.5,
-                                            causal=True))
-                gap = max_abs_err(k20, k5)
+                k5, di5 = bwd_ops.flash_bwd_dq(t(q), t(k), t(v), t(o), lse, t(do),
+                                               sm_scale=d ** -0.5, causal=True)
+                k20 = bx.dq_rowblocks(q, k, v, do, lse, di5, **kw)
+                gap = max_abs_err(k20, t(k5))
                 line = f"K20 dq {geom}: max abs {gap:.3e} from K5's dq on the same inputs"
                 if gap != 0.0:
                     raise AssertionError(line + ", not 0")
@@ -6730,7 +6790,8 @@ def time_probe_table(smi: str) -> None:
 def time_unrolled_rows(smi: str) -> list:
     """The unrolled backward over its CASES by the graph fit (2, 10): K20
     (``dq_rowblocks``, a launch a row-block) at each block_q of its BLOCKS
-    beside K5 alone (``flash_bwd_dq``: all rows in one launch), K21
+    beside K5 alone (``flash_bwd_dq``: all rows in one launch, di in its
+    prologue, whose di K20, K21 and K4 take here), K21
     (``dkv_colblocks``, a launch a key block) at each block_kv beside K4
     alone, and the whole call (``flash_bwd_unrolled``: di, K20 and K21) at
     each of its BLOCKS beside K4 + K5 (``flash_attention_bwd``); each beside
@@ -6754,14 +6815,14 @@ def time_unrolled_rows(smi: str) -> list:
                            .to(torch.bfloat16) for _ in range(4))
         os_, lse = flash_ops.flash_attention_with_lse(qs, ks, vs, causal=causal)
         q, k, v, o, do = (t.transpose(1, 2).contiguous() for t in (qs, ks, vs, os_, dos))
-        di = bx.flash_bwd_di(o, do)
         sm = d ** -0.5
         kw45 = dict(sm_scale=sm, causal=causal)
+        k5 = lambda: bwd_ops.flash_bwd_dq(qs, ks, vs, os_, lse, dos, **kw45)  # noqa: E731
+        ref_dq, di = k5()  # K5's di (its prologue's) for K4, K20 and K21
+        ref_dq = ref_dq.transpose(1, 2)
         k4 = lambda: bwd_ops.flash_bwd_dkv(qs, ks, vs, dos, lse, di, **kw45)  # noqa: E731
-        k5 = lambda: bwd_ops.flash_bwd_dq(qs, ks, vs, dos, lse, di, **kw45)  # noqa: E731
         k45 = lambda: bwd_ops.flash_attention_bwd(qs, ks, vs, os_, lse, dos, **kw45)  # noqa: E731
         ref_dkv = torch.stack([t.transpose(1, 2) for t in k4()])
-        ref_dq = k5().transpose(1, 2)
         yard = {"K20": ("K5 alone", fit(k5)), "K21": ("K4 alone", fit(k4)),
                 "call": ("K4 + K5", fit(k45))}
         sdpa_bwd = fit(_sdpa_bwd_calls(qs, ks, vs, dos, is_causal=causal)[1])

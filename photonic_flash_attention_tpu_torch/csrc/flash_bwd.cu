@@ -7,12 +7,17 @@
 // the split exists only because of how Mosaic schedules a grid step, so
 // one pair serves every shape here (ops/flash_bwd.py::flash_attention_bwd).
 //
-// Contract: q, o, dO (B, Sq, H, D) and k, v (B, Skv, H, D) contiguous, with
-// K/V already repeated to the q heads for GQA (the caller sums dk/dv over
-// the group); lse (B, H, Sq) fp32 in natural log (K1's residual) and
-// di = rowsum(o * dO) (B, H, Sq) fp32; D in {64, 128}; bf16 or fp32;
-// causal aligned to the sequence end (key j visible to row i iff
-// j <= i + Skv - Sq). dq/dk/dv come out in the input dtype.
+// Contract: q, o, dO (B, Sq, Hq, D) and k, v (B, Skv, Hkv, D) contiguous,
+// Hq a multiple of Hkv, query head h on KV head h / (Hq / Hkv) (K1's
+// mapping, JAX's jnp.repeat order); lse (B, Hq, Sq) fp32 in natural log
+// (K1's residual); D in {64, 128}; bf16 or fp32; causal aligned to the
+// sequence end (key j visible to row i iff j <= i + Skv - Sq). K5 computes
+// di = rowsum(o * dO) (B, Hq, Sq) fp32 in its prologue and writes it; K4
+// reads it, so K5 launches first. dq comes out (B, Sq, Hq, D) and dk, dv
+// (B, Skv, Hkv, D), summed over the group in fp32 inside K4 and rounded to
+// the input dtype once: the pair is the whole backward function (JAX
+// ops/flash.py::_flash_core_bwd, which repeats K/V and sums in XLA around
+// its Pallas pair).
 //
 // Math (flash_bwd.py::_p_and_ds), with scale = sm_scale:
 //   P = exp(S*scale - lse)   dV += P^T dO   dP = dO V^T
@@ -51,6 +56,11 @@
 // rate) scales dV's P and dP (JAX _p_and_ds): dV += (P M)^T dO,
 // dS = P (dP M - di) scale; di = rowsum(o dO) over the dropped output.
 //
+// GQA: K5's block of a query head reads its KV head's tiles; K4's block
+// of a KV head walks its group's query heads in turn (bf16: split into
+// slices, flash_bwd_sm90.cu), dK/dV in fp32 registers throughout. The fp32
+// path takes the same contract: K4's grid over Hkv, a loop over the group.
+//
 // Not carried over from the TPU: the skip-aware prefetch index maps (a
 // block's loop simply starts and ends at its band) and the VMEM envelope of
 // the unrolled pair.
@@ -65,13 +75,14 @@ constexpr int F32_THREADS = 256;  // 4 threads per row
 // --- K4: dK, dV -------------------------------------------------------------
 
 // fp32: 4 threads per kv row (thread quarter qd owns q columns qd + 4j of a
-// tile and output columns qd + 4j); plain FMA.
+// tile and output columns qd + 4j); plain FMA. A block is 64 keys of one
+// (batch row, KV head) and walks the group's query heads in turn.
 template <int D, int SM>
 __global__ void __launch_bounds__(F32_THREADS)
 bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ di,
-            float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int H,
+            float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
             float scale, float scale_log2, int causal, Streams st) {
   constexpr int LDK = D + 1;  // padded rows: conflict-free column reads
   constexpr int LDP = BR + 1;
@@ -87,26 +98,27 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Ls = Ss + BR * LDP;
   float* Dis = Ls + BR;
 
-  const int kv0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const int kv0 = blockIdx.x * BR, kvh = blockIdx.y, b = blockIdx.z, group = H / Hkv;
   const int r = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const long long str = (long long)H * D;
-  const float* qb = q + (long long)b * Sq * str + (long long)h * D;
-  const float* ob = dout + (long long)b * Sq * str + (long long)h * D;
-  const long long kvoff = (long long)b * Skv * str + (long long)h * D;
-  const float* lseb = lse + ((long long)b * H + h) * Sq;
-  const float* dib = di + ((long long)b * H + h) * Sq;
+  const long long str = (long long)H * D, kstr = (long long)Hkv * D;
+  const long long kvoff = (long long)b * Skv * kstr + (long long)kvh * D;
 
-  load_tile_f32<D, LDK, F32_THREADS>(Ks, k + kvoff + kv0 * str, str, BR, Skv - kv0);
-  load_tile_f32<D, LDK, F32_THREADS>(Vs, v + kvoff + kv0 * str, str, BR, Skv - kv0);
+  load_tile_f32<D, LDK, F32_THREADS>(Ks, k + kvoff + kv0 * kstr, kstr, BR, Skv - kv0);
+  load_tile_f32<D, LDK, F32_THREADS>(Vs, v + kvoff + kv0 * kstr, kstr, BR, Skv - kv0);
   float dka[DJ], dva[DJ];
 #pragma unroll
   for (int j = 0; j < DJ; ++j) dka[j] = dva[j] = 0.f;
   const int off = Skv - Sq, krow = kv0 + r;
-  const uint32_t bh = static_cast<uint32_t>(b * H + h);
   const int q_begin = band_q_begin(st, kv0, off, causal, BR);
   const int q_end = band_q_end(st, kv0, BR, off, Sq);
 
+  for (int h = kvh * group; h < (kvh + 1) * group; ++h)  // the group's query heads in turn
   for (int q0 = q_begin; q0 < q_end; q0 += BR) {
+    const float* qb = q + (long long)b * Sq * str + (long long)h * D;
+    const float* ob = dout + (long long)b * Sq * str + (long long)h * D;
+    const float* lseb = lse + ((long long)b * H + h) * Sq;
+    const float* dib = di + ((long long)b * H + h) * Sq;
+    const uint32_t bh = static_cast<uint32_t>(b * H + h);
     __syncthreads();
     load_tile_f32<D, LDK, F32_THREADS>(Qs, qb + q0 * str, str, BR, Sq - q0);
     load_tile_f32<D, LDK, F32_THREADS>(Os, ob + q0 * str, str, BR, Sq - q0);
@@ -150,7 +162,7 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (krow >= Skv) return;
-  const long long at = kvoff + krow * str;
+  const long long at = kvoff + krow * kstr;
 #pragma unroll
   for (int j = 0; j < DJ; ++j) {
     dk[at + qd + 4 * j] = dka[j];
@@ -161,14 +173,16 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 // --- K5: dQ -----------------------------------------------------------------
 
 // fp32: 4 threads per q row (quarter qd owns kv columns qd + 4j of a tile
-// and output columns qd + 4j); plain FMA.
+// and output columns qd + 4j); plain FMA. A block is 64 rows of one (batch
+// row, query head) on its KV head; it computes the rows' di from O and the
+// staged dO first and writes it for K4.
 template <int D, int SM>
 __global__ void __launch_bounds__(F32_THREADS)
 bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ di,
-           float* __restrict__ dq, int Sq, int Skv, int H, float scale,
-           float scale_log2, int causal, Streams st) {
+           const float* __restrict__ v, const float* __restrict__ o,
+           const float* __restrict__ dout, const float* __restrict__ lse,
+           float* __restrict__ di, float* __restrict__ dq, int Sq, int Skv, int H, int Hkv,
+           float scale, float scale_log2, int causal, Streams st) {
   constexpr int LDK = D + 1;
   constexpr int LDP = BR + 1;
   constexpr int NJ = BR / 4;
@@ -180,18 +194,30 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Vs = Ks + BR * LDK;
   float* Ss = Vs + BR * LDK;
 
-  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z, kvh = h / (H / Hkv);
   const int r = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const long long str = (long long)H * D;
+  const long long str = (long long)H * D, kstr = (long long)Hkv * D;
   const long long qoff = (long long)b * Sq * str + (long long)h * D;
-  const float* kb = k + (long long)b * Skv * str + (long long)h * D;
-  const float* vb = v + (long long)b * Skv * str + (long long)h * D;
+  const float* kb = k + (long long)b * Skv * kstr + (long long)kvh * D;
+  const float* vb = v + (long long)b * Skv * kstr + (long long)kvh * D;
   const int off = Skv - Sq, row = q0 + r;
-  const float lrow = row < Sq ? lse[((long long)b * H + h) * Sq + row] * LOG2E : 0.f;
-  const float drow = row < Sq ? di[((long long)b * H + h) * Sq + row] : 0.f;
+  const long long vrow = ((long long)b * H + h) * Sq + row;  // the row's lse and di
+  const float lrow = row < Sq ? lse[vrow] * LOG2E : 0.f;
 
   load_tile_f32<D, LDK, F32_THREADS>(Qs, q + qoff + q0 * str, str, BR, Sq - q0);
   load_tile_f32<D, LDK, F32_THREADS>(Os, dout + qoff + q0 * str, str, BR, Sq - q0);
+  __syncthreads();
+  // di = rowsum(o dO): the quarter's columns, then the row's four threads
+  // (neighbouring lanes) by shuffles; 0 past Sq.
+  float drow = 0.f;
+  if (row < Sq) {
+    const float* orow = o + qoff + (long long)row * str;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) drow = fmaf(orow[qd + 4 * j], Os[r * LDK + qd + 4 * j], drow);
+  }
+  drow += __shfl_xor_sync(0xffffffffu, drow, 1);
+  drow += __shfl_xor_sync(0xffffffffu, drow, 2);
+  if (qd == 0 && row < Sq) di[vrow] = drow;
   float dqa[DJ];
 #pragma unroll
   for (int j = 0; j < DJ; ++j) dqa[j] = 0.f;
@@ -201,8 +227,8 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BR) {
     __syncthreads();
-    load_tile_f32<D, LDK, F32_THREADS>(Ks, kb + kv0 * str, str, BR, Skv - kv0);
-    load_tile_f32<D, LDK, F32_THREADS>(Vs, vb + kv0 * str, str, BR, Skv - kv0);
+    load_tile_f32<D, LDK, F32_THREADS>(Ks, kb + kv0 * kstr, kstr, BR, Skv - kv0);
+    load_tile_f32<D, LDK, F32_THREADS>(Vs, vb + kv0 * kstr, kstr, BR, Skv - kv0);
     __syncthreads();
 
     float s[NJ], dp[NJ];
@@ -242,9 +268,10 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 // --- launchers ----------------------------------------------------------------
 
 struct BwdArgs {
-  const void *q, *k, *v, *dout;
-  const float *lse, *di;
-  int Sq, Skv, H;
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* di;  // K5 writes it, K4 reads it
+  int Sq, Skv, H, Hkv;
   float scale, scale_log2;
   int causal;
   Streams streams;
@@ -264,7 +291,7 @@ cudaError_t dkv_f32(const BwdArgs& a, void* dk, void* dv, dim3 grid) {
   bwd_dkv_f32<D, SM><<<grid, F32_THREADS, smem, a.st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.di,
-      static_cast<float*>(dk), static_cast<float*>(dv), a.Sq, a.Skv, a.H, a.scale,
+      static_cast<float*>(dk), static_cast<float*>(dv), a.Sq, a.Skv, a.H, a.Hkv, a.scale,
       a.scale_log2, a.causal, a.streams);
   return cudaGetLastError();
 }
@@ -276,8 +303,9 @@ cudaError_t dq_f32(const BwdArgs& a, void* dq, dim3 grid) {
   if (e != cudaSuccess) return e;
   bwd_dq_f32<D, SM><<<grid, F32_THREADS, smem, a.st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.di,
-      static_cast<float*>(dq), a.Sq, a.Skv, a.H, a.scale, a.scale_log2, a.causal, a.streams);
+      static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.dout), a.lse, a.di, static_cast<float*>(dq), a.Sq, a.Skv, a.H,
+      a.Hkv, a.scale, a.scale_log2, a.causal, a.streams);
   return cudaGetLastError();
 }
 
@@ -302,34 +330,42 @@ int stream_mode(const Streams& st) {
   return window && drop ? -1 : drop ? DROPOUT : window ? WINDOW : PLAIN;
 }
 
-bool bad_shape(int B, int Sq, int Skv, int H, int causal) {
-  return B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || (causal && Sq > Skv);
+bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv, int causal) {
+  return B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv ||
+         (causal && Sq > Skv);
 }
 
 }  // namespace
 
 // win_lo, win_hi, seed, thresh, inv_keep: the forward's window and
-// dropout (common.cuh::Streams; thresh 0 = no dropout).
+// dropout (common.cuh::Streams; thresh 0 = no dropout). K4: di from K5;
+// `slices` (a divisor of Hq / Hkv; 1 in fp32) cuts each group of query
+// heads for the bf16 body, which sums the slices' partials through `ws`
+// (2 x slices x B x Hkv x ceil(Skv / 128) x 128 x D fp32) and `counters`
+// (B x Hkv x ceil(Skv / 128) int32, zero) where slices > 1 (else both may
+// be null).
 extern "C" int pfa_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* di,
-                                 void* dk, void* dv, int B, int Sq, int Skv, int H, int D,
-                                 float sm_scale, int causal, int win_lo, int win_hi,
-                                 unsigned seed, unsigned thresh, float inv_keep, int dtype,
-                                 void* stream) {
+                                 void* dk, void* dv, void* ws, void* counters, int B, int Sq,
+                                 int Skv, int Hq, int Hkv, int D, int slices, float sm_scale,
+                                 int causal, int win_lo, int win_hi, unsigned seed,
+                                 unsigned thresh, float inv_keep, int dtype, void* stream) {
   const Streams streams{win_lo, win_hi, seed, thresh, inv_keep};
   const int mode = stream_mode(streams);
-  if (bad_shape(B, Sq, Skv, H, causal) || mode < 0) return cudaErrorInvalidValue;
+  if (bad_shape(B, Sq, Skv, Hq, Hkv, causal) || mode < 0 || di == nullptr)
+    return cudaErrorInvalidValue;
   const auto* lse_f = static_cast<const float*>(lse);
   const auto* di_f = static_cast<const float*>(di);
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == PFA_BF16)
-    return k4_bf16_sm90(BwdSm90Args{q, k, v, dout, lse_f, di_f, B, Sq, Skv, H, D, sm_scale,
-                                    causal, streams},
+    return k4_bf16_sm90(BwdSm90Args{q, k, v, nullptr, dout, lse_f, di_f, nullptr, B, Sq, Skv, Hq,
+                                    Hkv, D, sm_scale, causal, streams, static_cast<float*>(ws),
+                                    static_cast<int*>(counters), slices},
                         dk, dv, mode, st);
-  if (dtype != PFA_F32) return cudaErrorInvalidValue;
-  const BwdArgs a{q, k, v, dout, lse_f, di_f, Sq, Skv, H, sm_scale, sm_scale * LOG2E, causal,
-                  streams, st};
-  const dim3 grid((Skv + BR - 1) / BR, H, B);
+  if (dtype != PFA_F32 || slices != 1) return cudaErrorInvalidValue;
+  const BwdArgs a{q, k, v, nullptr, dout, lse_f, const_cast<float*>(di_f), Sq, Skv, Hq, Hkv,
+                  sm_scale, sm_scale * LOG2E, causal, streams, st};
+  const dim3 grid((Skv + BR - 1) / BR, Hkv, B);
   switch (mode) {
     case PLAIN: return run_dkv<PLAIN>(a, dk, dv, grid, D);
     case WINDOW: return run_dkv<WINDOW>(a, dk, dv, grid, D);
@@ -337,26 +373,27 @@ extern "C" int pfa_flash_bwd_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-extern "C" int pfa_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse, const void* di,
-                                void* dq, int B, int Sq, int Skv, int H, int D,
-                                float sm_scale, int causal, int win_lo, int win_hi,
-                                unsigned seed, unsigned thresh, float inv_keep, int dtype,
-                                void* stream) {
+// K5: o (like q) in, di (B, Hq, Sq) fp32 out beside dq.
+extern "C" int pfa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                                const void* dout, const void* lse, void* dq, void* di, int B,
+                                int Sq, int Skv, int Hq, int Hkv, int D, float sm_scale,
+                                int causal, int win_lo, int win_hi, unsigned seed,
+                                unsigned thresh, float inv_keep, int dtype, void* stream) {
   const Streams streams{win_lo, win_hi, seed, thresh, inv_keep};
   const int mode = stream_mode(streams);
-  if (bad_shape(B, Sq, Skv, H, causal) || mode < 0) return cudaErrorInvalidValue;
+  if (bad_shape(B, Sq, Skv, Hq, Hkv, causal) || mode < 0 || o == nullptr || di == nullptr)
+    return cudaErrorInvalidValue;
   const auto* lse_f = static_cast<const float*>(lse);
-  const auto* di_f = static_cast<const float*>(di);
+  auto* di_f = static_cast<float*>(di);
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == PFA_BF16)
-    return k5_bf16_sm90(BwdSm90Args{q, k, v, dout, lse_f, di_f, B, Sq, Skv, H, D, sm_scale,
-                                    causal, streams},
+    return k5_bf16_sm90(BwdSm90Args{q, k, v, o, dout, lse_f, nullptr, di_f, B, Sq, Skv, Hq, Hkv,
+                                    D, sm_scale, causal, streams, nullptr, nullptr, 1},
                         dq, mode, st);
   if (dtype != PFA_F32) return cudaErrorInvalidValue;
-  const BwdArgs a{q, k, v, dout, lse_f, di_f, Sq, Skv, H, sm_scale, sm_scale * LOG2E, causal,
-                  streams, st};
-  const dim3 grid((Sq + BR - 1) / BR, H, B);
+  const BwdArgs a{q, k, v, o, dout, lse_f, di_f, Sq, Skv, Hq, Hkv, sm_scale, sm_scale * LOG2E,
+                  causal, streams, st};
+  const dim3 grid((Sq + BR - 1) / BR, Hq, B);
   switch (mode) {
     case PLAIN: return run_dq<PLAIN>(a, dq, grid, D);
     case WINDOW: return run_dq<WINDOW>(a, dq, grid, D);

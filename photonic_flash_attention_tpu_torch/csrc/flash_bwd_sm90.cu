@@ -14,32 +14,61 @@
 // 3, D multiply-adds each, against one exp (and with dropout one hash) a
 // pair: far above the bf16 ridge at S ~ 1k-8k, so the tensor cores are the
 // limit. The design follows K1 (flash_fwd_sm90.cu), with two kernels and no
-// atomics, so dq, dk and dv are deterministic:
+// atomic additions of values, so dq, dk and dv are deterministic. The pair
+// computes the whole backward function (JAX ops/flash.py::_flash_core_bwd):
+// K5 computes di = rowsum(o * dO) and K4 reads it, so the wrapper launches
+// K5 first; K/V come with Hkv heads (query head h reads KV head h / group,
+// K1's mapping), and dK/dV leave with Hkv heads, summed over the group in
+// fp32 and rounded once, with no repeat or sum outside the kernels.
 // * A CTA is three warpgroups: two consumers of 64 rows each (128 rows a
 //   work tile) and one producer, whose first warp issues every load by TMA
-//   (a CUtensorMap per tensor over the (D, H, S, B) layout, 128-byte
-//   swizzle, one head and 64 columns a box) into a ring of mbarrier stages.
-//   setmaxnreg gives the producer 24 registers and the consumers 240.
-// * K5 (dQ): a work tile is 128 query rows of one (batch row, head). Q and
-//   dO arrive once a work tile (double-buffered), K and V once a key tile
-//   through the ring; lse (in log2 units) and di of a thread's two rows sit
-//   in registers. S = Q K^T and dP = dO V^T are SS wgmma (K-major); dS =
-//   P (dP - di) scale, rounded to bf16 in the accumulator layout, is the A
-//   operand of dQ += dS K, an RS wgmma that reads the same K stage as an
-//   MN-major B operand. Tile j's SS products are issued ahead of tile j-1's
-//   RS product, so tile j's elementwise step runs while dQ's product does.
+//   (a CUtensorMap per tensor over the (D, H, S, B) layout, K and V over
+//   Hkv heads, 128-byte swizzle, one head and 64 columns a box) into a ring
+//   of mbarrier stages. setmaxnreg gives the producer 24 registers and the
+//   consumers 240.
+// * K5 (dQ): a work tile is 128 query rows of one (batch row, query head).
+//   Q and dO arrive once a work tile (double-buffered), K and V of its KV
+//   head once a key tile through the ring. Before the key loop each thread
+//   computes di of its two rows in fp32 from O, which it reads from global
+//   memory (16-byte loads of its quarter of the row; the producer warp
+//   prefetches the tile's O rows into L2 when it issues the tile's Q and dO,
+//   and a third 128-row tile would not fit in shared memory at D 128), and
+//   dO, which it reads from the staged tile; a quad's shuffles finish the
+//   sum, and the row's first thread writes it for K4. lse (in log2 units)
+//   and di sit in registers. S = Q K^T and dP = dO V^T are SS wgmma
+//   (K-major); dS = P (dP - di) scale, rounded to bf16 in the accumulator
+//   layout, is the A operand of dQ += dS K, an RS wgmma that reads the same
+//   K stage as an MN-major B operand. Tile j's SS products are issued ahead
+//   of tile j-1's RS product, so tile j's elementwise step runs while dQ's
+//   product does.
 // * K4 (dK/dV) works in the transposed domain of the JAX kernel: a work
-//   tile is 128 keys, whose K and V arrive once (double-buffered where they
-//   fit); Q, dO and the query tile's lse and di (4-byte cp.async tied to
-//   the stage's "full" mbarrier) come through the ring. S^T = K Q^T and
-//   dP^T = V dO^T are SS products; dV += (P^T M) dO and dK += dS^T Q are RS
-//   products with dO and Q MN-major from the stage; dK and dV stay in fp32
-//   registers for the whole query loop. lse and di are indexed by the
-//   column (the query), so they are read from the stage. At D 64 the next
-//   query tile's SS products go ahead of this one's RS products, as in K5;
-//   at D 128 dK and dV alone take 128 registers a thread, so a warpgroup
-//   runs its products in turn (Cfg::OVERLAP) and the other one fills the
-//   gaps.
+//   tile is 128 keys of one (batch row, KV head) and one slice of the KV
+//   head's group of query heads; its K and V arrive once (double-buffered
+//   where they fit), and its query loop walks the slice's heads x query
+//   tiles: Q, dO and the tile's lse and di (4-byte cp.async tied to the
+//   stage's "full" mbarrier) of the iteration's head come through the ring.
+//   S^T = K Q^T and dP^T = V dO^T are SS products; dV += (P^T M) dO and dK
+//   += dS^T Q are RS products with dO and Q MN-major from the stage; dK and
+//   dV stay in fp32 registers across the slice's heads. lse and di are
+//   indexed by the column (the query), so they are read from the stage. At
+//   D 64 the next query tile's SS products go ahead of this one's RS
+//   products, as in K5; at D 128 dK and dV alone take 128 registers a
+//   thread, so a warpgroup runs its products in turn (Cfg::OVERLAP) and the
+//   other one fills the gaps.
+// * K4's slices: one slice a group leaves too few work tiles to balance
+//   (B1 Hkv8 S2048 causal: 128 tiles on 132 SMs, the first key block's 8 x
+//   32 query tiles against a mean near 136), so the wrapper cuts the group
+//   into slices (ops/flash_bwd.py::k4_slices). With more than one, each
+//   slice writes its fp32 dK/dV to a workspace (a 128 x D block a slice
+//   and key block) and counts its arrival on a per-(b, KV head, key block)
+//   counter; the last to arrive reads the blocks back (its own too, the
+//   same bits as its registers) in 16-byte runs of consecutive threads, a
+//   slice's loads issued together, sums them in slice order, rounds once
+//   to bf16, writes dK/dV and resets the counter to 0 (K3's split merge,
+//   paged_decode_sm90.cu). The sum's order does not depend on
+//   which slice came last, so the result is deterministic. The counters
+//   serve one launch at a time: two K4 launches in flight on two streams
+//   at once would share them.
 // * The two consumer warpgroups take turns at the tensor cores (named
 //   barriers, K1's ping-pong), so one's elementwise step runs under the
 //   other's products. Not with dropout: there the hash makes the
@@ -48,10 +77,12 @@
 //   (keys in K5, queries in K4) and the window's edge tiles take the
 //   per-score predicate. Past the ends TMA fills zeros, and the staged lse
 //   and di are 0 there, so a padded query adds nothing to dK/dV and a
-//   padded row of dQ (or dK/dV) is never written.
+//   padded row of dQ (or dK/dV) is never written. K5 writes di for every
+//   row below Sq, also in work tiles that see no key (window rows with no
+//   key: o = 0, so di = 0), so K4 never reads an unwritten di.
 // * The grid is persistent: one CTA a SM walks the work tiles in snake
-//   order, heads fastest, the longest first (causal K5: the last query
-//   blocks; causal K4: the first key blocks).
+//   order, heads fastest (K4: slices, then KV heads), the longest first
+//   (causal K5: the last query blocks; causal K4: the first key blocks).
 //
 // K21 (the unrolled backward's dK/dV, one launch per block_kv key block:
 // benchmarks/flash_bwd_unrolled_experiment.py::_dkv_kernel_unrolled :83)
@@ -84,7 +115,10 @@
 // walking K5's key tiles up to its diagonal; the same fold of (B, H, S, D)
 // into K5's layout; rows of the last work tile past the range computed and
 // not stored; the launches after a call's first chained, the wait in the
-// producer warp.
+// producer warp. K20 and K21 stay MHA (H' = Hkv = 1, one slice) and take di
+// from the caller, as JAX's experiment computes it in XLA: ROWBLOCK reads
+// di where K5 computes it, and neither instantiation holds the GQA walk,
+// the slices' combine or the di prologue.
 
 #include <limits.h>
 
@@ -155,19 +189,55 @@ struct DkvCfg {
 
 struct Params {
   __nv_bfloat16 *out0, *out1;  // K5: dq; K4: dk, dv
-  const float *lse, *di;       // (B, H, Sq)
-  int B, Sq, Skv, H;
-  int n_work;  // work tiles: 128-row blocks x H x B
+  const float *lse, *di;       // (B, H, Sq); di: K4, K20 and K21 read it
+  float* di_out;               // K5 writes di here
+  const __nv_bfloat16* o;      // K5: the forward's output (B, Sq, H, D)
+  int B, Sq, Skv, H, Hkv;      // H: query heads
+  int group;                   // H / Hkv
+  int n_work;  // work tiles: K5 128-row blocks x H x B; K4 key blocks x Hkv x slices x B
   float scale, scale_log2;
   int causal;
   Streams st;
   int range0, range_end;  // K21: the launch's keys; K20: its query rows
+  int slices, hps;        // K4: slices of a group, query heads a slice
+  float* ws;              // K4 with slices > 1: fp32 dK, then dV, partials
+  int* counters;          // K4 with slices > 1: arrivals a (b, KV head, key block)
 };
+
+// Named barrier 3 over the two consumer warpgroups (1 and 2 are the
+// ping-pong's turns): K4's slices agree on which is the last.
+constexpr int BAR_EPILOGUE = 3;
+
+// One line of global memory into L2, no register written.
+__device__ __forceinline__ void prefetch_l2(const void* ptr) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(ptr));
+}
+
+// 16 bytes of shared memory.
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// The dot product of two runs of 8 bf16 values (16 bytes each), added to
+// acc in fp32 in order; bf16 x bf16 products are exact in fp32.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
+    acc = fmaf(__uint_as_float(x[i] & 0xFFFF0000u), __uint_as_float(y[i] & 0xFFFF0000u), acc);
+  }
+  return acc;
+}
 
 // --- K5: dQ ---------------------------------------------------------------------
 
 struct DqWork {
-  int h, b, q0, kv_begin, n_tiles;
+  int h, kvh, b, q0, kv_begin, n_tiles;  // kvh: the KV head h reads
 };
 
 // Work tile t: heads fastest, then batch rows, then query blocks, the last
@@ -178,6 +248,7 @@ __device__ __forceinline__ DqWork dq_work(const Params& p, int t) {
   DqWork w;
   const int nqb = ROWBLOCK ? (p.range_end - p.range0 + BLOCK - 1) / BLOCK : (p.Sq + BLOCK - 1) / BLOCK;
   w.h = t % p.H;
+  w.kvh = ROWBLOCK ? w.h : w.h / p.group;
   const int r = t / p.H;
   w.b = r % p.B;
   const int i = r / p.B;
@@ -256,6 +327,11 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
       const int qb = n % QBUF;
       const uint32_t qf = bar_qfull + 8 * qb;
       mbar_wait(bar_qempty + 8 * qb, ((n / QBUF) & 1) ^ 1);
+      if constexpr (!ROWBLOCK) {  // the tile's O rows into L2, for the consumers' di
+        for (int r = lane; r < BLOCK && w.q0 + r < p.Sq; r += 32)
+          for (int hf = 0; hf < C::HALVES; ++hf)
+            prefetch_l2(p.o + (((long long)w.b * p.Sq + w.q0 + r) * p.H + w.h) * D + 64 * hf);
+      }
       if (lane == 0) {
         mbar_expect_tx(qf, 2 * C::QO_BYTES);
         for (int r = 0; r < CONSUMERS; ++r)
@@ -273,8 +349,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
           mbar_expect_tx(full, 2 * C::KV_BYTES);
           for (int hf = 0; hf < C::HALVES; ++hf) {
             const uint32_t at = s * C::KV_BYTES + hf * BKV * 128;
-            tma_load_4d(base + C::OFF_K + at, &tm_k, full, hf * 64, w.h, kv0, w.b);
-            tma_load_4d(base + C::OFF_V + at, &tm_v, full, hf * 64, w.h, kv0, w.b);
+            tma_load_4d(base + C::OFF_K + at, &tm_k, full, hf * 64, w.kvh, kv0, w.b);
+            tma_load_4d(base + C::OFF_V + at, &tm_v, full, hf * 64, w.kvh, kv0, w.b);
           }
         }
       }
@@ -312,17 +388,48 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
       const uint32_t bh = static_cast<uint32_t>(w.b * p.H + w.h);
       const uint32_t q_base = base + C::OFF_Q + qb * C::QO_BYTES + wg * C::HALVES * BOX_BYTES;
       const uint32_t do_base = base + C::OFF_DO + qb * C::QO_BYTES + wg * C::HALVES * BOX_BYTES;
+      const long long vrow = ((long long)w.b * p.H + w.h) * p.Sq;  // lse and di of the head
       float nl[2], di[2];  // -lse * log2 e and di of this thread's rows (0 past Sq)
+      constexpr int NC = D / 32;  // 16-byte chunks of a row's O a thread reads
+      [[maybe_unused]] uint4 ov[2][NC];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = row0 + 8 * i;
-        const long long at = ((long long)w.b * p.H + w.h) * p.Sq + row;
-        nl[i] = row < p.Sq ? -p.lse[at] * LOG2E : 0.f;
-        di[i] = row < p.Sq ? p.di[at] : 0.f;
+        nl[i] = row < p.Sq ? -p.lse[vrow + row] * LOG2E : 0.f;
+        if constexpr (ROWBLOCK) {
+          di[i] = row < p.Sq ? p.di[vrow + row] : 0.f;
+        } else {  // the thread's quarter of the row's O: chunks t4, t4 + 4, ... (0 past Sq)
+          const __nv_bfloat16* orow = p.o + (((long long)w.b * p.Sq + row) * p.H + w.h) * D;
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            ov[i][c] = row < p.Sq ? __ldg(reinterpret_cast<const uint4*>(orow + 8 * (t4 + 4 * c)))
+                                  : make_uint4(0u, 0u, 0u, 0u);
+        }
       }
 #pragma unroll
       for (int i = 0; i < ND; ++i) dq[i] = 0.f;
       mbar_wait(bar_qfull + 8 * qb, (n / QBUF) & 1);
+      if constexpr (!ROWBLOCK) {
+        // di = rowsum(O dO) in fp32: dO from the staged tile (128-byte
+        // swizzle: chunk c of box row lr lies at c ^ (lr & 7)), the row's
+        // four threads' sums added by shuffles; the first writes it for K4.
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int lr = warp * 16 + g + 8 * i, row = row0 + 8 * i;
+          float acc = 0.f;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const int chunk = t4 + 4 * c;
+            acc = dot8(ov[i][c],
+                       lds128(do_base + (chunk / 8) * BOX_BYTES + lr * 128 + ((chunk % 8) ^ (lr & 7)) * 16),
+                       acc);
+          }
+          acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+          acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+          di[i] = acc;
+          if (t4 == 0 && row < p.Sq) p.di_out[vrow + row] = acc;
+        }
+      }
       if (PINGPONG<MODE> && wg == 1 && nt > 0) named_bar_arrive(1, 2 * 128);
 
       auto issue_ss = [&](int k) {  // S and dP of the ring's key tile k
@@ -417,17 +524,22 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
 // --- K4: dK, dV -----------------------------------------------------------------
 
 struct DkvWork {
-  int h, b, kv0, q_begin, n_tiles;
+  int kvh, slice, h0, b, kv0, q_begin, n_tiles;  // h0: the slice's first query head
 };
 
-// Work tile t: heads fastest, then batch rows, then key blocks, the first
-// (longest under the causal mask) first; its query tiles are those from
-// which its keys are seen. COLBLOCK (K21): the key blocks from range0.
+// Work tile t: slices fastest, then KV heads, then batch rows, then key
+// blocks, the first (longest under the causal mask) first; its query tiles
+// are those from which its keys are seen, the same for each of its heads.
+// COLBLOCK (K21): the key blocks from range0, one head, one slice.
 template <int BQ, bool COLBLOCK>
 __device__ __forceinline__ DkvWork dkv_work(const Params& p, int t) {
   DkvWork w;
-  w.h = t % p.H;
-  const int r = t / p.H;
+  const int slices = COLBLOCK ? 1 : p.slices;
+  const int u = t % (p.Hkv * slices);
+  w.kvh = u / slices;
+  w.slice = u % slices;
+  w.h0 = COLBLOCK ? w.kvh : w.kvh * p.group + w.slice * p.hps;
+  const int r = t / (p.Hkv * slices);
   w.b = r % p.B;
   w.kv0 = (r / p.B) * BLOCK;
   if constexpr (COLBLOCK) w.kv0 += p.range0;
@@ -507,6 +619,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   const int warp = __shfl_sync(0xffffffffu, (threadIdx.x / 32) % 4, 0), lane = threadIdx.x % 32;
+  const int hps = COLBLOCK ? 1 : p.hps;  // query heads a work tile walks
   if (wg == CONSUMERS) {
     // --- producer --------------------------------------------------------------
     setmaxnreg_dec<PRODUCER_REGS>();
@@ -524,30 +637,33 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
         for (int r = 0; r < CONSUMERS; ++r)
           for (int hf = 0; hf < C::HALVES; ++hf) {
             const uint32_t box = kb * C::KV_BYTES + (r * C::HALVES + hf) * BOX_BYTES;
-            tma_load_4d(base + C::OFF_K + box, &tm_k, kf, hf * 64, w.h, w.kv0 + r * 64, w.b);
-            tma_load_4d(base + C::OFF_V + box, &tm_v, kf, hf * 64, w.h, w.kv0 + r * 64, w.b);
+            tma_load_4d(base + C::OFF_K + box, &tm_k, kf, hf * 64, w.kvh, w.kv0 + r * 64, w.b);
+            tma_load_4d(base + C::OFF_V + box, &tm_v, kf, hf * 64, w.kvh, w.kv0 + r * 64, w.b);
           }
       }
-      const long long vrow = ((long long)w.b * p.H + w.h) * p.Sq;
-      for (int j = 0; j < w.n_tiles; ++j, ++it) {
-        const int s = it % STAGES, q0 = w.q_begin + j * BQ;
-        const uint32_t full = bar_full + 8 * s;
-        mbar_wait(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
-        const uint32_t vec = base + C::OFF_VEC + s * C::VEC_BYTES;
-        for (int i = lane; i < BQ; i += 32) {
-          const bool ok = q0 + i < p.Sq;
-          const long long at = vrow + (ok ? q0 + i : 0);
-          cp_async4(vec + 4 * i, p.lse + at, ok);
-          cp_async4(vec + 4 * (BQ + i), p.di + at, ok);
-        }
-        cp_async_mbar_arrive(full);
-        __syncwarp();
-        if (lane == 0) {
-          mbar_expect_tx(full, 2 * C::QO_BYTES);
-          for (int hf = 0; hf < C::HALVES; ++hf) {
-            const uint32_t at = s * C::QO_BYTES + hf * BQ * 128;
-            tma_load_4d(base + C::OFF_Q + at, &tm_q, full, hf * 64, w.h, q0, w.b);
-            tma_load_4d(base + C::OFF_DO + at, &tm_do, full, hf * 64, w.h, q0, w.b);
+      for (int hh = 0; hh < hps; ++hh) {  // the slice's query heads, each over its query tiles
+        const int h = w.h0 + hh;
+        const long long vrow = ((long long)w.b * p.H + h) * p.Sq;
+        for (int j = 0; j < w.n_tiles; ++j, ++it) {
+          const int s = it % STAGES, q0 = w.q_begin + j * BQ;
+          const uint32_t full = bar_full + 8 * s;
+          mbar_wait(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+          const uint32_t vec = base + C::OFF_VEC + s * C::VEC_BYTES;
+          for (int i = lane; i < BQ; i += 32) {
+            const bool ok = q0 + i < p.Sq;
+            const long long at = vrow + (ok ? q0 + i : 0);
+            cp_async4(vec + 4 * i, p.lse + at, ok);
+            cp_async4(vec + 4 * (BQ + i), p.di + at, ok);
+          }
+          cp_async_mbar_arrive(full);
+          __syncwarp();
+          if (lane == 0) {
+            mbar_expect_tx(full, 2 * C::QO_BYTES);
+            for (int hf = 0; hf < C::HALVES; ++hf) {
+              const uint32_t at = s * C::QO_BYTES + hf * BQ * 128;
+              tma_load_4d(base + C::OFF_Q + at, &tm_q, full, hf * 64, h, q0, w.b);
+              tma_load_4d(base + C::OFF_DO + at, &tm_do, full, hf * 64, h, q0, w.b);
+            }
           }
         }
       }
@@ -578,15 +694,15 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       if (t >= n_work) continue;
       const DkvWork w = dkv_work<BQ, COLBLOCK>(p, t);
       const int kb = n % KVBUF, nt = w.n_tiles;
+      const int nr = nt * hps;                // ring tiles: the heads' query tiles in turn
       const int kw = w.kv0 + wg * 64;         // the warpgroup's first key
       const int key0 = kw + warp * 16 + g;    // this thread's keys: key0, key0 + 8
-      const uint32_t bh = static_cast<uint32_t>(w.b * p.H + w.h);
       const uint32_t k_base = base + C::OFF_K + kb * C::KV_BYTES + wg * C::HALVES * BOX_BYTES;
       const uint32_t v_base = base + C::OFF_V + kb * C::KV_BYTES + wg * C::HALVES * BOX_BYTES;
 #pragma unroll
       for (int i = 0; i < ND; ++i) dk[i] = dv[i] = 0.f;
       mbar_wait(bar_kvfull + 8 * kb, (n / KVBUF) & 1);
-      if (PINGPONG<MODE> && wg == 1 && nt > 0) named_bar_arrive(1, 2 * 128);
+      if (PINGPONG<MODE> && wg == 1 && nr > 0) named_bar_arrive(1, 2 * 128);
 
       auto issue_ss = [&](int k) {  // S^T and dP^T of the ring's query tile k
         const int st = k % STAGES;
@@ -621,8 +737,10 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
           wgmma_rs<D>(dk, da[kk], sw128_desc(q_st + kk * 16 * 128, BQ * 128));
         wgmma_commit();
       };
-      auto step = [&](int j, int k) {  // query tile j (ring tile k): P^T M in s, dS^T in dp
+      auto step = [&](int i, int k) {  // the work tile's ring tile i (k overall): P^T M in s, dS^T in dp
+        const int hh = COLBLOCK ? 0 : i / nt, j = i - hh * nt;  // its head and query tile
         const int q0 = w.q_begin + j * BQ;
+        const uint32_t bh = static_cast<uint32_t>(w.b * p.H + w.h0 + hh);
         const float* vec = reinterpret_cast<const float*>(smem + C::OFF_VEC + (k % STAGES) * C::VEC_BYTES);
         const bool masked = q0 + BQ > p.Sq || (p.causal && kw + 63 > q0 + off) ||
                             (MODE == WINDOW && (kw - (q0 + BQ - 1) - off < p.st.lo ||
@@ -638,7 +756,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       };
 
       if constexpr (C::OVERLAP) {
-        if (nt > 0) {
+        if (nr > 0) {
           issue_ss(it);
           turn_end(false);
           wgmma_wait<0>();
@@ -647,7 +765,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
           step(0, it);
           pack();
         }
-        for (int j = 1; j < nt; ++j) {
+        for (int j = 1; j < nr; ++j) {
           issue_ss(it + j);
           issue_rs(it + j - 1);
           turn_end(false);
@@ -661,20 +779,20 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
           release(bar_empty + 8 * ((it + j - 1) % STAGES));
           pack();
         }
-        if (nt > 0) {
+        if (nr > 0) {
           turn_begin();
           wgmma_fence();
-          issue_rs(it + nt - 1);
+          issue_rs(it + nr - 1);
           turn_end(true);
           wgmma_wait<0>();
           fence_regs(dk);
           fence_regs(dv);
-          release(bar_empty + 8 * ((it + nt - 1) % STAGES));
+          release(bar_empty + 8 * ((it + nr - 1) % STAGES));
         }
       } else {
         // Each query tile in turn: S^T and dP^T, the elementwise step, then
         // dV and dK; two turns a tile.
-        for (int j = 0; j < nt; ++j) {
+        for (int j = 0; j < nr; ++j) {
           issue_ss(it + j);
           turn_end(false);
           wgmma_wait<0>();
@@ -685,7 +803,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
           turn_begin();
           wgmma_fence();
           issue_rs(it + j);
-          turn_end(j == nt - 1);
+          turn_end(j == nr - 1);
           wgmma_wait<0>();
           fence_regs(dk);
           fence_regs(dv);
@@ -693,19 +811,86 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
         }
       }
       release(bar_kvempty + 8 * kb);
-      it += nt;
+      it += nr;
 
       int key_end = p.Skv;  // K21: keys past the range are another launch's
       if constexpr (COLBLOCK) key_end = p.range_end;
+      auto out_at = [&](int key) { return (((long long)w.b * p.Skv + key) * p.Hkv + w.kvh) * D; };
+      bool direct = true;
+      if constexpr (!COLBLOCK) direct = p.slices == 1;
+      if (direct) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int key = key0 + 8 * i;
-        if (key >= key_end) continue;
-        const long long at = (((long long)w.b * p.Skv + key) * p.H + w.h) * D;
+        for (int i = 0; i < 2; ++i) {
+          const int key = key0 + 8 * i;
+          if (key >= key_end) continue;
+          const long long at = out_at(key);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          store2(p.out0 + at + 8 * j + 2 * t4, dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
-          store2(p.out1 + at + 8 * j + 2 * t4, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+          for (int j = 0; j < D / 8; ++j) {
+            store2(p.out0 + at + 8 * j + 2 * t4, dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+            store2(p.out1 + at + 8 * j + 2 * t4, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+          }
+        }
+      } else if constexpr (!COLBLOCK) {
+        // The slices' combine: this slice's fp32 partials to the workspace
+        // (a 128 x D block a (slice, b, KV head, key block), every slice's
+        // dK, then every slice's dV), its arrival counted; the last to
+        // arrive sums every slice's in slice order, rounds once and resets
+        // the count.
+        __shared__ int last_slice;
+        const int nkb = (p.Skv + BLOCK - 1) / BLOCK, kblock = w.kv0 / BLOCK;
+        const long long plane = (long long)p.slices * p.B * p.Hkv * nkb * BLOCK * D;  // dV's offset
+        auto ws_tile = [&](int sl) {
+          return p.ws + ((((long long)sl * p.B + w.b) * p.Hkv + w.kvh) * nkb + kblock) * BLOCK * D;
+        };
+        float* part = ws_tile(w.slice);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int key = key0 + 8 * i;
+          if (key >= key_end) continue;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            const int at = (key - w.kv0) * D + 8 * j + 2 * t4;
+            store2(part + at, dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+            store2(part + plane + at, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+          }
+        }
+        __threadfence();
+        named_bar_sync(BAR_EPILOGUE, CONSUMERS * 128);
+        const int ctr = (w.b * p.Hkv + w.kvh) * nkb + kblock;
+        if (threadIdx.x == 0) last_slice = atomicAdd(p.counters + ctr, 1) == p.slices - 1;
+        named_bar_sync(BAR_EPILOGUE, CONSUMERS * 128);
+        if (last_slice) {
+          // Every slice's block (this one's too: the same bits as its
+          // registers), read in 16-byte runs by consecutive threads, each
+          // slice's loads issued together and added in slice order into
+          // dk and dv, which now hold a thread's D / 8 runs of 4 columns.
+          __threadfence();
+          constexpr int RUNS = D / 8;  // float4 runs a thread: 128 x D / 4 over 256 threads
+          const int ct = threadIdx.x;
+#pragma unroll
+          for (int i = 0; i < ND; ++i) dk[i] = dv[i] = 0.f;
+          for (int sl = 0; sl < p.slices; ++sl) {
+            const float4* blk = reinterpret_cast<const float4*>(ws_tile(sl));
+#pragma unroll
+            for (int r = 0; r < RUNS; ++r) {
+              const int run = ct + r * CONSUMERS * 128;
+              if (w.kv0 + run / (D / 4) >= key_end) continue;
+              const float4 a = __ldcg(blk + run), c = __ldcg(blk + plane / 4 + run);
+              dk[4 * r] += a.x, dk[4 * r + 1] += a.y, dk[4 * r + 2] += a.z, dk[4 * r + 3] += a.w;
+              dv[4 * r] += c.x, dv[4 * r + 1] += c.y, dv[4 * r + 2] += c.z, dv[4 * r + 3] += c.w;
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < RUNS; ++r) {
+            const int run = ct + r * CONSUMERS * 128, key = w.kv0 + run / (D / 4);
+            if (key >= key_end) continue;
+            const long long at = out_at(key) + (run % (D / 4)) * 4;
+            store2(p.out0 + at, dk[4 * r], dk[4 * r + 1]);
+            store2(p.out0 + at + 2, dk[4 * r + 2], dk[4 * r + 3]);
+            store2(p.out1 + at, dv[4 * r], dv[4 * r + 1]);
+            store2(p.out1 + at + 2, dv[4 * r + 2], dv[4 * r + 3]);
+          }
+          if (threadIdx.x == 0) p.counters[ctr] = 0;
         }
       }
     }
@@ -722,23 +907,28 @@ cudaError_t grid_size(int n_work, int* grid) {
   return e;
 }
 
-// The four bf16 tensor maps over (D, H, S, B): q and dout in boxes of
-// q_rows rows, k and v of kv_rows; and the work tiles (128-row blocks of
-// `rows` rows x H x B).
-cudaError_t prepare(const BwdSm90Args& a, int D, int q_rows, int kv_rows, int rows,
+// The four bf16 tensor maps over (D, H, S, B): q and dout over Hq heads in
+// boxes of q_rows rows, k and v over Hkv in boxes of kv_rows; and the work
+// tiles (128-row blocks of `rows` rows x `heads` x B).
+cudaError_t prepare(const BwdSm90Args& a, int D, int q_rows, int kv_rows, int rows, int heads,
                     CUtensorMap (&maps)[4], Params& p) {
-  const uint64_t d = D, h = a.H, B = a.B, Sq = a.Sq, Skv = a.Skv;
+  const uint64_t d = D, hq = a.Hq, hkv = a.Hkv, B = a.B, Sq = a.Sq, Skv = a.Skv;
   const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const uint32_t qbox[4] = {64, 1, (uint32_t)q_rows, 1}, kvbox[4] = {64, 1, (uint32_t)kv_rows, 1};
-  if (!encode_4d(&maps[0], bf16, 2, a.q, {d, h, Sq, B}, qbox) ||
-      !encode_4d(&maps[1], bf16, 2, a.k, {d, h, Skv, B}, kvbox) ||
-      !encode_4d(&maps[2], bf16, 2, a.v, {d, h, Skv, B}, kvbox) ||
-      !encode_4d(&maps[3], bf16, 2, a.dout, {d, h, Sq, B}, qbox))
+  if (!encode_4d(&maps[0], bf16, 2, a.q, {d, hq, Sq, B}, qbox) ||
+      !encode_4d(&maps[1], bf16, 2, a.k, {d, hkv, Skv, B}, kvbox) ||
+      !encode_4d(&maps[2], bf16, 2, a.v, {d, hkv, Skv, B}, kvbox) ||
+      !encode_4d(&maps[3], bf16, 2, a.dout, {d, hq, Sq, B}, qbox))
     return cudaErrorInvalidValue;
-  const long long work = (long long)((rows + BLOCK - 1) / BLOCK) * a.H * a.B;
+  const long long work = (long long)((rows + BLOCK - 1) / BLOCK) * heads * a.B;
   if (work > INT_MAX) return cudaErrorInvalidValue;
-  p = Params{nullptr, nullptr, a.lse, a.di, a.B, a.Sq, a.Skv, a.H, static_cast<int>(work),
-             a.scale, a.scale * LOG2E, a.causal, a.st};
+  p = Params{};
+  p.lse = a.lse, p.di = a.di, p.di_out = a.di_out;
+  p.o = static_cast<const __nv_bfloat16*>(a.o);
+  p.B = a.B, p.Sq = a.Sq, p.Skv = a.Skv, p.H = a.Hq, p.Hkv = a.Hkv, p.group = a.Hq / a.Hkv;
+  p.n_work = static_cast<int>(work);
+  p.scale = a.scale, p.scale_log2 = a.scale * LOG2E, p.causal = a.causal, p.st = a.st;
+  p.slices = 1, p.hps = p.group;
   return cudaSuccess;
 }
 
@@ -758,7 +948,7 @@ cudaError_t launch_dq(const BwdSm90Args& a, void* dq, cudaStream_t stream) {
   using C = DqCfg<D, MODE>;
   CUtensorMap maps[4];
   Params p;
-  cudaError_t e = prepare(a, D, 64, C::BKV, a.Sq, maps, p);
+  cudaError_t e = prepare(a, D, 64, C::BKV, a.Sq, a.Hq, maps, p);
   if (e != cudaSuccess) return e;
   p.out0 = static_cast<__nv_bfloat16*>(dq);
   return run(flash_bwd_dq_sm90<D, MODE>, C::SMEM, maps, p, stream);
@@ -769,10 +959,12 @@ cudaError_t launch_dkv(const BwdSm90Args& a, void* dk, void* dv, cudaStream_t st
   using C = DkvCfg<D>;
   CUtensorMap maps[4];
   Params p;
-  cudaError_t e = prepare(a, D, C::BQ, 64, a.Skv, maps, p);
+  cudaError_t e = prepare(a, D, C::BQ, 64, a.Skv, a.Hkv * a.slices, maps, p);
   if (e != cudaSuccess) return e;
   p.out0 = static_cast<__nv_bfloat16*>(dk);
   p.out1 = static_cast<__nv_bfloat16*>(dv);
+  p.slices = a.slices, p.hps = p.group / a.slices;
+  p.ws = a.ws, p.counters = a.counters;
   return run(flash_bwd_dkv_sm90<D, MODE>, C::SMEM, maps, p, stream);
 }
 
@@ -786,7 +978,7 @@ cudaError_t launch_colblock(const BwdSm90Args& a, void* dk, void* dv, int kv_row
   if (stages != C::STAGES || smem != C::SMEM) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
   Params p;
-  cudaError_t e = prepare(a, D, C::BQ, 64, rows, maps, p);
+  cudaError_t e = prepare(a, D, C::BQ, 64, rows, 1, maps, p);
   if (e != cudaSuccess) return e;
   if (grid < 1 || grid > p.n_work) return cudaErrorInvalidValue;
   p.out0 = static_cast<__nv_bfloat16*>(dk);
@@ -809,7 +1001,7 @@ cudaError_t launch_rowblock(const BwdSm90Args& a, void* dq, int q_row0, int rows
   if (stages != C::STAGES || smem != C::SMEM) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
   Params p;
-  cudaError_t e = prepare(a, D, 64, C::BKV, rows, maps, p);
+  cudaError_t e = prepare(a, D, 64, C::BKV, rows, 1, maps, p);
   if (e != cudaSuccess) return e;
   if (grid < 1 || grid > p.n_work) return cudaErrorInvalidValue;
   p.out0 = static_cast<__nv_bfloat16*>(dq);
@@ -850,10 +1042,14 @@ cudaError_t info_mode(int D, int* out) {
   return cudaErrorInvalidValue;
 }
 
-// TMA reads 16-byte-aligned bases.
+// TMA reads 16-byte-aligned bases (and K5 O by 16-byte loads); query
+// heads in whole groups; K4's slices split each group evenly, and more
+// than one needs the workspace and the counters.
 bool takes(const BwdSm90Args& a) {
   return aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout) &&
-         (a.D == 64 || a.D == 128);
+         (a.o == nullptr || aligned16(a.o)) && (a.D == 64 || a.D == 128) && a.Hkv > 0 &&
+         a.Hq % a.Hkv == 0 && a.slices > 0 && (a.Hq / a.Hkv) % a.slices == 0 &&
+         (a.slices == 1 || (a.ws != nullptr && a.counters != nullptr));
 }
 
 // K20's and K21's launch of a range [row0, row0 + rows) of S, on the grid
@@ -866,16 +1062,16 @@ bool unrolled_args(const void* q, const void* k, const void* v, const void* dout
   if (B <= 0 || H <= 0 || S <= 0 || (long long)B * H > INT_MAX || row0 < 0 || row0 % 64 ||
       rows <= 0 || rows % 64 || (long long)row0 + rows > S)
     return false;
-  a = BwdSm90Args{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(di),
-                  B * H, S, S, 1, D, sm_scale, causal,
-                  Streams{-WINDOW_OPEN, WINDOW_OPEN, 0u, 0u, 1.f}};
+  a = BwdSm90Args{q, k, v, nullptr, dout, static_cast<const float*>(lse),
+                  static_cast<const float*>(di), nullptr, B * H, S, S, 1, 1, D, sm_scale, causal,
+                  Streams{-WINDOW_OPEN, WINDOW_OPEN, 0u, 0u, 1.f}, nullptr, nullptr, 1};
   return takes(a);
 }
 
 }  // namespace
 
 cudaError_t k5_bf16_sm90(const BwdSm90Args& a, void* dq, int mode, cudaStream_t stream) {
-  if (!takes(a)) return cudaErrorInvalidValue;
+  if (!takes(a) || a.o == nullptr || a.di_out == nullptr) return cudaErrorInvalidValue;
   const bool d64 = a.D == 64;
   switch (mode) {
     case PLAIN: return d64 ? launch_dq<64, PLAIN>(a, dq, stream) : launch_dq<128, PLAIN>(a, dq, stream);
@@ -887,7 +1083,7 @@ cudaError_t k5_bf16_sm90(const BwdSm90Args& a, void* dq, int mode, cudaStream_t 
 }
 
 cudaError_t k4_bf16_sm90(const BwdSm90Args& a, void* dk, void* dv, int mode, cudaStream_t stream) {
-  if (!takes(a)) return cudaErrorInvalidValue;
+  if (!takes(a) || a.di == nullptr) return cudaErrorInvalidValue;
   const bool d64 = a.D == 64;
   switch (mode) {
     case PLAIN:

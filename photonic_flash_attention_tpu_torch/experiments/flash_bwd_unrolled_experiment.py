@@ -439,8 +439,9 @@ def main(device: Optional[str] = None, *, parity_shape=PARITY_SHAPE,
     ``blocks`` that divides S timed (``k45_ms``, ``unrolled_ms``, JAX's
     ``t_ref / t`` as ``ratio``). On the ``headline`` row K20's launches
     (``k20_ms``) and K21's (``k21_ms``) are also timed alone on the call's
-    ``di``, and on the card K5 (``k5_ms``) and K4 (``k4_ms``) alone on the
-    same ``di``. Returns the rows by name; a failure raises."""
+    ``di``, and on the card K5 (``k5_ms``, which computes di in its
+    prologue) and K4 (``k4_ms``, on the call's ``di``) alone. Returns the
+    rows by name; a failure raises."""
     dev = C.resolve_device(device)
     rng = np.random.default_rng(0)
     print("== parity ==", flush=True)
@@ -488,7 +489,7 @@ def main(device: Optional[str] = None, *, parity_shape=PARITY_SHAPE,
                                            dev, it)
                 line += f"; K20 alone {row['k20_ms']:.4f} ms, K21 alone {row['k21_ms']:.4f} ms"
                 if dev.type == "cuda":  # K4/K5 have no CPU route of their own
-                    row["k5_ms"] = C.timed_ms(lambda: flash_bwd_dq(qs, ks, vs, dos, lse, di,
+                    row["k5_ms"] = C.timed_ms(lambda: flash_bwd_dq(qs, ks, vs, os_, lse, dos,
                                                                    sm_scale=sm, causal=causal),
                                               dev, it)
                     row["k4_ms"] = C.timed_ms(lambda: flash_bwd_dkv(qs, ks, vs, dos, lse, di,

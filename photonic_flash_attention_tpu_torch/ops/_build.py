@@ -63,12 +63,13 @@ _SIGNATURES: Dict[str, List] = {
     # q, k, v, o, lse (or None), relvec (or None), qkbias (or None), B, Sq,
     # Skv, Hq, Hkv, D, Hb, sm_scale, causal, dtype, stream
     "pfa_flash_fwd_bias": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
-    # q, k, v, do, lse, di, dk, dv, B, Sq, Skv, H, D, sm_scale, causal,
-    # win_lo, win_hi, seed, thresh, inv_keep, dtype, stream
-    "pfa_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I] + _STREAMS + [_I, _P],
-    # q, k, v, do, lse, di, dq, B, Sq, Skv, H, D, sm_scale, causal, win_lo,
-    # win_hi, seed, thresh, inv_keep, dtype, stream
-    "pfa_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I] + _STREAMS + [_I, _P],
+    # q, k, v, do, lse, di, dk, dv, ws (or None), counters (or None), B, Sq,
+    # Skv, Hq, Hkv, D, slices, sm_scale, causal, win_lo, win_hi, seed,
+    # thresh, inv_keep, dtype, stream
+    "pfa_flash_bwd_dkv": [_P] * 10 + [_I] * 7 + [_F, _I] + _STREAMS + [_I, _P],
+    # q, k, v, o, do, lse, dq, di (written), B, Sq, Skv, Hq, Hkv, D,
+    # sm_scale, causal, win_lo, win_hi, seed, thresh, inv_keep, dtype, stream
+    "pfa_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I] + _STREAMS + [_I, _P],
     # k_new, v_new, k_pool, v_pool, k_scales, v_scales, slots,
     # layer, B, Hkv, D, num_pages, page_size, in_dtype, pool_dtype, stream
     "pfa_paged_token_write": [_P] * 7 + [_I] * 8 + [_P],
@@ -326,6 +327,26 @@ def lib() -> ctypes.CDLL:
             loaded.pfa_error_string.restype = ctypes.c_char_p
             _lib = loaded
         return _lib
+
+
+#: Arrival counters of the kernels whose CTAs merge their partial results
+#: in the same launch (K3's splits, K4's slices), one int32 buffer a
+#: (kernel, device): zeros at allocation, and the last CTA to arrive at
+#: each counter resets it, so they are zeros between launches without a
+#: memset per call. They belong to one launch at a time (one stream).
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def arrival_counters(kernel: str, device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 arrival counters of ``kernel`` on ``device``."""
+    buf = _COUNTERS.get((kernel, device))
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}'s counters must be allocated before CUDA-graph capture: "
+                               "run the call once outside the capture first")
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[(kernel, device)] = buf
+    return buf
 
 
 def launch(name: str, device: torch.device, *args, count_as: Optional[str] = None) -> None:

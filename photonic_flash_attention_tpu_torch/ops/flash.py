@@ -391,22 +391,13 @@ def _fwd_with_lse(q, k, v, causal: bool, scale: float, kv_lens=None, k_bias=None
     )
 
 
-def _group_sum(t: torch.Tensor, hkv: int, dtype: torch.dtype) -> torch.Tensor:
-    """(B, S, Hq, D) per-q-head gradient -> (B, S, Hkv, D), summed over the
-    GQA group."""
-    b, s, hq, d = t.shape
-    if hq == hkv:
-        return t.to(dtype)
-    return t.float().view(b, s, hkv, hq // hkv, d).sum(3).to(dtype)
-
-
 class _FlashAttentionFn(torch.autograd.Function):
     """Custom gradient of flash attention (JAX ``_flash_attention_core``
     and ``_flash_attention_core_dropout``): the forward saves (q, k, v, o,
-    lse); the backward repeats K/V over the GQA group (``repeat_interleave``
-    on the head axis, JAX's ``jnp.repeat``, matching K1's ``h / (Hq/Hkv)``),
-    runs K4/K5 with the forward's window and dropout mask and sums dk/dv
-    over the group (``_flash_core_bwd``, ``ops/flash.py:1152``)."""
+    lse); the backward is one ``flash_attention_bwd`` call on K/V as they
+    are (Hkv heads) with the forward's window and dropout mask: K5, then
+    K4, which walk the GQA group themselves and sum dk/dv over it (JAX
+    ``_flash_core_bwd``, ``ops/flash.py:1152``, repeats and sums in XLA)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float, window, dropout_rate: float, dropout_seed):
@@ -420,22 +411,20 @@ class _FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        hkv = k.shape[2]
-        group = q.shape[2] // hkv
         dq, dk, dv = flash_attention_bwd(
-            q, repeat_kv(k, group), repeat_kv(v, group), o, lse, do.contiguous(),
+            q, k, v, o, lse, do.contiguous(),
             sm_scale=ctx.scale, causal=ctx.causal, window=ctx.window,
             dropout_rate=ctx.dropout[0], dropout_seed=ctx.dropout[1],
         )
-        return (dq, _group_sum(dk, hkv, k.dtype), _group_sum(dv, hkv, v.dtype),
-                None, None, None, None, None)
+        return dq, dk, dv, None, None, None, None, None
 
 
 class _FlashAttentionMaskedFn(torch.autograd.Function):
     """Custom gradient of key-padded flash attention (JAX
     ``_flash_attention_core_masked``, ``ops/flash.py:1247-1323``): K1 with
-    the streams forward, saving lse; the plain blockwise backward with the
-    GQA repeat and group sum. ``kv_lens`` takes no gradient."""
+    the streams forward, saving lse; the plain blockwise backward (JAX's is
+    XLA too) on K/V as they are, native GQA. ``kv_lens`` takes no
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, k_bias, causal: bool, scale: float):
@@ -447,26 +436,22 @@ class _FlashAttentionMaskedFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, kv_lens, k_bias = ctx.saved_tensors
-        hkv = k.shape[2]
-        group = q.shape[2] // hkv
         dq, dk, dv, dkb, _ = flash_attention_bwd_masked_plain(
-            q, repeat_kv(k, group), repeat_kv(v, group), o, lse, do,
-            sm_scale=ctx.scale, causal=ctx.causal, kv_lens=kv_lens, k_bias=k_bias,
+            q, k, v, o, lse, do, sm_scale=ctx.scale, causal=ctx.causal, kv_lens=kv_lens,
+            k_bias=k_bias,
         )
         if dkb is not None:
             dkb = dkb.to(k_bias.dtype)
-        return (
-            dq, _group_sum(dk, hkv, k.dtype), _group_sum(dv, hkv, v.dtype),
-            None, dkb, None, None,
-        )
+        return dq, dk, dv, None, dkb, None, None
 
 
 class _FlashAttentionRelFn(torch.autograd.Function):
     """Custom gradient of relative-bias flash attention (JAX
     ``_flash_attention_core_rel``, ``ops/flash.py:1421-1494``): K1's
     relative-bias mode with lse forward; the plain blockwise backward
-    (JAX's is XLA too) gives dq, dk, dv and the gradient of the bias
-    vector ``vec``, which autograd carries to the table or the slopes."""
+    (JAX's is XLA too; native GQA) gives dq, dk, dv and the gradient of the
+    bias vector ``vec``, which autograd carries to the table or the
+    slopes."""
 
     @staticmethod
     def forward(ctx, q, k, v, vec, causal: bool, scale: float, count: str):
@@ -484,14 +469,10 @@ class _FlashAttentionRelFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, vec = ctx.saved_tensors
-        hkv = k.shape[2]
-        group = q.shape[2] // hkv
         dq, dk, dv, _, dvec = flash_attention_bwd_masked_plain(
-            q, repeat_kv(k, group), repeat_kv(v, group), o, lse, do,
-            sm_scale=ctx.scale, causal=ctx.causal, rel_vec=vec,
+            q, k, v, o, lse, do, sm_scale=ctx.scale, causal=ctx.causal, rel_vec=vec,
         )
-        return (dq, _group_sum(dk, hkv, k.dtype), _group_sum(dv, hkv, v.dtype),
-                dvec.to(vec.dtype), None, None, None)
+        return dq, dk, dv, dvec.to(vec.dtype), None, None, None
 
 
 def flash_attention(

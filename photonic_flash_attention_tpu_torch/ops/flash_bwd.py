@@ -11,34 +11,42 @@ carries that contract and launches one kernel pair for every shape, and
 :func:`bwd_unrolled_supported` becomes the kernels' shape envelope.
 
 Layout is the port's (B, S, H, D) (the JAX functions take (B, H, S, D));
-lse and di are (B, H, Sq) fp32, lse in natural log. K/V come in already
-repeated to the q heads for GQA; the caller sums dk/dv over the group
-(``ops/flash.py``). ``di = rowsum(o * dO)`` is computed in fp32 PyTorch,
-as the JAX functions compute it in XLA. The grid pair's streams are
-here too: the sliding ``window`` (lo, hi) on rel = col - (row + Skv - Sq)
-(JAX ``_tile_masks``), whose key and query tile ranges the kernels walk,
-and attention dropout (``dropout_rate``, ``dropout_seed``), whose keep
-mask K4 and K5 regenerate from the position (``ops/dropout.py``): it
-scales dV's P and dP by 1 / (1 - rate) where kept, and di = rowsum(o * dO)
-over the dropped output (JAX ``_p_and_ds``).
+lse and di are (B, Hq, Sq) fp32, lse in natural log. The pair computes the
+whole backward function of JAX's ``_flash_core_bwd`` (``ops/flash.py``),
+whose XLA parts (``di = rowsum(o * dO)``, the GQA repeat of K/V and the
+group sum of dK/dV) live in the kernels here: K/V come with Hkv heads
+(query head h reads KV head h // (Hq / Hkv), K1's mapping and
+``jnp.repeat``'s order), K5 computes di in its prologue and writes it for
+K4, which walks each KV head's group of query heads and returns dk/dv with
+Hkv heads, summed over the group in fp32 and rounded once; so K5 launches
+first. The grid pair's streams are here too: the sliding ``window`` (lo,
+hi) on rel = col - (row + Skv - Sq) (JAX ``_tile_masks``), whose key and
+query tile ranges the kernels walk, and attention dropout
+(``dropout_rate``, ``dropout_seed``), whose keep mask K4 and K5
+regenerate from the position (``ops/dropout.py``): it scales dV's P and
+dP by 1 / (1 - rate) where kept, and di = rowsum(o * dO) over the dropped
+output (JAX ``_p_and_ds``).
 
-For CUDA tensors :func:`flash_attention_bwd` launches K4 and K5 (or
+For CUDA tensors :func:`flash_attention_bwd` launches K5 and then K4 (or
 raises); for CPU tensors it runs :func:`flash_attention_bwd_plain`, the
 blockwise :func:`flash_attention_bwd_masked_plain` (also the whole
 backward of the key-stream and relative-bias paths of ``ops/flash.py``,
-as the JAX package keeps those in XLA).
+as the JAX package keeps those in XLA), which takes the same native GQA
+(it repeats K/V inside and sums dk/dv over the group in fp32).
+:func:`flash_bwd_di` stays as the plain helper of di.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
 from . import _build
 from ._build import KERNEL_DTYPES, KERNEL_HEAD_DIMS
 from .dropout import Seed, dropout_scale, keep_scale, keep_threshold, seed_u32
-from .reference import Window, window_keep
+from .reference import Window, repeat_kv, window_keep
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -85,15 +93,18 @@ def bwd_unrolled_supported(seq_len: int, head_dim: int) -> bool:
 def _validate(q, k, v, o, lse, do, causal: bool) -> None:
     if q.ndim != 4 or k.shape != v.shape or o.shape != q.shape or do.shape != q.shape:
         raise ValueError(
-            f"expected q/o/do (B,Sq,H,D) and k/v (B,Skv,H,D); got q {tuple(q.shape)}, "
+            f"expected q/o/do (B,Sq,Hq,D) and k/v (B,Skv,Hkv,D); got q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}, o {tuple(o.shape)}, "
             f"do {tuple(do.shape)}"
         )
     b, sq, h, d = q.shape
-    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
+    if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(
-            f"k/v {tuple(k.shape)} must match q {tuple(q.shape)} in batch, heads "
-            "(repeated for GQA) and head_dim"
+            f"k/v {tuple(k.shape)} must match q {tuple(q.shape)} in batch and head_dim"
+        )
+    if k.shape[2] < 1 or h % k.shape[2]:
+        raise ValueError(
+            f"q heads ({h}) must be a multiple of the k/v heads ({k.shape[2]}) for GQA"
         )
     if lse.shape != (b, h, sq):
         raise ValueError(f"lse must be (B, H, Sq) = {(b, h, sq)}, got {tuple(lse.shape)}")
@@ -135,8 +146,8 @@ def flash_attention_bwd_plain(
 
 
 def flash_attention_bwd_masked_plain(
-    q: torch.Tensor,  # (B, Sq, H, D)
-    k: torch.Tensor,  # (B, Skv, H, D), already repeated over the GQA group
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Skv, Hkv, D); Hq a multiple of Hkv
     v: torch.Tensor,
     o: torch.Tensor,
     lse: torch.Tensor,  # (B, H, Sq) natural log
@@ -162,7 +173,9 @@ def flash_attention_bwd_masked_plain(
 
     P is zero outside the valid keys (causal, window, lengths; masked before
     the exp, so a row with lse = -inf gives P = 0), M the dropout mask's
-    multiplier (1 without dropout), di = rowsum(o * dO). ``rel_vec``
+    multiplier (1 without dropout), di = rowsum(o * dO). GQA: K/V are
+    repeated over the group here (query head h reads KV head h // group)
+    and dK/dV summed over it in fp32, then rounded once. ``rel_vec``
     (H, Sq+Skv-1) is K1's relative-bias vector (rel = col - (row + Skv -
     Sq) at index col - row + Sq - 1). Returns (dq, dk, dv) in the inputs'
     dtypes, the ``k_bias`` gradient (B, Skv) fp32 (sum of ds over heads and
@@ -170,10 +183,10 @@ def flash_attention_bwd_masked_plain(
     (sum of ds over batch and each diagonal; the JAX table gradient is its
     sum over each bucket, the slope gradient its dot with rel) or None."""
     b, sq, h, d = q.shape
-    skv = k.shape[1]
+    skv, hkv = k.shape[1], k.shape[2]
     qf = q.float().transpose(1, 2)
-    kf = k.float().transpose(1, 2)
-    vf = v.float().transpose(1, 2)
+    kf = repeat_kv(k.float(), h // hkv).transpose(1, 2)
+    vf = repeat_kv(v.float(), h // hkv).transpose(1, 2)
     dof = do.float().transpose(1, 2)
     di = (o.float().transpose(1, 2) * dof).sum(-1, keepdim=True)
     lse_e = lse.float()[..., None]
@@ -213,30 +226,34 @@ def flash_attention_bwd_masked_plain(
             dkb[:, c0:c1] = dsb.sum(dim=(1, 2))
         if dvec is not None:
             dvec.index_add_(1, idx.reshape(-1), dsb.sum(0).reshape(h, -1))
+    group_sum = lambda t: t.view(b, hkv, h // hkv, skv, d).sum(2)  # noqa: E731
     back = lambda t, like: t.transpose(1, 2).to(like.dtype)  # noqa: E731
-    return back(dq, q), back(dk, k), back(dv, v), dkb, dvec
+    return back(dq, q), back(group_sum(dk), k), back(group_sum(dv), v), dkb, dvec
 
 
-def _check_cuda(q, k, v, do, lse, di) -> None:
+def _check_cuda(lse, di, **tensors) -> None:
+    q = tensors["q"]
     d = q.shape[-1]
-    if not all(bwd_unrolled_supported(s, d) for s in (q.shape[1], k.shape[1])):
+    if not all(bwd_unrolled_supported(s, d) for s in (q.shape[1], tensors["k"].shape[1])):
         raise ValueError(
             f"K4/K5 take lengths >= 1 and head_dim in {KERNEL_HEAD_DIMS}; got Sq {q.shape[1]}, "
-            f"Skv {k.shape[1]}, D {d}"
+            f"Skv {tensors['k'].shape[1]}, D {d}"
         )
-    if q.dtype not in KERNEL_DTYPES or not (q.dtype == k.dtype == v.dtype == do.dtype):
+    if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in tensors.values()):
         raise ValueError(
-            f"K4/K5 take q, k, v, do all of one dtype in {KERNEL_DTYPES}; got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}"
+            f"K4/K5 take {', '.join(tensors)} all of one dtype in {KERNEL_DTYPES}; got "
+            f"{', '.join(str(t.dtype) for t in tensors.values())}"
         )
-    if lse.dtype != torch.float32 or di.dtype != torch.float32:
+    if lse.dtype != torch.float32 or (di is not None and di.dtype != torch.float32):
         raise ValueError("lse and di must be float32")
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("lse", lse), ("di", di)):
+    for name, t in (*tensors.items(), ("lse", lse), ("di", di)):
+        if t is None:
+            continue
         if t.device.type != "cuda":
             raise ValueError(f"K4/K5 run on CUDA tensors; {name} is on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"K4/K5 need contiguous inputs; {name} is not")
-        if q.dtype == torch.bfloat16 and name in ("q", "k", "v", "do") and t.data_ptr() % 16:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(
                 f"K4/K5 need 16-byte-aligned bf16 inputs (TMA); {name} starts at {t.data_ptr():#x}"
             )
@@ -254,42 +271,105 @@ def _streams(window, dropout_rate, dropout_seed) -> tuple:
     return (*kernel_window(window), *kernel_dropout(dropout_rate, dropout_seed))
 
 
+#: Keys of a K4 work tile (two consumer warpgroups of 64) and queries of
+#: its ring tile (``csrc/flash_bwd_sm90.cu``: ``BLOCK``, ``DkvCfg::BQ``).
+K4_BLOCK, K4_QUERY_TILE = 128, 64
+
+
+def k4_query_tiles(sq: int, skv: int, causal: bool, window: Optional[Window] = None) -> List[int]:
+    """The query tiles each 128-key block of K4 walks for one head: the
+    ring tiles from which its keys are seen (``common.cuh``'s
+    ``band_q_begin``/``band_q_end``, the first floored to a tile)."""
+    lo, hi = kernel_window(window)
+    hi = 0 if causal and hi > 0 else hi
+    off, bq = skv - sq, K4_QUERY_TILE
+    tiles = []
+    for kv0 in range(0, skv, K4_BLOCK):
+        first = kv0 - off - hi
+        begin = 0 if first <= 0 else first // bq * bq
+        end = min(max(kv0 + K4_BLOCK - off - lo, 0), sq)
+        tiles.append(-(-(end - begin) // bq) if end > begin else 0)
+    return tiles
+
+
+@functools.lru_cache(maxsize=256)
+def k4_slices(b: int, sq: int, skv: int, hq: int, hkv: int, causal: bool,
+              window: Optional[Window] = None, sms: int = 132) -> int:
+    """The slices K4 cuts each KV head's group of ``hq // hkv`` query heads
+    into: the fewest (a divisor of the group, at least two heads a slice)
+    whose longest work tile, its heads times its key block's query tiles,
+    is no longer than the mean work of an SM on the persistent grid of
+    ``sms``. One slice a group gives B x Hkv x key blocks work tiles, too
+    few to balance at Llama's B1 Hkv8 S2048 causal (128 tiles, the first
+    walking 8 x 32 query tiles against a mean of 132 an SM: 2 slices of 4
+    heads). Each slice more writes and reads its fp32 dK/dV partials once,
+    and a slice of one head pays that for too little work (``chip_smoke.py``'s
+    ``K4 slices`` table, PERF.md). MHA and groups of 2: 1."""
+    group = hq // hkv
+    cuts = [n for n in range(1, group + 1) if group % n == 0 and (n == 1 or group // n >= 2)]
+    tiles = k4_query_tiles(sq, skv, causal, window)
+    per_sm = b * hq * sum(tiles) / sms
+    for slices in cuts:
+        if group // slices * max(tiles, default=0) <= per_sm:
+            return slices
+    return cuts[-1]
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, *, sm_scale: float, causal: bool,
+                 window: Optional[Window] = None, dropout_rate: float = 0.0,
+                 dropout_seed: Optional[Seed] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5 on CUDA tensors: (dq in q's dtype, di (B, Hq, Sq) fp32),
+    di = rowsum(o * dO) computed in the kernel's prologue for K4. q, o, do
+    (B, Sq, Hq, D), k, v (B, Skv, Hkv, D). Counted as ``pfa_flash_bwd_dq``,
+    ``_window`` or ``_dropout``."""
+    _check_cuda(lse, None, q=q, k=k, v=v, o=o, do=do)
+    b, sq, hq, d = q.shape
+    dq = torch.empty_like(q)
+    di = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    _build.launch(
+        "pfa_flash_bwd_dq", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), di.data_ptr(),
+        b, sq, k.shape[1], hq, k.shape[2], d, float(sm_scale), int(causal),
+        *_streams(window, dropout_rate, dropout_seed), _build.DTYPE_CODES[q.dtype],
+        count_as=_mode("pfa_flash_bwd_dq", window, dropout_rate),
+    )
+    return dq, di
+
+
 def flash_bwd_dkv(q, k, v, do, lse, di, *, sm_scale: float, causal: bool,
                   window: Optional[Window] = None, dropout_rate: float = 0.0,
-                  dropout_seed: Optional[Seed] = None):
-    """Launch K4 on CUDA tensors: (dk, dv) in k's dtype. Counted as
+                  dropout_seed: Optional[Seed] = None, slices: Optional[int] = None):
+    """Launch K4 on CUDA tensors: (dk, dv) (B, Skv, Hkv, D) in k's dtype,
+    summed over each GQA group in fp32 and rounded once. di from K5
+    (:func:`flash_bwd_dq`). ``slices`` (bf16; a divisor of the group, by
+    default :func:`k4_slices`) cuts each group's query heads; with more than
+    one, the slices' fp32 partials go through a workspace and the last to
+    arrive sums them in slice order. fp32 takes one slice. Counted as
     ``pfa_flash_bwd_dkv``, ``_window`` or ``_dropout``."""
-    _check_cuda(q, k, v, do, lse, di)
-    b, sq, h, d = q.shape
+    _check_cuda(lse, di, q=q, k=k, v=v, do=do)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if slices is None and q.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        slices = k4_slices(b, sq, skv, hq, hkv, causal, window, sms)
+    slices = slices or 1
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ws = counters = None
+    if slices > 1:
+        blocks = b * hkv * -(-skv // K4_BLOCK)  # (b, KV head, key block)
+        ws = torch.empty(2 * slices * blocks * K4_BLOCK * d, dtype=torch.float32, device=q.device)
+        counters = _build.arrival_counters("K4", q.device, blocks)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _build.launch(
         "pfa_flash_bwd_dkv", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, sq, k.shape[1], h, d, float(sm_scale), int(causal),
+        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(ws), ptr(counters),
+        b, sq, skv, hq, hkv, d, int(slices), float(sm_scale), int(causal),
         *_streams(window, dropout_rate, dropout_seed), _build.DTYPE_CODES[q.dtype],
         count_as=_mode("pfa_flash_bwd_dkv", window, dropout_rate),
     )
     return dk, dv
-
-
-def flash_bwd_dq(q, k, v, do, lse, di, *, sm_scale: float, causal: bool,
-                 window: Optional[Window] = None, dropout_rate: float = 0.0,
-                 dropout_seed: Optional[Seed] = None):
-    """Launch K5 on CUDA tensors: dq in q's dtype. Counted as
-    ``pfa_flash_bwd_dq``, ``_window`` or ``_dropout``."""
-    _check_cuda(q, k, v, do, lse, di)
-    b, sq, h, d = q.shape
-    dq = torch.empty_like(q)
-    _build.launch(
-        "pfa_flash_bwd_dq", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(),
-        b, sq, k.shape[1], h, d, float(sm_scale), int(causal),
-        *_streams(window, dropout_rate, dropout_seed), _build.DTYPE_CODES[q.dtype],
-        count_as=_mode("pfa_flash_bwd_dq", window, dropout_rate),
-    )
-    return dq
 
 
 def flash_attention_bwd(
@@ -308,10 +388,13 @@ def flash_attention_bwd(
 ) -> Grads:
     """Flash-attention backward: (dq, dk, dv) in the inputs' dtypes.
 
-    q, o, do (B, Sq, H, D); k, v (B, Skv, H, D), repeated for GQA; lse
-    (B, H, Sq) fp32 natural log, as ``flash_attention_with_lse`` returns
+    q, o, do (B, Sq, Hq, D); k, v (B, Skv, Hkv, D) with Hq a multiple of
+    Hkv (query head h reads KV head h // (Hq / Hkv)); dk, dv come out
+    (B, Skv, Hkv, D), summed over the group in fp32 and rounded once. lse
+    (B, Hq, Sq) fp32 natural log, as ``flash_attention_with_lse`` returns
     it. ``window`` (lo, hi) and ``dropout_rate``/``dropout_seed`` must be
-    the forward's. O(S) memory on CUDA: probability tiles exist only in
+    the forward's. On CUDA: K5 (dq and di), then K4 (dk, dv), one launch
+    each and nothing else; O(S) memory: probability tiles exist only in
     registers.
     """
     validate_dropout(dropout_rate, dropout_seed)
@@ -319,9 +402,9 @@ def flash_attention_bwd(
     kw = dict(sm_scale=sm_scale, causal=causal, window=window, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
     if q.device.type == "cuda":
-        di = flash_bwd_di(o, do)
+        # K1's o is contiguous already; K5 reads o by rows of 16-byte loads.
+        dq, di = flash_bwd_dq(q, k, v, o.contiguous(), lse, do, **kw)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, **kw)
-        dq = flash_bwd_dq(q, k, v, do, lse, di, **kw)
         return dq, dk, dv
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -322,24 +322,6 @@ def k3_plan(b: int, hq: int, hkv: int, d: int, elt: int, page: int, pps: int,
     return K3Plan(tile, split_pages, n_split, gcmax, n_gchunk, block, smem)
 
 
-#: K3's arrival counters, one int32 a (sequence, kv head, head chunk), by
-#: device: zeros at allocation, and the last split of each row resets its
-#: counter, so they are zeros between launches without a memset per call.
-#: They belong to one launch at a time (one stream).
-_K3_COUNTERS: Dict[torch.device, torch.Tensor] = {}
-
-
-def _k3_counters(device: torch.device, n: int) -> torch.Tensor:
-    buf = _K3_COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("K3's counters must be allocated before CUDA-graph capture: "
-                               "run the call once outside the capture first")
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _K3_COUNTERS[device] = buf
-    return buf
-
-
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -365,7 +347,7 @@ def _k3_launch(count_as: str, device: torch.device, q, k_pages, v_pages, k_scale
     if plan.n_split > 1:  # the splits' (m, l, acc) records
         ws = torch.empty(rows * plan.n_split * plan.gcmax * (d + 2), device=device,
                          dtype=torch.float32)
-    counters = _k3_counters(device, rows)
+    counters = _build.arrival_counters("K3", device, rows)
     fused = flat_slots is not None
     _build.launch(
         "pfa_paged_k3", device,

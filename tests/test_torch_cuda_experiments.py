@@ -871,14 +871,14 @@ def test_k20_row_blocks_match_plain(cuda_device, s, block_q, d, causal):
 @pytest.mark.parametrize("causal", [False, True])
 def test_k20_equals_k5(cuda_device, d, causal):
     """Each row of K20 sees K5's key tiles in K5's order, so at row-blocks
-    on K5's 128-row grid its dq is K5's bit for bit."""
+    on K5's 128-row grid, on the di K5 computes in its prologue, its dq is
+    K5's bit for bit."""
     b, s, h = 2, 512, 3
     q, k, v, o, lse, do = _bwd_inputs(cuda_device, 47, (b, s, h, d), torch.bfloat16, causal)
-    di = bwd.flash_bwd_di(o, do)
+    t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    k5, di = flash_bwd_dq(t(q), t(k), t(v), t(o), lse, t(do), sm_scale=d ** -0.5, causal=causal)
     got = bwd.dq_rowblocks(q, k, v, do, lse, di, sm_scale=d ** -0.5, causal=causal,
                            block_q=256, block_kv=256)
-    t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
-    k5 = flash_bwd_dq(t(q), t(k), t(v), t(do), lse, di, sm_scale=d ** -0.5, causal=causal)
     torch.cuda.synchronize()
     assert torch.equal(got, k5.transpose(1, 2))
 

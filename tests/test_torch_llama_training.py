@@ -155,8 +155,9 @@ def test_step0_grads_match_jax(_flash_route, monkeypatch):
 
     monkeypatch.setattr(port_flash, "flash_attention_bwd", counted)
     lm_loss(model, {k: torch.from_numpy(v) for k, v in batch.items()}).backward()
-    hq = PORT_CFG.num_attention_heads
-    assert calls == [(hq, hq)] * PORT_CFG.num_hidden_layers  # K/V repeated to the q heads
+    hq, hkv = PORT_CFG.num_attention_heads, PORT_CFG.num_key_value_heads
+    assert hkv < hq  # the tiny config has GQA
+    assert calls == [(hq, hkv)] * PORT_CFG.num_hidden_layers  # K/V with their own heads
     grads = jax.jit(jax.grad(lambda p, b: jax_lm_loss(JaxLlama(JAX_CFG).apply, p, b)))(
         params, {k: jnp.asarray(v) for k, v in batch.items()})
     ref = _state(grads)
