@@ -252,6 +252,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    sanitizer refusing a CUDA tensor with a NaN, ``sanitize_state_dict``
    passing GPT-2 medium on the card. K1 and K3's fused decode must launch.
 
+Every decode path (serving, durable, parallel, llama, T5, shell and the
+CLI's ``serve-bench`` rows) runs its windows as the engine does on the
+card: each decode step one replay of a CUDA graph, whose captured kernel
+calls count as launches once a replay (``ops/_build.py::count_replays``),
+so each path's launch checks count what the card ran. Each path holds the
+graphed windows against an engine whose windows run eagerly
+(``_eager_windows``: ``_window_eager``, the window's plain version) at the
+same widths: greedy tokens bit-equal (the durable path's sampled runs
+too), decode ms a step of both, the graphs' count, capture ms and pool
+bytes printed (``check_window_graphs``); the serving path, Llama-2-7B and
+T5 profile one window of each (the card's busy and idle share).
+
 The device phase prints the card's idle draw before any work (the
 roofline's static power); the engine phase each measured call's roofline
 energy. The last lines are the per-kernel JSON summary (each kernel's launches in
@@ -2980,6 +2992,88 @@ def gpt2_medium_on_card(cfg):
     return model
 
 
+def _eager_windows(engine):
+    """``engine`` with every decode window run as eager steps
+    (``_window_eager``, the window's plain version) where it would replay
+    its step graphs: the reference a graphed window is held against, at
+    the same widths."""
+    engine._window_graphed = engine._window_eager
+    return engine
+
+
+def _decode_ms(engine) -> float:
+    """The engine's decode ms a step since its last stats reset (host
+    clock, each window ended by its token read)."""
+    stats = engine.get_performance_stats()
+    return 1e3 * stats["decode_time"] / max(stats["decode_steps"], 1)
+
+
+def _graphs_of(engine) -> str:
+    st = engine.window_graph_stats()
+    return (f"{st['graphs']} step graphs, capture {[round(c, 2) for c in st['capture_ms']]} ms, "
+            f"pool {st['pool_bytes']} bytes")
+
+
+def _profile_window(engine, prompts, new_tokens: int, tag: str) -> None:
+    """``prompts`` served once more by ``engine``, its first decode window
+    under torch.profiler (``_profile_runs``: the window's wall, the card's
+    busy time and its idle share)."""
+    import tempfile
+
+    run, profiled = engine._window_graphed, []
+
+    def once(*args):
+        if profiled:
+            return run(*args)
+        profiled.append(tag)
+        with tempfile.TemporaryDirectory() as tmp:
+            _profile_runs(lambda: run(*args), 1, Path(tmp), tag)
+
+    engine._window_graphed = once
+    engine.generate(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+
+
+def check_window_graphs(label: str, engine, make_engine, prompts, new_tokens: int, smi: str,
+                        profile_tag: Optional[str] = None) -> dict:
+    """``engine`` has served ``prompts`` once, so each width's step graph
+    is captured: it serves them again (timed), and a fresh engine of
+    ``make_engine()`` with eager windows serves them after the same
+    warm-up. The greedy tokens must be bit-equal. Prints decode ms a step of
+    both, the graphs' count, capture ms and pool bytes; with
+    ``profile_tag``, one window of each under torch.profiler (the card's
+    busy share). Returns the graphed run's launches (replays counted)."""
+    engine.reset_performance_stats()
+    _build.reset_launches()
+    got = engine.generate(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    graphed_ms = _decode_ms(engine)
+    eager = _eager_windows(make_engine())
+    eager.generate([p[:8] for p in prompts[:2]], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    eager.reset_performance_stats()
+    want = eager.generate(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    eager_ms = _decode_ms(eager)
+    if not engine.window_graph_stats()["graphs"]:
+        raise AssertionError(f"decode window: {label}: no window ran from a step graph")
+    line = (f"decode window: {label}, {len(prompts)} requests x {new_tokens} tokens: graphed "
+            f"{graphed_ms:.3f} ms a step, eager {eager_ms:.3f} ms a step "
+            f"({eager_ms / graphed_ms:.2f}x); {_graphs_of(engine)}; greedy tokens equal to the "
+            f"eager window's: {got == want} ({smi})")
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"{line}: requests {bad} differ")
+    print(line, flush=True)
+    if profile_tag:
+        _profile_window(engine, prompts, new_tokens, f"{profile_tag}_graphed")
+        _profile_window(eager, prompts, new_tokens, f"{profile_tag}_eager")
+    del eager
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_serving(smi: str) -> dict:
     from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
     from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config
@@ -3026,6 +3120,12 @@ def phase_serving(smi: str) -> dict:
           f"{stats['prefill_tokens']} tokens at {stats['prefill_tokens_per_s']:.1f} tokens/s "
           f"({smi})", flush=True)
 
+    window_launches = check_window_graphs(
+        "GPT-2 medium int8 pool", engine,
+        lambda: ServingEngine(cfg, model.state_dict(), device="cuda", num_pages=256,
+                              page_size=128, max_batch=8, kv_dtype=torch.int8, decode_window=32),
+        prompts, NEW_TOKENS, smi, profile_tag="gpt2_medium_window")
+    del engine
     chunked_launches = check_chunked_serving(cfg, model, prompts, outs, smi)
 
     # First step: the serving prefill's logits for prompt 0 against the
@@ -3047,7 +3147,8 @@ def phase_serving(smi: str) -> dict:
     if err > 5e-2:
         raise AssertionError(line)
     print(line, flush=True)
-    return collections.Counter(launches) + collections.Counter(chunked_launches)
+    return (collections.Counter(launches) + collections.Counter(window_launches)
+            + collections.Counter(chunked_launches))
 
 
 # -- durable path: the KV cache, serving checkpoints, training resume -------
@@ -3164,7 +3265,15 @@ def _resume_case(label: str, cfg, state, prompts, engine_kw: dict, tmp: str, smi
         raise AssertionError(f"durable path ({label}): engine on {st['allocator']} and "
                              f"{st['scheduler']}, not the native pair")
     want = engine.generate(prompts, max_new_tokens=DURABLE_NEW_TOKENS)
+    graphs = _graphs_of(engine)
+    if not engine.window_graph_stats()["graphs"]:
+        raise AssertionError(f"durable path ({label}): no decode window ran from a step graph")
     del engine
+    eager = _eager_windows(ServingEngine(cfg, state, device="cuda", **kw))
+    if eager.generate(prompts, max_new_tokens=DURABLE_NEW_TOKENS) != want:
+        raise AssertionError(f"durable path ({label}): the graphed windows' tokens differ from "
+                             f"the eager windows'")
+    del eager
 
     engine = ServingEngine(cfg, state, device="cuda", **kw)
     sids = [engine.submit(p, DURABLE_NEW_TOKENS) for p in prompts]
@@ -3195,7 +3304,8 @@ def _resume_case(label: str, cfg, state, prompts, engine_kw: dict, tmp: str, smi
     mode = (f"sampled (temperature {sample['temperature']}, top_k {sample['top_k']}, seed "
             f"{sample['seed']})" if sample else "greedy")
     print(f"durable path: {label} {mode}, {len(prompts)} requests x {DURABLE_NEW_TOKENS} "
-          f"tokens: saved after {DURABLE_SAVE_AFTER} steps, resumed {steps} steps, tokens equal "
+          f"tokens: the uninterrupted run's graphed windows ({graphs}) give the eager windows' "
+          f"tokens; saved after {DURABLE_SAVE_AFTER} steps, resumed {steps} steps, tokens equal "
           f"to the uninterrupted run's; save {save_ms:.1f} ms, restore {restore_ms:.1f} ms, "
           f"checkpoint {_dir_bytes(path)} bytes ({smi})", flush=True)
     del engine
@@ -3729,6 +3839,15 @@ def _check_par_serving(mesh_dm, tmp: str, runs: dict, smi: str) -> None:
     if got != want:
         raise AssertionError(f"sharded serving: tokens differ from the unsharded engine's: "
                              f"{got} vs {want}")
+    graphed_ms, graphs = _decode_ms(eng), _graphs_of(eng)
+    eager = _eager_windows(ServingEngine(cfg, state, device="cuda", mesh=mesh_dm, **kw))
+    if eager.generate(prompts, max_new_tokens=PAR_SERVE_NEW) != got:
+        raise AssertionError("sharded serving: the graphed windows' tokens differ from the "
+                             "eager windows'")
+    print(f"parallel path: sharded serving's windows from step graphs ({graphs}), "
+          f"{graphed_ms:.3f} ms a step with the graphs' captures, eager windows "
+          f"{_decode_ms(eager):.3f} ms a step; tokens equal ({smi})", flush=True)
+    del eager
     path = str(Path(tmp) / "serve")
 
     def resume():
@@ -3951,7 +4070,8 @@ def _dense_last_logits(model, tokens, positions) -> torch.Tensor:
     return out[list(positions)].float()
 
 
-def _llama_path(label: str, cfg, smi: str) -> collections.Counter:
+def _llama_path(label: str, cfg, smi: str, profile_tag: Optional[str] = None
+                ) -> collections.Counter:
     """One Llama configuration served on the card (random bf16 weights from
     seed 0, made on the card): 8 requests through an int8 pool with the
     launch counts asserted and the decode rates printed; the last-prompt
@@ -4016,6 +4136,9 @@ def _llama_path(label: str, cfg, smi: str) -> collections.Counter:
         raise AssertionError(line)
     print(line, flush=True)
     whole_logits = {k: v for k, v in first_logits.items() if len(k) > PREFILL_CHUNK}
+    counts.update(check_window_graphs(f"{label} int8 pool", engine,
+                                      lambda: _llama_engine(cfg, state), prompts, NEW_TOKENS, smi,
+                                      profile_tag))
     del engine
     torch.cuda.empty_cache()
 
@@ -4047,12 +4170,15 @@ def _llama_path(label: str, cfg, smi: str) -> collections.Counter:
 
     # Decode steps 1-4 over a bf16 pool: slot i serves request i.
     engine = _llama_engine(cfg, state, kv_dtype=torch.bfloat16)
-    step_logits = []
+    step_logits = torch.zeros(LLAMA_DECODE_CHECK_STEPS, engine.max_batch, cfg.vocab_size,
+                              device="cuda")
     decode = engine._decode_step
 
     def keep(*args):
+        # Runs at the window's eager first step and into its step graph:
+        # each replay stores its logits at row ``step`` of the window.
         logits = decode(*args)
-        step_logits.append(logits.float().clone())
+        step_logits.index_copy_(0, engine._win.step, logits.float()[None])
         return logits
 
     engine._decode_step = keep
@@ -4061,9 +4187,11 @@ def _llama_path(label: str, cfg, smi: str) -> collections.Counter:
     served = engine.generate(list(checked), max_new_tokens=LLAMA_DECODE_CHECK_STEPS + 1)
     torch.cuda.synchronize()
     counts.update(_build.LAUNCHES)
-    if len(step_logits) != LLAMA_DECODE_CHECK_STEPS:
-        raise AssertionError(f"{label}: {len(step_logits)} decode steps, expected "
-                             f"{LLAMA_DECODE_CHECK_STEPS}")
+    steps = engine.get_performance_stats()["decode_steps"]
+    if steps != LLAMA_DECODE_CHECK_STEPS or engine.window_graph_stats()["graphs"] != 1:
+        raise AssertionError(f"{label}: {steps} decode steps in "
+                             f"{engine.window_graph_stats()['graphs']} step graphs, expected "
+                             f"{LLAMA_DECODE_CHECK_STEPS} in one")
     errs = []
     for slot, (p, o) in enumerate(zip(checked, served)):
         n = len(p)
@@ -4088,9 +4216,9 @@ def phase_llama(smi: str) -> dict:
     from photonic_flash_attention_tpu_torch.models.llama import LlamaConfig
 
     counts = collections.Counter()
-    for label, cfg in (("Llama-2-7B", LlamaConfig.llama2_7b()),
-                       ("Llama-2-70B width, 2 layers", _llama_70b_width())):
-        counts += _llama_path(label, cfg, smi)
+    for label, cfg, tag in (("Llama-2-7B", LlamaConfig.llama2_7b(), "llama2_7b_window"),
+                            ("Llama-2-70B width, 2 layers", _llama_70b_width(), None)):
+        counts += _llama_path(label, cfg, smi, tag)
     return counts
 
 
@@ -4631,16 +4759,22 @@ def check_t5_forward(cfg) -> dict:
     return launches
 
 
-def _serve_t5(cfg, state, prompts, kv_dtype, profile_dir: Optional[str] = None):
+def _serve_t5(cfg, state, prompts, kv_dtype, smi: str, profile_dir: Optional[str] = None,
+              window_check: bool = False):
     """Serve ``prompts`` on a fresh engine (warm-up first): (outputs, first
-    logits by prompt, launches of the timed run, stats, wall). With
-    ``profile_dir``, the same requests are served once more under the
-    profiler (``_profile_runs``)."""
+    logits by prompt, launches of the timed run, stats, wall, launches of
+    the window check). With ``profile_dir``, the same requests are served
+    once more under the profiler (``_profile_runs``); with
+    ``window_check``, the graphed windows are held against eager ones and
+    one window of each is profiled (``check_window_graphs``)."""
     from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
 
-    engine = ServingEngine(cfg, state, device="cuda", num_pages=64, page_size=128,
-                           max_batch=8, max_pages_per_seq=4, kv_dtype=kv_dtype,
-                           decode_window=32, enc_max_len=T5_ENC_MAX_LEN)
+    def make():
+        return ServingEngine(cfg, state, device="cuda", num_pages=64, page_size=128,
+                             max_batch=8, max_pages_per_seq=4, kv_dtype=kv_dtype,
+                             decode_window=32, enc_max_len=T5_ENC_MAX_LEN)
+
+    engine = make()
     engine.generate([p[:8] for p in prompts[:2]], max_new_tokens=2)  # warm-up
     torch.cuda.synchronize()
     engine.reset_performance_stats()
@@ -4656,9 +4790,14 @@ def _serve_t5(cfg, state, prompts, kv_dtype, profile_dir: Optional[str] = None):
         tag = f"t5_serving_{str(cfg.dtype)[6:]}_{str(kv_dtype)[6:]}"
         _profile_runs(lambda: engine.generate(prompts, max_new_tokens=T5_NEW_TOKENS), 1,
                       Path(profile_dir), tag)
+    window_launches = {}
+    if window_check:
+        label = f"T5-large {str(cfg.dtype)[6:]} compute, {str(kv_dtype)[6:]} pool"
+        window_launches = check_window_graphs(label, engine, make, prompts, T5_NEW_TOKENS, smi,
+                                              profile_tag="t5_large_window")
     del engine
     torch.cuda.empty_cache()
-    return outs, first_logits, launches, stats, wall
+    return outs, first_logits, launches, stats, wall, window_launches
 
 
 def _check_greedy_parity(model, prompt, served) -> float:
@@ -4752,8 +4891,9 @@ def phase_t5(smi: str, profile_dir: Optional[str] = None) -> dict:
     need = cfg.num_decoder_layers * (len(prompts) + decode_steps)
     for run_cfg, kv_dtype in ((cfg32, torch.bfloat16), (cfg32, torch.int8), (cfg, torch.bfloat16)):
         checked = run_cfg.dtype == torch.float32
-        outs, first_logits, runs, stats, wall = _serve_t5(
-            run_cfg, state, prompts, kv_dtype, None if checked else profile_dir)
+        outs, first_logits, runs, stats, wall, window_runs = _serve_t5(
+            run_cfg, state, prompts, kv_dtype, smi, None if checked else profile_dir,
+            window_check=not checked)
         label = f"{str(run_cfg.dtype)[6:]} compute, {str(kv_dtype)[6:]} pool"
         for p, o in zip(prompts, outs):
             if len(o) != T5_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in o):
@@ -4777,6 +4917,7 @@ def phase_t5(smi: str, profile_dir: Optional[str] = None) -> dict:
                                      f"expected {need}")
         print(line, flush=True)
         launches.update(runs)
+        launches.update(window_runs)
         if checked and kv_dtype == torch.bfloat16:
             for p, o in list(zip(prompts, outs))[:2]:
                 worst = _check_greedy_parity(model32, p, o)
@@ -5190,6 +5331,25 @@ def _run_cli(argv: list) -> str:
     return text
 
 
+def _cli_engines(argv: list, eager: bool) -> list:
+    """``_run_cli(argv)`` keeping every ServingEngine the command builds,
+    each with eager windows (``_eager_windows``) when ``eager``."""
+    from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
+
+    made, init = [], ServingEngine.__init__
+
+    def keep(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(_eager_windows(self) if eager else self)
+
+    ServingEngine.__init__ = keep
+    try:
+        _run_cli(argv)
+    finally:
+        ServingEngine.__init__ = init
+    return made
+
+
 def phase_ops(smi: str) -> dict:
     """The ops surface and the CLI. After the comparisons (kernels against
     their plain versions, the library times), the main path: the public
@@ -5273,7 +5433,8 @@ def phase_ops(smi: str) -> dict:
         raise AssertionError(f"cli calibrate: a gate failed: {gates}")
     _run_cli(["benchmark", "--seq-lengths", "1024", "4096", "--batch-sizes", "1", "8", "--causal",
               "--device", "cuda"])
-    _run_cli(["serve-bench", "--model", "small", "--kv-dtype", "both", "--device", "cuda"])
+    serve_bench = ["serve-bench", "--model", "small", "--kv-dtype", "both", "--device", "cuda"]
+    graphed = _cli_engines(serve_bench, eager=False)
     info = json.loads(_run_cli(["device-info", "--json", "--device", "cuda"]))
     print(f"cli device-info: backend {info['backend']}, {info['device_count']} device(s): "
           f"{[(d['device_kind'], d.get('bytes_limit')) for d in info['devices']]}", flush=True)
@@ -5281,6 +5442,20 @@ def phase_ops(smi: str) -> dict:
     reset_engine()
     cli_launches = dict(_build.LAUNCHES)
     print(f"cli: launches {cli_launches} ({smi})", flush=True)
+    # The decode rows again with eager windows: the same tokens.
+    eager = _cli_engines(serve_bench, eager=True)
+
+    def tokens(engines):
+        return [[seq.tokens for seq in e._sequences.values()] for e in engines]
+
+    graphs = [e.window_graph_stats()["graphs"] for e in graphed]
+    if tokens(graphed) != tokens(eager) or not all(graphs):
+        raise AssertionError(f"cli serve-bench: graphed windows ({graphs} step graphs an "
+                             f"engine) and eager windows give different tokens")
+    print(f"cli serve-bench: the second rows ran eager windows; the first rows' {graphs} step "
+          f"graphs an engine gave their tokens ({smi})", flush=True)
+    del graphed, eager
+    torch.cuda.empty_cache()
     return results, {"ops": launches, "cli": cli_launches}
 
 
@@ -5406,6 +5581,13 @@ def _shell_serving(runs: dict, smi: str) -> None:
     if outs != refs[4]:
         raise AssertionError(f"shell path: served tokens {outs} differ from the serving "
                              f"path's engine at max_batch 4 {refs[4]}")
+    eager = _eager_windows(ServingEngine(cfg, model.state_dict(), device="cuda",
+                                         kv_dtype=torch.int8, max_batch=4))
+    if eager.generate(prompts, max_new_tokens=SHELL_NEW_TOKENS) != outs or \
+            not engine.window_graph_stats()["graphs"]:
+        raise AssertionError(f"shell path: the graphed windows ({_graphs_of(engine)}) do not "
+                             f"give the eager windows' tokens")
+    del eager
     parity = _shell_token_parity(model, prompts, outs, refs[8])
     got = runs["serving"]
     need = {"pfa_flash_fwd": cfg.n_layer * len(prompts),
@@ -5426,7 +5608,8 @@ def _shell_serving(runs: dict, smi: str) -> None:
         raise AssertionError(f"shell path: /health {health}")
     print(f"shell path: GPT-2 medium int8 pool, max_batch 4, {len(prompts)} prompts x "
           f"{SHELL_NEW_TOKENS} tokens in {wall:.3f} s, tokens equal to the serving path's "
-          f"engine at max_batch 4; at its max_batch 8 {parity}; launches {dict(got)}; /metrics {len(metrics.splitlines())} lines in "
+          f"engine at max_batch 4 and to its own eager windows'; at its max_batch 8 {parity}; "
+          f"launches {dict(got)}; /metrics {len(metrics.splitlines())} lines in "
           f"{t_metrics:.2f} ms, /health {health['overall']} in {t_health:.2f} ms; health: "
           f"{dev.message} ({dev.status.value}), HBM {hbm.message} ({hbm.status.value}) ({smi})",
           flush=True)

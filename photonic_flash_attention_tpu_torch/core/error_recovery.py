@@ -36,6 +36,7 @@ import functools
 import sys
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
 from ..utils.exceptions import (
@@ -112,10 +113,24 @@ DEFAULT_POLICIES: List[RecoveryPolicy] = [
 ]
 
 
+#: Bound methods called after every :func:`clear_plan_caches` while their
+#: objects live (a serving engine drops its decode window's CUDA graphs,
+#: which were captured against what the caches held).
+_ON_CLEAR: List[weakref.WeakMethod] = []
+
+
+def on_clear_plan_caches(method: Callable[[], None]) -> None:
+    """Call the bound ``method`` after every :func:`clear_plan_caches`, for
+    as long as its object lives (held weakly)."""
+    _ON_CLEAR[:] = [ref for ref in _ON_CLEAR if ref() is not None]
+    _ON_CLEAR.append(weakref.WeakMethod(method))
+
+
 def clear_plan_caches() -> int:
     """Clear every ``functools.lru_cache`` of the port's loaded modules (the
-    kernels' launch plans and the other memoised host work); returns how
-    many caches were cleared."""
+    kernels' launch plans and the other memoised host work), then run the
+    :func:`on_clear_plan_caches` hooks; returns how many caches were
+    cleared."""
     package = __name__.split(".")[0]
     cleared = 0
     for name, module in list(sys.modules.items()):
@@ -125,6 +140,12 @@ def clear_plan_caches() -> int:
             if callable(getattr(obj, "cache_clear", None)) and hasattr(obj, "cache_info"):
                 obj.cache_clear()
                 cleared += 1
+    for ref in list(_ON_CLEAR):
+        method = ref()
+        if method is None:
+            _ON_CLEAR.remove(ref)
+        else:
+            method()
     return cleared
 
 

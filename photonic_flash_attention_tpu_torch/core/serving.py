@@ -43,13 +43,25 @@ the GPT-2, Llama and T5 families (``_model_adapter``):
   ``_make_sharded_decode_window``). ``save`` then writes each rank's pool
   shard to its own file and ``restore`` needs the mesh.
 
-The JAX window is one compiled ``lax.scan``; here it is a Python loop of
-eager steps (a CUDA graph is later work). The engine runs on the card
-unless the caller passes ``device="cpu"``.
+A decode window (JAX: one compiled ``lax.scan`` of ``n_steps`` steps,
+``_make_decode_window``) hands the step a page table cut to the window's
+occupancy bucket, as JAX does: the smallest power of two of pages that
+covers the batch's longest sequence plus the window, at most
+``max_pages_per_seq`` (one contiguous (B, w_pages) device table a width).
+On the card each decode step of the window is one replay of a CUDA graph
+(the flat slots, the model's step, sampling, then positions and lengths
+advanced in place), captured once for each (w_pages, sampling, top_k) after
+one eager step on the capture stream; the engine's graphs share one memory
+pool, and a replay's kernels count in ``ops/_build.py::LAUNCHES`` as the
+card runs them. A capture or replay that fails raises: there is no eager
+fallback. On the CPU the same step runs eagerly. Under a mesh the graph
+holds the step's all-reduces (at world 1 there are none). The engine runs
+on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -65,10 +77,12 @@ from ..models import gpt2_serving, llama_serving, t5_serving
 from ..models.gpt2 import GPT2Config
 from ..models.llama import LlamaConfig
 from ..models.t5 import T5Config
+from ..ops import _build
 from ..ops.paged import POOL_DTYPES
 from ..parallel.mesh import axis_group, axis_index, axis_size, mesh_shape, shard_tensor
 from ..utils.exceptions import KVCacheError
 from .checkpoint import atomic_savez, atomic_write_json, np_to_tensor, tensor_to_np
+from .error_recovery import on_clear_plan_caches
 from .native_alloc import NativePageAllocator, native_available
 from .native_sched import make_scheduler
 
@@ -181,6 +195,28 @@ def _make_allocator(num_pages: int, page_size: int, max_pages_per_seq: int):
 
 
 @dataclasses.dataclass
+class _WindowBuffers:
+    """The device buffers a decode window's steps read and update in place
+    (a step graph's inputs and outputs)."""
+
+    state: torch.Tensor  # (3, B) int32: ids / positions / lengths
+    upload: torch.Tensor  # (3, B) int32 on the host (pinned for the card): the window's upload
+    toks: torch.Tensor  # (decode_window, B) int64: row i takes step i's tokens
+    step: torch.Tensor  # (1,) int64: the step about to run
+    rows: torch.Tensor  # (B,) int64
+    tables: Dict[int, torch.Tensor]  # w_pages -> (B, w_pages) int32 page tables
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    """One decode step captured as a CUDA graph."""
+
+    graph: Any  # torch.cuda.CUDAGraph
+    captured: collections.Counter  # kernel calls recorded: launches a replay
+    capture_ms: float
+
+
+@dataclasses.dataclass
 class _Sequence:
     seq_id: int
     tokens: List[int]  # full token history (prompt + generated)
@@ -290,8 +326,16 @@ class ServingEngine:
         self._sequences: Dict[int, _Sequence] = {}
         self._sched = make_scheduler()
         self._next_id = 0
-        self._dev_tables: Optional[torch.Tensor] = None
+        self._host_tables = np.zeros((max_batch, max_pages_per_seq), np.int32)
         self._tables_dirty = True
+        self._win: Optional[_WindowBuffers] = None
+        self._graphs: Dict[tuple, _StepGraph] = {}
+        self._graph_pool = None
+        self._graph_stream = None
+        # One generator for every decode window, reseeded each window (a
+        # graph replays it through its registered state).
+        self._gen = torch.Generator(device=self.device)
+        on_clear_plan_caches(self._drop_window_state)
         # stats
         self._prefill_tokens = 0
         self._decode_tokens = 0
@@ -555,9 +599,12 @@ class ServingEngine:
             self._tables_dirty = True
             self._append_token(seq, token)
 
+    def _seed_of(self, *salt: int) -> int:
+        return hash((self._sample_seed,) + salt) & 0x7FFF_FFFF_FFFF_FFFF
+
     def _generator(self, *salt: int) -> torch.Generator:
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(hash((self._sample_seed,) + salt) & 0x7FFF_FFFF_FFFF_FFFF)
+        gen.manual_seed(self._seed_of(*salt))
         return gen
 
     def _sample(self, logits: torch.Tensor, gen: Optional[torch.Generator]) -> torch.Tensor:
@@ -612,6 +659,133 @@ class ServingEngine:
         """Prefill complete and first token sampled: in the decode batch."""
         return seq.new_tokens > 0 and not seq.done
 
+    def _width(self, active: List[int], n_steps: int) -> int:
+        """The window's page-table width (JAX's occupancy bucket): the
+        smallest power of two of pages covering the longest active sequence
+        plus the window, at most ``max_pages_per_seq``."""
+        max_len = max(self._sequences[sid].length for sid in active)
+        need = -(-(max_len + n_steps) // self.page_size)
+        return min(1 << (need - 1).bit_length(), self.max_pages_per_seq)
+
+    def _window_buffers(self) -> _WindowBuffers:
+        if self._win is None:
+            b, dev = self.max_batch, self.device
+            self._win = _WindowBuffers(
+                state=torch.zeros(3, b, dtype=torch.int32, device=dev),
+                upload=torch.zeros(3, b, dtype=torch.int32, pin_memory=dev.type == "cuda"),
+                toks=torch.zeros(self.decode_window, b, dtype=torch.long, device=dev),
+                step=torch.zeros(1, dtype=torch.long, device=dev),
+                rows=torch.arange(b, device=dev),
+                tables={},
+            )
+        return self._win
+
+    def _tables(self, win: _WindowBuffers, w_pages: int) -> torch.Tensor:
+        """The (B, w_pages) device page tables, refreshed in place (a graph
+        holds their address) when admission or retirement changed the rows.
+        Stale rows after retirement MUST be zeroed or an empty slot would
+        keep writing its trash token into pages recycled to a new sequence;
+        mid-prefill rows stay zeroed too (their decode writes land in trash,
+        not in the pages their chunks fill)."""
+        if self._tables_dirty:
+            self._host_tables[:] = 0
+            for slot, sid in enumerate(self._slots):
+                if sid is not None and self._ready(self._sequences[sid]):
+                    pages = self._sequences[sid].page_ids
+                    self._host_tables[slot, : len(pages)] = pages
+            for w, t in win.tables.items():
+                t.copy_(torch.from_numpy(self._host_tables[:, :w]))
+            self._tables_dirty = False
+        if w_pages not in win.tables:
+            win.tables[w_pages] = torch.from_numpy(
+                np.ascontiguousarray(self._host_tables[:, :w_pages])).to(self.device)
+        return win.tables[w_pages]
+
+    @torch.no_grad()
+    def _decode_one(self, win: _WindowBuffers, tables: torch.Tensor, do_sample: bool) -> None:
+        """One decode step over the window's buffers, in place (JAX's scan
+        body): the flat slot of the token consumed (written at pos; empty
+        slots map to the zeroed table row, the trash page), the model's
+        step, the next token into row ``step`` of ``toks`` and ``ids``, then
+        pos + 1, lengths + 1 (empty slots stay at length 0) and step + 1."""
+        ids, pos, lens = win.state[0], win.state[1], win.state[2]
+        page_col = (pos // self.page_size).clamp(max=tables.shape[1] - 1).long()
+        flat = (tables[win.rows, page_col] * self.page_size + pos % self.page_size).int()
+        logits = self._decode_step(
+            self.params, self.cfg, ids, pos, self.pages, flat, lens, tables, self.quantized,
+        )
+        nxt = self._sample(logits, self._gen if do_sample else None)
+        win.toks.index_copy_(0, win.step, nxt[None])
+        ids.copy_(nxt)
+        pos.add_(1)
+        lens.add_((lens > 0).int())
+        win.step.add_(1)
+
+    def _window_eager(self, win: _WindowBuffers, tables: torch.Tensor, n_steps: int,
+                      do_sample: bool) -> None:
+        """The window as eager steps: the CPU's path, and the plain version
+        the card's graphs are held against."""
+        for _ in range(n_steps):
+            self._decode_one(win, tables, do_sample)
+
+    def _window_graphed(self, win: _WindowBuffers, tables: torch.Tensor, n_steps: int,
+                        do_sample: bool) -> None:
+        """The window on the card: each step one replay of the step graph of
+        (w_pages, do_sample, top_k). At a new key the first step runs
+        eagerly on the capture stream (it allocates what the capture must
+        find: K3's arrival counters, cuBLAS's workspace, T5's bias vector),
+        then the step is captured and the remaining steps replay it."""
+        key = (tables.shape[1], do_sample, self.top_k)
+        entry = self._graphs.get(key)
+        replays = n_steps
+        if entry is None:
+            entry = self._capture(win, tables, do_sample)
+            self._graphs[key] = entry
+            replays -= 1
+        for _ in range(replays):
+            entry.graph.replay()
+        _build.count_replays(entry.captured, replays)
+
+    def _capture(self, win: _WindowBuffers, tables: torch.Tensor, do_sample: bool) -> _StepGraph:
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(self.device)
+        stream = self._graph_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._decode_one(win, tables, do_sample)  # the window's first step
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        if do_sample:
+            graph.register_generator_state(self._gen)
+        before = collections.Counter(_build.CAPTURED)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+            self._decode_one(win, tables, do_sample)
+        capture_ms = 1e3 * (time.perf_counter() - t0)
+        return _StepGraph(graph, collections.Counter(_build.CAPTURED) - before, capture_ms)
+
+    def _drop_window_state(self) -> None:
+        """Forget the window's graphs and buffers (each graph holds the
+        addresses of the buffers, the pools and the weights it was captured
+        on); the next window builds them again."""
+        self._graphs.clear()
+        self._win = None
+        self._graph_pool = None
+        self._tables_dirty = True
+
+    def window_graph_stats(self) -> Dict[str, Any]:
+        """The decode window's CUDA graphs: how many, each one's capture ms,
+        and the bytes of the memory pool they share (0 on the CPU, where
+        the window runs eagerly)."""
+        pool_bytes = 0
+        if self._graph_pool is not None:
+            pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                             if seg.get("segment_pool_id") == self._graph_pool)
+        return {"graphs": len(self._graphs),
+                "capture_ms": [g.capture_ms for g in self._graphs.values()],
+                "pool_bytes": pool_bytes}
+
     def step(self) -> int:
         """One scheduler iteration: admit (prefilling each newcomer whole
         or deferring it to chunks), advance at most ONE pending prefill
@@ -655,45 +829,24 @@ class ServingEngine:
             else:
                 host[1, slot] = seq.length - 1
                 host[2, slot] = seq.length
-        # Page tables change only at admission/retirement. Stale rows after
-        # retirement MUST be zeroed or an empty slot would keep writing its
-        # trash token into pages recycled to a new sequence.
-        if self._dev_tables is None or self._tables_dirty:
-            tables = np.zeros((b, self.max_pages_per_seq), np.int32)
-            for slot in range(b):
-                sid = self._slots[slot]
-                if sid is None or not self._ready(self._sequences[sid]):
-                    continue
-                seq = self._sequences[sid]
-                tables[slot, : len(seq.page_ids)] = seq.page_ids
-            self._dev_tables = torch.from_numpy(tables).to(self.device)
-            self._tables_dirty = False
-        tables = self._dev_tables
-
-        state = torch.from_numpy(host).to(self.device)
-        ids, pos, lens = state[0], state[1], state[2]
-        rows = torch.arange(b, device=self.device)
-        gen = self._generator(1, self._sample_steps) if self.temperature > 0 else None
-        last_col = self.max_pages_per_seq - 1
+        w_pages = self._width(active, n_steps)
+        win = self._window_buffers()
+        tables = self._tables(win, w_pages)
+        win.upload.numpy()[:] = host
+        win.state.copy_(win.upload, non_blocking=True)  # the window's one upload
+        win.step.zero_()
+        do_sample = self.temperature > 0
+        if do_sample:
+            self._gen.manual_seed(self._seed_of(1, self._sample_steps))
         t0 = time.perf_counter()
-        toks = []
-        for _ in range(n_steps):
-            # Flat slot of the token being consumed (written at pos); empty
-            # slots map to the zeroed table row, i.e. the trash page.
-            page_col = (pos // self.page_size).clamp(max=last_col).long()
-            flat = (tables[rows, page_col] * self.page_size + pos % self.page_size).int()
-            logits = self._decode_step(
-                self.params, self.cfg, ids, pos, self.pages, flat, lens, tables,
-                self.quantized,
-            )
-            ids = self._sample(logits, gen)
-            toks.append(ids)
-            pos = pos + 1
-            lens = lens + (lens > 0).int()  # empty slots stay at length 0
-        toks = torch.stack(toks).cpu().numpy()  # (n_steps, B); waits for the device
+        if self.device.type == "cuda":
+            self._window_graphed(win, tables, n_steps, do_sample)
+        else:
+            self._window_eager(win, tables, n_steps, do_sample)
+        toks = win.toks[:n_steps].cpu().numpy()  # (n_steps, B); waits for the device
         self._decode_time += time.perf_counter() - t0
         self._steps += n_steps
-        if self.temperature > 0:
+        if do_sample:
             self._sample_steps += n_steps
 
         for step_i in range(n_steps):
@@ -879,7 +1032,7 @@ class ServingEngine:
                 seq.alloc_id = alloc.adopt(seq.page_ids)
             eng._sequences[seq.seq_id] = seq
         eng._alloc = alloc
-        eng._tables_dirty = True
+        eng._drop_window_state()  # the pools were replaced: tables and graphs are rebuilt
         # The saved order is already priority-then-FIFO: submitting in it
         # with the saved priorities reproduces it.
         for sid in host["waiting"]:

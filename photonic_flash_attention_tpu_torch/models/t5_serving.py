@@ -86,7 +86,12 @@ def prepare_params(state_dict: Mapping[str, torch.Tensor], cfg: T5Config, device
     """``T5ForConditionalGeneration`` state_dict -> serving weights on
     ``device``, cast once: embeddings, dense weights and norm scales in
     ``cfg.dtype`` (JAX casts them inside every step), the relative-bias
-    tables in float32."""
+    tables in float32. Also the tied head's ``d_model ** -0.5`` as a
+    ``cfg.dtype`` scalar on ``device`` (the step multiplies by it, as JAX
+    does, with no host copy a step) and ``dec_bias_vectors``, the decoder
+    self-attention bias vector of each page-table capacity, filled at its
+    first step and kept with the weights (a CUDA graph of the step reads
+    it)."""
 
     def w(name, dtype=cfg.dtype):
         return state_dict[f"model.{name}"].to(device=device, dtype=dtype)
@@ -113,6 +118,8 @@ def prepare_params(state_dict: Mapping[str, torch.Tensor], cfg: T5Config, device
         "dec_table": w("decoder.rel_bias.rel_embedding", torch.float32),
         "enc_final_ln": w("encoder.final_ln.weight"),
         "dec_final_ln": w("decoder.final_ln.weight"),
+        "logit_scale": torch.tensor(cfg.d_model ** -0.5, dtype=cfg.dtype, device=device),
+        "dec_bias_vectors": {},
     }
 
 
@@ -158,9 +165,12 @@ def _encoder_forward(params: Dict, cfg: T5Config, enc_ids: torch.Tensor,
 def _decode_bias(params: Dict, cfg: T5Config, positions: torch.Tensor, s_cap: int) -> torch.Tensor:
     """(B, H, S_cap) fp32 decoder self-attention bias of every potential key
     position k for the query at ``positions[b]``: table[bucket(k - pos)],
-    a gather of one (H, 2 S_cap - 1) vector over rel = -(S_cap-1) .. S_cap-1."""
-    spec = T5RelBias(params["dec_table"], False, cfg.relative_attention_max_distance)
-    vec = bias_vector(spec, -(s_cap - 1), 2 * s_cap - 1)
+    a gather of one (H, 2 S_cap - 1) vector over rel = -(S_cap-1) .. S_cap-1
+    (built at the first step of each S_cap, kept in ``params``)."""
+    vec = params["dec_bias_vectors"].get(s_cap)
+    if vec is None:
+        spec = T5RelBias(params["dec_table"], False, cfg.relative_attention_max_distance)
+        vec = params["dec_bias_vectors"][s_cap] = bias_vector(spec, -(s_cap - 1), 2 * s_cap - 1)
     k_pos = torch.arange(s_cap, device=vec.device)
     idx = (k_pos[None] - positions.to(vec.device).long()[:, None] + s_cap - 1).clamp(0, 2 * s_cap - 2)
     return vec[:, idx].permute(1, 0, 2).contiguous()
@@ -210,7 +220,7 @@ def _t5_decode_core(
         x = _ffn(x, p, cfg)
     x = _rms(x, params["dec_final_ln"], eps)
     if cfg.tie_word_embeddings:
-        x = x * torch.tensor(cfg.d_model ** -0.5, dtype=x.dtype, device=x.device)
+        x = x * params["logit_scale"]
     return (x @ params["shared"].T).float()
 
 

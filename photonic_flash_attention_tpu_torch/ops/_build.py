@@ -35,7 +35,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
 
@@ -208,6 +208,22 @@ def reset_launches() -> None:
     CAPTURED.clear()
 
 
+def replay_launches(captured: Mapping[str, int], replays: int) -> collections.Counter:
+    """The launches ``replays`` replays of a CUDA graph make: each kernel
+    call its capture recorded (``captured``, the :data:`CAPTURED` counts
+    the capture added) launches once a replay."""
+    if replays < 0:
+        raise ValueError(f"replays must be >= 0, got {replays}")
+    return collections.Counter({name: n * replays for name, n in captured.items() if n * replays})
+
+
+def count_replays(captured: Mapping[str, int], replays: int) -> None:
+    """Add ``replays`` replays of a graph that captured ``captured`` to
+    :data:`LAUNCHES` (:func:`replay_launches`): a graph's launches count as
+    the card runs them, once a replay."""
+    LAUNCHES.update(replay_launches(captured, replays))
+
+
 def _sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
@@ -335,6 +351,8 @@ def lib() -> ctypes.CDLL:
 #: each counter resets it, so they are zeros between launches without a
 #: memset per call. They belong to one launch at a time (one stream).
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
+#: Counter buffers that a larger one replaced, kept alive (and zero).
+_RETIRED_COUNTERS: List[torch.Tensor] = []
 
 
 def arrival_counters(kernel: str, device: torch.device, n: int) -> torch.Tensor:
@@ -344,6 +362,8 @@ def arrival_counters(kernel: str, device: torch.device, n: int) -> torch.Tensor:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{kernel}'s counters must be allocated before CUDA-graph capture: "
                                "run the call once outside the capture first")
+        if buf is not None:
+            _RETIRED_COUNTERS.append(buf)  # a CUDA graph captured against it still reads it
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _COUNTERS[(kernel, device)] = buf
     return buf
