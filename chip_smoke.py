@@ -17,8 +17,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    forward's ten instantiations (K1's int8-QK, fp8-QK and int8-full
    modes and K6 int8 and fp8, D 64 and 128) holds exactly its mode's GMMA
    kinds (IGMMA s8, QGMMA e4m3, HGMMA bf16/f16) and UTMALDG, no HMMA or
-   IMMA and no stack; that K3's 16 instantiations stage pages by the
-   TMA's bulk copy (UBLKCP) with no stack; that K21's bf16 instantiation
+   IMMA and no stack; that K3's 32 instantiations (16 at a head dim of
+   the width, 16 narrower) stage pages by the TMA's bulk copy (UBLKCP)
+   with no stack; that K21's bf16 instantiation
    of K4's body and K20's of K5's (D 64 and 128) do as K4's and K5's; that
    K10's ring copies by the bulk copy with no stack; and that K13-K19's bf16 body
    (K16/K18, K17 at unroll 2 and 4, K19, K13 in both exp modes; D 64 and
@@ -750,23 +751,26 @@ def sm90_sass(path: Path) -> tuple:
 
 
 #: K3's instantiations (csrc/paged_decode_sm90.cu::k3_kernel<pool, D,
-#: heads a CTA, int8 compute>): 3 pools x 2 head dims x 2 head counts, and
-#: the int8 pool's int8-compute mode at both.
-K3_SM90 = re.compile(r"k3_kernelI(a|f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E")
+#: heads a CTA, int8 compute, head dim D>): 3 pools x 2 widths x 2 head
+#: counts, and the int8 pool's int8-compute mode at both; each for a head
+#: dim of the width and for a narrower one.
+K3_SM90 = re.compile(r"k3_kernelI(a|f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])ELb([01])E")
+K3_INSTANTIATIONS = 32
 
 
 def check_k3_sass(path: Path) -> None:
     """Proof that every K3 instantiation stages its pages by the TMA's bulk
     copy (UBLKCP in the SASS) and waits on mbarriers (SYNCS): prints each
-    one's counts, registers and stack; all 16 must be there, each with a
-    bulk copy and no stack."""
+    one's counts, registers and stack; all K3_INSTANTIATIONS must be there,
+    each with a bulk copy and no stack."""
     names = {"a": "int8", "f": "fp32", "13__nv_bfloat16": "bf16"}
     op_re = re.compile(r"\b(UBLKCP|SYNCS)\b")
     ops, cur = {}, None
     for line in _cuobjdump("-sass", path).splitlines():
         if "Function :" in line:
             m = K3_SM90.search(line)
-            cur = (names[m.group(1)], int(m.group(2)), int(m.group(3)), m.group(4) == "1") if m else None
+            cur = (names[m.group(1)], int(m.group(2)), int(m.group(3)), m.group(4) == "1",
+                   m.group(5) == "1") if m else None
             if cur:
                 ops[cur] = collections.Counter(UBLKCP=0, SYNCS=0)
         elif cur:
@@ -774,19 +778,21 @@ def check_k3_sass(path: Path) -> None:
     usage = {}
     for m in re.finditer(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+)", _cuobjdump("-res-usage", path)):
         if k := K3_SM90.search(m.group(1)):
-            usage[(names[k.group(1)], int(k.group(2)), int(k.group(3)), k.group(4) == "1")] = (
-                int(m.group(2)), int(m.group(3)))
+            usage[(names[k.group(1)], int(k.group(2)), int(k.group(3)), k.group(4) == "1",
+                   k.group(5) == "1")] = (int(m.group(2)), int(m.group(3)))
     for key in sorted(ops):
-        pool, d, heads, i8c = key
+        pool, d, heads, i8c, full = key
         reg, stack = usage.get(key, (-1, -1))
-        line = (f"K3 SASS {pool} pool D{d} {heads} head(s) a CTA{' int8 compute' if i8c else ''}: "
+        line = (f"K3 SASS {pool} pool D{d}{'' if full else ' (narrower head dims)'} {heads} "
+                f"head(s) a CTA{' int8 compute' if i8c else ''}: "
                 f"UBLKCP {ops[key]['UBLKCP']}, SYNCS {ops[key]['SYNCS']}, {reg} registers, "
                 f"stack {stack}")
         print(line, flush=True)
         if not ops[key]["UBLKCP"] or stack != 0:
             raise AssertionError(f"{line}: no bulk copy, or a stack")
-    if len(ops) != 16:
-        raise AssertionError(f"K3 SASS: {len(ops)} instantiations found, expected 16")
+    if len(ops) != K3_INSTANTIATIONS:
+        raise AssertionError(f"K3 SASS: {len(ops)} instantiations found, expected "
+                             f"{K3_INSTANTIATIONS}")
 
 
 def check_k1_sass(counts: dict, usage: dict) -> None:
@@ -1136,12 +1142,14 @@ def check_token_write(results: dict) -> None:
 GPT2_DECODE_LENS = (0, 1, 17, 128, 129, 700, 1000, 2000)
 
 
-def _decode_case(gen, pool_dtype=torch.int8, lengths=GPT2_DECODE_LENS, hq=16, pps=64, L=24):
+def _decode_case(gen, pool_dtype=torch.int8, lengths=GPT2_DECODE_LENS, hq=16, pps=64, L=24,
+                 d=64):
     """GPT-2 medium's decode shape (B8 H16 D64, page 128, 256 pages of
-    ``L`` layers): pools, scattered tables, q fp32, the new token's K/V
-    (bf16) and the slot of position lengths[b] - 1 (trash page 0 for 0)."""
-    b, d, page = len(lengths), 64, 128
-    k, v, ks, vs = _serving_pools(pool_dtype, gen, L=L, hkv=hq)
+    ``L`` layers; another head count or head dim ``d`` where given):
+    pools, scattered tables, q fp32, the new token's K/V (bf16) and the
+    slot of position lengths[b] - 1 (trash page 0 for 0)."""
+    b, page = len(lengths), 128
+    k, v, ks, vs = _serving_pools(pool_dtype, gen, L=L, hkv=hq, d=d)
     need = max(-(-n // page) for n in lengths)
     perm = torch.randperm(255, device="cuda", generator=gen)[: b * need] + 1
     tables = torch.zeros(b, pps, dtype=torch.int32, device="cuda")
@@ -2192,54 +2200,74 @@ def check_k1_edges() -> None:
                               "pfa_flash_fwd_densebias_lse"))
     cases.append(("relative bias (T5, ragged)", 2, 129, 300, 4, 2, 64, True, dict(rel=True),
                   "pfa_flash_fwd_relbias_lse"))
-    for label, b, sq, skv, hq, hkv, d, causal, streams, counter in cases:
-        q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
-        k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
-        v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
-        scale = d ** -0.5
-        kw, plain_kw = {}, {}
-        if "kv_lens" in streams:
-            kw["kv_lens"] = torch.tensor(streams["kv_lens"], dtype=torch.int32, device="cuda")
-            if streams.get("k_bias"):
-                kw["k_bias"] = _key_bias(b, skv, gen)
-            plain_kw = dict(kw)
-        for key in ("window", "dropout_rate", "dropout_seed"):
-            if key in streams:
-                kw[key] = plain_kw[key] = streams[key]
-        before = _build.LAUNCHES[counter]
-        if "dense_heads" in streams or "rel" in streams:
-            if "rel" in streams:
-                from photonic_flash_attention_tpu_torch.ops.rel_bias import T5RelBias
+    for case in cases:
+        _k1_case(gen, *case)
 
-                table = torch.randn(32, hq, device="cuda", generator=gen) * 0.5
-                vec = flash_ops._rel_vector(T5RelBias(table, not causal), sq, skv)
-                bias, bkw = flash_ops.vector_bias(vec, sq, skv), dict(vec=vec)
-                name = "pfa_flash_fwd_relbias"
+
+def _k1_case(gen, label, b, sq, skv, hq, hkv, d, causal, streams, counter,
+             save_lse: bool = True) -> float:
+    """One bf16 K1 launch against the plain version (check_k1_edges' bounds:
+    output 1e-2, lse 1e-4 on the rows with a key, -inf where the plain lse
+    is, o = 0 on rows with no key, one launch under ``counter``); without
+    ``save_lse``, the inference call, which writes no lse. Returns the
+    output's max abs error."""
+    q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+    scale = d ** -0.5
+    kw, plain_kw = {}, {}
+    if "kv_lens" in streams:
+        kw["kv_lens"] = torch.tensor(streams["kv_lens"], dtype=torch.int32, device="cuda")
+        if streams.get("k_bias"):
+            kw["k_bias"] = _key_bias(b, skv, gen)
+        plain_kw = dict(kw)
+    for key in ("window", "dropout_rate", "dropout_seed"):
+        if key in streams:
+            kw[key] = plain_kw[key] = streams[key]
+    before = _build.LAUNCHES[counter]
+    if "dense_heads" in streams or "rel" in streams or "alibi" in streams:
+        if "dense_heads" not in streams:
+            from photonic_flash_attention_tpu_torch.ops.rel_bias import (
+                ALiBi, T5RelBias, alibi_slopes,
+            )
+
+            if "alibi" in streams:
+                spec = ALiBi(alibi_slopes(hq).cuda())
             else:
-                bias = torch.randn(b, streams["dense_heads"], sq, skv, device="cuda", generator=gen)
-                holes = torch.rand(bias.shape, device="cuda", generator=gen) < 0.1
-                bias = torch.where(holes, torch.full_like(bias, DEFAULT_MASK_VALUE), bias)
-                bkw, name = dict(dense=bias), "pfa_flash_fwd_densebias"
-            out, lse = flash_ops._flash_fwd_bias_cuda(q, k, v, causal, scale, name, save_lse=True,
-                                                      **bkw)
-            plain_kw["bias"] = bias
+                spec = T5RelBias(torch.randn(32, hq, device="cuda", generator=gen) * 0.5,
+                                 not causal)
+            vec = flash_ops._rel_vector(spec, sq, skv)
+            bias, bkw = flash_ops.vector_bias(vec, sq, skv), dict(vec=vec)
+            name = flash_ops._rel_counter(spec)
         else:
-            out, lse = flash_ops._flash_fwd_cuda(q, k, v, causal, scale, True, **kw)
-        ref, ref_lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal,
-                                                                sm_scale=scale, **plain_kw)
-        torch.cuda.synchronize()
-        err = rel_err_norm(out, ref)
-        live = torch.isfinite(ref_lse)
+            bias = torch.randn(b, streams["dense_heads"], sq, skv, device="cuda", generator=gen)
+            holes = torch.rand(bias.shape, device="cuda", generator=gen) < 0.1
+            bias = torch.where(holes, torch.full_like(bias, DEFAULT_MASK_VALUE), bias)
+            bkw, name = dict(dense=bias), "pfa_flash_fwd_densebias"
+        out, lse = flash_ops._flash_fwd_bias_cuda(q, k, v, causal, scale, name, save_lse=save_lse,
+                                                  **bkw)
+        plain_kw["bias"] = bias
+    else:
+        out, lse = flash_ops._flash_fwd_cuda(q, k, v, causal, scale, save_lse, **kw)
+    ref, ref_lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal,
+                                                            sm_scale=scale, **plain_kw)
+    torch.cuda.synchronize()
+    err = rel_err_norm(out, ref)
+    live = torch.isfinite(ref_lse)
+    empty = ~live.transpose(1, 2)  # (B, Sq, Hq): rows with no key
+    lse_err = 0.0
+    if save_lse:
         lse_err = rel_err_norm(lse[live], ref_lse[live]) if live.any() else 0.0
-        empty = ~live.transpose(1, 2)  # (B, Sq, Hq): rows with no key
-        line = (f"K1 edge {label} B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} bf16 causal={causal}: "
-                f"rel_err_norm {err:.3e} (bound 1e-2), lse {lse_err:.3e} (bound 1e-4), "
-                f"{int(empty.sum())} (row, head) pairs with no key")
-        if (err > 1e-2 or lse_err > 1e-4 or not torch.isfinite(out).all()
-                or not torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
-                or (out[empty] != 0).any() or _build.LAUNCHES[counter] != before + 1):
-            raise AssertionError(line)
-        print(line, flush=True)
+    line = (f"K1 edge {label} B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} bf16 causal={causal}: "
+            f"rel_err_norm {err:.3e} (bound 1e-2), "
+            + (f"lse {lse_err:.3e} (bound 1e-4), " if save_lse else "no lse written, ")
+            + f"{int(empty.sum())} (row, head) pairs with no key")
+    if (err > 1e-2 or lse_err > 1e-4 or not torch.isfinite(out).all() or out.shape != q.shape
+            or (save_lse and not torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse)))
+            or (out[empty] != 0).any() or _build.LAUNCHES[counter] != before + 1):
+        raise AssertionError(line)
+    print(line, flush=True)
+    return max_abs_err(out, ref)
 
 
 def _sdpa_call(q, k, v, **kw):
@@ -2385,48 +2413,55 @@ def check_bwd_edges() -> None:
         ("dropout 0.1", 2, 300, 300, 4, 4, 64, True, dict(dropout_rate=0.1, dropout_seed=77)),
         ("dropout 0.1", 1, 129, 301, 8, 8, 128, False, dict(dropout_rate=0.1, dropout_seed=5)),
     ]
-    for label, b, sq, skv, hq, hkv, d, causal, streams in cases:
-        q, do = (torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
-                 for _ in range(2))
-        k, v = (torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
-                for _ in range(2))
-        mode = ("dropout" if "dropout_rate" in streams else "window" if "window" in streams
-                else None)
-        names = [f"pfa_flash_bwd_{n}" + (f"_{mode}" if mode else "") for n in ("dkv", "dq")]
-        before = [_build.LAUNCHES[n] for n in names]
-        if hq != hkv:
-            want, _ = _plain_grads(q, k, v, do, causal)
+    for case in cases:
+        _bwd_case(gen, *case)
 
-            def run():
-                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-                return torch.autograd.grad(flash_ops.flash_attention(*leaves, causal=causal),
-                                           leaves, do)
-        else:
-            o, lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal, **streams)
-            kw = dict(sm_scale=d ** -0.5, causal=causal, **streams)
-            want = bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
 
-            def run():
-                return bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        got, again = run(), run()
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, g) for a, g in zip(again, got))
-        if skv == 1 and "dropout_rate" not in streams:  # the exact dq and dk are 0
-            dv_norm = float(torch.linalg.norm(want[2].float()))
-            errs = [float(torch.linalg.norm(g.float())) / dv_norm / 0.1 for g in got[:2]]
-            errs.append(rel_err_norm(got[2], want[2]))
-            what = "|dq|, |dk| / (0.1 |dv|)"
-        else:
-            errs = [rel_err_norm(g, w) for g, w in zip(got, want)]
-            what = "rel_err_norm"
-        line = (f"K4/K5 edge {label} B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} bf16 causal={causal}: "
-                f"{what} dq {errs[0]:.3e} dk {errs[1]:.3e}, rel_err_norm dv {errs[2]:.3e} (bound "
-                f"1e-2); two launches bit-identical: {same}")
-        if (max(errs) > 1e-2 or not same or not all(torch.isfinite(g).all() for g in got)
-                or [_build.LAUNCHES[n] for n in names] != [n + 2 for n in before]
-                or ("window" in streams and sq == skv and (got[0][:, :5] != 0).any())):
-            raise AssertionError(line)
-        print(line, flush=True)
+def _bwd_case(gen, label, b, sq, skv, hq, hkv, d, causal, streams) -> float:
+    """One case of check_bwd_edges (its bounds and its two bit-identical
+    launches); returns the worst max abs error of dq, dk and dv."""
+    q, do = (torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    mode = ("dropout" if "dropout_rate" in streams else "window" if "window" in streams
+            else None)
+    names = [f"pfa_flash_bwd_{n}" + (f"_{mode}" if mode else "") for n in ("dkv", "dq")]
+    before = [_build.LAUNCHES[n] for n in names]
+    if hq != hkv:
+        want, _ = _plain_grads(q, k, v, do, causal)
+
+        def run():
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(flash_ops.flash_attention(*leaves, causal=causal),
+                                       leaves, do)
+    else:
+        o, lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=causal, **streams)
+        kw = dict(sm_scale=d ** -0.5, causal=causal, **streams)
+        want = bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+
+        def run():
+            return bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, g) for a, g in zip(again, got))
+    if skv == 1 and "dropout_rate" not in streams:  # the exact dq and dk are 0
+        dv_norm = float(torch.linalg.norm(want[2].float()))
+        errs = [float(torch.linalg.norm(g.float())) / dv_norm / 0.1 for g in got[:2]]
+        errs.append(rel_err_norm(got[2], want[2]))
+        what = "|dq|, |dk| / (0.1 |dv|)"
+    else:
+        errs = [rel_err_norm(g, w) for g, w in zip(got, want)]
+        what = "rel_err_norm"
+    line = (f"K4/K5 edge {label} B{b} Sq{sq} Skv{skv} H{hq}/{hkv} D{d} bf16 causal={causal}: "
+            f"{what} dq {errs[0]:.3e} dk {errs[1]:.3e}, rel_err_norm dv {errs[2]:.3e} (bound "
+            f"1e-2); two launches bit-identical: {same}")
+    if (max(errs) > 1e-2 or not same or not all(torch.isfinite(g).all() for g in got)
+            or [_build.LAUNCHES[n] for n in names] != [n + 2 for n in before]
+            or ("window" in streams and sq == skv and (got[0][:, :5] != 0).any())):
+        raise AssertionError(line)
+    print(line, flush=True)
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
 
 
 def _sdpa_bwd_calls(q, k, v, do, **kw) -> tuple:
@@ -2709,6 +2744,433 @@ def time_gpt2_decode(smi: str) -> dict:
     return best
 
 
+# -- head dims: every d up to 128 --------------------------------------------
+
+#: Head dims checked beside 64 and 128: JAX pads each to 64 or 128
+#: (ops/flash.py::_pad_head_dim); the card runs d <= 64 on the D 64
+#: instantiations and the rest on D 128 (ops/_build.py::head_dim_plan), d
+#: 100, whose bf16 and int8 rows are not whole 16-byte units, on padded
+#: copies.
+CHECK_HEAD_DIMS = (16, 32, 80, 96, 100, 112)
+#: Cerebras-GPT-2.7B's head dim (n_embd 2560 / n_head 32): the d-80 path's.
+CEREBRAS_D = 80
+#: K3's decode lengths at the head-dim checks (page 16): empty, one token,
+#: page edges, a long row.
+HEAD_DIM_DECODE_LENS = (0, 1, 17, 100, 129, 300)
+
+
+def _k1_head_dim_cases(d: int) -> list:
+    """Every bf16 K1 mode at head dim d (the relative-bias modes with and
+    without lse): (check_k1_edges' case, whether the call writes lse)."""
+    drop = dict(dropout_rate=0.1, dropout_seed=77)
+    return [
+        (("GQA 32/8", 1, 300, 300, 32, 8, d, True, {}, "pfa_flash_fwd"), True),
+        (("ragged, inference (no lse)", 2, 129, 300, 4, 4, d, False, {}, "pfa_flash_fwd"), False),
+        (("lens (300, 0) and k_bias", 2, 129, 300, 4, 2, d, True,
+          dict(kv_lens=(300, 0), k_bias=True), "pfa_flash_fwd_streams"), True),
+        (("window (-40, 0) causal", 2, 129, 300, 4, 2, d, True, dict(window=(-40, 0)),
+          "pfa_flash_fwd_window"), True),
+        (("dropout 0.1", 2, 300, 300, 4, 2, d, True, drop, "pfa_flash_fwd_dropout"), True),
+        (("dense bias Hb1 (TMA side)", 2, 129, 300, 4, 2, d, True, dict(dense_heads=1),
+          "pfa_flash_fwd_densebias"), False),
+        (("relative bias (T5)", 2, 129, 300, 4, 2, d, True, dict(rel=True),
+          "pfa_flash_fwd_relbias_lse"), True),
+        (("relative bias (T5), inference", 2, 129, 300, 4, 2, d, False, dict(rel=True),
+          "pfa_flash_fwd_relbias"), False),
+        (("ALiBi", 2, 129, 300, 4, 2, d, True, dict(alibi=True), "pfa_flash_fwd_alibi_lse"), True),
+        (("ALiBi, inference", 2, 129, 300, 4, 2, d, True, dict(alibi=True), "pfa_flash_fwd_alibi"),
+         False),
+    ]
+
+
+def _bwd_head_dim_cases(d: int) -> list:
+    """Every bf16 K4/K5 mode at head dim d (check_bwd_edges' cases): GQA
+    32/8 through the autograd Function, ragged, window, dropout."""
+    return [
+        ("GQA 32/8 (autograd)", 1, 300, 300, 32, 8, d, True, {}),
+        ("ragged Sq129 Skv300", 2, 129, 300, 4, 4, d, True, {}),
+        ("window (-40, 0) causal", 2, 129, 300, 4, 4, d, True, dict(window=(-40, 0))),
+        ("dropout 0.1", 2, 300, 300, 4, 4, d, True, dict(dropout_rate=0.1, dropout_seed=77)),
+    ]
+
+
+#: K3's modes at the head-dim checks: (mode, pool dtype, Hq, Hkv).
+K3_HEAD_DIM_MODES = (
+    ("fused", torch.int8, 32, 8), ("fused", torch.bfloat16, 4, 4), ("fused", torch.float32, 4, 4),
+    ("fused_tbias", torch.bfloat16, 4, 4), ("attend", torch.int8, 4, 4),
+    ("attend_tbias", torch.int8, 4, 4), ("hf", torch.bfloat16, 4, 4),
+    ("hf_int8", torch.int8, 4, 4), ("paged_attention", torch.bfloat16, 4, 4),
+)
+
+
+def _k3_head_dim_case(gen, d: int, mode: str, pool_dtype, hq: int, hkv: int) -> tuple:
+    """One K3 call at head dim d against its plain version on a small pool
+    (2 layers, 64 pages of 16 tokens, scattered tables, lengths
+    HEAD_DIM_DECODE_LENS), with the existing bounds: the fused decode 1e-4
+    and its pools and scales bit-exact with K2's plain write, the read-only
+    attend and paged_attention 1e-3, the token bias BIAS_MODE_BOUND,
+    paged_attention_hf float 1e-4 and int8 compute 1e-3. Returns (the
+    mode's counter, max abs error)."""
+    lengths_l = HEAD_DIM_DECODE_LENS
+    b, page, pps, layer = len(lengths_l), 16, 20, 1
+    k, v, ks, vs = _serving_pools(pool_dtype, gen, L=2, hkv=hkv, num_pages=64, page=page, d=d)
+    need = [-(-n // page) for n in lengths_l]
+    perm = (torch.randperm(63, device="cuda", generator=gen)[: sum(need)] + 1).to(torch.int32)
+    tables = torch.zeros(b, pps, dtype=torch.int32, device="cuda")
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[at:at + n]
+        at += n
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device="cuda")
+    slots = torch.zeros(b, dtype=torch.int32, device="cuda")
+    for i, n in enumerate(lengths_l):
+        if n:
+            slots[i] = tables[i, (n - 1) // page] * page + (n - 1) % page
+    q = torch.randn(b, hq, d, device="cuda", generator=gen)
+    k_new, v_new = (torch.randn(b, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+    if pool_dtype == torch.float32:
+        k_new, v_new = k_new.float(), v_new.float()
+    scale = d ** -0.5
+    bias = None
+    if mode.endswith("tbias"):
+        bias = torch.randn(b, hkv, pps * page, device="cuda", generator=gen) * 2.0
+        scale = 1.0
+    counter = {"fused": "pfa_paged_decode_fused", "fused_tbias": "pfa_paged_decode_fused_tbias",
+               "attend": "pfa_paged_decode_attend",
+               "attend_tbias": "pfa_paged_decode_attend_tbias", "hf": "pfa_paged_hf",
+               "hf_int8": "pfa_paged_hf_int8", "paged_attention": "pfa_paged_attention"}[mode]
+    before = _build.LAUNCHES[counter]
+    exact = True
+    if mode.startswith("fused"):
+        pools = [t for t in (k, v, ks, vs)]
+        ref_pools = [t.clone() if t is not None else None for t in pools]
+        out = paged_ops.paged_decode_attention(q, k_new, v_new, k, v, lengths, tables, slots,
+                                               layer, ks, vs, sm_scale=scale, token_bias=bias)
+        paged_ops.paged_token_write_plain(k_new, v_new, *ref_pools, slots, layer)
+        ref = paged_ops.paged_decode_attend_plain(q, *ref_pools[:2], lengths, tables, layer,
+                                                  *ref_pools[2:], scale, bias)
+        exact = all(a is None or torch.equal(a, w) for a, w in zip(pools, ref_pools))
+        bound = 1e-4 if bias is None else BIAS_MODE_BOUND
+    elif mode.startswith("attend"):
+        out = paged_ops.paged_decode_attend(q, k, v, lengths, tables, layer, ks, vs,
+                                            sm_scale=scale, token_bias=bias)
+        ref = paged_ops.paged_decode_attend_plain(q, k, v, lengths, tables, layer, ks, vs, scale,
+                                                  bias)
+        bound = 1e-3 if bias is None else BIAS_MODE_BOUND
+    elif mode == "paged_attention":
+        out = paged_ops.paged_attention(q, k, v, lengths, tables, ks, vs, layer=layer)
+        ref = paged_ops.paged_decode_attend_plain(q, k, v, lengths, tables, layer, ks, vs, scale)
+        bound = 1e-3
+    else:
+        int8 = mode == "hf_int8"
+        qb = q.to(torch.bfloat16)
+        out = paged_ops.paged_attention_hf(qb, k, v, lengths, tables, ks, vs, layer=layer)
+        ref = paged_ops.paged_attention_hf_plain(qb, k, v, lengths, tables, layer, ks, vs, scale,
+                                                 8, int8).to(qb.dtype)
+        bound = 1e-3 if int8 else 1e-4
+    torch.cuda.synchronize()
+    err = rel_err_norm(out, ref)
+    line = (f"head dims: K3 {mode} D{d} H{hq}/{hkv} page{page} pool {str(pool_dtype)[6:]} "
+            f"lengths {list(lengths_l)}: rel_err_norm {err:.3e} (bound {bound})"
+            + ("; pools and scales bit-exact with K2's plain write" if mode.startswith("fused")
+               else ""))
+    if (err > bound or not exact or not torch.isfinite(out).all() or out.shape != (b, hq, d)
+            or (mode != "paged_attention" and out[0].float().abs().max() != 0)
+            or _build.LAUNCHES[counter] != before + 1):
+        raise AssertionError(f"{line}; pools exact {exact}")
+    print(line, flush=True)
+    del k, v, ks, vs
+    return counter, max_abs_err(out, ref)
+
+
+def check_head_dims(results: dict) -> None:
+    """Every ported kernel and mode at each head dim of CHECK_HEAD_DIMS
+    against its plain version, with the bounds of the existing checks: K1
+    (every bf16 mode, GQA 32/8, with and without lse), K4/K5 (every bf16
+    mode, GQA 32/8 through autograd, two launches bit-identical), K3 (every
+    mode, int8, bf16 and fp32 pools, GQA 32/8 over an int8 pool), K2 (pools
+    bit-exact), K1's quantized modes and K6 (QUANT_PLAIN_BOUND on the same
+    payloads), K1's fp32 body; d 100 runs on padded copies. Then every card
+    entry at d 160 must raise ValueError naming 160 before any launch. Each
+    kernel's worst max abs error at d 80 goes into its ``d80`` entry."""
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    worst = collections.defaultdict(dict)  # name -> {d: max abs err}
+
+    def note(name, d, err):
+        worst[name][d] = max(worst[name].get(d, 0.0), err)
+
+    for d in CHECK_HEAD_DIMS:
+        for case, save_lse in _k1_head_dim_cases(d):
+            note(case[-1], d, _k1_case(gen, f"head dims: {case[0]}", *case[1:], save_lse=save_lse))
+        for case in _bwd_head_dim_cases(d):
+            err = _bwd_case(gen, f"head dims: {case[0]}", *case[1:])
+            mode = ("_dropout" if "dropout_rate" in case[-1] else
+                    "_window" if "window" in case[-1] else "")
+            for name in ("pfa_flash_bwd_dkv", "pfa_flash_bwd_dq"):
+                note(name + mode, d, err)
+        for mode, pool_dtype, hq, hkv in K3_HEAD_DIM_MODES:
+            name, err = _k3_head_dim_case(gen, d, mode, pool_dtype, hq, hkv)
+            note(name, d, err)
+        # K2 alone: pools bit-exact with its plain write.
+        for pool_dtype in (torch.int8, torch.bfloat16):
+            pools = _serving_pools(pool_dtype, gen, L=2, hkv=4, num_pages=8, page=16, d=d)
+            ref = [t.clone() if t is not None else None for t in pools]
+            k_new, v_new = (torch.randn(3, 4, d, device="cuda", generator=gen).to(torch.bfloat16)
+                            for _ in range(2))
+            slots = torch.tensor([0, 17, 100], dtype=torch.int32, device="cuda")
+            paged_ops.paged_token_write(k_new, v_new, *pools, slots, 1)
+            paged_ops.paged_token_write_plain(k_new, v_new, *ref, slots, 1)
+            torch.cuda.synchronize()
+            if not all(a is None or torch.equal(a, w) for a, w in zip(pools, ref)):
+                raise AssertionError(f"head dims: K2 D{d} pool {pool_dtype}: not bit-exact")
+            note("pfa_paged_token_write", d, 0.0)
+        # K1's quantized modes and K6 on the same payloads as their plain versions.
+        q, k, v = (torch.randn(2, 256, 4, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        for name, (_, prepare, _, _, _) in _quant_modes().items():
+            kernel, plain, _ = prepare(q, k, v, True)
+            before = _build.LAUNCHES[name]
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err = rel_err_norm(out, ref)
+            line = (f"head dims: {name} B2 S256 H4 D{d} causal: vs plain rel_err_norm {err:.3e} "
+                    f"(bound {QUANT_PLAIN_BOUND})")
+            if (err > QUANT_PLAIN_BOUND or not torch.isfinite(out).all() or out.shape != q.shape
+                    or _build.LAUNCHES[name] != before + 1):
+                raise AssertionError(line)
+            print(line, flush=True)
+            note(name, d, max_abs_err(out, ref))
+        # K1's and K4/K5's fp32 bodies (fp32 inputs stay fp32).
+        q, k, v, do = (torch.randn(2, 129, 4, d, device="cuda", generator=gen) for _ in range(4))
+        o, lse = flash_ops._fwd_with_lse(q, k, v, True, d ** -0.5)
+        ref_o, ref_lse = flash_ops.flash_attention_with_lse_plain(q, k, v, causal=True)
+        grads = bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, sm_scale=d ** -0.5, causal=True)
+        want = bwd_ops.flash_attention_bwd_plain(q, k, v, ref_o, ref_lse, do, sm_scale=d ** -0.5,
+                                                 causal=True)
+        torch.cuda.synchronize()
+        errs = [rel_err_norm(o, ref_o), rel_err_norm(lse, ref_lse)]
+        errs += [rel_err_norm(g, w) for g, w in zip(grads, want)]
+        line = (f"head dims: fp32 K1 and K4/K5 B2 S129 H4 D{d} causal: o, lse, dq, dk, dv "
+                f"rel_err_norm {', '.join(f'{e:.2e}' for e in errs)} (bound 1e-4)")
+        if max(errs) > 1e-4 or not torch.isfinite(o).all():
+            raise AssertionError(line)
+        print(line, flush=True)
+    # Past 128: a ValueError naming d, before any launch.
+    wide = torch.zeros(1, 64, 2, 160, device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    pools = _serving_pools(torch.int8, gen, L=1, hkv=2, num_pages=4, page=16, d=160)
+    lens = torch.ones(1, dtype=torch.int32, device="cuda")
+    table = torch.ones(1, 1, dtype=torch.int32, device="cuda")
+    wide_calls = {
+        "K1": lambda: flash_ops.flash_attention(wide, wide, wide),
+        "K5/K4": lambda: bwd_ops.flash_attention_bwd(wide, wide, wide, wide, lse, wide,
+                                                     sm_scale=1.0, causal=False),
+        "K3": lambda: paged_ops.paged_decode_attend(wide[:, 0].float(), *pools[:2], lens, table, 0,
+                                                    *pools[2:]),
+        "K1 int8-QK": lambda: flash_ops.flash_attention_qk_quant(
+            wide.to(torch.int8), wide.to(torch.int8), wide, torch.ones(1, device="cuda")),
+    }
+    launched = sum(_build.LAUNCHES.values())
+    for label, call in wide_calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if "160" not in str(e):
+                raise AssertionError(f"head dims: {label} at D 160 raised without naming it: {e}")
+        else:
+            raise AssertionError(f"head dims: {label} took D 160")
+    if sum(_build.LAUNCHES.values()) != launched:
+        raise AssertionError("head dims: a D 160 call launched a kernel")
+    print(f"head dims: K1, K5/K4, K3 and K1's int8-QK mode raise ValueError at D 160 before any "
+          f"launch", flush=True)
+    for name, by_d in worst.items():
+        print(f"head dims: {name} worst max abs error by head dim "
+              f"{ {d: float(f'{e:.3e}') for d, e in sorted(by_d.items())} }", flush=True)
+        results[name].setdefault("d80", {})["max_abs_err"] = by_d[CEREBRAS_D]
+        results[name]["d80"]["checked_head_dims"] = sorted(by_d)
+    del pools
+    torch.cuda.empty_cache()
+
+
+#: The d-80 timings: Cerebras-GPT-2.7B's prefill and training geometry
+#: (B4 S2048 H32 d80 causal) and its decode (B8 H32 d80, int8 pool).
+CEREBRAS_PREFILL = (4, 2048, 32)
+
+
+def time_head_dims(results: dict, smi: str) -> list:
+    """K1, K5 + K4, K1's 8-bit modes and K6 (on payloads quantized once) and
+    K3's fused decode at Cerebras-GPT-2.7B's widths, each against its plain
+    version (bounds 1e-2, QUANT_PLAIN_BOUND and 1e-4 as the checks'), by
+    CUDA events and the graph fit, beside its bound from the real d (the
+    D 128 instantiation does 128 / 80 of the needed products), the plain
+    version's time and the library call's (SDPA at d 80, whose flash
+    backend takes 80; K3 none). K1 is also timed at D 128 on the same B, S
+    and H, the width it runs. Public calls only (``--head-dim-table``)."""
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    b, s, h = CEREBRAS_PREFILL
+    d = CEREBRAS_D
+    rows = []
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    shape = f"B{b} S{s} H{h} D{d} causal bf16"
+    call = lambda: flash_ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: flash_ops.flash_attention_plain(q, k, v, causal=True)  # noqa: E731
+    out, ref = call(), plain()
+    torch.cuda.synchronize()
+    err = rel_err_norm(out, ref)
+    if err > 1e-2 or not torch.isfinite(out).all():
+        raise AssertionError(f"d-80 timing: K1 {shape}: rel_err_norm {err:.3e} (bound 1e-2)")
+    ms, fit = _both_ms(call)
+    sdpa = _sdpa_call(q, k, v, is_causal=True)
+    lib, lib_fit = _both_ms(sdpa)
+    wide = [torch.randn(b, s, h, 128, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(3)]
+    d128_ms, d128_fit = _both_ms(lambda: flash_ops.flash_attention(*wide, causal=True))
+    del wide
+    row = dict(name="pfa_flash_fwd", shape=shape, ms=ms, fit_ms=fit,
+               plain_ms=median_ms(plain, runs=3, warmup=1), library_ms=lib, library_fit_ms=lib_fit,
+               d128_ms=d128_ms, d128_fit_ms=d128_fit, rel_err_norm=err,
+               max_abs_err=max_abs_err(out, ref), **flash_fwd_bound(q, k, True))
+    rows.append(row)
+    print(f"head-dim table: K1 {shape}: {ms:.4f} / {fit:.4f} ms (events / fit), the same B S H at "
+          f"D 128 {d128_ms:.4f} / {d128_fit:.4f}, SDPA {lib:.4f} / {lib_fit:.4f} (K1 / SDPA "
+          f"{fit / lib_fit:.3f} by the fit), plain {row['plain_ms']:.4f}, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; K1 at {100 * row['bound_ms'] / fit:.1f} % "
+          f"of it by the fit), rel_err_norm {err:.3e} ({smi})", flush=True)
+
+    o, lse = flash_ops._fwd_with_lse(q, k, v, True, d ** -0.5)
+    kw = dict(sm_scale=d ** -0.5, causal=True)
+    bwd = lambda: bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+    bwd_plain = lambda: bwd_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)  # noqa: E731
+    got, want = bwd(), bwd_plain()
+    torch.cuda.synchronize()
+    errs = [rel_err_norm(g, w) for g, w in zip(got, want)]
+    if max(errs) > 1e-2 or not all(torch.isfinite(g).all() for g in got):
+        raise AssertionError(f"d-80 timing: K5 + K4 {shape}: rel_err_norm {errs} (bound 1e-2)")
+    di = bwd_ops.flash_bwd_dq(q, k, v, o, lse, do, **kw)[1]
+    k5_ms, k5_fit = _both_ms(lambda: bwd_ops.flash_bwd_dq(q, k, v, o, lse, do, **kw))
+    k4_ms, k4_fit = _both_ms(lambda: bwd_ops.flash_bwd_dkv(q, k, v, do, lse, di, **kw))
+    ms, fit = _both_ms(bwd)
+    alone, node, node_name = _sdpa_bwd_calls(q, k, v, do, is_causal=True)
+    lib, lib_fit = median_ms(alone), _fit_ms(node)
+    bnd_dkv, bnd_dq = bwd_bounds(q, k, True)
+    bound = bnd_dkv["bound_ms"] + bnd_dq["bound_ms"]
+    by = "operations" if "operations" in (bnd_dkv["bound_by"], bnd_dq["bound_by"]) else "bytes"
+    row = dict(name="pfa_flash_bwd_dkv + pfa_flash_bwd_dq", shape=shape, ms=ms, fit_ms=fit,
+               k5_ms=k5_ms, k5_fit_ms=k5_fit, k4_ms=k4_ms, k4_fit_ms=k4_fit,
+               plain_ms=median_ms(bwd_plain, runs=3, warmup=1), library_ms=lib,
+               library_fit_ms=lib_fit, bound_ms=bound, bound_by=by, k4_bound_ms=bnd_dkv["bound_ms"],
+               k5_bound_ms=bnd_dq["bound_ms"], rel_err_norm=max(errs),
+               max_abs_err=max(max_abs_err(g, w) for g, w in zip(got, want)))
+    rows.append(row)
+    print(f"head-dim table: K5 + K4 {shape}: {ms:.4f} / {fit:.4f} ms (events / fit; K5 with di "
+          f"{k5_ms:.4f} / {k5_fit:.4f}, K4 {k4_ms:.4f} / {k4_fit:.4f}), SDPA backward "
+          f"({node_name}) {lib:.4f} / {lib_fit:.4f} ((K5 + K4) / SDPA {fit / lib_fit:.3f} by the "
+          f"fit), plain "
+          f"{row['plain_ms']:.4f}, bound {bound:.4f} ms ({by}; at {100 * bound / fit:.1f} % by the "
+          f"fit), rel_err_norm dq dk dv {', '.join(f'{e:.2e}' for e in errs)} ({smi})", flush=True)
+    del q, k, v, do, o, lse, di, got, want
+    torch.cuda.empty_cache()
+
+    # K1's 8-bit modes and K6 at the same shape, on payloads quantized once.
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    for name, (_, prepare, qk_dtype, pv_dtype, _) in _quant_modes().items():
+        kernel, plain_q, scale_bytes = prepare(q, k, v, True)
+        out, ref = kernel(), plain_q()
+        torch.cuda.synchronize()
+        err = rel_err_norm(out, ref)
+        if err > QUANT_PLAIN_BOUND or not torch.isfinite(out).all():
+            raise AssertionError(f"d-80 timing: {name} {shape}: rel_err_norm {err:.3e} (bound "
+                                 f"{QUANT_PLAIN_BOUND})")
+        ms, fit = _both_ms(kernel)
+        row = dict(name=name, shape=shape, ms=ms, fit_ms=fit,
+                   plain_ms=median_ms(plain_q, runs=2, warmup=1), library_ms=None,
+                   rel_err_norm=err, max_abs_err=max_abs_err(out, ref),
+                   **quant_bound(q, k, True, qk_dtype, pv_dtype, scale_bytes))
+        rows.append(row)
+        print(f"head-dim table: {name} {shape}: {ms:.4f} / {fit:.4f} ms (events / fit), plain "
+              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; at "
+              f"{100 * row['bound_ms'] / fit:.1f} % by the fit), library none, rel_err_norm "
+              f"{err:.3e} ({smi})", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    q, kp, vp, ks, vs, lengths, tables, slots, k_new, v_new = _decode_case(gen, hq=h, L=2, d=d)
+    layer, pps = 1, tables.shape[1]
+    ref_pools = [t.clone() for t in (kp, vp, ks, vs)]
+    fused = lambda: paged_ops.paged_decode_attention(  # noqa: E731
+        q, k_new, v_new, kp, vp, lengths, tables, slots, layer, ks, vs)
+
+    def fused_plain():
+        paged_ops.paged_token_write_plain(k_new, v_new, *ref_pools, slots, layer)
+        return paged_ops.paged_decode_attend_plain(q, *ref_pools[:2], lengths, tables, layer,
+                                                   *ref_pools[2:], d ** -0.5)
+
+    out, ref = fused(), fused_plain()
+    torch.cuda.synchronize()
+    err = rel_err_norm(out, ref)
+    dshape = f"B{q.shape[0]} H{h} D{d} page128 int8 pool, lengths {list(GPT2_DECODE_LENS)}"
+    if err > 1e-4 or not torch.isfinite(out).all():
+        raise AssertionError(f"d-80 timing: K3 fused {dshape}: rel_err_norm {err:.3e} (bound 1e-4)")
+    ms, fit = _both_ms(fused)
+    tokens = int(lengths.sum())
+    row = dict(name="pfa_paged_decode_fused", shape=dshape, ms=ms, fit_ms=fit,
+               plain_ms=median_ms(fused_plain, runs=5, warmup=1), library_ms=None,
+               rel_err_norm=err, max_abs_err=max_abs_err(out, ref),
+               **k3_bound(q.shape[0], h, h, d, 1, tokens, pps, 4, True, fused_in=2))
+    rows.append(row)
+    print(f"head-dim table: K3 fused decode {dshape}: {ms:.4f} / {fit:.4f} ms (events / fit), "
+          f"plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; at "
+          f"{100 * row['bound_ms'] / fit:.1f} % by the fit), library none, rel_err_norm "
+          f"{err:.3e} ({smi})", flush=True)
+    del kp, vp, ks, vs, ref_pools
+    torch.cuda.empty_cache()
+    for row in rows:
+        for name in row["name"].split(" + "):
+            entry = results[name].setdefault("d80", {})
+            entry.update({key: val for key, val in row.items()
+                          if key not in ("name", "max_abs_err", "rel_err_norm")})
+            entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), row["max_abs_err"])
+    return rows
+
+
+#: The A/B rows at D 64 (the parent's widths) of ``--head-dim-table``.
+HEAD_DIM_AB_ROWS = ("K1 plain B4 S2048 H12 D64 causal", "K5 + K4 B4 S2048 H12 D64 causal",
+                    "K3 fused GPT-2 medium B8 H16 D64 int8")
+
+
+def time_head_dim_ab(smi: str) -> None:
+    """``--head-dim-table``: the rows at D 64 that must lose no time to the
+    head-dim slice (K1 and K5 + K4 at B4 S2048 H12 D64 causal, K3's fused
+    decode at GPT-2 medium's B8 H16 D64 int8), each by the graph fit and
+    CUDA events, then the d-80 rows where the tree takes d 80 (a tree that
+    refuses it prints the refusal). Public calls only, so a copy of this
+    script times another tree of the repository."""
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    q, k, v, do = (torch.randn(4, 2048, 12, 64, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = flash_ops._fwd_with_lse(q, k, v, True, 0.125)
+    dec = _decode_case(gen)
+    calls = (
+        lambda: flash_ops.flash_attention(q, k, v, causal=True),
+        lambda: bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, sm_scale=0.125, causal=True),
+        lambda: paged_ops.paged_decode_attention(dec[0], dec[8], dec[9], *dec[1:3], dec[5],
+                                                 dec[6], dec[7], 7, *dec[3:5]),
+    )
+    for label, call in zip(HEAD_DIM_AB_ROWS, calls):
+        fit = _fit_ms(call)
+        ev = median_ms(call)
+        print(f"head-dim A/B: {label}: fit {fit:.5f} ms, events {ev:.5f} ms ({smi})", flush=True)
+    del q, k, v, do, o, lse, dec
+    torch.cuda.empty_cache()
+    try:
+        time_head_dims(collections.defaultdict(dict), smi)
+    except ValueError as e:
+        print(f"head-dim A/B: the d-80 rows are refused by this tree: {e}", flush=True)
+
+
 def phase_kernels(smi: str) -> dict:
     results = {name: {} for name in SOURCES}
     check_flash(results)
@@ -2735,6 +3197,8 @@ def phase_kernels(smi: str) -> dict:
     check_llama_kernels(results, smi)
     check_llama_bwd(results, smi)
     results["k4_slices_table"] = time_k4_slices(smi)
+    check_head_dims(results)
+    results["head_dim_table"] = time_head_dims(results, smi)
     return results
 
 
@@ -4604,23 +5068,28 @@ def profile_train_step(trainer, state, batch, out_dir: Path) -> None:
     _profile_runs(lambda: trainer.train_step(state, batch), PROFILED_STEPS, out_dir, "train_step")
 
 
-def _train_run(cfg, label: str, kernels, smi: str, dropout_rng=None):
-    """TRAIN_STEPS AdamW steps of GPT-2 ``cfg`` at B TRAIN_BATCH S
+def _train_run(cfg, label: str, kernels, smi: str, dropout_rng=None, model=None,
+               first_layers=None, batch_size: int = TRAIN_BATCH,
+               model_name: str = "GPT-2 medium"):
+    """TRAIN_STEPS AdamW steps of GPT-2 ``cfg`` at B ``batch_size`` S
     TRAIN_SEQ on one fixed batch through ``Trainer.train_step``, after a
     warm-up step: the loss must fall and each of ``kernels`` launch once per
-    layer and step. Returns (trainer, state, batch, the first
-    CHECK_LAYERS layers' initial weights, launches, median step ms)."""
+    layer and step. ``model`` and its first CHECK_LAYERS layers' initial
+    weights (``first_layers``, on the CPU) default to GPT-2 medium's.
+    Returns (trainer, state, batch, the first CHECK_LAYERS layers' initial
+    weights, launches, median step ms)."""
     from photonic_flash_attention_tpu_torch.training import Trainer, synthetic_lm_batches
 
-    model = gpt2_medium_on_card(cfg)
-    first_layers = {k: v for k, v in gpt2_medium_state().items()
-                    if not k.startswith("h.") or int(k.split(".")[1]) < CHECK_LAYERS}
+    if model is None:
+        model = gpt2_medium_on_card(cfg)
+        first_layers = {k: v for k, v in gpt2_medium_state().items()
+                        if not k.startswith("h.") or int(k.split(".")[1]) < CHECK_LAYERS}
     # optax.adamw(1e-4)'s defaults (torch's default weight decay is 1e-2).
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=1e-4)
     trainer = Trainer(model, opt, dropout_rng=dropout_rng)
     state = trainer.init_state()
-    batch = next(synthetic_lm_batches(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    batch = next(synthetic_lm_batches(batch=batch_size, seq=TRAIN_SEQ,
                                       vocab=cfg.vocab_size, seed=0))
     state, _ = trainer.train_step(state, batch)  # warm-up
     torch.cuda.synchronize()
@@ -4644,8 +5113,8 @@ def _train_run(cfg, label: str, kernels, smi: str, dropout_rng=None):
         raise AssertionError(f"training path ({label}): loss did not fall over {TRAIN_STEPS} "
                              f"steps: {losses}")
     wall = sum(step_ms) / 1e3
-    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
-    print(f"training path ({label}): GPT-2 medium B{TRAIN_BATCH} S{TRAIN_SEQ}, {TRAIN_STEPS} AdamW "
+    tokens = TRAIN_STEPS * batch_size * TRAIN_SEQ
+    print(f"training path ({label}): {model_name} B{batch_size} S{TRAIN_SEQ}, {TRAIN_STEPS} AdamW "
           f"steps in {wall:.3f} s, {tokens / wall:.1f} tokens/s, step ms "
           f"{[round(t, 3) for t in step_ms]} (median {statistics.median(step_ms):.3f}), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi}); "
@@ -4680,6 +5149,144 @@ def phase_training(smi: str, profile_dir: Optional[str] = None) -> dict:
     torch.cuda.empty_cache()
     check_train_grads(drop_cfg, first_layers, batch, DROPOUT_KERNELS)
     return collections.Counter(launches) + collections.Counter(drop_launches)
+
+
+# -- the d-80 path: Cerebras-GPT-2.7B's widths served and trained -------------
+
+#: Cerebras-GPT-2.7B's published widths (the cerebras/Cerebras-GPT-2.7B
+#: config: n_embd 2560, n_head 32, n_layer 32, n_positions 2048, GPT-2's
+#: vocabulary; the Cerebras-GPT paper's Table 1: d_head 80) on the repo's
+#: GPT-2 block, built inline: the d-80 path.
+D80_WIDTHS = dict(vocab_size=50257, n_positions=2048, n_embd=2560, n_layer=32, n_head=32)
+#: Pages of 128 tokens of the d-80 path's int8 pool (5,120 bytes a token a
+#: layer beside 256 bytes of scales).
+D80_PAGES = 128
+#: The d-80 path's training cut: every width, 4 layers, B2 S TRAIN_SEQ.
+D80_TRAIN_LAYERS, D80_TRAIN_BATCH = 4, 2
+#: Bound on rel_err_norm of the served prefill's last-position logits (bf16
+#: compute) against the dense fp32 forward of the same weights: GPT-2's.
+D80_LOGITS_BOUND = 5e-2
+
+
+def phase_gpt2_d80(smi: str) -> dict:
+    """The d-80 path: GPT-2 at Cerebras-GPT-2.7B's widths (D80_WIDTHS, head
+    dim 80), weights drawn on the card from a seed. Served through
+    ServingEngine over an int8 pool (max_batch 8, decode window 32, the
+    serving phase's prompts, NEW_TOKENS new tokens): K1 must launch
+    n_layer x 8 times and the fused decode at least n_layer x (NEW_TOKENS -
+    1); the greedy tokens graphed and eager bit-equal; then one chunked
+    prefill run (K1's key-bias stream); the served prefill's last-position
+    logits against the dense fp32 forward (D80_LOGITS_BOUND). Then the same
+    widths cut to D80_TRAIN_LAYERS layers trained TRAIN_STEPS AdamW steps
+    at B D80_TRAIN_BATCH S TRAIN_SEQ (K1 with lse, K5, K4 once a layer a
+    step), and the first CHECK_LAYERS layers' gradient against the CPU's
+    fp32 plain run (5e-2). Returns the path's launches."""
+    from photonic_flash_attention_tpu_torch.core.serving import ServingEngine
+    from photonic_flash_attention_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from photonic_flash_attention_tpu_torch.models.gpt2_serving import (
+        KVPages, prefill_step, prepare_params,
+    )
+
+    cfg = GPT2Config(**D80_WIDTHS)
+    if cfg.n_embd // cfg.n_head != CEREBRAS_D:
+        raise AssertionError(f"d-80 path: head dim {cfg.n_embd // cfg.n_head}")
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = GPT2LMHead(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    state = model.state_dict()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"d-80 path: GPT-2 at Cerebras-GPT-2.7B's widths (n_embd {cfg.n_embd}, n_head "
+          f"{cfg.n_head}, head dim {CEREBRAS_D}, {cfg.n_layer} layers, n_positions "
+          f"{cfg.n_positions}), {n_params / 1e9:.3f} B parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def make_engine(**kw):
+        return ServingEngine(cfg, state, device="cuda", num_pages=D80_PAGES, page_size=128,
+                             max_batch=8, kv_dtype=torch.int8, decode_window=32, **kw)
+
+    engine = make_engine()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    engine.generate([p[:8] for p in prompts[:2]], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    engine.reset_performance_stats()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    for p, o in zip(prompts, outs):
+        if len(o) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"d-80 path: prompt of {len(p)} tokens: bad output {o}")
+    need = {"pfa_flash_fwd": cfg.n_layer * len(prompts),
+            "pfa_paged_decode_fused": cfg.n_layer * (NEW_TOKENS - 1)}
+    for name, n in need.items():
+        got = launches.get(name, 0)
+        if got < n or (name == "pfa_flash_fwd" and got != n):
+            raise AssertionError(f"d-80 path: {name}: {got} launches, expected {n}")
+    stats = engine.get_performance_stats()
+    print(f"d-80 path: {len(prompts)} requests x {NEW_TOKENS} tokens in {wall:.2f} s; decode "
+          f"{stats['decode_tokens']} tokens at {stats['decode_tokens_per_s']:.1f} tokens/s, "
+          f"{_decode_ms(engine):.3f} ms a step, prefill {stats['prefill_tokens']} tokens at "
+          f"{stats['prefill_tokens_per_s']:.1f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches} ({smi})",
+          flush=True)
+    window_launches = check_window_graphs(
+        f"Cerebras-GPT-2.7B widths (head dim {CEREBRAS_D}) int8 pool", engine, make_engine,
+        prompts, NEW_TOKENS, smi)
+    del engine
+    torch.cuda.empty_cache()
+    chunked_launches = check_chunked_serving(cfg, model, prompts, outs, smi)
+    torch.cuda.empty_cache()
+
+    # The served prefill's last-position logits for prompt 0 against the
+    # dense forward of the same weights in fp32 (a model on the meta device
+    # given the card's tensors), and the dense bf16 forward beside it.
+    params = prepare_params(state, cfg, "cuda")
+    n0 = len(prompts[0])
+    s_pad = max(16, 1 << (n0 - 1).bit_length())
+    ids = torch.zeros(1, s_pad, dtype=torch.long, device="cuda")
+    ids[0, :n0] = torch.tensor(prompts[0], device="cuda")
+    pages = KVPages.create(cfg, 4, 128, torch.int8, "cuda")
+    slots = torch.arange(s_pad, dtype=torch.int32, device="cuda")[None] + 128
+    slots[0, n0:] = 0
+    logits = prefill_step(params, cfg, ids, torch.tensor([n0], device="cuda"), pages, slots,
+                          True)[0].float()
+    with torch.device("meta"):
+        dense32 = GPT2LMHead(dataclasses.replace(cfg, dtype=torch.float32))
+    dense32.load_state_dict(state, assign=True)
+    with torch.no_grad():
+        want = dense32(ids[:, :n0])[0, -1].float()
+        bf16 = model(ids[:, :n0])[0, -1].float()
+    err, err_bf16 = rel_err_norm(logits, want), rel_err_norm(logits, bf16)
+    line = (f"d-80 path: served prefill's last-position logits (prompt of {n0} tokens) vs the "
+            f"dense fp32 forward rel_err_norm {err:.3e} (bound {D80_LOGITS_BOUND}); vs the dense "
+            f"bf16 forward {err_bf16:.3e}; argmax {int(logits.argmax())} / {int(want.argmax())}")
+    if err > D80_LOGITS_BOUND or not torch.isfinite(logits).all():
+        raise AssertionError(line)
+    print(line, flush=True)
+    first_layers = {k: v.cpu() for k, v in state.items()
+                    if not k.startswith("h.") or int(k.split(".")[1]) < D80_TRAIN_LAYERS}
+    del params, pages, dense32, model, state
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layer=D80_TRAIN_LAYERS)
+    with torch.device("cuda"):
+        tmodel = GPT2LMHead(cut, generator=torch.Generator(device="cuda").manual_seed(0))
+    tmodel.load_state_dict(first_layers)
+    trainer, tstate, batch, _, train_launches, step_ms = _train_run(
+        cut, "d-80 path", TRAIN_KERNELS, smi, model=tmodel, first_layers=first_layers,
+        batch_size=D80_TRAIN_BATCH,
+        model_name=f"Cerebras-GPT-2.7B widths cut to {D80_TRAIN_LAYERS} layers (head dim "
+                   f"{CEREBRAS_D})")
+    del trainer, tstate, tmodel
+    torch.cuda.empty_cache()
+    check_train_grads(cut, first_layers, batch)
+    return (collections.Counter(launches) + collections.Counter(window_launches)
+            + collections.Counter(chunked_launches) + collections.Counter(train_launches))
 
 
 T5_PROMPT_LENS = (64, 100, 128, 200, 256, 300, 400, 512)
@@ -7354,6 +7961,15 @@ def main() -> None:
                         help="only build, print the K3 table and time GPT-2 medium's decode "
                              "step (public calls only, so a copy of this script times any tree "
                              "of the repository); no result line")
+    parser.add_argument("--head-dim-table", action="store_true",
+                        help="only build and time the rows at D 64 that the head-dim slice must "
+                             "not slow (K1, K5 + K4, K3's fused decode) and the d-80 rows where "
+                             "the tree takes d 80 (public calls only, so a copy of this script "
+                             "times any tree of the repository); no result line")
+    parser.add_argument("--head-dims", action="store_true",
+                        help="only build and run the head-dim checks, the d-80 timings and the "
+                             "d-80 path (GPT-2 at Cerebras-GPT-2.7B's widths served and "
+                             "trained); no result line")
     parser.add_argument("--shell", action="store_true",
                         help="only build and run the shell path (K1's time measured here at "
                              "the headline shape; no NCCL times); no result line")
@@ -7367,6 +7983,22 @@ def main() -> None:
         t0 = time.perf_counter()
         phase_shell(smi, median_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True)))
         print(f"chip_smoke: shell path in {time.perf_counter() - t0:.1f} s", flush=True)
+        return
+    if args.head_dim_table:
+        phase_build(sass=False)
+        time_head_dim_ab(smi)
+        return
+    if args.head_dims:
+        phase_build(sass=False)
+        results = {name: {} for name in SOURCES}
+        t0 = time.perf_counter()
+        check_head_dims(results)
+        time_head_dims(results, smi)
+        print(f"chip_smoke: head-dim checks and timings in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        print(f"chip_smoke: d-80 path launches {dict(phase_gpt2_d80(smi))} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         return
     if args.quant_table:
         phase_build(sass=False)
@@ -7416,6 +8048,7 @@ def main() -> None:
     captured_by_path.update(experiment_captured)
     # Each main path's launches, counted from 0 just before it.
     by_path |= {"serving": timed("serving", phase_serving, smi),
+                "gpt2_d80": timed("gpt2_d80", phase_gpt2_d80, smi),
                 "durable": timed("durable", phase_durable, smi),
                 "parallel": timed("parallel", phase_parallel, smi, args.profile),
                 "llama": timed("llama", phase_llama, smi),
@@ -7425,6 +8058,9 @@ def main() -> None:
                 "t5": timed("t5", phase_t5, smi, args.profile),
                 "t5_training": timed("t5_training", phase_t5_training, smi)}
     ops_results, ops_launches = timed("ops", phase_ops, smi)
+    for name, r in ops_results.items():  # keep the kernels phase's d-80 case
+        if "d80" in results.get(name, {}):
+            r.setdefault("d80", results[name]["d80"])
     results.update(ops_results)
     by_path.update(ops_launches)
     by_path["shell"] = timed("shell", phase_shell, smi, results["pfa_flash_fwd"]["ms"])
@@ -7451,6 +8087,10 @@ def main() -> None:
             **({"whole_call_ms": r["whole_call_ms"]} if "whole_call_ms" in r else {}),
             **({"cases": r["cases"]} if "cases" in r else {}),
             **{k: r[k] for k in ("shape", "iters") if k in r},
+            # The kernel at Cerebras-GPT-2.7B's head dim (check_head_dims,
+            # time_head_dims): its worst error there, and its times at
+            # that model's shapes where it is timed.
+            **({"d80": r["d80"]} if "d80" in r else {}),
         }
 
     kernels = [entry(name) for name in SOURCES if name not in NESTED_MODES]

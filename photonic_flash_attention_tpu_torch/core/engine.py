@@ -69,6 +69,7 @@ import torch
 from ..config import get_config
 from ..hardware.detection import known_capabilities
 from ..hardware.roofline import attention_decode_cost, attention_prefill_cost, kernel_energy_mj
+from ..ops._build import MAX_HEAD_DIM
 from ..ops.flash import flash_attention
 from ..ops.flash_fp8 import (
     flash_attention_fp8,
@@ -358,6 +359,10 @@ class AttentionEngine:
     def _available_kernels(
         self, w: Optional[WorkloadCharacteristics] = None
     ) -> Tuple[KernelKind, ...]:
+        # Every kind but FUSED runs the card's attention kernels (K1, K3, K6),
+        # which take head dims up to MAX_HEAD_DIM (ops/_build.py::head_dim_plan).
+        if w is not None and w.head_dim > MAX_HEAD_DIM:
+            return (KernelKind.FUSED,)
         kinds = [KernelKind.FUSED, KernelKind.FLASH]
         if w is not None and not w.is_decode and w.q_len == w.kv_len:
             if unrolled_supported(w.q_len, w.head_dim):

@@ -240,14 +240,15 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   }
 }
 
-// rows x D fp32 from global into shared memory with row pitch LD;
-// rows at or past `valid` are zero-filled.
+// rows x D fp32 from global into shared memory with row pitch LD; rows at
+// or past `valid` and columns at or past `cols` (a head dim below the
+// width D) are zero-filled.
 template <int D, int LD, int NT>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long stride, int rows, int valid) {
+                                              long long stride, int rows, int valid, int cols) {
   for (int i = threadIdx.x; i < rows * D; i += NT) {
     const int r = i / D, c = i % D;
-    dst[r * LD + c] = r < valid ? src[r * stride + c] : 0.f;
+    dst[r * LD + c] = r < valid && c < cols ? src[r * stride + c] : 0.f;
   }
 }
 

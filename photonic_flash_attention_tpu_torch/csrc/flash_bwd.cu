@@ -10,7 +10,9 @@
 // Contract: q, o, dO (B, Sq, Hq, D) and k, v (B, Skv, Hkv, D) contiguous,
 // Hq a multiple of Hkv, query head h on KV head h / (Hq / Hkv) (K1's
 // mapping, JAX's jnp.repeat order); lse (B, Hq, Sq) fp32 in natural log
-// (K1's residual); D in {64, 128}; bf16 or fp32; causal aligned to the
+// (K1's residual); D from 1 to 128 on the widths 64 and 128 (bf16: a
+// multiple of 8, ops/_build.py::head_dim_plan pads the rest; fp32: any);
+// bf16 or fp32; causal aligned to the
 // sequence end (key j visible to row i iff j <= i + Skv - Sq). K5 computes
 // di = rowsum(o * dO) (B, Hq, Sq) fp32 in its prologue and writes it; K4
 // reads it, so K5 launches first. dq comes out (B, Sq, Hq, D) and dk, dv
@@ -83,7 +85,7 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ di,
             float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
-            float scale, float scale_log2, int causal, Streams st) {
+            int d, float scale, float scale_log2, int causal, Streams st) {
   constexpr int LDK = D + 1;  // padded rows: conflict-free column reads
   constexpr int LDP = BR + 1;
   constexpr int NJ = BR / 4;  // q columns per thread per tile
@@ -100,11 +102,13 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int kv0 = blockIdx.x * BR, kvh = blockIdx.y, b = blockIdx.z, group = H / Hkv;
   const int r = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const long long str = (long long)H * D, kstr = (long long)Hkv * D;
-  const long long kvoff = (long long)b * Skv * kstr + (long long)kvh * D;
+  // D: the compiled width; d: the real head dim, the rows' pitch (columns
+  // d..D-1 load as zeros and are not stored).
+  const long long str = (long long)H * d, kstr = (long long)Hkv * d;
+  const long long kvoff = (long long)b * Skv * kstr + (long long)kvh * d;
 
-  load_tile_f32<D, LDK, F32_THREADS>(Ks, k + kvoff + kv0 * kstr, kstr, BR, Skv - kv0);
-  load_tile_f32<D, LDK, F32_THREADS>(Vs, v + kvoff + kv0 * kstr, kstr, BR, Skv - kv0);
+  load_tile_f32<D, LDK, F32_THREADS>(Ks, k + kvoff + kv0 * kstr, kstr, BR, Skv - kv0, d);
+  load_tile_f32<D, LDK, F32_THREADS>(Vs, v + kvoff + kv0 * kstr, kstr, BR, Skv - kv0, d);
   float dka[DJ], dva[DJ];
 #pragma unroll
   for (int j = 0; j < DJ; ++j) dka[j] = dva[j] = 0.f;
@@ -114,14 +118,14 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int h = kvh * group; h < (kvh + 1) * group; ++h)  // the group's query heads in turn
   for (int q0 = q_begin; q0 < q_end; q0 += BR) {
-    const float* qb = q + (long long)b * Sq * str + (long long)h * D;
-    const float* ob = dout + (long long)b * Sq * str + (long long)h * D;
+    const float* qb = q + (long long)b * Sq * str + (long long)h * d;
+    const float* ob = dout + (long long)b * Sq * str + (long long)h * d;
     const float* lseb = lse + ((long long)b * H + h) * Sq;
     const float* dib = di + ((long long)b * H + h) * Sq;
     const uint32_t bh = static_cast<uint32_t>(b * H + h);
     __syncthreads();
-    load_tile_f32<D, LDK, F32_THREADS>(Qs, qb + q0 * str, str, BR, Sq - q0);
-    load_tile_f32<D, LDK, F32_THREADS>(Os, ob + q0 * str, str, BR, Sq - q0);
+    load_tile_f32<D, LDK, F32_THREADS>(Qs, qb + q0 * str, str, BR, Sq - q0, d);
+    load_tile_f32<D, LDK, F32_THREADS>(Os, ob + q0 * str, str, BR, Sq - q0, d);
     for (int i = threadIdx.x; i < BR; i += F32_THREADS) {
       const bool ok = q0 + i < Sq;
       Ls[i] = ok ? lseb[q0 + i] * LOG2E : 0.f;
@@ -132,12 +136,12 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     float s[NJ], dp[NJ];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) s[j] = dp[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = Ks[r * LDK + d], vd = Vs[r * LDK + d];
+    for (int c = 0; c < D; ++c) {
+      const float kd = Ks[r * LDK + c], vd = Vs[r * LDK + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        s[j] = fmaf(kd, Qs[(qd + 4 * j) * LDK + d], s[j]);
-        dp[j] = fmaf(vd, Os[(qd + 4 * j) * LDK + d], dp[j]);
+        s[j] = fmaf(kd, Qs[(qd + 4 * j) * LDK + c], s[j]);
+        dp[j] = fmaf(vd, Os[(qd + 4 * j) * LDK + c], dp[j]);
       }
     }
 #pragma unroll
@@ -165,6 +169,7 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const long long at = kvoff + krow * kstr;
 #pragma unroll
   for (int j = 0; j < DJ; ++j) {
+    if (qd + 4 * j >= d) continue;
     dk[at + qd + 4 * j] = dka[j];
     dv[at + qd + 4 * j] = dva[j];
   }
@@ -182,7 +187,7 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ o,
            const float* __restrict__ dout, const float* __restrict__ lse,
            float* __restrict__ di, float* __restrict__ dq, int Sq, int Skv, int H, int Hkv,
-           float scale, float scale_log2, int causal, Streams st) {
+           int d, float scale, float scale_log2, int causal, Streams st) {
   constexpr int LDK = D + 1;
   constexpr int LDP = BR + 1;
   constexpr int NJ = BR / 4;
@@ -196,16 +201,16 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z, kvh = h / (H / Hkv);
   const int r = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const long long str = (long long)H * D, kstr = (long long)Hkv * D;
-  const long long qoff = (long long)b * Sq * str + (long long)h * D;
-  const float* kb = k + (long long)b * Skv * kstr + (long long)kvh * D;
-  const float* vb = v + (long long)b * Skv * kstr + (long long)kvh * D;
+  const long long str = (long long)H * d, kstr = (long long)Hkv * d;
+  const long long qoff = (long long)b * Sq * str + (long long)h * d;
+  const float* kb = k + (long long)b * Skv * kstr + (long long)kvh * d;
+  const float* vb = v + (long long)b * Skv * kstr + (long long)kvh * d;
   const int off = Skv - Sq, row = q0 + r;
   const long long vrow = ((long long)b * H + h) * Sq + row;  // the row's lse and di
   const float lrow = row < Sq ? lse[vrow] * LOG2E : 0.f;
 
-  load_tile_f32<D, LDK, F32_THREADS>(Qs, q + qoff + q0 * str, str, BR, Sq - q0);
-  load_tile_f32<D, LDK, F32_THREADS>(Os, dout + qoff + q0 * str, str, BR, Sq - q0);
+  load_tile_f32<D, LDK, F32_THREADS>(Qs, q + qoff + q0 * str, str, BR, Sq - q0, d);
+  load_tile_f32<D, LDK, F32_THREADS>(Os, dout + qoff + q0 * str, str, BR, Sq - q0, d);
   __syncthreads();
   // di = rowsum(o dO): the quarter's columns, then the row's four threads
   // (neighbouring lanes) by shuffles; 0 past Sq.
@@ -213,7 +218,8 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (row < Sq) {
     const float* orow = o + qoff + (long long)row * str;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) drow = fmaf(orow[qd + 4 * j], Os[r * LDK + qd + 4 * j], drow);
+    for (int j = 0; j < DJ; ++j)
+      if (qd + 4 * j < d) drow = fmaf(orow[qd + 4 * j], Os[r * LDK + qd + 4 * j], drow);
   }
   drow += __shfl_xor_sync(0xffffffffu, drow, 1);
   drow += __shfl_xor_sync(0xffffffffu, drow, 2);
@@ -227,19 +233,19 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BR) {
     __syncthreads();
-    load_tile_f32<D, LDK, F32_THREADS>(Ks, kb + kv0 * kstr, kstr, BR, Skv - kv0);
-    load_tile_f32<D, LDK, F32_THREADS>(Vs, vb + kv0 * kstr, kstr, BR, Skv - kv0);
+    load_tile_f32<D, LDK, F32_THREADS>(Ks, kb + kv0 * kstr, kstr, BR, Skv - kv0, d);
+    load_tile_f32<D, LDK, F32_THREADS>(Vs, vb + kv0 * kstr, kstr, BR, Skv - kv0, d);
     __syncthreads();
 
     float s[NJ], dp[NJ];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) s[j] = dp[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = Qs[r * LDK + d], ov = Os[r * LDK + d];
+    for (int c = 0; c < D; ++c) {
+      const float qv = Qs[r * LDK + c], ov = Os[r * LDK + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        s[j] = fmaf(qv, Ks[(qd + 4 * j) * LDK + d], s[j]);
-        dp[j] = fmaf(ov, Vs[(qd + 4 * j) * LDK + d], dp[j]);
+        s[j] = fmaf(qv, Ks[(qd + 4 * j) * LDK + c], s[j]);
+        dp[j] = fmaf(ov, Vs[(qd + 4 * j) * LDK + c], dp[j]);
       }
     }
 #pragma unroll
@@ -262,7 +268,8 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (row >= Sq) return;
   float* orow = dq + qoff + row * str;
 #pragma unroll
-  for (int j = 0; j < DJ; ++j) orow[qd + 4 * j] = dqa[j];
+  for (int j = 0; j < DJ; ++j)
+    if (qd + 4 * j < d) orow[qd + 4 * j] = dqa[j];
 }
 
 // --- launchers ----------------------------------------------------------------
@@ -284,20 +291,20 @@ cudaError_t prepare(Kern kern, int smem) {
 }
 
 template <int D, int SM>
-cudaError_t dkv_f32(const BwdArgs& a, void* dk, void* dv, dim3 grid) {
+cudaError_t dkv_f32(const BwdArgs& a, void* dk, void* dv, dim3 grid, int d) {
   constexpr int smem = (4 * BR * (D + 1) + 2 * BR * (BR + 1) + 2 * BR) * sizeof(float);
   cudaError_t e = prepare(bwd_dkv_f32<D, SM>, smem);
   if (e != cudaSuccess) return e;
   bwd_dkv_f32<D, SM><<<grid, F32_THREADS, smem, a.st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.di,
-      static_cast<float*>(dk), static_cast<float*>(dv), a.Sq, a.Skv, a.H, a.Hkv, a.scale,
+      static_cast<float*>(dk), static_cast<float*>(dv), a.Sq, a.Skv, a.H, a.Hkv, d, a.scale,
       a.scale_log2, a.causal, a.streams);
   return cudaGetLastError();
 }
 
 template <int D, int SM>
-cudaError_t dq_f32(const BwdArgs& a, void* dq, dim3 grid) {
+cudaError_t dq_f32(const BwdArgs& a, void* dq, dim3 grid, int d) {
   constexpr int smem = (4 * BR * (D + 1) + BR * (BR + 1)) * sizeof(float);
   cudaError_t e = prepare(bwd_dq_f32<D, SM>, smem);
   if (e != cudaSuccess) return e;
@@ -305,22 +312,20 @@ cudaError_t dq_f32(const BwdArgs& a, void* dq, dim3 grid) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.o),
       static_cast<const float*>(a.dout), a.lse, a.di, static_cast<float*>(dq), a.Sq, a.Skv, a.H,
-      a.Hkv, a.scale, a.scale_log2, a.causal, a.streams);
+      a.Hkv, d, a.scale, a.scale_log2, a.causal, a.streams);
   return cudaGetLastError();
 }
 
 template <int SM>
 cudaError_t run_dkv(const BwdArgs& a, void* dk, void* dv, dim3 grid, int D) {
-  if (D == 64) return dkv_f32<64, SM>(a, dk, dv, grid);
-  if (D == 128) return dkv_f32<128, SM>(a, dk, dv, grid);
-  return cudaErrorInvalidValue;
+  if (D < 1 || D > 128) return cudaErrorInvalidValue;
+  return D <= 64 ? dkv_f32<64, SM>(a, dk, dv, grid, D) : dkv_f32<128, SM>(a, dk, dv, grid, D);
 }
 
 template <int SM>
 cudaError_t run_dq(const BwdArgs& a, void* dq, dim3 grid, int D) {
-  if (D == 64) return dq_f32<64, SM>(a, dq, grid);
-  if (D == 128) return dq_f32<128, SM>(a, dq, grid);
-  return cudaErrorInvalidValue;
+  if (D < 1 || D > 128) return cudaErrorInvalidValue;
+  return D <= 64 ? dq_f32<64, SM>(a, dq, grid, D) : dq_f32<128, SM>(a, dq, grid, D);
 }
 
 // The stream mode of the forward's window and dropout; -1 when both are

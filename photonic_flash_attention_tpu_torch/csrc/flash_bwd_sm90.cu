@@ -83,6 +83,16 @@
 // * The grid is persistent: one CTA a SM walks the work tiles in snake
 //   order, heads fastest (K4: slices, then KV heads), the longest first
 //   (causal K5: the last query blocks; causal K4: the first key blocks).
+// * Head dims: the bodies are compiled at D 64 and 128; a head dim d <= 64
+//   runs on D 64, 64 < d <= 128 on D 128, d a multiple of 8 (the wrapper
+//   pads the rest into copies, ops/_build.py::head_dim_plan). The tensor
+//   maps keep d innermost, so TMA fills a box's columns d..D-1 with zeros:
+//   they add nothing to S, dP or di, and dQ, dK and dV come out zero there.
+//   K5's O loads, every store of dq, dk and dv and O's L2 prefetch are
+//   strided and guarded by d. K4 cuts a group into slices only at d 64 and
+//   128: the slices' combine stores whole D-wide rows (a column guard
+//   there made the D 128 window body spill), so other head dims take one
+//   slice. sm_scale is the real d's.
 //
 // K21 (the unrolled backward's dK/dV, one launch per block_kv key block:
 // benchmarks/flash_bwd_unrolled_experiment.py::_dkv_kernel_unrolled :83)
@@ -193,6 +203,7 @@ struct Params {
   float* di_out;               // K5 writes di here
   const __nv_bfloat16* o;      // K5: the forward's output (B, Sq, H, D)
   int B, Sq, Skv, H, Hkv;      // H: query heads
+  int d;                       // the real head dim: the rows' pitch (D: the compiled width)
   int group;                   // H / Hkv
   int n_work;  // work tiles: K5 128-row blocks x H x B; K4 key blocks x Hkv x slices x B
   float scale, scale_log2;
@@ -207,6 +218,13 @@ struct Params {
 // Named barrier 3 over the two consumer warpgroups (1 and 2 are the
 // ping-pong's turns): K4's slices agree on which is the last.
 constexpr int BAR_EPILOGUE = 3;
+
+// x, opaque to the compiler: what is computed from it is not moved above
+// this point (a volatile asm keeps its place among the others).
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
 
 // One line of global memory into L2, no register written.
 __device__ __forceinline__ void prefetch_l2(const void* ptr) {
@@ -329,8 +347,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
       mbar_wait(bar_qempty + 8 * qb, ((n / QBUF) & 1) ^ 1);
       if constexpr (!ROWBLOCK) {  // the tile's O rows into L2, for the consumers' di
         for (int r = lane; r < BLOCK && w.q0 + r < p.Sq; r += 32)
-          for (int hf = 0; hf < C::HALVES; ++hf)
-            prefetch_l2(p.o + (((long long)w.b * p.Sq + w.q0 + r) * p.H + w.h) * D + 64 * hf);
+          for (int hf = 0; hf < C::HALVES && 64 * hf < p.d; ++hf)
+            prefetch_l2(p.o + (((long long)w.b * p.Sq + w.q0 + r) * p.H + w.h) * p.d + 64 * hf);
       }
       if (lane == 0) {
         mbar_expect_tx(qf, 2 * C::QO_BYTES);
@@ -398,12 +416,13 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
         nl[i] = row < p.Sq ? -p.lse[vrow + row] * LOG2E : 0.f;
         if constexpr (ROWBLOCK) {
           di[i] = row < p.Sq ? p.di[vrow + row] : 0.f;
-        } else {  // the thread's quarter of the row's O: chunks t4, t4 + 4, ... (0 past Sq)
-          const __nv_bfloat16* orow = p.o + (((long long)w.b * p.Sq + row) * p.H + w.h) * D;
+        } else {  // the thread's quarter of the row's O: chunks t4, t4 + 4, ... (0 past Sq, d)
+          const __nv_bfloat16* orow = p.o + (((long long)w.b * p.Sq + row) * p.H + w.h) * p.d;
 #pragma unroll
           for (int c = 0; c < NC; ++c)
-            ov[i][c] = row < p.Sq ? __ldg(reinterpret_cast<const uint4*>(orow + 8 * (t4 + 4 * c)))
-                                  : make_uint4(0u, 0u, 0u, 0u);
+            ov[i][c] = row < p.Sq && 8 * (t4 + 4 * c) < p.d
+                           ? __ldg(reinterpret_cast<const uint4*>(orow + 8 * (t4 + 4 * c)))
+                           : make_uint4(0u, 0u, 0u, 0u);
         }
       }
 #pragma unroll
@@ -513,9 +532,10 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
       for (int i = 0; i < 2; ++i) {
         const int row = row0 + 8 * i;
         if (row >= row_end) continue;
-        __nv_bfloat16* out = p.out0 + (((long long)w.b * p.Sq + row) * p.H + w.h) * D;
+        __nv_bfloat16* out = p.out0 + (((long long)w.b * p.Sq + row) * p.H + w.h) * p.d;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) store2(out + 8 * j + 2 * t4, dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+        for (int j = 0; j < D / 8; ++j)  // columns d..D-1 are not stored
+          if (8 * j < p.d) store2(out + 8 * j + 2 * t4, dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
       }
     }
   }
@@ -815,7 +835,11 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
 
       int key_end = p.Skv;  // K21: keys past the range are another launch's
       if constexpr (COLBLOCK) key_end = p.range_end;
-      auto out_at = [&](int key) { return (((long long)w.b * p.Skv + key) * p.Hkv + w.kvh) * D; };
+      // The head dim read here, after the loop's products (an opaque copy:
+      // the stores' address arithmetic stays out of the loop, where dK and
+      // dV already hold 128 registers at D 128).
+      const int hd = opaque(p.d);
+      auto out_at = [&](int key) { return (((long long)w.b * p.Skv + key) * p.Hkv + w.kvh) * hd; };
       bool direct = true;
       if constexpr (!COLBLOCK) direct = p.slices == 1;
       if (direct) {
@@ -826,6 +850,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
           const long long at = out_at(key);
 #pragma unroll
           for (int j = 0; j < D / 8; ++j) {
+            if (8 * j >= hd) continue;  // columns d..D-1 are not stored
             store2(p.out0 + at + 8 * j + 2 * t4, dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
             store2(p.out1 + at + 8 * j + 2 * t4, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
           }
@@ -863,7 +888,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
           // Every slice's block (this one's too: the same bits as its
           // registers), read in 16-byte runs by consecutive threads, each
           // slice's loads issued together and added in slice order into
-          // dk and dv, which now hold a thread's D / 8 runs of 4 columns.
+          // dk and dv, which now hold a thread's D / 8 runs of 4 columns;
+          // whole D-wide rows, as slices run only at d == D (takes()).
           __threadfence();
           constexpr int RUNS = D / 8;  // float4 runs a thread: 128 x D / 4 over 256 threads
           const int ct = threadIdx.x;
@@ -907,12 +933,14 @@ cudaError_t grid_size(int n_work, int* grid) {
   return e;
 }
 
-// The four bf16 tensor maps over (D, H, S, B): q and dout over Hq heads in
-// boxes of q_rows rows, k and v over Hkv in boxes of kv_rows; and the work
-// tiles (128-row blocks of `rows` rows x `heads` x B).
-cudaError_t prepare(const BwdSm90Args& a, int D, int q_rows, int kv_rows, int rows, int heads,
+// The four bf16 tensor maps over (d, H, S, B), the real head dim d
+// innermost (a box's columns d..D-1 arrive as zeros: nothing in S, dP or
+// di): q and dout over Hq heads in boxes of q_rows rows, k and v over Hkv
+// in boxes of kv_rows; and the work tiles (128-row blocks of `rows` rows x
+// `heads` x B).
+cudaError_t prepare(const BwdSm90Args& a, int q_rows, int kv_rows, int rows, int heads,
                     CUtensorMap (&maps)[4], Params& p) {
-  const uint64_t d = D, hq = a.Hq, hkv = a.Hkv, B = a.B, Sq = a.Sq, Skv = a.Skv;
+  const uint64_t d = a.D, hq = a.Hq, hkv = a.Hkv, B = a.B, Sq = a.Sq, Skv = a.Skv;
   const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const uint32_t qbox[4] = {64, 1, (uint32_t)q_rows, 1}, kvbox[4] = {64, 1, (uint32_t)kv_rows, 1};
   if (!encode_4d(&maps[0], bf16, 2, a.q, {d, hq, Sq, B}, qbox) ||
@@ -926,6 +954,7 @@ cudaError_t prepare(const BwdSm90Args& a, int D, int q_rows, int kv_rows, int ro
   p.lse = a.lse, p.di = a.di, p.di_out = a.di_out;
   p.o = static_cast<const __nv_bfloat16*>(a.o);
   p.B = a.B, p.Sq = a.Sq, p.Skv = a.Skv, p.H = a.Hq, p.Hkv = a.Hkv, p.group = a.Hq / a.Hkv;
+  p.d = a.D;
   p.n_work = static_cast<int>(work);
   p.scale = a.scale, p.scale_log2 = a.scale * LOG2E, p.causal = a.causal, p.st = a.st;
   p.slices = 1, p.hps = p.group;
@@ -948,7 +977,7 @@ cudaError_t launch_dq(const BwdSm90Args& a, void* dq, cudaStream_t stream) {
   using C = DqCfg<D, MODE>;
   CUtensorMap maps[4];
   Params p;
-  cudaError_t e = prepare(a, D, 64, C::BKV, a.Sq, a.Hq, maps, p);
+  cudaError_t e = prepare(a, 64, C::BKV, a.Sq, a.Hq, maps, p);
   if (e != cudaSuccess) return e;
   p.out0 = static_cast<__nv_bfloat16*>(dq);
   return run(flash_bwd_dq_sm90<D, MODE>, C::SMEM, maps, p, stream);
@@ -959,7 +988,7 @@ cudaError_t launch_dkv(const BwdSm90Args& a, void* dk, void* dv, cudaStream_t st
   using C = DkvCfg<D>;
   CUtensorMap maps[4];
   Params p;
-  cudaError_t e = prepare(a, D, C::BQ, 64, a.Skv, a.Hkv * a.slices, maps, p);
+  cudaError_t e = prepare(a, C::BQ, 64, a.Skv, a.Hkv * a.slices, maps, p);
   if (e != cudaSuccess) return e;
   p.out0 = static_cast<__nv_bfloat16*>(dk);
   p.out1 = static_cast<__nv_bfloat16*>(dv);
@@ -978,7 +1007,7 @@ cudaError_t launch_colblock(const BwdSm90Args& a, void* dk, void* dv, int kv_row
   if (stages != C::STAGES || smem != C::SMEM) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
   Params p;
-  cudaError_t e = prepare(a, D, C::BQ, 64, rows, 1, maps, p);
+  cudaError_t e = prepare(a, C::BQ, 64, rows, 1, maps, p);
   if (e != cudaSuccess) return e;
   if (grid < 1 || grid > p.n_work) return cudaErrorInvalidValue;
   p.out0 = static_cast<__nv_bfloat16*>(dk);
@@ -1001,7 +1030,7 @@ cudaError_t launch_rowblock(const BwdSm90Args& a, void* dq, int q_row0, int rows
   if (stages != C::STAGES || smem != C::SMEM) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
   Params p;
-  cudaError_t e = prepare(a, D, 64, C::BKV, rows, 1, maps, p);
+  cudaError_t e = prepare(a, 64, C::BKV, rows, 1, maps, p);
   if (e != cudaSuccess) return e;
   if (grid < 1 || grid > p.n_work) return cudaErrorInvalidValue;
   p.out0 = static_cast<__nv_bfloat16*>(dq);
@@ -1042,14 +1071,20 @@ cudaError_t info_mode(int D, int* out) {
   return cudaErrorInvalidValue;
 }
 
-// TMA reads 16-byte-aligned bases (and K5 O by 16-byte loads); query
-// heads in whole groups; K4's slices split each group evenly, and more
-// than one needs the workspace and the counters.
+// TMA reads 16-byte-aligned bases and rows of whole 16-byte units (and K5
+// O by 16-byte loads): a head dim d that is a multiple of 8, up to 128
+// (ops/_build.py::head_dim_plan pads the rest); query heads in whole
+// groups; K4's slices split each group evenly, and more than one needs the
+// workspace and the counters and a head dim of the width (64 or 128): the
+// slices' combine stores whole D-wide rows (a column guard there made the
+// D 128 window body spill).
 bool takes(const BwdSm90Args& a) {
   return aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout) &&
-         (a.o == nullptr || aligned16(a.o)) && (a.D == 64 || a.D == 128) && a.Hkv > 0 &&
+         (a.o == nullptr || aligned16(a.o)) && a.D >= 8 && a.D <= 128 && a.D % 8 == 0 &&
+         a.Hkv > 0 &&
          a.Hq % a.Hkv == 0 && a.slices > 0 && (a.Hq / a.Hkv) % a.slices == 0 &&
-         (a.slices == 1 || (a.ws != nullptr && a.counters != nullptr));
+         (a.slices == 1 || ((a.D == 64 || a.D == 128) && a.ws != nullptr &&
+                            a.counters != nullptr));
 }
 
 // K20's and K21's launch of a range [row0, row0 + rows) of S, on the grid
@@ -1060,7 +1095,7 @@ bool unrolled_args(const void* q, const void* k, const void* v, const void* dout
                    const void* di, int B, int S, int H, int D, int row0, int rows, float sm_scale,
                    int causal, BwdSm90Args& a) {
   if (B <= 0 || H <= 0 || S <= 0 || (long long)B * H > INT_MAX || row0 < 0 || row0 % 64 ||
-      rows <= 0 || rows % 64 || (long long)row0 + rows > S)
+      rows <= 0 || rows % 64 || (long long)row0 + rows > S || (D != 64 && D != 128))
     return false;
   a = BwdSm90Args{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                   static_cast<const float*>(di), nullptr, B * H, S, S, 1, 1, D, sm_scale, causal,
@@ -1070,9 +1105,10 @@ bool unrolled_args(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace
 
+// A head dim d runs on the width that holds it: 64 for d <= 64, else 128.
 cudaError_t k5_bf16_sm90(const BwdSm90Args& a, void* dq, int mode, cudaStream_t stream) {
   if (!takes(a) || a.o == nullptr || a.di_out == nullptr) return cudaErrorInvalidValue;
-  const bool d64 = a.D == 64;
+  const bool d64 = a.D <= 64;
   switch (mode) {
     case PLAIN: return d64 ? launch_dq<64, PLAIN>(a, dq, stream) : launch_dq<128, PLAIN>(a, dq, stream);
     case WINDOW: return d64 ? launch_dq<64, WINDOW>(a, dq, stream) : launch_dq<128, WINDOW>(a, dq, stream);
@@ -1084,7 +1120,7 @@ cudaError_t k5_bf16_sm90(const BwdSm90Args& a, void* dq, int mode, cudaStream_t 
 
 cudaError_t k4_bf16_sm90(const BwdSm90Args& a, void* dk, void* dv, int mode, cudaStream_t stream) {
   if (!takes(a) || a.di == nullptr) return cudaErrorInvalidValue;
-  const bool d64 = a.D == 64;
+  const bool d64 = a.D <= 64;
   switch (mode) {
     case PLAIN:
       return d64 ? launch_dkv<64, PLAIN>(a, dk, dv, stream) : launch_dkv<128, PLAIN>(a, dk, dv, stream);

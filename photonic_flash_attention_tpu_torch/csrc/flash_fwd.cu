@@ -6,7 +6,9 @@
 // (ops/flash.py::flash_attention, ops/flash_unrolled.py::flash_attention_best).
 //
 // Contract: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), contiguous, Hq % Hkv == 0
-// (GQA: q head h reads kv head h / (Hq/Hkv)), D in {64, 128}, bf16 or fp32;
+// (GQA: q head h reads kv head h / (Hq/Hkv)), D from 1 to 128 on the
+// widths 64 and 128 (bf16: a multiple of 8, ops/_build.py::head_dim_plan
+// pads the rest; fp32: any), bf16 or fp32;
 // causal aligned to the sequence end (row i sees keys j <= i + Skv - Sq);
 // fp32 online softmax; output in q's dtype. When `lse` is not null it also
 // writes the row logsumexp (B, Hq, Sq) fp32 in natural log (the residual
@@ -149,13 +151,17 @@ __device__ __forceinline__ float score_bias(const float* Bs, const float* dense,
 // fp32: 4 threads per query row (thread quarter qd owns keys qd + 4j of a
 // tile and output columns qd + 4j); plain FMA, no reduced-precision math.
 template <int D, int MODE>
-__global__ void __launch_bounds__(F32_THREADS)
+// Two CTAs a SM: unbounded, ptxas gave the relative-bias body at D 128 64
+// registers and a spill.
+__global__ void __launch_bounds__(F32_THREADS, 2)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, const int* __restrict__ lens,
               const float* __restrict__ kbias, const float* __restrict__ relvec,
               const float* __restrict__ qkbias, int Hb, int Sq, int Skv, int Hq, int Hkv,
-              float sm_scale, int causal, Streams st) {
+              int d, float sm_scale, int causal, Streams st) {
+  // D: the compiled width; d: the real head dim, the rows' pitch. Columns
+  // d..D-1 load as zeros (nothing in Q K^T) and are not stored.
   constexpr int LDK = D + 1;    // padded rows: conflict-free column reads
   constexpr int LDP = BKV + 1;
   constexpr int NJ = BKV / 4;   // scores per thread per tile
@@ -170,14 +176,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int r = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const long long qstr = (long long)Hq * D, kvstr = (long long)Hkv * D;
-  const float* qb = q + (long long)b * Sq * qstr + (long long)h * D;
-  const float* kb = k + (long long)b * Skv * kvstr + (long long)hk * D;
-  const float* vb = v + (long long)b * Skv * kvstr + (long long)hk * D;
+  const long long qstr = (long long)Hq * d, kvstr = (long long)Hkv * d;
+  const float* qb = q + (long long)b * Sq * qstr + (long long)h * d;
+  const float* kb = k + (long long)b * Skv * kvstr + (long long)hk * d;
+  const float* vb = v + (long long)b * Skv * kvstr + (long long)hk * d;
 
   for (int i = threadIdx.x; i < BQ * D; i += F32_THREADS) {
     const int rr = i / D, c = i % D;
-    Qs[rr * LDK + c] = q0 + rr < Sq ? qb[(q0 + rr) * qstr + c] : 0.f;
+    Qs[rr * LDK + c] = q0 + rr < Sq && c < d ? qb[(q0 + rr) * qstr + c] : 0.f;
   }
   float acc[DJ];
 #pragma unroll
@@ -198,7 +204,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     for (int i = threadIdx.x; i < BKV * D; i += F32_THREADS) {
       const int rr = i / D, c = i % D;
-      const bool ok = kv0 + rr < Skv;
+      const bool ok = kv0 + rr < Skv && c < d;
       Ks[rr * LDK + c] = ok ? kb[(kv0 + rr) * kvstr + c] : 0.f;
       Vs[rr * D + c] = ok ? vb[(kv0 + rr) * kvstr + c] : 0.f;
     }
@@ -208,10 +214,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float s[NJ];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) s[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = Qs[r * LDK + d];
+    for (int c = 0; c < D; ++c) {
+      const float qv = Qs[r * LDK + c];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) s[j] = fmaf(qv, Ks[(qd + 4 * j) * LDK + d], s[j]);
+      for (int j = 0; j < NJ; ++j) s[j] = fmaf(qv, Ks[(qd + 4 * j) * LDK + c], s[j]);
     }
     float mx = -INFINITY;
 #pragma unroll
@@ -251,9 +257,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   l += __shfl_xor_sync(0xffffffffu, l, 2);
   if (row >= Sq) return;
   const float inv = l > 0.f ? 1.f / l : 0.f;
-  float* orow = o + ((long long)b * Sq + row) * qstr + (long long)h * D;
+  float* orow = o + ((long long)b * Sq + row) * qstr + (long long)h * d;
 #pragma unroll
-  for (int j = 0; j < DJ; ++j) orow[qd + 4 * j] = acc[j] * inv;
+  for (int j = 0; j < DJ; ++j)
+    if (qd + 4 * j < d) orow[qd + 4 * j] = acc[j] * inv;
   if (lse != nullptr && qd == 0) lse[((long long)b * Hq + h) * Sq + row] = stream_lse<MODE>(m, l);
 }
 
@@ -270,7 +277,7 @@ struct FwdArgs {
 };
 
 template <int D, int MODE>
-cudaError_t run_f32(const FwdArgs& a, dim3 grid, cudaStream_t st) {
+cudaError_t run_f32(const FwdArgs& a, int d, dim3 grid, cudaStream_t st) {
   constexpr int smem = (2 * BQ * (D + 1) + BKV * D + BQ * (BKV + 1)) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_f32<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -278,7 +285,7 @@ cudaError_t run_f32(const FwdArgs& a, dim3 grid, cudaStream_t st) {
   flash_fwd_f32<D, MODE><<<grid, F32_THREADS, smem, st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.lens, a.kbias,
-      a.relvec, a.qkbias, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, a.scale, a.causal, a.st);
+      a.relvec, a.qkbias, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, d, a.scale, a.causal, a.st);
   return cudaGetLastError();
 }
 
@@ -289,9 +296,8 @@ cudaError_t run(const FwdArgs& a, int D, int dtype, dim3 grid, cudaStream_t st) 
                                static_cast<int>(grid.z), a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, D, a.scale,
                                a.causal, a.st},
                         MODE, st);
-  if (dtype == PFA_F32 && D == 64) return run_f32<64, MODE>(a, grid, st);
-  if (dtype == PFA_F32 && D == 128) return run_f32<128, MODE>(a, grid, st);
-  return cudaErrorInvalidValue;
+  if (dtype != PFA_F32 || D < 1 || D > 128) return cudaErrorInvalidValue;
+  return D <= 64 ? run_f32<64, MODE>(a, D, grid, st) : run_f32<128, MODE>(a, D, grid, st);
 }
 
 }  // namespace

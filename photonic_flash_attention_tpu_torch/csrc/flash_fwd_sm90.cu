@@ -54,6 +54,15 @@
 //   mode walks 64-key tiles. REL and STREAMS stage their per-tile vectors
 //   (BQ + BKV - 1 offsets, BKV key biases) by 4-byte cp.async into the
 //   ring; cp.async.mbarrier.arrive ties them to the stage's "full".
+// * Head dims: the body is compiled at D 64 and 128 (JAX pads to the same
+//   widths, ops/flash.py::_pad_head_dim); a head dim d <= 64 runs on D 64,
+//   64 < d <= 128 on D 128, with d a multiple of 8 (the wrapper pads the
+//   rest into a copy, ops/_build.py::head_dim_plan). The tensor maps keep d
+//   as their innermost dimension, so TMA fills a box's columns d..D-1 with
+//   zeros: they add nothing to Q K^T, and P V gives zero columns there,
+//   which are not stored. O's store is strided and guarded by d; sm_scale
+//   is the real d's (the caller's). At d 80 the products run 128 / 80 of
+//   the needed multiply-adds: a native width is later work.
 // Not yet done (later work): a TMA store of O, a dynamic (atomic) tile
 // scheduler.
 
@@ -103,6 +112,7 @@ struct Params {
   const int* lens;
   const float *kbias, *relvec, *qkbias;
   int B, Hb, Sq, Skv, Hq, Hkv;
+  int d;       // the real head dim: the row pitch of q, k, v, o (D: the compiled width)
   int n_work;  // work tiles: query blocks x Hq x B
   float sm_scale;
   int causal, bias_tma;
@@ -434,10 +444,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         const int row = row0 + 8 * i;
         if (row >= p.Sq) continue;
         const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-        __nv_bfloat16* orow = p.o + (((long long)w.b * p.Sq + row) * p.Hq + w.h) * D;
+        __nv_bfloat16* orow = p.o + (((long long)w.b * p.Sq + row) * p.Hq + w.h) * p.d;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          store2(orow + 8 * j + 2 * t4, o_acc[4 * j + 2 * i] * inv, o_acc[4 * j + 2 * i + 1] * inv);
+        for (int j = 0; j < D / 8; ++j)  // columns d..D-1 (zero) are not stored
+          if (8 * j < p.d)
+            store2(orow + 8 * j + 2 * t4, o_acc[4 * j + 2 * i] * inv, o_acc[4 * j + 2 * i + 1] * inv);
         if (p.lse != nullptr && t4 == 0) {
           const float mn = natural_units(MODE) ? m[i] : m[i] * p.sm_scale;
           p.lse[((long long)w.b * p.Hq + w.h) * p.Sq + row] = l[i] > 0.f ? mn + logf(l[i]) : -INFINITY;
@@ -452,13 +463,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 template <int D, int MODE>
 cudaError_t launch(const K1Args& a, cudaStream_t stream) {
   using C = Cfg<D, MODE>;
-  const uint64_t B = a.B, Sq = a.Sq, Skv = a.Skv;
+  // The maps' innermost dimension is the real head dim d: the boxes'
+  // columns d..D-1 arrive as zeros and add nothing to Q K^T or P V.
+  const uint64_t B = a.B, Sq = a.Sq, Skv = a.Skv, d = a.D;
   CUtensorMap tq, tk, tv, tb;
   memset(&tb, 0, sizeof(tb));
   const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!encode_4d(&tq, bf16, 2, a.q, {(uint64_t)D, (uint64_t)a.Hq, Sq, B}, {64, 1, 64, 1}) ||
-      !encode_4d(&tk, bf16, 2, a.k, {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {64, 1, C::BKV, 1}) ||
-      !encode_4d(&tv, bf16, 2, a.v, {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {64, 1, C::BKV, 1}))
+  if (!encode_4d(&tq, bf16, 2, a.q, {d, (uint64_t)a.Hq, Sq, B}, {64, 1, 64, 1}) ||
+      !encode_4d(&tk, bf16, 2, a.k, {d, (uint64_t)a.Hkv, Skv, B}, {64, 1, C::BKV, 1}) ||
+      !encode_4d(&tv, bf16, 2, a.v, {d, (uint64_t)a.Hkv, Skv, B}, {64, 1, C::BKV, 1}))
     return cudaErrorInvalidValue;
   const int bias_tma = MODE == DENSE && Skv % 4 == 0 && aligned16(a.qkbias);
   if (bias_tma && !encode_4d(&tb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.qkbias,
@@ -468,7 +481,8 @@ cudaError_t launch(const K1Args& a, cudaStream_t stream) {
   if (work > INT_MAX) return cudaErrorInvalidValue;
   const int n_work = static_cast<int>(work);
   const Params p{static_cast<__nv_bfloat16*>(a.o), a.lse, a.lens, a.kbias, a.relvec, a.qkbias,
-                 a.B, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, n_work, a.scale, a.causal, bias_tma, a.st};
+                 a.B, a.Hb, a.Sq, a.Skv, a.Hq, a.Hkv, a.D, n_work, a.scale, a.causal, bias_tma,
+                 a.st};
   auto kernel = flash_fwd_sm90<D, MODE>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return e;
@@ -499,20 +513,21 @@ cudaError_t info_mode(int D, int* out) {
   return cudaErrorInvalidValue;
 }
 
+// Head dim d on the width that holds it: 64 for d <= 64, else 128.
 template <int MODE>
 cudaError_t launch_mode(const K1Args& a, cudaStream_t stream) {
-  if (a.D == 64) return launch<64, MODE>(a, stream);
-  if (a.D == 128) return launch<128, MODE>(a, stream);
-  return cudaErrorInvalidValue;
+  return a.D <= 64 ? launch<64, MODE>(a, stream) : launch<128, MODE>(a, stream);
 }
 
 }  // namespace
 
 cudaError_t k1_bf16_sm90(const K1Args& a, int mode, cudaStream_t stream) {
-  // TMA reads 16-byte-aligned bases; the log2 modes keep the max on the
-  // raw scores and scale them inside the exponent, which needs a scale > 0.
-  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
-      (!natural_units(mode) && !(a.scale > 0.f)))
+  // TMA reads 16-byte-aligned bases and rows of whole 16-byte units (d a
+  // multiple of 8, up to 128: ops/_build.py::head_dim_plan pads the rest);
+  // the log2 modes keep the max on the raw scores and scale them inside the
+  // exponent, which needs a scale > 0.
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || a.D < 8 || a.D > 128 ||
+      a.D % 8 != 0 || (!natural_units(mode) && !(a.scale > 0.f)))
     return cudaErrorInvalidValue;
   switch (mode) {
     case PLAIN: return launch_mode<PLAIN>(a, stream);

@@ -14,9 +14,12 @@
 //
 // Contract (K1's and K6's entry points below; K18 int8's is at its entry):
 // q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), contiguous, 16-byte-aligned
-// bases, Hq % Hkv == 0 (GQA: q head h reads kv head h / (Hq / Hkv)), D 64
-// or 128, causal aligned to the sequence end (row i sees keys j <= i + Skv
-// - Sq), output (B, Sq, Hq, D) bf16 or fp32.
+// bases, Hq % Hkv == 0 (GQA: q head h reads kv head h / (Hq / Hkv)), D a
+// multiple of 16 up to 128 on the widths 64 and 128 (the tensor maps keep
+// the real D innermost, so a box's columns past it arrive as zeros; the
+// stores are strided and guarded by it; the wrapper pads other head dims
+// into copies), causal aligned to the sequence end (row i sees keys j <= i
+// + Skv - Sq), output (B, Sq, Hq, D) bf16 or fp32.
 // * Q.K^T: int8 (s32 sums, exact) or e4m3 (f32 sums) payloads. K1's modes
 //   scale the raw score by one fp32 device scalar (`score_scale` = qs * ks
 //   * sm_scale, read on the device only, so a call stays graph-capturable);
@@ -198,6 +201,7 @@ struct Params {
   float sm_scale;                  // K6
   int causal, out_f32;
   int row0, row_end;               // ROWBLOCK (K18 int8): the launch's query rows
+  int d;                           // the real head dim: o's and vs's pitch (D: the width)
 };
 
 // Shared-memory descriptor of a K-major 8-bit operand with rows of D bytes.
@@ -760,7 +764,7 @@ flash_quant_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       it += n_tiles;
 
       // The 8-bit P.V's per-column scale: int8-full vs, K6 vs / qmax.
-      const float* vs_row = PV8 ? p.vs + ((long long)w.b * p.Hkv + hk) * D : nullptr;
+      const float* vs_row = PV8 ? p.vs + ((long long)w.b * p.Hkv + hk) * p.d : nullptr;
       constexpr float QMAX = MODE == K6_FP8 ? 448.f : MODE == K6_INT8 ? 127.f : 1.f;
       int row_end = p.Sq;  // K18 int8: rows past the range are another launch's
       if constexpr (ROWBLOCK) row_end = p.row_end;
@@ -771,9 +775,10 @@ flash_quant_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const int row = row0 + 8 * i;
         if (row >= row_end) continue;
         const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
-        const long long orow = (((long long)w.b * p.Sq + row) * p.Hq + w.h) * D;
+        const long long orow = (((long long)w.b * p.Sq + row) * p.Hq + w.h) * p.d;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
+          if (8 * j >= p.d) continue;  // columns d..D-1 (zero) are not stored
           const int c0 = 8 * j + 2 * t4;
           float a0 = o_acc[4 * j + 2 * i] * inv, a1 = o_acc[4 * j + 2 * i + 1] * inv;
           if constexpr (PV8) {
@@ -802,18 +807,19 @@ struct QuantCall {
 };
 
 // The tensor maps of Q, K (8-bit, hazard 3's swizzle) and V (8-bit, or
-// bf16 in 64-column boxes).
+// bf16 in 64-column boxes), the real head dim d innermost: a box's columns
+// d..D-1 arrive as zeros (nothing in Q.K^T; zero P.V columns, not stored).
 template <int D, int MODE>
 bool encode_maps(const QuantCall& a, CUtensorMap& tq, CUtensorMap& tk, CUtensorMap& tv) {
-  const uint64_t B = a.B, Sq = a.Sq, Skv = a.Skv;
+  const uint64_t B = a.B, Sq = a.Sq, Skv = a.Skv, d = a.D;
   const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const auto sw = D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;  // hazard 3
-  return encode_4d(&tq, u8, 1, a.q, {(uint64_t)D, (uint64_t)a.Hq, Sq, B}, {D, 1, BQ, 1}, sw) &&
-         encode_4d(&tk, u8, 1, a.k, {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {D, 1, BKV, 1}, sw) &&
+  return encode_4d(&tq, u8, 1, a.q, {d, (uint64_t)a.Hq, Sq, B}, {D, 1, BQ, 1}, sw) &&
+         encode_4d(&tk, u8, 1, a.k, {d, (uint64_t)a.Hkv, Skv, B}, {D, 1, BKV, 1}, sw) &&
          (pv_8bit(MODE)
-              ? encode_4d(&tv, u8, 1, a.v, {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {D, 1, BKV, 1}, sw)
+              ? encode_4d(&tv, u8, 1, a.v, {d, (uint64_t)a.Hkv, Skv, B}, {D, 1, BKV, 1}, sw)
               : encode_4d(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.v,
-                          {(uint64_t)D, (uint64_t)a.Hkv, Skv, B}, {64, 1, BKV, 1}));
+                          {d, (uint64_t)a.Hkv, Skv, B}, {64, 1, BKV, 1}));
 }
 
 template <int D, int MODE>
@@ -824,8 +830,9 @@ cudaError_t launch(const QuantCall& a, cudaStream_t stream) {
   const long long work = (long long)((a.Sq + BQ - 1) / BQ) * a.Hq * a.B;
   if (work > INT_MAX) return cudaErrorInvalidValue;
   const int n_work = static_cast<int>(work);
-  const Params p{a.o, a.score_scale, a.qs, a.ks, a.vs, a.B, a.Sq, a.Skv, a.Hq, a.Hkv,
-                 n_work, a.sm_scale, a.causal, a.out_f32};
+  Params p{a.o, a.score_scale, a.qs, a.ks, a.vs, a.B, a.Sq, a.Skv, a.Hq, a.Hkv,
+           n_work, a.sm_scale, a.causal, a.out_f32};
+  p.d = a.D;
   auto kernel = flash_quant_sm90<D, MODE>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return e;
@@ -853,17 +860,17 @@ cudaError_t launch_rowblock(const QuantCall& a, int row0, int rows, bool chained
            static_cast<int>(work), 0.f, a.causal, 0};
   p.row0 = row0;
   p.row_end = row0 + rows;
+  p.d = a.D;
   const auto kernel = flash_quant_sm90<D, INT8QK, true>;
   const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   return launch_chained(kernel, chained, grid, THREADS, smem, stream, tq, tk, tv, p);
 }
 
+// Head dim d on the width that holds it: 64 for d <= 64, else 128.
 template <int MODE>
 cudaError_t launch_mode(const QuantCall& a, cudaStream_t stream) {
-  if (a.D == 64) return launch<64, MODE>(a, stream);
-  if (a.D == 128) return launch<128, MODE>(a, stream);
-  return cudaErrorInvalidValue;
+  return a.D <= 64 ? launch<64, MODE>(a, stream) : launch<128, MODE>(a, stream);
 }
 
 cudaError_t run(const QuantCall& a, int mode, cudaStream_t stream) {
@@ -877,11 +884,14 @@ cudaError_t run(const QuantCall& a, int mode, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-// The checks the entry points share: sizes, GQA, the head dims, the output
-// dtypes and TMA's 16-byte-aligned bases.
+// The checks the entry points share: sizes, GQA, the head dim (a multiple
+// of 16 up to 128: 8-bit rows of whole 16-byte units, which TMA needs;
+// ops/_build.py::head_dim_plan pads the rest), the output dtypes and TMA's
+// 16-byte-aligned bases.
 bool valid(const void* q, const void* k, const void* v, int B, int Sq, int Skv, int Hq, int Hkv,
            int D, int out_dtype) {
-  return B > 0 && Sq > 0 && Skv > 0 && Hkv > 0 && Hq % Hkv == 0 && (D == 64 || D == 128) &&
+  return B > 0 && Sq > 0 && Skv > 0 && Hkv > 0 && Hq % Hkv == 0 && D >= 16 && D <= 128 &&
+         D % 16 == 0 &&
          (out_dtype == PFA_BF16 || out_dtype == PFA_F32) && aligned16(q) && aligned16(k) &&
          aligned16(v);
 }
@@ -970,8 +980,8 @@ extern "C" int pfa_flash_tri_i8_sm90(const void* q, const void* k, const void* v
                                      const void* score_scale, int B, int S, int Hq, int Hkv, int D,
                                      int q_row0, int rows, int causal, int chained, int stages,
                                      int smem, int grid, void* stream) {
-  if (!valid(q, k, v, B, S, S, Hq, Hkv, D, PFA_BF16) || score_scale == nullptr || q_row0 < 0 ||
-      rows <= 0 || (long long)q_row0 + rows > S)
+  if (!valid(q, k, v, B, S, S, Hq, Hkv, D, PFA_BF16) || (D != 64 && D != 128) ||
+      score_scale == nullptr || q_row0 < 0 || rows <= 0 || (long long)q_row0 + rows > S)
     return cudaErrorInvalidValue;
   const QuantCall a{q, k, v, o, static_cast<const float*>(score_scale), nullptr, nullptr, nullptr,
                     B, S, S, Hq, Hkv, D, 0.f, causal, 0};

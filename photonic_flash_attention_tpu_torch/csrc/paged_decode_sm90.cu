@@ -83,6 +83,17 @@
 //     zeros. Pages are never shared between sequences in the port's
 //     serving; a concurrent read of a slot that another sequence is
 //     writing is outside the contract.
+//   * head dims: the kernel is compiled at D 64 and 128 and takes any head
+//     dim d up to 128 whose rows are whole 16-byte units (int8 d % 16 == 0,
+//     bf16 d % 8 == 0, fp32 d % 4 == 0; ops/paged.py pads other pools into
+//     copies): d <= 64 on D 64, else on D 128. A row keeps the lanes of a
+//     D-wide row (LPT a power of two, so the shuffle reductions stay
+//     whole); a lane whose 16-byte chunk lies past d holds a zero q and
+//     re-reads its row's first chunk, so it adds nothing to a score, and
+//     the output columns it fills are not written. The pools, q, k_new,
+//     v_new and o keep d as their pitch;
+//     the bulk copies move d-wide rows (page runs of a multiple of 16
+//     bytes); the fused write's int8 absmax runs over the real d.
 
 #include <climits>
 #include <type_traits>
@@ -118,6 +129,7 @@ struct K3Args {
   long long head_stride;     // tokens of one head's pool (P x page)
   int B, Hq, Hkv, G, gcmax, n_gchunk, page, pps, bias_len, split_pages, n_split, tile, block;
   int n_items;               // B x Hkv x n_gchunk x n_split
+  int d;                     // the real head dim: the rows' pitch (D: the compiled width)
   int in_bf16;               // fused: k_new / v_new are bf16 (else fp32)
   float sm_scale;
 };
@@ -127,14 +139,15 @@ __host__ __device__ constexpr int align_up(int x, int a) { return (x + a - 1) / 
 // Shared-memory layout, the same on the host and the device: mbarriers and
 // the arrival flag; the batch's lengths and its prefix of active items; the
 // producer's page ids of a split; the new token's rows (fused); the warps'
-// end-of-split states (float mode) or the int8-compute block state; the
-// ring. ops/paged.py::k3_smem counts the same bytes.
+// end-of-split states (float mode) or the int8-compute block state, these
+// D (the compiled width) wide; the ring, whose rows are d (the real head
+// dim) wide. ops/paged.py::k3_smem counts the same bytes.
 struct Layout {
   int lens, tab, newrow, merge, i8c, ring, stage, total;
 };
 
-__host__ __device__ inline Layout k3_layout(int B, int D, int elt, int gmax, bool i8c, int tile,
-                                            int split_pages, int block) {
+__host__ __device__ inline Layout k3_layout(int B, int D, int d, int elt, int gmax, bool i8c,
+                                            int tile, int split_pages, int block) {
   Layout L;
   int off = 2 * NST * 8 + 16;
   L.lens = off;  // lengths [B], then the prefix of active items [B + 1]
@@ -151,7 +164,7 @@ __host__ __device__ inline Layout k3_layout(int B, int D, int elt, int gmax, boo
   if (i8c) off += 4 * (gmax * block + block + 2 * gmax * D + 4 * gmax);
   off = align_up(off, 128);
   L.ring = off;
-  L.stage = align_up(tile * (2 * D * elt + (elt == 1 ? 8 : 0)), 128);
+  L.stage = align_up(tile * (2 * d * elt + (elt == 1 ? 8 : 0)), 128);
   L.total = off + NST * L.stage;
   return L;
 }
@@ -242,16 +255,18 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 // The new token's row of one head (fused mode), by one warp: as K2 for an
-// int8 pool (scale into *scale), converted for the others.
+// int8 pool (scale into *scale, the absmax over the real d columns),
+// converted for the others; columns d..D-1 are zero.
 template <typename T, int D>
-__device__ void new_row(const void* src, long long off, bool bf16, T* dst, float* scale) {
+__device__ void new_row(const void* src, long long off, bool bf16, T* dst, float* scale, int d) {
   const int lane = threadIdx.x & 31;
   float x[D / 32];
 #pragma unroll
   for (int j = 0; j < D / 32; ++j) {
     const long long i = off + lane + 32 * j;
-    x[j] = bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(src)[i])
-                : static_cast<const float*>(src)[i];
+    x[j] = lane + 32 * j >= d ? 0.f
+           : bf16             ? __bfloat162float(static_cast<const __nv_bfloat16*>(src)[i])
+                              : static_cast<const float*>(src)[i];
   }
   if constexpr (std::is_same<T, int8_t>::value) {
     float amax = 0.f;
@@ -272,19 +287,22 @@ __device__ void new_row(const void* src, long long off, bool bf16, T* dst, float
 // (m [np][GMAX], l [np][GMAX], acc [np][GMAX][D]) in order into this
 // split's (m, l, acc); with one active split write o = acc / l, else write
 // the record and, for the last split of (b, head, chunk) to arrive, merge
-// every record in split order into o.
+// every record in split order into o. Only the real d columns of a head:
+// o (B, Hq, d); the states and records keep D columns.
 template <int D, int GMAX, bool LOG2>
 __device__ void finish(const K3Args& a, const Item& I, const float* pm, const float* pl,
-                       const float* pacc, int np, int* flag) {
+                       const float* pacc, int np, int* flag, int d) {
   // The maxima are in log2 units in float mode (its scores carry log2 e).
   auto expo = [](float x) { return LOG2 ? ex2(x) : expf(x); };
   constexpr int REC = GMAX * (D + 2);
+  // The D-wide index keeps its constant divisions; columns past d skip.
   const int ct = threadIdx.x;
-  float* out = a.o + ((long long)I.b * a.Hq + I.head0) * D;
+  float* out = a.o + ((long long)I.b * a.Hq + I.head0) * d;
   float* rec =
       I.n_active > 1 ? a.ws + ((long long)I.row * a.n_split + I.split) * REC : nullptr;
   for (int idx = ct; idx < I.gc * D; idx += NCT) {
-    const int g = idx / D;
+    const int g = idx / D, c = idx % D;
+    if (c >= d) continue;
     float m = -INFINITY;
     for (int w = 0; w < np; ++w) m = fmaxf(m, pm[w * GMAX + g]);
     float o = 0.f, l = 0.f;
@@ -292,14 +310,14 @@ __device__ void finish(const K3Args& a, const Item& I, const float* pm, const fl
       const float mw = pm[w * GMAX + g];
       if (mw == -INFINITY) continue;
       const float f = expo(mw - m);
-      o += f * pacc[(w * GMAX + g) * D + idx % D];
+      o += f * pacc[(w * GMAX + g) * D + c];
       l += f * pl[w * GMAX + g];
     }
     if (rec == nullptr) {
-      out[idx] = o / l;
+      out[g * d + c] = o / l;
     } else {
       rec[2 * GMAX + idx] = o;
-      if (idx % D == 0) {
+      if (c == 0) {
         rec[g] = m;
         rec[GMAX + g] = l;
       }
@@ -314,7 +332,8 @@ __device__ void finish(const K3Args& a, const Item& I, const float* pm, const fl
   __threadfence();
   const float* recs = a.ws + (long long)I.row * a.n_split * REC;
   for (int idx = ct; idx < I.gc * D; idx += NCT) {
-    const int g = idx / D;
+    const int g = idx / D, c = idx % D;
+    if (c >= d) continue;
     float m = -INFINITY;
 #pragma unroll 8
     for (int s = 0; s < I.n_active; ++s) m = fmaxf(m, __ldcg(recs + s * REC + g));
@@ -325,7 +344,7 @@ __device__ void finish(const K3Args& a, const Item& I, const float* pm, const fl
       o += f * __ldcg(recs + s * REC + 2 * GMAX + idx);
       l += f * __ldcg(recs + s * REC + GMAX + g);
     }
-    out[idx] = o / l;
+    out[g * d + c] = o / l;
   }
   if (ct == 0) a.counters[I.row] = 0;
 }
@@ -334,13 +353,15 @@ __device__ void finish(const K3Args& a, const Item& I, const float* pm, const fl
 // 0..NCW-1 consume, warp NCW loads the page ids and its lane 0 issues the
 // bulk copies. GMAX: query heads a CTA holds (1, or 2 x the pool's bytes an
 // element, at most 4: see dispatch); I8C: the int8-compute mode (int8 pools
-// only).
-template <typename T, int D, int GMAX, bool I8C>
+// only); FULL: the head dim is the compiled width D, so the row pitch is a
+// constant (the address arithmetic of a D-wide head); else it is a.d. Two
+// instantiations, not one body with both, whose registers would add up.
+template <typename T, int D, int GMAX, bool I8C, bool FULL>
 __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
   constexpr int ELT = sizeof(T);
   constexpr bool QUANT = std::is_same<T, int8_t>::value;
   constexpr int E = 16 / ELT;        // pool values in a lane's 16 bytes
-  constexpr int LPT = D * ELT / 16;  // lanes a token row
+  constexpr int LPT = D * ELT / 16;  // lanes a token row of the compiled width D
   constexpr int TPW = 32 / LPT;      // tokens a warp takes at once
   constexpr int PASSES = I8C ? 2 : 1;  // int8 compute: a block's K, then its V
   // Token groups a consumer warp scores at once (fewer with more heads: the
@@ -354,7 +375,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
   const int BLK = I8C ? a.block : ST;  // the requant block (int8 compute)
   const bool fused = a.slots != nullptr;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay = k3_layout(a.B, D, ELT, GMAX, I8C, a.tile, a.split_pages, a.block);
+  const int d = FULL ? D : a.d;  // the rows' pitch; a lane's chunk past it reads zeros
+  const Layout lay = k3_layout(a.B, D, d, ELT, GMAX, I8C, a.tile, a.split_pages, a.block);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // full [NST], empty [NST]
   int* flag = reinterpret_cast<int*>(smem + 2 * NST * 8);
   int* lens = reinterpret_cast<int*>(smem + lay.lens);  // the batch's lengths, read once
@@ -398,7 +420,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
     // The producer: per item, the split's page ids into shared memory (the
     // warp), then per tile and page run, bulk copies into the ring (lane
     // 0). The tile count n runs on across items, as the consumers'.
-    const int kv_row = D * ELT;
+    const int kv_row = d * ELT;
     int n = 0;
     for (int k = blockIdx.x; k < n_act; k += gridDim.x) {
       const Item I = item_at(a, lens, pre, k);
@@ -434,9 +456,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
               const int rc = QUANT ? min((rows + 3) & ~3, page - off) : rows;
               const long long g = I.head_base + (long long)tab[p - I.first_page] * page + off;
               const int r = t - t0;
-              if (with_k) bulk_load(kdst + r * kv_row, static_cast<const T*>(a.k_pool) + g * D,
+              if (with_k) bulk_load(kdst + r * kv_row, static_cast<const T*>(a.k_pool) + g * d,
                                     rc * kv_row, full);
-              if (with_v) bulk_load(vdst + r * kv_row, static_cast<const T*>(a.v_pool) + g * D,
+              if (with_v) bulk_load(vdst + r * kv_row, static_cast<const T*>(a.v_pool) + g * d,
                                     rc * kv_row, full);
               if (QUANT && with_k) {
                 bulk_load(ksdst + 4 * r, a.k_scales + g, 4 * rc, full);
@@ -452,8 +474,15 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
   }
 
   // The consumers. Lane = LPT * ts + ds: token ts of the warp's group of
-  // TPW, 16-byte chunk ds of its row.
+  // TPW, 16-byte chunk ds of its row. A lane whose chunk lies past the
+  // real d (dok false) holds a zero q and reads its row's chunk 0 (dsx):
+  // its products add nothing to the scores, and the accumulator columns
+  // it fills (past d) are never written out. So the K and V loads take no
+  // select, and the lane map is the D-wide row's.
   const int ts = lane / LPT, ds = lane % LPT;
+  const bool dok = ds * E < d;
+  const int dsx = dok ? ds : 0;
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
   int n = 0;  // tiles consumed
   for (int k = blockIdx.x; k < n_act; k += gridDim.x) {
     const Item I = item_at(a, lens, pre, k);
@@ -461,20 +490,20 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
     named_bar_sync(BAR_C, NCT);
     int pos_new = -1;  // the logical position of the new token's slot in this split
     if (fused) {
-      const long long new_off = ((long long)I.b * a.Hkv + I.h) * D;
-      if (warp == 0) new_row<T, D>(a.k_new, new_off, a.in_bf16, newk, newsc);
-      if (warp == 1) new_row<T, D>(a.v_new, new_off, a.in_bf16, newv, newsc + 1);
+      const long long new_off = ((long long)I.b * a.Hkv + I.h) * d;
+      if (warp == 0) new_row<T, D>(a.k_new, new_off, a.in_bf16, newk, newsc, d);
+      if (warp == 1) new_row<T, D>(a.v_new, new_off, a.in_bf16, newv, newsc + 1, d);
       const int slot_new = __ldg(a.slots + I.b);
       named_bar_sync(BAR_C, NCT);
       if (warp == 0 && I.chunk == 0 && I.split == (I.len == 0 ? 0 : (I.len - 1) / ST)) {
         // The write of the TPU kernel's step (0, 0), by the one CTA that
         // owns the sequence's last position.
         const long long tok = I.head_base + slot_new;
-        T* kp = static_cast<T*>(a.k_pool) + tok * D;
-        T* vp = static_cast<T*>(a.v_pool) + tok * D;
-        for (int d = lane; d < D; d += 32) {
-          kp[d] = newk[d];
-          vp[d] = newv[d];
+        T* kp = static_cast<T*>(a.k_pool) + tok * d;
+        T* vp = static_cast<T*>(a.v_pool) + tok * d;
+        for (int c = lane; c < d; c += 32) {
+          kp[c] = newk[c];
+          vp[c] = newv[c];
         }
         if (QUANT && lane == 0) {
           a.k_scales[tok] = newsc[0];
@@ -490,8 +519,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
         }
     }
     if (I.len == 0) {
-      for (int idx = tid; idx < I.gc * D; idx += NCT)
-        a.o[((long long)I.b * a.Hq + I.head0) * D + idx] = 0.f;
+      for (int idx = tid; idx < I.gc * d; idx += NCT)
+        a.o[((long long)I.b * a.Hq + I.head0) * d + idx] = 0.f;
       continue;
     }
     const float* brow = a.tbias != nullptr
@@ -509,8 +538,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
 #pragma unroll
         for (int e = 0; e < E; ++e) {
           acc[g][e] = 0.f;
-          qr[g][e] = g < I.gc
-                         ? a.q[((long long)I.b * a.Hq + I.head0 + g) * D + ds * E + e] * qscale
+          qr[g][e] = g < I.gc && dok
+                         ? a.q[((long long)I.b * a.Hq + I.head0 + g) * d + ds * E + e] * qscale
                          : 0.f;
         }
       }
@@ -520,8 +549,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
         mbar_wait(full0 + 8 * st, (n / NST) & 1);
         const unsigned char* stage = ring + st * lay.stage;
         const T* krows = reinterpret_cast<const T*>(stage);
-        const T* vrows = krows + a.tile * D;
-        const float* kss = reinterpret_cast<const float*>(vrows + a.tile * D);
+        const T* vrows = krows + a.tile * d;
+        const float* kss = reinterpret_cast<const float*>(vrows + a.tile * d);
         const float* vss = kss + a.tile;
         // KB token groups a warp at once: their dot products and shuffle
         // reductions interleave, and one max update serves them all.
@@ -531,9 +560,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
           for (int k = 0; k < KB; ++k) {
             const int i = base + k * NCW * TPW + ts;
             const int ii = i < rows ? i : 0;
-            const T* krow = t0 + i == pos_new ? newk : krows + ii * D;
+            const T* krow = t0 + i == pos_new ? newk : krows + ii * d;
             float kf[E];
-            to_floats(*reinterpret_cast<const uint4*>(krow + ds * E), kf);
+            to_floats(*reinterpret_cast<const uint4*>(krow + dsx * E), kf);
 #pragma unroll
             for (int g = 0; g < GMAX; ++g) {
               float dot = 0.f;
@@ -588,9 +617,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
             const int ii = valid ? i : 0;
             const bool is_new = t0 + i == pos_new;
             const float vsc = QUANT ? (is_new ? newsc[1] : vss[ii]) : 1.f;
-            const T* vrow = is_new ? newv : vrows + ii * D;
+            const T* vrow = is_new ? newv : vrows + ii * d;
             float vf[E];
-            to_floats(*reinterpret_cast<const uint4*>(vrow + ds * E), vf);
+            to_floats(*reinterpret_cast<const uint4*>(vrow + dsx * E), vf);
 #pragma unroll
             for (int g = 0; g < GMAX; ++g) {
               if (g >= I.gc) break;
@@ -629,7 +658,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
         }
       }
       named_bar_sync(BAR_C, NCT);
-      finish<D, GMAX, true>(a, I, pm, pl, pacc, NCW, flag);
+      finish<D, GMAX, true>(a, I, pm, pl, pacc, NCW, flag, d);
     } else {
       // int8 compute. q8 in registers (16 int8 a lane), the block's scores
       // and the item's state in shared memory.
@@ -637,9 +666,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
       int q8[GMAX][4];
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
-        const uint4 w = g < I.gc ? *reinterpret_cast<const uint4*>(
-                                       a.q8 + ((long long)I.b * a.Hq + I.head0 + g) * D + ds * 16)
-                                 : make_uint4(0u, 0u, 0u, 0u);
+        const uint4 w = g < I.gc && dok ? *reinterpret_cast<const uint4*>(
+                                              a.q8 + ((long long)I.b * a.Hq + I.head0 + g) * d + ds * 16)
+                                        : zero4;
         q8[g][0] = w.x;
         q8[g][1] = w.y;
         q8[g][2] = w.z;
@@ -670,13 +699,13 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
           const int st = n % NST;
           mbar_wait(full0 + 8 * st, (n / NST) & 1);
           const int8_t* krows = reinterpret_cast<const int8_t*>(ring + st * lay.stage);
-          const float* kss = reinterpret_cast<const float*>(krows + 2 * a.tile * D);
+          const float* kss = reinterpret_cast<const float*>(krows + 2 * a.tile * d);
           const float* vss = kss + a.tile;
           for (int base = warp * TPW; base < rows; base += NCW * TPW) {
             const int i = base + ts;
             const bool valid = i < rows;
             const int ii = valid ? i : 0;
-            const uint4 w = *reinterpret_cast<const uint4*>(krows + ii * D + ds * 16);
+            const uint4 w = *reinterpret_cast<const uint4*>(krows + ii * d + dsx * 16);
 #pragma unroll
             for (int g = 0; g < GMAX; ++g) {
               if (g >= I.gc) break;
@@ -734,11 +763,11 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
           const int rows = min(t0 + a.tile, blk1) - t0;
           const int st = n % NST;
           mbar_wait(full0 + 8 * st, (n / NST) & 1);
-          const int8_t* vrows = reinterpret_cast<const int8_t*>(ring + st * lay.stage) + a.tile * D;
+          const int8_t* vrows = reinterpret_cast<const int8_t*>(ring + st * lay.stage) + a.tile * d;
           for (int base = warp * TPW; base < rows; base += NCW * TPW) {
             const int i = base + ts;
             if (i < rows) {
-              const uint4 w = *reinterpret_cast<const uint4*>(vrows + i * D + ds * 16);
+              const uint4 w = *reinterpret_cast<const uint4*>(vrows + i * d + dsx * 16);
               const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
               for (int g = 0; g < GMAX; ++g) {
@@ -774,14 +803,14 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
         }
         named_bar_sync(BAR_C, NCT);
       }
-      finish<D, GMAX, false>(a, I, m_s, l_s, accs, 1, flag);
+      finish<D, GMAX, false>(a, I, m_s, l_s, accs, 1, flag, d);
     }
   }
 }
 
-template <typename T, int D, int GMAX, bool I8C>
+template <typename T, int D, int GMAX, bool I8C, bool FULL>
 cudaError_t launch(K3Args a, int smem, cudaStream_t st) {
-  auto kernel = k3_kernel<T, D, GMAX, I8C>;
+  auto kernel = k3_kernel<T, D, GMAX, I8C, FULL>;
   // The opt-in to > 48 KB and the CTAs a SM at the last shared-memory size,
   // once a device.
   static bool opted[64] = {false};
@@ -808,17 +837,24 @@ cudaError_t launch(K3Args a, int smem, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// The instantiation of the call's head dim: the width D itself, or narrower.
+template <typename T, int D, int GMAX, bool I8C>
+cudaError_t launch_width(const K3Args& a, int smem, cudaStream_t st) {
+  return a.d == D ? launch<T, D, GMAX, I8C, true>(a, smem, st)
+                  : launch<T, D, GMAX, I8C, false>(a, smem, st);
+}
+
 template <typename T, int D>
 cudaError_t dispatch(const K3Args& a, bool i8c, int smem, cudaStream_t st) {
   // Heads a CTA takes when G > 1: at most 32 registers of q and of acc a
   // lane (16 with fp32 pools, which spill at 32 under 3 CTAs a SM).
   constexpr int GC = sizeof(T) == 4 ? 4 : 2 * sizeof(T);
   if constexpr (std::is_same<T, int8_t>::value) {
-    if (i8c) return a.gcmax == 1 ? launch<T, D, 1, true>(a, smem, st)
-                                 : launch<T, D, GC, true>(a, smem, st);
+    if (i8c) return a.gcmax == 1 ? launch_width<T, D, 1, true>(a, smem, st)
+                                 : launch_width<T, D, GC, true>(a, smem, st);
   }
-  return a.gcmax == 1 ? launch<T, D, 1, false>(a, smem, st)
-                      : launch<T, D, GC, false>(a, smem, st);
+  return a.gcmax == 1 ? launch_width<T, D, 1, false>(a, smem, st)
+                      : launch_width<T, D, GC, false>(a, smem, st);
 }
 
 }  // namespace
@@ -839,7 +875,11 @@ extern "C" int pfa_paged_k3(const void* q, const void* q8, const void* score_sca
   const int elt = pool_dtype == PFA_INT8 ? 1 : pool_dtype == PFA_BF16 ? 2 : 4;
   const bool quant = pool_dtype == PFA_INT8;
   const bool fused = slots != nullptr;
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128) || page <= 0 || pps <= 0 ||
+  // D: the real head dim, up to 128, in rows of whole 16-byte units (the
+  // bulk copies' granule; ops/paged.py pads other pools); dc: the width.
+  const int dc = D <= 64 ? 64 : 128;
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D < 1 || D > 128 || (D * elt) % 16 != 0 ||
+      page <= 0 || pps <= 0 ||
       tile <= 0 || split_pages <= 0 || n_split != (pps + split_pages - 1) / split_pages ||
       (page % tile != 0 && tile % page != 0) || counters == nullptr)
     return cudaErrorInvalidValue;
@@ -859,7 +899,7 @@ extern "C" int pfa_paged_k3(const void* q, const void* q8, const void* score_sca
     return cudaErrorInvalidValue;
   if (tbias != nullptr && (i8c || bias_len < pps * page)) return cudaErrorInvalidValue;
   if (n_split > 1 && ws == nullptr) return cudaErrorInvalidValue;
-  const Layout lay = k3_layout(B, D, elt, gcmax, i8c, tile, split_pages, i8c ? block : 0);
+  const Layout lay = k3_layout(B, dc, D, elt, gcmax, i8c, tile, split_pages, i8c ? block : 0);
   if (lay.total > SMEM_MAX) return cudaErrorInvalidValue;
   const int n_gchunk = (G + gcmax - 1) / gcmax;
   const long long n_items = (long long)B * Hkv * n_gchunk * n_split;
@@ -898,21 +938,24 @@ extern "C" int pfa_paged_k3(const void* q, const void* q8, const void* score_sca
   a.tile = tile;
   a.block = i8c ? block : 0;
   a.n_items = static_cast<int>(n_items);
+  a.d = D;
   a.in_bf16 = in_dtype == PFA_BF16;
   a.sm_scale = sm_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PFA_K3(T)                                                      \
-  (D == 64 ? dispatch<T, 64>(a, i8c, lay.total, st)                    \
-           : dispatch<T, 128>(a, i8c, lay.total, st))
+  (dc == 64 ? dispatch<T, 64>(a, i8c, lay.total, st)                   \
+            : dispatch<T, 128>(a, i8c, lay.total, st))
   if (pool_dtype == PFA_INT8) return PFA_K3(int8_t);
   if (pool_dtype == PFA_BF16) return PFA_K3(__nv_bfloat16);
   return PFA_K3(float);
 #undef PFA_K3
 }
 
-// K3's shared-memory bytes for a plan (ops/paged.py::k3_smem counts the
-// same; a card test holds the two equal).
+// K3's shared-memory bytes for a plan at head dim D (ops/paged.py::k3_smem
+// counts the same; a card test holds the two equal).
 extern "C" int pfa_paged_k3_smem(int B, int D, int elt, int gcmax, int i8c, int tile,
                                  int split_pages, int block) {
-  return k3_layout(B, D, elt, gcmax, i8c != 0, tile, split_pages, i8c ? block : 0).total;
+  return k3_layout(B, D <= 64 ? 64 : 128, D, elt, gcmax, i8c != 0, tile, split_pages,
+                   i8c ? block : 0)
+      .total;
 }

@@ -35,7 +35,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -186,10 +186,56 @@ _SIGNATURES: Dict[str, List] = {
 #: dtype codes shared with the C side (csrc/common.cuh).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 
-#: Head dims and dtypes the flash kernels (K1 forward, K4/K5 backward) are
-#: compiled for.
+#: The widths the attention kernels (K1, K3, K4/K5, K6) are compiled for
+#: and the dtypes of K1 and K4/K5; :func:`head_dim_plan` maps every head dim
+#: up to :data:`MAX_HEAD_DIM` onto one of the widths.
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+#: The largest head dim the card's attention kernels take.
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+#: The ROADMAP.md item that takes head dims 129-256.
+WIDE_HEAD_DIM_ITEM = "A17"
+
+
+def head_dim_plan(d: int, elt: int) -> Tuple[int, bool]:
+    """The card's one rule for a head dim ``d`` of ``elt``-byte elements:
+    ``(D_c, copy)``.
+
+    ``D_c`` is the compiled width that runs it: 64 for d <= 64, 128 for
+    64 < d <= 128 (JAX's ``_pad_head_dim`` pads to 64 or 128 there). The
+    kernels keep the real d as the innermost dimension of their tensor maps
+    and bulk copies, so the columns d..D_c-1 arrive as zeros and add
+    nothing to Q.K^T or dP; every store is strided by d and guarded by it;
+    the softmax scale stays the real d's. ``copy`` is True where a row of d
+    elements is not a whole number of 16-byte units, which a tensor map's
+    row pitch and a bulk copy need (bf16 with d % 8 != 0, 8-bit with
+    d % 16 != 0, fp32 with d % 4 != 0): the wrapper then pads its tensors
+    into a D_c-wide copy (:func:`pad_head`, as ``jnp.pad``) and the kernel
+    runs on that. Raises ValueError for d < 1 or d > :data:`MAX_HEAD_DIM`."""
+    if d < 1:
+        raise ValueError(f"head dim must be >= 1, got {d}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {d}: the card's attention kernels take head dims 1..{MAX_HEAD_DIM}; "
+            f"129-256 is ROADMAP.md's {WIDE_HEAD_DIM_ITEM}")
+    return next(w for w in KERNEL_HEAD_DIMS if d <= w), (d * elt) % 16 != 0
+
+
+def pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (..., d) zero-padded to (..., width), contiguous (``t`` itself
+    where d == width); 1-byte payloads (int8, e4m3) are padded as bytes."""
+    d = t.shape[-1]
+    if d == width:
+        return t
+    if t.element_size() == 1:
+        return torch.nn.functional.pad(t.view(torch.uint8), (0, width - d)).view(t.dtype)
+    return torch.nn.functional.pad(t, (0, width - d))
+
+
+def cut_head(t: torch.Tensor, d: int) -> torch.Tensor:
+    """A kernel's output of a :func:`pad_head` copy cut back to the first
+    ``d`` columns, contiguous (``t`` itself where it is d wide)."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
 #: Incremented only where a wrapper has launched its kernel.

@@ -290,12 +290,14 @@ def _stream_args(q: torch.Tensor, kv_lens, k_bias) -> Streams:
     return lens, bias
 
 
-def _check_k1(q, k, v) -> None:
-    """What K1 takes: head dim, dtype, contiguous inputs; in bf16 on
-    16-byte-aligned bases (its TMA loads)."""
-    d = q.shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K1 supports head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+def _k1_inputs(q, k, v):
+    """What K1 takes, checked: dtype, a head dim d up to 128 (``_build.
+    head_dim_plan``), contiguous inputs; in bf16 on 16-byte-aligned bases
+    (its TMA loads). Returns (q, k, v), padded into D_c-wide copies where
+    the plan asks for one (bf16 with d % 8 != 0, fp32 with d % 4 != 0: d
+    100 in bf16 runs as 128); the kernel runs on them and the caller keeps
+    the output's first d columns."""
+    dc, copy = _build.head_dim_plan(q.shape[-1], q.element_size())
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"K1 supports {KERNEL_DTYPES}, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -303,6 +305,7 @@ def _check_k1(q, k, v) -> None:
             raise ValueError(f"K1 needs contiguous inputs; {name} is not")
         if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"K1 needs 16-byte-aligned inputs; {name} starts at {t.data_ptr():#x}")
+    return tuple(_build.pad_head(t, dc) for t in (q, k, v)) if copy else (q, k, v)
 
 
 def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens=None, k_bias=None,
@@ -312,9 +315,10 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens
     ``pfa_flash_fwd_streams`` when a key-padding stream is given,
     ``pfa_flash_fwd_window`` with a window, ``pfa_flash_fwd_dropout`` with
     dropout."""
-    b, sq, hq, d = q.shape
+    d = q.shape[-1]
+    q, k, v = _k1_inputs(q, k, v)
+    b, sq, hq, d_run = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    _check_k1(q, k, v)
     lens, bias = _stream_args(q, kv_lens, k_bias)
     if q.dtype == torch.bfloat16 and lens is None and bias is None and not scale > 0.0:
         # The bf16 kernel keeps the running max on the raw scores and
@@ -334,12 +338,12 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens
         lse.data_ptr() if save_lse else None,
         lens.data_ptr() if lens is not None else None,
         bias.data_ptr() if bias is not None else None,
-        b, sq, skv, hq, hkv, d, float(scale), int(causal),
+        b, sq, skv, hq, hkv, d_run, float(scale), int(causal),
         *kernel_window(window), *kernel_dropout(dropout_rate, dropout_seed),
         _build.DTYPE_CODES[q.dtype],
         count_as=count,
     )
-    return o, lse
+    return _build.cut_head(o, d), lse
 
 
 def _flash_fwd_bias_cuda(q, k, v, causal: bool, scale: float, count: str, *, vec=None, dense=None,
@@ -349,9 +353,10 @@ def _flash_fwd_bias_cuda(q, k, v, causal: bool, scale: float, count: str, *, vec
     Skv)): (o, lse or None), counted as ``count`` (``pfa_flash_fwd_relbias``
     (T5), ``pfa_flash_fwd_alibi`` or ``pfa_flash_fwd_densebias``), with
     ``_lse`` appended when it writes the lse."""
-    b, sq, hq, d = q.shape
+    d = q.shape[-1]
+    q, k, v = _k1_inputs(q, k, v)
+    b, sq, hq, d_run = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    _check_k1(q, k, v)
     if vec is not None:
         vec = vec.detach().to(device=q.device, dtype=torch.float32).contiguous()
     if dense is not None:
@@ -364,11 +369,11 @@ def _flash_fwd_bias_cuda(q, k, v, causal: bool, scale: float, count: str, *, vec
         lse.data_ptr() if save_lse else None,
         vec.data_ptr() if vec is not None else None,
         dense.data_ptr() if dense is not None else None,
-        b, sq, skv, hq, hkv, d, dense.shape[1] if dense is not None else 0, float(scale),
+        b, sq, skv, hq, hkv, d_run, dense.shape[1] if dense is not None else 0, float(scale),
         int(causal), _build.DTYPE_CODES[q.dtype],
         count_as=f"{count}_lse" if save_lse else count,
     )
-    return o, lse
+    return _build.cut_head(o, d), lse
 
 
 def _on_device(q, cuda, cpu):
@@ -704,8 +709,9 @@ def flash_attention_qk_quant(q8, k8, v, score_scale, *, causal: bool = False,
     pv_int8 = _check_qk_quant(q8, k8, v, score_scale, causal, v_scales, out_dtype)
     b, sq, hq, d = q8.shape
     skv, hkv = k8.shape[1], k8.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K1 supports head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    # One plan for the call: the 8-bit rows' pitch decides the copy (d % 16
+    # != 0), which then pads bf16 V and the V scales too.
+    dc, copy = _build.head_dim_plan(d, 1)
     if not pv_int8 and v.dtype != torch.bfloat16:
         raise ValueError(f"K1's quantized modes take bf16 or int8 V on the card, got {v.dtype}")
     for name, t in (("q", q8), ("k", k8), ("v", v), ("score_scale", score_scale), ("v_scales", v_scales)):
@@ -717,14 +723,17 @@ def flash_attention_qk_quant(q8, k8, v, score_scale, *, causal: bool = False,
                              f"starts at {t.data_ptr():#x}")
     if pv_int8 and (v_scales.dtype != torch.float32 or tuple(v_scales.shape) != (b, hkv, d)):
         raise ValueError(f"v_scales must be fp32 ({b}, {hkv}, {d})")
+    if copy:
+        q8, k8, v = (_build.pad_head(t, dc) for t in (q8, k8, v))
+        v_scales = _build.pad_head(v_scales, dc) if pv_int8 else None
     mode = "int8full" if pv_int8 else ("int8qk" if q8.dtype == torch.int8 else "fp8qk")
     o = torch.empty(q8.shape, dtype=out_dtype, device=q8.device)
     _build.launch(
         "pfa_flash_fwd_quant", q8.device,
         q8.data_ptr(), k8.data_ptr(), v.data_ptr(), o.data_ptr(), score_scale.data_ptr(),
         v_scales.data_ptr() if pv_int8 else None,
-        b, sq, skv, hq, hkv, d, int(causal), _build.DTYPE_CODES[q8.dtype], int(pv_int8),
-        _build.DTYPE_CODES[out_dtype],
+        b, sq, skv, hq, hkv, q8.shape[-1], int(causal), _build.DTYPE_CODES[q8.dtype],
+        int(pv_int8), _build.DTYPE_CODES[out_dtype],
         count_as=f"pfa_flash_fwd_{mode}",
     )
-    return o
+    return _build.cut_head(o, d)

@@ -44,7 +44,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import _build
-from ._build import KERNEL_DTYPES, KERNEL_HEAD_DIMS
+from ._build import KERNEL_DTYPES, KERNEL_HEAD_DIMS, MAX_HEAD_DIM
 from .dropout import Seed, dropout_scale, keep_scale, keep_threshold, seed_u32
 from .reference import Window, repeat_kv, window_keep
 
@@ -81,13 +81,14 @@ def validate_dropout(rate: float, seed: Optional[Seed]) -> None:
 
 
 def bwd_unrolled_supported(seq_len: int, head_dim: int) -> bool:
-    """True when K4/K5 take this geometry: any length >= 1, D in {64, 128}.
+    """True when K4/K5 take this geometry: any length >= 1, a head dim of 1
+    to 128 (``_build.head_dim_plan``).
 
     The JAX envelope (S a multiple of the blocks, at most 12 tiles, Q/dO
     resident in VMEM) bounds the TPU's unrolled pair; K4/K5 stream their
     tiles, mask ragged edges and serve every length.
     """
-    return seq_len >= 1 and head_dim in KERNEL_HEAD_DIMS
+    return seq_len >= 1 and 1 <= head_dim <= MAX_HEAD_DIM
 
 
 def _validate(q, k, v, o, lse, do, causal: bool) -> None:
@@ -231,14 +232,15 @@ def flash_attention_bwd_masked_plain(
     return back(dq, q), back(group_sum(dk), k), back(group_sum(dv), v), dkb, dvec
 
 
-def _check_cuda(lse, di, **tensors) -> None:
+def _check_cuda(lse, di, **tensors) -> Tuple[int, bool]:
+    """What K4/K5 take, checked; returns the head dim's plan (D_c, copy)
+    (``_build.head_dim_plan``)."""
     q = tensors["q"]
     d = q.shape[-1]
-    if not all(bwd_unrolled_supported(s, d) for s in (q.shape[1], tensors["k"].shape[1])):
-        raise ValueError(
-            f"K4/K5 take lengths >= 1 and head_dim in {KERNEL_HEAD_DIMS}; got Sq {q.shape[1]}, "
-            f"Skv {tensors['k'].shape[1]}, D {d}"
-        )
+    plan = _build.head_dim_plan(d, q.element_size())
+    if min(q.shape[1], tensors["k"].shape[1]) < 1:
+        raise ValueError(f"K4/K5 take lengths >= 1; got Sq {q.shape[1]}, "
+                         f"Skv {tensors['k'].shape[1]}")
     if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in tensors.values()):
         raise ValueError(
             f"K4/K5 take {', '.join(tensors)} all of one dtype in {KERNEL_DTYPES}; got "
@@ -257,6 +259,13 @@ def _check_cuda(lse, di, **tensors) -> None:
             raise ValueError(
                 f"K4/K5 need 16-byte-aligned bf16 inputs (TMA); {name} starts at {t.data_ptr():#x}"
             )
+    return plan
+
+
+def _padded(plan: Tuple[int, bool], *tensors):
+    """The tensors padded into D_c-wide copies where the plan asks for one."""
+    dc, copy = plan
+    return tuple(_build.pad_head(t, dc) if copy else t for t in tensors)
 
 
 def _mode(name: str, window: Optional[Window], dropout_rate: float) -> str:
@@ -320,21 +329,24 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, sm_scale: float, causal: bool,
                  dropout_seed: Optional[Seed] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K5 on CUDA tensors: (dq in q's dtype, di (B, Hq, Sq) fp32),
     di = rowsum(o * dO) computed in the kernel's prologue for K4. q, o, do
-    (B, Sq, Hq, D), k, v (B, Skv, Hkv, D). Counted as ``pfa_flash_bwd_dq``,
-    ``_window`` or ``_dropout``."""
-    _check_cuda(lse, None, q=q, k=k, v=v, o=o, do=do)
-    b, sq, hq, d = q.shape
+    (B, Sq, Hq, D), k, v (B, Skv, Hkv, D). A head dim whose rows are not
+    whole 16-byte units (bf16 d % 8 != 0) runs on D_c-wide padded copies.
+    Counted as ``pfa_flash_bwd_dq``, ``_window`` or ``_dropout``."""
+    plan = _check_cuda(lse, None, q=q, k=k, v=v, o=o, do=do)
+    d = q.shape[-1]
+    q, k, v, o, do = _padded(plan, q, k, v, o, do)
+    b, sq, hq, d_run = q.shape
     dq = torch.empty_like(q)
     di = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
     _build.launch(
         "pfa_flash_bwd_dq", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         dq.data_ptr(), di.data_ptr(),
-        b, sq, k.shape[1], hq, k.shape[2], d, float(sm_scale), int(causal),
+        b, sq, k.shape[1], hq, k.shape[2], d_run, float(sm_scale), int(causal),
         *_streams(window, dropout_rate, dropout_seed), _build.DTYPE_CODES[q.dtype],
         count_as=_mode("pfa_flash_bwd_dq", window, dropout_rate),
     )
-    return dq, di
+    return _build.cut_head(dq, d), di
 
 
 def flash_bwd_dkv(q, k, v, do, lse, di, *, sm_scale: float, causal: bool,
@@ -342,34 +354,42 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, sm_scale: float, causal: bool,
                   dropout_seed: Optional[Seed] = None, slices: Optional[int] = None):
     """Launch K4 on CUDA tensors: (dk, dv) (B, Skv, Hkv, D) in k's dtype,
     summed over each GQA group in fp32 and rounded once. di from K5
-    (:func:`flash_bwd_dq`). ``slices`` (bf16; a divisor of the group, by
-    default :func:`k4_slices`) cuts each group's query heads; with more than
-    one, the slices' fp32 partials go through a workspace and the last to
-    arrive sums them in slice order. fp32 takes one slice. Counted as
-    ``pfa_flash_bwd_dkv``, ``_window`` or ``_dropout``."""
-    _check_cuda(lse, di, q=q, k=k, v=v, do=do)
-    b, sq, hq, d = q.shape
+    (:func:`flash_bwd_dq`). ``slices`` (bf16 at head dims 64 and 128; a
+    divisor of the group, by default :func:`k4_slices`) cuts each group's
+    query heads; with more than one, the slices' fp32 partials go through a
+    workspace and the last to arrive sums them in slice order. fp32 and
+    other head dims take one slice. A head dim whose rows are not whole
+    16-byte units runs on padded copies, as in :func:`flash_bwd_dq`.
+    Counted as ``pfa_flash_bwd_dkv``, ``_window`` or ``_dropout``."""
+    plan = _check_cuda(lse, di, q=q, k=k, v=v, do=do)
+    d = q.shape[-1]
+    q, k, v, do = _padded(plan, q, k, v, do)
+    b, sq, hq, _ = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if slices is None and q.dtype == torch.bfloat16:
+    if slices is None and q.dtype == torch.bfloat16 and q.shape[-1] in KERNEL_HEAD_DIMS:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         slices = k4_slices(b, sq, skv, hq, hkv, causal, window, sms)
     slices = slices or 1
+    if slices > 1 and q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"K4 cuts a group into slices at head dims {KERNEL_HEAD_DIMS} only "
+                         f"(its combine stores whole rows); head dim {d} takes one slice")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     ws = counters = None
     if slices > 1:
         blocks = b * hkv * -(-skv // K4_BLOCK)  # (b, KV head, key block)
-        ws = torch.empty(2 * slices * blocks * K4_BLOCK * d, dtype=torch.float32, device=q.device)
+        ws = torch.empty(2 * slices * blocks * K4_BLOCK * plan[0], dtype=torch.float32,
+                         device=q.device)
         counters = _build.arrival_counters("K4", q.device, blocks)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _build.launch(
         "pfa_flash_bwd_dkv", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(ws), ptr(counters),
-        b, sq, skv, hq, hkv, d, int(slices), float(sm_scale), int(causal),
+        b, sq, skv, hq, hkv, q.shape[-1], int(slices), float(sm_scale), int(causal),
         *_streams(window, dropout_rate, dropout_seed), _build.DTYPE_CODES[q.dtype],
         count_as=_mode("pfa_flash_bwd_dkv", window, dropout_rate),
     )
-    return dk, dv
+    return _build.cut_head(dk, d), _build.cut_head(dv, d)
 
 
 def flash_attention_bwd(

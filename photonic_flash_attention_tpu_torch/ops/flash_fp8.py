@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._build import KERNEL_DTYPES, KERNEL_HEAD_DIMS
+from ._build import KERNEL_DTYPES
 from .flash import QUANT_BLOCK_KV, _check_shapes, flash_attention_qk_quant, quant_blocks_plain
 from .reference import cdiv, repeat_kv, softmax_scale
 
@@ -218,24 +218,27 @@ def flash_attention_block_quant(q8, k8, v8, qs, ks, vs, *, qdtype: str, causal: 
     _check_block_quant(q8, k8, v8, qs, ks, vs, qdtype, causal)
     b, sq, hq, d = q8.shape
     skv, hkv = k8.shape[1], k8.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K6 supports head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    # A head dim up to 128; 8-bit rows not of whole 16-byte units (d % 16
+    # != 0) run on D_c-wide padded copies of the payloads and of vs.
+    dc, copy = _build.head_dim_plan(d, 1)
     for name, t in (("q", q8), ("k", k8), ("v", v8), ("qs", qs), ("ks", ks), ("vs", vs)):
         if t.device != q8.device or not t.is_contiguous():
             raise ValueError(f"K6 needs contiguous inputs on {q8.device}; {name} is not")
         if name in ("q", "k", "v") and t.data_ptr() % 16:
             raise ValueError(f"K6 needs 16-byte-aligned q, k, v (TMA); {name} starts at "
                              f"{t.data_ptr():#x}")
+    if copy:
+        q8, k8, v8, vs = (_build.pad_head(t, dc) for t in (q8, k8, v8, vs))
     kernel_dtype = out_dtype if out_dtype in KERNEL_DTYPES else torch.float32
     o = torch.empty(q8.shape, dtype=kernel_dtype, device=q8.device)
     _build.launch(
         "pfa_flash_quant", q8.device,
         q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-        o.data_ptr(), b, sq, skv, hq, hkv, d, float(sm_scale), int(causal),
+        o.data_ptr(), b, sq, skv, hq, hkv, q8.shape[-1], float(sm_scale), int(causal),
         _build.DTYPE_CODES[q8.dtype], _build.DTYPE_CODES[kernel_dtype],
         count_as=f"pfa_flash_quant_{qdtype}",
     )
-    return o.to(out_dtype)
+    return _build.cut_head(o, d).to(out_dtype)
 
 
 def flash_attention_quant(q, k, v, *, qdtype: str = "fp8", causal: bool = False,

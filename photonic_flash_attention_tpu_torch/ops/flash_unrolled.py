@@ -23,15 +23,16 @@ from typing import Optional
 
 import torch
 
-from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, flash_attention, flash_attention_qk_quant
+from ._build import MAX_HEAD_DIM
+from .flash import KERNEL_DTYPES, flash_attention, flash_attention_qk_quant
 from .flash_fp8 import _per_tensor_quant
 from .reference import softmax_scale
 
 
 def unrolled_supported(seq_len: int, head_dim: int, *, int8_qk: bool = False) -> bool:
-    """True when K1 takes this geometry (any length >= 1, D in {64, 128}),
-    with or without ``int8_qk``."""
-    return seq_len >= 1 and head_dim in KERNEL_HEAD_DIMS
+    """True when K1 takes this geometry (any length >= 1, a head dim of 1
+    to 128: ``_build.head_dim_plan``), with or without ``int8_qk``."""
+    return seq_len >= 1 and 1 <= head_dim <= MAX_HEAD_DIM
 
 
 def _quant_per_tensor(x: torch.Tensor):

@@ -44,8 +44,6 @@ INT8_MAX = 127.0
 POOL_DTYPES = (torch.int8, torch.bfloat16, torch.float32)
 #: The largest query-head group K3 takes: (Hq/Hkv) * D elements.
 _MAX_GROUP_ELEMS = 4096
-#: Head dims K3 is compiled for.
-K3_HEAD_DIMS = (64, 128)
 #: Bytes of K and V rows one of K3's ring stages holds (its tile of tokens).
 _K3_STAGE_BYTES = 16384
 #: Tokens of one K3 split (rounded up to whole pages, and to whole requant
@@ -259,16 +257,19 @@ def _align(x: int, a: int) -> int:
 
 def k3_smem(b: int, d: int, elt: int, gcmax: int, tile: int, split_pages: int,
             block: int) -> int:
-    """K3's shared memory (the kernel's ``k3_layout``): mbarriers and a
-    flag, the batch's lengths and their prefix of active items, a split's
-    page ids, the new token's rows, the warps' end-of-split states (float
-    mode) or the int8-compute block state (``block`` > 0), the ring."""
+    """K3's shared memory (the kernel's ``k3_layout``) at head dim ``d``:
+    mbarriers and a flag, the batch's lengths and their prefix of active
+    items, a split's page ids, the new token's rows, the warps' end-of-split
+    states (float mode) or the int8-compute block state (``block`` > 0),
+    each ``D_c`` wide (``_build.head_dim_plan``), and the ring, whose rows
+    are d wide."""
+    dc = _build.head_dim_plan(d, elt)[0]
     off = (2 * _K3_STAGES * 8 + 16 + _align((2 * b + 1) * 4, 16) + _align(split_pages * 4, 16)
-           + _align(2 * d * elt + 16, 16))
+           + _align(2 * dc * elt + 16, 16))
     if block:
-        off += 4 * (gcmax * block + block + 2 * gcmax * d + 4 * gcmax)
+        off += 4 * (gcmax * block + block + 2 * gcmax * dc + 4 * gcmax)
     else:
-        off += 4 * _K3_CONSUMER_WARPS * gcmax * (d + 2)
+        off += 4 * _K3_CONSUMER_WARPS * gcmax * (dc + 2)
     stage = _align(tile * (2 * d * elt + (8 if elt == 1 else 0)), 128)
     return _align(off, 128) + _K3_STAGES * stage
 
@@ -282,8 +283,11 @@ def k3_plan(b: int, hq: int, hkv: int, d: int, elt: int, page: int, pps: int,
     requant block: splits are whole blocks. Raises ValueError for a call K3
     does not take.
 
-    Tile: the tokens whose K and V rows fill ``_K3_STAGE_BYTES``, cut to
-    divide the page (or a whole number of pages). Heads: the group in one
+    Tile: the tokens whose K and V rows fill ``_K3_STAGE_BYTES`` (rounded
+    down to a power of two), cut to divide the page (or a whole number of
+    pages). Head dims 1 to 128 (``_build.head_dim_plan``); the kernel's rows
+    are d wide, so ``d * elt`` must be a multiple of 16 here (the wrapper
+    pads a call whose rows are not). Heads: the group in one
     CTA when G = 1, else in chunks of 2 x elt heads, at most 4 (32 fp32
     registers of q and of the accumulator a lane, 16 for fp32 pools).
     Split: ``_K3_SPLIT_TOKENS``, or 1 / ``_K3_MAX_SPLITS`` of the table if
@@ -291,8 +295,9 @@ def k3_plan(b: int, hq: int, hkv: int, d: int, elt: int, page: int, pps: int,
     Cached: decode calls it once a layer a step with the same shapes."""
     if b <= 0:
         raise ValueError(f"K3 needs a batch, got B {b}")
-    if d not in K3_HEAD_DIMS:
-        raise ValueError(f"K3 needs D in {K3_HEAD_DIMS}, got {d}")
+    if _build.head_dim_plan(d, elt)[1]:
+        raise ValueError(f"K3 needs D in whole 16-byte rows: D {d} of {elt}-byte elements; "
+                         f"pad the pools to {_build.head_dim_plan(d, elt)[0]}")
     if hkv <= 0 or hq % hkv or hq * d > _MAX_GROUP_ELEMS * hkv:
         raise ValueError(f"K3 needs Hq % Hkv == 0 and (Hq/Hkv)*D <= {_MAX_GROUP_ELEMS}; "
                          f"got Hq {hq}, Hkv {hkv}, D {d}")
@@ -302,7 +307,7 @@ def k3_plan(b: int, hq: int, hkv: int, d: int, elt: int, page: int, pps: int,
     if elt == 1 and page % 4:
         raise ValueError(f"K3 needs page_size % 4 == 0 for an int8 pool (its scales are "
                          f"bulk-copied in 16-byte runs); got {page}")
-    cap = _K3_STAGE_BYTES // (2 * d * elt)
+    cap = 1 << (_K3_STAGE_BYTES // (2 * d * elt)).bit_length() - 1
     tile = math.gcd(page, cap) if page >= cap else cap // page * page
     group = hq // hkv
     gcmax = 1 if group == 1 else min(2 * elt, 4)
@@ -333,36 +338,59 @@ def _k3_launch(count_as: str, device: torch.device, q, k_pages, v_pages, k_scale
     """One K3 launch on rank-5 pools, counted under ``count_as``; returns o
     (B, Hq, D) fp32. Float mode takes ``q`` fp32; int8 compute ``q8`` and
     its ``score_scale`` (a device scalar) with ``block_pages``; the fused
-    decode ``k_new``, ``v_new`` and ``flat_slots``."""
+    decode ``k_new``, ``v_new`` and ``flat_slots``.
+
+    Head dims 1 to 128 (``_build.head_dim_plan``). Where the pool's rows are
+    not whole 16-byte units (int8 d % 16 != 0, bf16 d % 8 != 0, fp32 d % 4
+    != 0: d 100 in int8 or bf16), the call runs on a D_c-wide padded copy
+    of the layer's pools (and of q, k_new, v_new); the fused decode then
+    writes its token into the copy, and the layer's pools take the copy's
+    first d columns back. Each such call copies the layer's pools twice: a
+    server at such a head dim should keep its pools D_c wide."""
     b, hq, d = (q if q is not None else q8).shape
     _, hkv, num_pages, page, _ = k_pages.shape
     pps = page_indices.shape[1]
-    plan = k3_plan(b, hq, hkv, d, k_pages.element_size(), page, pps, block_pages)
+    dc, copy = _build.head_dim_plan(d, k_pages.element_size())
+    fused = flat_slots is not None
+    pools = (k_pages, v_pages)
+    if copy:
+        lyr = slice(int(layer), int(layer) + 1)
+        k_pages, v_pages = (_build.pad_head(t[lyr], dc) for t in pools)
+        if k_scales is not None:
+            k_scales, v_scales = k_scales[lyr], v_scales[lyr]
+        q, q8, k_new, v_new = (None if t is None else _build.pad_head(t, dc)
+                               for t in (q, q8, k_new, v_new))
+        layer, d_run = 0, dc
+    else:
+        d_run = d
+    plan = k3_plan(b, hq, hkv, d_run, k_pages.element_size(), page, pps, block_pages)
     for t in (k_pages, v_pages, k_scales, v_scales):
         if t is not None and t.data_ptr() % 16:
             raise ValueError("K3 needs its pools and scales 16-byte aligned")
-    o = torch.empty(b, hq, d, device=device, dtype=torch.float32)
+    o = torch.empty(b, hq, d_run, device=device, dtype=torch.float32)
     rows = b * hkv * plan.n_gchunk
     ws = None
-    if plan.n_split > 1:  # the splits' (m, l, acc) records
-        ws = torch.empty(rows * plan.n_split * plan.gcmax * (d + 2), device=device,
+    if plan.n_split > 1:  # the splits' (m, l, acc) records, D_c wide
+        ws = torch.empty(rows * plan.n_split * plan.gcmax * (dc + 2), device=device,
                          dtype=torch.float32)
     counters = _build.arrival_counters("K3", device, rows)
-    fused = flat_slots is not None
     _build.launch(
         "pfa_paged_k3", device,
         _ptr(q), _ptr(q8), _ptr(score_scale), k_pages.data_ptr(), v_pages.data_ptr(),
         _ptr(k_scales), _ptr(v_scales), lengths.data_ptr(), page_indices.data_ptr(),
         _ptr(token_bias), _ptr(k_new), _ptr(v_new), _ptr(flat_slots), o.data_ptr(), _ptr(ws),
         counters.data_ptr(),
-        int(layer), b, hq, hkv, d, num_pages, page, pps,
+        int(layer), b, hq, hkv, d_run, num_pages, page, pps,
         token_bias.shape[-1] if token_bias is not None else 0,
         _build.DTYPE_CODES[k_pages.dtype],
         _build.DTYPE_CODES[k_new.dtype] if fused else 0, int(q8 is not None),
         plan.split_pages, plan.n_split, plan.tile, plan.block, plan.gcmax, float(sm_scale),
         count_as=count_as,
     )
-    return o
+    if copy and fused:
+        for pool, padded in zip(pools, (k_pages, v_pages)):
+            pool[lyr].copy_(padded[..., :d])
+    return _build.cut_head(o, d)
 
 
 # -- K3: decode attention ----------------------------------------------------
@@ -729,7 +757,7 @@ def paged_attention_auto(
 ) -> torch.Tensor:
     """Device-aware dispatch (JAX ``paged_attention_auto``): on CUDA,
     :func:`paged_attention` (K3), which raises for a pool K3 does not take
-    (D not 64 or 128, a group (Hq/Hkv) * D above 4096, an int8 pool's page
+    (D above 128, a group (Hq/Hkv) * D above 4096, an int8 pool's page
     not a multiple of 4); on the CPU :func:`paged_attention_xla` on the
     layer's slice, as JAX's non-TPU branch. The choice comes from the
     device alone. As in JAX, the two branches differ on a row of length 0:

@@ -159,7 +159,8 @@ def test_fp32_prefill_stays_fp32():
 
 def test_unrolled_supported_is_the_kernel_envelope():
     assert unrolled_supported(16, 64) and unrolled_supported(1000, 128)
-    assert not unrolled_supported(512, 32)
+    assert unrolled_supported(512, 32) and unrolled_supported(512, 80)
+    assert not unrolled_supported(512, 129)
     assert not unrolled_supported(0, 64)
 
 

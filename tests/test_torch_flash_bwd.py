@@ -43,7 +43,8 @@ from photonic_flash_attention_tpu_torch.ops.flash_bwd import (
 from .conftest import rel_err_norm
 
 # (B, Sq, Skv, H, D, causal): the cases of the JAX package's own backward
-# test; D 128 where it uses 32 (the port's envelope is D in {64, 128}).
+# test; D 128 where it uses 32 (D 32 and the other head dims up to 128:
+# test_torch_head_dims.py).
 BWD_CASES = [
     (2, 256, 256, 4, 64, False),
     (2, 256, 256, 4, 64, True),
@@ -282,7 +283,8 @@ def test_cpu_backward_never_touches_the_kernel_library():
 
 def test_bwd_unrolled_supported_is_the_kernel_envelope():
     assert bwd_unrolled_supported(200, 64) and bwd_unrolled_supported(8192, 128)
-    assert not bwd_unrolled_supported(512, 32)
+    assert bwd_unrolled_supported(512, 32) and bwd_unrolled_supported(512, 80)
+    assert not bwd_unrolled_supported(512, 129)
     assert not bwd_unrolled_supported(0, 64)
 
 

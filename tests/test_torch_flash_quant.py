@@ -188,7 +188,8 @@ def test_unrolled_int8_qk_matches_jax(dt, causal):
     got = flash_attention_unrolled(tq, tk, tv, causal=causal, int8_qk=True)
     assert got.dtype == tv.dtype
     assert rel_err_norm(got.float().numpy(), np.asarray(want, np.float32)) <= 5e-4
-    assert unrolled_supported(256, 64, int8_qk=True) and not unrolled_supported(256, 96, int8_qk=True)
+    assert unrolled_supported(256, 64, int8_qk=True) and unrolled_supported(256, 96, int8_qk=True)
+    assert not unrolled_supported(256, 129, int8_qk=True)
 
 
 def test_qk_quant_payload_entry_is_its_plain_version_on_cpu():
