@@ -9,7 +9,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 1. device: CUDA must be available (there is no CPU path);
 2. build: compile the port's kernels (csrc/*.cu) with nvcc; then the
    proof that K1's and K4/K5's bf16 kernels are the Hopper design: every
-   instantiation (K1: D 64 and 128, six modes; K4 and K5: D 64 and 128,
+   instantiation (K1: D 64 and 128, six modes, and D 256 plain and
+   streams; K4 and K5: D 64 and 128,
    plain, window, dropout) must show HGMMA and UTMALDG and no HMMA in the
    library's SASS (``cuobjdump -sass``), printed with its registers and
    stack (``cuobjdump -res-usage``; K4/K5 must have none), tiles, ring
@@ -17,8 +18,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    forward's ten instantiations (K1's int8-QK, fp8-QK and int8-full
    modes and K6 int8 and fp8, D 64 and 128) holds exactly its mode's GMMA
    kinds (IGMMA s8, QGMMA e4m3, HGMMA bf16/f16) and UTMALDG, no HMMA or
-   IMMA and no stack; that K3's 32 instantiations (16 at a head dim of
-   the width, 16 narrower) stage pages by the TMA's bulk copy (UBLKCP)
+   IMMA and no stack; that K3's 44 instantiations (22 at a head dim of
+   the width, 22 narrower) stage pages by the TMA's bulk copy (UBLKCP)
    with no stack; that K21's bf16 instantiation
    of K4's body and K20's of K5's (D 64 and 128) do as K4's and K5's; that
    K10's ring copies by the bulk copy with no stack; and that K13-K19's bf16 body
@@ -79,6 +80,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    plain backward, two calls bit-equal, K5 with di and K4 alone (K4 also
    by slices of the group) and the Function's whole backward, the plain
    backward and SDPA's backward with ``enable_gqa``, beside the bounds;
+   then the head dims: every kernel and mode at d 16-112 and the d-80
+   timings (``check_head_dims``, ``time_head_dims``), and past 128 K1's
+   plain and key-stream modes and K3's every mode at d 136-256 against
+   their plain versions, one call each of what the card refuses there (a
+   ValueError naming d and A17, no launch), and K1 and K3's fused decode
+   timed at Gemma-2B's attention (8 query heads over 1 KV head, d 256)
+   (``check_wide_head_dims``, ``time_wide_head_dims``);
 4. roofline: the card's record (``hardware.detection``), K9/K10 (HBM read
    and copy) bit for bit and K11 (exp) and K12 (the softmax stream, both
    modes) within their bounds against their plain versions; then, as a
@@ -170,12 +178,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    weights from seed 0, made on the card), then GQA at Llama-2-70B's width
    (64 query heads over 8 KV heads) cut to 2 layers, each served through
    ``ServingEngine`` (int8 pool, page 128, decode window 32): 8 requests of
-   17-2000 tokens, 33 new tokens each, K1 once a layer a prefill and K3's
+   17-2000 tokens (redrawn while the dense fp32 forward's top-2 logits
+   tie), 33 new tokens each, K1 once a layer a prefill and K3's
    fused decode once a layer a step asserted, decode tokens/s and ms a
-   step printed; the last-prompt logits of the shortest and the longest
-   prompt against the dense ``LlamaForCausalLM`` forward of the same
-   weights on the card; the same requests with ``prefill_chunk=256`` (K1
-   with its key-bias stream) against the whole prefill; decode steps 1-4
+   step printed; every last-prompt logit row against the dense fp32
+   ``LlamaForCausalLM`` forward of the same weights on the card, the
+   shortest and the longest prompt's also against the dense bf16 one; the
+   same requests with ``prefill_chunk=256`` (K1 with its key-bias stream)
+   against the whole prefill, first tokens equal; decode steps 1-4
    over a bf16 pool against the dense forward over the same tokens;
 6c. bert path: BERT-base (random weights from seed 0, bf16 compute) on a
    padded batch B8 S512 with two token types: K1's key streams once a
@@ -252,6 +262,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    world-1 times; ``ResearchBenchmark`` at GPT-2 medium's width; the
    sanitizer refusing a CUDA tensor with a NaN, ``sanitize_state_dict``
    passing GPT-2 medium on the card. K1 and K3's fused decode must launch.
+
+After the serving path come the head-dim paths: ``gpt2_d80`` (GPT-2 at
+Cerebras-GPT-2.7B's widths, d 80, served at 32 layers and trained at 4)
+and ``gemma_d256`` (Llama at Gemma-2B's widths, d 256 over one KV head,
+served at 18 layers through the llama path's checks: every Llama path's
+prompts are redrawn off dense fp32 top-2 ties, its served logits held
+against the dense fp32 forward and its chunked run's first tokens to the
+whole prefill's). ``--head-dims`` runs only the head-dim
+checks, timings and these two paths; ``--head-dim-table`` times the D 64
+and D 128 rows the D 256 slice must not slow, then the D 256 rows, with
+public calls (a copy of the script times another tree).
 
 Every decode path (serving, durable, parallel, llama, T5, shell and the
 CLI's ``serve-bench`` rows) runs its windows as the engine does on the
@@ -652,6 +673,12 @@ def phase_build(sass: bool = True) -> None:
 #: (csrc/flash_fwd_sm90.cuh::K1Mode, in this order).
 K1_SM90 = re.compile(r"flash_fwd_sm90ILi(\d+)ELi(\d)E")
 K1_MODES = ("plain", "streams", "rel", "dense", "window", "dropout")
+#: The modes K1 is also compiled for at D 256: the bf16 K1 entries of
+#: ops/_build.py::WIDE_KERNELS (csrc/flash_fwd_sm90.cu::wide_mode is the C
+#: side's statement of the same).
+K1_WIDE_MODES = tuple(sorted(K1_MODES.index(name.split()[1] if " " in name else "plain")
+                             for name, elts in _build.WIDE_KERNELS.items()
+                             if name.split()[0] == "K1" and 2 in elts))
 #: K4's and K5's bf16 kernels: one instantiation per kernel, head dim and
 #: stream mode (csrc/flash_bwd_sm90.cuh::StreamMode, in this order); K21's
 #: is K4's plain one with COLBLOCK true (``Lb1E``), K20's K5's with
@@ -689,7 +716,7 @@ PROBE_KERNELS = ("hbm_read", "exp_chain", "hbm_copy_ring", "hbm_copy")
 #: The instantiations ``--sass-diff`` compares: every Hopper attention body
 #: and the probes.
 SASS_DIFF_KINDS = ("K1", "K4", "K5", "K20", "K21", "quant", "K18i8", "exp", "aug_pair", "fixed",
-                   "probe")
+                   "probe", "K3")
 
 
 @functools.lru_cache(maxsize=None)
@@ -702,8 +729,13 @@ def _cuobjdump(flag: str, path: Path) -> str:
 
 def _sm90_key(name: str):
     """(kind, D, mode) of a Hopper kernel instantiation's name: kind "K1",
-    "K4", "K5", "K20", "K21", "quant", "K18i8", "exp", "aug_pair", "fixed"
-    or "probe" (PROBE_SASS)."""
+    "K4", "K5", "K20", "K21", "quant", "K18i8", "exp", "aug_pair", "fixed",
+    "probe" (PROBE_SASS) or "K3" (its mode a string: pool, heads a CTA, int8
+    compute, narrower head dims)."""
+    if m := K3_SM90.search(name):
+        return "K3", int(m.group(2)), (f"{K3_POOLS[m.group(1)]} {m.group(3)}h"
+                                       f"{' i8c' if m.group(4) == '1' else ''}"
+                                       f"{'' if m.group(5) == '1' else ' narrow'}")
     if m := K1_SM90.search(name):
         return "K1", int(m.group(1)), int(m.group(2))
     if m := BWD_SM90.search(name):
@@ -751,11 +783,14 @@ def sm90_sass(path: Path) -> tuple:
 
 
 #: K3's instantiations (csrc/paged_decode_sm90.cu::k3_kernel<pool, D,
-#: heads a CTA, int8 compute, head dim D>): 3 pools x 2 widths x 2 head
-#: counts, and the int8 pool's int8-compute mode at both; each for a head
-#: dim of the width and for a narrower one.
+#: heads a CTA, int8 compute, head dim D>): 3 pools x 2 widths (D 64, 128)
+#: and the pools ops/_build.py::WIDE_KERNELS gives K3 at D 256, and the
+#: int8 pool's int8-compute mode at each width that takes int8; each x 2
+#: head counts, and for a head dim of the width and for a narrower one.
 K3_SM90 = re.compile(r"k3_kernelI(a|f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])ELb([01])E")
-K3_INSTANTIATIONS = 32
+K3_POOLS = {"a": "int8", "f": "fp32", "13__nv_bfloat16": "bf16"}
+K3_INSTANTIATIONS = 2 * 2 * (3 * 2 + len(_build.WIDE_KERNELS["K3"])
+                             + 2 + (1 in _build.WIDE_KERNELS["K3"]))
 
 
 def check_k3_sass(path: Path) -> None:
@@ -763,13 +798,12 @@ def check_k3_sass(path: Path) -> None:
     copy (UBLKCP in the SASS) and waits on mbarriers (SYNCS): prints each
     one's counts, registers and stack; all K3_INSTANTIATIONS must be there,
     each with a bulk copy and no stack."""
-    names = {"a": "int8", "f": "fp32", "13__nv_bfloat16": "bf16"}
     op_re = re.compile(r"\b(UBLKCP|SYNCS)\b")
     ops, cur = {}, None
     for line in _cuobjdump("-sass", path).splitlines():
         if "Function :" in line:
             m = K3_SM90.search(line)
-            cur = (names[m.group(1)], int(m.group(2)), int(m.group(3)), m.group(4) == "1",
+            cur = (K3_POOLS[m.group(1)], int(m.group(2)), int(m.group(3)), m.group(4) == "1",
                    m.group(5) == "1") if m else None
             if cur:
                 ops[cur] = collections.Counter(UBLKCP=0, SYNCS=0)
@@ -778,7 +812,7 @@ def check_k3_sass(path: Path) -> None:
     usage = {}
     for m in re.finditer(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+)", _cuobjdump("-res-usage", path)):
         if k := K3_SM90.search(m.group(1)):
-            usage[(names[k.group(1)], int(k.group(2)), int(k.group(3)), k.group(4) == "1",
+            usage[(K3_POOLS[k.group(1)], int(k.group(2)), int(k.group(3)), k.group(4) == "1",
                    k.group(5) == "1")] = (int(m.group(2)), int(m.group(3)))
     for key in sorted(ops):
         pool, d, heads, i8c, full = key
@@ -803,6 +837,7 @@ def check_k1_sass(counts: dict, usage: dict) -> None:
     import ctypes
 
     want = {("K1", d, mode) for d in (64, 128) for mode in range(len(K1_MODES))}
+    want |= {("K1", 256, mode) for mode in K1_WIDE_MODES}
     got = {key for key in counts if key[0] == "K1"}
     if got != want:
         raise AssertionError(f"K1 SASS: bf16 instantiations {sorted(got)}, want {sorted(want)}")
@@ -2891,9 +2926,9 @@ def check_head_dims(results: dict) -> None:
     mode, GQA 32/8 through autograd, two launches bit-identical), K3 (every
     mode, int8, bf16 and fp32 pools, GQA 32/8 over an int8 pool), K2 (pools
     bit-exact), K1's quantized modes and K6 (QUANT_PLAIN_BOUND on the same
-    payloads), K1's fp32 body; d 100 runs on padded copies. Then every card
-    entry at d 160 must raise ValueError naming 160 before any launch. Each
-    kernel's worst max abs error at d 80 goes into its ``d80`` entry."""
+    payloads), K1's fp32 body; d 100 runs on padded copies. Each kernel's
+    worst max abs error at d 80 goes into its ``d80`` entry (what the card
+    takes and refuses past 128: check_wide_head_dims)."""
     gen = torch.Generator(device="cuda").manual_seed(80)
     worst = collections.defaultdict(dict)  # name -> {d: max abs err}
 
@@ -2956,40 +2991,11 @@ def check_head_dims(results: dict) -> None:
         if max(errs) > 1e-4 or not torch.isfinite(o).all():
             raise AssertionError(line)
         print(line, flush=True)
-    # Past 128: a ValueError naming d, before any launch.
-    wide = torch.zeros(1, 64, 2, 160, device="cuda", dtype=torch.bfloat16)
-    lse = torch.zeros(1, 2, 64, device="cuda")
-    pools = _serving_pools(torch.int8, gen, L=1, hkv=2, num_pages=4, page=16, d=160)
-    lens = torch.ones(1, dtype=torch.int32, device="cuda")
-    table = torch.ones(1, 1, dtype=torch.int32, device="cuda")
-    wide_calls = {
-        "K1": lambda: flash_ops.flash_attention(wide, wide, wide),
-        "K5/K4": lambda: bwd_ops.flash_attention_bwd(wide, wide, wide, wide, lse, wide,
-                                                     sm_scale=1.0, causal=False),
-        "K3": lambda: paged_ops.paged_decode_attend(wide[:, 0].float(), *pools[:2], lens, table, 0,
-                                                    *pools[2:]),
-        "K1 int8-QK": lambda: flash_ops.flash_attention_qk_quant(
-            wide.to(torch.int8), wide.to(torch.int8), wide, torch.ones(1, device="cuda")),
-    }
-    launched = sum(_build.LAUNCHES.values())
-    for label, call in wide_calls.items():
-        try:
-            call()
-        except ValueError as e:
-            if "160" not in str(e):
-                raise AssertionError(f"head dims: {label} at D 160 raised without naming it: {e}")
-        else:
-            raise AssertionError(f"head dims: {label} took D 160")
-    if sum(_build.LAUNCHES.values()) != launched:
-        raise AssertionError("head dims: a D 160 call launched a kernel")
-    print(f"head dims: K1, K5/K4, K3 and K1's int8-QK mode raise ValueError at D 160 before any "
-          f"launch", flush=True)
     for name, by_d in worst.items():
         print(f"head dims: {name} worst max abs error by head dim "
               f"{ {d: float(f'{e:.3e}') for d, e in sorted(by_d.items())} }", flush=True)
         results[name].setdefault("d80", {})["max_abs_err"] = by_d[CEREBRAS_D]
         results[name]["d80"]["checked_head_dims"] = sorted(by_d)
-    del pools
     torch.cuda.empty_cache()
 
 
@@ -3136,25 +3142,323 @@ def time_head_dims(results: dict, smi: str) -> list:
     return rows
 
 
-#: The A/B rows at D 64 (the parent's widths) of ``--head-dim-table``.
-HEAD_DIM_AB_ROWS = ("K1 plain B4 S2048 H12 D64 causal", "K5 + K4 B4 S2048 H12 D64 causal",
-                    "K3 fused GPT-2 medium B8 H16 D64 int8")
+#: Head dims past 128 the card takes on its D 256 instantiations (K1's bf16
+#: plain and key-stream modes, K3 over int8 and bf16 pools): 180 (a bf16 row
+#: of 360 bytes) and 200 (an int8 row of 200) run on padded copies.
+WIDE_CHECK_HEAD_DIMS = (136, 160, 180, 192, 200, 256)
+#: Gemma-2B's attention (google/gemma-2b config.json): 8 query heads over 1
+#: KV head, head_dim 256.
+GEMMA_HQ, GEMMA_HKV, GEMMA_D = 8, 1, 256
+#: A head dim past every compiled width (JAX pads it to 384).
+TOO_WIDE_D = 320
+
+
+def _k1_wide_cases(d: int) -> list:
+    """K1's D 256 modes at head dim d as check_k1_edges' cases: plain and
+    the key streams, causal (aligned to the end where Sq != Skv) and not,
+    MHA and Gemma-2B's 8 query heads over 1 KV head."""
+    hq, hkv = GEMMA_HQ, GEMMA_HKV
+    streams = dict(kv_lens=(300, 0), k_bias=True)
+    return [
+        ("MHA causal", 2, 300, 300, 4, 4, d, True, {}, "pfa_flash_fwd"),
+        ("MHA ragged", 2, 129, 300, 4, 4, d, False, {}, "pfa_flash_fwd"),
+        (f"Hq{hq}/Hkv{hkv} causal", 2, 129, 300, hq, hkv, d, True, {}, "pfa_flash_fwd"),
+        (f"Hq{hq}/Hkv{hkv} ragged", 2, 300, 127, hq, hkv, d, False, {}, "pfa_flash_fwd"),
+        ("lens (300, 0) and k_bias, MHA", 2, 129, 300, 4, 4, d, False, streams,
+         "pfa_flash_fwd_streams"),
+        (f"lens (300, 0) and k_bias, Hq{hq}/Hkv{hkv} causal", 2, 129, 300, hq, hkv, d, True,
+         streams, "pfa_flash_fwd_streams"),
+    ]
+
+
+#: K3's modes at D 256 (_k3_head_dim_case): the fused decode, its token
+#: bias and the attend-only decode over int8 and bf16 pools, and
+#: paged_attention_hf (float compute over bf16 pools, int8 compute over
+#: int8 ones: its default), groups 1 and 8.
+K3_WIDE_MODES = tuple(
+    (mode, pool, hq, hkv)
+    for mode, pools in (("fused", (torch.int8, torch.bfloat16)),
+                        ("fused_tbias", (torch.int8, torch.bfloat16)),
+                        ("attend", (torch.int8, torch.bfloat16)), ("hf", (torch.bfloat16,)),
+                        ("hf_int8", (torch.int8,)))
+    for pool in pools for hq, hkv in ((4, 4), (GEMMA_HQ, GEMMA_HKV)))
+
+
+def _check_wide_refusals(gen) -> None:
+    """One call each of what the card does not take at 129-256 (d 192:
+    K1's window, dropout, relative- and dense-bias modes and its fp32 body,
+    K5/K4 in bf16 and fp32, K1's 8-bit modes, K6, K3 over an fp32 pool) and
+    past 256 (TOO_WIDE_D: K1, K3 over an int8 pool): each must raise
+    ValueError naming d and A17 with no launch. Then a training call at d
+    256: its forward launches K1 with lse once, its backward raises the
+    same ValueError before K5 or K4 launch."""
+    from photonic_flash_attention_tpu_torch.ops.rel_bias import T5RelBias
+
+    d, w = 192, TOO_WIDE_D
+    q, k, v = (torch.randn(1, 256, 4, d, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    f32 = [t.float() for t in (q, k, v)]
+    lse = torch.zeros(1, 4, 256, device="cuda")
+    rel = T5RelBias(torch.randn(32, 4, device="cuda", generator=gen), True)
+    dense = torch.zeros(1, 1, 256, 256, device="cuda")
+    lens = torch.ones(1, dtype=torch.int32, device="cuda")
+    table = torch.ones(1, 1, dtype=torch.int32, device="cuda")
+    pools32 = _serving_pools(torch.float32, gen, L=1, hkv=4, num_pages=4, page=16, d=d)
+    qw = torch.zeros(1, 64, 2, w, device="cuda", dtype=torch.bfloat16)
+    pools8 = _serving_pools(torch.int8, gen, L=1, hkv=2, num_pages=4, page=16, d=w)
+    calls = {
+        (d, "K1 window"): lambda: flash_ops.flash_attention(q, k, v, causal=True, window=(-40, 0)),
+        (d, "K1 dropout"): lambda: flash_ops.flash_attention(q, k, v, dropout_rate=0.1,
+                                                             dropout_seed=7),
+        (d, "K1 relative bias"): lambda: flash_ops.flash_attention(q, k, v, rel_bias=rel),
+        (d, "K1 dense bias"): lambda: flash_ops.flash_attention(q, k, v, attn_bias=dense),
+        (d, "K1 fp32"): lambda: flash_ops.flash_attention(*f32),
+        (d, "K5/K4 bf16"): lambda: bwd_ops.flash_attention_bwd(q, k, v, q, lse, q, sm_scale=1.0,
+                                                               causal=False),
+        (d, "K5/K4 fp32"): lambda: bwd_ops.flash_attention_bwd(*f32, f32[0], lse, f32[0],
+                                                               sm_scale=1.0, causal=False),
+        (d, "K3 fp32 pool"): lambda: paged_ops.paged_decode_attend(f32[0][:, 0], *pools32[:2],
+                                                                   lens, table, 0),
+        (w, "K1"): lambda: flash_ops.flash_attention(qw, qw, qw),
+        (w, "K3 int8 pool"): lambda: paged_ops.paged_decode_attend(
+            qw[:, 0].float(), *pools8[:2], lens, table, 0, *pools8[2:]),
+    }
+    for name, (_, prepare, _, _, _) in _quant_modes().items():
+        calls[(d, name)] = prepare(q, k, v, True)[0]
+    torch.cuda.synchronize()
+    launched = sum(_build.LAUNCHES.values())
+    for (dim, label), call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if str(dim) not in str(e) or "A17" not in str(e):
+                raise AssertionError(f"head dims past 128: {label} at d {dim} raised without "
+                                     f"naming d and A17: {e}")
+        else:
+            raise AssertionError(f"head dims past 128: {label} took d {dim}")
+    if sum(_build.LAUNCHES.values()) != launched:
+        raise AssertionError("head dims past 128: a refused call launched a kernel")
+    print(f"head dims past 128: {', '.join(label for dim, label in calls if dim == d)} raise "
+          f"ValueError at d {d}, and {', '.join(label for dim, label in calls if dim == w)} at d "
+          f"{w}, naming d and A17, before any launch", flush=True)
+
+    leaves = [torch.randn(1, 256, h, GEMMA_D, device="cuda", generator=gen).to(torch.bfloat16)
+              .requires_grad_() for h in (GEMMA_HQ, GEMMA_HKV, GEMMA_HKV)]
+    before = collections.Counter(_build.LAUNCHES)
+    out = flash_ops.flash_attention(*leaves, causal=True)
+    try:
+        torch.autograd.grad(out.float().sum(), leaves)
+    except ValueError as e:
+        if str(GEMMA_D) not in str(e) or "A17" not in str(e):
+            raise AssertionError(f"head dims past 128: the d-256 backward raised without naming "
+                                 f"d and A17: {e}")
+    else:
+        raise AssertionError("head dims past 128: a d-256 backward ran")
+    torch.cuda.synchronize()
+    ran = collections.Counter(_build.LAUNCHES)
+    ran.subtract(before)
+    if +ran != collections.Counter({"pfa_flash_fwd": 1}):
+        raise AssertionError(f"head dims past 128: the d-256 training call launched {dict(+ran)}, "
+                             f"expected K1 with lse once")
+    print(f"head dims past 128: a training call at d {GEMMA_D} launched K1 with lse once forward "
+          f"and raised ValueError backward before K5/K4", flush=True)
+
+
+def check_wide_head_dims(results: dict) -> None:
+    """Past 128: K1's D 256 modes (_k1_wide_cases, with and without lse:
+    check_k1_edges' bounds) and K3's (K3_WIDE_MODES: _k3_head_dim_case's
+    bounds, pools bit-exact with K2's plain write) at each head dim of
+    WIDE_CHECK_HEAD_DIMS against their plain versions; then the refusals
+    (_check_wide_refusals). Each kernel's worst max abs error and the head
+    dims it was checked at go into its ``d256`` entry."""
+    gen = torch.Generator(device="cuda").manual_seed(256)
+    worst = collections.defaultdict(dict)  # name -> {d: max abs err}
+    for d in WIDE_CHECK_HEAD_DIMS:
+        for case in _k1_wide_cases(d):
+            for save_lse in (True, False):
+                err = _k1_case(gen, f"head dims: {case[0]}", *case[1:], save_lse=save_lse)
+                worst[case[-1]][d] = max(worst[case[-1]].get(d, 0.0), err)
+        for mode, pool_dtype, hq, hkv in K3_WIDE_MODES:
+            name, err = _k3_head_dim_case(gen, d, mode, pool_dtype, hq, hkv)
+            worst[name][d] = max(worst[name].get(d, 0.0), err)
+    _check_wide_refusals(gen)
+    for name, by_d in worst.items():
+        print(f"head dims past 128: {name} worst max abs error by head dim "
+              f"{ {d: float(f'{e:.3e}') for d, e in sorted(by_d.items())} }", flush=True)
+        entry = results[name].setdefault("d256", {})
+        entry["max_abs_err"] = max(by_d.values())
+        entry["checked_head_dims"] = sorted(by_d)
+    torch.cuda.empty_cache()
+
+
+def _k1_causal_row(gen, b: int, s: int, hq: int, hkv: int, d: int, smi: str, label: str,
+                   plain_runs: int = TIMED_RUNS, *, lse: bool = False,
+                   streams: bool = False) -> dict:
+    """K1 bf16 at B, S, Hq over Hkv heads, head dim d, causal (``lse``: the
+    call that writes the lse; ``streams``: the key streams, lengths
+    STREAM_LENS[:B] and a key bias with holes): checked against its plain
+    version (bound 1e-2), then by CUDA events and the graph fit beside SDPA
+    with ``enable_gqa`` on the same inputs (the streams as its additive
+    mask), the plain version and the bound from the real d. Prints
+    ``label``'s line and returns the row."""
+    import torch.nn.functional as F
+
+    q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    kw, sdpa_kw, lens = dict(causal=True), dict(is_causal=True), None
+    if streams:
+        lens = torch.tensor(STREAM_LENS[:b], dtype=torch.int32, device="cuda")
+        bias = _key_bias(b, s, gen)
+        kw.update(kv_lens=lens, k_bias=bias)
+        sdpa_kw = dict(attn_mask=_sdpa_stream_mask(b, s, s, True, lens, bias))
+    fn = flash_ops.flash_attention_with_lse if lse else flash_ops.flash_attention
+    call = lambda: fn(q, k, v, **kw)  # noqa: E731
+    plain = lambda: flash_ops.flash_attention_plain(q, k, v, **kw)  # noqa: E731
+    out, ref = call(), plain()
+    out = out[0] if lse else out
+    torch.cuda.synchronize()
+    err = rel_err_norm(out, ref)
+    mode = " with lse" if lse else " with streams" if streams else ""
+    line = (f"{label}{mode} B{b} S{s} H{hq}/{hkv} D{d} bf16 causal: rel_err_norm {err:.3e} "
+            f"(bound 1e-2)")
+    if err > 1e-2 or not torch.isfinite(out).all():
+        raise AssertionError(line)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms, fit = _both_ms(call)
+    plain_ms = median_ms(plain, runs=plain_runs, warmup=1)
+    lib, lib_fit = _both_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                                    **sdpa_kw))
+    bnd = flash_fwd_bound(q, k, True, lens=lens, with_lse=lse, with_bias=streams)
+    print(f"{line} | kernel {ms:.4f} ms, fit {fit:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"(enable_gqa{', the streams as a mask' if streams else ''}) {lib:.4f} ms, fit "
+          f"{lib_fit:.4f} ms (K1 / SDPA {fit / lib_fit:.3f} by the fit), bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; K1 at {100 * bnd['bound_ms'] / fit:.1f} % "
+          f"of it by the fit) ({smi})", flush=True)
+    return dict(shape=f"B{b} S{s} Hq{hq}/Hkv{hkv} D{d} causal bf16{mode}", ms=ms, fit_ms=fit,
+                plain_ms=plain_ms, library_ms=lib, library_fit_ms=lib_fit,
+                max_abs_err=max_abs_err(out, ref), **bnd)
+
+
+def _k3_fused_row(gen, lengths: tuple, hq: int, hkv: int, d: int, smi: str, label: str,
+                  plain_runs: int = TIMED_RUNS) -> dict:
+    """K3's fused decode over an int8 pool of pages of 128 tokens (2 layers,
+    scattered tables, one length a sequence; a length 0 writes to the trash
+    page 0): the pools bit-exact with K2's plain write and the output within
+    1e-4 of the plain version, then by CUDA events and the graph fit beside
+    the plain version and the bound. Prints ``label``'s line and returns the
+    row."""
+    page, layer = 128, 1
+    b = len(lengths)
+    pages_of = [-(-n // page) for n in lengths]
+    pps = max(pages_of)
+    k_pool, v_pool, ks, vs = _serving_pools(torch.int8, gen, L=2, hkv=hkv,
+                                            num_pages=sum(pages_of) + 1, page=page, d=d)
+    perm = torch.randperm(sum(pages_of), device="cuda", generator=gen).to(torch.int32) + 1
+    tables = torch.zeros(b, pps, dtype=torch.int32, device="cuda")
+    slots = torch.zeros(b, dtype=torch.int32, device="cuda")
+    at = 0
+    for i, (n, np_) in enumerate(zip(lengths, pages_of)):
+        tables[i, :np_] = perm[at:at + np_]
+        at += np_
+        if n:
+            slots[i] = tables[i, (n - 1) // page] * page + (n - 1) % page
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qd = torch.randn(b, hq, d, device="cuda", generator=gen)
+    k_new, v_new = (torch.randn(b, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+    pools = [k_pool, v_pool, ks, vs]
+    ref_pools = [t.clone() for t in pools]
+
+    def call():
+        return paged_ops.paged_decode_attention(qd, k_new, v_new, k_pool, v_pool, lens, tables,
+                                                slots, layer, ks, vs)
+
+    def plain_call():
+        paged_ops.paged_token_write_plain(k_new, v_new, *ref_pools, slots, layer)
+        return paged_ops.paged_decode_attend_plain(qd, *ref_pools[:2], lens, tables, layer,
+                                                   *ref_pools[2:], d ** -0.5)
+
+    out, ref = call(), plain_call()
+    torch.cuda.synchronize()
+    err = rel_err_norm(out, ref)
+    exact = all(torch.equal(a, w) for a, w in zip(pools, ref_pools))
+    line = (f"{label} B{b} H{hq}/{hkv} D{d} page{page} int8 lengths {list(lengths)}: pools "
+            f"bit-exact with K2's plain write: {exact}; rel_err_norm {err:.3e} (bound 1e-4)")
+    if not exact or err > 1e-4 or not torch.isfinite(out).all():
+        raise AssertionError(line)
+    ms, fit = _both_ms(call)
+    plain = median_ms(plain_call, runs=plain_runs)
+    bnd = k3_bound(b, hq, hkv, d, 1, sum(lengths), pps, 4, True, fused_in=2)
+    print(f"{line} | kernel {ms:.4f} ms, fit {fit:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; at {100 * bnd['bound_ms'] / fit:.1f} % "
+          f"by the fit), library none ({smi})", flush=True)
+    row = dict(shape=f"B{b} Hq{hq}/Hkv{hkv} D{d} int8 pool, lengths {min(lengths)}-{max(lengths)}",
+               ms=ms, fit_ms=fit, plain_ms=plain, library_ms=None,
+               max_abs_err=max_abs_err(out, ref), **bnd)
+    del pools, ref_pools, k_pool, v_pool, ks, vs
+    torch.cuda.empty_cache()
+    return row
+
+
+#: The D 256 timings at Gemma-2B's attention (8 query heads over 1 KV head,
+#: causal): K1 at these (B, S, mode), and K3's fused decode at B8 over an
+#: int8 pool, lengths 0-2000 (GPT2_DECODE_LENS).
+WIDE_K1_ROWS = ((4, 2048, {}), (4, 2048, dict(lse=True)), (4, 2048, dict(streams=True)),
+                (1, 8192, {}))
+
+
+def time_wide_head_dims(results: dict, smi: str) -> list:
+    """K1 at WIDE_K1_ROWS (plain, with lse, with the key streams) and K3's
+    fused decode at B8, each at Gemma-2B's attention (_k1_causal_row,
+    _k3_fused_row: against the plain version, by CUDA events and the graph
+    fit, beside the bound from the real d, the plain version and SDPA with
+    ``enable_gqa`` for K1, none for K3); each row goes into its kernel's
+    ``d256`` entry as a case. Public calls only (``--head-dim-table``)."""
+    gen = torch.Generator(device="cuda").manual_seed(257)
+    rows = []
+    for b, s, mode in WIDE_K1_ROWS:
+        name = "pfa_flash_fwd_streams" if mode.get("streams") else "pfa_flash_fwd"
+        rows.append(dict(name=name, **_k1_causal_row(
+            gen, b, s, GEMMA_HQ, GEMMA_HKV, GEMMA_D, smi, "D 256 table: K1", plain_runs=3,
+            **mode)))
+        torch.cuda.empty_cache()
+    rows.append(dict(name="pfa_paged_decode_fused", **_k3_fused_row(
+        gen, GPT2_DECODE_LENS, GEMMA_HQ, GEMMA_HKV, GEMMA_D, smi, "D 256 table: K3 fused decode",
+        plain_runs=5)))
+    for row in rows:
+        results[row["name"]].setdefault("d256", {}).setdefault("cases", []).append(
+            {key: val for key, val in row.items() if key != "name"})
+    return rows
+
+
+#: The A/B rows at D 64 and 128 (the parent's widths) of ``--head-dim-table``.
+HEAD_DIM_AB_ROWS = ("K1 plain B4 S2048 H12 D64 causal",
+                    "K1 plain B1 S2048 Hq64/Hkv8 D128 causal (Llama-2-70B's GQA)",
+                    "K5 + K4 B4 S2048 H12 D64 causal", "K3 fused GPT-2 medium B8 H16 D64 int8")
 
 
 def time_head_dim_ab(smi: str) -> None:
-    """``--head-dim-table``: the rows at D 64 that must lose no time to the
-    head-dim slice (K1 and K5 + K4 at B4 S2048 H12 D64 causal, K3's fused
-    decode at GPT-2 medium's B8 H16 D64 int8), each by the graph fit and
-    CUDA events, then the d-80 rows where the tree takes d 80 (a tree that
-    refuses it prints the refusal). Public calls only, so a copy of this
-    script times another tree of the repository."""
+    """``--head-dim-table``: the rows at D 64 and 128 that must lose no
+    time to the D 256 slice (K1 at B4 S2048 H12 D64 causal and at
+    Llama-2-70B's B1 S2048 Hq64/Hkv8 D128 causal, K5 + K4 at the first,
+    K3's fused decode at GPT-2 medium's B8 H16 D64 int8), each by the graph
+    fit and CUDA events, then the D 256 rows (time_wide_head_dims) where the
+    tree takes d 256 (a tree that refuses it prints the refusal). Public
+    calls only, so a copy of this script times another tree of the
+    repository."""
     gen = torch.Generator(device="cuda").manual_seed(64)
     q, k, v, do = (torch.randn(4, 2048, 12, 64, device="cuda", generator=gen).to(torch.bfloat16)
                    for _ in range(4))
     o, lse = flash_ops._fwd_with_lse(q, k, v, True, 0.125)
+    hq, hkv, d = LLAMA_GQA
+    gq = torch.randn(1, 2048, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+    gk, gv = (torch.randn(1, 2048, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+              for _ in range(2))
     dec = _decode_case(gen)
     calls = (
         lambda: flash_ops.flash_attention(q, k, v, causal=True),
+        lambda: flash_ops.flash_attention(gq, gk, gv, causal=True),
         lambda: bwd_ops.flash_attention_bwd(q, k, v, o, lse, do, sm_scale=0.125, causal=True),
         lambda: paged_ops.paged_decode_attention(dec[0], dec[8], dec[9], *dec[1:3], dec[5],
                                                  dec[6], dec[7], 7, *dec[3:5]),
@@ -3163,12 +3467,12 @@ def time_head_dim_ab(smi: str) -> None:
         fit = _fit_ms(call)
         ev = median_ms(call)
         print(f"head-dim A/B: {label}: fit {fit:.5f} ms, events {ev:.5f} ms ({smi})", flush=True)
-    del q, k, v, do, o, lse, dec
+    del q, k, v, do, o, lse, gq, gk, gv, dec
     torch.cuda.empty_cache()
     try:
-        time_head_dims(collections.defaultdict(dict), smi)
+        time_wide_head_dims(collections.defaultdict(dict), smi)
     except ValueError as e:
-        print(f"head-dim A/B: the d-80 rows are refused by this tree: {e}", flush=True)
+        print(f"head-dim A/B: the D 256 rows are refused by this tree: {e}", flush=True)
 
 
 def phase_kernels(smi: str) -> dict:
@@ -3199,6 +3503,8 @@ def phase_kernels(smi: str) -> dict:
     results["k4_slices_table"] = time_k4_slices(smi)
     check_head_dims(results)
     results["head_dim_table"] = time_head_dims(results, smi)
+    check_wide_head_dims(results)
+    results["d256_table"] = time_wide_head_dims(results, smi)
     return results
 
 
@@ -3218,84 +3524,14 @@ def check_llama_kernels(results: dict, smi: str) -> None:
     SDPA with ``enable_gqa``), K3's fused decode at B8 Hq64/Hkv8 D128 over
     an int8 pool, lengths 1-4096 (pools bit-exact with K2's plain write,
     output within 1e-4); each by CUDA events and the graph fit, beside its
-    bound. Recorded as ``cases`` of the kernels' entries."""
-    import torch.nn.functional as F
-
+    bound (_k1_causal_row, _k3_fused_row). Recorded as ``cases`` of the
+    kernels' entries."""
     hq, hkv, d = LLAMA_GQA
     gen = torch.Generator(device="cuda").manual_seed(22)
-    q = torch.randn(1, 2048, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
-    k, v = (torch.randn(1, 2048, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
-            for _ in range(2))
-    out = flash_ops.flash_attention(q, k, v, causal=True)
-    ref = flash_ops.flash_attention_plain(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    err = rel_err_norm(out, ref)
-    line = f"K1 flash_fwd B1 S2048 H{hq}/{hkv} D{d} bf16 causal: rel_err_norm {err:.3e} (bound 1e-2)"
-    if err > 1e-2 or not torch.isfinite(out).all():
-        raise AssertionError(line)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    ms, fit = _both_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True))
-    plain = median_ms(lambda: flash_ops.flash_attention_plain(q, k, v, causal=True))
-    lib, lib_fit = _both_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                    enable_gqa=True))
-    bnd = flash_fwd_bound(q, k, True)
-    print(f"{line} | kernel {ms:.4f} ms, fit {fit:.4f} ms, plain {plain:.4f} ms, SDPA "
-          f"(enable_gqa) {lib:.4f} ms, fit {lib_fit:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-          f"({bnd['bound_by']}) ({smi})", flush=True)
-    results["pfa_flash_fwd"].setdefault("cases", []).append(dict(
-        shape=f"B1 S2048 Hq{hq}/Hkv{hkv} D{d} causal bf16", ms=ms, fit_ms=fit, plain_ms=plain,
-        library_ms=lib, library_fit_ms=lib_fit, max_abs_err=max_abs_err(out, ref), **bnd))
-    del q, k, v, qt, kt, vt, out, ref
-
-    page, layer = 128, 1
-    b = len(LLAMA_DECODE_LENS)
-    pages_of = [-(-n // page) for n in LLAMA_DECODE_LENS]
-    pps = max(pages_of)
-    k_pool, v_pool, ks, vs = _serving_pools(torch.int8, gen, L=2, hkv=hkv,
-                                            num_pages=sum(pages_of) + 1, page=page, d=d)
-    perm = torch.randperm(sum(pages_of), device="cuda", generator=gen).to(torch.int32) + 1
-    tables = torch.zeros(b, pps, dtype=torch.int32, device="cuda")
-    slots = torch.zeros(b, dtype=torch.int32, device="cuda")
-    at = 0
-    for i, (n, np_) in enumerate(zip(LLAMA_DECODE_LENS, pages_of)):
-        tables[i, :np_] = perm[at:at + np_]
-        at += np_
-        slots[i] = tables[i, (n - 1) // page] * page + (n - 1) % page
-    lens = torch.tensor(LLAMA_DECODE_LENS, dtype=torch.int32, device="cuda")
-    qd = torch.randn(b, hq, d, device="cuda", generator=gen)
-    k_new, v_new = (torch.randn(b, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
-                    for _ in range(2))
-    pools = [k_pool, v_pool, ks, vs]
-    ref_pools = [t.clone() for t in pools]
-
-    def call():
-        return paged_ops.paged_decode_attention(qd, k_new, v_new, k_pool, v_pool, lens, tables,
-                                                slots, layer, ks, vs)
-
-    def plain_call():
-        paged_ops.paged_token_write_plain(k_new, v_new, *ref_pools, slots, layer)
-        return paged_ops.paged_decode_attend_plain(qd, *ref_pools[:2], lens, tables, layer,
-                                                   *ref_pools[2:], d ** -0.5)
-
-    out, ref = call(), plain_call()
-    torch.cuda.synchronize()
-    err = rel_err_norm(out, ref)
-    exact = all(torch.equal(a, w) for a, w in zip(pools, ref_pools))
-    line = (f"K3 fused decode B{b} H{hq}/{hkv} D{d} page{page} int8 lengths "
-            f"{list(LLAMA_DECODE_LENS)}: pools bit-exact with K2's plain write: {exact}; "
-            f"rel_err_norm {err:.3e} (bound 1e-4)")
-    if not exact or err > 1e-4 or not torch.isfinite(out).all():
-        raise AssertionError(line)
-    ms, fit = _both_ms(call)
-    plain = median_ms(plain_call)
-    bnd = k3_bound(b, hq, hkv, d, 1, sum(LLAMA_DECODE_LENS), pps, 4, True, fused_in=2)
-    print(f"{line} | kernel {ms:.4f} ms, fit {fit:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) ({smi})", flush=True)
-    results["pfa_paged_decode_fused"].setdefault("cases", []).append(dict(
-        shape=f"B{b} Hq{hq}/Hkv{hkv} D{d} int8 pool, lengths 1-4096", ms=ms, fit_ms=fit,
-        plain_ms=plain, library_ms=None, max_abs_err=max_abs_err(out, ref), **bnd))
-    del pools, ref_pools, k_pool, v_pool, ks, vs
-    torch.cuda.empty_cache()
+    results["pfa_flash_fwd"].setdefault("cases", []).append(
+        _k1_causal_row(gen, 1, 2048, hq, hkv, d, smi, "K1 flash_fwd"))
+    results["pfa_paged_decode_fused"].setdefault("cases", []).append(
+        _k3_fused_row(gen, LLAMA_DECODE_LENS, hq, hkv, d, smi, "K3 fused decode"))
 
 
 def check_llama_bwd(results: dict, smi: str) -> None:
@@ -4506,9 +4742,18 @@ def check_chunked_serving(cfg, model, prompts, unchunked_outs, smi) -> dict:
 LLAMA_PROMPT_LENS = (17, 100, 128, 300, 512, 700, 1500, 2000)
 #: Bound on rel_err_norm of the served logits (last prompt token, and the
 #: first decode steps over a bf16 pool) against the dense forward of the
-#: same weights on the card (the GPT-2 phase's).
+#: same weights on the card, in bf16 and in fp32 (the GPT-2 phase's).
 LLAMA_LOGITS_BOUND = 5e-2
 LLAMA_DECODE_CHECK_STEPS = 4
+#: The chunked run's first tokens must equal the whole prefill's exactly, so
+#: a prompt whose dense fp32 top-2 last-position logits lie closer than this
+#: share of the logits' rms is redrawn (T5_TIE_MARGIN's rule): with random
+#: weights the logits over a large vocabulary tie within bf16's rounding
+#: (Gemma-2B's widths: top-2 gaps 0 to 0.031 on four of five prompts), while
+#: two served runs' logits differ by about 2e-2 of their rms, so by ~0.028
+#: of it between two words: the margin is over four times that.
+LLAMA_TIE_MARGIN = 0.12
+LLAMA_PROMPT_DRAWS = 64
 
 
 def _llama_70b_width():
@@ -4534,15 +4779,42 @@ def _dense_last_logits(model, tokens, positions) -> torch.Tensor:
     return out[list(positions)].float()
 
 
+def _llama_prompts(dense32, vocab: int):
+    """One prompt per length of LLAMA_PROMPT_LENS from seed 0, redrawn while
+    the dense fp32 model's top-2 last-position logits lie within
+    LLAMA_TIE_MARGIN of the logits' rms: (prompts, their dense fp32
+    last-position logits, the number redrawn)."""
+    rng = np.random.default_rng(0)
+    prompts, dense, redrawn = [], [], 0
+    for n in LLAMA_PROMPT_LENS:
+        for _ in range(LLAMA_PROMPT_DRAWS):
+            prompt = rng.integers(1, vocab, n).tolist()
+            logits = _dense_last_logits(dense32, prompt, [n - 1])[0]
+            top = logits.topk(2).values
+            if float(top[0] - top[1]) >= LLAMA_TIE_MARGIN * float(logits.square().mean().sqrt()):
+                break
+            redrawn += 1
+        else:
+            raise AssertionError(f"llama path: no prompt of {n} tokens in {LLAMA_PROMPT_DRAWS} "
+                                 f"draws without a top-2 tie within {LLAMA_TIE_MARGIN} of "
+                                 f"the logits' rms")
+        prompts.append(prompt)
+        dense.append(logits)
+    return prompts, dense, redrawn
+
+
 def _llama_path(label: str, cfg, smi: str, profile_tag: Optional[str] = None
                 ) -> collections.Counter:
     """One Llama configuration served on the card (random bf16 weights from
-    seed 0, made on the card): 8 requests through an int8 pool with the
-    launch counts asserted and the decode rates printed; the last-prompt
-    logits of the shortest and the longest prompt against the dense forward;
-    the same requests with prefill_chunk=PREFILL_CHUNK against the whole
-    prefill; decode steps 1-4 over a bf16 pool against the dense forward
-    over the same tokens. Returns the launches of the served runs."""
+    seed 0, made on the card; their bytes, the time to read them once and
+    the pool's bytes printed; prompts drawn by _llama_prompts): 8 requests
+    through an int8 pool with the launch counts asserted and the decode
+    rates printed; every last-prompt logit row against the dense fp32
+    forward, and those of the shortest and the longest prompt against the
+    dense bf16 forward; the same requests with prefill_chunk=PREFILL_CHUNK,
+    whose first tokens must equal the whole prefill's; decode steps 1-4 over
+    a bf16 pool against the dense forward over the same tokens. Returns the
+    launches of the served runs."""
     from photonic_flash_attention_tpu_torch.models.llama import LlamaForCausalLM
 
     t0 = time.perf_counter()
@@ -4555,12 +4827,29 @@ def _llama_path(label: str, cfg, smi: str, profile_tag: Optional[str] = None
           f"the card in bf16 in {time.perf_counter() - t0:.1f} s ({n_params / 1e9:.3f} B "
           f"params)", flush=True)
     state = model.state_dict()
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in LLAMA_PROMPT_LENS]
+    # The same weights in an fp32 model (made on the meta device, given the
+    # card's tensors): the dense fp32 forward.
+    dense32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype=torch.float32), device="meta")
+    dense32.load_state_dict(state, assign=True)
+    t0 = time.perf_counter()
+    prompts, dense_logits, redrawn = _llama_prompts(dense32, cfg.vocab_size)
+    del dense32
+    print(f"llama path: {label}: prompts of {list(LLAMA_PROMPT_LENS)} tokens drawn in "
+          f"{time.perf_counter() - t0:.1f} s, {redrawn} redrawn for a dense fp32 top-2 gap below "
+          f"{LLAMA_TIE_MARGIN} of the logits' rms", flush=True)
     n_layer = cfg.num_hidden_layers
     counts = collections.Counter()
 
     engine = _llama_engine(cfg, state)
+    weight_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    pool_bytes = sum(t.numel() * t.element_size() for t in (engine.pages.k, engine.pages.v,
+                                                            engine.pages.k_scales,
+                                                            engine.pages.v_scales)
+                     if t is not None)
+    read_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"llama path: {label}: weights {weight_bytes} bytes (one read {read_ms:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s: a decode step's bound), int8 pool {pool_bytes} bytes",
+          flush=True)
     first_logits = _capture_first_logits(engine)
     engine.generate([p[:8] for p in prompts[:2]], max_new_tokens=2)  # warm-up
     torch.cuda.synchronize()
@@ -4599,6 +4888,15 @@ def _llama_path(label: str, cfg, smi: str, profile_tag: Optional[str] = None
     if max(errs.values()) > LLAMA_LOGITS_BOUND:
         raise AssertionError(line)
     print(line, flush=True)
+    errs = {len(p): rel_err_norm(first_logits[tuple(p)], want)
+            for p, want in zip(prompts, dense_logits)}
+    line = (f"llama path: {label}, served last-prompt logits vs the dense fp32 forward, "
+            f"rel_err_norm { {n: f'{e:.3e}' for n, e in errs.items()} } (bound "
+            f"{LLAMA_LOGITS_BOUND})")
+    if max(errs.values()) > LLAMA_LOGITS_BOUND or \
+            not all(torch.isfinite(first_logits[tuple(p)]).all() for p in prompts):
+        raise AssertionError(line)
+    print(line, flush=True)
     whole_logits = {k: v for k, v in first_logits.items() if len(k) > PREFILL_CHUNK}
     counts.update(check_window_graphs(f"{label} int8 pool", engine,
                                       lambda: _llama_engine(cfg, state), prompts, NEW_TOKENS, smi,
@@ -4625,8 +4923,9 @@ def _llama_path(label: str, cfg, smi: str, profile_tag: Optional[str] = None
     line = (f"llama path: {label}, prefill_chunk={PREFILL_CHUNK}: {want_chunks} chunks, K1 with "
             f"streams {launches.get('pfa_flash_fwd_streams', 0)} launches; chunked-prompt "
             f"last-token logits vs the whole prefill rel_err_norm {[f'{e:.3e}' for e in errs]} "
-            f"(bound {CHUNK_LOGITS_BOUND}); first tokens equal {firsts}/{len(prompts)}")
-    if max(errs) > CHUNK_LOGITS_BOUND:
+            f"(bound {CHUNK_LOGITS_BOUND}); first tokens equal to the whole prefill's "
+            f"{firsts}/{len(prompts)}")
+    if max(errs) > CHUNK_LOGITS_BOUND or firsts != len(prompts):
         raise AssertionError(line)
     print(line, flush=True)
     del engine
@@ -5166,6 +5465,19 @@ D80_TRAIN_LAYERS, D80_TRAIN_BATCH = 4, 2
 #: Bound on rel_err_norm of the served prefill's last-position logits (bf16
 #: compute) against the dense fp32 forward of the same weights: GPT-2's.
 D80_LOGITS_BOUND = 5e-2
+#: The d-256 path (Gemma-2B's widths) holds its served logits to the same
+#: bound against the dense fp32 forward: LLAMA_LOGITS_BOUND, as every Llama
+#: path does.
+#: Gemma-2B's published widths (google/gemma-2b config.json: hidden_size
+#: 2048, 8 attention heads over 1 KV head, head_dim 256, intermediate_size
+#: 16384, 18 layers, vocabulary 256000, tied embeddings, rope_theta 10000,
+#: rms_norm_eps 1e-6) on the repo's Llama block, built inline: the d-256
+#: path. Llama's SwiGLU MLP and RMSNorm stand where Gemma has its GeGLU,
+#: RMSNorm's (1 + w) and the embedding's x sqrt(2048); none touches attention.
+GEMMA_2B_WIDTHS = dict(vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+                       num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1,
+                       max_position_embeddings=8192, rope_theta=10000.0, rms_norm_eps=1e-6,
+                       tie_word_embeddings=True)
 
 
 def phase_gpt2_d80(smi: str) -> dict:
@@ -5287,6 +5599,25 @@ def phase_gpt2_d80(smi: str) -> dict:
     check_train_grads(cut, first_layers, batch)
     return (collections.Counter(launches) + collections.Counter(window_launches)
             + collections.Counter(chunked_launches) + collections.Counter(train_launches))
+
+
+def phase_gemma_d256(smi: str) -> dict:
+    """The d-256 path: Llama at Gemma-2B's widths (GEMMA_2B_WIDTHS, head dim
+    256 over one KV head; 2.51 B parameters, 5.0 GB in bf16), weights drawn
+    on the card from a seed, served at all 18 layers through _llama_path
+    (max_batch 8, decode window 32, int8 pool, phase_llama's prompts of
+    17-2000 tokens x NEW_TOKENS, redrawn off top-2 ties): K1 at D 256
+    launched 18 x 8 times, K3's fused decode at D 256 at least 18 x
+    (NEW_TOKENS - 1), greedy tokens graphed and eager bit-equal, the chunked
+    run (K1's key streams at D 256) with the whole prefill's first tokens,
+    the served logits against the dense fp32 forward (LLAMA_LOGITS_BOUND).
+    Returns the path's launches."""
+    from photonic_flash_attention_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(**GEMMA_2B_WIDTHS)
+    if cfg.head_dim != GEMMA_D:
+        raise AssertionError(f"d-256 path: head dim {cfg.head_dim}")
+    return _llama_path(f"Gemma-2B widths (head dim {GEMMA_D})", cfg, smi)
 
 
 T5_PROMPT_LENS = (64, 100, 128, 200, 256, 300, 400, 512)
@@ -7953,8 +8284,8 @@ def main() -> None:
                              "result line")
     parser.add_argument("--sass-diff", metavar="LIB",
                         help="only build and compare the SASS of K1's, K4/K5's, K20/K21's, the "
-                             "quantized body's (K1's 8-bit modes, K6, K18 int8) and "
-                             "K13-K19's Hopper instantiations and of the probes K9-K12, "
+                             "quantized body's (K1's 8-bit modes, K6, K18 int8), "
+                             "K13-K19's and K3's Hopper instantiations and of the probes K9-K12, "
                              "normalised, with another build of the library (LIB, e.g. the "
                              "parent commit's); no result line")
     parser.add_argument("--k3-table", action="store_true",
@@ -7962,14 +8293,15 @@ def main() -> None:
                              "step (public calls only, so a copy of this script times any tree "
                              "of the repository); no result line")
     parser.add_argument("--head-dim-table", action="store_true",
-                        help="only build and time the rows at D 64 that the head-dim slice must "
-                             "not slow (K1, K5 + K4, K3's fused decode) and the d-80 rows where "
-                             "the tree takes d 80 (public calls only, so a copy of this script "
-                             "times any tree of the repository); no result line")
+                        help="only build and time the rows at D 64 and 128 that the D 256 slice "
+                             "must not slow (K1, K5 + K4, K3's fused decode) and the D 256 rows "
+                             "where the tree takes d 256 (public calls only, so a copy of this "
+                             "script times any tree of the repository); no result line")
     parser.add_argument("--head-dims", action="store_true",
-                        help="only build and run the head-dim checks, the d-80 timings and the "
-                             "d-80 path (GPT-2 at Cerebras-GPT-2.7B's widths served and "
-                             "trained); no result line")
+                        help="only build and run the head-dim checks, the d-80 and D 256 "
+                             "timings, the d-80 path (GPT-2 at Cerebras-GPT-2.7B's widths served "
+                             "and trained) and the d-256 path (Llama at Gemma-2B's widths "
+                             "served); no result line")
     parser.add_argument("--shell", action="store_true",
                         help="only build and run the shell path (K1's time measured here at "
                              "the headline shape; no NCCL times); no result line")
@@ -7994,11 +8326,14 @@ def main() -> None:
         t0 = time.perf_counter()
         check_head_dims(results)
         time_head_dims(results, smi)
+        check_wide_head_dims(results)
+        time_wide_head_dims(results, smi)
         print(f"chip_smoke: head-dim checks and timings in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        t0 = time.perf_counter()
-        print(f"chip_smoke: d-80 path launches {dict(phase_gpt2_d80(smi))} in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for label, phase in (("d-80", phase_gpt2_d80), ("d-256", phase_gemma_d256)):
+            t0 = time.perf_counter()
+            print(f"chip_smoke: {label} path launches {dict(phase(smi))} in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
         return
     if args.quant_table:
         phase_build(sass=False)
@@ -8049,6 +8384,7 @@ def main() -> None:
     # Each main path's launches, counted from 0 just before it.
     by_path |= {"serving": timed("serving", phase_serving, smi),
                 "gpt2_d80": timed("gpt2_d80", phase_gpt2_d80, smi),
+                "gemma_d256": timed("gemma_d256", phase_gemma_d256, smi),
                 "durable": timed("durable", phase_durable, smi),
                 "parallel": timed("parallel", phase_parallel, smi, args.profile),
                 "llama": timed("llama", phase_llama, smi),
@@ -8058,9 +8394,10 @@ def main() -> None:
                 "t5": timed("t5", phase_t5, smi, args.profile),
                 "t5_training": timed("t5_training", phase_t5_training, smi)}
     ops_results, ops_launches = timed("ops", phase_ops, smi)
-    for name, r in ops_results.items():  # keep the kernels phase's d-80 case
-        if "d80" in results.get(name, {}):
-            r.setdefault("d80", results[name]["d80"])
+    for name, r in ops_results.items():  # keep the kernels phase's head-dim cases
+        for key in ("d80", "d256"):
+            if key in results.get(name, {}):
+                r.setdefault(key, results[name][key])
     results.update(ops_results)
     by_path.update(ops_launches)
     by_path["shell"] = timed("shell", phase_shell, smi, results["pfa_flash_fwd"]["ms"])
@@ -8091,6 +8428,9 @@ def main() -> None:
             # time_head_dims): its worst error there, and its times at
             # that model's shapes where it is timed.
             **({"d80": r["d80"]} if "d80" in r else {}),
+            # The same past 128 (check_wide_head_dims, time_wide_head_dims),
+            # at Gemma-2B's attention where timed.
+            **({"d256": r["d256"]} if "d256" in r else {}),
         }
 
     kernels = [entry(name) for name in SOURCES if name not in NESTED_MODES]

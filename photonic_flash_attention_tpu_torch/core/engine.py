@@ -69,7 +69,7 @@ import torch
 from ..config import get_config
 from ..hardware.detection import known_capabilities
 from ..hardware.roofline import attention_decode_cost, attention_prefill_cost, kernel_energy_mj
-from ..ops._build import MAX_HEAD_DIM
+from ..ops._build import takes_head_dim
 from ..ops.flash import flash_attention
 from ..ops.flash_fp8 import (
     flash_attention_fp8,
@@ -106,6 +106,27 @@ QUANT_KINDS = {
     KernelKind.FLASH_INT8QK: flash_attention_int8qk,
     KernelKind.FLASH_INT8FULL: flash_attention_int8full,
 }
+#: The card kernel of each kind but FUSED, as ops/_build.py::head_dim_plan
+#: names it; FLASH, FLASH_UNROLLED, RING and ULYSSES run K1 in the mode of
+#: the call's mask (:func:`_card_takes`).
+CARD_KERNELS = {
+    KernelKind.FLASH_UNROLLED_INT8QK: "K1 int8qk", KernelKind.FLASH_INT8QK: "K1 int8qk",
+    KernelKind.FLASH_FP8QK: "K1 fp8qk", KernelKind.FLASH_INT8FULL: "K1 int8full",
+    KernelKind.FLASH_FP8: "K6", KernelKind.PAGED_DECODE: "K3",
+}
+
+
+def _card_takes(kind: KernelKind, w: WorkloadCharacteristics) -> bool:
+    """Whether the card's kernel of ``kind`` takes ``w``'s head dim in
+    ``w``'s dtype (K1's body and PAGED_DECODE's pool are of that dtype):
+    every kind up to 128; at 129-256 K1's bf16 plain and key-stream modes
+    and K3 over a bf16 pool (ops/_build.py::WIDE_KERNELS); past 256 only
+    FUSED."""
+    if kind == KernelKind.FUSED:
+        return True
+    mode = {"dense": "K1 dense", "key": "K1 streams"}.get(w.mask_kind, "K1")
+    return takes_head_dim(CARD_KERNELS.get(kind, mode), w.head_dim,
+                          4 if w.dtype == "float32" else 2)
 
 
 def card_power_limit_w() -> Optional[float]:
@@ -359,10 +380,8 @@ class AttentionEngine:
     def _available_kernels(
         self, w: Optional[WorkloadCharacteristics] = None
     ) -> Tuple[KernelKind, ...]:
-        # Every kind but FUSED runs the card's attention kernels (K1, K3, K6),
-        # which take head dims up to MAX_HEAD_DIM (ops/_build.py::head_dim_plan).
-        if w is not None and w.head_dim > MAX_HEAD_DIM:
-            return (KernelKind.FUSED,)
+        # Every kind but FUSED runs one of the card's attention kernels (K1,
+        # K3, K6), offered where that kernel takes the head dim (_card_takes).
         kinds = [KernelKind.FUSED, KernelKind.FLASH]
         if w is not None and not w.is_decode and w.q_len == w.kv_len:
             if unrolled_supported(w.q_len, w.head_dim):
@@ -380,7 +399,7 @@ class AttentionEngine:
             kinds.append(KernelKind.RING)
         if w is not None and self._ulysses_feasible(w):
             kinds.append(KernelKind.ULYSSES)
-        return tuple(kinds)
+        return tuple(kind for kind in kinds if w is None or _card_takes(kind, w))
 
     def _run(self, kind: KernelKind, q, k, v, mask, kv_lens, k_bias, causal, need_weights):
         """Execute one kind: (output, weights or None)."""

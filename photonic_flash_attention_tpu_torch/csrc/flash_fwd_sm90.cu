@@ -54,15 +54,25 @@
 //   mode walks 64-key tiles. REL and STREAMS stage their per-tile vectors
 //   (BQ + BKV - 1 offsets, BKV key biases) by 4-byte cp.async into the
 //   ring; cp.async.mbarrier.arrive ties them to the stage's "full".
-// * Head dims: the body is compiled at D 64 and 128 (JAX pads to the same
-//   widths, ops/flash.py::_pad_head_dim); a head dim d <= 64 runs on D 64,
-//   64 < d <= 128 on D 128, with d a multiple of 8 (the wrapper pads the
-//   rest into a copy, ops/_build.py::head_dim_plan). The tensor maps keep d
-//   as their innermost dimension, so TMA fills a box's columns d..D-1 with
-//   zeros: they add nothing to Q K^T, and P V gives zero columns there,
-//   which are not stored. O's store is strided and guarded by d; sm_scale
-//   is the real d's (the caller's). At d 80 the products run 128 / 80 of
-//   the needed multiply-adds: a native width is later work.
+// * Head dims: the body is compiled at D 64 and 128 in every mode and at
+//   D 256 in PLAIN and STREAMS (JAX pads to 64, then to multiples of 128,
+//   ops/flash.py::_pad_head_dim); a head dim d <= 64 runs on D 64,
+//   64 < d <= 128 on D 128, 128 < d <= 256 on D 256, with d a multiple of
+//   8 (the wrapper pads the rest into a copy, ops/_build.py::head_dim_plan,
+//   which also refuses what is not compiled). The tensor maps keep d as
+//   their innermost dimension, so TMA fills a box's columns d..D-1 with
+//   zeros (a box wholly past d too): they add nothing to Q K^T, and P V
+//   gives zero columns there, which are not stored. O's store is strided
+//   and guarded by d; sm_scale is the real d's (the caller's). At d 80 the
+//   products run 128 / 80 of the needed multiply-adds: a native width is
+//   later work.
+// * D 256: one 128-row Q is 64 KB and a 64-key K/V stage 64 KB, so Q is
+//   single-buffered and the ring holds two stages; K and V then take
+//   barriers of their own (Cfg::SPLIT): tile j's K is released once its
+//   softmax is done and its V once its P V is, so tile j+1's K and V load
+//   under tile j's work in two stages, and the next work tile's Q under
+//   this one's last P V and store. P V is one m64n256k16 a 16-key step,
+//   wgmma's widest N.
 // Not yet done (later work): a TMA store of O, a dynamic (atomic) tile
 // scheduler.
 
@@ -81,14 +91,20 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 24 + 2 x 240 = 3 x 168
 constexpr int VEC = 256;        // floats of a stage's vector (REL: BQ + BKV - 1)
 
+// The modes compiled at D 256 (ops/_build.py::WIDE_KERNELS).
+__host__ __device__ constexpr bool wide_mode(int mode) { return mode == PLAIN || mode == STREAMS; }
+
 template <int D, int MODE>
 struct Cfg {
   // A dense-bias stage carries BQ x BKV fp32 beside K and V: 64 keys keep
   // three stages in 227 KB. At D 128, 96 keys keep a tile's scores, the
   // previous tile's P and O (48 + 24 + 64 registers a thread) under the
   // consumers' 240 without spilling (128 keys spill and serialise wgmma).
-  static constexpr int BKV = MODE == DENSE ? 64 : D == 128 ? 96 : 128;
+  // At D 256, 64 keys: 32 + 16 + 128 registers, and two 64 KB stages.
+  static constexpr int BKV = MODE == DENSE || D == 256 ? 64 : D == 128 ? 96 : 128;
   static constexpr int HALVES = D / 64;  // 128-byte column boxes a row
+  static constexpr int QBUF = D == 256 ? 1 : 2;  // Q buffers
+  static constexpr bool SPLIT = D == 256;        // K and V on barriers of their own
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BKV * D * 2;  // K or V, one stage
   static constexpr int BIAS_BYTES = MODE == DENSE ? BQ * BKV * 4 : 0;
@@ -97,14 +113,20 @@ struct Cfg {
   // Ring depth: the consumers hold two stages (a tile's K and the tile
   // before's V), so a third keeps the next tile's load in flight; two where
   // three do not fit.
-  static constexpr int STAGES = 2 * Q_BYTES + 3 * STAGE_BYTES + 8 * 10 + 1024 <= SMEM_MAX ? 3 : 2;
-  static constexpr int OFF_K = 2 * Q_BYTES;  // Q double-buffered; every offset a multiple of 1024
+  static constexpr int STAGES = QBUF * Q_BYTES + 3 * STAGE_BYTES + 8 * 10 + 1024 <= SMEM_MAX ? 3 : 2;
+  static constexpr int OFF_K = QBUF * Q_BYTES;  // every offset a multiple of 1024
   static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
   static constexpr int OFF_BIAS = OFF_V + STAGES * KV_BYTES;
   static constexpr int OFF_VEC = OFF_BIAS + STAGES * BIAS_BYTES;
   static constexpr int OFF_BAR = OFF_VEC + STAGES * VEC_BYTES;
-  static constexpr int SMEM = OFF_BAR + 8 * (2 * STAGES + 4) + 1024;  // + alignment slack
+  static constexpr int SMEM = OFF_BAR + 8 * (2 * STAGES * (SPLIT ? 2 : 1) + 2 * QBUF) + 1024;  // + slack
 };
+
+// The Q buffer of work tile n and the phase of its barriers.
+template <int QBUF>
+__device__ __forceinline__ int q_buf(int n) { return QBUF == 2 ? n & 1 : 0; }
+template <int QBUF>
+__device__ __forceinline__ uint32_t q_phase(int n) { return QBUF == 2 ? (n >> 1) & 1 : n & 1; }
 
 struct Params {
   __nv_bfloat16* o;
@@ -235,8 +257,9 @@ __device__ __forceinline__ Work work_tile(const Params& p, int t) {
 
 // Persistent: gridDim.x CTAs (one a SM) walk the work tiles in snake order
 // (snake_tile); the K/V ring and its phases run on across tiles, and Q is
-// double-buffered, so the producer loads the next tile while the consumers
-// finish this one and write its output.
+// double-buffered (single at D 256, released after the tile's last Q K^T),
+// so the producer loads the next tile while the consumers finish this one
+// and write its output.
 template <int D, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -248,16 +271,23 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms need 1024-byte alignment
   unsigned char* smem = smem_raw + (base - raw);
+  // K's (with SPLIT; else K and V's) full and empty, then V's (SPLIT), then Q's.
   const uint32_t bar_full = base + C::OFF_BAR, bar_empty = bar_full + 8 * STAGES;
-  const uint32_t bar_qfull = bar_empty + 8 * STAGES, bar_qempty = bar_qfull + 16;
+  const uint32_t bar_vfull = bar_empty + 8 * STAGES, bar_vempty = bar_vfull + 8 * STAGES;
+  const uint32_t bar_qfull = bar_empty + 8 * STAGES * (C::SPLIT ? 3 : 1);
+  const uint32_t bar_qempty = bar_qfull + 8 * C::QBUF;
   const int n_work = p.n_work, off = p.Skv - p.Sq;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, CONSUMERS * 4);  // one arrival a consumer warp
+      if constexpr (C::SPLIT) {
+        mbar_init(bar_vfull + 8 * s, 1);
+        mbar_init(bar_vempty + 8 * s, CONSUMERS * 4);
+      }
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < C::QBUF; ++s) {
       mbar_init(bar_qfull + 8 * s, 1);
       mbar_init(bar_qempty + 8 * s, CONSUMERS * 4);
     }
@@ -280,13 +310,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
       if (t >= n_work) continue;  // the last round only
       const Work w = work_tile<BKV, MODE>(p, t);
       const int hk = w.h / (p.Hq / p.Hkv), hb = p.Hb == 1 ? 0 : w.h, q0 = w.q0;
-      const uint32_t qf = bar_qfull + 8 * (n & 1);
-      mbar_wait(bar_qempty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
+      const int qb = q_buf<C::QBUF>(n);
+      const uint32_t qf = bar_qfull + 8 * qb;
+      mbar_wait(bar_qempty + 8 * qb, q_phase<C::QBUF>(n) ^ 1);
       if (lane == 0) {
         mbar_expect_tx(qf, C::Q_BYTES);
         for (int r = 0; r < CONSUMERS; ++r)
           for (int hf = 0; hf < C::HALVES; ++hf)
-            tma_load_4d(base + (n & 1) * C::Q_BYTES + (r * C::HALVES + hf) * BOX_BYTES, &tm_q, qf,
+            tma_load_4d(base + qb * C::Q_BYTES + (r * C::HALVES + hf) * BOX_BYTES, &tm_q, qf,
                         hf * 64, w.h, q0 + r * 64, w.b);
       }
       for (int j = 0; j < w.n_tiles; ++j, ++it) {
@@ -331,7 +362,22 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
           if (staged) cp_async_mbar_arrive(full);
         }
         __syncwarp();
-        if (lane == 0) {
+        if constexpr (C::SPLIT) {  // K on "full", then V on "vfull" once its slot is free
+          if (lane == 0) {
+            mbar_expect_tx(full, C::KV_BYTES);
+            for (int hf = 0; hf < C::HALVES; ++hf)
+              tma_load_4d(base + C::OFF_K + s * C::KV_BYTES + hf * BKV * 128, &tm_k, full,
+                          hf * 64, hk, kv0, w.b);
+          }
+          const uint32_t vfull = bar_vfull + 8 * s;
+          mbar_wait(bar_vempty + 8 * s, ((it / STAGES) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(vfull, C::KV_BYTES);
+            for (int hf = 0; hf < C::HALVES; ++hf)
+              tma_load_4d(base + C::OFF_V + s * C::KV_BYTES + hf * BKV * 128, &tm_v, vfull,
+                          hf * 64, hk, kv0, w.b);
+          }
+        } else if (lane == 0) {
           const bool bias_tma = MODE == DENSE && p.bias_tma;
           mbar_expect_tx(full, 2 * C::KV_BYTES + (bias_tma ? C::BIAS_BYTES : 0));
           for (int hf = 0; hf < C::HALVES; ++hf) {
@@ -373,12 +419,12 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
       const int wrow = q0 + wg * 64;          // the warpgroup's first row
       const int row0 = wrow + warp * 16 + g;  // this thread's rows: row0, row0 + 8
       const uint32_t bh = static_cast<uint32_t>(w.b * p.Hq + w.h);
-      const uint32_t q_base = base + (n & 1) * C::Q_BYTES + wg * C::HALVES * BOX_BYTES;
+      const uint32_t q_base = base + q_buf<C::QBUF>(n) * C::Q_BYTES + wg * C::HALVES * BOX_BYTES;
 #pragma unroll
       for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY};  // running max: raw scores (log2 modes) or natural units
       float l[2] = {0.f, 0.f};              // this thread's share of the running sum
-      mbar_wait(bar_qfull + 8 * (n & 1), (n >> 1) & 1);
+      mbar_wait(bar_qfull + 8 * q_buf<C::QBUF>(n), q_phase<C::QBUF>(n));
       if (wg == 1 && n_tiles > 0) named_bar_arrive(1, 2 * 128);
 
       // Tile j's Q K^T is issued with the previous tile's P V behind it; the
@@ -399,6 +445,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         __syncwarp();
         if (lane == 0) mbar_arrive(bar);
       };
+      // SPLIT: P V of ring tile k waits for V's own barrier (outside a turn),
+      // and tile k's K (with its stage vector) and, after the work tile's
+      // last Q K^T, Q are released once its softmax is done.
+      const uint32_t bar_pv_empty = C::SPLIT ? bar_vempty : bar_empty;
+      auto wait_v = [&](int k) { mbar_wait(bar_vfull + 8 * (k % STAGES), (k / STAGES) & 1); };
+      auto release_k = [&](int k, bool last) {
+        release(bar_empty + 8 * (k % STAGES));
+        if (last) release(bar_qempty);
+      };
       if (n_tiles > 0) {
         issue_qk(it);
         turn_end(false);
@@ -407,9 +462,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         float alpha[2];
         softmax_step<D, MODE>(sc, m, l, alpha, p, smem, it % STAGES, q0, w.kv_begin, wrow, row0,
                               t4, w.len, off, scale, bh);
+        if constexpr (C::SPLIT) release_k(it, n_tiles == 1);
         pack_frag<BKV>(pa, sc);
       }
       for (int j = 1; j < n_tiles; ++j) {
+        if constexpr (C::SPLIT) wait_v(it + j - 1);
         issue_qk(it + j);
         pv_tile<D, BKV>(o_acc, pa, base + C::OFF_V + ((it + j - 1) % STAGES) * C::KV_BYTES);
         turn_end(false);
@@ -418,23 +475,25 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         float alpha[2];
         softmax_step<D, MODE>(sc, m, l, alpha, p, smem, (it + j) % STAGES, q0,
                               w.kv_begin + j * BKV, wrow, row0, t4, w.len, off, scale, bh);
+        if constexpr (C::SPLIT) release_k(it + j, j == n_tiles - 1);
         wgmma_wait<0>();
         fence_regs(o_acc);
-        release(bar_empty + 8 * ((it + j - 1) % STAGES));
+        release(bar_pv_empty + 8 * ((it + j - 1) % STAGES));
 #pragma unroll
         for (int i = 0; i < NO; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
         pack_frag<BKV>(pa, sc);
       }
       if (n_tiles > 0) {  // the last tile's P V
+        if constexpr (C::SPLIT) wait_v(it + n_tiles - 1);
         turn_begin();
         wgmma_fence();
         pv_tile<D, BKV>(o_acc, pa, base + C::OFF_V + ((it + n_tiles - 1) % STAGES) * C::KV_BYTES);
         turn_end(true);
         wgmma_wait<0>();
         fence_regs(o_acc);
-        release(bar_empty + 8 * ((it + n_tiles - 1) % STAGES));
+        release(bar_pv_empty + 8 * ((it + n_tiles - 1) % STAGES));
       }
-      release(bar_qempty + 8 * (n & 1));
+      if (!C::SPLIT || n_tiles == 0) release(bar_qempty + 8 * q_buf<C::QBUF>(n));
       it += n_tiles;
 
 #pragma unroll
@@ -510,23 +569,29 @@ template <int MODE>
 cudaError_t info_mode(int D, int* out) {
   if (D == 64) return info<64, MODE>(out);
   if (D == 128) return info<128, MODE>(out);
+  if constexpr (wide_mode(MODE))
+    if (D == 256) return info<256, MODE>(out);
   return cudaErrorInvalidValue;
 }
 
-// Head dim d on the width that holds it: 64 for d <= 64, else 128.
+// Head dim d on the width that holds it: 64 for d <= 64, 128 for d <= 128,
+// else 256 (wide modes only).
 template <int MODE>
 cudaError_t launch_mode(const K1Args& a, cudaStream_t stream) {
-  return a.D <= 64 ? launch<64, MODE>(a, stream) : launch<128, MODE>(a, stream);
+  if (a.D <= 128) return a.D <= 64 ? launch<64, MODE>(a, stream) : launch<128, MODE>(a, stream);
+  if constexpr (wide_mode(MODE)) return launch<256, MODE>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 cudaError_t k1_bf16_sm90(const K1Args& a, int mode, cudaStream_t stream) {
   // TMA reads 16-byte-aligned bases and rows of whole 16-byte units (d a
-  // multiple of 8, up to 128: ops/_build.py::head_dim_plan pads the rest);
-  // the log2 modes keep the max on the raw scores and scale them inside the
-  // exponent, which needs a scale > 0.
-  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || a.D < 8 || a.D > 128 ||
+  // multiple of 8, up to 256 in the wide modes, else 128:
+  // ops/_build.py::head_dim_plan pads the rest and refuses what is not
+  // compiled); the log2 modes keep the max on the raw scores and scale them
+  // inside the exponent, which needs a scale > 0.
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || a.D < 8 || a.D > 256 ||
       a.D % 8 != 0 || (!natural_units(mode) && !(a.scale > 0.f)))
     return cudaErrorInvalidValue;
   switch (mode) {

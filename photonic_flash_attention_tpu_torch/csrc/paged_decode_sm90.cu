@@ -83,10 +83,13 @@
 //     zeros. Pages are never shared between sequences in the port's
 //     serving; a concurrent read of a slot that another sequence is
 //     writing is outside the contract.
-//   * head dims: the kernel is compiled at D 64 and 128 and takes any head
-//     dim d up to 128 whose rows are whole 16-byte units (int8 d % 16 == 0,
+//   * head dims: the kernel is compiled at D 64 and 128, and at D 256 for
+//     int8 and bf16 pools (an fp32 row of 256 would need 64 lanes of 16
+//     bytes, more than a warp), and takes any head dim d up to 256 (128
+//     over fp32 pools) whose rows are whole 16-byte units (int8 d % 16 == 0,
 //     bf16 d % 8 == 0, fp32 d % 4 == 0; ops/paged.py pads other pools into
-//     copies): d <= 64 on D 64, else on D 128. A row keeps the lanes of a
+//     copies): d <= 64 on D 64, d <= 128 on D 128, else on D 256 (bf16: one
+//     token a warp, 32 lanes a row; int8: two). A row keeps the lanes of a
 //     D-wide row (LPT a power of two, so the shuffle reductions stay
 //     whole); a lane whose 16-byte chunk lies past d holds a zero q and
 //     re-reads its row's first chunk, so it adds nothing to a score, and
@@ -368,6 +371,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) k3_kernel(const K3Args a) {
   // scores' registers).
   constexpr int KB = GMAX == 1 ? 4 : 1;
   static_assert(!I8C || QUANT, "int8 compute takes int8 pools");
+  static_assert(LPT >= 1 && LPT <= 32, "a token row takes at most one warp");
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int page = a.page;
@@ -857,6 +861,19 @@ cudaError_t dispatch(const K3Args& a, bool i8c, int smem, cudaStream_t st) {
                       : launch_width<T, D, GC, false>(a, smem, st);
 }
 
+// The compiled width of head dim d: 64, 128 or 256.
+int k3_width(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
+// The instantiations of the call's width; D 256 for 1- and 2-byte pools
+// only (an fp32 row would need 64 lanes).
+template <typename T>
+cudaError_t dispatch_width(const K3Args& a, int dc, bool i8c, int smem, cudaStream_t st) {
+  if (dc == 64) return dispatch<T, 64>(a, i8c, smem, st);
+  if (dc == 128) return dispatch<T, 128>(a, i8c, smem, st);
+  if constexpr (sizeof(T) < 4) return dispatch<T, 256>(a, i8c, smem, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // The one entry of K3 (see ops/paged.py::_k3_launch). q (float mode) or q8
@@ -875,10 +892,12 @@ extern "C" int pfa_paged_k3(const void* q, const void* q8, const void* score_sca
   const int elt = pool_dtype == PFA_INT8 ? 1 : pool_dtype == PFA_BF16 ? 2 : 4;
   const bool quant = pool_dtype == PFA_INT8;
   const bool fused = slots != nullptr;
-  // D: the real head dim, up to 128, in rows of whole 16-byte units (the
-  // bulk copies' granule; ops/paged.py pads other pools); dc: the width.
-  const int dc = D <= 64 ? 64 : 128;
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D < 1 || D > 128 || (D * elt) % 16 != 0 ||
+  // D: the real head dim, up to 256 (128 over fp32 pools), in rows of whole
+  // 16-byte units (the bulk copies' granule; ops/paged.py pads other pools);
+  // dc: the width.
+  const int dc = k3_width(D);
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D < 1 || D > (elt == 4 ? 128 : 256) ||
+      (D * elt) % 16 != 0 ||
       page <= 0 || pps <= 0 ||
       tile <= 0 || split_pages <= 0 || n_split != (pps + split_pages - 1) / split_pages ||
       (page % tile != 0 && tile % page != 0) || counters == nullptr)
@@ -942,20 +961,15 @@ extern "C" int pfa_paged_k3(const void* q, const void* q8, const void* score_sca
   a.in_bf16 = in_dtype == PFA_BF16;
   a.sm_scale = sm_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PFA_K3(T)                                                      \
-  (dc == 64 ? dispatch<T, 64>(a, i8c, lay.total, st)                   \
-            : dispatch<T, 128>(a, i8c, lay.total, st))
-  if (pool_dtype == PFA_INT8) return PFA_K3(int8_t);
-  if (pool_dtype == PFA_BF16) return PFA_K3(__nv_bfloat16);
-  return PFA_K3(float);
-#undef PFA_K3
+  if (pool_dtype == PFA_INT8) return dispatch_width<int8_t>(a, dc, i8c, lay.total, st);
+  if (pool_dtype == PFA_BF16) return dispatch_width<__nv_bfloat16>(a, dc, i8c, lay.total, st);
+  return dispatch_width<float>(a, dc, i8c, lay.total, st);
 }
 
 // K3's shared-memory bytes for a plan at head dim D (ops/paged.py::k3_smem
 // counts the same; a card test holds the two equal).
 extern "C" int pfa_paged_k3_smem(int B, int D, int elt, int gcmax, int i8c, int tile,
                                  int split_pages, int block) {
-  return k3_layout(B, D <= 64 ? 64 : 128, D, elt, gcmax, i8c != 0, tile, split_pages,
-                   i8c ? block : 0)
+  return k3_layout(B, k3_width(D), D, elt, gcmax, i8c != 0, tile, split_pages, i8c ? block : 0)
       .total;
 }

@@ -189,35 +189,59 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_
 #: The widths the attention kernels (K1, K3, K4/K5, K6) are compiled for
 #: and the dtypes of K1 and K4/K5; :func:`head_dim_plan` maps every head dim
 #: up to :data:`MAX_HEAD_DIM` onto one of the widths.
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-#: The largest head dim the card's attention kernels take.
+#: The largest head dim any of the card's attention kernels takes.
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
-#: The ROADMAP.md item that takes head dims 129-256.
+#: The card's kernels and modes compiled at D 256, each with the element
+#: bytes of the rows it takes there: K1's bf16 body in its plain mode (with
+#: or without lse) and its key-stream mode, K3 (every mode) over int8 and
+#: bf16 pools. Every other kernel and mode -- K4/K5, K6, K1's 8-bit, REL,
+#: DENSE, WINDOW and DROPOUT modes, the fp32 bodies -- takes head dims up to
+#: 128. Only :func:`takes_head_dim` reads this table.
+WIDE_KERNELS = {"K1": (2,), "K1 streams": (2,), "K3": (1, 2)}
+#: The ROADMAP.md item that holds the head dims the card refuses.
 WIDE_HEAD_DIM_ITEM = "A17"
 
 
-def head_dim_plan(d: int, elt: int) -> Tuple[int, bool]:
-    """The card's one rule for a head dim ``d`` of ``elt``-byte elements:
-    ``(D_c, copy)``.
+def takes_head_dim(kernel: str, d: int, elt: int) -> bool:
+    """Whether the card's ``kernel`` (a name of :func:`head_dim_plan`)
+    takes head dim ``d`` of ``elt``-byte elements."""
+    widest = KERNEL_HEAD_DIMS[-1] if elt in WIDE_KERNELS.get(kernel, ()) else 128
+    return 1 <= d <= widest
+
+
+def head_dim_plan(d: int, elt: int, kernel: str) -> Tuple[int, bool]:
+    """The card's one rule for a head dim ``d`` of ``elt``-byte elements in
+    ``kernel`` (``"K1"``, ``"K1 streams"``, ``"K1 rel"``, ``"K1 dense"``,
+    ``"K1 window"``, ``"K1 dropout"``, ``"K1 int8qk"``, ``"K1 fp8qk"``,
+    ``"K1 int8full"``, ``"K6"``, ``"K4/K5"`` or ``"K3"``; ``elt`` 4 is an
+    fp32 body or pool): ``(D_c, copy)``.
 
     ``D_c`` is the compiled width that runs it: 64 for d <= 64, 128 for
-    64 < d <= 128 (JAX's ``_pad_head_dim`` pads to 64 or 128 there). The
-    kernels keep the real d as the innermost dimension of their tensor maps
-    and bulk copies, so the columns d..D_c-1 arrive as zeros and add
-    nothing to Q.K^T or dP; every store is strided by d and guarded by it;
-    the softmax scale stays the real d's. ``copy`` is True where a row of d
-    elements is not a whole number of 16-byte units, which a tensor map's
-    row pitch and a bulk copy need (bf16 with d % 8 != 0, 8-bit with
-    d % 16 != 0, fp32 with d % 4 != 0): the wrapper then pads its tensors
-    into a D_c-wide copy (:func:`pad_head`, as ``jnp.pad``) and the kernel
-    runs on that. Raises ValueError for d < 1 or d > :data:`MAX_HEAD_DIM`."""
+    64 < d <= 128, 256 for 128 < d <= 256 where :data:`WIDE_KERNELS` holds
+    the kernel at ``elt`` (JAX's ``_pad_head_dim`` pads to a multiple of 128
+    there, and to 64 below it). The kernels keep the real d as the innermost
+    dimension of their tensor maps and bulk copies, so the columns
+    d..D_c-1 arrive as zeros and add nothing to Q.K^T or dP; every store is
+    strided by d and guarded by it; the softmax scale stays the real d's.
+    ``copy`` is True where a row of d elements is not a whole number of
+    16-byte units, which a tensor map's row pitch and a bulk copy need
+    (bf16 with d % 8 != 0, 8-bit with d % 16 != 0, fp32 with d % 4 != 0):
+    the wrapper then pads its tensors into a D_c-wide copy (:func:`pad_head`,
+    as ``jnp.pad``) and the kernel runs on that. Raises ValueError naming d
+    and :data:`WIDE_HEAD_DIM_ITEM` for a head dim the kernel does not take,
+    before anything is built or launched."""
     if d < 1:
         raise ValueError(f"head dim must be >= 1, got {d}")
     if d > MAX_HEAD_DIM:
         raise ValueError(
             f"head dim {d}: the card's attention kernels take head dims 1..{MAX_HEAD_DIM}; "
-            f"129-256 is ROADMAP.md's {WIDE_HEAD_DIM_ITEM}")
+            f"D > 256 is part of ROADMAP.md's {WIDE_HEAD_DIM_ITEM}")
+    if not takes_head_dim(kernel, d, elt):
+        raise ValueError(
+            f"head dim {d}: {kernel} on {elt}-byte elements takes head dims 1..128 on the card; "
+            f"129-256 there is part of ROADMAP.md's {WIDE_HEAD_DIM_ITEM}")
     return next(w for w in KERNEL_HEAD_DIMS if d <= w), (d * elt) % 16 != 0
 
 

@@ -290,14 +290,15 @@ def _stream_args(q: torch.Tensor, kv_lens, k_bias) -> Streams:
     return lens, bias
 
 
-def _k1_inputs(q, k, v):
-    """What K1 takes, checked: dtype, a head dim d up to 128 (``_build.
-    head_dim_plan``), contiguous inputs; in bf16 on 16-byte-aligned bases
-    (its TMA loads). Returns (q, k, v), padded into D_c-wide copies where
-    the plan asks for one (bf16 with d % 8 != 0, fp32 with d % 4 != 0: d
-    100 in bf16 runs as 128); the kernel runs on them and the caller keeps
-    the output's first d columns."""
-    dc, copy = _build.head_dim_plan(q.shape[-1], q.element_size())
+def _k1_inputs(q, k, v, mode: str):
+    """What K1 takes in ``mode`` (a kernel name of ``_build.head_dim_plan``),
+    checked: dtype, a head dim d the mode takes (up to 256 in bf16's plain
+    and key-stream modes, else 128), contiguous inputs; in bf16 on
+    16-byte-aligned bases (its TMA loads). Returns (q, k, v), padded into
+    D_c-wide copies where the plan asks for one (bf16 with d % 8 != 0, fp32
+    with d % 4 != 0: d 100 in bf16 runs as 128); the kernel runs on them and
+    the caller keeps the output's first d columns."""
+    dc, copy = _build.head_dim_plan(q.shape[-1], q.element_size(), mode)
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"K1 supports {KERNEL_DTYPES}, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -316,7 +317,13 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens
     ``pfa_flash_fwd_window`` with a window, ``pfa_flash_fwd_dropout`` with
     dropout."""
     d = q.shape[-1]
-    q, k, v = _k1_inputs(q, k, v)
+    if dropout_rate > 0.0:
+        mode = "dropout"
+    elif window is not None:
+        mode = "window"
+    else:
+        mode = "streams" if kv_lens is not None or k_bias is not None else None
+    q, k, v = _k1_inputs(q, k, v, f"K1 {mode}" if mode else "K1")
     b, sq, hq, d_run = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     lens, bias = _stream_args(q, kv_lens, k_bias)
@@ -324,12 +331,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, save_lse: bool, kv_lens
         # The bf16 kernel keeps the running max on the raw scores and
         # scales inside the exponent (csrc/flash_fwd_sm90.cu).
         raise ValueError(f"K1's bf16 kernel takes sm_scale > 0 without a bias, got {scale}")
-    if dropout_rate > 0.0:
-        count = "pfa_flash_fwd_dropout"
-    elif window is not None:
-        count = "pfa_flash_fwd_window"
-    else:
-        count = "pfa_flash_fwd_streams" if lens is not None or bias is not None else None
+    count = f"pfa_flash_fwd_{mode}" if mode else None
     o = torch.empty_like(q)
     lse = torch.empty(b, hq, sq, device=q.device, dtype=torch.float32) if save_lse else None
     _build.launch(
@@ -354,7 +356,7 @@ def _flash_fwd_bias_cuda(q, k, v, causal: bool, scale: float, count: str, *, vec
     (T5), ``pfa_flash_fwd_alibi`` or ``pfa_flash_fwd_densebias``), with
     ``_lse`` appended when it writes the lse."""
     d = q.shape[-1]
-    q, k, v = _k1_inputs(q, k, v)
+    q, k, v = _k1_inputs(q, k, v, "K1 rel" if vec is not None else "K1 dense")
     b, sq, hq, d_run = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if vec is not None:
@@ -709,9 +711,10 @@ def flash_attention_qk_quant(q8, k8, v, score_scale, *, causal: bool = False,
     pv_int8 = _check_qk_quant(q8, k8, v, score_scale, causal, v_scales, out_dtype)
     b, sq, hq, d = q8.shape
     skv, hkv = k8.shape[1], k8.shape[2]
+    mode = "int8full" if pv_int8 else ("int8qk" if q8.dtype == torch.int8 else "fp8qk")
     # One plan for the call: the 8-bit rows' pitch decides the copy (d % 16
     # != 0), which then pads bf16 V and the V scales too.
-    dc, copy = _build.head_dim_plan(d, 1)
+    dc, copy = _build.head_dim_plan(d, 1, f"K1 {mode}")
     if not pv_int8 and v.dtype != torch.bfloat16:
         raise ValueError(f"K1's quantized modes take bf16 or int8 V on the card, got {v.dtype}")
     for name, t in (("q", q8), ("k", k8), ("v", v), ("score_scale", score_scale), ("v_scales", v_scales)):
@@ -726,7 +729,6 @@ def flash_attention_qk_quant(q8, k8, v, score_scale, *, causal: bool = False,
     if copy:
         q8, k8, v = (_build.pad_head(t, dc) for t in (q8, k8, v))
         v_scales = _build.pad_head(v_scales, dc) if pv_int8 else None
-    mode = "int8full" if pv_int8 else ("int8qk" if q8.dtype == torch.int8 else "fp8qk")
     o = torch.empty(q8.shape, dtype=out_dtype, device=q8.device)
     _build.launch(
         "pfa_flash_fwd_quant", q8.device,

@@ -44,7 +44,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import _build
-from ._build import KERNEL_DTYPES, KERNEL_HEAD_DIMS, MAX_HEAD_DIM
+from ._build import KERNEL_DTYPES
 from .dropout import Seed, dropout_scale, keep_scale, keep_threshold, seed_u32
 from .reference import Window, repeat_kv, window_keep
 
@@ -82,13 +82,13 @@ def validate_dropout(rate: float, seed: Optional[Seed]) -> None:
 
 def bwd_unrolled_supported(seq_len: int, head_dim: int) -> bool:
     """True when K4/K5 take this geometry: any length >= 1, a head dim of 1
-    to 128 (``_build.head_dim_plan``).
+    to 128 (``_build.head_dim_plan``'s "K4/K5").
 
     The JAX envelope (S a multiple of the blocks, at most 12 tiles, Q/dO
     resident in VMEM) bounds the TPU's unrolled pair; K4/K5 stream their
     tiles, mask ragged edges and serve every length.
     """
-    return seq_len >= 1 and 1 <= head_dim <= MAX_HEAD_DIM
+    return seq_len >= 1 and _build.takes_head_dim("K4/K5", head_dim, 2)
 
 
 def _validate(q, k, v, o, lse, do, causal: bool) -> None:
@@ -234,10 +234,10 @@ def flash_attention_bwd_masked_plain(
 
 def _check_cuda(lse, di, **tensors) -> Tuple[int, bool]:
     """What K4/K5 take, checked; returns the head dim's plan (D_c, copy)
-    (``_build.head_dim_plan``)."""
+    (``_build.head_dim_plan``: head dims up to 128)."""
     q = tensors["q"]
     d = q.shape[-1]
-    plan = _build.head_dim_plan(d, q.element_size())
+    plan = _build.head_dim_plan(d, q.element_size(), "K4/K5")
     if min(q.shape[1], tensors["k"].shape[1]) < 1:
         raise ValueError(f"K4/K5 take lengths >= 1; got Sq {q.shape[1]}, "
                          f"Skv {tensors['k'].shape[1]}")
@@ -283,6 +283,8 @@ def _streams(window, dropout_rate, dropout_seed) -> tuple:
 #: Keys of a K4 work tile (two consumer warpgroups of 64) and queries of
 #: its ring tile (``csrc/flash_bwd_sm90.cu``: ``BLOCK``, ``DkvCfg::BQ``).
 K4_BLOCK, K4_QUERY_TILE = 128, 64
+#: The head dims at which K4 cuts a group into slices: its compiled widths.
+K4_SLICE_HEAD_DIMS = (64, 128)
 
 
 def k4_query_tiles(sq: int, skv: int, causal: bool, window: Optional[Window] = None) -> List[int]:
@@ -366,12 +368,12 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, sm_scale: float, causal: bool,
     q, k, v, do = _padded(plan, q, k, v, do)
     b, sq, hq, _ = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if slices is None and q.dtype == torch.bfloat16 and q.shape[-1] in KERNEL_HEAD_DIMS:
+    if slices is None and q.dtype == torch.bfloat16 and q.shape[-1] in K4_SLICE_HEAD_DIMS:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         slices = k4_slices(b, sq, skv, hq, hkv, causal, window, sms)
     slices = slices or 1
-    if slices > 1 and q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K4 cuts a group into slices at head dims {KERNEL_HEAD_DIMS} only "
+    if slices > 1 and q.shape[-1] not in K4_SLICE_HEAD_DIMS:
+        raise ValueError(f"K4 cuts a group into slices at head dims {K4_SLICE_HEAD_DIMS} only "
                          f"(its combine stores whole rows); head dim {d} takes one slice")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     ws = counters = None

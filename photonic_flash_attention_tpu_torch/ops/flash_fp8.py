@@ -220,7 +220,7 @@ def flash_attention_block_quant(q8, k8, v8, qs, ks, vs, *, qdtype: str, causal: 
     skv, hkv = k8.shape[1], k8.shape[2]
     # A head dim up to 128; 8-bit rows not of whole 16-byte units (d % 16
     # != 0) run on D_c-wide padded copies of the payloads and of vs.
-    dc, copy = _build.head_dim_plan(d, 1)
+    dc, copy = _build.head_dim_plan(d, 1, "K6")
     for name, t in (("q", q8), ("k", k8), ("v", v8), ("qs", qs), ("ks", ks), ("vs", vs)):
         if t.device != q8.device or not t.is_contiguous():
             raise ValueError(f"K6 needs contiguous inputs on {q8.device}; {name} is not")

@@ -23,16 +23,17 @@ from typing import Optional
 
 import torch
 
-from ._build import MAX_HEAD_DIM
+from . import _build
 from .flash import KERNEL_DTYPES, flash_attention, flash_attention_qk_quant
 from .flash_fp8 import _per_tensor_quant
 from .reference import softmax_scale
 
 
 def unrolled_supported(seq_len: int, head_dim: int, *, int8_qk: bool = False) -> bool:
-    """True when K1 takes this geometry (any length >= 1, a head dim of 1
-    to 128: ``_build.head_dim_plan``), with or without ``int8_qk``."""
-    return seq_len >= 1 and 1 <= head_dim <= MAX_HEAD_DIM
+    """True when K1 takes this geometry in bf16: any length >= 1, a head
+    dim of 1 to 256 (``_build.head_dim_plan``), with ``int8_qk`` (K1's
+    int8-QK mode) 1 to 128."""
+    return seq_len >= 1 and _build.takes_head_dim("K1 int8qk" if int8_qk else "K1", head_dim, 2)
 
 
 def _quant_per_tensor(x: torch.Tensor):

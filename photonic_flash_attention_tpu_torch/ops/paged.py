@@ -263,7 +263,7 @@ def k3_smem(b: int, d: int, elt: int, gcmax: int, tile: int, split_pages: int,
     states (float mode) or the int8-compute block state (``block`` > 0),
     each ``D_c`` wide (``_build.head_dim_plan``), and the ring, whose rows
     are d wide."""
-    dc = _build.head_dim_plan(d, elt)[0]
+    dc = _build.head_dim_plan(d, elt, "K3")[0]
     off = (2 * _K3_STAGES * 8 + 16 + _align((2 * b + 1) * 4, 16) + _align(split_pages * 4, 16)
            + _align(2 * dc * elt + 16, 16))
     if block:
@@ -285,7 +285,8 @@ def k3_plan(b: int, hq: int, hkv: int, d: int, elt: int, page: int, pps: int,
 
     Tile: the tokens whose K and V rows fill ``_K3_STAGE_BYTES`` (rounded
     down to a power of two), cut to divide the page (or a whole number of
-    pages). Head dims 1 to 128 (``_build.head_dim_plan``); the kernel's rows
+    pages). Head dims 1 to 256 over int8 and bf16 pools, 1 to 128 over
+    fp32 ones (``_build.head_dim_plan``); the kernel's rows
     are d wide, so ``d * elt`` must be a multiple of 16 here (the wrapper
     pads a call whose rows are not). Heads: the group in one
     CTA when G = 1, else in chunks of 2 x elt heads, at most 4 (32 fp32
@@ -295,9 +296,10 @@ def k3_plan(b: int, hq: int, hkv: int, d: int, elt: int, page: int, pps: int,
     Cached: decode calls it once a layer a step with the same shapes."""
     if b <= 0:
         raise ValueError(f"K3 needs a batch, got B {b}")
-    if _build.head_dim_plan(d, elt)[1]:
+    dc, copy = _build.head_dim_plan(d, elt, "K3")
+    if copy:
         raise ValueError(f"K3 needs D in whole 16-byte rows: D {d} of {elt}-byte elements; "
-                         f"pad the pools to {_build.head_dim_plan(d, elt)[0]}")
+                         f"pad the pools to {dc}")
     if hkv <= 0 or hq % hkv or hq * d > _MAX_GROUP_ELEMS * hkv:
         raise ValueError(f"K3 needs Hq % Hkv == 0 and (Hq/Hkv)*D <= {_MAX_GROUP_ELEMS}; "
                          f"got Hq {hq}, Hkv {hkv}, D {d}")
@@ -340,7 +342,7 @@ def _k3_launch(count_as: str, device: torch.device, q, k_pages, v_pages, k_scale
     its ``score_scale`` (a device scalar) with ``block_pages``; the fused
     decode ``k_new``, ``v_new`` and ``flat_slots``.
 
-    Head dims 1 to 128 (``_build.head_dim_plan``). Where the pool's rows are
+    Head dims as :func:`k3_plan` takes them. Where the pool's rows are
     not whole 16-byte units (int8 d % 16 != 0, bf16 d % 8 != 0, fp32 d % 4
     != 0: d 100 in int8 or bf16), the call runs on a D_c-wide padded copy
     of the layer's pools (and of q, k_new, v_new); the fused decode then
@@ -350,7 +352,7 @@ def _k3_launch(count_as: str, device: torch.device, q, k_pages, v_pages, k_scale
     b, hq, d = (q if q is not None else q8).shape
     _, hkv, num_pages, page, _ = k_pages.shape
     pps = page_indices.shape[1]
-    dc, copy = _build.head_dim_plan(d, k_pages.element_size())
+    dc, copy = _build.head_dim_plan(d, k_pages.element_size(), "K3")
     fused = flat_slots is not None
     pools = (k_pages, v_pages)
     if copy:
@@ -757,7 +759,8 @@ def paged_attention_auto(
 ) -> torch.Tensor:
     """Device-aware dispatch (JAX ``paged_attention_auto``): on CUDA,
     :func:`paged_attention` (K3), which raises for a pool K3 does not take
-    (D above 128, a group (Hq/Hkv) * D above 4096, an int8 pool's page
+    (D above 256, or above 128 over an fp32 pool, a group (Hq/Hkv) * D
+    above 4096, an int8 pool's page
     not a multiple of 4); on the CPU :func:`paged_attention_xla` on the
     layer's slice, as JAX's non-TPU branch. The choice comes from the
     device alone. As in JAX, the two branches differ on a row of length 0:

@@ -160,7 +160,9 @@ def test_fp32_prefill_stays_fp32():
 def test_unrolled_supported_is_the_kernel_envelope():
     assert unrolled_supported(16, 64) and unrolled_supported(1000, 128)
     assert unrolled_supported(512, 32) and unrolled_supported(512, 80)
-    assert not unrolled_supported(512, 129)
+    assert unrolled_supported(512, 129) and unrolled_supported(512, 256)
+    assert not unrolled_supported(512, 257)
+    assert not unrolled_supported(512, 129, int8_qk=True)
     assert not unrolled_supported(0, 64)
 
 

@@ -34,7 +34,7 @@ from photonic_flash_attention_tpu.ops.flash import (
     flash_attention_with_lse as jax_flash_lse,
 )
 from photonic_flash_attention_tpu.ops.paged import paged_decode_attention as jax_paged_decode
-from photonic_flash_attention_tpu_torch.core.engine import AttentionEngine
+from photonic_flash_attention_tpu_torch.core.engine import CARD_KERNELS, AttentionEngine
 from photonic_flash_attention_tpu_torch.core.router import (
     AdaptiveRouter,
     KernelKind,
@@ -81,28 +81,43 @@ def _arrays(shapes, seed):
 # -- the rule ----------------------------------------------------------------
 
 
+#: Every card kernel and mode the plan names, with the element bytes of the
+#: rows each takes on the card.
+PLAN_KERNELS = {"K1": (2, 4), "K1 streams": (2, 4), "K1 rel": (2, 4), "K1 dense": (2, 4),
+                "K1 window": (2, 4), "K1 dropout": (2, 4), "K1 int8qk": (1,), "K1 fp8qk": (1,),
+                "K1 int8full": (1,), "K6": (1,), "K4/K5": (2, 4), "K3": (1, 2, 4)}
+#: What takes 129-256 (D 256), as the one table states it: K1's bf16 plain
+#: and key-stream modes, K3 over int8 and bf16 pools.
+WIDE = {(kernel, elt) for kernel, elts in _build.WIDE_KERNELS.items() for elt in elts}
+
+
 @pytest.mark.parametrize("d", range(1, 257))
 def test_head_dim_plan(d):
-    """D_c 64 up to d 64, 128 up to 128; the copy exactly where a row of d
-    elements is not whole 16-byte units; a ValueError naming d and the
-    ROADMAP item past 128."""
-    if d > _build.MAX_HEAD_DIM:
-        with pytest.raises(ValueError, match=rf"head dim {d}\b.*{_build.WIDE_HEAD_DIM_ITEM}"):
-            _build.head_dim_plan(d, 2)
-        assert not unrolled_supported(64, d) and not bwd_unrolled_supported(64, d)
-        return
-    for elt in (1, 2, 4):
-        dc, copy = _build.head_dim_plan(d, elt)
-        assert dc == (64 if d <= 64 else 128) and dc >= d
-        assert copy == ((d * elt) % 16 != 0)
-    assert _build.head_dim_plan(d, 2)[1] == (d % 8 != 0)
-    assert _build.head_dim_plan(d, 1)[1] == (d % 16 != 0)
-    assert unrolled_supported(64, d) and bwd_unrolled_supported(64, d)
+    """D_c 64 up to d 64, 128 up to 128 for every kernel and mode, 256 up to
+    256 for what WIDE holds; the copy exactly where a row of d elements is
+    not whole 16-byte units; a ValueError naming d and the ROADMAP item
+    for the rest past 128."""
+    for kernel, elts in PLAN_KERNELS.items():
+        for elt in elts:
+            if d > 128 and (kernel, elt) not in WIDE:
+                with pytest.raises(ValueError,
+                                   match=rf"head dim {d}\b.*{_build.WIDE_HEAD_DIM_ITEM}"):
+                    _build.head_dim_plan(d, elt, kernel)
+                assert not _build.takes_head_dim(kernel, d, elt)
+                continue
+            dc, copy = _build.head_dim_plan(d, elt, kernel)
+            assert dc == (64 if d <= 64 else 128 if d <= 128 else 256) and dc >= d
+            assert copy == ((d * elt) % 16 != 0)
+            assert _build.takes_head_dim(kernel, d, elt)
+    assert _build.head_dim_plan(d, 2, "K1")[1] == (d % 8 != 0)
+    assert _build.head_dim_plan(d, 1, "K3")[1] == (d % 16 != 0)
+    assert unrolled_supported(64, d)
+    assert unrolled_supported(64, d, int8_qk=True) == bwd_unrolled_supported(64, d) == (d <= 128)
 
 
 def test_head_dim_plan_rejects_zero():
     with pytest.raises(ValueError, match="head dim"):
-        _build.head_dim_plan(0, 2)
+        _build.head_dim_plan(0, 2, "K1")
 
 
 @pytest.mark.parametrize("d, copied", [(80, False), (100, True), (16, False), (33, True)])
@@ -111,8 +126,8 @@ def test_k1_inputs_pad_only_where_the_plan_copies(d, copied):
     only where the plan asks for one (the card's path; here on CPU tensors,
     which the public functions never send there)."""
     q, k, v = (torch.from_numpy(a).bfloat16() for a in _arrays([(1, 4, 2, d)] * 3, seed=d))
-    got = flash_ops._k1_inputs(q, k, v)
-    dc = _build.head_dim_plan(d, 2)[0]
+    got = flash_ops._k1_inputs(q, k, v, "K1")
+    dc = _build.head_dim_plan(d, 2, "K1")[0]
     for t, g in zip((q, k, v), got):
         if copied:
             assert g.shape[-1] == dc and torch.equal(g[..., :d], t)
@@ -123,14 +138,25 @@ def test_k1_inputs_pad_only_where_the_plan_copies(d, copied):
 
 
 def test_card_paths_refuse_past_128_before_any_launch():
+    """What has no D 256 instantiation refuses d 160 naming it and A17: K1's
+    other modes and its fp32 body, K4/K5, K3 over an fp32 pool; past 256
+    K1 and K3 refuse too. Nothing is built or launched."""
     q = torch.zeros(1, 4, 2, 160, dtype=torch.bfloat16)
+    for mode in ("K1 window", "K1 dropout", "K1 rel", "K1 dense"):
+        with pytest.raises(ValueError, match=r"head dim 160\b.*A17"):
+            flash_ops._k1_inputs(q, q, q, mode)
     with pytest.raises(ValueError, match=r"head dim 160\b.*A17"):
-        flash_ops._k1_inputs(q, q, q)
+        flash_ops._k1_inputs(q.float(), q.float(), q.float(), "K1")
     lse = torch.zeros(1, 2, 4)
-    with pytest.raises(ValueError, match=r"head dim 160\b"):
+    with pytest.raises(ValueError, match=r"head dim 160\b.*A17"):
         bwd_ops._check_cuda(lse, None, q=q, k=q, v=q, o=q, do=q)
-    with pytest.raises(ValueError, match=r"head dim 160\b"):
-        k3_plan(8, 16, 16, 160, 1, 16, 4)
+    with pytest.raises(ValueError, match=r"head dim 160\b.*A17"):
+        k3_plan(8, 16, 16, 160, 4, 16, 4)
+    wide = torch.zeros(1, 4, 2, 264, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"head dim 264\b.*D > 256.*A17"):
+        flash_ops._k1_inputs(wide, wide, wide, "K1")
+    with pytest.raises(ValueError, match=r"head dim 264\b.*D > 256.*A17"):
+        k3_plan(8, 16, 16, 264, 1, 16, 4)
     assert _build._lib is None  # nothing was built or launched
 
 
@@ -212,7 +238,7 @@ def test_k3_plan_at_head_dims(d, elt):
     plan = k3_plan(8, 32, 8, d, elt, 16, 128)
     assert 2 * plan.tile * d * elt <= paged_ops._K3_STAGE_BYTES
     assert plan.tile & (plan.tile - 1) == 0 and plan.tile % 16 == 0
-    dc = _build.head_dim_plan(d, elt)[0]
+    dc = _build.head_dim_plan(d, elt, "K3")[0]
     assert plan.smem == k3_smem(8, d, elt, plan.gcmax, plan.tile, plan.split_pages, 0)
     assert plan.smem <= paged_ops._K3_SMEM_MAX
     # The merge state is D_c wide, the ring d wide.
@@ -326,11 +352,18 @@ def test_engine_kinds_at_d80_are_the_cards():
         assert KernelKind.FUSED in kinds and KernelKind.FLASH in kinds
         for kind in kinds:
             if kind in card:  # its card kernel's plan takes d 80 (elt: its payload bytes)
-                dc, _ = _build.head_dim_plan(kw["head_dim"], card[kind])
+                name = CARD_KERNELS.get(kind, "K1")
+                dc, _ = _build.head_dim_plan(kw["head_dim"], card[kind], name)
                 assert dc == 128
-    wide = eng._available_kernels(WorkloadCharacteristics(
-        batch_size=2, q_len=512, kv_len=512, num_heads=8, head_dim=160))
-    assert wide == (KernelKind.FUSED,)
+    # Past 128 the 8-bit kinds go; K1's bf16 body takes d 160, its fp32 body
+    # does not; past 256 only FUSED.
+    wide = dict(batch_size=2, q_len=512, kv_len=512, num_heads=8, head_dim=160)
+    assert eng._available_kernels(WorkloadCharacteristics(**wide)) == (
+        KernelKind.FUSED, KernelKind.FLASH, KernelKind.FLASH_UNROLLED)
+    assert eng._available_kernels(WorkloadCharacteristics(**wide, dtype="float32")) == (
+        KernelKind.FUSED,)
+    assert eng._available_kernels(WorkloadCharacteristics(**{**wide, "head_dim": 320})) == (
+        KernelKind.FUSED,)
 
 
 def test_engine_layer_at_d80_runs_on_the_cpu():

@@ -254,11 +254,12 @@ def test_plan_head_chunks():
 
 @pytest.mark.parametrize("args,match", [
     ((8, 16, 16, 100, 2, 128, 64), "D in"),
-    ((8, 16, 16, 129, 2, 128, 64), "head dim 129"),
+    ((8, 16, 16, 129, 4, 128, 64), "head dim 129"),
     ((8, 144, 2, 64, 2, 128, 64), r"\(Hq/Hkv\)\*D"),
     ((8, 16, 16, 64, 1, 18, 64), "page_size % 4"),
     ((0, 16, 16, 64, 1, 128, 64), "batch"),
     ((8, 16, 16, 64, 1, 128, 64, 4096), "shared memory"),
+    ((8, 16, 16, 264, 2, 128, 64), "head dim 264"),
 ])
 def test_plan_rejects_calls_k3_does_not_take(args, match):
     with pytest.raises(ValueError, match=match):
